@@ -1,0 +1,165 @@
+"""``mx.config`` — the typed runtime-knob registry (counterpart of
+``mxnet_tpu.config``), cut down to the knobs the generation-serving path
+reads.
+
+Every knob has a type, a default, its environment variable and a
+docstring.  ``get`` reads programmatic override > env var > default;
+``set`` / ``unset`` override programmatically and bump :func:`epoch`.
+The environment variable names are the reference package's, so one
+launcher setting configures either package.
+"""
+from __future__ import annotations
+
+import os
+from collections import namedtuple
+
+__all__ = ["register_knob", "get", "set", "unset", "describe", "epoch",
+           "Knob"]
+
+Knob = namedtuple("Knob", ["name", "env", "type", "default", "doc"])
+
+_KNOBS = {}
+_OVERRIDES = {}
+_ON_SET = {}  # knob name -> callback(value), fired after set()
+
+# Bumped by every effective set()/unset(): caches that bake knob values in
+# key on it so a knob change invalidates them instead of silently not
+# applying.
+_EPOCH = 0
+
+
+def register_knob(name, env, type_, default, doc):
+    """Declare a knob.  ``env`` is its environment variable; ``type_`` one
+    of bool/int/float/str."""
+    _KNOBS[name] = Knob(name, env, type_, default, doc)
+    return _KNOBS[name]
+
+
+def _parse(knob, raw):
+    if knob.type is bool:
+        return raw not in ("0", "false", "False", "")
+    return knob.type(raw)
+
+
+def get(name):
+    """Current value: programmatic override > env var > default."""
+    knob = _KNOBS[name]
+    if name in _OVERRIDES:
+        return _OVERRIDES[name]
+    raw = os.environ.get(knob.env)
+    if raw is not None:
+        return _parse(knob, raw)
+    return knob.default
+
+
+def set(name, value):  # noqa: A001 — reference-parity name
+    global _EPOCH
+    if name not in _KNOBS:
+        raise KeyError("unknown knob %r (see mx.config.describe())" % name)
+    knob = _KNOBS[name]
+    parsed = _parse(knob, value) if isinstance(value, str) \
+        else knob.type(value)
+    changed = parsed != get(name)
+    _OVERRIDES[name] = parsed
+    if changed:
+        _EPOCH += 1
+    hook = _ON_SET.get(name)
+    if hook is not None:
+        hook(parsed)
+
+
+def unset(name):
+    """Drop a programmatic override so ``name`` falls back to its env var
+    or default."""
+    global _EPOCH
+    if name not in _KNOBS:
+        raise KeyError("unknown knob %r (see mx.config.describe())" % name)
+    if name not in _OVERRIDES:
+        return
+    old = get(name)
+    del _OVERRIDES[name]
+    if get(name) != old:
+        _EPOCH += 1
+
+
+def epoch():
+    return _EPOCH
+
+
+def describe():
+    """The knob table, generated from the registry."""
+    lines = ["%-28s %-38s %-6s %-8s %s" % ("Knob", "Env var", "Type",
+                                          "Default", "Doc")]
+    for k in sorted(_KNOBS.values()):
+        lines.append("%-28s %-38s %-6s %-8s %s"
+                     % (k.name, k.env, k.type.__name__, k.default, k.doc))
+    return "\n".join(lines)
+
+
+# ----------------------------------------------------------- the registry
+register_knob(
+    "kernels.enabled", "MXNET_TPU_KERNELS", bool, True,
+    "route attention through the hand-written CUDA kernel tier "
+    "(mx.kernels): flash-attention forward under prefill and the paged "
+    "decode kernel under every decode step. A CUDA tensor the kernel "
+    "cannot take raises KernelUnsupportedError; a CPU tensor runs the "
+    "kernel's plain PyTorch version. Off = the plain attention lowering "
+    "everywhere, the only way to run it on the card.")
+register_knob(
+    "quant.error_budget", "MXNET_TPU_QUANT_ERROR_BUDGET", float, 0.05,
+    "accuracy guardrail for int8 paths: max relative error an int8 "
+    "result may show against its full-precision counterpart.")
+register_knob(
+    "serving.max_pending", "MXNET_TPU_SERVING_MAX_PENDING", int, 1024,
+    "admission bound: submits past this many queued requests fail fast "
+    "with ServerOverloadedError; <= 0 disables the bound.")
+register_knob(
+    "serving.default_deadline_ms", "MXNET_TPU_SERVING_DEFAULT_DEADLINE_MS",
+    float, 0.0,
+    "default per-request queue deadline in milliseconds: a request still "
+    "queued past it completes with DeadlineExceededError and never "
+    "prefills. 0 = no deadline.")
+register_knob(
+    "serving.breaker_threshold", "MXNET_TPU_SERVING_BREAKER_THRESHOLD",
+    int, 5,
+    "consecutive dispatch failures that open one model's circuit "
+    "breaker; 0 disables the breaker.")
+register_knob(
+    "serving.breaker_cooldown_ms", "MXNET_TPU_SERVING_BREAKER_COOLDOWN_MS",
+    float, 1000.0,
+    "how long an open circuit breaker rejects before letting one probe "
+    "dispatch through.")
+register_knob(
+    "serving.kv_page_size", "MXNET_TPU_SERVING_KV_PAGE_SIZE", int, 16,
+    "tokens per KV-cache page: position t of a sequence lives at slot "
+    "t %% page_size of page-table entry t // page_size. Fixed at export "
+    "time; at serve time the artifact's own page size wins.")
+register_knob(
+    "serving.kv_pages", "MXNET_TPU_SERVING_KV_PAGES", int, 256,
+    "device-resident KV page-pool capacity per generation model. "
+    "Admission waits when the pool cannot cover a request's prompt + "
+    "max_new_tokens (serving.kv_pool_exhausted counts the stalls).")
+register_knob(
+    "serving.decode_slots", "MXNET_TPU_SERVING_DECODE_SLOTS", int, 8,
+    "decode-batch width: how many sequences one decode step advances "
+    "together.")
+register_knob(
+    "serving.shared_prefix", "MXNET_TPU_SHARED_PREFIX", bool, True,
+    "share full prompt-prefix KV pages between concurrent requests with "
+    "a common prefix (refcounted, freed when the last reader exits).")
+
+
+def _positive_int_knob(name):
+    def apply(value):
+        if int(value) <= 0:
+            # reject at set() time and revert
+            _OVERRIDES.pop(name, None)
+            raise ValueError("%s must be a positive integer, got %r"
+                             % (name, value))
+    return apply
+
+
+for _name in ("serving.kv_page_size", "serving.kv_pages",
+              "serving.decode_slots"):
+    _ON_SET[_name] = _positive_int_knob(_name)
+del _name

@@ -1,0 +1,94 @@
+"""``mx.kernels`` — routing tier for the hand-written CUDA kernels
+(counterpart of ``mxnet_tpu.kernels``).
+
+The raw kernels live in ``ops/cuda_kernels.py`` and stay policy-free; this
+module owns when they run:
+
+* tier off (``kernels.enabled`` false) -> the plain lowering
+  (``parallel.ring_attention.attention``, ``paged_attention_plain``);
+  this is the only way to run the plain version on CUDA tensors;
+* tier on -> the kernel wrapper (``kernels.flash_attention`` /
+  ``kernels.paged_attention`` counters, one per call, so one per
+  transformer layer).  The wrapper launches the CUDA kernel for CUDA
+  tensors, or raises :class:`~mxnet_tpu_torch.base.KernelUnsupportedError`
+  naming what the kernel cannot take; CPU tensors run its plain version.
+
+The feasibility checks are the Hopper kernels' own
+(``cuda_kernels.flash_unsupported_reason`` / ``paged_unsupported_reason``:
+dtype, head dim, shapes).  The reference's checks compared a whole head's
+K/V with a 2 MiB VMEM budget, which has no meaning here: both kernels tile
+K/V through shared memory, so context length never disqualifies a call.
+The reference's measured autotune gate is not ported.
+"""
+from __future__ import annotations
+
+import contextlib
+
+from . import config as _config
+from . import telemetry as _telemetry
+from .ops import cuda_kernels as _ck
+from .parallel.ring_attention import attention as _plain_attention
+
+__all__ = ["enabled", "attention", "paged_attention", "record_paged_routes"]
+
+
+def enabled():
+    """True when the kernel tier is switched on (``kernels.enabled``)."""
+    return bool(_config.get("kernels.enabled"))
+
+
+def attention(q, k, v, causal=False, scale=None):
+    """Dot-product attention with kernel routing (see the module doc).
+    q/k/v ``[B, H, S, D]``."""
+    if enabled():
+        _telemetry.counter("kernels.flash_attention").inc()
+        return _ck.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal,
+                                   scale=scale)[0]
+    return _plain_attention(q, k, v, causal=causal, scale=scale)
+
+
+# Route capture: under record_paged_routes() every paged routing decision
+# lands as {"impl", "reason", "quantized"} in the yielded list.
+_PAGED_ROUTE_SINK = []
+
+
+@contextlib.contextmanager
+def record_paged_routes():
+    """Collect ``{"impl", "reason", "quantized"}`` dicts for every paged
+    route decision made under this context."""
+    routes = []
+    _PAGED_ROUTE_SINK.append(routes)
+    try:
+        yield routes
+    finally:
+        _PAGED_ROUTE_SINK.remove(routes)
+
+
+def _note_paged_route(impl, reason, quantized):
+    for routes in _PAGED_ROUTE_SINK:
+        routes.append({"impl": impl, "reason": reason,
+                       "quantized": bool(quantized)})
+
+
+def paged_attention(q, k, v, valid, scale=None, k_scale=None,
+                    v_scale=None):
+    """Decode-step attention over a page-gathered context window.
+
+    ``q [B, H, 1, Dh]``; ``k``/``v [B, H, K, Dh]`` gathered through the
+    page table (slots past a sequence's length hold stale or
+    clipped-sentinel data); ``valid [B, K]`` masks exactly the real
+    positions.  With ``k_scale``/``v_scale`` (``[B, H, K]`` f32 from
+    ``quantization.quantize_rows``) the pages are int8 and dequantise in
+    the consumer.  Routing as in :func:`attention`, counted on
+    ``kernels.paged_attention``."""
+    quant = k_scale is not None
+    if enabled():
+        _telemetry.counter("kernels.paged_attention").inc()
+        _note_paged_route("paged", None, quant)
+        return _ck.paged_attention(q.contiguous(), k, v, valid,
+                                   scale=scale, k_scale=k_scale,
+                                   v_scale=v_scale)
+    _note_paged_route("plain", "tier off", quant)
+    return _ck.paged_attention_plain(q, k, v, valid, scale=scale,
+                                     k_scale=k_scale, v_scale=v_scale)
