@@ -9,13 +9,22 @@ Phases; any failure exits non-zero without the result lines:
 1. build  — compile every kernel of ``mxnet_tpu_torch/csrc`` for sm_90a
             (one ``nvcc`` per source, in parallel) into ``build/kernels``.
 2. kernels — each kernel against its plain PyTorch version on the same
-            seeded bf16 inputs at the served shapes: flash-attention forward
-            (causal S = 128, 1024, 2048; non-causal Sq=256, Skv=1024) and
-            paged decode, bf16 and int8 pages (B=8, K = 16, 512, 2048,
-            ragged valid prefixes).  Prints each max abs error against its
-            stated tolerance, kernel / plain / library ms and the bound.
-            Tolerance, per output row (one (b, h, query)): max |kernel -
-            plain| <= ROW_REL_TOL x max |plain| of that row.
+            seeded inputs at the shapes its path gives it:
+            flash-attention forward (bf16, causal S = 128, 1024, 2048;
+            non-causal Sq=256, Skv=1024; the training shape B=4, H=12,
+            S=2048), paged decode, bf16 and int8
+            pages (B=8, K = 16, 512, 2048, ragged valid prefixes), the
+            flash backward K2dq and K2dkv (the forward's shapes plus the
+            training shape B=4, H=12, S=2048) and the fused Adam step K3
+            (the 9 full-width parameter tensors, wd 0.01, t = 1 and 1000,
+            bf16 grads).  Prints each error against its stated tolerance,
+            kernel / plain / library ms and the bound.  Tolerances: the
+            forward and decode kernels per output row (one (b, h,
+            query)): max |kernel - plain| <= ROW_REL_TOL x max |plain| of
+            that row; the backward kernels the same per row of dq (b, h,
+            query) and of dk, dv (b, h, key), with the row's scale floored
+            at BWD_ROW_FLOOR x the tensor's largest |plain|; K3 bitwise on
+            the master, m, v and the bf16 weight.
 3. serve  — the full-width TransformerLM (TransformerLMConfig defaults:
             vocab 32000, d_model 768, 12 heads, d_ff 3072, 12 layers,
             max_len 2048, bf16; seeded random weights) through
@@ -28,7 +37,24 @@ Phases; any failure exits non-zero without the result lines:
             layer the paged kernel of the run's page dtype, and nothing
             else.  Each greedy stream is held against the plain ``apply()``
             with the kernel tier off, teacher-forced.
-4. summary — a ``{"kernels": [...]}`` line, the card's name and power
+4. train  — the full-width TransformerLM trained for TRAIN_STEPS steps
+            on one fixed seeded batch (B=4, S=2048: 8192 tokens a step;
+            targets are the inputs shifted by one) with Adam (lr 1e-3,
+            multi_precision: bf16 weights over f32 masters):
+            ``model.loss`` -> ``backward()`` -> ``update_multi_precision``
+            per parameter.  First, at the initial weights, the gradients
+            of the kernel path, the plain path (tier off) and the plain
+            path on an f32 copy of the weights: the kernel path's relative
+            error against f32 may be at most KERNEL_VS_PLAIN_GRAD_ERR x the
+            plain bf16 path's, per tensor.  Then the counted steps: launch
+            counts and telemetry zeroed just before and read just after;
+            each step must launch exactly 12 flash_fwd, 12 flash_bwd_dq,
+            12 flash_bwd_dkv and 9 adam_step (9 ``kernels.fused_step``)
+            and nothing else; the loss must be finite at every step and
+            lower at the last than at the first.  Prints the median step
+            ms over steps 5..20, tokens/s and MFU, and the device-idle
+            share of a ``torch.profiler`` window over 3 more steps.
+5. summary — a ``{"kernels": [...]}`` line, the card's name and power
             limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Numerics: ``torch.backends.cuda.matmul.allow_tf32`` and
@@ -71,10 +97,33 @@ LOGIT_MARGIN_TOL = 0.05
 # path's own error (a faulty kernel shows errors of order 1).
 KERNEL_VS_PLAIN_ERR = 2.0
 
+# Backward kernels vs their plain version, per row of dq (one (b, h,
+# query)) and of dk, dv (one (b, h, key)).  The kernels round P and dS to
+# bf16 as tensor-core operands (2^-9 relative each, where the plain
+# version keeps f32) and both sides round the output to bf16 (the two
+# results at most one ulp, 2^-7 of a value, apart): about 2^-6 of a
+# row's largest value, so ROW_REL_TOL (2^-5) holds with a factor of two.
+# A row whose exact value cancels to nothing (the first causal query sees
+# one key with p = 1, so dS = dP - delta = 0 up to f32 noise) has no
+# scale of its own: its scale is floored at BWD_ROW_FLOOR x the largest
+# |plain| of the tensor.  A kernel that skips its last tile moves whole
+# rows by an amount of their own size and fails by far.
+BWD_ROW_FLOOR = 2.0 ** -6
+# Training gradients at the initial weights, per tensor: ||kernel - f32||
+# / ||f32|| may be at most this multiple of ||plain - f32|| / ||f32||
+# (both bf16 paths round the same weights and activations; a faulty
+# backward kernel shows errors of order 1).
+KERNEL_VS_PLAIN_GRAD_ERR = 2.0
+
 SEED = 0
 N_REQUESTS = 16
 NEW_TOKENS = 32
 KV_PAGES = 1024
+TRAIN_B = 4
+TRAIN_S = 2048
+TRAIN_STEPS = 20
+TRAIN_LR = 1e-3
+ADAM_WD = 0.01
 
 
 def _log(msg):
@@ -96,12 +145,15 @@ def _time_ms(fn, iters=20, warmup=3):
     return a.elapsed_time(b) / iters
 
 
-def _row_rel_err(o, po):
-    """max over output rows of max|o - po| / max|po| within the row."""
+def _row_rel_err(o, po, floor=0.0):
+    """max over output rows of max|o - po| / max|po| within the row; the
+    row's scale floored at ``floor`` x the largest |po| of the tensor."""
     o = o.float().reshape(-1, o.shape[-1])
     po = po.float().reshape(-1, po.shape[-1])
     err = (o - po).abs().amax(dim=-1)
-    return float((err / po.abs().amax(dim=-1).clamp_min(1e-30)).max())
+    ref = po.abs().amax(dim=-1)
+    ref = ref.clamp_min(max(floor * float(ref.max()), 1e-30))
+    return float((err / ref).max())
 
 
 def _bound_ms(nbytes, flops):
@@ -113,10 +165,11 @@ def _bound_ms(nbytes, flops):
 # ------------------------------------------------------------- phase 2
 def check_flash(ck, torch, F):
     cases = []
-    B, H, D = 1, 12, 64
+    H, D = 12, 64
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    for causal, sq, skv in ((True, 128, 128), (True, 1024, 1024),
-                            (True, 2048, 2048), (False, 256, 1024)):
+    for B, causal, sq, skv in ((1, True, 128, 128), (1, True, 1024, 1024),
+                               (1, True, 2048, 2048), (1, False, 256, 1024),
+                               (TRAIN_B, True, TRAIN_S, TRAIN_S)):
         q = torch.randn(B, H, sq, D, generator=g, device="cuda").bfloat16()
         k = torch.randn(B, H, skv, D, generator=g, device="cuda").bfloat16()
         v = torch.randn(B, H, skv, D, generator=g, device="cuda").bfloat16()
@@ -206,6 +259,148 @@ def check_paged(ck, torch, F, quant):
                                                json.dumps(case)))
         cases.append(case)
     return cases
+
+
+def _sdpa_bwd_ms(torch, F, q, k, v, do, causal):
+    """The library yardstick: scaled_dot_product_attention's backward
+    (dq, dk and dv in one call) at the same inputs."""
+    qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
+    return _time_ms(lambda: torch.autograd.grad(out, (qr, kr, vr), do,
+                                                retain_graph=True))
+
+
+def check_flash_bwd(ck, torch, F):
+    """K2dq and K2dkv against ``flash_attention_bwd_plain`` (same o, lse,
+    delta, dO).  Returns (dq cases, dkv cases)."""
+    dq_cases, dkv_cases = [], []
+    H, D = 12, 64
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for B, causal, sq, skv in ((1, True, 128, 128), (1, True, 1024, 1024),
+                               (1, True, 2048, 2048), (1, False, 256, 1024),
+                               (TRAIN_B, True, TRAIN_S, TRAIN_S)):
+        q, do = (torch.randn(B, H, sq, D, generator=g,
+                             device="cuda").bfloat16() for _ in range(2))
+        k, v = (torch.randn(B, H, skv, D, generator=g,
+                            device="cuda").bfloat16() for _ in range(2))
+        o, lse = ck.flash_attention(q, k, v, causal=causal)
+        delta = ck.flash_delta(o, do)
+        dq, dk, dv = ck.flash_attention_bwd(q, k, v, o, lse, do,
+                                            causal=causal, delta=delta)
+        pdq, pdk, pdv = ck.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal=causal, delta=delta)
+        torch.cuda.synchronize()
+        shape = {"B": B, "H": H, "Sq": sq, "Skv": skv, "D": D,
+                 "causal": causal, "dtype": "bfloat16"}
+        pairs = B * H * (sq * (sq + 1) // 2 if causal else sq * skv)
+        qbytes, kvbytes = 2 * B * H * sq * D, 2 * B * H * skv * D
+        args = (q, k, v, do, lse, delta, causal, None)
+        plain_ms = _time_ms(lambda: ck.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal=causal, delta=delta), iters=5,
+            warmup=1)
+        lib_ms = _sdpa_bwd_ms(torch, F, q, k, v, do, causal)
+        for name, outs, plain, launch, nbytes, products, cases in (
+                ("flash_bwd_dq", (dq,), (pdq,), ck._launch_bwd_dq,
+                 3 * qbytes + 2 * kvbytes + 8 * B * H * sq, 3, dq_cases),
+                ("flash_bwd_dkv", (dk, dv), (pdk, pdv), ck._launch_bwd_dkv,
+                 2 * qbytes + 4 * kvbytes + 8 * B * H * sq, 4, dkv_cases)):
+            row_err = max(_row_rel_err(x, px, BWD_ROW_FLOOR)
+                          for x, px in zip(outs, plain))
+            err = max(float((x.float() - px.float()).abs().max())
+                      for x, px in zip(outs, plain))
+            ok = (row_err <= ROW_REL_TOL and all(
+                bool(torch.isfinite(x.float()).all()) for x in outs))
+            bound, by = _bound_ms(nbytes, products * 2 * D * pairs)
+            case = {"shape": shape, "max_abs_err": err,
+                    "max_row_rel_err": row_err, "row_rel_tol": ROW_REL_TOL,
+                    "row_floor": BWD_ROW_FLOOR, "ok": ok,
+                    "ms": _time_ms(lambda: launch(*args)),
+                    "plain_ms": plain_ms, "plain_computes": "dq, dk, dv",
+                    "library_ms": lib_ms,
+                    "library_computes": "dq, dk, dv (sdpa backward)",
+                    "bound_ms": bound, "bound_by": by}
+            _log("[kernels] %s %s" % (name, json.dumps(case)))
+            cases.append(case)
+    return dq_cases, dkv_cases
+
+
+def _adam_shapes(cfg):
+    """The 9 parameter tensors of the full-width TransformerLM."""
+    L, D, H, Dh, F, V = (cfg.num_layers, cfg.d_model, cfg.num_heads,
+                         cfg.head_dim, cfg.d_ff, cfg.vocab_size)
+    return {"embed": (V, D), "pos_embed": (cfg.max_len, D),
+            "final_norm": (D,), "ln1": (L, D), "wqkv": (L, D, 3, H, Dh),
+            "wo": (L, H, Dh, D), "ln2": (L, D), "w1": (L, D, F),
+            "w2": (L, F, D)}
+
+
+def check_adam(ck, torch):
+    """K3 against ``fused_adam_step_plain``, bitwise on all four outputs,
+    for each full-width parameter shape at t = 1 and t = 1000; then the
+    step's time over the 9 tensors against the plain version and
+    ``torch.optim.Adam(fused=True)``.  Returns (cases, per-step timing)."""
+    from mxnet_tpu_torch.models.transformer import TransformerLMConfig
+    from mxnet_tpu_torch.optimizer.optimizer import _bias_corrected_lr
+    shapes = _adam_shapes(TransformerLMConfig())
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    cases, tensors = [], {}
+    for name, shape in shapes.items():
+        w = torch.randn(shape, generator=g, device="cuda") * 0.02
+        gr = torch.randn(shape, generator=g, device="cuda").bfloat16()
+        m = torch.randn(shape, generator=g, device="cuda") * 1e-3
+        v = torch.rand(shape, generator=g, device="cuda") * 1e-6
+        tensors[name] = (w, gr, m, v)
+        for t in (1, 1000):
+            lr_t = float(_bias_corrected_lr(TRAIN_LR, b1, b2, t))
+            got = ck.fused_adam_step(w, gr, m, v, lr_t, ADAM_WD, b1, b2, eps,
+                                     out_dtype=torch.bfloat16)
+            want = ck.fused_adam_step_plain(w, gr, m, v, lr_t, ADAM_WD, b1,
+                                            b2, eps,
+                                            out_dtype=torch.bfloat16)
+            got = (got[0], got[1]) + tuple(got[2])
+            want = (want[0], want[1]) + tuple(want[2])
+            torch.cuda.synchronize()
+            diff = [int((x.view(torch.int16 if x.dtype == torch.bfloat16
+                                else torch.int32)
+                         != y.view(torch.int16 if y.dtype == torch.bfloat16
+                                   else torch.int32)).sum())
+                    for x, y in zip(got, want)]
+            err = max(float((x.float() - y.float()).abs().max())
+                      for x, y in zip(got, want))
+            case = {"tensor": name, "shape": list(shape), "t": t,
+                    "differing_elements": dict(zip(
+                        ("bf16_weight", "master", "m", "v"), diff)),
+                    "max_abs_err": err, "ok": sum(diff) == 0}
+            _log("[kernels] adam_step %s" % json.dumps(case))
+            cases.append(case)
+    # one step over the 9 tensors, in place as on the training path
+    lr_t = float(_bias_corrected_lr(TRAIN_LR, b1, b2, 1000))
+    kernel_ms, plain_ms, nbytes = 0.0, 0.0, 0
+    for name, (w, gr, m, v) in tensors.items():
+        lp = torch.empty_like(w, dtype=torch.bfloat16)
+        kernel_ms += _time_ms(lambda: ck.fused_adam_step(
+            w, gr, m, v, lr_t, ADAM_WD, b1, b2, eps, out=(lp, w, m, v)))
+        plain_ms += _time_ms(lambda: ck.fused_adam_step_plain(
+            w, gr, m, v, lr_t, ADAM_WD, b1, b2, eps), iters=3, warmup=1)
+        nbytes += w.numel() * (4 + 2 + 4 + 4 + 4 + 4 + 4 + 2)
+    masters = [w.clone().requires_grad_(True)
+               for w, _, _, _ in tensors.values()]
+    for p, (_, gr, _, _) in zip(masters, tensors.values()):
+        p.grad = gr.float()
+    lib = torch.optim.Adam(masters, lr=TRAIN_LR, betas=(b1, b2), eps=eps,
+                           weight_decay=ADAM_WD, fused=True)
+    lib_ms = _time_ms(lib.step)
+    bound, by = _bound_ms(nbytes, 0)
+    step = {"at": {"tensors": len(tensors),
+                   "params": sum(t[0].numel() for t in tensors.values()),
+                   "grad": "bfloat16"},
+            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_computes": "torch.optim.Adam(fused=True) over the same "
+                                "f32 masters, f32 grads, no bf16 copy",
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes}
+    _log("[kernels] adam_step per step %s" % json.dumps(step))
+    return cases, step
 
 
 # ------------------------------------------------------------- phase 3
@@ -298,20 +493,17 @@ def _profiler_records_cuda(torch):
     return any(ev.device_type == DeviceType.CUDA for ev in prof.events())
 
 
-def _profile_window(srv, torch, prompts):
-    """torch.profiler over 8 concurrent requests (256-token prompts, 16 new
-    tokens): wall time, summed CUDA kernel time and the device's idle
-    share, plus the kernels that took most device time."""
+def _profile(torch, fn, top=8):
+    """torch.profiler over ``fn()``: wall time, summed CUDA kernel time
+    and the device's idle share, plus the ``top`` kernels that took most
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        futs = [srv.submit_generate("lm", pr[:256], 16)
-                for pr in prompts[:8]]
-        for f in futs:
-            f.result(timeout=600)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -320,10 +512,21 @@ def _profile_window(srv, torch, prompts):
             by_name[ev.name] = by_name.get(ev.name, 0.0) \
                 + ev.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": (1.0 - busy / wall_ms) if busy > 0 else None,
-            "top_kernels_ms": [[n[:80], t] for n, t in top]}
+            "top_kernels_ms": [[n[:80], t] for n, t in ranked]}
+
+
+def _profile_window(srv, torch, prompts):
+    """The profiled serving window: 8 concurrent requests (256-token
+    prompts, 16 new tokens)."""
+    def run():
+        futs = [srv.submit_generate("lm", pr[:256], 16)
+                for pr in prompts[:8]]
+        for f in futs:
+            f.result(timeout=600)
+    return _profile(torch, run)
 
 
 def _zero_counts(torch, tt, ck):
@@ -495,13 +698,140 @@ def serve(mx, ck, np, torch, workdir):
     return out
 
 
-def _summary(name, replaces, cases, launches):
+# ------------------------------------------------------------- phase 4
+def _train_grads(mx, model, torch, inp, tgt, tier):
+    """Loss and f32 copies of the parameter gradients of one backward."""
+    mx.config.set("kernels.enabled", tier)
+    try:
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(inp, tgt)
+        loss.backward()
+        grads = {n: p.grad.float().clone()
+                 for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+    finally:
+        mx.config.unset("kernels.enabled")
+    return float(loss.detach()), grads
+
+
+def _grad_accuracy(mx, model, torch, inp, tgt):
+    """First-step gradients of the kernel path, the plain path (tier off)
+    and the plain path on an f32 copy of the weights; per tensor, the
+    relative error of each bf16 path against f32.  The kernel path may be
+    at most KERNEL_VS_PLAIN_GRAD_ERR x the plain path's error."""
+    from mxnet_tpu_torch.models.transformer import (TransformerLM,
+                                                    TransformerLMConfig)
+    loss_on, on = _train_grads(mx, model, torch, inp, tgt, True)
+    loss_off, off = _train_grads(mx, model, torch, inp, tgt, False)
+    model32 = TransformerLM(TransformerLMConfig(dtype=torch.float32))
+    model32.load_state_dict(model.state_dict())
+    model32.requires_grad_(True)
+    loss32, ref = _train_grads(mx, model32, torch, inp, tgt, False)
+    del model32
+    out = {"loss_kernel": loss_on, "loss_plain": loss_off,
+           "loss_f32": loss32, "tensors": {}}
+    for name, r in ref.items():
+        norm = float(r.norm())
+        e_on = float((on[name] - r).norm()) / norm
+        e_off = float((off[name] - r).norm()) / norm
+        out["tensors"][name] = {"kernel_vs_f32": e_on, "plain_vs_f32": e_off,
+                                "kernel_vs_plain": float(
+                                    (on[name] - off[name]).norm()) / norm}
+        assert e_on <= KERNEL_VS_PLAIN_GRAD_ERR * e_off, (name, e_on, e_off)
+    del on, off, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def train(mx, ck, np, torch):
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.models.transformer import (TransformerLM,
+                                                    TransformerLMConfig)
+    cfg = TransformerLMConfig()
+    model = TransformerLM(cfg).init(SEED)
+    model.requires_grad_(True)
+    params = [p for _, p in model.named_parameters()]
+    L = cfg.num_layers
+    rng = np.random.default_rng(SEED + 3)
+    toks = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1))
+    inp = torch.as_tensor(toks[:, :-1], device="cuda")
+    tgt = torch.as_tensor(toks[:, 1:], device="cuda")
+    out = {"params": sum(p.numel() for p in params),
+           "tensors": len(params), "batch": [TRAIN_B, TRAIN_S]}
+    out["grad_accuracy"] = _grad_accuracy(mx, model, torch, inp, tgt)
+    _log("[train] gradients at the initial weights %s"
+         % json.dumps(out["grad_accuracy"]))
+
+    opt = mx.optimizer.create("adam", learning_rate=TRAIN_LR,
+                              multi_precision=True)
+    states = [opt.create_state_multi_precision(i, p)
+              for i, p in enumerate(params)]
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(inp, tgt)
+        loss.backward()
+        for i, p in enumerate(params):
+            opt.update_multi_precision(i, p, p.grad, states[i])
+        return loss
+
+    # --- the main path: counts zeroed just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(torch, tt, ck)
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = float(step().detach())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    c = tt.snapshot()["counters"]
+    n = TRAIN_STEPS
+    want = dict.fromkeys(launches, 0)
+    want.update({"flash_fwd": L * n, "flash_bwd_dq": L * n,
+                 "flash_bwd_dkv": L * n, "adam_step": len(params) * n})
+    assert launches == want, (launches, want)
+    assert c.get("kernels.fused_step", 0) == len(params) * n, c
+    assert c.get("kernels.flash_attention", 0) == L * n, c
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    tokens = TRAIN_B * TRAIN_S
+    D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    matmul_params = L * (D * 3 * D + D * D + 2 * D * F_) + V * D
+    product = 2 * cfg.head_dim * cfg.num_heads * TRAIN_B \
+        * TRAIN_S * (TRAIN_S + 1) // 2
+    # 6 x matmul params x tokens, plus 9 attention products a layer
+    # (2 forward; 3 in K2dq and 4 in K2dkv, which recompute S)
+    flops = 6 * matmul_params * tokens + L * 9 * product
+    med = float(np.median(step_ms[4:]))
+    out.update({
+        "steps": n, "losses": losses, "step_ms": step_ms,
+        "median_step_ms_5_20": med, "tokens_per_step": tokens,
+        "tokens_per_s": tokens / (med / 1e3),
+        "flops_per_step": flops, "matmul_params": matmul_params,
+        "mfu_vs_989_tflops": flops / (med / 1e3) / PEAK_BF16_FLOPS,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": launches})
+    _log("[train] %s" % json.dumps({k: v for k, v in out.items()
+                                    if k != "grad_accuracy"}))
+    if _profiler_records_cuda(torch):
+        out["profile"] = _profile(torch, lambda: [step() for _ in range(3)],
+                                  top=16)
+    else:
+        out["profile"] = {"error": "not measured: torch.profiler recorded "
+                                   "no CUDA kernels"}
+    _log("[train] profile over 3 steps %s" % json.dumps(out["profile"]))
+    return out
+
+
+def _summary(name, source, replaces, cases, launches):
     """One line of the kernels table; its times are those of the largest
-    served shape (causal S=2048, or K=2048)."""
+    shape it is checked at (B=4 S=2048 causal, or K=2048)."""
     top = max(cases, key=lambda c: c["bound_ms"])
     return {"name": name, "route": "cuda",
-            "source": "mxnet_tpu_torch/csrc/%s" % (
-                "flash_fwd.cu" if name == "flash_fwd" else "paged_attn.cu"),
+            "source": "mxnet_tpu_torch/csrc/" + source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "max_row_rel_err": max(c["max_row_rel_err"] for c in cases),
@@ -552,7 +882,10 @@ def main(argv=None):
     flash = check_flash(ck, torch, F)
     paged = check_paged(ck, torch, F, quant=False)
     paged8 = check_paged(ck, torch, F, quant=True)
-    bad = [c for c in flash + paged + paged8 if not c["ok"]]
+    bwd_dq, bwd_dkv = check_flash_bwd(ck, torch, F)
+    adam, adam_step = check_adam(ck, torch)
+    bad = [c for c in flash + paged + paged8 + bwd_dq + bwd_dkv + adam
+           if not c["ok"]]
     if bad:
         raise AssertionError("kernel disagrees with its plain version: %s"
                              % json.dumps(bad))
@@ -560,16 +893,36 @@ def main(argv=None):
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     report["serve"] = serve(mx, ck, np, torch, workdir)
+    report["train"] = train(mx, ck, np, torch)
     launches = report["serve"]["greedy"]["launches"]
+    trained = report["train"]["launches"]
+    pk = "mxnet_tpu/ops/pallas_kernels.py:"
     kernels = [
-        _summary("flash_fwd", "mxnet_tpu/ops/pallas_kernels.py:157",
-                 flash, launches["flash_fwd"]),
-        _summary("paged_decode_bf16", "mxnet_tpu/ops/pallas_kernels.py:386",
-                 paged, launches["paged_decode_bf16"]),
-        _summary("paged_decode_int8", "mxnet_tpu/ops/pallas_kernels.py:386",
-                 paged8, report["serve"]["int8"]["launches"][
-                     "paged_decode_int8"]),
+        _summary("flash_fwd", "flash_fwd.cu", pk + "157", flash,
+                 launches["flash_fwd"]),
+        _summary("flash_bwd_dq", "flash_bwd.cu", pk + "190", bwd_dq,
+                 trained["flash_bwd_dq"]),
+        _summary("flash_bwd_dkv", "flash_bwd.cu", pk + "220", bwd_dkv,
+                 trained["flash_bwd_dkv"]),
+        _summary("paged_decode_bf16", "paged_attn.cu", pk + "386", paged,
+                 launches["paged_decode_bf16"]),
+        _summary("paged_decode_int8", "paged_attn.cu", pk + "386", paged8,
+                 report["serve"]["int8"]["launches"]["paged_decode_int8"]),
+        {"name": "adam_step", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/adam_step.cu",
+         "replaces": pk + "518", "launches": trained["adam_step"],
+         "max_abs_err": max(c["max_abs_err"] for c in adam),
+         "differing_elements": sum(sum(c["differing_elements"].values())
+                                   for c in adam),
+         "ms": adam_step["ms"], "plain_ms": adam_step["plain_ms"],
+         "bound_ms": adam_step["bound_ms"],
+         "bound_by": adam_step["bound_by"],
+         "library_ms": adam_step["library_ms"], "at": adam_step["at"],
+         "cases": adam},
     ]
+    # flash_fwd runs on both paths: its launches in each counted run
+    kernels[0]["launches_by_path"] = {"serve_greedy": launches["flash_fwd"],
+                                      "train": trained["flash_fwd"]}
     report["kernels"] = kernels
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

@@ -6,11 +6,18 @@ this package mirrors its module names and is held against it by the
 ``tests/test_torch_*.py`` parity tests.  It imports ``torch`` and never
 ``jax`` nor anything of ``mxnet_tpu``.
 
-Ported so far: the generation-serving path —
-``Server.register(..., generate=True)`` -> ``GenerationEngine`` ->
-``GenerationPredictor`` -> ``TransformerLM.prefill`` / ``decode_step``,
-with hand-written CUDA kernels for flash-attention forward and paged
-decode attention (``ops/cuda_kernels.py``, sources in ``csrc/``).
+Ported so far:
+
+* the generation-serving path — ``Server.register(..., generate=True)``
+  -> ``GenerationEngine`` -> ``GenerationPredictor`` ->
+  ``TransformerLM.prefill`` / ``decode_step``;
+* TransformerLM training — ``TransformerLM.loss`` -> ``backward()`` ->
+  ``optimizer.Adam.update_multi_precision`` (bf16 weights over f32
+  masters);
+
+with hand-written CUDA kernels for flash-attention forward and backward,
+paged decode attention and the fused Adam step (``ops/cuda_kernels.py``,
+sources in ``csrc/``).
 
 Entry points run on ``cuda:0`` unless the caller asks for the CPU
 (``device="cpu"`` / ``mx.cpu()``); without a GPU they raise.
@@ -25,8 +32,9 @@ from . import config, telemetry
 from .base import KernelUnsupportedError, MXNetError, MXNetErrorNoDevice
 from .context import Context, cpu, gpu, num_gpus
 from . import kernels, quantization, models, convert, deploy, serving
-from . import generation
+from . import generation, optimizer
 
 __all__ = ["MXNetError", "MXNetErrorNoDevice", "KernelUnsupportedError",
-           "Context", "cpu", "gpu", "num_gpus", "config", "telemetry", "kernels", "quantization",
-           "models", "convert", "deploy", "serving", "generation"]
+           "Context", "cpu", "gpu", "num_gpus", "config", "telemetry",
+           "kernels", "quantization", "models", "convert", "deploy",
+           "serving", "generation", "optimizer"]

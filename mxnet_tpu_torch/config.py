@@ -99,9 +99,10 @@ def describe():
 # ----------------------------------------------------------- the registry
 register_knob(
     "kernels.enabled", "MXNET_TPU_KERNELS", bool, True,
-    "route attention through the hand-written CUDA kernel tier "
-    "(mx.kernels): flash-attention forward under prefill and the paged "
-    "decode kernel under every decode step. A CUDA tensor the kernel "
+    "route through the hand-written CUDA kernel tier (mx.kernels): "
+    "flash-attention forward and backward under every attention call, the "
+    "paged decode kernel under every decode step, and the fused Adam "
+    "step under Optimizer.update_multi_precision. A CUDA tensor the kernel "
     "cannot take raises KernelUnsupportedError; a CPU tensor runs the "
     "kernel's plain PyTorch version. Off = the plain attention lowering "
     "everywhere, the only way to run it on the card.")

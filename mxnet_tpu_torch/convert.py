@@ -5,14 +5,15 @@
 they are) and returns a state dict
 for the port's module (``TransformerLM.load_state_dict``), so both
 packages compute from the same weights and their random generators never
-have to agree.
+have to agree.  ``params_to_reference`` is its inverse, so weights the
+port has updated can be compared with the reference's.
 """
 from __future__ import annotations
 
 import numpy as _np
 import torch
 
-__all__ = ["params_from_reference"]
+__all__ = ["params_from_reference", "params_to_reference"]
 
 
 def _tensor(a):
@@ -39,4 +40,22 @@ def params_from_reference(np_tree):
                 out[prefix + key] = _tensor(val)
 
     walk(np_tree, "")
+    return out
+
+
+def params_to_reference(state_dict):
+    """Flat ``{"embed": t, ..., "layers.wqkv": t, ...}`` tensors (a
+    ``state_dict``) -> the nested numpy tree of the reference, layouts
+    unchanged.  bf16 and f16 tensors come out as float32 (numpy has no
+    bf16; the widening is exact)."""
+    out = {}
+    for name, t in state_dict.items():
+        t = t.detach().cpu()
+        if t.dtype in (torch.bfloat16, torch.float16):
+            t = t.float()
+        node = out
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t.numpy()
     return out

@@ -12,24 +12,35 @@ module owns when they run:
   transformer layer).  The wrapper launches the CUDA kernel for CUDA
   tensors, or raises :class:`~mxnet_tpu_torch.base.KernelUnsupportedError`
   naming what the kernel cannot take; CPU tensors run its plain version.
+  Attention goes through :class:`_FlashVJP`, the counterpart of the
+  reference's ``_flash_vjp`` custom VJP: its forward is the flash kernel,
+  its backward the two flash backward kernels, so a loss built on it
+  carries its gradient through attention.
+* the fused optimizer step (:func:`fused_step_enabled`): tier on and an
+  optimizer that has ``step_fused`` and is ``jit_safe``; each fused update
+  counts on ``kernels.fused_step`` (:func:`note_fused_step`).
 
 The feasibility checks are the Hopper kernels' own
 (``cuda_kernels.flash_unsupported_reason`` / ``paged_unsupported_reason``:
 dtype, head dim, shapes).  The reference's checks compared a whole head's
 K/V with a 2 MiB VMEM budget, which has no meaning here: both kernels tile
 K/V through shared memory, so context length never disqualifies a call.
-The reference's measured autotune gate is not ported.
+The reference's measured autotune gate is not ported, neither for the
+attention sites nor for the fused step.
 """
 from __future__ import annotations
 
 import contextlib
+
+import torch
 
 from . import config as _config
 from . import telemetry as _telemetry
 from .ops import cuda_kernels as _ck
 from .parallel.ring_attention import attention as _plain_attention
 
-__all__ = ["enabled", "attention", "paged_attention", "record_paged_routes"]
+__all__ = ["enabled", "attention", "paged_attention", "record_paged_routes",
+           "fused_step_enabled", "note_fused_step"]
 
 
 def enabled():
@@ -37,15 +48,55 @@ def enabled():
     return bool(_config.get("kernels.enabled"))
 
 
+class _FlashVJP(torch.autograd.Function):
+    """Flash attention with its backward (the reference's ``_flash_vjp``).
+
+    Forward: ``cuda_kernels.flash_attention`` -> ``o``, saving
+    ``q, k, v, o, lse``.  Backward: ``delta = rowsum(dO * O)`` in f32 with
+    plain ops, then ``cuda_kernels.flash_attention_bwd`` (dq, then dk/dv),
+    gradients in the input dtype.  On CPU tensors both halves run the
+    kernels' plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = _ck.flash_attention(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = _ck.flash_delta(o, do)
+        dq, dk, dv = _ck.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=ctx.causal, scale=ctx.scale,
+            delta=delta)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
 def attention(q, k, v, causal=False, scale=None):
     """Dot-product attention with kernel routing (see the module doc).
-    q/k/v ``[B, H, S, D]``."""
+    q/k/v ``[B, H, S, D]``; differentiable on both routes."""
     if enabled():
         _telemetry.counter("kernels.flash_attention").inc()
-        return _ck.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=causal,
-                                   scale=scale)[0]
+        return _FlashVJP.apply(q.contiguous(), k.contiguous(),
+                               v.contiguous(), bool(causal), scale)
     return _plain_attention(q, k, v, causal=causal, scale=scale)
+
+
+def fused_step_enabled(optimizer):
+    """True when ``optimizer`` should update through its fused kernel
+    (``step_fused``): tier on, the optimizer has a fused step
+    (``fused_step``) and its step math is ``jit_safe``."""
+    return (enabled() and bool(getattr(optimizer, "fused_step", False))
+            and bool(getattr(optimizer, "jit_safe", True)))
+
+
+def note_fused_step():
+    """Count one fused optimizer update (``kernels.fused_step``)."""
+    _telemetry.counter("kernels.fused_step").inc()
 
 
 # Route capture: under record_paged_routes() every paged routing decision

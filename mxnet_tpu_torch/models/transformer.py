@@ -210,13 +210,15 @@ class TransformerLM(nn.Module):
             self.cfg.dtype)
 
     def _as_index(self, x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=torch.int64)
         return torch.as_tensor(_host(x).astype(_np.int64),
                                device=self.device)
 
-    @torch.no_grad()
-    def apply(self, tokens):
-        """tokens [B, S] int -> logits [B, S, V] (f32)."""
-        tokens = self._as_index(tokens)
+    def _logits(self, tokens):
+        """The differentiable forward shared by :meth:`apply` and
+        :meth:`loss`: tokens [B, S] int64 on the model's device -> logits
+        [B, S, V] (f32)."""
         S = tokens.shape[1]
         x = self._embed(tokens, torch.arange(S, device=self.device)[None])
         for li in range(self.cfg.num_layers):
@@ -226,7 +228,24 @@ class TransformerLM(nn.Module):
         x = _norm(x, self.final_norm)
         return torch.matmul(x.float(), self.embed.float().t())
 
+    @torch.no_grad()
+    def apply(self, tokens):
+        """tokens [B, S] int -> logits [B, S, V] (f32), without autograd
+        (the serving forward)."""
+        return self._logits(self._as_index(tokens))
+
     forward = apply
+
+    def loss(self, tokens, targets):
+        """Mean next-token cross entropy over f32 logits, ``logsumexp -
+        gold`` as the reference computes it; tokens and targets [B, S]
+        int.  Differentiable: parameters get gradients once switched on
+        (``model.requires_grad_(True)``; they are created without)."""
+        logits = self._logits(self._as_index(tokens))
+        targets = self._as_index(targets)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        return (logz - gold).mean()
 
     # --------------------------------------------- generation (paged KV)
     def kv_spec(self, quantized=False):

@@ -1,13 +1,19 @@
 """Hand-written CUDA kernels and their plain PyTorch versions
 (counterpart of ``mxnet_tpu.ops.pallas_kernels``).
 
-Two kernels, sources under ``mxnet_tpu_torch/csrc``:
+Kernels, sources under ``mxnet_tpu_torch/csrc``:
 
 * ``flash_attention`` — flash-attention forward (``csrc/flash_fwd.cu``),
   the port of ``_flash_fwd_kernel``; returns ``(o, lse)``.
+* ``flash_attention_bwd`` — its backward, two kernels in
+  ``csrc/flash_bwd.cu``: dq over q tiles (port of ``_flash_bwd_dq_kernel``)
+  and dk/dv over kv tiles (port of ``_flash_bwd_dkv_kernel``).
 * ``paged_attention`` — single-query paged decode attention over a
   page-gathered context, bf16 or int8 K/V (``csrc/paged_attn.cu``), the
   port of ``_paged_attn_kernel``.
+* ``fused_adam_step`` — the Adam update with its low-precision cast in one
+  elementwise pass (``csrc/adam_step.cu``), the port of
+  ``_adam_epilogue_kernel``.
 
 Each wrapper takes its kernel only for CUDA tensors: a CPU tensor runs
 the plain version beside it (``*_plain``), which repeats the Pallas
@@ -20,8 +26,8 @@ Routing policy (when to call the wrapper at all) lives in
 ``mxnet_tpu_torch.kernels``.
 
 Launch counts: ``LAUNCHES[name]`` goes up by one at each kernel launch
-and nowhere else (``flash_fwd``, ``paged_decode_bf16``,
-``paged_decode_int8``).
+and nowhere else (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``,
+``paged_decode_bf16``, ``paged_decode_int8``, ``adam_step``).
 """
 from __future__ import annotations
 
@@ -33,9 +39,13 @@ import torch
 from ..base import KernelUnsupportedError
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_plain", "paged_attention",
-           "paged_attention_plain", "flash_unsupported_reason",
-           "paged_unsupported_reason", "LAUNCHES", "reset_launches",
+__all__ = ["flash_attention", "flash_attention_plain",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "paged_attention", "paged_attention_plain", "fused_adam_step",
+           "fused_adam_step_plain", "flash_unsupported_reason",
+           "flash_bwd_unsupported_reason", "paged_unsupported_reason",
+           "adam_unsupported_reason", "sqrt_rn", "div_rn", "LAUNCHES",
+           "reset_launches",
            "HEAD_DIM", "NEG"]
 
 #: masked-score floor of the plain versions (parallel.ring_attention)
@@ -44,7 +54,8 @@ NEG = -1e30
 #: configuration; another needs its own instantiation, checked on the card)
 HEAD_DIM = 64
 
-LAUNCHES = {"flash_fwd": 0, "paged_decode_bf16": 0, "paged_decode_int8": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "paged_decode_bf16": 0, "paged_decode_int8": 0, "adam_step": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,9 +66,21 @@ _SIGNATURES = {
                                _P], _I),
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
+    "flash_bwd": {
+        "mx_flash_bwd_dq_bf16": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _F, _P], _I),
+        "mx_flash_bwd_dkv_bf16": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _F, _P], _I),
+        "mx_error_string": ([_I], ctypes.c_char_p),
+    },
     "paged_attn": {
         "mx_paged_decode": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _F, _P], _I),
+        "mx_error_string": ([_I], ctypes.c_char_p),
+    },
+    "adam_step": {
+        "mx_adam_step": ([_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, _I,
+                          _F, _F, _F, _F, _F, _F, _F, _P], _I),
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
 }
@@ -161,6 +184,117 @@ def flash_attention(q, k, v, causal=False, scale=None):
     return o, lse
 
 
+# ---------------------------------------------- flash attention backward
+def flash_bwd_unsupported_reason(q, k, v, o, lse, do, causal):
+    """Why the flash backward kernels cannot take this call, or None: the
+    forward's conditions, plus ``o``/``do`` shaped and typed as ``q`` and
+    an f32 ``lse [B*H, Sq]``.  Shapes and dtypes only."""
+    reason = flash_unsupported_reason(q, k, v, causal)
+    if reason is not None:
+        return reason
+    if o.shape != q.shape or do.shape != q.shape:
+        return "o/dO shapes %s/%s != q %s" % (tuple(o.shape), tuple(do.shape),
+                                              tuple(q.shape))
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        return "o/dO must be %s, got %s/%s" % (q.dtype, o.dtype, do.dtype)
+    want = (q.shape[0] * q.shape[1], q.shape[2])
+    if tuple(lse.shape) != want or lse.dtype != torch.float32:
+        return "lse must be f32 %s, got %s %s" % (want, lse.dtype,
+                                                  tuple(lse.shape))
+    return None
+
+
+def flash_delta(o, do):
+    """``delta = rowsum(dO * O)`` in f32, ``[B*H, Sq]`` — computed outside
+    the kernels with plain ops, as ``_flash_backward`` does."""
+    B, H, S, _ = o.shape
+    return (do.float() * o.float()).sum(dim=-1).reshape(B * H, S)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False, scale=None,
+                              delta=None):
+    """The two Pallas backward bodies' arithmetic in PyTorch ops, all f32:
+    ``p = exp(s*scale - lse)`` under the ``-1e30`` causal mask,
+    ``dv = p^T dO``, ``ds = p * (dO v^T - delta) * scale``, ``dq = ds k``,
+    ``dk = ds^T q``.  Returns ``(dq, dk, dv)`` in the input dtypes."""
+    B, H, S, D = q.shape
+    Skv = k.shape[2]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    if delta is None:
+        delta = flash_delta(o, do)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        qp = torch.arange(S, device=q.device)[:, None]
+        kp = torch.arange(Skv, device=q.device)[None, :]
+        s = torch.where(kp <= qp, s, torch.full_like(s, NEG))
+    p = torch.exp(s - lse.reshape(B, H, S, 1))
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta.reshape(B, H, S, 1)) * scale
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None,
+                        delta=None):
+    """Flash-attention backward: ``(dq, dk, dv)`` as
+    :func:`flash_attention_bwd_plain` computes them from the forward's
+    ``o`` and ``lse``.  ``delta`` (:func:`flash_delta`) is computed here
+    when not given.  CPU tensors run the plain version; CUDA tensors
+    launch the two kernels of ``csrc/flash_bwd.cu`` (dq, then dk/dv;
+    contiguous bf16, head dim 64) or raise."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         scale=scale, delta=delta)
+    reason = flash_bwd_unsupported_reason(q, k, v, o, lse, do, causal)
+    if reason is None and delta is not None and (
+            delta.shape != lse.shape or delta.dtype != torch.float32):
+        reason = "delta must be f32 %s" % (tuple(lse.shape),)
+    if reason is None:
+        if delta is None:
+            delta = flash_delta(o, do)
+        reason = _launch_reason(q, k, v, o, lse, do, delta)
+    if reason is not None:
+        raise KernelUnsupportedError(
+            "flash backward kernels cannot take this call: " + reason)
+    args = (q, k, v, do, lse, delta, causal, scale)
+    return _launch_bwd_dq(*args), *_launch_bwd_dkv(*args)
+
+
+def _bwd_args(q, k, v, do, lse, delta, causal, scale):
+    B, H, S, D = q.shape
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    dims = (B * H, S, k.shape[2], D, int(bool(causal)), scale, _stream(q))
+    return _build.load("flash_bwd", _SIGNATURES["flash_bwd"]), ptrs, dims
+
+
+def _launch_bwd_dq(q, k, v, do, lse, delta, causal, scale):
+    """Launch K2dq alone on checked inputs (:func:`flash_attention_bwd`
+    checks them); returns dq."""
+    lib, ptrs, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
+    dq = torch.empty_like(q)
+    _check(lib, lib.mx_flash_bwd_dq_bf16(*ptrs, dq.data_ptr(), *dims),
+           "flash_bwd_dq")
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
+    """Launch K2dkv alone on checked inputs; returns ``(dk, dv)``."""
+    lib, ptrs, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _check(lib, lib.mx_flash_bwd_dkv_bf16(*ptrs, dk.data_ptr(),
+                                          dv.data_ptr(), *dims),
+           "flash_bwd_dkv")
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
 # ------------------------------------------------------- paged attention
 def paged_unsupported_reason(q, k, v, valid, k_scale=None, v_scale=None):
     """Why the paged decode kernel cannot take this call, or None.  Int8
@@ -247,3 +381,135 @@ def paged_attention(q, k, v, valid, scale=None, k_scale=None,
     _check(lib, err, "paged_decode")
     LAUNCHES["paged_decode_int8" if quant else "paged_decode_bf16"] += 1
     return o
+
+
+# ---------------------------------------------------------------- adam
+def adam_unsupported_reason(weight, grad, m, v, out_dtype):
+    """Why the Adam kernel cannot take this call, or None: f32 master,
+    m and v of one shape, a grad of that shape in f32 or bf16, and a bf16
+    cast.  Shapes and dtypes only."""
+    shape = weight.shape
+    if any(t.shape != shape for t in (grad, m, v)):
+        return "shapes differ: w%s g%s m%s v%s" % tuple(
+            tuple(t.shape) for t in (weight, grad, m, v))
+    if not (weight.dtype == m.dtype == v.dtype == torch.float32):
+        return "master/m/v must be f32, got %s/%s/%s" % (
+            weight.dtype, m.dtype, v.dtype)
+    if grad.dtype not in (torch.float32, torch.bfloat16):
+        return "grad must be f32 or bf16, got %s" % grad.dtype
+    if out_dtype != torch.bfloat16:
+        return "the cast must be bf16, got %s" % out_dtype
+    if weight.numel() == 0:
+        return "empty tensor"
+    return None
+
+
+def _f32(x):
+    """A Python float as the f32 value the kernel receives."""
+    return torch.tensor(float(x), dtype=torch.float32)
+
+
+def _fma(a, b, c):
+    """``fma(a, b, c)`` on f32 operands, rounded once, as ``__fmaf_rn``:
+    the f64 product of two f32 values is exact; the f64 sum is made
+    round-to-odd (TwoSum residual, one step to the odd neighbour) so that
+    the final rounding to f32 is the single rounding of the exact sum."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    fix = (err != 0) & even & torch.isfinite(err)
+    toward = torch.where(err > 0, torch.full_like(s, math.inf),
+                         torch.full_like(s, -math.inf))
+    return torch.where(fix, torch.nextafter(s, toward), s).float()
+
+
+def sqrt_rn(x):
+    """f32 square root rounded once, as ``__fsqrt_rn`` and IEEE 754: taken
+    in f64 and rounded to f32 (f64 carries more than twice f32's bits, so
+    the second rounding is exact).  PyTorch's own f32 ``sqrt`` on the CPU
+    is not correctly rounded."""
+    return torch.sqrt(x.double()).float()
+
+
+def div_rn(a, b):
+    """f32 quotient rounded once, as ``__fdiv_rn`` (through f64, as
+    :func:`sqrt_rn`)."""
+    return (a.double() / b.double()).float()
+
+
+def fused_adam_step_plain(weight, grad, m, v, lr_t, wd, beta1, beta2, eps,
+                          out_dtype=torch.bfloat16):
+    """The Adam epilogue's arithmetic in PyTorch ops, rounding exactly as
+    ``csrc/adam_step.cu`` does (and as the jitted reference, whose
+    compiler contracts the three multiply-adds)::
+
+        g' = fma(wd, w, g)
+        m' = fma(b1, m, (1-b1)*g')
+        v' = fma(b2, v, ((1-b2)*g')*g')
+        w' = w - (lr_t*m') / (sqrt(v') + eps)
+
+    with the square root and the quotient correctly rounded
+    (:func:`sqrt_rn`, :func:`div_rn`).  Every scalar is the f32 value of
+    the Python float.  Returns
+    ``(w'.to(out_dtype), w', (m', v'))``."""
+    dev = weight.device
+    lr_t, wd, b1, b2, eps = (_f32(x).to(dev) for x in (lr_t, wd, beta1,
+                                                        beta2, eps))
+    omb1 = _f32(1.0 - beta1).to(dev)
+    omb2 = _f32(1.0 - beta2).to(dev)
+    g = _fma(wd, weight, grad.float())
+    nm = _fma(b1, m, omb1 * g)
+    nv = _fma(b2, v, (omb2 * g) * g)
+    nw = weight - div_rn(lr_t * nm, sqrt_rn(nv) + eps)
+    return nw.to(out_dtype), nw, (nm, nv)
+
+
+def fused_adam_step(weight, grad, m, v, lr_t, wd, beta1, beta2, eps,
+                    out_dtype=torch.bfloat16, out=None):
+    """Single-kernel Adam update with the cast epilogue: returns
+    ``(lp, new_w, (new_m, new_v))`` like the reference's
+    ``fused_adam_step``.  ``weight`` is the f32 master; ``grad`` f32 or
+    bf16 (widened in registers, exactly).  ``out=(lp, w, m, v)`` names
+    the tensors to write (they may be the inputs themselves: the update
+    is elementwise, so writing in place is safe and saves the copies);
+    by default new ones are allocated.  CPU tensors run the plain
+    version; CUDA tensors launch ``csrc/adam_step.cu`` or raise."""
+    if weight.device.type == "cpu":
+        res = fused_adam_step_plain(weight, grad, m, v, lr_t, wd, beta1,
+                                    beta2, eps, out_dtype=out_dtype)
+        if out is None:
+            return res
+        lp, nw, (nm, nv) = res
+        for dst, src in zip(out, (lp, nw, nm, nv)):
+            dst.copy_(src)
+        return out[0], out[1], (out[2], out[3])
+    reason = adam_unsupported_reason(weight, grad, m, v, out_dtype)
+    if reason is None and out is not None:
+        dtypes = (out_dtype, torch.float32, torch.float32, torch.float32)
+        if any(o.shape != weight.shape or o.dtype != dt
+               for o, dt in zip(out, dtypes)):
+            reason = "out tensors must be (%s, f32, f32, f32) of %s" % (
+                out_dtype, tuple(weight.shape))
+    if reason is None:
+        if out is None:
+            out = (torch.empty_like(weight, dtype=out_dtype),
+                   torch.empty_like(weight), torch.empty_like(m),
+                   torch.empty_like(v))
+        reason = _launch_reason(weight, grad, m, v, *out)
+    if reason is not None:
+        raise KernelUnsupportedError(
+            "adam kernel cannot take this call: " + reason)
+    lp, nw, nm, nv = out
+    lib = _build.load("adam_step", _SIGNATURES["adam_step"])
+    err = lib.mx_adam_step(
+        weight.data_ptr(), grad.data_ptr(), m.data_ptr(), v.data_ptr(),
+        nw.data_ptr(), nm.data_ptr(), nv.data_ptr(), lp.data_ptr(),
+        weight.numel(), int(grad.dtype == torch.bfloat16),
+        float(lr_t), float(wd), float(beta1), float(beta2),
+        1.0 - float(beta1), 1.0 - float(beta2), float(eps), _stream(weight))
+    _check(lib, err, "adam_step")
+    LAUNCHES["adam_step"] += 1
+    return lp, nw, (nm, nv)

@@ -1,0 +1,297 @@
+"""Optimizer library (counterpart of ``mxnet_tpu.optimizer.optimizer``).
+
+The ``Optimizer`` base keeps the reference's stateful API: a string
+registry, per-index update counts, lr/wd and their multipliers,
+``rescale_grad`` and gradient clipping, optimizer state per parameter
+index, and the f32 master copy of a low-precision weight
+(``multi_precision``).  Each optimizer's math is ``step(weight, grad,
+state, lr, wd, t) -> (new_weight, new_state)`` in PyTorch ops; an
+optimizer with a fused kernel also has ``step_fused``, which updates the
+f32 master and writes the low-precision weight in one pass
+(``cuda_kernels.fused_adam_step``).
+
+``update`` and ``update_multi_precision`` take torch tensors in place of
+NDArrays and update them IN PLACE (the weight, the master copy and the
+state tensors), the analog of the reference writing the new values into
+its NDArrays.
+
+Ported so far: ``Adam``.  ``create("sgd")`` and the other optimizers
+raise until their slice (SGD comes with its fused kernel, K1).
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import kernels as _kernels
+from ..ops import cuda_kernels as _ck
+
+__all__ = ["Optimizer", "create", "register", "Adam"]
+
+_LOW_PRECISION = (torch.float16, torch.bfloat16)
+
+
+def _f32(x):
+    return torch.tensor(float(x), dtype=torch.float32)
+
+
+def _bias_corrected_lr(lr, beta1, beta2, t):
+    """Adam's ``lr * sqrt(1 - beta2**t) / (1 - beta1**t)`` in f32, in the
+    reference's order: the two coefficients in Python floats, then the
+    f32 square root, product and quotient.  Returns a 0-dim f32 tensor."""
+    coef1 = 1.0 - beta1 ** t
+    coef2 = 1.0 - beta2 ** t
+    return _ck.div_rn(_f32(lr) * _ck.sqrt_rn(_f32(coef2)), _f32(coef1))
+
+
+def _state_write(state, new):
+    """Copy new values into the state tree's tensors, in place."""
+    if state is None:
+        return
+    if isinstance(state, torch.Tensor):
+        state.copy_(new)
+        return
+    for s, n in zip(state, new):
+        _state_write(s, n)
+
+
+class Optimizer:
+    """Base optimizer (reference: ``optimizer.py:51``).
+
+    State is per parameter index, created by ``create_state``; ``update``
+    applies one step.  Subclasses implement ``step``."""
+
+    opt_registry = {}
+
+    # ``step`` reads nothing but its arguments; a subclass that keeps
+    # Python-side per-step state outside ``state`` sets this False, which
+    # also keeps it off the fused kernel (kernels.fused_step_enabled).
+    jit_safe = True
+
+    # subclasses with a fused update kernel set this and implement
+    # ``step_fused``; it runs when the kernel tier is on
+    fused_step = False
+
+    @staticmethod
+    def register(klass):
+        Optimizer.opt_registry[klass.__name__.lower()] = klass
+        return klass
+
+    @staticmethod
+    def create_optimizer(name, **kwargs):
+        if name.lower() in Optimizer.opt_registry:
+            return Optimizer.opt_registry[name.lower()](**kwargs)
+        raise ValueError("Cannot find optimizer %s" % name)
+
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 begin_num_update=0, multi_precision=False, param_dict=None):
+        self.rescale_grad = rescale_grad
+        self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
+        self.wd = wd
+        self.begin_num_update = begin_num_update
+        self.num_update = begin_num_update
+        self._index_update_count = {}
+        self.clip_gradient = clip_gradient
+        self.multi_precision = multi_precision
+        if param_idx2name is None:
+            param_idx2name = {}
+        if not isinstance(param_idx2name, dict):
+            raise TypeError("param_idx2name should be a dict of param "
+                            "indexes to names.")
+        self.idx2name = param_idx2name.copy()
+        self.param_dict = param_dict if param_dict else {}
+        self.set_lr_mult({})
+        self.set_wd_mult({})
+
+    # ------------------------------------------------------------- lr & wd
+    def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise UserWarning(
+                "LRScheduler of the optimizer has already been defined. "
+                "Note that set_learning_rate can mutate the value of the "
+                "learning rate of the optimizer only when the LRScheduler "
+                "of the optimizer is undefined.")
+        self.lr = lr
+
+    @property
+    def learning_rate(self):
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
+        return self.lr
+
+    def set_lr_mult(self, args_lr_mult):
+        self.lr_mult = dict(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        # only names ending in "_weight" are decayed by default
+        self.wd_mult = {n: 0.0 for n in self.idx2name.values()
+                        if not n.endswith("_weight")}
+        self.wd_mult.update(args_wd_mult)
+
+    def _update_count(self, index):
+        for idx in index if isinstance(index, (list, tuple)) else [index]:
+            if idx not in self._index_update_count:
+                self._index_update_count[idx] = self.begin_num_update
+            self._index_update_count[idx] += 1
+            self.num_update = max(self._index_update_count[idx],
+                                  self.num_update)
+
+    def _mult(self, index, attr, table):
+        if index in self.param_dict:
+            return getattr(self.param_dict[index], attr)
+        if index in table:
+            return table[index]
+        if index in self.idx2name:
+            return table.get(self.idx2name[index], 1.0)
+        return 1.0
+
+    def _get_lr(self, index):
+        return self.learning_rate * self._mult(index, "lr_mult",
+                                               self.lr_mult)
+
+    def _get_wd(self, index):
+        return self.wd * self._mult(index, "wd_mult", self.wd_mult)
+
+    # ------------------------------------------------------------ state API
+    def create_state(self, index, weight):
+        """Optimizer state for one parameter (None, a tensor or a tuple)."""
+        return None
+
+    def create_state_multi_precision(self, index, weight):
+        """``(f32 master copy, state of the master)`` for a low-precision
+        weight under ``multi_precision``; else ``create_state``."""
+        if self.multi_precision and weight.dtype in _LOW_PRECISION:
+            master = weight.detach().float().clone()
+            return (master, self.create_state(index, master))
+        return self.create_state(index, weight)
+
+    # ------------------------------------------------------------ update API
+    def step(self, weight, grad, state, lr, wd, t):
+        """Pure update: tensors in, ``(new_weight, new_state)`` out."""
+        raise NotImplementedError
+
+    def step_fused(self, weight, grad, state, lr, wd, t, out_dtype=None,
+                   out=None):
+        """One kernel: update + low-precision cast, returning
+        ``(weight_cast[out_dtype], new_master_f32, new_state)``;
+        ``out`` names the tensors to write (see the subclass)."""
+        raise NotImplementedError(
+            "%s has no fused step kernel" % type(self).__name__)
+
+    def _grad_is_identity(self):
+        return self.rescale_grad == 1.0 and (self.clip_gradient is None
+                                             or self.clip_gradient <= 0)
+
+    def _preprocess_grad(self, grad):
+        g = grad * self.rescale_grad
+        if self.clip_gradient is None or self.clip_gradient <= 0:
+            return g
+        return torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        """One optimizer step for parameter ``index``: ``weight`` and the
+        state tensors are updated in place."""
+        if isinstance(index, (list, tuple)):
+            for i, w, g, s in zip(index, weight, grad, state):
+                self.update(i, w, g, s)
+            return
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        t = self._index_update_count[index]
+        g = self._preprocess_grad(grad)
+        new_w, new_state = self.step(weight, g, state, lr, wd, t)
+        weight.copy_(new_w)
+        _state_write(state, new_state)
+
+    @torch.no_grad()
+    def update_multi_precision(self, index, weight, grad, state):
+        """``update`` through the f32 master copy of a low-precision
+        weight (``state = (master, state)`` from
+        ``create_state_multi_precision``): the step runs on the master and
+        the weight receives its cast.  With the kernel tier on, one fused
+        kernel does both (``step_fused``; ``kernels.fused_step`` counts
+        it).  The bf16 grad goes into the kernel as it is when
+        ``rescale_grad`` is 1 and there is no clipping (the reference's
+        f32 widening and ``* 1.0`` are exact), else it is preprocessed in
+        f32 first."""
+        use_mp = self.multi_precision and weight.dtype in _LOW_PRECISION
+        if not (use_mp and isinstance(state, tuple) and len(state) == 2
+                and isinstance(state[0], torch.Tensor)):
+            self.update(index, weight, grad, state)
+            return
+        master, real_state = state
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        t = self._index_update_count[index]
+        if _kernels.fused_step_enabled(self):
+            g = grad.contiguous() if self._grad_is_identity() \
+                else self._preprocess_grad(grad.float())
+            self.step_fused(master, g, real_state, lr, wd, t,
+                            out_dtype=weight.dtype,
+                            out=(weight, master) + tuple(real_state))
+            _kernels.note_fused_step()
+            return
+        g = self._preprocess_grad(grad.float())
+        new_w, new_state = self.step(master, g, real_state, lr, wd, t)
+        master.copy_(new_w)
+        weight.copy_(new_w.to(weight.dtype))
+        _state_write(real_state, new_state)
+
+
+register = Optimizer.register
+create = Optimizer.create_optimizer
+
+
+@register
+class Adam(Optimizer):
+    """Adam (reference: ``optimizer.py:1371``)::
+
+        m = beta1*m + (1-beta1)*grad
+        v = beta2*v + (1-beta2)*grad**2
+        lr_t = lr * sqrt(1-beta2**t)/(1-beta1**t)
+        w = w - lr_t * m / (sqrt(v) + eps)
+
+    with L2 weight decay folded into the grad (``grad + wd*w``)."""
+
+    fused_step = True
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_update=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.lazy_update = lazy_update
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight), torch.zeros_like(weight))
+
+    def step(self, weight, grad, state, lr, wd, t):
+        m, v = state
+        g = grad + wd * weight
+        lr_t = _bias_corrected_lr(lr, self.beta1, self.beta2, t).to(
+            weight.device)
+        m = self.beta1 * m + (1.0 - self.beta1) * g
+        v = self.beta2 * v + (1.0 - self.beta2) * g * g
+        # correctly rounded sqrt and quotient (PyTorch's CPU f32 sqrt is
+        # not), as the reference's
+        w = weight - _ck.div_rn(lr_t * m, _ck.sqrt_rn(v) + self.epsilon)
+        return w, (m, v)
+
+    def step_fused(self, weight, grad, state, lr, wd, t, out_dtype=None,
+                   out=None):
+        """``cuda_kernels.fused_adam_step`` with ``lr_t`` computed here in
+        f32 (the bias correction depends on the step count, so it stays
+        outside the kernel).  ``out=(lp, master, m, v)`` may be the inputs
+        themselves: the kernel then updates them in place."""
+        m, v = state
+        lr_t = float(_bias_corrected_lr(lr, self.beta1, self.beta2, t))
+        return _ck.fused_adam_step(
+            weight, grad, m, v, lr_t, wd, self.beta1, self.beta2,
+            self.epsilon, out_dtype=out_dtype or weight.dtype, out=out)

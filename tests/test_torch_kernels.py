@@ -100,6 +100,128 @@ def test_flash_plain_matches_pallas_forward(causal, sq, skv):
                                atol=ATOL)
 
 
+# ------------------------------------------------------- flash backward
+# f32 inputs; the two sides sum the same products in different orders.
+# Gradients reach ~3 here, so 4e-6 absolute is a few f32 ulps of the
+# largest values.
+BWD_ATOL = 4e-6
+
+
+@pytest.mark.parametrize("D", [64, 16])
+@pytest.mark.parametrize("causal,sq,skv", [(True, 64, 64), (False, 32, 96)],
+                         ids=["causal-64", "noncausal-32x96"])
+def test_flash_bwd_plain_matches_pallas_backward(causal, sq, skv, D):
+    rng = np.random.RandomState(11)
+    B, H = 2, 2
+    q, do = (rng.randn(B, H, sq, D).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(B, H, skv, D).astype(np.float32) for _ in range(2))
+    scale = 1.0 / np.sqrt(D)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    # both sides start from the reference forward's o and lse
+    o, lse = pk._flash_forward(jq, jk, jv, causal, scale, 16)
+    want = pk._flash_backward(jq, jk, jv, o, lse, jdo, causal, scale, 16)
+    o_t, lse_t = _t(np.asarray(o)), _t(np.asarray(lse))
+    before = dict(ck.LAUNCHES)
+    got = ck.flash_attention_bwd(_t(q), _t(k), _t(v), o_t, lse_t, _t(do),
+                                 causal=causal)
+    assert ck.LAUNCHES == before, "a CPU tensor must not launch a kernel"
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=BWD_ATOL)
+
+
+def test_flash_vjp_is_the_grad_fn_and_matches_plain():
+    """Tier on, attention runs through the flash autograd Function (the
+    reference's ``_flash_vjp``): its output carries that Function as its
+    grad_fn, and on the CPU its gradients equal the plain lowering's
+    within 1e-6 (f32, summation order only)."""
+    rng = np.random.RandomState(5)
+    base = [rng.randn(2, 2, 24, 16).astype(np.float32) for _ in range(4)]
+    grads = {}
+    for tier in (True, False):
+        q, k, v = (_t(x.copy()).requires_grad_(True) for x in base[:3])
+        mt.config.set("kernels.enabled", tier)
+        try:
+            out = tk.attention(q, k, v, causal=True)
+        finally:
+            mt.config.unset("kernels.enabled")
+        if tier:
+            assert type(out.grad_fn) is tk._FlashVJP._backward_cls
+        else:
+            assert type(out.grad_fn) is not tk._FlashVJP._backward_cls
+        out.backward(_t(base[3]))
+        grads[tier] = [x.grad.numpy() for x in (q, k, v)]
+    for on, off in zip(grads[True], grads[False]):
+        np.testing.assert_allclose(on, off, rtol=0, atol=1e-6)
+
+
+# ------------------------------------------------------------ fused adam
+def _bits(a):
+    a = np.asarray(a, dtype=np.float32) if np.asarray(a).dtype != np.float32 \
+        else np.asarray(a)
+    return a.view(np.uint32)
+
+
+def _adam_case(shape, seed=4):
+    rng = np.random.RandomState(seed)
+    w = (rng.randn(*shape) * 0.02).astype(np.float32)
+    g = rng.randn(*shape).astype(np.float32)
+    m = (rng.randn(*shape) * 0.1).astype(np.float32)
+    v = (np.abs(rng.randn(*shape)) * 0.01).astype(np.float32)
+    return w, g, m, v
+
+
+@pytest.mark.parametrize("t", [1, 3, 1000])
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+@pytest.mark.parametrize("shape", [(256, 64), (1000,), (37, 13)],
+                         ids=["2d", "1d", "odd"])
+def test_fused_adam_plain_bitwise_with_pallas(shape, wd, t):
+    """The plain Adam epilogue equals the reference's Pallas kernel bit
+    for bit on the master, m, v and the bf16 cast."""
+    from mxnet_tpu_torch.optimizer.optimizer import _bias_corrected_lr
+    w, g, m, v = _adam_case(shape)
+    lr_t = float(_bias_corrected_lr(1e-3, 0.9, 0.999, t))
+    lp, nw, (nm, nv) = pk.fused_adam_step(
+        jnp.asarray(w), jnp.asarray(g), jnp.asarray(m), jnp.asarray(v),
+        np.float32(lr_t), wd, 0.9, 0.999, 1e-8, out_dtype=jnp.bfloat16)
+    before = dict(ck.LAUNCHES)
+    tlp, tnw, (tnm, tnv) = ck.fused_adam_step(
+        _t(w), _t(g), _t(m), _t(v), lr_t, wd, 0.9, 0.999, 1e-8,
+        out_dtype=torch.bfloat16)
+    assert ck.LAUNCHES == before, "a CPU tensor must not launch a kernel"
+    assert tlp.dtype == torch.bfloat16 and tnw.dtype == torch.float32
+    for want, got in ((nw, tnw), (nm, tnm), (nv, tnv), (lp, tlp.float())):
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+def test_fma_rounds_once():
+    """``_fma`` rounds a*b + c once.  With a = 1 + 2^-23,
+    b = 2^-24 (1 - 2^-23) and c = 1 + 2^-23 the exact value lies 2^-70
+    below the f32 tie 1 + 2^-23 + 2^-24: rounded once it goes down to
+    1 + 2^-23; a plain f64 sum rounds onto the tie first and then to the
+    even neighbour 1 + 2^-22."""
+    a = torch.tensor([1.0 + 2.0 ** -23], dtype=torch.float32)
+    b = torch.tensor([2.0 ** -24 * (1.0 - 2.0 ** -23)], dtype=torch.float32)
+    c = a.clone()
+    assert float((a.double() * b.double() + c.double()).float()) == \
+        1.0 + 2.0 ** -22
+    assert float(ck._fma(a, b, c)) == 1.0 + 2.0 ** -23
+
+
+def test_fused_adam_out_writes_in_place():
+    """The ``out=`` form, given the inputs themselves, writes the same bits
+    as the allocating form."""
+    w, g, m, v = (_t(x) for x in _adam_case((9, 5)))
+    res = ck.fused_adam_step(w, g, m, v, 1e-3, 0.01, 0.9, 0.999, 1e-8)
+    out = (torch.empty(9, 5, dtype=torch.bfloat16), w.clone(), m.clone(),
+           v.clone())
+    ck.fused_adam_step(out[1], g, out[2], out[3], 1e-3, 0.01, 0.9, 0.999,
+                       1e-8, out=out)
+    for want, got in zip((res[0], res[1]) + res[2], out):
+        assert torch.equal(want, got)
+
+
 # -------------------------------------------------------- quantize_rows
 def test_quantize_rows_bitwise():
     rng = np.random.RandomState(0)
@@ -217,6 +339,52 @@ def test_kernel_checks_reject_what_the_kernels_do_not_take():
         ck.paged_attention(f[:, :, :1], f, f, valid)
 
 
+def test_training_shapes_pass_the_kernel_checks():
+    """Every call the full-width training step makes (B=4, H=12, S=2048,
+    D=64 bf16 attention; the 9 parameter tensors' Adam updates with a bf16
+    grad) passes the kernels' own checks."""
+    q = _meta(4, 12, 2048, 64)
+    lse = _meta(48, 2048, dtype=torch.float32)
+    assert ck.flash_unsupported_reason(q, q, q, True) is None
+    assert ck.flash_bwd_unsupported_reason(q, q, q, q, lse, q, True) is None
+    L, D, H, Dh, F, V, S = 12, 768, 12, 64, 3072, 32000, 2048
+    for shape in [(V, D), (S, D), (D,), (L, D), (L, D, 3, H, Dh),
+                  (L, H, Dh, D), (L, D), (L, D, F), (L, F, D)]:
+        w = _meta(*shape, dtype=torch.float32)
+        assert ck.adam_unsupported_reason(
+            w, _meta(*shape), w, w, torch.bfloat16) is None
+
+
+def test_backward_and_adam_checks_reject_what_the_kernels_do_not_take():
+    q = _meta(1, 2, 8, 64)
+    lse = _meta(2, 8, dtype=torch.float32)
+    f = q.float()
+    assert "bf16" in ck.flash_bwd_unsupported_reason(f, f, f, f, lse, f,
+                                                     False)
+    assert "o/dO" in ck.flash_bwd_unsupported_reason(q, q, q, q[:, :, :4],
+                                                     lse, q, False)
+    assert "lse" in ck.flash_bwd_unsupported_reason(q, q, q, q, lse.double(),
+                                                    q, False)
+    w = _meta(3, 5, dtype=torch.float32)
+    assert "shapes" in ck.adam_unsupported_reason(w, w[:2], w, w,
+                                                  torch.bfloat16)
+    assert "f32" in ck.adam_unsupported_reason(w.half(), w, w, w,
+                                               torch.bfloat16)
+    assert "grad" in ck.adam_unsupported_reason(w, w.half(), w, w,
+                                                torch.bfloat16)
+    assert "bf16" in ck.adam_unsupported_reason(w, w, w, w, torch.float16)
+    # a non-CPU tensor the kernel cannot take raises the typed error
+    with pytest.raises(mt.KernelUnsupportedError, match="backward"):
+        ck.flash_attention_bwd(f, f, f, f, lse, f)
+    with pytest.raises(mt.KernelUnsupportedError, match="CUDA"):
+        ck.flash_attention_bwd(q, q, q, q, lse, q)
+    with pytest.raises(mt.KernelUnsupportedError, match="adam"):
+        ck.fused_adam_step(w, w, w, w, 1e-3, 0.0, 0.9, 0.999, 1e-8,
+                           out_dtype=torch.float32)
+    with pytest.raises(mt.KernelUnsupportedError, match="CUDA"):
+        ck.fused_adam_step(w, w, w, w, 1e-3, 0.0, 0.9, 0.999, 1e-8)
+
+
 # ----------------------------------------------------- build and sources
 def test_kernel_sources_and_build_dir_is_ignored():
     csrc = os.path.join(ROOT, "mxnet_tpu_torch", "csrc")
@@ -235,6 +403,8 @@ def test_kernel_sources_and_build_dir_is_ignored():
 # ------------------------------------------------------ import isolation
 def test_import_does_not_load_jax():
     code = ("import sys; import mxnet_tpu_torch; "
+            "import mxnet_tpu_torch.optimizer; "
+            "assert 'mxnet_tpu_torch.optimizer.optimizer' in sys.modules; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'mxnet_tpu' "
             "or m.startswith('mxnet_tpu.')]; "
