@@ -15,16 +15,24 @@ Phases; any failure exits non-zero without the result lines:
             S=2048), paged decode, bf16 and int8
             pages (B=8, K = 16, 512, 2048, ragged valid prefixes), the
             flash backward K2dq and K2dkv (the forward's shapes plus the
-            training shape B=4, H=12, S=2048) and the fused Adam step K3
+            training shape B=4, H=12, S=2048), the fused Adam step K3
             (the 9 full-width parameter tensors, wd 0.01, t = 1 and 1000,
-            bf16 grads).  Prints each error against its stated tolerance,
-            kernel / plain / library ms and the bound.  Tolerances: the
+            bf16 grads) and the multi-tensor fused SGD step K1 (the 193
+            trainable shapes of resnet50_v1 in one launch: momentum 0.9
+            with the f32 master as out, with a bf16 out, momentum 0, and
+            per-tensor lr/wd).  Prints each error against its stated
+            tolerance, kernel / plain / library ms and the bound; the
+            attention backward's library time (sdpa backward) and the
+            kernels' are also taken as device time from torch.profiler,
+            since ``torch.autograd.grad``'s host path sets a CUDA-event
+            span at these sizes.  Tolerances: the
             forward and decode kernels per output row (one (b, h,
             query)): max |kernel - plain| <= ROW_REL_TOL x max |plain| of
             that row; the backward kernels the same per row of dq (b, h,
             query) and of dk, dv (b, h, key), with the row's scale floored
             at BWD_ROW_FLOOR x the tensor's largest |plain|; K3 bitwise on
-            the master, m, v and the bf16 weight.
+            the master, m, v and the bf16 weight; K1 bitwise on the
+            masters, the momenta and the casts.
 3. serve  — the full-width TransformerLM (TransformerLMConfig defaults:
             vocab 32000, d_model 768, 12 heads, d_ff 3072, 12 layers,
             max_len 2048, bf16; seeded random weights) through
@@ -54,12 +62,36 @@ Phases; any failure exits non-zero without the result lines:
             lower at the last than at the first.  Prints the median step
             ms over steps 5..20, tokens/s and MFU, and the device-idle
             share of a ``torch.profiler`` window over 3 more steps.
-5. summary — a ``{"kernels": [...]}`` line, the card's name and power
+5. resnet — ResNet-50 v1 (``vision.get_model("resnet50_v1",
+            classes=1000)``, 25.6 M parameters in 193 trainable tensors,
+            seeded Xavier weights) trained by ``SPMDTrainer`` with SGD
+            (lr 0.1, momentum 0.9, wd 1e-4) at BS 128 in bf16 over f32
+            masters, on one seeded synthetic batch of 224x224 images that
+            stays on the card: ``bench.py`` ``one_config``.  First, at the
+            initial weights, the bf16 loss against an f32 copy (within
+            RESNET_BF16_LOSS_RTOL) and the per-tensor gradient error.
+            After RESNET_WARMUP steps, one step's gradients applied three
+            ways to clones: K1 (the trainer's route) must equal its plain
+            version bit for bit and the tier-off ``SGD.step`` within
+            SGD_ROUTE_TOL.  Then RESNET_STEPS counted steps, launch counts
+            zeroed just before and read just after: exactly one sgd_step
+            a step and no other kernel of the port; the loss finite at
+            every step.  Prints the losses, the median step ms, img/s,
+            MFU against 989 TFLOP/s (3 x 4.1 GFLOP an image, bench.py's
+            count), peak memory, and the device-idle share of a profiled
+            window over 3 more steps; then 5 timed steps each of
+            ``conv.internal_layout=NHWC`` (channels_last) and the f32 row.
+            ``torch.backends.cudnn.benchmark`` is on in this phase.
+6. summary — a ``{"kernels": [...]}`` line, the card's name and power
             limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Numerics: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False, so every f32 product
-of the plain versions and of the logits readout is full f32.
+of the plain versions, of the logits readout and of the f32 ResNet row
+is full f32.
+
+``--report PATH`` writes every phase's numbers as JSON (the ResNet phase
+under ``"resnet"``).
 """
 from __future__ import annotations
 
@@ -124,6 +156,25 @@ TRAIN_S = 2048
 TRAIN_STEPS = 20
 TRAIN_LR = 1e-3
 ADAM_WD = 0.01
+SGD_WD = 1e-4
+# ResNet-50 v1, bench.py one_config: BS 128, SGD lr 0.1, momentum 0.9,
+# wd 1e-4, bf16 compute over f32 masters, one synthetic batch on the card
+RESNET_BATCH = 128
+RESNET_HW = 224
+RESNET_WARMUP = 2
+RESNET_STEPS = 20
+# bench.py:59: a train step is ~3x the forward's 4.1 GFLOP per image
+RESNET_FLOPS_PER_IMG = 3 * 4.1e9
+# The first step's loss, bf16 path vs an f32 copy: both ends read the same
+# weights and batch; bf16 keeps 8 significant bits (2^-8 a rounding), and
+# 53 conv/BN layers and the 1000-way softmax compound a few roundings in
+# the logits; a faulty forward moves the loss by far more.
+RESNET_BF16_LOSS_RTOL = 2.0 ** -6
+# K1 vs the tier-off SGD.step, per element, relative to the magnitudes of
+# the update's terms: each route rounds at most 3 times (2^-24 relative
+# to the terms each), so they can differ by 6 x 2^-24; the bound is
+# 8 x 2^-24.  A missing or stale tensor differs by O(1).
+SGD_ROUTE_TOL = 2.0 ** -21
 
 
 def _log(msg):
@@ -143,6 +194,27 @@ def _time_ms(fn, iters=20, warmup=3):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def _device_ms(torch, fn, iters=10, warmup=2):
+    """Device time of ``fn()``: the CUDA kernel and copy time a
+    ``torch.profiler`` window records over ``iters`` calls, divided by the
+    call count.  Unlike a CUDA-event span it leaves out the gaps where the
+    card waits for the host.  None when the profiler records no CUDA
+    activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA)
+    return busy_us / 1e3 / iters if busy_us > 0 else None
 
 
 def _row_rel_err(o, po, floor=0.0):
@@ -263,11 +335,16 @@ def check_paged(ck, torch, F, quant):
 
 def _sdpa_bwd_ms(torch, F, q, k, v, do, causal):
     """The library yardstick: scaled_dot_product_attention's backward
-    (dq, dk and dv in one call) at the same inputs."""
+    (dq, dk and dv in one call) at the same inputs, as
+    ``(device ms, CUDA-event ms)``.  The call goes through
+    ``torch.autograd.grad``, whose host path (about 0.5 ms) sets a
+    CUDA-event span at these sizes; the device time is the yardstick."""
     qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
     out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
-    return _time_ms(lambda: torch.autograd.grad(out, (qr, kr, vr), do,
-                                                retain_graph=True))
+
+    def bwd():
+        return torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True)
+    return _device_ms(torch, bwd), _time_ms(bwd)
 
 
 def check_flash_bwd(ck, torch, F):
@@ -298,7 +375,7 @@ def check_flash_bwd(ck, torch, F):
         plain_ms = _time_ms(lambda: ck.flash_attention_bwd_plain(
             q, k, v, o, lse, do, causal=causal, delta=delta), iters=5,
             warmup=1)
-        lib_ms = _sdpa_bwd_ms(torch, F, q, k, v, do, causal)
+        lib_ms, lib_event_ms = _sdpa_bwd_ms(torch, F, q, k, v, do, causal)
         for name, outs, plain, launch, nbytes, products, cases in (
                 ("flash_bwd_dq", (dq,), (pdq,), ck._launch_bwd_dq,
                  3 * qbytes + 2 * kvbytes + 8 * B * H * sq, 3, dq_cases),
@@ -315,9 +392,11 @@ def check_flash_bwd(ck, torch, F):
                     "max_row_rel_err": row_err, "row_rel_tol": ROW_REL_TOL,
                     "row_floor": BWD_ROW_FLOOR, "ok": ok,
                     "ms": _time_ms(lambda: launch(*args)),
+                    "device_ms": _device_ms(torch, lambda: launch(*args)),
                     "plain_ms": plain_ms, "plain_computes": "dq, dk, dv",
-                    "library_ms": lib_ms,
-                    "library_computes": "dq, dk, dv (sdpa backward)",
+                    "library_ms": lib_ms, "library_event_ms": lib_event_ms,
+                    "library_computes": "dq, dk, dv (sdpa backward; "
+                                        "device time)",
                     "bound_ms": bound, "bound_by": by}
             _log("[kernels] %s %s" % (name, json.dumps(case)))
             cases.append(case)
@@ -400,6 +479,113 @@ def check_adam(ck, torch):
                                 "f32 masters, f32 grads, no bf16 copy",
             "bound_ms": bound, "bound_by": by, "bytes": nbytes}
     _log("[kernels] adam_step per step %s" % json.dumps(step))
+    return cases, step
+
+
+def _resnet_shapes(mx, np):
+    """The 193 trainable shapes of the port's resnet50_v1, read from the
+    model after shape inference (one forward on the CPU)."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    net = vision.get_model("resnet50_v1", classes=1000)
+    net.initialize(mx.init.Zero(), ctx=mx.cpu())
+    net(mx.nd.array(np.zeros((1, 3, 32, 32), np.float32), ctx=mx.cpu()))
+    return [p.shape for p in net.collect_params().values()
+            if p.grad_req != "null"]
+
+
+def _differing(torch, x, y):
+    """How many elements of x and y differ in their bits."""
+    as_int = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    return int((x.view(as_int) != y.view(as_int)).sum())
+
+
+def check_sgd(ck, torch, mx, np):
+    """K1 against ``fused_sgd_step_multi_plain`` over the 193 trainable
+    tensors of resnet50_v1, one launch each case, bitwise on the masters,
+    the momenta and the casts: momentum 0.9 with the f32 master as the
+    out (the trainer's route), momentum 0.9 with a bf16 out, momentum 0,
+    and per-tensor lr and wd that differ.  Then one step over the list
+    against the plain version and ``torch.optim.SGD``.  Returns (cases,
+    per-step timing)."""
+    shapes = _resnet_shapes(mx, np)
+    n = len(shapes)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    ws = [torch.randn(sh, generator=g, device="cuda") * 0.05 for sh in shapes]
+    gs = [torch.randn(sh, generator=g, device="cuda") for sh in shapes]
+    ms = [torch.randn(sh, generator=g, device="cuda") * 0.1 for sh in shapes]
+    flat = [0.1] * n, [SGD_WD] * n
+    varied = ([0.1 * (1 + i % 3) / 2 for i in range(n)],
+              [SGD_WD if i % 2 == 0 else 0.0 for i in range(n)])
+    cases = []
+    for label, mom, (lrs, wds), cast in (
+            ("momentum 0.9, f32 out (the master)", 0.9, flat, None),
+            ("momentum 0.9, bf16 out", 0.9, flat, torch.bfloat16),
+            ("momentum 0", 0.0, flat, None),
+            ("momentum 0.9, per-tensor lr and wd", 0.9, varied, None)):
+        kw, pw = ([w.clone() for w in ws] for _ in range(2))
+        km, pm = ([m.clone() if mom else None for m in ms]
+                  for _ in range(2))
+        ko, po = ([torch.empty_like(w, dtype=cast) if cast else None
+                   for w in ws] for _ in range(2))
+        ck.fused_sgd_step_multi(kw, gs, km, lrs, wds, mom, outs=ko)
+        ck.fused_sgd_step_multi_plain(pw, gs, pm, lrs, wds, mom, outs=po)
+        torch.cuda.synchronize()
+        pairs = {"master": list(zip(kw, pw))}
+        if mom:
+            pairs["momentum"] = list(zip(km, pm))
+        if cast:
+            pairs["bf16_out"] = list(zip(ko, po))
+        diff = {k: sum(_differing(torch, x, y) for x, y in v)
+                for k, v in pairs.items()}
+        err = max(float((x.float() - y.float()).abs().max())
+                  for v in pairs.values() for x, y in v)
+        case = {"case": label, "tensors": n, "differing_elements": diff,
+                "max_abs_err": err, "ok": sum(diff.values()) == 0}
+        _log("[kernels] sgd_step %s" % json.dumps(case))
+        cases.append(case)
+    # one step over the 193 tensors in place, as on the training path
+    lrs, wds = flat
+    table = ck.SgdTable()
+    ck.fused_sgd_step_multi(ws, gs, ms, lrs, wds, 0.9, table=table)
+    dev, blocks = table.fill(ws, gs, ms, lrs, wds, [None] * n)
+    kernel_ms = _time_ms(lambda: ck._launch_sgd(dev, n, blocks, 0.9, ws[0]))
+    call_ms = _time_ms(lambda: ck.fused_sgd_step_multi(
+        ws, gs, ms, lrs, wds, 0.9, table=table))
+    device_ms = _device_ms(torch, lambda: ck.fused_sgd_step_multi(
+        ws, gs, ms, lrs, wds, 0.9, table=table))
+    plain_ms = _time_ms(lambda: ck.fused_sgd_step_multi_plain(
+        ws, gs, ms, lrs, wds, 0.9), iters=3, warmup=1)
+    params = sum(w.numel() for w in ws)
+    nbytes = params * (4 + 4 + 4 + 4 + 4)   # read w, g, m; write w, m
+    masters = [w.clone().requires_grad_(True) for w in ws]
+    for p, gr in zip(masters, gs):
+        p.grad = gr.clone()
+    try:
+        lib = torch.optim.SGD(masters, lr=0.1, momentum=0.9,
+                              weight_decay=SGD_WD, fused=True)
+        lib_kind = "fused=True"
+    except (TypeError, RuntimeError, ValueError):
+        lib = torch.optim.SGD(masters, lr=0.1, momentum=0.9,
+                              weight_decay=SGD_WD, foreach=True)
+        lib_kind = "foreach=True (this PyTorch has no fused SGD)"
+    lib.step()   # makes the momentum buffers
+    lib_ms = _time_ms(lib.step)
+    lib_device_ms = _device_ms(torch, lib.step)
+    bound, by = _bound_ms(nbytes, 0)
+    step = {"at": {"tensors": n, "params": params, "grad": "float32",
+                   "momentum": 0.9, "out": "the f32 master"},
+            "ms": kernel_ms, "ms_is": "K1 launches alone, table filled",
+            "call_ms": call_ms, "device_ms": device_ms,
+            "call_is": "fused_sgd_step_multi: checks, table fill and copy, "
+                       "launch (CUDA events; device_ms from the profiler)",
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_device_ms": lib_device_ms,
+            "library_computes": "torch.optim.SGD(%s) over the same 193 f32 "
+                                "tensors: the same update with lr applied "
+                                "after the momentum (PyTorch's convention), "
+                                "the same bytes" % lib_kind,
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes}
+    _log("[kernels] sgd_step per step %s" % json.dumps(step))
     return cases, step
 
 
@@ -513,9 +699,28 @@ def _profile(torch, fn, top=8):
                 + ev.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    groups = {}
+    for name, t in by_name.items():
+        group = next((g for g, keys in _KERNEL_GROUPS if any(
+            k in name for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + t
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": (1.0 - busy / wall_ms) if busy > 0 else None,
-            "top_kernels_ms": [[n[:80], t] for n, t in ranked]}
+            "top_kernels_ms": [[n[:80], t] for n, t in ranked],
+            "by_group_ms": groups}
+
+
+# device time by kind, matched on kernel names in this order
+_KERNEL_GROUPS = (
+    ("port kernels", ("flash_", "paged_", "adam_step", "sgd_multi")),
+    ("cudnn layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+    ("gemm and convolution", ("cudnn", "xmma", "cutlass", "gemm", "sm90_",
+                              "sm80_", "implicit_convolve", "wgrad",
+                              "dgrad", "conv")),
+    ("reductions", ("reduce_kernel",)),
+    ("copies and casts", ("copy", "Memcpy", "Memset")),
+    ("elementwise", ("elementwise", "Functor")),
+)
 
 
 def _profile_window(srv, torch, prompts):
@@ -826,6 +1031,207 @@ def train(mx, ck, np, torch):
     return out
 
 
+# ------------------------------------------------------------- phase 5
+def _resnet_trainer(mx, net, dtype):
+    """``bench.py`` ``one_config``'s trainer: SGD lr 0.1, momentum 0.9,
+    wd 1e-4 through SPMDTrainer on a one-device mesh."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import SPMDTrainer, make_mesh
+    return SPMDTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
+                       {"learning_rate": 0.1, "momentum": 0.9,
+                        "wd": SGD_WD},
+                       mesh=make_mesh({"dp": -1}), dtype=dtype)
+
+
+def _state(tr):
+    names = tr.fn.trainable
+    return ({n: tr.params[n] for n in names},
+            {n: tr.params[n] for n in tr.fn.aux})
+
+
+def _bf16_vs_f32(mx, torch, net, tr, data, label):
+    """The first step's loss and gradients on the bf16 path against an
+    f32 copy (``dtype=None``) at the same weights and batch; nothing is
+    updated."""
+    tr32 = _resnet_trainer(mx, net, None)
+    tr32._materialize(data)
+    loss16, _, g16 = tr._loss_and_grads(*_state(tr), data, label)
+    loss32, _, g32 = tr32._loss_and_grads(*_state(tr32), data, label)
+    # a conv bias that feeds a BatchNorm has an exact gradient of 0: its
+    # norm is floored at 1% of the largest tensor's gradient norm
+    floor = 1e-2 * max(float(b.norm()) for b in g32)
+    errs = sorted((float((a - b).norm()) / max(float(b.norm()), floor), n)
+                  for a, b, n in zip(g16, g32, tr.fn.trainable))
+    out = {"loss_bf16": float(loss16), "loss_f32": float(loss32),
+           "loss_rel_diff": abs(float(loss16) - float(loss32))
+           / abs(float(loss32)), "loss_rtol": RESNET_BF16_LOSS_RTOL,
+           "grad_rel_err_floor": "1% of the largest gradient norm",
+           "grad_rel_err_median": errs[len(errs) // 2][0],
+           "grad_rel_err_max": errs[-1][0],
+           "grad_rel_err_worst": [[n, e] for e, n in errs[-3:]]}
+    del tr32, g16, g32
+    torch.cuda.empty_cache()
+    assert out["loss_rel_diff"] <= RESNET_BF16_LOSS_RTOL, out
+    return out
+
+
+def _sgd_routes(ck, torch, tr, data, label):
+    """One step's gradients at the trainer's state, taken once and applied
+    to clones of the masters and momenta three ways: the trainer's fused
+    route (K1, one launch), K1's plain version, and the tier-off route
+    (``SGD.step`` per tensor).  K1 must equal its plain version bit for
+    bit.  ``SGD.step`` rounds ``wd * w`` and ``momentum * m`` on their own
+    where K1 (and the reference's compiled step) contracts them into
+    FMAs, so it may differ in the last bits: each element of the two
+    routes may differ by at most SGD_ROUTE_TOL x the sum of the update's
+    terms' magnitudes (|w| + |momentum * m| + |lr * g| + |lr * wd * w|)."""
+    train, aux = _state(tr)
+    _, _, grads = tr._loss_and_grads(train, aux, data, label)
+    lrs, wds = tr._hyper()
+    opt, t = tr.optimizer, tr._step_num + 1
+    names = tr.fn.trainable
+    w0 = [train[n].detach() for n in names]
+    m0 = [tr.opt_state[n] for n in names]
+
+    def clones():
+        return [w.clone() for w in w0], [m.clone() for m in m0]
+    kw, km = clones()
+    opt.step_fused_multi(kw, grads, km, lrs, wds, t, table=ck.SgdTable())
+    pw, pm = clones()
+    ck.fused_sgd_step_multi_plain(pw, grads, pm, lrs, wds, opt.momentum)
+    sw, sm = clones()
+    with torch.no_grad():
+        for w, g, m, lr, wd in zip(sw, grads, sm, lrs, wds):
+            nw, nm = opt.step(w, g, m, lr, wd, t)
+            w.copy_(nw)
+            m.copy_(nm)
+    torch.cuda.synchronize()
+    vs_plain = sum(_differing(torch, a, b) for a, b in zip(kw + km, pw + pm))
+    vs_step, worst = 0, 0.0
+    for w, m, g, lr, wd, a_w, a_m, b_w, b_m in zip(w0, m0, grads, lrs, wds,
+                                                  kw, km, sw, sm):
+        mag = (w.abs() + opt.momentum * m.abs() + lr * g.abs()
+               + lr * wd * w.abs())
+        for a, b in ((a_w, b_w), (a_m, b_m)):
+            vs_step += _differing(torch, a, b)
+            worst = max(worst, float(((a - b).abs() / mag.clamp_min(
+                1e-30)).max()))
+    out = {"tensors": len(names), "params": sum(w.numel() for w in w0),
+           "k1_vs_plain_differing": vs_plain,
+           "k1_vs_sgd_step_differing": vs_step,
+           "k1_vs_sgd_step_worst_rel": worst,
+           "route_tol": SGD_ROUTE_TOL}
+    assert vs_plain == 0 and worst <= SGD_ROUTE_TOL, out
+    return out
+
+
+def _timed(np, torch, tr, data, label, steps):
+    """Losses and host-clock ms of ``steps`` steps, each ending in a sync
+    (the loss read)."""
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(tr.step(data, label)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    assert all(np.isfinite(losses)), losses
+    return losses, step_ms
+
+
+def _rate(np, step_ms, card):
+    med = float(np.median(step_ms))
+    flops = RESNET_BATCH * RESNET_FLOPS_PER_IMG
+    return {"median_step_ms": med,
+            "img_per_s": RESNET_BATCH / (med / 1e3),
+            "flops_per_step": flops,
+            "mfu_vs_989_tflops": flops / (med / 1e3) / PEAK_BF16_FLOPS,
+            "card": card}
+
+
+def train_resnet(mx, ck, np, torch, card):
+    """ResNet-50 v1 trained by SPMDTrainer at BS 128, as ``bench.py``
+    ``one_config`` runs it."""
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    # cuDNN picks each convolution's algorithm by timing it (first steps)
+    torch.backends.cudnn.benchmark = True
+    rng = np.random.RandomState(SEED)
+    shape = (RESNET_BATCH, 3, RESNET_HW, RESNET_HW)
+    data = torch.from_numpy(rng.uniform(size=shape).astype(np.float32)).cuda()
+    label = torch.from_numpy(rng.randint(0, 1000, (RESNET_BATCH,))
+                             .astype(np.float32)).cuda()
+    t0 = time.perf_counter()
+    mx.random.seed(SEED)
+    net = vision.get_model("resnet50_v1", classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net(mx.nd.array(data, ctx=mx.gpu(0)))    # resolve the deferred shapes
+    tr = _resnet_trainer(mx, net, "bfloat16")
+    tr._materialize(data)
+    out = {"setup_s": time.perf_counter() - t0, "batch": RESNET_BATCH,
+           "tensors": len(tr.fn.trainable), "aux": len(tr.fn.aux),
+           "params": sum(tr.params[n].numel() for n in tr.fn.trainable),
+           "card": card, "cudnn_benchmark": True}
+    out["bf16_vs_f32"] = _bf16_vs_f32(mx, torch, net, tr, data, label)
+    _log("[resnet] first step, bf16 vs f32 %s" % json.dumps(
+        out["bf16_vs_f32"]))
+    warm, _ = _timed(np, torch, tr, data, label, RESNET_WARMUP)
+    out["sgd_routes"] = _sgd_routes(ck, torch, tr, data, label)
+    _log("[resnet] K1 vs its plain version and SGD.step %s"
+         % json.dumps(out["sgd_routes"]))
+
+    # --- the main path: counts zeroed just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(torch, tt, ck)
+    losses, step_ms = _timed(np, torch, tr, data, label, RESNET_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    c = tt.snapshot()["counters"]
+    want = dict.fromkeys(launches, 0)
+    want["sgd_step"] = RESNET_STEPS
+    assert launches == want, (launches, want)
+    out.update({"steps": RESNET_STEPS, "warmup_losses": warm,
+                "losses": losses, "loss_fell": losses[-1] < losses[0],
+                "step_ms": step_ms, "launches": launches,
+                "fused_step_counter": c.get("kernels.fused_step", 0),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    out.update(_rate(np, step_ms, card))
+    _log("[resnet] bf16 %s" % json.dumps(
+        {k: v for k, v in out.items() if k not in ("bf16_vs_f32",
+                                                     "sgd_routes")}))
+    if not out["loss_fell"]:
+        _log("[resnet] NOTE: the loss did not fall over the counted steps")
+    if _profiler_records_cuda(torch):
+        out["profile"] = _profile(
+            torch, lambda: [tr.step(data, label) for _ in range(3)], top=16)
+    else:
+        out["profile"] = {"error": "not measured: torch.profiler recorded "
+                                   "no CUDA kernels"}
+    _log("[resnet] profile over 3 steps %s" % json.dumps(out["profile"]))
+    del tr
+    torch.cuda.empty_cache()
+
+    # --- the reference sweep's other rows, 5 timed steps each
+    for key, dtype, layout in (("nhwc_bf16", "bfloat16", "NHWC"),
+                               ("f32", None, "native")):
+        mx.config.set("conv.internal_layout", layout)
+        try:
+            other = _resnet_trainer(mx, net, dtype)
+            _timed(np, torch, other, data, label, 1)
+            torch.cuda.reset_peak_memory_stats()
+            row_losses, row_ms = _timed(np, torch, other, data, label, 5)
+        finally:
+            mx.config.unset("conv.internal_layout")
+        row = {"dtype": dtype or "float32", "conv_layout": layout,
+               "losses": row_losses, "step_ms": row_ms,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        row.update(_rate(np, row_ms, card))
+        out[key] = row
+        _log("[resnet] %s %s" % (key, json.dumps(row)))
+        del other
+        torch.cuda.empty_cache()
+    return out
+
+
 def _summary(name, source, replaces, cases, launches):
     """One line of the kernels table; its times are those of the largest
     shape it is checked at (B=4 S=2048 causal, or K=2048)."""
@@ -839,7 +1245,9 @@ def _summary(name, source, replaces, cases, launches):
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "at": top["shape"],
-            "cases": cases}
+            "cases": cases,
+            **{k: top[k] for k in ("device_ms", "library_event_ms")
+               if k in top}}
 
 
 def main(argv=None):
@@ -883,8 +1291,18 @@ def main(argv=None):
     paged = check_paged(ck, torch, F, quant=False)
     paged8 = check_paged(ck, torch, F, quant=True)
     bwd_dq, bwd_dkv = check_flash_bwd(ck, torch, F)
+    top = max(bwd_dq, key=lambda c: c["bound_ms"])
+    top_kv = max(bwd_dkv, key=lambda c: c["bound_ms"])
+    if top["device_ms"] and top_kv["device_ms"] and top["library_ms"]:
+        both = top["device_ms"] + top_kv["device_ms"]
+        _log("[kernels] flash backward at %s, device time: K2dq %.4f + "
+             "K2dkv %.4f = %.4f ms, sdpa backward %.4f ms (ratio %.3f)"
+             % (json.dumps(top["shape"]), top["device_ms"],
+                top_kv["device_ms"], both, top["library_ms"],
+                both / top["library_ms"]))
     adam, adam_step = check_adam(ck, torch)
-    bad = [c for c in flash + paged + paged8 + bwd_dq + bwd_dkv + adam
+    sgd, sgd_step = check_sgd(ck, torch, mx, np)
+    bad = [c for c in flash + paged + paged8 + bwd_dq + bwd_dkv + adam + sgd
            if not c["ok"]]
     if bad:
         raise AssertionError("kernel disagrees with its plain version: %s"
@@ -894,6 +1312,7 @@ def main(argv=None):
     os.makedirs(workdir, exist_ok=True)
     report["serve"] = serve(mx, ck, np, torch, workdir)
     report["train"] = train(mx, ck, np, torch)
+    report["resnet"] = train_resnet(mx, ck, np, torch, card)
     launches = report["serve"]["greedy"]["launches"]
     trained = report["train"]["launches"]
     pk = "mxnet_tpu/ops/pallas_kernels.py:"
@@ -919,6 +1338,20 @@ def main(argv=None):
          "bound_by": adam_step["bound_by"],
          "library_ms": adam_step["library_ms"], "at": adam_step["at"],
          "cases": adam},
+        {"name": "sgd_step", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/sgd_step.cu",
+         "replaces": pk + "495",
+         "launches": report["resnet"]["launches"]["sgd_step"],
+         "max_abs_err": max(c["max_abs_err"] for c in sgd),
+         "differing_elements": sum(sum(c["differing_elements"].values())
+                                   for c in sgd),
+         "ms": sgd_step["ms"], "call_ms": sgd_step["call_ms"],
+         "device_ms": sgd_step["device_ms"],
+         "plain_ms": sgd_step["plain_ms"],
+         "bound_ms": sgd_step["bound_ms"], "bound_by": sgd_step["bound_by"],
+         "library_ms": sgd_step["library_ms"],
+         "library_device_ms": sgd_step["library_device_ms"],
+         "at": sgd_step["at"], "cases": sgd},
     ]
     # flash_fwd runs on both paths: its launches in each counted run
     kernels[0]["launches_by_path"] = {"serve_greedy": launches["flash_fwd"],

@@ -14,10 +14,14 @@ Ported so far:
 * TransformerLM training — ``TransformerLM.loss`` -> ``backward()`` ->
   ``optimizer.Adam.update_multi_precision`` (bf16 weights over f32
   masters);
+* Gluon training through ``parallel.SPMDTrainer`` — ``mx.nd`` and the op
+  registry, ``gluon`` Blocks, Parameters, layers, losses and the ResNet
+  model zoo, ``initializer``, ``parallel.functionalize``, and SGD with
+  momentum over f32 masters (the ResNet-50 benchmark step);
 
 with hand-written CUDA kernels for flash-attention forward and backward,
-paged decode attention and the fused Adam step (``ops/cuda_kernels.py``,
-sources in ``csrc/``).
+paged decode attention, the fused Adam step and the multi-tensor fused
+SGD step (``ops/cuda_kernels.py``, sources in ``csrc/``).
 
 Entry points run on ``cuda:0`` unless the caller asks for the CPU
 (``device="cpu"`` / ``mx.cpu()``); without a GPU they raise.
@@ -30,11 +34,16 @@ __version__ = "0.1.0"
 
 from . import config, telemetry
 from .base import KernelUnsupportedError, MXNetError, MXNetErrorNoDevice
-from .context import Context, cpu, gpu, num_gpus
+from .context import Context, cpu, gpu, num_gpus, current_context
+from . import random, ndarray, autograd, initializer
+from . import ndarray as nd
+from . import initializer as init
 from . import kernels, quantization, models, convert, deploy, serving
-from . import generation, optimizer
+from . import generation, optimizer, gluon, parallel
 
 __all__ = ["MXNetError", "MXNetErrorNoDevice", "KernelUnsupportedError",
-           "Context", "cpu", "gpu", "num_gpus", "config", "telemetry",
-           "kernels", "quantization", "models", "convert", "deploy",
-           "serving", "generation", "optimizer"]
+           "Context", "cpu", "gpu", "num_gpus", "current_context", "config",
+           "telemetry", "random", "ndarray", "nd", "autograd",
+           "initializer", "init", "kernels", "quantization", "models",
+           "convert", "deploy", "serving", "generation", "optimizer",
+           "gluon", "parallel"]

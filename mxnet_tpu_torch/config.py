@@ -1,6 +1,8 @@
 """``mx.config`` — the typed runtime-knob registry (counterpart of
-``mxnet_tpu.config``), cut down to the knobs the generation-serving path
-reads.
+``mxnet_tpu.config``), cut down to the knobs the ported paths read: the
+generation-serving path, the kernel tier, and the ResNet training path
+(convolution layout, BatchNorm statistics, and the trainer options that
+are not ported yet, which the trainer refuses instead of ignoring).
 
 Every knob has a type, a default, its environment variable and a
 docstring.  ``get`` reads programmatic override > env var > default;
@@ -101,11 +103,38 @@ register_knob(
     "kernels.enabled", "MXNET_TPU_KERNELS", bool, True,
     "route through the hand-written CUDA kernel tier (mx.kernels): "
     "flash-attention forward and backward under every attention call, the "
-    "paged decode kernel under every decode step, and the fused Adam "
-    "step under Optimizer.update_multi_precision. A CUDA tensor the kernel "
+    "paged decode kernel under every decode step, and the fused "
+    "optimizer step (Adam, SGD) under Optimizer.update_multi_precision "
+    "and SPMDTrainer. A CUDA tensor the kernel "
     "cannot take raises KernelUnsupportedError; a CPU tensor runs the "
     "kernel's plain PyTorch version. Off = the plain attention lowering "
     "everywhere, the only way to run it on the card.")
+register_knob(
+    "conv.internal_layout", "MXTPU_CONV_LAYOUT", str, "native",
+    "internal conv layout: native (NCHW) or NHWC (the input and weight "
+    "of every 2-D convolution go channels_last in memory; the logical API "
+    "stays NCHW).")
+register_knob(
+    "conv.weights_layout", "MXTPU_CONV_WEIGHTS_LAYOUT", str, "ref",
+    "conv weight storage inside SPMDTrainer: ref (OIHW). HWIO is not "
+    "ported; SPMDTrainer raises NotImplementedError under it.")
+register_knob(
+    "bn_two_pass_stats", "MXTPU_BN_TWO_PASS_STATS", bool, False,
+    "BatchNorm training statistics: False (default) = single-pass "
+    "moving-mean-shifted moments; True = the exact two-pass variance, for "
+    "offset-heavy inputs whose |mean|/std exceeds ~3000 at cold start.")
+register_knob(
+    "resilience.nanguard", "MXNET_TPU_NANGUARD", str, "",
+    "non-finite step guard of the fused train step ('skip' / 'abort'). "
+    "Not ported; SPMDTrainer raises NotImplementedError when it is set.")
+register_knob(
+    "numerics.capture", "MXNET_TPU_NUMERICS", str, "",
+    "in-step tensor-statistics capture cadence ('step:N'). Not ported; "
+    "SPMDTrainer raises NotImplementedError when it is set.")
+register_knob(
+    "kvstore.grad_compress", "MXNET_TPU_GRAD_COMPRESS", str, "",
+    "gradient-sync wire compression ('2bit'). Not ported; SPMDTrainer "
+    "raises NotImplementedError when it is set.")
 register_knob(
     "quant.error_budget", "MXNET_TPU_QUANT_ERROR_BUDGET", float, 0.05,
     "accuracy guardrail for int8 paths: max relative error an int8 "

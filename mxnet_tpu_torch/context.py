@@ -3,15 +3,21 @@
 ``mx.gpu(i)`` / ``mx.cpu()`` name a ``torch.device``.  The default device
 is ``cuda:0``; when no CUDA device is visible, resolving the default (or
 any ``gpu`` context) raises :class:`MXNetErrorNoDevice` rather than
-falling back to the CPU.
+falling back to the CPU.  ``with mx.cpu():`` makes a context the default
+for the code inside, as in the reference.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
 from .base import MXNetErrorNoDevice
 
-__all__ = ["Context", "cpu", "gpu", "num_gpus", "resolve_device"]
+__all__ = ["Context", "cpu", "gpu", "num_gpus", "resolve_device",
+           "current_context"]
+
+_DEFAULT = threading.local()  # .stack: contexts entered with ``with``
 
 
 class Context:
@@ -37,6 +43,13 @@ class Context:
                                      % (self, n))
         return torch.device("cuda", self.device_id)
 
+    def __enter__(self):
+        _DEFAULT.__dict__.setdefault("stack", []).append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _DEFAULT.stack.pop()
+
     def __eq__(self, other):
         return (isinstance(other, Context)
                 and self.device_type == other.device_type
@@ -61,11 +74,18 @@ def num_gpus():
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
+def current_context():
+    """The innermost context entered with ``with``, else ``gpu(0)``."""
+    stack = getattr(_DEFAULT, "stack", None)
+    return stack[-1] if stack else gpu(0)
+
+
 def resolve_device(device=None):
-    """``None`` -> ``cuda:0`` (raises without a GPU); a :class:`Context`,
-    a ``torch.device`` or a device string -> ``torch.device``."""
+    """``None`` -> the current context (``cuda:0`` unless a ``with ctx:``
+    says otherwise; raises without a GPU); a :class:`Context`, a
+    ``torch.device`` or a device string -> ``torch.device``."""
     if device is None:
-        return gpu(0).torch_device
+        return current_context().torch_device
     if isinstance(device, Context):
         return device.torch_device
     dev = torch.device(device)

@@ -7,13 +7,21 @@ for the port's module (``TransformerLM.load_state_dict``), so both
 packages compute from the same weights and their random generators never
 have to agree.  ``params_to_reference`` is its inverse, so weights the
 port has updated can be compared with the reference's.
+
+``gluon_params_from_reference`` does the same for a Gluon Block: the
+reference Block's parameters (trainable and aux) as ``{name: numpy}``
+go onto the port's Block, matched by name; ``gluon_params_to_reference``
+gives them back under the reference's names.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as _np
 import torch
 
-__all__ = ["params_from_reference", "params_to_reference"]
+__all__ = ["params_from_reference", "params_to_reference",
+           "gluon_params_from_reference", "gluon_params_to_reference"]
 
 
 def _tensor(a):
@@ -58,4 +66,54 @@ def params_to_reference(state_dict):
         for key in path:
             node = node.setdefault(key, {})
         node[leaf] = t.numpy()
+    return out
+
+
+def _top_prefix(names):
+    """The longest common prefix of ``names`` that ends in ``_`` (the
+    reference Block's own prefix, e.g. ``resnetv10_``)."""
+    common = os.path.commonprefix(list(names))
+    return common[:common.rfind("_") + 1]
+
+
+def gluon_params_from_reference(block, np_params, prefix=None):
+    """Set ``block``'s Parameters from the reference Block's
+    ``{name: array}`` (``{n: p.data().asnumpy() for n, p in
+    ref.collect_params().items()}``).
+
+    The two packages count Block prefixes separately (``resnetv10_`` here,
+    ``resnetv11_`` there), so names are matched after stripping each
+    net's own top prefix: the port Block's ``prefix`` and, for the
+    reference's names, ``prefix`` or else their longest common prefix
+    ending in ``_``.  A name or shape that does not pair up raises
+    ``ValueError``.  Values keep each Parameter's dtype and device; a
+    deferred Parameter keeps its value for its first forward."""
+    ref_prefix = _top_prefix(np_params) if prefix is None else prefix
+    ours = {n[len(block.prefix):]: p
+            for n, p in block.collect_params().items()}
+    theirs = {n[len(ref_prefix):]: v for n, v in np_params.items()}
+    if set(ours) != set(theirs):
+        raise ValueError(
+            "parameter names do not pair up: only in the port %s, only in "
+            "the reference %s" % (sorted(set(ours) - set(theirs))[:8],
+                                  sorted(set(theirs) - set(ours))[:8]))
+    for name, p in ours.items():
+        val = _tensor(theirs[name])
+        if p.shape is not None and (len(p.shape) != val.dim() or any(
+                s not in (0, v) for s, v in zip(p.shape, val.shape))):
+            raise ValueError("shape of %s: port %s, reference %s"
+                             % (name, p.shape, tuple(val.shape)))
+        p.set_data(val)
+
+
+def gluon_params_to_reference(block, prefix):
+    """``block``'s Parameters as ``{reference name: numpy}``: the port
+    Block's prefix replaced by the reference's ``prefix``; bf16 and f16
+    values widen to float32."""
+    out = {}
+    for name, p in block.collect_params().items():
+        t = p.data()._data.detach().cpu()
+        if t.dtype in (torch.bfloat16, torch.float16):
+            t = t.float()
+        out[prefix + name[len(block.prefix):]] = t.numpy()
     return out

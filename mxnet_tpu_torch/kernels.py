@@ -17,8 +17,12 @@ module owns when they run:
   its backward the two flash backward kernels, so a loss built on it
   carries its gradient through attention.
 * the fused optimizer step (:func:`fused_step_enabled`): tier on and an
-  optimizer that has ``step_fused`` and is ``jit_safe``; each fused update
-  counts on ``kernels.fused_step`` (:func:`note_fused_step`).
+  optimizer that has ``step_fused`` and is ``jit_safe``.
+  ``kernels.fused_step`` (:func:`note_fused_step`) counts, as in the
+  reference, once per fused update on ``update_multi_precision`` and
+  once per built step in ``parallel.SPMDTrainer`` (whose every step then
+  updates all trainable tensors in one ``step_fused_multi`` call: for
+  SGD one launch of K1).
 
 The feasibility checks are the Hopper kernels' own
 (``cuda_kernels.flash_unsupported_reason`` / ``paged_unsupported_reason``:

@@ -1,0 +1,221 @@
+"""NDArray: the imperative tensor handle (counterpart of
+``mxnet_tpu.ndarray.ndarray``).
+
+An NDArray is a thin mutable handle onto a ``torch.Tensor`` (``_data``).
+Arithmetic and the methods below dispatch through the op registry, so an
+expression on NDArrays runs the same registered ops as ``mx.nd.<Op>``;
+autograd history is PyTorch's own (an NDArray over a tensor that requires
+grad carries it through every op).  ``dtype`` is a ``torch.dtype``.
+The reference's tape (``attach_grad`` / ``backward``), sparse storage and
+the numpy dispatch protocol are not ported.
+"""
+from __future__ import annotations
+
+import numpy as _np
+import torch
+
+from ..base import torch_dtype
+from ..context import cpu, gpu, resolve_device
+
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "waitall"]
+
+
+def _wrap(data):
+    arr = NDArray.__new__(NDArray)
+    arr._data = data
+    return arr
+
+
+def _invoke(name, *args, **attrs):
+    from ..ops.registry import invoke
+    return invoke(name, *args, **attrs)
+
+
+class NDArray:
+    __slots__ = ("_data", "__weakref__")
+
+    # numpy defers to NDArray in mixed expressions
+    __array_priority__ = 1000.0
+
+    def __init__(self, data, ctx=None, dtype=None):
+        if isinstance(data, NDArray):
+            data = data._data
+        self._data = _as_tensor(data, ctx, dtype)
+
+    # ------------------------------------------------------------------ meta
+    @property
+    def shape(self):
+        return tuple(self._data.shape)
+
+    @property
+    def dtype(self):
+        return self._data.dtype
+
+    @property
+    def size(self):
+        return int(self._data.numel())
+
+    @property
+    def ndim(self):
+        return self._data.dim()
+
+    @property
+    def context(self):
+        dev = self._data.device
+        return gpu(dev.index or 0) if dev.type == "cuda" else cpu()
+
+    ctx = context
+
+    def __len__(self):
+        if self.ndim == 0:
+            raise TypeError("len() of unsized object")
+        return self.shape[0]
+
+    def __repr__(self):
+        return "%s\n<NDArray %s @%s>" % (self.asnumpy(),
+                                         "x".join(map(str, self.shape)),
+                                         self.context)
+
+    def __bool__(self):
+        if self.size != 1:
+            raise ValueError("The truth value of an NDArray with multiple "
+                             "elements is ambiguous.")
+        return bool(self._data)
+
+    def __float__(self):
+        return float(self._data)
+
+    def __int__(self):
+        return int(self._data)
+
+    # ------------------------------------------------------ host interchange
+    def asnumpy(self):
+        """A host copy; bf16 and f16 widen to float32 (numpy has no bf16;
+        the widening is exact)."""
+        t = self._data.detach()
+        if t.dtype in (torch.bfloat16, torch.float16):
+            t = t.float()
+        return t.cpu().numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.asnumpy()
+        return a.astype(dtype) if dtype is not None else a
+
+    def asscalar(self):
+        if self.size != 1:
+            raise ValueError("The current array is not a scalar")
+        return self.asnumpy().reshape(())[()]
+
+    item = asscalar
+
+    def copy(self):
+        return _wrap(self._data.clone())
+
+    def detach(self):
+        return _wrap(self._data.detach())
+
+    def _set_data(self, new_data):
+        self._data = new_data
+
+    def __getitem__(self, key):
+        if isinstance(key, NDArray):
+            key = key._data
+        return _wrap(self._data[key])
+
+    # ------------------------------------------------------------ arithmetic
+    def _binop(self, name, other, reverse=False):
+        a, b = (other, self) if reverse else (self, other)
+        return _invoke(name, a, b)
+
+    def __add__(self, o): return self._binop("broadcast_add", o)
+    def __radd__(self, o): return self._binop("broadcast_add", o, True)
+    def __sub__(self, o): return self._binop("broadcast_sub", o)
+    def __rsub__(self, o): return self._binop("broadcast_sub", o, True)
+    def __mul__(self, o): return self._binop("broadcast_mul", o)
+    def __rmul__(self, o): return self._binop("broadcast_mul", o, True)
+    def __truediv__(self, o): return self._binop("broadcast_div", o)
+    def __rtruediv__(self, o): return self._binop("broadcast_div", o, True)
+    def __pow__(self, o): return self._binop("broadcast_power", o)
+    def __rpow__(self, o): return self._binop("broadcast_power", o, True)
+    def __neg__(self): return _invoke("negative", self)
+    def __abs__(self): return _invoke("abs", self)
+
+    # ------------------------------------------------------------ transforms
+    def reshape(self, *shape, **kwargs):
+        """MXNet reshape: a 0 copies the input's dim, -1 is inferred."""
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        if kwargs.get("shape") is not None:
+            shape = tuple(kwargs["shape"])
+        shape = tuple(self.shape[i] if s == 0 else s
+                      for i, s in enumerate(shape))
+        return _invoke("reshape", self, shape=shape)
+
+    def astype(self, dtype, copy=True):
+        return _invoke("cast", self, dtype=dtype)
+
+    def transpose(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (tuple, list)):
+            axes = tuple(axes[0])
+        return _invoke("transpose", self, axes=axes or None)
+
+    def flatten(self):
+        return _invoke("flatten", self)
+
+    def expand_dims(self, axis):
+        return _invoke("expand_dims", self, axis=axis)
+
+    def squeeze(self, axis=None):
+        return _invoke("squeeze", self, axis=axis)
+
+    def sum(self, axis=None, keepdims=False):
+        return _invoke("sum", self, axis=axis, keepdims=keepdims)
+
+    def mean(self, axis=None, keepdims=False):
+        return _invoke("mean", self, axis=axis, keepdims=keepdims)
+
+
+
+# ------------------------------------------------------------- creation
+def _as_tensor(source, ctx=None, dtype=None):
+    """``source`` as a tensor on ``ctx`` (the current context by default:
+    ``cuda:0`` unless the caller asks for the CPU)."""
+    if isinstance(source, NDArray):
+        source = source._data
+    if dtype is None:
+        # MXNet: an array source keeps its dtype, a list or scalar is f32
+        if isinstance(source, torch.Tensor):
+            dtype = source.dtype
+        elif isinstance(source, _np.ndarray):
+            dtype = torch_dtype(source.dtype)
+        else:
+            dtype = torch.float32
+    t = torch.as_tensor(source)
+    return t.to(device=resolve_device(ctx), dtype=torch_dtype(dtype))
+
+
+def array(source_array, ctx=None, dtype=None):
+    return _wrap(_as_tensor(source_array, ctx, dtype))
+
+
+def full(shape, val, ctx=None, dtype=None, **_):
+    if isinstance(shape, int):
+        shape = (shape,)
+    return _wrap(torch.full(tuple(shape), val, dtype=torch_dtype(dtype),
+                            device=resolve_device(ctx)))
+
+
+def zeros(shape, ctx=None, dtype=None, **_):
+    return full(shape, 0, ctx, dtype)
+
+
+def ones(shape, ctx=None, dtype=None, **_):
+    return full(shape, 1, ctx, dtype)
+
+
+def waitall():
+    """Wait for all queued device work (``Engine::WaitForAll``)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+

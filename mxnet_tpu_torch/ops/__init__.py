@@ -1,1 +1,3 @@
-"""Kernels of the port (counterpart of ``mxnet_tpu.ops``)."""
+"""Ops of the port: the kernel tier (``cuda_kernels``), the op registry and
+the registered ops (``nn``, ``tensor``), which register on import."""
+from . import registry, nn, tensor  # noqa: F401

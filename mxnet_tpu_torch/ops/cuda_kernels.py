@@ -14,6 +14,10 @@ Kernels, sources under ``mxnet_tpu_torch/csrc``:
 * ``fused_adam_step`` — the Adam update with its low-precision cast in one
   elementwise pass (``csrc/adam_step.cu``), the port of
   ``_adam_epilogue_kernel``.
+* ``fused_sgd_step_multi`` — the SGD(+momentum) update with its cast over
+  a whole list of tensors in one launch (``csrc/sgd_step.cu``), the port
+  of ``_sgd_epilogue_kernel`` / ``_sgd_nomom_epilogue_kernel``;
+  ``fused_sgd_step`` is its one-tensor form.
 
 Each wrapper takes its kernel only for CUDA tensors: a CPU tensor runs
 the plain version beside it (``*_plain``), which repeats the Pallas
@@ -27,13 +31,15 @@ Routing policy (when to call the wrapper at all) lives in
 
 Launch counts: ``LAUNCHES[name]`` goes up by one at each kernel launch
 and nowhere else (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``,
-``paged_decode_bf16``, ``paged_decode_int8``, ``adam_step``).
+``paged_decode_bf16``, ``paged_decode_int8``, ``adam_step``,
+``sgd_step``).
 """
 from __future__ import annotations
 
 import ctypes
 import math
 
+import numpy as _np
 import torch
 
 from ..base import KernelUnsupportedError
@@ -44,8 +50,10 @@ __all__ = ["flash_attention", "flash_attention_plain",
            "paged_attention", "paged_attention_plain", "fused_adam_step",
            "fused_adam_step_plain", "flash_unsupported_reason",
            "flash_bwd_unsupported_reason", "paged_unsupported_reason",
-           "adam_unsupported_reason", "sqrt_rn", "div_rn", "LAUNCHES",
-           "reset_launches",
+           "adam_unsupported_reason", "fused_sgd_step", "fused_sgd_step_plain",
+           "fused_sgd_step_multi", "fused_sgd_step_multi_plain",
+           "sgd_unsupported_reason", "SgdTable", "sqrt_rn", "div_rn",
+           "LAUNCHES", "reset_launches",
            "HEAD_DIM", "NEG"]
 
 #: masked-score floor of the plain versions (parallel.ring_attention)
@@ -55,7 +63,8 @@ NEG = -1e30
 HEAD_DIM = 64
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "paged_decode_bf16": 0, "paged_decode_int8": 0, "adam_step": 0}
+            "paged_decode_bf16": 0, "paged_decode_int8": 0, "adam_step": 0,
+            "sgd_step": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -81,6 +90,11 @@ _SIGNATURES = {
     "adam_step": {
         "mx_adam_step": ([_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, _I,
                           _F, _F, _F, _F, _F, _F, _F, _P], _I),
+        "mx_error_string": ([_I], ctypes.c_char_p),
+    },
+    "sgd_step": {
+        "mx_sgd_step_multi": ([_P, _I, _I, ctypes.c_longlong, _F, _I, _P],
+                              _I),
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
 }
@@ -513,3 +527,230 @@ def fused_adam_step(weight, grad, m, v, lr_t, wd, beta1, beta2, eps,
     _check(lib, err, "adam_step")
     LAUNCHES["adam_step"] += 1
     return lp, nw, (nm, nv)
+
+
+# ----------------------------------------------------------------- sgd
+def sgd_unsupported_reason(weight, grad, state, momentum, out=None):
+    """Why the SGD kernel cannot take this tensor, or None: an f32 master,
+    a grad of its shape in f32 or bf16, an f32 momentum of its shape
+    (when ``momentum`` is not 0), and an ``out`` cast (optional) of its
+    shape in f32 or bf16.  Shapes and dtypes only."""
+    if grad.shape != weight.shape:
+        return "grad shape %s != weight %s" % (tuple(grad.shape),
+                                               tuple(weight.shape))
+    if weight.dtype != torch.float32:
+        return "master must be f32, got %s" % weight.dtype
+    if grad.dtype not in (torch.float32, torch.bfloat16):
+        return "grad must be f32 or bf16, got %s" % grad.dtype
+    if momentum != 0.0 and (state is None or state.shape != weight.shape
+                            or state.dtype != torch.float32):
+        return "momentum must be an f32 tensor of %s" % (
+            tuple(weight.shape),)
+    if out is not None and (out.shape != weight.shape or out.dtype not in (
+            torch.float32, torch.bfloat16)):
+        return "out must be f32 or bf16 of %s, got %s %s" % (
+            tuple(weight.shape), out.dtype, tuple(out.shape))
+    if weight.numel() == 0:
+        return "empty tensor"
+    return None
+
+
+def fused_sgd_step_plain(weight, grad, state, lr, wd, momentum,
+                         out_dtype=None):
+    """The SGD epilogue's arithmetic in PyTorch ops, rounding exactly as
+    ``csrc/sgd_step.cu`` does (and as the reference's Pallas body, whose
+    multiply-adds its compiler contracts)::
+
+        g' = fma(wd, w, g)
+        m' = fma(momentum, m, lr * g');  w' = w - m'     (momentum != 0)
+        w' = fma(-lr, g', w)                              (momentum == 0)
+
+    Every scalar is the f32 value of the Python float.  Returns
+    ``(w'.to(out_dtype), w', m')``; ``m'`` is None without momentum."""
+    dev = weight.device
+    lr_, wd_, mom = (_f32(x).to(dev) for x in (lr, wd, momentum))
+    out_dtype = out_dtype or weight.dtype
+    g = _fma(wd_, weight, grad.float())
+    if momentum == 0.0:
+        nw = _fma(-lr_, g, weight)
+        return nw.to(out_dtype), nw, None
+    nm = _fma(mom, state, lr_ * g)
+    nw = weight - nm
+    return nw.to(out_dtype), nw, nm
+
+
+def fused_sgd_step_multi_plain(weights, grads, states, lrs, wds, momentum,
+                               outs=None):
+    """:func:`fused_sgd_step_multi` with the plain version, tensor by
+    tensor, in place."""
+    outs = outs if outs is not None else [None] * len(weights)
+    for w, g, s, lr, wd, o in zip(weights, grads, states, lrs, wds, outs):
+        lp, nw, nm = fused_sgd_step_plain(
+            w, g, s, lr, wd, momentum,
+            out_dtype=o.dtype if o is not None else None)
+        w.copy_(nw)
+        if nm is not None:
+            s.copy_(nm)
+        if o is not None:
+            o.copy_(lp)
+
+
+# one table record per tensor; the layout of ``Entry`` in csrc/sgd_step.cu
+_SGD_ENTRY = _np.dtype([("w", "<u8"), ("g", "<u8"), ("m", "<u8"),
+                        ("out", "<u8"), ("n", "<i8"), ("block0", "<i4"),
+                        ("lr", "<f4"), ("wd", "<f4"), ("flags", "<i4"),
+                        ("pad", "<i8")])
+assert _SGD_ENTRY.itemsize == 64
+_SGD_GRAD_BF16, _SGD_OUT_BF16, _SGD_OUT_F32, _SGD_VEC = 1, 2, 4, 8
+#: elements per block of the SGD kernel: 256 threads x 4 lanes x 8 steps
+SGD_CHUNK = 8192
+
+
+class SgdTable:
+    """The device-side table one SGD launch walks, kept across steps.
+
+    The masters, momenta and casts are updated in place and keep their
+    storage, so their pointers, element counts and each tensor's first
+    block are written once; the table is rebuilt whenever one of those
+    pointers or counts changes (a reallocated tensor never leaves a stale
+    pointer in it).  The grads are new tensors every step and lr/wd follow
+    the schedule, so their columns are rewritten and the table is copied
+    to the card (one small host-to-device copy on the launch's stream)
+    at every launch."""
+
+    def __init__(self):
+        self._key = None
+        self._host = None
+        self._dev = None
+        self._blocks = 0
+
+    def _rebuild(self, key, weights, states, outs):
+        n = len(weights)
+        host = _np.zeros(n, dtype=_SGD_ENTRY)
+        host["w"] = [w.data_ptr() for w in weights]
+        host["m"] = [t.data_ptr() if t is not None else 0 for t in states]
+        host["out"] = [t.data_ptr() if t is not None else 0 for t in outs]
+        host["n"] = [w.numel() for w in weights]
+        blocks = _np.asarray([-(-w.numel() // SGD_CHUNK) for w in weights],
+                             dtype=_np.int64)
+        starts = _np.concatenate([[0], _np.cumsum(blocks)])
+        host["block0"] = starts[:-1]
+        block0 = int(starts[-1])
+        if block0 >= 2 ** 31:
+            raise KernelUnsupportedError(
+                "sgd kernel cannot take this call: %d blocks" % block0)
+        self._key, self._host, self._blocks = key, host, block0
+        self._dev = torch.empty(host.nbytes, dtype=torch.uint8,
+                                device=weights[0].device)
+
+    def fill(self, weights, grads, states, lrs, wds, outs):
+        """Bring the table up to date for this launch; returns
+        ``(device table, blocks)``."""
+        key = tuple((w.data_ptr(), w.numel(),
+                     s.data_ptr() if s is not None else 0,
+                     o.data_ptr() if o is not None else 0,
+                     o.dtype if o is not None else None)
+                    for w, s, o in zip(weights, states, outs))
+        if key != self._key:
+            self._rebuild(key, weights, states, outs)
+        host = self._host
+        gptrs, flags = [], []
+        for w, g, s, o in zip(weights, grads, states, outs):
+            gptrs.append(g.data_ptr())
+            f = _SGD_GRAD_BF16 if g.dtype == torch.bfloat16 else 0
+            if o is not None:
+                f |= (_SGD_OUT_BF16 if o.dtype == torch.bfloat16
+                      else _SGD_OUT_F32)
+            # 4 lanes: 16 bytes of an f32 tensor, 8 of a bf16 one
+            lanes = [(w, 16), (g, 8 if g.dtype == torch.bfloat16 else 16)]
+            lanes += [(s, 16)] if s is not None else []
+            lanes += [(o, 8 if o.dtype == torch.bfloat16 else 16)] \
+                if o is not None else []
+            if all(t.data_ptr() % a == 0 for t, a in lanes):
+                f |= _SGD_VEC
+            flags.append(f)
+        host["g"] = _np.asarray(gptrs, dtype=_np.uint64)
+        host["flags"] = _np.asarray(flags, dtype=_np.int32)
+        host["lr"] = _np.asarray(lrs, dtype=_np.float32)
+        host["wd"] = _np.asarray(wds, dtype=_np.float32)
+        # pinned staging: the copy is queued on the stream and the caching
+        # host allocator keeps the buffer until it has run
+        staged = torch.from_numpy(host.view(_np.uint8)).pin_memory()
+        self._dev.copy_(staged, non_blocking=True)
+        return self._dev, self._blocks
+
+
+def fused_sgd_step_multi(weights, grads, states, lrs, wds, momentum,
+                         outs=None, table=None):
+    """One SGD(+momentum) update over a list of tensors, in place:
+    ``weights`` (f32 masters) and ``states`` (f32 momenta, ``None``
+    entries without momentum) receive the new values, ``outs`` (optional,
+    per tensor ``None`` or an f32/bf16 tensor) the cast of the new master.
+    ``lrs``/``wds`` are per tensor.  CPU tensors run the plain version
+    tensor by tensor; CUDA tensors launch ``csrc/sgd_step.cu`` once for the
+    whole list, or raise.  ``table`` (an :class:`SgdTable`) keeps the
+    device-side table across calls."""
+    n = len(weights)
+    states = list(states) if states is not None else [None] * n
+    outs = list(outs) if outs is not None else [None] * n
+    if not (len(grads) == len(states) == len(lrs) == len(wds) == len(outs)
+            == n) or n == 0:
+        raise ValueError("fused_sgd_step_multi needs one grad, state, lr, "
+                         "wd and out per weight (got %d weights)" % n)
+    if all(w.device.type == "cpu" for w in weights):
+        return fused_sgd_step_multi_plain(weights, grads, states, lrs, wds,
+                                          momentum, outs)
+    momentum = float(momentum)
+    for i, (w, g, s, o) in enumerate(zip(weights, grads, states, outs)):
+        reason = sgd_unsupported_reason(w, g, s, momentum, o)
+        if reason is None:
+            present = [t for t in (w, g, s if momentum != 0.0 else None, o)
+                       if t is not None]
+            reason = _launch_reason(weights[0], *present)
+        if reason is not None:
+            raise KernelUnsupportedError(
+                "sgd kernel cannot take tensor %d of %d: %s" % (i, n, reason))
+    if momentum == 0.0:
+        states = [None] * n
+    table = table if table is not None else SgdTable()
+    dev, blocks = table.fill(weights, grads, states, lrs, wds, outs)
+    _launch_sgd(dev, n, blocks, momentum, weights[0])
+
+
+def _launch_sgd(table, n, blocks, momentum, like):
+    """Launch K1 alone over a filled device table (:class:`SgdTable`
+    fills it after :func:`fused_sgd_step_multi` has checked every
+    tensor), on the stream of ``like``'s device."""
+    lib = _build.load("sgd_step", _SIGNATURES["sgd_step"])
+    err = lib.mx_sgd_step_multi(table.data_ptr(), n, blocks, SGD_CHUNK,
+                                momentum, int(momentum != 0.0), _stream(like))
+    _check(lib, err, "sgd_step")
+    LAUNCHES["sgd_step"] += 1
+
+
+def fused_sgd_step(weight, grad, state, lr, wd, momentum, out_dtype=None,
+                   out=None):
+    """Single-tensor SGD update with the cast epilogue: returns
+    ``(lp, new_w, new_m)`` like the reference's ``fused_sgd_step``
+    (``new_m`` is None without momentum).  ``out=(lp, w, m)`` names the
+    tensors to write (they may be the inputs: the update is elementwise);
+    by default new ones are allocated.  ``lp`` may be ``w`` itself when
+    ``out_dtype`` is f32: the master is then written once and returned for
+    both.  CPU tensors run the plain version; CUDA tensors launch
+    ``csrc/sgd_step.cu`` (one launch) or raise."""
+    out_dtype = out_dtype or weight.dtype
+    has_mom = float(momentum) != 0.0
+    if out is None:
+        nw = weight.clone()
+        nm = state.clone() if has_mom else None
+        lp = nw if out_dtype == torch.float32 else torch.empty_like(
+            weight, dtype=out_dtype)
+    else:
+        lp, nw, nm = out
+        if nw is not weight:
+            nw.copy_(weight)
+        if has_mom and nm is not state:
+            nm.copy_(state)
+    fused_sgd_step_multi([nw], [grad], [nm], [lr], [wd], momentum,
+                         outs=[None if lp is nw else lp])
+    return lp, nw, nm

@@ -1,0 +1,166 @@
+"""Neural-network ops (counterpart of ``mxnet_tpu.ops.nn``), the subset
+the ported layers call: ``FullyConnected``, ``Convolution``, ``Pooling``,
+``BatchNorm``, ``Activation``, ``softmax`` and ``log_softmax``.
+
+The reference left these to XLA, so here each is PyTorch's own op
+(``F.conv2d`` runs cuDNN on the card) arranged to the reference's
+numerics: NCHW at the op boundary with OIHW weights, a convolution's
+output in its input dtype with the bias added after, pooling windows
+padded with -inf, and BatchNorm as ``_batch_norm`` writes it (f32
+statistics, single-pass shifted moments, one folded scale and bias per
+channel).  No hand-written kernel is on this path.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .. import config as _config
+from .registry import register
+
+
+# ------------------------------------------------------------------ dense
+@register("FullyConnected", aliases=("fully_connected",))
+def _fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
+                     flatten=True, **_):
+    x = data.reshape(data.shape[0], -1) if flatten else data
+    out = torch.matmul(x, weight.t())
+    if bias is not None and not no_bias:
+        out = out + bias
+    return out
+
+
+# ------------------------------------------------------------------ conv
+def _tup(v, n):
+    if v is None:
+        return (1,) * n
+    if isinstance(v, int):
+        return (v,) * n
+    t = tuple(v)
+    return t if len(t) == n else t + (t[-1],) * (n - len(t))
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+@register("Convolution", aliases=("convolution",))
+def _convolution(data, weight, bias=None, kernel=None, stride=None,
+                 dilate=None, pad=None, num_filter=None, num_group=1,
+                 no_bias=False, layout=None, **_):
+    """NCHW data, OIHW weight.  Under ``conv.internal_layout=NHWC`` a 2-D
+    convolution's input and weight go ``channels_last`` in memory (the
+    logical layout stays NCHW, as in the reference).  f32 inputs
+    accumulate in f32 (TF32 is the caller's switch:
+    ``torch.backends.cudnn.allow_tf32``)."""
+    ndim = data.dim() - 2
+    x, w = data, weight
+    if ndim == 2 and _config.get("conv.internal_layout") == "NHWC":
+        x = x.contiguous(memory_format=torch.channels_last)
+        w = w.contiguous(memory_format=torch.channels_last)
+    out = _CONV[ndim](x, w, stride=_tup(stride, ndim),
+                      padding=_tup(pad if pad is not None else 0, ndim),
+                      dilation=_tup(dilate, ndim), groups=num_group)
+    out = out.to(data.dtype)
+    if bias is not None and not no_bias:
+        out = out + bias.reshape((1, -1) + (1,) * ndim)
+    return out
+
+
+# ------------------------------------------------------------------ pooling
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+@register("Pooling", aliases=("pooling",))
+def _pooling(data, kernel=None, pool_type="max", global_pool=False,
+             stride=None, pad=None, pooling_convention="valid",
+             count_include_pad=True, **_):
+    """Max or avg pooling; a max window pads with -inf.  The window is
+    placed as the reference places it, which is the ``valid`` convention
+    whatever ``pooling_convention`` says (it accepts ``full`` and ignores
+    it, and so does this op).  The reference's ``sum`` and ``lp`` pooling
+    are not ported."""
+    ndim = data.dim() - 2
+    if global_pool:
+        axes = tuple(range(2, data.dim()))
+        if pool_type == "max":
+            return torch.amax(data, dim=axes, keepdim=True)
+        return torch.mean(data, dim=axes, keepdim=True)
+    kernel = _tup(kernel, ndim)
+    stride = _tup(stride if stride is not None else kernel, ndim)
+    pad = _tup(pad if pad is not None else 0, ndim)
+    if pool_type == "max":
+        return _MAX_POOL[ndim](data, kernel, stride, pad)
+    if pool_type == "avg":
+        return _AVG_POOL[ndim](data, kernel, stride, pad,
+                               count_include_pad=bool(count_include_pad))
+    raise ValueError("unknown pool_type %r" % pool_type)
+
+
+# ------------------------------------------------------------------ norms
+@register("BatchNorm", aliases=("batch_norm",), num_outputs=3)
+def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                momentum=0.9, fix_gamma=True, use_global_stats=False,
+                axis=1, training=False, **_):
+    """Returns ``(out, batch_mean, batch_var)``; the caller (the Gluon
+    layer) updates the moving statistics.
+
+    The statistics and the normalisation run in f32 for bf16 activations
+    too.  In training the moments are single-pass and shifted by the
+    moving mean: ``d = x - moving_mean``, ``var = max(E[d^2] - E[d]^2,
+    0)``, ``mean = E[d] + moving_mean`` (``bn_two_pass_stats`` selects the
+    exact two-pass variance).  The normalisation is folded into one scale
+    and one bias per channel, and the output goes back to the input's
+    dtype.  ``F.batch_norm`` is not used: it updates the running variance
+    with the unbiased batch variance, where the reference keeps the
+    biased one."""
+    xf = data.float()
+    red = tuple(i for i in range(data.dim()) if i != axis)
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    if training and not use_global_stats:
+        if _config.get("bn_two_pass_stats"):
+            mean = torch.mean(xf, dim=red)
+            var = torch.var(xf, dim=red, correction=0)
+        else:
+            shift = moving_mean.float().reshape(shape)
+            d = xf - shift
+            dm = torch.mean(d, dim=red)
+            d2 = torch.mean(torch.square(d), dim=red)
+            var = torch.clamp(d2 - torch.square(dm), min=0.0)
+            mean = dm + shift.reshape(-1)
+    else:
+        mean = moving_mean.float()
+        var = moving_var.float()
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    scale = (torch.rsqrt(var + eps) * g.float()).reshape(shape)
+    bias = beta.float().reshape(shape) - mean.reshape(shape) * scale
+    out = xf * scale + bias
+    return out.to(data.dtype), mean, var
+
+
+# ------------------------------------------------------------------ softmax
+@register("softmax")
+def _softmax(data, axis=-1, temperature=None, **_):
+    if temperature is not None and temperature != 1.0:
+        data = data / temperature
+    return torch.softmax(data, dim=axis)
+
+
+@register("log_softmax")
+def _log_softmax(data, axis=-1, temperature=None, **_):
+    if temperature is not None and temperature != 1.0:
+        data = data / temperature
+    return torch.log_softmax(data, dim=axis)
+
+
+# ------------------------------------------------------------------ act
+_ACT = {"relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+        "softrelu": F.softplus, "softsign": F.softsign}
+
+
+@register("Activation", aliases=("activation",))
+def _activation(data, act_type="relu", **_):
+    if act_type not in _ACT:
+        raise ValueError("unknown act_type %r" % act_type)
+    return _ACT[act_type](data)

@@ -1,0 +1,105 @@
+"""Tensor ops (counterpart of ``mxnet_tpu.ops.tensor``), the subset the
+ported layers, losses and NDArray methods call: broadcast arithmetic,
+negation and abs, reductions with MXNet's ``exclude`` semantics, shape ops,
+``cast`` and ``pick``.  Each is one PyTorch expression; names and aliases
+are the reference's."""
+from __future__ import annotations
+
+import operator
+
+import torch
+
+from ..base import torch_dtype
+from .registry import register
+
+
+def _bin(name, fn, aliases=()):
+    register(name, aliases=aliases)(lambda a, b, **_: fn(a, b))
+
+
+# Python's operators take a scalar on either side (``2 - x``)
+_bin("broadcast_add", operator.add, aliases=("elemwise_add", "_plus",
+                                             "add"))
+_bin("broadcast_sub", operator.sub, aliases=("elemwise_sub", "_minus",
+                                             "subtract"))
+_bin("broadcast_mul", operator.mul, aliases=("elemwise_mul", "multiply"))
+_bin("broadcast_div", operator.truediv, aliases=("elemwise_div",
+                                                 "divide"))
+_bin("broadcast_power", operator.pow, aliases=("power", "_power"))
+
+
+def _un(name, fn, aliases=()):
+    register(name, aliases=aliases)(lambda a, **_: fn(a))
+
+
+_un("negative", torch.neg)
+_un("abs", torch.abs)
+
+
+@register("cast", aliases=("Cast",))
+def _cast(a, dtype="float32", **_):
+    return a.to(torch_dtype(dtype))
+
+
+# ---------------------------------------------------------------- reductions
+def _red_axes(a, axis, exclude):
+    """MXNet reduce axes: int, tuple or None (all); ``exclude=True``
+    reduces over every axis NOT listed."""
+    if exclude:
+        listed = (axis,) if isinstance(axis, int) else tuple(axis or ())
+        listed = {ax % a.dim() for ax in listed}
+        return tuple(i for i in range(a.dim()) if i not in listed)
+    if axis is None:
+        return tuple(range(a.dim()))
+    return (axis,) if isinstance(axis, int) else tuple(axis)
+
+
+def _red(name, fn, aliases=()):
+    @register(name, aliases=aliases)
+    def _op(a, axis=None, keepdims=False, exclude=False, _fn=fn, **_):
+        axes = _red_axes(a, axis, exclude)
+        if not axes:
+            return a
+        return _fn(a, axes, keepdims)
+
+
+_red("sum", lambda a, ax, k: torch.sum(a, dim=ax, keepdim=k),
+     aliases=("sum_axis",))
+_red("mean", lambda a, ax, k: torch.mean(a, dim=ax, keepdim=k))
+
+
+# ---------------------------------------------------------------- shape ops
+@register("reshape", aliases=("Reshape",))
+def _reshape(a, shape=None, **_):
+    return torch.reshape(a, tuple(shape))
+
+
+@register("transpose")
+def _transpose(a, axes=None, **_):
+    return a.permute(*axes) if axes else a.permute(*range(a.dim() - 1, -1,
+                                                           -1))
+
+
+@register("flatten", aliases=("Flatten",))
+def _flatten(a, **_):
+    return torch.reshape(a, (a.shape[0], -1))
+
+
+@register("expand_dims")
+def _expand_dims(a, axis=0, **_):
+    return torch.unsqueeze(a, axis)
+
+
+@register("squeeze")
+def _squeeze(a, axis=None, **_):
+    return torch.squeeze(a) if axis is None else torch.squeeze(a, axis)
+
+
+# ---------------------------------------------------------------- indexing
+@register("pick")
+def _pick(data, index, axis=-1, keepdims=False, mode="clip", **_):
+    """``data`` at ``index`` along ``axis``; float indices (MXNet labels
+    are float32) are cast, and clipped to the axis as ``mode="clip"``."""
+    idx = index.to(torch.int64).clamp(0, data.shape[axis] - 1)
+    out = torch.gather(data, axis, idx.unsqueeze(axis))
+    return out if keepdims else out.squeeze(axis)

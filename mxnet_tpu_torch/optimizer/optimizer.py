@@ -8,15 +8,17 @@ index, and the f32 master copy of a low-precision weight
 state, lr, wd, t) -> (new_weight, new_state)`` in PyTorch ops; an
 optimizer with a fused kernel also has ``step_fused``, which updates the
 f32 master and writes the low-precision weight in one pass
-(``cuda_kernels.fused_adam_step``).
+(``cuda_kernels.fused_adam_step``, ``fused_sgd_step``), and
+``step_fused_multi``, which updates a whole list of tensors (one launch
+for SGD: ``cuda_kernels.fused_sgd_step_multi``; the trainer's route).
 
 ``update`` and ``update_multi_precision`` take torch tensors in place of
 NDArrays and update them IN PLACE (the weight, the master copy and the
 state tensors), the analog of the reference writing the new values into
 its NDArrays.
 
-Ported so far: ``Adam``.  ``create("sgd")`` and the other optimizers
-raise until their slice (SGD comes with its fused kernel, K1).
+Ported so far: ``SGD`` and ``Adam``; ``create`` raises for the other
+optimizers until their slice.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch
 from .. import kernels as _kernels
 from ..ops import cuda_kernels as _ck
 
-__all__ = ["Optimizer", "create", "register", "Adam"]
+__all__ = ["Optimizer", "create", "register", "SGD", "Adam"]
 
 _LOW_PRECISION = (torch.float16, torch.bfloat16)
 
@@ -177,9 +179,20 @@ class Optimizer:
                    out=None):
         """One kernel: update + low-precision cast, returning
         ``(weight_cast[out_dtype], new_master_f32, new_state)``;
-        ``out`` names the tensors to write (see the subclass)."""
+        ``out=(cast, master, state)`` names the tensors to write (they may
+        be the inputs: the kernels update in place)."""
         raise NotImplementedError(
             "%s has no fused step kernel" % type(self).__name__)
+
+    def step_fused_multi(self, weights, grads, states, lrs, wds, t,
+                         table=None):
+        """The fused update of a list of f32 masters, in place (masters
+        and state; no cast).  Here one ``step_fused`` per tensor; an
+        optimizer with a multi-tensor kernel overrides it.  ``table`` is
+        the kernel's cached launch table, if it has one."""
+        for w, g, s, lr, wd in zip(weights, grads, states, lrs, wds):
+            self.step_fused(w, g, s, lr, wd, t, out_dtype=w.dtype,
+                            out=(w, w, s))
 
     def _grad_is_identity(self):
         return self.rescale_grad == 1.0 and (self.clip_gradient is None
@@ -234,7 +247,7 @@ class Optimizer:
                 else self._preprocess_grad(grad.float())
             self.step_fused(master, g, real_state, lr, wd, t,
                             out_dtype=weight.dtype,
-                            out=(weight, master) + tuple(real_state))
+                            out=(weight, master, real_state))
             _kernels.note_fused_step()
             return
         g = self._preprocess_grad(grad.float())
@@ -246,6 +259,55 @@ class Optimizer:
 
 register = Optimizer.register
 create = Optimizer.create_optimizer
+
+
+@register
+class SGD(Optimizer):
+    """SGD with momentum (reference: ``optimizer.py:313``)::
+
+        state = momentum * state + lr * (grad + wd * weight)
+        weight = weight - state
+
+    (without momentum, ``weight - lr * (grad + wd * weight)``).  ``step``
+    rounds each product and sum once, as the reference's eager ``step``
+    does; the fused kernel and its plain version contract the two
+    multiply-adds, as the reference's compiled step and its Pallas kernel
+    do (``cuda_kernels.fused_sgd_step_plain``).  ``lazy_update`` is
+    accepted for parity (there is no sparse path)."""
+
+    fused_step = True
+
+    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lazy_update = lazy_update
+
+    def create_state(self, index, weight):
+        if self.momentum != 0.0:
+            return torch.zeros_like(weight)
+        return None
+
+    def step(self, weight, grad, state, lr, wd, t):
+        g = grad + wd * weight
+        if self.momentum == 0.0:
+            return weight - lr * g, None
+        mom = self.momentum * state + lr * g
+        return weight - mom, mom
+
+    def step_fused(self, weight, grad, state, lr, wd, t, out_dtype=None,
+                   out=None):
+        """``cuda_kernels.fused_sgd_step``; ``out=(lp, master, mom)`` may
+        be the inputs themselves (in place)."""
+        return _ck.fused_sgd_step(weight, grad, state, lr, wd, self.momentum,
+                                  out_dtype=out_dtype or weight.dtype,
+                                  out=out)
+
+    def step_fused_multi(self, weights, grads, states, lrs, wds, t,
+                         table=None):
+        """One launch of ``cuda_kernels.fused_sgd_step_multi`` over the
+        whole list; masters and momenta are updated in place."""
+        _ck.fused_sgd_step_multi(weights, grads, states, lrs, wds,
+                                 self.momentum, table=table)
 
 
 @register
@@ -288,10 +350,13 @@ class Adam(Optimizer):
                    out=None):
         """``cuda_kernels.fused_adam_step`` with ``lr_t`` computed here in
         f32 (the bias correction depends on the step count, so it stays
-        outside the kernel).  ``out=(lp, master, m, v)`` may be the inputs
-        themselves: the kernel then updates them in place."""
+        outside the kernel).  ``out=(lp, master, (m, v))`` may be the
+        inputs themselves: the kernel then updates them in place."""
         m, v = state
         lr_t = float(_bias_corrected_lr(lr, self.beta1, self.beta2, t))
+        if out is not None:
+            lp, nw, (nm, nv) = out
+            out = (lp, nw, nm, nv)
         return _ck.fused_adam_step(
             weight, grad, m, v, lr_t, wd, self.beta1, self.beta2,
             self.epsilon, out_dtype=out_dtype or weight.dtype, out=out)

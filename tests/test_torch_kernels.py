@@ -385,6 +385,109 @@ def test_backward_and_adam_checks_reject_what_the_kernels_do_not_take():
         ck.fused_adam_step(w, w, w, w, 1e-3, 0.0, 0.9, 0.999, 1e-8)
 
 
+# ------------------------------------------------------------ sgd (K1)
+def _sgd_case(shape, seed=6):
+    rng = np.random.RandomState(seed)
+    w = (rng.randn(*shape) * 0.05).astype(np.float32)
+    g = rng.randn(*shape).astype(np.float32)
+    m = (rng.randn(*shape) * 0.1).astype(np.float32)
+    return w, g, m
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+@pytest.mark.parametrize("shape", [(33, 7), (50,), (256, 64)],
+                         ids=["odd", "1d", "2d"])
+def test_fused_sgd_plain_bitwise_with_pallas(shape, momentum, out_dtype):
+    """The plain SGD epilogue equals the reference's Pallas kernel
+    (interpret mode) bit for bit on the master, the momentum and the
+    cast, with wd != 0.  Bitwise, because both contract the same two
+    multiply-adds: fma(wd, w, g), then fma(momentum, m, lr*g') or, without
+    momentum, fma(-lr, g', w)."""
+    w, g, m = _sgd_case(shape)
+    lr, wd = 0.1, 1e-4
+    lp, nw, nm = pk.fused_sgd_step(
+        jnp.asarray(w), jnp.asarray(g),
+        jnp.asarray(m) if momentum else None, lr, wd, momentum,
+        out_dtype=getattr(jnp, out_dtype))
+    before = dict(ck.LAUNCHES)
+    tlp, tnw, tnm = ck.fused_sgd_step(
+        _t(w), _t(g), _t(m) if momentum else None, lr, wd, momentum,
+        out_dtype=getattr(torch, out_dtype))
+    assert ck.LAUNCHES == before, "a CPU tensor must not launch a kernel"
+    assert tlp.dtype == getattr(torch, out_dtype)
+    pairs = [(nw, tnw), (lp, tlp.float())]
+    if momentum:
+        pairs.append((nm, tnm))
+    else:
+        assert nm is None and tnm is None
+    for want, got in pairs:
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+def test_fused_sgd_multi_equals_per_tensor_calls():
+    """The multi-tensor form, over a list with per-tensor lr and wd and a
+    mix of casts (none, f32, bf16), writes in place exactly the bits that
+    one call per tensor returns."""
+    shapes = [(33, 7), (50,), (4, 3, 3, 3), (1,)]
+    lrs, wds = [0.1, 0.05, 0.2, 0.1], [1e-4, 0.0, 1e-3, 1e-4]
+    cases = [_sgd_case(s, seed=i) for i, s in enumerate(shapes)]
+    ws = [_t(w).clone() for w, _, _ in cases]
+    gs = [_t(g) for _, g, _ in cases]
+    ms = [_t(m).clone() for _, _, m in cases]
+    outs = [None, torch.empty(shapes[1]),
+            torch.empty(shapes[2], dtype=torch.bfloat16), None]
+    want = [ck.fused_sgd_step(_t(w), _t(g), _t(m), lr, wd, 0.9,
+                              out_dtype=torch.bfloat16 if o is not None and
+                              o.dtype == torch.bfloat16 else torch.float32)
+            for (w, g, m), lr, wd, o in zip(cases, lrs, wds, outs)]
+    ck.fused_sgd_step_multi(ws, gs, ms, lrs, wds, 0.9, outs=outs)
+    for (lp, nw, nm), w, m, o in zip(want, ws, ms, outs):
+        assert torch.equal(w, nw) and torch.equal(m, nm)
+        if o is not None:
+            assert torch.equal(o, lp)
+
+
+def test_sgd_checks_reject_what_the_kernel_does_not_take():
+    w = _meta(3, 5, dtype=torch.float32)
+    assert ck.sgd_unsupported_reason(w, w, w, 0.9) is None
+    assert ck.sgd_unsupported_reason(w, _meta(3, 5), None, 0.0) is None
+    assert "grad shape" in ck.sgd_unsupported_reason(w, w[:2], w, 0.9)
+    assert "master" in ck.sgd_unsupported_reason(w.half(), w, w, 0.9)
+    assert "grad must" in ck.sgd_unsupported_reason(w, w.half(), w, 0.9)
+    assert "momentum" in ck.sgd_unsupported_reason(w, w, None, 0.9)
+    assert "momentum" in ck.sgd_unsupported_reason(w, w, w.half(), 0.9)
+    assert "out" in ck.sgd_unsupported_reason(w, w, w, 0.9, out=w.half())
+    with pytest.raises(mt.KernelUnsupportedError, match="sgd.*f32"):
+        ck.fused_sgd_step_multi([w.half()], [w], [w], [0.1], [0.0], 0.9)
+    # a tensor off the CPU the kernel cannot reach raises, naming why
+    with pytest.raises(mt.KernelUnsupportedError, match="sgd.*CUDA"):
+        ck.fused_sgd_step_multi([w], [w], [w], [0.1], [0.0], 0.9)
+    with pytest.raises(ValueError, match="one grad"):
+        ck.fused_sgd_step_multi([w], [], [w], [0.1], [0.0], 0.9)
+
+
+def test_resnet50_shapes_pass_the_sgd_check():
+    """Every trainable tensor of the port's resnet50_v1 (193 tensors,
+    25,575,912 parameters, shapes from the model after shape inference)
+    passes K1's check as the trainer hands it over: f32 master, f32 grad,
+    f32 momentum, no cast; and the launch table it needs fits one grid."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    net = vision.get_model("resnet50_v1", classes=1000)
+    net.initialize(mt.init.Xavier(), ctx=mt.cpu())
+    net(mt.nd.array(np.zeros((1, 3, 32, 32), np.float32), ctx=mt.cpu()))
+    shapes = [p.shape for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    assert len(shapes) == 193
+    assert sum(int(np.prod(s)) for s in shapes) == 25575912
+    blocks = 0
+    for s in shapes:
+        w = _meta(*s, dtype=torch.float32)
+        assert ck.sgd_unsupported_reason(w, w, w, 0.9) is None
+        blocks += -(-w.numel() // ck.SGD_CHUNK)
+    assert blocks < 2 ** 31
+
+
 # ----------------------------------------------------- build and sources
 def test_kernel_sources_and_build_dir_is_ignored():
     csrc = os.path.join(ROOT, "mxnet_tpu_torch", "csrc")
@@ -404,7 +507,12 @@ def test_kernel_sources_and_build_dir_is_ignored():
 def test_import_does_not_load_jax():
     code = ("import sys; import mxnet_tpu_torch; "
             "import mxnet_tpu_torch.optimizer; "
+            "import mxnet_tpu_torch.gluon; "
+            "import mxnet_tpu_torch.gluon.model_zoo.vision; "
+            "import mxnet_tpu_torch.parallel.trainer; "
             "assert 'mxnet_tpu_torch.optimizer.optimizer' in sys.modules; "
+            "assert 'mxnet_tpu_torch.gluon.nn.conv_layers' in sys.modules; "
+            "assert 'mxnet_tpu_torch.parallel.trainer' in sys.modules; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'mxnet_tpu' "
             "or m.startswith('mxnet_tpu.')]; "

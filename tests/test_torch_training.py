@@ -160,8 +160,9 @@ def test_optimizer_registry_and_state():
     o = mt.optimizer.create("Adam", learning_rate=0.5)
     assert isinstance(o, mt.optimizer.Adam) and o.learning_rate == 0.5
     assert o.fused_step and o.jit_safe
-    with pytest.raises(ValueError, match="sgd"):
-        mt.optimizer.create("sgd")
+    assert isinstance(mt.optimizer.create("sgd"), mt.optimizer.SGD)
+    with pytest.raises(ValueError, match="rmsprop"):
+        mt.optimizer.create("rmsprop")
     w = torch.zeros(4, 3, dtype=torch.bfloat16)
     master, (m, v) = mt.optimizer.Adam(
         multi_precision=True).create_state_multi_precision(0, w)
