@@ -20,7 +20,12 @@ Phases; any failure exits non-zero without the result lines:
             bf16 grads) and the multi-tensor fused SGD step K1 (the 193
             trainable shapes of resnet50_v1 in one launch: momentum 0.9
             with the f32 master as out, with a bf16 out, momentum 0, and
-            per-tensor lr/wd).  Prints each error against its stated
+            per-tensor lr/wd), the row softmax K5 forward and backward
+            (K5_CASES: [8192, 32000] f32 and bf16, [4096, 1000] bf16,
+            [64, 10] f32, [4, 12, 128, 130] f32) and the scale-bias-ReLU
+            K6 (K6_CASES: [8192, 3072] f32 and bf16, [64, 500] f32,
+            [4096, 1000] f32 and bf16 with NaN and -0.0 planted).  Prints
+            each error against its stated
             tolerance, kernel / plain / library ms and the bound; the
             attention backward's library time (sdpa backward) and the
             kernels' are also taken as device time from torch.profiler,
@@ -32,7 +37,9 @@ Phases; any failure exits non-zero without the result lines:
             query) and of dk, dv (b, h, key), with the row's scale floored
             at BWD_ROW_FLOOR x the tensor's largest |plain|; K3 bitwise on
             the master, m, v and the bf16 weight; K1 bitwise on the
-            masters, the momenta and the casts.
+            masters, the momenta and the casts; K5 per row at
+            K5_F32_ROW_TOL / K5_BF16_ROW_TOL (y, m and l; the backward
+            against the row's largest term); K6 bitwise.
 3. serve  — the full-width TransformerLM (TransformerLMConfig defaults:
             vocab 32000, d_model 768, 12 heads, d_ff 3072, 12 layers,
             max_len 2048, bf16; seeded random weights) through
@@ -82,7 +89,27 @@ Phases; any failure exits non-zero without the result lines:
             window over 3 more steps; then 5 timed steps each of
             ``conv.internal_layout=NHWC`` (channels_last) and the f32 row.
             ``torch.backends.cudnn.benchmark`` is on in this phase.
-6. summary — a ``{"kernels": [...]}`` line, the card's name and power
+6. tape   — (a) the NDArray autograd tape over the registered kernel
+            ops: ``attach_grad`` on seeded f32 logits [8192, 32000],
+            ``loss = (mx.nd.pallas_softmax(x) * c).sum()`` under
+            ``autograd.record()``, ``loss.backward()``: exactly one
+            row_softmax_fwd and one row_softmax_bwd launch, ``x.grad``
+            against the plain forward and backward, a second backward
+            raises; outside ``record()`` one forward launch only;
+            ``pallas_scale_bias_relu`` at [8192, 3072] under ``record()``
+            launches one scale_bias_relu and carries no gradient;
+            ``pallas_flash_attention`` (B=4 H=12 S=2048 causal bf16)
+            launches one flash_fwd, and from backward() one flash_bwd_dq
+            and one flash_bwd_dkv.  (b) LeNet-MNIST through
+            ``gluon.Trainer`` at ``examples/gluon_mnist.py``'s defaults
+            (Xavier, hybridize, SGD lr 0.02 momentum 0.9, kvstore
+            "device", SoftmaxCrossEntropyLoss, Accuracy, NDArrayIter
+            shuffled over 2048 synthetic digits, batch 64, 2 epochs): every
+            loss finite, epoch-2 accuracy at least LENET_REF_ACC -
+            LENET_ACC_SLACK, no kernel launch; prints samples/s, the
+            median step ms and the device-idle share of a profiled
+            window.
+7. summary — a ``{"kernels": [...]}`` line, the card's name and power
             limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Numerics: ``torch.backends.cuda.matmul.allow_tf32`` and
@@ -107,6 +134,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (dense): bf16 tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+# H100 SXM float32 outside the tensor cores (elementwise and exp work)
+PEAK_F32_FLOPS = 67e12
 # Kernel vs plain version, per output row (one (b, h, query)): bf16 keeps
 # 8 significant bits, so one ulp is at most 2^-7 of a value.  The two sides
 # round at different points — P to bf16, the P.V sum, the row sum, the
@@ -147,6 +176,22 @@ BWD_ROW_FLOOR = 2.0 ** -6
 # backward kernel shows errors of order 1).
 KERNEL_VS_PLAIN_GRAD_ERR = 2.0
 
+# Row softmax (K5) against its plain version, per row: max |kernel -
+# plain| over the row's largest |plain|, for y and for the saved m and l.
+# Both compute in f32 and differ in the order of the row sum and in
+# expf's last bit: a few f32 ulps (2^-22 each) of a row's values, so
+# 2^-16 holds with room.  In bf16 both round the same f32 values once;
+# a sum differing in its last f32 bit can flip one rounding, one bf16 ulp
+# (at most 2^-7 of the value).  A kernel that drops one 16-byte chunk of
+# a row moves that row's sum by its share and misses by far more.
+K5_F32_ROW_TOL = 2.0 ** -16
+K5_BF16_ROW_TOL = 2.0 ** -7
+# The backward dx = y (dy - dot) cancels where a row saturates (one y
+# near 1): its error is stated per row against the row's largest term
+# y * (|dy| + |dot|), the size of what is subtracted, at the same
+# tolerances; both versions get the kernel's saved m and l.
+# Scale-bias-ReLU (K6) is held bitwise: 0 differing elements, a NaN equal
+# to any NaN (the two may write different NaN payloads).
 SEED = 0
 N_REQUESTS = 16
 NEW_TOKENS = 32
@@ -228,9 +273,11 @@ def _row_rel_err(o, po, floor=0.0):
     return float((err / ref).max())
 
 
-def _bound_ms(nbytes, flops):
+def _bound_ms(nbytes, flops, peak=None):
+    """The least time for ``nbytes`` of memory traffic and ``flops``
+    operations at ``peak`` (bf16 tensor cores by default)."""
     t_b = nbytes / PEAK_HBM_BYTES
-    t_f = flops / PEAK_BF16_FLOPS
+    t_f = flops / (peak or PEAK_BF16_FLOPS)
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -587,6 +634,163 @@ def check_sgd(ck, torch, mx, np):
             "bound_ms": bound, "bound_by": by, "bytes": nbytes}
     _log("[kernels] sgd_step per step %s" % json.dumps(step))
     return cases, step
+
+
+def _term_rel_err(torch, dx, pdx, y, dy):
+    """Per row: max |dx - pdx| over the row's largest term
+    y * (|dy| + |sum(dy * y)|) (see K5_F32_ROW_TOL)."""
+    yf = y.float().reshape(-1, y.shape[-1])
+    dyf = dy.float().reshape(yf.shape)
+    dot = (dyf * yf).sum(-1, keepdim=True)
+    terms = (yf * (dyf.abs() + dot.abs())).amax(-1).clamp_min(1e-30)
+    err = (dx.float() - pdx.float()).reshape(yf.shape).abs().amax(-1)
+    return float((err / terms).max())
+
+
+# K5's shapes: the TransformerLM readout (B*S = 4*2048 rows over the
+# 32,000-word vocab, the reference docstring's case) in f32 and bf16,
+# ImageNet's 1000 classes (a ragged width) in bf16, LeNet's logits, and
+# attention scores of a leading-dims tensor at an unaligned width.
+K5_CASES = (((8192, 32000), "float32"), ((8192, 32000), "bfloat16"),
+            ((4096, 1000), "bfloat16"), ((64, 10), "float32"),
+            ((4, 12, 128, 130), "float32"))
+
+
+def check_row_softmax(ck, torch):
+    """K5 forward and backward against ``row_softmax_plain`` /
+    ``row_softmax_bwd_plain`` at K5_CASES (x = randn * 4, dy = randn).
+    Returns (forward cases, backward cases)."""
+    fwd_cases, bwd_cases = [], []
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    for shape, dtype in K5_CASES:
+        dt = getattr(torch, dtype)
+        d = shape[-1]
+        x = (torch.randn(shape, generator=g, device="cuda") * 4).to(dt)
+        dy = torch.randn(shape, generator=g, device="cuda").to(dt)
+        x2, dy2 = x.reshape(-1, d), dy.reshape(-1, d)
+        n = x2.shape[0]
+        tol = K5_F32_ROW_TOL if dtype == "float32" else K5_BF16_ROW_TOL
+        y, m, l = ck.row_softmax(x2)
+        py, pm, pl = ck.row_softmax_plain(x2)
+        dx = ck.row_softmax_bwd(x2, m, l, dy2)
+        pdx = ck.row_softmax_bwd_plain(x2, m, l, dy2)
+        torch.cuda.synchronize()
+        size = x2.element_size()
+        shp = {"shape": list(shape), "rows": n, "cols": d, "dtype": dtype}
+        # forward: y, and m, l (one value a row: their error is relative
+        # to themselves)
+        y_err = _row_rel_err(y, py)
+        ml_err = max(_row_rel_err(m, pm), _row_rel_err(l, pl))
+        # f32 operations an element, an exp counted as one: max, subtract,
+        # exp and add, then subtract, exp and divide
+        bound, by = _bound_ms(2 * n * d * size + 2 * n * size,
+                              7 * n * d, PEAK_F32_FLOPS)
+        case = dict(shp, **{
+            "max_abs_err": float((y.float() - py.float()).abs().max()),
+            "max_row_rel_err": y_err, "ml_rel_err": ml_err,
+            "row_rel_tol": tol,
+            "ok": (y_err <= tol and ml_err <= tol
+                   and bool(torch.isfinite(y.float()).all())),
+            "ms": _time_ms(lambda: ck.row_softmax(x2)),
+            "device_ms": _device_ms(torch, lambda: ck.row_softmax(x2)),
+            "plain_ms": _time_ms(lambda: ck.row_softmax_plain(x2), iters=5,
+                                 warmup=1),
+            "library_ms": _time_ms(lambda: torch.softmax(x2, -1)),
+            "library_device_ms": _device_ms(
+                torch, lambda: torch.softmax(x2, -1)),
+            "library_computes": "torch.softmax(x, -1) (no m, l)",
+            "bound_ms": bound, "bound_by": by})
+        _log("[kernels] row_softmax_fwd %s" % json.dumps(case))
+        fwd_cases.append(case)
+        # backward, from the kernel's saved m and l
+        dx_err = _term_rel_err(torch, dx, pdx, y, dy2)
+        # y rebuilt twice (3 each), the dot (2), dy - dot and the product
+        bound, by = _bound_ms(3 * n * d * size + 2 * n * size, 10 * n * d,
+                              PEAK_F32_FLOPS)
+        case = dict(shp, **{
+            "max_abs_err": float((dx.float() - pdx.float()).abs().max()),
+            "max_row_rel_err": dx_err, "row_rel_tol": tol,
+            "row_scale": "largest y * (|dy| + |dot|) of the row",
+            "ok": (dx_err <= tol
+                   and bool(torch.isfinite(dx.float()).all())),
+            "ms": _time_ms(lambda: ck.row_softmax_bwd(x2, m, l, dy2)),
+            "device_ms": _device_ms(
+                torch, lambda: ck.row_softmax_bwd(x2, m, l, dy2)),
+            "plain_ms": _time_ms(lambda: ck.row_softmax_bwd_plain(
+                x2, m, l, dy2), iters=5, warmup=1),
+            "library_ms": _time_ms(lambda: torch._softmax_backward_data(
+                dy2, y, -1, x2.dtype)),
+            "library_device_ms": _device_ms(
+                torch, lambda: torch._softmax_backward_data(
+                    dy2, y, -1, x2.dtype)),
+            "library_computes": "torch._softmax_backward_data(dy, y) "
+                                "(reads y, not x, m, l)",
+            "bound_ms": bound, "bound_by": by})
+        _log("[kernels] row_softmax_bwd %s" % json.dumps(case))
+        bwd_cases.append(case)
+        del x, dy, x2, dy2, y, m, l, py, pm, pl, dx, pdx
+        torch.cuda.empty_cache()
+    return fwd_cases, bwd_cases
+
+
+def _differing_nan(torch, x, y):
+    """Elements of x and y that differ in their bits, a NaN equal to any
+    NaN."""
+    as_int = torch.int32 if x.element_size() == 4 else torch.int16
+    both_nan = torch.isnan(x) & torch.isnan(y)
+    return int(((x.view(as_int) != y.view(as_int)) & ~both_nan).sum())
+
+
+# K6's shapes: the TransformerLM d_ff epilogue (B*S = 8192 rows of 3072)
+# in f32 and bf16, LeNet's Dense(500) at BS 64, and 1000 ImageNet classes
+# with NaN and -0.0 planted in x and -0.0 in the bias.
+K6_CASES = (((8192, 3072), "float32", False), ((8192, 3072), "bfloat16",
+                                                False),
+            ((64, 500), "float32", False), ((4096, 1000), "float32", True),
+            ((4096, 1000), "bfloat16", True))
+
+
+def check_scale_bias_relu(ck, torch):
+    """K6 against ``scale_bias_relu_plain``, bitwise, at K6_CASES."""
+    cases = []
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    for shape, dtype, special in K6_CASES:
+        dt = getattr(torch, dtype)
+        n, d = shape
+        x = torch.randn(shape, generator=g, device="cuda").to(dt)
+        s = torch.randn(d, generator=g, device="cuda").to(dt)
+        b = torch.randn(d, generator=g, device="cuda").to(dt)
+        if special:
+            x.view(-1)[::97] = float("nan")
+            x.view(-1)[5::89] = -0.0
+            b[::7] = -0.0
+        y = ck.scale_bias_relu(x, s, b)
+        py = ck.scale_bias_relu_plain(x, s, b)
+        torch.cuda.synchronize()
+        diff = _differing_nan(torch, y, py)
+        negzero = int((torch.signbit(y) & ~torch.isnan(y)).sum())
+        size = x.element_size()
+        bound, by = _bound_ms(2 * n * d * size + 2 * d * size, 3 * n * d,
+                              PEAK_F32_FLOPS)
+        case = {"shape": list(shape), "dtype": dtype,
+                "nan_and_neg_zero": special, "differing_elements": diff,
+                "negative_zeros_out": negzero,
+                "max_abs_err": float((y.float() - py.float()).nan_to_num()
+                                     .abs().max()),
+                "ok": diff == 0 and negzero == 0,
+                "ms": _time_ms(lambda: ck.scale_bias_relu(x, s, b)),
+                "device_ms": _device_ms(
+                    torch, lambda: ck.scale_bias_relu(x, s, b)),
+                "plain_ms": _time_ms(lambda: ck.scale_bias_relu_plain(
+                    x, s, b), iters=5, warmup=1),
+                "library_ms": None,
+                "library_computes": "none: no one PyTorch call computes it",
+                "inputs_vs_l2": "repeated launches on the same %.1f MB"
+                                % (2 * n * d * size / 1e6),
+                "bound_ms": bound, "bound_by": by}
+        _log("[kernels] scale_bias_relu %s" % json.dumps(case))
+        cases.append(case)
+    return cases
 
 
 # ------------------------------------------------------------- phase 3
@@ -1232,6 +1436,214 @@ def train_resnet(mx, ck, np, torch, card):
     return out
 
 
+# ------------------------------------------------------------- phase 6
+# The tape over K5 at the readout's full size, K6 at the d_ff epilogue's,
+# and the flash op at the training shape.
+TAPE_ROWS, TAPE_VOCAB = 8192, 32000
+SBR_SHAPE = (8192, 3072)
+# LeNet-MNIST through gluon.Trainer at examples/gluon_mnist.py's defaults
+LENET_SAMPLES = 2048
+LENET_BATCH = 64
+LENET_EPOCHS = 2
+LENET_LR = 0.02
+# The reference's epoch-2 accuracy on the CPU with the same seeds (numpy
+# and framework seed 0), as tests/test_torch_gluon_trainer.py
+# (test_lenet_two_epochs_reach_reference_accuracy) measures it; the port
+# on the card may fall short of it by LENET_ACC_SLACK (its own weights
+# are drawn by its own generator).
+LENET_REF_ACC = 1.0
+LENET_ACC_SLACK = 0.05
+LENET_PROFILE_STEPS = 5
+
+
+def _want_launches(ck, **counts):
+    want = dict.fromkeys(ck.LAUNCHES, 0)
+    want.update(counts)
+    return want
+
+
+def _raises(exc, fn):
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
+def tape(mx, ck, np, torch):
+    """Phase 6(a): the registered kernel ops on the NDArray tape.  Launch
+    counts are zeroed just before and read just after each run."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch import telemetry as tt
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    xt = torch.randn(TAPE_ROWS, TAPE_VOCAB, generator=g, device="cuda") * 4
+    ct = torch.randn(TAPE_ROWS, TAPE_VOCAB, generator=g, device="cuda")
+    x, c = mx.nd.NDArray(xt), mx.nd.NDArray(ct)
+    x.attach_grad()
+    # (1) recorded: one forward and, from backward(), one backward launch
+    _zero_counts(torch, tt, ck)
+    t0 = time.perf_counter()
+    with autograd.record():
+        loss = (mx.nd.pallas_softmax(x) * c).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    out["record_backward_ms"] = (time.perf_counter() - t0) * 1e3
+    out["launches"] = dict(ck.LAUNCHES)
+    assert out["launches"] == _want_launches(
+        ck, row_softmax_fwd=1, row_softmax_bwd=1), out["launches"]
+    py, pm, pl = ck.row_softmax_plain(xt)
+    pdx = ck.row_softmax_bwd_plain(xt, pm, pl, ct)
+    out["grad_rel_err"] = _term_rel_err(torch, x.grad._data, pdx, py, ct)
+    out["grad_rel_tol"] = K5_F32_ROW_TOL
+    assert out["grad_rel_err"] <= K5_F32_ROW_TOL, out["grad_rel_err"]
+    del py, pm, pl, pdx
+    out["second_backward_raises"] = _raises(RuntimeError, loss.backward)
+    assert out["second_backward_raises"]
+    # (2) not recorded: the forward kernel alone, nothing on the tape
+    _zero_counts(torch, tt, ck)
+    y = mx.nd.pallas_softmax(x)
+    torch.cuda.synchronize()
+    out["unrecorded_launches"] = dict(ck.LAUNCHES)
+    assert out["unrecorded_launches"] == _want_launches(
+        ck, row_softmax_fwd=1), out["unrecorded_launches"]
+    assert not y._on_tape and not y._data.requires_grad
+    del x, c, xt, ct, y, loss
+    torch.cuda.empty_cache()
+    # (3) K6 under record(): one launch, no history, no gradient
+    x6, s6, b6 = (mx.nd.NDArray(torch.randn(shape, generator=g,
+                                            device="cuda"))
+                  for shape in (SBR_SHAPE, SBR_SHAPE[1:], SBR_SHAPE[1:]))
+    for a in (x6, s6, b6):
+        a.attach_grad()
+    _zero_counts(torch, tt, ck)
+    with autograd.record():
+        y6 = mx.nd.pallas_scale_bias_relu(x6, s6, b6)
+    torch.cuda.synchronize()
+    out["sbr_launches"] = dict(ck.LAUNCHES)
+    assert out["sbr_launches"] == _want_launches(
+        ck, scale_bias_relu=1), out["sbr_launches"]
+    out["sbr_untaped"] = (not y6._on_tape and not y6._data.requires_grad
+                          and _raises(ValueError, y6.backward)
+                          and not any(bool(a.grad._data.any())
+                                      for a in (x6, s6, b6)))
+    assert out["sbr_untaped"]
+    del x6, s6, b6, y6
+    # (4) the flash op: one forward, and from backward() one dq and one
+    # dk/dv launch, at the training shape
+    q, k, v, do = (torch.randn(TRAIN_B, 12, TRAIN_S, 64, generator=g,
+                               device="cuda").bfloat16() for _ in range(4))
+    qa, ka, va = (mx.nd.NDArray(t) for t in (q, k, v))
+    for a in (qa, ka, va):
+        a.attach_grad()
+    _zero_counts(torch, tt, ck)
+    with autograd.record():
+        o = mx.nd.pallas_flash_attention(qa, ka, va, causal=True)
+    o.backward(mx.nd.NDArray(do))
+    torch.cuda.synchronize()
+    out["flash_launches"] = dict(ck.LAUNCHES)
+    assert out["flash_launches"] == _want_launches(
+        ck, flash_fwd=1, flash_bwd_dq=1, flash_bwd_dkv=1), \
+        out["flash_launches"]
+    po, _ = ck.flash_attention_plain(q, k, v, causal=True)
+    out["flash_out_row_rel_err"] = _row_rel_err(o._data.detach(), po)
+    assert out["flash_out_row_rel_err"] <= ROW_REL_TOL
+    assert all(bool(torch.isfinite(a.grad._data.float()).all())
+               for a in (qa, ka, va))
+    del q, k, v, do, qa, ka, va, o, po
+    torch.cuda.empty_cache()
+    _log("[tape] %s" % json.dumps(out))
+    return out
+
+
+def build_lenet(nn):
+    """LeNet (examples/gluon_mnist.py:27)."""
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(20, 5), nn.MaxPool2D(2, 2), nn.Activation("tanh"),
+            nn.Conv2D(50, 5), nn.MaxPool2D(2, 2), nn.Activation("tanh"),
+            nn.Flatten(), nn.Dense(500, activation="tanh"), nn.Dense(10))
+    return net
+
+
+def synthetic_mnist(np, n, seed=0):
+    """Class-separable synthetic digits: class k lights a kth stripe
+    (examples/gluon_mnist.py:35)."""
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, 10, n)
+    x = rng.uniform(0, 0.2, (n, 1, 28, 28)).astype(np.float32)
+    for i, k in enumerate(y):
+        x[i, 0, 2 * k:2 * k + 3, :] += 0.8
+    return x, y.astype(np.float32)
+
+
+def train_lenet(mx, ck, np, torch, card):
+    """Phase 6(b): LeNet-MNIST through the imperative Gluon loop,
+    examples/gluon_mnist.py at its defaults."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.gluon import nn
+    mx.random.seed(SEED)
+    np.random.seed(SEED)
+    X, Y = synthetic_mnist(np, LENET_SAMPLES, SEED)
+    it = mx.io.NDArrayIter(X, Y, batch_size=LENET_BATCH, shuffle=True)
+    net = build_lenet(nn)
+    net.initialize(mx.init.Xavier())
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": LENET_LR, "momentum": 0.9})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    metric = mx.metric.Accuracy()
+
+    def one_step(batch):
+        data, label = batch.data[0], batch.label[0]
+        with autograd.record():
+            out = net(data)
+            loss = loss_fn(out, label).mean()
+        loss.backward()
+        trainer.step(1)
+        metric.update([label], [out])
+        return float(loss.asnumpy())   # the host read ends the step
+
+    _zero_counts(torch, tt, ck)
+    losses, step_ms, accs, epoch_s = [], [], [], []
+    for _ in range(LENET_EPOCHS):
+        metric.reset()
+        it.reset()
+        e0 = time.perf_counter()
+        for batch in it:
+            t0 = time.perf_counter()
+            losses.append(one_step(batch))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        epoch_s.append(time.perf_counter() - e0)
+        accs.append(metric.get()[1])
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    steps_per_epoch = len(step_ms) // LENET_EPOCHS
+    last = step_ms[-steps_per_epoch:]
+    med = float(np.median(last))
+    out = {"steps": len(step_ms), "batch": LENET_BATCH,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "losses_finite": bool(np.all(np.isfinite(losses))),
+           "epoch_accuracy": accs, "reference_cpu_accuracy": LENET_REF_ACC,
+           "accuracy_slack": LENET_ACC_SLACK, "launches": launches,
+           "kernel_launches_expected": "none: the loss is log_softmax "
+                                       "plus pick, as in the reference",
+           "median_step_ms_epoch2": med,
+           "samples_per_s_median": LENET_BATCH / (med / 1e3),
+           "samples_per_s_epoch2": LENET_SAMPLES / epoch_s[-1],
+           "first_step_ms": step_ms[0], "card": card}
+    assert out["losses_finite"], losses
+    assert launches == _want_launches(ck), launches
+    assert accs[-1] >= LENET_REF_ACC - LENET_ACC_SLACK, accs
+    it.reset()
+    batches = [next(it) for _ in range(LENET_PROFILE_STEPS)]
+    out["profile"] = _profile(torch, lambda: [one_step(b) for b in batches])
+    out["profile"]["steps"] = LENET_PROFILE_STEPS
+    _log("[lenet] %s" % json.dumps(out))
+    return out
+
+
 def _summary(name, source, replaces, cases, launches):
     """One line of the kernels table; its times are those of the largest
     shape it is checked at (B=4 S=2048 causal, or K=2048)."""
@@ -1241,13 +1653,29 @@ def _summary(name, source, replaces, cases, launches):
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "max_row_rel_err": max(c["max_row_rel_err"] for c in cases),
-            "row_rel_tol": ROW_REL_TOL,
+            "row_rel_tol": top.get("row_rel_tol", ROW_REL_TOL),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "at": top["shape"],
             "cases": cases,
-            **{k: top[k] for k in ("device_ms", "library_event_ms")
-               if k in top}}
+            **{k: top[k] for k in ("device_ms", "library_event_ms",
+                                   "library_device_ms") if k in top}}
+
+
+def _k6_summary(cases, replaces, launches):
+    """K6's line of the kernels table, at its largest checked shape."""
+    top = max(cases, key=lambda c: c["bound_ms"])
+    return {"name": "scale_bias_relu", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/scale_bias_relu.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "differing_elements": sum(c["differing_elements"]
+                                      for c in cases),
+            "ms": top["ms"], "device_ms": top["device_ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None,
+            "at": {"shape": top["shape"], "dtype": top["dtype"]},
+            "cases": cases}
 
 
 def main(argv=None):
@@ -1302,8 +1730,10 @@ def main(argv=None):
                 both / top["library_ms"]))
     adam, adam_step = check_adam(ck, torch)
     sgd, sgd_step = check_sgd(ck, torch, mx, np)
+    k5f, k5b = check_row_softmax(ck, torch)
+    k6 = check_scale_bias_relu(ck, torch)
     bad = [c for c in flash + paged + paged8 + bwd_dq + bwd_dkv + adam + sgd
-           if not c["ok"]]
+           + k5f + k5b + k6 if not c["ok"]]
     if bad:
         raise AssertionError("kernel disagrees with its plain version: %s"
                              % json.dumps(bad))
@@ -1313,7 +1743,10 @@ def main(argv=None):
     report["serve"] = serve(mx, ck, np, torch, workdir)
     report["train"] = train(mx, ck, np, torch)
     report["resnet"] = train_resnet(mx, ck, np, torch, card)
+    report["tape"] = tape(mx, ck, np, torch)
+    report["lenet"] = train_lenet(mx, ck, np, torch, card)
     launches = report["serve"]["greedy"]["launches"]
+    taped = report["tape"]["launches"]
     trained = report["train"]["launches"]
     pk = "mxnet_tpu/ops/pallas_kernels.py:"
     kernels = [
@@ -1352,6 +1785,12 @@ def main(argv=None):
          "library_ms": sgd_step["library_ms"],
          "library_device_ms": sgd_step["library_device_ms"],
          "at": sgd_step["at"], "cases": sgd},
+        _summary("row_softmax_fwd", "row_softmax.cu", pk + "66", k5f,
+                 taped["row_softmax_fwd"]),
+        _summary("row_softmax_bwd", "row_softmax.cu", pk + "80", k5b,
+                 taped["row_softmax_bwd"]),
+        _k6_summary(k6, pk + "620",
+                    report["tape"]["sbr_launches"]["scale_bias_relu"]),
     ]
     # flash_fwd runs on both paths: its launches in each counted run
     kernels[0]["launches_by_path"] = {"serve_greedy": launches["flash_fwd"],

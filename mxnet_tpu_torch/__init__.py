@@ -18,10 +18,17 @@ Ported so far:
   registry, ``gluon`` Blocks, Parameters, layers, losses and the ResNet
   model zoo, ``initializer``, ``parallel.functionalize``, and SGD with
   momentum over f32 masters (the ResNet-50 benchmark step);
+* the imperative Gluon loop — the NDArray autograd tape (``attach_grad``,
+  ``autograd.record``, ``backward``, ``autograd.grad``, ``Function``),
+  ``gluon.Trainer`` over ``kvstore`` and the optimizer's ``Updater``,
+  ``lr_scheduler``, ``metric``, ``io.NDArrayIter`` and ``callback``, and
+  the registered kernel ops ``mx.nd.pallas_softmax``,
+  ``pallas_scale_bias_relu`` and ``pallas_flash_attention``;
 
 with hand-written CUDA kernels for flash-attention forward and backward,
-paged decode attention, the fused Adam step and the multi-tensor fused
-SGD step (``ops/cuda_kernels.py``, sources in ``csrc/``).
+paged decode attention, the fused Adam step, the multi-tensor fused SGD
+step, the row softmax (forward and backward) and the fused
+scale-bias-ReLU (``ops/cuda_kernels.py``, sources in ``csrc/``).
 
 Entry points run on ``cuda:0`` unless the caller asks for the CPU
 (``device="cpu"`` / ``mx.cpu()``); without a GPU they raise.
@@ -39,11 +46,13 @@ from . import random, ndarray, autograd, initializer
 from . import ndarray as nd
 from . import initializer as init
 from . import kernels, quantization, models, convert, deploy, serving
-from . import generation, optimizer, gluon, parallel
+from . import generation, optimizer, lr_scheduler, kvstore, gluon, parallel
+from . import metric, io, callback
 
 __all__ = ["MXNetError", "MXNetErrorNoDevice", "KernelUnsupportedError",
            "Context", "cpu", "gpu", "num_gpus", "current_context", "config",
            "telemetry", "random", "ndarray", "nd", "autograd",
            "initializer", "init", "kernels", "quantization", "models",
            "convert", "deploy", "serving", "generation", "optimizer",
-           "gluon", "parallel"]
+           "lr_scheduler", "kvstore", "gluon", "parallel", "metric", "io",
+           "callback"]

@@ -76,6 +76,16 @@ def _top_prefix(names):
     return common[:common.rfind("_") + 1]
 
 
+def _own_prefix(block, names):
+    """What to strip from ``block``'s own parameter names: its prefix, or
+    where a name does not start with it (a Sequential whose children were
+    made outside its ``name_scope``) the names' longest common prefix
+    ending in ``_``."""
+    if all(n.startswith(block.prefix) for n in names):
+        return block.prefix
+    return _top_prefix(names)
+
+
 def gluon_params_from_reference(block, np_params, prefix=None):
     """Set ``block``'s Parameters from the reference Block's
     ``{name: array}`` (``{n: p.data().asnumpy() for n, p in
@@ -83,14 +93,16 @@ def gluon_params_from_reference(block, np_params, prefix=None):
 
     The two packages count Block prefixes separately (``resnetv10_`` here,
     ``resnetv11_`` there), so names are matched after stripping each
-    net's own top prefix: the port Block's ``prefix`` and, for the
-    reference's names, ``prefix`` or else their longest common prefix
-    ending in ``_``.  A name or shape that does not pair up raises
+    net's own top prefix: the port Block's ``prefix`` (or its names'
+    longest common prefix ending in ``_`` where they do not start with
+    it) and, for the reference's names, ``prefix`` or else their longest
+    common prefix ending in ``_``.  A name or shape that does not pair up raises
     ``ValueError``.  Values keep each Parameter's dtype and device; a
     deferred Parameter keeps its value for its first forward."""
     ref_prefix = _top_prefix(np_params) if prefix is None else prefix
-    ours = {n[len(block.prefix):]: p
-            for n, p in block.collect_params().items()}
+    params = block.collect_params()
+    own = _own_prefix(block, list(params.keys()))
+    ours = {n[len(own):]: p for n, p in params.items()}
     theirs = {n[len(ref_prefix):]: v for n, v in np_params.items()}
     if set(ours) != set(theirs):
         raise ValueError(
@@ -108,12 +120,17 @@ def gluon_params_from_reference(block, np_params, prefix=None):
 
 def gluon_params_to_reference(block, prefix):
     """``block``'s Parameters as ``{reference name: numpy}``: the port
-    Block's prefix replaced by the reference's ``prefix``; bf16 and f16
+    Block's own top prefix (see :func:`gluon_params_from_reference`)
+    replaced by the reference's ``prefix``, as copies; bf16 and f16
     values widen to float32."""
     out = {}
-    for name, p in block.collect_params().items():
+    params = block.collect_params()
+    own = _own_prefix(block, list(params.keys()))
+    for name, p in params.items():
         t = p.data()._data.detach().cpu()
         if t.dtype in (torch.bfloat16, torch.float16):
             t = t.float()
-        out[prefix + name[len(block.prefix):]] = t.numpy()
+        # a copy: on the CPU ``numpy()`` shares the Parameter's storage,
+        # which its optimizer updates in place
+        out[prefix + name[len(own):]] = t.numpy().copy()
     return out

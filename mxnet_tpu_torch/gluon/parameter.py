@@ -3,12 +3,15 @@
 
 A Parameter owns one value, an NDArray over a tensor on one device, with
 deferred shape inference: a shape holding 0s is completed by the owning
-layer at the first forward, and the value is drawn then.  It keeps no
-gradient buffer: the port takes gradients with ``torch.autograd`` on the
-trainer's functionalized step (``grad_req`` says which Parameters are
-trainable).  A ParameterDict is the prefix-scoped registry Blocks share.
-One device per parameter: a list of several contexts raises
-``NotImplementedError``.
+layer at the first forward, and the value is drawn then.  With
+``grad_req`` ``'write'`` or ``'add'`` it also owns a gradient buffer, and
+its value is marked as a leaf of the autograd tape with that buffer
+(``autograd.mark_variables``), so ``loss.backward()`` under
+``autograd.record()`` fills ``grad()`` for ``gluon.Trainer``.
+``parallel.SPMDTrainer`` does not read the buffers: it differentiates its
+own copies of the values.  A ParameterDict is the prefix-scoped registry
+Blocks share.  One device per parameter: a list of several contexts
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -18,8 +21,9 @@ from collections import OrderedDict
 import torch
 
 from ..base import MXNetError, torch_dtype
-from ..context import resolve_device
+from ..context import cpu, gpu, resolve_device
 from ..ndarray.ndarray import NDArray, _wrap
+from .. import autograd
 from .. import initializer
 from .. import random as _random
 
@@ -51,6 +55,7 @@ class Parameter:
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
         self._data = None
+        self._grad = None
         self._device = None
         self._deferred_init = ()
         self._differentiable = differentiable
@@ -87,7 +92,18 @@ class Parameter:
             "'%s'" % req
         if not self._differentiable:
             req = "null"
+        if self._grad_req == req:
+            return
         self._grad_req = req
+        if req == "null":
+            self._grad = None
+            if self._data is not None:
+                self._data._grad = None
+                self._data._grad_req = None
+                self._data._on_tape = False
+                self._data._data = self._data._data.detach()
+        elif self._data is not None:
+            self._init_grad()
 
     @property
     def dtype(self):
@@ -157,6 +173,16 @@ class Parameter:
         self._device = device
         self._data = _wrap(torch.as_tensor(data).detach().to(
             device=device, dtype=self.dtype).clone())
+        self._init_grad()
+
+    def _init_grad(self):
+        """A zero gradient buffer, and the value marked as a tape leaf
+        with it (none for ``grad_req='null'``)."""
+        if self.grad_req == "null":
+            self._grad = None
+            return
+        self._grad = _wrap(torch.zeros_like(self._data._data.detach()))
+        autograd.mark_variables([self._data], [self._grad], self.grad_req)
 
     # ---------------------------------------------------------------- public
     def initialize(self, init=None, ctx=None, default_init=None,
@@ -198,11 +224,48 @@ class Parameter:
     def data(self, ctx=None):
         return self._check_and_get(self._data)
 
+    def grad(self, ctx=None):
+        """The gradient buffer (reference ``parameter.py:302``)."""
+        if self._data is not None and self._grad is None:
+            raise RuntimeError(
+                "Cannot get gradient array for Parameter '%s' because "
+                "grad_req='null'" % (self.name,))
+        self._check_and_get(self._data)
+        return self._grad
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def list_ctx(self):
+        """The one context the value lives on."""
+        if self._data is None:
+            if self._deferred_init:
+                return [_context(self._deferred_init[1])]
+            raise RuntimeError("Parameter '%s' has not been initialized"
+                               % self.name)
+        return [_context(self._data._data.device)]
+
+    def zero_grad(self):
+        """Set the gradient buffer to 0 (reference ``parameter.py:321``)."""
+        if self._grad is None:
+            return
+        self._grad._data = torch.zeros_like(self._grad._data)
+
     def cast(self, dtype):
         self._dtype = torch_dtype(dtype)
         if self._data is None:
             return
-        self._data._data = self._data._data.to(self._dtype)
+        with torch.no_grad():
+            self._data._data = self._data._data.detach().to(self._dtype)
+            if self._grad is not None:
+                self._grad._data = self._grad._data.to(self._dtype)
+                autograd.mark_variables([self._data], [self._grad],
+                                        self.grad_req)
+
+
+def _context(device):
+    """The Context of a ``torch.device``."""
+    return gpu(device.index or 0) if device.type == "cuda" else cpu()
 
 
 class ParameterDict:
@@ -294,4 +357,8 @@ class ParameterDict:
             init = initializer.Uniform()
         for v in self.values():
             v.initialize(None, ctx, init, force_reinit=force_reinit)
+
+    def zero_grad(self):
+        for v in self.values():
+            v.zero_grad()
 

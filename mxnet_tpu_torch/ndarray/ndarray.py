@@ -3,17 +3,21 @@
 
 An NDArray is a thin mutable handle onto a ``torch.Tensor`` (``_data``).
 Arithmetic and the methods below dispatch through the op registry, so an
-expression on NDArrays runs the same registered ops as ``mx.nd.<Op>``;
-autograd history is PyTorch's own (an NDArray over a tensor that requires
-grad carries it through every op).  ``dtype`` is a ``torch.dtype``.
-The reference's tape (``attach_grad`` / ``backward``), sparse storage and
-the numpy dispatch protocol are not ported.
+expression on NDArrays runs the same registered ops as ``mx.nd.<Op>``.
+``attach_grad`` marks an array as a leaf of the autograd tape
+(``_tape.py``): under ``autograd.record()`` the ops on it record, and
+``backward()`` fills its ``grad`` buffer.  ``_on_tape`` says whether an
+array is a marked leaf or the output of a recorded op; ``_grad_req`` is
+None for an array that was never marked.  ``dtype`` is a
+``torch.dtype``.  Sparse storage and the numpy dispatch protocol are not
+ported.
 """
 from __future__ import annotations
 
 import numpy as _np
 import torch
 
+from .. import _tape
 from ..base import torch_dtype
 from ..context import cpu, gpu, resolve_device
 
@@ -23,6 +27,9 @@ __all__ = ["NDArray", "array", "zeros", "ones", "full", "waitall"]
 def _wrap(data):
     arr = NDArray.__new__(NDArray)
     arr._data = data
+    arr._grad = None
+    arr._grad_req = None
+    arr._on_tape = False
     return arr
 
 
@@ -32,7 +39,7 @@ def _invoke(name, *args, **attrs):
 
 
 class NDArray:
-    __slots__ = ("_data", "__weakref__")
+    __slots__ = ("_data", "_grad", "_grad_req", "_on_tape", "__weakref__")
 
     # numpy defers to NDArray in mixed expressions
     __array_priority__ = 1000.0
@@ -41,6 +48,9 @@ class NDArray:
         if isinstance(data, NDArray):
             data = data._data
         self._data = _as_tensor(data, ctx, dtype)
+        self._grad = None
+        self._grad_req = None
+        self._on_tape = False
 
     # ------------------------------------------------------------------ meta
     @property
@@ -109,10 +119,47 @@ class NDArray:
     item = asscalar
 
     def copy(self):
-        return _wrap(self._data.clone())
+        """A copy; the copy of an array on the tape is off it, as the
+        reference's."""
+        t = self._data.detach() if self._on_tape else self._data
+        return _wrap(t.clone())
+
+    # -------------------------------------------------------------- autograd
+    @property
+    def grad(self):
+        """The gradient buffer ``attach_grad`` allocated (None before)."""
+        return self._grad
+
+    def attach_grad(self, grad_req="write", stype=None):
+        """Allocate a zero gradient buffer and mark this array as a leaf of
+        the tape (reference ``MXAutogradMarkVariables``)."""
+        grad = _wrap(torch.zeros_like(self._data.detach())) \
+            if grad_req != "null" else None
+        _tape.mark_variable(self, grad, grad_req)
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        """Gradients of this array into the marked leaves it was computed
+        from; ``out_grad`` is its own gradient (ones by default)."""
+        _tape.backward([self], [out_grad], retain_graph, train_mode)
 
     def detach(self):
+        """The same values, off the tape: history stops here."""
         return _wrap(self._data.detach())
+
+    def wait_to_read(self):
+        """Block until the work producing this array is done (reference
+        ``NDArray::WaitToRead``)."""
+        if self._data.is_cuda:
+            torch.cuda.current_stream(self._data.device).synchronize()
+        return self
+
+    def as_in_context(self, ctx):
+        """This array on ``ctx``: itself when it is there already, else a
+        copy (recorded, so gradients flow back, under ``record()``)."""
+        device = resolve_device(ctx)
+        if device == self._data.device:
+            return self
+        return _invoke("_copy_to_device", self, device=device)
 
     def _set_data(self, new_data):
         self._data = new_data
@@ -120,7 +167,7 @@ class NDArray:
     def __getitem__(self, key):
         if isinstance(key, NDArray):
             key = key._data
-        return _wrap(self._data[key])
+        return _invoke("_slice_index", self, key=key)
 
     # ------------------------------------------------------------ arithmetic
     def _binop(self, name, other, reverse=False):

@@ -28,7 +28,8 @@ _CSRC = os.path.join(_PKG, "csrc")
 #: kernel name -> source file under csrc/
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
            "paged_attn": "paged_attn.cu", "adam_step": "adam_step.cu",
-           "sgd_step": "sgd_step.cu"}
+           "sgd_step": "sgd_step.cu", "row_softmax": "row_softmax.cu",
+           "scale_bias_relu": "scale_bias_relu.cu"}
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -18,6 +18,13 @@ Kernels, sources under ``mxnet_tpu_torch/csrc``:
   a whole list of tensors in one launch (``csrc/sgd_step.cu``), the port
   of ``_sgd_epilogue_kernel`` / ``_sgd_nomom_epilogue_kernel``;
   ``fused_sgd_step`` is its one-tensor form.
+* ``row_softmax`` / ``row_softmax_bwd`` — softmax over the last axis of
+  ``[n, d]`` with its saved row max and sum, and its backward from them
+  (``csrc/row_softmax.cu``), the port of ``_row_softmax_kernel`` /
+  ``_row_softmax_bwd_kernel``.
+* ``scale_bias_relu`` — ``relu(x * scale + bias)`` with per-column scale
+  and bias (``csrc/scale_bias_relu.cu``), the port of
+  ``_scale_bias_relu_kernel``.
 
 Each wrapper takes its kernel only for CUDA tensors: a CPU tensor runs
 the plain version beside it (``*_plain``), which repeats the Pallas
@@ -32,7 +39,8 @@ Routing policy (when to call the wrapper at all) lives in
 Launch counts: ``LAUNCHES[name]`` goes up by one at each kernel launch
 and nowhere else (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``,
 ``paged_decode_bf16``, ``paged_decode_int8``, ``adam_step``,
-``sgd_step``).
+``sgd_step``, ``row_softmax_fwd``, ``row_softmax_bwd``,
+``scale_bias_relu``).
 """
 from __future__ import annotations
 
@@ -53,6 +61,10 @@ __all__ = ["flash_attention", "flash_attention_plain",
            "adam_unsupported_reason", "fused_sgd_step", "fused_sgd_step_plain",
            "fused_sgd_step_multi", "fused_sgd_step_multi_plain",
            "sgd_unsupported_reason", "SgdTable", "sqrt_rn", "div_rn",
+           "row_softmax", "row_softmax_plain", "row_softmax_bwd",
+           "row_softmax_bwd_plain", "row_softmax_unsupported_reason",
+           "row_softmax_bwd_unsupported_reason", "scale_bias_relu",
+           "scale_bias_relu_plain", "scale_bias_relu_unsupported_reason",
            "LAUNCHES", "reset_launches",
            "HEAD_DIM", "NEG"]
 
@@ -64,7 +76,8 @@ HEAD_DIM = 64
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "paged_decode_bf16": 0, "paged_decode_int8": 0, "adam_step": 0,
-            "sgd_step": 0}
+            "sgd_step": 0, "row_softmax_fwd": 0, "row_softmax_bwd": 0,
+            "scale_bias_relu": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -97,7 +110,21 @@ _SIGNATURES = {
                               _I),
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
+    "row_softmax": {
+        "mx_row_softmax_fwd": ([_P, _P, _P, _P, ctypes.c_int64,
+                                ctypes.c_int64, _I, _P], _I),
+        "mx_row_softmax_bwd": ([_P, _P, _P, _P, _P, ctypes.c_int64,
+                                ctypes.c_int64, _I, _P], _I),
+        "mx_error_string": ([_I], ctypes.c_char_p),
+    },
+    "scale_bias_relu": {
+        "mx_scale_bias_relu": ([_P, _P, _P, _P, ctypes.c_int64,
+                                ctypes.c_int64, _I, _P], _I),
+        "mx_error_string": ([_I], ctypes.c_char_p),
+    },
 }
+#: the dtype codes of the kernels that take f32, bf16 and f16
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def reset_launches():
@@ -754,3 +781,169 @@ def fused_sgd_step(weight, grad, state, lr, wd, momentum, out_dtype=None,
     fused_sgd_step_multi([nw], [grad], [nm], [lr], [wd], momentum,
                          outs=[None if lp is nw else lp])
     return lp, nw, nm
+
+
+# --------------------------------------------------------- row softmax
+def row_softmax_unsupported_reason(x):
+    """Why the row-softmax forward kernel cannot take ``x``, or None: a
+    2-D ``[n, d]`` tensor in f32, bf16 or f16 with fewer than 2^31 rows.
+    Shapes and dtypes only."""
+    if x.dim() != 2:
+        return "rank %d != 2" % x.dim()
+    if x.dtype not in _DTYPE_CODE:
+        return "kernel takes f32, bf16 or f16, got %s" % x.dtype
+    n, d = x.shape
+    if n == 0 or d == 0:
+        return "empty tensor %s" % (tuple(x.shape),)
+    if n >= 2 ** 31:
+        return "%d rows >= 2^31" % n
+    return None
+
+
+def row_softmax_bwd_unsupported_reason(x, m, l, dy):
+    """Why the row-softmax backward kernel cannot take this call, or None:
+    the forward's conditions, ``m`` and ``l`` ``[n, 1]`` and ``dy`` of
+    ``x``'s shape, all in ``x``'s dtype.  Shapes and dtypes only."""
+    reason = row_softmax_unsupported_reason(x)
+    if reason is not None:
+        return reason
+    n = x.shape[0]
+    for name, t in (("m", m), ("l", l)):
+        if tuple(t.shape) != (n, 1) or t.dtype != x.dtype:
+            return "%s must be %s [%d, 1], got %s %s" % (
+                name, x.dtype, n, t.dtype, tuple(t.shape))
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        return "dy must be %s %s, got %s %s" % (
+            x.dtype, tuple(x.shape), dy.dtype, tuple(dy.shape))
+    return None
+
+
+def row_softmax_plain(x):
+    """The forward kernel's arithmetic in PyTorch ops, all in f32: the row
+    max ``m``, ``l = sum(exp(x - m))``, ``y = exp(x - m) / l``.  Returns
+    ``(y, m, l)`` in ``x``'s dtype, ``m`` and ``l`` as ``[n, 1]``."""
+    xf = x.float()
+    m = xf.amax(dim=-1, keepdim=True)
+    e = torch.exp(xf - m)
+    l = e.sum(dim=-1, keepdim=True)
+    return (e / l).to(x.dtype), m.to(x.dtype), l.to(x.dtype)
+
+
+def row_softmax(x):
+    """Softmax over the last axis of ``x [n, d]`` with the saved row
+    statistics: ``(y, m, l)`` as :func:`row_softmax_plain` computes them.
+    CPU tensors run the plain version; CUDA tensors launch the forward
+    kernel of ``csrc/row_softmax.cu`` or raise."""
+    if x.device.type == "cpu":
+        return row_softmax_plain(x)
+    reason = row_softmax_unsupported_reason(x) or _launch_reason(x)
+    if reason is not None:
+        raise KernelUnsupportedError(
+            "row softmax kernel cannot take this call: " + reason)
+    n, d = x.shape
+    lib = _build.load("row_softmax", _SIGNATURES["row_softmax"])
+    y = torch.empty_like(x)
+    m = torch.empty((n, 1), dtype=x.dtype, device=x.device)
+    l = torch.empty((n, 1), dtype=x.dtype, device=x.device)
+    err = lib.mx_row_softmax_fwd(x.data_ptr(), y.data_ptr(), m.data_ptr(),
+                                 l.data_ptr(), n, d, _DTYPE_CODE[x.dtype],
+                                 _stream(x))
+    _check(lib, err, "row_softmax_fwd")
+    LAUNCHES["row_softmax_fwd"] += 1
+    return y, m, l
+
+
+def row_softmax_bwd_plain(x, m, l, dy):
+    """The backward kernel's arithmetic in PyTorch ops, all in f32, from
+    the saved (rounded) ``m`` and ``l``: ``y = exp(x - m) / l``,
+    ``dx = y * (dy - sum(dy * y))``, in ``x``'s dtype."""
+    y = torch.exp(x.float() - m.float()) / l.float()
+    dyf = dy.float()
+    dot = (dyf * y).sum(dim=-1, keepdim=True)
+    return (y * (dyf - dot)).to(x.dtype)
+
+
+def row_softmax_bwd(x, m, l, dy):
+    """The row softmax's input gradient from the forward's ``x``, ``m``
+    and ``l`` and the output gradient ``dy``, as
+    :func:`row_softmax_bwd_plain` computes it.  CPU tensors run the plain
+    version; CUDA tensors launch the backward kernel of
+    ``csrc/row_softmax.cu`` or raise."""
+    if x.device.type == "cpu":
+        return row_softmax_bwd_plain(x, m, l, dy)
+    reason = (row_softmax_bwd_unsupported_reason(x, m, l, dy)
+              or _launch_reason(x, m, l, dy))
+    if reason is not None:
+        raise KernelUnsupportedError(
+            "row softmax backward kernel cannot take this call: " + reason)
+    n, d = x.shape
+    lib = _build.load("row_softmax", _SIGNATURES["row_softmax"])
+    dx = torch.empty_like(x)
+    err = lib.mx_row_softmax_bwd(x.data_ptr(), m.data_ptr(), l.data_ptr(),
+                                 dy.data_ptr(), dx.data_ptr(), n, d,
+                                 _DTYPE_CODE[x.dtype], _stream(x))
+    _check(lib, err, "row_softmax_bwd")
+    LAUNCHES["row_softmax_bwd"] += 1
+    return dx
+
+
+# ------------------------------------------------------ scale bias relu
+def scale_bias_relu_unsupported_reason(x, scale, bias):
+    """Why the scale-bias-ReLU kernel cannot take this call, or None: a
+    2-D ``x [n, d]`` in f32, bf16 or f16 and ``scale``/``bias`` of ``d``
+    values in its dtype.  Shapes and dtypes only."""
+    if x.dim() != 2:
+        return "rank %d != 2" % x.dim()
+    if x.dtype not in _DTYPE_CODE:
+        return "kernel takes f32, bf16 or f16, got %s" % x.dtype
+    n, d = x.shape
+    if n == 0 or d == 0:
+        return "empty tensor %s" % (tuple(x.shape),)
+    for name, t in (("scale", scale), ("bias", bias)):
+        if t.numel() != d or t.dtype != x.dtype:
+            return "%s must be %d values of %s, got %s %s" % (
+                name, d, x.dtype, t.dtype, tuple(t.shape))
+    return None
+
+
+def _relu_nan(v):
+    """ReLU that propagates NaN and maps -0 to +0 (``jnp.maximum(v, 0)``)."""
+    return torch.where((v > 0) | torch.isnan(v), v, torch.zeros_like(v))
+
+
+def scale_bias_relu_plain(x, scale, bias):
+    """The kernel's arithmetic in PyTorch ops, rounding as it does: f32
+    ``relu(fma(x, s, b))`` with the FMA emulated (:func:`_fma`); bf16 and
+    f16 ``relu(round(round(x * s) + b))``, each step in f32 and rounded
+    to the storage type.  ``scale``/``bias`` hold ``d`` values in ``x``'s
+    dtype; the result is in ``x``'s dtype."""
+    d = x.shape[-1]
+    s = scale.reshape(1, d)
+    b = bias.reshape(1, d)
+    if x.dtype == torch.float32:
+        return _relu_nan(_fma(x, s, b))
+    p = (x.float() * s.float()).to(x.dtype).float()
+    return _relu_nan(p + b.float()).to(x.dtype)
+
+
+def scale_bias_relu(x, scale, bias):
+    """``relu(x * scale + bias)`` over ``x [n, d]``, ``scale``/``bias`` of
+    ``d`` values in ``x``'s dtype, as :func:`scale_bias_relu_plain`
+    computes it.  CPU tensors run the plain version; CUDA tensors launch
+    ``csrc/scale_bias_relu.cu`` or raise."""
+    if x.device.type == "cpu":
+        return scale_bias_relu_plain(x, scale, bias)
+    reason = (scale_bias_relu_unsupported_reason(x, scale, bias)
+              or _launch_reason(x, scale, bias))
+    if reason is not None:
+        raise KernelUnsupportedError(
+            "scale-bias-relu kernel cannot take this call: " + reason)
+    n, d = x.shape
+    lib = _build.load("scale_bias_relu", _SIGNATURES["scale_bias_relu"])
+    y = torch.empty_like(x)
+    err = lib.mx_scale_bias_relu(x.data_ptr(), scale.data_ptr(),
+                                 bias.data_ptr(), y.data_ptr(), n, d,
+                                 _DTYPE_CODE[x.dtype], _stream(x))
+    _check(lib, err, "scale_bias_relu")
+    LAUNCHES["scale_bias_relu"] += 1
+    return y

@@ -3,12 +3,15 @@
 
 An op is a function over ``torch.Tensor``s (and Python scalars) plus its
 metadata.  :func:`apply_op` unwraps NDArray inputs, calls the function and
-wraps what it returns; gradients come from PyTorch's autograd through the
-op's own tensor code, so there is no per-op vjp and no tape.  The same
-functions are what ``hybrid_forward`` reaches through ``F`` (the
-``mx.nd`` namespace).
+wraps what it returns.  Gradients come from PyTorch's autograd through the
+op's own tensor code (or its ``torch.autograd.Function``), so there is no
+per-op vjp; the tape (``_tape.py``) decides per call whether the op
+records.  The same functions are what ``hybrid_forward`` reaches through
+``F`` (the ``mx.nd`` namespace).
 """
 from __future__ import annotations
+
+from .. import _tape
 
 __all__ = ["Operator", "register", "get", "apply_op", "invoke", "list_ops"]
 
@@ -16,9 +19,9 @@ _REGISTRY = {}
 
 
 class Operator:
-    """A registered op: ``fn(*tensors, **attrs) -> tensor | tuple``.
-    ``differentiable`` and ``num_outputs`` are informational, as in the
-    reference (autograd follows the tensors)."""
+    """A registered op: ``fn(*tensors, **attrs) -> tensor | tuple``.  A
+    non-``differentiable`` op never records: its outputs carry no
+    history.  ``num_outputs`` is informational, as in the reference."""
 
     __slots__ = ("name", "fn", "differentiable", "num_outputs")
 
@@ -56,17 +59,53 @@ def list_ops():
 
 def apply_op(op, *inputs, **attrs):
     """Run ``op`` on NDArray (or tensor/scalar) inputs; returns an NDArray,
-    or a list of them for a multi-output op."""
+    or a list of them for a multi-output op.
+
+    The op records (reference ``registry.py:104``) when recording is on,
+    the op is differentiable and an NDArray input is on the tape: the
+    inputs then enter as the tape's tensors and the outputs join the
+    tape.  Otherwise the tape's arrays enter detached, so the outputs
+    carry no history; an NDArray that is not on the tape passes its
+    tensor as it is (history of its own included)."""
     from ..ndarray.ndarray import NDArray, _wrap
     if isinstance(op, str):
         op = get(op)
-    args = [x._data if isinstance(x, NDArray) else x for x in inputs]
-    attrs = {k: (v._data if isinstance(v, NDArray) else v)
-             for k, v in attrs.items()}
-    out = op.fn(*args, **attrs)
-    if isinstance(out, (tuple, list)):
-        return [_wrap(v) for v in out]
-    return _wrap(out)
+    on_tape = False
+    args = []
+    for x in inputs:
+        if isinstance(x, NDArray):
+            on_tape = on_tape or x._on_tape
+            x = x._data
+        args.append(x)
+    kwargs = {}
+    for k, v in attrs.items():
+        if isinstance(v, NDArray):
+            on_tape = on_tape or v._on_tape
+            v = v._data
+        kwargs[k] = v
+    if not on_tape:
+        # nothing on the tape: tensors pass as they are
+        out = op.fn(*args, **kwargs)
+        if isinstance(out, (tuple, list)):
+            return [_wrap(v) for v in out]
+        return _wrap(out)
+    record = op.differentiable and _tape.is_recording()
+
+    def unwrap(x):
+        if not isinstance(x, NDArray):
+            return x
+        if record:
+            return _tape.record_tensor(x)
+        return x._data.detach() if x._on_tape else x._data
+
+    out = op.fn(*[unwrap(x) for x in inputs],
+                **{k: unwrap(v) for k, v in attrs.items()})
+    multi = isinstance(out, (tuple, list))
+    outs = [_wrap(v) for v in (out if multi else (out,))]
+    if record:
+        for o in outs:
+            o._on_tape = True
+    return outs if multi else outs[0]
 
 
 def invoke(name, *inputs, **attrs):

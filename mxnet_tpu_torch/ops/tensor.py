@@ -1,8 +1,9 @@
 """Tensor ops (counterpart of ``mxnet_tpu.ops.tensor``), the subset the
-ported layers, losses and NDArray methods call: broadcast arithmetic,
-negation and abs, reductions with MXNet's ``exclude`` semantics, shape ops,
-``cast`` and ``pick``.  Each is one PyTorch expression; names and aliases
-are the reference's."""
+ported layers, losses, NDArray methods and autograd call: broadcast
+arithmetic, unary math, reductions with MXNet's ``exclude`` semantics,
+shape ops, ``cast``, ``pick``, indexing, ``BlockGrad`` and the device
+copy.  Each is one PyTorch expression; names and aliases are the
+reference's."""
 from __future__ import annotations
 
 import operator
@@ -34,6 +35,23 @@ def _un(name, fn, aliases=()):
 
 _un("negative", torch.neg)
 _un("abs", torch.abs)
+_un("exp", torch.exp)
+_un("log", torch.log)
+_un("sin", torch.sin)
+_un("sigmoid", torch.sigmoid)
+_un("relu", torch.relu)
+
+
+@register("BlockGrad", aliases=("stop_gradient", "block_grad"))
+def _block_grad(data, **_):
+    """The input's values with no gradient through them."""
+    return data.detach()
+
+
+@register("_copy_to_device")
+def _copy_to_device(a, device=None, **_):
+    """Differentiable copy to ``device`` (the reference's CopyTo node)."""
+    return a.to(device)
 
 
 @register("cast", aliases=("Cast",))
@@ -96,6 +114,11 @@ def _squeeze(a, axis=None, **_):
 
 
 # ---------------------------------------------------------------- indexing
+@register("_slice_index")
+def _slice_index(a, key=None, **_):
+    return a[key]
+
+
 @register("pick")
 def _pick(data, index, axis=-1, keepdims=False, mode="clip", **_):
     """``data`` at ``index`` along ``axis``; float indices (MXNet labels

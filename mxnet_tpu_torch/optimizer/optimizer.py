@@ -15,19 +15,26 @@ for SGD: ``cuda_kernels.fused_sgd_step_multi``; the trainer's route).
 ``update`` and ``update_multi_precision`` take torch tensors in place of
 NDArrays and update them IN PLACE (the weight, the master copy and the
 state tensors), the analog of the reference writing the new values into
-its NDArrays.
+its NDArrays.  ``Updater`` (``get_updater``) is the kvstore-side closure
+``gluon.Trainer`` and ``KVStore.set_optimizer`` call with NDArrays: it
+keeps one state per parameter index and its ``get_states`` /
+``set_states`` round-trip them as bytes.
 
 Ported so far: ``SGD`` and ``Adam``; ``create`` raises for the other
 optimizers until their slice.
 """
 from __future__ import annotations
 
+import io
+import pickle
+
 import torch
 
 from .. import kernels as _kernels
 from ..ops import cuda_kernels as _ck
 
-__all__ = ["Optimizer", "create", "register", "SGD", "Adam"]
+__all__ = ["Optimizer", "create", "register", "SGD", "Adam", "Updater",
+           "get_updater"]
 
 _LOW_PRECISION = (torch.float16, torch.bfloat16)
 
@@ -256,6 +263,13 @@ class Optimizer:
         weight.copy_(new_w.to(weight.dtype))
         _state_write(real_state, new_state)
 
+    def __getstate__(self):
+        """Pickled without ``param_dict`` (the Parameters): whoever loads
+        the optimizer sets it again, as ``gluon.Trainer`` does."""
+        ret = self.__dict__.copy()
+        ret["param_dict"] = {}
+        return ret
+
 
 register = Optimizer.register
 create = Optimizer.create_optimizer
@@ -360,3 +374,68 @@ class Adam(Optimizer):
         return _ck.fused_adam_step(
             weight, grad, m, v, lr_t, wd, self.beta1, self.beta2,
             self.epsilon, out_dtype=out_dtype or weight.dtype, out=out)
+
+
+def _state_to(state, device):
+    """The state tree with its tensors on ``device``."""
+    if state is None:
+        return None
+    if isinstance(state, torch.Tensor):
+        return state.to(device)
+    return tuple(_state_to(x, device) for x in state)
+
+
+class Updater:
+    """The kvstore-side updater closure (reference: ``optimizer.py:835``):
+    ``updater(index, grad, weight)`` on NDArrays creates the index's
+    state at its first call (``create_state_multi_precision``) and runs
+    ``update_multi_precision`` in place on the weight's tensor."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+        self.states_synced = {}
+
+    def __call__(self, index, grad, weight):
+        if not isinstance(index, (list, tuple)):
+            index, grad, weight = [index], [grad], [weight]
+        for idx, g, w in zip(index, grad, weight):
+            if idx not in self.states:
+                self.states[idx] = \
+                    self.optimizer.create_state_multi_precision(
+                        idx, w._data.detach())
+                self.states_synced[idx] = True
+            elif not self.states_synced[idx]:
+                self.states[idx] = self.sync_state_context(
+                    self.states[idx], w._data.device)
+                self.states_synced[idx] = True
+            self.optimizer.update_multi_precision(idx, w._data, g._data,
+                                                  self.states[idx])
+
+    def sync_state_context(self, state, context):
+        """The state on the weight's device (``context``: a
+        ``torch.device`` or a Context)."""
+        from ..context import resolve_device
+        return _state_to(state, resolve_device(context))
+
+    def set_states(self, states):
+        """Load states written by :meth:`get_states`; each moves to its
+        weight's device at its next update."""
+        states = torch.load(io.BytesIO(states), weights_only=False)
+        if isinstance(states, tuple) and len(states) == 2:
+            states, self.optimizer = states
+        self.states = states
+        self.states_synced = dict.fromkeys(self.states, False)
+
+    def get_states(self, dump_optimizer=False):
+        """The states (and, with ``dump_optimizer``, the optimizer) as
+        bytes, tensors on the CPU."""
+        states = {k: _state_to(v, "cpu") for k, v in self.states.items()}
+        buf = io.BytesIO()
+        torch.save((states, self.optimizer) if dump_optimizer else states,
+                   buf, pickle_protocol=pickle.HIGHEST_PROTOCOL)
+        return buf.getvalue()
+
+
+def get_updater(optimizer):
+    return Updater(optimizer)

@@ -510,7 +510,14 @@ def test_import_does_not_load_jax():
             "import mxnet_tpu_torch.gluon; "
             "import mxnet_tpu_torch.gluon.model_zoo.vision; "
             "import mxnet_tpu_torch.parallel.trainer; "
+            "import mxnet_tpu_torch._tape, mxnet_tpu_torch.kvstore; "
+            "import mxnet_tpu_torch.metric, mxnet_tpu_torch.io; "
+            "import mxnet_tpu_torch.callback, mxnet_tpu_torch.lr_scheduler; "
+            "import mxnet_tpu_torch.gluon.trainer; "
+            "import mxnet_tpu_torch.ops.kernel_ops; "
             "assert 'mxnet_tpu_torch.optimizer.optimizer' in sys.modules; "
+            "assert 'mxnet_tpu_torch.gluon.trainer' in sys.modules; "
+            "assert 'mxnet_tpu_torch.ops.kernel_ops' in sys.modules; "
             "assert 'mxnet_tpu_torch.gluon.nn.conv_layers' in sys.modules; "
             "assert 'mxnet_tpu_torch.parallel.trainer' in sys.modules; "
             "bad = [m for m in sys.modules if m == 'jax' "
