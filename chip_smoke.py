@@ -2,7 +2,7 @@
 
 Usage (from the root of a checkout, one visible CUDA card)::
 
-    python3 chip_smoke.py [--report PATH]
+    python3 chip_smoke.py [--report PATH] [--phase module]
 
 Phases; any failure exits non-zero without the result lines:
 
@@ -109,7 +109,34 @@ Phases; any failure exits non-zero without the result lines:
             LENET_ACC_SLACK, no kernel launch; prints samples/s, the
             median step ms and the device-idle share of a profiled
             window.
-7. summary — a ``{"kernels": [...]}`` line, the card's name and power
+7. symbolic — (a) mx.rtc (K7): one ``CudaModule`` of user kernels
+            (RTC_SOURCE) compiled by NVRTC for sm_90a, NVRTC's time; each
+            kernel launched through ``CudaKernel.launch`` at RTC_SHAPE
+            [8192, 3072] (f32, or bf16 for the bf16 kernels) and at the
+            ragged RTC_RAGGED shapes, bitwise against its plain expression
+            (the shared-memory row sum within ROWSUM_TOL per row); ms,
+            byte bound and library ms at RTC_SHAPE; the host us of one
+            ``launch`` call beside a prebuilt kernel's ctypes call; a CPU
+            tensor, a CPU ctx, a dtype against the signature, an unknown
+            kernel name and source that does not compile must each raise.
+            (b) ``add_one`` through ``rtc.register_op``: one launch from
+            ``mx.nd``, one and no history under ``autograd.record()``, one
+            per ``Executor.forward`` of a ``mx.sym`` graph (op ->
+            FullyConnected), whose output equals the graph over
+            ``data + 1`` to 0 ulp.  (c) ``bench.py`` ``module_train_config``
+            at its own size (MLP 8x128 relu + head 10, SoftmaxOutput,
+            batch 64, 64 features, ``Uniform(0.05)``, Adam lr 1e-3)
+            through ``Module.train_step``: both routes from the same
+            parameters agree after 5 steps (MLP_AGREE_RTOL); then
+            MLP_STEPS counted steps a route after 3 warm-up steps, counts
+            zeroed just before and read just after: the fused route
+            launches exactly 18 adam_step a step (K3 with an f32 cast) and
+            no other kernel of the port, the eager route none; every loss
+            finite; steps/s and samples/s a route, their ratio, the
+            device-idle share of a profiled window of fused steps, and
+            the fused route's step timed again after that window; and a
+            checkpoint saved and loaded on the card gives the same bits.
+8. summary — a ``{"kernels": [...]}`` line, the card's name and power
             limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Numerics: ``torch.backends.cuda.matmul.allow_tf32`` and
@@ -119,6 +146,12 @@ is full f32.
 
 ``--report PATH`` writes every phase's numbers as JSON (the ResNet phase
 under ``"resnet"``).
+
+``--phase module`` builds the kernels and runs only phase 7(c), in a
+process no earlier phase has touched, after an A/B of Adam's ``lr_t``
+cache (``lr_t_ab``: LRT_AB_PAIRS pairs of MLP_STEPS fused steps, with
+the cache and with it reset before every tensor's update, the order
+alternating), and prints the phase's report as one JSON line.
 """
 from __future__ import annotations
 
@@ -462,7 +495,8 @@ def _adam_shapes(cfg):
 
 def check_adam(ck, torch):
     """K3 against ``fused_adam_step_plain``, bitwise on all four outputs,
-    for each full-width parameter shape at t = 1 and t = 1000; then the
+    for each full-width parameter shape at t = 1 and t = 1000 with the bf16
+    cast and at t = 1000 with the f32 one (f32 grads); then the
     step's time over the 9 tensors against the plain version and
     ``torch.optim.Adam(fused=True)``.  Returns (cases, per-step timing)."""
     from mxnet_tpu_torch.models.transformer import TransformerLMConfig
@@ -477,13 +511,19 @@ def check_adam(ck, torch):
         m = torch.randn(shape, generator=g, device="cuda") * 1e-3
         v = torch.rand(shape, generator=g, device="cuda") * 1e-6
         tensors[name] = (w, gr, m, v)
-        for t in (1, 1000):
+        # the bf16 cast of the training path, and the f32 "cast" (the
+        # master itself, written once) with an f32 grad of the symbolic
+        # Module's fused step
+        for t, cast in ((1, torch.bfloat16), (1000, torch.bfloat16),
+                        (1000, torch.float32)):
             lr_t = float(_bias_corrected_lr(TRAIN_LR, b1, b2, t))
-            got = ck.fused_adam_step(w, gr, m, v, lr_t, ADAM_WD, b1, b2, eps,
-                                     out_dtype=torch.bfloat16)
-            want = ck.fused_adam_step_plain(w, gr, m, v, lr_t, ADAM_WD, b1,
-                                            b2, eps,
-                                            out_dtype=torch.bfloat16)
+            gt = gr if cast == torch.bfloat16 else gr.float()
+            got = ck.fused_adam_step(w, gt, m, v, lr_t, ADAM_WD, b1, b2, eps,
+                                     out_dtype=cast)
+            want = ck.fused_adam_step_plain(w, gt, m, v, lr_t, ADAM_WD, b1,
+                                            b2, eps, out_dtype=cast)
+            if cast == torch.float32:
+                assert got[0] is got[1], "an f32 cast must be the master"
             got = (got[0], got[1]) + tuple(got[2])
             want = (want[0], want[1]) + tuple(want[2])
             torch.cuda.synchronize()
@@ -495,8 +535,9 @@ def check_adam(ck, torch):
             err = max(float((x.float() - y.float()).abs().max())
                       for x, y in zip(got, want))
             case = {"tensor": name, "shape": list(shape), "t": t,
+                    "cast": str(cast)[len("torch."):],
                     "differing_elements": dict(zip(
-                        ("bf16_weight", "master", "m", "v"), diff)),
+                        ("cast", "master", "m", "v"), diff)),
                     "max_abs_err": err, "ok": sum(diff) == 0}
             _log("[kernels] adam_step %s" % json.dumps(case))
             cases.append(case)
@@ -940,9 +981,11 @@ def _profile_window(srv, torch, prompts):
 
 def _zero_counts(torch, tt, ck):
     """Zero the launch counts and telemetry just before a counted run."""
+    from mxnet_tpu_torch import rtc
     torch.cuda.synchronize()
     tt.reset()
     ck.reset_launches()
+    rtc.reset_launches()
 
 
 def _read_counts(torch, tt, ck, layers, paged_key):
@@ -1644,6 +1687,568 @@ def train_lenet(mx, ck, np, torch, card):
     return out
 
 
+# ------------------------------------------------------------- phase 7
+# mx.rtc (K7): user CUDA source compiled at run time by NVRTC.  The
+# counterparts of tests/test_rtc_pallas.py's user kernels (doubler, add_one,
+# block_scale on a 2-D grid of row blocks), the reference MXNet's own axpy,
+# a row sum staged in more than 48 KB of dynamic shared memory, a template
+# reached through exports and a kernel with a bf16 scalar.  The same
+# kernels, small, are in tests/test_torch_rtc.py.  --fmad=false keeps
+# y + alpha * x and x * alpha + beta at two roundings, as their plain
+# expressions round.
+RTC_SOURCE = r"""
+#include <cuda_bf16.h>
+
+extern "C" __global__ void doubler(const float* x, float* y, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = x[i] * 2.0f;
+}
+
+extern "C" __global__ void add_one(const float* x, float* y, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = x[i] + 1.0f;
+}
+
+// one block per tile of blockDim.y rows x blockDim.x columns
+extern "C" __global__ void block_scale(const float* x, float* y, int rows,
+                                       int cols) {
+  int c = blockIdx.x * blockDim.x + threadIdx.x;
+  int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (r < rows && c < cols) {
+    long long i = (long long)r * cols + c;
+    y[i] = x[i] * 4.0f;
+  }
+}
+
+// the reference MXNet's rtc example: no bound, the grid covers y exactly
+extern "C" __global__ void axpy(const float* x, float* y, float alpha) {
+  int i = threadIdx.x + blockIdx.x * blockDim.x;
+  y[i] += alpha * x[i];
+}
+
+// blockDim.y rows a block, staged in dynamic shared memory, one warp a row
+extern "C" __global__ void row_sum_smem(const float* x, float* out, int rows,
+                                        int cols) {
+  extern __shared__ float tile[];
+  const int r0 = blockIdx.x * blockDim.y;
+  const int nrows = min((int)blockDim.y, rows - r0);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const long long count = (long long)nrows * cols;
+  for (long long i = tid; i < count; i += blockDim.x * blockDim.y)
+    tile[i] = x[(long long)r0 * cols + i];
+  __syncthreads();
+  if (threadIdx.y < nrows) {
+    float s = 0.0f;
+    for (int c = threadIdx.x; c < cols; c += blockDim.x)
+      s += tile[threadIdx.y * cols + c];
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_down_sync(0xffffffffu, s, off);
+    if (threadIdx.x == 0) out[r0 + threadIdx.y] = s;
+  }
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void scale_add(const T* x, T* y, float alpha, float beta, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = from_f32<T>(to_f32(x[i]) * alpha + beta);
+}
+
+extern "C" __global__ void bf16_mul(const __nv_bfloat16* x,
+                                    __nv_bfloat16* y, __nv_bfloat16 alpha,
+                                    int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = __hmul(x[i], alpha);
+}
+"""
+RTC_OPTIONS = ("--fmad=false",)
+RTC_EXPORTS = ("scale_add<float>", "scale_add<__nv_bfloat16>")
+RTC_SIGNATURES = {
+    "doubler": "const float *x, float *y, int n",
+    "add_one": "const float *x, float *y, int n",
+    "block_scale": "const float *x, float *y, int rows, int cols",
+    "axpy": "const float *x, float *y, float alpha",
+    "row_sum_smem": "const float *x, float *out, int rows, int cols",
+    "scale_add<float>": "const float *x, float *y, float alpha, float beta, "
+                        "int n",
+    "scale_add<__nv_bfloat16>": "const __nv_bfloat16 *x, __nv_bfloat16 *y, "
+                                "float alpha, float beta, int n",
+    "bf16_mul": "const __nv_bfloat16*, __nv_bfloat16*, __nv_bfloat16, int",
+}
+RTC_BF16 = ("scale_add<__nv_bfloat16>", "bf16_mul")
+# the d_ff epilogue shape K6 is held at, and small ragged ones
+RTC_SHAPE = (8192, 3072)
+RTC_RAGGED = ((37, 100), (1, 1), (5, 3073))
+# 8 rows of 3072 f32 = 96 KB of dynamic shared memory a block (> 48 KB)
+ROWSUM_ROWS = 8
+# The shared-memory row sum adds in another order than x.sum(-1).  Per
+# row, |kernel - plain| <= 2^-16 x sum |x_j| (the scale of any summation
+# error): reordering 3072 f32 terms moves a sum by about sqrt(3072)
+# roundings of its partial sums, some 2^-18 of sum |x_j| for random rows,
+# and a dropped term of typical size moves it by ~2^-11 of it.
+ROWSUM_TOL = 2.0 ** -16
+RTC_ALPHA, RTC_BETA = 0.3, -1.25
+SBR_CALL_SHAPE = (64, 500)
+HOST_CALLS = 2000
+# phase 7(b): the registered add_one in front of a FullyConnected
+RTC_FC_HIDDEN = 128
+RTC_FORWARDS = 3
+# phase 7(c): bench.py module_train_config at its own size
+MLP_LAYERS, MLP_WIDTH, MLP_CLASSES = 8, 128, 10
+MLP_BATCH, MLP_FEAT = 64, 64
+MLP_LR = 1e-3
+MLP_WARMUP = 3
+MLP_STEPS = 200
+MLP_PROFILE_STEPS = 10
+# Both routes after 5 steps from the same parameters and batch, per
+# tensor: max |fused - eager| / max |eager|.  The routes run the same
+# forward and backward and differ in Adam's roundings only (K3 contracts
+# three multiply-adds, Adam.step rounds each): a few f32 ulps of each
+# update of ~lr, under 1e-6 of a tensor whose entries moved by ~5 lr; a
+# missed or doubled update moves a tensor by ~1/5 of itself.
+MLP_AGREE_STEPS = 5
+MLP_AGREE_RTOL = 1e-5
+LRT_AB_PAIRS = 12
+
+
+def _ew(n):
+    return ((n + 255) // 256,), (256,)
+
+
+def _rtc_plain(torch, name, x, y0):
+    """The plain PyTorch expression user kernel ``name`` computes."""
+    if name == "doubler":
+        return x * 2
+    if name == "add_one":
+        return x + 1
+    if name == "block_scale":
+        return x * 4
+    if name == "axpy":
+        return y0 + RTC_ALPHA * x
+    if name == "row_sum_smem":
+        return x.sum(-1)
+    if name.startswith("scale_add"):
+        return (x.float() * RTC_ALPHA + RTC_BETA).to(x.dtype)
+    return x * torch.tensor(RTC_ALPHA, dtype=torch.bfloat16, device=x.device)
+
+
+def _rtc_launch(torch, kernels, name, x, y0):
+    """One launch of user kernel ``name`` on ``x`` (``y0`` the axpy
+    accumulator).  Returns (output, launch thunk, bytes, the one PyTorch
+    call computing the same function or None)."""
+    rows, cols = x.shape
+    n = rows * cols
+    y = torch.empty_like(x)
+    shared, lib = 0, None
+    if name in ("doubler", "add_one"):
+        args, (g, b) = [x, y, n], _ew(n)
+        lib = (lambda: torch.mul(x, 2.0)) if name == "doubler" else \
+            (lambda: torch.add(x, 1.0))
+    elif name == "block_scale":
+        args, g, b = [x, y, rows, cols], ((cols + 127) // 128,
+                                          (rows + 3) // 4), (128, 4)
+        lib = lambda: torch.mul(x, 4.0)  # noqa: E731
+    elif name == "axpy":
+        y = y0.clone()
+        g, b = ((n // 256,), (256,)) if n % 256 == 0 else ((n,), (1,))
+        args = [x, y, RTC_ALPHA]
+        lib = lambda: torch.add(y0, x, alpha=RTC_ALPHA)  # noqa: E731
+    elif name == "row_sum_smem":
+        y = torch.empty(rows, device=x.device)
+        args, g, b = [x, y, rows, cols], ((rows + ROWSUM_ROWS - 1)
+                                          // ROWSUM_ROWS,), (32, ROWSUM_ROWS)
+        shared = ROWSUM_ROWS * cols * 4
+        lib = lambda: torch.sum(x, -1)  # noqa: E731
+    elif name.startswith("scale_add"):
+        args, (g, b) = [x, y, RTC_ALPHA, RTC_BETA, n], _ew(n)
+        # a 0-dim f32 beta: bf16 x stays bf16, computed in f32 and rounded
+        # once, as the kernel does
+        beta_t = torch.tensor(RTC_BETA, device=x.device)
+        lib = lambda: torch.add(beta_t, x, alpha=RTC_ALPHA)  # noqa: E731
+    else:  # bf16_mul
+        args, (g, b) = [x, y, RTC_ALPHA, n], _ew(n)
+        a16 = torch.tensor(RTC_ALPHA, dtype=torch.bfloat16, device=x.device)
+        lib = lambda: torch.mul(x, a16)  # noqa: E731
+
+    def run():
+        kernels[name].launch(args, x.device, g, b, shared)
+    run()
+    nbytes = x.numel() * x.element_size() + y.numel() * y.element_size() \
+        * (2 if name == "axpy" else 1)
+    return y, run, nbytes, lib
+
+
+def _rtc_err(torch, name, y, plain, x):
+    """(max |y - plain|, differing elements, within tolerance?)."""
+    err = float((y.float() - plain.float()).abs().max())
+    if name == "row_sum_smem":
+        scale = x.abs().sum(-1) * ROWSUM_TOL
+        return err, None, bool(((y - plain).abs() <= scale).all())
+    diff = _differing(torch, y, plain)
+    return err, diff, diff == 0
+
+
+def check_rtc(mx, ck, torch):
+    """Phase 7(a): the user kernels through mx.rtc against their plain
+    expressions (bitwise; the row sum within ROWSUM_TOL per row) at
+    RTC_SHAPE and RTC_RAGGED, the errors the API must raise, and the
+    times.  Returns (report, kernels dict, module)."""
+    from mxnet_tpu_torch import rtc
+    rtc.reset_launches()
+    out = {}
+    mod = rtc.CudaModule(RTC_SOURCE, options=RTC_OPTIONS,
+                         exports=RTC_EXPORTS)
+    out["compile_ms"] = mod.compile_ms
+    t0 = time.perf_counter()
+    kernels = {name: mod.get_kernel(name, sig)
+               for name, sig in RTC_SIGNATURES.items()}
+    out["load_ms"] = (time.perf_counter() - t0) * 1e3
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    cases = {}
+    for shape in (RTC_SHAPE,) + RTC_RAGGED:
+        for name in RTC_SIGNATURES:
+            dt = torch.bfloat16 if name in RTC_BF16 else torch.float32
+            x = torch.randn(shape, generator=g, device="cuda").to(dt)
+            y0 = torch.randn(shape, generator=g, device="cuda")
+            y, run, nbytes, lib = _rtc_launch(torch, kernels, name, x, y0)
+            plain = _rtc_plain(torch, name, x, y0)
+            torch.cuda.synchronize()
+            err, diff, ok = _rtc_err(torch, name, y, plain, x)
+            case = {"shape": list(shape), "dtype": str(dt)[6:],
+                    "max_abs_err": err, "differing_elements": diff,
+                    "ok": ok}
+            if shape == RTC_SHAPE:
+                bound, by = _bound_ms(nbytes, 2 * x.numel(), PEAK_F32_FLOPS)
+                case.update(
+                    ms=_time_ms(run), bound_ms=bound, bound_by=by,
+                    plain_ms=_time_ms(lambda: _rtc_plain(
+                        torch, name, x, y0), iters=5, warmup=1),
+                    library_ms=_time_ms(lib) if lib is not None else None)
+            _log("[rtc] %s %s" % (name, json.dumps(case)))
+            cases.setdefault(name, []).append(case)
+    out["cases"] = cases
+    bad = [(n, c) for n, cs in cases.items() for c in cs if not c["ok"]]
+    assert not bad, bad
+    # the host cost of one launch call, beside a prebuilt kernel's
+    x = torch.randn(SBR_CALL_SHAPE, generator=g, device="cuda")
+    y = torch.empty_like(x)
+    s, b = x[0].clone(), x[1].clone()
+    k = kernels["block_scale"]
+    grid = ((SBR_CALL_SHAPE[1] + 127) // 128, (SBR_CALL_SHAPE[0] + 3) // 4)
+
+    def host_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        dt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return dt / HOST_CALLS * 1e6
+    out["launch_host_us"] = host_us(lambda: k.launch(
+        [x, y, SBR_CALL_SHAPE[0], SBR_CALL_SHAPE[1]], x.device, grid,
+        (128, 4)))
+    out["prebuilt_call_host_us"] = host_us(
+        lambda: ck.scale_bias_relu(x, s, b))
+    out["host_us_at"] = list(SBR_CALL_SHAPE)
+    # what must raise
+    xs = torch.randn(RTC_RAGGED[0], generator=g, device="cuda")
+    n = xs.numel()
+    k = kernels["doubler"]
+    out["raises"] = {
+        "cpu_tensor": _raises(ValueError, lambda: k.launch(
+            [xs.cpu(), torch.empty_like(xs), n], xs.device, (1,), (256,))),
+        "cpu_ctx": _raises(ValueError, lambda: k.launch(
+            [xs, torch.empty_like(xs), n], mx.cpu(), (1,), (256,))),
+        "dtype_vs_signature": _raises(TypeError, lambda: k.launch(
+            [xs.double(), torch.empty_like(xs), n], xs.device, (1,),
+            (256,))),
+        "unknown_kernel": _raises(KeyError, lambda: mod.get_kernel(
+            "no_such_kernel", "const float *x")),
+    }
+    try:
+        rtc.CudaModule('extern "C" __global__ void broken(float* y) '
+                       '{ y[0] = undeclared_name; }')
+        out["raises"]["bad_source"] = False
+    except RuntimeError as exc:
+        out["raises"]["bad_source"] = "undeclared_name" in str(exc)
+    assert all(out["raises"].values()), out["raises"]
+    out["launches"] = dict(rtc.LAUNCHES)
+    _log("[rtc] %s" % json.dumps({k: v for k, v in out.items()
+                                  if k != "cases"}))
+    return out, kernels
+
+
+def _want_rtc(ck, **per_kernel):
+    """Launch counts of a run that launched only ``per_kernel`` user
+    kernels."""
+    return (_want_launches(ck, rtc=sum(per_kernel.values())), per_kernel)
+
+
+def rtc_ops(mx, ck, torch, kernels):
+    """Phase 7(b): ``add_one`` registered as an op, on the path: one launch
+    from ``mx.nd``; one and no history under ``autograd.record()``; in a
+    ``mx.sym`` graph (op -> FullyConnected) bound by ``simple_bind``, one
+    launch per ``Executor.forward``, the output equal to the same graph
+    over ``data + 1`` to 0 ulp.  Counts are zeroed just before and read
+    just after each run."""
+    from mxnet_tpu_torch import autograd, rtc
+    from mxnet_tpu_torch import telemetry as tt
+    rtc.register_op("rtc_add_one", kernels["add_one"],
+                    out_shape=lambda x: (x.shape, x.dtype),
+                    grid_dims=lambda x: ((x.numel() + 255) // 256,),
+                    block_dims=(256,), scalars=lambda x: [x.numel()])
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    x = mx.nd.NDArray(torch.randn(RTC_SHAPE, generator=g, device="cuda"))
+
+    def counted(fn):
+        _zero_counts(torch, tt, ck)
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (dict(ck.LAUNCHES), dict(rtc.LAUNCHES))
+
+    y, out["nd_launches"] = counted(lambda: mx.nd.rtc_add_one(x))
+    assert out["nd_launches"] == _want_rtc(ck, add_one=1), \
+        out["nd_launches"]
+    out["nd_differing"] = _differing(torch, y._data, x._data + 1)
+    x.attach_grad()
+
+    def recorded():
+        with autograd.record():
+            return mx.nd.rtc_add_one(x)
+    y, out["record_launches"] = counted(recorded)
+    assert out["record_launches"] == _want_rtc(ck, add_one=1)
+    out["record_untaped"] = not y._on_tape and not y._data.requires_grad
+    data = mx.sym.Variable("data")
+    net = mx.sym.FullyConnected(mx.sym.rtc_add_one(data, name="plus"),
+                                num_hidden=RTC_FC_HIDDEN, name="fc")
+    plain = mx.sym.FullyConnected(data + 1, num_hidden=RTC_FC_HIDDEN,
+                                  name="fc")
+    exes = [s.simple_bind(mx.gpu(0), grad_req="null", data=RTC_SHAPE)
+            for s in (net, plain)]
+    w = torch.randn(RTC_FC_HIDDEN, RTC_SHAPE[1], generator=g,
+                    device="cuda") * 0.02
+    b = torch.randn(RTC_FC_HIDDEN, generator=g, device="cuda")
+    for ex in exes:
+        ex.copy_params_from({"fc_weight": w, "fc_bias": b})
+    xin = torch.randn(RTC_SHAPE, generator=g, device="cuda")
+    outs, out["executor_launches"] = counted(lambda: [
+        exes[0].forward(data=xin)[0] for _ in range(RTC_FORWARDS)])
+    assert out["executor_launches"] == _want_rtc(
+        ck, add_one=RTC_FORWARDS), out["executor_launches"]
+    want = exes[1].forward(data=xin)[0]
+    out["executor_differing"] = sum(_differing(torch, o._data, want._data)
+                                    for o in outs)
+    out["executor_forwards"] = RTC_FORWARDS
+    assert out["nd_differing"] == 0 and out["record_untaped"] \
+        and out["executor_differing"] == 0, out
+    _log("[rtc_ops] %s" % json.dumps(out))
+    return out
+
+
+def _mlp_symbol(mx):
+    """``bench.py`` ``module_train_config``'s MLP: MLP_LAYERS x MLP_WIDTH
+    FullyConnected + relu, a 10-way head, SoftmaxOutput."""
+    h = mx.sym.Variable("data")
+    for i in range(MLP_LAYERS):
+        h = mx.sym.FullyConnected(h, num_hidden=MLP_WIDTH, name="fc%d" % i)
+        h = mx.sym.Activation(h, act_type="relu", name="relu%d" % i)
+    h = mx.sym.FullyConnected(h, num_hidden=MLP_CLASSES, name="head")
+    return mx.sym.SoftmaxOutput(h, name="softmax")
+
+
+def _mlp_module(mx, init=None):
+    mod = mx.mod.Module(_mlp_symbol(mx))
+    mod.bind([("data", (MLP_BATCH, MLP_FEAT))],
+             [("softmax_label", (MLP_BATCH,))])
+    if init is None:
+        mx.random.seed(SEED)
+        mod.init_params(mx.init.Uniform(0.05))
+    else:
+        mod.init_params(initializer=None, arg_params=init)
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": MLP_LR})
+    return mod
+
+
+def _mlp_batch(mx, np):
+    """``bench.py``'s seeded batch: MLP_BATCH x MLP_FEAT features and
+    labels in [0, MLP_CLASSES)."""
+    rng = np.random.RandomState(0)
+    X = rng.randn(MLP_BATCH, MLP_FEAT).astype(np.float32)
+    Y = (rng.rand(MLP_BATCH) * MLP_CLASSES).astype(np.float32)
+    return mx.io.DataBatch([mx.nd.array(X)], [mx.nd.array(Y)])
+
+
+def _mlp_timed(mx, torch, mod, route, batch):
+    """(outputs, seconds) of MLP_STEPS steps, ending in a sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = _mlp_steps(mx, mod, route, batch, MLP_STEPS)
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0
+
+
+def _mlp_steps(mx, mod, route, batch, n):
+    """``n`` train steps under ``module.fused_step=route``; the output of
+    each step (the softmax, kept for the losses)."""
+    mx.config.set("module.fused_step", route)
+    try:
+        outs = []
+        for _ in range(n):
+            mod.train_step(batch)
+            outs.append(mod._exec.outputs[0]._data)
+        return outs
+    finally:
+        mx.config.unset("module.fused_step")
+
+
+def train_module(mx, ck, np, torch, card, workdir):
+    """Phase 7(c): ``bench.py`` ``module_train_config`` at its own size
+    through ``Module.train_step``, fused and eager."""
+    from mxnet_tpu_torch import telemetry as tt
+    batch = _mlp_batch(mx, np)
+    label = batch.label[0]._data.long().unsqueeze(1)
+    out = {"mlp": "%dx%d" % (MLP_LAYERS, MLP_WIDTH), "batch": MLP_BATCH,
+           "features": MLP_FEAT, "optimizer": "adam", "lr": MLP_LR,
+           "card": card}
+    # (1) both routes from the same parameters and batch, MLP_AGREE_STEPS
+    fused = _mlp_module(mx)
+    init = fused.get_params()[0]
+    eager = _mlp_module(mx, init)
+    _mlp_steps(mx, fused, "auto", batch, MLP_AGREE_STEPS)
+    _mlp_steps(mx, eager, "off", batch, MLP_AGREE_STEPS)
+    fw, ew = fused.get_params()[0], eager.get_params()[0]
+    out["routes_rel_err"] = max(
+        float((fw[n]._data - ew[n]._data).abs().max()
+              / ew[n]._data.abs().max()) for n in fw)
+    out["routes_rel_tol"] = MLP_AGREE_RTOL
+    out["tensors"] = len(fw)
+    assert out["tensors"] == 2 * (MLP_LAYERS + 1), out["tensors"]
+    assert out["routes_rel_err"] <= MLP_AGREE_RTOL, out["routes_rel_err"]
+    # (2) each route timed: warm-up, then counted steps
+    for route, mod in (("fused", fused), ("eager", eager)):
+        knob = "auto" if route == "fused" else "off"
+        _mlp_steps(mx, mod, knob, batch, MLP_WARMUP)
+        _zero_counts(torch, tt, ck)
+        outs, dt = _mlp_timed(mx, torch, mod, knob, batch)
+        c = tt.snapshot()["counters"]
+        losses = torch.stack([-torch.log(o.gather(1, label)).mean()
+                              for o in outs]).cpu().numpy()
+        r = {"steps": MLP_STEPS, "steps_per_s": MLP_STEPS / dt,
+             "samples_per_s": MLP_STEPS * MLP_BATCH / dt,
+             "step_ms": dt / MLP_STEPS * 1e3,
+             "launches": dict(ck.LAUNCHES),
+             "fused_steps": c.get("fused_steps", 0),
+             "eager_steps": c.get("eager_steps", 0),
+             "kernels_fused_step": c.get("kernels.fused_step", 0),
+             "first_loss": float(losses[0]), "last_loss": float(losses[-1]),
+             "losses_finite": bool(np.isfinite(losses).all())}
+        assert r["losses_finite"], losses
+        if route == "fused":
+            per_step = 2 * (MLP_LAYERS + 1)
+            assert r["launches"] == _want_launches(
+                ck, adam_step=per_step * MLP_STEPS), r["launches"]
+            assert r["kernels_fused_step"] == per_step * MLP_STEPS, r
+            assert r["fused_steps"] == MLP_STEPS, r
+        else:
+            # f32 weights: the Updater runs update_multi_precision ->
+            # update -> Adam.step, PyTorch ops only (the reference's
+            # optimizer.py:240-260 route for a weight that is not f16/bf16)
+            assert r["launches"] == _want_launches(ck), r["launches"]
+            assert r["eager_steps"] == MLP_STEPS, r
+        out[route] = r
+    out["fused_over_eager"] = out["fused"]["steps_per_s"] \
+        / out["eager"]["steps_per_s"]
+    out["profile"] = _profile(torch, lambda: _mlp_steps(
+        mx, fused, "auto", batch, MLP_PROFILE_STEPS))
+    out["profile"]["steps"] = MLP_PROFILE_STEPS
+    # the same fused steps once a torch.profiler window has run
+    _, dt = _mlp_timed(mx, torch, fused, "auto", batch)
+    out["fused_after_profile_step_ms"] = dt / MLP_STEPS * 1e3
+    # (3) a checkpoint written and read back on the card: the same bits
+    prefix = os.path.join(workdir, "mlp")
+    fused.save_checkpoint(prefix, 1)
+    sym2, arg2, aux2 = mx.model.load_checkpoint(prefix, 1)
+    now = fused.get_params()[0]
+    out["checkpoint_differing"] = sum(
+        _differing(torch, arg2[n]._data, now[n]._data) for n in now)
+    out["checkpoint_same_graph"] = sym2.tojson() == fused.symbol.tojson()
+    assert out["checkpoint_differing"] == 0 and out["checkpoint_same_graph"]
+    _log("[module] %s" % json.dumps(out))
+    return out
+
+
+def lr_t_ab(mx, np, torch):
+    """Adam's ``lr_t`` cache A/B on the fused route: LRT_AB_PAIRS pairs of
+    MLP_STEPS steps of one Module, with the cache ("change") and with it
+    reset before every tensor's update ("parent": the bias correction
+    computed 18 times a step), the order alternating.  Step ms each."""
+    mod = _mlp_module(mx)
+    batch = _mlp_batch(mx, np)
+    opt = mod._optimizer
+    cached = opt.step_fused
+
+    def uncached(*args, **kw):
+        opt._lr_t = (None, None)
+        return cached(*args, **kw)
+    _mlp_steps(mx, mod, "auto", batch, MLP_WARMUP)
+    ms = {"parent": [], "change": []}
+    for i in range(LRT_AB_PAIRS):
+        order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
+        for side in order:
+            opt.step_fused = uncached if side == "parent" else cached
+            _, dt = _mlp_timed(mx, torch, mod, "auto", batch)
+            ms[side].append(dt / MLP_STEPS * 1e3)
+    del opt.step_fused
+    out = {"pairs": LRT_AB_PAIRS, "steps": MLP_STEPS, "step_ms": ms,
+           "change_wins": sum(c < p for c, p in zip(ms["change"],
+                                                    ms["parent"]))}
+    for side, v in ms.items():
+        q = np.percentile(v, [25, 50, 75])
+        out[side] = {"p25": q[0], "median": q[1], "p75": q[2]}
+    _log("[lr_t_ab] %s" % json.dumps(out))
+    return out
+
+
+def _rtc_summary(name, rtc_out, ops_out):
+    """A K7 line of the kernels table: user kernel ``name`` at RTC_SHAPE,
+    its launches in phase 7(a) and, for add_one, 7(b)."""
+    cases = rtc_out["cases"][name]
+    top = cases[0]
+    launches = {"7a": rtc_out["launches"].get(name, 0), "7b": 0}
+    if name == "add_one":
+        launches["7b"] = sum(ops_out[k][1].get("add_one", 0) for k in (
+            "nd_launches", "record_launches", "executor_launches"))
+    return {"name": "rtc_" + name, "route": "cuda",
+            "source": "chip_smoke.py (RTC_SOURCE), compiled at run time "
+                      "by NVRTC through mxnet_tpu_torch/rtc.py",
+            "replaces": "mxnet_tpu/rtc.py:70",
+            "launches": sum(launches.values()),
+            "launches_by_phase": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "differing_elements": None if name == "row_sum_smem" else sum(
+                c["differing_elements"] for c in cases),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+            "at": {"shape": top["shape"], "dtype": top["dtype"]},
+            "nvrtc_compile_ms": rtc_out["compile_ms"], "cases": cases}
+
+
 def _summary(name, source, replaces, cases, launches):
     """One line of the kernels table; its times are those of the largest
     shape it is checked at (B=4 S=2048 causal, or K=2048)."""
@@ -1682,6 +2287,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the full report (JSON) "
                     "to this path")
+    ap.add_argument("--phase", choices=("all", "module"), default="all",
+                    help="module: phase 7(c) alone, after the lr_t A/B")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1700,8 +2307,11 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi gave nothing"
+    from mxnet_tpu_torch.ops import _cudart
     report = {"torch": torch.__version__, "cuda": torch.version.cuda,
-              "device": torch.cuda.get_device_name(0), "nvidia_smi": card}
+              "device": torch.cuda.get_device_name(0), "nvidia_smi": card,
+              "nvrtc": "%d.%d" % _cudart.nvrtc_version(),
+              "nvrtc_library": _cudart._LIBS["nvrtc"]._name}
     _log("[env] %s" % json.dumps(report))
 
     t0 = time.perf_counter()
@@ -1714,6 +2324,13 @@ def main(argv=None):
             if "registers" in line or "spill" in line:
                 _log("[build] %s: %s" % (name, line.strip()))
     _log("[build] %s" % json.dumps(report["build"]))
+    workdir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(workdir, exist_ok=True)
+    if args.phase == "module":
+        report["lr_t_ab"] = lr_t_ab(mx, np, torch)
+        report["module"] = train_module(mx, ck, np, torch, card, workdir)
+        print(json.dumps(report))
+        return 0
 
     flash = check_flash(ck, torch, F)
     paged = check_paged(ck, torch, F, quant=False)
@@ -1738,13 +2355,15 @@ def main(argv=None):
         raise AssertionError("kernel disagrees with its plain version: %s"
                              % json.dumps(bad))
 
-    workdir = os.path.join(ROOT, "build", "chip_smoke")
-    os.makedirs(workdir, exist_ok=True)
     report["serve"] = serve(mx, ck, np, torch, workdir)
     report["train"] = train(mx, ck, np, torch)
     report["resnet"] = train_resnet(mx, ck, np, torch, card)
     report["tape"] = tape(mx, ck, np, torch)
     report["lenet"] = train_lenet(mx, ck, np, torch, card)
+    report["rtc"], rtc_kernels = check_rtc(mx, ck, torch)
+    report["rtc_ops"] = rtc_ops(mx, ck, torch, rtc_kernels)
+    report["module"] = train_module(mx, ck, np, torch, card, workdir)
+    module_adam = report["module"]["fused"]["launches"]["adam_step"]
     launches = report["serve"]["greedy"]["launches"]
     taped = report["tape"]["launches"]
     trained = report["train"]["launches"]
@@ -1762,7 +2381,10 @@ def main(argv=None):
                  report["serve"]["int8"]["launches"]["paged_decode_int8"]),
         {"name": "adam_step", "route": "cuda",
          "source": "mxnet_tpu_torch/csrc/adam_step.cu",
-         "replaces": pk + "518", "launches": trained["adam_step"],
+         "replaces": pk + "518",
+         "launches": trained["adam_step"] + module_adam,
+         "launches_by_path": {"train": trained["adam_step"],
+                              "module_mlp": module_adam},
          "max_abs_err": max(c["max_abs_err"] for c in adam),
          "differing_elements": sum(sum(c["differing_elements"].values())
                                    for c in adam),
@@ -1791,7 +2413,8 @@ def main(argv=None):
                  taped["row_softmax_bwd"]),
         _k6_summary(k6, pk + "620",
                     report["tape"]["sbr_launches"]["scale_bias_relu"]),
-    ]
+    ] + [_rtc_summary(name, report["rtc"], report["rtc_ops"])
+         for name in RTC_SIGNATURES]
     # flash_fwd runs on both paths: its launches in each counted run
     kernels[0]["launches_by_path"] = {"serve_greedy": launches["flash_fwd"],
                                       "train": trained["flash_fwd"]}

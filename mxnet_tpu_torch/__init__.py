@@ -24,11 +24,19 @@ Ported so far:
   ``lr_scheduler``, ``metric``, ``io.NDArrayIter`` and ``callback``, and
   the registered kernel ops ``mx.nd.pallas_softmax``,
   ``pallas_scale_bias_relu`` and ``pallas_flash_attention``;
+* the symbolic path — ``mx.sym`` graphs, their ``Executor`` (with the
+  fused train step) and ``mx.mod.Module`` (``fit``, ``train_step``,
+  ``score``, ``predict``, checkpoints through ``mx.model`` and
+  ``nd.save`` / ``nd.load``), and ``mx.engine``;
+* ``mx.rtc`` — user CUDA source compiled at run time by NVRTC
+  (``CudaModule``), launched from ``mx.nd``, ``mx.sym`` and a Module
+  through ``register_op``;
 
 with hand-written CUDA kernels for flash-attention forward and backward,
 paged decode attention, the fused Adam step, the multi-tensor fused SGD
 step, the row softmax (forward and backward) and the fused
-scale-bias-ReLU (``ops/cuda_kernels.py``, sources in ``csrc/``).
+scale-bias-ReLU (``ops/cuda_kernels.py``, sources in ``csrc/``), and the
+user kernels ``mx.rtc`` compiles.
 
 Entry points run on ``cuda:0`` unless the caller asks for the CPU
 (``device="cpu"`` / ``mx.cpu()``); without a GPU they raise.
@@ -47,7 +55,10 @@ from . import ndarray as nd
 from . import initializer as init
 from . import kernels, quantization, models, convert, deploy, serving
 from . import generation, optimizer, lr_scheduler, kvstore, gluon, parallel
-from . import metric, io, callback
+from . import metric, io, callback, engine, rtc, symbol, model, module
+from . import executor, executor_manager
+from . import symbol as sym
+from . import module as mod
 
 __all__ = ["MXNetError", "MXNetErrorNoDevice", "KernelUnsupportedError",
            "Context", "cpu", "gpu", "num_gpus", "current_context", "config",
@@ -55,4 +66,5 @@ __all__ = ["MXNetError", "MXNetErrorNoDevice", "KernelUnsupportedError",
            "initializer", "init", "kernels", "quantization", "models",
            "convert", "deploy", "serving", "generation", "optimizer",
            "lr_scheduler", "kvstore", "gluon", "parallel", "metric", "io",
-           "callback"]
+           "callback", "engine", "rtc", "symbol", "sym", "model", "module",
+           "mod", "executor", "executor_manager"]

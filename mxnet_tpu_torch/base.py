@@ -1,12 +1,17 @@
-"""Error types and dtype names of the PyTorch/CUDA port (counterpart of
-``mxnet_tpu.base``)."""
+"""Error types, dtype names and the atomic file write of the PyTorch/CUDA
+port (counterpart of ``mxnet_tpu.base``; ``atomic_write`` is the one
+piece of ``mxnet_tpu.resilience`` the checkpoint files need)."""
 from __future__ import annotations
+
+import contextlib
+import os
+import tempfile
 
 import numpy as _np
 import torch
 
 __all__ = ["MXNetError", "MXNetErrorNoDevice", "KernelUnsupportedError",
-           "torch_dtype"]
+           "torch_dtype", "atomic_write"]
 
 
 class MXNetError(RuntimeError):
@@ -37,3 +42,26 @@ def torch_dtype(dtype):
     if str(dtype) in ("bfloat16", "bf16"):
         return torch.bfloat16
     return getattr(torch, _np.dtype(dtype).name)
+
+
+@contextlib.contextmanager
+def atomic_write(path, mode="wb"):
+    """Write ``path`` atomically: the bytes go to a temporary file in the
+    same directory, are flushed and fsynced, and only then renamed over
+    ``path``.  A crash at any point leaves the previous file whole."""
+    if mode not in ("wb", "w"):
+        raise ValueError("atomic_write takes mode 'wb' or 'w', got %r"
+                         % (mode,))
+    path = os.fspath(path)
+    fd, tmp = tempfile.mkstemp(prefix=os.path.basename(path) + ".tmp.",
+                               dir=os.path.dirname(os.path.abspath(path)))
+    try:
+        with os.fdopen(fd, mode) as f:
+            yield f
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise

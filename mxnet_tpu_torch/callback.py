@@ -1,6 +1,6 @@
 """Training callbacks (counterpart of ``mxnet_tpu.callback``; reference:
 python/mxnet/callback.py — Speedometer prints samples/sec; used by a Gluon
-loop or Module.fit).  ``do_checkpoint`` waits for the symbolic Module."""
+loop or Module.fit; ``do_checkpoint`` saves a Module's epochs)."""
 from __future__ import annotations
 
 import logging
@@ -8,7 +8,7 @@ import time
 from collections import namedtuple
 
 __all__ = ["BatchEndParam", "Speedometer", "LogValidationMetricsCallback",
-           "ProgressBar"]
+           "ProgressBar", "do_checkpoint", "module_checkpoint"]
 
 BatchEndParam = namedtuple("BatchEndParam",
                            ["epoch", "nbatch", "eval_metric", "locals"])
@@ -51,6 +51,22 @@ class Speedometer:
         else:
             self.init = True
             self.tic = time.time()
+
+
+def do_checkpoint(prefix, period=1):
+    """Epoch-end callback writing ``prefix-symbol.json`` and
+    ``prefix-NNNN.params`` every ``period`` epochs (reference
+    ``callback.py`` ``do_checkpoint``); ``Module.fit`` calls it."""
+    from .model import save_checkpoint
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+    return _callback
+
+
+module_checkpoint = do_checkpoint
 
 
 class LogValidationMetricsCallback:

@@ -1,8 +1,9 @@
 """``mx.config`` — the typed runtime-knob registry (counterpart of
 ``mxnet_tpu.config``), cut down to the knobs the ported paths read: the
-generation-serving path, the kernel tier, and the ResNet training path
+generation-serving path, the kernel tier, the ResNet training path
 (convolution layout, BatchNorm statistics, and the trainer options that
-are not ported yet, which the trainer refuses instead of ignoring).
+are not ported yet, which the trainer refuses instead of ignoring), and
+the engine and symbolic Module knobs.
 
 Every knob has a type, a default, its environment variable and a
 docstring.  ``get`` reads programmatic override > env var > default;
@@ -126,15 +127,32 @@ register_knob(
 register_knob(
     "resilience.nanguard", "MXNET_TPU_NANGUARD", str, "",
     "non-finite step guard of the fused train step ('skip' / 'abort'). "
-    "Not ported; SPMDTrainer raises NotImplementedError when it is set.")
+    "Not ported; SPMDTrainer and Module raise NotImplementedError when it "
+    "is set.")
 register_knob(
     "numerics.capture", "MXNET_TPU_NUMERICS", str, "",
     "in-step tensor-statistics capture cadence ('step:N'). Not ported; "
-    "SPMDTrainer raises NotImplementedError when it is set.")
+    "SPMDTrainer and Module raise NotImplementedError when it is set.")
 register_knob(
     "kvstore.grad_compress", "MXNET_TPU_GRAD_COMPRESS", str, "",
     "gradient-sync wire compression ('2bit'). Not ported; SPMDTrainer "
     "raises NotImplementedError when it is set.")
+register_knob(
+    "engine.type", "MXNET_ENGINE_TYPE", str, "ThreadedEnginePerDevice",
+    "NaiveEngine selects the synchronous debug mode: every mx.nd op waits "
+    "for its outputs (mx.engine.maybe_sync) and symbolic Modules run the "
+    "stage-at-a-time eager step (mx.engine.fused_step_allowed).")
+register_knob(
+    "engine.bulk_size", "MXNET_ENGINE_BULK_SIZE", int, 15,
+    "the reference's bulking segment size; kept for scripts that set it "
+    "(PyTorch dispatches each op as it comes).")
+register_knob(
+    "module.fused_step", "MXTPU_MODULE_FUSED_STEP", str, "auto",
+    "symbolic Module train step: auto (forward_backward + update run as "
+    "one fused step, Executor.fused_step_fn, whose f32 parameters update "
+    "in place through the optimizer's fused kernel when the kernel tier "
+    "is on) or off (the stage-at-a-time eager step; NaiveEngine forces "
+    "it too).")
 register_knob(
     "quant.error_budget", "MXNET_TPU_QUANT_ERROR_BUDGET", float, 0.05,
     "accuracy guardrail for int8 paths: max relative error an int8 "

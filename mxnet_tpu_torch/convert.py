@@ -12,6 +12,8 @@ port has updated can be compared with the reference's.
 reference Block's parameters (trainable and aux) as ``{name: numpy}``
 go onto the port's Block, matched by name; ``gluon_params_to_reference``
 gives them back under the reference's names.
+``symbol_params_from_reference`` / ``symbol_params_to_reference`` carry
+a symbolic Module's ``(arg_params, aux_params)`` across, as numpy.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import numpy as _np
 import torch
 
 __all__ = ["params_from_reference", "params_to_reference",
-           "gluon_params_from_reference", "gluon_params_to_reference"]
+           "gluon_params_from_reference", "gluon_params_to_reference",
+           "symbol_params_from_reference", "symbol_params_to_reference"]
 
 
 def _tensor(a):
@@ -134,3 +137,32 @@ def gluon_params_to_reference(block, prefix):
         # which its optimizer updates in place
         out[prefix + name[len(own):]] = t.numpy().copy()
     return out
+
+
+def _numpy_copy(v):
+    t = getattr(v, "_data", v)
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+        if t.dtype in (torch.bfloat16, torch.float16):
+            t = t.float()
+        t = t.numpy()
+    return _np.array(t, copy=True)
+
+
+def symbol_params_from_reference(arg_params, aux_params, ctx=None):
+    """The reference Module's ``(arg_params, aux_params)`` (NDArrays or
+    numpy, ``{n: v.asnumpy()}``) as the port's NDArrays on ``ctx``
+    (copies), ready for ``Module.init_params`` / ``set_params``."""
+    from .ndarray.ndarray import array
+    return ({n: array(_np.asarray(v), ctx=ctx)
+             for n, v in arg_params.items()},
+            {n: array(_np.asarray(v), ctx=ctx)
+             for n, v in aux_params.items()})
+
+
+def symbol_params_to_reference(arg_params, aux_params):
+    """The port's ``(arg_params, aux_params)`` as ``{name: numpy}`` dicts:
+    copies, not views (a view of a CPU tensor would follow the in-place
+    updates of a later step); bf16 and f16 widen to float32."""
+    return ({n: _numpy_copy(v) for n, v in arg_params.items()},
+            {n: _numpy_copy(v) for n, v in aux_params.items()})

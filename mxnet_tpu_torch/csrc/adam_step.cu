@@ -11,7 +11,10 @@
 //   m' = b1 * m + (1 - b1) * g'
 //   v' = b2 * v + (1 - b2) * g' * g'
 //   w' = w - lr_t * m' / (sqrt(v') + eps)
-// and writes the f32 master w', m', v' and w' rounded to bf16.
+// and writes the f32 master w', m', v' and, unless the cast is f32,
+// w' rounded to bf16.  An f32 cast is the master's own bits (the
+// reference's `nw.astype(f32)`): the caller then passes `cast_bf16 = 0`,
+// the kernel skips the cast store and the master is returned for both.
 //
 // Rounding.  nvcc contracts a*b+c into one FMA by default, and the jitted
 // reference's compiler contracts the same three multiply-adds; every step
@@ -24,7 +27,8 @@
 // What bounds it on the H100: bytes.  It reads the f32 master, m and v and
 // the grad (bf16 on the training path, widened exactly in registers, or
 // f32) and writes the master, m, v and the bf16 weight: 28 bytes per
-// element with a bf16 grad, against 3.35 TB/s.  One launch per parameter
+// element with a bf16 grad (32 with an f32 grad and no cast, the symbolic
+// Module's step), against 3.35 TB/s.  One launch per parameter
 // tensor; a grid-stride loop over 4-element vectors (16-byte f32 loads)
 // with a scalar tail.  The inputs and outputs may alias (in-place update):
 // each element is read before it is written, by the same thread.
@@ -58,6 +62,7 @@ __device__ __forceinline__ float grad_at(const void* g, int64_t i,
              : static_cast<const float*>(g)[i];
 }
 
+template <bool kCast>
 __global__ void __launch_bounds__(kThreads)
 adam_step_kernel(const float* w, const void* g, const float* m,
                  const float* v, float* w_out, float* m_out, float* v_out,
@@ -81,6 +86,7 @@ adam_step_kernel(const float* w, const void* g, const float* m,
     reinterpret_cast<float4*>(w_out)[i] = o4;
     reinterpret_cast<float4*>(m_out)[i] = m4;
     reinterpret_cast<float4*>(v_out)[i] = v4;
+    if (!kCast) continue;
     __nv_bfloat162 lo = __floats2bfloat162_rn(o4.x, o4.y);
     __nv_bfloat162 hi = __floats2bfloat162_rn(o4.z, o4.w);
     reinterpret_cast<__nv_bfloat162*>(lp)[2 * i] = lo;
@@ -92,7 +98,7 @@ adam_step_kernel(const float* w, const void* g, const float* m,
     w_out[i] = nw;
     m_out[i] = mi;
     v_out[i] = vi;
-    lp[i] = __float2bfloat16_rn(nw);
+    if (kCast) lp[i] = __float2bfloat16_rn(nw);
   }
 }
 
@@ -105,21 +111,24 @@ bool aligned16(const void* p) {
 extern "C" int mx_adam_step(const void* w, const void* g, const void* m,
                             const void* v, void* w_out, void* m_out,
                             void* v_out, void* lp, int64_t n, int grad_bf16,
-                            float lr_t, float wd, float b1, float b2,
-                            float omb1, float omb2, float eps, void* stream) {
+                            int cast_bf16, float lr_t, float wd, float b1,
+                            float b2, float omb1, float omb2, float eps,
+                            void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
   const AdamArgs a{lr_t, wd, b1, b2, omb1, omb2, eps};
-  // float4 over the f32 tensors, bf16x2 pairs over the cast; the bf16
-  // grad is read per element, so only its base needs no alignment.
+  // float4 over the f32 tensors, bf16x2 pairs over the cast (when there
+  // is one); the bf16 grad is read per element, so its base needs no
+  // alignment.
   const int vec = aligned16(w) && aligned16(m) && aligned16(v) &&
                   aligned16(w_out) && aligned16(m_out) && aligned16(v_out) &&
-                  (reinterpret_cast<uintptr_t>(lp) & 7u) == 0;
+                  (!cast_bf16 || (reinterpret_cast<uintptr_t>(lp) & 7u) == 0);
   int64_t work = vec ? (n + 3) / 4 : n;
   int64_t blocks = (work + kThreads - 1) / kThreads;
   // enough blocks to cover the 132 SMs many times over, and no more
   if (blocks > 132 * 16) blocks = 132 * 16;
-  adam_step_kernel<<<(unsigned)blocks, kThreads, 0,
-                     reinterpret_cast<cudaStream_t>(stream)>>>(
+  auto kernel = cast_bf16 ? adam_step_kernel<true> : adam_step_kernel<false>;
+  kernel<<<(unsigned)blocks, kThreads, 0,
+           reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(w), g, static_cast<const float*>(m),
       static_cast<const float*>(v), static_cast<float*>(w_out),
       static_cast<float*>(m_out), static_cast<float*>(v_out),

@@ -5,10 +5,12 @@ dispatcher, so this module is also the ``F`` a ``hybrid_forward``
 receives."""
 from __future__ import annotations
 
-from .ndarray import NDArray, array, zeros, ones, full, waitall
+from .ndarray import (NDArray, array, zeros, ones, full, waitall, concat,
+                      save, load)
 from ..ops import registry as _registry
 
-__all__ = ["NDArray", "array", "zeros", "ones", "full", "waitall"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "waitall",
+           "concat", "save", "load"]
 
 
 def _fill_one(o, r):

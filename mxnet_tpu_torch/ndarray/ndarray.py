@@ -18,10 +18,11 @@ import numpy as _np
 import torch
 
 from .. import _tape
-from ..base import torch_dtype
+from ..base import atomic_write, torch_dtype
 from ..context import cpu, gpu, resolve_device
 
-__all__ = ["NDArray", "array", "zeros", "ones", "full", "waitall"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "waitall",
+           "concat", "save", "load"]
 
 
 def _wrap(data):
@@ -266,3 +267,52 @@ def waitall():
         torch.cuda.synchronize()
 
 
+def concat(*data, dim=1):
+    return _invoke("concat", *data, dim=dim)
+
+
+# the first 8 bytes of a real Apache-MXNet .params file (list magic 0x112)
+_MXNET_PARAMS_MAGIC = 0x112
+
+
+def save(fname, data):
+    """Save an NDArray, a list or a dict of them in the reference's npz
+    container (``mxnet_tpu/ndarray/ndarray.py:647``), written atomically.
+    bf16 and f16 arrays are stored widened to f32 (exactly; numpy has no
+    bf16)."""
+    if isinstance(data, NDArray):
+        names, payload = ["__mx_single__"], [data]
+    elif isinstance(data, (list, tuple)):
+        payload = list(data)
+        names = ["__mx_list_%d__" % i for i in range(len(payload))]
+    elif isinstance(data, dict):
+        names = sorted(data)
+        payload = [data[n] for n in names]
+    else:
+        raise TypeError("save expects NDArray, list or dict")
+    arrays = {n: p.asnumpy() for n, p in zip(names, payload)}
+    with atomic_write(fname, "wb") as f:
+        _np.savez(f, **arrays)
+
+
+def load(fname):
+    """Load what :func:`save` (or the reference's ``nd.save``) wrote:
+    an NDArray, a list or a dict, on the current context.  A real
+    Apache-MXNet ``.params`` file raises NotImplementedError: its reader
+    comes with slice 9."""
+    with open(fname, "rb") as f:
+        head = f.read(8)
+    if len(head) == 8 and int.from_bytes(head, "little") == \
+            _MXNET_PARAMS_MAGIC:
+        raise NotImplementedError(
+            "%s is an Apache-MXNet .params file; its reader "
+            "(compat.load_mxnet_params) is not ported yet (slice 9)"
+            % (fname,))
+    with _np.load(fname, allow_pickle=False) as zf:
+        names = list(zf.keys())
+        if names == ["__mx_single__"]:
+            return array(zf["__mx_single__"])
+        if names and all(n.startswith("__mx_list_") for n in names):
+            return [array(zf["__mx_list_%d__" % i])
+                    for i in range(len(names))]
+        return {n: array(zf[n]) for n in names}

@@ -11,9 +11,9 @@ Kernels, sources under ``mxnet_tpu_torch/csrc``:
 * ``paged_attention`` — single-query paged decode attention over a
   page-gathered context, bf16 or int8 K/V (``csrc/paged_attn.cu``), the
   port of ``_paged_attn_kernel``.
-* ``fused_adam_step`` — the Adam update with its low-precision cast in one
-  elementwise pass (``csrc/adam_step.cu``), the port of
-  ``_adam_epilogue_kernel``.
+* ``fused_adam_step`` — the Adam update with its bf16 cast (or none, for
+  an f32 cast) in one elementwise pass (``csrc/adam_step.cu``), the port
+  of ``_adam_epilogue_kernel``.
 * ``fused_sgd_step_multi`` — the SGD(+momentum) update with its cast over
   a whole list of tensors in one launch (``csrc/sgd_step.cu``), the port
   of ``_sgd_epilogue_kernel`` / ``_sgd_nomom_epilogue_kernel``;
@@ -40,7 +40,8 @@ Launch counts: ``LAUNCHES[name]`` goes up by one at each kernel launch
 and nowhere else (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``,
 ``paged_decode_bf16``, ``paged_decode_int8``, ``adam_step``,
 ``sgd_step``, ``row_softmax_fwd``, ``row_softmax_bwd``,
-``scale_bias_relu``).
+``scale_bias_relu``), and ``rtc`` at each launch of a user kernel that
+``mx.rtc`` compiled (``rtc.LAUNCHES`` counts those per kernel name).
 """
 from __future__ import annotations
 
@@ -77,7 +78,7 @@ HEAD_DIM = 64
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "paged_decode_bf16": 0, "paged_decode_int8": 0, "adam_step": 0,
             "sgd_step": 0, "row_softmax_fwd": 0, "row_softmax_bwd": 0,
-            "scale_bias_relu": 0}
+            "scale_bias_relu": 0, "rtc": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -102,7 +103,7 @@ _SIGNATURES = {
     },
     "adam_step": {
         "mx_adam_step": ([_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, _I,
-                          _F, _F, _F, _F, _F, _F, _F, _P], _I),
+                          _I, _F, _F, _F, _F, _F, _F, _F, _P], _I),
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
     "sgd_step": {
@@ -427,8 +428,8 @@ def paged_attention(q, k, v, valid, scale=None, k_scale=None,
 # ---------------------------------------------------------------- adam
 def adam_unsupported_reason(weight, grad, m, v, out_dtype):
     """Why the Adam kernel cannot take this call, or None: f32 master,
-    m and v of one shape, a grad of that shape in f32 or bf16, and a bf16
-    cast.  Shapes and dtypes only."""
+    m and v of one shape, a grad of that shape in f32 or bf16, and an f32
+    or bf16 cast.  Shapes and dtypes only."""
     shape = weight.shape
     if any(t.shape != shape for t in (grad, m, v)):
         return "shapes differ: w%s g%s m%s v%s" % tuple(
@@ -438,8 +439,8 @@ def adam_unsupported_reason(weight, grad, m, v, out_dtype):
             weight.dtype, m.dtype, v.dtype)
     if grad.dtype not in (torch.float32, torch.bfloat16):
         return "grad must be f32 or bf16, got %s" % grad.dtype
-    if out_dtype != torch.bfloat16:
-        return "the cast must be bf16, got %s" % out_dtype
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        return "the cast must be f32 or bf16, got %s" % out_dtype
     if weight.numel() == 0:
         return "empty tensor"
     return None
@@ -495,7 +496,8 @@ def fused_adam_step_plain(weight, grad, m, v, lr_t, wd, beta1, beta2, eps,
     with the square root and the quotient correctly rounded
     (:func:`sqrt_rn`, :func:`div_rn`).  Every scalar is the f32 value of
     the Python float.  Returns
-    ``(w'.to(out_dtype), w', (m', v'))``."""
+    ``(w'.to(out_dtype), w', (m', v'))``; with an f32 ``out_dtype`` the
+    first is ``w'`` itself."""
     dev = weight.device
     lr_t, wd, b1, b2, eps = (_f32(x).to(dev) for x in (lr_t, wd, beta1,
                                                         beta2, eps))
@@ -516,8 +518,11 @@ def fused_adam_step(weight, grad, m, v, lr_t, wd, beta1, beta2, eps,
     bf16 (widened in registers, exactly).  ``out=(lp, w, m, v)`` names
     the tensors to write (they may be the inputs themselves: the update
     is elementwise, so writing in place is safe and saves the copies);
-    by default new ones are allocated.  CPU tensors run the plain
-    version; CUDA tensors launch ``csrc/adam_step.cu`` or raise."""
+    by default new ones are allocated.  With ``out_dtype`` f32 the cast
+    is the new master itself: the kernel writes the master once and skips
+    the cast store, ``lp`` is returned as ``new_w``, and ``out[0]`` must
+    be ``out[1]``.  CPU tensors run the plain version; CUDA tensors launch
+    ``csrc/adam_step.cu`` or raise."""
     if weight.device.type == "cpu":
         res = fused_adam_step_plain(weight, grad, m, v, lr_t, wd, beta1,
                                     beta2, eps, out_dtype=out_dtype)
@@ -525,8 +530,10 @@ def fused_adam_step(weight, grad, m, v, lr_t, wd, beta1, beta2, eps,
             return res
         lp, nw, (nm, nv) = res
         for dst, src in zip(out, (lp, nw, nm, nv)):
-            dst.copy_(src)
+            if dst is not src:
+                dst.copy_(src)
         return out[0], out[1], (out[2], out[3])
+    cast = out_dtype != torch.float32
     reason = adam_unsupported_reason(weight, grad, m, v, out_dtype)
     if reason is None and out is not None:
         dtypes = (out_dtype, torch.float32, torch.float32, torch.float32)
@@ -534,11 +541,13 @@ def fused_adam_step(weight, grad, m, v, lr_t, wd, beta1, beta2, eps,
                for o, dt in zip(out, dtypes)):
             reason = "out tensors must be (%s, f32, f32, f32) of %s" % (
                 out_dtype, tuple(weight.shape))
+        elif not cast and out[0] is not out[1]:
+            reason = "an f32 cast is the master itself: out[0] must be out[1]"
     if reason is None:
         if out is None:
-            out = (torch.empty_like(weight, dtype=out_dtype),
-                   torch.empty_like(weight), torch.empty_like(m),
-                   torch.empty_like(v))
+            nw = torch.empty_like(weight)
+            out = (torch.empty_like(weight, dtype=out_dtype) if cast else nw,
+                   nw, torch.empty_like(m), torch.empty_like(v))
         reason = _launch_reason(weight, grad, m, v, *out)
     if reason is not None:
         raise KernelUnsupportedError(
@@ -548,7 +557,7 @@ def fused_adam_step(weight, grad, m, v, lr_t, wd, beta1, beta2, eps,
     err = lib.mx_adam_step(
         weight.data_ptr(), grad.data_ptr(), m.data_ptr(), v.data_ptr(),
         nw.data_ptr(), nm.data_ptr(), nv.data_ptr(), lp.data_ptr(),
-        weight.numel(), int(grad.dtype == torch.bfloat16),
+        weight.numel(), int(grad.dtype == torch.bfloat16), int(cast),
         float(lr_t), float(wd), float(beta1), float(beta2),
         1.0 - float(beta1), 1.0 - float(beta2), float(eps), _stream(weight))
     _check(lib, err, "adam_step")

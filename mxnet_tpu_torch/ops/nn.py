@@ -1,6 +1,8 @@
 """Neural-network ops (counterpart of ``mxnet_tpu.ops.nn``), the subset
-the ported layers call: ``FullyConnected``, ``Convolution``, ``Pooling``,
-``BatchNorm``, ``Activation``, ``softmax`` and ``log_softmax``.
+the ported layers and symbolic graphs call: ``FullyConnected``,
+``Convolution``, ``Pooling``, ``BatchNorm``, ``Activation``,
+``softmax``, ``log_softmax``, and the output heads ``SoftmaxOutput`` and
+the ``*RegressionOutput`` ops, whose gradients are their own.
 
 The reference left these to XLA, so here each is PyTorch's own op
 (``F.conv2d`` runs cuDNN on the card) arranged to the reference's
@@ -152,6 +154,74 @@ def _log_softmax(data, axis=-1, temperature=None, **_):
     if temperature is not None and temperature != 1.0:
         data = data / temperature
     return torch.log_softmax(data, dim=axis)
+
+
+# ------------------------------------------------------------ output heads
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax over the last axis whose gradient is the reference's own
+    (``src/operator/softmax_output-inl.h``): ``(p - onehot(label)) /
+    batch`` for the data, whatever the incoming cotangent, and zero for
+    the label.  The op defines its loss."""
+
+    @staticmethod
+    def forward(ctx, data, label):
+        p = torch.softmax(data, dim=-1)
+        ctx.save_for_backward(p, label)
+        return p
+
+    @staticmethod
+    def backward(ctx, _):
+        p, label = ctx.saved_tensors
+        onehot = F.one_hot(label.to(torch.int64), p.shape[-1]).to(p.dtype)
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        return (p - onehot) / p.shape[0], dlabel
+
+
+@register("SoftmaxOutput", aliases=("softmax_output",))
+def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                    use_ignore=False, multi_output=False,
+                    normalization="batch", **_):
+    """The reference's ``SoftmaxOutput``: like it, the options other than
+    the data and label are accepted and do not change the result."""
+    return _SoftmaxOutput.apply(data, label)
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """The *RegressionOutput heads (reference
+    ``src/operator/regression_output.cc``): the forward transforms the
+    data; the backward ignores the cotangent and gives
+    ``grad(out, label) / batch`` for the data and zero for the label."""
+
+    @staticmethod
+    def forward(ctx, data, label, fwd, grad):
+        out = fwd(data)
+        ctx.save_for_backward(out, label)
+        ctx.grad = grad
+        return out
+
+    @staticmethod
+    def backward(ctx, _):
+        out, label = ctx.saved_tensors
+        g = ctx.grad(out, label.reshape(out.shape)) / out.shape[0]
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        return g, dlabel, None, None
+
+
+def _regression_output(name, alias, fwd, grad):
+    @register(name, aliases=(alias,))
+    def _op(data, label, grad_scale=1.0, **_):
+        return _RegressionOutput.apply(data, label.to(data.dtype), fwd,
+                                       grad)
+
+
+_regression_output("LinearRegressionOutput", "linear_regression_output",
+                   lambda x: x, lambda out, label: out - label)
+_regression_output("LogisticRegressionOutput", "logistic_regression_output",
+                   torch.sigmoid, lambda out, label: out - label)
+_regression_output("MAERegressionOutput", "mae_regression_output",
+                   lambda x: x, lambda out, label: torch.sign(out - label))
 
 
 # ------------------------------------------------------------------ act

@@ -7,11 +7,13 @@ wraps what it returns.  Gradients come from PyTorch's autograd through the
 op's own tensor code (or its ``torch.autograd.Function``), so there is no
 per-op vjp; the tape (``_tape.py``) decides per call whether the op
 records.  The same functions are what ``hybrid_forward`` reaches through
-``F`` (the ``mx.nd`` namespace).
+``F`` (the ``mx.nd`` namespace).  Under ``NaiveEngine`` every op waits
+for its outputs (``engine.maybe_sync``).
 """
 from __future__ import annotations
 
 from .. import _tape
+from .. import engine as _engine
 
 __all__ = ["Operator", "register", "get", "apply_op", "invoke", "list_ops"]
 
@@ -87,7 +89,9 @@ def apply_op(op, *inputs, **attrs):
         # nothing on the tape: tensors pass as they are
         out = op.fn(*args, **kwargs)
         if isinstance(out, (tuple, list)):
+            _engine.maybe_sync(out)
             return [_wrap(v) for v in out]
+        _engine.maybe_sync((out,))
         return _wrap(out)
     record = op.differentiable and _tape.is_recording()
 
@@ -101,6 +105,7 @@ def apply_op(op, *inputs, **attrs):
     out = op.fn(*[unwrap(x) for x in inputs],
                 **{k: unwrap(v) for k, v in attrs.items()})
     multi = isinstance(out, (tuple, list))
+    _engine.maybe_sync(out if multi else (out,))
     outs = [_wrap(v) for v in (out if multi else (out,))]
     if record:
         for o in outs:

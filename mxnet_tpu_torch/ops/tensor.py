@@ -1,9 +1,9 @@
 """Tensor ops (counterpart of ``mxnet_tpu.ops.tensor``), the subset the
-ported layers, losses, NDArray methods and autograd call: broadcast
-arithmetic, unary math, reductions with MXNet's ``exclude`` semantics,
-shape ops, ``cast``, ``pick``, indexing, ``BlockGrad`` and the device
-copy.  Each is one PyTorch expression; names and aliases are the
-reference's."""
+ported layers, losses, NDArray methods, autograd and the symbolic path
+call: broadcast arithmetic and comparisons, unary math, reductions with
+MXNet's ``exclude`` semantics, shape ops, ``concat`` and ``split``,
+``cast``, ``pick``, indexing, ``BlockGrad`` and the device copy.  Each
+is one PyTorch expression; names and aliases are the reference's."""
 from __future__ import annotations
 
 import operator
@@ -27,6 +27,21 @@ _bin("broadcast_mul", operator.mul, aliases=("elemwise_mul", "multiply"))
 _bin("broadcast_div", operator.truediv, aliases=("elemwise_div",
                                                  "divide"))
 _bin("broadcast_power", operator.pow, aliases=("power", "_power"))
+
+
+def _cmp(name, fn, aliases=()):
+    """A comparison: 1.0 where it holds, else 0.0, in f32 (the
+    reference's); no gradient."""
+    register(name, differentiable=False, aliases=aliases)(
+        lambda a, b, **_: fn(torch.as_tensor(a), b).to(torch.float32))
+
+
+_cmp("broadcast_equal", torch.eq, aliases=("_equal",))
+_cmp("broadcast_not_equal", torch.ne, aliases=("_not_equal",))
+_cmp("broadcast_greater", torch.gt, aliases=("_greater",))
+_cmp("broadcast_greater_equal", torch.ge, aliases=("_greater_equal",))
+_cmp("broadcast_lesser", torch.lt, aliases=("_lesser",))
+_cmp("broadcast_lesser_equal", torch.le, aliases=("_lesser_equal",))
 
 
 def _un(name, fn, aliases=()):
@@ -111,6 +126,21 @@ def _expand_dims(a, axis=0, **_):
 @register("squeeze")
 def _squeeze(a, axis=None, **_):
     return torch.squeeze(a) if axis is None else torch.squeeze(a, axis)
+
+
+@register("concat", aliases=("Concat",))
+def _concat(*args, dim=1, **_):
+    return torch.cat(args, dim=dim)
+
+
+@register("split", aliases=("SliceChannel",), num_outputs=-1)
+def _split(a, num_outputs=1, axis=1, squeeze_axis=False, **_):
+    """``num_outputs`` equal parts along ``axis`` (a tuple when more than
+    one)."""
+    parts = torch.chunk(a, num_outputs, dim=axis)
+    if squeeze_axis:
+        parts = [p.squeeze(axis) for p in parts]
+    return tuple(parts) if num_outputs > 1 else parts[0]
 
 
 # ---------------------------------------------------------------- indexing

@@ -344,6 +344,7 @@ class Adam(Optimizer):
         self.beta2 = beta2
         self.epsilon = epsilon
         self.lazy_update = lazy_update
+        self._lr_t = (None, None)   # ((lr, t, beta1, beta2), lr_t)
 
     def create_state(self, index, weight):
         return (torch.zeros_like(weight), torch.zeros_like(weight))
@@ -364,10 +365,16 @@ class Adam(Optimizer):
                    out=None):
         """``cuda_kernels.fused_adam_step`` with ``lr_t`` computed here in
         f32 (the bias correction depends on the step count, so it stays
-        outside the kernel).  ``out=(lp, master, (m, v))`` may be the
-        inputs themselves: the kernel then updates them in place."""
+        outside the kernel; the last ``(lr, t)``'s value is kept, since a
+        step updates every tensor with the same one).  ``out=(lp, master,
+        (m, v))`` may be the inputs themselves: the kernel then updates
+        them in place."""
         m, v = state
-        lr_t = float(_bias_corrected_lr(lr, self.beta1, self.beta2, t))
+        key = (float(lr), int(t), self.beta1, self.beta2)
+        if self._lr_t[0] != key:
+            self._lr_t = (key, float(_bias_corrected_lr(
+                lr, self.beta1, self.beta2, t)))
+        lr_t = self._lr_t[1]
         if out is not None:
             lp, nw, (nm, nv) = out
             out = (lp, nw, nm, nv)

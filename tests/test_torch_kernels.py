@@ -195,6 +195,51 @@ def test_fused_adam_plain_bitwise_with_pallas(shape, wd, t):
         np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
 
 
+@pytest.mark.parametrize("t", [1, 1000])
+@pytest.mark.parametrize("shape", [(256, 64), (1000,), (37, 13)],
+                         ids=["2d", "1d", "odd"])
+def test_fused_adam_f32_out_plain_bitwise_with_pallas(shape, t):
+    """The f32-out form (the symbolic Module's fused step): the plain
+    version equals the reference's Pallas kernel with
+    ``out_dtype=float32`` bit for bit, and its cast is the new master
+    itself, not a second copy."""
+    from mxnet_tpu_torch.optimizer.optimizer import _bias_corrected_lr
+    w, g, m, v = _adam_case(shape)
+    lr_t = float(_bias_corrected_lr(1e-3, 0.9, 0.999, t))
+    lp, nw, (nm, nv) = pk.fused_adam_step(
+        jnp.asarray(w), jnp.asarray(g), jnp.asarray(m), jnp.asarray(v),
+        np.float32(lr_t), 0.01, 0.9, 0.999, 1e-8, out_dtype=jnp.float32)
+    tlp, tnw, (tnm, tnv) = ck.fused_adam_step(
+        _t(w), _t(g), _t(m), _t(v), lr_t, 0.01, 0.9, 0.999, 1e-8,
+        out_dtype=torch.float32)
+    assert tlp is tnw
+    for want, got in ((lp, tlp), (nw, tnw), (nm, tnm), (nv, tnv)):
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    # in place, as the Module step calls it: out=(w, w, m, v)
+    tw, tm, tv = _t(w).clone(), _t(m).clone(), _t(v).clone()
+    res = ck.fused_adam_step(tw, _t(g), tm, tv, lr_t, 0.01, 0.9, 0.999,
+                             1e-8, out_dtype=torch.float32,
+                             out=(tw, tw, tm, tv))
+    assert res[0] is tw and res[1] is tw
+    for want, got in ((nw, tw), (nm, tm), (nv, tv)):
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+def test_fused_adam_f32_out_checks():
+    """The kernel's checks take an f32 cast, refuse a separate f32 cast
+    tensor (the master is written once) and any cast but f32 and bf16."""
+    w = _meta(3, 5, dtype=torch.float32)
+    assert ck.adam_unsupported_reason(w, w, w, w, torch.float32) is None
+    assert ck.adam_unsupported_reason(w, w.bfloat16(), w, w,
+                                      torch.float32) is None
+    assert "f32 or bf16" in ck.adam_unsupported_reason(w, w, w, w,
+                                                       torch.float64)
+    with pytest.raises(mt.KernelUnsupportedError, match="out\\[0\\]"):
+        ck.fused_adam_step(w, w, w, w, 1e-3, 0.0, 0.9, 0.999, 1e-8,
+                           out_dtype=torch.float32,
+                           out=(torch.empty_like(w), w, w, w))
+
+
 def test_fma_rounds_once():
     """``_fma`` rounds a*b + c once.  With a = 1 + 2^-23,
     b = 2^-24 (1 - 2^-23) and c = 1 + 2^-23 the exact value lies 2^-70
@@ -515,7 +560,14 @@ def test_import_does_not_load_jax():
             "import mxnet_tpu_torch.callback, mxnet_tpu_torch.lr_scheduler; "
             "import mxnet_tpu_torch.gluon.trainer; "
             "import mxnet_tpu_torch.ops.kernel_ops; "
+            "import mxnet_tpu_torch.rtc, mxnet_tpu_torch.ops._cudart; "
+            "import mxnet_tpu_torch.symbol, mxnet_tpu_torch.module; "
+            "import mxnet_tpu_torch.model, mxnet_tpu_torch.engine; "
+            "import mxnet_tpu_torch.executor; "
+            "import mxnet_tpu_torch.executor_manager; "
             "assert 'mxnet_tpu_torch.optimizer.optimizer' in sys.modules; "
+            "assert 'mxnet_tpu_torch.symbol.symbol' in sys.modules; "
+            "assert 'mxnet_tpu_torch.module.module' in sys.modules; "
             "assert 'mxnet_tpu_torch.gluon.trainer' in sys.modules; "
             "assert 'mxnet_tpu_torch.ops.kernel_ops' in sys.modules; "
             "assert 'mxnet_tpu_torch.gluon.nn.conv_layers' in sys.modules; "
