@@ -2,20 +2,26 @@
 
 Usage (from the root of a checkout, one visible CUDA card)::
 
-    python3 chip_smoke.py [--report PATH] [--phase module]
+    python3 chip_smoke.py [--report PATH] [--phase attention|module]
 
 Phases; any failure exits non-zero without the result lines:
 
 1. build  — compile every kernel of ``mxnet_tpu_torch/csrc`` for sm_90a
-            (one ``nvcc`` per source, in parallel) into ``build/kernels``.
+            (one ``nvcc`` per source, in parallel) into ``build/kernels``;
+            a ``flash_bwd.cu`` build that spills a register fails (its
+            wgmma products read registers asynchronously).
 2. kernels — each kernel against its plain PyTorch version on the same
             seeded inputs at the shapes its path gives it:
             flash-attention forward (bf16, causal S = 128, 1024, 2048;
             non-causal Sq=256, Skv=1024; the training shape B=4, H=12,
             S=2048), paged decode, bf16 and int8
             pages (B=8, K = 16, 512, 2048, ragged valid prefixes), the
-            flash backward K2dq and K2dkv (the forward's shapes plus the
-            training shape B=4, H=12, S=2048), the fused Adam step K3
+            flash backward K2dq and K2dkv (BWD_CASES: the forward's
+            shapes, the training shape B=4, H=12, S=2048, ragged causal
+            S=1000, ragged non-causal Sq=200 Skv=1000 and BERT-base's
+            B=8 S=128 non-causal; a second launch must give the same
+            bits, and each case logs the two kernels' device time over
+            sdpa backward's), the fused Adam step K3
             (the 9 full-width parameter tensors, wd 0.01, t = 1 and 1000,
             bf16 grads) and the multi-tensor fused SGD step K1 (the 193
             trainable shapes of resnet50_v1 in one launch: momentum 0.9
@@ -147,6 +153,10 @@ is full f32.
 ``--report PATH`` writes every phase's numbers as JSON (the ResNet phase
 under ``"resnet"``).
 
+``--phase attention`` builds the two flash sources and runs only the
+flash forward and backward checks of phase 2, and prints their report as
+one JSON line: the quick check after a change to an attention kernel.
+
 ``--phase module`` builds the kernels and runs only phase 7(c), in a
 process no earlier phase has touched, after an A/B of Adam's ``lr_t``
 cache (``lr_t_ab``: LRT_AB_PAIRS pairs of MLP_STEPS fused steps, with
@@ -158,6 +168,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -427,15 +438,28 @@ def _sdpa_bwd_ms(torch, F, q, k, v, do, causal):
     return _device_ms(torch, bwd), _time_ms(bwd)
 
 
+#: (B, causal, Sq, Skv) of the backward checks: the forward's shapes, the
+#: training shape, ragged causal and non-causal tiles, and BERT-base's
+#: shape (B=8, H=12, S=128, no mask)
+BWD_CASES = ((1, True, 128, 128), (1, True, 1024, 1024),
+             (1, True, 2048, 2048), (1, False, 256, 1024),
+             (TRAIN_B, True, TRAIN_S, TRAIN_S), (1, True, 1000, 1000),
+             (1, False, 200, 1000), (8, False, 128, 128))
+
+
+def _same_bits(torch, x, y):
+    return bool(torch.equal(x.view(torch.int16), y.view(torch.int16)))
+
+
 def check_flash_bwd(ck, torch, F):
     """K2dq and K2dkv against ``flash_attention_bwd_plain`` (same o, lse,
-    delta, dO).  Returns (dq cases, dkv cases)."""
+    delta, dO) at BWD_CASES; a second launch on the same inputs must give
+    the same bits.  Each case logs the kernels' combined device time over
+    sdpa backward's.  Returns (dq cases, dkv cases)."""
     dq_cases, dkv_cases = [], []
     H, D = 12, 64
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    for B, causal, sq, skv in ((1, True, 128, 128), (1, True, 1024, 1024),
-                               (1, True, 2048, 2048), (1, False, 256, 1024),
-                               (TRAIN_B, True, TRAIN_S, TRAIN_S)):
+    for B, causal, sq, skv in BWD_CASES:
         q, do = (torch.randn(B, H, sq, D, generator=g,
                              device="cuda").bfloat16() for _ in range(2))
         k, v = (torch.randn(B, H, skv, D, generator=g,
@@ -446,31 +470,36 @@ def check_flash_bwd(ck, torch, F):
                                             causal=causal, delta=delta)
         pdq, pdk, pdv = ck.flash_attention_bwd_plain(
             q, k, v, o, lse, do, causal=causal, delta=delta)
+        args = (q, k, v, do, lse, delta, causal, None)
+        again = (ck._launch_bwd_dq(*args),) + ck._launch_bwd_dkv(*args)
         torch.cuda.synchronize()
         shape = {"B": B, "H": H, "Sq": sq, "Skv": skv, "D": D,
                  "causal": causal, "dtype": "bfloat16"}
         pairs = B * H * (sq * (sq + 1) // 2 if causal else sq * skv)
         qbytes, kvbytes = 2 * B * H * sq * D, 2 * B * H * skv * D
-        args = (q, k, v, do, lse, delta, causal, None)
         plain_ms = _time_ms(lambda: ck.flash_attention_bwd_plain(
             q, k, v, o, lse, do, causal=causal, delta=delta), iters=5,
             warmup=1)
         lib_ms, lib_event_ms = _sdpa_bwd_ms(torch, F, q, k, v, do, causal)
-        for name, outs, plain, launch, nbytes, products, cases in (
-                ("flash_bwd_dq", (dq,), (pdq,), ck._launch_bwd_dq,
+        pair = []
+        for name, outs, plain, reruns, launch, nbytes, products, cases in (
+                ("flash_bwd_dq", (dq,), (pdq,), again[:1], ck._launch_bwd_dq,
                  3 * qbytes + 2 * kvbytes + 8 * B * H * sq, 3, dq_cases),
-                ("flash_bwd_dkv", (dk, dv), (pdk, pdv), ck._launch_bwd_dkv,
+                ("flash_bwd_dkv", (dk, dv), (pdk, pdv), again[1:],
+                 ck._launch_bwd_dkv,
                  2 * qbytes + 4 * kvbytes + 8 * B * H * sq, 4, dkv_cases)):
             row_err = max(_row_rel_err(x, px, BWD_ROW_FLOOR)
                           for x, px in zip(outs, plain))
             err = max(float((x.float() - px.float()).abs().max())
                       for x, px in zip(outs, plain))
-            ok = (row_err <= ROW_REL_TOL and all(
+            same = all(_same_bits(torch, x, y) for x, y in zip(outs, reruns))
+            ok = (row_err <= ROW_REL_TOL and same and all(
                 bool(torch.isfinite(x.float()).all()) for x in outs))
             bound, by = _bound_ms(nbytes, products * 2 * D * pairs)
             case = {"shape": shape, "max_abs_err": err,
                     "max_row_rel_err": row_err, "row_rel_tol": ROW_REL_TOL,
-                    "row_floor": BWD_ROW_FLOOR, "ok": ok,
+                    "row_floor": BWD_ROW_FLOOR, "same_bits_twice": same,
+                    "ok": ok,
                     "ms": _time_ms(lambda: launch(*args)),
                     "device_ms": _device_ms(torch, lambda: launch(*args)),
                     "plain_ms": plain_ms, "plain_computes": "dq, dk, dv",
@@ -478,8 +507,19 @@ def check_flash_bwd(ck, torch, F):
                     "library_computes": "dq, dk, dv (sdpa backward; "
                                         "device time)",
                     "bound_ms": bound, "bound_by": by}
+            case["bound_share"] = (bound / case["device_ms"]
+                                   if case["device_ms"] else None)
             _log("[kernels] %s %s" % (name, json.dumps(case)))
             cases.append(case)
+            pair.append(case)
+        if pair[0]["device_ms"] and pair[1]["device_ms"] and lib_ms:
+            both = pair[0]["device_ms"] + pair[1]["device_ms"]
+            for case in pair:
+                case["pair_vs_library"] = both / lib_ms
+            _log("[kernels] flash backward at %s, device time: K2dq %.4f + "
+                 "K2dkv %.4f = %.4f ms, sdpa backward %.4f ms (ratio %.3f)"
+                 % (json.dumps(shape), pair[0]["device_ms"],
+                    pair[1]["device_ms"], both, lib_ms, both / lib_ms))
     return dq_cases, dkv_cases
 
 
@@ -927,7 +967,7 @@ def _profiler_records_cuda(torch):
 def _profile(torch, fn, top=8):
     """torch.profiler over ``fn()``: wall time, summed CUDA kernel time
     and the device's idle share, plus the ``top`` kernels that took most
-    device time."""
+    device time and every kernel of the port's by its own name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -952,6 +992,8 @@ def _profile(torch, fn, top=8):
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": (1.0 - busy / wall_ms) if busy > 0 else None,
             "top_kernels_ms": [[n[:80], t] for n, t in ranked],
+            "port_kernels_ms": {n[:80]: t for n, t in by_name.items()
+                                if any(k in n for k in _KERNEL_GROUPS[0][1])},
             "by_group_ms": groups}
 
 
@@ -2283,12 +2325,22 @@ def _k6_summary(cases, replaces, launches):
             "cases": cases}
 
 
+def _write_report(path, report):
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(report, f, indent=1)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the full report (JSON) "
                     "to this path")
-    ap.add_argument("--phase", choices=("all", "module"), default="all",
-                    help="module: phase 7(c) alone, after the lr_t A/B")
+    ap.add_argument("--phase", choices=("all", "attention", "module"),
+                    default="all",
+                    help="attention: the flash forward and backward checks "
+                    "of phase 2 alone; module: phase 7(c) alone, after the "
+                    "lr_t A/B")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2308,24 +2360,54 @@ def main(argv=None):
         timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi gave nothing"
     from mxnet_tpu_torch.ops import _cudart
+    try:
+        import ml_dtypes
+        ml_dtypes_version = ml_dtypes.__version__
+    except ImportError:
+        ml_dtypes_version = None
     report = {"torch": torch.__version__, "cuda": torch.version.cuda,
+              "ml_dtypes": ml_dtypes_version,
               "device": torch.cuda.get_device_name(0), "nvidia_smi": card,
               "nvrtc": "%d.%d" % _cudart.nvrtc_version(),
               "nvrtc_library": _cudart._LIBS["nvrtc"]._name}
     _log("[env] %s" % json.dumps(report))
 
     t0 = time.perf_counter()
-    built = _build.build()
+    built = _build.build(["flash_fwd", "flash_bwd"]
+                         if args.phase == "attention" else None)
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "per_source_s": {k: v["seconds"]
-                                        for k, v in built.items()}}
+                                        for k, v in built.items()},
+                       "ptxas": {k: v["ptxas"] for k, v in built.items()}}
     for name, info in built.items():
         for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "arning" in line or "wgmma" in line):
                 _log("[build] %s: %s" % (name, line.strip()))
-    _log("[build] %s" % json.dumps(report["build"]))
+    _log("[build] %s" % json.dumps({k: v for k, v in report["build"].items()
+                                    if k != "ptxas"}))
+    # flash_bwd.cu's wgmma products read registers asynchronously; a
+    # spilled register under one is not safe
+    spills = re.findall(r"(\d+) bytes spill stores",
+                        built.get("flash_bwd", {}).get("ptxas", ""))
+    if any(int(n) for n in spills):
+        raise AssertionError("flash_bwd.cu spills registers: %s"
+                             % built["flash_bwd"]["ptxas"])
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
+    if args.phase == "attention":
+        report["flash_fwd"] = check_flash(ck, torch, F)
+        report["flash_bwd_dq"], report["flash_bwd_dkv"] = check_flash_bwd(
+            ck, torch, F)
+        bad = [c for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+               for c in report[key] if not c["ok"]]
+        _write_report(args.report, report)
+        if bad:
+            raise AssertionError("kernel disagrees with its plain version: "
+                                 "%s" % json.dumps(bad))
+        print(json.dumps({k: v for k, v in report.items()
+                          if k != "build"}))
+        return 0
     if args.phase == "module":
         report["lr_t_ab"] = lr_t_ab(mx, np, torch)
         report["module"] = train_module(mx, ck, np, torch, card, workdir)
@@ -2336,15 +2418,6 @@ def main(argv=None):
     paged = check_paged(ck, torch, F, quant=False)
     paged8 = check_paged(ck, torch, F, quant=True)
     bwd_dq, bwd_dkv = check_flash_bwd(ck, torch, F)
-    top = max(bwd_dq, key=lambda c: c["bound_ms"])
-    top_kv = max(bwd_dkv, key=lambda c: c["bound_ms"])
-    if top["device_ms"] and top_kv["device_ms"] and top["library_ms"]:
-        both = top["device_ms"] + top_kv["device_ms"]
-        _log("[kernels] flash backward at %s, device time: K2dq %.4f + "
-             "K2dkv %.4f = %.4f ms, sdpa backward %.4f ms (ratio %.3f)"
-             % (json.dumps(top["shape"]), top["device_ms"],
-                top_kv["device_ms"], both, top["library_ms"],
-                both / top["library_ms"]))
     adam, adam_step = check_adam(ck, torch)
     sgd, sgd_step = check_sgd(ck, torch, mx, np)
     k5f, k5b = check_row_softmax(ck, torch)
@@ -2419,11 +2492,7 @@ def main(argv=None):
     kernels[0]["launches_by_path"] = {"serve_greedy": launches["flash_fwd"],
                                       "train": trained["flash_fwd"]}
     report["kernels"] = kernels
-    if args.report:
-        os.makedirs(os.path.dirname(os.path.abspath(args.report)),
-                    exist_ok=True)
-        with open(args.report, "w") as f:
-            json.dump(report, f, indent=1)
+    _write_report(args.report, report)
     print(json.dumps({"kernels": [{k: v for k, v in s.items()
                                    if k != "cases"} for s in kernels]}))
     print(card)

@@ -1,6 +1,7 @@
 """``mx.config`` — the typed runtime-knob registry (counterpart of
 ``mxnet_tpu.config``), cut down to the knobs the ported paths read: the
-generation-serving path, the kernel tier, the ResNet training path
+generation-serving path, the kernel tier, the 64-bit dtype policy, the
+ResNet training path
 (convolution layout, BatchNorm statistics, and the trainer options that
 are not ported yet, which the trainer refuses instead of ignoring), and
 the engine and symbolic Module knobs.
@@ -17,7 +18,7 @@ import os
 from collections import namedtuple
 
 __all__ = ["register_knob", "get", "set", "unset", "describe", "epoch",
-           "Knob"]
+           "enable_x64", "Knob"]
 
 Knob = namedtuple("Knob", ["name", "env", "type", "default", "doc"])
 
@@ -111,6 +112,11 @@ register_knob(
     "kernel's plain PyTorch version. Off = the plain attention lowering "
     "everywhere, the only way to run it on the card.")
 register_knob(
+    "numpy.enable_x64", "MXTPU_ENABLE_X64", bool, False,
+    "keep 64-bit dtypes: off (default), a float64/int64/uint64 that "
+    "mx.nd.array and the creation functions are given becomes its 32-bit "
+    "twin, as the reference canonicalizes them; on, they stay 64-bit.")
+register_knob(
     "conv.internal_layout", "MXTPU_CONV_LAYOUT", str, "native",
     "internal conv layout: native (NCHW) or NHWC (the input and weight "
     "of every 2-D convolution go channels_last in memory; the logical API "
@@ -195,6 +201,12 @@ register_knob(
     "serving.shared_prefix", "MXNET_TPU_SHARED_PREFIX", bool, True,
     "share full prompt-prefix KV pages between concurrent requests with "
     "a common prefix (refcounted, freed when the last reader exits).")
+
+
+def enable_x64(flag=True):
+    """Programmatic x64 switch (pairs with the ``numpy.enable_x64``
+    knob)."""
+    set("numpy.enable_x64", bool(flag))
 
 
 def _positive_int_knob(name):

@@ -175,7 +175,7 @@ class Module(BaseModule):
                     arr._data = _copy_onto(given[name], arr._data)
                 elif initializer is not None:
                     val = initializer.generate(
-                        _random.next_key(), arr.shape, arr.dtype,
+                        _random.next_key(), arr.shape, arr._data.dtype,
                         InitDesc(name))
                     arr._data = val.to(arr._data.device)
                 elif pool is self._exec.arg_dict and not allow_missing:

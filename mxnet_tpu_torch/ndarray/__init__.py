@@ -17,7 +17,7 @@ def _fill_one(o, r):
     if tuple(o.shape) != tuple(r.shape):
         raise ValueError("out= shape %s does not match result shape %s"
                          % (tuple(o.shape), tuple(r.shape)))
-    o._set_data(r._data.to(o.dtype))
+    o._set_data(r._data.to(o._data.dtype))
     return o
 
 

@@ -8,9 +8,18 @@ expression on NDArrays runs the same registered ops as ``mx.nd.<Op>``.
 (``_tape.py``): under ``autograd.record()`` the ops on it record, and
 ``backward()`` fills its ``grad`` buffer.  ``_on_tape`` says whether an
 array is a marked leaf or the output of a recorded op; ``_grad_req`` is
-None for an array that was never marked.  ``dtype`` is a
-``torch.dtype``.  Sparse storage and the numpy dispatch protocol are not
-ported.
+None for an array that was never marked.
+
+As in the reference, ``dtype`` is a numpy dtype (bfloat16 is
+``ml_dtypes.bfloat16``; without ``ml_dtypes`` numpy has none, and
+``torch.bfloat16`` stands in), 64-bit sources and dtypes become 32-bit
+unless ``mx.config.enable_x64()`` (``base.canonical_dtype``), the
+comparison operators return arrays of 0/1, and the in-place operators
+and ``x[key] = value`` replace this array's value (``_data``), so every
+reference to the NDArray sees the change while other arrays that shared
+its old tensor keep theirs.  Inside ``autograd.record()`` an array on the
+tape cannot be written in place.  Sparse storage and the numpy dispatch
+protocol are not ported.
 """
 from __future__ import annotations
 
@@ -18,7 +27,7 @@ import numpy as _np
 import torch
 
 from .. import _tape
-from ..base import atomic_write, torch_dtype
+from ..base import atomic_write, bfloat16_numpy, canonical_dtype, numpy_dtype
 from ..context import cpu, gpu, resolve_device
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "waitall",
@@ -60,7 +69,7 @@ class NDArray:
 
     @property
     def dtype(self):
-        return self._data.dtype
+        return numpy_dtype(self._data.dtype)
 
     @property
     def size(self):
@@ -101,12 +110,16 @@ class NDArray:
 
     # ------------------------------------------------------ host interchange
     def asnumpy(self):
-        """A host copy; bf16 and f16 widen to float32 (numpy has no bf16;
-        the widening is exact)."""
-        t = self._data.detach()
-        if t.dtype in (torch.bfloat16, torch.float16):
-            t = t.float()
-        return t.cpu().numpy()
+        """The value as a numpy array of the same dtype; bf16 comes back as
+        ``ml_dtypes.bfloat16``, or widened (exactly) to float32 where
+        ``ml_dtypes`` does not import."""
+        t = self._data.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            bf16 = bfloat16_numpy()
+            if bf16 is None:
+                return t.float().numpy()
+            return t.view(torch.int16).numpy().view(bf16)
+        return t.numpy()
 
     def __array__(self, dtype=None, copy=None):
         a = self.asnumpy()
@@ -165,10 +178,41 @@ class NDArray:
     def _set_data(self, new_data):
         self._data = new_data
 
+    def _check_mutable(self):
+        if _tape.is_recording() and self._on_tape:
+            raise RuntimeError(
+                "in-place write to an NDArray that is part of a recorded "
+                "computation graph is forbidden inside autograd.record() "
+                "(reference: Imperative::RecordOp CHECK)")
+
     def __getitem__(self, key):
         if isinstance(key, NDArray):
             key = key._data
         return _invoke("_slice_index", self, key=key)
+
+    def __setitem__(self, key, value):
+        """Write ``value`` (a scalar, an NDArray or an array-like,
+        broadcast to the selection) at ``key``; a negative-step slice
+        writes in its own order."""
+        from ..ops.tensor import positive_steps
+        self._check_mutable()
+        if isinstance(key, NDArray):
+            key = key._data
+        if isinstance(value, NDArray):
+            value = value._data.detach()
+        data = self._data.detach()
+        pos, flips = positive_steps(key, data.shape)
+        if isinstance(value, _np.ndarray) and value.dtype.name == "bfloat16":
+            value = _bf16_tensor(value)
+        value = torch.as_tensor(value).to(device=data.device,
+                                          dtype=data.dtype)
+        if _whole(pos):
+            self._data = value.broadcast_to(data.shape).clone()
+            return
+        new = data.clone()
+        value = value.broadcast_to(new[pos].shape)
+        new[pos] = value.flip(flips) if flips else value
+        self._data = new
 
     # ------------------------------------------------------------ arithmetic
     def _binop(self, name, other, reverse=False):
@@ -185,8 +229,34 @@ class NDArray:
     def __rtruediv__(self, o): return self._binop("broadcast_div", o, True)
     def __pow__(self, o): return self._binop("broadcast_power", o)
     def __rpow__(self, o): return self._binop("broadcast_power", o, True)
+    def __mod__(self, o): return self._binop("broadcast_mod", o)
+    def __rmod__(self, o): return self._binop("broadcast_mod", o, True)
+    def __matmul__(self, o): return self._binop("batch_dot_auto", o)
     def __neg__(self): return _invoke("negative", self)
     def __abs__(self): return _invoke("abs", self)
+
+    def __eq__(self, o): return self._binop("broadcast_equal", o)
+    def __ne__(self, o): return self._binop("broadcast_not_equal", o)
+    def __gt__(self, o): return self._binop("broadcast_greater", o)
+    def __ge__(self, o): return self._binop("broadcast_greater_equal", o)
+    def __lt__(self, o): return self._binop("broadcast_lesser", o)
+    def __le__(self, o): return self._binop("broadcast_lesser_equal", o)
+
+    def __hash__(self):
+        return id(self)
+
+    # ------------------------------------------------------------- in place
+    def _inplace(self, name, o):
+        """``self = self <op> o`` on this handle, off the tape."""
+        self._check_mutable()
+        other = o.detach() if isinstance(o, NDArray) else o
+        self._data = _invoke(name, self.detach(), other)._data
+        return self
+
+    def __iadd__(self, o): return self._inplace("broadcast_add", o)
+    def __isub__(self, o): return self._inplace("broadcast_sub", o)
+    def __imul__(self, o): return self._inplace("broadcast_mul", o)
+    def __itruediv__(self, o): return self._inplace("broadcast_div", o)
 
     # ------------------------------------------------------------ transforms
     def reshape(self, *shape, **kwargs):
@@ -200,7 +270,7 @@ class NDArray:
         return _invoke("reshape", self, shape=shape)
 
     def astype(self, dtype, copy=True):
-        return _invoke("cast", self, dtype=dtype)
+        return _invoke("cast", self, dtype=canonical_dtype(dtype))
 
     def transpose(self, *axes):
         if len(axes) == 1 and isinstance(axes[0], (tuple, list)):
@@ -224,22 +294,37 @@ class NDArray:
 
 
 
+def _whole(key):
+    """Whether index ``key`` is ``[:]``, the whole array."""
+    if isinstance(key, tuple) and len(key) == 1:
+        key = key[0]
+    return isinstance(key, slice) and key == slice(None)
+
+
 # ------------------------------------------------------------- creation
+def _bf16_tensor(a):
+    """A numpy array of bf16 bit patterns (``ml_dtypes.bfloat16``, or the
+    2-byte void that ``numpy.save`` writes for it) as a bf16 tensor."""
+    return torch.from_numpy(
+        _np.ascontiguousarray(a).view(_np.int16).copy()).view(torch.bfloat16)
+
+
 def _as_tensor(source, ctx=None, dtype=None):
     """``source`` as a tensor on ``ctx`` (the current context by default:
-    ``cuda:0`` unless the caller asks for the CPU)."""
+    ``cuda:0`` unless the caller asks for the CPU), 64-bit dtypes
+    canonicalized to 32-bit as the reference's ``dtype_np`` does."""
     if isinstance(source, NDArray):
         source = source._data
     if dtype is None:
         # MXNet: an array source keeps its dtype, a list or scalar is f32
-        if isinstance(source, torch.Tensor):
+        if isinstance(source, (torch.Tensor, _np.ndarray)):
             dtype = source.dtype
-        elif isinstance(source, _np.ndarray):
-            dtype = torch_dtype(source.dtype)
         else:
             dtype = torch.float32
+    if isinstance(source, _np.ndarray) and source.dtype.name == "bfloat16":
+        source = _bf16_tensor(source)
     t = torch.as_tensor(source)
-    return t.to(device=resolve_device(ctx), dtype=torch_dtype(dtype))
+    return t.to(device=resolve_device(ctx), dtype=canonical_dtype(dtype))
 
 
 def array(source_array, ctx=None, dtype=None):
@@ -249,7 +334,7 @@ def array(source_array, ctx=None, dtype=None):
 def full(shape, val, ctx=None, dtype=None, **_):
     if isinstance(shape, int):
         shape = (shape,)
-    return _wrap(torch.full(tuple(shape), val, dtype=torch_dtype(dtype),
+    return _wrap(torch.full(tuple(shape), val, dtype=canonical_dtype(dtype),
                             device=resolve_device(ctx)))
 
 
@@ -275,11 +360,28 @@ def concat(*data, dim=1):
 _MXNET_PARAMS_MAGIC = 0x112
 
 
+def _saved(arr):
+    """What the npz container holds for ``arr``: its numpy value; bf16 as
+    its 16-bit patterns in a 2-byte void, which is what ``numpy.save``
+    writes for the reference's ``ml_dtypes.bfloat16`` arrays."""
+    t = arr._data.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_np.dtype("V2"))
+    return t.numpy()
+
+
+def _loaded(a):
+    """An array read from the container: a 2-byte void is bf16."""
+    if a.dtype == _np.dtype("V2"):
+        return array(_bf16_tensor(a))
+    return array(a)
+
+
 def save(fname, data):
     """Save an NDArray, a list or a dict of them in the reference's npz
     container (``mxnet_tpu/ndarray/ndarray.py:647``), written atomically.
-    bf16 and f16 arrays are stored widened to f32 (exactly; numpy has no
-    bf16)."""
+    Every dtype is stored as it is; bf16 as the reference's file holds it
+    (see :func:`_saved`)."""
     if isinstance(data, NDArray):
         names, payload = ["__mx_single__"], [data]
     elif isinstance(data, (list, tuple)):
@@ -290,7 +392,7 @@ def save(fname, data):
         payload = [data[n] for n in names]
     else:
         raise TypeError("save expects NDArray, list or dict")
-    arrays = {n: p.asnumpy() for n, p in zip(names, payload)}
+    arrays = {n: _saved(p) for n, p in zip(names, payload)}
     with atomic_write(fname, "wb") as f:
         _np.savez(f, **arrays)
 
@@ -311,8 +413,8 @@ def load(fname):
     with _np.load(fname, allow_pickle=False) as zf:
         names = list(zf.keys())
         if names == ["__mx_single__"]:
-            return array(zf["__mx_single__"])
+            return _loaded(zf["__mx_single__"])
         if names and all(n.startswith("__mx_list_") for n in names):
-            return [array(zf["__mx_list_%d__" % i])
+            return [_loaded(zf["__mx_list_%d__" % i])
                     for i in range(len(names))]
-        return {n: array(zf[n]) for n in names}
+        return {n: _loaded(zf[n]) for n in names}

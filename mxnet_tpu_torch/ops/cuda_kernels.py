@@ -176,6 +176,8 @@ def flash_unsupported_reason(q, k, v, causal):
         return "head dim %d != %d" % (q.shape[3], HEAD_DIM)
     if q.shape[0] * q.shape[1] > 65535:
         return "B*H %d > 65535" % (q.shape[0] * q.shape[1])
+    if q.numel() == 0 or k.numel() == 0:
+        return "empty: B*H, Sq and Skv must be positive"
     return None
 
 
@@ -286,7 +288,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None,
     ``o`` and ``lse``.  ``delta`` (:func:`flash_delta`) is computed here
     when not given.  CPU tensors run the plain version; CUDA tensors
     launch the two kernels of ``csrc/flash_bwd.cu`` (dq, then dk/dv;
-    contiguous bf16, head dim 64) or raise."""
+    contiguous bf16 at 16-byte aligned addresses, head dim 64) or
+    raise."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          scale=scale, delta=delta)
@@ -298,6 +301,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None,
         if delta is None:
             delta = flash_delta(o, do)
         reason = _launch_reason(q, k, v, o, lse, do, delta)
+    if reason is None and any(t.data_ptr() % 16
+                              for t in (q, k, v, do, lse, delta)):
+        # the kernels read through TMA tensor maps
+        reason = "a data pointer is not 16-byte aligned"
     if reason is not None:
         raise KernelUnsupportedError(
             "flash backward kernels cannot take this call: " + reason)

@@ -77,11 +77,12 @@ _AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
 def _pooling(data, kernel=None, pool_type="max", global_pool=False,
              stride=None, pad=None, pooling_convention="valid",
              count_include_pad=True, **_):
-    """Max or avg pooling; a max window pads with -inf.  The window is
-    placed as the reference places it, which is the ``valid`` convention
-    whatever ``pooling_convention`` says (it accepts ``full`` and ignores
-    it, and so does this op).  The reference's ``sum`` and ``lp`` pooling
-    are not ported."""
+    """Max, avg, sum or lp (p = 2: the root of the windowed sum of
+    ``|x|^2``) pooling; a max window pads with -inf, the others with 0.
+    The window is placed as the reference places it, which is the
+    ``valid`` convention whatever ``pooling_convention`` says (it accepts
+    ``full`` and ignores it, and so does this op).  A global pool is the
+    max or, for every other type, the mean, as the reference's."""
     ndim = data.dim() - 2
     if global_pool:
         axes = tuple(range(2, data.dim()))
@@ -96,7 +97,21 @@ def _pooling(data, kernel=None, pool_type="max", global_pool=False,
     if pool_type == "avg":
         return _AVG_POOL[ndim](data, kernel, stride, pad,
                                count_include_pad=bool(count_include_pad))
+    if pool_type == "sum":
+        return _sum_pool(data, kernel, stride, pad)
+    if pool_type == "lp":
+        return torch.sqrt(_sum_pool(data.abs() ** 2, kernel, stride, pad))
     raise ValueError("unknown pool_type %r" % pool_type)
+
+
+def _sum_pool(x, kernel, stride, pad):
+    """The windowed sum, zero-padded: an avg pool that divides by 1 (a
+    1-D pool as a 2-D one over a unit axis)."""
+    if len(kernel) == 1:
+        return _sum_pool(x.unsqueeze(-1), kernel + (1,), stride + (1,),
+                         pad + (0,)).squeeze(-1)
+    return _AVG_POOL[len(kernel)](x, kernel, stride, pad,
+                                  count_include_pad=True, divisor_override=1)
 
 
 # ------------------------------------------------------------------ norms
@@ -209,19 +224,30 @@ class _RegressionOutput(torch.autograd.Function):
         return g, dlabel, None, None
 
 
-def _regression_output(name, alias, fwd, grad):
-    @register(name, aliases=(alias,))
+def _snake(name):
+    """The reference's snake-case alias of an op name
+    (``MAERegressionOutput`` -> ``maeregression_output``)."""
+    out = []
+    for i, ch in enumerate(name):
+        if ch.isupper() and i and not name[i - 1].isupper():
+            out.append("_")
+        out.append(ch.lower())
+    return "".join(out)
+
+
+def _regression_output(name, fwd, grad):
+    @register(name, aliases=(_snake(name),))
     def _op(data, label, grad_scale=1.0, **_):
         return _RegressionOutput.apply(data, label.to(data.dtype), fwd,
                                        grad)
 
 
-_regression_output("LinearRegressionOutput", "linear_regression_output",
-                   lambda x: x, lambda out, label: out - label)
-_regression_output("LogisticRegressionOutput", "logistic_regression_output",
-                   torch.sigmoid, lambda out, label: out - label)
-_regression_output("MAERegressionOutput", "mae_regression_output",
-                   lambda x: x, lambda out, label: torch.sign(out - label))
+_regression_output("LinearRegressionOutput", lambda x: x,
+                   lambda out, label: out - label)
+_regression_output("LogisticRegressionOutput", torch.sigmoid,
+                   lambda out, label: out - label)
+_regression_output("MAERegressionOutput", lambda x: x,
+                   lambda out, label: torch.sign(out - label))
 
 
 # ------------------------------------------------------------------ act

@@ -1,13 +1,15 @@
 """Tensor ops (counterpart of ``mxnet_tpu.ops.tensor``), the subset the
 ported layers, losses, NDArray methods, autograd and the symbolic path
-call: broadcast arithmetic and comparisons, unary math, reductions with
-MXNet's ``exclude`` semantics, shape ops, ``concat`` and ``split``,
-``cast``, ``pick``, indexing, ``BlockGrad`` and the device copy.  Each
+call: broadcast arithmetic (``%`` as ``broadcast_mod``) and comparisons,
+unary math, reductions with MXNet's ``exclude`` semantics, shape ops,
+``concat`` and ``split``, ``batch_dot_auto`` (``@``), ``cast``, ``pick``,
+indexing (negative steps included), ``BlockGrad`` and the device copy.  Each
 is one PyTorch expression; names and aliases are the reference's."""
 from __future__ import annotations
 
 import operator
 
+import numpy as _np
 import torch
 
 from ..base import torch_dtype
@@ -27,6 +29,8 @@ _bin("broadcast_mul", operator.mul, aliases=("elemwise_mul", "multiply"))
 _bin("broadcast_div", operator.truediv, aliases=("elemwise_div",
                                                  "divide"))
 _bin("broadcast_power", operator.pow, aliases=("power", "_power"))
+# Python's % (torch.remainder): the sign follows the divisor, as jnp.mod
+_bin("broadcast_mod", operator.mod, aliases=("mod",))
 
 
 def _cmp(name, fn, aliases=()):
@@ -143,10 +147,56 @@ def _split(a, num_outputs=1, axis=1, squeeze_axis=False, **_):
     return tuple(parts) if num_outputs > 1 else parts[0]
 
 
+@register("batch_dot_auto")
+def _batch_dot_auto(a, b, **_):
+    """``a @ b`` (the reference's NDArray ``__matmul__``)."""
+    return torch.matmul(a, b)
+
+
 # ---------------------------------------------------------------- indexing
+_BASIC = (int, _np.integer, slice, type(None), type(Ellipsis))
+
+
+def positive_steps(key, shape):
+    """``(key', flips)``: ``key`` with every negative-step slice replaced by
+    the slice of the same elements in increasing order (PyTorch takes no
+    negative step), and the axes of ``a[key']`` to flip so that
+    ``a[key'].flip(flips)`` equals numpy's ``a[key]``.  A negative step
+    combines with ints, slices, ``None`` and ``Ellipsis`` only."""
+    items = key if isinstance(key, tuple) else (key,)
+    if not any(isinstance(k, slice) and k.step is not None and k.step < 0
+               for k in items):
+        return key, ()
+    if not all(isinstance(k, _BASIC) for k in items):
+        raise IndexError("a negative-step slice combines only with ints, "
+                         "slices, None and Ellipsis")
+    consumed = sum(k is not None and k is not Ellipsis for k in items)
+    out, flips, dim, rdim = [], [], 0, 0
+    for k in items:
+        if k is Ellipsis:
+            span = len(shape) - consumed
+            dim, rdim = dim + span, rdim + span
+        elif k is None:
+            rdim += 1
+        elif isinstance(k, slice):
+            if k.step is not None and k.step < 0:
+                start, stop, step = k.indices(shape[dim])
+                n = len(range(start, stop, step))
+                last = start + step * (n - 1)
+                k = slice(last, start + 1, -step) if n else slice(0, 0)
+                flips.append(rdim)
+            dim, rdim = dim + 1, rdim + 1
+        else:
+            dim += 1   # an int index drops its axis
+        out.append(k)
+    return tuple(out), tuple(flips)
+
+
 @register("_slice_index")
 def _slice_index(a, key=None, **_):
-    return a[key]
+    key, flips = positive_steps(key, a.shape)
+    out = a[key]
+    return out.flip(flips) if flips else out
 
 
 @register("pick")

@@ -400,6 +400,42 @@ def test_training_shapes_pass_the_kernel_checks():
             w, _meta(*shape), w, w, torch.bfloat16) is None
 
 
+@pytest.mark.parametrize("B,causal,sq,skv", [
+    (1, True, 1000, 1000),    # ragged causal: 1000 = 15 x 64 + 40
+    (1, False, 200, 1000),    # ragged, Sq != Skv, no mask
+    (8, False, 128, 128),     # BERT-base: B=8, H=12, S=128, no mask
+], ids=["ragged-causal", "ragged-noncausal", "bert-base"])
+def test_backward_checks_take_the_ragged_and_bert_shapes(B, causal, sq, skv):
+    """The shapes chip_smoke.py's backward checks add pass the backward
+    kernels' own check: ragged tiles are masked in the kernels, not
+    refused."""
+    q = _meta(B, 12, sq, 64)
+    kv = _meta(B, 12, skv, 64)
+    lse = _meta(B * 12, sq, dtype=torch.float32)
+    assert ck.flash_unsupported_reason(q, kv, kv, causal) is None
+    assert ck.flash_bwd_unsupported_reason(q, kv, kv, q, lse, q,
+                                           causal) is None
+
+
+@pytest.mark.parametrize("shape_q,shape_kv,causal,match", [
+    ((1, 2, 8, 32), (1, 2, 8, 32), False, "head dim 32"),
+    ((1, 2, 8, 64), (1, 2, 16, 64), True, "causal needs Sq == Skv"),
+    ((2, 32768, 1, 64), (2, 32768, 1, 64), False, "65535"),
+    ((1, 2, 0, 64), (1, 2, 0, 64), False, "empty"),
+    ((0, 2, 8, 64), (0, 2, 8, 64), False, "empty"),
+], ids=["head-dim", "causal-ragged", "bh", "empty-s", "empty-b"])
+def test_backward_wrapper_rejects_what_bad_dims_rejects(shape_q, shape_kv,
+                                                        causal, match):
+    """Every call ``bad_dims`` in ``csrc/flash_bwd.cu`` refuses is refused
+    by the wrapper first, by name, before any launch."""
+    q, kv = _meta(*shape_q), _meta(*shape_kv)
+    lse = _meta(shape_q[0] * shape_q[1], shape_q[2], dtype=torch.float32)
+    assert match in ck.flash_bwd_unsupported_reason(q, kv, kv, q, lse, q,
+                                                    causal)
+    with pytest.raises(mt.KernelUnsupportedError, match=match):
+        ck.flash_attention_bwd(q, kv, kv, q, lse, q, causal=causal)
+
+
 def test_backward_and_adam_checks_reject_what_the_kernels_do_not_take():
     q = _meta(1, 2, 8, 64)
     lse = _meta(2, 8, dtype=torch.float32)

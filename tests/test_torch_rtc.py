@@ -186,8 +186,13 @@ def test_marshal_kernel_params_layout():
         "const float *a, double *b, __half c, __nv_bfloat16 d, int8_t e, "
         "uint8_t f, int32_t g, int h, int64_t i, float j, double k")
     a, b = torch.ones(3), torch.zeros(2, dtype=torch.float64)
-    values = [a, mt.nd.NDArray(b), 1.5, 0.7, -5, 200, -7, 123, 2 ** 40, 0.1,
-              0.1]
+    # an f64 NDArray needs x64 on, as in the reference
+    mt.config.enable_x64(True)
+    try:
+        b_nd = mt.nd.NDArray(b)
+    finally:
+        mt.config.unset("numpy.enable_x64")
+    values = [a, b_nd, 1.5, 0.7, -5, 200, -7, 123, 2 ** 40, 0.1, 0.1]
     params, holders = rtc.marshal(args, values, torch.device("cpu"))
     assert len(params) == len(args) == len(holders)
 
