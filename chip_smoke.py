@@ -8,26 +8,34 @@ Phases; any failure exits non-zero without the result lines:
 
 1. build  — compile every kernel of ``mxnet_tpu_torch/csrc`` for sm_90a
             (one ``nvcc`` per source, in parallel) into ``build/kernels``;
-            a ``flash_bwd.cu`` build that spills a register fails (its
-            wgmma products read registers asynchronously).
+            a ``flash_fwd.cu`` or ``flash_bwd.cu`` build that spills a
+            register fails (their wgmma products read registers
+            asynchronously).
 2. kernels — each kernel against its plain PyTorch version on the same
             seeded inputs at the shapes its path gives it:
-            flash-attention forward (bf16, causal S = 128, 1024, 2048;
-            non-causal Sq=256, Skv=1024; the training shape B=4, H=12,
-            S=2048), paged decode, bf16 and int8
-            pages (B=8, K = 16, 512, 2048, ragged valid prefixes), the
-            flash backward K2dq and K2dkv (BWD_CASES: the forward's
-            shapes, the training shape B=4, H=12, S=2048, ragged causal
+            flash-attention forward K2f (FWD_CASES, bf16: the serving
+            prompts' ends S = 17 and 1500, causal S = 128, 1024, 2048,
+            non-causal Sq=256, Skv=1024, the training shape B=4, H=12,
+            S=2048; the same bits from two launches; device time beside
+            sdpa's and beside the block shape not chosen), paged decode
+            K4 (PAGED_CASES: B = 1 and 8 at 1, 32 and 128 pages of 16, a
+            shuffled table with sentinels past each length, bf16 and int8
+            pools; the pool form and the gathered form, the same bits
+            twice, device time, the bound from the valid keys' bytes,
+            sdpa over the gathered tensors and the old gather + transpose
+            route's device time), the flash backward K2dq and K2dkv
+            (BWD_CASES: the forward's shapes, the training shape B=4, H=12, S=2048, ragged causal
             S=1000, ragged non-causal Sq=200 Skv=1000 and BERT-base's
             B=8 S=128 non-causal; a second launch must give the same
             bits, and each case logs the two kernels' device time over
             sdpa backward's), the fused Adam step K3
             (the 9 full-width parameter tensors, wd 0.01, t = 1 and 1000,
-            bf16 grads) and the multi-tensor fused SGD step K1 (the 193
+            bf16 grads and casts, an f32 grad and cast, f16 grads and
+            casts) and the multi-tensor fused SGD step K1 (the 193
             trainable shapes of resnet50_v1 in one launch: momentum 0.9
-            with the f32 master as out, with a bf16 out, momentum 0, and
-            per-tensor lr/wd), the row softmax K5 forward and backward
-            (K5_CASES: [8192, 32000] f32 and bf16, [4096, 1000] bf16,
+            with the f32 master as out, with a bf16 out, momentum 0,
+            per-tensor lr/wd, and f16 grads with an f16 out), the row
+            softmax K5 forward and backward (K5_CASES: [8192, 32000] f32 and bf16, [4096, 1000] bf16,
             [64, 10] f32, [4, 12, 128, 130] f32) and the scale-bias-ReLU
             K6 (K6_CASES: [8192, 3072] f32 and bf16, [64, 500] f32,
             [4096, 1000] f32 and bf16 with NaN and -0.0 planted).  Prints
@@ -55,9 +63,12 @@ Phases; any failure exits non-zero without the result lines:
             run.  Kernel launch counts and telemetry are zeroed just
             before each of the three runs and read just after: every
             prefill layer must have run the flash kernel and every decode
-            layer the paged kernel of the run's page dtype, and nothing
-            else.  Each greedy stream is held against the plain ``apply()``
-            with the kernel tier off, teacher-forced.
+            layer one pool-form paged kernel of the run's page dtype, and
+            nothing else.  Each greedy stream is held against the plain
+            ``apply()`` with the kernel tier off, teacher-forced.  Then
+            ``decode_step`` at 8 slots and 128 pages, DECODE_STEPS
+            profiled steps with the pool-form route and with the gathered
+            route it replaced: CUDA kernels a step, device and host ms.
 4. train  — the full-width TransformerLM trained for TRAIN_STEPS steps
             on one fixed seeded batch (B=4, S=2048: 8192 tokens a step;
             targets are the inputs shifted by one) with Adam (lr 1e-3,
@@ -114,7 +125,12 @@ Phases; any failure exits non-zero without the result lines:
             loss finite, epoch-2 accuracy at least LENET_REF_ACC -
             LENET_ACC_SLACK, no kernel launch; prints samples/s, the
             median step ms and the device-idle share of a profiled
-            window.
+            window.  (c) MXNet's mixed precision: LeNet with f16
+            weights through ``gluon.Trainer`` with ``multi_precision=True``,
+            SGD (momentum 0.9) and Adam, F16_STEPS steps each: exactly
+            one sgd_step (adam_step) a tensor a step (f16 grad, f16 cast)
+            and nothing else, finite losses, each weight the f16 cast of
+            its f32 master.
 7. symbolic — (a) mx.rtc (K7): one ``CudaModule`` of user kernels
             (RTC_SOURCE) compiled by NVRTC for sm_90a, NVRTC's time; each
             kernel launched through ``CudaKernel.launch`` at RTC_SHAPE
@@ -153,9 +169,10 @@ is full f32.
 ``--report PATH`` writes every phase's numbers as JSON (the ResNet phase
 under ``"resnet"``).
 
-``--phase attention`` builds the two flash sources and runs only the
-flash forward and backward checks of phase 2, and prints their report as
-one JSON line: the quick check after a change to an attention kernel.
+``--phase attention`` builds the two flash sources and the paged one and
+runs only the flash forward, paged decode and flash backward checks of
+phase 2, and prints their report as one JSON line: the quick check after
+a change to an attention kernel.
 
 ``--phase module`` builds the kernels and runs only phase 7(c), in a
 process no earlier phase has touched, after an A/B of Adam's ``lr_t``
@@ -326,101 +343,195 @@ def _bound_ms(nbytes, flops, peak=None):
 
 
 # ------------------------------------------------------------- phase 2
+#: (B, causal, Sq, Skv) of the forward checks: the serving prompts' ends
+#: (17 and 1500 tokens), causal S = 128, 1024, 2048, a non-causal
+#: Sq=256 x Skv=1024, and the training shape B=4 S=2048
+FWD_CASES = ((1, True, 17, 17), (1, True, 128, 128), (1, True, 1024, 1024),
+             (1, True, 1500, 1500), (1, True, 2048, 2048),
+             (1, False, 256, 1024), (TRAIN_B, True, TRAIN_S, TRAIN_S))
+
+
 def check_flash(ck, torch, F):
+    """K2f against ``flash_attention_plain`` at FWD_CASES; a second launch
+    must give the same bits.  Times: device time (the profiler) and the
+    CUDA-event span of the kernel and of sdpa."""
     cases = []
     H, D = 12, 64
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    for B, causal, sq, skv in ((1, True, 128, 128), (1, True, 1024, 1024),
-                               (1, True, 2048, 2048), (1, False, 256, 1024),
-                               (TRAIN_B, True, TRAIN_S, TRAIN_S)):
+    for B, causal, sq, skv in FWD_CASES:
         q = torch.randn(B, H, sq, D, generator=g, device="cuda").bfloat16()
         k = torch.randn(B, H, skv, D, generator=g, device="cuda").bfloat16()
         v = torch.randn(B, H, skv, D, generator=g, device="cuda").bfloat16()
         o, lse = ck.flash_attention(q, k, v, causal=causal)
+        o2, lse2 = ck.flash_attention(q, k, v, causal=causal)
         po, plse = ck.flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = float((o.float() - po.float()).abs().max())
         row_err = _row_rel_err(o, po)
         lse_err = float((lse - plse).abs().max())
-        ok = (row_err <= ROW_REL_TOL and lse_err <= LSE_ATOL
+        same = _same_bits(torch, o, o2) and bool(torch.equal(lse, lse2))
+        ok = (row_err <= ROW_REL_TOL and lse_err <= LSE_ATOL and same
               and bool(torch.isfinite(o.float()).all()))
         pairs = sq * (sq + 1) // 2 if causal else sq * skv
         nbytes = 2 * (2 * B * H * sq * D + 2 * B * H * skv * D) \
             + 4 * B * H * sq
         bound, by = _bound_ms(nbytes, 4 * B * H * D * pairs)
+
+        def kernel():
+            return ck.flash_attention(q, k, v, causal=causal)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
         case = {
             "shape": {"B": B, "H": H, "Sq": sq, "Skv": skv, "D": D,
                       "causal": causal, "dtype": "bfloat16"},
             "max_abs_err": err, "max_row_rel_err": row_err,
             "row_rel_tol": ROW_REL_TOL, "lse_max_abs_err": lse_err,
-            "lse_tol": LSE_ATOL, "ok": ok,
-            "ms": _time_ms(lambda: ck.flash_attention(q, k, v,
-                                                      causal=causal)),
+            "lse_tol": LSE_ATOL, "same_bits_twice": same,
+            "ok": ok,
+            "ms_is": "device time (torch.profiler); event_ms: CUDA events",
+            "ms": _device_ms(torch, kernel, iters=20),
+            "event_ms": _time_ms(kernel),
             "plain_ms": _time_ms(lambda: ck.flash_attention_plain(
-                q, k, v, causal=causal)),
-            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal)),
+                q, k, v, causal=causal), iters=5, warmup=1),
+            "library_ms": _device_ms(torch, sdpa, iters=20),
+            "library_event_ms": _time_ms(sdpa),
+            "library_computes": "scaled_dot_product_attention (device "
+                                "time; no lse)",
             "bound_ms": bound, "bound_by": by}
+        if case["ms"]:
+            case["bound_share"] = bound / case["ms"]
+            case["vs_library"] = (case["ms"] / case["library_ms"]
+                                  if case["library_ms"] else None)
         _log("[kernels] flash_fwd %s" % json.dumps(case))
         cases.append(case)
     return cases
 
 
-def _paged_inputs(torch, quant, B, H, K, D, g):
+#: (B, width in pages) of the paged decode checks: one and eight decode
+#: slots at widths of 1, 32 and 128 pages of PAGE_SIZE (the serving
+#: widths' ends and middle)
+PAGED_CASES = ((1, 1), (1, 32), (1, 128), (8, 1), (8, 32), (8, 128))
+PAGE_SIZE = 16
+
+
+def _pool_inputs(torch, quant, B, W, g):
+    """A KV_PAGES-page pool of one layer ([pool, 16, 12, 64]), a shuffled
+    page table whose entries past each sequence's length are the
+    sentinel (the pool size), and ragged lengths (one full width, one
+    single position when B > 1)."""
     from mxnet_tpu_torch.quantization import quantize_rows
+    H, D, P = 12, 64, KV_PAGES
+    kp = torch.randn(P, PAGE_SIZE, H, D, generator=g, device="cuda")
+    vp = torch.randn(P, PAGE_SIZE, H, D, generator=g, device="cuda")
     q = torch.randn(B, H, 1, D, generator=g, device="cuda").bfloat16()
-    k = torch.randn(B, H, K, D, generator=g, device="cuda").bfloat16()
-    v = torch.randn(B, H, K, D, generator=g, device="cuda").bfloat16()
-    lens = torch.randint(1, K + 1, (B,), generator=g, device="cuda")
-    lens[0] = K          # one full row, one single-position row
-    lens[-1] = 1
-    valid = torch.arange(K, device="cuda")[None, :] < lens[:, None]
+    perm = torch.randperm(P, generator=g, device="cuda")[:B * W]
+    perm = perm.reshape(B, W).int()
+    lens = torch.randint(1, W * PAGE_SIZE + 1, (B,), generator=g,
+                         device="cuda").int()
+    lens[0] = W * PAGE_SIZE
+    if B > 1:
+        lens[-1] = 1
+    first = torch.arange(W, device="cuda")[None, :] * PAGE_SIZE
+    table = torch.where(first < lens[:, None], perm,
+                        torch.full_like(perm, P))
     if quant:
-        kq, ks = quantize_rows(k)
-        vq, vs = quantize_rows(v)
-        return q, kq, vq, valid, ks, vs, lens
-    return q, k, v, valid, None, None, lens
+        kq, ks = quantize_rows(kp)
+        vq, vs = quantize_rows(vp)
+        return q, kq, vq, table, lens, {"k_scale_pool": ks,
+                                        "v_scale_pool": vs}
+    return q, kp.bfloat16(), vp.bfloat16(), table, lens, {}
 
 
 def check_paged(ck, torch, F, quant):
+    """K4 at PAGED_CASES, pool form (the decode path's entry) and gathered
+    form (``paged_attention``, the reference-shaped entry, over the same
+    context gathered): each against ``paged_attention_pool_plain`` per
+    row, a second launch giving the same bits.  Times: device time of the
+    pool form, of the gathered form alone, of the route before this
+    kernel read the pool (gather + transpose of K, V (and scales) +
+    the gathered form), and of sdpa over the gathered tensors (bf16);
+    the bound counts the bytes of the valid keys."""
     cases = []
-    B, H, D = 8, 12, 64
+    H, D = 12, 64
     g = torch.Generator(device="cuda").manual_seed(SEED + 1 + int(quant))
-    for K in (16, 512, 2048):
-        q, k, v, valid, ks, vs, lens = _paged_inputs(torch, quant, B, H, K,
-                                                     D, g)
-        kw = {"k_scale": ks, "v_scale": vs} if quant else {}
-        o = ck.paged_attention(q, k, v, valid, **kw)
-        po = ck.paged_attention_plain(q, k, v, valid, **kw)
+    for B, W in PAGED_CASES:
+        q, kp, vp, table, lens, kw = _pool_inputs(torch, quant, B, W, g)
+        K = W * PAGE_SIZE
+
+        def pool_form():
+            return ck.paged_attention_pool(q, kp, vp, table, lens, **kw)
+
+        def gathered_inputs():
+            kc, vc = ck.gather_pages(kp, table), ck.gather_pages(vp, table)
+            gkw = {}
+            if quant:
+                gkw = {"k_scale": ck.gather_pages(kw["k_scale_pool"], table),
+                       "v_scale": ck.gather_pages(kw["v_scale_pool"], table)}
+            return kc, vc, gkw
+
+        valid = torch.arange(K, device="cuda")[None, :] < lens[:, None]
+
+        def old_route():
+            kc, vc, gkw = gathered_inputs()
+            return ck.paged_attention(q, kc, vc, valid, **gkw)
+
+        o, o2 = pool_form(), pool_form()
+        po = ck.paged_attention_pool_plain(q, kp, vp, table, lens, **kw)
+        kc, vc, gkw = gathered_inputs()
+        og, og2 = (ck.paged_attention(q, kc, vc, valid, **gkw)
+                   for _ in range(2))
         torch.cuda.synchronize()
-        err = float((o.float() - po.float()).abs().max())
         row_err = _row_rel_err(o, po)
-        ok = (row_err <= ROW_REL_TOL
-              and bool(torch.isfinite(o.float()).all()))
+        g_err = _row_rel_err(og, po)
+        same = _same_bits(torch, o, o2)
+        g_same = _same_bits(torch, og, og2)
+        ok = (row_err <= ROW_REL_TOL and g_err <= ROW_REL_TOL and same
+              and g_same and bool(torch.isfinite(o.float()).all()))
         n_valid = int(lens.sum()) * H
         elem = 1 if quant else 2
         nbytes = (n_valid * D * 2 * elem + (n_valid * 2 * 4 if quant else 0)
-                  + 2 * 2 * B * H * D + B * K)
+                  + 2 * 2 * B * H * D + 4 * B * W + 4 * B)
         bound, by = _bound_ms(nbytes, 4 * D * n_valid)
-        lib = None
-        if not quant:
-            mask = valid[:, None, None, :]
-            lib = _time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask))
+        per, splits = ck.paged_splits(B * H, K)
         case = {
-            "shape": {"B": B, "H": H, "K": K, "D": D,
-                      "valid": [int(x) for x in lens.tolist()],
-                      "pages": "int8" if quant else "bfloat16"},
-            "max_abs_err": err, "max_row_rel_err": row_err,
-            "row_rel_tol": ROW_REL_TOL, "ok": ok,
-            "ms": _time_ms(lambda: ck.paged_attention(q, k, v, valid, **kw),
-                           iters=50),
-            "plain_ms": _time_ms(lambda: ck.paged_attention_plain(
-                q, k, v, valid, **kw), iters=50),
-            "library_ms": lib, "bound_ms": bound, "bound_by": by}
-        _log("[kernels] paged_decode_%s %s" % ("int8" if quant else "bf16",
-                                               json.dumps(case)))
+            "shape": {"B": B, "H": H, "pages": W, "page_size": PAGE_SIZE,
+                      "K": K, "D": D, "lengths": [int(x) for x in
+                                                  lens.tolist()],
+                      "kv": "int8" if quant else "bfloat16",
+                      "splits": splits, "keys_per_split": per},
+            "max_abs_err": float((o.float() - po.float()).abs().max()),
+            "max_row_rel_err": row_err, "row_rel_tol": ROW_REL_TOL,
+            "same_bits_twice": same, "ok": ok,
+            "ms_is": "device time (torch.profiler); event_ms: CUDA events "
+                     "over back-to-back calls (the wrapper's host time at "
+                     "these sizes)",
+            "ms": _device_ms(torch, pool_form, iters=50),
+            "event_ms": _time_ms(pool_form, iters=50),
+            "plain_ms": _time_ms(lambda: ck.paged_attention_pool_plain(
+                q, kp, vp, table, lens, **kw), iters=20),
+            "gathered": {
+                "max_row_rel_err": g_err, "same_bits_twice": g_same,
+                "ms": _device_ms(torch, lambda: ck.paged_attention(
+                    q, kc, vc, valid, **gkw), iters=50),
+                "old_route_ms": _device_ms(torch, old_route, iters=50),
+                "old_route_is": "gather + transpose of K, V%s, then the "
+                                "gathered kernel (device time)"
+                                % (" and scales" if quant else "")},
+            "library_ms": None if quant else _device_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, kc, vc, attn_mask=valid[:, None, None, :]), iters=50),
+            "library_computes": "none for int8 pages" if quant else
+                                "scaled_dot_product_attention over the "
+                                "gathered tensors, bool mask (device time)",
+            "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes}
+        if case["ms"]:
+            case["bound_share"] = bound / case["ms"]
+        _log("[kernels] paged_decode_pool_%s %s" % (
+            "int8" if quant else "bf16", json.dumps(case)))
         cases.append(case)
+        del q, kp, vp, kc, vc, gkw, kw
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -551,13 +662,16 @@ def check_adam(ck, torch):
         m = torch.randn(shape, generator=g, device="cuda") * 1e-3
         v = torch.rand(shape, generator=g, device="cuda") * 1e-6
         tensors[name] = (w, gr, m, v)
-        # the bf16 cast of the training path, and the f32 "cast" (the
-        # master itself, written once) with an f32 grad of the symbolic
-        # Module's fused step
-        for t, cast in ((1, torch.bfloat16), (1000, torch.bfloat16),
-                        (1000, torch.float32)):
+        # the bf16 cast of the training path, the f32 "cast" (the master
+        # itself, written once) with an f32 grad of the symbolic Module's
+        # fused step, and MXNet's f16 multi_precision update (f16 grad,
+        # f16 cast)
+        for t, cast, gdt in ((1, torch.bfloat16, torch.bfloat16),
+                             (1000, torch.bfloat16, torch.bfloat16),
+                             (1000, torch.float32, torch.float32),
+                             (1000, torch.float16, torch.float16)):
             lr_t = float(_bias_corrected_lr(TRAIN_LR, b1, b2, t))
-            gt = gr if cast == torch.bfloat16 else gr.float()
+            gt = gr.to(gdt)
             got = ck.fused_adam_step(w, gt, m, v, lr_t, ADAM_WD, b1, b2, eps,
                                      out_dtype=cast)
             want = ck.fused_adam_step_plain(w, gt, m, v, lr_t, ADAM_WD, b1,
@@ -567,15 +681,12 @@ def check_adam(ck, torch):
             got = (got[0], got[1]) + tuple(got[2])
             want = (want[0], want[1]) + tuple(want[2])
             torch.cuda.synchronize()
-            diff = [int((x.view(torch.int16 if x.dtype == torch.bfloat16
-                                else torch.int32)
-                         != y.view(torch.int16 if y.dtype == torch.bfloat16
-                                   else torch.int32)).sum())
-                    for x, y in zip(got, want)]
+            diff = [_differing(torch, x, y) for x, y in zip(got, want)]
             err = max(float((x.float() - y.float()).abs().max())
                       for x, y in zip(got, want))
             case = {"tensor": name, "shape": list(shape), "t": t,
                     "cast": str(cast)[len("torch."):],
+                    "grad": str(gdt)[len("torch."):],
                     "differing_elements": dict(zip(
                         ("cast", "master", "m", "v"), diff)),
                     "max_abs_err": err, "ok": sum(diff) == 0}
@@ -623,7 +734,7 @@ def _resnet_shapes(mx, np):
 
 def _differing(torch, x, y):
     """How many elements of x and y differ in their bits."""
-    as_int = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    as_int = torch.int16 if x.element_size() == 2 else torch.int32
     return int((x.view(as_int) != y.view(as_int)).sum())
 
 
@@ -645,24 +756,27 @@ def check_sgd(ck, torch, mx, np):
     varied = ([0.1 * (1 + i % 3) / 2 for i in range(n)],
               [SGD_WD if i % 2 == 0 else 0.0 for i in range(n)])
     cases = []
-    for label, mom, (lrs, wds), cast in (
-            ("momentum 0.9, f32 out (the master)", 0.9, flat, None),
-            ("momentum 0.9, bf16 out", 0.9, flat, torch.bfloat16),
-            ("momentum 0", 0.0, flat, None),
-            ("momentum 0.9, per-tensor lr and wd", 0.9, varied, None)):
+    gs16 = [x.half() for x in gs]
+    for label, mom, (lrs, wds), cast, grads in (
+            ("momentum 0.9, f32 out (the master)", 0.9, flat, None, gs),
+            ("momentum 0.9, bf16 out", 0.9, flat, torch.bfloat16, gs),
+            ("momentum 0", 0.0, flat, None, gs),
+            ("momentum 0.9, per-tensor lr and wd", 0.9, varied, None, gs),
+            ("momentum 0.9, f16 grads, f16 out (multi_precision)", 0.9,
+             flat, torch.float16, gs16)):
         kw, pw = ([w.clone() for w in ws] for _ in range(2))
         km, pm = ([m.clone() if mom else None for m in ms]
                   for _ in range(2))
         ko, po = ([torch.empty_like(w, dtype=cast) if cast else None
                    for w in ws] for _ in range(2))
-        ck.fused_sgd_step_multi(kw, gs, km, lrs, wds, mom, outs=ko)
-        ck.fused_sgd_step_multi_plain(pw, gs, pm, lrs, wds, mom, outs=po)
+        ck.fused_sgd_step_multi(kw, grads, km, lrs, wds, mom, outs=ko)
+        ck.fused_sgd_step_multi_plain(pw, grads, pm, lrs, wds, mom, outs=po)
         torch.cuda.synchronize()
         pairs = {"master": list(zip(kw, pw))}
         if mom:
             pairs["momentum"] = list(zip(km, pm))
         if cast:
-            pairs["bf16_out"] = list(zip(ko, po))
+            pairs["%s_out" % str(cast)[len("torch."):]] = list(zip(ko, po))
         diff = {k: sum(_differing(torch, x, y) for x, y in v)
                 for k, v in pairs.items()}
         err = max(float((x.float() - y.float()).abs().max())
@@ -671,6 +785,7 @@ def check_sgd(ck, torch, mx, np):
                 "max_abs_err": err, "ok": sum(diff.values()) == 0}
         _log("[kernels] sgd_step %s" % json.dumps(case))
         cases.append(case)
+    del gs16
     # one step over the 193 tensors in place, as on the training path
     lrs, wds = flat
     table = ck.SgdTable()
@@ -1051,6 +1166,126 @@ def _read_counts(torch, tt, ck, layers, paged_key):
     return prefills, decodes, launches, snap
 
 
+#: the decode-step comparison: B decode slots at the widest decode width
+#: (128 pages of 16), sequence lengths spread over its upper half
+DECODE_B = 8
+DECODE_WIDTH = 128
+DECODE_STEPS = 10
+
+
+def _gathered_route(ck):
+    """``kernels.paged_attention_pool`` as the decode step ran it before
+    the kernel read the pool: the clamped table and the mask made once a
+    step, then per layer K and V (and their scales) gathered through the
+    table and transposed into ``[B, H, K, D]`` copies, and the gathered
+    entry of the same kernel under the mask."""
+    memo = {}
+
+    def route(q, k_pool, v_pool, page_table, lengths, scale=None,
+              k_scale_pool=None, v_scale_pool=None):
+        import torch
+        key = (id(page_table), id(lengths))   # one step's tensors
+        B, W = page_table.shape
+        P, psz = k_pool.shape[:2]
+        if key not in memo:
+            memo.clear()
+            memo[key] = (page_table.long().clamp(0, P - 1),
+                         torch.arange(W * psz, device=q.device)[None, :]
+                         < lengths[:, None])
+        rows, valid = memo[key]
+
+        def gather(pool):
+            g = pool[rows].reshape(B, W * psz, *pool.shape[2:])
+            return g.transpose(1, 2).contiguous()
+        scales = {}
+        if k_scale_pool is not None:
+            scales = {"k_scale": gather(k_scale_pool),
+                      "v_scale": gather(v_scale_pool)}
+        return ck.paged_attention(q.contiguous(), gather(k_pool),
+                                  gather(v_pool), valid, scale=scale,
+                                  **scales)
+    return route
+
+
+def _decode_routes(ck, np, torch, model):
+    """``model.decode_step`` at DECODE_B slots and DECODE_WIDTH pages on a
+    seeded full-width pool, DECODE_STEPS profiled steps a route: the
+    pool-form route (``decode_step`` as it is) and the gathered route
+    (:func:`_gathered_route` in its place).  Per route: the CUDA kernels
+    (and copies) the profiler records a step, the device ms and the host
+    ms of a step (p50, ending in a sync), the paged launches (exactly one
+    a layer a step, of the route's entry); and the two routes' logits
+    agree within the served logits' margin."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import kernels as tk
+    cfg = model.cfg
+    L, B, W, psz = cfg.num_layers, DECODE_B, DECODE_WIDTH, 16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    kv = model.init_kv_pages(KV_PAGES, psz)
+    for name in ("k", "v"):
+        for li in range(L):
+            kv[name][li].copy_(torch.randn(kv[name][li].shape, generator=g,
+                                           device="cuda"))
+    rng = np.random.default_rng(SEED + 21)
+    table = rng.permutation(KV_PAGES)[:B * W].reshape(B, W).astype(np.int32)
+    positions = np.linspace(W * psz // 2, W * psz - 1, B).astype(np.int32)
+    tokens = rng.integers(0, cfg.vocab_size, B).astype(np.int32)
+    # a step appends at `positions`; the same positions every step keep
+    # the work equal (the appended row is rewritten in place)
+    out = {"at": {"B": B, "pages": W, "page_size": psz,
+                  "lengths": [int(p) + 1 for p in positions]}}
+    saved = tk.paged_attention_pool
+    logits = {}
+    try:
+        for name, route in (("pool", saved), ("gathered", _gathered_route(
+                ck))):
+            tk.paged_attention_pool = route
+
+            def step():
+                return model.decode_step(kv, tokens, positions, table, psz,
+                                         return_logits=True)[2]
+            logits[name] = step().float()
+            torch.cuda.synchronize()
+            host = []
+            for _ in range(DECODE_STEPS):
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3)
+            ck.reset_launches()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(DECODE_STEPS):
+                    step()
+                torch.cuda.synchronize()
+            launches = {k: v for k, v in ck.LAUNCHES.items() if v}
+            dev = [ev for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA]
+            busy = sum(ev.time_range.elapsed_us() for ev in dev) / 1e3
+            key = ("paged_decode_pool_bf16" if name == "pool"
+                   else "paged_decode_bf16")
+            assert launches.get(key) == L * DECODE_STEPS, launches
+            out[name] = {"cuda_kernels_per_step": len(dev) / DECODE_STEPS,
+                         "device_ms_per_step": busy / DECODE_STEPS,
+                         "host_ms_p50": float(np.median(host)),
+                         "paged_launches": launches[key]}
+            _log("[serve] decode step, %s route %s" % (name,
+                                                       json.dumps(out[name])))
+    finally:
+        tk.paged_attention_pool = saved
+        del kv
+        torch.cuda.empty_cache()
+    out["logit_max_abs_diff"] = float(
+        (logits["pool"] - logits["gathered"]).abs().max())
+    assert out["logit_max_abs_diff"] <= LOGIT_MARGIN_TOL, out
+    out["kernels_saved_per_step"] = (out["gathered"]["cuda_kernels_per_step"]
+                                     - out["pool"]["cuda_kernels_per_step"])
+    out["device_ms_saved_per_step"] = (out["gathered"]["device_ms_per_step"]
+                                       - out["pool"]["device_ms_per_step"])
+    return out
+
+
 def serve(mx, ck, np, torch, workdir):
     from mxnet_tpu_torch import telemetry as tt
     from mxnet_tpu_torch.models.transformer import (TransformerLM,
@@ -1088,7 +1323,7 @@ def serve(mx, ck, np, torch, workdir):
         streams = [f.result(timeout=600) for f in futs]
         wall = time.perf_counter() - t0
         prefills, decodes, launches, snap = _read_counts(
-            torch, tt, ck, L, "paged_decode_bf16")
+            torch, tt, ck, L, "paged_decode_pool_bf16")
         tm = snap["timers"]
         assert prefills == N_REQUESTS, prefills
         assert all(len(s) == NEW_TOKENS for s in streams)
@@ -1147,8 +1382,8 @@ def serve(mx, ck, np, torch, workdir):
         futq = [srv.submit_generate("lmq", pr, 16) for pr in prompts[:8]]
         sq = [f.result(timeout=600) for f in futq]
         wall = time.perf_counter() - t0
-        prefills, decodes, launches, _ = _read_counts(torch, tt, ck, L,
-                                                      "paged_decode_int8")
+        prefills, decodes, launches, _ = _read_counts(
+            torch, tt, ck, L, "paged_decode_pool_int8")
         assert prefills == 8, prefills
         agree = float(np.mean([np.mean(a == b[:16])
                                for a, b in zip(sq, streams[:8])]))
@@ -1166,8 +1401,8 @@ def serve(mx, ck, np, torch, workdir):
                for _ in range(2)]
         other = srv.generate("lm", prompts[0], 16, temperature=0.8,
                              top_k=50, top_p=0.95, seed=4321, timeout=600)
-        prefills, decodes, launches, _ = _read_counts(torch, tt, ck, L,
-                                                      "paged_decode_bf16")
+        prefills, decodes, launches, _ = _read_counts(
+            torch, tt, ck, L, "paged_decode_pool_bf16")
         assert prefills == 3, prefills
         assert np.array_equal(rep[0], rep[1]), (rep[0], rep[1])
         out["sampling"] = {"replay_equal": True,
@@ -1177,6 +1412,10 @@ def serve(mx, ck, np, torch, workdir):
                            "decode_iterations": decodes,
                            "launches": launches}
         _log("[serve] sampling %s" % json.dumps(out["sampling"]))
+
+        # --- one decode step, the pool-form route against the gathered
+        # one, at the widest width
+        out["decode_routes"] = _decode_routes(ck, np, torch, gp.model)
 
         # --- where a served decode step's time goes (device idle share);
         # a failure of the served requests in this window fails the run
@@ -1726,6 +1965,76 @@ def train_lenet(mx, ck, np, torch, card):
     out["profile"] = _profile(torch, lambda: [one_step(b) for b in batches])
     out["profile"]["steps"] = LENET_PROFILE_STEPS
     _log("[lenet] %s" % json.dumps(out))
+    return out
+
+
+#: MXNet's usual mixed precision on LeNet: f16 weights, f32 masters in the
+#: optimizer state (multi_precision=True), one Trainer a route
+F16_STEPS = 5
+F16_OPTS = (("sgd", {"learning_rate": LENET_LR, "momentum": 0.9,
+                     "wd": 1e-4, "multi_precision": True}),
+            ("adam", {"learning_rate": 1e-3, "multi_precision": True}))
+
+
+def train_f16(mx, ck, np, torch):
+    """Phase 6(c): LeNet with f16 weights through ``gluon.Trainer`` and
+    ``multi_precision=True``, SGD (momentum 0.9) and Adam, F16_STEPS steps
+    each on the card.  Every update goes through the fused kernel with an
+    f16 grad and an f16 cast (K1 for SGD, K3 for Adam): counts zeroed
+    just before and read just after, exactly one sgd_step (adam_step) a
+    tensor a step and no other kernel, one ``kernels.fused_step`` each,
+    no KernelUnsupportedError; every loss finite, and each f16 weight
+    the f16 cast of its f32 master bit for bit."""
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.gluon import nn
+    X, Y = synthetic_mnist(np, LENET_BATCH * F16_STEPS, SEED + 5)
+    out = {}
+    for opt, kw in F16_OPTS:
+        mx.random.seed(SEED)
+        net = build_lenet(nn)
+        net.initialize(mx.init.Xavier())
+        net(mx.nd.array(X[:1]))
+        net.cast("float16")
+        trainer = gluon.Trainer(net.collect_params(), opt, dict(kw))
+        params = trainer._params   # the order of the updater's indices
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        losses = []
+        _zero_counts(torch, tt, ck)
+        for i in range(F16_STEPS):
+            rows = slice(i * LENET_BATCH, (i + 1) * LENET_BATCH)
+            data = mx.nd.array(X[rows], dtype="float16")
+            label = mx.nd.array(Y[rows])
+            with autograd.record():
+                loss = loss_fn(net(data), label).mean()
+            loss.backward()
+            trainer.step(1)
+            losses.append(float(loss.asnumpy()))
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        fused = tt.snapshot()["counters"].get("kernels.fused_step", 0)
+        key = "sgd_step" if opt == "sgd" else "adam_step"
+        n = len(params) * F16_STEPS
+        states = trainer._updaters[0].states
+        cast_differs = sum(
+            _differing(torch, p.data()._data, states[i][0].half())
+            for i, p in enumerate(params))
+        res = {"optimizer": opt, "options": kw, "tensors": len(params),
+               "steps": F16_STEPS, "losses": losses, "launches": launches,
+               "fused_steps": fused,
+               "weight_dtypes": sorted({str(p.data()._data.dtype)
+                                        for p in params}),
+               "master_dtypes": sorted({str(states[i][0].dtype)
+                                        for i in range(len(params))}),
+               "weights_differing_from_master_cast": cast_differs}
+        _log("[f16] %s" % json.dumps(res))
+        assert launches == _want_launches(ck, **{key: n}), launches
+        assert fused == n, fused
+        assert all(np.isfinite(losses)), losses
+        assert res["weight_dtypes"] == ["torch.float16"], res
+        assert res["master_dtypes"] == ["torch.float32"], res
+        assert cast_differs == 0, cast_differs
+        out[opt] = res
     return out
 
 
@@ -2306,7 +2615,10 @@ def _summary(name, source, replaces, cases, launches):
             "library_ms": top["library_ms"], "at": top["shape"],
             "cases": cases,
             **{k: top[k] for k in ("device_ms", "library_event_ms",
-                                   "library_device_ms") if k in top}}
+                                   "library_device_ms", "ms_is", "event_ms",
+                                   "bound_share", "vs_library",
+                                   "bound_bytes", "gathered")
+               if k in top}}
 
 
 def _k6_summary(cases, replaces, launches):
@@ -2373,7 +2685,7 @@ def main(argv=None):
     _log("[env] %s" % json.dumps(report))
 
     t0 = time.perf_counter()
-    built = _build.build(["flash_fwd", "flash_bwd"]
+    built = _build.build(["flash_fwd", "flash_bwd", "paged_attn"]
                          if args.phase == "attention" else None)
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "per_source_s": {k: v["seconds"]
@@ -2386,20 +2698,25 @@ def main(argv=None):
                 _log("[build] %s: %s" % (name, line.strip()))
     _log("[build] %s" % json.dumps({k: v for k, v in report["build"].items()
                                     if k != "ptxas"}))
-    # flash_bwd.cu's wgmma products read registers asynchronously; a
+    # the flash kernels' wgmma products read registers asynchronously; a
     # spilled register under one is not safe
-    spills = re.findall(r"(\d+) bytes spill stores",
-                        built.get("flash_bwd", {}).get("ptxas", ""))
-    if any(int(n) for n in spills):
-        raise AssertionError("flash_bwd.cu spills registers: %s"
-                             % built["flash_bwd"]["ptxas"])
+    for name in ("flash_fwd", "flash_bwd"):
+        spills = re.findall(r"(\d+) bytes spill stores",
+                            built.get(name, {}).get("ptxas", ""))
+        if any(int(n) for n in spills):
+            raise AssertionError("%s.cu spills registers: %s"
+                                 % (name, built[name]["ptxas"]))
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     if args.phase == "attention":
         report["flash_fwd"] = check_flash(ck, torch, F)
+        report["paged_decode_pool_bf16"] = check_paged(ck, torch, F, False)
+        report["paged_decode_pool_int8"] = check_paged(ck, torch, F, True)
         report["flash_bwd_dq"], report["flash_bwd_dkv"] = check_flash_bwd(
             ck, torch, F)
-        bad = [c for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        bad = [c for key in ("flash_fwd", "paged_decode_pool_bf16",
+                             "paged_decode_pool_int8", "flash_bwd_dq",
+                             "flash_bwd_dkv")
                for c in report[key] if not c["ok"]]
         _write_report(args.report, report)
         if bad:
@@ -2433,10 +2750,13 @@ def main(argv=None):
     report["resnet"] = train_resnet(mx, ck, np, torch, card)
     report["tape"] = tape(mx, ck, np, torch)
     report["lenet"] = train_lenet(mx, ck, np, torch, card)
+    report["f16"] = train_f16(mx, ck, np, torch)
     report["rtc"], rtc_kernels = check_rtc(mx, ck, torch)
     report["rtc_ops"] = rtc_ops(mx, ck, torch, rtc_kernels)
     report["module"] = train_module(mx, ck, np, torch, card, workdir)
     module_adam = report["module"]["fused"]["launches"]["adam_step"]
+    f16_adam = report["f16"]["adam"]["launches"]["adam_step"]
+    f16_sgd = report["f16"]["sgd"]["launches"]["sgd_step"]
     launches = report["serve"]["greedy"]["launches"]
     taped = report["tape"]["launches"]
     trained = report["train"]["launches"]
@@ -2448,16 +2768,18 @@ def main(argv=None):
                  trained["flash_bwd_dq"]),
         _summary("flash_bwd_dkv", "flash_bwd.cu", pk + "220", bwd_dkv,
                  trained["flash_bwd_dkv"]),
-        _summary("paged_decode_bf16", "paged_attn.cu", pk + "386", paged,
-                 launches["paged_decode_bf16"]),
-        _summary("paged_decode_int8", "paged_attn.cu", pk + "386", paged8,
-                 report["serve"]["int8"]["launches"]["paged_decode_int8"]),
+        _summary("paged_decode_pool_bf16", "paged_attn.cu", pk + "386",
+                 paged, launches["paged_decode_pool_bf16"]),
+        _summary("paged_decode_pool_int8", "paged_attn.cu", pk + "386",
+                 paged8, report["serve"]["int8"]["launches"][
+                     "paged_decode_pool_int8"]),
         {"name": "adam_step", "route": "cuda",
          "source": "mxnet_tpu_torch/csrc/adam_step.cu",
          "replaces": pk + "518",
-         "launches": trained["adam_step"] + module_adam,
+         "launches": trained["adam_step"] + module_adam + f16_adam,
          "launches_by_path": {"train": trained["adam_step"],
-                              "module_mlp": module_adam},
+                              "module_mlp": module_adam,
+                              "f16_trainer": f16_adam},
          "max_abs_err": max(c["max_abs_err"] for c in adam),
          "differing_elements": sum(sum(c["differing_elements"].values())
                                    for c in adam),
@@ -2469,7 +2791,9 @@ def main(argv=None):
         {"name": "sgd_step", "route": "cuda",
          "source": "mxnet_tpu_torch/csrc/sgd_step.cu",
          "replaces": pk + "495",
-         "launches": report["resnet"]["launches"]["sgd_step"],
+         "launches": report["resnet"]["launches"]["sgd_step"] + f16_sgd,
+         "launches_by_path": {"resnet": report["resnet"]["launches"][
+             "sgd_step"], "f16_trainer": f16_sgd},
          "max_abs_err": max(c["max_abs_err"] for c in sgd),
          "differing_elements": sum(sum(c["differing_elements"].values())
                                    for c in sgd),

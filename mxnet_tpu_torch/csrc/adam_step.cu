@@ -1,4 +1,4 @@
-// Fused Adam update with its bf16 cast, for Hopper (sm_90a).
+// Fused Adam update with its low-precision cast, for Hopper (sm_90a).
 //
 // Replaces: the Pallas kernel `_adam_epilogue_kernel` launched by
 // `fused_adam_step` through `_epilogue_call`
@@ -12,9 +12,11 @@
 //   v' = b2 * v + (1 - b2) * g' * g'
 //   w' = w - lr_t * m' / (sqrt(v') + eps)
 // and writes the f32 master w', m', v' and, unless the cast is f32,
-// w' rounded to bf16.  An f32 cast is the master's own bits (the
-// reference's `nw.astype(f32)`): the caller then passes `cast_bf16 = 0`,
-// the kernel skips the cast store and the master is returned for both.
+// w' rounded once to bf16 or f16 (f16 weights are MXNet's usual
+// multi_precision mode).  An f32 cast is the master's own bits (the
+// reference's `nw.astype(f32)`): the caller then passes cast code 0, the
+// kernel skips the cast store and the master is returned for both.  The
+// grad is f32, bf16 or f16, widened exactly in registers.
 //
 // Rounding.  nvcc contracts a*b+c into one FMA by default, and the jitted
 // reference's compiler contracts the same three multiply-adds; every step
@@ -25,16 +27,20 @@
 // with IEEE division and square root.  Do not build with --use_fast_math.
 //
 // What bounds it on the H100: bytes.  It reads the f32 master, m and v and
-// the grad (bf16 on the training path, widened exactly in registers, or
-// f32) and writes the master, m, v and the bf16 weight: 28 bytes per
-// element with a bf16 grad (32 with an f32 grad and no cast, the symbolic
-// Module's step), against 3.35 TB/s.  One launch per parameter
-// tensor; a grid-stride loop over 4-element vectors (16-byte f32 loads)
-// with a scalar tail.  The inputs and outputs may alias (in-place update):
-// each element is read before it is written, by the same thread.
+// the grad (bf16 on the training path, f16 under an f16 multi_precision
+// Trainer, or f32) and writes the master, m, v and the low-precision
+// weight: 28 bytes per element with a 2-byte grad (32 with an f32 grad
+// and no cast, the symbolic Module's step), against 3.35 TB/s.  One
+// launch per parameter tensor; a grid-stride loop over 4-element vectors
+// (16-byte f32 loads) with a scalar tail.  The inputs and outputs may
+// alias (in-place update): each element is read before it is written, by
+// the same thread.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -55,19 +61,49 @@ __device__ __forceinline__ float adam_one(float w, float g, float* m,
       w, __fdiv_rn(__fmul_rn(a.lr_t, nm), __fadd_rn(__fsqrt_rn(nv), a.eps)));
 }
 
+// dtype codes of the grad and the cast (cuda_kernels._DTYPE_CODE)
+constexpr int kF32 = 0, kBf16 = 1, kF16 = 2;
+
 __device__ __forceinline__ float grad_at(const void* g, int64_t i,
-                                         int grad_bf16) {
-  return grad_bf16
-             ? __bfloat162float(static_cast<const __nv_bfloat16*>(g)[i])
-             : static_cast<const float*>(g)[i];
+                                         int grad_code) {
+  if (grad_code == kBf16)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(g)[i]);
+  if (grad_code == kF16)
+    return __half2float(static_cast<const __half*>(g)[i]);
+  return static_cast<const float*>(g)[i];
 }
 
-template <bool kCast>
+// The cast store of one and of two neighbouring values, rounded once.
+template <typename T> struct Cast;
+template <> struct Cast<__nv_bfloat16> {
+  typedef __nv_bfloat162 Pair;
+  static __device__ __forceinline__ __nv_bfloat16 one(float x) {
+    return __float2bfloat16_rn(x);
+  }
+  static __device__ __forceinline__ Pair two(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+};
+template <> struct Cast<__half> {
+  typedef __half2 Pair;
+  static __device__ __forceinline__ __half one(float x) {
+    return __float2half_rn(x);
+  }
+  static __device__ __forceinline__ Pair two(float a, float b) {
+    return __floats2half2_rn(a, b);
+  }
+};
+
+// LP: the cast's element type, or void for no cast store (an f32 cast).
+template <typename LP>
 __global__ void __launch_bounds__(kThreads)
 adam_step_kernel(const float* w, const void* g, const float* m,
                  const float* v, float* w_out, float* m_out, float* v_out,
-                 __nv_bfloat16* lp, int64_t n, int grad_bf16, AdamArgs a,
+                 void* lp_raw, int64_t n, int grad_code, AdamArgs a,
                  int vec) {
+  constexpr bool kCast = !std::is_void<LP>::value;
+  typedef typename std::conditional<kCast, LP, __nv_bfloat16>::type T;
+  T* lp = static_cast<T*>(lp_raw);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t nvec = vec ? n / 4 : 0;
@@ -77,7 +113,7 @@ adam_step_kernel(const float* w, const void* g, const float* m,
     float4 v4 = reinterpret_cast<const float4*>(v)[i];
     float g4[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) g4[e] = grad_at(g, 4 * i + e, grad_bf16);
+    for (int e = 0; e < 4; ++e) g4[e] = grad_at(g, 4 * i + e, grad_code);
     float4 o4;
     o4.x = adam_one(w4.x, g4[0], &m4.x, &v4.x, a);
     o4.y = adam_one(w4.y, g4[1], &m4.y, &v4.y, a);
@@ -86,19 +122,19 @@ adam_step_kernel(const float* w, const void* g, const float* m,
     reinterpret_cast<float4*>(w_out)[i] = o4;
     reinterpret_cast<float4*>(m_out)[i] = m4;
     reinterpret_cast<float4*>(v_out)[i] = v4;
-    if (!kCast) continue;
-    __nv_bfloat162 lo = __floats2bfloat162_rn(o4.x, o4.y);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(o4.z, o4.w);
-    reinterpret_cast<__nv_bfloat162*>(lp)[2 * i] = lo;
-    reinterpret_cast<__nv_bfloat162*>(lp)[2 * i + 1] = hi;
+    if constexpr (kCast) {
+      typedef typename Cast<T>::Pair Pair;
+      reinterpret_cast<Pair*>(lp)[2 * i] = Cast<T>::two(o4.x, o4.y);
+      reinterpret_cast<Pair*>(lp)[2 * i + 1] = Cast<T>::two(o4.z, o4.w);
+    }
   }
   for (int64_t i = nvec * 4 + tid; i < n; i += stride) {
     float mi = m[i], vi = v[i];
-    const float nw = adam_one(w[i], grad_at(g, i, grad_bf16), &mi, &vi, a);
+    const float nw = adam_one(w[i], grad_at(g, i, grad_code), &mi, &vi, a);
     w_out[i] = nw;
     m_out[i] = mi;
     v_out[i] = vi;
-    if (kCast) lp[i] = __float2bfloat16_rn(nw);
+    if constexpr (kCast) lp[i] = Cast<T>::one(nw);
   }
 }
 
@@ -108,31 +144,39 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
+// grad_code: the grad's dtype (0 f32, 1 bf16, 2 f16); cast_code: the
+// cast's (1 bf16, 2 f16), or 0 for an f32 cast, which is the master
+// itself and is not stored again.
 extern "C" int mx_adam_step(const void* w, const void* g, const void* m,
                             const void* v, void* w_out, void* m_out,
-                            void* v_out, void* lp, int64_t n, int grad_bf16,
-                            int cast_bf16, float lr_t, float wd, float b1,
+                            void* v_out, void* lp, int64_t n, int grad_code,
+                            int cast_code, float lr_t, float wd, float b1,
                             float b2, float omb1, float omb2, float eps,
                             void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || grad_code < kF32 || grad_code > kF16 || cast_code < kF32 ||
+      cast_code > kF16)
+    return (int)cudaErrorInvalidValue;
   const AdamArgs a{lr_t, wd, b1, b2, omb1, omb2, eps};
-  // float4 over the f32 tensors, bf16x2 pairs over the cast (when there
-  // is one); the bf16 grad is read per element, so its base needs no
+  // float4 over the f32 tensors, 2-byte pairs over the cast (when there
+  // is one); the grad is read per element, so its base needs no
   // alignment.
   const int vec = aligned16(w) && aligned16(m) && aligned16(v) &&
                   aligned16(w_out) && aligned16(m_out) && aligned16(v_out) &&
-                  (!cast_bf16 || (reinterpret_cast<uintptr_t>(lp) & 7u) == 0);
+                  (cast_code == kF32 ||
+                   (reinterpret_cast<uintptr_t>(lp) & 7u) == 0);
   int64_t work = vec ? (n + 3) / 4 : n;
   int64_t blocks = (work + kThreads - 1) / kThreads;
   // enough blocks to cover the 132 SMs many times over, and no more
   if (blocks > 132 * 16) blocks = 132 * 16;
-  auto kernel = cast_bf16 ? adam_step_kernel<true> : adam_step_kernel<false>;
+  auto kernel = cast_code == kBf16  ? adam_step_kernel<__nv_bfloat16>
+                : cast_code == kF16 ? adam_step_kernel<__half>
+                                    : adam_step_kernel<void>;
   kernel<<<(unsigned)blocks, kThreads, 0,
            reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(w), g, static_cast<const float*>(m),
       static_cast<const float*>(v), static_cast<float*>(w_out),
-      static_cast<float*>(m_out), static_cast<float*>(v_out),
-      static_cast<__nv_bfloat16*>(lp), n, grad_bf16, a, vec);
+      static_cast<float*>(m_out), static_cast<float*>(v_out), lp, n,
+      grad_code, a, vec);
   return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,9 @@
 //   m' = momentum * m + lr * g'        w' = w - m'     (momentum != 0)
 //   w' = w - lr * g'                                   (momentum == 0)
 // and writes the f32 master w' and momentum m' in place, plus w' cast to
-// the tensor's out type (bf16, or a separate f32 copy) when it has one.
+// the tensor's out type (bf16 or f16, rounded once, or a separate f32
+// copy) when it has one.  The grad is f32, bf16 or f16 (MXNet's
+// multi_precision update over f16 weights), widened exactly.
 //
 // Rounding.  The jitted reference's compiler contracts the multiply-adds
 // (and so does its Pallas body in interpret mode): g' = fma(wd, w, g),
@@ -23,19 +25,20 @@
 // cannot choose otherwise; the result matches `fused_sgd_step_plain` and
 // the reference bit for bit.  Do not build with --use_fast_math.
 //
-// What bounds it on the H100: bytes.  Per element it reads w, g (f32 or
-// bf16, widened exactly in registers) and m, and writes w and m: 20 bytes
-// with an f32 grad (16 without momentum), plus 2 or 4 for a cast copy.
-// Against 3.35 TB/s.  The list is a device-side table of per-tensor
-// entries (pointers, element count, lr, wd, flags, first block); block b
-// finds its tensor by binary search over the entries' first blocks and
-// walks one chunk of it, so the tiny BatchNorm vectors and the 2.4 M-
-// element 3x3 convolutions share one grid and one launch.  Inside a chunk:
-// 16-byte vector loads where every pointer of the tensor is aligned, a
-// scalar tail.  Updates are in place: each element is read before it is
+// What bounds it on the H100: bytes.  Per element it reads w, g (f32,
+// bf16 or f16, widened exactly in registers) and m, and writes w and m:
+// 20 bytes with an f32 grad (16 without momentum), plus 2 or 4 for a
+// cast copy.  Against 3.35 TB/s.  The list is a device-side table of
+// per-tensor entries (pointers, element count, lr, wd, flags, first
+// block); block b finds its tensor by binary search over the entries'
+// first blocks and walks one chunk of it, so the tiny BatchNorm vectors
+// and the 2.4 M-element 3x3 convolutions share one grid and one launch.
+// Inside a chunk: 16-byte vector loads where every pointer of the tensor
+// is aligned, a scalar tail.  Updates are in place: each element is read before it is
 // written, by the same thread.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -43,10 +46,12 @@ namespace {
 constexpr int kThreads = 256;
 
 // flags of a table entry
-constexpr int kGradBf16 = 1;   // g is bf16 (else f32)
+constexpr int kGradBf16 = 1;   // g is bf16
 constexpr int kOutBf16 = 2;    // write w' as bf16 to `out`
 constexpr int kOutF32 = 4;     // write w' as a separate f32 copy to `out`
 constexpr int kVec = 8;        // every pointer aligned for 4-wide access
+constexpr int kGradF16 = 16;   // g is f16 (neither bit: f32)
+constexpr int kOutF16 = 32;    // write w' as f16 to `out`
 
 // One table entry; 64 bytes, laid out as the wrapper's numpy record.
 struct Entry {
@@ -72,20 +77,29 @@ __device__ __forceinline__ float sgd_one(float w, float g, float* m,
 }
 
 __device__ __forceinline__ float4 load_grad4(uint64_t g, int64_t i,
-                                             int bf16) {
-  if (bf16) {
+                                             int flags) {
+  if (flags & kGradBf16) {
     const __nv_bfloat162* p =
         reinterpret_cast<const __nv_bfloat162*>(g) + 2 * (i / 4);
     const float2 lo = __bfloat1622float2(p[0]);
     const float2 hi = __bfloat1622float2(p[1]);
     return make_float4(lo.x, lo.y, hi.x, hi.y);
   }
+  if (flags & kGradF16) {
+    const __half2* p = reinterpret_cast<const __half2*>(g) + 2 * (i / 4);
+    const float2 lo = __half22float2(p[0]);
+    const float2 hi = __half22float2(p[1]);
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
   return reinterpret_cast<const float4*>(g)[i / 4];
 }
 
-__device__ __forceinline__ float load_grad(uint64_t g, int64_t i, int bf16) {
-  return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(g)[i])
-              : reinterpret_cast<const float*>(g)[i];
+__device__ __forceinline__ float load_grad(uint64_t g, int64_t i, int flags) {
+  if (flags & kGradBf16)
+    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(g)[i]);
+  if (flags & kGradF16)
+    return __half2float(reinterpret_cast<const __half*>(g)[i]);
+  return reinterpret_cast<const float*>(g)[i];
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -105,7 +119,6 @@ sgd_multi_kernel(const Entry* __restrict__ table, int n_tensors,
   const Entry e = table[s_tensor];
   const int64_t start = (int64_t)((int)blockIdx.x - e.block0) * chunk;
   const int64_t end = start + chunk < e.n ? start + chunk : e.n;
-  const int gbf = e.flags & kGradBf16;
   float* w = reinterpret_cast<float*>(e.w);
   float* m = reinterpret_cast<float*>(e.m);
   // chunk is a multiple of 4, so a chunk of an aligned tensor starts aligned
@@ -114,7 +127,7 @@ sgd_multi_kernel(const Entry* __restrict__ table, int n_tensors,
   for (int64_t i = start + 4 * (int64_t)threadIdx.x; i < vend;
        i += 4 * kThreads) {
     float4 w4 = *reinterpret_cast<const float4*>(w + i);
-    const float4 g4 = load_grad4(e.g, i, gbf);
+    const float4 g4 = load_grad4(e.g, i, e.flags);
     float4 m4 = has_mom ? *reinterpret_cast<const float4*>(m + i)
                         : make_float4(0.f, 0.f, 0.f, 0.f);
     w4.x = sgd_one(w4.x, g4.x, &m4.x, e.lr, e.wd, momentum, has_mom);
@@ -127,18 +140,24 @@ sgd_multi_kernel(const Entry* __restrict__ table, int n_tensors,
       __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(e.out) + i / 2;
       o[0] = __floats2bfloat162_rn(w4.x, w4.y);
       o[1] = __floats2bfloat162_rn(w4.z, w4.w);
+    } else if (e.flags & kOutF16) {
+      __half2* o = reinterpret_cast<__half2*>(e.out) + i / 2;
+      o[0] = __floats2half2_rn(w4.x, w4.y);
+      o[1] = __floats2half2_rn(w4.z, w4.w);
     } else if (e.flags & kOutF32) {
       reinterpret_cast<float4*>(e.out)[i / 4] = w4;
     }
   }
   for (int64_t i = vend + threadIdx.x; i < end; i += kThreads) {
     float mi = has_mom ? m[i] : 0.f;
-    const float nw = sgd_one(w[i], load_grad(e.g, i, gbf), &mi, e.lr, e.wd,
+    const float nw = sgd_one(w[i], load_grad(e.g, i, e.flags), &mi, e.lr, e.wd,
                              momentum, has_mom);
     w[i] = nw;
     if (has_mom) m[i] = mi;
     if (e.flags & kOutBf16) {
       reinterpret_cast<__nv_bfloat16*>(e.out)[i] = __float2bfloat16_rn(nw);
+    } else if (e.flags & kOutF16) {
+      reinterpret_cast<__half*>(e.out)[i] = __float2half_rn(nw);
     } else if (e.flags & kOutF32) {
       reinterpret_cast<float*>(e.out)[i] = nw;
     }

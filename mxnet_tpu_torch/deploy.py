@@ -51,21 +51,23 @@ def pick_bucket(buckets, n):
 
 def _paged_route(spec, width, page_size, batch, quantized):
     """Kernel-route verdict for one decode width on the card with the tier
-    on: the paged kernel's own feasibility check on ``meta`` tensors of
-    the width's decode shapes.  ``"unsupported"`` means such a decode call
+    on: the pool-form paged kernel's own feasibility check on ``meta``
+    tensors of the width's decode shapes (``decode_step`` reads the pool
+    through the page table).  ``"unsupported"`` means such a decode call
     on CUDA tensors raises (the tier off serves it)."""
-    from .ops.cuda_kernels import paged_unsupported_reason
+    from .ops.cuda_kernels import paged_pool_unsupported_reason
     from .models.transformer import _dtype
     B, H, D = batch, spec["num_heads"], spec["head_dim"]
-    K = width * page_size
     dt = _dtype(spec["dtype"])
+    pool = torch.empty(1, page_size, H, D,
+                       dtype=torch.int8 if quantized else dt, device="meta")
     q = torch.empty(B, H, 1, D, dtype=dt, device="meta")
-    kv = torch.empty(B, H, K, D, dtype=torch.int8 if quantized else dt,
-                     device="meta")
-    valid = torch.empty(B, K, dtype=torch.bool, device="meta")
-    scale = (torch.empty(B, H, K, dtype=torch.float32, device="meta")
-             if quantized else None)
-    reason = paged_unsupported_reason(q, kv, kv, valid, scale, scale)
+    table = torch.empty(B, width, dtype=torch.int32, device="meta")
+    lengths = torch.empty(B, dtype=torch.int32, device="meta")
+    scale = (torch.empty(1, page_size, H, dtype=torch.float32,
+                         device="meta") if quantized else None)
+    reason = paged_pool_unsupported_reason(q, pool, pool, table, lengths,
+                                           scale, scale)
     return {"impl": "unsupported" if reason else "paged", "reason": reason,
             "quantized": bool(quantized)}
 

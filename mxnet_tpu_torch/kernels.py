@@ -5,13 +5,16 @@ The raw kernels live in ``ops/cuda_kernels.py`` and stay policy-free; this
 module owns when they run:
 
 * tier off (``kernels.enabled`` false) -> the plain lowering
-  (``parallel.ring_attention.attention``, ``paged_attention_plain``);
+  (``parallel.ring_attention.attention``, ``paged_attention_plain``,
+  ``paged_attention_pool_plain``);
   this is the only way to run the plain version on CUDA tensors;
 * tier on -> the kernel wrapper (``kernels.flash_attention`` /
   ``kernels.paged_attention`` counters, one per call, so one per
-  transformer layer).  The wrapper launches the CUDA kernel for CUDA
-  tensors, or raises :class:`~mxnet_tpu_torch.base.KernelUnsupportedError`
-  naming what the kernel cannot take; CPU tensors run its plain version.
+  transformer layer; the decode step's ``paged_attention_pool`` counts on
+  ``kernels.paged_attention`` too).  The wrapper launches the CUDA kernel
+  for CUDA tensors, or raises
+  :class:`~mxnet_tpu_torch.base.KernelUnsupportedError` naming what the
+  kernel cannot take; CPU tensors run its plain version.
   Attention goes through :class:`_FlashVJP`, the counterpart of the
   reference's ``_flash_vjp`` custom VJP: its forward is the flash kernel,
   its backward the two flash backward kernels, so a loss built on it
@@ -25,10 +28,11 @@ module owns when they run:
   SGD one launch of K1).
 
 The feasibility checks are the Hopper kernels' own
-(``cuda_kernels.flash_unsupported_reason`` / ``paged_unsupported_reason``:
-dtype, head dim, shapes).  The reference's checks compared a whole head's
-K/V with a 2 MiB VMEM budget, which has no meaning here: both kernels tile
-K/V through shared memory, so context length never disqualifies a call.
+(``cuda_kernels.flash_unsupported_reason`` / ``paged_unsupported_reason``
+/ ``paged_pool_unsupported_reason``: dtype, head dim, shapes).  The
+reference's checks compared a whole head's K/V with a 2 MiB VMEM budget,
+which has no meaning here: both kernels tile K/V through shared memory
+(or read it in place), so context length never disqualifies a call.
 The reference's measured autotune gate is not ported, neither for the
 attention sites nor for the fused step.
 """
@@ -43,8 +47,8 @@ from . import telemetry as _telemetry
 from .ops import cuda_kernels as _ck
 from .parallel.ring_attention import attention as _plain_attention
 
-__all__ = ["enabled", "attention", "paged_attention", "record_paged_routes",
-           "fused_step_enabled", "note_fused_step"]
+__all__ = ["enabled", "attention", "paged_attention", "paged_attention_pool",
+           "record_paged_routes", "fused_step_enabled", "note_fused_step"]
 
 
 def enabled():
@@ -147,3 +151,28 @@ def paged_attention(q, k, v, valid, scale=None, k_scale=None,
     _note_paged_route("plain", "tier off", quant)
     return _ck.paged_attention_plain(q, k, v, valid, scale=scale,
                                      k_scale=k_scale, v_scale=v_scale)
+
+
+def paged_attention_pool(q, k_pool, v_pool, page_table, lengths, scale=None,
+                         k_scale_pool=None, v_scale_pool=None):
+    """Decode-step attention read through the page table from the page
+    pool itself (no gathered copy).
+
+    ``q [B, H, 1, Dh]``; ``k_pool``/``v_pool [pool, psz, H, Dh]`` (one
+    layer's pool); ``page_table [B, W]`` int32 (entries past a sequence's
+    length may be sentinels); ``lengths [B]`` int32, the real positions
+    ``0 .. lengths[b] - 1``.  With ``k_scale_pool``/``v_scale_pool``
+    (``[pool, psz, H]`` f32) the pool is int8.  Routing as in
+    :func:`paged_attention` (tier off: the gather and the plain version),
+    counted on ``kernels.paged_attention``."""
+    quant = k_scale_pool is not None
+    if enabled():
+        _telemetry.counter("kernels.paged_attention").inc()
+        _note_paged_route("paged", None, quant)
+        return _ck.paged_attention_pool(
+            q.contiguous(), k_pool, v_pool, page_table, lengths, scale=scale,
+            k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
+    _note_paged_route("plain", "tier off", quant)
+    return _ck.paged_attention_pool_plain(
+        q, k_pool, v_pool, page_table, lengths, scale=scale,
+        k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)

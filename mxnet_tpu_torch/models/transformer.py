@@ -388,32 +388,29 @@ class TransformerLM(nn.Module):
 
         token_ids [B] (the token to append), positions [B] (its position =
         tokens already cached), page_table [B, W].  Appends each token's
-        K/V to its page, gathers the context through the page table and
-        attends over positions <= its own via ``kernels.paged_attention``.
-        Inactive slots pass the sentinel everywhere: their write is dropped
-        and their output is ignored by the scheduler.  With an int8 pool
-        the appended row is quantised and the gathered per-row scales ride
-        into the kernel, which dequantises in registers.  Returns
-        ``(kv, next_token [B])`` (+ logits with ``return_logits``)."""
+        K/V to its page and attends over positions <= its own via
+        ``kernels.paged_attention_pool``, which reads the context through
+        the page table from the pool itself (tier off: gathers it and runs
+        the plain version).  Inactive slots pass the sentinel everywhere:
+        their write is dropped and their output is ignored by the
+        scheduler.  With an int8 pool the appended row is quantised and the
+        per-row scales are read beside the pages, dequantised in registers.
+        Returns ``(kv, next_token [B])`` (+ logits with ``return_logits``)."""
         cfg = self.cfg
         token_ids = self._as_index(token_ids)
         pos_h = _host(positions)
         positions = self._as_index(pos_h)
         table = self._as_index(page_table)
-        B, W = table.shape
         psz = int(page_size)
         pool = kv["k"].shape[1]
-        H, Dh = cfg.num_heads, cfg.head_dim
         quant = "k_scale" in kv
-        dev = self.device
         x = self._embed(token_ids, positions)[:, None]          # [B,1,D]
         page = torch.gather(table, 1, (positions // psz)[:, None])[:, 0]
         slot = positions % psz
-        valid = (torch.arange(W * psz, device=dev)[None, :]
-                 <= positions[:, None])                          # [B, K]
         (wb,) = ((page >= 0) & (page < pool)).nonzero(as_tuple=True)
         pw, sw = page[wb], slot[wb]
-        gather = table.clamp(0, pool - 1)
+        table32 = table.to(torch.int32)
+        lengths = (positions + 1).to(torch.int32)
         for li in range(cfg.num_layers):
             q, k, v = self._qkv(x, li)                           # [B,H,1,Dh]
             kt, vt = k[wb, :, 0], v[wb, :, 0]                    # [N,H,Dh]
@@ -427,18 +424,12 @@ class TransformerLM(nn.Module):
                 ksl, vsl = kv["k_scale"][li], kv["v_scale"][li]
                 ksl[pw, sw] = ks
                 vsl[pw, sw] = vs
-                scales["k_scale"] = ksl[gather].reshape(
-                    B, W * psz, H).transpose(1, 2).contiguous()
-                scales["v_scale"] = vsl[gather].reshape(
-                    B, W * psz, H).transpose(1, 2).contiguous()
+                scales = {"k_scale_pool": ksl, "v_scale_pool": vsl}
             else:
                 kl[pw, sw] = kt.to(kl.dtype)
                 vl[pw, sw] = vt.to(vl.dtype)
-            kc = kl[gather].reshape(B, W * psz, H, Dh).transpose(
-                1, 2).contiguous()
-            vc = vl[gather].reshape(B, W * psz, H, Dh).transpose(
-                1, 2).contiguous()
-            o = _kernels.paged_attention(q, kc, vc, valid, **scales)
+            o = _kernels.paged_attention_pool(q, kl, vl, table32, lengths,
+                                              **scales)
             x = self._attn_mlp(x, o, li)
         ids, logits = self._sample_last(x[:, 0], pos_h + 1, sample)
         if return_logits:

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles on first use, with ``nvcc`` for
 ``sm_90a``, into its own shared library with a plain C interface, loaded
 with ``ctypes``.  The library lands in ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``), named after the hash of its
-source and flags, so an edited source never loads a stale build.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header never loads a stale build.
 :func:`build` compiles several sources at once, one ``nvcc`` process per
 source, all started together.
 
@@ -59,9 +60,16 @@ def nvcc_path():
 
 
 def _lib_path(name):
+    """The source of kernel ``name`` and its library's path, named after
+    the hash of the source, the flags and every shared header under
+    ``csrc/`` (``*.cuh``, which a source may include)."""
     src = os.path.join(_CSRC, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(_FLAGS).encode())
+    for path in [src] + sorted(os.path.join(_CSRC, f)
+                               for f in os.listdir(_CSRC)
+                               if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(build_dir(),
                              "lib%s-%s.so" % (name, digest.hexdigest()[:12]))
 

@@ -8,12 +8,14 @@ Kernels, sources under ``mxnet_tpu_torch/csrc``:
 * ``flash_attention_bwd`` — its backward, two kernels in
   ``csrc/flash_bwd.cu``: dq over q tiles (port of ``_flash_bwd_dq_kernel``)
   and dk/dv over kv tiles (port of ``_flash_bwd_dkv_kernel``).
-* ``paged_attention`` — single-query paged decode attention over a
-  page-gathered context, bf16 or int8 K/V (``csrc/paged_attn.cu``), the
-  port of ``_paged_attn_kernel``.
-* ``fused_adam_step`` — the Adam update with its bf16 cast (or none, for
-  an f32 cast) in one elementwise pass (``csrc/adam_step.cu``), the port
-  of ``_adam_epilogue_kernel``.
+* ``paged_attention_pool`` — single-query paged decode attention read
+  through the page table straight from the page pool, split over the
+  keys, bf16 or int8 K/V (``csrc/paged_attn.cu``), the port of
+  ``_paged_attn_kernel``; ``paged_attention`` is the same kernel over a
+  page-gathered context under a mask (the reference's entry).
+* ``fused_adam_step`` — the Adam update with its bf16 or f16 cast (or
+  none, for an f32 cast) in one elementwise pass (``csrc/adam_step.cu``),
+  the port of ``_adam_epilogue_kernel``.
 * ``fused_sgd_step_multi`` — the SGD(+momentum) update with its cast over
   a whole list of tensors in one launch (``csrc/sgd_step.cu``), the port
   of ``_sgd_epilogue_kernel`` / ``_sgd_nomom_epilogue_kernel``;
@@ -38,7 +40,8 @@ Routing policy (when to call the wrapper at all) lives in
 
 Launch counts: ``LAUNCHES[name]`` goes up by one at each kernel launch
 and nowhere else (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``,
-``paged_decode_bf16``, ``paged_decode_int8``, ``adam_step``,
+``paged_decode_bf16``, ``paged_decode_int8`` (the gathered entry),
+``paged_decode_pool_bf16``, ``paged_decode_pool_int8``, ``adam_step``,
 ``sgd_step``, ``row_softmax_fwd``, ``row_softmax_bwd``,
 ``scale_bias_relu``), and ``rtc`` at each launch of a user kernel that
 ``mx.rtc`` compiled (``rtc.LAUNCHES`` counts those per kernel name).
@@ -47,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import numpy as _np
 import torch
@@ -56,7 +60,10 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
-           "paged_attention", "paged_attention_plain", "fused_adam_step",
+           "paged_attention", "paged_attention_plain",
+           "paged_attention_pool", "paged_attention_pool_plain",
+           "paged_pool_unsupported_reason", "gather_pages", "paged_splits",
+           "fused_adam_step",
            "fused_adam_step_plain", "flash_unsupported_reason",
            "flash_bwd_unsupported_reason", "paged_unsupported_reason",
            "adam_unsupported_reason", "fused_sgd_step", "fused_sgd_step_plain",
@@ -76,7 +83,9 @@ NEG = -1e30
 HEAD_DIM = 64
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "paged_decode_bf16": 0, "paged_decode_int8": 0, "adam_step": 0,
+            "paged_decode_bf16": 0, "paged_decode_int8": 0,
+            "paged_decode_pool_bf16": 0, "paged_decode_pool_int8": 0,
+            "adam_step": 0,
             "sgd_step": 0, "row_softmax_fwd": 0, "row_softmax_bwd": 0,
             "scale_bias_relu": 0, "rtc": 0}
 
@@ -97,8 +106,8 @@ _SIGNATURES = {
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
     "paged_attn": {
-        "mx_paged_decode": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _F, _P], _I),
+        "mx_paged_decode": ([_P] * 11 + [_I] * 8 + [ctypes.c_longlong] * 6
+                            + [_I, _F, _P], _I),
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
     "adam_step": {
@@ -206,11 +215,15 @@ def flash_attention_plain(q, k, v, causal=False, scale=None):
 def flash_attention(q, k, v, causal=False, scale=None):
     """Flash-attention forward: ``(o, lse)`` as :func:`flash_attention_plain`
     computes them.  CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/flash_fwd.cu`` (contiguous bf16, head dim 64) or raise."""
+    ``csrc/flash_fwd.cu`` (contiguous bf16 at 16-byte aligned addresses,
+    head dim 64) or raise."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     reason = (flash_unsupported_reason(q, k, v, causal)
               or _launch_reason(q, k, v))
+    if reason is None and any(t.data_ptr() % 16 for t in (q, k, v)):
+        # the kernel reads through TMA tensor maps
+        reason = "a data pointer is not 16-byte aligned"
     if reason is not None:
         raise KernelUnsupportedError(
             "flash kernel cannot take this call: " + reason)
@@ -377,6 +390,10 @@ def paged_unsupported_reason(q, k, v, valid, k_scale=None, v_scale=None):
         return "int8 pages need f32 k_scale/v_scale [B,H,K]"
     if D != HEAD_DIM:
         return "head dim %d != %d" % (D, HEAD_DIM)
+    if B * H > 65535 or B * H == 0 or K == 0:
+        return "B*H %d not in 1..65535, or K == 0" % (B * H)
+    if K >= 2 ** 31:
+        return "K %d >= 2^31" % K
     return None
 
 
@@ -406,37 +423,231 @@ def paged_attention(q, k, v, valid, scale=None, k_scale=None,
     ``[B,H,K,D]`` gathered through the page table; ``valid [B,K]`` bool;
     int8 pages come with ``k_scale``/``v_scale [B,H,K]`` f32.  CPU
     tensors run the plain version; CUDA tensors launch
-    ``csrc/paged_attn.cu`` or raise."""
+    ``csrc/paged_attn.cu`` (the kernel of :func:`paged_attention_pool`,
+    reading the gathered tensor as one page per sequence, under the mask)
+    or raise."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k, v, valid, scale=scale,
                                      k_scale=k_scale, v_scale=v_scale)
     quant = k_scale is not None
     tensors = [q, k, v, valid] + ([k_scale, v_scale] if quant else [])
     reason = (paged_unsupported_reason(q, k, v, valid, k_scale, v_scale)
-              or _launch_reason(*tensors))
+              or _launch_reason(*tensors) or _paged_align_reason(q, k, v))
     if reason is not None:
         raise KernelUnsupportedError(
             "paged kernel cannot take this call: " + reason)
     B, H, _, D = q.shape
     K = k.shape[2]
+    # [B, H, K, D] as a pool of B pages of K slots, no table
+    o = _launch_paged(q, k, v, k_scale, v_scale, None, None, valid,
+                      width=1, psz=K, pool=B,
+                      strides=(H * K * D, D, K * D, H * K, 1, K),
+                      scale=scale)
+    LAUNCHES["paged_decode_int8" if quant else "paged_decode_bf16"] += 1
+    return o
+
+
+def _paged_align_reason(q, k, v):
+    # 16-byte rows of bf16, 8-byte rows of int8
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        return "a data pointer is not 16-byte aligned"
+    return None
+
+
+#: blocks the paged kernel aims for: four of 128 threads on each of the
+#: H100's 132 SMs
+PAGED_TARGET_BLOCKS = 4 * 132
+#: keys a block walks in one step (16 groups x 4 keys): the least split
+PAGED_SPLIT_KEYS = 64
+
+
+def paged_splits(bh, kctx):
+    """``(keys_per_split, splits)`` of one paged launch over ``bh``
+    (batch x heads) rows of ``kctx`` keys: enough splits that
+    ``bh * splits`` blocks reach PAGED_TARGET_BLOCKS where the context
+    allows, each split a multiple of PAGED_SPLIT_KEYS keys."""
+    most = -(-kctx // PAGED_SPLIT_KEYS)
+    want = max(1, min(most, -(-PAGED_TARGET_BLOCKS // bh)))
+    per = -(-kctx // want)
+    per = -(-per // PAGED_SPLIT_KEYS) * PAGED_SPLIT_KEYS
+    return per, -(-kctx // per)
+
+
+_PAGED_LOCK = threading.Lock()
+# guarded-by: _PAGED_LOCK — (device, stream handle) -> int32 zeros
+_PAGED_COUNTERS = {}
+
+
+def _paged_counters(device, stream, n):
+    """The (b, h) counts of the last-block merge for launches on
+    ``stream`` (a raw CUDA stream handle) of ``device``, at least ``n`` of
+    them.  The kernel leaves them at zero.  Each stream has its own, so
+    the launches that share a buffer always run in stream order."""
+    with _PAGED_LOCK:
+        c = _PAGED_COUNTERS.get((device, stream))
+        if c is None or c.numel() < n:
+            c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+            _PAGED_COUNTERS[(device, stream)] = c
+        return c
+
+
+def _drop_paged_counters(device, stream):
+    """Forget the counts of ``stream``: a launch that failed may have
+    left some that are not zero."""
+    with _PAGED_LOCK:
+        _PAGED_COUNTERS.pop((device, stream), None)
+
+
+def _launch_paged(q, k, v, k_scale, v_scale, table, lengths, valid, width,
+                  psz, pool, strides, scale=None):
+    """One launch of the paged kernel on checked inputs; ``strides`` are
+    ``(page, slot, head)`` of k/v and of the scales, in elements."""
+    B, H, _, D = q.shape
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    per, splits = paged_splits(B * H, width * psz)
+    stream = _stream(q)
+    part = counters = None
+    if splits > 1:
+        part = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
+                           device=q.device)
+        counters = _paged_counters(q.device, stream, B * H)
+    quant = k_scale is not None
     lib = _build.load("paged_attn", _SIGNATURES["paged_attn"])
     o = torch.empty_like(q)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
     err = lib.mx_paged_decode(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-        k_scale.data_ptr() if quant else None,
-        v_scale.data_ptr() if quant else None, o.data_ptr(), B, H, K, D,
-        int(quant), scale, _stream(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale),
+        ptr(table), ptr(lengths), ptr(valid), o.data_ptr(), ptr(part),
+        ptr(counters), B, H, width, psz, pool, D, per, splits, *strides,
+        int(quant), scale, stream)
+    if err != 0 and counters is not None:
+        _drop_paged_counters(q.device, stream)
     _check(lib, err, "paged_decode")
-    LAUNCHES["paged_decode_int8" if quant else "paged_decode_bf16"] += 1
+    return o
+
+
+def paged_pool_unsupported_reason(q, k_pool, v_pool, page_table, lengths,
+                                  k_scale_pool=None, v_scale_pool=None):
+    """Why the paged kernel cannot take this pool-form call, or None:
+    ``q [B,H,1,64]`` bf16; pools ``[pool, psz, H, 64]`` bf16, or int8 with
+    f32 scale pools ``[pool, psz, H]``; ``page_table [B, W]`` and
+    ``lengths [B]`` int32; B*H <= 65535 and W*psz < 2^31.  Shapes and
+    dtypes only, so it answers for ``meta`` tensors too."""
+    if q.dim() != 4 or k_pool.dim() != 4 or v_pool.dim() != 4:
+        return "rank != 4 (got q%d k%d v%d)" % (q.dim(), k_pool.dim(),
+                                                v_pool.dim())
+    B, H, Sq, D = q.shape
+    if Sq != 1:
+        return "needs one query row per sequence, got Sq=%d" % Sq
+    P, psz = k_pool.shape[:2]
+    if tuple(k_pool.shape) != (P, psz, H, D) or v_pool.shape != k_pool.shape:
+        return "pools must be [pool, psz, H, D]=%s, got %s and %s" % (
+            (P, psz, H, D), tuple(k_pool.shape), tuple(v_pool.shape))
+    if page_table.dim() != 2 or page_table.shape[0] != B:
+        return "page table must be [B, W] with B=%d, got %s" % (
+            B, tuple(page_table.shape))
+    if tuple(lengths.shape) != (B,):
+        return "lengths must be [B]=[%d], got %s" % (B, tuple(lengths.shape))
+    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        return "page table and lengths must be int32, got %s/%s" % (
+            page_table.dtype, lengths.dtype)
+    if q.dtype != torch.bfloat16:
+        return "kernel takes a bf16 query, got %s" % q.dtype
+    quant = k_scale_pool is not None
+    want = torch.int8 if quant else torch.bfloat16
+    if k_pool.dtype != want or v_pool.dtype != want:
+        return "kernel takes %s pages, got %s" % (want, k_pool.dtype)
+    if quant and (v_scale_pool is None
+                  or tuple(k_scale_pool.shape) != (P, psz, H)
+                  or tuple(v_scale_pool.shape) != (P, psz, H)
+                  or k_scale_pool.dtype != torch.float32
+                  or v_scale_pool.dtype != torch.float32):
+        return "int8 pages need f32 scale pools [pool, psz, H]"
+    if D != HEAD_DIM:
+        return "head dim %d != %d" % (D, HEAD_DIM)
+    if B * H > 65535 or B * H == 0:
+        return "B*H %d not in 1..65535" % (B * H)
+    if P == 0 or psz == 0 or page_table.shape[1] == 0:
+        return "empty pool or page table"
+    if page_table.shape[1] * psz >= 2 ** 31:
+        return "W*psz %d >= 2^31" % (page_table.shape[1] * psz)
+    return None
+
+
+def gather_pages(pool, page_table):
+    """``pool [P, psz, ...]`` gathered through ``page_table [B, W]`` (entries
+    clamped into the pool) as ``[B, ..., W*psz, ...]``: K/V
+    ``[P, psz, H, D]`` -> ``[B, H, W*psz, D]``, scales ``[P, psz, H]`` ->
+    ``[B, H, W*psz]``; contiguous."""
+    B, W = page_table.shape
+    P, psz = pool.shape[:2]
+    g = pool[page_table.long().clamp(0, P - 1)]
+    g = g.reshape(B, W * psz, *pool.shape[2:])
+    return g.transpose(1, 2).contiguous()
+
+
+def paged_attention_pool_plain(q, k_pool, v_pool, page_table, lengths,
+                               scale=None, k_scale_pool=None,
+                               v_scale_pool=None):
+    """The pool form's plain version: the pages gathered through the table
+    (:func:`gather_pages`, sentinel entries clamped), the mask
+    ``position < lengths[b]``, then :func:`paged_attention_plain`."""
+    B, W = page_table.shape
+    psz = k_pool.shape[1]
+    valid = (torch.arange(W * psz, device=q.device)[None, :]
+             < lengths.to(q.device).long()[:, None])
+    scales = {}
+    if k_scale_pool is not None:
+        scales = {"k_scale": gather_pages(k_scale_pool, page_table),
+                  "v_scale": gather_pages(v_scale_pool, page_table)}
+    return paged_attention_plain(q, gather_pages(k_pool, page_table),
+                                 gather_pages(v_pool, page_table), valid,
+                                 scale=scale, **scales)
+
+
+def paged_attention_pool(q, k_pool, v_pool, page_table, lengths, scale=None,
+                         k_scale_pool=None, v_scale_pool=None):
+    """Single-query paged decode attention read straight from the page
+    pool: ``q [B,H,1,D]``; ``k_pool``/``v_pool [pool, psz, H, D]`` (the
+    model's own per-layer pools); ``page_table [B, W]`` int32;
+    ``lengths [B]`` int32, the valid prefix of each sequence (keys
+    ``0 .. lengths[b] - 1``); int8 pools come with ``k_scale_pool`` /
+    ``v_scale_pool [pool, psz, H]`` f32.  CPU tensors run
+    :func:`paged_attention_pool_plain`; CUDA tensors launch
+    ``csrc/paged_attn.cu`` (one launch, no gather) or raise."""
+    if q.device.type == "cpu":
+        return paged_attention_pool_plain(
+            q, k_pool, v_pool, page_table, lengths, scale=scale,
+            k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
+    quant = k_scale_pool is not None
+    tensors = [q, k_pool, v_pool, page_table, lengths] + (
+        [k_scale_pool, v_scale_pool] if quant else [])
+    reason = (paged_pool_unsupported_reason(q, k_pool, v_pool, page_table,
+                                            lengths, k_scale_pool,
+                                            v_scale_pool)
+              or _launch_reason(*tensors)
+              or _paged_align_reason(q, k_pool, v_pool))
+    if reason is not None:
+        raise KernelUnsupportedError(
+            "paged kernel cannot take this call: " + reason)
+    P, psz, H, D = k_pool.shape
+    o = _launch_paged(q, k_pool, v_pool, k_scale_pool, v_scale_pool,
+                      page_table, lengths, None,
+                      width=page_table.shape[1], psz=psz, pool=P,
+                      strides=(psz * H * D, H * D, D, psz * H, H, 1),
+                      scale=scale)
+    LAUNCHES["paged_decode_pool_int8" if quant
+             else "paged_decode_pool_bf16"] += 1
     return o
 
 
 # ---------------------------------------------------------------- adam
 def adam_unsupported_reason(weight, grad, m, v, out_dtype):
     """Why the Adam kernel cannot take this call, or None: f32 master,
-    m and v of one shape, a grad of that shape in f32 or bf16, and an f32
-    or bf16 cast.  Shapes and dtypes only."""
+    m and v of one shape, a grad of that shape in f32, bf16 or f16, and an
+    f32, bf16 or f16 cast.  Shapes and dtypes only."""
     shape = weight.shape
     if any(t.shape != shape for t in (grad, m, v)):
         return "shapes differ: w%s g%s m%s v%s" % tuple(
@@ -444,10 +655,10 @@ def adam_unsupported_reason(weight, grad, m, v, out_dtype):
     if not (weight.dtype == m.dtype == v.dtype == torch.float32):
         return "master/m/v must be f32, got %s/%s/%s" % (
             weight.dtype, m.dtype, v.dtype)
-    if grad.dtype not in (torch.float32, torch.bfloat16):
-        return "grad must be f32 or bf16, got %s" % grad.dtype
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        return "the cast must be f32 or bf16, got %s" % out_dtype
+    if grad.dtype not in _DTYPE_CODE:
+        return "grad must be f32, bf16 or f16, got %s" % grad.dtype
+    if out_dtype not in _DTYPE_CODE:
+        return "the cast must be f32, bf16 or f16, got %s" % out_dtype
     if weight.numel() == 0:
         return "empty tensor"
     return None
@@ -521,8 +732,9 @@ def fused_adam_step(weight, grad, m, v, lr_t, wd, beta1, beta2, eps,
                     out_dtype=torch.bfloat16, out=None):
     """Single-kernel Adam update with the cast epilogue: returns
     ``(lp, new_w, (new_m, new_v))`` like the reference's
-    ``fused_adam_step``.  ``weight`` is the f32 master; ``grad`` f32 or
-    bf16 (widened in registers, exactly).  ``out=(lp, w, m, v)`` names
+    ``fused_adam_step``.  ``weight`` is the f32 master; ``grad`` f32, bf16
+    or f16 (widened in registers, exactly); the cast is bf16, f16 (rounded
+    once) or f32.  ``out=(lp, w, m, v)`` names
     the tensors to write (they may be the inputs themselves: the update
     is elementwise, so writing in place is safe and saves the copies);
     by default new ones are allocated.  With ``out_dtype`` f32 the cast
@@ -564,7 +776,7 @@ def fused_adam_step(weight, grad, m, v, lr_t, wd, beta1, beta2, eps,
     err = lib.mx_adam_step(
         weight.data_ptr(), grad.data_ptr(), m.data_ptr(), v.data_ptr(),
         nw.data_ptr(), nm.data_ptr(), nv.data_ptr(), lp.data_ptr(),
-        weight.numel(), int(grad.dtype == torch.bfloat16), int(cast),
+        weight.numel(), _DTYPE_CODE[grad.dtype], _DTYPE_CODE[out_dtype],
         float(lr_t), float(wd), float(beta1), float(beta2),
         1.0 - float(beta1), 1.0 - float(beta2), float(eps), _stream(weight))
     _check(lib, err, "adam_step")
@@ -575,23 +787,23 @@ def fused_adam_step(weight, grad, m, v, lr_t, wd, beta1, beta2, eps,
 # ----------------------------------------------------------------- sgd
 def sgd_unsupported_reason(weight, grad, state, momentum, out=None):
     """Why the SGD kernel cannot take this tensor, or None: an f32 master,
-    a grad of its shape in f32 or bf16, an f32 momentum of its shape
+    a grad of its shape in f32, bf16 or f16, an f32 momentum of its shape
     (when ``momentum`` is not 0), and an ``out`` cast (optional) of its
-    shape in f32 or bf16.  Shapes and dtypes only."""
+    shape in f32, bf16 or f16.  Shapes and dtypes only."""
     if grad.shape != weight.shape:
         return "grad shape %s != weight %s" % (tuple(grad.shape),
                                                tuple(weight.shape))
     if weight.dtype != torch.float32:
         return "master must be f32, got %s" % weight.dtype
-    if grad.dtype not in (torch.float32, torch.bfloat16):
-        return "grad must be f32 or bf16, got %s" % grad.dtype
+    if grad.dtype not in _DTYPE_CODE:
+        return "grad must be f32, bf16 or f16, got %s" % grad.dtype
     if momentum != 0.0 and (state is None or state.shape != weight.shape
                             or state.dtype != torch.float32):
         return "momentum must be an f32 tensor of %s" % (
             tuple(weight.shape),)
-    if out is not None and (out.shape != weight.shape or out.dtype not in (
-            torch.float32, torch.bfloat16)):
-        return "out must be f32 or bf16 of %s, got %s %s" % (
+    if out is not None and (out.shape != weight.shape
+                            or out.dtype not in _DTYPE_CODE):
+        return "out must be f32, bf16 or f16 of %s, got %s %s" % (
             tuple(weight.shape), out.dtype, tuple(out.shape))
     if weight.numel() == 0:
         return "empty tensor"
@@ -645,6 +857,11 @@ _SGD_ENTRY = _np.dtype([("w", "<u8"), ("g", "<u8"), ("m", "<u8"),
                         ("pad", "<i8")])
 assert _SGD_ENTRY.itemsize == 64
 _SGD_GRAD_BF16, _SGD_OUT_BF16, _SGD_OUT_F32, _SGD_VEC = 1, 2, 4, 8
+_SGD_GRAD_F16, _SGD_OUT_F16 = 16, 32
+_SGD_GRAD_FLAG = {torch.float32: 0, torch.bfloat16: _SGD_GRAD_BF16,
+                  torch.float16: _SGD_GRAD_F16}
+_SGD_OUT_FLAG = {torch.float32: _SGD_OUT_F32, torch.bfloat16: _SGD_OUT_BF16,
+                 torch.float16: _SGD_OUT_F16}
 #: elements per block of the SGD kernel: 256 threads x 4 lanes x 8 steps
 SGD_CHUNK = 8192
 
@@ -700,15 +917,13 @@ class SgdTable:
         gptrs, flags = [], []
         for w, g, s, o in zip(weights, grads, states, outs):
             gptrs.append(g.data_ptr())
-            f = _SGD_GRAD_BF16 if g.dtype == torch.bfloat16 else 0
+            f = _SGD_GRAD_FLAG[g.dtype]
             if o is not None:
-                f |= (_SGD_OUT_BF16 if o.dtype == torch.bfloat16
-                      else _SGD_OUT_F32)
-            # 4 lanes: 16 bytes of an f32 tensor, 8 of a bf16 one
-            lanes = [(w, 16), (g, 8 if g.dtype == torch.bfloat16 else 16)]
+                f |= _SGD_OUT_FLAG[o.dtype]
+            # 4 lanes: 16 bytes of an f32 tensor, 8 of a 2-byte one
+            lanes = [(w, 16), (g, 4 * g.element_size())]
             lanes += [(s, 16)] if s is not None else []
-            lanes += [(o, 8 if o.dtype == torch.bfloat16 else 16)] \
-                if o is not None else []
+            lanes += [(o, 4 * o.element_size())] if o is not None else []
             if all(t.data_ptr() % a == 0 for t, a in lanes):
                 f |= _SGD_VEC
             flags.append(f)
@@ -728,7 +943,8 @@ def fused_sgd_step_multi(weights, grads, states, lrs, wds, momentum,
     """One SGD(+momentum) update over a list of tensors, in place:
     ``weights`` (f32 masters) and ``states`` (f32 momenta, ``None``
     entries without momentum) receive the new values, ``outs`` (optional,
-    per tensor ``None`` or an f32/bf16 tensor) the cast of the new master.
+    per tensor ``None`` or an f32, bf16 or f16 tensor) the cast of the new
+    master.  A grad may be f32, bf16 or f16.
     ``lrs``/``wds`` are per tensor.  CPU tensors run the plain version
     tensor by tensor; CUDA tensors launch ``csrc/sgd_step.cu`` once for the
     whole list, or raise.  ``table`` (an :class:`SgdTable`) keeps the

@@ -26,6 +26,7 @@ import mxnet_tpu_torch as mt
 import mxnet_tpu_torch.name
 from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch import gluon as tgluon
+from mxnet_tpu_torch import telemetry as tt
 from mxnet_tpu_torch.convert import (gluon_params_from_reference,
                                      gluon_params_to_reference)
 from mxnet_tpu_torch.gluon import nn as tnn
@@ -118,6 +119,93 @@ def test_lenet_trainer_steps_match_reference():
                     tnet.collect_params()[name].grad().asnumpy(),
                     p.grad().asnumpy(), rtol=RTOL, atol=ATOL,
                     err_msg=name)
+
+
+#: the f16 multi_precision Trainer cases: (optimizer, its options)
+F16_OPTS = {"sgd": {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+                    "multi_precision": True},
+            "adam": {"learning_rate": 0.01, "multi_precision": True}}
+#: f16 losses of the two packages: the same f16 weights and inputs, the
+#: products summed in other orders; f16 keeps 11 significant bits, and a
+#: few roundings of the 10-way log-softmax stay well inside 2^-8
+F16_LOSS_RTOL = 2.0 ** -8
+
+
+def _f16_mlp(nn):
+    net = nn.HybridSequential()
+    net.add(nn.Dense(64, activation="tanh"), nn.Dense(10))
+    return net
+
+
+@pytest.mark.parametrize("tier", [True, False], ids=["tier_on", "tier_off"])
+@pytest.mark.parametrize("opt", sorted(F16_OPTS))
+def test_f16_multi_precision_trainer_matches_reference(opt, tier):
+    """MXNet's usual mixed precision: f16 weights, ``multi_precision=True``
+    (f32 masters in the optimizer state), through ``gluon.Trainer``.  With
+    the tier on the port updates through the fused step (K1 / K3 on the
+    card, their plain versions here), with it off through ``step`` and a
+    cast.  Each step both packages take the reference's f16 gradients (the
+    two backward passes round f16 products in other orders, one f16 ulp
+    here and there, which Adam's first steps would magnify into whole
+    learning rates); the weights must then equal the reference's bit for
+    bit after every one of 3 steps, and the losses agree within
+    F16_LOSS_RTOL."""
+    rng = np.random.RandomState(5)
+    X = rng.randn(32, 20).astype(np.float32)
+    Y = rng.randint(0, 10, 32).astype(np.float32)
+    mt.config.set("kernels.enabled", tier)
+    jmx.config.set("kernels.enabled", tier)
+    try:
+        with mt.cpu():
+            with mt.name.NameManager():
+                tnet = _f16_mlp(tnn)
+            tnet.initialize(mt.init.Xavier(), ctx=mt.cpu())
+            tnet(mt.nd.array(X[:1], ctx=mt.cpu()))
+            tnet.cast("float16")
+            with jmx.name.NameManager():
+                jnet = _f16_mlp(jnn)
+            jnet.initialize(jmx.init.Zero())
+            jnet(jmx.nd.array(X[:1]))
+            jnet.cast("float16")
+            jp = jnet.collect_params()
+            for name, val in gluon_params_to_reference(tnet, "").items():
+                jp[name].set_data(jmx.nd.array(val, dtype="float16"))
+            ttr = tgluon.Trainer(tnet.collect_params(), opt,
+                                 dict(F16_OPTS[opt]))
+            jtr = jgluon.Trainer(jp, opt, dict(F16_OPTS[opt]))
+            tl = tgluon.loss.SoftmaxCrossEntropyLoss()
+            jl = jgluon.loss.SoftmaxCrossEntropyLoss()
+            tt.reset()
+            for _ in range(STEPS):
+                with tag.record():
+                    tloss = tl(tnet(mt.nd.array(X, ctx=mt.cpu(),
+                                                dtype="float16")),
+                               mt.nd.array(Y, ctx=mt.cpu())).mean()
+                tloss.backward()
+                with jag.record():
+                    jloss = jl(jnet(jmx.nd.array(X, dtype="float16")),
+                               jmx.nd.array(Y)).mean()
+                jloss.backward()
+                np.testing.assert_allclose(float(tloss.asnumpy()),
+                                           float(jloss.asnumpy()),
+                                           rtol=F16_LOSS_RTOL)
+                tparams = tnet.collect_params()
+                for tp, p in zip(tparams.values(), jp.values()):
+                    tp.grad()._data.copy_(torch.from_numpy(
+                        p.grad().asnumpy().copy()))
+                ttr.step(1)
+                jtr.step(1)
+                for (name, tp), p in zip(tparams.items(), jp.values()):
+                    got, want = tp.data().asnumpy(), p.data().asnumpy()
+                    assert got.dtype == want.dtype == np.float16, name
+                    np.testing.assert_array_equal(got.view(np.uint16),
+                                                  want.view(np.uint16),
+                                                  err_msg=name)
+            fused = tt.snapshot()["counters"].get("kernels.fused_step", 0)
+            assert fused == (STEPS * len(jp) if tier else 0)
+    finally:
+        mt.config.unset("kernels.enabled")
+        jmx.config.unset("kernels.enabled")
 
 
 def test_params_carry_back_from_reference():

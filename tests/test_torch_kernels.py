@@ -75,6 +75,179 @@ def test_paged_plain_matches_pallas_kernel(quant):
                                atol=ATOL)
 
 
+# ------------------------------------------------ paged decode, pool form
+def _pool_case(dtype, B=3, H=2, D=16, psz=4, W=5, pool=23, seed=9):
+    """A page pool, a shuffled page table whose entries past each
+    sequence's length are sentinels (``pool``, out of range), ragged
+    lengths (a full row, a middle one, a single position), and the same
+    context gathered by hand with numpy: ``(q, k_pool, v_pool, ks, vs,
+    table, lengths, k [B,H,K,D], v, k_scale [B,H,K], v_scale, valid)``."""
+    rng = np.random.RandomState(seed)
+    K = W * psz
+    q = rng.randn(B, H, 1, D).astype(np.float32)
+    if dtype == "int8":
+        kp = rng.randint(-127, 128, (pool, psz, H, D)).astype(np.int8)
+        vp = rng.randint(-127, 128, (pool, psz, H, D)).astype(np.int8)
+        ks = rng.uniform(1e-3, 2e-2, (pool, psz, H)).astype(np.float32)
+        vs = rng.uniform(1e-3, 2e-2, (pool, psz, H)).astype(np.float32)
+    else:
+        kp = rng.randn(pool, psz, H, D).astype(np.float32)
+        vp = rng.randn(pool, psz, H, D).astype(np.float32)
+        ks = vs = None
+    lengths = np.asarray([K, 2 * psz + 1, 1][:B], np.int32)
+    table = rng.permutation(pool)[:B * W].reshape(B, W).astype(np.int32)
+    for b in range(B):
+        used = -(-lengths[b] // psz)
+        table[b, used:] = pool               # sentinel
+    pages = np.clip(table, 0, pool - 1)
+    k = np.stack([kp[pages[b]].reshape(K, H, D).transpose(1, 0, 2)
+                  for b in range(B)])
+    v = np.stack([vp[pages[b]].reshape(K, H, D).transpose(1, 0, 2)
+                  for b in range(B)])
+    kscale = vscale = None
+    if ks is not None:
+        kscale = np.stack([ks[pages[b]].reshape(K, H).T for b in range(B)])
+        vscale = np.stack([vs[pages[b]].reshape(K, H).T for b in range(B)])
+    valid = np.arange(K)[None, :] < lengths[:, None]
+    return q, kp, vp, ks, vs, table, lengths, k, v, kscale, vscale, valid
+
+
+def _opt_t(a):
+    return None if a is None else _t(a)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_paged_pool_plain_equals_gathered_plain(dtype):
+    """The pool form's plain version, through a shuffled table with
+    sentinel entries past each length, equals ``paged_attention_plain``
+    on the context gathered by hand, bit for bit (bf16, f32 and int8
+    pools); a CPU tensor launches nothing."""
+    (q, kp, vp, ks, vs, table, lengths, k, v, kscale, vscale,
+     valid) = _pool_case(dtype)
+    cast = (lambda a: _t(a).bfloat16()) if dtype == "bfloat16" else _t
+    qt = cast(q)
+    before = dict(ck.LAUNCHES)
+    got = ck.paged_attention_pool(
+        qt, cast(kp), cast(vp), _t(table), _t(lengths),
+        k_scale_pool=_opt_t(ks), v_scale_pool=_opt_t(vs))
+    assert ck.LAUNCHES == before, "a CPU tensor must not launch a kernel"
+    want = ck.paged_attention_plain(qt, cast(k), cast(v), _t(valid),
+                                    k_scale=_opt_t(kscale),
+                                    v_scale=_opt_t(vscale))
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    assert torch.equal(got, want)
+    # the gather helper itself: the hand gather, sentinels clamped
+    assert torch.equal(ck.gather_pages(cast(kp), _t(table)), cast(k))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_paged_pool_plain_matches_pallas_kernel(quant):
+    """The pool form's plain version equals the reference's Pallas kernel
+    (interpret mode) over the hand-gathered context, within ATOL."""
+    (q, kp, vp, ks, vs, table, lengths, k, v, kscale, vscale,
+     valid) = _pool_case("int8" if quant else "float32")
+    want = pk.pallas_paged_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(valid),
+        k_scale=None if kscale is None else jnp.asarray(kscale),
+        v_scale=None if vscale is None else jnp.asarray(vscale))
+    got = ck.paged_attention_pool(
+        _t(q), _t(kp), _t(vp), _t(table), _t(lengths),
+        k_scale_pool=_opt_t(ks), v_scale_pool=_opt_t(vs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("bh,kctx", [(12, 16), (12, 2048), (96, 16),
+                                     (96, 2048), (96, 512), (8 * 64, 64),
+                                     (1, 100000)])
+def test_paged_splits_cover_the_context(bh, kctx):
+    """The split-K choice covers every key exactly once (splits x keys a
+    split >= K, the last split non-empty), each split a multiple of
+    PAGED_SPLIT_KEYS, and at least half the target block count wherever
+    the context has keys enough (rounding a split up to whole steps of
+    PAGED_SPLIT_KEYS keys costs at most half)."""
+    per, splits = ck.paged_splits(bh, kctx)
+    assert per % ck.PAGED_SPLIT_KEYS == 0
+    assert per * splits >= kctx > per * (splits - 1)
+    most = -(-kctx // ck.PAGED_SPLIT_KEYS)
+    assert bh * splits >= min(ck.PAGED_TARGET_BLOCKS // 2, bh * most)
+
+
+def test_paged_counters_one_buffer_a_stream():
+    """The split-K merge's counts are kept per (device, stream): launches
+    on two streams never share a buffer, launches on one stream do (and so
+    run in order), a wider launch grows the stream's buffer, and dropping
+    a stream's buffer (after a failed launch) gives it fresh zeros."""
+    dev = torch.device("cpu")
+    a, b = 0x1000, 0x2000   # two raw stream handles
+    try:
+        ca = ck._paged_counters(dev, a, 96)
+        assert ck._paged_counters(dev, a, 96) is ca
+        cb = ck._paged_counters(dev, b, 96)
+        assert cb is not ca and cb.data_ptr() != ca.data_ptr()
+        assert ca.dtype == torch.int32 and not ca.any()
+        wide = ck._paged_counters(dev, a, 4096)
+        assert wide.numel() >= 4096 and wide is not ca
+        assert ck._paged_counters(dev, b, 96) is cb
+        wide[0] = 3
+        ck._drop_paged_counters(dev, a)
+        fresh = ck._paged_counters(dev, a, 96)
+        assert fresh is not wide and not fresh.any()
+    finally:
+        ck._drop_paged_counters(dev, a)
+        ck._drop_paged_counters(dev, b)
+
+
+def test_paged_pool_checks_and_routing():
+    """The pool form's check takes the served decode shapes (B=8, H=12,
+    D=64, pages of 16, widths 1..128, bf16 and int8 pools) and names what
+    it refuses; ``kernels.paged_attention_pool`` routes like
+    ``kernels.paged_attention``, counted on ``kernels.paged_attention``."""
+    q = _meta(8, 12, 1, 64)
+    lengths = _meta(8, dtype=torch.int32)
+    pool, pool8 = _meta(1024, 16, 12, 64), _meta(1024, 16, 12, 64,
+                                                 dtype=torch.int8)
+    sc = _meta(1024, 16, 12, dtype=torch.float32)
+    for W in (1, 32, 128):
+        table = _meta(8, W, dtype=torch.int32)
+        assert ck.paged_pool_unsupported_reason(q, pool, pool, table,
+                                                lengths) is None
+        assert ck.paged_pool_unsupported_reason(q, pool8, pool8, table,
+                                                lengths, sc, sc) is None
+    table = _meta(8, 4, dtype=torch.int32)
+    why = ck.paged_pool_unsupported_reason
+    assert "int32" in why(q, pool, pool, table.long(), lengths)
+    assert "pages" in why(q, pool8, pool8, table, lengths)
+    assert "scale" in why(q, pool8, pool8, table, lengths, sc, None)
+    assert "pools must be" in why(q, _meta(1024, 16, 6, 64), pool, table,
+                                  lengths)
+    assert "one query row" in why(_meta(8, 12, 2, 64), pool, pool, table,
+                                  lengths)
+    assert "bf16" in why(q.float(), pool, pool, table, lengths)
+    with pytest.raises(mt.KernelUnsupportedError, match="CUDA"):
+        ck.paged_attention_pool(q, pool, pool, table, lengths)
+    # the export's per-width verdict is this check's
+    from mxnet_tpu_torch.deploy import _paged_route
+    spec = {"num_heads": 12, "head_dim": 64, "dtype": "bfloat16"}
+    for W in (1, 32, 128):
+        for quant in (False, True):
+            assert _paged_route(spec, W, 16, 8, quant)["impl"] == "paged"
+    (qn, kp, vp, _, _, tab, lens, _, _, _, _, _) = _pool_case("float32")
+    args = (_t(qn), _t(kp), _t(vp), _t(tab), _t(lens))
+    tt.reset()
+    mt.config.set("kernels.enabled", True)
+    try:
+        with tk.record_paged_routes() as routes:
+            on = tk.paged_attention_pool(*args)
+            mt.config.set("kernels.enabled", False)
+            off = tk.paged_attention_pool(*args)
+    finally:
+        mt.config.unset("kernels.enabled")
+    assert [r["impl"] for r in routes] == ["paged", "plain"]
+    assert tt.counter("kernels.paged_attention").value == 1
+    assert torch.equal(on, off)
+
+
 # -------------------------------------------------------- flash forward
 @pytest.mark.parametrize("causal,sq,skv", [(True, 24, 24),
                                            (False, 8, 24),
@@ -225,15 +398,56 @@ def test_fused_adam_f32_out_plain_bitwise_with_pallas(shape, t):
         np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
 
 
+#: (grad, cast) dtypes of MXNet's f16 multi_precision update and its mixes
+F16_CASES = [("float16", "float16"), ("float32", "float16"),
+             ("float16", "bfloat16"), ("float16", "float32")]
+
+
+def _as(a, dtype):
+    """A numpy f32 array as ``dtype`` on both sides: (jax array, torch
+    tensor) holding the same values."""
+    j = jnp.asarray(a).astype(getattr(jnp, dtype))
+    t = _t(a).to(getattr(torch, dtype))
+    return j, t
+
+
+@pytest.mark.parametrize("grad_dtype,cast", F16_CASES,
+                         ids=["-".join(c) for c in F16_CASES])
+@pytest.mark.parametrize("t", [1, 1000])
+@pytest.mark.parametrize("shape", [(256, 64), (37, 13)], ids=["2d", "odd"])
+def test_fused_adam_f16_plain_bitwise_with_pallas(shape, t, grad_dtype,
+                                                  cast):
+    """f16 grads (widened exactly) and an f16 cast (rounded once): the
+    plain Adam epilogue equals the reference's Pallas kernel in interpret
+    mode bit for bit on the master, m, v and the cast."""
+    from mxnet_tpu_torch.optimizer.optimizer import _bias_corrected_lr
+    w, g, m, v = _adam_case(shape)
+    jg, tg = _as(g, grad_dtype)
+    lr_t = float(_bias_corrected_lr(1e-3, 0.9, 0.999, t))
+    lp, nw, (nm, nv) = pk.fused_adam_step(
+        jnp.asarray(w), jg, jnp.asarray(m), jnp.asarray(v),
+        np.float32(lr_t), 0.01, 0.9, 0.999, 1e-8,
+        out_dtype=getattr(jnp, cast))
+    before = dict(ck.LAUNCHES)
+    tlp, tnw, (tnm, tnv) = ck.fused_adam_step(
+        _t(w), tg, _t(m), _t(v), lr_t, 0.01, 0.9, 0.999, 1e-8,
+        out_dtype=getattr(torch, cast))
+    assert ck.LAUNCHES == before, "a CPU tensor must not launch a kernel"
+    assert tlp.dtype == getattr(torch, cast)
+    for want, got in ((nw, tnw), (nm, tnm), (nv, tnv), (lp, tlp.float())):
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
 def test_fused_adam_f32_out_checks():
     """The kernel's checks take an f32 cast, refuse a separate f32 cast
-    tensor (the master is written once) and any cast but f32 and bf16."""
+    tensor (the master is written once) and any cast but f32, bf16 and
+    f16."""
     w = _meta(3, 5, dtype=torch.float32)
     assert ck.adam_unsupported_reason(w, w, w, w, torch.float32) is None
     assert ck.adam_unsupported_reason(w, w.bfloat16(), w, w,
                                       torch.float32) is None
-    assert "f32 or bf16" in ck.adam_unsupported_reason(w, w, w, w,
-                                                       torch.float64)
+    assert "f32, bf16 or f16" in ck.adam_unsupported_reason(w, w, w, w,
+                                                            torch.float64)
     with pytest.raises(mt.KernelUnsupportedError, match="out\\[0\\]"):
         ck.fused_adam_step(w, w, w, w, 1e-3, 0.0, 0.9, 0.999, 1e-8,
                            out_dtype=torch.float32,
@@ -451,9 +665,9 @@ def test_backward_and_adam_checks_reject_what_the_kernels_do_not_take():
                                                   torch.bfloat16)
     assert "f32" in ck.adam_unsupported_reason(w.half(), w, w, w,
                                                torch.bfloat16)
-    assert "grad" in ck.adam_unsupported_reason(w, w.half(), w, w,
+    assert "grad" in ck.adam_unsupported_reason(w, w.double(), w, w,
                                                 torch.bfloat16)
-    assert "bf16" in ck.adam_unsupported_reason(w, w, w, w, torch.float16)
+    assert "f16" in ck.adam_unsupported_reason(w, w, w, w, torch.float64)
     # a non-CPU tensor the kernel cannot take raises the typed error
     with pytest.raises(mt.KernelUnsupportedError, match="backward"):
         ck.flash_attention_bwd(f, f, f, f, lse, f)
@@ -506,6 +720,43 @@ def test_fused_sgd_plain_bitwise_with_pallas(shape, momentum, out_dtype):
         np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
 
 
+@pytest.mark.parametrize("grad_dtype,cast", F16_CASES,
+                         ids=["-".join(c) for c in F16_CASES])
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+@pytest.mark.parametrize("shape", [(33, 7), (256, 64)], ids=["odd", "2d"])
+def test_fused_sgd_f16_plain_bitwise_with_pallas(shape, momentum, grad_dtype,
+                                                 cast):
+    """f16 grads and an f16 cast: the plain SGD epilogue equals the
+    reference's Pallas kernel (interpret mode) bit for bit on the master,
+    the momentum and the cast."""
+    w, g, m = _sgd_case(shape)
+    jg, tg = _as(g, grad_dtype)
+    lp, nw, nm = pk.fused_sgd_step(
+        jnp.asarray(w), jg, jnp.asarray(m) if momentum else None, 0.1,
+        1e-4, momentum, out_dtype=getattr(jnp, cast))
+    tlp, tnw, tnm = ck.fused_sgd_step(
+        _t(w), tg, _t(m) if momentum else None, 0.1, 1e-4, momentum,
+        out_dtype=getattr(torch, cast))
+    assert tlp.dtype == getattr(torch, cast)
+    pairs = [(nw, tnw), (lp, tlp.float())] + (
+        [(nm, tnm)] if momentum else [])
+    for want, got in pairs:
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("grad_dtype,cast", F16_CASES,
+                         ids=["-".join(c) for c in F16_CASES])
+def test_optimizer_checks_take_f16(grad_dtype, cast):
+    """K1's and K3's checks take an f16 grad and an f16 cast (on ``meta``
+    tensors: shapes and dtypes only)."""
+    w = _meta(3, 5, dtype=torch.float32)
+    g = _meta(3, 5, dtype=getattr(torch, grad_dtype))
+    out = _meta(3, 5, dtype=getattr(torch, cast))
+    assert ck.adam_unsupported_reason(w, g, w, w, out.dtype) is None
+    assert ck.sgd_unsupported_reason(w, g, w, 0.9, out=out) is None
+    assert ck.sgd_unsupported_reason(w, g, None, 0.0, out=out) is None
+
+
 def test_fused_sgd_multi_equals_per_tensor_calls():
     """The multi-tensor form, over a list with per-tensor lr and wd and a
     mix of casts (none, f32, bf16), writes in place exactly the bits that
@@ -535,10 +786,10 @@ def test_sgd_checks_reject_what_the_kernel_does_not_take():
     assert ck.sgd_unsupported_reason(w, _meta(3, 5), None, 0.0) is None
     assert "grad shape" in ck.sgd_unsupported_reason(w, w[:2], w, 0.9)
     assert "master" in ck.sgd_unsupported_reason(w.half(), w, w, 0.9)
-    assert "grad must" in ck.sgd_unsupported_reason(w, w.half(), w, 0.9)
+    assert "grad must" in ck.sgd_unsupported_reason(w, w.double(), w, 0.9)
     assert "momentum" in ck.sgd_unsupported_reason(w, w, None, 0.9)
     assert "momentum" in ck.sgd_unsupported_reason(w, w, w.half(), 0.9)
-    assert "out" in ck.sgd_unsupported_reason(w, w, w, 0.9, out=w.half())
+    assert "out" in ck.sgd_unsupported_reason(w, w, w, 0.9, out=w.double())
     with pytest.raises(mt.KernelUnsupportedError, match="sgd.*f32"):
         ck.fused_sgd_step_multi([w.half()], [w], [w], [0.1], [0.0], 0.9)
     # a tensor off the CPU the kernel cannot reach raises, naming why

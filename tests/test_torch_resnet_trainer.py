@@ -148,6 +148,45 @@ def test_three_sgd_steps_match_reference(tier):
         <= STATE_RTOL, errs
 
 
+#: twenty steps: the two packages' loss trajectories from the same weights,
+#: held at each step relative to that step's reference loss.  Both sum
+#: convolutions and BatchNorm reductions in other orders.  Over the first
+#: LONG_EARLY steps (the loss falls 2.88 -> 0.43) the gap is f32 noise: at
+#: most 3e-6 of the step's loss measured with 1 to 8 CPU threads.  Once
+#: the loss has collapsed on its one batch (0.25 at step 5, 8.5e-4 at step
+#: 19) the trajectory amplifies any rounding difference: the port against
+#: itself, run with 1 and then 3 CPU threads, differs by up to 0.115 of
+#: the step's loss, and the port against the reference by 0.021 (8
+#: threads) to 0.107 (2 to 6 threads).  A fault that moves the loss by its
+#: own size still fails.
+LONG_STEPS = 20
+LONG_EARLY = 5
+LONG_EARLY_RTOL = 1e-4
+LONG_LATE_RTOL = 0.25
+
+
+def test_twenty_sgd_steps_track_reference():
+    """The port's SPMDTrainer against the reference's over LONG_STEPS SGD
+    steps (lr 0.1, momentum 0.9, wd 1e-4; kernel tier on) on one batch:
+    at every step |port - reference| is within LONG_EARLY_RTOL (the first
+    LONG_EARLY steps) or LONG_LATE_RTOL (the rest) of that step's
+    reference loss, and both fall at every step (this net does not bounce
+    in either package)."""
+    tnet, jnet = _nets()
+    data, label = _batch()
+    with _Tier(True):
+        tr, jr = _trainers(tnet, jnet)
+        losses = np.asarray([(float(tr.step(data, label)),
+                              float(jr.step(data, label)))
+                             for _ in range(LONG_STEPS)])
+    ours, theirs = losses[:, 0], losses[:, 1]
+    assert np.all(np.isfinite(losses)), losses
+    rel = np.abs(ours - theirs) / np.abs(theirs)
+    assert rel[:LONG_EARLY].max() <= LONG_EARLY_RTOL, (rel, losses)
+    assert rel[LONG_EARLY:].max() <= LONG_LATE_RTOL, (rel, losses)
+    assert np.all(np.diff(ours) < 0) and np.all(np.diff(theirs) < 0), losses
+
+
 def test_bf16_step_matches_reference():
     """``dtype="bfloat16"``: bf16 forward and backward over f32 masters;
     the masters and momenta stay f32.  Only the loss is held against the
