@@ -2,7 +2,8 @@
 
 Usage (from the root of a checkout, one visible CUDA card)::
 
-    python3 chip_smoke.py [--report PATH] [--phase attention|module]
+    python3 chip_smoke.py [--report PATH]
+                          [--phase attention|optimizer|module]
 
 Phases; any failure exits non-zero without the result lines:
 
@@ -28,10 +29,15 @@ Phases; any failure exits non-zero without the result lines:
             S=1000, ragged non-causal Sq=200 Skv=1000 and BERT-base's
             B=8 S=128 non-causal; a second launch must give the same
             bits, and each case logs the two kernels' device time over
-            sdpa backward's), the fused Adam step K3
-            (the 9 full-width parameter tensors, wd 0.01, t = 1 and 1000,
-            bf16 grads and casts, an f32 grad and cast, f16 grads and
-            casts) and the multi-tensor fused SGD step K1 (the 193
+            sdpa backward's), the multi-tensor fused Adam step K3 (one
+            launch a list: the 9 full-width parameter tensors, wd 0.01,
+            t = 1 and 1000, bf16 grads and casts, an f32 grad and cast,
+            f16 grads and casts; a mixed list of every grad and cast
+            dtype with per-tensor lr_t and wd, 105 elements, a master
+            and a grad off the 4-lane alignment; the Module MLP's 18
+            shapes; one step over the 9 tensors timed by CUDA events and
+            profiler device time beside ``torch.optim.Adam(fused=True)``)
+            and the multi-tensor fused SGD step K1 (the 193
             trainable shapes of resnet50_v1 in one launch: momentum 0.9
             with the f32 master as out, with a bf16 out, momentum 0,
             per-tensor lr/wd, and f16 grads with an f16 out), the row
@@ -50,7 +56,7 @@ Phases; any failure exits non-zero without the result lines:
             that row; the backward kernels the same per row of dq (b, h,
             query) and of dk, dv (b, h, key), with the row's scale floored
             at BWD_ROW_FLOOR x the tensor's largest |plain|; K3 bitwise on
-            the master, m, v and the bf16 weight; K1 bitwise on the
+            the masters, m, v and the casts; K1 bitwise on the
             masters, the momenta and the casts; K5 per row at
             K5_F32_ROW_TOL / K5_BF16_ROW_TOL (y, m and l; the backward
             against the row's largest term); K6 bitwise.
@@ -73,19 +79,23 @@ Phases; any failure exits non-zero without the result lines:
             on one fixed seeded batch (B=4, S=2048: 8192 tokens a step;
             targets are the inputs shifted by one) with Adam (lr 1e-3,
             multi_precision: bf16 weights over f32 masters):
-            ``model.loss`` -> ``backward()`` -> ``update_multi_precision``
-            per parameter.  First, at the initial weights, the gradients
+            ``model.loss`` -> ``backward()`` -> one
+            ``update_multi_precision`` call over the 9 parameters as lists
+            (MXNet's aggregated update).  First, at the initial weights, the gradients
             of the kernel path, the plain path (tier off) and the plain
             path on an f32 copy of the weights: the kernel path's relative
             error against f32 may be at most KERNEL_VS_PLAIN_GRAD_ERR x the
             plain bf16 path's, per tensor.  Then the counted steps: launch
             counts and telemetry zeroed just before and read just after;
             each step must launch exactly 12 flash_fwd, 12 flash_bwd_dq,
-            12 flash_bwd_dkv and 9 adam_step (9 ``kernels.fused_step``)
-            and nothing else; the loss must be finite at every step and
+            12 flash_bwd_dkv and 1 adam_step (9 ``kernels.fused_step``,
+            one a tensor) and nothing else; the loss must be finite at every step and
             lower at the last than at the first.  Prints the median step
-            ms over steps 5..20, tokens/s and MFU, and the device-idle
-            share of a ``torch.profiler`` window over 3 more steps.
+            ms over steps 5..20, tokens/s and MFU; then TRAIN_AB_PAIRS
+            pairs of TRAIN_AB_STEPS steps with the list update against
+            one ``update_multi_precision`` call (one K3 launch) a tensor,
+            the order alternating; and the device-idle share of a
+            ``torch.profiler`` window over 3 more steps.
 5. resnet — ResNet-50 v1 (``vision.get_model("resnet50_v1",
             classes=1000)``, 25.6 M parameters in 193 trainable tensors,
             seeded Xavier weights) trained by ``SPMDTrainer`` with SGD
@@ -105,6 +115,11 @@ Phases; any failure exits non-zero without the result lines:
             count), peak memory, and the device-idle share of a profiled
             window over 3 more steps; then 5 timed steps each of
             ``conv.internal_layout=NHWC`` (channels_last) and the f32 row.
+            Then the same net through SPMDTrainer with Adam (lr 1e-3,
+            bf16 over f32 masters): one step's K3 update (one launch over
+            the 193 tensors) bitwise against its plain multi version on
+            the masters, m and v, and RESNET_ADAM_STEPS counted steps with
+            exactly one adam_step a step, finite losses.
             ``torch.backends.cudnn.benchmark`` is on in this phase.
 6. tape   — (a) the NDArray autograd tape over the registered kernel
             ops: ``attach_grad`` on seeded f32 logits [8192, 32000],
@@ -152,8 +167,9 @@ Phases; any failure exits non-zero without the result lines:
             parameters agree after 5 steps (MLP_AGREE_RTOL); then
             MLP_STEPS counted steps a route after 3 warm-up steps, counts
             zeroed just before and read just after: the fused route
-            launches exactly 18 adam_step a step (K3 with an f32 cast) and
-            no other kernel of the port, the eager route none; every loss
+            launches exactly one adam_step a step (K3 over the 18 tensors
+            with an f32 cast; 18 ``kernels.fused_step``) and no other
+            kernel of the port, the eager route none; every loss
             finite; steps/s and samples/s a route, their ratio, the
             device-idle share of a profiled window of fused steps, and
             the fused route's step timed again after that window; and a
@@ -174,11 +190,17 @@ runs only the flash forward, paged decode and flash backward checks of
 phase 2, and prints their report as one JSON line: the quick check after
 a change to an attention kernel.
 
+``--phase optimizer`` builds K3 and K1 and runs only their checks and
+timings of phase 2 (``check_adam``, ``check_sgd``), and prints their
+report as one JSON line.
+
 ``--phase module`` builds the kernels and runs only phase 7(c), in a
-process no earlier phase has touched, after an A/B of Adam's ``lr_t``
-cache (``lr_t_ab``: LRT_AB_PAIRS pairs of MLP_STEPS fused steps, with
-the cache and with it reset before every tensor's update, the order
-alternating), and prints the phase's report as one JSON line.
+process no earlier phase has touched, after two A/Bs of the fused step
+(LRT_AB_PAIRS pairs of MLP_STEPS fused steps each, the order
+alternating): Adam's ``lr_t`` cache against its reset before every
+tensor's update (``lr_t_ab``), and K3's one launch a step against one
+launch a tensor (``launch_ab``); and prints the phase's report as one
+JSON line.
 """
 from __future__ import annotations
 
@@ -260,6 +282,9 @@ KV_PAGES = 1024
 TRAIN_B = 4
 TRAIN_S = 2048
 TRAIN_STEPS = 20
+# the train phase's A/B of the update routes: pairs x steps a side
+TRAIN_AB_PAIRS = 4
+TRAIN_AB_STEPS = 5
 TRAIN_LR = 1e-3
 ADAM_WD = 0.01
 SGD_WD = 1e-4
@@ -269,6 +294,10 @@ RESNET_BATCH = 128
 RESNET_HW = 224
 RESNET_WARMUP = 2
 RESNET_STEPS = 20
+# the same net through SPMDTrainer with Adam: K3's one launch over 193
+# tensors
+RESNET_ADAM_LR = 1e-3
+RESNET_ADAM_STEPS = 5
 # bench.py:59: a train step is ~3x the forward's 4.1 GFLOP per image
 RESNET_FLOPS_PER_IMG = 3 * 4.1e9
 # The first step's loss, bf16 path vs an f32 copy: both ends read the same
@@ -644,79 +673,167 @@ def _adam_shapes(cfg):
             "w2": (L, F, D)}
 
 
+def _mlp_shapes():
+    """The 18 parameter shapes of the Module MLP (phase 7(c))."""
+    shapes, width = [], MLP_FEAT
+    for _ in range(MLP_LAYERS):
+        shapes += [(MLP_WIDTH, width), (MLP_WIDTH,)]
+        width = MLP_WIDTH
+    return shapes + [(MLP_CLASSES, MLP_WIDTH), (MLP_CLASSES,)]
+
+
+def _placed(torch, x, offset):
+    """A copy of ``x`` that starts ``offset`` elements into a buffer of
+    its own (offset 1 leaves it off the 4-lane alignment)."""
+    buf = torch.empty(offset + x.numel(), dtype=x.dtype, device=x.device)
+    y = buf[offset:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def _adam_list_case(ck, torch, label, ws, gs, ms, vs, lr_ts, wds, casts,
+                    offsets=None):
+    """K3's one launch over the list against ``fused_adam_step_multi_plain``
+    on copies of the same inputs (each copy at the offset the case gives
+    it), bitwise on the masters, m, v and the casts."""
+    offsets = offsets or [0] * len(ws)
+    sides = []
+    for fn in (ck.fused_adam_step_multi, ck.fused_adam_step_multi_plain):
+        w, m, v = ([_placed(torch, x, o) for x, o in zip(xs, offsets)]
+                   for xs in (ws, ms, vs))
+        out = [torch.empty_like(x, dtype=c) if c is not None else None
+               for x, c in zip(ws, casts)]
+        before = ck.LAUNCHES["adam_step"]
+        fn(w, gs, m, v, lr_ts, wds, 0.9, 0.999, 1e-8, outs=out)
+        sides.append((w, m, v, out, ck.LAUNCHES["adam_step"] - before))
+    torch.cuda.synchronize()
+    (kw, km, kv, ko, launches), (pw, pm, pv, po, plain_launches) = sides
+    pairs = {"master": list(zip(kw, pw)), "m": list(zip(km, pm)),
+             "v": list(zip(kv, pv)),
+             "cast": [(a, b) for a, b in zip(ko, po) if a is not None]}
+    diff = {k: sum(_differing(torch, x, y) for x, y in p)
+            for k, p in pairs.items()}
+    err = max(float((x.float() - y.float()).abs().max())
+              for p in pairs.values() for x, y in p)
+    case = {"case": label, "tensors": len(ws),
+            "params": sum(w.numel() for w in ws), "launches": launches,
+            "differing_elements": diff, "max_abs_err": err,
+            "ok": sum(diff.values()) == 0 and launches == 1
+            and plain_launches == 0}
+    _log("[kernels] adam_step %s" % json.dumps(case))
+    return case
+
+
 def check_adam(ck, torch):
-    """K3 against ``fused_adam_step_plain``, bitwise on all four outputs,
-    for each full-width parameter shape at t = 1 and t = 1000 with the bf16
-    cast and at t = 1000 with the f32 one (f32 grads); then the
-    step's time over the 9 tensors against the plain version and
-    ``torch.optim.Adam(fused=True)``.  Returns (cases, per-step timing)."""
+    """K3 (one launch over a list) against ``fused_adam_step_multi_plain``,
+    bitwise on the masters, m, v and the casts: the 9 full-width
+    TransformerLM tensors at t = 1 and t = 1000 with bf16 grads and casts,
+    at t = 1000 with f32 grads and the f32 cast (the master itself) and
+    with f16 grads and casts; a mixed list (every grad and cast dtype,
+    per-tensor lr_t and wd, an element count that is not a multiple of 4,
+    a master and a grad off the 4-lane alignment, which take the scalar
+    loop); and the Module MLP's 18 shapes with f32 grads and the f32
+    cast.  Then one step over the 9 tensors (bf16 grads and casts) by
+    CUDA events and profiler device time against the plain version,
+    ``torch.optim.Adam(fused=True)`` and the byte bound.  Returns (cases,
+    per-step timing)."""
     from mxnet_tpu_torch.models.transformer import TransformerLMConfig
     from mxnet_tpu_torch.optimizer.optimizer import _bias_corrected_lr
-    shapes = _adam_shapes(TransformerLMConfig())
+    shapes = list(_adam_shapes(TransformerLMConfig()).values())
     g = torch.Generator(device="cuda").manual_seed(SEED + 9)
     b1, b2, eps = 0.9, 0.999, 1e-8
-    cases, tensors = [], {}
-    for name, shape in shapes.items():
-        w = torch.randn(shape, generator=g, device="cuda") * 0.02
-        gr = torch.randn(shape, generator=g, device="cuda").bfloat16()
-        m = torch.randn(shape, generator=g, device="cuda") * 1e-3
-        v = torch.rand(shape, generator=g, device="cuda") * 1e-6
-        tensors[name] = (w, gr, m, v)
-        # the bf16 cast of the training path, the f32 "cast" (the master
-        # itself, written once) with an f32 grad of the symbolic Module's
-        # fused step, and MXNet's f16 multi_precision update (f16 grad,
-        # f16 cast)
-        for t, cast, gdt in ((1, torch.bfloat16, torch.bfloat16),
-                             (1000, torch.bfloat16, torch.bfloat16),
-                             (1000, torch.float32, torch.float32),
-                             (1000, torch.float16, torch.float16)):
-            lr_t = float(_bias_corrected_lr(TRAIN_LR, b1, b2, t))
-            gt = gr.to(gdt)
-            got = ck.fused_adam_step(w, gt, m, v, lr_t, ADAM_WD, b1, b2, eps,
-                                     out_dtype=cast)
-            want = ck.fused_adam_step_plain(w, gt, m, v, lr_t, ADAM_WD, b1,
-                                            b2, eps, out_dtype=cast)
-            if cast == torch.float32:
-                assert got[0] is got[1], "an f32 cast must be the master"
-            got = (got[0], got[1]) + tuple(got[2])
-            want = (want[0], want[1]) + tuple(want[2])
-            torch.cuda.synchronize()
-            diff = [_differing(torch, x, y) for x, y in zip(got, want)]
-            err = max(float((x.float() - y.float()).abs().max())
-                      for x, y in zip(got, want))
-            case = {"tensor": name, "shape": list(shape), "t": t,
-                    "cast": str(cast)[len("torch."):],
-                    "grad": str(gdt)[len("torch."):],
-                    "differing_elements": dict(zip(
-                        ("cast", "master", "m", "v"), diff)),
-                    "max_abs_err": err, "ok": sum(diff) == 0}
-            _log("[kernels] adam_step %s" % json.dumps(case))
-            cases.append(case)
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+
+    def lr_t(t, lr=TRAIN_LR):
+        return float(_bias_corrected_lr(lr, b1, b2, t))
+
+    def inputs(shapes, grad_dtypes):
+        ws = [torch.randn(sh, generator=g, device="cuda") * 0.02
+              for sh in shapes]
+        gs = [torch.randn(sh, generator=g, device="cuda").to(dt)
+              for sh, dt in zip(shapes, grad_dtypes)]
+        ms = [torch.randn(sh, generator=g, device="cuda") * 1e-3
+              for sh in shapes]
+        vs = [torch.rand(sh, generator=g, device="cuda") * 1e-6
+              for sh in shapes]
+        return ws, gs, ms, vs
+
+    n = len(shapes)
+    ws, gs, ms, vs = inputs(shapes, [bf16] * n)
+    cases = []
+    # the bf16 cast of the training path, the f32 "cast" (the master
+    # itself, written once) with an f32 grad of the symbolic Module's
+    # fused step, and MXNet's f16 multi_precision update
+    for t, cast, gdt in ((1, bf16, bf16), (1000, bf16, bf16),
+                         (1000, None, f32), (1000, f16, f16)):
+        cases.append(_adam_list_case(
+            ck, torch, "TransformerLM 9 tensors, t=%d, %s grads, %s cast"
+            % (t, str(gdt)[6:], str(cast or f32)[6:]),
+            ws, [x.to(gdt) for x in gs], ms, vs, [lr_t(t)] * n,
+            [ADAM_WD] * n, [cast] * n))
+    mixed = [(1000, 768), (3, 5, 7), (4099,), (2048, 100), (777, 33), (768,)]
+    mw, mg, mm, mv = inputs(mixed, [bf16, f16, f32, bf16, f16, f32])
+    mg[4] = _placed(torch, mg[4], 1)   # a 2-byte grad 2 bytes off
+    cases.append(_adam_list_case(
+        ck, torch, "mixed: grads bf16/f16/f32, casts bf16/f16/f32, "
+        "per-tensor lr_t and wd, 105 elements, a master and a grad off "
+        "alignment", mw, mg, mm, mv,
+        [lr_t(1), lr_t(10, 5e-4), lr_t(1000), lr_t(3), lr_t(1000, 5e-4),
+         lr_t(2)], [ADAM_WD, 0.0, ADAM_WD, 0.0, 1e-4, ADAM_WD],
+        [bf16, f16, None, f16, bf16, bf16], offsets=[0, 0, 0, 1, 0, 0]))
+    mlp = _mlp_shapes()
+    pw, pg, pm, pv = inputs(mlp, [f32] * len(mlp))
+    cases.append(_adam_list_case(
+        ck, torch, "Module MLP 18 tensors, f32 grads, f32 cast", pw, pg, pm,
+        pv, [lr_t(5, MLP_LR)] * len(mlp), [0.0] * len(mlp),
+        [None] * len(mlp)))
+    del mw, mg, mm, mv, pw, pg, pm, pv
     # one step over the 9 tensors, in place as on the training path
-    lr_t = float(_bias_corrected_lr(TRAIN_LR, b1, b2, 1000))
-    kernel_ms, plain_ms, nbytes = 0.0, 0.0, 0
-    for name, (w, gr, m, v) in tensors.items():
-        lp = torch.empty_like(w, dtype=torch.bfloat16)
-        kernel_ms += _time_ms(lambda: ck.fused_adam_step(
-            w, gr, m, v, lr_t, ADAM_WD, b1, b2, eps, out=(lp, w, m, v)))
-        plain_ms += _time_ms(lambda: ck.fused_adam_step_plain(
-            w, gr, m, v, lr_t, ADAM_WD, b1, b2, eps), iters=3, warmup=1)
-        nbytes += w.numel() * (4 + 2 + 4 + 4 + 4 + 4 + 4 + 2)
-    masters = [w.clone().requires_grad_(True)
-               for w, _, _, _ in tensors.values()]
-    for p, (_, gr, _, _) in zip(masters, tensors.values()):
+    lr_ts, wds = [lr_t(1000)] * n, [ADAM_WD] * n
+    lps = [torch.empty_like(w, dtype=bf16) for w in ws]
+    table = ck.LaunchTable()
+
+    def call():
+        ck.fused_adam_step_multi(ws, gs, ms, vs, lr_ts, wds, b1, b2, eps,
+                                 outs=lps, table=table)
+    call()
+    dev, blocks = table.fill(ck.ADAM_LAYOUT, (ws, ms, vs, lps), gs, lr_ts,
+                             wds)
+
+    def launch():
+        ck._launch_adam(dev, n, blocks, b1, b2, eps, ws[0])
+    kernel_ms = _time_ms(launch)
+    device_ms = _device_ms(torch, launch)
+    call_ms = _time_ms(call)
+    plain_ms = _time_ms(lambda: ck.fused_adam_step_multi_plain(
+        ws, gs, ms, vs, lr_ts, wds, b1, b2, eps, outs=lps), iters=3,
+        warmup=1)
+    params = sum(w.numel() for w in ws)
+    nbytes = params * (4 + 2 + 4 + 4 + 4 + 4 + 4 + 2)
+    masters = [w.clone().requires_grad_(True) for w in ws]
+    for p, gr in zip(masters, gs):
         p.grad = gr.float()
     lib = torch.optim.Adam(masters, lr=TRAIN_LR, betas=(b1, b2), eps=eps,
                            weight_decay=ADAM_WD, fused=True)
     lib_ms = _time_ms(lib.step)
+    lib_device_ms = _device_ms(torch, lib.step)
+    del masters, lib
     bound, by = _bound_ms(nbytes, 0)
-    step = {"at": {"tensors": len(tensors),
-                   "params": sum(t[0].numel() for t in tensors.values()),
-                   "grad": "bfloat16"},
-            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+    step = {"at": {"tensors": n, "params": params, "grad": "bfloat16",
+                   "cast": "bfloat16", "blocks": blocks},
+            "ms": kernel_ms, "ms_is": "K3's one launch alone, table filled "
+            "(CUDA events)", "device_ms": device_ms,
+            "call_ms": call_ms,
+            "call_is": "fused_adam_step_multi: checks, table fill and copy, "
+                       "launch (CUDA events)",
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_device_ms": lib_device_ms,
             "library_computes": "torch.optim.Adam(fused=True) over the same "
                                 "f32 masters, f32 grads, no bf16 copy",
-            "bound_ms": bound, "bound_by": by, "bytes": nbytes}
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "bound_share": bound / (device_ms or kernel_ms),
+            "vs_library": (device_ms or kernel_ms)
+            / (lib_device_ms or lib_ms)}
     _log("[kernels] adam_step per step %s" % json.dumps(step))
     return cases, step
 
@@ -788,9 +905,10 @@ def check_sgd(ck, torch, mx, np):
     del gs16
     # one step over the 193 tensors in place, as on the training path
     lrs, wds = flat
-    table = ck.SgdTable()
+    table = ck.LaunchTable()
     ck.fused_sgd_step_multi(ws, gs, ms, lrs, wds, 0.9, table=table)
-    dev, blocks = table.fill(ws, gs, ms, lrs, wds, [None] * n)
+    dev, blocks = table.fill(ck.SGD_LAYOUT, (ws, ms, [None] * n), gs, lrs,
+                             wds)
     kernel_ms = _time_ms(lambda: ck._launch_sgd(dev, n, blocks, 0.9, ws[0]))
     call_ms = _time_ms(lambda: ck.fused_sgd_step_multi(
         ws, gs, ms, lrs, wds, 0.9, table=table))
@@ -1114,7 +1232,7 @@ def _profile(torch, fn, top=8):
 
 # device time by kind, matched on kernel names in this order
 _KERNEL_GROUPS = (
-    ("port kernels", ("flash_", "paged_", "adam_step", "sgd_multi")),
+    ("port kernels", ("flash_", "paged_", "adam_multi", "sgd_multi")),
     ("cudnn layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("gemm and convolution", ("cudnn", "xmma", "cutlass", "gemm", "sm90_",
                               "sm80_", "implicit_convolve", "wgrad",
@@ -1500,13 +1618,24 @@ def train(mx, ck, np, torch):
     states = [opt.create_state_multi_precision(i, p)
               for i, p in enumerate(params)]
 
-    def step():
+    index = list(range(len(params)))
+
+    def step(per_index=False):
         model.zero_grad(set_to_none=True)
         loss = model.loss(inp, tgt)
         loss.backward()
-        for i, p in enumerate(params):
-            opt.update_multi_precision(i, p, p.grad, states[i])
+        if per_index:
+            for i, p in enumerate(params):
+                opt.update_multi_precision(i, p, p.grad, states[i])
+        else:
+            # MXNet's aggregated update: the whole list in one call, one
+            # K3 launch
+            opt.update_multi_precision(index, params,
+                                       [p.grad for p in params], states)
         return loss
+
+    def per_index():
+        return step(per_index=True)
 
     # --- the main path: counts zeroed just before, read just after
     torch.cuda.reset_peak_memory_stats()
@@ -1524,7 +1653,7 @@ def train(mx, ck, np, torch):
     n = TRAIN_STEPS
     want = dict.fromkeys(launches, 0)
     want.update({"flash_fwd": L * n, "flash_bwd_dq": L * n,
-                 "flash_bwd_dkv": L * n, "adam_step": len(params) * n})
+                 "flash_bwd_dkv": L * n, "adam_step": n})
     assert launches == want, (launches, want)
     assert c.get("kernels.fused_step", 0) == len(params) * n, c
     assert c.get("kernels.flash_attention", 0) == L * n, c
@@ -1549,6 +1678,7 @@ def train(mx, ck, np, torch):
         "launches": launches})
     _log("[train] %s" % json.dumps({k: v for k, v in out.items()
                                     if k != "grad_accuracy"}))
+    out["route_ab"] = _train_route_ab(np, torch, step, per_index)
     if _profiler_records_cuda(torch):
         out["profile"] = _profile(torch, lambda: [step() for _ in range(3)],
                                   top=16)
@@ -1559,15 +1689,40 @@ def train(mx, ck, np, torch):
     return out
 
 
+def _train_route_ab(np, torch, step, per_index):
+    """The train step with the list update (one K3 launch, "change")
+    against one ``update_multi_precision`` call and one launch per
+    tensor ("parent", the route before K3 took a list): TRAIN_AB_PAIRS
+    pairs of TRAIN_AB_STEPS steps, the order alternating; host-clock ms
+    a step, each step ending in a sync."""
+    sides = {"parent": per_index, "change": step}
+    ms = {"parent": [], "change": []}
+    for i in range(TRAIN_AB_PAIRS):
+        order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
+        for side in order:
+            for _ in range(TRAIN_AB_STEPS):
+                t0 = time.perf_counter()
+                float(sides[side]().detach())
+                torch.cuda.synchronize()
+                ms[side].append((time.perf_counter() - t0) * 1e3)
+    out = {"pairs": TRAIN_AB_PAIRS, "steps": TRAIN_AB_STEPS, "step_ms": ms}
+    for side, v in ms.items():
+        out[side] = _quartiles(np, v)
+    _log("[train] route A/B %s" % json.dumps(
+        {k: v for k, v in out.items() if k != "step_ms"}))
+    return out
+
+
 # ------------------------------------------------------------- phase 5
-def _resnet_trainer(mx, net, dtype):
+def _resnet_trainer(mx, net, dtype, optimizer="sgd"):
     """``bench.py`` ``one_config``'s trainer: SGD lr 0.1, momentum 0.9,
-    wd 1e-4 through SPMDTrainer on a one-device mesh."""
+    wd 1e-4 through SPMDTrainer on a one-device mesh; or Adam at
+    RESNET_ADAM_LR."""
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.parallel import SPMDTrainer, make_mesh
-    return SPMDTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
-                       {"learning_rate": 0.1, "momentum": 0.9,
-                        "wd": SGD_WD},
+    params = ({"learning_rate": 0.1, "momentum": 0.9, "wd": SGD_WD}
+              if optimizer == "sgd" else {"learning_rate": RESNET_ADAM_LR})
+    return SPMDTrainer(net, SoftmaxCrossEntropyLoss(), optimizer, params,
                        mesh=make_mesh({"dp": -1}), dtype=dtype)
 
 
@@ -1624,7 +1779,7 @@ def _sgd_routes(ck, torch, tr, data, label):
     def clones():
         return [w.clone() for w in w0], [m.clone() for m in m0]
     kw, km = clones()
-    opt.step_fused_multi(kw, grads, km, lrs, wds, t, table=ck.SgdTable())
+    opt.step_fused_multi(kw, grads, km, lrs, wds, t)
     pw, pm = clones()
     ck.fused_sgd_step_multi_plain(pw, grads, pm, lrs, wds, opt.momentum)
     sw, sm = clones()
@@ -1650,6 +1805,77 @@ def _sgd_routes(ck, torch, tr, data, label):
            "k1_vs_sgd_step_worst_rel": worst,
            "route_tol": SGD_ROUTE_TOL}
     assert vs_plain == 0 and worst <= SGD_ROUTE_TOL, out
+    return out
+
+
+def _adam_routes(ck, torch, tr, data, label):
+    """One step's gradients at the Adam trainer's state, taken once and
+    applied to copies of the masters, m and v two ways: the trainer's
+    fused route (K3, one launch over the 193 tensors) and
+    ``fused_adam_step_multi_plain`` with each tensor's lr_t computed here
+    from the trainer's lr and step.  Bitwise on the masters, m and v."""
+    from mxnet_tpu_torch.optimizer.optimizer import _bias_corrected_lr
+    train, aux = _state(tr)
+    _, _, grads = tr._loss_and_grads(train, aux, data, label)
+    lrs, wds = tr._hyper()
+    opt, t = tr.optimizer, tr._step_num + 1
+    names = tr.fn.trainable
+    w0 = [train[n].detach() for n in names]
+    s0 = [tr.opt_state[n] for n in names]
+
+    def copies():
+        return ([w.clone() for w in w0], [m.clone() for m, _ in s0],
+                [v.clone() for _, v in s0])
+    kw, km, kv = copies()
+    before = ck.LAUNCHES["adam_step"]
+    opt.step_fused_multi(kw, grads, list(zip(km, kv)), lrs, wds, t)
+    launches = ck.LAUNCHES["adam_step"] - before
+    pw, pm, pv = copies()
+    ck.fused_adam_step_multi_plain(
+        pw, grads, pm, pv,
+        [float(_bias_corrected_lr(lr, opt.beta1, opt.beta2, t))
+         for lr in lrs], wds, opt.beta1, opt.beta2, opt.epsilon)
+    torch.cuda.synchronize()
+    diff = {k: sum(_differing(torch, a, b) for a, b in zip(x, y))
+            for k, x, y in (("master", kw, pw), ("m", km, pm),
+                            ("v", kv, pv))}
+    out = {"tensors": len(names), "params": sum(w.numel() for w in w0),
+           "t": t, "launches": launches, "k3_vs_plain_differing": diff}
+    assert launches == 1 and sum(diff.values()) == 0, out
+    return out
+
+
+def train_resnet_adam(mx, ck, np, torch, net, data, label, card):
+    """ResNet-50 v1 through SPMDTrainer with Adam (RESNET_ADAM_LR, bf16
+    over f32 masters, BS 128): one warm-up step, one step's update held
+    bitwise against the plain multi version, then RESNET_ADAM_STEPS
+    counted steps, counts zeroed just before and read just after: one
+    adam_step launch a step over the 193 tensors and no other kernel of
+    the port, finite losses."""
+    from mxnet_tpu_torch import telemetry as tt
+    tr = _resnet_trainer(mx, net, "bfloat16", optimizer="adam")
+    warm, _ = _timed(np, torch, tr, data, label, 1)
+    out = {"optimizer": "adam", "lr": RESNET_ADAM_LR, "dtype": "bfloat16",
+           "batch": RESNET_BATCH, "tensors": len(tr.fn.trainable),
+           "warmup_losses": warm}
+    out["adam_routes"] = _adam_routes(ck, torch, tr, data, label)
+    _log("[resnet-adam] K3 vs its plain version %s"
+         % json.dumps(out["adam_routes"]))
+    # --- the main path: counts zeroed just before, read just after
+    _zero_counts(torch, tt, ck)
+    losses, step_ms = _timed(np, torch, tr, data, label, RESNET_ADAM_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    c = tt.snapshot()["counters"]
+    assert launches == _want_launches(ck, adam_step=RESNET_ADAM_STEPS), \
+        launches
+    out.update({"steps": RESNET_ADAM_STEPS, "losses": losses,
+                "step_ms": step_ms, "launches": launches,
+                "fused_step_counter": c.get("kernels.fused_step", 0)})
+    out.update(_rate(np, step_ms, card))
+    _log("[resnet-adam] %s" % json.dumps(out))
+    del tr
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1757,6 +1983,8 @@ def train_resnet(mx, ck, np, torch, card):
         _log("[resnet] %s %s" % (key, json.dumps(row)))
         del other
         torch.cuda.empty_cache()
+    out["adam"] = train_resnet_adam(mx, ck, np, torch, net, data, label,
+                                    card)
     return out
 
 
@@ -2510,9 +2738,11 @@ def train_module(mx, ck, np, torch, card, workdir):
              "losses_finite": bool(np.isfinite(losses).all())}
         assert r["losses_finite"], losses
         if route == "fused":
+            # one K3 launch a step over the 18 tensors; one
+            # kernels.fused_step per tensor
             per_step = 2 * (MLP_LAYERS + 1)
             assert r["launches"] == _want_launches(
-                ck, adam_step=per_step * MLP_STEPS), r["launches"]
+                ck, adam_step=MLP_STEPS), r["launches"]
             assert r["kernels_fused_step"] == per_step * MLP_STEPS, r
             assert r["fused_steps"] == MLP_STEPS, r
         else:
@@ -2543,36 +2773,63 @@ def train_module(mx, ck, np, torch, card, workdir):
     return out
 
 
-def lr_t_ab(mx, np, torch):
-    """Adam's ``lr_t`` cache A/B on the fused route: LRT_AB_PAIRS pairs of
-    MLP_STEPS steps of one Module, with the cache ("change") and with it
-    reset before every tensor's update ("parent": the bias correction
-    computed 18 times a step), the order alternating.  Step ms each."""
+def _quartiles(np, ms):
+    q = np.percentile(ms, [25, 50, 75])
+    return {"p25": q[0], "median": q[1], "p75": q[2]}
+
+
+def _module_ab(mx, np, torch, label, attr, parent):
+    """An A/B on the Module MLP's fused route: LRT_AB_PAIRS pairs of
+    MLP_STEPS steps of one Module, with the optimizer's ``attr`` as it is
+    ("change") and replaced by ``parent(opt, original)`` ("parent"), the
+    order alternating.  Step ms each."""
     mod = _mlp_module(mx)
     batch = _mlp_batch(mx, np)
     opt = mod._optimizer
-    cached = opt.step_fused
-
-    def uncached(*args, **kw):
-        opt._lr_t = (None, None)
-        return cached(*args, **kw)
+    change = getattr(opt, attr)
+    sides = {"parent": parent(opt, change), "change": change}
     _mlp_steps(mx, mod, "auto", batch, MLP_WARMUP)
     ms = {"parent": [], "change": []}
     for i in range(LRT_AB_PAIRS):
         order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
         for side in order:
-            opt.step_fused = uncached if side == "parent" else cached
+            setattr(opt, attr, sides[side])
             _, dt = _mlp_timed(mx, torch, mod, "auto", batch)
             ms[side].append(dt / MLP_STEPS * 1e3)
-    del opt.step_fused
+    delattr(opt, attr)
     out = {"pairs": LRT_AB_PAIRS, "steps": MLP_STEPS, "step_ms": ms,
            "change_wins": sum(c < p for c, p in zip(ms["change"],
                                                     ms["parent"]))}
     for side, v in ms.items():
-        q = np.percentile(v, [25, 50, 75])
-        out[side] = {"p25": q[0], "median": q[1], "p75": q[2]}
-    _log("[lr_t_ab] %s" % json.dumps(out))
+        out[side] = _quartiles(np, v)
+    _log("[%s] %s" % (label, json.dumps(out)))
     return out
+
+
+def lr_t_ab(mx, np, torch):
+    """Adam's ``lr_t`` cache A/B: with the cache ("change") and with it
+    reset before every tensor's ``lr_t`` ("parent": the bias correction
+    computed 18 times a step)."""
+    def uncached(opt, cached):
+        def fn(*args, **kw):
+            opt._lr_t = (None, None)
+            return cached(*args, **kw)
+        return fn
+    return _module_ab(mx, np, torch, "lr_t_ab", "_lr_t_of", uncached)
+
+
+def launch_ab(mx, np, torch):
+    """K3's one launch a step ("change") against one ``step_fused`` call,
+    one launch, per tensor ("parent": the fused route before K3 took a
+    list, 18 wrapper calls a step)."""
+    def per_tensor(opt, _):
+        def fn(weights, grads, states, lrs, wds, t, outs=None):
+            for w, g, st, lr, wd in zip(weights, grads, states, lrs, wds):
+                opt.step_fused(w, g, st, lr, wd, t, out_dtype=w.dtype,
+                               out=(w, w, st))
+        return fn
+    return _module_ab(mx, np, torch, "launch_ab", "step_fused_multi",
+                      per_tensor)
 
 
 def _rtc_summary(name, rtc_out, ops_out):
@@ -2648,10 +2905,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the full report (JSON) "
                     "to this path")
-    ap.add_argument("--phase", choices=("all", "attention", "module"),
+    ap.add_argument("--phase", choices=("all", "attention", "optimizer",
+                                        "module"),
                     default="all",
                     help="attention: the flash forward and backward checks "
-                    "of phase 2 alone; module: phase 7(c) alone, after the "
+                    "of phase 2 alone; optimizer: phase 2's K3 and K1 "
+                    "checks alone; module: phase 7(c) alone, after the "
                     "lr_t A/B")
     args = ap.parse_args(argv)
     import torch
@@ -2685,8 +2944,9 @@ def main(argv=None):
     _log("[env] %s" % json.dumps(report))
 
     t0 = time.perf_counter()
-    built = _build.build(["flash_fwd", "flash_bwd", "paged_attn"]
-                         if args.phase == "attention" else None)
+    built = _build.build(
+        {"attention": ["flash_fwd", "flash_bwd", "paged_attn"],
+         "optimizer": ["adam_step", "sgd_step"]}.get(args.phase))
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "per_source_s": {k: v["seconds"]
                                         for k, v in built.items()},
@@ -2725,8 +2985,22 @@ def main(argv=None):
         print(json.dumps({k: v for k, v in report.items()
                           if k != "build"}))
         return 0
+    if args.phase == "optimizer":
+        report["adam_step"], report["adam_per_step"] = check_adam(ck, torch)
+        report["sgd_step"], report["sgd_per_step"] = check_sgd(ck, torch,
+                                                                mx, np)
+        _write_report(args.report, report)
+        bad = [c for key in ("adam_step", "sgd_step") for c in report[key]
+               if not c["ok"]]
+        if bad:
+            raise AssertionError("kernel disagrees with its plain version: "
+                                 "%s" % json.dumps(bad))
+        print(json.dumps({k: v for k, v in report.items()
+                          if k != "build"}))
+        return 0
     if args.phase == "module":
         report["lr_t_ab"] = lr_t_ab(mx, np, torch)
+        report["launch_ab"] = launch_ab(mx, np, torch)
         report["module"] = train_module(mx, ck, np, torch, card, workdir)
         print(json.dumps(report))
         return 0
@@ -2755,6 +3029,7 @@ def main(argv=None):
     report["rtc_ops"] = rtc_ops(mx, ck, torch, rtc_kernels)
     report["module"] = train_module(mx, ck, np, torch, card, workdir)
     module_adam = report["module"]["fused"]["launches"]["adam_step"]
+    resnet_adam = report["resnet"]["adam"]["launches"]["adam_step"]
     f16_adam = report["f16"]["adam"]["launches"]["adam_step"]
     f16_sgd = report["f16"]["sgd"]["launches"]["sgd_step"]
     launches = report["serve"]["greedy"]["launches"]
@@ -2776,17 +3051,24 @@ def main(argv=None):
         {"name": "adam_step", "route": "cuda",
          "source": "mxnet_tpu_torch/csrc/adam_step.cu",
          "replaces": pk + "518",
-         "launches": trained["adam_step"] + module_adam + f16_adam,
+         "launches": (trained["adam_step"] + module_adam + f16_adam
+                      + resnet_adam),
          "launches_by_path": {"train": trained["adam_step"],
                               "module_mlp": module_adam,
-                              "f16_trainer": f16_adam},
+                              "f16_trainer": f16_adam,
+                              "resnet_spmd_adam": resnet_adam},
          "max_abs_err": max(c["max_abs_err"] for c in adam),
          "differing_elements": sum(sum(c["differing_elements"].values())
                                    for c in adam),
-         "ms": adam_step["ms"], "plain_ms": adam_step["plain_ms"],
+         "ms": adam_step["ms"], "device_ms": adam_step["device_ms"],
+         "call_ms": adam_step["call_ms"],
+         "plain_ms": adam_step["plain_ms"],
          "bound_ms": adam_step["bound_ms"],
          "bound_by": adam_step["bound_by"],
-         "library_ms": adam_step["library_ms"], "at": adam_step["at"],
+         "bound_share": adam_step["bound_share"],
+         "library_ms": adam_step["library_ms"],
+         "library_device_ms": adam_step["library_device_ms"],
+         "vs_library": adam_step["vs_library"], "at": adam_step["at"],
          "cases": adam},
         {"name": "sgd_step", "route": "cuda",
          "source": "mxnet_tpu_torch/csrc/sgd_step.cu",

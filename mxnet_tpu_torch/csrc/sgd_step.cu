@@ -39,6 +39,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace {
@@ -53,7 +54,8 @@ constexpr int kVec = 8;        // every pointer aligned for 4-wide access
 constexpr int kGradF16 = 16;   // g is f16 (neither bit: f32)
 constexpr int kOutF16 = 32;    // write w' as f16 to `out`
 
-// One table entry; 64 bytes, laid out as the wrapper's numpy record.
+// One table entry; 64 bytes, laid out as the wrapper's numpy record
+// (cuda_kernels.SGD_LAYOUT).
 struct Entry {
   uint64_t w, g, m, out;
   int64_t n;
@@ -63,6 +65,10 @@ struct Entry {
   int64_t pad;
 };
 static_assert(sizeof(Entry) == 64, "table entry layout");
+static_assert(offsetof(Entry, n) == 32 && offsetof(Entry, block0) == 40 &&
+                  offsetof(Entry, lr) == 44 && offsetof(Entry, wd) == 48 &&
+                  offsetof(Entry, flags) == 52,
+              "table entry layout");
 
 __device__ __forceinline__ float sgd_one(float w, float g, float* m,
                                          float lr, float wd, float momentum,

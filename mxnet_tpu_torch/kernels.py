@@ -22,10 +22,11 @@ module owns when they run:
 * the fused optimizer step (:func:`fused_step_enabled`): tier on and an
   optimizer that has ``step_fused`` and is ``jit_safe``.
   ``kernels.fused_step`` (:func:`note_fused_step`) counts, as in the
-  reference, once per fused update on ``update_multi_precision`` and
+  reference, once per tensor updated through ``update_multi_precision``
+  (a list of tensors goes through one ``step_fused_multi`` call) and
   once per built step in ``parallel.SPMDTrainer`` (whose every step then
-  updates all trainable tensors in one ``step_fused_multi`` call: for
-  SGD one launch of K1).
+  updates all trainable tensors in one ``step_fused_multi`` call: one
+  launch of K1 for SGD, of K3 for Adam).
 
 The feasibility checks are the Hopper kernels' own
 (``cuda_kernels.flash_unsupported_reason`` / ``paged_unsupported_reason``

@@ -13,9 +13,10 @@ Kernels, sources under ``mxnet_tpu_torch/csrc``:
   keys, bf16 or int8 K/V (``csrc/paged_attn.cu``), the port of
   ``_paged_attn_kernel``; ``paged_attention`` is the same kernel over a
   page-gathered context under a mask (the reference's entry).
-* ``fused_adam_step`` — the Adam update with its bf16 or f16 cast (or
-  none, for an f32 cast) in one elementwise pass (``csrc/adam_step.cu``),
-  the port of ``_adam_epilogue_kernel``.
+* ``fused_adam_step_multi`` — the Adam update with its bf16 or f16 cast
+  (or none, for an f32 cast) over a whole list of tensors in one launch
+  (``csrc/adam_step.cu``), the port of ``_adam_epilogue_kernel``;
+  ``fused_adam_step`` is its one-tensor form.
 * ``fused_sgd_step_multi`` — the SGD(+momentum) update with its cast over
   a whole list of tensors in one launch (``csrc/sgd_step.cu``), the port
   of ``_sgd_epilogue_kernel`` / ``_sgd_nomom_epilogue_kernel``;
@@ -63,12 +64,14 @@ __all__ = ["flash_attention", "flash_attention_plain",
            "paged_attention", "paged_attention_plain",
            "paged_attention_pool", "paged_attention_pool_plain",
            "paged_pool_unsupported_reason", "gather_pages", "paged_splits",
-           "fused_adam_step",
-           "fused_adam_step_plain", "flash_unsupported_reason",
+           "fused_adam_step", "fused_adam_step_plain",
+           "fused_adam_step_multi", "fused_adam_step_multi_plain",
+           "flash_unsupported_reason",
            "flash_bwd_unsupported_reason", "paged_unsupported_reason",
            "adam_unsupported_reason", "fused_sgd_step", "fused_sgd_step_plain",
            "fused_sgd_step_multi", "fused_sgd_step_multi_plain",
-           "sgd_unsupported_reason", "SgdTable", "sqrt_rn", "div_rn",
+           "sgd_unsupported_reason", "LaunchTable", "TableLayout",
+           "SGD_LAYOUT", "ADAM_LAYOUT", "sqrt_rn", "div_rn",
            "row_softmax", "row_softmax_plain", "row_softmax_bwd",
            "row_softmax_bwd_plain", "row_softmax_unsupported_reason",
            "row_softmax_bwd_unsupported_reason", "scale_bias_relu",
@@ -111,8 +114,8 @@ _SIGNATURES = {
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
     "adam_step": {
-        "mx_adam_step": ([_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, _I,
-                          _I, _F, _F, _F, _F, _F, _F, _F, _P], _I),
+        "mx_adam_step_multi": ([_P, _I, _I, ctypes.c_longlong, _F, _F, _F, _F,
+                                _F, _P], _I),
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
     "sgd_step": {
@@ -728,60 +731,269 @@ def fused_adam_step_plain(weight, grad, m, v, lr_t, wd, beta1, beta2, eps,
     return nw.to(out_dtype), nw, (nm, nv)
 
 
+def fused_adam_step_multi_plain(weights, grads, ms, vs, lr_ts, wds, beta1,
+                                beta2, eps, outs=None):
+    """:func:`fused_adam_step_multi` with the plain version, tensor by
+    tensor, in place."""
+    outs = outs if outs is not None else [None] * len(weights)
+    for w, g, m, v, lr_t, wd, o in zip(weights, grads, ms, vs, lr_ts, wds,
+                                       outs):
+        lp, nw, (nm, nv) = fused_adam_step_plain(
+            w, g, m, v, lr_t, wd, beta1, beta2, eps,
+            out_dtype=o.dtype if o is not None else torch.float32)
+        w.copy_(nw)
+        m.copy_(nm)
+        v.copy_(nv)
+        if o is not None:
+            o.copy_(lp)
+
+
+def fused_adam_step_multi(weights, grads, ms, vs, lr_ts, wds, beta1, beta2,
+                          eps, outs=None, table=None):
+    """One Adam update over a list of tensors, in place: ``weights`` (f32
+    masters), ``ms`` and ``vs`` (f32 moments) receive the new values, and
+    ``outs`` (optional, per tensor ``None`` or a bf16 or f16 tensor) the
+    cast of the new master; ``None`` is an f32 cast, which is the master
+    itself.  A grad may be f32, bf16 or f16.  ``lr_ts`` (the
+    bias-corrected learning rates) and ``wds`` are per tensor.  CPU
+    tensors run the plain version tensor by tensor; CUDA tensors launch
+    ``csrc/adam_step.cu`` once for the whole list, or raise naming the
+    first tensor the kernel cannot take.  ``table`` (a
+    :class:`LaunchTable`) keeps the device-side table across calls."""
+    n = len(weights)
+    outs = list(outs) if outs is not None else [None] * n
+    if not (len(grads) == len(ms) == len(vs) == len(lr_ts) == len(wds)
+            == len(outs) == n) or n == 0:
+        raise ValueError("fused_adam_step_multi needs one grad, m, v, lr_t, "
+                         "wd and out per weight (got %d weights)" % n)
+    if all(w.device.type == "cpu" for w in weights):
+        return fused_adam_step_multi_plain(weights, grads, ms, vs, lr_ts,
+                                           wds, beta1, beta2, eps, outs)
+    # what the kernel takes first (shapes and dtypes), then where the
+    # tensors lie
+    for check in (_adam_entry_reason, _adam_launch_reason):
+        for i, args in enumerate(zip(weights, grads, ms, vs, outs)):
+            reason = check(weights[0], *args)
+            if reason is not None:
+                raise KernelUnsupportedError(
+                    "adam kernel cannot take tensor %d of %d: %s"
+                    % (i, n, reason))
+    table = table if table is not None else LaunchTable()
+    dev, blocks = table.fill(ADAM_LAYOUT, (weights, ms, vs, outs), grads,
+                             lr_ts, wds)
+    _launch_adam(dev, n, blocks, beta1, beta2, eps, weights[0])
+
+
+def _adam_entry_reason(first, w, g, m, v, o):
+    """Why K3 cannot take this entry of a list, or None (shapes and
+    dtypes: :func:`adam_unsupported_reason`, and a cast that is a bf16 or
+    f16 tensor of the master's shape, or None)."""
+    reason = adam_unsupported_reason(
+        w, g, m, v, o.dtype if o is not None else torch.float32)
+    if reason is None and o is not None and (
+            o.shape != w.shape or o.dtype == torch.float32):
+        reason = ("a cast must be bf16 or f16 of %s (an f32 cast is the "
+                  "master itself: pass None), got %s %s"
+                  % (tuple(w.shape), o.dtype, tuple(o.shape)))
+    return reason
+
+
+def _adam_launch_reason(first, w, g, m, v, o):
+    """Why this entry's tensors cannot go to the launch of the list, whose
+    first master is ``first``, or None."""
+    return _launch_reason(first, w, g, m, v, *([o] if o is not None else []))
+
+
+def _launch_adam(table, n, blocks, beta1, beta2, eps, like):
+    """Launch K3 alone over a filled device table (:class:`LaunchTable`
+    fills it after :func:`fused_adam_step_multi` has checked every
+    tensor), on the stream of ``like``'s device."""
+    lib = _build.load("adam_step", _SIGNATURES["adam_step"])
+    err = lib.mx_adam_step_multi(
+        table.data_ptr(), n, blocks, ADAM_LAYOUT.chunk, float(beta1),
+        float(beta2), 1.0 - float(beta1), 1.0 - float(beta2), float(eps),
+        _stream(like))
+    _check(lib, err, "adam_step")
+    LAUNCHES["adam_step"] += 1
+
+
 def fused_adam_step(weight, grad, m, v, lr_t, wd, beta1, beta2, eps,
-                    out_dtype=torch.bfloat16, out=None):
-    """Single-kernel Adam update with the cast epilogue: returns
+                    out_dtype=torch.bfloat16, out=None, table=None):
+    """Single-tensor Adam update with the cast epilogue: returns
     ``(lp, new_w, (new_m, new_v))`` like the reference's
-    ``fused_adam_step``.  ``weight`` is the f32 master; ``grad`` f32, bf16
-    or f16 (widened in registers, exactly); the cast is bf16, f16 (rounded
-    once) or f32.  ``out=(lp, w, m, v)`` names
-    the tensors to write (they may be the inputs themselves: the update
-    is elementwise, so writing in place is safe and saves the copies);
-    by default new ones are allocated.  With ``out_dtype`` f32 the cast
-    is the new master itself: the kernel writes the master once and skips
-    the cast store, ``lp`` is returned as ``new_w``, and ``out[0]`` must
-    be ``out[1]``.  CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/adam_step.cu`` or raise."""
-    if weight.device.type == "cpu":
-        res = fused_adam_step_plain(weight, grad, m, v, lr_t, wd, beta1,
-                                    beta2, eps, out_dtype=out_dtype)
-        if out is None:
-            return res
-        lp, nw, (nm, nv) = res
-        for dst, src in zip(out, (lp, nw, nm, nv)):
-            if dst is not src:
-                dst.copy_(src)
-        return out[0], out[1], (out[2], out[3])
+    ``fused_adam_step``; a one-entry :func:`fused_adam_step_multi`.
+    ``weight`` is the f32 master; ``grad`` f32, bf16 or f16 (widened in
+    registers, exactly); the cast is bf16, f16 (rounded once) or f32.
+    ``out=(lp, w, m, v)`` names the tensors to write (they may be the
+    inputs themselves: the update is elementwise, so writing in place is
+    safe and saves the copies); by default new ones are allocated.  With
+    ``out_dtype`` f32 the cast is the new master itself: the kernel writes
+    the master once and skips the cast store, ``lp`` is returned as
+    ``new_w``, and ``out[0]`` must be ``out[1]``.  CPU tensors run the
+    plain version; CUDA tensors launch ``csrc/adam_step.cu`` or raise.
+    ``table`` as for :func:`fused_adam_step_multi`."""
     cast = out_dtype != torch.float32
-    reason = adam_unsupported_reason(weight, grad, m, v, out_dtype)
-    if reason is None and out is not None:
+    if out is None:
+        nw, nm, nv = weight.clone(), m.clone(), v.clone()
+        lp = torch.empty_like(weight, dtype=out_dtype) if cast else nw
+    else:
+        lp, nw, nm, nv = out
         dtypes = (out_dtype, torch.float32, torch.float32, torch.float32)
+        reason = None
         if any(o.shape != weight.shape or o.dtype != dt
                for o, dt in zip(out, dtypes)):
             reason = "out tensors must be (%s, f32, f32, f32) of %s" % (
                 out_dtype, tuple(weight.shape))
-        elif not cast and out[0] is not out[1]:
+        elif not cast and lp is not nw:
             reason = "an f32 cast is the master itself: out[0] must be out[1]"
-    if reason is None:
-        if out is None:
-            nw = torch.empty_like(weight)
-            out = (torch.empty_like(weight, dtype=out_dtype) if cast else nw,
-                   nw, torch.empty_like(m), torch.empty_like(v))
-        reason = _launch_reason(weight, grad, m, v, *out)
-    if reason is not None:
-        raise KernelUnsupportedError(
-            "adam kernel cannot take this call: " + reason)
-    lp, nw, nm, nv = out
-    lib = _build.load("adam_step", _SIGNATURES["adam_step"])
-    err = lib.mx_adam_step(
-        weight.data_ptr(), grad.data_ptr(), m.data_ptr(), v.data_ptr(),
-        nw.data_ptr(), nm.data_ptr(), nv.data_ptr(), lp.data_ptr(),
-        weight.numel(), _DTYPE_CODE[grad.dtype], _DTYPE_CODE[out_dtype],
-        float(lr_t), float(wd), float(beta1), float(beta2),
-        1.0 - float(beta1), 1.0 - float(beta2), float(eps), _stream(weight))
-    _check(lib, err, "adam_step")
-    LAUNCHES["adam_step"] += 1
+        if reason is not None:
+            raise KernelUnsupportedError(
+                "adam kernel cannot take this call: " + reason)
+        for dst, src in ((nw, weight), (nm, m), (nv, v)):
+            if dst is not src:
+                dst.copy_(src)
+    fused_adam_step_multi([nw], [grad], [nm], [nv], [lr_t], [wd], beta1,
+                          beta2, eps, outs=[lp if cast else None],
+                          table=table)
     return lp, nw, (nm, nv)
+
+
+# ------------------------------------------------ multi-tensor launches
+class TableLayout:
+    """What one multi-tensor kernel's launch table holds: its numpy
+    ``record`` (the layout of the kernel's C ``Entry``), the elements a
+    block takes (``chunk``, a multiple of 4) and the record's pointer
+    ``columns`` for the tensors the kernel updates in place, masters
+    first and the cast (``out``) last."""
+
+    def __init__(self, name, record, chunk, columns):
+        assert record.itemsize == 64 and chunk % 4 == 0
+        assert columns[0] == "w" and columns[-1] == "out"
+        self.name, self.record, self.chunk = name, record, chunk
+        self.columns = columns
+
+
+# The flag bits of a table entry, the same in K1's and K3's: the grad's
+# dtype, the cast's (K3 takes no separate f32 cast), and whether every
+# pointer of the tensor is aligned for a 4-lane access (16 bytes of f32,
+# 8 of a 2-byte type).
+_GRAD_FLAG = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 16}
+_OUT_FLAG = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 32}
+_VEC = 8
+
+#: K1's table: the layout of ``Entry`` in csrc/sgd_step.cu; a block takes
+#: 256 threads x 4 lanes x 8 steps
+SGD_LAYOUT = TableLayout("sgd", _np.dtype([
+    ("w", "<u8"), ("g", "<u8"), ("m", "<u8"), ("out", "<u8"), ("n", "<i8"),
+    ("block0", "<i4"), ("lr", "<f4"), ("wd", "<f4"), ("flags", "<i4"),
+    ("pad", "<i8")]), 8192, ("w", "m", "out"))
+assert [SGD_LAYOUT.record.fields[k][1] for k in
+        ("n", "block0", "lr", "wd", "flags")] == [32, 40, 44, 48, 52]
+#: elements per block of the SGD kernel
+SGD_CHUNK = SGD_LAYOUT.chunk
+#: K3's table: the layout of ``Entry`` in csrc/adam_step.cu (``lr`` holds
+#: the tensor's lr_t); a block takes 256 threads x 2 groups of 4 lanes x 4
+#: steps
+ADAM_LAYOUT = TableLayout("adam", _np.dtype([
+    ("w", "<u8"), ("g", "<u8"), ("m", "<u8"), ("v", "<u8"), ("out", "<u8"),
+    ("n", "<i8"), ("block0", "<i4"), ("lr", "<f4"), ("wd", "<f4"),
+    ("flags", "<i4")]), 8192, ("w", "m", "v", "out"))
+assert [ADAM_LAYOUT.record.fields[k][1] for k in
+        ("n", "block0", "lr", "wd", "flags")] == [40, 48, 52, 56, 60]
+
+
+def _vec_aligned(t):
+    """Whether ``t``'s data is aligned for a 4-lane access."""
+    return t.data_ptr() % (4 * t.element_size()) == 0
+
+
+class LaunchTable:
+    """The device-side table one multi-tensor launch of K1 or K3 walks,
+    kept across steps.
+
+    The tensors a launch updates in place (masters, states, casts) keep
+    their storage, so their pointers, element counts, cast flags and each
+    tensor's first block are written once: the table is rebuilt whenever
+    one of those pointers or counts changes, or it serves the other
+    kernel (a reallocated tensor never leaves a stale pointer in it).
+    The grads are new tensors every step and lr/wd follow the schedule,
+    so the grad, lr and wd columns (and the flags, which hold the grad's
+    dtype and alignment) are rewritten at every launch, and the table
+    goes to the card in one pinned host-to-device copy on the launch's
+    stream.  ``rebuilds`` counts the rebuilds."""
+
+    def __init__(self):
+        self.rebuilds = 0
+        self._key = None
+        self._host = None
+        self._fixed = None     # flags of the in-place tensors
+        self._aligned = None   # in-place tensors all 4-lane aligned
+        self._blocks = 0
+        self._dev = None
+
+    def _rebuild(self, key, layout, columns):
+        weights = columns[0]
+        n = len(weights)
+        host = _np.zeros(n, dtype=layout.record)
+        for name, col in zip(layout.columns, columns):
+            host[name] = [t.data_ptr() if t is not None else 0 for t in col]
+        host["n"] = [w.numel() for w in weights]
+        blocks = _np.asarray([-(-w.numel() // layout.chunk)
+                              for w in weights], dtype=_np.int64)
+        starts = _np.concatenate([[0], _np.cumsum(blocks)])
+        if int(starts[-1]) >= 2 ** 31:
+            raise KernelUnsupportedError(
+                "%s kernel cannot take this call: %d blocks"
+                % (layout.name, int(starts[-1])))
+        host["block0"] = starts[:-1]
+        self._fixed = _np.asarray([_OUT_FLAG[o.dtype] if o is not None else 0
+                                   for o in columns[-1]], dtype=_np.int32)
+        self._aligned = _np.asarray(
+            [all(_vec_aligned(t) for t in tensors if t is not None)
+             for tensors in zip(*columns)], dtype=bool)
+        self._key, self._host, self._blocks = key, host, int(starts[-1])
+        self._dev = None
+        self.rebuilds += 1
+
+    def write(self, layout, columns, grads, lrs, wds):
+        """Bring the host-side table up to date for one launch of
+        ``layout``'s kernel: ``columns`` holds one list per pointer column
+        of ``layout`` (``None`` for a tensor without it), ``grads``,
+        ``lrs`` and ``wds`` one entry per tensor.  Returns ``(host
+        records, blocks)``; reads only pointers, so it runs for tensors
+        on any device."""
+        key = (layout.name,
+               tuple(t.data_ptr() if t is not None else 0
+                     for col in columns for t in col),
+               tuple(w.numel() for w in columns[0]),
+               tuple(o.dtype if o is not None else None for o in columns[-1]))
+        if key != self._key:
+            self._rebuild(key, layout, columns)
+        host = self._host
+        gptr = _np.asarray([g.data_ptr() for g in grads], dtype=_np.uint64)
+        galign = _np.asarray([4 * g.element_size() for g in grads],
+                             dtype=_np.uint64)
+        gflag = _np.asarray([_GRAD_FLAG[g.dtype] for g in grads],
+                            dtype=_np.int32)
+        vec = self._aligned & (gptr % galign == 0)
+        host["g"] = gptr
+        host["flags"] = self._fixed | gflag | _np.where(vec, _VEC, 0)
+        host["lr"] = _np.asarray(lrs, dtype=_np.float32)
+        host["wd"] = _np.asarray(wds, dtype=_np.float32)
+        return host, self._blocks
+
+    def fill(self, layout, columns, grads, lrs, wds):
+        """:meth:`write`, then the table's one copy to the masters' card;
+        returns ``(device table, blocks)``."""
+        host, blocks = self.write(layout, columns, grads, lrs, wds)
+        if self._dev is None:
+            self._dev = torch.empty(host.nbytes, dtype=torch.uint8,
+                                    device=columns[0][0].device)
+        # pinned staging: the copy is queued on the stream and the caching
+        # host allocator keeps the buffer until it has run
+        staged = torch.from_numpy(host.view(_np.uint8)).pin_memory()
+        self._dev.copy_(staged, non_blocking=True)
+        return self._dev, blocks
 
 
 # ----------------------------------------------------------------- sgd
@@ -850,94 +1062,6 @@ def fused_sgd_step_multi_plain(weights, grads, states, lrs, wds, momentum,
             o.copy_(lp)
 
 
-# one table record per tensor; the layout of ``Entry`` in csrc/sgd_step.cu
-_SGD_ENTRY = _np.dtype([("w", "<u8"), ("g", "<u8"), ("m", "<u8"),
-                        ("out", "<u8"), ("n", "<i8"), ("block0", "<i4"),
-                        ("lr", "<f4"), ("wd", "<f4"), ("flags", "<i4"),
-                        ("pad", "<i8")])
-assert _SGD_ENTRY.itemsize == 64
-_SGD_GRAD_BF16, _SGD_OUT_BF16, _SGD_OUT_F32, _SGD_VEC = 1, 2, 4, 8
-_SGD_GRAD_F16, _SGD_OUT_F16 = 16, 32
-_SGD_GRAD_FLAG = {torch.float32: 0, torch.bfloat16: _SGD_GRAD_BF16,
-                  torch.float16: _SGD_GRAD_F16}
-_SGD_OUT_FLAG = {torch.float32: _SGD_OUT_F32, torch.bfloat16: _SGD_OUT_BF16,
-                 torch.float16: _SGD_OUT_F16}
-#: elements per block of the SGD kernel: 256 threads x 4 lanes x 8 steps
-SGD_CHUNK = 8192
-
-
-class SgdTable:
-    """The device-side table one SGD launch walks, kept across steps.
-
-    The masters, momenta and casts are updated in place and keep their
-    storage, so their pointers, element counts and each tensor's first
-    block are written once; the table is rebuilt whenever one of those
-    pointers or counts changes (a reallocated tensor never leaves a stale
-    pointer in it).  The grads are new tensors every step and lr/wd follow
-    the schedule, so their columns are rewritten and the table is copied
-    to the card (one small host-to-device copy on the launch's stream)
-    at every launch."""
-
-    def __init__(self):
-        self._key = None
-        self._host = None
-        self._dev = None
-        self._blocks = 0
-
-    def _rebuild(self, key, weights, states, outs):
-        n = len(weights)
-        host = _np.zeros(n, dtype=_SGD_ENTRY)
-        host["w"] = [w.data_ptr() for w in weights]
-        host["m"] = [t.data_ptr() if t is not None else 0 for t in states]
-        host["out"] = [t.data_ptr() if t is not None else 0 for t in outs]
-        host["n"] = [w.numel() for w in weights]
-        blocks = _np.asarray([-(-w.numel() // SGD_CHUNK) for w in weights],
-                             dtype=_np.int64)
-        starts = _np.concatenate([[0], _np.cumsum(blocks)])
-        host["block0"] = starts[:-1]
-        block0 = int(starts[-1])
-        if block0 >= 2 ** 31:
-            raise KernelUnsupportedError(
-                "sgd kernel cannot take this call: %d blocks" % block0)
-        self._key, self._host, self._blocks = key, host, block0
-        self._dev = torch.empty(host.nbytes, dtype=torch.uint8,
-                                device=weights[0].device)
-
-    def fill(self, weights, grads, states, lrs, wds, outs):
-        """Bring the table up to date for this launch; returns
-        ``(device table, blocks)``."""
-        key = tuple((w.data_ptr(), w.numel(),
-                     s.data_ptr() if s is not None else 0,
-                     o.data_ptr() if o is not None else 0,
-                     o.dtype if o is not None else None)
-                    for w, s, o in zip(weights, states, outs))
-        if key != self._key:
-            self._rebuild(key, weights, states, outs)
-        host = self._host
-        gptrs, flags = [], []
-        for w, g, s, o in zip(weights, grads, states, outs):
-            gptrs.append(g.data_ptr())
-            f = _SGD_GRAD_FLAG[g.dtype]
-            if o is not None:
-                f |= _SGD_OUT_FLAG[o.dtype]
-            # 4 lanes: 16 bytes of an f32 tensor, 8 of a 2-byte one
-            lanes = [(w, 16), (g, 4 * g.element_size())]
-            lanes += [(s, 16)] if s is not None else []
-            lanes += [(o, 4 * o.element_size())] if o is not None else []
-            if all(t.data_ptr() % a == 0 for t, a in lanes):
-                f |= _SGD_VEC
-            flags.append(f)
-        host["g"] = _np.asarray(gptrs, dtype=_np.uint64)
-        host["flags"] = _np.asarray(flags, dtype=_np.int32)
-        host["lr"] = _np.asarray(lrs, dtype=_np.float32)
-        host["wd"] = _np.asarray(wds, dtype=_np.float32)
-        # pinned staging: the copy is queued on the stream and the caching
-        # host allocator keeps the buffer until it has run
-        staged = torch.from_numpy(host.view(_np.uint8)).pin_memory()
-        self._dev.copy_(staged, non_blocking=True)
-        return self._dev, self._blocks
-
-
 def fused_sgd_step_multi(weights, grads, states, lrs, wds, momentum,
                          outs=None, table=None):
     """One SGD(+momentum) update over a list of tensors, in place:
@@ -947,7 +1071,7 @@ def fused_sgd_step_multi(weights, grads, states, lrs, wds, momentum,
     master.  A grad may be f32, bf16 or f16.
     ``lrs``/``wds`` are per tensor.  CPU tensors run the plain version
     tensor by tensor; CUDA tensors launch ``csrc/sgd_step.cu`` once for the
-    whole list, or raise.  ``table`` (an :class:`SgdTable`) keeps the
+    whole list, or raise.  ``table`` (a :class:`LaunchTable`) keeps the
     device-side table across calls."""
     n = len(weights)
     states = list(states) if states is not None else [None] * n
@@ -971,13 +1095,14 @@ def fused_sgd_step_multi(weights, grads, states, lrs, wds, momentum,
                 "sgd kernel cannot take tensor %d of %d: %s" % (i, n, reason))
     if momentum == 0.0:
         states = [None] * n
-    table = table if table is not None else SgdTable()
-    dev, blocks = table.fill(weights, grads, states, lrs, wds, outs)
+    table = table if table is not None else LaunchTable()
+    dev, blocks = table.fill(SGD_LAYOUT, (weights, states, outs), grads,
+                             lrs, wds)
     _launch_sgd(dev, n, blocks, momentum, weights[0])
 
 
 def _launch_sgd(table, n, blocks, momentum, like):
-    """Launch K1 alone over a filled device table (:class:`SgdTable`
+    """Launch K1 alone over a filled device table (:class:`LaunchTable`
     fills it after :func:`fused_sgd_step_multi` has checked every
     tensor), on the stream of ``like``'s device."""
     lib = _build.load("sgd_step", _SIGNATURES["sgd_step"])
@@ -988,7 +1113,7 @@ def _launch_sgd(table, n, blocks, momentum, like):
 
 
 def fused_sgd_step(weight, grad, state, lr, wd, momentum, out_dtype=None,
-                   out=None):
+                   out=None, table=None):
     """Single-tensor SGD update with the cast epilogue: returns
     ``(lp, new_w, new_m)`` like the reference's ``fused_sgd_step``
     (``new_m`` is None without momentum).  ``out=(lp, w, m)`` names the
@@ -996,7 +1121,8 @@ def fused_sgd_step(weight, grad, state, lr, wd, momentum, out_dtype=None,
     by default new ones are allocated.  ``lp`` may be ``w`` itself when
     ``out_dtype`` is f32: the master is then written once and returned for
     both.  CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/sgd_step.cu`` (one launch) or raise."""
+    ``csrc/sgd_step.cu`` (one launch) or raise.  ``table`` as for
+    :func:`fused_sgd_step_multi`."""
     out_dtype = out_dtype or weight.dtype
     has_mom = float(momentum) != 0.0
     if out is None:
@@ -1011,7 +1137,7 @@ def fused_sgd_step(weight, grad, state, lr, wd, momentum, out_dtype=None,
         if has_mom and nm is not state:
             nm.copy_(state)
     fused_sgd_step_multi([nw], [grad], [nm], [lr], [wd], momentum,
-                         outs=[None if lp is nw else lp])
+                         outs=[None if lp is nw else lp], table=table)
     return lp, nw, nm
 
 

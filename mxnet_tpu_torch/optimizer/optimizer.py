@@ -9,8 +9,10 @@ state, lr, wd, t) -> (new_weight, new_state)`` in PyTorch ops; an
 optimizer with a fused kernel also has ``step_fused``, which updates the
 f32 master and writes the low-precision weight in one pass
 (``cuda_kernels.fused_adam_step``, ``fused_sgd_step``), and
-``step_fused_multi``, which updates a whole list of tensors (one launch
-for SGD: ``cuda_kernels.fused_sgd_step_multi``; the trainer's route).
+``step_fused_multi``, which updates a whole list of tensors in one launch
+(``cuda_kernels.fused_adam_step_multi``, ``fused_sgd_step_multi``; the
+route of ``SPMDTrainer``, of the symbolic ``Executor``'s fused step and of
+``update_multi_precision`` over lists).
 
 ``update`` and ``update_multi_precision`` take torch tensors in place of
 NDArrays and update them IN PLACE (the weight, the master copy and the
@@ -37,6 +39,8 @@ __all__ = ["Optimizer", "create", "register", "SGD", "Adam", "Updater",
            "get_updater"]
 
 _LOW_PRECISION = (torch.float16, torch.bfloat16)
+# launch tables an optimizer keeps, one per first master (Optimizer._table_of)
+_MAX_TABLES = 4096
 
 
 def _f32(x):
@@ -192,18 +196,34 @@ class Optimizer:
             "%s has no fused step kernel" % type(self).__name__)
 
     def step_fused_multi(self, weights, grads, states, lrs, wds, t,
-                         table=None):
-        """The fused update of a list of f32 masters, in place (masters
-        and state; no cast).  Here one ``step_fused`` per tensor; an
-        optimizer with a multi-tensor kernel overrides it.  ``table`` is
-        the kernel's cached launch table, if it has one."""
-        for w, g, s, lr, wd in zip(weights, grads, states, lrs, wds):
-            self.step_fused(w, g, s, lr, wd, t, out_dtype=w.dtype,
-                            out=(w, w, s))
+                         outs=None):
+        """One kernel launch: the update of a list of f32 masters and
+        their state, in place, with each master's cast written to its
+        ``outs`` entry (``None``: no cast).  ``t`` is the step count, one
+        for all or one per tensor.  The launch table is the one
+        :meth:`_table_of` keeps for the list."""
+        raise NotImplementedError(
+            "%s has no fused step kernel" % type(self).__name__)
 
     def _grad_is_identity(self):
         return self.rescale_grad == 1.0 and (self.clip_gradient is None
                                              or self.clip_gradient <= 0)
+
+    def _fused_grad(self, grad):
+        """The grad as the fused kernel takes it: as it is (bf16 or f16
+        too) when ``rescale_grad`` is 1 and there is no clipping (the
+        reference's f32 widening and ``* 1.0`` are exact), else
+        preprocessed in f32."""
+        if self._grad_is_identity():
+            return grad.contiguous()
+        return self._preprocess_grad(grad.float())
+
+    def _uses_master(self, weight, state):
+        """Whether ``weight`` updates through the f32 master copy in
+        ``state`` (``create_state_multi_precision``)."""
+        return (self.multi_precision and weight.dtype in _LOW_PRECISION
+                and isinstance(state, tuple) and len(state) == 2
+                and isinstance(state[0], torch.Tensor))
 
     def _preprocess_grad(self, grad):
         g = grad * self.rescale_grad
@@ -235,13 +255,19 @@ class Optimizer:
         ``create_state_multi_precision``): the step runs on the master and
         the weight receives its cast.  With the kernel tier on, one fused
         kernel does both (``step_fused``; ``kernels.fused_step`` counts
-        it).  The bf16 grad goes into the kernel as it is when
-        ``rescale_grad`` is 1 and there is no clipping (the reference's
-        f32 widening and ``* 1.0`` are exact), else it is preprocessed in
-        f32 first."""
-        use_mp = self.multi_precision and weight.dtype in _LOW_PRECISION
-        if not (use_mp and isinstance(state, tuple) and len(state) == 2
-                and isinstance(state[0], torch.Tensor)):
+        each tensor it updates).  The grad goes into the kernel as
+        :meth:`_fused_grad` gives it.
+
+        ``index``, ``weight``, ``grad`` and ``state`` may be lists, one
+        entry per parameter, as ``update`` takes them (MXNet's aggregated
+        update): with the tier on, the entries that update through their
+        master go through one ``step_fused_multi`` call, a single kernel
+        launch with their casts; the others are updated one by one.  The
+        result is bitwise that of one call per index."""
+        if isinstance(index, (list, tuple)):
+            self._update_multi_precision_list(index, weight, grad, state)
+            return
+        if not self._uses_master(weight, state):
             self.update(index, weight, grad, state)
             return
         master, real_state = state
@@ -250,10 +276,8 @@ class Optimizer:
         wd = self._get_wd(index)
         t = self._index_update_count[index]
         if _kernels.fused_step_enabled(self):
-            g = grad.contiguous() if self._grad_is_identity() \
-                else self._preprocess_grad(grad.float())
-            self.step_fused(master, g, real_state, lr, wd, t,
-                            out_dtype=weight.dtype,
+            self.step_fused(master, self._fused_grad(grad), real_state, lr,
+                            wd, t, out_dtype=weight.dtype,
                             out=(weight, master, real_state))
             _kernels.note_fused_step()
             return
@@ -263,11 +287,46 @@ class Optimizer:
         weight.copy_(new_w.to(weight.dtype))
         _state_write(real_state, new_state)
 
+    def _update_multi_precision_list(self, indices, weights, grads,
+                                     states):
+        fused = _kernels.fused_step_enabled(self)
+        batch = []
+        for idx, w, g, s in zip(indices, weights, grads, states):
+            if not (fused and self._uses_master(w, s)):
+                self.update_multi_precision(idx, w, g, s)
+                continue
+            self._update_count(idx)
+            batch.append((s[0], self._fused_grad(g), s[1], self._get_lr(idx),
+                          self._get_wd(idx), self._index_update_count[idx],
+                          w))
+        if not batch:
+            return
+        masters, gs, sts, lrs, wds, ts, lps = (list(c) for c in zip(*batch))
+        self.step_fused_multi(masters, gs, sts, lrs, wds, ts, outs=lps)
+        for _ in batch:
+            _kernels.note_fused_step()
+
+    def _table_of(self, master):
+        """The launch table (``cuda_kernels.LaunchTable``) kept for the
+        fused updates whose first master is ``master`` (a trainer's list,
+        one parameter of ``gluon.Trainer``): a later update of the same
+        tensors finds it filled and rewrites only the grad, lr and wd
+        columns."""
+        tables = self.__dict__.setdefault("_launch_tables", {})
+        table = tables.get(master.data_ptr())
+        if table is None:
+            if len(tables) >= _MAX_TABLES:   # masters were reallocated
+                tables.clear()
+            table = tables[master.data_ptr()] = _ck.LaunchTable()
+        return table
+
     def __getstate__(self):
-        """Pickled without ``param_dict`` (the Parameters): whoever loads
-        the optimizer sets it again, as ``gluon.Trainer`` does."""
+        """Pickled without ``param_dict`` (the Parameters), which whoever
+        loads the optimizer sets again, as ``gluon.Trainer`` does, and
+        without the kernels' launch tables."""
         ret = self.__dict__.copy()
         ret["param_dict"] = {}
+        ret.pop("_launch_tables", None)
         return ret
 
 
@@ -314,14 +373,15 @@ class SGD(Optimizer):
         be the inputs themselves (in place)."""
         return _ck.fused_sgd_step(weight, grad, state, lr, wd, self.momentum,
                                   out_dtype=out_dtype or weight.dtype,
-                                  out=out)
+                                  out=out, table=self._table_of(weight))
 
     def step_fused_multi(self, weights, grads, states, lrs, wds, t,
-                         table=None):
+                         outs=None):
         """One launch of ``cuda_kernels.fused_sgd_step_multi`` over the
         whole list; masters and momenta are updated in place."""
         _ck.fused_sgd_step_multi(weights, grads, states, lrs, wds,
-                                 self.momentum, table=table)
+                                 self.momentum, outs=outs,
+                                 table=self._table_of(weights[0]))
 
 
 @register
@@ -361,26 +421,45 @@ class Adam(Optimizer):
         w = weight - _ck.div_rn(lr_t * m, _ck.sqrt_rn(v) + self.epsilon)
         return w, (m, v)
 
-    def step_fused(self, weight, grad, state, lr, wd, t, out_dtype=None,
-                   out=None):
-        """``cuda_kernels.fused_adam_step`` with ``lr_t`` computed here in
-        f32 (the bias correction depends on the step count, so it stays
-        outside the kernel; the last ``(lr, t)``'s value is kept, since a
-        step updates every tensor with the same one).  ``out=(lp, master,
-        (m, v))`` may be the inputs themselves: the kernel then updates
-        them in place."""
-        m, v = state
+    def _lr_t_of(self, lr, t):
+        """The bias-corrected ``lr_t`` of ``lr`` at step ``t`` in f32 (the
+        bias correction depends on the step count, so it stays outside
+        the kernel); the last ``(lr, t)``'s value is kept, since a step
+        updates every tensor with the same one."""
         key = (float(lr), int(t), self.beta1, self.beta2)
         if self._lr_t[0] != key:
             self._lr_t = (key, float(_bias_corrected_lr(
                 lr, self.beta1, self.beta2, t)))
-        lr_t = self._lr_t[1]
+        return self._lr_t[1]
+
+    def step_fused(self, weight, grad, state, lr, wd, t, out_dtype=None,
+                   out=None):
+        """``cuda_kernels.fused_adam_step`` with ``lr_t`` from
+        :meth:`_lr_t_of`.  ``out=(lp, master, (m, v))`` may be the inputs
+        themselves: the kernel then updates them in place."""
+        m, v = state
         if out is not None:
             lp, nw, (nm, nv) = out
             out = (lp, nw, nm, nv)
         return _ck.fused_adam_step(
-            weight, grad, m, v, lr_t, wd, self.beta1, self.beta2,
-            self.epsilon, out_dtype=out_dtype or weight.dtype, out=out)
+            weight, grad, m, v, self._lr_t_of(lr, t), wd, self.beta1,
+            self.beta2, self.epsilon, out_dtype=out_dtype or weight.dtype,
+            out=out, table=self._table_of(weight))
+
+    def step_fused_multi(self, weights, grads, states, lrs, wds, t,
+                         outs=None):
+        """One launch of ``cuda_kernels.fused_adam_step_multi`` over the
+        whole list: masters, m and v are updated in place and ``outs``
+        (per tensor a bf16 or f16 weight, or ``None`` for an f32 cast,
+        the master itself) receive the casts.  Each tensor's ``lr_t``
+        comes from its own lr and step count (``t``: one for all, or one
+        per tensor) as in :meth:`step_fused`."""
+        ts = t if isinstance(t, (list, tuple)) else [t] * len(weights)
+        _ck.fused_adam_step_multi(
+            weights, grads, [s[0] for s in states], [s[1] for s in states],
+            [self._lr_t_of(lr, ti) for lr, ti in zip(lrs, ts)], wds,
+            self.beta1, self.beta2, self.epsilon, outs=outs,
+            table=self._table_of(weights[0]))
 
 
 def _state_to(state, device):
@@ -396,7 +475,8 @@ class Updater:
     """The kvstore-side updater closure (reference: ``optimizer.py:835``):
     ``updater(index, grad, weight)`` on NDArrays creates the index's
     state at its first call (``create_state_multi_precision``) and runs
-    ``update_multi_precision`` in place on the weight's tensor."""
+    ``update_multi_precision`` in place on the weight's tensor; lists of
+    indices, grads and weights go on as one list call."""
 
     def __init__(self, optimizer):
         self.optimizer = optimizer
@@ -404,9 +484,10 @@ class Updater:
         self.states_synced = {}
 
     def __call__(self, index, grad, weight):
-        if not isinstance(index, (list, tuple)):
+        many = isinstance(index, (list, tuple))
+        if not many:
             index, grad, weight = [index], [grad], [weight]
-        for idx, g, w in zip(index, grad, weight):
+        for idx, w in zip(index, weight):
             if idx not in self.states:
                 self.states[idx] = \
                     self.optimizer.create_state_multi_precision(
@@ -416,8 +497,14 @@ class Updater:
                 self.states[idx] = self.sync_state_context(
                     self.states[idx], w._data.device)
                 self.states_synced[idx] = True
-            self.optimizer.update_multi_precision(idx, w._data, g._data,
-                                                  self.states[idx])
+        if many:
+            self.optimizer.update_multi_precision(
+                list(index), [w._data for w in weight],
+                [g._data for g in grad], [self.states[i] for i in index])
+            return
+        self.optimizer.update_multi_precision(index[0], weight[0]._data,
+                                              grad[0]._data,
+                                              self.states[index[0]])
 
     def sync_state_context(self, state, context):
         """The state on the weight's device (``context``: a

@@ -10,9 +10,10 @@ f32 gradients of the masters, and the optimizer updates masters and
 state in place (the analog of the reference's donation).  With the
 kernel tier on and an optimizer with a fused step
 (``kernels.fused_step_enabled``), the update of every trainable tensor
-is one ``optimizer.step_fused_multi`` call: for SGD one launch of the
-multi-tensor kernel K1 (``csrc/sgd_step.cu``) over the whole list, whose
-launch table the trainer keeps across steps.  With the tier off it is
+is one ``optimizer.step_fused_multi`` call: one launch of the
+multi-tensor kernel over the whole list (K1, ``csrc/sgd_step.cu``, for
+SGD; K3, ``csrc/adam_step.cu``, for Adam), whose launch table the
+optimizer keeps across steps.  With the tier off it is
 ``optimizer.step`` per tensor.
 
 What the reference has and the port refuses (``NotImplementedError``,
@@ -94,7 +95,6 @@ class SPMDTrainer:
         self._step_num = 0
         self._program = None
         self._program_key = None
-        self._table = None
 
     def _check_dense(self):
         sparse = [n for n, p in self.fn.params.items()
@@ -173,10 +173,8 @@ class SPMDTrainer:
             masters = [train[n] for n in trainable]
             states = [opt_state[n] for n in trainable]
             if fused_opt and all(w.dtype == torch.float32 for w in masters):
-                if self._table is None:
-                    self._table = _table_for(optimizer)
                 optimizer.step_fused_multi(masters, grads, states, lrs, wds,
-                                           t, table=self._table)
+                                           t)
             else:
                 for w, g, s, lr, wd in zip(masters, grads, states, lrs,
                                            wds):
@@ -253,14 +251,6 @@ class SPMDTrainer:
 
     save_checkpoint_sharded = save_checkpoint
     load_checkpoint_sharded = load_checkpoint
-
-
-def _table_for(optimizer):
-    """The multi-tensor launch table the optimizer's kernel keeps across
-    steps (SGD's ``SgdTable``), or None."""
-    from .. import optimizer as opt_mod
-    from ..ops import cuda_kernels as _ck
-    return _ck.SgdTable() if isinstance(optimizer, opt_mod.SGD) else None
 
 
 def _state_copy(state, new):

@@ -794,11 +794,12 @@ class Executor:
         aux_updates)`` runs the forward under autograd with the bound
         values and ``feeds``, takes the gradients with ones cotangents,
         applies ``rescale_grad`` and clipping, and updates each parameter
-        and its state IN PLACE: an f32 one through
-        ``optimizer.step_fused`` (the fused kernel, K3 for Adam and K1
-        for SGD, with an f32 cast: the master itself) when
-        ``kernels.fused_step_enabled(optimizer)``, each counted on
-        ``kernels.fused_step``; otherwise through ``optimizer.step``."""
+        and its state IN PLACE: the f32 ones through one
+        ``optimizer.step_fused_multi`` call (one launch of the fused
+        kernel, K3 for Adam and K1 for SGD, with an f32 cast: the master
+        itself) when
+        ``kernels.fused_step_enabled(optimizer)``, each tensor counted on
+        ``kernels.fused_step``; the others through ``optimizer.step``."""
         from .. import kernels as _kernels
         from ..optimizer.optimizer import _state_write
         wrt_t = tuple(wrt)
@@ -822,6 +823,7 @@ class Executor:
             params = {n: env.pop(n) for n in wrt_t}
             aux_updates = {}
             outs, grads = _grads(sym, env, params, None, aux_updates)
+            fused = ([], [], [], [], [])
             with torch.no_grad():
                 for i, n in enumerate(wrt_t):
                     w, g = params[n], grads[n]
@@ -831,14 +833,17 @@ class Executor:
                         g = torch.clamp(g, -clip, clip)
                     state = opt_state[n]
                     if fused_opt and w.dtype == torch.float32:
-                        keep.step_fused(w, g, state, lrs[i], wds[i], t,
-                                        out_dtype=torch.float32,
-                                        out=(w, w, state))
-                        _kernels.note_fused_step()
+                        for col, x in zip(fused, (w, g, state, lrs[i],
+                                                  wds[i])):
+                            col.append(x)
                         continue
                     new_w, new_s = keep.step(w, g, state, lrs[i], wds[i], t)
                     w.copy_(new_w)
                     _state_write(state, new_s)
+                if fused[0]:
+                    keep.step_fused_multi(*fused, t)
+                    for _ in fused[0]:
+                        _kernels.note_fused_step()
             return outs, {n: v.detach() for n, v in aux_updates.items()}
 
         self._fused_cache[key] = run
