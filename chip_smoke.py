@@ -3,7 +3,7 @@
 Usage (from the root of a checkout, one visible CUDA card)::
 
     python3 chip_smoke.py [--report PATH]
-                          [--phase attention|optimizer|module]
+                          [--phase attention|optimizer|module|bert]
 
 Phases; any failure exits non-zero without the result lines:
 
@@ -17,8 +17,12 @@ Phases; any failure exits non-zero without the result lines:
             flash-attention forward K2f (FWD_CASES, bf16: the serving
             prompts' ends S = 17 and 1500, causal S = 128, 1024, 2048,
             non-causal Sq=256, Skv=1024, the training shape B=4, H=12,
-            S=2048; the same bits from two launches; device time beside
-            sdpa's and beside the block shape not chosen), paged decode
+            S=2048, BERT-base's B=8 S=128 non-causal; the same bits from
+            two launches; device time beside sdpa's), the f32 flash
+            kernels (flash_f32.cu: K2f, K2dq and K2dkv at F32_CASES, BERT's
+            shape and causal S = 1024, per row at F32_ROW_REL_TOL of the
+            row's absolute sum; the same bits twice; device time beside
+            sdpa's in f32 and the bound at PEAK_F32_FLOPS), paged decode
             K4 (PAGED_CASES: B = 1 and 8 at 1, 32 and 128 pages of 16, a
             shuffled table with sentinels past each length, bf16 and int8
             pools; the pool form and the gathered form, the same bits
@@ -96,6 +100,28 @@ Phases; any failure exits non-zero without the result lines:
             one ``update_multi_precision`` call (one K3 launch) a tensor,
             the order alternating; and the device-idle share of a
             ``torch.profiler`` window over 3 more steps.
+4b. bert  — BERT-base pretraining, ``examples/bert_pretrain.py`` at its
+            defaults (vocab 30522, 12 layers, d_model 768, 12 heads, d_ff
+            3072, B=8, S=128, M=20 masked positions, lr 1e-4, bf16; the
+            example's batch from ``np.random.RandomState(0)`` and its
+            update ``w - lr * g.astype(w.dtype)``; seeded random
+            weights).  The gradient gate at the initial weights (kernel
+            path within KERNEL_VS_PLAIN_GRAD_ERR x the plain bf16 path's
+            error against an f32 copy, per tensor, floored at
+            BERT_GRAD_FLOOR); one warm-up step, then BERT_STEPS counted
+            steps: exactly 12 non-causal flash_fwd, flash_bwd_dq and
+            flash_bwd_dkv launches a step and nothing else, finite losses
+            printed every 5 steps as the example prints them, the last
+            below the first; sequences/s, tokens/s, MFU against 989
+            TFLOP/s from the model FLOPs (``_bert_flops``) and the
+            device-idle share of a profiled window of 3 steps.  Then the
+            f32 model (BERT_F32_STEPS steps, exactly 12 flash_fwd_f32,
+            flash_bwd_dq_f32 and flash_bwd_dkv_f32 launches a step) and
+            the Adam route: ``Adam(multi_precision=True)`` over the 18
+            tensors through one list ``update_multi_precision`` a step
+            (the f32 ``mlm_bias_v`` its own master), one step bitwise
+            against ``fused_adam_step_multi_plain``, then BERT_ADAM_STEPS
+            counted steps of exactly one adam_step each.
 5. resnet — ResNet-50 v1 (``vision.get_model("resnet50_v1",
             classes=1000)``, 25.6 M parameters in 193 trainable tensors,
             seeded Xavier weights) trained by ``SPMDTrainer`` with SGD
@@ -194,6 +220,11 @@ a change to an attention kernel.
 timings of phase 2 (``check_adam``, ``check_sgd``), and prints their
 report as one JSON line.
 
+``--phase bert`` builds the two bf16 flash sources, ``flash_f32.cu``
+and K3, runs phase 2's flash checks at BERT's shape (bf16) and at
+F32_CASES (f32), then phase 4b alone, and prints its report as one JSON
+line.
+
 ``--phase module`` builds the kernels and runs only phase 7(c), in a
 process no earlier phase has touched, after two A/Bs of the fused step
 (LRT_AB_PAIRS pairs of MLP_STEPS fused steps each, the order
@@ -230,6 +261,21 @@ PEAK_F32_FLOPS = 67e12
 ROW_REL_TOL = 2.0 ** -5
 # lse is f32 statistics over the same bf16 scores summed in another order.
 LSE_ATOL = 1e-3
+# The f32 flash kernels (flash_f32.cu) against their plain version, per
+# output row: max |kernel - plain| over the row's largest ABSOLUTE SUM,
+# the sum of the magnitudes of the terms that make each output (for o:
+# sum_k p |v_k| / l, the plain forward over |v|; for dq, dk, dv: |dS| |k|,
+# |dS|^T |q| and p^T |dO|, with |dS| = p (|dO v^T| + |delta|) scale).
+# Both sides compute every value in f32 (no TF32) in other orders.  A sum
+# of n f32 terms is within n 2^-24 of its absolute sum; n <= 1024 keys or
+# queries here, so 2^-14 a side.  A score is a 64-term sum, off by at most
+# 64 2^-24 sum|q k| scale, ~2^-16 at these inputs, which p = exp(s - m)
+# turns into a relative error of p of that size; expf adds two ulps.  So
+# the two sides differ by under 2 (2^-14 + 2^-16 + 2^-23) < 2^-12 of the
+# absolute sum.  A kernel that drops one key of a 1024-key row moves it
+# by ~2^-10 of the absolute sum, 4x the limit; TF32 products (10 mantissa
+# bits, 2^-11 relative each) move the scores by ~2^-8 and fail by far.
+F32_ROW_REL_TOL = 2.0 ** -12
 # Served greedy tokens vs the plain teacher-forced argmax: a mismatch is
 # excused only where the plain top-2 logit margin is below this.  On the
 # H100 the kernels move the serving path's logits by ~0.03 against the
@@ -374,37 +420,62 @@ def _bound_ms(nbytes, flops, peak=None):
 # ------------------------------------------------------------- phase 2
 #: (B, causal, Sq, Skv) of the forward checks: the serving prompts' ends
 #: (17 and 1500 tokens), causal S = 128, 1024, 2048, a non-causal
-#: Sq=256 x Skv=1024, and the training shape B=4 S=2048
+#: Sq=256 x Skv=1024, the training shape B=4 S=2048 and BERT-base's
+#: B=8 S=128 (non-causal)
 FWD_CASES = ((1, True, 17, 17), (1, True, 128, 128), (1, True, 1024, 1024),
              (1, True, 1500, 1500), (1, True, 2048, 2048),
-             (1, False, 256, 1024), (TRAIN_B, True, TRAIN_S, TRAIN_S))
+             (1, False, 256, 1024), (TRAIN_B, True, TRAIN_S, TRAIN_S),
+             (8, False, 128, 128))
+#: (B, causal, Sq, Skv) of the f32 kernels' checks (flash_f32.cu, forward
+#: and backward): BERT-base's shape and a causal S = 1024
+F32_CASES = ((8, False, 128, 128), (1, True, 1024, 1024))
+_DTYPES = {"bfloat16": ("bf16", 2, PEAK_BF16_FLOPS),
+           "float32": ("f32", 4, PEAK_F32_FLOPS)}
 
 
-def check_flash(ck, torch, F):
-    """K2f against ``flash_attention_plain`` at FWD_CASES; a second launch
+def _abs_row_err(torch, o, po, scale):
+    """max over output rows of max|o - po| / max(scale) within the row
+    (``scale``: the row's absolute sums, F32_ROW_REL_TOL)."""
+    err = (o.float() - po.float()).abs().reshape(-1, o.shape[-1]).amax(-1)
+    ref = scale.float().reshape(-1, o.shape[-1]).amax(-1).clamp_min(1e-30)
+    return float((err / ref).max())
+
+
+def check_flash(ck, torch, F, cases=FWD_CASES, dtype="bfloat16"):
+    """K2f against ``flash_attention_plain`` at ``cases`` in ``dtype``
+    (bf16: flash_fwd.cu, per row at ROW_REL_TOL; f32: flash_f32.cu, per
+    row at F32_ROW_REL_TOL of the row's absolute sum); a second launch
     must give the same bits.  Times: device time (the profiler) and the
-    CUDA-event span of the kernel and of sdpa."""
-    cases = []
+    CUDA-event span of the kernel and of sdpa in the same dtype."""
+    out = []
     H, D = 12, 64
+    short, esize, peak = _DTYPES[dtype]
+    dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    for B, causal, sq, skv in FWD_CASES:
-        q = torch.randn(B, H, sq, D, generator=g, device="cuda").bfloat16()
-        k = torch.randn(B, H, skv, D, generator=g, device="cuda").bfloat16()
-        v = torch.randn(B, H, skv, D, generator=g, device="cuda").bfloat16()
+    for B, causal, sq, skv in cases:
+        q = torch.randn(B, H, sq, D, generator=g, device="cuda").to(dt)
+        k = torch.randn(B, H, skv, D, generator=g, device="cuda").to(dt)
+        v = torch.randn(B, H, skv, D, generator=g, device="cuda").to(dt)
         o, lse = ck.flash_attention(q, k, v, causal=causal)
         o2, lse2 = ck.flash_attention(q, k, v, causal=causal)
         po, plse = ck.flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = float((o.float() - po.float()).abs().max())
-        row_err = _row_rel_err(o, po)
+        if dtype == "float32":
+            tol = F32_ROW_REL_TOL
+            row_err = _abs_row_err(torch, o, po, ck.flash_attention_plain(
+                q, k, v.abs(), causal=causal)[0])
+        else:
+            tol = ROW_REL_TOL
+            row_err = _row_rel_err(o, po)
         lse_err = float((lse - plse).abs().max())
         same = _same_bits(torch, o, o2) and bool(torch.equal(lse, lse2))
-        ok = (row_err <= ROW_REL_TOL and lse_err <= LSE_ATOL and same
+        ok = (row_err <= tol and lse_err <= LSE_ATOL and same
               and bool(torch.isfinite(o.float()).all()))
         pairs = sq * (sq + 1) // 2 if causal else sq * skv
-        nbytes = 2 * (2 * B * H * sq * D + 2 * B * H * skv * D) \
+        nbytes = esize * (2 * B * H * sq * D + 2 * B * H * skv * D) \
             + 4 * B * H * sq
-        bound, by = _bound_ms(nbytes, 4 * B * H * D * pairs)
+        bound, by = _bound_ms(nbytes, 4 * B * H * D * pairs, peak)
 
         def kernel():
             return ck.flash_attention(q, k, v, causal=causal)
@@ -413,9 +484,10 @@ def check_flash(ck, torch, F):
             return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
         case = {
             "shape": {"B": B, "H": H, "Sq": sq, "Skv": skv, "D": D,
-                      "causal": causal, "dtype": "bfloat16"},
-            "max_abs_err": err, "max_row_rel_err": row_err,
-            "row_rel_tol": ROW_REL_TOL, "lse_max_abs_err": lse_err,
+                      "causal": causal, "dtype": dtype},
+            "max_abs_err": err, "plain_max_abs": float(po.abs().max()),
+            "max_row_rel_err": row_err,
+            "row_rel_tol": tol, "lse_max_abs_err": lse_err,
             "lse_tol": LSE_ATOL, "same_bits_twice": same,
             "ok": ok,
             "ms_is": "device time (torch.profiler); event_ms: CUDA events",
@@ -432,9 +504,10 @@ def check_flash(ck, torch, F):
             case["bound_share"] = bound / case["ms"]
             case["vs_library"] = (case["ms"] / case["library_ms"]
                                   if case["library_ms"] else None)
-        _log("[kernels] flash_fwd %s" % json.dumps(case))
-        cases.append(case)
-    return cases
+        _log("[kernels] flash_fwd%s %s" % ("" if short == "bf16" else "_"
+                                           + short, json.dumps(case)))
+        out.append(case)
+    return out
 
 
 #: (B, width in pages) of the paged decode checks: one and eight decode
@@ -588,22 +661,48 @@ BWD_CASES = ((1, True, 128, 128), (1, True, 1024, 1024),
 
 
 def _same_bits(torch, x, y):
-    return bool(torch.equal(x.view(torch.int16), y.view(torch.int16)))
+    bits = torch.int16 if x.element_size() == 2 else torch.int32
+    return bool(torch.equal(x.view(bits), y.view(bits)))
 
 
-def check_flash_bwd(ck, torch, F):
+def _bwd_abs_sums(torch, q, k, v, do, lse, delta, causal):
+    """The absolute sums F32_ROW_REL_TOL scales the backward by: |dS| |k|
+    (dq), |dS|^T |q| (dk) and p^T |dO| (dv), with p and
+    |dS| = p (|dO v^T| + |delta|) scale as the plain backward forms them."""
+    B, H, S, D = q.shape
+    scale = 1.0 / D ** 0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        keep = torch.ones(S, k.shape[2], dtype=torch.bool,
+                          device=q.device).tril()
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    p = torch.exp(s - lse.reshape(B, H, S, 1))
+    dp = torch.matmul(dof, vf.transpose(-1, -2)).abs()
+    dsa = p * (dp + delta.reshape(B, H, S, 1).abs()) * scale
+    return (torch.matmul(dsa, kf.abs()),
+            torch.matmul(dsa.transpose(-1, -2), qf.abs()),
+            torch.matmul(p.transpose(-1, -2), dof.abs()))
+
+
+def check_flash_bwd(ck, torch, F, cases=BWD_CASES, dtype="bfloat16"):
     """K2dq and K2dkv against ``flash_attention_bwd_plain`` (same o, lse,
-    delta, dO) at BWD_CASES; a second launch on the same inputs must give
-    the same bits.  Each case logs the kernels' combined device time over
-    sdpa backward's.  Returns (dq cases, dkv cases)."""
+    delta, dO) at ``cases`` in ``dtype`` (bf16: flash_bwd.cu at
+    ROW_REL_TOL with the BWD_ROW_FLOOR floor; f32: flash_f32.cu at
+    F32_ROW_REL_TOL of each row's absolute sum); a second launch on the
+    same inputs must give the same bits.  Each case logs the kernels'
+    combined device time over sdpa backward's (same dtype).  Returns (dq
+    cases, dkv cases)."""
     dq_cases, dkv_cases = [], []
     H, D = 12, 64
+    short, esize, peak = _DTYPES[dtype]
+    dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    for B, causal, sq, skv in BWD_CASES:
+    for B, causal, sq, skv in cases:
         q, do = (torch.randn(B, H, sq, D, generator=g,
-                             device="cuda").bfloat16() for _ in range(2))
+                             device="cuda").to(dt) for _ in range(2))
         k, v = (torch.randn(B, H, skv, D, generator=g,
-                            device="cuda").bfloat16() for _ in range(2))
+                            device="cuda").to(dt) for _ in range(2))
         o, lse = ck.flash_attention(q, k, v, causal=causal)
         delta = ck.flash_delta(o, do)
         dq, dk, dv = ck.flash_attention_bwd(q, k, v, o, lse, do,
@@ -614,31 +713,48 @@ def check_flash_bwd(ck, torch, F):
         again = (ck._launch_bwd_dq(*args),) + ck._launch_bwd_dkv(*args)
         torch.cuda.synchronize()
         shape = {"B": B, "H": H, "Sq": sq, "Skv": skv, "D": D,
-                 "causal": causal, "dtype": "bfloat16"}
+                 "causal": causal, "dtype": dtype}
         pairs = B * H * (sq * (sq + 1) // 2 if causal else sq * skv)
-        qbytes, kvbytes = 2 * B * H * sq * D, 2 * B * H * skv * D
+        qbytes = esize * B * H * sq * D
+        kvbytes = esize * B * H * skv * D
+        if dtype == "float32":
+            tol = F32_ROW_REL_TOL
+            sums = _bwd_abs_sums(torch, q, k, v, do, lse, delta, causal)
+        else:
+            tol, sums = ROW_REL_TOL, None
         plain_ms = _time_ms(lambda: ck.flash_attention_bwd_plain(
             q, k, v, o, lse, do, causal=causal, delta=delta), iters=5,
             warmup=1)
         lib_ms, lib_event_ms = _sdpa_bwd_ms(torch, F, q, k, v, do, causal)
         pair = []
-        for name, outs, plain, reruns, launch, nbytes, products, cases in (
-                ("flash_bwd_dq", (dq,), (pdq,), again[:1], ck._launch_bwd_dq,
-                 3 * qbytes + 2 * kvbytes + 8 * B * H * sq, 3, dq_cases),
-                ("flash_bwd_dkv", (dk, dv), (pdk, pdv), again[1:],
+        suffix = "" if short == "bf16" else "_" + short
+        for name, outs, plain, reruns, launch, nbytes, products, which, \
+                found in (
+                ("flash_bwd_dq" + suffix, (dq,), (pdq,), again[:1],
+                 ck._launch_bwd_dq, 3 * qbytes + 2 * kvbytes + 8 * B * H * sq,
+                 3, (0,), dq_cases),
+                ("flash_bwd_dkv" + suffix, (dk, dv), (pdk, pdv), again[1:],
                  ck._launch_bwd_dkv,
-                 2 * qbytes + 4 * kvbytes + 8 * B * H * sq, 4, dkv_cases)):
-            row_err = max(_row_rel_err(x, px, BWD_ROW_FLOOR)
-                          for x, px in zip(outs, plain))
+                 2 * qbytes + 4 * kvbytes + 8 * B * H * sq, 4, (1, 2),
+                 dkv_cases)):
+            if sums is None:
+                row_err = max(_row_rel_err(x, px, BWD_ROW_FLOOR)
+                              for x, px in zip(outs, plain))
+            else:
+                row_err = max(_abs_row_err(torch, x, px, sums[i])
+                              for x, px, i in zip(outs, plain, which))
             err = max(float((x.float() - px.float()).abs().max())
                       for x, px in zip(outs, plain))
             same = all(_same_bits(torch, x, y) for x, y in zip(outs, reruns))
-            ok = (row_err <= ROW_REL_TOL and same and all(
+            ok = (row_err <= tol and same and all(
                 bool(torch.isfinite(x.float()).all()) for x in outs))
-            bound, by = _bound_ms(nbytes, products * 2 * D * pairs)
+            bound, by = _bound_ms(nbytes, products * 2 * D * pairs, peak)
             case = {"shape": shape, "max_abs_err": err,
-                    "max_row_rel_err": row_err, "row_rel_tol": ROW_REL_TOL,
-                    "row_floor": BWD_ROW_FLOOR, "same_bits_twice": same,
+                    "plain_max_abs": max(float(px.abs().max())
+                                         for px in plain),
+                    "max_row_rel_err": row_err, "row_rel_tol": tol,
+                    "row_floor": BWD_ROW_FLOOR if sums is None else
+                    "absolute sum", "same_bits_twice": same,
                     "ok": ok,
                     "ms": _time_ms(lambda: launch(*args)),
                     "device_ms": _device_ms(torch, lambda: launch(*args)),
@@ -650,7 +766,7 @@ def check_flash_bwd(ck, torch, F):
             case["bound_share"] = (bound / case["device_ms"]
                                    if case["device_ms"] else None)
             _log("[kernels] %s %s" % (name, json.dumps(case)))
-            cases.append(case)
+            found.append(case)
             pair.append(case)
         if pair[0]["device_ms"] and pair[1]["device_ms"] and lib_ms:
             both = pair[0]["device_ms"] + pair[1]["device_ms"]
@@ -1550,12 +1666,13 @@ def serve(mx, ck, np, torch, workdir):
 
 
 # ------------------------------------------------------------- phase 4
-def _train_grads(mx, model, torch, inp, tgt, tier):
-    """Loss and f32 copies of the parameter gradients of one backward."""
+def _train_grads(mx, model, loss_of, tier):
+    """Loss and f32 copies of the parameter gradients of one backward of
+    ``loss_of(model)``."""
     mx.config.set("kernels.enabled", tier)
     try:
         model.zero_grad(set_to_none=True)
-        loss = model.loss(inp, tgt)
+        loss = loss_of(model)
         loss.backward()
         grads = {n: p.grad.float().clone()
                  for n, p in model.named_parameters()}
@@ -1565,19 +1682,19 @@ def _train_grads(mx, model, torch, inp, tgt, tier):
     return float(loss.detach()), grads
 
 
-def _grad_accuracy(mx, model, torch, inp, tgt):
-    """First-step gradients of the kernel path, the plain path (tier off)
-    and the plain path on an f32 copy of the weights; per tensor, the
+def _grad_gate(mx, torch, model, make32, loss_of, floor=0.0):
+    """First-step gradients of ``loss_of`` on the kernel path, the plain
+    path (tier off) and the plain path on an f32 copy of the weights
+    (``make32()``, a model of the same config in f32); per tensor, the
     relative error of each bf16 path against f32.  The kernel path may be
-    at most KERNEL_VS_PLAIN_GRAD_ERR x the plain path's error."""
-    from mxnet_tpu_torch.models.transformer import (TransformerLM,
-                                                    TransformerLMConfig)
-    loss_on, on = _train_grads(mx, model, torch, inp, tgt, True)
-    loss_off, off = _train_grads(mx, model, torch, inp, tgt, False)
-    model32 = TransformerLM(TransformerLMConfig(dtype=torch.float32))
+    at most KERNEL_VS_PLAIN_GRAD_ERR x the plain path's error, that error
+    floored at ``floor``."""
+    loss_on, on = _train_grads(mx, model, loss_of, True)
+    loss_off, off = _train_grads(mx, model, loss_of, False)
+    model32 = make32()
     model32.load_state_dict(model.state_dict())
     model32.requires_grad_(True)
-    loss32, ref = _train_grads(mx, model32, torch, inp, tgt, False)
+    loss32, ref = _train_grads(mx, model32, loss_of, False)
     del model32
     out = {"loss_kernel": loss_on, "loss_plain": loss_off,
            "loss_f32": loss32, "tensors": {}}
@@ -1588,10 +1705,22 @@ def _grad_accuracy(mx, model, torch, inp, tgt):
         out["tensors"][name] = {"kernel_vs_f32": e_on, "plain_vs_f32": e_off,
                                 "kernel_vs_plain": float(
                                     (on[name] - off[name]).norm()) / norm}
-        assert e_on <= KERNEL_VS_PLAIN_GRAD_ERR * e_off, (name, e_on, e_off)
+        assert e_on <= KERNEL_VS_PLAIN_GRAD_ERR * max(e_off, floor), (
+            name, e_on, e_off)
+    out["floor"] = floor
     del on, off, ref
     torch.cuda.empty_cache()
     return out
+
+
+def _grad_accuracy(mx, model, torch, inp, tgt):
+    """The TransformerLM's gradient gate (:func:`_grad_gate`)."""
+    from mxnet_tpu_torch.models.transformer import (TransformerLM,
+                                                    TransformerLMConfig)
+    return _grad_gate(
+        mx, torch, model,
+        lambda: TransformerLM(TransformerLMConfig(dtype=torch.float32)),
+        lambda m: m.loss(inp, tgt))
 
 
 def train(mx, ck, np, torch):
@@ -1710,6 +1839,293 @@ def _train_route_ab(np, torch, step, per_index):
         out[side] = _quartiles(np, v)
     _log("[train] route A/B %s" % json.dumps(
         {k: v for k, v in out.items() if k != "step_ms"}))
+    return out
+
+
+# ------------------------------------------------------------- phase 4b
+#: examples/bert_pretrain.py at its defaults: BERT-base (vocab 30522, 12
+#: layers, d_model 768, 12 heads, d_ff 3072), B=8 sequences of S=128 with
+#: M=20 masked positions, lr 1e-4, bf16, 20 timed steps after one warm-up
+BERT_B, BERT_S, BERT_M = 8, 128, 20
+BERT_STEPS = 20
+BERT_LR = 1e-4
+#: the f32 run (--dtype float32) and the Adam route, steps each
+BERT_F32_STEPS = 5
+BERT_ADAM_STEPS = 5
+BERT_ARGS = ("tokens", "token_types", "mlm_positions", "mlm_labels",
+             "mlm_weights", "nsp_labels")
+# BERT's gradient gate floors the plain bf16 path's error at one bf16 ulp
+# (2^-7 of a value at most): the gradients land in bf16, so a tensor
+# whose gradient is in effect one number can be off by whole ulps only.
+# nsp_b's gradient is one number (its two entries sum to 0): on the H100
+# the plain path landed one ulp from the f32 value (0.00667 relative)
+# and the kernel path two (0.01333), while the other 17 tensors' errors
+# are sums over many entries.  A faulty kernel moves gradients by their
+# own size and fails by far.
+BERT_GRAD_FLOOR = 2.0 ** -7
+
+
+def bert_config(torch, dtype):
+    """``examples/bert_pretrain.py``'s BERTConfig at its defaults: BERT-base
+    (``bert_base``) with ``max_len`` the sequence length."""
+    from mxnet_tpu_torch.models import bert_base
+    return bert_base(max_len=BERT_S, dtype=dtype)
+
+
+def bert_batch(np, torch, vocab, device="cuda"):
+    """The example's synthetic batch: ``np.random.RandomState(0)`` and the
+    same draws in the same order (tokens, token types, masked positions,
+    their labels, the next-sentence labels); every masked weight 1."""
+    rng = np.random.RandomState(0)
+    B, S, M = BERT_B, BERT_S, BERT_M
+    batch = dict(tokens=rng.randint(0, vocab, (B, S)),
+                 token_types=rng.randint(0, 2, (B, S)),
+                 mlm_positions=rng.randint(0, S, (B, M)),
+                 mlm_labels=rng.randint(0, vocab, (B, M)),
+                 mlm_weights=np.ones((B, M), np.float32),
+                 nsp_labels=rng.randint(0, 2, (B,)))
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def example_sgd_step(params, lr):
+    """The example's update, ``w - lr * g.astype(w.dtype)``, in place on
+    each parameter from its ``.grad``: the Python ``lr`` takes the
+    weight's dtype (JAX's weak typing), then the product and the
+    difference each round once to that dtype.  (``torch._foreach_add_``
+    with ``alpha=-lr`` rounds once and is not this update.)"""
+    import torch
+    with torch.no_grad():
+        lrs = {}
+        for w in params:
+            key = (w.dtype, w.device)
+            if key not in lrs:
+                lrs[key] = torch.full((), lr, dtype=w.dtype, device=w.device)
+            w.copy_(w - lrs[key] * w.grad.to(w.dtype))
+
+
+def _bert_flops(cfg):
+    """Model FLOPs of one pretraining step (forward and backward, the
+    backward's recomputation of the scores not counted): 6 x the
+    encoder's matmul parameters x tokens, 3 x the 2 attention products a
+    layer (2 D S^2 B H FLOPs each), 6 x the MLM head's transform and tied
+    readout x masked positions, and 6 x the pooler and NSP head x
+    sequences."""
+    L, D, F_, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    tokens = BERT_B * BERT_S
+    encoder = L * (D * 3 * D + D * D + 2 * D * F_)
+    product = 2 * cfg.head_dim * cfg.num_heads * BERT_B * BERT_S * BERT_S
+    parts = {"encoder_matmuls": 6 * encoder * tokens,
+             "attention": 3 * 2 * product * L,
+             "mlm_head": 6 * (D * D + V * D) * BERT_B * BERT_M,
+             "pooler_nsp": 6 * (D * D + 2 * D) * BERT_B}
+    return sum(parts.values()), parts, encoder
+
+
+def _bert_steps(np, torch, model, batch, update, steps, log_every=0):
+    """``steps`` pretraining steps (loss, backward, ``update()``): the
+    losses and host-clock ms a step, each step ending in a sync."""
+    losses, step_ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        model.zero_grad(set_to_none=True)
+        loss = model.pretrain_loss(*(batch[k] for k in BERT_ARGS))
+        loss.backward()
+        update()
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if log_every and (i + 1) % log_every == 0:
+            _log("[bert] step %d: mlm+nsp loss %.4f" % (i + 1, losses[-1]))
+    assert all(np.isfinite(losses)), losses
+    return losses, step_ms
+
+
+def _bert_adam_entries(torch, params, states):
+    """Per tensor of the list route: (master, m, v, cast or None); an f32
+    tensor is its own master."""
+    out = []
+    for w, s in zip(params, states):
+        if w.dtype == torch.float32:
+            m, v = s
+            out.append((w, m, v, None))
+        else:
+            master, (m, v) = s
+            out.append((master, m, v, w))
+    return out
+
+
+def _bert_adam_bitwise(ck, torch, model, batch, opt, params, states):
+    """One Adam step of the list route (one K3 launch over the 18
+    tensors) against ``fused_adam_step_multi_plain`` on copies of the
+    same masters, moments and grads, lr_t from the optimizer's own step
+    counts: bitwise on the masters, m, v and the bf16 casts."""
+    model.zero_grad(set_to_none=True)
+    model.pretrain_loss(*(batch[k] for k in BERT_ARGS)).backward()
+    grads = [w.grad for w in params]
+    entries = _bert_adam_entries(torch, params, states)
+    copies = [(a.clone(), m.clone(), v.clone(),
+               None if c is None else torch.empty_like(c))
+              for a, m, v, c in entries]
+    lr_ts = [opt._lr_t_of(opt._get_lr(i), opt._index_update_count.get(i, 0)
+                          + 1) for i in range(len(params))]
+    before = ck.LAUNCHES["adam_step"]
+    opt.update_multi_precision(list(range(len(params))), params, grads,
+                               states)
+    launches = ck.LAUNCHES["adam_step"] - before
+    ck.fused_adam_step_multi_plain(
+        [c[0] for c in copies], [g.contiguous() for g in grads],
+        [c[1] for c in copies], [c[2] for c in copies], lr_ts,
+        [opt._get_wd(i) for i in range(len(params))], opt.beta1, opt.beta2,
+        opt.epsilon, outs=[c[3] for c in copies])
+    torch.cuda.synchronize()
+    diff = {"master": 0, "m": 0, "v": 0, "cast": 0}
+    for (a, m, v, c), (pa, pm, pv, pc) in zip(entries, copies):
+        diff["master"] += _differing(torch, a, pa)
+        diff["m"] += _differing(torch, m, pm)
+        diff["v"] += _differing(torch, v, pv)
+        if c is not None:
+            diff["cast"] += _differing(torch, c, pc)
+    out = {"tensors": len(params), "launches": launches,
+           "f32_own_master": sum(c is None for *_, c in entries),
+           "k3_vs_plain_differing": diff}
+    assert launches == 1 and sum(diff.values()) == 0, out
+    return out
+
+
+def bert(mx, ck, np, torch, card):
+    """BERT-base pretraining, ``examples/bert_pretrain.py`` at its
+    defaults: the gradient gate at the initial weights, then the bf16
+    run (one warm-up step, BERT_STEPS counted steps: 12 non-causal
+    flash_fwd, flash_bwd_dq and flash_bwd_dkv launches a step and nothing
+    else, finite losses, the last below the first), a profiled window of
+    3 steps, the f32 run through flash_f32.cu (BERT_F32_STEPS steps) and
+    the Adam route (``Adam(multi_precision=True)`` over the 18 tensors
+    through the list ``update_multi_precision``: one step bitwise against
+    the plain multi version, then BERT_ADAM_STEPS counted steps of one
+    adam_step each).  Launch counts are zeroed just before each counted
+    run and read just after."""
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.models import BERT
+    cfg = bert_config(torch, torch.bfloat16)
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    model = BERT(cfg).init(SEED)
+    model.requires_grad_(True)
+    params = [p for _, p in model.named_parameters()]
+    batch = bert_batch(np, torch, cfg.vocab_size, model.device)
+    flops, parts, encoder = _bert_flops(cfg)
+    out = {"card": card, "batch": [BERT_B, BERT_S, BERT_M],
+           "params": sum(p.numel() for p in params), "tensors": len(params),
+           "setup_s": time.perf_counter() - t0}
+
+    def loss_of(m):
+        return m.pretrain_loss(*(batch[k] for k in BERT_ARGS))
+
+    out["grad_accuracy"] = _grad_gate(
+        mx, torch, model, lambda: BERT(bert_config(torch, torch.float32)),
+        loss_of, floor=BERT_GRAD_FLOOR)
+    _log("[bert] gradients at the initial weights %s"
+         % json.dumps(out["grad_accuracy"]))
+
+    def sgd():
+        example_sgd_step(params, BERT_LR)
+
+    warm, _ = _bert_steps(np, torch, model, batch, sgd, 1)
+    # --- the main path: counts zeroed just before, read just after
+    _zero_counts(torch, tt, ck)
+    t0 = time.perf_counter()
+    losses, step_ms = _bert_steps(np, torch, model, batch, sgd, BERT_STEPS,
+                                  log_every=5)
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    c = tt.snapshot()["counters"]
+    n = BERT_STEPS
+    assert launches == _want_launches(ck, flash_fwd=L * n,
+                                      flash_bwd_dq=L * n,
+                                      flash_bwd_dkv=L * n), launches
+    assert c.get("kernels.flash_attention", 0) == L * n, c
+    assert losses[-1] < losses[0], losses
+    med = float(np.median(step_ms))
+    seqs = BERT_B * n / wall
+    _log("[bert] %.1f sequences/s (B=%d S=%d, %d layers, bfloat16)"
+         % (seqs, BERT_B, BERT_S, L))
+    out.update({
+        "warmup_loss": warm[0], "steps": n, "losses": losses,
+        "step_ms": step_ms, "median_step_ms": med,
+        "sequences_per_s": seqs,
+        "sequences_per_s_median": BERT_B / (med / 1e3),
+        "tokens_per_s": BERT_B * BERT_S / (med / 1e3),
+        "flops_per_step": flops, "flops_parts": parts,
+        "encoder_matmul_params": encoder,
+        "mfu_vs_989_tflops": flops / (med / 1e3) / PEAK_BF16_FLOPS,
+        "launches": launches})
+    _log("[bert] bf16 %s" % json.dumps(
+        {k: v for k, v in out.items() if k != "grad_accuracy"}))
+    if _profiler_records_cuda(torch):
+        out["profile"] = _profile(
+            torch, lambda: _bert_steps(np, torch, model, batch, sgd, 3),
+            top=16)
+    else:
+        out["profile"] = {"error": "not measured: torch.profiler recorded "
+                                   "no CUDA kernels"}
+    _log("[bert] profile over 3 steps %s" % json.dumps(out["profile"]))
+    del model, params
+    torch.cuda.empty_cache()
+
+    # --- the f32 run (--dtype float32): flash_f32.cu's three kernels
+    model = BERT(bert_config(torch, torch.float32)).init(SEED)
+    model.requires_grad_(True)
+    params = [p for _, p in model.named_parameters()]
+    _zero_counts(torch, tt, ck)
+    losses, step_ms = _bert_steps(np, torch, model, batch, sgd,
+                                  BERT_F32_STEPS)
+    launches = dict(ck.LAUNCHES)
+    n = BERT_F32_STEPS
+    assert launches == _want_launches(ck, flash_fwd_f32=L * n,
+                                      flash_bwd_dq_f32=L * n,
+                                      flash_bwd_dkv_f32=L * n), launches
+    out["f32"] = {"steps": n, "losses": losses, "step_ms": step_ms,
+                  "median_step_ms": float(np.median(step_ms)),
+                  "launches": launches}
+    _log("[bert] f32 %s" % json.dumps(out["f32"]))
+    del model, params
+    torch.cuda.empty_cache()
+
+    # --- the Adam route: one K3 launch a step over the 18 tensors
+    model = BERT(cfg).init(SEED)
+    model.requires_grad_(True)
+    params = [p for _, p in model.named_parameters()]
+    opt = mx.optimizer.create("adam", learning_rate=BERT_LR,
+                              multi_precision=True)
+    states = [opt.create_state_multi_precision(i, p)
+              for i, p in enumerate(params)]
+    index = list(range(len(params)))
+
+    def adam():
+        opt.update_multi_precision(index, params, [p.grad for p in params],
+                                   states)
+
+    routes = _bert_adam_bitwise(ck, torch, model, batch, opt, params, states)
+    _log("[bert-adam] K3 vs its plain version %s" % json.dumps(routes))
+    _zero_counts(torch, tt, ck)
+    losses, step_ms = _bert_steps(np, torch, model, batch, adam,
+                                  BERT_ADAM_STEPS)
+    launches = dict(ck.LAUNCHES)
+    c = tt.snapshot()["counters"]
+    n = BERT_ADAM_STEPS
+    assert launches == _want_launches(
+        ck, flash_fwd=L * n, flash_bwd_dq=L * n, flash_bwd_dkv=L * n,
+        adam_step=n), launches
+    assert c.get("kernels.fused_step", 0) == len(params) * n, c
+    out["adam"] = {"lr": BERT_LR, "steps": n, "losses": losses,
+                   "step_ms": step_ms,
+                   "median_step_ms": float(np.median(step_ms)),
+                   "launches": launches,
+                   "fused_step_counter": c.get("kernels.fused_step", 0),
+                   "routes": routes}
+    _log("[bert-adam] %s" % json.dumps(out["adam"]))
+    del model, params, opt, states
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2906,12 +3322,13 @@ def main(argv=None):
     ap.add_argument("--report", help="also write the full report (JSON) "
                     "to this path")
     ap.add_argument("--phase", choices=("all", "attention", "optimizer",
-                                        "module"),
+                                        "module", "bert"),
                     default="all",
                     help="attention: the flash forward and backward checks "
                     "of phase 2 alone; optimizer: phase 2's K3 and K1 "
                     "checks alone; module: phase 7(c) alone, after the "
-                    "lr_t A/B")
+                    "lr_t A/B; bert: the flash checks at BERT's shapes "
+                    "(bf16 and f32) and phase 4b alone")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2945,8 +3362,10 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     built = _build.build(
-        {"attention": ["flash_fwd", "flash_bwd", "paged_attn"],
-         "optimizer": ["adam_step", "sgd_step"]}.get(args.phase))
+        {"attention": ["flash_fwd", "flash_bwd", "flash_f32", "paged_attn"],
+         "optimizer": ["adam_step", "sgd_step"],
+         "bert": ["flash_fwd", "flash_bwd", "flash_f32",
+                  "adam_step"]}.get(args.phase))
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "per_source_s": {k: v["seconds"]
                                         for k, v in built.items()},
@@ -2968,15 +3387,20 @@ def main(argv=None):
                                  % (name, built[name]["ptxas"]))
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
+    f32_keys = ("flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
     if args.phase == "attention":
         report["flash_fwd"] = check_flash(ck, torch, F)
         report["paged_decode_pool_bf16"] = check_paged(ck, torch, F, False)
         report["paged_decode_pool_int8"] = check_paged(ck, torch, F, True)
         report["flash_bwd_dq"], report["flash_bwd_dkv"] = check_flash_bwd(
             ck, torch, F)
+        report["flash_fwd_f32"] = check_flash(ck, torch, F, F32_CASES,
+                                              "float32")
+        report["flash_bwd_dq_f32"], report["flash_bwd_dkv_f32"] = \
+            check_flash_bwd(ck, torch, F, F32_CASES, "float32")
         bad = [c for key in ("flash_fwd", "paged_decode_pool_bf16",
                              "paged_decode_pool_int8", "flash_bwd_dq",
-                             "flash_bwd_dkv")
+                             "flash_bwd_dkv") + f32_keys
                for c in report[key] if not c["ok"]]
         _write_report(args.report, report)
         if bad:
@@ -2998,6 +3422,27 @@ def main(argv=None):
         print(json.dumps({k: v for k, v in report.items()
                           if k != "build"}))
         return 0
+    if args.phase == "bert":
+        bert_case = ((BERT_B, False, BERT_S, BERT_S),)
+        report["flash_fwd"] = check_flash(ck, torch, F, bert_case)
+        report["flash_bwd_dq"], report["flash_bwd_dkv"] = check_flash_bwd(
+            ck, torch, F, bert_case)
+        report["flash_fwd_f32"] = check_flash(ck, torch, F, F32_CASES,
+                                              "float32")
+        report["flash_bwd_dq_f32"], report["flash_bwd_dkv_f32"] = \
+            check_flash_bwd(ck, torch, F, F32_CASES, "float32")
+        bad = [c for key in ("flash_fwd", "flash_bwd_dq",
+                             "flash_bwd_dkv") + f32_keys
+               for c in report[key] if not c["ok"]]
+        if bad:
+            _write_report(args.report, report)
+            raise AssertionError("kernel disagrees with its plain version: "
+                                 "%s" % json.dumps(bad))
+        report["bert"] = bert(mx, ck, np, torch, card)
+        _write_report(args.report, report)
+        print(json.dumps({k: v for k, v in report.items()
+                          if k != "build"}))
+        return 0
     if args.phase == "module":
         report["lr_t_ab"] = lr_t_ab(mx, np, torch)
         report["launch_ab"] = launch_ab(mx, np, torch)
@@ -3009,18 +3454,22 @@ def main(argv=None):
     paged = check_paged(ck, torch, F, quant=False)
     paged8 = check_paged(ck, torch, F, quant=True)
     bwd_dq, bwd_dkv = check_flash_bwd(ck, torch, F)
+    flash32 = check_flash(ck, torch, F, F32_CASES, "float32")
+    bwd_dq32, bwd_dkv32 = check_flash_bwd(ck, torch, F, F32_CASES, "float32")
     adam, adam_step = check_adam(ck, torch)
     sgd, sgd_step = check_sgd(ck, torch, mx, np)
     k5f, k5b = check_row_softmax(ck, torch)
     k6 = check_scale_bias_relu(ck, torch)
-    bad = [c for c in flash + paged + paged8 + bwd_dq + bwd_dkv + adam + sgd
-           + k5f + k5b + k6 if not c["ok"]]
+    bad = [c for c in flash + paged + paged8 + bwd_dq + bwd_dkv + flash32
+           + bwd_dq32 + bwd_dkv32 + adam + sgd + k5f + k5b + k6
+           if not c["ok"]]
     if bad:
         raise AssertionError("kernel disagrees with its plain version: %s"
                              % json.dumps(bad))
 
     report["serve"] = serve(mx, ck, np, torch, workdir)
     report["train"] = train(mx, ck, np, torch)
+    report["bert"] = bert(mx, ck, np, torch, card)
     report["resnet"] = train_resnet(mx, ck, np, torch, card)
     report["tape"] = tape(mx, ck, np, torch)
     report["lenet"] = train_lenet(mx, ck, np, torch, card)
@@ -3035,6 +3484,9 @@ def main(argv=None):
     launches = report["serve"]["greedy"]["launches"]
     taped = report["tape"]["launches"]
     trained = report["train"]["launches"]
+    berted = report["bert"]["launches"]
+    bert32 = report["bert"]["f32"]["launches"]
+    bert_adam = report["bert"]["adam"]["launches"]["adam_step"]
     pk = "mxnet_tpu/ops/pallas_kernels.py:"
     kernels = [
         _summary("flash_fwd", "flash_fwd.cu", pk + "157", flash,
@@ -3043,6 +3495,12 @@ def main(argv=None):
                  trained["flash_bwd_dq"]),
         _summary("flash_bwd_dkv", "flash_bwd.cu", pk + "220", bwd_dkv,
                  trained["flash_bwd_dkv"]),
+        _summary("flash_fwd_f32", "flash_f32.cu", pk + "157", flash32,
+                 bert32["flash_fwd_f32"]),
+        _summary("flash_bwd_dq_f32", "flash_f32.cu", pk + "190", bwd_dq32,
+                 bert32["flash_bwd_dq_f32"]),
+        _summary("flash_bwd_dkv_f32", "flash_f32.cu", pk + "220", bwd_dkv32,
+                 bert32["flash_bwd_dkv_f32"]),
         _summary("paged_decode_pool_bf16", "paged_attn.cu", pk + "386",
                  paged, launches["paged_decode_pool_bf16"]),
         _summary("paged_decode_pool_int8", "paged_attn.cu", pk + "386",
@@ -3052,11 +3510,12 @@ def main(argv=None):
          "source": "mxnet_tpu_torch/csrc/adam_step.cu",
          "replaces": pk + "518",
          "launches": (trained["adam_step"] + module_adam + f16_adam
-                      + resnet_adam),
+                      + resnet_adam + bert_adam),
          "launches_by_path": {"train": trained["adam_step"],
                               "module_mlp": module_adam,
                               "f16_trainer": f16_adam,
-                              "resnet_spmd_adam": resnet_adam},
+                              "resnet_spmd_adam": resnet_adam,
+                              "bert_adam": bert_adam},
          "max_abs_err": max(c["max_abs_err"] for c in adam),
          "differing_elements": sum(sum(c["differing_elements"].values())
                                    for c in adam),
@@ -3094,9 +3553,16 @@ def main(argv=None):
                     report["tape"]["sbr_launches"]["scale_bias_relu"]),
     ] + [_rtc_summary(name, report["rtc"], report["rtc_ops"])
          for name in RTC_SIGNATURES]
-    # flash_fwd runs on both paths: its launches in each counted run
+    # the bf16 flash kernels run on several paths: their launches in each
+    # counted run
     kernels[0]["launches_by_path"] = {"serve_greedy": launches["flash_fwd"],
-                                      "train": trained["flash_fwd"]}
+                                      "train": trained["flash_fwd"],
+                                      "bert": berted["flash_fwd"]}
+    for kern in kernels[1:3]:
+        kern["launches_by_path"] = {"train": trained[kern["name"]],
+                                    "bert": berted[kern["name"]]}
+    for kern in kernels[3:6]:
+        kern["launches_by_path"] = {"bert_f32": bert32[kern["name"]]}
     report["kernels"] = kernels
     _write_report(args.report, report)
     print(json.dumps({"kernels": [{k: v for k, v in s.items()

@@ -31,6 +31,9 @@ Ported so far:
 * ``mx.rtc`` — user CUDA source compiled at run time by NVRTC
   (``CudaModule``), launched from ``mx.nd``, ``mx.sym`` and a Module
   through ``register_op``;
+* BERT pretraining — ``models.BERT`` (the masked-LM and next-sentence
+  heads over ``TransformerLM.run_stack``, non-causal attention) and
+  ``mx.runtime`` (``Features``, ``scan_stack`` and its remat knobs);
 
 with hand-written CUDA kernels for flash-attention forward and backward,
 paged decode attention, the fused Adam step, the multi-tensor fused SGD
@@ -56,7 +59,7 @@ from . import initializer as init
 from . import kernels, quantization, models, convert, deploy, serving
 from . import generation, optimizer, lr_scheduler, kvstore, gluon, parallel
 from . import metric, io, callback, engine, rtc, symbol, model, module
-from . import executor, executor_manager
+from . import executor, executor_manager, runtime
 from . import symbol as sym
 from . import module as mod
 
@@ -67,4 +70,4 @@ __all__ = ["MXNetError", "MXNetErrorNoDevice", "KernelUnsupportedError",
            "convert", "deploy", "serving", "generation", "optimizer",
            "lr_scheduler", "kvstore", "gluon", "parallel", "metric", "io",
            "callback", "engine", "rtc", "symbol", "sym", "model", "module",
-           "mod", "executor", "executor_manager"]
+           "mod", "executor", "executor_manager", "runtime"]

@@ -3,8 +3,9 @@
 generation-serving path, the kernel tier, the 64-bit dtype policy, the
 ResNet training path
 (convolution layout, BatchNorm statistics, and the trainer options that
-are not ported yet, which the trainer refuses instead of ignoring), and
-the engine and symbolic Module knobs.
+are not ported yet, which the trainer refuses instead of ignoring), the
+engine and symbolic Module knobs, and the layer-stack program knobs
+(``runtime.stack_mode``, ``runtime.remat``) of ``runtime.scan_stack``.
 
 Every knob has a type, a default, its environment variable and a
 docstring.  ``get`` reads programmatic override > env var > default;
@@ -201,6 +202,42 @@ register_knob(
     "serving.shared_prefix", "MXNET_TPU_SHARED_PREFIX", bool, True,
     "share full prompt-prefix KV pages between concurrent requests with "
     "a common prefix (refcounted, freed when the last reader exits).")
+
+
+# transformer layer-stack program tuning (runtime.scan_stack)
+register_knob(
+    "runtime.stack_mode", "MXNET_TPU_STACK_MODE", str, "scan",
+    "layer-stack program shape for runtime.scan_stack: 'scan' (default) "
+    "or 'unroll'. PyTorch runs eagerly, so both run the same Python loop "
+    "over the layers; the knob is validated and kept for scripts and "
+    "for the tuning grid (runtime.stack_candidates).")
+register_knob(
+    "runtime.remat", "MXNET_TPU_REMAT", str, "",
+    "recomputation around each layer of runtime.scan_stack: '' (default) "
+    "saves every activation, no wrapper; 'dots' saves the matrix "
+    "products' outputs (aten.mm/bmm/addmm) and recomputes the rest in the "
+    "backward (a selective checkpoint); 'full' saves only the layer "
+    "input (torch.utils.checkpoint around the layer body).")
+
+
+def _apply_runtime_stack_mode(value):
+    v = (value or "").strip().lower()
+    if v not in ("scan", "unroll"):
+        _OVERRIDES.pop("runtime.stack_mode", None)
+        raise ValueError("runtime.stack_mode must be 'scan' or 'unroll', "
+                         "got %r" % (value,))
+
+
+def _apply_runtime_remat(value):
+    v = (value or "").strip().lower()
+    if v not in ("", "dots", "full"):
+        _OVERRIDES.pop("runtime.remat", None)
+        raise ValueError("runtime.remat must be '', 'dots' or 'full', "
+                         "got %r" % (value,))
+
+
+_ON_SET["runtime.stack_mode"] = _apply_runtime_stack_mode
+_ON_SET["runtime.remat"] = _apply_runtime_remat
 
 
 def enable_x64(flag=True):

@@ -6,7 +6,9 @@ parameter layout (``wqkv [L, D, 3, H, Dh]``, ``wo [L, H, Dh, D]``,
 ``w1 [L, D, F]``, ``w2 [L, F, D]``, ``ln1``/``ln2 [L, D]``, ``embed
 [V, D]``, ``pos_embed [max_len, D]``, ``final_norm [D]``), so
 ``convert.params_from_reference`` carries the reference's weights across
-unchanged.  The reference's ``lax.scan`` over layers is a Python loop.
+unchanged.  The reference's ``lax.scan`` over layers is
+``runtime.scan_stack``, a Python loop over the stacked weights
+(:meth:`TransformerLM.run_stack`, the encoder body BERT shares).
 
 Generation state is a POOL of fixed-size KV pages shared by every
 in-flight sequence; each sequence owns a page-table row of page ids.
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import kernels as _kernels
+from .. import runtime as _runtime
 from ..context import resolve_device
 from ..quantization import quantize_rows
 
@@ -113,6 +116,10 @@ def _host(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else _np.asarray(x)
 
 
+#: the stacked per-layer weights, in the reference's order
+LAYER_NAMES = ("ln1", "wqkv", "wo", "ln2", "w1", "w2")
+
+
 class _Layers(nn.Module):
     """The per-layer weights, stacked over layers (reference layout)."""
 
@@ -180,30 +187,55 @@ class TransformerLM(nn.Module):
         return self
 
     # -------------------------------------------------------------- forward
-    def _qkv(self, x, li):
-        """ln1 + fused QKV projection: x [B,S,D] -> q,k,v [B,H,S,Dh]."""
+    def _layer_weights(self, li):
+        """Layer ``li``'s slice of the stacked weights, by name."""
+        return {n: getattr(self.layers, n)[li] for n in LAYER_NAMES}
+
+    def _qkv(self, x, lp):
+        """ln1 + fused QKV projection: x [B,S,D] -> q,k,v [B,H,S,Dh];
+        ``lp`` is one layer's weights (:meth:`_layer_weights`)."""
         B, S, D = x.shape
         H, Dh = self.cfg.num_heads, self.cfg.head_dim
-        h = _norm(x, self.layers.ln1[li])
-        w = self.layers.wqkv[li].reshape(D, 3 * H * Dh)
+        h = _norm(x, lp["ln1"])
+        w = lp["wqkv"].reshape(D, 3 * H * Dh)
         qkv = torch.matmul(h, w).to(x.dtype).view(B, S, 3, H, Dh)
         q = qkv[:, :, 0].transpose(1, 2)
         k = qkv[:, :, 1].transpose(1, 2)
         v = qkv[:, :, 2].transpose(1, 2)
         return q, k, v
 
-    def _attn_mlp(self, x, o, li):
+    def _attn_mlp(self, x, o, lp):
         """Output projection + residual + MLP half of one layer; ``o`` is
         the attention output [B,H,S,Dh]."""
         B, H, S, Dh = o.shape
-        wo = self.layers.wo[li].reshape(H * Dh, -1)
+        wo = lp["wo"].reshape(H * Dh, -1)
         o = torch.matmul(o.transpose(1, 2).reshape(B, S, H * Dh), wo)
         x = x + o.to(x.dtype)
-        h = _norm(x, self.layers.ln2[li])
-        u = torch.matmul(h, self.layers.w1[li])
+        h = _norm(x, lp["ln2"])
+        u = torch.matmul(h, lp["w1"])
         u = F.gelu(u.float(), approximate="tanh").to(x.dtype)
-        d = torch.matmul(u, self.layers.w2[li]).to(x.dtype)
+        d = torch.matmul(u, lp["w2"]).to(x.dtype)
         return x + d
+
+    def _layer(self, x, lp):
+        """One whole layer: attention (``cfg.causal``) and the MLP."""
+        q, k, v = self._qkv(x, lp)
+        o = _kernels.attention(q, k, v, causal=self.cfg.causal)
+        return self._attn_mlp(x, o, lp)
+
+    def run_stack(self, x):
+        """The shared encoder body: the layers through
+        ``runtime.scan_stack`` (under the ``runtime.remat`` knob), then
+        the final norm.  x [B, S, D] in the model dtype -> [B, S, D].
+        Used by :meth:`apply` and :meth:`loss`, and by models that embed
+        differently before the stack (``models.bert``)."""
+        xs = {n: getattr(self.layers, n) for n in LAYER_NAMES}
+
+        def body(carry, lp):
+            return self._layer(carry, lp), None
+
+        x, _ = _runtime.scan_stack(body, x, xs)
+        return _norm(x, self.final_norm)
 
     def _embed(self, tokens, positions):
         return (self.embed[tokens] + self.pos_embed[positions]).to(
@@ -221,11 +253,7 @@ class TransformerLM(nn.Module):
         [B, S, V] (f32)."""
         S = tokens.shape[1]
         x = self._embed(tokens, torch.arange(S, device=self.device)[None])
-        for li in range(self.cfg.num_layers):
-            q, k, v = self._qkv(x, li)
-            o = _kernels.attention(q, k, v, causal=self.cfg.causal)
-            x = self._attn_mlp(x, o, li)
-        x = _norm(x, self.final_norm)
+        x = self.run_stack(x)
         return torch.matmul(x.float(), self.embed.float().t())
 
     @torch.no_grad()
@@ -359,7 +387,8 @@ class TransformerLM(nn.Module):
         bi, si = ((pages >= 0) & (pages < pool)).nonzero(as_tuple=True)
         pw, sw = pages[bi, si], slots[bi, si]
         for li in range(cfg.num_layers):
-            q, k, v = self._qkv(x, li)
+            lp = self._layer_weights(li)
+            q, k, v = self._qkv(x, lp)
             kt = k.transpose(1, 2)[bi, si]        # [N, H, Dh]
             vt = v.transpose(1, 2)[bi, si]
             if quant:
@@ -373,7 +402,7 @@ class TransformerLM(nn.Module):
                 kv["k"][li][pw, sw] = kt.to(kv["k"].dtype)
                 kv["v"][li][pw, sw] = vt.to(kv["v"].dtype)
             o = _kernels.attention(q, k, v, causal=cfg.causal)
-            x = self._attn_mlp(x, o, li)
+            x = self._attn_mlp(x, o, lp)
         last = x[torch.arange(B, device=dev), torch.clamp(lengths - 1, 0)]
         ids, logits = self._sample_last(last, lengths, sample)
         if return_logits:
@@ -412,7 +441,8 @@ class TransformerLM(nn.Module):
         table32 = table.to(torch.int32)
         lengths = (positions + 1).to(torch.int32)
         for li in range(cfg.num_layers):
-            q, k, v = self._qkv(x, li)                           # [B,H,1,Dh]
+            lp = self._layer_weights(li)
+            q, k, v = self._qkv(x, lp)                           # [B,H,1,Dh]
             kt, vt = k[wb, :, 0], v[wb, :, 0]                    # [N,H,Dh]
             kl, vl = kv["k"][li], kv["v"][li]
             scales = {}
@@ -430,7 +460,7 @@ class TransformerLM(nn.Module):
                 vl[pw, sw] = vt.to(vl.dtype)
             o = _kernels.paged_attention_pool(q, kl, vl, table32, lengths,
                                               **scales)
-            x = self._attn_mlp(x, o, li)
+            x = self._attn_mlp(x, o, lp)
         ids, logits = self._sample_last(x[:, 0], pos_h + 1, sample)
         if return_logits:
             return kv, ids, logits

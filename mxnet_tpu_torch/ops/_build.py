@@ -28,6 +28,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 #: kernel name -> source file under csrc/
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
+           "flash_f32": "flash_f32.cu",
            "paged_attn": "paged_attn.cu", "adam_step": "adam_step.cu",
            "sgd_step": "sgd_step.cu", "row_softmax": "row_softmax.cu",
            "scale_bias_relu": "scale_bias_relu.cu"}

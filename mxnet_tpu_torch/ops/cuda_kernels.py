@@ -3,11 +3,13 @@
 
 Kernels, sources under ``mxnet_tpu_torch/csrc``:
 
-* ``flash_attention`` — flash-attention forward (``csrc/flash_fwd.cu``),
-  the port of ``_flash_fwd_kernel``; returns ``(o, lse)``.
+* ``flash_attention`` — flash-attention forward (``csrc/flash_fwd.cu``
+  for bf16, ``csrc/flash_f32.cu`` for f32), the port of
+  ``_flash_fwd_kernel``; returns ``(o, lse)``.
 * ``flash_attention_bwd`` — its backward, two kernels in
-  ``csrc/flash_bwd.cu``: dq over q tiles (port of ``_flash_bwd_dq_kernel``)
-  and dk/dv over kv tiles (port of ``_flash_bwd_dkv_kernel``).
+  ``csrc/flash_bwd.cu`` (bf16) or ``csrc/flash_f32.cu`` (f32): dq over q
+  tiles (port of ``_flash_bwd_dq_kernel``) and dk/dv over kv tiles (port
+  of ``_flash_bwd_dkv_kernel``).
 * ``paged_attention_pool`` — single-query paged decode attention read
   through the page table straight from the page pool, split over the
   keys, bf16 or int8 K/V (``csrc/paged_attn.cu``), the port of
@@ -41,7 +43,8 @@ Routing policy (when to call the wrapper at all) lives in
 
 Launch counts: ``LAUNCHES[name]`` goes up by one at each kernel launch
 and nowhere else (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``,
-``paged_decode_bf16``, ``paged_decode_int8`` (the gathered entry),
+their f32 forms ``flash_fwd_f32``, ``flash_bwd_dq_f32``,
+``flash_bwd_dkv_f32``, ``paged_decode_bf16``, ``paged_decode_int8`` (the gathered entry),
 ``paged_decode_pool_bf16``, ``paged_decode_pool_int8``, ``adam_step``,
 ``sgd_step``, ``row_softmax_fwd``, ``row_softmax_bwd``,
 ``scale_bias_relu``), and ``rtc`` at each launch of a user kernel that
@@ -81,11 +84,14 @@ __all__ = ["flash_attention", "flash_attention_plain",
 
 #: masked-score floor of the plain versions (parallel.ring_attention)
 NEG = -1e30
-#: the head dim both kernels are instantiated for (that of every served
-#: configuration; another needs its own instantiation, checked on the card)
+#: the head dim the flash and paged kernels are instantiated for (that of
+#: every configuration; another needs its own instantiation, checked on
+#: the card)
 HEAD_DIM = 64
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_fwd_f32": 0, "flash_bwd_dq_f32": 0,
+            "flash_bwd_dkv_f32": 0,
             "paged_decode_bf16": 0, "paged_decode_int8": 0,
             "paged_decode_pool_bf16": 0, "paged_decode_pool_int8": 0,
             "adam_step": 0,
@@ -106,6 +112,15 @@ _SIGNATURES = {
                                   _I, _F, _P], _I),
         "mx_flash_bwd_dkv_bf16": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                    _I, _I, _I, _F, _P], _I),
+        "mx_error_string": ([_I], ctypes.c_char_p),
+    },
+    "flash_f32": {
+        "mx_flash_fwd_f32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                              _P], _I),
+        "mx_flash_bwd_dq_f32": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _F, _P], _I),
+        "mx_flash_bwd_dkv_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _F, _P], _I),
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
     "paged_attn": {
@@ -136,6 +151,9 @@ _SIGNATURES = {
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
 }
+#: the input dtypes the flash kernels take (bf16: flash_fwd.cu and
+#: flash_bwd.cu; f32: flash_f32.cu)
+_FLASH_DTYPES = (torch.float32, torch.bfloat16)
 #: the dtype codes of the kernels that take f32, bf16 and f16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -182,8 +200,9 @@ def flash_unsupported_reason(q, k, v, causal):
     if causal and q.shape[2] != k.shape[2]:
         return "causal needs Sq == Skv, got %d vs %d" % (q.shape[2],
                                                          k.shape[2])
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        return "kernel takes bf16, got %s" % q.dtype
+    if not (q.dtype == k.dtype == v.dtype and q.dtype in _FLASH_DTYPES):
+        return "kernel takes f32 or bf16, got %s" % sorted(
+            {str(t.dtype) for t in (q, k, v)})
     if q.shape[3] != HEAD_DIM:
         return "head dim %d != %d" % (q.shape[3], HEAD_DIM)
     if q.shape[0] * q.shape[1] > 65535:
@@ -215,17 +234,27 @@ def flash_attention_plain(q, k, v, causal=False, scale=None):
     return o, lse
 
 
+def _flash_lib(dtype, bf16_lib):
+    """``(library, entry suffix, launch-count suffix)`` of the flash
+    kernels for ``dtype``: ``bf16_lib`` (``flash_fwd`` or ``flash_bwd``)
+    for bf16, ``flash_f32`` (``csrc/flash_f32.cu``) for f32."""
+    if dtype == torch.float32:
+        return "flash_f32", "f32", "_f32"
+    return bf16_lib, "bf16", ""
+
+
 def flash_attention(q, k, v, causal=False, scale=None):
     """Flash-attention forward: ``(o, lse)`` as :func:`flash_attention_plain`
     computes them.  CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/flash_fwd.cu`` (contiguous bf16 at 16-byte aligned addresses,
-    head dim 64) or raise."""
+    ``csrc/flash_fwd.cu`` (bf16) or ``csrc/flash_f32.cu`` (f32;
+    contiguous, at 16-byte aligned addresses, head dim 64) or raise."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     reason = (flash_unsupported_reason(q, k, v, causal)
               or _launch_reason(q, k, v))
     if reason is None and any(t.data_ptr() % 16 for t in (q, k, v)):
-        # the kernel reads through TMA tensor maps
+        # the bf16 kernel reads through TMA tensor maps, the f32 one in
+        # 16-byte loads
         reason = "a data pointer is not 16-byte aligned"
     if reason is not None:
         raise KernelUnsupportedError(
@@ -233,14 +262,16 @@ def flash_attention(q, k, v, causal=False, scale=None):
     B, H, S, D = q.shape
     Skv = k.shape[2]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-    lib = _build.load("flash_fwd", _SIGNATURES["flash_fwd"])
+    name, form, count = _flash_lib(q.dtype, "flash_fwd")
+    lib = _build.load(name, _SIGNATURES[name])
     o = torch.empty_like(q)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
-    err = lib.mx_flash_fwd_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                o.data_ptr(), lse.data_ptr(), B * H, S, Skv,
-                                D, int(bool(causal)), scale, _stream(q))
-    _check(lib, err, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    err = getattr(lib, "mx_flash_fwd_" + form)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B * H, S, Skv, D, int(bool(causal)), scale,
+        _stream(q))
+    _check(lib, err, "flash_fwd" + count)
+    LAUNCHES["flash_fwd" + count] += 1
     return o, lse
 
 
@@ -303,9 +334,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None,
     :func:`flash_attention_bwd_plain` computes them from the forward's
     ``o`` and ``lse``.  ``delta`` (:func:`flash_delta`) is computed here
     when not given.  CPU tensors run the plain version; CUDA tensors
-    launch the two kernels of ``csrc/flash_bwd.cu`` (dq, then dk/dv;
-    contiguous bf16 at 16-byte aligned addresses, head dim 64) or
-    raise."""
+    launch the two kernels of ``csrc/flash_bwd.cu`` (bf16) or
+    ``csrc/flash_f32.cu`` (f32): dq, then dk/dv; contiguous, at 16-byte
+    aligned addresses, head dim 64; or raise."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          scale=scale, delta=delta)
@@ -319,7 +350,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None,
         reason = _launch_reason(q, k, v, o, lse, do, delta)
     if reason is None and any(t.data_ptr() % 16
                               for t in (q, k, v, do, lse, delta)):
-        # the kernels read through TMA tensor maps
+        # the bf16 kernels read through TMA tensor maps, the f32 ones in
+        # 16-byte loads
         reason = "a data pointer is not 16-byte aligned"
     if reason is not None:
         raise KernelUnsupportedError(
@@ -334,29 +366,31 @@ def _bwd_args(q, k, v, do, lse, delta, causal, scale):
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
     dims = (B * H, S, k.shape[2], D, int(bool(causal)), scale, _stream(q))
-    return _build.load("flash_bwd", _SIGNATURES["flash_bwd"]), ptrs, dims
+    name, form, count = _flash_lib(q.dtype, "flash_bwd")
+    return _build.load(name, _SIGNATURES[name]), form, count, ptrs, dims
 
 
 def _launch_bwd_dq(q, k, v, do, lse, delta, causal, scale):
     """Launch K2dq alone on checked inputs (:func:`flash_attention_bwd`
     checks them); returns dq."""
-    lib, ptrs, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
+    lib, form, count, ptrs, dims = _bwd_args(q, k, v, do, lse, delta,
+                                             causal, scale)
     dq = torch.empty_like(q)
-    _check(lib, lib.mx_flash_bwd_dq_bf16(*ptrs, dq.data_ptr(), *dims),
-           "flash_bwd_dq")
-    LAUNCHES["flash_bwd_dq"] += 1
+    _check(lib, getattr(lib, "mx_flash_bwd_dq_" + form)(
+        *ptrs, dq.data_ptr(), *dims), "flash_bwd_dq" + count)
+    LAUNCHES["flash_bwd_dq" + count] += 1
     return dq
 
 
 def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
     """Launch K2dkv alone on checked inputs; returns ``(dk, dv)``."""
-    lib, ptrs, dims = _bwd_args(q, k, v, do, lse, delta, causal, scale)
+    lib, form, count, ptrs, dims = _bwd_args(q, k, v, do, lse, delta,
+                                             causal, scale)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _check(lib, lib.mx_flash_bwd_dkv_bf16(*ptrs, dk.data_ptr(),
-                                          dv.data_ptr(), *dims),
-           "flash_bwd_dkv")
-    LAUNCHES["flash_bwd_dkv"] += 1
+    _check(lib, getattr(lib, "mx_flash_bwd_dkv_" + form)(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), *dims), "flash_bwd_dkv" + count)
+    LAUNCHES["flash_bwd_dkv" + count] += 1
     return dk, dv
 
 

@@ -225,6 +225,17 @@ class Optimizer:
                 and isinstance(state, tuple) and len(state) == 2
                 and isinstance(state[0], torch.Tensor))
 
+    def _master_entry(self, weight, state):
+        """``(master, state of the master, weight to cast into or None)``
+        for a weight that the fused kernel updates through an f32 master
+        under ``multi_precision``: a bf16 or f16 weight's master copy, or
+        an f32 weight, which is its own master (no cast); else None."""
+        if self._uses_master(weight, state):
+            return state[0], state[1], weight
+        if self.multi_precision and weight.dtype == torch.float32:
+            return weight, state, None
+        return None
+
     def _preprocess_grad(self, grad):
         g = grad * self.rescale_grad
         if self.clip_gradient is None or self.clip_gradient <= 0:
@@ -263,12 +274,23 @@ class Optimizer:
         update): with the tier on, the entries that update through their
         master go through one ``step_fused_multi`` call, a single kernel
         launch with their casts; the others are updated one by one.  The
-        result is bitwise that of one call per index."""
+        result is bitwise that of one call per index.
+
+        With the tier on and ``multi_precision``, an f32 weight is its own
+        master: it goes through the fused kernel with no cast (in a list,
+        in the same launch), where the reference runs its plain ``update``
+        (the two differ in the last bits: the kernel contracts its
+        multiply-adds)."""
         if isinstance(index, (list, tuple)):
             self._update_multi_precision_list(index, weight, grad, state)
             return
         if not self._uses_master(weight, state):
-            self.update(index, weight, grad, state)
+            if (_kernels.fused_step_enabled(self)
+                    and self._master_entry(weight, state) is not None):
+                self._update_multi_precision_list([index], [weight], [grad],
+                                                  [state])
+            else:
+                self.update(index, weight, grad, state)
             return
         master, real_state = state
         self._update_count(index)
@@ -292,13 +314,15 @@ class Optimizer:
         fused = _kernels.fused_step_enabled(self)
         batch = []
         for idx, w, g, s in zip(indices, weights, grads, states):
-            if not (fused and self._uses_master(w, s)):
+            entry = self._master_entry(w, s) if fused else None
+            if entry is None:
                 self.update_multi_precision(idx, w, g, s)
                 continue
+            master, real_state, out = entry
             self._update_count(idx)
-            batch.append((s[0], self._fused_grad(g), s[1], self._get_lr(idx),
-                          self._get_wd(idx), self._index_update_count[idx],
-                          w))
+            batch.append((master, self._fused_grad(g), real_state,
+                          self._get_lr(idx), self._get_wd(idx),
+                          self._index_update_count[idx], out))
         if not batch:
             return
         masters, gs, sts, lrs, wds, ts, lps = (list(c) for c in zip(*batch))

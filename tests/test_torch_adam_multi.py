@@ -249,8 +249,9 @@ class _Tier:
         mt.config.unset("kernels.enabled")
 
 
-#: bf16 and f16 weights over f32 masters, and an f32 weight (no master:
-#: ``update``), with lr/wd multipliers
+#: bf16 and f16 weights over f32 masters, and an f32 weight (its own
+#: master, no cast: through the fused kernel with the tier on, ``update``
+#: with it off), with lr/wd multipliers
 _MP_SHAPES = [(33, 17), (64,), (5, 7), (12,)]
 _MP_DTYPES = [torch.bfloat16, torch.float16, torch.float32, torch.bfloat16]
 
@@ -307,13 +308,14 @@ def test_updater_lists_match_per_index_calls(name, tier):
     ``update_multi_precision`` call, one launch on the card) gives the
     bits of one call per index: the low-precision weights, the masters
     and the states, and one ``kernels.fused_step`` per tensor updated
-    through its master."""
+    through its master (all four with the tier on: the f32 weight is its
+    own master)."""
     per, per_count = _mp_run(name, tier, "per-index")
     lists, list_count = _mp_run(name, tier, "lists")
     assert len(per) == len(lists)
     for a, b in zip(per, lists):
         assert a.dtype == b.dtype and torch.equal(a, b)
-    assert per_count == list_count == (3 * 3 if tier else 0)
+    assert per_count == list_count == (3 * len(_MP_SHAPES) if tier else 0)
 
 
 def test_update_multi_precision_lists_bitwise_with_reference():

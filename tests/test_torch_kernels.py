@@ -577,7 +577,8 @@ def test_served_shapes_pass_the_kernel_checks():
 def test_kernel_checks_reject_what_the_kernels_do_not_take():
     q = _meta(1, 2, 8, 64)
     f = q.float()
-    assert "bf16" in ck.flash_unsupported_reason(f, f, f, False)
+    h = q.half()
+    assert "f32 or bf16" in ck.flash_unsupported_reason(h, h, h, False)
     assert "head dim" in ck.flash_unsupported_reason(
         q[..., :32], q[..., :32], q[..., :32], False)
     assert "causal" in ck.flash_unsupported_reason(q[:, :, :4], q, q, True)
@@ -654,8 +655,9 @@ def test_backward_and_adam_checks_reject_what_the_kernels_do_not_take():
     q = _meta(1, 2, 8, 64)
     lse = _meta(2, 8, dtype=torch.float32)
     f = q.float()
-    assert "bf16" in ck.flash_bwd_unsupported_reason(f, f, f, f, lse, f,
-                                                     False)
+    h = q.half()
+    assert "f32 or bf16" in ck.flash_bwd_unsupported_reason(h, h, h, h, lse,
+                                                            h, False)
     assert "o/dO" in ck.flash_bwd_unsupported_reason(q, q, q, q[:, :, :4],
                                                      lse, q, False)
     assert "lse" in ck.flash_bwd_unsupported_reason(q, q, q, q, lse.double(),
