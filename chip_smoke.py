@@ -9,8 +9,9 @@ Phases; any failure exits non-zero without the result lines:
 
 1. build  — compile every kernel of ``mxnet_tpu_torch/csrc`` for sm_90a
             (one ``nvcc`` per source, in parallel) into ``build/kernels``;
-            a ``flash_fwd.cu`` or ``flash_bwd.cu`` build that spills a
-            register fails (their wgmma products read registers
+            a ``flash_fwd.cu`` or ``flash_bwd.cu`` build, or an f32
+            backward kernel of ``flash_f32.cu``, that spills a register
+            fails (the wgmma products of the first two read registers
             asynchronously).
 2. kernels — each kernel against its plain PyTorch version on the same
             seeded inputs at the shapes its path gives it:
@@ -19,10 +20,15 @@ Phases; any failure exits non-zero without the result lines:
             non-causal Sq=256, Skv=1024, the training shape B=4, H=12,
             S=2048, BERT-base's B=8 S=128 non-causal; the same bits from
             two launches; device time beside sdpa's), the f32 flash
-            kernels (flash_f32.cu: K2f, K2dq and K2dkv at F32_CASES, BERT's
-            shape and causal S = 1024, per row at F32_ROW_REL_TOL of the
-            row's absolute sum; the same bits twice; device time beside
-            sdpa's in f32 and the bound at PEAK_F32_FLOPS), paged decode
+            kernels (flash_f32.cu: K2f at F32_CASES, BERT's shape and
+            causal S = 1024; K2dq and K2dkv at F32_BWD_CASES, those and
+            the two ragged backward shapes; per row at F32_ROW_REL_TOL
+            of the row's absolute sum; the same bits twice; device time
+            beside sdpa's in f32; the bound at PEAK_F32_3XTF32_FLOPS and,
+            under its own name, at PEAK_F32_FLOPS; and the backward's
+            fixed and per-64-rows device time from a sweep of the
+            streamed length at BERT's grid, F32_SWEEP_TILES, and the
+            resident blocks an SM), paged decode
             K4 (PAGED_CASES: B = 1 and 8 at 1, 32 and 128 pages of 16, a
             shuffled table with sentinels past each length, bf16 and int8
             pools; the pool form and the gathered form, the same bits
@@ -211,10 +217,11 @@ is full f32.
 ``--report PATH`` writes every phase's numbers as JSON (the ResNet phase
 under ``"resnet"``).
 
-``--phase attention`` builds the two flash sources and the paged one and
-runs only the flash forward, paged decode and flash backward checks of
-phase 2, and prints their report as one JSON line: the quick check after
-a change to an attention kernel.
+``--phase attention`` builds the flash sources (bf16 and f32) and the
+paged one and runs only the flash forward, paged decode and flash
+backward checks of phase 2 (with the f32 tile sweep), and prints their
+report as one JSON line: the quick check after a change to an attention
+kernel.
 
 ``--phase optimizer`` builds K3 and K1 and runs only their checks and
 timings of phase 2 (``check_adam``, ``check_sgd``), and prints their
@@ -222,8 +229,8 @@ report as one JSON line.
 
 ``--phase bert`` builds the two bf16 flash sources, ``flash_f32.cu``
 and K3, runs phase 2's flash checks at BERT's shape (bf16) and at
-F32_CASES (f32), then phase 4b alone, and prints its report as one JSON
-line.
+F32_CASES / F32_BWD_CASES (f32), then phase 4b alone, and prints its
+report as one JSON line.
 
 ``--phase module`` builds the kernels and runs only phase 7(c), in a
 process no earlier phase has touched, after two A/Bs of the fused step
@@ -248,8 +255,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (dense): bf16 tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
-# H100 SXM float32 outside the tensor cores (elementwise and exp work)
+# H100 SXM float32 outside the tensor cores (elementwise and exp work;
+# the FFMA rate of an f32 product there)
 PEAK_F32_FLOPS = 67e12
+# H100 SXM TF32 tensor cores; an f32-accurate product is three TF32
+# products (3xTF32 split operands), so the card computes one at a third
+# of the TF32 rate: the bound of the f32 flash kernels
+PEAK_TF32_FLOPS = 495e12
+PEAK_F32_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 # Kernel vs plain version, per output row (one (b, h, query)): bf16 keeps
 # 8 significant bits, so one ulp is at most 2^-7 of a value.  The two sides
 # round at different points — P to bf16, the P.V sum, the row sum, the
@@ -266,15 +279,26 @@ LSE_ATOL = 1e-3
 # the sum of the magnitudes of the terms that make each output (for o:
 # sum_k p |v_k| / l, the plain forward over |v|; for dq, dk, dv: |dS| |k|,
 # |dS|^T |q| and p^T |dO|, with |dS| = p (|dO v^T| + |delta|) scale).
-# Both sides compute every value in f32 (no TF32) in other orders.  A sum
-# of n f32 terms is within n 2^-24 of its absolute sum; n <= 1024 keys or
-# queries here, so 2^-14 a side.  A score is a 64-term sum, off by at most
-# 64 2^-24 sum|q k| scale, ~2^-16 at these inputs, which p = exp(s - m)
-# turns into a relative error of p of that size; expf adds two ulps.  So
-# the two sides differ by under 2 (2^-14 + 2^-16 + 2^-23) < 2^-12 of the
-# absolute sum.  A kernel that drops one key of a 1024-key row moves it
-# by ~2^-10 of the absolute sum, 4x the limit; TF32 products (10 mantissa
-# bits, 2^-11 relative each) move the scores by ~2^-8 and fail by far.
+# The plain version computes in full f32 (allow_tf32 off).  The forward
+# kernel does too (FFMA); the backward kernels multiply on the tensor
+# cores as 3xTF32: each operand split into two TF32 parts, big and
+# small, and small*big + big*small + big*big accumulated in f32.  The
+# dropped small*small term and the rounding of small are each at most
+# 2^-22 of a product's magnitude, so a sum of split products is within
+# 2^-20 of its absolute sum beyond the f32 accumulation's own error.  A
+# sum of n f32 terms is within n 2^-24 of its absolute sum (the tensor
+# cores round once per 8 products, at most 2^-23 each: (n/8 + 8) 2^-23 is
+# less); n <= 1024 keys or queries here, so 2^-14 a side.  A score is a
+# 64-term sum, off by at most 64 2^-24 + 2^-20 of sum|q k| scale, ~2^-15
+# at these inputs, which p = exp(s - lse) turns into a relative error of
+# p of that size; expf adds two ulps.  So the two sides differ by under
+# 2 (2^-14 + 2^-15 + 2^-20 + 2^-23) < 2^-12 of the absolute sum.  A
+# kernel that drops one key of a 1024-key row moves it by ~2^-10 of the
+# absolute sum, 4x the limit.  Single TF32 products (10 mantissa bits,
+# 2^-11 relative each), what a split that does not happen leaves, move
+# the scores by ~2^-8 and miss it: tests/test_torch_flash_f32_split.py
+# emulates both on the CPU (3xTF32 ~1e-6, single TF32 1.6-4.5x the
+# limit, at B=1 H=2 S=256 causal and 64x192).
 F32_ROW_REL_TOL = 2.0 ** -12
 # Served greedy tokens vs the plain teacher-forced argmax: a mismatch is
 # excused only where the plain top-2 logit margin is below this.  On the
@@ -429,8 +453,24 @@ FWD_CASES = ((1, True, 17, 17), (1, True, 128, 128), (1, True, 1024, 1024),
 #: (B, causal, Sq, Skv) of the f32 kernels' checks (flash_f32.cu, forward
 #: and backward): BERT-base's shape and a causal S = 1024
 F32_CASES = ((8, False, 128, 128), (1, True, 1024, 1024))
+#: the f32 backward's checks: F32_CASES and the bf16 backward's ragged
+#: shapes (BWD_CASES), causal 1000 = 15 x 64 + 40 and non-causal
+#: Sq=200 x Skv=1000
+F32_BWD_CASES = F32_CASES + ((1, True, 1000, 1000), (1, False, 200, 1000))
+#: the f32 backward's fixed-cost sweep: at BERT's grid (B=8 H=12, 128
+#: rows on the block side) the streamed side is 64 x n rows long
+F32_SWEEP_TILES = (1, 2, 4, 8)
 _DTYPES = {"bfloat16": ("bf16", 2, PEAK_BF16_FLOPS),
-           "float32": ("f32", 4, PEAK_F32_FLOPS)}
+           "float32": ("f32", 4, PEAK_F32_3XTF32_FLOPS)}
+
+
+def _ffma_bound(case, nbytes, flops):
+    """Add the f32 bound at the FFMA rate (PEAK_F32_FLOPS) beside the
+    3xTF32 one an f32 case's ``bound_ms`` holds."""
+    case["bound_is"] = ("3xTF32: f32-accurate products at 495/3 TFLOP/s "
+                        "(PEAK_F32_3XTF32_FLOPS)")
+    case["bound_ffma_ms"], case["bound_ffma_by"] = _bound_ms(
+        nbytes, flops, PEAK_F32_FLOPS)
 
 
 def _abs_row_err(torch, o, po, scale):
@@ -500,6 +540,8 @@ def check_flash(ck, torch, F, cases=FWD_CASES, dtype="bfloat16"):
             "library_computes": "scaled_dot_product_attention (device "
                                 "time; no lse)",
             "bound_ms": bound, "bound_by": by}
+        if short == "f32":
+            _ffma_bound(case, nbytes, 4 * B * H * D * pairs)
         if case["ms"]:
             case["bound_share"] = bound / case["ms"]
             case["vs_library"] = (case["ms"] / case["library_ms"]
@@ -748,7 +790,8 @@ def check_flash_bwd(ck, torch, F, cases=BWD_CASES, dtype="bfloat16"):
             same = all(_same_bits(torch, x, y) for x, y in zip(outs, reruns))
             ok = (row_err <= tol and same and all(
                 bool(torch.isfinite(x.float()).all()) for x in outs))
-            bound, by = _bound_ms(nbytes, products * 2 * D * pairs, peak)
+            flops = products * 2 * D * pairs
+            bound, by = _bound_ms(nbytes, flops, peak)
             case = {"shape": shape, "max_abs_err": err,
                     "plain_max_abs": max(float(px.abs().max())
                                          for px in plain),
@@ -763,6 +806,8 @@ def check_flash_bwd(ck, torch, F, cases=BWD_CASES, dtype="bfloat16"):
                     "library_computes": "dq, dk, dv (sdpa backward; "
                                         "device time)",
                     "bound_ms": bound, "bound_by": by}
+            if short == "f32":
+                _ffma_bound(case, nbytes, flops)
             case["bound_share"] = (bound / case["device_ms"]
                                    if case["device_ms"] else None)
             _log("[kernels] %s %s" % (name, json.dumps(case)))
@@ -777,6 +822,46 @@ def check_flash_bwd(ck, torch, F, cases=BWD_CASES, dtype="bfloat16"):
                  % (json.dumps(shape), pair[0]["device_ms"],
                     pair[1]["device_ms"], both, lib_ms, both / lib_ms))
     return dq_cases, dkv_cases
+
+
+def sweep_flash_bwd_f32(ck, torch):
+    """The f32 backward's fixed cost (launch, prologue, epilogue) and its
+    cost per 64 streamed rows, by device time: at BERT's grid (B=8, H=12,
+    128 rows on the block side, no mask) each kernel walks n x 64 rows of
+    the streamed side (K2dq: Skv, K2dkv: Sq) for n in F32_SWEEP_TILES, and
+    a least-squares line over n gives ``fixed_ms + per_64_rows_ms x n``;
+    with each kernel's resident blocks an SM (the occupancy API)."""
+    from mxnet_tpu_torch.ops import _build
+    B, H, S, D = BERT_B, 12, BERT_S, 64
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    out = {"shape": {"B": B, "H": H, "block_side": S, "D": D,
+                     "causal": False, "dtype": "float32"},
+           "rows_over_64": list(F32_SWEEP_TILES)}
+    for name, launch in (("flash_bwd_dq_f32", ck._launch_bwd_dq),
+                         ("flash_bwd_dkv_f32", ck._launch_bwd_dkv)):
+        times = []
+        for n in F32_SWEEP_TILES:
+            sq, skv = (S, 64 * n) if name == "flash_bwd_dq_f32" \
+                else (64 * n, S)
+            q, do = (torch.randn(B, H, sq, D, generator=g, device="cuda")
+                     for _ in range(2))
+            k, v = (torch.randn(B, H, skv, D, generator=g, device="cuda")
+                    for _ in range(2))
+            o, lse = ck.flash_attention(q, k, v)
+            args = (q, k, v, do, lse, ck.flash_delta(o, do), False, None)
+            times.append(_device_ms(torch, lambda: launch(*args), iters=20))
+        xs = list(F32_SWEEP_TILES)
+        mx_, my = sum(xs) / len(xs), sum(times) / len(times)
+        slope = (sum((x - mx_) * (y - my) for x, y in zip(xs, times))
+                 / sum((x - mx_) ** 2 for x in xs))
+        out[name] = {"device_ms": times, "per_64_rows_ms": slope,
+                     "fixed_ms": my - slope * mx_}
+    lib = _build.load("flash_f32", ck._SIGNATURES["flash_f32"])
+    out["blocks_per_sm"] = {
+        name: lib.mx_flash_f32_blocks_per_sm(i) for i, name in enumerate(
+            ("flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32"))}
+    _log("[kernels] flash_bwd_f32 tile sweep %s" % json.dumps(out))
+    return out
 
 
 def _adam_shapes(cfg):
@@ -3290,7 +3375,9 @@ def _summary(name, source, replaces, cases, launches):
             **{k: top[k] for k in ("device_ms", "library_event_ms",
                                    "library_device_ms", "ms_is", "event_ms",
                                    "bound_share", "vs_library",
-                                   "bound_bytes", "gathered")
+                                   "bound_bytes", "gathered", "bound_is",
+                                   "bound_ffma_ms", "bound_ffma_by",
+                                   "pair_vs_library")
                if k in top}}
 
 
@@ -3308,6 +3395,16 @@ def _k6_summary(cases, replaces, launches):
             "bound_by": top["bound_by"], "library_ms": None,
             "at": {"shape": top["shape"], "dtype": top["dtype"]},
             "cases": cases}
+
+
+def _spill_stores(ptxas):
+    """{kernel (mangled name): bytes of spill stores} from a ptxas -v
+    report."""
+    found = dict(re.findall(r"Function properties for (\S+)\s+\d+ bytes "
+                            r"stack frame, (\d+) bytes spill stores", ptxas))
+    if len(found) != ptxas.count("bytes spill stores"):
+        raise AssertionError("unread ptxas spill report: %s" % ptxas)
+    return found
 
 
 def _write_report(path, report):
@@ -3377,14 +3474,18 @@ def main(argv=None):
                 _log("[build] %s: %s" % (name, line.strip()))
     _log("[build] %s" % json.dumps({k: v for k, v in report["build"].items()
                                     if k != "ptxas"}))
-    # the flash kernels' wgmma products read registers asynchronously; a
-    # spilled register under one is not safe
-    for name in ("flash_fwd", "flash_bwd"):
-        spills = re.findall(r"(\d+) bytes spill stores",
-                            built.get(name, {}).get("ptxas", ""))
-        if any(int(n) for n in spills):
-            raise AssertionError("%s.cu spills registers: %s"
-                                 % (name, built[name]["ptxas"]))
+    # the bf16 flash kernels' wgmma products read registers
+    # asynchronously; a spilled register under one is not safe.
+    # flash_f32.cu's backward mma.sync products are synchronous, but a
+    # spill in their main loops would cost them their speed: the same
+    # gate holds them (the FFMA forward, left as it was, spills 4 bytes)
+    for name, kernel in (("flash_fwd", ""), ("flash_bwd", ""),
+                         ("flash_f32", "flash_bwd")):
+        spills = {fn: int(n) for fn, n in _spill_stores(
+            built.get(name, {}).get("ptxas", "")).items() if kernel in fn}
+        if any(spills.values()):
+            raise AssertionError("%s.cu spills registers: %s\n%s"
+                                 % (name, spills, built[name]["ptxas"]))
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     f32_keys = ("flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
@@ -3397,7 +3498,8 @@ def main(argv=None):
         report["flash_fwd_f32"] = check_flash(ck, torch, F, F32_CASES,
                                               "float32")
         report["flash_bwd_dq_f32"], report["flash_bwd_dkv_f32"] = \
-            check_flash_bwd(ck, torch, F, F32_CASES, "float32")
+            check_flash_bwd(ck, torch, F, F32_BWD_CASES, "float32")
+        report["flash_bwd_f32_sweep"] = sweep_flash_bwd_f32(ck, torch)
         bad = [c for key in ("flash_fwd", "paged_decode_pool_bf16",
                              "paged_decode_pool_int8", "flash_bwd_dq",
                              "flash_bwd_dkv") + f32_keys
@@ -3430,7 +3532,8 @@ def main(argv=None):
         report["flash_fwd_f32"] = check_flash(ck, torch, F, F32_CASES,
                                               "float32")
         report["flash_bwd_dq_f32"], report["flash_bwd_dkv_f32"] = \
-            check_flash_bwd(ck, torch, F, F32_CASES, "float32")
+            check_flash_bwd(ck, torch, F, F32_BWD_CASES, "float32")
+        report["flash_bwd_f32_sweep"] = sweep_flash_bwd_f32(ck, torch)
         bad = [c for key in ("flash_fwd", "flash_bwd_dq",
                              "flash_bwd_dkv") + f32_keys
                for c in report[key] if not c["ok"]]
@@ -3455,7 +3558,9 @@ def main(argv=None):
     paged8 = check_paged(ck, torch, F, quant=True)
     bwd_dq, bwd_dkv = check_flash_bwd(ck, torch, F)
     flash32 = check_flash(ck, torch, F, F32_CASES, "float32")
-    bwd_dq32, bwd_dkv32 = check_flash_bwd(ck, torch, F, F32_CASES, "float32")
+    bwd_dq32, bwd_dkv32 = check_flash_bwd(ck, torch, F, F32_BWD_CASES,
+                                          "float32")
+    report["flash_bwd_f32_sweep"] = sweep_flash_bwd_f32(ck, torch)
     adam, adam_step = check_adam(ck, torch)
     sgd, sgd_step = check_sgd(ck, torch, mx, np)
     k5f, k5b = check_row_softmax(ck, torch)

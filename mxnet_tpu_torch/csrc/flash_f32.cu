@@ -1,7 +1,5 @@
-// Flash attention in f32 for Hopper (sm_90a): the forward and the two
-// backward kernels at head dim 64, f32 operands with f32 accumulation on
-// the CUDA cores (FFMA).  No TF32: TF32 keeps 10 mantissa bits, which is
-// not the f32 the reference's kernels compute in.
+// Flash attention in f32 for Hopper (sm_90a) at head dim 64: the forward
+// (K2f f32) and the two backward kernels (K2dq f32, K2dkv f32).
 //
 // Replaces: for f32 inputs, the Pallas kernels `_flash_fwd_kernel`
 // (launched by `_flash_forward`), `_flash_bwd_dq_kernel` and
@@ -19,24 +17,91 @@
 //   dk, dv:   dv = p^T dO, dk = ds^T q;
 // with delta = rowsum(dO * O) computed outside (cuda_kernels.flash_delta).
 //
-// What bounds it on the H100: the products, 2 (forward) to 4 (dk/dv)
-// f32 products of 2 * 64 FLOPs per (query, key) pair, against 67 TFLOP/s
-// of f32 FMA rate outside the tensor cores; at BERT's S = 128 the
-// q/k/v/o bytes against 3.35 TB/s come close.
+// ---- The forward: full f32 on the CUDA cores (FFMA), no TF32.
+// What bounds it: 2 products of 2 * 64 FLOPs per (query, key) pair.  A
+// block of 256 threads owns 64 queries and walks the keys in 64-row tiles
+// staged in shared memory (rows padded to 65 floats, so both the row-wise
+// and the column-wise reads of a tile are free of bank conflicts).  Each
+// thread holds a 4x4 micro-tile of every 64x64 product (rows ty + 16i,
+// columns tx + 16j) and accumulates it with FFMA; the online softmax's
+// running max and sum per row stay in registers, a row's 16 threads in
+// one half-warp reducing with shuffles.  Shared memory, not the FMA rate,
+// sets its pace (8 floats loaded for 16 FMAs).
 //
-// The design is the simple one: a block of 256 threads owns one 64-row
-// tile (64 queries in the forward and dq, 64 keys in dk/dv) and walks the
-// other side in 64-row tiles staged in shared memory (rows padded to 65
-// floats, so both the row-wise and the column-wise reads of a tile are
-// free of bank conflicts).  Each thread holds a 4x4 micro-tile of every
-// 64x64 product (rows ty + 16i, columns tx + 16j) and accumulates it with
-// FFMA.  The forward keeps the online softmax's running max and sum per
-// row in registers; a row's 16 threads sit in one half-warp and reduce
-// with shuffles.  Causal: tiles wholly above the diagonal are skipped
-// (they add exact zeros); keys past a ragged end get p = 0 and rows past
-// it are neither used nor stored.  No atomics: two launches give the same
-// bits.  Not yet: tensor cores (3xTF32 split products), head dims other
-// than 64.
+// ---- The backward: the products on the tensor cores as 3xTF32.
+// What bounds it: dq does 3 products (q k^T, dO v^T, ds k) and dk/dv 4
+// (k q^T, v dO^T, p^T dO, ds^T q), each 2 * 64 FLOPs per (query, key)
+// pair.  An f32-accurate product on the tensor cores is three TF32
+// products, so the card's rate for it is 495 / 3 = 165 TFLOP/s; at BERT's
+// S = 128 the bytes of q, k, v, dO and the outputs against 3.35 TB/s
+// bound it instead.
+//
+// 3xTF32.  Each operand x is split as x = big + small, big = tf32(x),
+// small = tf32(x - big), both rounded with cvt.rna.tf32.f32 (a tf32 mma
+// reads an f32 register by dropping its low 13 bits, which would give
+// small the wrong value); the product is small*big + big*small + big*big,
+// accumulated in f32 (small terms first).  The dropped small*small term
+// and the rounding of small are ~2^-22 of each product: the f32
+// accumulation's own error dominates.  Where the split happens: once per
+// element of a tile in shared memory, by the whole block, into a split
+// tile (the tile's big parts, then its small parts, each laid out as
+// below).  Splitting at fragment load instead, as CUTLASS's FastF32 does,
+// splits every B element once per warp and orientation (8 times for K in
+// dq), and ran about a third slower in a development A/B on the H100:
+// the conversions, not the products, set its pace.  Only the operands
+// that are accumulators of an earlier product (P, dS) are split in
+// registers.
+//
+// Instruction: mma.sync.m16n8k8 tf32.  wgmma reads a tf32 operand from
+// shared memory only K-major, and three of the seven products (ds k,
+// p^T dO, ds^T q) have a B operand that is MN-major in its row-major
+// tile; mma.sync takes fragments from registers, loaded in either
+// orientation.  The k index of a product may be permuted as long as A
+// and B agree, so the accumulator of S (thread (g, t) = (lane / 4,
+// lane % 4) holds columns 2t and 2t + 1 of each 8-column group) is used as
+// the A fragment of the next product directly, with logical k = t taken
+// as column 2t and k = t + 4 as column 2t + 1; B is read at the same two
+// rows.  P and dS never leave registers.
+//
+// Bank conflicts.  The big and the small part of a tile are each stored
+// unpadded (256 bytes a row) with 16-byte chunk c of row r at chunk
+// c ^ (r & 7), and read with 4-byte loads.  Fragments read a tile two
+// ways:
+//   along rows (A fragments; B of q k^T, k q^T, dO v^T, v dO^T): lanes
+//   (g, t) read row r0 + g, column 8s + t (+4).  r & 7 = g, so the 8 rows
+//   land on chunks (2s ^ g) & 7, 8 distinct groups of 4 banks, and t
+//   picks the bank: 32 banks.
+//   down columns (B of ds k, p^T dO, ds^T q): lanes read row 8j + 2t
+//   (+1), column 8n + g.  The chunk is (2n + (g >> 2)) ^ (2t [+1]): its
+//   low bit g >> 2 (^1), bits 1-2 (n ^ t) & 3: 8 distinct groups over
+//   (t, g >> 2), and g & 3 picks the bank: 32 banks.
+// Both are conflict-free, and the split pass's 16-byte stores (8 chunks
+// of one row a quarter-warp) are too.  Big and small side by side in one
+// row, read with 8-byte loads, ran slower in the same A/B.
+//
+// Overlap, a two-stage ring: the streamed tiles (K and V in dq; Q, dO and
+// their lse and delta strips in dk/dv) land raw in a landing buffer by
+// cp.async (16-byte copies, zero-filled past a ragged end) while the split
+// tile before them is multiplied; each iteration splits the landed tile,
+// issues the next copy, then multiplies.  The block's own tiles (Q and dO
+// in dq, K and V in dk/dv) land once, in the streamed split tiles' place,
+// and are split before the first iteration.
+//
+// Blocks and tiles: 128 threads (4 warps, 16 rows each), 64 rows a block
+// (queries in dq, keys in dk/dv), streamed tiles of 32 rows.  dq holds
+// split Q and dO (64 KB), a split K and V tile (32 KB) and the landing
+// buffer (16 KB); dk/dv split K and V, a split Q and dO tile, the landing
+// buffer and the strips: 112 KB each, two blocks an SM (the 32-row
+// streamed tile is what makes the split tiles fit twice).  Both checked
+// grids (B=8 H=12 S=128 and B=1 H=12 S=1024 causal) have 192 blocks: all
+// resident at once on 132 SMs, one wave with no tail.  Registers are not
+// the limit (<= 255 a thread at two 128-thread blocks).  Causal: tiles
+// wholly above the diagonal are skipped; the grid runs the heaviest
+// blocks first (dq: the last query blocks; dk/dv: the first key blocks),
+// batch*head fastest.  A masked or ragged (query, key) pair gets p = 0
+// exactly; rows past the end are not stored.  No atomics: a second launch
+// gives the same bits.
+// Not yet: head dims other than 64, the forward on the tensor cores.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -99,23 +164,6 @@ __device__ __forceinline__ void mm_nn_acc(float acc[4][4], const float* P,
     for (int i = 0; i < 4; ++i) a[i] = P[(ty + 16 * i) * kLd + k];
 #pragma unroll
     for (int j = 0; j < 4; ++j) b[j] = X[k * kLd + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_q P[q][ty + 16i] * X[q][tx + 16j]   (P^T X)
-__device__ __forceinline__ void mm_tn_acc(float acc[4][4], const float* P,
-                                          const float* X, int ty, int tx) {
-#pragma unroll 8
-  for (int q = 0; q < kT; ++q) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = P[q * kLd + ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = X[q * kLd + tx + 16 * j];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -241,33 +289,227 @@ __global__ void __launch_bounds__(kThreads)
   store_rows(o + (size_t)bh * sq * kD, acc, q0, sq, ty, tx);
 }
 
-// p and ds of one 64x64 (query, key) block from its scores and dO v^T;
-// rows past sq and keys past skv get 0.
-__device__ __forceinline__ void probs(float s[4][4], float dp[4][4],
-                                      const float* __restrict__ lse,
-                                      const float* __restrict__ delta,
-                                      int q0, int k0, int sq, int skv,
-                                      int causal, float scale, int ty,
-                                      int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    const bool live = row < sq;
-    const float ls = live ? lse[row] : 0.f;
-    const float dl = live ? delta[row] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + tx + 16 * j;
-      float x = s[i][j] * scale;
-      if (causal && col > row) x = kNeg;
-      const float p = (live && col < skv) ? expf(x - ls) : 0.f;
-      s[i][j] = p;
-      dp[i][j] = p * (dp[i][j] - dl) * scale;
-    }
+// ------------------------------------------------------------ the backward
+constexpr int kBwdThreads = 128;  // 4 warps of 16 rows
+constexpr int kRows = 64;         // own rows: dq queries, dk/dv keys
+constexpr int kStream = 32;       // rows of a streamed tile
+constexpr int kSplitLd = 2 * kD;  // floats a row of a split tile (big, small)
+
+struct DqSmem {
+  float q[kRows * kSplitLd];     // split Q (big, then small)
+  float dout[kRows * kSplitLd];  // split dO
+  float k[kStream * kSplitLd];   // split K tile (where Q lands raw)
+  float v[kStream * kSplitLd];   // split V tile (where dO lands raw)
+  float raw[2][kStream * kD];    // the next K and V tiles as they land
+};
+
+struct DkvSmem {
+  float k[kRows * kSplitLd];       // split K
+  float v[kRows * kSplitLd];       // split V
+  float q[kStream * kSplitLd];     // split Q tile (where K lands raw)
+  float dout[kStream * kSplitLd];  // split dO tile (where V lands raw)
+  float raw[2][kStream * kD];      // the next Q and dO tiles as they land
+  float lse[2][kStream];           // ring of the tiles' lse and delta
+  float delta[2][kStream];
+};
+
+static_assert(2 * (sizeof(DkvSmem) + 1024) <= 233472 &&
+                  2 * (sizeof(DqSmem) + 1024) <= 233472,
+              "two blocks of each kernel must fit an SM's shared memory");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, the bytes past `bytes` (0 or 16) zero-filled.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + rows) of a row-major [n, 64] matrix into a plain
+// row-major tile; rows past n are zero.  16 threads copy one 256-byte row.
+__device__ __forceinline__ void async_rows(float* tile, const float* g,
+                                           int r0, int rows, int n) {
+  const int c4 = threadIdx.x & 15;
+  for (int r = threadIdx.x >> 4; r < rows; r += kBwdThreads / 16) {
+    const bool in = r0 + r < n;
+    cp_async16(tile + r * kD + 4 * c4,
+               g + (size_t)(in ? r0 + r : 0) * kD + 4 * c4, in ? 16 : 0);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Entry i of [r0, r0 + kStream) of a flat f32 strip (lse or delta of one
+// head), zero past n.  4-byte copies: a head's strip need not be 16-byte
+// aligned.
+__device__ __forceinline__ void async_strip(float* strip, const float* g,
+                                            int r0, int n, int i) {
+  const bool in = r0 + i < n;
+  cp_async4(strip + i, g + (in ? r0 + i : 0), in ? 4 : 0);
+}
+
+// x = big + small, both tf32 (cvt.rna: to nearest, ties away from zero).
+// big's low 13 bits are cleared, so its f32 reading is its tf32 value.
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  uint32_t b;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(b) : "f"(x));
+  b &= 0xffffe000u;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(x - __uint_as_float(b)));
+  big = b;
+}
+
+// A split tile of R rows: big at [0, 64R), small at [64R, 128R), each
+// with 16-byte chunk j of row r at chunk j ^ (r & 7).
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * kD + (((c >> 2) ^ (r & 7)) << 2) + (c & 3);
+}
+
+template <int R>
+__device__ __forceinline__ void load_split(const float* tile, int r, int c,
+                                           uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(tile[swz(r, c)]);
+  small = __float_as_uint(tile[R * kD + swz(r, c)]);
+}
+
+// rows x 64 plain f32 -> split tile, each element once, by the block.
+__device__ __forceinline__ void split_tile(float* dst, const float* raw,
+                                           int rows) {
+  for (int i = threadIdx.x; i < rows * kD / 4; i += kBwdThreads) {
+    const int r = i / (kD / 4), j = i % (kD / 4);
+    const float4 x = *reinterpret_cast<const float4*>(raw + r * kD + 4 * j);
+    uint4 b, s;
+    split(x.x, b.x, s.x);
+    split(x.y, b.y, s.y);
+    split(x.z, b.z, s.z);
+    split(x.w, b.w, s.w);
+    const int o = r * kD + ((j ^ (r & 7)) << 2);
+    *reinterpret_cast<uint4*>(dst + o) = b;
+    *reinterpret_cast<uint4*>(dst + rows * kD + o) = s;
+  }
+}
+
+// d[16 x 8] += a[16 x 8] b[8 x 8], one tf32 mma.  a: (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4); b: (t, g), (t + 4, g); d: (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1)  (row, column), g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 3xTF32 over N column groups: acc[n] += a b[n] as small*big, then
+// big*small, then big*big (each group of N independent mmas in a row).
+template <int N>
+__device__ __forceinline__ void mma3(float (&acc)[N][4],
+                                     const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4],
+                                     const uint32_t (&bb)[N][2],
+                                     const uint32_t (&bs)[N][2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(acc[n], as, bb[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(acc[n], ab, bs[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(acc[n], ab, bb[n]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[n][i] = 0.f;
+}
+
+// acc[16 x 8N] = A B^T over the 64 columns of both: A rows ra .. ra + 15
+// of the block's split tile `a` (kRows rows), B rows 0 .. 8N - 1 of the
+// streamed split tile `b` (kStream rows; column group n of acc is rows
+// 8n .. 8n + 7 of b); both read along their rows.
+template <int N>
+__device__ __forceinline__ void mm_abt(float (&acc)[N][4], const float* a,
+                                       int ra, const float* b, int g, int t) {
+  zero(acc);
+#pragma unroll
+  for (int s = 0; s < kD / 8; ++s) {
+    uint32_t ab[4], as[4], bb[N][2], bs[N][2];
+    load_split<kRows>(a, ra + g, 8 * s + t, ab[0], as[0]);
+    load_split<kRows>(a, ra + g + 8, 8 * s + t, ab[1], as[1]);
+    load_split<kRows>(a, ra + g, 8 * s + t + 4, ab[2], as[2]);
+    load_split<kRows>(a, ra + g + 8, 8 * s + t + 4, ab[3], as[3]);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      load_split<kStream>(b, 8 * n + g, 8 * s + t, bb[n][0], bs[n][0]);
+      load_split<kStream>(b, 8 * n + g, 8 * s + t + 4, bb[n][1], bs[n][1]);
+    }
+    mma3(acc, ab, as, bb, bs);
+  }
+}
+
+// acc[16 x 64] += X B: X the [16 x 8K] accumulator of an earlier product
+// (its 8K columns are the reduction), B rows 0 .. 8K - 1 of the streamed
+// split tile `b` read down its columns.  Step j takes X's column group j
+// as the A fragment with logical k = t at column 8j + 2t and k = t + 4 at
+// 8j + 2t + 1, so B's rows are 8j + 2t and 8j + 2t + 1.
+template <int K>
+__device__ __forceinline__ void mm_xb(float (&acc)[8][4],
+                                      const float (&x)[K][4], const float* b,
+                                      int g, int t) {
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    uint32_t ab[4], as[4], bb[8][2], bs[8][2];
+    split(x[j][0], ab[0], as[0]);
+    split(x[j][2], ab[1], as[1]);
+    split(x[j][1], ab[2], as[2]);
+    split(x[j][3], ab[3], as[3]);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      load_split<kStream>(b, 8 * j + 2 * t, 8 * n + g, bb[n][0], bs[n][0]);
+      load_split<kStream>(b, 8 * j + 2 * t + 1, 8 * n + g, bb[n][1], bs[n][1]);
+    }
+    mma3(acc, ab, as, bb, bs);
+  }
+}
+
+// Rows row0 and row0 + 8 (< n) of a row-major [n, 64] output from a
+// [16 x 64] accumulator.
+__device__ __forceinline__ void store_acc(float* out, const float (&acc)[8][4],
+                                          int row0, int n, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= n) continue;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      *reinterpret_cast<float2*>(out + (size_t)row * kD + 8 * c + 2 * t) =
+          make_float2(acc[c][2 * h], acc[c][2 * h + 1]);
+  }
+}
+
+constexpr int kSc = kStream / 8;  // column groups of a streamed tile
+
+__global__ void __launch_bounds__(kBwdThreads, 2)
     flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
@@ -276,44 +518,72 @@ __global__ void __launch_bounds__(kThreads)
                             const float* __restrict__ delta,
                             float* __restrict__ dq, int sq, int skv,
                             int causal, float scale) {
-  extern __shared__ float sm[];
-  float* qs = sm;
-  float* dos = qs + kTileFloats;
-  float* ks = dos + kTileFloats;
-  float* vs = ks + kTileFloats;
-  float* dss = vs + kTileFloats;
+  extern __shared__ __align__(16) float smem_dq[];
+  DqSmem& sm = *reinterpret_cast<DqSmem*>(smem_dq);
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kT;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  // causal: the last query blocks (the most key tiles) first
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kRows;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rw = 16 * (threadIdx.x >> 5);  // the warp's rows in the block
   const float* kb = k + (size_t)bh * skv * kD;
   const float* vb = v + (size_t)bh * skv * kD;
-  load_tile(qs, q + (size_t)bh * sq * kD, q0, sq);
-  load_tile(dos, dout + (size_t)bh * sq * kD, q0, sq);
-  float acc[4][4];
+  // Q and dO land raw in the K and V tiles' place, tile 0 in the ring
+  async_rows(sm.k, q + (size_t)bh * sq * kD, q0, kRows, sq);
+  async_rows(sm.v, dout + (size_t)bh * sq * kD, q0, kRows, sq);
+  async_rows(sm.raw[0], kb, 0, kStream, skv);
+  async_rows(sm.raw[1], vb, 0, kStream, skv);
+  cp_commit();
+  float ls[2], dl[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  const int nt = kv_tiles(q0, skv, causal);
-  for (int it = 0; it < nt; ++it) {
-    const int k0 = it * kT;
-    __syncthreads();
-    load_tile(ks, kb, k0, skv);
-    load_tile(vs, vb, k0, skv);
-    __syncthreads();
-    float s[4][4], ds[4][4];
-    mm_nt(s, qs, ks, ty, tx);
-    mm_nt(ds, dos, vs, ty, tx);
-    probs(s, ds, lse + (size_t)bh * sq, delta + (size_t)bh * sq, q0, k0, sq,
-          skv, causal, scale, ty, tx);
-    put(dss, ds, ty, tx);
-    __syncthreads();
-    mm_nn_acc(acc, dss, ks, ty, tx);  // dq += ds k
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + rw + g + 8 * h;
+    ls[h] = row < sq ? lse[(size_t)bh * sq + row] : 0.f;
+    dl[h] = row < sq ? delta[(size_t)bh * sq + row] : 0.f;
   }
-  store_rows(dq + (size_t)bh * sq * kD, acc, q0, sq, ty, tx);
+  const int nkt = (skv + kStream - 1) / kStream;
+  // causal: key tiles up to the one holding the block's last query
+  const int nt = causal ? min(nkt, (q0 + kRows - 1) / kStream + 1) : nkt;
+  cp_wait_all();
+  __syncthreads();
+  split_tile(sm.q, sm.k, kRows);
+  split_tile(sm.dout, sm.v, kRows);
+  __syncthreads();
+  float acc[8][4];
+  zero(acc);
+  for (int it = 0; it < nt; ++it) {
+    // the split K and V tiles take tile it; tile it + 1 lands in the
+    // landing buffer while this one is multiplied
+    split_tile(sm.k, sm.raw[0], kStream);
+    split_tile(sm.v, sm.raw[1], kStream);
+    __syncthreads();
+    if (it + 1 < nt) {
+      async_rows(sm.raw[0], kb, (it + 1) * kStream, kStream, skv);
+      async_rows(sm.raw[1], vb, (it + 1) * kStream, kStream, skv);
+      cp_commit();
+    }
+    const int k0 = it * kStream;
+    float s[kSc][4], ds[kSc][4];
+    mm_abt(s, sm.q, rw, sm.k, g, t);      // q k^T
+    mm_abt(ds, sm.dout, rw, sm.v, g, t);  // dO v^T
+#pragma unroll
+    for (int n = 0; n < kSc; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + rw + g + 8 * (i >> 1);
+        const int col = k0 + 8 * n + 2 * t + (i & 1);
+        float x = s[n][i] * scale;
+        if (causal && col > row) x = kNeg;
+        const float p = (row < sq && col < skv) ? expf(x - ls[i >> 1]) : 0.f;
+        ds[n][i] = p * (ds[n][i] - dl[i >> 1]) * scale;
+      }
+    mm_xb(acc, ds, sm.k, g, t);  // dq += ds k
+    cp_wait_all();
+    __syncthreads();  // every warp is done with the split tiles
+  }
+  store_acc(dq + (size_t)bh * sq * kD, acc, q0 + rw + g, sq, t);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads, 2)
     flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
                              const float* __restrict__ v,
@@ -322,46 +592,75 @@ __global__ void __launch_bounds__(kThreads)
                              const float* __restrict__ delta,
                              float* __restrict__ dk, float* __restrict__ dv,
                              int sq, int skv, int causal, float scale) {
-  extern __shared__ float sm[];
-  float* ks = sm;
-  float* vs = ks + kTileFloats;
-  float* qs = vs + kTileFloats;
-  float* dos = qs + kTileFloats;
-  float* ps = dos + kTileFloats;
-  float* dss = ps + kTileFloats;
+  extern __shared__ __align__(16) float smem_dkv[];
+  DkvSmem& sm = *reinterpret_cast<DkvSmem*>(smem_dkv);
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kT;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int k0 = blockIdx.y * kRows;  // causal: the first key blocks first
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rw = 16 * (threadIdx.x >> 5);
   const float* qb = q + (size_t)bh * sq * kD;
   const float* db = dout + (size_t)bh * sq * kD;
-  load_tile(ks, k + (size_t)bh * skv * kD, k0, skv);
-  load_tile(vs, v + (size_t)bh * skv * kD, k0, skv);
-  float dka[4][4], dva[4][4];
+  const float* lb = lse + (size_t)bh * sq;
+  const float* eb = delta + (size_t)bh * sq;
+  // causal: query tiles from the one holding key k0 (Sq == Skv)
+  const int first = causal ? k0 / kStream : 0;
+  const int nq = (sq + kStream - 1) / kStream;
+  auto load = [&](int it) {  // tile it of Q, dO, lse and delta
+    async_rows(sm.raw[0], qb, it * kStream, kStream, sq);
+    async_rows(sm.raw[1], db, it * kStream, kStream, sq);
+    const int s = (it - first) & 1;
+    if (threadIdx.x < kStream)
+      async_strip(sm.lse[s], lb, it * kStream, sq, threadIdx.x);
+    else if (threadIdx.x < 2 * kStream)
+      async_strip(sm.delta[s], eb, it * kStream, sq, threadIdx.x - kStream);
+    cp_commit();
+  };
+  // K and V land raw in the Q and dO tiles' place
+  async_rows(sm.q, k + (size_t)bh * skv * kD, k0, kRows, skv);
+  async_rows(sm.dout, v + (size_t)bh * skv * kD, k0, kRows, skv);
+  load(first);
+  cp_wait_all();
+  __syncthreads();
+  split_tile(sm.k, sm.q, kRows);
+  split_tile(sm.v, sm.dout, kRows);
+  __syncthreads();
+  float dka[8][4], dva[8][4];
+  zero(dka);
+  zero(dva);
+  for (int it = first; it < nq; ++it) {
+    split_tile(sm.q, sm.raw[0], kStream);
+    split_tile(sm.dout, sm.raw[1], kStream);
+    __syncthreads();
+    if (it + 1 < nq) load(it + 1);
+    const int s = (it - first) & 1;
+    const int q0 = it * kStream;
+    float p[kSc][4], ds[kSc][4];
+    mm_abt(p, sm.k, rw, sm.q, g, t);  // s^T = k q^T (keys x queries)
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < kSc; ++n)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dka[i][j] = dva[i][j] = 0.f;
-  const int nq = (sq + kT - 1) / kT;
-  // causal: query tiles from the one holding query k0 (Sq == Skv)
-  for (int t = causal ? k0 / kT : 0; t < nq; ++t) {
-    const int q0 = t * kT;
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + rw + g + 8 * (i >> 1);
+        const int c = 8 * n + 2 * t + (i & 1);
+        float x = p[n][i] * scale;
+        if (causal && key > q0 + c) x = kNeg;
+        p[n][i] = (q0 + c < sq && key < skv) ? expf(x - sm.lse[s][c]) : 0.f;
+      }
+    mm_xb(dva, p, sm.dout, g, t);         // dv += p^T dO
+    mm_abt(ds, sm.v, rw, sm.dout, g, t);  // dP^T = v dO^T
+#pragma unroll
+    for (int n = 0; n < kSc; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 8 * n + 2 * t + (i & 1);
+        ds[n][i] = p[n][i] * (ds[n][i] - sm.delta[s][c]) * scale;
+      }
+    mm_xb(dka, ds, sm.q, g, t);  // dk += ds^T q
+    cp_wait_all();
     __syncthreads();
-    load_tile(qs, qb, q0, sq);
-    load_tile(dos, db, q0, sq);
-    __syncthreads();
-    float s[4][4], ds[4][4];
-    mm_nt(s, qs, ks, ty, tx);   // rows: queries, columns: keys
-    mm_nt(ds, dos, vs, ty, tx);
-    probs(s, ds, lse + (size_t)bh * sq, delta + (size_t)bh * sq, q0, k0, sq,
-          skv, causal, scale, ty, tx);
-    put(ps, s, ty, tx);
-    put(dss, ds, ty, tx);
-    __syncthreads();
-    mm_tn_acc(dva, ps, dos, ty, tx);  // dv += p^T dO
-    mm_tn_acc(dka, dss, qs, ty, tx);  // dk += ds^T q
   }
-  store_rows(dk + (size_t)bh * skv * kD, dka, k0, skv, ty, tx);
-  store_rows(dv + (size_t)bh * skv * kD, dva, k0, skv, ty, tx);
+  store_acc(dk + (size_t)bh * skv * kD, dka, k0 + rw + g, skv, t);
+  store_acc(dv + (size_t)bh * skv * kD, dva, k0 + rw + g, skv, t);
 }
 
 inline bool misaligned(const void* p) {
@@ -375,11 +674,16 @@ inline bool bad_dims(int bh, int sq, int skv, int d, int causal) {
          (skv + kT - 1) / kT > 65535;
 }
 
+// The dynamic shared memory a launch asks for, and the whole shared
+// capacity of the SM as the carveout, so two backward blocks fit.
 template <typename Kernel>
-inline int set_smem(Kernel kernel, int tiles) {
+inline int set_smem(Kernel kernel, size_t bytes) {
+  const int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != 0) return err;
   return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      tiles * kTileFloats * (int)sizeof(float));
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace
@@ -391,10 +695,11 @@ extern "C" int mx_flash_fwd_f32(const void* q, const void* k, const void* v,
   if (bad_dims(bh, sq, skv, d, causal)) return (int)cudaErrorInvalidValue;
   if (misaligned(q) || misaligned(k) || misaligned(v))
     return (int)cudaErrorMisalignedAddress;
-  const int err = set_smem(flash_fwd_f32_kernel, 4);
+  const size_t bytes = 4 * kTileFloats * sizeof(float);
+  const int err = set_smem(flash_fwd_f32_kernel, bytes);
   if (err != 0) return err;
   const dim3 grid(bh, (sq + kT - 1) / kT);
-  flash_fwd_f32_kernel<<<grid, kThreads, 4 * kTileFloats * sizeof(float),
+  flash_fwd_f32_kernel<<<grid, kThreads, bytes,
                          reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
@@ -410,10 +715,10 @@ extern "C" int mx_flash_bwd_dq_f32(const void* q, const void* k,
   if (bad_dims(bh, sq, skv, d, causal)) return (int)cudaErrorInvalidValue;
   if (misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout))
     return (int)cudaErrorMisalignedAddress;
-  const int err = set_smem(flash_bwd_dq_f32_kernel, 5);
+  const int err = set_smem(flash_bwd_dq_f32_kernel, sizeof(DqSmem));
   if (err != 0) return err;
   const dim3 grid(bh, (sq + kT - 1) / kT);
-  flash_bwd_dq_f32_kernel<<<grid, kThreads, 5 * kTileFloats * sizeof(float),
+  flash_bwd_dq_f32_kernel<<<grid, kBwdThreads, sizeof(DqSmem),
                             reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
@@ -431,10 +736,10 @@ extern "C" int mx_flash_bwd_dkv_f32(const void* q, const void* k,
   if (bad_dims(bh, sq, skv, d, causal)) return (int)cudaErrorInvalidValue;
   if (misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout))
     return (int)cudaErrorMisalignedAddress;
-  const int err = set_smem(flash_bwd_dkv_f32_kernel, 6);
+  const int err = set_smem(flash_bwd_dkv_f32_kernel, sizeof(DkvSmem));
   if (err != 0) return err;
   const dim3 grid(bh, (skv + kT - 1) / kT);
-  flash_bwd_dkv_f32_kernel<<<grid, kThreads, 6 * kTileFloats * sizeof(float),
+  flash_bwd_dkv_f32_kernel<<<grid, kBwdThreads, sizeof(DkvSmem),
                              reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
@@ -442,6 +747,30 @@ extern "C" int mx_flash_bwd_dkv_f32(const void* q, const void* k,
       static_cast<float*>(dk), static_cast<float*>(dv), sq, skv, causal,
       scale);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks an SM of the forward (0), dq (1) or dk/dv (2) kernel
+// at the launches' block size and shared memory; negative on an error.
+extern "C" int mx_flash_f32_blocks_per_sm(int which) {
+  int blocks = 0, err;
+  if (which == 0) {
+    const size_t bytes = 4 * kTileFloats * sizeof(float);
+    err = set_smem(flash_fwd_f32_kernel, bytes);
+    if (err == 0)
+      err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, flash_fwd_f32_kernel, kThreads, bytes);
+  } else if (which == 1) {
+    err = set_smem(flash_bwd_dq_f32_kernel, sizeof(DqSmem));
+    if (err == 0)
+      err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, flash_bwd_dq_f32_kernel, kBwdThreads, sizeof(DqSmem));
+  } else {
+    err = set_smem(flash_bwd_dkv_f32_kernel, sizeof(DkvSmem));
+    if (err == 0)
+      err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, flash_bwd_dkv_f32_kernel, kBwdThreads, sizeof(DkvSmem));
+  }
+  return err == 0 ? blocks : -err;
 }
 
 extern "C" const char* mx_error_string(int err) {

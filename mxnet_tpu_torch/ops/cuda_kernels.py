@@ -121,6 +121,7 @@ _SIGNATURES = {
                                  _I, _F, _P], _I),
         "mx_flash_bwd_dkv_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                   _I, _I, _I, _F, _P], _I),
+        "mx_flash_f32_blocks_per_sm": ([_I], _I),
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
     "paged_attn": {
