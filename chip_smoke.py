@@ -3,16 +3,15 @@
 Usage (from the root of a checkout, one visible CUDA card)::
 
     python3 chip_smoke.py [--report PATH]
-                          [--phase attention|optimizer|module|bert]
+                          [--phase attention|optimizer|module|bert|lm_f32]
 
 Phases; any failure exits non-zero without the result lines:
 
 1. build  — compile every kernel of ``mxnet_tpu_torch/csrc`` for sm_90a
             (one ``nvcc`` per source, in parallel) into ``build/kernels``;
-            a ``flash_fwd.cu`` or ``flash_bwd.cu`` build, or an f32
-            backward kernel of ``flash_f32.cu``, that spills a register
-            fails (the wgmma products of the first two read registers
-            asynchronously).
+            a ``flash_fwd.cu``, ``flash_bwd.cu`` or ``flash_f32.cu`` build
+            that spills a register fails (the wgmma products of the first
+            two read registers asynchronously).
 2. kernels — each kernel against its plain PyTorch version on the same
             seeded inputs at the shapes its path gives it:
             flash-attention forward K2f (FWD_CASES, bf16: the serving
@@ -22,13 +21,16 @@ Phases; any failure exits non-zero without the result lines:
             two launches; device time beside sdpa's), the f32 flash
             kernels (flash_f32.cu: K2f at F32_CASES, BERT's shape and
             causal S = 1024; K2dq and K2dkv at F32_BWD_CASES, those and
-            the two ragged backward shapes; per row at F32_ROW_REL_TOL
+            the two ragged backward shapes; all three at head dim 32 at
+            F32_D32_CASES, phase 4c's shape B=4 H=8 S=1024 causal and the
+            two ragged shapes; per row at F32_ROW_REL_TOL
             of the row's absolute sum; the same bits twice; device time
             beside sdpa's in f32; the bound at PEAK_F32_3XTF32_FLOPS and,
             under its own name, at PEAK_F32_FLOPS; and the backward's
             fixed and per-64-rows device time from a sweep of the
             streamed length at BERT's grid, F32_SWEEP_TILES, and the
-            resident blocks an SM), paged decode
+            resident blocks an SM of each kernel at both head dims), paged
+            decode
             K4 (PAGED_CASES: B = 1 and 8 at 1, 32 and 128 pages of 16, a
             shuffled table with sentinels past each length, bf16 and int8
             pools; the pool form and the gathered form, the same bits
@@ -128,6 +130,21 @@ Phases; any failure exits non-zero without the result lines:
             (the f32 ``mlm_bias_v`` its own master), one step bitwise
             against ``fused_adam_step_multi_plain``, then BERT_ADAM_STEPS
             counted steps of exactly one adam_step each.
+4c. lm_f32 — ``bench.py`` ``transformer_kernels_config``'s f32 train row:
+            TransformerLM at vocab 256, 2 layers, d_model 256, 8 heads of
+            32, d_ff 512, max_len 1024, f32, seeded weights; B=4, S=1024
+            seeded tokens as inputs and targets (the reference's
+            ``loss(tok, tok)``); Adam lr 1e-3, wd 0, over the 9 f32
+            weights (each its own master) through one list
+            ``update_multi_precision`` a step.  Step-1 gradients of the
+            kernel tier on and off from the same weights within
+            LM32_GRAD_TOL of each tensor's largest; then LM32_STEPS
+            steps with the tier on (exactly 2 flash_fwd_f32,
+            flash_bwd_dq_f32 and flash_bwd_dkv_f32 and 1 adam_step a step,
+            nothing else; the last loss below the first) and LM32_STEPS
+            with it off (no launch), from the same weights; finite losses;
+            median step ms, tokens/s and a profiled window of 3 steps a
+            route, and the last step's loss delta between the routes.
 5. resnet — ResNet-50 v1 (``vision.get_model("resnet50_v1",
             classes=1000)``, 25.6 M parameters in 193 trainable tensors,
             seeded Xavier weights) trained by ``SPMDTrainer`` with SGD
@@ -232,6 +249,10 @@ and K3, runs phase 2's flash checks at BERT's shape (bf16) and at
 F32_CASES / F32_BWD_CASES (f32), then phase 4b alone, and prints its
 report as one JSON line.
 
+``--phase lm_f32`` builds ``flash_f32.cu`` and K3, runs phase 2's f32
+flash checks at head dim 32 (F32_D32_CASES), then phase 4c alone, and
+prints its report as one JSON line.
+
 ``--phase module`` builds the kernels and runs only phase 7(c), in a
 process no earlier phase has touched, after two A/Bs of the fused step
 (LRT_AB_PAIRS pairs of MLP_STEPS fused steps each, the order
@@ -279,26 +300,28 @@ LSE_ATOL = 1e-3
 # the sum of the magnitudes of the terms that make each output (for o:
 # sum_k p |v_k| / l, the plain forward over |v|; for dq, dk, dv: |dS| |k|,
 # |dS|^T |q| and p^T |dO|, with |dS| = p (|dO v^T| + |delta|) scale).
-# The plain version computes in full f32 (allow_tf32 off).  The forward
-# kernel does too (FFMA); the backward kernels multiply on the tensor
-# cores as 3xTF32: each operand split into two TF32 parts, big and
-# small, and small*big + big*small + big*big accumulated in f32.  The
+# The plain version computes in full f32 (allow_tf32 off).  The three
+# kernels multiply on the tensor cores as 3xTF32: each operand split into
+# two TF32 parts, big and small, and small*big + big*small + big*big
+# accumulated in f32.  The
 # dropped small*small term and the rounding of small are each at most
 # 2^-22 of a product's magnitude, so a sum of split products is within
 # 2^-20 of its absolute sum beyond the f32 accumulation's own error.  A
 # sum of n f32 terms is within n 2^-24 of its absolute sum (the tensor
 # cores round once per 8 products, at most 2^-23 each: (n/8 + 8) 2^-23 is
 # less); n <= 1024 keys or queries here, so 2^-14 a side.  A score is a
-# 64-term sum, off by at most 64 2^-24 + 2^-20 of sum|q k| scale, ~2^-15
-# at these inputs, which p = exp(s - lse) turns into a relative error of
-# p of that size; expf adds two ulps.  So the two sides differ by under
-# 2 (2^-14 + 2^-15 + 2^-20 + 2^-23) < 2^-12 of the absolute sum.  A
-# kernel that drops one key of a 1024-key row moves it by ~2^-10 of the
-# absolute sum, 4x the limit.  Single TF32 products (10 mantissa bits,
-# 2^-11 relative each), what a split that does not happen leaves, move
-# the scores by ~2^-8 and miss it: tests/test_torch_flash_f32_split.py
-# emulates both on the CPU (3xTF32 ~1e-6, single TF32 1.6-4.5x the
-# limit, at B=1 H=2 S=256 causal and 64x192).
+# D-term sum (D = 32 or 64), off by at most 64 2^-24 + 2^-20 of sum|q k|
+# scale, ~2^-15 at these inputs, which p = exp(s - lse) turns into a
+# relative error of p of that size; expf adds two ulps.  So the two
+# sides differ by under 2 (2^-14 + 2^-15 + 2^-20 + 2^-23) < 2^-12 of the
+# absolute sum.  A kernel that drops one key of a 1024-key row moves it
+# by ~2^-10 of the absolute sum, 4x the limit.  Single TF32 products
+# (10 mantissa bits, 2^-11 relative each), what a split that does not
+# happen leaves, move the scores by ~2^-8 and miss it:
+# tests/test_torch_flash_f32_split.py
+# emulates both on the CPU (3xTF32 ~1e-6, single TF32 1.1-4.5x the
+# limit, forward and backward at head dims 64 and 32, at B=1 H=2 S=256
+# causal and 64x192).
 F32_ROW_REL_TOL = 2.0 ** -12
 # Served greedy tokens vs the plain teacher-forced argmax: a mismatch is
 # excused only where the plain top-2 logit margin is below this.  On the
@@ -442,21 +465,28 @@ def _bound_ms(nbytes, flops, peak=None):
 
 
 # ------------------------------------------------------------- phase 2
-#: (B, causal, Sq, Skv) of the forward checks: the serving prompts' ends
-#: (17 and 1500 tokens), causal S = 128, 1024, 2048, a non-causal
-#: Sq=256 x Skv=1024, the training shape B=4 S=2048 and BERT-base's
-#: B=8 S=128 (non-causal)
-FWD_CASES = ((1, True, 17, 17), (1, True, 128, 128), (1, True, 1024, 1024),
-             (1, True, 1500, 1500), (1, True, 2048, 2048),
-             (1, False, 256, 1024), (TRAIN_B, True, TRAIN_S, TRAIN_S),
-             (8, False, 128, 128))
-#: (B, causal, Sq, Skv) of the f32 kernels' checks (flash_f32.cu, forward
-#: and backward): BERT-base's shape and a causal S = 1024
-F32_CASES = ((8, False, 128, 128), (1, True, 1024, 1024))
-#: the f32 backward's checks: F32_CASES and the bf16 backward's ragged
-#: shapes (BWD_CASES), causal 1000 = 15 x 64 + 40 and non-causal
-#: Sq=200 x Skv=1000
-F32_BWD_CASES = F32_CASES + ((1, True, 1000, 1000), (1, False, 200, 1000))
+#: (B, H, causal, Sq, Skv, D) of the forward checks, 12 heads of 64: the
+#: serving prompts' ends (17 and 1500 tokens), causal S = 128, 1024, 2048,
+#: a non-causal Sq=256 x Skv=1024, the training shape B=4 S=2048 and
+#: BERT-base's B=8 S=128 (non-causal)
+FWD_CASES = tuple((b, 12, c, sq, skv, 64) for b, c, sq, skv in (
+    (1, True, 17, 17), (1, True, 128, 128), (1, True, 1024, 1024),
+    (1, True, 1500, 1500), (1, True, 2048, 2048), (1, False, 256, 1024),
+    (TRAIN_B, True, TRAIN_S, TRAIN_S), (8, False, 128, 128)))
+#: (B, H, causal, Sq, Skv, D) of the f32 kernels' checks at head dim 64
+#: (flash_f32.cu, forward and backward): BERT-base's shape and a causal
+#: S = 1024
+F32_CASES = ((8, 12, False, 128, 128, 64), (1, 12, True, 1024, 1024, 64))
+#: the f32 backward's checks at head dim 64: F32_CASES and the bf16
+#: backward's ragged shapes (BWD_CASES), causal 1000 = 15 x 64 + 40 and
+#: non-causal Sq=200 x Skv=1000
+F32_BWD_CASES = F32_CASES + ((1, 12, True, 1000, 1000, 64),
+                             (1, 12, False, 200, 1000, 64))
+#: the f32 kernels' checks at head dim 32, forward and backward: the
+#: shape of phase 4c's f32 TransformerLM (B=4, 8 heads of 32, S=1024
+#: causal), a ragged causal S=1000 and a non-causal Sq=200 x Skv=1000
+F32_D32_CASES = ((4, 8, True, 1024, 1024, 32), (1, 8, True, 1000, 1000, 32),
+                 (1, 8, False, 200, 1000, 32))
 #: the f32 backward's fixed-cost sweep: at BERT's grid (B=8 H=12, 128
 #: rows on the block side) the streamed side is 64 x n rows long
 F32_SWEEP_TILES = (1, 2, 4, 8)
@@ -488,11 +518,10 @@ def check_flash(ck, torch, F, cases=FWD_CASES, dtype="bfloat16"):
     must give the same bits.  Times: device time (the profiler) and the
     CUDA-event span of the kernel and of sdpa in the same dtype."""
     out = []
-    H, D = 12, 64
     short, esize, peak = _DTYPES[dtype]
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    for B, causal, sq, skv in cases:
+    for B, H, causal, sq, skv, D in cases:
         q = torch.randn(B, H, sq, D, generator=g, device="cuda").to(dt)
         k = torch.randn(B, H, skv, D, generator=g, device="cuda").to(dt)
         v = torch.randn(B, H, skv, D, generator=g, device="cuda").to(dt)
@@ -693,13 +722,13 @@ def _sdpa_bwd_ms(torch, F, q, k, v, do, causal):
     return _device_ms(torch, bwd), _time_ms(bwd)
 
 
-#: (B, causal, Sq, Skv) of the backward checks: the forward's shapes, the
-#: training shape, ragged causal and non-causal tiles, and BERT-base's
-#: shape (B=8, H=12, S=128, no mask)
-BWD_CASES = ((1, True, 128, 128), (1, True, 1024, 1024),
-             (1, True, 2048, 2048), (1, False, 256, 1024),
-             (TRAIN_B, True, TRAIN_S, TRAIN_S), (1, True, 1000, 1000),
-             (1, False, 200, 1000), (8, False, 128, 128))
+#: (B, H, causal, Sq, Skv, D) of the backward checks, 12 heads of 64: the
+#: forward's shapes, the training shape, ragged causal and non-causal
+#: tiles, and BERT-base's shape (B=8, S=128, no mask)
+BWD_CASES = tuple((b, 12, c, sq, skv, 64) for b, c, sq, skv in (
+    (1, True, 128, 128), (1, True, 1024, 1024), (1, True, 2048, 2048),
+    (1, False, 256, 1024), (TRAIN_B, True, TRAIN_S, TRAIN_S),
+    (1, True, 1000, 1000), (1, False, 200, 1000), (8, False, 128, 128)))
 
 
 def _same_bits(torch, x, y):
@@ -736,11 +765,10 @@ def check_flash_bwd(ck, torch, F, cases=BWD_CASES, dtype="bfloat16"):
     combined device time over sdpa backward's (same dtype).  Returns (dq
     cases, dkv cases)."""
     dq_cases, dkv_cases = [], []
-    H, D = 12, 64
     short, esize, peak = _DTYPES[dtype]
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    for B, causal, sq, skv in cases:
+    for B, H, causal, sq, skv, D in cases:
         q, do = (torch.randn(B, H, sq, D, generator=g,
                              device="cuda").to(dt) for _ in range(2))
         k, v = (torch.randn(B, H, skv, D, generator=g,
@@ -830,7 +858,8 @@ def sweep_flash_bwd_f32(ck, torch):
     128 rows on the block side, no mask) each kernel walks n x 64 rows of
     the streamed side (K2dq: Skv, K2dkv: Sq) for n in F32_SWEEP_TILES, and
     a least-squares line over n gives ``fixed_ms + per_64_rows_ms x n``;
-    with each kernel's resident blocks an SM (the occupancy API)."""
+    with each f32 kernel's resident blocks an SM at head dims 32 and 64
+    (the occupancy API)."""
     from mxnet_tpu_torch.ops import _build
     B, H, S, D = BERT_B, 12, BERT_S, 64
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
@@ -858,8 +887,10 @@ def sweep_flash_bwd_f32(ck, torch):
                      "fixed_ms": my - slope * mx_}
     lib = _build.load("flash_f32", ck._SIGNATURES["flash_f32"])
     out["blocks_per_sm"] = {
-        name: lib.mx_flash_f32_blocks_per_sm(i) for i, name in enumerate(
-            ("flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32"))}
+        "%s_d%d" % (name, d): lib.mx_flash_f32_blocks_per_sm(i, d)
+        for d in ck.FLASH_HEAD_DIMS[torch.float32]
+        for i, name in enumerate(("flash_fwd_f32", "flash_bwd_dq_f32",
+                                  "flash_bwd_dkv_f32"))}
     _log("[kernels] flash_bwd_f32 tile sweep %s" % json.dumps(out))
     return out
 
@@ -2214,6 +2245,143 @@ def bert(mx, ck, np, torch, card):
     return out
 
 
+# ------------------------------------------------------------- phase 4c
+#: bench.py transformer_kernels_config's train row on the accelerator
+#: (its B, H, S = 4, 8, 1024): TransformerLM at vocab 256, 2 layers,
+#: d_model 256 (8 heads of 32), d_ff 512, max_len 1024, f32; seeded tokens
+#: in [0, 256) as inputs and targets (the reference's ``loss(tok, tok)``);
+#: Adam lr 1e-3, wd 0; LM32_STEPS steps a route from the same weights
+LM32_B, LM32_S, LM32_STEPS, LM32_LR = 4, 1024, 20, 1e-3
+# Step-1 gradients, tier on against tier off, per tensor: max |on - off|
+# over the tensor's largest |off|.  The routes differ only in attention:
+# flash_f32.cu against the plain f32 lowering.  Between a weight and the
+# loss stand at most four kernel outputs (each layer's o, and dq, dk or
+# dv), each within F32_ROW_REL_TOL = 2^-12 of its row's absolute sum
+# (phase 2); a weight gradient is a sum over the batch's positions of
+# such rows times activations, so its error is within 4 x 2^-12 of the
+# matching absolute sum.  The gate states it against the tensor's
+# largest gradient instead (the absolute sums are not formed here),
+# which holds while a tensor's gradients do not cancel by more than the
+# kernels' measured margin below 2^-12 (~25x on the H100).  A kernel that
+# drops a 32-key tile moves rows by ~2^-5 of their size and fails by far.
+LM32_GRAD_TOL = 2.0 ** -10
+
+
+def lm32_config(torch):
+    from mxnet_tpu_torch.models.transformer import TransformerLMConfig
+    return TransformerLMConfig(vocab_size=256, num_layers=2, d_model=256,
+                               num_heads=8, d_ff=512, max_len=LM32_S,
+                               dtype=torch.float32)
+
+
+def train_lm_f32(mx, ck, np, torch, card):
+    """bench.py ``transformer_kernels_config``'s f32 train step: the
+    gradient gate (LM32_GRAD_TOL) at the initial weights, then
+    LM32_STEPS steps with the kernel tier on (flash_f32.cu at head dim 32;
+    Adam over the 9 f32 weights, each its own master, through one list
+    ``update_multi_precision``: one K3 launch a step) and LM32_STEPS with
+    it off (plain attention, the plain update), from the same weights.
+    Counts are zeroed just before each route's steps and read just after:
+    tier on, exactly L flash_fwd_f32, flash_bwd_dq_f32 and
+    flash_bwd_dkv_f32 and one adam_step a step; tier off, none.  Losses
+    finite, the tier-on route's last below its first; median step ms,
+    tokens/s and a profiled window of 3 steps a route, and the last
+    step's loss delta between the routes (the reference's
+    ``train_loss_delta``)."""
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.models.transformer import TransformerLM
+    cfg = lm32_config(torch)
+    L = cfg.num_layers
+    model = TransformerLM(cfg).init(SEED)
+    model.requires_grad_(True)
+    names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+    start = [p.detach().clone() for p in params]
+    tok = torch.as_tensor(np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (LM32_B, LM32_S)), device="cuda")
+    out = {"card": card, "config": cfg.to_dict(), "head_dim": cfg.head_dim,
+           "batch": [LM32_B, LM32_S], "tensors": len(params),
+           "params": sum(p.numel() for p in params)}
+
+    def loss_of(m):
+        return m.loss(tok, tok)
+
+    _, on = _train_grads(mx, model, loss_of, True)
+    _, off = _train_grads(mx, model, loss_of, False)
+    errs = {n: float((on[n] - off[n]).abs().max())
+            / max(float(off[n].abs().max()), 1e-30) for n in names}
+    out["grad_gate"] = {"tol": LM32_GRAD_TOL, "max": max(errs.values()),
+                        "per_tensor": errs}
+    _log("[lm-f32] step-1 gradients, tier on vs off %s"
+         % json.dumps(out["grad_gate"]))
+    assert max(errs.values()) <= LM32_GRAD_TOL, errs
+    del on, off
+    index = list(range(len(params)))
+    profiled = _profiler_records_cuda(torch)
+    for route, tier in (("on", True), ("off", False)):
+        with torch.no_grad():
+            for p, w in zip(params, start):
+                p.copy_(w)
+        opt = mx.optimizer.create("adam", learning_rate=LM32_LR, wd=0.0,
+                                  multi_precision=True)
+        states = [opt.create_state_multi_precision(i, p)
+                  for i, p in enumerate(params)]
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            loss = loss_of(model)
+            loss.backward()
+            opt.update_multi_precision(index, params,
+                                       [p.grad for p in params], states)
+            return loss
+
+        mx.config.set("kernels.enabled", tier)
+        try:
+            # --- the main path: counts zeroed just before, read just after
+            _zero_counts(torch, tt, ck)
+            losses, step_ms = [], []
+            for _ in range(LM32_STEPS):
+                t0 = time.perf_counter()
+                losses.append(float(step().detach()))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = dict(ck.LAUNCHES)
+            c = tt.snapshot()["counters"]
+            n = LM32_STEPS
+            want = _want_launches(
+                ck, flash_fwd_f32=L * n, flash_bwd_dq_f32=L * n,
+                flash_bwd_dkv_f32=L * n, adam_step=n) if tier \
+                else _want_launches(ck)
+            assert launches == want, (route, launches)
+            assert c.get("kernels.flash_attention", 0) == L * n * tier, c
+            assert c.get("kernels.fused_step", 0) == \
+                len(params) * n * tier, c
+            assert all(np.isfinite(losses)), losses
+            if tier:
+                assert losses[-1] < losses[0], losses
+            prof = _profile(torch, lambda: [step() for _ in range(3)],
+                            top=12) if profiled else {
+                "error": "not measured: torch.profiler recorded no CUDA "
+                         "kernels"}
+        finally:
+            mx.config.unset("kernels.enabled")
+        med = float(np.median(step_ms))
+        out[route] = {"steps": n, "losses": losses, "step_ms": step_ms,
+                      "median_step_ms": med,
+                      "tokens_per_s": LM32_B * LM32_S / (med / 1e3),
+                      "launches": launches, "profile": prof}
+        _log("[lm-f32] tier %s %s" % (route, json.dumps(out[route])))
+    out["loss_delta_last_step"] = abs(out["on"]["losses"][-1]
+                                      - out["off"]["losses"][-1])
+    _log("[lm-f32] %s: median step %.3f ms tier on, %.3f ms tier off; "
+         "last-step loss delta %.3g"
+         % (card, out["on"]["median_step_ms"], out["off"]["median_step_ms"],
+            out["loss_delta_last_step"]))
+    del model, params, start
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------- phase 5
 def _resnet_trainer(mx, net, dtype, optimizer="sgd"):
     """``bench.py`` ``one_config``'s trainer: SGD lr 0.1, momentum 0.9,
@@ -3419,13 +3587,14 @@ def main(argv=None):
     ap.add_argument("--report", help="also write the full report (JSON) "
                     "to this path")
     ap.add_argument("--phase", choices=("all", "attention", "optimizer",
-                                        "module", "bert"),
+                                        "module", "bert", "lm_f32"),
                     default="all",
                     help="attention: the flash forward and backward checks "
                     "of phase 2 alone; optimizer: phase 2's K3 and K1 "
                     "checks alone; module: phase 7(c) alone, after the "
                     "lr_t A/B; bert: the flash checks at BERT's shapes "
-                    "(bf16 and f32) and phase 4b alone")
+                    "(bf16 and f32) and phase 4b alone; lm_f32: the f32 "
+                    "flash checks at head dim 32 and phase 4c alone")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3461,8 +3630,8 @@ def main(argv=None):
     built = _build.build(
         {"attention": ["flash_fwd", "flash_bwd", "flash_f32", "paged_attn"],
          "optimizer": ["adam_step", "sgd_step"],
-         "bert": ["flash_fwd", "flash_bwd", "flash_f32",
-                  "adam_step"]}.get(args.phase))
+         "bert": ["flash_fwd", "flash_bwd", "flash_f32", "adam_step"],
+         "lm_f32": ["flash_f32", "adam_step"]}.get(args.phase))
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "per_source_s": {k: v["seconds"]
                                         for k, v in built.items()},
@@ -3476,13 +3645,12 @@ def main(argv=None):
                                     if k != "ptxas"}))
     # the bf16 flash kernels' wgmma products read registers
     # asynchronously; a spilled register under one is not safe.
-    # flash_f32.cu's backward mma.sync products are synchronous, but a
-    # spill in their main loops would cost them their speed: the same
-    # gate holds them (the FFMA forward, left as it was, spills 4 bytes)
-    for name, kernel in (("flash_fwd", ""), ("flash_bwd", ""),
-                         ("flash_f32", "flash_bwd")):
+    # flash_f32.cu's mma.sync products are synchronous, but a spill in
+    # their main loops would cost them their speed: the same gate holds
+    # its three kernels at both head dims
+    for name in ("flash_fwd", "flash_bwd", "flash_f32"):
         spills = {fn: int(n) for fn, n in _spill_stores(
-            built.get(name, {}).get("ptxas", "")).items() if kernel in fn}
+            built.get(name, {}).get("ptxas", "")).items()}
         if any(spills.values()):
             raise AssertionError("%s.cu spills registers: %s\n%s"
                                  % (name, spills, built[name]["ptxas"]))
@@ -3495,10 +3663,11 @@ def main(argv=None):
         report["paged_decode_pool_int8"] = check_paged(ck, torch, F, True)
         report["flash_bwd_dq"], report["flash_bwd_dkv"] = check_flash_bwd(
             ck, torch, F)
-        report["flash_fwd_f32"] = check_flash(ck, torch, F, F32_CASES,
-                                              "float32")
+        report["flash_fwd_f32"] = check_flash(
+            ck, torch, F, F32_CASES + F32_D32_CASES, "float32")
         report["flash_bwd_dq_f32"], report["flash_bwd_dkv_f32"] = \
-            check_flash_bwd(ck, torch, F, F32_BWD_CASES, "float32")
+            check_flash_bwd(ck, torch, F, F32_BWD_CASES + F32_D32_CASES,
+                            "float32")
         report["flash_bwd_f32_sweep"] = sweep_flash_bwd_f32(ck, torch)
         bad = [c for key in ("flash_fwd", "paged_decode_pool_bf16",
                              "paged_decode_pool_int8", "flash_bwd_dq",
@@ -3525,7 +3694,7 @@ def main(argv=None):
                           if k != "build"}))
         return 0
     if args.phase == "bert":
-        bert_case = ((BERT_B, False, BERT_S, BERT_S),)
+        bert_case = ((BERT_B, 12, False, BERT_S, BERT_S, 64),)
         report["flash_fwd"] = check_flash(ck, torch, F, bert_case)
         report["flash_bwd_dq"], report["flash_bwd_dkv"] = check_flash_bwd(
             ck, torch, F, bert_case)
@@ -3546,6 +3715,21 @@ def main(argv=None):
         print(json.dumps({k: v for k, v in report.items()
                           if k != "build"}))
         return 0
+    if args.phase == "lm_f32":
+        report["flash_fwd_f32"] = check_flash(ck, torch, F, F32_D32_CASES,
+                                              "float32")
+        report["flash_bwd_dq_f32"], report["flash_bwd_dkv_f32"] = \
+            check_flash_bwd(ck, torch, F, F32_D32_CASES, "float32")
+        bad = [c for key in f32_keys for c in report[key] if not c["ok"]]
+        if bad:
+            _write_report(args.report, report)
+            raise AssertionError("kernel disagrees with its plain version: "
+                                 "%s" % json.dumps(bad))
+        report["lm_f32"] = train_lm_f32(mx, ck, np, torch, card)
+        _write_report(args.report, report)
+        print(json.dumps({k: v for k, v in report.items()
+                          if k != "build"}))
+        return 0
     if args.phase == "module":
         report["lr_t_ab"] = lr_t_ab(mx, np, torch)
         report["launch_ab"] = launch_ab(mx, np, torch)
@@ -3557,9 +3741,10 @@ def main(argv=None):
     paged = check_paged(ck, torch, F, quant=False)
     paged8 = check_paged(ck, torch, F, quant=True)
     bwd_dq, bwd_dkv = check_flash_bwd(ck, torch, F)
-    flash32 = check_flash(ck, torch, F, F32_CASES, "float32")
-    bwd_dq32, bwd_dkv32 = check_flash_bwd(ck, torch, F, F32_BWD_CASES,
-                                          "float32")
+    flash32 = check_flash(ck, torch, F, F32_CASES + F32_D32_CASES,
+                          "float32")
+    bwd_dq32, bwd_dkv32 = check_flash_bwd(
+        ck, torch, F, F32_BWD_CASES + F32_D32_CASES, "float32")
     report["flash_bwd_f32_sweep"] = sweep_flash_bwd_f32(ck, torch)
     adam, adam_step = check_adam(ck, torch)
     sgd, sgd_step = check_sgd(ck, torch, mx, np)
@@ -3575,6 +3760,7 @@ def main(argv=None):
     report["serve"] = serve(mx, ck, np, torch, workdir)
     report["train"] = train(mx, ck, np, torch)
     report["bert"] = bert(mx, ck, np, torch, card)
+    report["lm_f32"] = train_lm_f32(mx, ck, np, torch, card)
     report["resnet"] = train_resnet(mx, ck, np, torch, card)
     report["tape"] = tape(mx, ck, np, torch)
     report["lenet"] = train_lenet(mx, ck, np, torch, card)
@@ -3592,6 +3778,7 @@ def main(argv=None):
     berted = report["bert"]["launches"]
     bert32 = report["bert"]["f32"]["launches"]
     bert_adam = report["bert"]["adam"]["launches"]["adam_step"]
+    lm32 = report["lm_f32"]["on"]["launches"]
     pk = "mxnet_tpu/ops/pallas_kernels.py:"
     kernels = [
         _summary("flash_fwd", "flash_fwd.cu", pk + "157", flash,
@@ -3601,11 +3788,11 @@ def main(argv=None):
         _summary("flash_bwd_dkv", "flash_bwd.cu", pk + "220", bwd_dkv,
                  trained["flash_bwd_dkv"]),
         _summary("flash_fwd_f32", "flash_f32.cu", pk + "157", flash32,
-                 bert32["flash_fwd_f32"]),
+                 bert32["flash_fwd_f32"] + lm32["flash_fwd_f32"]),
         _summary("flash_bwd_dq_f32", "flash_f32.cu", pk + "190", bwd_dq32,
-                 bert32["flash_bwd_dq_f32"]),
+                 bert32["flash_bwd_dq_f32"] + lm32["flash_bwd_dq_f32"]),
         _summary("flash_bwd_dkv_f32", "flash_f32.cu", pk + "220", bwd_dkv32,
-                 bert32["flash_bwd_dkv_f32"]),
+                 bert32["flash_bwd_dkv_f32"] + lm32["flash_bwd_dkv_f32"]),
         _summary("paged_decode_pool_bf16", "paged_attn.cu", pk + "386",
                  paged, launches["paged_decode_pool_bf16"]),
         _summary("paged_decode_pool_int8", "paged_attn.cu", pk + "386",
@@ -3615,12 +3802,13 @@ def main(argv=None):
          "source": "mxnet_tpu_torch/csrc/adam_step.cu",
          "replaces": pk + "518",
          "launches": (trained["adam_step"] + module_adam + f16_adam
-                      + resnet_adam + bert_adam),
+                      + resnet_adam + bert_adam + lm32["adam_step"]),
          "launches_by_path": {"train": trained["adam_step"],
                               "module_mlp": module_adam,
                               "f16_trainer": f16_adam,
                               "resnet_spmd_adam": resnet_adam,
-                              "bert_adam": bert_adam},
+                              "bert_adam": bert_adam,
+                              "lm_f32": lm32["adam_step"]},
          "max_abs_err": max(c["max_abs_err"] for c in adam),
          "differing_elements": sum(sum(c["differing_elements"].values())
                                    for c in adam),
@@ -3667,7 +3855,8 @@ def main(argv=None):
         kern["launches_by_path"] = {"train": trained[kern["name"]],
                                     "bert": berted[kern["name"]]}
     for kern in kernels[3:6]:
-        kern["launches_by_path"] = {"bert_f32": bert32[kern["name"]]}
+        kern["launches_by_path"] = {"bert_f32": bert32[kern["name"]],
+                                    "lm_f32": lm32[kern["name"]]}
     report["kernels"] = kernels
     _write_report(args.report, report)
     print(json.dumps({"kernels": [{k: v for k, v in s.items()

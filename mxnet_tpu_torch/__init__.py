@@ -62,12 +62,14 @@ from . import metric, io, callback, engine, rtc, symbol, model, module
 from . import executor, executor_manager, runtime
 from . import symbol as sym
 from . import module as mod
+from . import kvstore as kv
+from .ndarray.ndarray import NDArray
 
 __all__ = ["MXNetError", "MXNetErrorNoDevice", "KernelUnsupportedError",
            "Context", "cpu", "gpu", "num_gpus", "current_context", "config",
-           "telemetry", "random", "ndarray", "nd", "autograd",
+           "telemetry", "random", "ndarray", "nd", "NDArray", "autograd",
            "initializer", "init", "kernels", "quantization", "models",
            "convert", "deploy", "serving", "generation", "optimizer",
-           "lr_scheduler", "kvstore", "gluon", "parallel", "metric", "io",
-           "callback", "engine", "rtc", "symbol", "sym", "model", "module",
-           "mod", "executor", "executor_manager", "runtime"]
+           "lr_scheduler", "kvstore", "kv", "gluon", "parallel", "metric",
+           "io", "callback", "engine", "rtc", "symbol", "sym", "model",
+           "module", "mod", "executor", "executor_manager", "runtime"]

@@ -155,14 +155,17 @@ def _heads_and_grads(heads, head_grads):
         raise ValueError("head_grads length mismatch")
     outs, grads = [], []
     for h, hg in zip(heads, head_grads):
-        if not h._on_tape:
+        if not (h._on_tape or h._recorded):
             raise ValueError(
-                "cannot differentiate output: it was not computed inside "
+                "cannot differentiate output: it is neither a marked "
+                "variable nor the output of an op recorded inside "
                 "autograd.record() (reference: mxnet.autograd same "
                 "contract)")
         t = h._data
         if not t.requires_grad:
-            continue  # no history (a 'null' leaf, stop_gradient): no grad
+            # no history (a 'null' leaf, stop_gradient, an op recorded on
+            # arrays off the tape): no grad
+            continue
         g = hg._data if hasattr(hg, "_data") else hg
         g = torch.ones_like(t) if g is None else torch.as_tensor(
             g, device=t.device).to(t.dtype).expand_as(t)

@@ -7,13 +7,20 @@ ones, ``*beta`` / ``*bias`` -> zeros, ``*running_mean`` /
 anything else -> ``_init_weight``.  ``generate(gen, shape, dtype, name)``
 draws from an explicit CPU ``torch.Generator`` (``mx.random``) and
 returns a CPU tensor, which the parameter then places on its device.
+``init(desc, arr)`` (also ``init.init``) is the reference's calling
+convention: it sets the NDArray ``arr`` from the next generator of
+``mx.random``'s stream, and an ``InitDesc`` whose attrs carry
+``__init__`` (an initializer's ``dumps()``, as ``sym.Variable(init=...)``
+stores it) is set by that initializer instead.
 """
 from __future__ import annotations
 
+import json
 import math
 
 import torch
 
+from . import random as _random
 from .base import torch_dtype
 
 __all__ = ["InitDesc", "Initializer", "register", "create", "Zero", "One",
@@ -65,6 +72,37 @@ class Initializer:
 
     def __repr__(self):
         return "%s(%s)" % (self.__class__.__name__.lower(), self._kwargs)
+
+    def dumps(self):
+        """``[name, kwargs]`` as JSON: what :func:`create` takes back."""
+        return json.dumps([self.__class__.__name__.lower(), self._kwargs])
+
+    def __eq__(self, other):
+        return (self.__class__ is other.__class__
+                and self._kwargs == getattr(other, "_kwargs", None))
+
+    def __call__(self, desc, arr):
+        """Set NDArray ``arr`` as the initial value of parameter ``desc``
+        (a name or an :class:`InitDesc`; an ``InitDesc`` gets this
+        initializer as its ``global_init`` when it has none)."""
+        if not isinstance(desc, str):
+            raise TypeError("desc must be str or InitDesc")
+        if isinstance(desc, InitDesc) and desc.global_init is None:
+            desc.global_init = self
+        spec = desc.attrs.get("__init__", "") \
+            if isinstance(desc, InitDesc) else ""
+        if spec:
+            name, kwargs = json.loads(spec)
+            create(name, **kwargs)._init(desc, arr)
+        else:
+            self._init(str(desc), arr)
+
+    init = __call__
+
+    def _init(self, name, arr):
+        val = self.generate(_random.next_key(), arr.shape, arr._data.dtype,
+                            name=name)
+        arr._set_data(val.to(arr._data.device))
 
     def generate(self, gen, shape, dtype="float32", name=""):
         """The initial value of parameter ``name`` (a CPU tensor)."""

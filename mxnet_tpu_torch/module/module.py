@@ -34,7 +34,6 @@ import torch
 
 from .. import config as _config
 from .. import optimizer as opt_mod
-from .. import random as _random
 from .. import telemetry as _telemetry
 from ..base import torch_dtype
 from ..context import resolve_device
@@ -158,7 +157,9 @@ class Module(BaseModule):
                     allow_extra=False):
         """Set each parameter from ``arg_params`` / ``aux_params`` (copied)
         or else from ``initializer`` (``Uniform(0.01)`` by default, the
-        reference's; drawn from ``mx.random``'s stream)."""
+        reference's; drawn from ``mx.random``'s stream), called with an
+        ``InitDesc`` of the parameter's attrs, so a variable's own
+        ``init=`` (its ``__init__`` attr) takes precedence."""
         if not self.binded:
             raise RuntimeError("bind() first")
         if self.params_initialized and not force_init:
@@ -166,6 +167,7 @@ class Module(BaseModule):
         if initializer == "default":
             initializer = Uniform(0.01)
         from ..symbol.symbol import _copy_onto
+        attrs = self._symbol.attr_dict()
         for names, pool, given in (
                 (self._param_names, self._exec.arg_dict, arg_params),
                 (self._aux_names, self._exec.aux_dict, aux_params)):
@@ -174,10 +176,7 @@ class Module(BaseModule):
                 if given and name in given:
                     arr._data = _copy_onto(given[name], arr._data)
                 elif initializer is not None:
-                    val = initializer.generate(
-                        _random.next_key(), arr.shape, arr._data.dtype,
-                        InitDesc(name))
-                    arr._data = val.to(arr._data.device)
+                    initializer(InitDesc(name, attrs.get(name, {})), arr)
                 elif pool is self._exec.arg_dict and not allow_missing:
                     raise RuntimeError("no initializer and no value for %r"
                                        % (name,))

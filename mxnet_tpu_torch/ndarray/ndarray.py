@@ -7,8 +7,11 @@ expression on NDArrays runs the same registered ops as ``mx.nd.<Op>``.
 ``attach_grad`` marks an array as a leaf of the autograd tape
 (``_tape.py``): under ``autograd.record()`` the ops on it record, and
 ``backward()`` fills its ``grad`` buffer.  ``_on_tape`` says whether an
-array is a marked leaf or the output of a recorded op; ``_grad_req`` is
-None for an array that was never marked.
+array is a marked leaf or the output of a recorded op; ``_recorded``
+whether it is the output of a differentiable op run under
+``autograd.record()`` on arrays none of which was on the tape (it has no
+history, and ``backward()`` from it changes no grad, as the reference's
+does); ``_grad_req`` is None for an array that was never marked.
 
 As in the reference, ``dtype`` is a numpy dtype (bfloat16 is
 ``ml_dtypes.bfloat16``; without ``ml_dtypes`` numpy has none, and
@@ -40,6 +43,7 @@ def _wrap(data):
     arr._grad = None
     arr._grad_req = None
     arr._on_tape = False
+    arr._recorded = False
     return arr
 
 
@@ -49,7 +53,8 @@ def _invoke(name, *args, **attrs):
 
 
 class NDArray:
-    __slots__ = ("_data", "_grad", "_grad_req", "_on_tape", "__weakref__")
+    __slots__ = ("_data", "_grad", "_grad_req", "_on_tape", "_recorded",
+                 "__weakref__")
 
     # numpy defers to NDArray in mixed expressions
     __array_priority__ = 1000.0
@@ -61,6 +66,7 @@ class NDArray:
         self._grad = None
         self._grad_req = None
         self._on_tape = False
+        self._recorded = False
 
     # ------------------------------------------------------------------ meta
     @property

@@ -80,14 +80,16 @@ __all__ = ["flash_attention", "flash_attention_plain",
            "row_softmax_bwd_unsupported_reason", "scale_bias_relu",
            "scale_bias_relu_plain", "scale_bias_relu_unsupported_reason",
            "LAUNCHES", "reset_launches",
-           "HEAD_DIM", "NEG"]
+           "FLASH_HEAD_DIMS", "PAGED_HEAD_DIM", "NEG"]
 
 #: masked-score floor of the plain versions (parallel.ring_attention)
 NEG = -1e30
-#: the head dim the flash and paged kernels are instantiated for (that of
-#: every configuration; another needs its own instantiation, checked on
-#: the card)
-HEAD_DIM = 64
+#: the head dims the flash kernels are instantiated for, per input dtype
+#: (bf16: flash_fwd.cu and flash_bwd.cu; f32: flash_f32.cu, a template
+#: parameter); another needs its own instantiation, checked on the card
+FLASH_HEAD_DIMS = {torch.bfloat16: (64,), torch.float32: (32, 64)}
+#: the head dim the paged decode kernel (paged_attn.cu) is built for
+PAGED_HEAD_DIM = 64
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_fwd_f32": 0, "flash_bwd_dq_f32": 0,
@@ -121,7 +123,7 @@ _SIGNATURES = {
                                  _I, _F, _P], _I),
         "mx_flash_bwd_dkv_f32": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                   _I, _I, _I, _F, _P], _I),
-        "mx_flash_f32_blocks_per_sm": ([_I], _I),
+        "mx_flash_f32_blocks_per_sm": ([_I, _I], _I),
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
     "paged_attn": {
@@ -152,9 +154,6 @@ _SIGNATURES = {
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
 }
-#: the input dtypes the flash kernels take (bf16: flash_fwd.cu and
-#: flash_bwd.cu; f32: flash_f32.cu)
-_FLASH_DTYPES = (torch.float32, torch.bfloat16)
 #: the dtype codes of the kernels that take f32, bf16 and f16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -201,11 +200,13 @@ def flash_unsupported_reason(q, k, v, causal):
     if causal and q.shape[2] != k.shape[2]:
         return "causal needs Sq == Skv, got %d vs %d" % (q.shape[2],
                                                          k.shape[2])
-    if not (q.dtype == k.dtype == v.dtype and q.dtype in _FLASH_DTYPES):
+    if not (q.dtype == k.dtype == v.dtype and q.dtype in FLASH_HEAD_DIMS):
         return "kernel takes f32 or bf16, got %s" % sorted(
             {str(t.dtype) for t in (q, k, v)})
-    if q.shape[3] != HEAD_DIM:
-        return "head dim %d != %d" % (q.shape[3], HEAD_DIM)
+    dims = FLASH_HEAD_DIMS[q.dtype]
+    if q.shape[3] not in dims:
+        return "head dim %d not in %s for %s" % (
+            q.shape[3], "/".join(map(str, dims)), str(q.dtype)[6:])
     if q.shape[0] * q.shape[1] > 65535:
         return "B*H %d > 65535" % (q.shape[0] * q.shape[1])
     if q.numel() == 0 or k.numel() == 0:
@@ -247,8 +248,9 @@ def _flash_lib(dtype, bf16_lib):
 def flash_attention(q, k, v, causal=False, scale=None):
     """Flash-attention forward: ``(o, lse)`` as :func:`flash_attention_plain`
     computes them.  CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/flash_fwd.cu`` (bf16) or ``csrc/flash_f32.cu`` (f32;
-    contiguous, at 16-byte aligned addresses, head dim 64) or raise."""
+    ``csrc/flash_fwd.cu`` (bf16, head dim 64) or ``csrc/flash_f32.cu``
+    (f32, head dim 32 or 64; contiguous, at 16-byte aligned addresses) or
+    raise."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     reason = (flash_unsupported_reason(q, k, v, causal)
@@ -337,7 +339,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None,
     when not given.  CPU tensors run the plain version; CUDA tensors
     launch the two kernels of ``csrc/flash_bwd.cu`` (bf16) or
     ``csrc/flash_f32.cu`` (f32): dq, then dk/dv; contiguous, at 16-byte
-    aligned addresses, head dim 64; or raise."""
+    aligned addresses, at a head dim of :data:`FLASH_HEAD_DIMS`; or
+    raise."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          scale=scale, delta=delta)
@@ -426,8 +429,8 @@ def paged_unsupported_reason(q, k, v, valid, k_scale=None, v_scale=None):
                   or k_scale.dtype != torch.float32
                   or v_scale.dtype != torch.float32):
         return "int8 pages need f32 k_scale/v_scale [B,H,K]"
-    if D != HEAD_DIM:
-        return "head dim %d != %d" % (D, HEAD_DIM)
+    if D != PAGED_HEAD_DIM:
+        return "head dim %d != %d" % (D, PAGED_HEAD_DIM)
     if B * H > 65535 or B * H == 0 or K == 0:
         return "B*H %d not in 1..65535, or K == 0" % (B * H)
     if K >= 2 ** 31:
@@ -603,8 +606,8 @@ def paged_pool_unsupported_reason(q, k_pool, v_pool, page_table, lengths,
                   or k_scale_pool.dtype != torch.float32
                   or v_scale_pool.dtype != torch.float32):
         return "int8 pages need f32 scale pools [pool, psz, H]"
-    if D != HEAD_DIM:
-        return "head dim %d != %d" % (D, HEAD_DIM)
+    if D != PAGED_HEAD_DIM:
+        return "head dim %d != %d" % (D, PAGED_HEAD_DIM)
     if B * H > 65535 or B * H == 0:
         return "B*H %d not in 1..65535" % (B * H)
     if P == 0 or psz == 0 or page_table.shape[1] == 0:

@@ -72,27 +72,32 @@ def apply_op(op, *inputs, **attrs):
     from ..ndarray.ndarray import NDArray, _wrap
     if isinstance(op, str):
         op = get(op)
-    on_tape = False
+    on_tape = arrays = False
     args = []
     for x in inputs:
         if isinstance(x, NDArray):
             on_tape = on_tape or x._on_tape
+            arrays = True
             x = x._data
         args.append(x)
     kwargs = {}
     for k, v in attrs.items():
         if isinstance(v, NDArray):
             on_tape = on_tape or v._on_tape
+            arrays = True
             v = v._data
         kwargs[k] = v
     if not on_tape:
-        # nothing on the tape: tensors pass as they are
+        # nothing on the tape: tensors pass as they are; under record() a
+        # differentiable op's outputs are marked recorded all the same
         out = op.fn(*args, **kwargs)
-        if isinstance(out, (tuple, list)):
-            _engine.maybe_sync(out)
-            return [_wrap(v) for v in out]
-        _engine.maybe_sync((out,))
-        return _wrap(out)
+        multi = isinstance(out, (tuple, list))
+        _engine.maybe_sync(out if multi else (out,))
+        outs = [_wrap(v) for v in (out if multi else (out,))]
+        if arrays and op.differentiable and _tape.is_recording():
+            for o in outs:
+                o._recorded = True
+        return outs if multi else outs[0]
     record = op.differentiable and _tape.is_recording()
 
     def unwrap(x):

@@ -14,12 +14,16 @@ f32 master and writes the low-precision weight in one pass
 route of ``SPMDTrainer``, of the symbolic ``Executor``'s fused step and of
 ``update_multi_precision`` over lists).
 
-``update`` and ``update_multi_precision`` take torch tensors in place of
-NDArrays and update them IN PLACE (the weight, the master copy and the
-state tensors), the analog of the reference writing the new values into
-its NDArrays.  ``Updater`` (``get_updater``) is the kvstore-side closure
+``create_state``, ``create_state_multi_precision``, ``update`` and
+``update_multi_precision`` take NDArrays, as the reference's do: given an
+NDArray weight the state is made of NDArrays, and an update writes each
+NDArray's new value by rebinding its tensor (the reference's functional
+write: an update on NDArrays runs the tensor route on copies).  They
+also take torch tensors, which they update IN PLACE (the weight, the
+master copy and the state tensors): the route of the port's own callers.
+``Updater`` (``get_updater``) is the kvstore-side closure
 ``gluon.Trainer`` and ``KVStore.set_optimizer`` call with NDArrays: it
-keeps one state per parameter index and its ``get_states`` /
+keeps one state per parameter index as tensors and its ``get_states`` /
 ``set_states`` round-trip them as bytes.
 
 Ported so far: ``SGD`` and ``Adam``; ``create`` raises for the other
@@ -54,6 +58,48 @@ def _bias_corrected_lr(lr, beta1, beta2, t):
     coef1 = 1.0 - beta1 ** t
     coef2 = 1.0 - beta2 ** t
     return _ck.div_rn(_f32(lr) * _ck.sqrt_rn(_f32(coef2)), _f32(coef1))
+
+
+def _is_array(x):
+    """Whether ``x`` (or, for a list or tuple, any entry) is an
+    NDArray."""
+    from ..ndarray.ndarray import NDArray
+    if isinstance(x, (list, tuple)):
+        return any(_is_array(v) for v in x if v is not None)
+    return isinstance(x, NDArray)
+
+
+def _tensors(x):
+    """An NDArray tree (a weight, a grad, a state, or lists of them) as
+    the tree of its tensors."""
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tensors(v) for v in x)
+    return getattr(x, "_data", x)
+
+
+def _copies(x):
+    """``_tensors(x)`` with every tensor a copy, for an update to write."""
+    if isinstance(x, (list, tuple)):
+        return type(x)(_copies(v) for v in x)
+    return None if x is None else x._data.detach().clone()
+
+
+def _rebind(arrays, tensors):
+    """Each NDArray of the tree ``arrays`` takes its tensor in
+    ``tensors`` as its value."""
+    if isinstance(arrays, (list, tuple)):
+        for a, t in zip(arrays, tensors):
+            _rebind(a, t)
+    elif arrays is not None:
+        arrays._set_data(tensors)
+
+
+def _arrays(state):
+    """A state tree's tensors as NDArrays (each the tensor's handle)."""
+    from ..ndarray.ndarray import _wrap
+    if isinstance(state, (list, tuple)):
+        return type(state)(_arrays(v) for v in state)
+    return None if state is None else _wrap(state)
 
 
 def _state_write(state, new):
@@ -170,12 +216,17 @@ class Optimizer:
 
     # ------------------------------------------------------------ state API
     def create_state(self, index, weight):
-        """Optimizer state for one parameter (None, a tensor or a tuple)."""
+        """Optimizer state for one parameter (None, a tensor or a tuple;
+        of NDArrays for an NDArray weight)."""
         return None
 
     def create_state_multi_precision(self, index, weight):
         """``(f32 master copy, state of the master)`` for a low-precision
-        weight under ``multi_precision``; else ``create_state``."""
+        weight under ``multi_precision``; else ``create_state``.  An
+        NDArray weight gets NDArrays."""
+        if _is_array(weight):
+            return _arrays(self.create_state_multi_precision(index,
+                                                             weight._data))
         if self.multi_precision and weight.dtype in _LOW_PRECISION:
             master = weight.detach().float().clone()
             return (master, self.create_state(index, master))
@@ -242,10 +293,24 @@ class Optimizer:
             return g
         return torch.clamp(g, -self.clip_gradient, self.clip_gradient)
 
+    def _update_arrays(self, update, index, weight, grad, state):
+        """``update`` (:meth:`update` or :meth:`update_multi_precision`)
+        on NDArrays: the tensor route on copies of the weights and states,
+        then each NDArray rebound to its new value."""
+        weights, states = _copies(weight), _copies(state)
+        update(index, weights, _tensors(grad), states)
+        _rebind(weight, weights)
+        _rebind(state, states)
+
     @torch.no_grad()
     def update(self, index, weight, grad, state):
         """One optimizer step for parameter ``index``: ``weight`` and the
-        state tensors are updated in place."""
+        state tensors are updated in place (NDArrays take their new
+        values).  ``index``, ``weight``, ``grad`` and ``state`` may be
+        lists, one entry per parameter."""
+        if _is_array(weight):
+            self._update_arrays(self.update, index, weight, grad, state)
+            return
         if isinstance(index, (list, tuple)):
             for i, w, g, s in zip(index, weight, grad, state):
                 self.update(i, w, g, s)
@@ -280,7 +345,14 @@ class Optimizer:
         master: it goes through the fused kernel with no cast (in a list,
         in the same launch), where the reference runs its plain ``update``
         (the two differ in the last bits: the kernel contracts its
-        multiply-adds)."""
+        multiply-adds).
+
+        NDArrays (and lists of them) take their new values as in
+        :meth:`update`."""
+        if _is_array(weight):
+            self._update_arrays(self.update_multi_precision, index, weight,
+                                grad, state)
+            return
         if isinstance(index, (list, tuple)):
             self._update_multi_precision_list(index, weight, grad, state)
             return
@@ -380,6 +452,8 @@ class SGD(Optimizer):
         self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
+        if _is_array(weight):
+            return _arrays(self.create_state(index, weight._data))
         if self.momentum != 0.0:
             return torch.zeros_like(weight)
         return None
@@ -431,6 +505,8 @@ class Adam(Optimizer):
         self._lr_t = (None, None)   # ((lr, t, beta1, beta2), lr_t)
 
     def create_state(self, index, weight):
+        if _is_array(weight):
+            return _arrays(self.create_state(index, weight._data))
         return (torch.zeros_like(weight), torch.zeros_like(weight))
 
     def step(self, weight, grad, state, lr, wd, t):

@@ -331,14 +331,17 @@ def load(fname):
 
 # ------------------------------------------------------------ constructors
 def Variable(name, shape=None, dtype=None, init=None, **attr_kwargs):
-    if init is not None:
-        raise NotImplementedError("Variable(init=...) is not ported: pass "
-                                  "the initializer to Module.init_params")
     s = Symbol("var", name)
     if shape is not None:
         s.attrs["shape"] = tuple(shape)
     if dtype is not None:
         s.attrs["dtype"] = str(torch_dtype(dtype))[len("torch."):]
+    if init is not None:
+        # the initializer as its dumps() in the __init__ attr (the
+        # reference's); Initializer.__call__ routes an InitDesc carrying
+        # it back to that initializer at Module.init_params
+        s._attr_map["__init__"] = init if isinstance(init, str) \
+            else init.dumps()
     s._attr_map.update({k: str(v) for k, v in attr_kwargs.items()})
     return s
 

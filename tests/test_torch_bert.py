@@ -477,8 +477,9 @@ def test_bf16_loss_matches_reference():
 def test_flash_checks_take_the_bert_calls_and_refuse_the_rest():
     """Every attention call BERT-base makes, bf16 and f32 (B=8, H=12,
     S=128, D=64, non-causal), passes the flash kernels' own checks; f16
-    and head dims other than 64 do not, and on a non-CPU tensor the
-    wrappers raise ``KernelUnsupportedError`` (no fallback)."""
+    and head dims the kernels are not built for (f32 at 128, bf16 at 128)
+    do not, and on a non-CPU tensor the wrappers raise
+    ``KernelUnsupportedError`` (no fallback)."""
     for dt in (torch.bfloat16, torch.float32):
         q = torch.empty(8, 12, 128, 64, dtype=dt, device="meta")
         lse = torch.empty(96, 128, device="meta")
@@ -487,7 +488,7 @@ def test_flash_checks_take_the_bert_calls_and_refuse_the_rest():
                                                False) is None
     for q in (torch.empty(8, 12, 128, 64, dtype=torch.float16,
                           device="meta"),
-              torch.empty(8, 12, 128, 32, device="meta"),
+              torch.empty(8, 12, 128, 128, device="meta"),
               torch.empty(8, 12, 128, 128, dtype=torch.bfloat16,
                           device="meta")):
         reason = ck.flash_unsupported_reason(q, q, q, False)

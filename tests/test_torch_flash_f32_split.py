@@ -1,21 +1,24 @@
-"""The error model of the f32 flash backward (``csrc/flash_f32.cu``) on the
+"""The error model of the f32 flash kernels (``csrc/flash_f32.cu``) on the
 CPU.
 
-The two backward kernels multiply on the tensor cores as 3xTF32: each f32
-operand ``x`` is split into ``big = tf32(x)`` and ``small = tf32(x - big)``,
-rounded as ``cvt.rna.tf32.f32`` rounds (to nearest, ties away from zero;
-inf and nan pass through), and a product is ``small*big + big*small +
-big*big`` accumulated in f32.  Here that arithmetic is emulated in plain
-torch (a product of two TF32 values is exact in f32), the backward's
-arithmetic runs with it in ``cuda_kernels.flash_attention_bwd_plain``'s
-own op order (its ``torch.matmul`` replaced), and dq, dk and dv are held
-to ``chip_smoke.F32_ROW_REL_TOL`` (2^-12) of each row's absolute sum
-against the full-f32 plain version, by ``chip_smoke._abs_row_err``, the
-measure the card's check uses.  Single TF32 products must miss that
-limit: the limit is what shows on the card that the split happens.
+The forward and the two backward kernels multiply on the tensor cores as
+3xTF32: each f32 operand ``x`` is split into ``big = tf32(x)`` and
+``small = tf32(x - big)``, rounded as ``cvt.rna.tf32.f32`` rounds (to
+nearest, ties away from zero; inf and nan pass through), and a product is
+``small*big + big*small + big*big`` accumulated in f32.  Here that
+arithmetic is emulated in plain torch (a product of two TF32 values is
+exact in f32), the kernels' arithmetic runs with it in
+``cuda_kernels.flash_attention_plain``'s and
+``flash_attention_bwd_plain``'s own op order (their ``torch.matmul``
+replaced), and o, dq, dk and dv are held to
+``chip_smoke.F32_ROW_REL_TOL`` (2^-12) of each row's absolute sum against
+the full-f32 plain version, by ``chip_smoke._abs_row_err``, the measure
+the card's check uses.  Single TF32 products must miss that limit: the
+limit is what shows on the card that the split happens.
 
-Inputs: B=1, H=2, D=64, seeded numpy normals; one causal S=256 and one
-non-causal Sq=64 x Skv=192.
+Inputs: B=1, H=2, head dim 64 or 32 (the two the f32 kernels are built
+for), seeded numpy normals; one causal S=256 and one non-causal
+Sq=64 x Skv=192.
 """
 import importlib.util
 import os
@@ -102,9 +105,9 @@ def test_split_leaves_at_most_2_to_minus_22():
     assert float((resid / x.double().abs()).max()) <= 2.0 ** -22
 
 
-def _case(B, causal, sq, skv, seed=0):
+def _case(B, causal, sq, skv, seed=0, D=64):
     rng = np.random.RandomState(seed)
-    H, D = 2, 64
+    H = 2
     q, do = (torch.from_numpy(rng.standard_normal((B, H, sq, D)).astype(
         np.float32)) for _ in range(2))
     k, v = (torch.from_numpy(rng.standard_normal((B, H, skv, D)).astype(
@@ -117,10 +120,11 @@ def _case(B, causal, sq, skv, seed=0):
     return (q, k, v, o, lse, do, delta), want, sums
 
 
-def _errors(monkeypatch, mm, B, causal, sq, skv):
+def _errors(monkeypatch, mm, B, causal, sq, skv, D=64):
     """Per-row error of dq, dk and dv against each row's absolute sum,
     with every product of the plain backward taken by ``mm``."""
-    (q, k, v, o, lse, do, delta), want, sums = _case(B, causal, sq, skv)
+    (q, k, v, o, lse, do, delta), want, sums = _case(B, causal, sq, skv,
+                                                     D=D)
     with monkeypatch.context() as m:
         m.setattr(torch, "matmul", mm)
         got = ck.flash_attention_bwd_plain(q, k, v, o, lse, do,
@@ -148,3 +152,53 @@ def test_single_tf32_backward_misses_the_f32_limit(monkeypatch, B, causal,
                                                    sq, skv):
     errs = _errors(monkeypatch, mm_tf32, B, causal, sq, skv)
     assert min(errs) > chip_smoke.F32_ROW_REL_TOL, errs
+
+
+@_SHAPES
+def test_3xtf32_backward_within_the_f32_limit_at_head_dim_32(
+        monkeypatch, B, causal, sq, skv):
+    errs = _errors(monkeypatch, mm_3xtf32, B, causal, sq, skv, D=32)
+    assert max(errs) <= chip_smoke.F32_ROW_REL_TOL, errs
+
+
+@_SHAPES
+def test_single_tf32_backward_misses_the_f32_limit_at_head_dim_32(
+        monkeypatch, B, causal, sq, skv):
+    errs = _errors(monkeypatch, mm_tf32, B, causal, sq, skv, D=32)
+    assert min(errs) > chip_smoke.F32_ROW_REL_TOL, errs
+
+
+def _forward_error(monkeypatch, mm, B, causal, sq, skv, D):
+    """Per-row error of the forward's o against each row's absolute sum
+    (the plain forward over |v|), with both products of the plain forward
+    (q k^T and p v) taken by ``mm``; lse within chip_smoke.LSE_ATOL."""
+    (q, k, v, *_), _, _ = _case(B, causal, sq, skv, D=D)
+    want, want_lse = ck.flash_attention_plain(q, k, v, causal=causal)
+    sums = ck.flash_attention_plain(q, k, v.abs(), causal=causal)[0]
+    with monkeypatch.context() as m:
+        m.setattr(torch, "matmul", mm)
+        got, lse = ck.flash_attention_plain(q, k, v, causal=causal)
+    assert bool(torch.isfinite(got).all())
+    assert float((lse - want_lse).abs().max()) <= chip_smoke.LSE_ATOL
+    return chip_smoke._abs_row_err(torch, got, want, sums)
+
+
+_FWD = pytest.mark.parametrize("B,causal,sq,skv,D", [
+    (1, True, 256, 256, 64), (1, False, 64, 192, 64),
+    (1, True, 256, 256, 32), (1, False, 64, 192, 32)],
+    ids=["causal-256-d64", "noncausal-64x192-d64", "causal-256-d32",
+         "noncausal-64x192-d32"])
+
+
+@_FWD
+def test_3xtf32_forward_within_the_f32_limit(monkeypatch, B, causal, sq,
+                                             skv, D):
+    err = _forward_error(monkeypatch, mm_3xtf32, B, causal, sq, skv, D)
+    assert err <= chip_smoke.F32_ROW_REL_TOL, err
+
+
+@_FWD
+def test_single_tf32_forward_misses_the_f32_limit(monkeypatch, B, causal,
+                                                  sq, skv, D):
+    err = _forward_error(monkeypatch, mm_tf32, B, causal, sq, skv, D)
+    assert err > chip_smoke.F32_ROW_REL_TOL, err

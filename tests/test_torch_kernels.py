@@ -651,6 +651,42 @@ def test_backward_wrapper_rejects_what_bad_dims_rejects(shape_q, shape_kv,
         ck.flash_attention_bwd(q, kv, kv, q, lse, q, causal=causal)
 
 
+@pytest.mark.parametrize("B,H,causal,sq,skv", [
+    (4, 8, True, 1024, 1024),   # the f32 TransformerLM's train row
+    (1, 8, True, 1000, 1000),   # ragged causal
+    (1, 8, False, 200, 1000),   # ragged, Sq != Skv, no mask
+], ids=["train-row", "ragged-causal", "ragged-noncausal"])
+def test_f32_flash_checks_take_head_dim_32(B, H, causal, sq, skv):
+    """f32 at head dim 32 (bench.py transformer_kernels_config's f32
+    TransformerLM: 8 heads of 32) passes the forward's and the
+    backward's checks at chip_smoke.py's F32_D32_CASES shapes."""
+    q = _meta(B, H, sq, 32, dtype=torch.float32)
+    kv = _meta(B, H, skv, 32, dtype=torch.float32)
+    lse = _meta(B * H, sq, dtype=torch.float32)
+    assert ck.flash_unsupported_reason(q, kv, kv, causal) is None
+    assert ck.flash_bwd_unsupported_reason(q, kv, kv, q, lse, q,
+                                           causal) is None
+
+
+@pytest.mark.parametrize("dtype,D,dims", [
+    (torch.bfloat16, 32, "64"), (torch.float32, 16, "32/64"),
+    (torch.float32, 128, "32/64")], ids=["bf16-32", "f32-16", "f32-128"])
+def test_flash_checks_refuse_head_dims_not_built(dtype, D, dims):
+    """A head dim the flash kernels are not built for in this dtype is
+    refused by both checks, which name the dims that are, and both
+    wrappers raise on it (no fallback)."""
+    q = _meta(1, 2, 8, D, dtype=dtype)
+    lse = _meta(2, 8, dtype=torch.float32)
+    want = "head dim %d not in %s" % (D, dims)
+    assert want in ck.flash_unsupported_reason(q, q, q, False)
+    assert want in ck.flash_bwd_unsupported_reason(q, q, q, q, lse, q,
+                                                   False)
+    with pytest.raises(mt.KernelUnsupportedError, match=want):
+        ck.flash_attention(q, q, q)
+    with pytest.raises(mt.KernelUnsupportedError, match=want):
+        ck.flash_attention_bwd(q, q, q, q, lse, q)
+
+
 def test_backward_and_adam_checks_reject_what_the_kernels_do_not_take():
     q = _meta(1, 2, 8, 64)
     lse = _meta(2, 8, dtype=torch.float32)

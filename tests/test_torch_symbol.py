@@ -286,8 +286,9 @@ def test_zeros_ones_and_what_is_not_ported():
     np.testing.assert_array_equal(z.eval()[0].asnumpy(), np.full((2, 3), 2))
     with pytest.raises(NotImplementedError, match="slice 9"):
         mt.sym.load_json('{"nodes": [], "arg_nodes": [], "heads": []}')
-    with pytest.raises(NotImplementedError):
-        mt.sym.Variable("w", init=mt.init.Zero())
+    # Variable(init=...) is ported: the initializer's dumps in __init__
+    assert mt.sym.Variable("w", init=mt.init.Zero()).attr_dict()["w"][
+        "__init__"] == mt.init.Zero().dumps()
     with pytest.raises(NotImplementedError):
         _mlp(mt).simple_bind(mt.cpu(), group2ctx={"a": mt.cpu()},
                              data=(4, 10))

@@ -45,7 +45,7 @@ GRAD_RTOL = 1e-5
 LOSS_RTOL = 1e-6
 
 
-def _np_params(seed=0):
+def _np_params(seed=0, heads=H):
     rng = np.random.default_rng(seed)
 
     def mk(*shape):
@@ -57,8 +57,8 @@ def _np_params(seed=0):
         "final_norm": np.ones((D,), np.float32),
         "layers": {
             "ln1": np.ones((L, D), np.float32),
-            "wqkv": mk(L, D, 3, H, D // H),
-            "wo": mk(L, H, D // H, D),
+            "wqkv": mk(L, D, 3, heads, D // heads),
+            "wo": mk(L, heads, D // heads, D),
             "ln2": np.ones((L, D), np.float32),
             "w1": mk(L, D, F),
             "w2": mk(L, F, D),
@@ -92,11 +92,12 @@ def _nest(flat):
     return out
 
 
-def _models(p):
-    jm = JaxLM(JaxCfg(vocab_size=V, num_layers=L, d_model=D, num_heads=H,
-                      d_ff=F, max_len=S, dtype=jnp.float32))
+def _models(p, heads=H):
+    jm = JaxLM(JaxCfg(vocab_size=V, num_layers=L, d_model=D,
+                      num_heads=heads, d_ff=F, max_len=S,
+                      dtype=jnp.float32))
     tm = TransformerLM(TransformerLMConfig(
-        vocab_size=V, num_layers=L, d_model=D, num_heads=H, d_ff=F,
+        vocab_size=V, num_layers=L, d_model=D, num_heads=heads, d_ff=F,
         max_len=S, dtype=torch.float32), device="cpu")
     tm.load_state_dict(params_from_reference(p))
     return jm, tm
@@ -200,16 +201,24 @@ def test_rescaled_grad_goes_through_f32_preprocessing():
     assert torch.equal(out[0], out[1])
 
 
+# the two head dims the f32 flash kernels take: 2 heads of 64 and 4 heads
+# of 32 (bench.py transformer_kernels_config's f32 model has heads of 32)
+_TIER_HEADS = pytest.mark.parametrize("tier,heads", [
+    (True, H), (False, H), (True, 4), (False, 4)],
+    ids=["tier-on", "tier-off", "tier-on-head-dim-32",
+         "tier-off-head-dim-32"])
+
+
 # ----------------------------------------------------------- gradients
-@pytest.mark.parametrize("tier", [True, False], ids=["tier-on", "tier-off"])
-def test_loss_and_gradients_match_reference(tier):
+@_TIER_HEADS
+def test_loss_and_gradients_match_reference(tier, heads):
     """``TransformerLM.loss`` and its gradients against
     ``jax.value_and_grad(JaxLM.loss)`` on a small f32 model (vocab 256,
-    2 layers, d_model 128, 2 heads of 64, d_ff 256; B=2, S=64).  Tier on,
-    the port's attention is the flash autograd Function and the
-    reference's the Pallas custom VJP (interpret mode)."""
-    p = _np_params()
-    jm, tm = _models(p)
+    2 layers, d_model 128, 2 heads of 64 or 4 of 32, d_ff 256; B=2,
+    S=64).  Tier on, the port's attention is the flash autograd Function
+    and the reference's the Pallas custom VJP (interpret mode)."""
+    p = _np_params(heads=heads)
+    jm, tm = _models(p, heads)
     toks, tgts = _batch()
     jp = jax.tree_util.tree_map(jnp.asarray, p)
     tm.requires_grad_(True)
@@ -235,10 +244,11 @@ def test_loss_and_gradients_match_reference(tier):
 
 
 # ---------------------------------------------------------- a 3-step loop
-@pytest.mark.parametrize("tier", [True, False], ids=["tier-on", "tier-off"])
-def test_three_step_loop_matches_reference(tier):
-    """Three Adam steps (lr 1e-3, wd 0.01) of the small f32 model on one
-    batch, in both packages, each from its own gradients.
+@_TIER_HEADS
+def test_three_step_loop_matches_reference(tier, heads):
+    """Three Adam steps (lr 1e-3, wd 0.01) of the small f32 model (heads
+    of 64 or of 32) on one batch, in both packages, each from its own
+    gradients.
 
     Losses: 1e-5 relative at every step.  Weights: Adam normalises each
     step by the gradient's running RMS, so an entry whose gradient is
@@ -248,8 +258,8 @@ def test_three_step_loop_matches_reference(tier):
     and beta1 0.9, beta2 0.999 is at most 1.01 lr (Cauchy-Schwarz over
     the bias-corrected averages; wd * |w| adds under 1e-3 of it), so after
     3 steps no weight may differ by more than 3 x 2 x 1.01 lr."""
-    p = _np_params()
-    jm, tm = _models(p)
+    p = _np_params(heads=heads)
+    jm, tm = _models(p, heads)
     toks, tgts = _batch()
     names = [n for n, _ in tm.named_parameters()]
     tm.requires_grad_(True)
