@@ -3,7 +3,8 @@
 Usage (from the root of a checkout, one visible CUDA card)::
 
     python3 chip_smoke.py [--report PATH]
-                          [--phase attention|optimizer|module|bert|lm_f32]
+                          [--phase attention|optimizer|module|bert|lm_f32|
+                                   generation]
 
 Phases; any failure exits non-zero without the result lines:
 
@@ -23,7 +24,9 @@ Phases; any failure exits non-zero without the result lines:
             causal S = 1024; K2dq and K2dkv at F32_BWD_CASES, those and
             the two ragged backward shapes; all three at head dim 32 at
             F32_D32_CASES, phase 4c's shape B=4 H=8 S=1024 causal and the
-            two ragged shapes; per row at F32_ROW_REL_TOL
+            two ragged shapes; all three at head dim 16 at F32_D16_CASES,
+            generation_config's prefill B=1 H=2 causal S = 8, 16, 32 and
+            B=8 H=2 S=1024 causal; per row at F32_ROW_REL_TOL
             of the row's absolute sum; the same bits twice; device time
             beside sdpa's in f32; the bound at PEAK_F32_3XTF32_FLOPS and,
             under its own name, at PEAK_F32_FLOPS; and the backward's
@@ -36,7 +39,13 @@ Phases; any failure exits non-zero without the result lines:
             pools; the pool form and the gathered form, the same bits
             twice, device time, the bound from the valid keys' bytes,
             sdpa over the gathered tensors and the old gather + transpose
-            route's device time), the flash backward K2dq and K2dkv
+            route's device time; and with an f32 query at
+            PAGED_F32_CASES, generation_config's decode shapes D=16 H=2
+            pages of 8, B = 4 and 8 at widths 1, 2 and 4, and the
+            full-width shapes, over f32 pages and over int8 pages with
+            f32 scales, per row at PAGED_F32_ROW_REL_TOL of the row's
+            absolute sum, sdpa in f32 beside the f32 pages), the flash
+            backward K2dq and K2dkv
             (BWD_CASES: the forward's shapes, the training shape B=4, H=12, S=2048, ragged causal
             S=1000, ragged non-causal Sq=200 Skv=1000 and BERT-base's
             B=8 S=128 non-causal; a second launch must give the same
@@ -87,6 +96,41 @@ Phases; any failure exits non-zero without the result lines:
             ``decode_step`` at 8 slots and 128 pages, DECODE_STEPS
             profiled steps with the pool-form route and with the gathered
             route it replaced: CUDA kernels a step, device and host ms.
+3b. generation — f32 serving with the tier on throughout. (a)
+            ``bench.py`` ``generation_config`` as bench.py writes it: its
+            f32 model (vocab 89, 2 layers, d_model 32, 2 heads of 16, d_ff
+            64, context 32, pages of 8; bench.py's numpy init, seed 0,
+            pos_embed x25) and its traffic (RandomState(7)): scenario 1,
+            GEN_REQUESTS requests over its length mix, static batch 1
+            (``GenerationPredictor.generate`` in turn) against continuous
+            batching through ``Server`` at 4 slots; scenario 2, 8 x
+            GEN_REQUESTS requests of a 24-token system prompt, one
+            divergent token and 7 new tokens at 8 slots, an f32-page
+            baseline (shared prefix off, a pool of one request) against
+            int8 pages at twice the page count with shared-prefix reuse
+            (the int8 artifact exported with sampling, int8 KV and decode
+            batch 8).  K4's split count comes from
+            ``cuda_kernels.paged_splits``: the reference's
+            ``autotune.search_paged`` has no counterpart yet.  (b) the
+            full-width TransformerLM in f32 (``TransformerLMConfig``
+            defaults with dtype f32, seeded weights) through
+            export_generation -> Server: LM32_SERVE_REQUESTS greedy
+            requests at once (prompts 17..1500, LM32_SERVE_NEW new tokens)
+            and a short int8-KV run.  Launch counts and telemetry are
+            zeroed just before each counted run and read just after:
+            every prefill layer ran flash_fwd_f32 and every decode layer
+            one f32-query K4 of the run's page dtype
+            (paged_decode_pool_f32 or paged_decode_pool_int8_f32q), and
+            nothing else.  Every greedy stream is held against the
+            tier-off plain route (prefill + decode_step over its own page
+            pool of the run's dtype), teacher-forced, near-ties below
+            LOGIT_MARGIN_TOL excused.  Scenario 2 must show prefix hits,
+            the baseline's in-use pages peaking at its pool, the paged
+            route counted on every decode layer and every page free at
+            the end.  Prints tokens/s, TTFT p50/p99, decode-step p50/p99,
+            the scenarios' ratios beside bench.py's "continuous > static"
+            and ">= 1.5x" as predictions (not gates: host-bound timings),
+            and the device-idle share of a profiled continuous burst.
 4. train  — the full-width TransformerLM trained for TRAIN_STEPS steps
             on one fixed seeded batch (B=4, S=2048: 8192 tokens a step;
             targets are the inputs shifted by one) with Adam (lr 1e-3,
@@ -251,6 +295,11 @@ report as one JSON line.
 
 ``--phase lm_f32`` builds ``flash_f32.cu`` and K3, runs phase 2's f32
 flash checks at head dim 32 (F32_D32_CASES), then phase 4c alone, and
+prints its report as one JSON line.
+
+``--phase generation`` builds ``flash_f32.cu`` and ``paged_attn.cu``,
+runs phase 2's f32 flash checks at head dim 16 (F32_D16_CASES) and its
+f32-query paged checks (PAGED_F32_CASES), then phase 3b alone, and
 prints its report as one JSON line.
 
 ``--phase module`` builds the kernels and runs only phase 7(c), in a
@@ -487,6 +536,12 @@ F32_BWD_CASES = F32_CASES + ((1, 12, True, 1000, 1000, 64),
 #: causal), a ragged causal S=1000 and a non-causal Sq=200 x Skv=1000
 F32_D32_CASES = ((4, 8, True, 1024, 1024, 32), (1, 8, True, 1000, 1000, 32),
                  (1, 8, False, 200, 1000, 32))
+#: the f32 kernels' checks at head dim 16, forward and backward:
+#: generation_config's prefill (B=1, 2 heads of 16, causal, its buckets
+#: S = 8 and 16 and its context 32; bench.py:1153-1155) and B=8 S=1024
+#: causal, past one tile of every kind
+F32_D16_CASES = tuple((1, 2, True, s, s, 16) for s in (8, 16, 32)) + (
+    (8, 2, True, 1024, 1024, 16),)
 #: the f32 backward's fixed-cost sweep: at BERT's grid (B=8 H=12, 128
 #: rows on the block side) the streamed side is 64 x n rows long
 F32_SWEEP_TILES = (1, 2, 4, 8)
@@ -581,31 +636,49 @@ def check_flash(ck, torch, F, cases=FWD_CASES, dtype="bfloat16"):
     return out
 
 
-#: (B, width in pages) of the paged decode checks: one and eight decode
-#: slots at widths of 1, 32 and 128 pages of PAGE_SIZE (the serving
-#: widths' ends and middle)
-PAGED_CASES = ((1, 1), (1, 32), (1, 128), (8, 1), (8, 32), (8, 128))
+#: (B, H, width in pages, page size, D) of the bf16 paged decode checks:
+#: one and eight decode slots at widths of 1, 32 and 128 pages of
+#: PAGE_SIZE (the serving widths' ends and middle), 12 heads of 64
 PAGE_SIZE = 16
+PAGED_CASES = tuple((b, 12, w, PAGE_SIZE, 64) for b, w in (
+    (1, 1), (1, 32), (1, 128), (8, 1), (8, 32), (8, 128)))
+#: the f32-query paged decode checks (f32 pages, and int8 pages under an
+#: f32 query): generation_config's decode shapes (2 heads of 16, pages of
+#: 8, 4 and 8 slots at widths 1, 2 and 4; bench.py:1153-1155) and the
+#: full-width f32 TransformerLM's (as PAGED_CASES)
+PAGED_F32_CASES = tuple((b, 2, w, 8, 16) for b in (4, 8)
+                        for w in (1, 2, 4)) + PAGED_CASES
+#: the f32 variants against their plain version, per output row: max
+#: |kernel - plain| over the row's absolute sum sum_j p_j |v_j| / l.  Both
+#: sides compute in f32 (FFMA and f32 matmuls: no TF32), so they differ
+#: only in summation order, a few ulps of the absolute sum: 2^-16 leaves
+#: 2^8 ulps of room.  A dropped or doubled key of weight p moves a row by
+#: p |v|, far above it.
+PAGED_F32_ROW_REL_TOL = 2.0 ** -16
+_PAGED_KINDS = {("bfloat16", False): "bf16", ("bfloat16", True): "int8",
+                ("float32", False): "f32", ("float32", True): "int8_f32q"}
 
 
-def _pool_inputs(torch, quant, B, W, g):
-    """A KV_PAGES-page pool of one layer ([pool, 16, 12, 64]), a shuffled
-    page table whose entries past each sequence's length are the
-    sentinel (the pool size), and ragged lengths (one full width, one
-    single position when B > 1)."""
+def _pool_inputs(torch, quant, case, g, qdtype="bfloat16"):
+    """A KV_PAGES-page pool of one layer ([pool, psz, H, D]) in ``qdtype``
+    or int8 with f32 scales, a shuffled page table whose entries past each
+    sequence's length are the sentinel (the pool size), and ragged lengths
+    (one full width, one single position when B > 1)."""
     from mxnet_tpu_torch.quantization import quantize_rows
-    H, D, P = 12, 64, KV_PAGES
-    kp = torch.randn(P, PAGE_SIZE, H, D, generator=g, device="cuda")
-    vp = torch.randn(P, PAGE_SIZE, H, D, generator=g, device="cuda")
-    q = torch.randn(B, H, 1, D, generator=g, device="cuda").bfloat16()
+    B, H, W, psz, D = case
+    P = KV_PAGES
+    dt = getattr(torch, qdtype)
+    kp = torch.randn(P, psz, H, D, generator=g, device="cuda")
+    vp = torch.randn(P, psz, H, D, generator=g, device="cuda")
+    q = torch.randn(B, H, 1, D, generator=g, device="cuda").to(dt)
     perm = torch.randperm(P, generator=g, device="cuda")[:B * W]
     perm = perm.reshape(B, W).int()
-    lens = torch.randint(1, W * PAGE_SIZE + 1, (B,), generator=g,
+    lens = torch.randint(1, W * psz + 1, (B,), generator=g,
                          device="cuda").int()
-    lens[0] = W * PAGE_SIZE
+    lens[0] = W * psz
     if B > 1:
         lens[-1] = 1
-    first = torch.arange(W, device="cuda")[None, :] * PAGE_SIZE
+    first = torch.arange(W, device="cuda")[None, :] * psz
     table = torch.where(first < lens[:, None], perm,
                         torch.full_like(perm, P))
     if quant:
@@ -613,24 +686,32 @@ def _pool_inputs(torch, quant, B, W, g):
         vq, vs = quantize_rows(vp)
         return q, kq, vq, table, lens, {"k_scale_pool": ks,
                                         "v_scale_pool": vs}
-    return q, kp.bfloat16(), vp.bfloat16(), table, lens, {}
+    return q, kp.to(dt), vp.to(dt), table, lens, {}
 
 
-def check_paged(ck, torch, F, quant):
-    """K4 at PAGED_CASES, pool form (the decode path's entry) and gathered
+def check_paged(ck, torch, F, quant, cases=PAGED_CASES, qdtype="bfloat16"):
+    """K4 at ``cases`` with a ``qdtype`` query over pages of that dtype or
+    int8 (``quant``), pool form (the decode path's entry) and gathered
     form (``paged_attention``, the reference-shaped entry, over the same
     context gathered): each against ``paged_attention_pool_plain`` per
-    row, a second launch giving the same bits.  Times: device time of the
-    pool form, of the gathered form alone, of the route before this
-    kernel read the pool (gather + transpose of K, V (and scales) +
-    the gathered form), and of sdpa over the gathered tensors (bf16);
-    the bound counts the bytes of the valid keys."""
-    cases = []
-    H, D = 12, 64
-    g = torch.Generator(device="cuda").manual_seed(SEED + 1 + int(quant))
-    for B, W in PAGED_CASES:
-        q, kp, vp, table, lens, kw = _pool_inputs(torch, quant, B, W, g)
-        K = W * PAGE_SIZE
+    row (bf16: ROW_REL_TOL of the row's largest |o|; f32:
+    PAGED_F32_ROW_REL_TOL of the row's absolute sum), a second launch
+    giving the same bits.  Times: device time of the pool form, of the
+    gathered form alone, of the route before this kernel read the pool
+    (gather + transpose of K, V (and scales) + the gathered form), and of
+    sdpa over the gathered tensors in the query's dtype (none for int8
+    pages); the bound counts the bytes of the valid keys."""
+    cases_out = []
+    kind = _PAGED_KINDS[(qdtype, bool(quant))]
+    f32 = qdtype == "float32"
+    qbytes = 4 if f32 else 2
+    g = torch.Generator(device="cuda").manual_seed(
+        SEED + 1 + int(quant) + 2 * int(f32))
+    for case in cases:
+        B, H, W, psz, D = case
+        q, kp, vp, table, lens, kw = _pool_inputs(torch, quant, case, g,
+                                                  qdtype)
+        K = W * psz
 
         def pool_form():
             return ck.paged_attention_pool(q, kp, vp, table, lens, **kw)
@@ -655,26 +736,38 @@ def check_paged(ck, torch, F, quant):
         og, og2 = (ck.paged_attention(q, kc, vc, valid, **gkw)
                    for _ in range(2))
         torch.cuda.synchronize()
-        row_err = _row_rel_err(o, po)
-        g_err = _row_rel_err(og, po)
+        if f32:
+            # the row's absolute sum: the plain version over |v| (the
+            # int8 scales are positive)
+            absum = ck.paged_attention_pool_plain(q, kp, vp.abs(), table,
+                                                  lens, **kw)
+            tol = PAGED_F32_ROW_REL_TOL
+            row_err = _abs_row_err(torch, o, po, absum)
+            g_err = _abs_row_err(torch, og, po, absum)
+        else:
+            tol = ROW_REL_TOL
+            row_err = _row_rel_err(o, po)
+            g_err = _row_rel_err(og, po)
         same = _same_bits(torch, o, o2)
         g_same = _same_bits(torch, og, og2)
-        ok = (row_err <= ROW_REL_TOL and g_err <= ROW_REL_TOL and same
-              and g_same and bool(torch.isfinite(o.float()).all()))
+        ok = (row_err <= tol and g_err <= tol and same and g_same
+              and o.dtype == q.dtype and og.dtype == q.dtype
+              and bool(torch.isfinite(o.float()).all()))
         n_valid = int(lens.sum()) * H
-        elem = 1 if quant else 2
+        elem = 1 if quant else qbytes
         nbytes = (n_valid * D * 2 * elem + (n_valid * 2 * 4 if quant else 0)
-                  + 2 * 2 * B * H * D + 4 * B * W + 4 * B)
-        bound, by = _bound_ms(nbytes, 4 * D * n_valid)
+                  + 2 * qbytes * B * H * D + 4 * B * W + 4 * B)
+        bound, by = _bound_ms(nbytes, 4 * D * n_valid,
+                              PEAK_F32_FLOPS if f32 else None)
         per, splits = ck.paged_splits(B * H, K)
         case = {
-            "shape": {"B": B, "H": H, "pages": W, "page_size": PAGE_SIZE,
+            "shape": {"B": B, "H": H, "pages": W, "page_size": psz,
                       "K": K, "D": D, "lengths": [int(x) for x in
                                                   lens.tolist()],
-                      "kv": "int8" if quant else "bfloat16",
+                      "q": qdtype, "kv": "int8" if quant else qdtype,
                       "splits": splits, "keys_per_split": per},
             "max_abs_err": float((o.float() - po.float()).abs().max()),
-            "max_row_rel_err": row_err, "row_rel_tol": ROW_REL_TOL,
+            "max_row_rel_err": row_err, "row_rel_tol": tol,
             "same_bits_twice": same, "ok": ok,
             "ms_is": "device time (torch.profiler); event_ms: CUDA events "
                      "over back-to-back calls (the wrapper's host time at "
@@ -700,12 +793,11 @@ def check_paged(ck, torch, F, quant):
             "bound_ms": bound, "bound_by": by, "bound_bytes": nbytes}
         if case["ms"]:
             case["bound_share"] = bound / case["ms"]
-        _log("[kernels] paged_decode_pool_%s %s" % (
-            "int8" if quant else "bf16", json.dumps(case)))
-        cases.append(case)
+        _log("[kernels] paged_decode_pool_%s %s" % (kind, json.dumps(case)))
+        cases_out.append(case)
         del q, kp, vp, kc, vc, gkw, kw
         torch.cuda.empty_cache()
-    return cases
+    return cases_out
 
 
 def _sdpa_bwd_ms(torch, F, q, k, v, do, causal):
@@ -1340,11 +1432,33 @@ def check_scale_bias_relu(ck, torch):
 
 
 # ------------------------------------------------------------- phase 3
-def _prompts(np, vocab):
+def _prompts(np, vocab, n=N_REQUESTS):
     rng = np.random.default_rng(SEED)
-    lens = np.linspace(17, 1500, N_REQUESTS).astype(int)
+    lens = np.linspace(17, 1500, n).astype(int)
     rng.shuffle(lens)
     return [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
+
+
+def _hold_stream(torch, stream, logits, what):
+    """One served stream against the argmax of the plain route's
+    teacher-forced ``logits [len(stream), V]``: returns the top-2 margins
+    of the mismatches, each excused as a near-tie below
+    LOGIT_MARGIN_TOL; any other mismatch fails, ``what`` naming it."""
+    top2 = torch.topk(logits[:len(stream)].float(), 2, dim=-1)
+    plain = top2.indices[:, 0].cpu().numpy()
+    margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+    ties = []
+    for i, tok in enumerate(stream):
+        if int(tok) == int(plain[i]):
+            continue
+        if margin[i] < LOGIT_MARGIN_TOL:
+            ties.append(float(margin[i]))
+            continue
+        raise AssertionError(
+            "served token %d at step %d of %s disagrees with the plain "
+            "argmax %d (margin %.4f >= %.4f)" % (
+                tok, i, what, plain[i], margin[i], LOGIT_MARGIN_TOL))
+    return ties
 
 
 def _teacher_forced_check(mx, model, np, torch, prompts, streams):
@@ -1357,21 +1471,9 @@ def _teacher_forced_check(mx, model, np, torch, prompts, streams):
         for pr, st in zip(prompts, streams):
             seq = np.concatenate([pr, st[:-1]]).astype(np.int64)
             logits = model.apply(seq[None])[0, len(pr) - 1:]
-            top2 = torch.topk(logits, 2, dim=-1)
-            plain = top2.indices[:, 0].cpu().numpy()
-            margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
-            for i, tok in enumerate(st):
-                checked += 1
-                if int(tok) == int(plain[i]):
-                    continue
-                if margin[i] < LOGIT_MARGIN_TOL:
-                    tie_margins.append(float(margin[i]))
-                    continue
-                raise AssertionError(
-                    "served token %d at step %d of a %d-token prompt "
-                    "disagrees with the plain argmax %d (margin %.4f >= "
-                    "%.4f)" % (tok, i, len(pr), plain[i], margin[i],
-                               LOGIT_MARGIN_TOL))
+            checked += len(st)
+            tie_margins += _hold_stream(torch, st, logits, "a %d-token "
+                                        "prompt" % len(pr))
     finally:
         mx.config.unset("kernels.enabled")
     return checked, tie_margins
@@ -1495,11 +1597,12 @@ def _zero_counts(torch, tt, ck):
     rtc.reset_launches()
 
 
-def _read_counts(torch, tt, ck, layers, paged_key):
+def _read_counts(torch, tt, ck, layers, paged_key, flash_key="flash_fwd"):
     """Read a counted run just after it: every prefill layer ran the flash
-    kernel and every decode layer the paged kernel ``paged_key``, through
-    the routed wrappers, and no other kernel launched.  Returns
-    (prefills, decode iterations, launches, telemetry snapshot)."""
+    kernel ``flash_key`` and every decode layer the paged kernel
+    ``paged_key``, through the routed wrappers, and no other kernel
+    launched.  Returns (prefills, decode iterations, launches, telemetry
+    snapshot)."""
     torch.cuda.synchronize()
     launches = dict(ck.LAUNCHES)
     snap = tt.snapshot()
@@ -1508,8 +1611,7 @@ def _read_counts(torch, tt, ck, layers, paged_key):
     decodes = tm.get("serving.decode_step_ms", {}).get("count", 0)
     assert prefills > 0 and decodes > 0, (prefills, decodes)
     want = dict.fromkeys(launches, 0)
-    want.update({"flash_fwd": prefills * layers,
-                 paged_key: decodes * layers})
+    want.update({flash_key: prefills * layers, paged_key: decodes * layers})
     assert launches == want, (launches, want)
     assert c.get("kernels.flash_attention", 0) == prefills * layers, c
     assert c.get("kernels.paged_attention", 0) == decodes * layers, c
@@ -1778,6 +1880,453 @@ def serve(mx, ck, np, torch, workdir):
     finally:
         srv.stop()
         mx.config.unset("serving.kv_pages")
+    return out
+
+
+# ------------------------------------------------------------ phase 3b
+#: bench.py ``generation_config`` (bench.py:1153-1155): an f32
+#: TransformerLM of vocab 89, 2 layers, d_model 32, 2 heads of 16, d_ff
+#: 64, context 32, pages of 8; scenario 1 at 4 slots over GEN_MIX
+#: (bench.py:1188), scenario 2 at 8 slots, a 24-token system prompt, one
+#: divergent token and 7 new tokens (bench.py:1263)
+GEN_VOCAB, GEN_PAGE, GEN_CTX, GEN_SLOTS = 89, 8, 32, 4
+GEN_LAYERS, GEN_D, GEN_HEADS, GEN_FF = 2, 32, 2, 64
+GEN_MIX = ((3, 9), (7, 6), (12, 12), (5, 8), (9, 10), (14, 7))
+#: bench.py's on-chip request count; scenario 2 serves 8x as many
+GEN_REQUESTS = 24
+GEN_SLOTS2, GEN_SYS_LEN, GEN_DIVERGE, GEN_NEW2 = 8, 24, 1, 7
+#: the full-width f32 serve: requests at once (prompts 17..1500), new
+#: tokens each, then the int8-KV run's requests and new tokens
+LM32_SERVE_REQUESTS = 8
+LM32_SERVE_NEW = 32
+LM32_SERVE_INT8 = 4
+LM32_SERVE_INT8_NEW = 16
+
+
+def genconf_config(torch):
+    from mxnet_tpu_torch.models.transformer import TransformerLMConfig
+    return TransformerLMConfig(
+        vocab_size=GEN_VOCAB, num_layers=GEN_LAYERS, d_model=GEN_D,
+        num_heads=GEN_HEADS, d_ff=GEN_FF, max_len=GEN_CTX,
+        dtype=torch.float32)
+
+
+def genconf_params(np):
+    """generation_config's weights as bench.py makes them, in the
+    reference's layout: N(0, 0.02) from ``default_rng(0)`` in bench.py's
+    order, pos_embed x 25 (so greedy streams depend on position), the
+    norms at 1."""
+    prng = np.random.default_rng(0)
+    L, D, H, F = GEN_LAYERS, GEN_D, GEN_HEADS, GEN_FF
+
+    def mk(*shape):
+        return prng.normal(0.0, 0.02, size=shape).astype(np.float32)
+    embed = mk(GEN_VOCAB, D)
+    pos_embed = mk(GEN_CTX, D) * np.float32(25.0)
+    wqkv, wo = mk(L, D, 3, H, D // H), mk(L, H, D // H, D)
+    w1, w2 = mk(L, D, F), mk(L, F, D)
+    ones = np.ones((L, D), np.float32)
+    return {"embed": embed, "pos_embed": pos_embed,
+            "final_norm": np.ones((D,), np.float32),
+            "layers": {"ln1": ones, "wqkv": wqkv, "wo": wo,
+                       "ln2": ones.copy(), "w1": w1, "w2": w2}}
+
+
+def genconf_traffic(np, requests):
+    """bench.py's traffic, drawn from its one ``RandomState(7)``: scenario
+    1's ``(prompt length, new tokens)`` over GEN_MIX and its prompts, then
+    scenario 2's ``8 x requests`` prompts (the system prompt and one
+    divergent token each).  Returns (traffic, prompts, prompts2)."""
+    traffic = [GEN_MIX[i % len(GEN_MIX)] for i in range(requests)]
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, GEN_VOCAB, size=p).astype(np.int32)
+               for p, _ in traffic]
+    sys_prompt = rng.randint(0, GEN_VOCAB, size=GEN_SYS_LEN).astype(np.int32)
+    prompts2 = [np.concatenate([sys_prompt, np.asarray(
+        [(i + 1) % GEN_VOCAB], np.int32)]) for i in range(8 * requests)]
+    return traffic, prompts, prompts2
+
+
+def _replay_plain(mx, model, np, torch, prompts, streams, psz, quantized):
+    """The served streams teacher-forced through the plain route: the
+    kernel tier off, ``prefill`` + ``decode_step`` over a private page pool
+    (int8 when ``quantized``), all streams as one batch.  Returns
+    (tokens checked, the plain top-2 margins of the mismatches, each
+    excused as a near-tie below LOGIT_MARGIN_TOL)."""
+    B = len(prompts)
+    T = max(len(st) for st in streams)
+    S = max(len(pr) for pr in prompts)
+    top = model.cfg.max_len - 1
+    need = -(-(S + T) // psz)
+    table = np.arange(B * need, dtype=np.int32).reshape(B, need)
+    tokens = np.zeros((B, S), np.int32)
+    for b, pr in enumerate(prompts):
+        tokens[b, :len(pr)] = pr
+    lengths = np.asarray([len(pr) for pr in prompts], np.int32)
+    mx.config.set("kernels.enabled", False)
+    try:
+        kv = model.init_kv_pages(B * need, psz, quantized=quantized)
+        kv, _, lg = model.prefill(kv, tokens, lengths, table, psz,
+                                  return_logits=True)
+        out = [lg.float()]
+        for i in range(T - 1):
+            tok = np.asarray([st[i] if i < len(st) else 0
+                              for st in streams], np.int32)
+            # a row past its stream's end rides along; its logits are unused
+            pos = np.minimum(lengths + i, top).astype(np.int32)
+            kv, _, lg = model.decode_step(kv, tok, pos, table, psz,
+                                          return_logits=True)
+            out.append(lg.float())
+    finally:
+        mx.config.unset("kernels.enabled")
+    logits = torch.stack(out, 1)
+    ties = []
+    for b, st in enumerate(streams):
+        ties += _hold_stream(torch, st, logits[b], "stream %d" % b)
+    return sum(len(st) for st in streams), ties
+
+
+def _all_paged(predictor):
+    """The artifact's per-width verdict: the kernel's own check takes
+    every decode width."""
+    routes = predictor.paged_routes
+    assert routes and all(r["impl"] == "paged" for r in routes.values()), \
+        routes
+
+
+def _launch_counts(torch, ck, **want):
+    """Read the launches of a counted run just after it, and hold them to
+    exactly ``want`` (every other kernel: none)."""
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    assert launches == _want_launches(ck, **want), (launches, want)
+    return {k: v for k, v in launches.items() if v}
+
+
+def _parity(mx, model, np, torch, prompts, streams, psz, quantized):
+    checked, ties = _replay_plain(mx, model, np, torch, prompts, streams,
+                                  psz, quantized)
+    return {"checked_tokens": checked, "near_ties": len(ties),
+            "near_tie_max_margin": max(ties, default=0.0)}
+
+
+def _gen_static(mx, ck, np, torch, tt, model, prefix, traffic, prompts):
+    """Scenario 1, static batch 1: ``GenerationPredictor.generate`` a
+    request at a time, strictly in turn, after one untimed pass (as
+    bench.py).  Counts zeroed just before the timed pass, read just
+    after."""
+    L = GEN_LAYERS
+    pred = mx.deploy.load_generator(prefix)
+    _all_paged(pred)
+    for pr, (_, n) in zip(prompts, traffic):
+        pred.generate(pr, n)
+    _zero_counts(torch, tt, ck)
+    starts, streams = [], []
+    t0 = time.perf_counter()
+    for pr, (_, n) in zip(prompts, traffic):
+        starts.append((time.perf_counter() - t0) * 1e3)
+        streams.append(pred.generate(pr, n))
+    wall = time.perf_counter() - t0
+    decodes = sum(n - 1 for _, n in traffic)
+    launches = _launch_counts(torch, ck,
+                              flash_fwd_f32=len(prompts) * L,
+                              paged_decode_pool_f32=decodes * L)
+    c = tt.snapshot()["counters"]
+    assert c.get("kernels.flash_attention") == len(prompts) * L, c
+    assert c.get("kernels.paged_attention") == decodes * L, c
+    total = sum(n for _, n in traffic)
+    return streams, {
+        "requests": len(prompts), "new_tokens": total, "wall_s": wall,
+        "tokens_per_s": total / wall,
+        "ttft_ms_p99": float(np.percentile(np.asarray(starts), 99)),
+        "ttft_is": "queue-serialisation lower bound (bench.py): the time "
+                   "before a request's generate call starts",
+        "decode_steps": decodes, "launches": launches}
+
+
+def _gen_continuous(mx, ck, np, torch, tt, prefix, traffic, prompts):
+    """Scenario 1, continuous batching: the burst through ``Server`` at
+    GEN_SLOTS slots, pages never binding (bench.py's pool).  Counts zeroed
+    just before, read just after; then the same burst again in a
+    profiled window."""
+    L = GEN_LAYERS
+    mx.config.set("serving.kv_page_size", GEN_PAGE)
+    mx.config.set("serving.kv_pages",
+                  2 * GEN_SLOTS * -(-GEN_CTX // GEN_PAGE))
+    mx.config.set("serving.decode_slots", GEN_SLOTS)
+    srv = mx.serving.Server()
+    try:
+        srv.register("gen", prefix, generate=True)
+        srv.start()
+        srv.generate("gen", prompts[0], 2, timeout=600)   # warm dispatch
+
+        def burst():
+            futs = [srv.submit_generate("gen", pr, n)
+                    for pr, (_, n) in zip(prompts, traffic)]
+            return [f.result(timeout=600) for f in futs]
+        _zero_counts(torch, tt, ck)
+        t0 = time.perf_counter()
+        streams = burst()
+        wall = time.perf_counter() - t0
+        prefills, decodes, launches, snap = _read_counts(
+            torch, tt, ck, L, "paged_decode_pool_f32", "flash_fwd_f32")
+        assert prefills == len(prompts), prefills
+        tm = snap["timers"]
+        total = sum(n for _, n in traffic)
+        out = {"requests": len(prompts), "new_tokens": total,
+               "decode_slots": GEN_SLOTS, "wall_s": wall,
+               "tokens_per_s": total / wall,
+               "ttft_ms_p50": tm["serving.ttft_ms"]["p50"],
+               "ttft_ms_p99": tm["serving.ttft_ms"]["p99"],
+               "decode_step_ms_p50": tm["serving.decode_step_ms"]["p50"],
+               "decode_step_ms_p99": tm["serving.decode_step_ms"]["p99"],
+               "prefills": prefills, "decode_iterations": decodes,
+               "launches": {k: v for k, v in launches.items() if v}}
+        if _profiler_records_cuda(torch):
+            out["profile"] = _profile(torch, burst)
+        else:
+            out["profile"] = {"error": "not measured: torch.profiler "
+                                       "recorded no CUDA kernels"}
+    finally:
+        srv.stop()
+        for knob in ("serving.kv_page_size", "serving.kv_pages",
+                     "serving.decode_slots"):
+            mx.config.unset(knob)
+    return streams, out
+
+
+def _gen_shared(mx, ck, np, torch, tt, prefix, pages, share, label,
+                prompts2, paged_key):
+    """Scenario 2, one run (bench.py ``shared_run``): GEN_SLOTS2 slots
+    over a pool of ``pages`` pages, ``serving.shared_prefix`` = ``share``;
+    the in-use gauge sampled until the pool proves full.  Counts zeroed
+    just before, read just after; every page back on the free list at
+    the end."""
+    L = GEN_LAYERS
+    mx.config.set("serving.kv_page_size", GEN_PAGE)
+    mx.config.set("serving.kv_pages", pages)
+    mx.config.set("serving.decode_slots", GEN_SLOTS2)
+    mx.config.set("serving.shared_prefix", share)
+    srv = mx.serving.Server()
+    try:
+        eng = srv.register(label, prefix, generate=True)
+        srv.start()
+        srv.generate(label, prompts2[0], 2, timeout=600)   # warm dispatch
+        gauge = tt.gauge("serving.kv_pages_in_use.%s" % label)
+        _zero_counts(torch, tt, ck)
+        t0 = time.perf_counter()
+        futs = [srv.submit_generate(label, pr, GEN_NEW2) for pr in prompts2]
+        peak = 0
+        while peak < pages and not all(f.done() for f in futs):
+            peak = max(peak, int(gauge.value))
+            time.sleep(0.005)
+        streams = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        prefills, decodes, launches, snap = _read_counts(
+            torch, tt, ck, L, paged_key, "flash_fwd_f32")
+        assert prefills == len(prompts2), prefills
+        stats = eng.stats()
+        # every page back on the free list, no shared entry left
+        assert stats["kv_pages_free"] == pages and stats["active"] == 0 \
+            and stats["prefix_entries"] == 0, stats
+        c, tm = snap["counters"], snap["timers"]
+        total = len(prompts2) * GEN_NEW2
+        return streams, {
+            "requests": len(prompts2), "new_tokens": total,
+            "decode_slots": GEN_SLOTS2, "kv_pages": pages,
+            "shared_prefix": share, "wall_s": wall,
+            "tokens_per_s": total / wall,
+            "ttft_ms_p50": tm["serving.ttft_ms"]["p50"],
+            "ttft_ms_p99": tm["serving.ttft_ms"]["p99"],
+            "kv_pages_in_use_peak": peak,
+            "prefix_hits": c.get("serving.prefix_hits", 0),
+            "kv_pool_exhausted": c.get("serving.kv_pool_exhausted", 0),
+            "paged_kernel_iterations": c.get("kernels.paged_attention", 0),
+            "prefills": prefills, "decode_iterations": decodes,
+            "launches": {k: v for k, v in launches.items() if v}}
+    finally:
+        srv.stop()
+        for knob in ("serving.kv_page_size", "serving.kv_pages",
+                     "serving.decode_slots", "serving.shared_prefix"):
+            mx.config.unset(knob)
+
+
+def serve_genconf(mx, ck, np, torch, workdir):
+    """Phase 3b(a): bench.py ``generation_config`` with its own model and
+    traffic, the kernel tier on throughout."""
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.convert import params_from_reference
+    from mxnet_tpu_torch.models.transformer import TransformerLM
+    out = {}
+    t0 = time.perf_counter()
+    params = genconf_params(np)
+    model = TransformerLM(genconf_config(torch))
+    model.load_state_dict(params_from_reference(params))
+    traffic, prompts, prompts2 = genconf_traffic(np, GEN_REQUESTS)
+    prefix = os.path.join(workdir, "gen")
+    mx.deploy.export_generation(model, params, prefix, page_size=GEN_PAGE,
+                                max_context=GEN_CTX, prompt_buckets=(8, 16))
+    static, out["static"] = _gen_static(mx, ck, np, torch, tt, model,
+                                        prefix, traffic, prompts)
+    out["static"].update(_parity(mx, model, np, torch, prompts, static,
+                                 GEN_PAGE, False))
+    _log("[generation] static %s" % json.dumps(out["static"]))
+    cont, out["continuous"] = _gen_continuous(mx, ck, np, torch, tt, prefix,
+                                              traffic, prompts)
+    out["continuous"].update(_parity(mx, model, np, torch, prompts, cont,
+                                     GEN_PAGE, False))
+    out["continuous"]["streams_equal_static"] = sum(
+        bool(np.array_equal(a, b)) for a, b in zip(cont, static))
+    _log("[generation] continuous %s" % json.dumps(out["continuous"]))
+    out["continuous_over_static"] = (out["continuous"]["tokens_per_s"]
+                                     / out["static"]["tokens_per_s"])
+    out["ttft_p99_continuous_over_static"] = (
+        out["continuous"]["ttft_ms_p99"] / out["static"]["ttft_ms_p99"])
+
+    # scenario 2: the same pool bytes, f32 pages without sharing against
+    # int8 pages at twice the count with shared-prefix reuse
+    spec = model.kv_spec()
+    row = spec["num_layers"] * spec["num_heads"] * spec["head_dim"]
+    pages_f32 = -(-(GEN_SYS_LEN + GEN_DIVERGE + GEN_NEW2) // GEN_PAGE)
+    pages_int8 = 2 * pages_f32
+    bytes_f32 = pages_f32 * 2 * row * GEN_PAGE * 4
+    bytes_int8 = pages_int8 * (2 * row * GEN_PAGE + 2 * spec["num_layers"]
+                               * spec["num_heads"] * GEN_PAGE * 4)
+    assert bytes_int8 <= bytes_f32, (bytes_int8, bytes_f32)
+    base_prefix = os.path.join(workdir, "gen_base")
+    opt_prefix = os.path.join(workdir, "gen_opt")
+    mx.deploy.export_generation(model, params, base_prefix,
+                                page_size=GEN_PAGE, max_context=GEN_CTX,
+                                prompt_buckets=(32,))
+    mx.config.set("kernels.enabled", True)
+    try:
+        mx.deploy.export_generation(
+            model, params, opt_prefix, page_size=GEN_PAGE,
+            max_context=GEN_CTX, prompt_buckets=(32,), sampling=True,
+            kv_quantized=True, decode_batch=GEN_SLOTS2)
+    finally:
+        mx.config.unset("kernels.enabled")
+    for pfx in (base_prefix, opt_prefix):
+        with open(pfx + "-meta.json") as f:
+            meta = json.load(f)
+        assert all(r["impl"] == "paged" for r in meta["paged"].values()), \
+            meta["paged"]
+    base_s, base = _gen_shared(mx, ck, np, torch, tt, base_prefix, pages_f32,
+                               False, "gen_base", prompts2,
+                               "paged_decode_pool_f32")
+    base.update(_parity(mx, model, np, torch, prompts2, base_s, GEN_PAGE,
+                        False))
+    base["pool_bytes"] = bytes_f32
+    # the f32 pool holds one request: the pool binds
+    assert base["kv_pages_in_use_peak"] == pages_f32, base
+    _log("[generation] shared_sysprompt_f32_baseline %s" % json.dumps(base))
+    opt_s, opt = _gen_shared(mx, ck, np, torch, tt, opt_prefix, pages_int8,
+                             True, "gen_int8_shared", prompts2,
+                             "paged_decode_pool_int8_f32q")
+    opt.update(_parity(mx, model, np, torch, prompts2, opt_s, GEN_PAGE,
+                       True))
+    opt["pool_bytes"] = bytes_int8
+    assert opt["prefix_hits"] >= 1, opt
+    _log("[generation] shared_sysprompt_int8_shared %s" % json.dumps(opt))
+    out["shared_f32_baseline"], out["shared_int8"] = base, opt
+    out["int8_shared_over_baseline"] = opt["tokens_per_s"] / base[
+        "tokens_per_s"]
+    out["ttft_p99_int8_over_baseline"] = opt["ttft_ms_p99"] / base[
+        "ttft_ms_p99"]
+    out["peak_pages_int8_over_baseline"] = (opt["kv_pages_in_use_peak"]
+                                            / base["kv_pages_in_use_peak"])
+    out["predictions"] = {
+        "continuous > static (bench.py's gate)":
+            out["continuous_over_static"] > 1.0,
+        "int8 + shared >= 1.5x baseline (bench.py's gate)":
+            out["int8_shared_over_baseline"] >= 1.5,
+        "note": "printed, not gates: these are host-bound timings"}
+    out["seconds"] = time.perf_counter() - t0
+    _log("[generation] ratios %s" % json.dumps(
+        {k: out[k] for k in ("continuous_over_static",
+                             "ttft_p99_continuous_over_static",
+                             "int8_shared_over_baseline",
+                             "ttft_p99_int8_over_baseline",
+                             "peak_pages_int8_over_baseline",
+                             "predictions")}))
+    return out
+
+
+def serve_lm_f32(mx, ck, np, torch, workdir):
+    """Phase 3b(b): the full-width TransformerLM in f32 through
+    ``export_generation`` -> ``Server``: LM32_SERVE_REQUESTS greedy
+    requests at once, then a short int8-KV run.  Counts zeroed just
+    before each run and read just after; every stream held against the
+    tier-off plain route, teacher-forced."""
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.models.transformer import (TransformerLM,
+                                                    TransformerLMConfig)
+    t0 = time.perf_counter()
+    cfg = TransformerLMConfig(dtype=torch.float32)
+    L, psz = cfg.num_layers, 16
+    model = TransformerLM(cfg).init(SEED)
+    prefix = os.path.join(workdir, "lm32")
+    prefixq = os.path.join(workdir, "lm32q")
+    mx.deploy.export_generation(model, None, prefix, page_size=psz)
+    mx.deploy.export_generation(model, None, prefixq, page_size=psz,
+                                kv_quantized=True)
+    out = {"setup_s": time.perf_counter() - t0}
+    prompts = _prompts(np, cfg.vocab_size, LM32_SERVE_REQUESTS)
+    mx.config.set("serving.kv_pages", KV_PAGES)
+    srv = mx.serving.Server()
+    try:
+        eng = srv.register("lm32", prefix, generate=True)
+        engq = srv.register("lm32q", prefixq, generate=True)
+        srv.start()
+        _all_paged(eng.predictor)
+        _all_paged(engq.predictor)
+        srv.generate("lm32", prompts[0][:64], 4, timeout=600)   # warm-up
+        for label, name, n_req, new, key, quant in (
+                ("greedy", "lm32", LM32_SERVE_REQUESTS, LM32_SERVE_NEW,
+                 "paged_decode_pool_f32", False),
+                ("int8", "lm32q", LM32_SERVE_INT8, LM32_SERVE_INT8_NEW,
+                 "paged_decode_pool_int8_f32q", True)):
+            _zero_counts(torch, tt, ck)
+            t1 = time.perf_counter()
+            futs = [srv.submit_generate(name, pr, new)
+                    for pr in prompts[:n_req]]
+            streams = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t1
+            prefills, decodes, launches, snap = _read_counts(
+                torch, tt, ck, L, key, "flash_fwd_f32")
+            assert prefills == n_req, prefills
+            assert all(len(st) == new for st in streams)
+            tm = snap["timers"]
+            run = {"requests": n_req, "new_tokens": new,
+                   "prompt_lens": [int(len(p)) for p in prompts[:n_req]],
+                   "wall_s": wall, "tokens_per_s": n_req * new / wall,
+                   "ttft_ms_p50": tm["serving.ttft_ms"]["p50"],
+                   "ttft_ms_p99": tm["serving.ttft_ms"]["p99"],
+                   "decode_step_ms_p50": tm["serving.decode_step_ms"]["p50"],
+                   "decode_step_ms_p99": tm["serving.decode_step_ms"]["p99"],
+                   "prefills": prefills, "decode_iterations": decodes,
+                   "launches": {k: v for k, v in launches.items() if v}}
+            run.update(_parity(mx, model, np, torch, prompts[:n_req],
+                               streams, psz, quant))
+            _log("[generation] lm_f32 %s %s" % (label, json.dumps(run)))
+            out[label] = run
+    finally:
+        srv.stop()
+        mx.config.unset("serving.kv_pages")
+        del model
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def generation(mx, ck, np, torch, card, workdir):
+    """Phase 3b: f32 serving, bench.py generation_config (a) and the
+    full-width f32 TransformerLM (b)."""
+    t0 = time.perf_counter()
+    out = {"card": card,
+           "generation_config": serve_genconf(mx, ck, np, torch, workdir),
+           "lm_f32_serve": serve_lm_f32(mx, ck, np, torch, workdir)}
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -3526,9 +4075,51 @@ def _rtc_summary(name, rtc_out, ops_out):
             "nvrtc_compile_ms": rtc_out["compile_ms"], "cases": cases}
 
 
+def _generation_launches(gen):
+    """Launches of phase 3b's counted runs, summed per kernel, and by run
+    under ``"by_run"``."""
+    runs = {"static": gen["generation_config"]["static"],
+            "continuous": gen["generation_config"]["continuous"],
+            "shared_f32_baseline": gen["generation_config"][
+                "shared_f32_baseline"],
+            "shared_int8": gen["generation_config"]["shared_int8"],
+            "lm_f32_greedy": gen["lm_f32_serve"]["greedy"],
+            "lm_f32_int8": gen["lm_f32_serve"]["int8"]}
+    out = {"by_run": {}}
+    for run, res in runs.items():
+        for key, n in res["launches"].items():
+            out[key] = out.get(key, 0) + n
+            out["by_run"].setdefault(key, {})[run] = n
+    for key in ("flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32",
+                "paged_decode_pool_f32", "paged_decode_pool_int8_f32q"):
+        out.setdefault(key, 0)
+    return out
+
+
+def _by_head_dim(cases):
+    """The largest checked case at each head dim, when an attention
+    kernel is checked at several: its shape and times."""
+    if not all(isinstance(c["shape"], dict) and "D" in c["shape"]
+               for c in cases):
+        return {}
+    dims = sorted({c["shape"]["D"] for c in cases})
+    if len(dims) < 2:
+        return {}
+    out = {}
+    for d in dims:
+        top = max((c for c in cases if c["shape"]["D"] == d),
+                  key=lambda c: c["bound_ms"])
+        out[str(d)] = {k: top.get(k) for k in (
+            "shape", "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_row_rel_err")}
+    return {"by_head_dim": out}
+
+
 def _summary(name, source, replaces, cases, launches):
     """One line of the kernels table; its times are those of the largest
-    shape it is checked at (B=4 S=2048 causal, or K=2048)."""
+    shape it is checked at (B=4 S=2048 causal, or K=2048), and, where it
+    is checked at several head dims, each one's largest under
+    ``by_head_dim``."""
     top = max(cases, key=lambda c: c["bound_ms"])
     return {"name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/" + source,
@@ -3546,7 +4137,7 @@ def _summary(name, source, replaces, cases, launches):
                                    "bound_bytes", "gathered", "bound_is",
                                    "bound_ffma_ms", "bound_ffma_by",
                                    "pair_vs_library")
-               if k in top}}
+               if k in top}, **_by_head_dim(cases)}
 
 
 def _k6_summary(cases, replaces, launches):
@@ -3587,14 +4178,17 @@ def main(argv=None):
     ap.add_argument("--report", help="also write the full report (JSON) "
                     "to this path")
     ap.add_argument("--phase", choices=("all", "attention", "optimizer",
-                                        "module", "bert", "lm_f32"),
+                                        "module", "bert", "lm_f32",
+                                        "generation"),
                     default="all",
                     help="attention: the flash forward and backward checks "
                     "of phase 2 alone; optimizer: phase 2's K3 and K1 "
                     "checks alone; module: phase 7(c) alone, after the "
                     "lr_t A/B; bert: the flash checks at BERT's shapes "
                     "(bf16 and f32) and phase 4b alone; lm_f32: the f32 "
-                    "flash checks at head dim 32 and phase 4c alone")
+                    "flash checks at head dim 32 and phase 4c alone; "
+                    "generation: the f32 flash checks at head dim 16, the "
+                    "f32-query paged checks and phase 3b alone")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3631,7 +4225,8 @@ def main(argv=None):
         {"attention": ["flash_fwd", "flash_bwd", "flash_f32", "paged_attn"],
          "optimizer": ["adam_step", "sgd_step"],
          "bert": ["flash_fwd", "flash_bwd", "flash_f32", "adam_step"],
-         "lm_f32": ["flash_f32", "adam_step"]}.get(args.phase))
+         "lm_f32": ["flash_f32", "adam_step"],
+         "generation": ["flash_f32", "paged_attn"]}.get(args.phase))
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "per_source_s": {k: v["seconds"]
                                         for k, v in built.items()},
@@ -3657,21 +4252,29 @@ def main(argv=None):
     workdir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     f32_keys = ("flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
+    f32q_keys = ("paged_decode_pool_f32", "paged_decode_pool_int8_f32q")
+
+    def check_f32q_paged():
+        for key, quant in zip(f32q_keys, (False, True)):
+            report[key] = check_paged(ck, torch, F, quant, PAGED_F32_CASES,
+                                      "float32")
     if args.phase == "attention":
         report["flash_fwd"] = check_flash(ck, torch, F)
         report["paged_decode_pool_bf16"] = check_paged(ck, torch, F, False)
         report["paged_decode_pool_int8"] = check_paged(ck, torch, F, True)
+        check_f32q_paged()
         report["flash_bwd_dq"], report["flash_bwd_dkv"] = check_flash_bwd(
             ck, torch, F)
-        report["flash_fwd_f32"] = check_flash(
-            ck, torch, F, F32_CASES + F32_D32_CASES, "float32")
+        f32_cases = F32_CASES + F32_D32_CASES + F32_D16_CASES
+        report["flash_fwd_f32"] = check_flash(ck, torch, F, f32_cases,
+                                              "float32")
         report["flash_bwd_dq_f32"], report["flash_bwd_dkv_f32"] = \
-            check_flash_bwd(ck, torch, F, F32_BWD_CASES + F32_D32_CASES,
-                            "float32")
+            check_flash_bwd(ck, torch, F, F32_BWD_CASES + F32_D32_CASES
+                            + F32_D16_CASES, "float32")
         report["flash_bwd_f32_sweep"] = sweep_flash_bwd_f32(ck, torch)
         bad = [c for key in ("flash_fwd", "paged_decode_pool_bf16",
                              "paged_decode_pool_int8", "flash_bwd_dq",
-                             "flash_bwd_dkv") + f32_keys
+                             "flash_bwd_dkv") + f32_keys + f32q_keys
                for c in report[key] if not c["ok"]]
         _write_report(args.report, report)
         if bad:
@@ -3730,6 +4333,23 @@ def main(argv=None):
         print(json.dumps({k: v for k, v in report.items()
                           if k != "build"}))
         return 0
+    if args.phase == "generation":
+        report["flash_fwd_f32"] = check_flash(ck, torch, F, F32_D16_CASES,
+                                              "float32")
+        report["flash_bwd_dq_f32"], report["flash_bwd_dkv_f32"] = \
+            check_flash_bwd(ck, torch, F, F32_D16_CASES, "float32")
+        check_f32q_paged()
+        bad = [c for key in f32_keys + f32q_keys for c in report[key]
+               if not c["ok"]]
+        if bad:
+            _write_report(args.report, report)
+            raise AssertionError("kernel disagrees with its plain version: "
+                                 "%s" % json.dumps(bad))
+        report["generation"] = generation(mx, ck, np, torch, card, workdir)
+        _write_report(args.report, report)
+        print(json.dumps({k: v for k, v in report.items()
+                          if k != "build"}))
+        return 0
     if args.phase == "module":
         report["lr_t_ab"] = lr_t_ab(mx, np, torch)
         report["launch_ab"] = launch_ab(mx, np, torch)
@@ -3740,24 +4360,29 @@ def main(argv=None):
     flash = check_flash(ck, torch, F)
     paged = check_paged(ck, torch, F, quant=False)
     paged8 = check_paged(ck, torch, F, quant=True)
+    check_f32q_paged()
+    paged32, paged8q = (report[key] for key in f32q_keys)
     bwd_dq, bwd_dkv = check_flash_bwd(ck, torch, F)
-    flash32 = check_flash(ck, torch, F, F32_CASES + F32_D32_CASES,
+    flash32 = check_flash(ck, torch, F,
+                          F32_CASES + F32_D32_CASES + F32_D16_CASES,
                           "float32")
     bwd_dq32, bwd_dkv32 = check_flash_bwd(
-        ck, torch, F, F32_BWD_CASES + F32_D32_CASES, "float32")
+        ck, torch, F, F32_BWD_CASES + F32_D32_CASES + F32_D16_CASES,
+        "float32")
     report["flash_bwd_f32_sweep"] = sweep_flash_bwd_f32(ck, torch)
     adam, adam_step = check_adam(ck, torch)
     sgd, sgd_step = check_sgd(ck, torch, mx, np)
     k5f, k5b = check_row_softmax(ck, torch)
     k6 = check_scale_bias_relu(ck, torch)
-    bad = [c for c in flash + paged + paged8 + bwd_dq + bwd_dkv + flash32
-           + bwd_dq32 + bwd_dkv32 + adam + sgd + k5f + k5b + k6
-           if not c["ok"]]
+    bad = [c for c in flash + paged + paged8 + paged32 + paged8q + bwd_dq
+           + bwd_dkv + flash32 + bwd_dq32 + bwd_dkv32 + adam + sgd + k5f
+           + k5b + k6 if not c["ok"]]
     if bad:
         raise AssertionError("kernel disagrees with its plain version: %s"
                              % json.dumps(bad))
 
     report["serve"] = serve(mx, ck, np, torch, workdir)
+    report["generation"] = generation(mx, ck, np, torch, card, workdir)
     report["train"] = train(mx, ck, np, torch)
     report["bert"] = bert(mx, ck, np, torch, card)
     report["lm_f32"] = train_lm_f32(mx, ck, np, torch, card)
@@ -3779,6 +4404,7 @@ def main(argv=None):
     bert32 = report["bert"]["f32"]["launches"]
     bert_adam = report["bert"]["adam"]["launches"]["adam_step"]
     lm32 = report["lm_f32"]["on"]["launches"]
+    gen = _generation_launches(report["generation"])
     pk = "mxnet_tpu/ops/pallas_kernels.py:"
     kernels = [
         _summary("flash_fwd", "flash_fwd.cu", pk + "157", flash,
@@ -3788,7 +4414,8 @@ def main(argv=None):
         _summary("flash_bwd_dkv", "flash_bwd.cu", pk + "220", bwd_dkv,
                  trained["flash_bwd_dkv"]),
         _summary("flash_fwd_f32", "flash_f32.cu", pk + "157", flash32,
-                 bert32["flash_fwd_f32"] + lm32["flash_fwd_f32"]),
+                 bert32["flash_fwd_f32"] + lm32["flash_fwd_f32"]
+                 + gen["flash_fwd_f32"]),
         _summary("flash_bwd_dq_f32", "flash_f32.cu", pk + "190", bwd_dq32,
                  bert32["flash_bwd_dq_f32"] + lm32["flash_bwd_dq_f32"]),
         _summary("flash_bwd_dkv_f32", "flash_f32.cu", pk + "220", bwd_dkv32,
@@ -3798,6 +4425,10 @@ def main(argv=None):
         _summary("paged_decode_pool_int8", "paged_attn.cu", pk + "386",
                  paged8, report["serve"]["int8"]["launches"][
                      "paged_decode_pool_int8"]),
+        _summary("paged_decode_pool_f32", "paged_attn.cu", pk + "386",
+                 paged32, gen["paged_decode_pool_f32"]),
+        _summary("paged_decode_pool_int8_f32q", "paged_attn.cu", pk + "386",
+                 paged8q, gen["paged_decode_pool_int8_f32q"]),
         {"name": "adam_step", "route": "cuda",
          "source": "mxnet_tpu_torch/csrc/adam_step.cu",
          "replaces": pk + "518",
@@ -3856,7 +4487,10 @@ def main(argv=None):
                                     "bert": berted[kern["name"]]}
     for kern in kernels[3:6]:
         kern["launches_by_path"] = {"bert_f32": bert32[kern["name"]],
-                                    "lm_f32": lm32[kern["name"]]}
+                                    "lm_f32": lm32[kern["name"]],
+                                    "generation": gen[kern["name"]]}
+    for kern in kernels[8:10]:
+        kern["launches_by_path"] = gen["by_run"][kern["name"]]
     report["kernels"] = kernels
     _write_report(args.report, report)
     print(json.dumps({"kernels": [{k: v for k, v in s.items()

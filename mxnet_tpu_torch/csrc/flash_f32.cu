@@ -1,5 +1,6 @@
-// Flash attention in f32 for Hopper (sm_90a) at head dims 32 and 64: the
-// forward (K2f f32) and the two backward kernels (K2dq f32, K2dkv f32).
+// Flash attention in f32 for Hopper (sm_90a) at head dims 16, 32 and 64:
+// the forward (K2f f32) and the two backward kernels (K2dq f32, K2dkv
+// f32).
 //
 // Replaces: for f32 inputs, the Pallas kernels `_flash_fwd_kernel`
 // (launched by `_flash_forward`), `_flash_bwd_dq_kernel` and
@@ -7,8 +8,9 @@
 // (mxnet_tpu/ops/pallas_kernels.py:157, :190, :220; :265, :293, :305),
 // reached from `kernels.attention` in every layer of an f32 model (BERT's
 // `--dtype float32` pretraining at head dim 64; the f32 TransformerLM of
-// bench.py's `transformer_kernels_config` at head dim 32).  bf16 inputs
-// go to flash_fwd.cu and flash_bwd.cu.
+// bench.py's `transformer_kernels_config` at head dim 32; the prefill of
+// bench.py's `generation_config` model at head dim 16).  bf16 inputs go to
+// flash_fwd.cu and flash_bwd.cu.
 //
 // Computes, per (batch*head, query row), as those kernels do in f32:
 //   forward:  o = softmax(q k^T * scale [causal: -1e30 above the
@@ -53,9 +55,9 @@
 // rows.  P and dS never leave registers.
 //
 // Bank conflicts.  The big and the small part of a tile are each stored
-// unpadded (D floats a row: 16 chunks of 16 bytes at D = 64, 8 at D = 32)
-// with 16-byte chunk c of row r at chunk c ^ (r & 7), and read with 4-byte
-// loads.  A bank is 4 bytes; 32 of them are 8 chunks, so a float's bank is
+// unpadded (D floats a row: 16 chunks of 16 bytes at D = 64, 8 at D = 32,
+// 4 at D = 16) with 16-byte chunk c of row r at chunk c ^ (r & 7) (D = 16:
+// see below), and read with 4-byte loads.  A bank is 4 bytes; 32 of them are 8 chunks, so a float's bank is
 // (4 (stored chunk & 7) + its place in the chunk) at either D (a D = 64
 // row spans the banks twice, and the swizzle leaves bit 3 of its chunk
 // index alone).  Fragments read a tile two ways:
@@ -73,6 +75,21 @@
 // chunks of one row, or of one half row at D = 64, a quarter-warp) are
 // too.  Big and small side by side in one row, read with 8-byte loads,
 // ran slower in the same A/B.
+// At D = 16 a row is 4 chunks, half of a 128-byte line: rows 2L and
+// 2L + 1 share line L, and c ^ (r & 7) would leave the row.  The swizzle
+// permutes the line's 8 chunks instead: chunk c of row r is line chunk
+// i = 4 (r & 1) + c, stored at i ^ x(L), x(L) = 2 (L & 3) + ((L >> 1) & 1)
+// (0, 2, 5, 7 for L & 3 = 0..3), so it stays in the line.  A float's bank
+// is 4 (stored chunk) + its place.  Along rows (rows r0 + g, r0 a
+// multiple of 8, so L & 3 = g >> 1; column chunk c fixed) the stored
+// chunk's bits are (c0 ^ L1, c1 ^ L0, (g & 1) ^ L1), L0 and L1 the bits of
+// L & 3: a one-to-one map of g's 8 values.  Down columns (rows 8j + 2t
+// [+1], so L & 3 = t and r & 1 fixed; column chunk 2n + (g >> 2)) they are
+// ((g >> 2) ^ L1, n ^ L0, (r & 1) ^ L1): one-to-one over (t, g >> 2).
+// Both reads touch 8 distinct chunks, each in 4 places, so 32 banks; the
+// split pass's quarter-warp stores cover one line's 8 chunks.  A plain
+// c ^ (r & 3) would leave the column reads 2-way conflicted (only the
+// 16 banks of rows of one parity).
 //
 // Overlap, a two-stage ring: the streamed tiles (K and V in the forward
 // and dq; Q, dO and their lse and delta strips in dk/dv) land raw in a
@@ -94,14 +111,14 @@
 //
 // Blocks and tiles: 128 threads (4 warps, 16 rows each), 64 rows a block
 // (queries in the forward and dq, keys in dk/dv), streamed tiles of 32
-// rows, at both head dims (the tile heights were kept at D = 32).  At
+// rows, at every head dim (the tile heights were kept at D = 32 and 16).  At
 // D = 64 the forward holds split Q (32 KB), a split K and V tile (32 KB)
 // and the landing buffer (16 KB): 80 KB, two blocks an SM; dq split Q and
 // dO (64 KB), a split K and V tile (32 KB) and the landing buffer (16 KB);
 // dk/dv split K and V, a split Q and dO tile, the landing buffer and the
 // strips: 112 KB each, two blocks an SM (the 32-row streamed tile is what
 // makes the split tiles fit twice).  At D = 32 every tile is half as
-// large.  Both checked D = 64 grids (B=8 H=12 S=128 and B=1 H=12 S=1024
+// large, at D = 16 a quarter.  Both checked D = 64 grids (B=8 H=12 S=128 and B=1 H=12 S=1024
 // causal) have 192 blocks: all resident at once on 132 SMs, one wave with
 // no tail.  Registers are not the limit (<= 255 a thread at two 128-thread
 // blocks).  Causal: tiles wholly above the diagonal are skipped; the grid
@@ -151,9 +168,14 @@ struct DkvSmem {
   float delta[2][kStream];
 };
 
-static_assert(2 * (sizeof(DkvSmem<64>) + 1024) <= 233472 &&
-                  2 * (sizeof(DqSmem<64>) + 1024) <= 233472 &&
-                  2 * (sizeof(FwdSmem<64>) + 1024) <= 233472,
+template <int D>
+constexpr bool two_blocks_fit() {
+  return 2 * (sizeof(DkvSmem<D>) + 1024) <= 233472 &&
+         2 * (sizeof(DqSmem<D>) + 1024) <= 233472 &&
+         2 * (sizeof(FwdSmem<D>) + 1024) <= 233472;
+}
+static_assert(two_blocks_fit<16>() && two_blocks_fit<32>() &&
+                  two_blocks_fit<64>(),
               "two blocks of each kernel must fit an SM's shared memory");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -220,10 +242,25 @@ __device__ __forceinline__ void split(float x, uint32_t& big,
 }
 
 // A split tile of R rows: big at [0, DR), small at [DR, 2DR), each with
-// 16-byte chunk j of row r at chunk j ^ (r & 7).
+// 16-byte chunk j of row r at chunk j ^ (r & 7) of the row (D >= 32), or
+// at chunk (4 (r & 1) + j) ^ x(r >> 1) of the 128-byte line that rows
+// r & ~1 and r | 1 share (D = 16; x as in the note above).  Returns the
+// chunk's first float.
+template <int D>
+__device__ __forceinline__ int chunk_at(int r, int j) {
+  if constexpr (D >= 32) {
+    return r * D + ((j ^ (r & 7)) << 2);
+  } else {
+    static_assert(D == 16, "head dims 16, 32 and 64");
+    const int line = r >> 1;
+    const int x = ((line & 3) << 1) | ((line >> 1) & 1);
+    return (line << 5) + (((((r & 1) << 2) | j) ^ x) << 2);
+  }
+}
+
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * D + (((c >> 2) ^ (r & 7)) << 2) + (c & 3);
+  return chunk_at<D>(r, c >> 2) + (c & 3);
 }
 
 template <int R, int D>
@@ -245,7 +282,7 @@ __device__ __forceinline__ void split_tile(float* dst, const float* raw,
     split(x.y, b.y, s.y);
     split(x.z, b.z, s.z);
     split(x.w, b.w, s.w);
-    const int o = r * D + ((j ^ (r & 7)) << 2);
+    const int o = chunk_at<D>(r, j);
     *reinterpret_cast<uint4*>(dst + o) = b;
     *reinterpret_cast<uint4*>(dst + rows * D + o) = s;
   }
@@ -625,10 +662,13 @@ inline bool misaligned(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
 }
 
-// Head dims 32 and 64; causal aligns query i with key i, so Sq == Skv.
+inline bool built_dim(int d) { return d == 16 || d == 32 || d == 64; }
+
+// Head dims 16, 32 and 64; causal aligns query i with key i, so
+// Sq == Skv.
 inline bool bad_dims(int bh, int sq, int skv, int d, int causal) {
-  return bh <= 0 || sq <= 0 || skv <= 0 || bh > 65535 ||
-         (d != 32 && d != 64) || (causal && sq != skv) ||
+  return bh <= 0 || sq <= 0 || skv <= 0 || bh > 65535 || !built_dim(d) ||
+         (causal && sq != skv) ||
          (sq + kRows - 1) / kRows > 65535 || (skv + kRows - 1) / kRows > 65535;
 }
 
@@ -711,7 +751,9 @@ extern "C" int mx_flash_fwd_f32(const void* q, const void* k, const void* v,
   if (bad_dims(bh, sq, skv, d, causal)) return (int)cudaErrorInvalidValue;
   if (misaligned(q) || misaligned(k) || misaligned(v))
     return (int)cudaErrorMisalignedAddress;
-  auto launch = d == 32 ? &launch_fwd<32> : &launch_fwd<64>;
+  auto launch = d == 16   ? &launch_fwd<16>
+                : d == 32 ? &launch_fwd<32>
+                          : &launch_fwd<64>;
   return launch(static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<float*>(o),
                 static_cast<float*>(lse), bh, sq, skv, causal, scale,
@@ -726,7 +768,9 @@ extern "C" int mx_flash_bwd_dq_f32(const void* q, const void* k,
   if (bad_dims(bh, sq, skv, d, causal)) return (int)cudaErrorInvalidValue;
   if (misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout))
     return (int)cudaErrorMisalignedAddress;
-  auto launch = d == 32 ? &launch_dq<32> : &launch_dq<64>;
+  auto launch = d == 16   ? &launch_dq<16>
+                : d == 32 ? &launch_dq<32>
+                          : &launch_dq<64>;
   return launch(static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<const float*>(dout),
                 static_cast<const float*>(lse),
@@ -744,7 +788,9 @@ extern "C" int mx_flash_bwd_dkv_f32(const void* q, const void* k,
   if (bad_dims(bh, sq, skv, d, causal)) return (int)cudaErrorInvalidValue;
   if (misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout))
     return (int)cudaErrorMisalignedAddress;
-  auto launch = d == 32 ? &launch_dkv<32> : &launch_dkv<64>;
+  auto launch = d == 16   ? &launch_dkv<16>
+                : d == 32 ? &launch_dkv<32>
+                          : &launch_dkv<64>;
   return launch(static_cast<const float*>(q), static_cast<const float*>(k),
                 static_cast<const float*>(v), static_cast<const float*>(dout),
                 static_cast<const float*>(lse),
@@ -754,11 +800,13 @@ extern "C" int mx_flash_bwd_dkv_f32(const void* q, const void* k,
 }
 
 // Resident blocks an SM of the forward (0), dq (1) or dk/dv (2) kernel at
-// head dim d (32 or 64), at the launches' block size and shared memory;
-// negative on an error.
+// head dim d (16, 32 or 64), at the launches' block size and shared
+// memory; negative on an error.
 extern "C" int mx_flash_f32_blocks_per_sm(int which, int d) {
-  if (d != 32 && d != 64) return -(int)cudaErrorInvalidValue;
-  return d == 32 ? blocks_per_sm_at<32>(which) : blocks_per_sm_at<64>(which);
+  if (!built_dim(d)) return -(int)cudaErrorInvalidValue;
+  return d == 16   ? blocks_per_sm_at<16>(which)
+         : d == 32 ? blocks_per_sm_at<32>(which)
+                   : blocks_per_sm_at<64>(which);
 }
 
 extern "C" const char* mx_error_string(int err) {

@@ -1,6 +1,7 @@
 // Paged-attention decode for Hopper (sm_90a): one query row per
 // (batch, head) against its context, read through the page table straight
-// from the page pool, bf16 or int8 K/V, split over the keys.
+// from the page pool, split over the keys.  Variants (query / pages, head
+// dims): bf16 / bf16 or int8 at D = 64; f32 / f32 or int8 at D = 16 and 64.
 //
 // Replaces: the Pallas kernel `_paged_attn_kernel` launched by
 // `pallas_paged_attention` (mxnet_tpu/ops/pallas_kernels.py:386, :422),
@@ -12,7 +13,7 @@
 // table width, so this kernel reads the pool itself.
 //
 // Computes, per (b, h), over keys j < lengths[b] (or where valid[b, j]):
-//   o = softmax(q . k_j * scale) . v_j                      (bf16 out)
+//   o = softmax(q . k_j * scale) . v_j               (out in q's dtype)
 // where key j lives in page table[b, j / psz], slot j % psz of the pool.
 // int8 form: k_j = k8_j * k_scale[page, slot, h] (f32), likewise v,
 // dequantised in registers right after the load, so HBM carries int8
@@ -26,9 +27,11 @@
 // gather clamps; entries past a sequence's length are never read.
 //
 // What bounds it on the H100: HBM bytes.  Each valid key costs
-// 2 * D * (2 bytes bf16 | 1 byte int8 + 4-byte scale) and only 4*D FLOPs,
-// far below the ~295 FLOP/byte ridge, so the floor is
-// sum_b lengths[b] * H * D * 2 * elem bytes over 3.35 TB/s.
+// 2 * D * (4 bytes f32 | 2 bytes bf16 | 1 byte int8 + 4-byte scale) and
+// only 4*D FLOPs, far below the ~295 FLOP/byte ridge, so the floor is
+// sum_b lengths[b] * H * D * 2 * elem bytes over 3.35 TB/s.  The products
+// are FFMA in f32: the tensor cores would buy nothing at this intensity,
+// and TF32 would break the f32 variants' contract.
 //
 // What the design does about it:
 //   * split-K: a block takes one (b, h) and one range of keys_per_split
@@ -36,26 +39,31 @@
 //     cover the 132 SMs several times over at any batch and width.  Keys
 //     past a sequence's length are skipped, so a block whose whole range
 //     lies past it only records an empty partial;
-//   * inside a block, groups of D/8 lanes each take one key at a time,
-//     every lane loading 8 contiguous elements (16 B bf16 / 8 B int8), so
-//     one key row is one coalesced segment; each group walks its keys in
+//   * inside a block, groups of D/kVec lanes each take one key at a time,
+//     every lane loading kVec contiguous elements (16 B: 4 f32 or 8 bf16;
+//     8 B: 8 int8), so one key row is one coalesced segment and a key takes
+//     D/4 lanes (f32), D/8 (bf16, int8); each group walks its keys in
 //     chunks of 4 with a running (max, sum) in f32 (online softmax),
 //     issuing the chunk's 8 row loads before any arithmetic, so loads stay
 //     in flight;
 //   * a masked key is never loaded, its score is -inf, and a group whose
 //     running max is still -inf rescales against 0: an all-masked chunk
 //     adds exact zeros, never exp(0) = 1;
-//   * the block's 16 partial (max, sum, acc) triples (D=64) merge through
-//     shared memory; with one split that is the output.  With several,
-//     each block writes its partial to a workspace, and the last block of
+//   * the block's partial (max, sum, acc) triples, one a group (16 at
+//     bf16 D=64, 8 at f32 D=64, 64 at int8 D=16), merge through shared
+//     memory; with one split that is the output.  With several, each
+//     block writes its D + 2 floats of partial to a workspace, and the
+//     last block of
 //     a (b, h) to finish (an atomic count, reset by that block for the
 //     next launch; the launcher keeps one count buffer a stream, so the
 //     launches sharing one are ordered) merges all partials in split
 //     order: the same bits
 //     whichever block finishes last, so greedy decode stays deterministic.
-// Rounding: scores and P stay f32 and the output is cast to bf16 once; the
-// Pallas body rounded P to v.dtype and divided in it
-// (pallas_kernels.py:417-419).
+// Rounding: scores and P stay f32 and the output is cast to q's dtype
+// once; the Pallas body rounded P to v.dtype and divided in it
+// (pallas_kernels.py:417-419), which for f32 pages (and int8 pages, which
+// dequantise to f32) is the same f32 arithmetic: only the summation order
+// differs between the f32 variants and their plain version.
 // Not yet: TMA bulk loads of whole pages into shared memory.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -64,15 +72,22 @@
 
 namespace {
 
-constexpr int kD = 64;      // head dim
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kVec = 8;     // elements per lane per key
 constexpr int kChunk = 4;   // keys per group per step
-constexpr int kLanes = kD / kVec;          // lanes per key
-constexpr int kGroupsW = 32 / kLanes;     // key groups per warp
-constexpr int kGroups = kWarps * kGroupsW;
-constexpr int kPart = kD + 2;             // workspace floats per partial
+
+// The lane layout of one variant: T the page element, D the head dim.
+template <typename T, int D>
+struct Lanes {
+  static constexpr int kVec = sizeof(T) == 4 ? 4 : 8;  // elements a lane
+  static constexpr int kLanes = D / kVec;             // lanes a key
+  static constexpr int kGroupsW = 32 / kLanes;        // key groups a warp
+  static constexpr int kGroups = kWarps * kGroupsW;
+  static constexpr int kPart = D + 2;                 // floats a partial
+  static_assert(kLanes >= 1 && kLanes <= 32 && (kLanes & (kLanes - 1)) == 0,
+                "a key's lanes must be a power of two within a warp");
+  static_assert(D <= kThreads, "the merge takes one column a thread");
+};
 
 // Where keys live, in elements: key (page, slot) of head h starts at
 // page * page + slot * slot + h * head; scales likewise (s_*).
@@ -81,44 +96,75 @@ struct Geom {
   long long page, slot, head, s_page, s_slot, s_head;
 };
 
+// N contiguous elements at p (16-byte aligned for bf16 and f32, 8-byte
+// for int8) as floats; int8 times the row's scale s.
+template <int N>
 __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* out,
                                          float) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-  for (int i = 0; i < kVec / 2; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
+  for (int c = 0; c < N / 8; ++c) {
+    const uint4 raw = reinterpret_cast<const uint4*>(p)[c];
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[8 * c + 2 * i] = f.x;
+      out[8 * c + 2 * i + 1] = f.y;
+    }
   }
 }
 
+template <int N>
+__device__ __forceinline__ void load_row(const float* p, float* out, float) {
+#pragma unroll
+  for (int c = 0; c < N / 4; ++c) {
+    const float4 f = reinterpret_cast<const float4*>(p)[c];
+    out[4 * c] = f.x;
+    out[4 * c + 1] = f.y;
+    out[4 * c + 2] = f.z;
+    out[4 * c + 3] = f.w;
+  }
+}
+
+template <int N>
 __device__ __forceinline__ void load_row(const int8_t* p, float* out,
                                          float s) {
+  static_assert(N == 8, "an int8 lane loads 8 bytes");
   const uint2 raw = *reinterpret_cast<const uint2*>(p);
   const uint32_t w[2] = {raw.x, raw.y};
 #pragma unroll
-  for (int i = 0; i < kVec; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int8_t x = static_cast<int8_t>((w[i / 4] >> (8 * (i % 4))) & 0xff);
     out[i] = static_cast<float>(x) * s;
   }
 }
 
-template <typename T>
+__device__ __forceinline__ void store_out(__nv_bfloat16* o, float x) {
+  *o = __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ void store_out(float* o, float x) { *o = x; }
+
+// TQ: the query's and the output's type; T: the pages' (TQ, or int8 with
+// f32 row scales); D: the head dim.
+template <typename TQ, typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const T* __restrict__ k, const T* __restrict__ v,
+paged_decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v,
                     const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale,
                     const int* __restrict__ table,
                     const int* __restrict__ lengths,
                     const uint8_t* __restrict__ valid,
-                    __nv_bfloat16* __restrict__ o, float* __restrict__ part,
+                    TQ* __restrict__ o, float* __restrict__ part,
                     unsigned* __restrict__ counters, Geom geo, float scale) {
+  using L = Lanes<T, D>;
+  constexpr int kVec = L::kVec, kLanes = L::kLanes, kGroupsW = L::kGroupsW;
+  constexpr int kGroups = L::kGroups, kPart = L::kPart;
   constexpr bool kQuant = sizeof(T) == 1;
   __shared__ float sm_m[kGroups];
   __shared__ float sm_l[kGroups];
-  __shared__ float sm_acc[kGroups][kD];
+  __shared__ float sm_acc[kGroups][D];
   __shared__ unsigned s_last;
 
   const int split = blockIdx.x;
@@ -141,7 +187,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                                          : nullptr;
 
   float qv[kVec];
-  load_row(q + (size_t)bh * kD + d0, qv, 1.f);
+  load_row<kVec>(q + (size_t)bh * D + d0, qv, 1.f);
   float m = -INFINITY, l = 0.f;
   float acc[kVec];
 #pragma unroll
@@ -171,8 +217,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
           ks = k_scale[sat];
           vs = v_scale[sat];
         }
-        load_row(k + at, kf[c], ks);
-        load_row(v + at, vf[c], vs);
+        load_row<kVec>(k + at, kf[c], ks);
+        load_row<kVec>(v + at, vf[c], vs);
       } else {
 #pragma unroll
         for (int i = 0; i < kVec; ++i) kf[c][i] = vf[c][i] = 0.f;
@@ -215,9 +261,9 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     sm_l[grp] = l;
   }
   __syncthreads();
-  const int d = threadIdx.x;   // one output column a thread (kD < kThreads)
+  const int d = threadIdx.x;   // one output column a thread (D <= kThreads)
   float bm = -INFINITY, bl = 0.f, ba = 0.f;
-  if (d < kD) {
+  if (d < D) {
 #pragma unroll
     for (int gi = 0; gi < kGroups; ++gi) bm = fmaxf(bm, sm_m[gi]);
     const float mref = (bm == -INFINITY) ? 0.f : bm;
@@ -229,18 +275,17 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   if (geo.nsplit == 1) {
-    if (d < kD) o[(size_t)bh * kD + d] = __float2bfloat16_rn(
-        bl > 0.f ? ba / bl : 0.f);
+    if (d < D) store_out(o + (size_t)bh * D + d, bl > 0.f ? ba / bl : 0.f);
     return;
   }
 
   // several splits: publish this block's partial; the last block of the
   // (b, h) merges them all, in split order
   float* mine = part + ((size_t)bh * geo.nsplit + split) * kPart;
-  if (d < kD) mine[d] = ba;
+  if (d < D) mine[d] = ba;
   if (d == 0) {
-    mine[kD] = bm;
-    mine[kD + 1] = bl;
+    mine[D] = bm;
+    mine[D + 1] = bl;
   }
   __threadfence();
   __syncthreads();
@@ -249,29 +294,68 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  if (d < kD) {
+  if (d < D) {
     const float* all = part + (size_t)bh * geo.nsplit * kPart;
     float mx = -INFINITY;
     for (int s = 0; s < geo.nsplit; ++s)
-      mx = fmaxf(mx, __ldcg(all + s * kPart + kD));
+      mx = fmaxf(mx, __ldcg(all + s * kPart + D));
     const float mref = (mx == -INFINITY) ? 0.f : mx;
     float lt = 0.f, at = 0.f;
     for (int s = 0; s < geo.nsplit; ++s) {
-      const float w = expf(__ldcg(all + s * kPart + kD) - mref);
-      lt = fmaf(__ldcg(all + s * kPart + kD + 1), w, lt);
+      const float w = expf(__ldcg(all + s * kPart + D) - mref);
+      lt = fmaf(__ldcg(all + s * kPart + D + 1), w, lt);
       at = fmaf(__ldcg(all + s * kPart + d), w, at);
     }
-    o[(size_t)bh * kD + d] = __float2bfloat16_rn(lt > 0.f ? at / lt : 0.f);
+    store_out(o + (size_t)bh * D + d, lt > 0.f ? at / lt : 0.f);
   }
   if (threadIdx.x == 0) counters[bh] = 0u;   // ready for the next launch
 }
 
+// The pointers of one launch, untyped.
+struct Args {
+  const void *q, *k, *v;
+  const float *k_scale, *v_scale;
+  const int *table, *lengths;
+  const uint8_t* valid;
+  void* o;
+  float* part;
+  unsigned* counters;
+};
+
+template <typename TQ, typename T, int D>
+int launch(const Args& a, const Geom& geo, float scale, int batch,
+           cudaStream_t st) {
+  const dim3 grid(geo.nsplit, batch * geo.heads);
+  paged_decode_kernel<TQ, T, D><<<grid, kThreads, 0, st>>>(
+      static_cast<const TQ*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.k_scale, a.v_scale, a.table, a.lengths,
+      a.valid, static_cast<TQ*>(a.o), a.part, a.counters, geo, scale);
+  return (int)cudaGetLastError();
+}
+
+// The variant for (query dtype, int8 pages, d), or null where none is
+// built.  q_dtype: 0 f32, 1 bf16; the pages are int8 (quant) or q's dtype.
+using Launcher = int (*)(const Args&, const Geom&, float, int, cudaStream_t);
+
+Launcher pick(int q_dtype, int quant, int d) {
+  if (q_dtype == 1 && d == 64)
+    return quant ? &launch<__nv_bfloat16, int8_t, 64>
+                 : &launch<__nv_bfloat16, __nv_bfloat16, 64>;
+  if (q_dtype == 0 && d == 64)
+    return quant ? &launch<float, int8_t, 64> : &launch<float, float, 64>;
+  if (q_dtype == 0 && d == 16)
+    return quant ? &launch<float, int8_t, 16> : &launch<float, float, 16>;
+  return nullptr;
+}
+
 }  // namespace
 
-// q [B*H, 64] bf16; k/v and their f32 scales (int8 only) as Geom
-// describes; table [B, width] int32 or null (page = b, the gathered
-// layout); lengths [B] int32 or valid [B, width * psz] bool (exactly one);
-// part [B*H, nsplit, 66] f32 and counters [B*H] u32 (zero) when nsplit > 1.
+// q [B*H, d] in q_dtype (0 f32, 1 bf16); k/v in q's dtype, or int8 with
+// their f32 scales (quant), as Geom describes; table [B, width] int32 or
+// null (page = b, the gathered layout); lengths [B] int32 or valid
+// [B, width * psz] bool (exactly one); o [B*H, d] in q's dtype; part
+// [B*H, nsplit, d + 2] f32 and counters [B*H] u32 (zero) when nsplit > 1.
+// Built: bf16 at d = 64; f32 at d = 16 and 64.
 extern "C" int mx_paged_decode(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* table, const void* lengths,
@@ -279,10 +363,11 @@ extern "C" int mx_paged_decode(
     int heads, int width, int psz, int pool, int d, int keys_per_split,
     int nsplit, long long page, long long slot, long long head,
     long long s_page, long long s_slot, long long s_head, int quant,
-    float scale, void* stream) {
+    int q_dtype, float scale, void* stream) {
   const long long kctx = (long long)width * psz;
-  if (batch <= 0 || heads <= 0 || width <= 0 || psz <= 0 || pool <= 0 ||
-      d != kD || kctx >= (1LL << 31) || (long long)batch * heads > 65535 ||
+  const Launcher run = pick(q_dtype, quant, d);
+  if (run == nullptr || batch <= 0 || heads <= 0 || width <= 0 || psz <= 0 ||
+      pool <= 0 || kctx >= (1LL << 31) || (long long)batch * heads > 65535 ||
       keys_per_split <= 0 || nsplit <= 0 ||
       (long long)keys_per_split * nsplit < kctx ||
       (lengths == nullptr) == (valid == nullptr) ||
@@ -292,27 +377,18 @@ extern "C" int mx_paged_decode(
   const Geom geo{heads,  width, psz,    pool,   (int)kctx, keys_per_split,
                  nsplit, page,  slot,   head,   s_page,    s_slot,
                  s_head};
-  const dim3 grid(nsplit, batch * heads);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(q);
-  const float* ksp = static_cast<const float*>(k_scale);
-  const float* vsp = static_cast<const float*>(v_scale);
-  const int* tp = static_cast<const int*>(table);
-  const int* lp = static_cast<const int*>(lengths);
-  const uint8_t* mp = static_cast<const uint8_t*>(valid);
-  __nv_bfloat16* op = static_cast<__nv_bfloat16*>(o);
-  float* pp = static_cast<float*>(part);
-  unsigned* cp = static_cast<unsigned*>(counters);
-  if (quant)
-    paged_decode_kernel<int8_t><<<grid, kThreads, 0, st>>>(
-        qp, static_cast<const int8_t*>(k), static_cast<const int8_t*>(v), ksp,
-        vsp, tp, lp, mp, op, pp, cp, geo, scale);
-  else
-    paged_decode_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        qp, static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), nullptr, nullptr, tp, lp, mp,
-        op, pp, cp, geo, scale);
-  return (int)cudaGetLastError();
+  const Args a{q,
+               k,
+               v,
+               static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale),
+               static_cast<const int*>(table),
+               static_cast<const int*>(lengths),
+               static_cast<const uint8_t*>(valid),
+               o,
+               static_cast<float*>(part),
+               static_cast<unsigned*>(counters)};
+  return run(a, geo, scale, batch, reinterpret_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* mx_error_string(int err) {

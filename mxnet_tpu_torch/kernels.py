@@ -30,7 +30,12 @@ module owns when they run:
 
 The feasibility checks are the Hopper kernels' own
 (``cuda_kernels.flash_unsupported_reason`` / ``paged_unsupported_reason``
-/ ``paged_pool_unsupported_reason``: dtype, head dim, shapes).  The
+/ ``paged_pool_unsupported_reason``: dtype, head dim, shapes).  Their
+domains: the flash kernels take bf16 at head dim 64 and f32 at 16, 32 and
+64 (``cuda_kernels.FLASH_HEAD_DIMS``); the paged kernel a bf16 query over
+bf16 or int8 pages at head dim 64, and an f32 query over f32 or int8
+pages at 16 and 64 (``cuda_kernels.PAGED_HEAD_DIMS``).  f16, and the
+other head dims the reference takes (up to 512), raise.  The
 reference's checks compared a whole head's K/V with a 2 MiB VMEM budget,
 which has no meaning here: both kernels tile K/V through shared memory
 (or read it in place), so context length never disqualifies a call.

@@ -12,9 +12,10 @@ Kernels, sources under ``mxnet_tpu_torch/csrc``:
   of ``_flash_bwd_dkv_kernel``).
 * ``paged_attention_pool`` — single-query paged decode attention read
   through the page table straight from the page pool, split over the
-  keys, bf16 or int8 K/V (``csrc/paged_attn.cu``), the port of
-  ``_paged_attn_kernel``; ``paged_attention`` is the same kernel over a
-  page-gathered context under a mask (the reference's entry).
+  keys (``csrc/paged_attn.cu``), the port of ``_paged_attn_kernel``: a
+  bf16 query over bf16 or int8 K/V, an f32 query over f32 or int8 K/V
+  (:data:`PAGED_HEAD_DIMS`); ``paged_attention`` is the same kernel over
+  a page-gathered context under a mask (the reference's entry).
 * ``fused_adam_step_multi`` — the Adam update with its bf16 or f16 cast
   (or none, for an f32 cast) over a whole list of tensors in one launch
   (``csrc/adam_step.cu``), the port of ``_adam_epilogue_kernel``;
@@ -44,8 +45,12 @@ Routing policy (when to call the wrapper at all) lives in
 Launch counts: ``LAUNCHES[name]`` goes up by one at each kernel launch
 and nowhere else (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``,
 their f32 forms ``flash_fwd_f32``, ``flash_bwd_dq_f32``,
-``flash_bwd_dkv_f32``, ``paged_decode_bf16``, ``paged_decode_int8`` (the gathered entry),
-``paged_decode_pool_bf16``, ``paged_decode_pool_int8``, ``adam_step``,
+``flash_bwd_dkv_f32``; the paged kernel by entry, query and pages:
+``paged_decode_pool_bf16``, ``paged_decode_pool_int8`` (bf16 query),
+``paged_decode_pool_f32``, ``paged_decode_pool_int8_f32q`` (f32 query)
+and their gathered-entry twins ``paged_decode_bf16``,
+``paged_decode_int8``, ``paged_decode_f32``, ``paged_decode_int8_f32q``;
+``adam_step``,
 ``sgd_step``, ``row_softmax_fwd``, ``row_softmax_bwd``,
 ``scale_bias_relu``), and ``rtc`` at each launch of a user kernel that
 ``mx.rtc`` compiled (``rtc.LAUNCHES`` counts those per kernel name).
@@ -80,22 +85,25 @@ __all__ = ["flash_attention", "flash_attention_plain",
            "row_softmax_bwd_unsupported_reason", "scale_bias_relu",
            "scale_bias_relu_plain", "scale_bias_relu_unsupported_reason",
            "LAUNCHES", "reset_launches",
-           "FLASH_HEAD_DIMS", "PAGED_HEAD_DIM", "NEG"]
+           "FLASH_HEAD_DIMS", "PAGED_HEAD_DIMS", "NEG"]
 
 #: masked-score floor of the plain versions (parallel.ring_attention)
 NEG = -1e30
 #: the head dims the flash kernels are instantiated for, per input dtype
 #: (bf16: flash_fwd.cu and flash_bwd.cu; f32: flash_f32.cu, a template
 #: parameter); another needs its own instantiation, checked on the card
-FLASH_HEAD_DIMS = {torch.bfloat16: (64,), torch.float32: (32, 64)}
-#: the head dim the paged decode kernel (paged_attn.cu) is built for
-PAGED_HEAD_DIM = 64
+FLASH_HEAD_DIMS = {torch.bfloat16: (64,), torch.float32: (16, 32, 64)}
+#: the head dims the paged decode kernel (paged_attn.cu) is instantiated
+#: for, per query dtype (the pages are the query's dtype, or int8)
+PAGED_HEAD_DIMS = {torch.bfloat16: (64,), torch.float32: (16, 64)}
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_fwd_f32": 0, "flash_bwd_dq_f32": 0,
             "flash_bwd_dkv_f32": 0,
             "paged_decode_bf16": 0, "paged_decode_int8": 0,
+            "paged_decode_f32": 0, "paged_decode_int8_f32q": 0,
             "paged_decode_pool_bf16": 0, "paged_decode_pool_int8": 0,
+            "paged_decode_pool_f32": 0, "paged_decode_pool_int8_f32q": 0,
             "adam_step": 0,
             "sgd_step": 0, "row_softmax_fwd": 0, "row_softmax_bwd": 0,
             "scale_bias_relu": 0, "rtc": 0}
@@ -128,7 +136,7 @@ _SIGNATURES = {
     },
     "paged_attn": {
         "mx_paged_decode": ([_P] * 11 + [_I] * 8 + [ctypes.c_longlong] * 6
-                            + [_I, _F, _P], _I),
+                            + [_I, _I, _F, _P], _I),
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
     "adam_step": {
@@ -156,6 +164,12 @@ _SIGNATURES = {
 }
 #: the dtype codes of the kernels that take f32, bf16 and f16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16",
+          torch.int8: "int8"}
+
+
+def _short(dtype):
+    return _SHORT.get(dtype, str(dtype))
 
 
 def reset_launches():
@@ -249,8 +263,8 @@ def flash_attention(q, k, v, causal=False, scale=None):
     """Flash-attention forward: ``(o, lse)`` as :func:`flash_attention_plain`
     computes them.  CPU tensors run the plain version; CUDA tensors launch
     ``csrc/flash_fwd.cu`` (bf16, head dim 64) or ``csrc/flash_f32.cu``
-    (f32, head dim 32 or 64; contiguous, at 16-byte aligned addresses) or
-    raise."""
+    (f32, head dim 16, 32 or 64; contiguous, at 16-byte aligned addresses)
+    or raise."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     reason = (flash_unsupported_reason(q, k, v, causal)
@@ -399,6 +413,37 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
 
 
 # ------------------------------------------------------- paged attention
+def _paged_domain_reason(q, k, v, quant):
+    """The dtypes and head dims the paged kernel is built for (both
+    entries' checks): a bf16 query over bf16 pages, an f32 query over f32
+    pages, or either over int8 pages with f32 scales, at a head dim of
+    :data:`PAGED_HEAD_DIMS` for the query's dtype."""
+    if q.dtype not in PAGED_HEAD_DIMS:
+        return "kernel takes a bf16 or f32 query, got %s" % _short(q.dtype)
+    if quant and (k.dtype != torch.int8 or v.dtype != torch.int8):
+        return "kernel takes int8 pages with f32 scales, got %s" % (
+            _short(k.dtype))
+    if not quant and (k.dtype != q.dtype or v.dtype != q.dtype):
+        return "kernel takes %s pages (or int8 with f32 scales) for %s " \
+               "queries, got %s" % (_short(q.dtype), _short(q.dtype),
+                                    _short(k.dtype))
+    dims = PAGED_HEAD_DIMS[q.dtype]
+    if q.shape[3] not in dims:
+        return "head dim %d not in %s for %s" % (
+            q.shape[3], "/".join(map(str, dims)), str(q.dtype)[6:])
+    return None
+
+
+def _paged_launch_key(q, quant, pool):
+    """The ``LAUNCHES`` name of one paged launch: the entry (pool or
+    gathered), then the pages' dtype, ``_f32q`` for int8 pages under an
+    f32 query."""
+    name = "paged_decode_pool_" if pool else "paged_decode_"
+    if q.dtype == torch.float32:
+        return name + ("int8_f32q" if quant else "f32")
+    return name + ("int8" if quant else "bf16")
+
+
 def paged_unsupported_reason(q, k, v, valid, k_scale=None, v_scale=None):
     """Why the paged decode kernel cannot take this call, or None.  Int8
     pages come with ``k_scale``/``v_scale``.  Shapes and dtypes only, so
@@ -417,20 +462,16 @@ def paged_unsupported_reason(q, k, v, valid, k_scale=None, v_scale=None):
                                                      (B, K))
     if valid.dtype != torch.bool:
         return "valid mask must be bool, got %s" % valid.dtype
-    if q.dtype != torch.bfloat16:
-        return "kernel takes a bf16 query, got %s" % q.dtype
     quant = k_scale is not None
-    want = torch.int8 if quant else torch.bfloat16
-    if k.dtype != want or v.dtype != want:
-        return "kernel takes %s pages, got %s" % (want, k.dtype)
+    reason = _paged_domain_reason(q, k, v, quant)
+    if reason is not None:
+        return reason
     if quant and (v_scale is None
                   or tuple(k_scale.shape) != (B, H, K)
                   or tuple(v_scale.shape) != (B, H, K)
                   or k_scale.dtype != torch.float32
                   or v_scale.dtype != torch.float32):
         return "int8 pages need f32 k_scale/v_scale [B,H,K]"
-    if D != PAGED_HEAD_DIM:
-        return "head dim %d != %d" % (D, PAGED_HEAD_DIM)
     if B * H > 65535 or B * H == 0 or K == 0:
         return "B*H %d not in 1..65535, or K == 0" % (B * H)
     if K >= 2 ** 31:
@@ -460,9 +501,10 @@ def paged_attention_plain(q, k, v, valid, scale=None, k_scale=None,
 
 def paged_attention(q, k, v, valid, scale=None, k_scale=None,
                     v_scale=None):
-    """Single-query paged decode attention.  ``q [B,H,1,D]``; ``k``/``v``
-    ``[B,H,K,D]`` gathered through the page table; ``valid [B,K]`` bool;
-    int8 pages come with ``k_scale``/``v_scale [B,H,K]`` f32.  CPU
+    """Single-query paged decode attention.  ``q [B,H,1,D]`` bf16 or
+    f32; ``k``/``v`` ``[B,H,K,D]`` gathered through the page table, in
+    q's dtype or int8 with ``k_scale``/``v_scale [B,H,K]`` f32;
+    ``valid [B,K]`` bool; the output is in q's dtype.  CPU
     tensors run the plain version; CUDA tensors launch
     ``csrc/paged_attn.cu`` (the kernel of :func:`paged_attention_pool`,
     reading the gathered tensor as one page per sequence, under the mask)
@@ -484,12 +526,12 @@ def paged_attention(q, k, v, valid, scale=None, k_scale=None,
                       width=1, psz=K, pool=B,
                       strides=(H * K * D, D, K * D, H * K, 1, K),
                       scale=scale)
-    LAUNCHES["paged_decode_int8" if quant else "paged_decode_bf16"] += 1
+    LAUNCHES[_paged_launch_key(q, quant, pool=False)] += 1
     return o
 
 
 def _paged_align_reason(q, k, v):
-    # 16-byte rows of bf16, 8-byte rows of int8
+    # lanes load 16 bytes of f32 or bf16, 8 of int8
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         return "a data pointer is not 16-byte aligned"
     return None
@@ -542,7 +584,9 @@ def _drop_paged_counters(device, stream):
 def _launch_paged(q, k, v, k_scale, v_scale, table, lengths, valid, width,
                   psz, pool, strides, scale=None):
     """One launch of the paged kernel on checked inputs; ``strides`` are
-    ``(page, slot, head)`` of k/v and of the scales, in elements."""
+    ``(page, slot, head)`` of k/v and of the scales, in elements.  The
+    output is in q's dtype; with several splits each (b, h) writes
+    ``splits`` partials of ``D + 2`` floats to a workspace."""
     B, H, _, D = q.shape
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     per, splits = paged_splits(B * H, width * psz)
@@ -562,7 +606,7 @@ def _launch_paged(q, k, v, k_scale, v_scale, table, lengths, valid, width,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale), ptr(v_scale),
         ptr(table), ptr(lengths), ptr(valid), o.data_ptr(), ptr(part),
         ptr(counters), B, H, width, psz, pool, D, per, splits, *strides,
-        int(quant), scale, stream)
+        int(quant), _DTYPE_CODE[q.dtype], scale, stream)
     if err != 0 and counters is not None:
         _drop_paged_counters(q.device, stream)
     _check(lib, err, "paged_decode")
@@ -572,8 +616,9 @@ def _launch_paged(q, k, v, k_scale, v_scale, table, lengths, valid, width,
 def paged_pool_unsupported_reason(q, k_pool, v_pool, page_table, lengths,
                                   k_scale_pool=None, v_scale_pool=None):
     """Why the paged kernel cannot take this pool-form call, or None:
-    ``q [B,H,1,64]`` bf16; pools ``[pool, psz, H, 64]`` bf16, or int8 with
-    f32 scale pools ``[pool, psz, H]``; ``page_table [B, W]`` and
+    ``q [B,H,1,D]`` bf16 (D = 64) or f32 (D = 16, 64); pools
+    ``[pool, psz, H, D]`` in q's dtype, or int8 with f32 scale pools
+    ``[pool, psz, H]``; ``page_table [B, W]`` and
     ``lengths [B]`` int32; B*H <= 65535 and W*psz < 2^31.  Shapes and
     dtypes only, so it answers for ``meta`` tensors too."""
     if q.dim() != 4 or k_pool.dim() != 4 or v_pool.dim() != 4:
@@ -594,20 +639,16 @@ def paged_pool_unsupported_reason(q, k_pool, v_pool, page_table, lengths,
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         return "page table and lengths must be int32, got %s/%s" % (
             page_table.dtype, lengths.dtype)
-    if q.dtype != torch.bfloat16:
-        return "kernel takes a bf16 query, got %s" % q.dtype
     quant = k_scale_pool is not None
-    want = torch.int8 if quant else torch.bfloat16
-    if k_pool.dtype != want or v_pool.dtype != want:
-        return "kernel takes %s pages, got %s" % (want, k_pool.dtype)
+    reason = _paged_domain_reason(q, k_pool, v_pool, quant)
+    if reason is not None:
+        return reason
     if quant and (v_scale_pool is None
                   or tuple(k_scale_pool.shape) != (P, psz, H)
                   or tuple(v_scale_pool.shape) != (P, psz, H)
                   or k_scale_pool.dtype != torch.float32
                   or v_scale_pool.dtype != torch.float32):
         return "int8 pages need f32 scale pools [pool, psz, H]"
-    if D != PAGED_HEAD_DIM:
-        return "head dim %d != %d" % (D, PAGED_HEAD_DIM)
     if B * H > 65535 or B * H == 0:
         return "B*H %d not in 1..65535" % (B * H)
     if P == 0 or psz == 0 or page_table.shape[1] == 0:
@@ -651,11 +692,12 @@ def paged_attention_pool_plain(q, k_pool, v_pool, page_table, lengths,
 def paged_attention_pool(q, k_pool, v_pool, page_table, lengths, scale=None,
                          k_scale_pool=None, v_scale_pool=None):
     """Single-query paged decode attention read straight from the page
-    pool: ``q [B,H,1,D]``; ``k_pool``/``v_pool [pool, psz, H, D]`` (the
-    model's own per-layer pools); ``page_table [B, W]`` int32;
-    ``lengths [B]`` int32, the valid prefix of each sequence (keys
-    ``0 .. lengths[b] - 1``); int8 pools come with ``k_scale_pool`` /
-    ``v_scale_pool [pool, psz, H]`` f32.  CPU tensors run
+    pool: ``q [B,H,1,D]`` bf16 or f32; ``k_pool``/``v_pool
+    [pool, psz, H, D]`` (the model's own per-layer pools, in q's dtype, or
+    int8 with ``k_scale_pool`` / ``v_scale_pool [pool, psz, H]`` f32);
+    ``page_table [B, W]`` int32; ``lengths [B]`` int32, the valid prefix
+    of each sequence (keys ``0 .. lengths[b] - 1``); the output is in q's
+    dtype.  CPU tensors run
     :func:`paged_attention_pool_plain`; CUDA tensors launch
     ``csrc/paged_attn.cu`` (one launch, no gather) or raise."""
     if q.device.type == "cpu":
@@ -679,8 +721,7 @@ def paged_attention_pool(q, k_pool, v_pool, page_table, lengths, scale=None,
                       width=page_table.shape[1], psz=psz, pool=P,
                       strides=(psz * H * D, H * D, D, psz * H, H, 1),
                       scale=scale)
-    LAUNCHES["paged_decode_pool_int8" if quant
-             else "paged_decode_pool_bf16"] += 1
+    LAUNCHES[_paged_launch_key(q, quant, pool=True)] += 1
     return o
 
 

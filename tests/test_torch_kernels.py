@@ -592,11 +592,12 @@ def test_kernel_checks_reject_what_the_kernels_do_not_take():
         q1, q.to(torch.int8), q.to(torch.int8), valid,
         _meta(1, 2, 8, dtype=torch.float32), None)
     # each wrapper raises the typed error for a non-CPU tensor it cannot
-    # take: a bf16 shape it takes, but not on a CUDA device
+    # take: a bf16 shape it takes, but not on a CUDA device; an f16 query
+    # (the kernel takes bf16 and f32 ones)
     with pytest.raises(mt.KernelUnsupportedError, match="CUDA"):
         ck.flash_attention(q, q, q, causal=True)
     with pytest.raises(mt.KernelUnsupportedError, match="bf16"):
-        ck.paged_attention(f[:, :, :1], f, f, valid)
+        ck.paged_attention(h[:, :, :1], h, h, valid)
 
 
 def test_training_shapes_pass_the_kernel_checks():
@@ -669,8 +670,8 @@ def test_f32_flash_checks_take_head_dim_32(B, H, causal, sq, skv):
 
 
 @pytest.mark.parametrize("dtype,D,dims", [
-    (torch.bfloat16, 32, "64"), (torch.float32, 16, "32/64"),
-    (torch.float32, 128, "32/64")], ids=["bf16-32", "f32-16", "f32-128"])
+    (torch.bfloat16, 32, "64"), (torch.float32, 48, "16/32/64"),
+    (torch.float32, 128, "16/32/64")], ids=["bf16-32", "f32-48", "f32-128"])
 def test_flash_checks_refuse_head_dims_not_built(dtype, D, dims):
     """A head dim the flash kernels are not built for in this dtype is
     refused by both checks, which name the dims that are, and both

@@ -136,9 +136,11 @@ def test_traffic_streams_equal_reference_oracle(served):
         n for _, n in CG.TRAFFIC)
     routes = engine.predictor.paged_routes
     assert set(routes) == {str(w) for w in engine.predictor.decode_widths}
-    # the f32 model is not the kernel's dtype: the verdict says so (on the
-    # card such a decode call raises; here the CPU runs the plain version)
-    assert all(r["impl"] == "unsupported" and "bf16" in r["reason"]
+    # the model's head dim (8) is not one the f32 paged kernel is built
+    # for: the verdict says so (on the card such a decode call raises;
+    # here the CPU runs the plain version)
+    assert all(r["impl"] == "unsupported"
+               and "head dim 8 not in 16/64" in r["reason"]
                for r in routes.values())
 
 
