@@ -4,7 +4,7 @@ Usage (from the root of a checkout, one visible CUDA card)::
 
     python3 chip_smoke.py [--report PATH]
                           [--phase attention|optimizer|module|bert|lm_f32|
-                                   generation]
+                                   generation|ops]
 
 Phases; any failure exits non-zero without the result lines:
 
@@ -267,6 +267,25 @@ Phases; any failure exits non-zero without the result lines:
             device-idle share of a profiled window of fused steps, and
             the fused route's step timed again after that window; and a
             checkpoint saved and loaded on the card gives the same bits.
+7b. ops    — the op library (ops/tensor, nn, misc, linalg, random_ops,
+            optim_ops), no kernel of the port on its path: (a) every
+            OP_CASES case through ``mx.nd`` on the card and on the CPU
+            from the same inputs and seeded head gradient, outputs and
+            gradients compared (EXACT_OPS bit for bit, f32 at OPS_RTOL /
+            OPS_ATOL, bf16 at OPS_BF16_RTOL of the tensor's largest);
+            every sampler at SAMPLER_DRAWS draws: the CPU's dtype, the
+            same bits from one seed twice, mean and variance within
+            SAMPLER_SIGMAS standard errors; (b) the ops at TransformerLM
+            and ResNet-50 widths (OPS_* shapes) against the CPU, timed by
+            CUDA events beside one PyTorch call where there is one, and
+            Dropout's mask drawn on the card (kept fraction, kept values
+            x / 0.9 in bf16, one seed's bits twice, no host-to-device
+            copy over 1 MB in a profiled call); (c) the multi-tensor
+            update ops over resnet50_v1's 193 and the TransformerLM's 9
+            tensors, within OPS_UPDATE_TOL of the CPU, bf16 weights the
+            casts of their masters, beside K1's and K3's call and launch
+            over the same lists.  No kernel of the port launches in
+            (a)-(b).
 8. summary — a ``{"kernels": [...]}`` line, the card's name and power
             limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -301,6 +320,9 @@ prints its report as one JSON line.
 runs phase 2's f32 flash checks at head dim 16 (F32_D16_CASES) and its
 f32-query paged checks (PAGED_F32_CASES), then phase 3b alone, and
 prints its report as one JSON line.
+
+``--phase ops`` builds K1 and K3 and runs phase 7b alone, and prints
+its report as one JSON line.
 
 ``--phase module`` builds the kernels and runs only phase 7(c), in a
 process no earlier phase has touched, after two A/Bs of the fused step
@@ -1162,15 +1184,22 @@ def check_adam(ck, torch):
     return cases, step
 
 
+_RESNET_SHAPES = []
+
+
 def _resnet_shapes(mx, np):
     """The 193 trainable shapes of the port's resnet50_v1, read from the
-    model after shape inference (one forward on the CPU)."""
+    model after shape inference (one forward on the CPU), once a
+    process."""
+    if _RESNET_SHAPES:
+        return list(_RESNET_SHAPES)
     from mxnet_tpu_torch.gluon.model_zoo import vision
     net = vision.get_model("resnet50_v1", classes=1000)
     net.initialize(mx.init.Zero(), ctx=mx.cpu())
     net(mx.nd.array(np.zeros((1, 3, 32, 32), np.float32), ctx=mx.cpu()))
-    return [p.shape for p in net.collect_params().values()
-            if p.grad_req != "null"]
+    _RESNET_SHAPES.extend(p.shape for p in net.collect_params().values()
+                          if p.grad_req != "null")
+    return list(_RESNET_SHAPES)
 
 
 def _differing(torch, x, y):
@@ -4173,13 +4202,1179 @@ def _write_report(path, report):
             json.dump(report, f, indent=1)
 
 
+# ------------------------------------------------------------- phase ops
+# The op library's case table: every op of ops/tensor, nn, misc, linalg,
+# random_ops and optim_ops once, at the reference sweep's small shapes
+# (tests/test_op_sweep.py SPECS), free of JAX so that the CPU tests hold
+# the same cases against the reference.  A case is (op, inputs, attrs);
+# an input is (kind, shape) built by build_inputs: rnd ~ N(0, 0.25), pos
+# ~ U(0.5, 1.5), unit ~ U(-0.8, 0.8), gt1 ~ U(1.2, 2), probs (rows summing
+# to 1), spd (a a^T + n I), chol (its Cholesky factor), tril (lower
+# triangle of pos + 2 I), ("idx", shape, hi) integers in [0, hi) as
+# float32 (MXNet's labels), ("mask", shape) 0/1, ("lit", values) a
+# literal, ("scaled", kind, shape, k) k times a kind.  "@bf16" after an
+# op's name runs the case on bfloat16 float inputs.
+_UNARY_KINDS = {
+    "rnd": ("negative", "abs", "sign", "exp", "expm1", "sin", "cos", "sinh",
+            "cosh", "tanh", "arctan", "arcsinh", "degrees", "radians",
+            "sigmoid", "softsign", "square", "erf", "rint", "ceil", "floor",
+            "trunc", "round", "logical_not", "isnan", "isinf", "isfinite",
+            "argmax_channel", "relu", "identity", "make_loss", "BlockGrad",
+            "softmin", "log_softmax", "softmax", "SoftmaxActivation",
+            "zeros_like", "ones_like", "transpose", "fix", "_contrib_sign_ste",
+            "_contrib_div_sqrt_dim", "IdentityAttachKLSparseReg"),
+    "pos": ("log", "log10", "log2", "log1p", "sqrt", "rsqrt", "cbrt",
+            "rcbrt", "reciprocal", "gammaln", "gamma", "digamma",
+            "L2Normalization"),
+    "unit": ("arcsin", "arccos", "arctanh", "erfinv", "tan",
+             "hard_sigmoid"),
+    "gt1": ("arccosh",),
+}
+_BINARY_KINDS = {
+    ("rnd", "rnd"): ("broadcast_add", "broadcast_sub", "broadcast_mul",
+                     "broadcast_maximum", "broadcast_minimum",
+                     "broadcast_equal", "broadcast_not_equal",
+                     "broadcast_greater", "broadcast_greater_equal",
+                     "broadcast_lesser", "broadcast_lesser_equal",
+                     "broadcast_logical_and", "broadcast_logical_or",
+                     "broadcast_logical_xor",
+                     "_identity_with_attr_like_rhs"),
+    ("rnd", "pos"): ("arctan2", "broadcast_div", "_scatter_elemwise_div"),
+    ("pos", "pos"): ("broadcast_hypot",),
+    ("pos", "rnd"): ("broadcast_power",),
+}
+_SCALAR_OPS = ("_plus_scalar", "_minus_scalar", "_rminus_scalar",
+               "_mul_scalar", "_div_scalar", "_rdiv_scalar",
+               "_power_scalar", "_hypot_scalar", "_equal_scalar",
+               "_not_equal_scalar", "_greater_scalar",
+               "_greater_equal_scalar", "_lesser_scalar",
+               "_lesser_equal_scalar", "_logical_and_scalar",
+               "_logical_or_scalar", "_logical_xor_scalar",
+               "_scatter_plus_scalar", "_scatter_minus_scalar",
+               "_mod_scalar", "_maximum_scalar", "_minimum_scalar")
+_M34 = (("rnd", (3, 4)),)
+_V4 = ("rnd", (4,))
+_SMALL = ("scaled", "rnd", (4,), 0.1)
+_STATE = ("scaled", "pos", (4,), 0.01)
+_ONE = ("lit", [1.0])
+
+
+def _op_cases():
+    cases = []
+    for kind, names in _UNARY_KINDS.items():
+        cases += [(n, ((kind, (3, 4)),), {}) for n in names]
+    for kinds, names in _BINARY_KINDS.items():
+        cases += [(n, tuple((k, (3, 4)) for k in kinds), {}) for n in names]
+    cases += [(n, (("pos", (3, 4)),), {"scalar": 1.3}) for n in _SCALAR_OPS]
+    cases += [("_rmod_scalar", (("gt1", (3, 4)),), {"scalar": 1.3}),
+              ("_rpower_scalar", (("unit", (3, 4)),), {"scalar": 1.3})]
+    cases += [(n, (("pos", (3, 4)),), {"axis": 1})
+              for n in ("sum", "mean", "prod", "nansum", "nanprod",
+                        "_square_sum")]
+    cases += [(n, _M34, {"axis": 1})
+              for n in ("max", "min", "logsumexp", "argmax", "argmin",
+                        "argsort", "cumsum", "sort")]
+    cases += [
+        ("cumprod", (("pos", (3, 4)),), {"axis": 1}),
+        ("broadcast_mod", (("scaled", "pos", (3, 4), 3.0), ("pos", (3, 4))),
+         {}),
+        ("_copy_to_device", _M34, {}),
+        ("norm", (("pos", (3, 4)),), {"ord": 2}),
+        ("moments", _M34, {"axes": (0, 1)}),
+        ("clip", _M34, {"a_min": -0.3, "a_max": 0.3}),
+        ("cast", _M34, {"dtype": "float16"}),
+        ("amp_cast", _M34, {"dtype": "float16"}),
+        ("amp_multicast", (("rnd", (3, 4)), ("rnd", (3, 4))),
+         {"num_outputs": 2}),
+        ("cast_storage", _M34, {"stype": "default"}),
+        ("smooth_l1", _M34, {"scalar": 1.0}),
+        ("topk", _M34, {"k": 2, "axis": 1}),
+        ("reshape", _M34, {"shape": (4, 3)}),
+        ("swapaxes", (("rnd", (2, 3, 4)),), {"dim1": 0, "dim2": 2}),
+        ("flatten", (("rnd", (2, 3, 4)),), {}),
+        ("expand_dims", _M34, {"axis": 1}),
+        ("squeeze", (("rnd", (3, 1, 4)),), {}),
+        ("broadcast_to", (("rnd", (1, 4)),), {"shape": (3, 4)}),
+        ("broadcast_axis", (("rnd", (1, 4)),), {"axis": 0, "size": 3}),
+        ("broadcast_like", (("rnd", (1, 4)), ("rnd", (3, 4))), {}),
+        ("reshape_like", (("rnd", (3, 4)), ("rnd", (4, 3))), {}),
+        ("tile", (("rnd", (2, 3)),), {"reps": (2, 2)}),
+        ("repeat", (("rnd", (2, 3)),), {"repeats": 2, "axis": 1}),
+        ("pad", (("rnd", (1, 1, 3, 3)),),
+         {"mode": "constant", "pad_width": (0, 0, 0, 0, 1, 1, 1, 1)}),
+        ("concat", (("rnd", (2, 3)), ("rnd", (2, 3))), {"dim": 1}),
+        ("stack", (("rnd", (2, 3)), ("rnd", (2, 3))), {"axis": 0}),
+        ("split", (("rnd", (2, 4)),), {"num_outputs": 2, "axis": 1}),
+        ("_split_v2", (("rnd", (4, 6)),), {"indices": (2,), "axis": 1}),
+        ("slice_axis", _M34, {"axis": 1, "begin": 1, "end": 3}),
+        ("slice", _M34, {"begin": (0, 1), "end": (2, 3)}),
+        ("slice_like", (("rnd", (3, 4)), ("rnd", (2, 2))), {}),
+        ("_slice_index", _M34, {"key": (slice(None), slice(None, None, -2))}),
+        ("reverse", _M34, {"axis": 0}),
+        ("diag", (("rnd", (4, 4)),), {}),
+        ("full_like", _M34, {"fill_value": 2.5}),
+        ("shape_array", _M34, {}),
+        ("size_array", _M34, {}),
+        ("depth_to_space", (("rnd", (1, 8, 2, 2)),), {"block_size": 2}),
+        ("space_to_depth", (("rnd", (1, 2, 4, 4)),), {"block_size": 2}),
+        ("where", (("mask", (3, 4)), ("rnd", (3, 4)), ("rnd", (3, 4))), {}),
+        ("take", (("rnd", (5, 3)), ("idx", (3,), 5)), {"axis": 0}),
+        ("Embedding", (("idx", (3,), 4), ("rnd", (4, 5))),
+         {"input_dim": 4, "output_dim": 5}),
+        ("one_hot", (("idx", (2,), 3),), {"depth": 3}),
+        ("pick", (("rnd", (3, 4)), ("idx", (3,), 4)), {"axis": 1}),
+        ("gather_nd", (("rnd", (3, 4)), ("lit", [[0, 2], [1, 3]])), {}),
+        ("scatter_nd", (("rnd", (2,)), ("lit", [[0, 2], [1, 3]])),
+         {"shape": (3, 4)}),
+        ("take_along_axis", (("rnd", (3, 4)), ("idx", (3, 1), 4)),
+         {"axis": 1}),
+        ("boolean_mask", (("rnd", (4, 3)), ("lit", [1, 0, 1, 1])), {}),
+        ("batch_take", (("rnd", (3, 4)), ("idx", (3,), 4)), {}),
+        ("shuffle", (("rnd", (4, 3)),), {}),
+        ("ravel_multi_index", (("lit", [[0, 1], [1, 2]]),), {"shape": (2, 3)}),
+        ("_unravel_index", (("lit", [5, 7]),), {"shape": (3, 4)}),
+        ("dot", (("rnd", (3, 4)), ("rnd", (4, 2))), {}),
+        ("batch_dot", (("rnd", (2, 3, 4)), ("rnd", (2, 4, 2))), {}),
+        ("batch_dot_auto", (("rnd", (2, 3, 4)), ("rnd", (2, 4, 2))), {}),
+        ("linalg_gemm2", (("rnd", (3, 4)), ("rnd", (4, 2))), {}),
+        ("linalg_gemm", (("rnd", (3, 4)), ("rnd", (4, 2)), ("rnd", (3, 2))),
+         {}),
+        ("linalg_potrf", (("spd", (3, 3)),), {}),
+        ("linalg_potri", (("chol", (3, 3)),), {}),
+        ("linalg_trmm", (("tril", (3, 3)), ("rnd", (3, 2))), {}),
+        ("linalg_trsm", (("tril", (3, 3)), ("rnd", (3, 2))), {}),
+        ("linalg_syrk", (("rnd", (3, 4)),), {}),
+        ("linalg_sumlogdiag", (("spd", (3, 3)),), {}),
+        ("linalg_extractdiag", (("rnd", (4, 4)),), {}),
+        ("linalg_makediag", (("rnd", (4,)),), {}),
+        ("linalg_extracttrian", (("rnd", (3, 3)),), {}),
+        ("linalg_maketrian", (("rnd", (6,)),), {}),
+        ("linalg_gelqf", (("rnd", (2, 4)),), {}),
+        ("linalg_syevd", (("spd", (3, 3)),), {}),
+        ("linalg_inverse", (("spd", (3, 3)),), {}),
+        ("linalg_det", (("spd", (3, 3)),), {}),
+        ("linalg_slogdet", (("spd", (3, 3)),), {}),
+        ("khatri_rao", (("rnd", (2, 3)), ("rnd", (4, 3))), {}),
+        ("SequenceMask", (("rnd", (4, 2, 3)), ("lit", [2, 4])),
+         {"use_sequence_length": True}),
+        ("SequenceLast", (("rnd", (4, 2, 3)), ("lit", [2, 4])),
+         {"use_sequence_length": True}),
+        ("SequenceReverse", (("rnd", (4, 2, 3)), ("lit", [2, 4])),
+         {"use_sequence_length": True}),
+        ("_zeros", (), {"shape": (2, 3)}),
+        ("_ones", (), {"shape": (2, 3)}),
+        ("_full", (), {"shape": (2, 3), "value": 1.5}),
+        ("_arange", (), {"start": 1, "stop": 7, "step": 2}),
+        ("_linspace", (), {"start": 0.0, "stop": 1.0, "num": 5}),
+        ("_eye", (), {"N": 3, "M": 4, "k": 1}),
+        ("_zeros_without_dtype", (), {"shape": (2, 3)}),
+        # nn
+        ("FullyConnected", (("rnd", (2, 3)), ("rnd", (4, 3)), ("rnd", (4,))),
+         {"num_hidden": 4}),
+        ("Convolution", (("rnd", (1, 2, 5, 5)), ("rnd", (3, 2, 3, 3)),
+                         ("rnd", (3,))), {"kernel": (3, 3), "num_filter": 3}),
+        ("Deconvolution", (("rnd", (1, 2, 3, 3)), ("rnd", (2, 3, 3, 3))),
+         {"kernel": (3, 3), "num_filter": 3, "no_bias": True,
+          "stride": (2, 2), "pad": (1, 1), "adj": (1, 1)}),
+        ("Pooling", (("rnd", (1, 2, 4, 4)),),
+         {"kernel": (2, 2), "stride": (2, 2), "pool_type": "avg"}),
+        ("BatchNorm", (("rnd", (2, 3, 4, 4)), ("pos", (3,)), ("rnd", (3,)),
+                       ("rnd", (3,)), ("pos", (3,))),
+         {"fix_gamma": False, "training": True}),
+        ("LayerNorm", (("rnd", (3, 4)), ("pos", (4,)), ("rnd", (4,))), {}),
+        ("GroupNorm", (("rnd", (2, 4, 3, 3)), ("pos", (4,)), ("rnd", (4,))),
+         {"num_groups": 2}),
+        ("InstanceNorm", (("rnd", (2, 3, 4, 4)), ("pos", (3,)),
+                          ("rnd", (3,))), {}),
+        ("LRN", (("rnd", (1, 6, 3, 3)),), {"nsize": 3}),
+        ("SoftmaxOutput", (("rnd", (3, 4)), ("idx", (3,), 4)), {}),
+        ("softmax_cross_entropy", (("rnd", (3, 4)), ("idx", (3,), 4)), {}),
+        ("Activation", _M34, {"act_type": "tanh"}),
+        ("LeakyReLU", _M34, {"act_type": "leaky", "slope": 0.1}),
+        ("Dropout", _M34, {"p": 0.5}),
+        ("UpSampling", (("rnd", (1, 2, 3, 3)),), {"scale": 2}),
+        ("CTCLoss", (("rnd", (4, 2, 5)), ("lit", [[1, 2], [2, 3]])), {}),
+        ("LinearRegressionOutput", (("rnd", (3, 2)), ("rnd", (3, 2))), {}),
+        ("LogisticRegressionOutput", (("rnd", (3, 2)), ("rnd", (3, 2))), {}),
+        ("MAERegressionOutput", (("rnd", (3, 2)), ("rnd", (3, 2))), {}),
+        ("SVMOutput", (("rnd", (3, 4)), ("idx", (3,), 4)), {}),
+        # misc
+        ("add_n", (("rnd", (3, 4)),) * 3, {}),
+        ("_histogram", (("rnd", (40,)),), {"bin_cnt": 5}),
+        ("_rnn_param_concat", (("rnd", (3, 2)), ("rnd", (4, 2))), {"dim": 0}),
+        ("_sparse_retain", (("rnd", (5, 3)), ("lit", [1, 3])), {}),
+        ("_scatter_set_nd", (("rnd", (4, 5)), ("rnd", (3,)),
+                             ("lit", [[0, 1, 2], [1, 2, 3]])), {}),
+        ("_slice_assign", (("rnd", (4, 5)), ("rnd", (2, 2))),
+         {"begin": (0, 1), "end": (2, 3)}),
+        ("_slice_assign_scalar", (("rnd", (4, 5)),),
+         {"begin": (0, 1), "end": (2, 3), "scalar": 7.0}),
+        ("_sample_unique_zipfian", (), {"range_max": 1000, "shape": (6,)}),
+        ("Crop", (("rnd", (1, 2, 6, 6)),), {"h_w": (4, 4), "offset": (1, 1)}),
+        ("_image_to_tensor", (("scaled", "pos", (5, 6, 3), 100.0),), {}),
+        ("_image_normalize", (("pos", (3, 5, 6)),),
+         {"mean": (0.5,), "std": (2.0,)}),
+        ("_image_resize", (("pos", (5, 6, 3)),), {"size": (4, 3)}),
+        ("_image_crop", (("pos", (6, 8, 3)),),
+         {"x": 1, "y": 2, "width": 4, "height": 3}),
+        ("_contrib_round_ste", (("scaled", "rnd", (3, 4), 3.0),), {}),
+        ("_contrib_gradientmultiplier", _M34, {"scalar": -1.0}),
+        # optim
+        ("sgd_update", (_V4, _V4), {"lr": 0.1, "wd": 0.01}),
+        ("sgd_mom_update", (_V4, _V4, _V4), {"lr": 0.1, "momentum": 0.9}),
+    ]
+    for name, n in (("mp_sgd_update", 3), ("mp_sgd_mom_update", 4),
+                    ("nag_mom_update", 3), ("mp_nag_mom_update", 4),
+                    ("adam_update", 4), ("ftml_update", 5),
+                    ("rmsprop_update", 3), ("rmspropalex_update", 5),
+                    ("ftrl_update", 4), ("signsgd_update", 2),
+                    ("signum_update", 3)):
+        cases.append((name, (_V4, _SMALL) + (_STATE,) * (n - 2),
+                      {"lr": 0.1}))
+    for name, per, extra in (("multi_sgd_update", 2, {}),
+                             ("multi_sgd_mom_update", 3, {"momentum": 0.9}),
+                             ("multi_mp_sgd_update", 3, {}),
+                             ("multi_mp_sgd_mom_update", 4,
+                              {"momentum": 0.9})):
+        cases.append((name, (("rnd", (3,)),) * (2 * per),
+                      dict({"lrs": (0.1, 0.2), "wds": (0.0, 0.01),
+                            "num_weights": 2}, **extra)))
+    cases += [
+        ("multi_sum_sq", (("rnd", (3,)), ("rnd", (4,))), {"num_arrays": 2}),
+        ("multi_lars", (("pos", (3,)),) * 3 + (("scaled", "pos", (3,), 0.01),),
+         {"eta": 0.001}),
+        ("_adamw_update", (_V4, _V4, _V4, ("pos", (4,)), _ONE), {"lr": 0.01}),
+        ("_mp_adamw_update", (_V4, _V4, _V4, ("pos", (4,)), _V4, _ONE),
+         {"lr": 0.01}),
+        ("lamb_update_phase1", (_V4, _V4, _V4, ("pos", (4,))), {"t": 1}),
+        ("lamb_update_phase2", (_V4, _V4, ("pos", (1,)), ("pos", (1,))),
+         {"lr": 0.1}),
+        ("_multi_adamw_update", (_V4, _V4, ("scaled", "rnd", (4,), 0.0),
+                                 ("pos", (4,)), _ONE),
+         {"lrs": (0.1,), "wds": (0.01,), "etas": (1.0,)}),
+        ("_multi_mp_adamw_update", (_V4, _V4, ("scaled", "rnd", (4,), 0.0),
+                                    ("pos", (4,)), _V4, _ONE),
+         {"lrs": (0.1,), "wds": (0.01,), "etas": (1.0,)}),
+        ("preloaded_multi_sgd_update", (_V4, _V4, ("lit", [0.1]),
+                                        ("lit", [0.0])), {}),
+        ("preloaded_multi_sgd_mom_update", (_V4, _V4, _V4, ("lit", [0.1]),
+                                            ("lit", [0.0])),
+         {"momentum": 0.9}),
+        ("preloaded_multi_mp_sgd_update", (_V4, _V4, _V4, ("lit", [0.1]),
+                                           ("lit", [0.0])), {}),
+        ("preloaded_multi_mp_sgd_mom_update",
+         (_V4, _V4, _V4, _V4, ("lit", [0.1]), ("lit", [0.0])),
+         {"momentum": 0.9}),
+        ("_sparse_adagrad_update", (("rnd", (4, 3)), ("rnd", (4, 3)),
+                                    ("pos", (4, 3))), {"lr": 0.1}),
+        ("_contrib_group_adagrad_update", (("rnd", (4, 3)), ("rnd", (4, 3)),
+                                           ("pos", (4, 1))), {"lr": 0.1}),
+        ("all_finite", _M34, {}),
+        ("multi_all_finite", (("rnd", (3,)), ("rnd", (3,))), {}),
+        ("reset_arrays", (("rnd", (3,)), ("rnd", (2, 2))), {}),
+    ]
+    # samplers: shape and dtype here; their distributions in
+    # SAMPLER_CASES
+    cases += [(n, (), {"shape": (50,)}) for n in RANDOM_OPS]
+    cases += [(n + "_like", (("rnd", (5, 4)),), {}) for n in RANDOM_OPS
+              if n != "_random_randint"]
+    cases += [(n, (("pos", (3,)), ("scaled", "pos", (3,), 2.0)),
+               {"shape": (4,)})
+              for n in ("sample_uniform", "sample_normal", "sample_gamma",
+                        "sample_generalized_negative_binomial")]
+    cases += [("sample_exponential", (("pos", (3,)),), {"shape": (4,)}),
+              ("sample_poisson", (("scaled", "pos", (3,), 3.0),),
+               {"shape": (4,)}),
+              ("sample_negative_binomial", (("lit", [2.0, 2.0, 2.0]),
+                                            ("lit", [0.5, 0.5, 0.5])),
+               {"shape": (4,)}),
+              ("sample_multinomial", (("probs", (3, 5)),), {"shape": (4,)})]
+    # bfloat16 forms of the ops the model widths run in bf16
+    cases += [(n + "@bf16", ins, attrs) for n, ins, attrs in (
+        ("LayerNorm", (("rnd", (3, 4)), ("pos", (4,)), ("rnd", (4,))), {}),
+        ("softmax", _M34, {}), ("broadcast_add", _M34 * 2, {}),
+        ("relu", _M34, {}), ("sum", _M34, {"axis": 1}),
+        ("mp_sgd_mom_update", (_V4, _SMALL, _STATE, _V4),
+         {"lr": 0.1, "momentum": 0.9, "rescale_grad": 0.5}))]
+    return cases
+
+
+# the inputs a "@bf16" case runs in bfloat16 where not all float ones:
+# an mp_* update's weight and gradient (its momentum and master stay f32)
+BF16_INPUTS = {"mp_sgd_mom_update": (0, 1)}
+
+
+RANDOM_OPS = ("_random_uniform", "_random_normal", "_random_gamma",
+              "_random_exponential", "_random_poisson",
+              "_random_negative_binomial",
+              "_random_generalized_negative_binomial", "_random_randint")
+OP_CASES = _op_cases()
+# ops whose inputs after the first are index-like: their values go in as
+# given, and no gradient is taken for them
+INDEX_INPUTS = {"take": (1,), "Embedding": (0,), "pick": (1,),
+                "gather_nd": (1,), "scatter_nd": (1,),
+                "take_along_axis": (1,), "batch_take": (1,),
+                "boolean_mask": (1,), "SequenceMask": (1,),
+                "SequenceLast": (1,), "SequenceReverse": (1,),
+                "one_hot": (0,), "SoftmaxOutput": (1,),
+                "softmax_cross_entropy": (1,), "SVMOutput": (1,),
+                "CTCLoss": (1,), "_sparse_retain": (1,),
+                "_scatter_set_nd": (2,), "where": (0,),
+                "ravel_multi_index": (0,), "_unravel_index": (0,)}
+
+
+def case_inputs(np, i):
+    """OP_CASES[i]'s numpy inputs (seeded by the case's index) and each
+    one's dtype: bfloat16 for a "@bf16" case's float inputs (those of
+    BF16_INPUTS where listed), else None (the array's own, float32)."""
+    case, inputs, _ = OP_CASES[i]
+    op, _, form = case.partition("@")
+    arrays = build_inputs(np, np.random.RandomState(SEED + i), inputs)
+    low = BF16_INPUTS.get(op, tuple(
+        k for k in range(len(arrays)) if k not in INDEX_INPUTS.get(op, ())))
+    return arrays, [("bfloat16" if form == "bf16" and k in low else None)
+                    for k in range(len(arrays))]
+
+
+def build_inputs(np, rng, inputs):
+    """The numpy arrays (float32) of a case's input descriptors."""
+    out = []
+    for d in inputs:
+        kind = d[0]
+        if kind == "lit":
+            out.append(np.asarray(d[1], np.float32))
+            continue
+        if kind == "scaled":
+            out.append(build_inputs(np, rng, ((d[1], d[2]),))[0]
+                       * np.float32(d[3]))
+            continue
+        shape = d[1]
+        if kind == "rnd":
+            a = rng.randn(*shape) * 0.5
+        elif kind == "pos":
+            a = rng.uniform(0.5, 1.5, shape)
+        elif kind == "unit":
+            a = rng.uniform(-0.8, 0.8, shape)
+        elif kind == "gt1":
+            a = rng.uniform(1.2, 2.0, shape)
+        elif kind == "probs":
+            a = rng.uniform(0.1, 1.0, shape)
+            a = a / a.sum(axis=-1, keepdims=True)
+        elif kind in ("spd", "chol"):
+            n = shape[-1]
+            m = rng.randn(*shape)
+            a = m @ np.swapaxes(m, -1, -2) + n * np.eye(n)
+            if kind == "chol":
+                a = np.linalg.cholesky(a)
+        elif kind == "tril":
+            a = np.tril(rng.uniform(0.5, 1.5, shape)) + 2 * np.eye(shape[-1])
+        elif kind == "idx":
+            a = rng.randint(0, d[2], shape)
+        elif kind == "mask":
+            a = rng.rand(*shape) > 0.5
+        else:
+            raise ValueError("unknown input kind %r" % (kind,))
+        out.append(np.asarray(a, np.float32))
+    return out
+
+
+# ops whose outputs are exact (data movement, selection, comparisons,
+# rounding, creation): the card's must equal the CPU's bit for bit (the
+# CPU tests hold the port's to the reference's the same way)
+EXACT_OPS = frozenset((
+    "negative", "abs", "sign", "rint", "ceil", "floor", "trunc", "round",
+    "fix", "relu", "logical_not", "isnan", "isinf", "isfinite", "clip",
+    "reshape", "reshape_like", "transpose", "swapaxes", "flatten",
+    "expand_dims", "squeeze", "broadcast_to", "broadcast_axis",
+    "broadcast_like", "tile", "repeat", "pad", "concat", "stack", "split",
+    "_split_v2", "slice", "slice_axis", "slice_like", "_slice_index",
+    "reverse", "where", "diag", "zeros_like", "ones_like", "full_like",
+    "shape_array", "size_array", "depth_to_space", "space_to_depth",
+    "take", "Embedding", "one_hot", "pick", "gather_nd", "take_along_axis",
+    "boolean_mask", "batch_take", "sort", "argsort", "topk", "argmax",
+    "argmin", "argmax_channel", "max", "min", "ravel_multi_index",
+    "_unravel_index", "_zeros", "_ones", "_full", "_eye", "_arange",
+    "_zeros_without_dtype", "identity", "BlockGrad", "make_loss", "cast",
+    "amp_cast", "amp_multicast", "cast_storage", "_copy_to_device",
+    "_identity_with_attr_like_rhs", "IdentityAttachKLSparseReg",
+    "_rnn_param_concat", "_sparse_retain", "_scatter_set_nd",
+    "_slice_assign", "_slice_assign_scalar", "Crop", "_image_crop",
+    "_contrib_round_ste", "_contrib_sign_ste",
+    "_contrib_gradientmultiplier", "linalg_extractdiag", "linalg_makediag",
+    "linalg_extracttrian", "linalg_maketrian", "broadcast_maximum",
+    "broadcast_minimum", "broadcast_equal", "broadcast_not_equal",
+    "broadcast_greater", "broadcast_greater_equal", "broadcast_lesser",
+    "broadcast_lesser_equal", "broadcast_logical_and",
+    "broadcast_logical_or", "broadcast_logical_xor", "_equal_scalar",
+    "_not_equal_scalar", "_greater_scalar", "_greater_equal_scalar",
+    "_lesser_scalar", "_lesser_equal_scalar", "_logical_and_scalar",
+    "_logical_or_scalar", "_logical_xor_scalar", "_maximum_scalar",
+    "_minimum_scalar", "Dropout", "all_finite", "multi_all_finite",
+    "reset_arrays", "LinearRegressionOutput", "MAERegressionOutput",
+    "SequenceMask", "SequenceLast", "SequenceReverse", "_linspace"))
+# the sweep's tolerances on the card against the CPU: f32 at
+# OPS_RTOL/OPS_ATOL, bf16 at OPS_BF16_RTOL of the tensor's largest value
+OPS_RTOL, OPS_ATOL = 1e-5, 1e-6
+OPS_BF16_RTOL = 2.0 ** -7
+# ops whose CUDA math differs from the CPU's beyond OPS_RTOL: (rtol,
+# atol) and why; the phase prints each one's measured error.  None needs
+# it on the H100 (erfinv, digamma and gammaln included)
+OPS_CARD_LOOSE = {}
+SAMPLER_DRAWS = 10 ** 6
+SAMPLER_SIGMAS = 5.0
+
+
+def _canon_out(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def run_op_case(mx, np, torch, ctx, op, arrays, attrs, dtypes, heads=None,
+                seed=None):
+    """One OP_CASES case through ``mx.nd`` on ``ctx``: the outputs and,
+    for a differentiable op, the gradients of its non-index inputs under
+    ``autograd.record()`` with the head gradient ``heads`` (seeded normal
+    draws when None); all returned as CPU tensors."""
+    from mxnet_tpu_torch.ops import registry
+    reg = registry.get(op)
+    idx = INDEX_INPUTS.get(op, ())
+    with ctx:
+        nds = [mx.nd.array(a, ctx=ctx, dtype=dt)
+               for a, dt in zip(arrays, dtypes)]
+        diff = [k for k in range(len(nds)) if k not in idx
+                and nds[k]._data.is_floating_point()] \
+            if reg.differentiable and op not in RANDOM_CASE_OPS else []
+        if seed is not None:
+            mx.random.seed(seed)
+        if not diff:
+            outs = _canon_out(registry.apply_op(reg, *nds, **attrs))
+            return [o._data.detach().cpu() for o in outs], None, None
+        for k in diff:
+            nds[k].attach_grad()
+        with mx.autograd.record():
+            outs = _canon_out(registry.apply_op(reg, *nds, **attrs))
+        if heads is None:
+            rng = np.random.RandomState(SEED + 1)
+            heads = [np.asarray(rng.randn(*o.shape) * 0.5, np.float32)
+                     for o in outs]
+            if op == "linalg_syevd":
+                heads[0] = np.zeros_like(heads[0])   # lam's gradient only
+        mx.autograd.backward(outs, [
+            mx.nd.array(h, ctx=ctx, dtype=o._data.dtype)
+            for h, o in zip(heads, outs)])
+        return ([o._data.detach().cpu() for o in outs],
+                {k: nds[k].grad._data.cpu() for k in diff}, heads)
+
+
+RANDOM_CASE_OPS = frozenset(
+    RANDOM_OPS + tuple(n + "_like" for n in RANDOM_OPS
+                       if n != "_random_randint") + (
+        "sample_uniform", "sample_normal", "sample_gamma",
+        "sample_exponential", "sample_poisson", "sample_negative_binomial",
+        "sample_generalized_negative_binomial", "sample_multinomial",
+        "shuffle", "_sample_unique_zipfian"))
+
+
+def _tol_ratio(torch, got, want, op, exact):
+    """max |got - want| over its tolerance (<= 1 passes): exact outputs
+    and integral ones 0 or inf; bf16 at OPS_BF16_RTOL of the tensor's
+    largest value; f32 at rtol/atol (OPS_CARD_LOOSE's where listed)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return float("inf")
+    if exact or not got.is_floating_point():
+        same = torch.equal(got, want) or bool(
+            (got.isnan() & want.isnan() | (got == want)).all())
+        return 0.0 if same else float("inf")
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    if got.dtype == torch.bfloat16:
+        scale = OPS_BF16_RTOL * max(float(w.abs().max()), 1e-30)
+        return float(err.max()) / scale if err.numel() else 0.0
+    rtol, atol = OPS_CARD_LOOSE.get(op, (OPS_RTOL, OPS_ATOL))
+    return float((err / (atol + rtol * w.abs())).max()) if err.numel() \
+        else 0.0
+
+
+def _syevd_view(torch, outs):
+    u, lam = outs
+    return [u.transpose(-1, -2) @ (lam[..., :, None] * u), lam]
+
+
+def ops_sweep(mx, np, torch, dev="gpu"):
+    """Phase ops (a): every OP_CASES case through ``mx.nd`` on the card
+    and on the CPU from the same inputs and head gradient, outputs and
+    gradients compared (samplers: shape, dtype, and the same bits from one
+    seed twice)."""
+    ctx = mx.gpu(0) if dev == "gpu" else mx.cpu()
+    rows, t0 = [], time.perf_counter()
+    for i, (case, _, attrs) in enumerate(OP_CASES):
+        op = case.partition("@")[0]
+        arrays, dtypes = case_inputs(np, i)
+        row = {"case": case}
+        if op in RANDOM_CASE_OPS:
+            a, _, _ = run_op_case(mx, np, torch, ctx, op, arrays, attrs,
+                                  dtypes, seed=SEED + i)
+            b, _, _ = run_op_case(mx, np, torch, ctx, op, arrays, attrs,
+                                  dtypes, seed=SEED + i)
+            c, _, _ = run_op_case(mx, np, torch, mx.cpu(), op, arrays,
+                                  attrs, dtypes, seed=SEED + i)
+            row["same_bits_twice"] = all(torch.equal(x, y)
+                                         for x, y in zip(a, b))
+            row["shape_dtype"] = all(
+                x.shape == y.shape and x.dtype == y.dtype
+                for x, y in zip(a, c))
+            row["ok"] = row["same_bits_twice"] and row["shape_dtype"]
+            rows.append(row)
+            continue
+        outs, grads, heads = run_op_case(mx, np, torch, ctx, op, arrays,
+                                         attrs, dtypes)
+        couts, cgrads, _ = run_op_case(mx, np, torch, mx.cpu(), op, arrays,
+                                       attrs, dtypes, heads=heads)
+        if op == "linalg_syevd":
+            outs, couts = _syevd_view(torch, outs), _syevd_view(torch, couts)
+        ratios = [_tol_ratio(torch, g, w, op, op in EXACT_OPS)
+                  for g, w in zip(outs, couts)]
+        if len(outs) != len(couts):
+            ratios.append(float("inf"))
+        if grads is not None:
+            ratios += [_tol_ratio(torch, grads[k], cgrads[k], op, False)
+                       for k in grads]
+        row["err_over_tol"] = max(ratios) if ratios else 0.0
+        row["max_abs_err"] = max(
+            [float((g.double() - w.double()).abs().max())
+             for g, w in zip(outs, couts) if g.shape == w.shape
+             and g.numel()] or [0.0])
+        row["ok"] = row["err_over_tol"] <= 1.0
+        if op in OPS_CARD_LOOSE or not row["ok"]:
+            _log("[ops] %s" % json.dumps(row))
+        rows.append(row)
+    bad = [r for r in rows if not r["ok"]]
+    worst = sorted((r for r in rows if "err_over_tol" in r),
+                   key=lambda r: -r["err_over_tol"])[:5]
+    out = {"cases": len(rows), "failed": bad, "worst": worst,
+           "seconds": time.perf_counter() - t0,
+           "loosened": {op: {"tol": OPS_CARD_LOOSE[op], "rows": [
+               r for r in rows if r["case"].partition("@")[0] == op]}
+               for op in OPS_CARD_LOOSE}}
+    _log("[ops] sweep %s" % json.dumps({k: v for k, v in out.items()
+                                        if k != "loosened"}))
+    return out
+
+
+def _sampler_specs(np):
+    """(op, attrs, parameter arrays or a like-shape, per-element (mean,
+    var)) of the sampler checks at SAMPLER_DRAWS draws."""
+    def nb(k, p):
+        return k * (1 - p) / p, k * (1 - p) / p ** 2
+
+    fixed = [
+        ("_random_uniform", {"low": -1.0, "high": 3.0}, (1.0, 16.0 / 12)),
+        ("_random_normal", {"loc": 1.0, "scale": 2.0}, (1.0, 4.0)),
+        ("_random_gamma", {"alpha": 2.5, "beta": 0.5}, (1.25, 0.625)),
+        ("_random_exponential", {"lam": 2.0}, (0.5, 0.25)),
+        ("_random_poisson", {"lam": 4.0}, (4.0, 4.0)),
+        ("_random_negative_binomial", {"k": 3, "p": 0.4}, nb(3, 0.4)),
+        ("_random_generalized_negative_binomial", {"mu": 2.0, "alpha": 0.5},
+         (2.0, 2.0 + 0.5 * 4.0)),
+        ("_random_randint", {"low": -3, "high": 9}, (2.5, (144 - 1) / 12.0)),
+    ]
+    specs = [(n, a, None, m) for n, a, m in fixed]
+    specs += [(n + "_like", a, (1000, SAMPLER_DRAWS // 1000), m)
+              for n, a, m in fixed if n != "_random_randint"]
+    per = [
+        ("sample_uniform", ([-1.0, 2.0], [0.0, 5.0]),
+         lambda lo, hi: ((lo + hi) / 2, (hi - lo) ** 2 / 12)),
+        ("sample_normal", ([1.0, -2.0], [2.0, 0.5]),
+         lambda m, s: (m, s * s)),
+        ("sample_gamma", ([2.5, 1.0], [0.5, 2.0]),
+         lambda a, b: (a * b, a * b * b)),
+        ("sample_exponential", ([2.0, 0.5],), lambda lam: (1 / lam,
+                                                          1 / lam ** 2)),
+        ("sample_poisson", ([4.0, 0.5],), lambda lam: (lam, lam)),
+        ("sample_negative_binomial", ([3.0, 1.0], [0.4, 0.7]), nb),
+        ("sample_generalized_negative_binomial", ([2.0, 5.0], [0.5, 0.2]),
+         lambda mu, a: (mu, mu + a * mu * mu)),
+    ]
+    for n, ps, mom in per:
+        arrs = [np.asarray(p, np.float32) for p in ps]
+        m = [mom(*[float(a[j]) for a in arrs]) for j in range(2)]
+        specs.append((n, {"shape": (SAMPLER_DRAWS // 2,)}, arrs, m))
+    return specs
+
+
+def ops_samplers(mx, np, torch, dev="gpu", draws=None):
+    """Phase ops (a), samplers: each at SAMPLER_DRAWS draws on the card;
+    the dtype of the CPU's draw, the same bits from one seed twice, and
+    the mean and variance within SAMPLER_SIGMAS standard errors of the
+    distribution's (per parameter element for sample_*; the variance's
+    error from the draws' fourth moment); sample_multinomial's class
+    frequencies likewise; shuffle a permutation."""
+    from mxnet_tpu_torch.ops import registry
+    ctx = mx.gpu(0) if dev == "gpu" else mx.cpu()
+    rows = []
+    for k, (op, attrs, arg, mom) in enumerate(_sampler_specs(np)):
+        attrs = dict(attrs)
+
+        def draw(c, _op=op, _attrs=attrs, _arg=arg, _k=k):
+            mx.random.seed(SEED + 100 + _k)
+            with c:
+                if _arg is None:
+                    return registry.apply_op(
+                        _op, shape=(draws or SAMPLER_DRAWS,), **_attrs
+                    )._data
+                if isinstance(_arg, tuple):
+                    like = mx.nd.zeros(_arg, ctx=c)
+                    return registry.apply_op(_op, like, **_attrs)._data
+                return registry.apply_op(_op, *[mx.nd.array(a, ctx=c)
+                                                for a in _arg],
+                                         **_attrs)._data
+        a, b = draw(ctx), draw(ctx)
+        dtype_cpu = draw(mx.cpu()).dtype
+        x = a.double().reshape(len(mom), -1) if isinstance(mom, list) \
+            else a.double().reshape(1, -1)
+        moms = mom if isinstance(mom, list) else [mom]
+        n = x.shape[1]
+        mean, var = x.mean(dim=1), x.var(dim=1, correction=0)
+        m4 = ((x - mean[:, None]) ** 4).mean(dim=1)
+        z_mean = [abs(float(mean[j]) - moms[j][0])
+                  / (moms[j][1] / n) ** 0.5 for j in range(len(moms))]
+        z_var = [abs(float(var[j]) - moms[j][1])
+                 / max(float(m4[j] - var[j] ** 2) / n, 1e-30) ** 0.5
+                 for j in range(len(moms))]
+        row = {"op": op, "draws": int(a.numel()), "dtype": str(a.dtype),
+               "same_bits_twice": bool(torch.equal(a, b)),
+               "dtype_as_cpu": a.dtype == dtype_cpu,
+               "mean_sigmas": max(z_mean), "var_sigmas": max(z_var)}
+        row["ok"] = (row["same_bits_twice"] and row["dtype_as_cpu"]
+                     and max(z_mean + z_var) <= SAMPLER_SIGMAS)
+        rows.append(row)
+    probs = np.asarray([[0.1, 0.2, 0.3, 0.4], [0.7, 0.1, 0.1, 0.1]],
+                       np.float32)
+    mx.random.seed(SEED + 200)
+    with ctx:
+        drawn = registry.apply_op("sample_multinomial",
+                                  mx.nd.array(probs, ctx=ctx),
+                                  shape=(draws or SAMPLER_DRAWS) // 2)._data
+    freq = torch.stack([torch.bincount(r.long(), minlength=4)
+                        for r in drawn.cpu()]).double() / drawn.shape[1]
+    se = np.sqrt(probs * (1 - probs) / drawn.shape[1])
+    z = float(((freq.numpy() - probs) / se).__abs__().max())
+    rows.append({"op": "sample_multinomial", "draws": int(drawn.numel()),
+                 "freq_sigmas": z, "ok": z <= SAMPLER_SIGMAS})
+    with ctx:
+        perm = registry.apply_op("shuffle", mx.nd.array(
+            np.arange(4096, dtype=np.float32), ctx=ctx))._data
+    rows.append({"op": "shuffle", "ok": bool(torch.equal(
+        perm.sort().values.cpu(), torch.arange(4096, dtype=torch.float32)))
+        and not bool(torch.equal(perm.cpu(), torch.arange(
+            4096, dtype=torch.float32)))})
+    for r in rows:
+        _log("[ops] sampler %s" % json.dumps(r))
+    return rows
+
+
+# phase ops (b): the op library at model widths, card against CPU
+OPS_LN_SHAPE = (8192, 768)              # TransformerLM B=4 S=2048
+OPS_DROPOUT_SHAPE = (8192, 3072)        # its d_ff activation, bf16
+OPS_EMBED = (32000, 768, 8192)          # vocab, width, ids
+OPS_LOGITS = (8192, 32000)              # its logits
+OPS_TOPK = (8, 32000, 50)               # the sampling width, k
+OPS_NORM_SHAPE = (32, 256, 56, 56)      # ResNet-50's first stage, BS 32
+OPS_NORM_GROUPS = 32
+OPS_LABELS = (128, 1000)                # ResNet-50's labels
+OPS_BMM = (48, 2048, 64)                # attention-shaped products
+OPS_LINALG = (64, 128)                  # batched SPD matrices
+# width outputs against the CPU: f32 within 2^-16 of the tensor's largest
+# magnitude (reductions and products over thousands of terms, summed in
+# another order on each side: a few f32 ulps of the largest term), bf16
+# within OPS_BF16_RTOL of it; exact ops bit for bit
+OPS_WIDTH_F32_TOL = 2.0 ** -16
+# syevd: a backward-stable eigensolver's reconstruction U^T diag(lam) U
+# is within c n eps ||A|| of A and each eigenvalue within as much of its
+# own, n = 128 and eps = 2^-24; so cuSOLVER's and LAPACK's may differ by
+# 2 c 2^-17 of the largest |A| (the largest eigenvalue): 2^-12 allows c
+# up to 16 (the H100 measured 6.7e-5 on the reconstruction, c ~ 9, and
+# 3.7e-5 on the eigenvalues)
+OPS_SYEVD_TOL = 2.0 ** -12
+
+
+def _width_ratio(torch, got, want, exact, tol=None):
+    got = got.detach().cpu()
+    want = want.detach().cpu()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return float("inf")
+    if exact or not got.is_floating_point():
+        return 0.0 if torch.equal(got, want) else float("inf")
+    tol = tol or (OPS_BF16_RTOL if got.dtype == torch.bfloat16
+                  else OPS_WIDTH_F32_TOL)
+    # in f32: the difference of two f32 values is exact to within an
+    # ulp of itself, far below these tolerances
+    scale = max(float(want.float().abs().max()), 1e-30)
+    return float((got.float() - want.float()).abs().max()) / (tol * scale)
+
+
+def _nd_call(mx, op, nds, attrs, grad_of=(), heads=None):
+    """``mx.nd.<op>`` on NDArrays; with ``grad_of``, under ``record()``
+    and back from ``heads`` (a list, or a function of the outputs that
+    makes it): (outputs, gradients, heads)."""
+    from mxnet_tpu_torch.ops import registry
+    if not grad_of:
+        return _canon_out(registry.apply_op(op, *nds, **attrs)), [], None
+    for k in grad_of:
+        nds[k].attach_grad()
+    with mx.autograd.record():
+        outs = _canon_out(registry.apply_op(op, *nds, **attrs))
+    if callable(heads):
+        heads = heads(outs)
+    mx.autograd.backward(outs, heads)
+    return outs, [nds[k].grad for k in grad_of], heads
+
+
+def _width_case(mx, np, torch, dev, label, op, arrays, attrs, grad_of=(),
+                exact=False, dtypes=None, nbytes=0, flops=0, peak=None,
+                library=None, view=None, tols=None, cpu_grads=True,
+                reuse=None):
+    """One (b) case: ``op`` on the card and on the CPU from the same
+    inputs (numpy arrays or CPU tensors) and, for ``grad_of``, the same
+    seeded head gradients; outputs compared (through ``view`` where
+    given, ``tols`` overriding an output's tolerance) and gradients at
+    tolerance (``cpu_grads=False``: the card's backward is timed, not
+    compared).  ``reuse`` (a dict) keeps the CPU outputs for a later case
+    computing the same values.  The card's forward (and forward +
+    backward) are timed by CUDA events, beside ``library`` (one PyTorch
+    call computing the same, where there is one) and the bound of
+    ``nbytes`` / ``flops``."""
+    t0 = time.perf_counter()
+    gctx = mx.gpu(0) if dev == "gpu" else mx.cpu()
+    dtypes = dtypes or [None] * len(arrays)
+    heads = []   # seeded on the CPU from the card's outputs, then shared
+
+    def make_heads(outs, ctx):
+        if not heads:
+            g = torch.Generator().manual_seed(SEED + 3)
+            heads.extend(torch.randn(o.shape, generator=g).to(
+                o._data.dtype) for o in outs)
+        return [mx.nd.array(h, ctx=ctx, dtype=h.dtype) for h in heads]
+    res = {}
+    for side, ctx in (("card", gctx), ("cpu", mx.cpu())):
+        if side == "cpu" and reuse is not None and "cpu" in reuse:
+            res[side] = reuse["cpu"]
+            continue
+        nds = [mx.nd.array(a, ctx=ctx, dtype=dt)
+               for a, dt in zip(arrays, dtypes)]
+        back = grad_of if (side == "card" or cpu_grads) else ()
+        outs, grads, hd = _nd_call(mx, op, nds, attrs, back,
+                                   lambda o, c=ctx: make_heads(o, c))
+        outs = [o._data for o in outs]
+        res[side] = (view(torch, outs) if view else outs,
+                     [gr._data for gr in grads] if cpu_grads else [],
+                     nds, hd)
+    if reuse is not None:
+        reuse["cpu"] = res["cpu"]
+    tols = tols or [None] * len(res["card"][0])
+    ratio = max([_width_ratio(torch, g, c, exact, t) for g, c, t in
+                 zip(res["card"][0], res["cpu"][0], tols)]
+                + [_width_ratio(torch, g, c, False) for g, c in
+                   zip(res["card"][1], res["cpu"][1])])
+    row = {"case": label, "err_over_tol": ratio, "ok": ratio <= 1.0,
+           "gradients_compared": bool(grad_of) and cpu_grads}
+    if dev == "gpu":
+        nds, hd = res["card"][2], res["card"][3]
+        plain = [x.detach() for x in nds]
+        row["ms"] = _time_ms(lambda: _nd_call(mx, op, plain, attrs),
+                             iters=10, warmup=2)
+        if grad_of:
+            row["fwd_bwd_ms"] = _time_ms(lambda: _nd_call(
+                mx, op, nds, attrs, grad_of, hd), iters=5, warmup=1)
+        if library is not None:
+            ts = [x._data for x in plain]
+            row["library_ms"] = _time_ms(lambda: library(*ts), iters=10,
+                                         warmup=2)
+        if nbytes or flops:
+            row["bound_ms"], row["bound_by"] = _bound_ms(nbytes, flops,
+                                                         peak)
+    del res
+    row["seconds"] = time.perf_counter() - t0
+    _log("[ops] width %s" % json.dumps(row))
+    return row
+
+
+def _randn(torch, shape, seed, scale=1.0):
+    """Seeded normal draws on the CPU (PyTorch's generator: fast at model
+    widths, where numpy's takes seconds)."""
+    return torch.randn(shape, generator=torch.Generator().manual_seed(
+        seed)) * scale
+
+
+def ops_widths(mx, np, torch, dev="gpu"):
+    """Phase ops (b): the op library at TransformerLM and ResNet-50
+    widths, against the CPU on the same inputs."""
+    import torch.nn.functional as F
+    rng = np.random.RandomState(SEED + 40)
+    rows = []
+    n, d = OPS_LN_SHAPE
+    ln_in = [_randn(torch, (n, d), SEED + 43),
+             rng.uniform(0.5, 1.5, d).astype(np.float32),
+             (rng.randn(d) * 0.1).astype(np.float32)]
+    for dt, size in (("float32", 4), ("bfloat16", 2)):
+        rows.append(_width_case(
+            mx, np, torch, dev, "LayerNorm %dx%d %s" % (n, d, dt),
+            "LayerNorm", ln_in, {}, grad_of=(0, 1, 2),
+            dtypes=[dt, None, None], nbytes=2 * n * d * size,
+            library=lambda x, g, b: F.layer_norm(x, (d,), g.to(x.dtype),
+                                                 b.to(x.dtype), 1e-5)))
+    rows.append(ops_dropout(mx, np, torch, dev))
+    v, w, ids = OPS_EMBED
+    emb_in = [rng.randint(0, v, ids).astype(np.float32),
+              _randn(torch, (v, w), SEED + 44, 0.02)]
+    rows.append(_width_case(
+        mx, np, torch, dev, "Embedding %dx%d, %d ids" % (v, w, ids),
+        "Embedding", emb_in, {"input_dim": v, "output_dim": w},
+        grad_of=(1,), exact=True, nbytes=2 * ids * w * 4,
+        library=lambda i, wt: F.embedding(i.long(), wt)))
+    b, c = OPS_LOGITS
+    logits = _randn(torch, (b, c), SEED + 45, 2.0)
+    labels = rng.randint(0, c, b).astype(np.float32)
+    rows.append(_width_case(
+        mx, np, torch, dev, "softmax_cross_entropy %dx%d" % (b, c),
+        "softmax_cross_entropy", [logits, labels], {}, grad_of=(0,),
+        nbytes=b * c * 4,
+        library=lambda x, y: F.cross_entropy(x, y.long(), reduction="sum")))
+    rows.append(_width_case(
+        mx, np, torch, dev, "log_softmax %dx%d" % (b, c), "log_softmax",
+        [logits], {}, grad_of=(0,), nbytes=2 * b * c * 4))
+    del logits
+    r, c, k = OPS_TOPK
+    tie_free = (rng.permutation(r * c).reshape(r, c) / float(r * c)
+                ).astype(np.float32)
+    for label, op, attrs in (("topk k=%d" % k, "topk",
+                              {"k": k, "ret_typ": "both"}),
+                             ("sort", "sort", {}), ("argsort", "argsort", {})):
+        rows.append(_width_case(mx, np, torch, dev, "%s %dx%d" % (label, r, c),
+                                op, [tie_free], attrs, exact=True,
+                                nbytes=2 * r * c * 4))
+    shape = OPS_NORM_SHAPE
+    x = _randn(torch, shape, SEED + 46)
+    gam = rng.uniform(0.5, 1.5, shape[1]).astype(np.float32)
+    bet = (rng.randn(shape[1]) * 0.1).astype(np.float32)
+    elems = int(np.prod(shape))
+    rows.append(_width_case(
+        mx, np, torch, dev, "GroupNorm %s, %d groups" % (
+            "x".join(map(str, shape)), OPS_NORM_GROUPS), "GroupNorm",
+        [x, gam, bet], {"num_groups": OPS_NORM_GROUPS}, grad_of=(0, 1, 2),
+        cpu_grads=False, nbytes=2 * elems * 4,
+        library=lambda t, g, bb: F.group_norm(t, OPS_NORM_GROUPS, g, bb,
+                                              1e-5)))
+    rows.append(_width_case(
+        mx, np, torch, dev, "InstanceNorm %s" % "x".join(map(str, shape)),
+        "InstanceNorm", [x, gam, bet], {}, grad_of=(0, 1, 2),
+        cpu_grads=False, nbytes=2 * elems * 4,
+        library=lambda t, g, bb: F.instance_norm(t, weight=g, bias=bb,
+                                                 eps=1e-3)))
+    del x
+    nb, ncls = OPS_LABELS
+    scores = rng.randn(nb, ncls).astype(np.float32)
+    lab = rng.randint(0, ncls, nb).astype(np.float32)
+    coords = np.stack([np.arange(nb), rng.randint(0, ncls, nb)]).astype(
+        np.float32)
+    for label, op, arrays, attrs in (
+            ("one_hot", "one_hot", [lab], {"depth": ncls}),
+            ("take", "take", [scores, lab], {"axis": 1}),
+            ("pick", "pick", [scores, lab], {"axis": 1}),
+            ("gather_nd", "gather_nd", [scores, coords], {})):
+        rows.append(_width_case(mx, np, torch, dev,
+                                "%s %dx%d" % (label, nb, ncls), op, arrays,
+                                attrs, exact=True))
+    bsz, seq, hd = OPS_BMM
+    q = _randn(torch, (bsz, seq, hd), SEED + 47)
+    kk = _randn(torch, (bsz, seq, hd), SEED + 48)
+    flops = 2 * bsz * seq * seq * hd
+    same = {}   # gemm2 at alpha 1 computes batch_dot's values
+    for op in ("batch_dot", "linalg_gemm2"):
+        rows.append(_width_case(
+            mx, np, torch, dev, "%s %dx%dx%d by its transpose, f32" % (
+                op, bsz, seq, hd), op, [q, kk], {"transpose_b": True},
+            nbytes=(2 * bsz * seq * hd + bsz * seq * seq) * 4, flops=flops,
+            peak=PEAK_F32_FLOPS, reuse=same,
+            library=lambda a, bb: torch.bmm(a, bb.transpose(1, 2))))
+    del same
+    del q, kk
+    nm, m = OPS_LINALG
+    base = rng.randn(nm, m, m)
+    spd = (base @ np.swapaxes(base, -1, -2) + m * np.eye(m)).astype(
+        np.float32)
+    chol = np.linalg.cholesky(spd.astype(np.float64)).astype(np.float32)
+    rhs = rng.randn(nm, m, m).astype(np.float32)
+    for label, op, arrays in (("linalg_potrf", "linalg_potrf", [spd]),
+                              ("linalg_trsm", "linalg_trsm", [chol, rhs]),
+                              ("linalg_syevd", "linalg_syevd", [spd])):
+        rows.append(_width_case(
+            mx, np, torch, dev, "%s %dx%dx%d SPD" % (label, nm, m, m), op,
+            arrays, {}, nbytes=2 * nm * m * m * 4,
+            **({"view": _syevd_view, "tols": [OPS_SYEVD_TOL] * 2}
+               if op == "linalg_syevd" else {})))
+    return rows
+
+
+def _htod_copies(torch, fn, workdir, calls=5, attempts=3):
+    """The host-to-device copies a ``torch.profiler`` window over
+    ``calls`` calls of ``fn()`` records, as their byte counts (from the
+    exported trace's ``bytes``; -1 where it gives none); None when no
+    window of ``attempts`` records any CUDA activity (late in a long
+    process a window can come back empty: the resnet phase's too)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        device = [ev for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA]
+        if device:
+            break
+    else:
+        return None
+    htod = [ev for ev in device if "HtoD" in ev.name]
+    if not htod:
+        return []
+    path = os.path.join(workdir, "dropout_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    sizes = [int(e.get("args", {}).get("bytes", -1)) for e in events
+             if "HtoD" in e.get("name", "")]
+    return sizes + [-1] * (len(htod) - len(sizes))
+
+
+def ops_dropout(mx, np, torch, dev="gpu", workdir=None):
+    """Phase ops (b), Dropout p=0.1 in training on a [8192, 3072] bf16
+    activation: the kept fraction within 5 sigma of 0.9; every kept value
+    equal to x / 0.9 in bf16 (``dropout_apply`` on the CPU with the
+    card's mask); two draws from one seed the same bits; and no
+    host-to-device copy over 1 MB in a profiled window of calls (the
+    mask is drawn on the card).  Beside it, whether a call makes a
+    synchronizing CUDA call (``torch.cuda.set_sync_debug_mode``), which
+    a blocking host copy would be."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.nn import dropout_apply
+    t0 = time.perf_counter()
+    ctx = mx.gpu(0) if dev == "gpu" else mx.cpu()
+    rows, cols = OPS_DROPOUT_SHAPE
+    rng = np.random.RandomState(SEED + 41)
+    x = mx.nd.array(rng.randn(rows, cols).astype(np.float32) + 4.0, ctx=ctx,
+                    dtype="bfloat16")
+
+    def call():
+        return mx.nd.Dropout(x, p=0.1, training=True)
+    mx.random.seed(SEED + 42)
+    a = call()._data
+    mx.random.seed(SEED + 42)
+    b = call()._data
+    kept = a != 0
+    n = kept.numel()
+    frac = float(kept.float().mean())
+    sigma = (0.9 * 0.1 / n) ** 0.5
+    want = dropout_apply(x._data.cpu(), kept.cpu(), 0.9)
+    row = {"case": "Dropout p=0.1 %dx%d bf16" % (rows, cols),
+           "kept_fraction": frac, "kept_sigmas": abs(frac - 0.9) / sigma,
+           "kept_values_equal": bool(torch.equal(a.cpu(), want)),
+           "same_bits_twice": bool(torch.equal(a, b))}
+    ok = (row["kept_sigmas"] <= 5.0 and row["kept_values_equal"]
+          and row["same_bits_twice"])
+    if dev == "gpu":
+        copies = _htod_copies(torch, call, workdir or os.path.join(
+            ROOT, "build", "chip_smoke"))
+        row["htod_copies_bytes"] = copies
+        # and without the profiler: a blocking host-to-device copy is a
+        # synchronizing call, which this mode turns into an error
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            call()
+            row["synchronizing_calls"] = None
+        except RuntimeError as exc:
+            row["synchronizing_calls"] = str(exc)[:200]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ok = ok and copies is not None and all(0 <= c <= 2 ** 20
+                                               for c in copies)
+        row["ms"] = _time_ms(call)
+        xt = x._data
+        row["library_ms"] = _time_ms(lambda: F.dropout(xt, 0.1, True))
+        row["bound_ms"], row["bound_by"] = _bound_ms(2 * n * 2, 0)
+    row["ok"] = ok
+    row["seconds"] = time.perf_counter() - t0
+    _log("[ops] width %s" % json.dumps(row))
+    return row
+
+
+# phase ops (c): the multi-tensor update ops over full parameter lists
+OPS_UPDATE_TOL = 2.0 ** -20
+
+
+def _update_lists(np, torch, shapes, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w32 = [torch.randn(s, generator=g, device=dev) * 0.05 for s in shapes]
+    grads = [(torch.randn(s, generator=g, device=dev) * 0.01).bfloat16()
+             for s in shapes]
+    ms = [torch.randn(s, generator=g, device=dev) * 0.001 for s in shapes]
+    vs = [torch.rand(s, generator=g, device=dev) * 1e-4 for s in shapes]
+    return w32, grads, ms, vs
+
+
+def _update_case(mx, np, torch, dev, label, op, groups, attrs, n,
+                 nbytes, k_call):
+    """``op`` over ``groups`` (per tensor: its inputs; ``n`` tensors)
+    through ``mx.nd`` on the card and on the CPU: every output within
+    OPS_UPDATE_TOL of its tensor's largest magnitude, each bf16 weight the
+    cast of its new master; timed by CUDA events beside ``k_call`` (the
+    fused kernel's one call over the same list)."""
+    t0 = time.perf_counter()
+    ctx = mx.gpu(0) if dev == "gpu" else mx.cpu()
+    flat = [t for grp in groups for t in grp]
+    nds = [mx.nd.NDArray(t, ctx=ctx, dtype=t.dtype) for t in flat]
+    cpu = [mx.nd.NDArray(t.cpu(), ctx=mx.cpu(), dtype=t.dtype)
+           for t in flat]
+    got = getattr(mx.nd, op)(*nds, **attrs)
+    want = getattr(mx.nd, op)(*cpu, **attrs)
+    worst = 0.0
+    for g, w in zip(got, want):
+        gw, ww = g._data.cpu().float(), w._data.float()
+        scale = max(float(ww.abs().max()), 1e-30)
+        worst = max(worst, float((gw - ww).abs().max()) / scale)
+    masters = got[-n:]
+    cast_ok = all(torch.equal(got[k]._data, masters[k]._data.bfloat16())
+                  for k in range(n))
+    row = {"case": label, "tensors": n,
+           "params": sum(grp[0].numel() for grp in groups[:n]),
+           "max_rel_err": worst, "weights_are_master_casts": cast_ok,
+           "ok": worst <= OPS_UPDATE_TOL and cast_ok}
+    del want, cpu
+    if dev == "gpu":
+        row["ms"] = _time_ms(lambda: getattr(mx.nd, op)(*nds, **attrs),
+                             iters=5, warmup=1)
+        row["bound_ms"], row["bound_by"] = _bound_ms(nbytes, 0)
+        if k_call is not None:
+            # the fused kernel's wrapper call (checks, table fill and
+            # copy, launch) and its launch alone over the filled table
+            row["fused_kernel_call_ms"] = _time_ms(k_call, iters=10,
+                                                   warmup=2)
+            row["fused_kernel_ms"] = _time_ms(k_call.launch, iters=10,
+                                              warmup=2)
+    row["seconds"] = time.perf_counter() - t0
+    _log("[ops] update %s" % json.dumps(row))
+    return row
+
+
+def ops_updates(mx, ck, np, torch, dev="gpu"):
+    """Phase ops (c): ``multi_mp_sgd_mom_update`` over resnet50_v1's 193
+    trainable tensors and ``_multi_mp_adamw_update`` over the full-width
+    TransformerLM's 9 (bf16 weights and gradients, f32 masters and
+    moments), as a custom loop calls them, each beside K1's / K3's one
+    call over the same list."""
+    from mxnet_tpu_torch.models.transformer import TransformerLMConfig
+    tdev = "cuda" if dev == "gpu" else "cpu"
+    rows = []
+    shapes = _resnet_shapes(mx, np)
+    w32, gs, ms, _ = _update_lists(np, torch, shapes, tdev, SEED + 50)
+    ws = [w.bfloat16() for w in w32]
+    n = len(shapes)
+    lrs, wds = [0.1] * n, [SGD_WD] * n
+    params = sum(w.numel() for w in w32)
+    k_call = None
+    if dev == "gpu":
+        kw, km = [w.clone() for w in w32], [m.clone() for m in ms]
+        kout = [w.clone() for w in ws]
+        table = ck.LaunchTable()
+
+        def k_call():
+            ck.fused_sgd_step_multi(kw, gs, km, lrs, wds, 0.9, outs=kout,
+                                    table=table)
+        k_call()
+        kdev, kblocks = table.fill(ck.SGD_LAYOUT, (kw, km, kout), gs, lrs,
+                                   wds)
+        k_call.launch = lambda: ck._launch_sgd(kdev, n, kblocks, 0.9, kw[0])
+    rows.append(_update_case(
+        mx, np, torch, dev, "multi_mp_sgd_mom_update, resnet50_v1's %d "
+        "tensors" % n, "multi_mp_sgd_mom_update",
+        [(w, g, m, w3) for w, g, m, w3 in zip(ws, gs, ms, w32)],
+        {"lrs": lrs, "wds": wds, "momentum": 0.9, "num_weights": n}, n,
+        params * (2 + 4 + 4 + 2 + 4 + 4), k_call))
+    del w32, gs, ms, ws
+    shapes = list(_adam_shapes(TransformerLMConfig()).values())
+    w32, gs, ms, vs = _update_lists(np, torch, shapes, tdev, SEED + 51)
+    ws = [w.bfloat16() for w in w32]
+    n = len(shapes)
+    scale = torch.ones(1, device=tdev)
+    params = sum(w.numel() for w in w32)
+    attrs = {"lrs": (1e-3,) * n, "wds": (ADAM_WD,) * n, "etas": (1.0,) * n,
+             "num_weights": n}
+    k_call = None
+    if dev == "gpu":
+        kw = [w.clone() for w in w32]
+        km, kv = [m.clone() for m in ms], [v.clone() for v in vs]
+        kout = [w.clone() for w in ws]
+        table = ck.LaunchTable()
+
+        def k_call():
+            ck.fused_adam_step_multi(kw, gs, km, kv, [1e-3] * n,
+                                     [ADAM_WD] * n, 0.9, 0.999, 1e-8,
+                                     outs=kout, table=table)
+        k_call()
+        kdev, kblocks = table.fill(ck.ADAM_LAYOUT, (kw, km, kv, kout), gs,
+                                   [1e-3] * n, [ADAM_WD] * n)
+        k_call.launch = lambda: ck._launch_adam(kdev, n, kblocks, 0.9,
+                                                0.999, 1e-8, kw[0])
+    groups = [(w, g, m, v, w3) for w, g, m, v, w3 in
+              zip(ws, gs, ms, vs, w32)] + [(scale,)]
+    rows.append(_update_case(
+        mx, np, torch, dev, "_multi_mp_adamw_update, the full-width "
+        "TransformerLM's %d tensors" % n, "_multi_mp_adamw_update",
+        groups, attrs, n, params * (2 + 4 + 4 + 4 + 2 + 4 + 4 + 4), k_call))
+    return rows
+
+
+def ops_phase(mx, ck, np, torch, dev="gpu"):
+    """Phase ops: (a) the sweep and the samplers, (b) the model widths,
+    (c) the update ops over full parameter lists.  No fused kernel may
+    launch in (a) and (b): the op library is plain PyTorch."""
+    t0 = time.perf_counter()
+    if dev == "gpu":
+        torch.cuda.synchronize()
+    ck.reset_launches()
+    out, secs = {}, {}
+    for part, fn in (("sweep", ops_sweep), ("samplers", ops_samplers),
+                     ("widths", ops_widths)):
+        t1 = time.perf_counter()
+        out[part] = fn(mx, np, torch, dev)
+        secs[part] = time.perf_counter() - t1
+    out["kernel_launches_in_a_b"] = sum(ck.LAUNCHES.values())
+    t1 = time.perf_counter()
+    out["updates"] = ops_updates(mx, ck, np, torch, dev)
+    secs["updates"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = secs
+    bad = (out["sweep"]["failed"]
+           + [r for r in out["samplers"] + out["widths"] + out["updates"]
+              if not r["ok"]])
+    if bad or out["kernel_launches_in_a_b"]:
+        raise AssertionError("phase ops failed: %s (kernel launches in "
+                             "(a)-(b): %d)" % (json.dumps(bad),
+                                               out["kernel_launches_in_a_b"]))
+    _log("[ops] phase %s" % json.dumps({"seconds": out["seconds"],
+                                        "part_seconds": secs,
+                                        "cases": out["sweep"]["cases"]}))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the full report (JSON) "
                     "to this path")
     ap.add_argument("--phase", choices=("all", "attention", "optimizer",
                                         "module", "bert", "lm_f32",
-                                        "generation"),
+                                        "generation", "ops"),
                     default="all",
                     help="attention: the flash forward and backward checks "
                     "of phase 2 alone; optimizer: phase 2's K3 and K1 "
@@ -4188,7 +5383,9 @@ def main(argv=None):
                     "(bf16 and f32) and phase 4b alone; lm_f32: the f32 "
                     "flash checks at head dim 32 and phase 4c alone; "
                     "generation: the f32 flash checks at head dim 16, the "
-                    "f32-query paged checks and phase 3b alone")
+                    "f32-query paged checks and phase 3b alone; ops: "
+                    "phase ops alone (the op library's sweep, model "
+                    "widths and update ops)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4226,7 +5423,8 @@ def main(argv=None):
          "optimizer": ["adam_step", "sgd_step"],
          "bert": ["flash_fwd", "flash_bwd", "flash_f32", "adam_step"],
          "lm_f32": ["flash_f32", "adam_step"],
-         "generation": ["flash_f32", "paged_attn"]}.get(args.phase))
+         "generation": ["flash_f32", "paged_attn"],
+         "ops": ["sgd_step", "adam_step"]}.get(args.phase))
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "per_source_s": {k: v["seconds"]
                                         for k, v in built.items()},
@@ -4350,6 +5548,12 @@ def main(argv=None):
         print(json.dumps({k: v for k, v in report.items()
                           if k != "build"}))
         return 0
+    if args.phase == "ops":
+        report["ops"] = ops_phase(mx, ck, np, torch)
+        _write_report(args.report, report)
+        print(json.dumps({k: v for k, v in report.items()
+                          if k != "build"}))
+        return 0
     if args.phase == "module":
         report["lr_t_ab"] = lr_t_ab(mx, np, torch)
         report["launch_ab"] = launch_ab(mx, np, torch)
@@ -4393,6 +5597,7 @@ def main(argv=None):
     report["rtc"], rtc_kernels = check_rtc(mx, ck, torch)
     report["rtc_ops"] = rtc_ops(mx, ck, torch, rtc_kernels)
     report["module"] = train_module(mx, ck, np, torch, card, workdir)
+    report["ops"] = ops_phase(mx, ck, np, torch)
     module_adam = report["module"]["fused"]["launches"]["adam_step"]
     resnet_adam = report["resnet"]["adam"]["launches"]["adam_step"]
     f16_adam = report["f16"]["adam"]["launches"]["adam_step"]

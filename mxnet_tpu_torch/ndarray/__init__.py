@@ -5,12 +5,15 @@ dispatcher, so this module is also the ``F`` a ``hybrid_forward``
 receives."""
 from __future__ import annotations
 
-from .ndarray import (NDArray, array, zeros, ones, full, waitall, concat,
-                      save, load)
+from .ndarray import (NDArray, array, zeros, ones, full, empty, arange, eye,
+                      linspace, waitall, concat, stack, split, where, save,
+                      load)
+from .. import random  # noqa: F401  (nd.random: the samplers)
 from ..ops import registry as _registry
 
-__all__ = ["NDArray", "array", "zeros", "ones", "full", "waitall",
-           "concat", "save", "load"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
+           "eye", "linspace", "waitall", "concat", "stack", "split",
+           "where", "save", "load", "random"]
 
 
 def _fill_one(o, r):

@@ -21,8 +21,9 @@ comparison operators return arrays of 0/1, and the in-place operators
 and ``x[key] = value`` replace this array's value (``_data``), so every
 reference to the NDArray sees the change while other arrays that shared
 its old tensor keep theirs.  Inside ``autograd.record()`` an array on the
-tape cannot be written in place.  Sparse storage and the numpy dispatch
-protocol are not ported.
+tape cannot be written in place.  Sparse storage (``stype`` is always
+``"default"``), DLPack export and the numpy dispatch protocol are not
+ported.
 """
 from __future__ import annotations
 
@@ -33,8 +34,9 @@ from .. import _tape
 from ..base import atomic_write, bfloat16_numpy, canonical_dtype, numpy_dtype
 from ..context import cpu, gpu, resolve_device
 
-__all__ = ["NDArray", "array", "zeros", "ones", "full", "waitall",
-           "concat", "save", "load"]
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
+           "eye", "linspace", "waitall", "concat", "stack", "split", "where",
+           "save", "load"]
 
 
 def _wrap(data):
@@ -286,6 +288,33 @@ class NDArray:
     def flatten(self):
         return _invoke("flatten", self)
 
+    def abs(self):
+        return _invoke("abs", self)
+
+    def sign(self):
+        return _invoke("sign", self)
+
+    def exp(self):
+        return _invoke("exp", self)
+
+    def log(self):
+        return _invoke("log", self)
+
+    def sqrt(self):
+        return _invoke("sqrt", self)
+
+    def square(self):
+        return _invoke("square", self)
+
+    def relu(self):
+        return _invoke("relu", self)
+
+    def sigmoid(self):
+        return _invoke("sigmoid", self)
+
+    def tanh(self):
+        return _invoke("tanh", self)
+
     def expand_dims(self, axis):
         return _invoke("expand_dims", self, axis=axis)
 
@@ -297,6 +326,130 @@ class NDArray:
 
     def mean(self, axis=None, keepdims=False):
         return _invoke("mean", self, axis=axis, keepdims=keepdims)
+
+    def _reduce(self, name, axis=None, keepdims=False, **attrs):
+        axis = tuple(axis) if isinstance(axis, list) else axis
+        return _invoke(name, self, axis=axis, keepdims=keepdims, **attrs)
+
+    def max(self, axis=None, keepdims=False):
+        return self._reduce("max", axis, keepdims)
+
+    def min(self, axis=None, keepdims=False):
+        return self._reduce("min", axis, keepdims)
+
+    def prod(self, axis=None, keepdims=False):
+        return self._reduce("prod", axis, keepdims)
+
+    def norm(self, ord=2, axis=None, keepdims=False):
+        return self._reduce("norm", axis, keepdims, ord=ord)
+
+    def argmax(self, axis=None, keepdims=False):
+        return self._reduce("argmax", axis, keepdims)
+
+    def argmin(self, axis=None, keepdims=False):
+        return self._reduce("argmin", axis, keepdims)
+
+    def argsort(self, axis=-1, is_ascend=True):
+        return _invoke("argsort", self, axis=axis, is_ascend=is_ascend)
+
+    def sort(self, axis=-1, is_ascend=True):
+        return _invoke("sort", self, axis=axis, is_ascend=is_ascend)
+
+    def topk(self, axis=-1, k=1, ret_typ="indices", is_ascend=False):
+        return _invoke("topk", self, axis=axis, k=k, ret_typ=ret_typ,
+                       is_ascend=is_ascend)
+
+    def dot(self, other, transpose_a=False, transpose_b=False):
+        return _invoke("dot", self, other, transpose_a=transpose_a,
+                       transpose_b=transpose_b)
+
+    @property
+    def T(self):
+        return self.transpose()
+
+    def swapaxes(self, dim1, dim2):
+        return _invoke("swapaxes", self, dim1=dim1, dim2=dim2)
+
+    def reshape_like(self, other):
+        return _invoke("reshape", self, shape=other.shape)
+
+    def broadcast_to(self, shape):
+        return _invoke("broadcast_to", self, shape=tuple(shape))
+
+    def broadcast_like(self, other):
+        return _invoke("broadcast_to", self, shape=other.shape)
+
+    def tile(self, reps):
+        reps = tuple(reps) if isinstance(reps, (tuple, list)) else (reps,)
+        return _invoke("tile", self, reps=reps)
+
+    def repeat(self, repeats, axis=None):
+        return _invoke("repeat", self, repeats=repeats, axis=axis)
+
+    def pad(self, mode="constant", pad_width=None, constant_value=0):
+        return _invoke("pad", self, mode=mode, pad_width=tuple(pad_width),
+                       constant_value=constant_value)
+
+    def slice_axis(self, axis, begin, end):
+        return _invoke("slice_axis", self, axis=axis, begin=begin, end=end)
+
+    def take(self, indices, axis=0, mode="clip"):
+        return _invoke("take", self, indices, axis=axis, mode=mode)
+
+    def one_hot(self, depth, on_value=1.0, off_value=0.0):
+        return _invoke("one_hot", self, depth=depth, on_value=on_value,
+                       off_value=off_value)
+
+    def clip(self, a_min=None, a_max=None):
+        return _invoke("clip", self, a_min=a_min, a_max=a_max)
+
+    def softmax(self, axis=-1):
+        return _invoke("softmax", self, axis=axis)
+
+    def log_softmax(self, axis=-1):
+        return _invoke("log_softmax", self, axis=axis)
+
+    # ------------------------------------------------------ storage, placement
+    @property
+    def stype(self):
+        return "default"
+
+    def tostype(self, stype):
+        """Dense only: sparse storage comes with slice 16."""
+        if stype != "default":
+            raise NotImplementedError(
+                "tostype(%r): sparse storage is not ported yet (slice 16)"
+                % (stype,))
+        return self
+
+    def tolist(self):
+        return self.asnumpy().tolist()
+
+    def wait_to_write(self):
+        """Block until the work writing this array is done."""
+        return self.wait_to_read()
+
+    def copyto(self, other):
+        """A copy on a context (recorded, so gradients flow back, under
+        ``record()``), or this array's value written into the NDArray
+        ``other`` (in its dtype, on its device), which is returned."""
+        from ..context import Context
+        if isinstance(other, Context):
+            if _tape.is_recording():
+                return _invoke("_copy_to_device", self,
+                               device=resolve_device(other))
+            t = self._data.detach() if self._on_tape else self._data
+            return _wrap(t.to(resolve_device(other), copy=True))
+        if isinstance(other, NDArray):
+            other._check_mutable()
+            other._data = self._data.detach().to(
+                device=other._data.device, dtype=other._data.dtype,
+                copy=True)
+            return other
+        raise TypeError("copyto does not support type %s" % type(other))
+
+    def as_in_ctx(self, ctx):
+        return self.as_in_context(ctx)
 
 
 
@@ -350,6 +503,37 @@ def zeros(shape, ctx=None, dtype=None, **_):
 
 def ones(shape, ctx=None, dtype=None, **_):
     return full(shape, 1, ctx, dtype)
+
+
+def empty(shape, ctx=None, dtype=None):
+    return zeros(shape, ctx, dtype)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
+    return _invoke("_arange", start=start, stop=stop, step=step,
+                   repeat=repeat, ctx=ctx, dtype=dtype)
+
+
+def eye(N, M=0, k=0, ctx=None, dtype=None):
+    return _invoke("_eye", N=N, M=M, k=k, ctx=ctx, dtype=dtype)
+
+
+def linspace(start, stop, num, endpoint=True, ctx=None, dtype=None):
+    return _invoke("_linspace", start=start, stop=stop, num=num,
+                   endpoint=endpoint, ctx=ctx, dtype=dtype)
+
+
+def stack(*data, axis=0):
+    return _invoke("stack", *data, axis=axis)
+
+
+def split(data, num_outputs, axis=1, squeeze_axis=False):
+    return _invoke("split", data, num_outputs=num_outputs, axis=axis,
+                   squeeze_axis=squeeze_axis)
+
+
+def where(condition, x, y):
+    return _invoke("where", condition, x, y)
 
 
 def waitall():

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from .. import config as _config
 from .registry import register
+from .tensor import weak
 
 
 # ------------------------------------------------------------------ dense
@@ -158,9 +159,18 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
 
 # ------------------------------------------------------------------ softmax
 @register("softmax")
-def _softmax(data, axis=-1, temperature=None, **_):
+def _softmax(data, axis=-1, temperature=None, length=None, **_):
+    """Softmax over ``axis``; with ``length`` only the first ``length``
+    positions of each row count (the rest give 0)."""
     if temperature is not None and temperature != 1.0:
         data = data / temperature
+    if length is not None:
+        shape = [1] * data.dim()
+        shape[axis] = data.shape[axis]
+        steps = torch.arange(data.shape[axis],
+                             device=data.device).reshape(shape)
+        mask = steps < torch.unsqueeze(length, axis)
+        data = torch.where(mask, data, float("-inf"))
     return torch.softmax(data, dim=axis)
 
 
@@ -260,3 +270,278 @@ def _activation(data, act_type="relu", **_):
     if act_type not in _ACT:
         raise ValueError("unknown act_type %r" % act_type)
     return _ACT[act_type](data)
+
+
+@register("LeakyReLU", aliases=("leaky_relu",))
+def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+                lower_bound=0.125, upper_bound=0.334, **_):
+    """Every ``act_type`` of the reference's: ``leaky`` (``x >= 0`` keeps
+    x), ``prelu`` (per-channel ``gamma`` on axis 1), ``elu`` (alpha
+    ``slope``), ``selu``, ``gelu`` (the erf form) and ``rrelu`` (the
+    inference slope, the bounds' mean)."""
+    if act_type in ("leaky", "rrelu"):
+        s = slope if act_type == "leaky" else (lower_bound
+                                               + upper_bound) / 2.0
+        return torch.where(data >= 0, data, weak(s, data) * data)
+    if act_type == "prelu":
+        shape = (1, -1) + (1,) * (data.dim() - 2) if data.dim() > 1 \
+            else (-1,)
+        return torch.where(data >= 0, data, gamma.reshape(shape) * data)
+    if act_type == "elu":
+        return F.elu(data, slope)
+    if act_type == "selu":
+        return F.selu(data)
+    if act_type == "gelu":
+        return F.gelu(data)
+    raise ValueError("unknown act_type %r" % act_type)
+
+
+@register("softmin")
+def _softmin(data, axis=-1, **_):
+    return torch.softmax(-data, dim=axis)
+
+
+@register("SoftmaxActivation", aliases=("softmax_activation",))
+def _softmax_activation(data, mode="instance", **_):
+    """Softmax over axis 1 (``channel``) or over each flattened instance."""
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1).reshape(
+        data.shape)
+
+
+@register("hard_sigmoid")
+def _hard_sigmoid(data, alpha=0.2, beta=0.5, **_):
+    return torch.clamp(weak(alpha, data) * data + weak(beta, data), 0.0,
+                       1.0)
+
+
+# ------------------------------------------------------------------ norms
+def _moments(x, axes):
+    """Two-pass (mean, var) in f32, keepdims (the reference's
+    ``nn._moments``: Layer/Group/InstanceNorm)."""
+    xf = x.float()
+    mean = torch.mean(xf, dim=axes, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=axes, keepdim=True)
+    return mean, var
+
+
+def _affine(xn, gamma, beta, shape, dtype):
+    return (xn * gamma.reshape(shape) + beta.reshape(shape)).to(dtype)
+
+
+@register("LayerNorm", aliases=("layer_norm",))
+def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, **_):
+    """Normalised over ``axis`` with f32 statistics; the output in the
+    input's dtype."""
+    mean, var = _moments(data, (axis % data.dim(),))
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    xn = (data.float() - mean) * torch.rsqrt(var + eps)
+    return _affine(xn, gamma, beta, shape, data.dtype)
+
+
+@register("GroupNorm", aliases=("group_norm",))
+def _group_norm(data, gamma, beta, num_groups=1, eps=1e-5, **_):
+    n, c = data.shape[0], data.shape[1]
+    xg = data.reshape((n, num_groups, c // num_groups) + data.shape[2:])
+    mean, var = _moments(xg, tuple(range(2, xg.dim())))
+    xn = ((xg.float() - mean) * torch.rsqrt(var + eps)).reshape(data.shape)
+    return _affine(xn, gamma, beta, (1, c) + (1,) * (data.dim() - 2),
+                   data.dtype)
+
+
+@register("InstanceNorm", aliases=("instance_norm",))
+def _instance_norm(data, gamma, beta, eps=1e-3, **_):
+    mean, var = _moments(data, tuple(range(2, data.dim())))
+    xn = (data.float() - mean) * torch.rsqrt(var + eps)
+    return _affine(xn, gamma, beta,
+                   (1, data.shape[1]) + (1,) * (data.dim() - 2), data.dtype)
+
+
+@register("LRN", aliases=("lrn",), num_outputs=2)
+def _lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5, **_):
+    """Local response normalisation across channels, MXNet's scaling
+    ``knorm + alpha / nsize * sum(x^2 over the window)``; returns
+    ``(out, scale)``."""
+    half = nsize // 2
+    pad = F.pad(torch.square(data), (0, 0, 0, 0, half, half))
+    c = data.shape[1]
+    windows = sum(pad[:, i:i + c] for i in range(nsize))
+    scale = knorm + (alpha / nsize) * windows
+    return data / torch.pow(scale, beta), scale
+
+
+# ------------------------------------------------------------------ conv
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register("Deconvolution", aliases=("deconvolution",))
+def _deconvolution(data, weight, bias=None, kernel=None, stride=None,
+                   dilate=None, pad=None, adj=None, target_shape=None,
+                   num_filter=None, num_group=1, no_bias=True, **_):
+    """Transposed convolution, weight ``(C_in, C_out / groups, *k)``
+    (MXNet's and PyTorch's layout).  ``adj`` pads the output's far side;
+    a nonempty ``target_shape`` sets the spatial output size, with the
+    padding and ``adj`` derived from it as MXNet does (the reference
+    ignores ``target_shape`` and ``dilate``)."""
+    ndim = data.dim() - 2
+    stride = _tup(stride, ndim)
+    dilate = _tup(dilate, ndim)
+    k = weight.shape[2:]
+    if target_shape is not None and any(target_shape):
+        tgt = _tup(target_shape, ndim)
+        total = [s * (i - 1) + d * (kk - 1) + 1 - t for s, i, d, kk, t in zip(
+            stride, data.shape[2:], dilate, k, tgt)]
+        adj = tuple(t % 2 for t in total)
+        pad = tuple((t + 1) // 2 for t in total)
+    pad = _tup(pad if pad is not None else 0, ndim)
+    adj = _tup(adj if adj is not None else 0, ndim)
+    out = _DECONV[ndim](data, weight, stride=stride, padding=pad,
+                        output_padding=adj, groups=num_group,
+                        dilation=dilate)
+    if bias is not None and not no_bias:
+        out = out + bias.reshape((1, -1) + (1,) * ndim)
+    return out
+
+
+@register("UpSampling", aliases=("upsampling",))
+def _upsampling(data, *weight, scale=2, sample_type="nearest",
+                num_filter=None, **_):
+    """``nearest``: each pixel repeated ``scale`` times along H and W.
+    ``bilinear`` (MXNet's): a grouped deconvolution by the given weight
+    ``(C, 1, 2s - s % 2, 2s - s % 2)``, stride ``s``, pad ``ceil((s - 1)
+    / 2)`` (the reference has nearest only)."""
+    if sample_type == "bilinear":
+        k = 2 * scale - scale % 2
+        return _deconvolution(data, weight[0], kernel=(k, k),
+                              stride=(scale, scale),
+                              pad=(scale // 2,) * 2,
+                              num_group=data.shape[1])
+    return torch.repeat_interleave(
+        torch.repeat_interleave(data, scale, dim=-2), scale, dim=-1)
+
+
+# ------------------------------------------------------------------ misc
+@register("identity", aliases=("_copy",))
+def _identity(data, **_):
+    return data.clone()
+
+
+@register("make_loss", aliases=("MakeLoss",))
+def _make_loss(data, grad_scale=1.0, **_):
+    """The data as a loss head; its gradient is the head gradient (the
+    reference's)."""
+    return data * 1.0
+
+
+@register("Dropout", aliases=("dropout",))
+def _dropout(data, p=0.5, mode="training", axes=(), training=False, **_):
+    """In training (or ``mode="always"``): ``where(mask, x / keep, 0)`` in
+    the input's dtype, ``keep = 1 - p``, the mask drawn on the input's
+    device (one value per position, shared along ``axes``)."""
+    if (not training and mode != "always") or p <= 0.0:
+        return data
+    from ..random import generator
+    shape = list(data.shape)
+    for ax in axes:
+        shape[ax] = 1
+    keep = 1.0 - p
+    mask = torch.empty(shape, dtype=torch.bool, device=data.device)
+    mask.bernoulli_(keep, generator=generator(data.device))
+    return dropout_apply(data, mask, keep)
+
+
+def dropout_apply(data, mask, keep):
+    """Dropout's deterministic part: ``where(mask, data / keep, 0)`` with
+    ``keep`` rounded to the data's dtype, as the reference computes it."""
+    return torch.where(mask, data / weak(keep, data), 0.0).to(data.dtype)
+
+
+# ------------------------------------------------------------------ losses
+class _SoftmaxCE(torch.autograd.Function):
+    """Total cross entropy of the logits' rows against integer labels;
+    the data's gradient ``g * (softmax - onehot)``, none for the label."""
+
+    @staticmethod
+    def forward(ctx, data, label):
+        lab = label.to(torch.int64).reshape(-1)
+        logp = torch.log_softmax(data, dim=-1)
+        ctx.save_for_backward(logp, lab)
+        ctx.label = (label.shape, label.dtype)
+        return -torch.sum(torch.gather(logp, -1, lab[:, None]))
+
+    @staticmethod
+    def backward(ctx, g):
+        logp, lab = ctx.saved_tensors
+        onehot = F.one_hot(lab, logp.shape[-1]).to(logp.dtype)
+        dlabel = torch.zeros(ctx.label[0], dtype=ctx.label[1],
+                             device=lab.device) \
+            if ctx.needs_input_grad[1] else None
+        return g * (torch.exp(logp) - onehot), dlabel
+
+
+@register("softmax_cross_entropy")
+def _softmax_cross_entropy(data, label, **_):
+    return _SoftmaxCE.apply(data, label)
+
+
+class _SVMOutput(torch.autograd.Function):
+    """Identity forward; the backward ignores the cotangent and gives the
+    hinge loss's gradient (L2, or L1 with ``use_linear``) scaled by
+    ``regularization_coefficient`` (reference ``nn.py:571``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, margin, coef, use_linear):
+        ctx.save_for_backward(data, label)
+        ctx.args = (margin, coef, use_linear)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, _):
+        d, label = ctx.saved_tensors
+        margin, coef, use_linear = ctx.args
+        onehot = F.one_hot(label.to(torch.int64), d.shape[-1]) > 0
+        signed = torch.where(onehot, d, -d)
+        viol = (margin - signed) > 0
+        sgn = torch.where(onehot, -1.0, 1.0).to(d.dtype)
+        gd = sgn if use_linear else 2.0 * (margin - signed) * sgn
+        gd = torch.where(viol, gd, torch.zeros_like(gd))
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        return coef * gd.to(d.dtype), dlabel, None, None, None
+
+
+@register("SVMOutput", aliases=("svm_output",))
+def _svm_output(data, label, margin=1.0, regularization_coefficient=1.0,
+                use_linear=False, **_):
+    return _SVMOutput.apply(data, label, margin, regularization_coefficient,
+                            use_linear)
+
+
+@register("CTCLoss", aliases=("ctc_loss",))
+def _ctc_loss(data, label, data_lengths=None, label_lengths=None,
+              use_data_lengths=False, use_label_lengths=False,
+              blank_label="first", **_):
+    """Per-sequence CTC loss of ``data`` ``(T, B, V)`` activations (a log
+    softmax is taken here) against ``label`` ``(B, L)``.  MXNet's
+    conventions: ``blank_label="first"`` reserves class 0 (tokens 1..V-1,
+    a label <= 0 pads), ``"last"`` reserves class V-1 (tokens 0..V-2, a
+    negative label pads); ``use_*_lengths`` take the lengths as given."""
+    t, b, v = data.shape
+    lab = label.to(torch.int64)
+    blank = 0 if blank_label == "first" else v - 1
+    if use_label_lengths and label_lengths is not None:
+        tgt_len = label_lengths.to(torch.int64)
+    else:
+        pad = lab <= 0 if blank_label == "first" else lab < 0
+        tgt_len = (~pad).sum(dim=1)
+    if use_data_lengths and data_lengths is not None:
+        in_len = data_lengths.to(torch.int64)
+    else:
+        in_len = torch.full((b,), t, dtype=torch.int64, device=data.device)
+    logp = torch.log_softmax(data.float(), dim=-1)
+    loss = F.ctc_loss(logp, lab.clamp_min(0), in_len, tgt_len, blank=blank,
+                      reduction="none")
+    return loss.to(data.dtype)

@@ -107,11 +107,17 @@ def apply_op(op, *inputs, **attrs):
             return _tape.record_tensor(x)
         return x._data.detach() if x._on_tape else x._data
 
-    out = op.fn(*[unwrap(x) for x in inputs],
-                **{k: unwrap(v) for k, v in attrs.items()})
+    args = [unwrap(x) for x in inputs]
+    out = op.fn(*args, **{k: unwrap(v) for k, v in attrs.items()})
     multi = isinstance(out, (tuple, list))
-    _engine.maybe_sync(out if multi else (out,))
-    outs = [_wrap(v) for v in (out if multi else (out,))]
+    vals = list(out if multi else (out,))
+    if record:
+        # an op that hands an input back unchanged (a cast to its own
+        # dtype, an inference Dropout): the output gets a node of its own
+        vals = [v.view_as(v) if any(v is a for a in args) else v
+                for v in vals]
+    _engine.maybe_sync(vals)
+    outs = [_wrap(v) for v in vals]
     if record:
         for o in outs:
             o._on_tape = True

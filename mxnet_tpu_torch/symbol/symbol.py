@@ -474,10 +474,12 @@ _PARAM_SHAPE_RULES = {
 
 # unary ops that keep their input's shape: a parameter's shape may be
 # followed through them to the variable they wrap
-_SHAPE_TRANSPARENT = {"cast", "BlockGrad", "negative", "relu", "abs"}
+_SHAPE_TRANSPARENT = {"cast", "identity", "BlockGrad", "Dropout",
+                      "make_loss", "negative", "relu", "abs"}
 
-# ops whose `training` attr the executor's is_train decides
-_TRAIN_MODE_OPS = {"BatchNorm"}
+# ops whose `training` attr the executor's is_train decides (Dropout's
+# always-on behaviour is its `mode` attr's job, as in the reference)
+_TRAIN_MODE_OPS = {"BatchNorm", "Dropout"}
 
 
 def _infer_shapes_partial(sym, known):

@@ -1,0 +1,110 @@
+"""The coverage gate of the port's op library and array API: what the
+reference has and the port does not is an explicit list here, grouped by
+the ROADMAP slice that will port it, so nothing is missing silently."""
+import mxnet_tpu as ref
+import mxnet_tpu.operator  # noqa: F401  (registers the reference's Custom)
+import mxnet_tpu_torch as mt
+from mxnet_tpu.ops.registry import _REGISTRY
+from mxnet_tpu_torch.ops.registry import _REGISTRY as PORT_OPS
+
+# the reference's built-in ops: its op library, the symbol module's two
+# and CustomOp's (ops other tests register at run time are not part of
+# the library)
+REF_OPS = {n: op for n, op in _REGISTRY.items()
+           if op.fn.__module__.startswith("mxnet_tpu.ops")
+           or op.fn.__module__ in ("mxnet_tpu.symbol.symbol",
+                                   "mxnet_tpu.operator")}
+
+# the reference's canonical op names the port does not register yet, by
+# the reference module that registers them and the slice (ROADMAP queue 1)
+# that ports them
+UNPORTED_OPS = {
+    # slice 7, part 2
+    "spatial": {"BilinearSampler", "Correlation", "GridGenerator",
+                "SpatialTransformer", "_contrib_BilinearResize2D",
+                "_contrib_DeformableConvolution", "_contrib_ROIAlign"},
+    "signal": {"_contrib_fft", "_contrib_ifft"},
+    # slice 10 (RNNs)
+    "rnn": {"RNN"},
+    # slice 12 (SSD: detection) and slice 13 (quantization)
+    "contrib": {"MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
+                "ROIPooling", "bipartite_matching", "box_decode",
+                "box_encode", "box_iou", "box_nms", "_contrib_dequantize",
+                "_contrib_quantize_v2", "_contrib_quantized_conv",
+                "_contrib_quantized_fully_connected", "_sim_quant"},
+    # slices 12 (detection), 13 (quantization) and 16 (the rest)
+    "contrib_extra": {
+        "_contrib_AdaptiveAvgPooling2D", "_contrib_DeformablePSROIPooling",
+        "_contrib_PSROIPooling", "_contrib_Proposal", "_contrib_RROIAlign",
+        "_contrib_allclose", "_contrib_arange_like",
+        "_contrib_calibrate_entropy", "_contrib_count_sketch",
+        "_contrib_edge_id", "_contrib_getnnz", "_contrib_hawkesll",
+        "_contrib_index_array", "_contrib_index_copy", "_contrib_quadratic",
+        "_contrib_quantize", "_contrib_quantized_act",
+        "_contrib_quantized_batch_norm", "_contrib_quantized_concat",
+        "_contrib_quantized_elemwise_add", "_contrib_quantized_flatten",
+        "_contrib_quantized_pooling", "_contrib_requantize"},
+    # slice 16 (CustomOp, `operator.py`)
+    "operator": {"Custom"},
+}
+SLICE_OF_MODULE = {"spatial": "7 (part 2)", "signal": "7 (part 2)",
+                   "rnn": "10", "contrib": "12 and 13",
+                   "contrib_extra": "12, 13 and 16", "operator": "16"}
+
+# the array API names the reference has and the port does not, by slice
+UNPORTED_API = {
+    "NDArray": {"to_dlpack_for_read": "16", "to_dlpack_for_write": "16",
+                "as_np_ndarray": "16"},
+    "nd": {"contrib": "7 (part 2): foreach, while_loop and cond",
+           "dgl": "16", "from_dlpack": "16", "from_jax": "16",
+           "sparse": "16", "to_dlpack_for_read": "16",
+           "to_dlpack_for_write": "16"},
+    "random": {},
+}
+
+
+def _canonical(registry):
+    return {op.name for op in registry.values()}
+
+
+def _module(name):
+    return REF_OPS[name].fn.__module__.rsplit(".", 1)[-1]
+
+
+def test_unported_ops_are_exactly_the_listed_ones():
+    missing = {n for n in _canonical(REF_OPS) if n not in PORT_OPS}
+    by_module = {}
+    for n in missing:
+        by_module.setdefault(_module(n), set()).add(n)
+    assert by_module == UNPORTED_OPS
+    assert set(SLICE_OF_MODULE) == set(UNPORTED_OPS)
+
+
+def test_every_name_of_a_ported_op_resolves_to_it():
+    """Each of the reference's names (aliases included) whose op the port
+    has resolves in the port to the op of the same canonical name; the
+    six modules of the op library are ported under every name."""
+    for name, op in REF_OPS.items():
+        if op.name in PORT_OPS:
+            assert name in PORT_OPS, name
+            assert PORT_OPS[name].name == op.name, (name, op.name)
+    library = {"tensor", "nn", "misc", "linalg", "random_ops", "optim_ops",
+               "pallas_kernels"}
+    for name, op in REF_OPS.items():
+        if op.fn.__module__.rsplit(".", 1)[-1] in library:
+            assert name in PORT_OPS, name
+
+
+def _public(obj):
+    return {n for n in dir(obj) if not n.startswith("_")}
+
+
+def test_unported_array_api_is_exactly_the_listed_names():
+    assert _public(ref.nd.NDArray) - _public(mt.nd.NDArray) \
+        == set(UNPORTED_API["NDArray"])
+    ref_nd = {n for n in dir(ref.nd) if not n.startswith("_")}
+    port_nd = {n for n in ref_nd if hasattr(mt.nd, n)}
+    assert ref_nd - port_nd == set(UNPORTED_API["nd"])
+    ref_random = {n for n in ref.random.__all__}
+    assert {n for n in ref_random if not hasattr(mt.random, n)} \
+        == set(UNPORTED_API["random"])
