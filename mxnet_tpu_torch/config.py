@@ -118,6 +118,11 @@ register_knob(
     "mx.nd.array and the creation functions are given becomes its 32-bit "
     "twin, as the reference canonicalizes them; on, they stay 64-bit.")
 register_knob(
+    "model_store.root", "MXNET_HOME", str, "",
+    "root of the local pretrained-weight store (models live under "
+    "<root>/models); empty = ~/.mxnet.  The reference's environment "
+    "variable, read by gluon.model_zoo.model_store.")
+register_knob(
     "conv.internal_layout", "MXTPU_CONV_LAYOUT", str, "native",
     "internal conv layout: native (NCHW) or NHWC (the input and weight "
     "of every 2-D convolution go channels_last in memory; the logical API "

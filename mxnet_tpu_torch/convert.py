@@ -11,7 +11,10 @@ port has updated can be compared with the reference's.
 ``gluon_params_from_reference`` does the same for a Gluon Block: the
 reference Block's parameters (trainable and aux) as ``{name: numpy}``
 go onto the port's Block, matched by name; ``gluon_params_to_reference``
-gives them back under the reference's names.
+gives them back under the reference's names.  Every family of the model
+zoo builds the reference's names, shapes and order (the zoo tests hold
+them), so these two carry any of them, and ``save_parameters`` files
+carry them too.
 ``symbol_params_from_reference`` / ``symbol_params_to_reference`` carry
 a symbolic Module's ``(arg_params, aux_params)`` across, as numpy.
 """

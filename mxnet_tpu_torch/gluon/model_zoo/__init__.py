@@ -1,2 +1,2 @@
 """Model zoo (counterpart of ``mxnet_tpu.gluon.model_zoo``)."""
-from . import vision  # noqa: F401
+from . import vision, model_store  # noqa: F401

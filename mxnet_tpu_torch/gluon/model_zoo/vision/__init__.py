@@ -1,33 +1,52 @@
 """Vision model zoo (counterpart of
-``mxnet_tpu.gluon.model_zoo.vision``).  Ported: ResNet v1 and v2 at every
-depth.  The reference's other families (VGG, AlexNet, DenseNet,
-SqueezeNet, Inception, MobileNet) are not ported yet: ``get_model``
-raises ``NotImplementedError`` for their names."""
+``mxnet_tpu.gluon.model_zoo.vision``): ResNet v1/v2, AlexNet, VGG,
+SqueezeNet, Inception v3, DenseNet and MobileNet v1/v2, each at its
+published widths, and ``get_model`` by the reference's names.
+``pretrained=True`` loads from the local store (``model_store``)."""
+from .alexnet import *  # noqa: F401,F403
+from .densenet import *  # noqa: F401,F403
+from .inception import *  # noqa: F401,F403
+from .mobilenet import *  # noqa: F401,F403
 from .resnet import *  # noqa: F401,F403
+from .squeezenet import *  # noqa: F401,F403
+from .vgg import *  # noqa: F401,F403
+
+from .alexnet import alexnet
+from .densenet import densenet121, densenet161, densenet169, densenet201
+from .inception import inception_v3
+from .mobilenet import (mobilenet1_0, mobilenet0_75, mobilenet0_5,
+                        mobilenet0_25, mobilenet_v2_1_0, mobilenet_v2_0_75,
+                        mobilenet_v2_0_5, mobilenet_v2_0_25)
 from .resnet import (resnet18_v1, resnet34_v1, resnet50_v1, resnet101_v1,
                      resnet152_v1, resnet18_v2, resnet34_v2, resnet50_v2,
                      resnet101_v2, resnet152_v2)
+from .squeezenet import squeezenet1_0, squeezenet1_1
+from .vgg import (vgg11, vgg13, vgg16, vgg19, vgg11_bn, vgg13_bn, vgg16_bn,
+                  vgg19_bn)
 
 _MODELS = {"resnet18_v1": resnet18_v1, "resnet34_v1": resnet34_v1,
            "resnet50_v1": resnet50_v1, "resnet101_v1": resnet101_v1,
            "resnet152_v1": resnet152_v1, "resnet18_v2": resnet18_v2,
            "resnet34_v2": resnet34_v2, "resnet50_v2": resnet50_v2,
-           "resnet101_v2": resnet101_v2, "resnet152_v2": resnet152_v2}
-# the reference's zoo names whose models are not ported yet
-_NOT_PORTED = ("vgg11", "vgg13", "vgg16", "vgg19", "vgg11_bn", "vgg13_bn",
-               "vgg16_bn", "vgg19_bn", "alexnet", "densenet121",
-               "densenet161", "densenet169", "densenet201", "squeezenet1.0",
-               "squeezenet1.1", "inceptionv3", "mobilenet1.0",
-               "mobilenet0.75", "mobilenet0.5", "mobilenet0.25",
-               "mobilenetv2_1.0", "mobilenetv2_0.75", "mobilenetv2_0.5",
-               "mobilenetv2_0.25")
+           "resnet101_v2": resnet101_v2, "resnet152_v2": resnet152_v2,
+           "vgg11": vgg11, "vgg13": vgg13, "vgg16": vgg16, "vgg19": vgg19,
+           "vgg11_bn": vgg11_bn, "vgg13_bn": vgg13_bn, "vgg16_bn": vgg16_bn,
+           "vgg19_bn": vgg19_bn, "alexnet": alexnet,
+           "densenet121": densenet121, "densenet161": densenet161,
+           "densenet169": densenet169, "densenet201": densenet201,
+           "squeezenet1.0": squeezenet1_0, "squeezenet1.1": squeezenet1_1,
+           "inceptionv3": inception_v3, "mobilenet1.0": mobilenet1_0,
+           "mobilenet0.75": mobilenet0_75, "mobilenet0.5": mobilenet0_5,
+           "mobilenet0.25": mobilenet0_25,
+           "mobilenetv2_1.0": mobilenet_v2_1_0,
+           "mobilenetv2_0.75": mobilenet_v2_0_75,
+           "mobilenetv2_0.5": mobilenet_v2_0_5,
+           "mobilenetv2_0.25": mobilenet_v2_0_25}
 
 
 def get_model(name, **kwargs):
     """A model of the zoo by name (reference ``vision/__init__.py:89``)."""
     name = name.lower()
-    if name in _NOT_PORTED:
-        raise NotImplementedError("model %s is not ported yet" % name)
     if name not in _MODELS:
         raise ValueError("Model %s is not supported. Available options are"
                          "\n\t%s" % (name, "\n\t".join(sorted(_MODELS))))

@@ -4,7 +4,7 @@ He et al. "Deep Residual Learning" / "Identity Mappings in Deep Residual
 Networks".  The same blocks and the same construction order as the
 reference, so the parameter names (``resnetv10_stage1_conv0_weight``, ...)
 come out identical.  ``resnet50_v1`` is the headline training model.
-Pretrained weights (``pretrained=True``) are not ported: no model store.
+``pretrained=True`` loads from the local store (``model_store``).
 """
 from __future__ import annotations
 
@@ -267,10 +267,12 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
         "Invalid resnet version: %d. Options are 1 and 2." % version
     resnet_class = resnet_net_versions[version - 1]
     block_class = resnet_block_versions[version - 1][block_type]
+    net = resnet_class(block_class, layers, channels, **kwargs)
     if pretrained:
-        raise NotImplementedError("pretrained weights are not ported (no "
-                                  "model store)")
-    return resnet_class(block_class, layers, channels, **kwargs)
+        from ..model_store import load_pretrained
+        load_pretrained(net, "resnet%d_v%d" % (num_layers, version), root,
+                        ctx)
+    return net
 
 
 def resnet18_v1(**kwargs):

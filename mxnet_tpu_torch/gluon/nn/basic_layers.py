@@ -1,7 +1,8 @@
 """Basic layers (counterpart of ``mxnet_tpu.gluon.nn.basic_layers``):
-``HybridSequential``, ``Dense``, ``BatchNorm``, ``Flatten``.
-``Sequential``, Dropout, Embedding and the other norms are not ported
-yet."""
+the containers, ``Dense``, ``Dropout``, ``Embedding``, the four norms,
+``Flatten`` and the two lambdas, each over the registered op of its
+name.  ``Embedding(sparse_grad=True)`` (a row-sparse gradient) raises:
+the sparse arrays are not ported."""
 from __future__ import annotations
 
 import math
@@ -10,9 +11,66 @@ import torch
 
 from ... import autograd
 from ...base import torch_dtype
-from ..block import HybridBlock
+from ..block import Block, HybridBlock
 
-__all__ = ["HybridSequential", "Dense", "BatchNorm", "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "Embedding", "BatchNorm", "InstanceNorm", "LayerNorm",
+           "GroupNorm", "Flatten", "Lambda", "HybridLambda"]
+
+
+def _children_repr(block):
+    body = "\n".join("  (%s): %s" % (k, str(b).replace("\n", "\n  "))
+                     for k, b in block._children.items())
+    return "%s(\n%s\n)" % (block.__class__.__name__, body)
+
+
+def _norm_repr(block, in_channels):
+    return "%s(%s, in_channels=%s)" % (
+        block.__class__.__name__,
+        ", ".join("=".join([k, v.__repr__()])
+                  for k, v in block._kwargs.items()), in_channels)
+
+
+class Sequential(Block):
+    """Stacks Blocks sequentially (reference ``basic_layers.py:36``)."""
+
+    def add(self, *blocks):
+        """Append blocks to the stack."""
+        for block in blocks:
+            self.register_child(block)
+
+    def forward(self, x):
+        for block in self._children.values():
+            x = block(x)
+        return x
+
+    def __repr__(self):
+        return _children_repr(self)
+
+    def __getitem__(self, key):
+        layers = list(self._children.values())[key]
+        if isinstance(layers, list):
+            net = type(self)(prefix=self._prefix)
+            with net.name_scope():
+                net.add(*layers)
+            return net
+        return layers
+
+    def __len__(self):
+        return len(self._children)
+
+    def __iter__(self):
+        return iter(self._children.values())
+
+    def hybridize(self, active=True, **kwargs):
+        if self._children and all(isinstance(c, HybridBlock)
+                                  for c in self._children.values()):
+            import warnings
+            warnings.warn(
+                "All children of this Sequential layer '%s' are "
+                "HybridBlocks. Consider using HybridSequential for the best "
+                "performance." % self.prefix, stacklevel=2)
+        super().hybridize(active, **kwargs)
 
 
 class HybridSequential(HybridBlock):
@@ -25,9 +83,7 @@ class HybridSequential(HybridBlock):
             self.register_child(block)
 
     def __repr__(self):
-        body = "\n".join("  (%s): %s" % (k, str(b).replace("\n", "\n  "))
-                         for k, b in self._children.items())
-        return "%s(\n%s\n)" % (self.__class__.__name__, body)
+        return _children_repr(self)
 
     def __getitem__(self, key):
         layers = list(self._children.values())[key]
@@ -88,6 +144,32 @@ class Dense(HybridBlock):
             act = self.act(act)
         return act
 
+    def __repr__(self):
+        shape = self.weight.shape
+        return "%s(%s -> %s, %s)" % (
+            self.__class__.__name__, shape[1] if shape[1] else None,
+            shape[0], self.act if self.act else "linear")
+
+
+class Dropout(HybridBlock):
+    """Dropout in training, the identity otherwise (reference
+    ``basic_layers.py:262``); the mask is drawn on the input's device."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        if self._rate > 0:
+            return F.Dropout(x, p=self._rate, axes=self._axes,
+                             training=autograd.is_training())
+        return F.identity(x)
+
+    def __repr__(self):
+        return "%s(p = %s, axes=%s)" % (self.__class__.__name__,
+                                        self._rate, self._axes)
+
 
 class BatchNorm(HybridBlock):
     """Batch normalization with moving statistics (reference
@@ -143,9 +225,13 @@ class BatchNorm(HybridBlock):
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         training = autograd.is_training()
-        out, batch_mean, batch_var = F.BatchNorm(
-            x, gamma, beta, running_mean, running_var, training=training,
-            **self._kwargs)
+        out = F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                          training=training, **self._kwargs)
+        if not isinstance(out, (tuple, list)):
+            # a Symbol (export): the moving statistics are aux states the
+            # executor updates
+            return out
+        out, batch_mean, batch_var = out
         if training and not self._kwargs["use_global_stats"]:
             m = self._momentum
             with torch.no_grad():
@@ -156,6 +242,37 @@ class BatchNorm(HybridBlock):
                                      ).to(rv.dtype)
         return out
 
+    def __repr__(self):
+        in_channels = self.gamma.shape[0]
+        return _norm_repr(self, in_channels if in_channels else None)
+
+
+class Embedding(HybridBlock):
+    """Rows of a ``(input_dim, output_dim)`` weight at integer ids
+    (reference ``basic_layers.py:415``)."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        if sparse_grad:
+            raise NotImplementedError(
+                "Embedding(sparse_grad=True): row-sparse gradients come "
+                "with the sparse arrays, which are not ported")
+        super().__init__(**kwargs)
+        self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
+                        "dtype": dtype, "sparse_grad": sparse_grad}
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim),
+                init=weight_initializer, dtype=dtype,
+                allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, **self._kwargs)
+
+    def __repr__(self):
+        return "{block_name}({input_dim} -> {output_dim}, {dtype})".format(
+            block_name=self.__class__.__name__, **self._kwargs)
+
 
 class Flatten(HybridBlock):
     """Flattens the input to 2-D (reference ``basic_layers.py:477``)."""
@@ -165,3 +282,139 @@ class Flatten(HybridBlock):
 
     def __repr__(self):
         return self.__class__.__name__
+
+
+class _Norm(HybridBlock):
+    """A norm over ``gamma`` and ``beta`` of the channel count (deferred
+    until the first input gives it)."""
+
+    def __init__(self, kwargs, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._kwargs = kwargs
+        self._epsilon = kwargs["eps"]
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        channels = x.shape[self._axis]
+        self.gamma.shape = (channels,)
+        self.beta.shape = (channels,)
+
+    def __repr__(self):
+        return _norm_repr(self, self.gamma.shape[0])
+
+
+class InstanceNorm(_Norm):
+    """Instance normalization (reference ``basic_layers.py:505``)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        self._axis = axis
+        super().__init__({"eps": epsilon, "axis": axis, "center": center,
+                          "scale": scale}, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, **kwargs)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        if self._axis == 1:
+            return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+        x = x.swapaxes(1, self._axis)
+        return F.InstanceNorm(x, gamma, beta,
+                              eps=self._epsilon).swapaxes(1, self._axis)
+
+
+class LayerNorm(_Norm):
+    """Layer normalization (reference ``basic_layers.py:600``)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        self._axis = axis
+        super().__init__({"eps": epsilon, "axis": axis, "center": center,
+                          "scale": scale}, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix=prefix,
+                         params=params)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma=gamma, beta=beta, axis=self._axis,
+                           eps=self._epsilon)
+
+
+class GroupNorm(_Norm):
+    """Group normalization over axis 1 (reference
+    ``basic_layers.py:690``)."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        self._axis = 1
+        self._num_groups = num_groups
+        super().__init__({"eps": epsilon, "num_groups": num_groups,
+                          "center": center, "scale": scale}, center, scale,
+                         beta_initializer, gamma_initializer, in_channels,
+                         prefix=prefix, params=params)
+
+    def hybrid_forward(self, F, data, gamma, beta):
+        return F.GroupNorm(data, gamma=gamma, beta=beta,
+                           num_groups=self._num_groups, eps=self._epsilon)
+
+    def __repr__(self):
+        return "%s(%s)" % (self.__class__.__name__, ", ".join(
+            "=".join([k, v.__repr__()]) for k, v in self._kwargs.items()))
+
+
+def _lambda_function(function):
+    """``(callable, name)`` of a Lambda's function: an ``mx.nd`` op name
+    or a callable."""
+    if isinstance(function, str):
+        from ... import ndarray as nd
+        assert hasattr(nd, function), \
+            "Function name %s is not found in ndarray." % function
+        return getattr(nd, function), function
+    if callable(function):
+        return function, function.__name__
+    raise ValueError("Unrecognized function in lambda: {} of type {}"
+                     .format(function, type(function)))
+
+
+class Lambda(Block):
+    """An op or expression as a Block (reference
+    ``basic_layers.py:774``)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func_impl, self._func_name = _lambda_function(function)
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+    def __repr__(self):
+        return "%s(%s)" % (self.__class__.__name__, self._func_name)
+
+
+class HybridLambda(HybridBlock):
+    """An op name or ``f(F, x, *args)`` as a HybridBlock (reference
+    ``basic_layers.py:817``)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            _lambda_function(function)
+            self._func = lambda F, *args: getattr(F, function)(*args)
+            self._func_name = function
+        else:
+            _, self._func_name = _lambda_function(function)
+            self._func = function
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)
+
+    def __repr__(self):
+        return "%s(%s)" % (self.__class__.__name__, self._func_name)

@@ -10,8 +10,11 @@ its value is marked as a leaf of the autograd tape with that buffer
 ``autograd.record()`` fills ``grad()`` for ``gluon.Trainer``.
 ``parallel.SPMDTrainer`` does not read the buffers: it differentiates its
 own copies of the values.  A ParameterDict is the prefix-scoped registry
-Blocks share.  One device per parameter: a list of several contexts
-raises ``NotImplementedError``.
+Blocks share; its ``save`` / ``load`` write and read the reference's
+npz container (``nd.save``), so either package loads the other's files.
+One device per parameter: a list of several contexts raises
+``NotImplementedError``.  The row-sparse reads (``row_sparse_data``,
+``list_row_sparse_data``) wait for the sparse arrays.
 """
 from __future__ import annotations
 
@@ -23,11 +26,15 @@ import torch
 from ..base import MXNetError, torch_dtype
 from ..context import cpu, gpu, resolve_device
 from ..ndarray.ndarray import NDArray, _wrap
+from ..ndarray import ndarray as ndarray_mod
 from .. import autograd
 from .. import initializer
 from .. import random as _random
 
-__all__ = ["DeferredInitializationError", "Parameter", "ParameterDict"]
+__all__ = ["DeferredInitializationError", "Parameter", "Constant",
+           "ParameterDict", "tensor_types"]
+
+tensor_types = (NDArray,)
 
 
 class DeferredInitializationError(MXNetError):
@@ -54,6 +61,7 @@ class Parameter:
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
+        self._var = None
         self._data = None
         self._grad = None
         self._device = None
@@ -109,6 +117,10 @@ class Parameter:
     def dtype(self):
         return self._dtype
 
+    @dtype.setter
+    def dtype(self, dtype):
+        self.cast(dtype)
+
     @property
     def shape(self):
         return self._shape
@@ -150,6 +162,41 @@ class Parameter:
             "later does not include Parameters of nested child Blocks"
             % self.name)
 
+    def _load_init(self, data, ctx, cast_dtype=False,
+                   dtype_source="current"):
+        """Initialize from a loaded array (reference
+        ``parameter.py:274``): the shape must agree where it is known,
+        and the dtype too unless ``cast_dtype`` (then the parameter's
+        dtype wins, or the file's with ``dtype_source='saved'``)."""
+        t = data._data if isinstance(data, NDArray) else \
+            torch.as_tensor(data)
+        if cast_dtype:
+            if dtype_source == "current":
+                t = t.to(self.dtype)
+            elif dtype_source == "saved":
+                self._dtype = t.dtype
+        if self.shape:
+            unknown = any(s == 0 for s in self.shape)
+            if not unknown and tuple(self.shape) != tuple(t.shape):
+                raise AssertionError(
+                    "Failed loading Parameter '%s' from saved params: "
+                    "shape incompatible expected %s vs saved %s" % (
+                        self.name, str(self.shape), str(tuple(t.shape))))
+            self._shape = tuple(t.shape)
+        if not cast_dtype and self.dtype != t.dtype:
+            raise AssertionError(
+                "Failed loading Parameter '%s' from saved params: dtype "
+                "incompatible expected %s vs saved %s. Set cast_dtype=True "
+                "to cast the dtype of saved params." % (
+                    self.name, str(self.dtype), str(t.dtype)))
+        self._init_impl(t, _device(ctx))
+        self._deferred_init = ()
+
+    def _reduce(self):
+        """The value as an NDArray to save (reference
+        ``parameter.py:354``)."""
+        return _wrap(self.data()._data.detach())
+
     def _finish_deferred_init(self):
         if not self._deferred_init:
             return
@@ -162,7 +209,8 @@ class Parameter:
         if data is None:
             gen = init if init is not None else (
                 self.init if self.init is not None else default_init)
-            gen = initializer.create(gen)
+            if isinstance(gen, str):
+                gen = initializer.create(gen)
             data = gen.generate(_random.next_key(), self.shape, self.dtype,
                                 name=self.name)
         self._init_impl(data, device)
@@ -205,6 +253,24 @@ class Parameter:
         self._deferred_init = (init, device, default_init, None)
         self._finish_deferred_init()
 
+    def reset_ctx(self, ctx):
+        """Move the value (and its gradient buffer) to ``ctx``; a
+        deferred parameter will be drawn there (reference
+        ``parameter.py:414``)."""
+        device = _device(ctx)
+        if self._data is not None:
+            self._device = device
+            with torch.no_grad():
+                self._data._data = self._data._data.detach().to(device)
+            self._init_grad()
+        elif self._deferred_init:
+            init, _, default_init, data = self._deferred_init
+            self._deferred_init = (init, device, default_init, data)
+        else:
+            raise ValueError("Cannot reset context for Parameter '%s' "
+                             "because it has not been initialized."
+                             % self.name)
+
     def set_data(self, data):
         """Set this parameter's value (reference ``parameter.py:439``); a
         deferred parameter keeps it for its first forward."""
@@ -223,6 +289,10 @@ class Parameter:
 
     def data(self, ctx=None):
         return self._check_and_get(self._data)
+
+    def list_data(self):
+        """The value, once per context: one here."""
+        return [self.data()]
 
     def grad(self, ctx=None):
         """The gradient buffer (reference ``parameter.py:302``)."""
@@ -251,6 +321,15 @@ class Parameter:
             return
         self._grad._data = torch.zeros_like(self._grad._data)
 
+    def var(self):
+        """The Symbol of this parameter (reference ``parameter.py:584``)."""
+        if self._var is None:
+            from ..symbol import var
+            self._var = var(self.name, shape=self.shape, dtype=self.dtype,
+                            lr_mult=self.lr_mult, wd_mult=self.wd_mult,
+                            init=self.init)
+        return self._var
+
     def cast(self, dtype):
         self._dtype = torch_dtype(dtype)
         if self._data is None:
@@ -261,6 +340,29 @@ class Parameter:
                 self._grad._data = self._grad._data.to(self._dtype)
                 autograd.mark_variables([self._data], [self._grad],
                                         self.grad_req)
+
+
+class Constant(Parameter):
+    """A parameter whose value never trains (``grad_req='null'``;
+    reference ``parameter.py:636``)."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, NDArray):
+            value = ndarray_mod.array(value, ctx=cpu())
+        self.value = value
+        const = value._data.detach().cpu()
+
+        class Init(initializer.Initializer):
+            def _init_weight(self, _name, _gen, shape, dtype):
+                return const.to(dtype).reshape(shape).clone()
+
+        init_name = "Constant_{}_{}".format(name, id(self)).lower()
+        initializer._INIT_REGISTRY[init_name] = Init
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=const.dtype, init=init_name)
+
+    def generate(self, gen, shape, dtype="float32", name=""):
+        return self.value._data.detach().cpu().to(torch_dtype(dtype))
 
 
 def _context(device):
@@ -341,6 +443,31 @@ class ParameterDict:
                 "'%s' vs stored '%s'." % (name, k, str(v), str(existing))
         return param
 
+    def get_constant(self, name, value=None):
+        """Retrieve or create the Constant ``prefix + name`` (reference
+        ``parameter.py:791``)."""
+        name = self.prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            if value is None:
+                raise KeyError("No constant named '{}'. Please specify "
+                               "value if you want to create a new "
+                               "constant.".format(name))
+            param = Constant(name, value)
+            self._params[name] = param
+        elif value is not None:
+            assert isinstance(param, Constant), \
+                "Parameter '{}' already exists but it is not a " \
+                "constant.".format(name)
+            if isinstance(value, NDArray):
+                value = value.asnumpy()
+            import numpy as _np
+            assert param.shape == tuple(_np.shape(value)) and \
+                _np.array_equal(param.value.asnumpy(), value), \
+                "Constant '{}' already exists but its value doesn't " \
+                "match new value".format(name)
+        return param
+
     def update(self, other):
         """Copy every Parameter of ``other`` into self."""
         for k, v in other.items():
@@ -362,3 +489,63 @@ class ParameterDict:
         for v in self.values():
             v.zero_grad()
 
+
+    def reset_ctx(self, ctx):
+        for v in self.values():
+            v.reset_ctx(ctx)
+
+    def list_ctx(self):
+        s = set()
+        for v in self.values():
+            s.update(v.list_ctx())
+        return sorted(s, key=str)
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` of every Parameter."""
+        for v in self.values():
+            setattr(v, name, value)
+
+    def save(self, filename, strip_prefix=""):
+        """Save every value under its name less ``strip_prefix``
+        (reference ``parameter.py:858``)."""
+        arg_dict = {}
+        for param in self.values():
+            if not param.name.startswith(strip_prefix):
+                raise ValueError(
+                    "Prefix '%s' is to be striped before saving, but "
+                    "Parameter's name '%s' does not start with '%s'" % (
+                        strip_prefix, param.name, strip_prefix))
+            arg_dict[param.name[len(strip_prefix):]] = param._reduce()
+        ndarray_mod.save(filename, arg_dict)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix="", cast_dtype=False,
+             dtype_source="current"):
+        """Load values from a file :meth:`save` (or a checkpoint's
+        ``arg:``/``aux:`` params) wrote (reference ``parameter.py:880``)."""
+        if restore_prefix:
+            for name in self.keys():
+                assert name.startswith(restore_prefix), \
+                    "restore_prefix is '%s' but Parameter name '%s' does " \
+                    "not start with '%s'" % (restore_prefix, name,
+                                             restore_prefix)
+        lprefix = len(restore_prefix)
+        loaded = ndarray_mod.load(filename)
+        if not isinstance(loaded, dict):
+            raise ValueError("Expected a dict of arrays in %s" % filename)
+        arg_dict = {restore_prefix + k.split(":", 1)[-1]: v
+                    for k, v in loaded.items()}
+        if not allow_missing:
+            for name in self.keys():
+                assert name in arg_dict, \
+                    "Parameter '%s' is missing in file '%s'" % (
+                        name[lprefix:], filename)
+        for name in arg_dict:
+            if name not in self._params:
+                assert ignore_extra, \
+                    "Parameter '%s' loaded from file '%s' is not present " \
+                    "in ParameterDict" % (name[lprefix:], filename)
+                continue
+            self[name]._load_init(arg_dict[name], ctx,
+                                  cast_dtype=cast_dtype,
+                                  dtype_source=dtype_source)

@@ -7,6 +7,7 @@ ones, ``*beta`` / ``*bias`` -> zeros, ``*running_mean`` /
 anything else -> ``_init_weight``.  ``generate(gen, shape, dtype, name)``
 draws from an explicit CPU ``torch.Generator`` (``mx.random``) and
 returns a CPU tensor, which the parameter then places on its device.
+``FusedRNN`` waits for the fused RNN layers.
 ``init(desc, arr)`` (also ``init.init``) is the reference's calling
 convention: it sets the NDArray ``arr`` from the next generator of
 ``mx.random``'s stream, and an ``InitDesc`` whose attrs carry
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 
 import torch
 
@@ -24,7 +26,8 @@ from . import random as _random
 from .base import torch_dtype
 
 __all__ = ["InitDesc", "Initializer", "register", "create", "Zero", "One",
-           "Uniform", "Normal", "Xavier"]
+           "Constant", "Uniform", "Normal", "Orthogonal", "Xavier",
+           "MSRAPrelu", "Bilinear", "LSTMBias", "Mixed", "Load"]
 
 _INIT_REGISTRY = {}
 _INIT_ALIASES = {"zero": ("zeros",), "one": ("ones",),
@@ -142,6 +145,16 @@ class One(Initializer):
 
 
 @register
+class Constant(Initializer):
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, name, gen, shape, dtype):
+        return torch.full(shape, self.value, dtype=dtype)
+
+
+@register
 class Uniform(Initializer):
     def __init__(self, scale=0.07):
         super().__init__(scale=scale)
@@ -159,6 +172,28 @@ class Normal(Initializer):
 
     def _init_weight(self, name, gen, shape, dtype):
         return (self.sigma * torch.randn(shape, generator=gen)).to(dtype)
+
+
+@register
+class Orthogonal(Initializer):
+    """An orthonormal basis from the SVD of a random ``[out, in]`` draw
+    (reference ``Orthogonal``), times ``scale``."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, name, gen, shape, dtype):
+        nout = shape[0]
+        nin = math.prod(shape[1:]) if len(shape) > 1 else 1
+        if self.rand_type == "uniform":
+            tmp = _uniform(gen, (nout, nin), torch.float32, -1.0, 1.0)
+        else:
+            tmp = torch.randn((nout, nin), generator=gen)
+        u, _, v = torch.linalg.svd(tmp, full_matrices=False)
+        res = u if tuple(u.shape) == (nout, nin) else v
+        return (self.scale * res).reshape(shape).to(dtype)
 
 
 @register
@@ -193,3 +228,111 @@ class Xavier(Initializer):
         if self.rnd_type == "gaussian":
             return (scale * torch.randn(shape, generator=gen)).to(dtype)
         raise ValueError("Unknown random type")
+
+
+@register
+class MSRAPrelu(Xavier):
+    """Xavier with gaussian draws at ``magnitude = 2 / (1 + slope^2)``
+    (reference ``MSRAPrelu``)."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    """A bilinear upsampling kernel (reference ``Bilinear``)."""
+
+    def _init_weight(self, name, gen, shape, dtype):
+        f = math.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = torch.arange(math.prod(shape), dtype=torch.float64)
+        x = torch.remainder(i, shape[3])
+        y = torch.remainder(torch.div(i, shape[3], rounding_mode="floor"),
+                            shape[2])
+        w = (1 - (x / f - c).abs()) * (1 - (y / f - c).abs())
+        return w.to(torch.float32).reshape(shape).to(dtype)
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros with ``forget_bias`` in the forget gate's rows (reference
+    ``LSTMBias``); it overrides ``generate``, since the name rule would
+    zero every ``*bias``."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def generate(self, gen, shape, dtype="float32", name=""):
+        b = torch.zeros(tuple(shape), dtype=torch.float32)
+        num_hidden = int(shape[0] / 4)
+        b[num_hidden:2 * num_hidden] = self.forget_bias
+        return b.to(torch_dtype(dtype))
+
+
+class Mixed:
+    """The first initializer whose pattern matches the name (reference
+    ``Mixed``)."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise ValueError("patterns and initializers lengths differ")
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def _pick(self, name):
+        for prog, init in self.map:
+            if prog.match(str(name)):
+                return init
+        raise ValueError("Parameter name %s did not match any pattern"
+                         % name)
+
+    def __call__(self, name, arr):
+        self._pick(name)(name, arr)
+
+    def generate(self, gen, shape, dtype="float32", name=""):
+        return self._pick(name).generate(gen, shape, dtype, name=name)
+
+
+def _host_tensor(src, dtype):
+    t = getattr(src, "_data", src)
+    if not isinstance(t, torch.Tensor):
+        t = torch.as_tensor(t)
+    return t.detach().cpu().to(torch_dtype(dtype))
+
+
+@register
+class Load:
+    """Values from a dict of saved arrays (``arg:``/``aux:`` prefixes
+    dropped), else ``default_init`` (reference ``Load``)."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        self.param = {k[4:] if k.startswith(("arg:", "aux:")) else k: v
+                      for k, v in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        name = str(name)
+        if name in self.param:
+            src = self.param[name]
+            if tuple(src.shape) != tuple(arr.shape):
+                raise ValueError("Parameter %s shape mismatch" % name)
+            arr._set_data(_host_tensor(src, arr._data.dtype).to(
+                arr._data.device))
+        else:
+            if self.default_init is None:
+                raise ValueError("Cannot init parameter %s from loaded "
+                                 "file" % name)
+            self.default_init(name, arr)
+
+    def generate(self, gen, shape, dtype="float32", name=""):
+        name = str(name)
+        if name in self.param:
+            return _host_tensor(self.param[name], dtype)
+        if self.default_init is None:
+            raise ValueError("Cannot init parameter %s from loaded file"
+                             % name)
+        return self.default_init.generate(gen, shape, dtype, name=name)

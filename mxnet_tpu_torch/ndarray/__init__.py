@@ -9,11 +9,12 @@ from .ndarray import (NDArray, array, zeros, ones, full, empty, arange, eye,
                       linspace, waitall, concat, stack, split, where, save,
                       load)
 from .. import random  # noqa: F401  (nd.random: the samplers)
+from . import contrib  # noqa: F401  (nd.contrib: control flow, _contrib_)
 from ..ops import registry as _registry
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "eye", "linspace", "waitall", "concat", "stack", "split",
-           "where", "save", "load", "random"]
+           "where", "save", "load", "random", "contrib"]
 
 
 def _fill_one(o, r):

@@ -396,7 +396,12 @@ def _auto_name(opname):
 _OP_INPUT_SLOTS = {
     "FullyConnected": ("data", "weight", "bias"),
     "Convolution": ("data", "weight", "bias"),
+    "Deconvolution": ("data", "weight", "bias"),
     "BatchNorm": ("data", "gamma", "beta", "moving_mean", "moving_var"),
+    "LayerNorm": ("data", "gamma", "beta"),
+    "GroupNorm": ("data", "gamma", "beta"),
+    "InstanceNorm": ("data", "gamma", "beta"),
+    "Embedding": ("data", "weight"),
     "SoftmaxOutput": ("data", "label"),
     "LinearRegressionOutput": ("data", "label"),
     "LogisticRegressionOutput": ("data", "label"),
@@ -620,14 +625,23 @@ _AUX_SUFFIXES = ("moving_mean", "moving_var", "running_mean", "running_var",
                  "moving_avg")
 
 
+def _tensor_of(x):
+    """An NDArray's tensor; anything else as it is."""
+    from ..ndarray.ndarray import NDArray
+    return x._data if isinstance(x, NDArray) else x
+
+
 def _is_aux_name(name):
     return name.endswith(_AUX_SUFFIXES)
 
 
-def _eval_symbol(sym, env, training, aux_updates=None):
+def _eval_symbol(sym, env, training, aux_updates=None, apply=None):
     """Interpret the DAG on tensors; ``env`` maps variable names to
     tensors.  Returns the list of head outputs; under ``training`` the
-    aux write-backs land in ``aux_updates`` when it is given."""
+    aux write-backs land in ``aux_updates`` when it is given.  ``apply(op,
+    inputs, attrs)``, when given, runs each op instead of its function
+    (``SymbolBlock`` passes ``registry.apply_op`` over NDArrays); the aux
+    write-backs are tensors either way."""
     cache = {}
 
     def value(node, index=0):
@@ -647,14 +661,16 @@ def _eval_symbol(sym, env, training, aux_updates=None):
             if node.op in _TRAIN_MODE_OPS:
                 # the executor's is_train decides, not an attr baked in
                 attrs["training"] = training
-            res = _registry.get(node.op).fn(*vals, **attrs)
+            res = _registry.get(node.op).fn(*vals, **attrs) \
+                if apply is None else apply(node.op, vals, attrs)
             outs = list(res) if isinstance(res, (tuple, list)) else [res]
             for i, o in enumerate(outs):
                 cache[(id(node), i)] = o
             if training and aux_updates is not None \
                     and node.op in _AUX_UPDATE_RULES:
-                aux_updates.update(
-                    _AUX_UPDATE_RULES[node.op](node, vals, outs))
+                aux_updates.update(_AUX_UPDATE_RULES[node.op](
+                    node, [_tensor_of(v) for v in vals],
+                    [_tensor_of(o) for o in outs]))
             out = outs[index]
         else:
             raise ValueError("cannot evaluate node kind %r" % (node.kind,))

@@ -1,9 +1,16 @@
-"""The coverage gate of the port's op library and array API: what the
-reference has and the port does not is an explicit list here, grouped by
-the ROADMAP slice that will port it, so nothing is missing silently."""
+"""The coverage gate of the port's op library, array API and Gluon
+surface: what the reference has and the port does not is an explicit
+list here, grouped by the ROADMAP slice that will port it, so nothing is
+missing silently."""
+import pytest
+
 import mxnet_tpu as ref
 import mxnet_tpu.operator  # noqa: F401  (registers the reference's Custom)
+import mxnet_tpu.gluon.model_zoo.model_store  # noqa: F401
+import mxnet_tpu.gluon.model_zoo.vision  # noqa: F401
 import mxnet_tpu_torch as mt
+import mxnet_tpu_torch.gluon.model_zoo.model_store  # noqa: F401
+import mxnet_tpu_torch.gluon.model_zoo.vision  # noqa: F401
 from mxnet_tpu.ops.registry import _REGISTRY
 from mxnet_tpu_torch.ops.registry import _REGISTRY as PORT_OPS
 
@@ -19,11 +26,6 @@ REF_OPS = {n: op for n, op in _REGISTRY.items()
 # the reference module that registers them and the slice (ROADMAP queue 1)
 # that ports them
 UNPORTED_OPS = {
-    # slice 7, part 2
-    "spatial": {"BilinearSampler", "Correlation", "GridGenerator",
-                "SpatialTransformer", "_contrib_BilinearResize2D",
-                "_contrib_DeformableConvolution", "_contrib_ROIAlign"},
-    "signal": {"_contrib_fft", "_contrib_ifft"},
     # slice 10 (RNNs)
     "rnn": {"RNN"},
     # slice 12 (SSD: detection) and slice 13 (quantization)
@@ -47,19 +49,49 @@ UNPORTED_OPS = {
     # slice 16 (CustomOp, `operator.py`)
     "operator": {"Custom"},
 }
-SLICE_OF_MODULE = {"spatial": "7 (part 2)", "signal": "7 (part 2)",
-                   "rnn": "10", "contrib": "12 and 13",
+SLICE_OF_MODULE = {"rnn": "10", "contrib": "12 and 13",
                    "contrib_extra": "12, 13 and 16", "operator": "16"}
 
 # the array API names the reference has and the port does not, by slice
 UNPORTED_API = {
     "NDArray": {"to_dlpack_for_read": "16", "to_dlpack_for_write": "16",
                 "as_np_ndarray": "16"},
-    "nd": {"contrib": "7 (part 2): foreach, while_loop and cond",
-           "dgl": "16", "from_dlpack": "16", "from_jax": "16",
+    "nd": {"dgl": "16", "from_dlpack": "16", "from_jax": "16",
            "sparse": "16", "to_dlpack_for_read": "16",
            "to_dlpack_for_write": "16"},
     "random": {},
+    # the DGL graph functions the reference's nd.contrib imports
+    "nd.contrib": {"dgl_adjacency": "16",
+                   "dgl_csr_neighbor_non_uniform_sample": "16",
+                   "dgl_csr_neighbor_uniform_sample": "16",
+                   "dgl_graph_compact": "16", "dgl_subgraph": "16"},
+}
+
+_SLICE_8_PART_2 = "8 (part 2): the optimizers"
+# the Gluon, model-zoo, initializer and optimizer names the reference has
+# and the port does not, by surface and slice; a surface is a module's
+# public names (its __all__ where it lists them, so that its own imports
+# do not count) or a class's public attributes
+UNPORTED_SURFACE = {
+    "gluon": {"contrib": "16", "data": "11", "rnn": "10"},
+    "gluon.nn": {},
+    "gluon.loss": {},
+    "gluon.utils": {},
+    "gluon.Block": {},
+    "gluon.HybridBlock": {},
+    "gluon.SymbolBlock": {},
+    "gluon.ParameterDict": {},
+    "gluon.Parameter": {"row_sparse_data": "16",
+                        "list_row_sparse_data": "16"},
+    "gluon.Constant": {"row_sparse_data": "16",
+                       "list_row_sparse_data": "16"},
+    "gluon.model_zoo.vision": {},
+    "gluon.model_zoo.model_store": {},
+    "initializer": {"FusedRNN": "10 (the fused RNN layers)"},
+    "optimizer": dict.fromkeys(
+        ("AdaDelta", "AdaGrad", "Adamax", "DCASGD", "FTML", "Ftrl",
+         "GroupAdaGrad", "LARS", "LBSGD", "NAG", "Nadam", "RMSProp",
+         "SGLD", "SignSGD", "Signum", "Test", "ccSGD"), _SLICE_8_PART_2),
 }
 
 
@@ -108,3 +140,29 @@ def test_unported_array_api_is_exactly_the_listed_names():
     ref_random = {n for n in ref.random.__all__}
     assert {n for n in ref_random if not hasattr(mt.random, n)} \
         == set(UNPORTED_API["random"])
+    assert {n for n in _public(ref.nd.contrib)
+            if not hasattr(mt.nd.contrib, n)} \
+        == set(UNPORTED_API["nd.contrib"])
+    for name in ("foreach", "while_loop", "cond"):
+        assert callable(getattr(mt.nd.contrib, name))
+
+
+def _owner(pkg, path):
+    obj = pkg
+    for part in path.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _surface(obj):
+    return set(obj.__all__) if hasattr(obj, "__all__") else _public(obj)
+
+
+@pytest.mark.parametrize("surface", sorted(UNPORTED_SURFACE))
+def test_unported_gluon_surface_is_exactly_the_listed_names(surface):
+    """Each name of the surface in the reference exists in the port,
+    apart from the listed ones, which do not."""
+    port = _owner(mt, surface)
+    missing = {n for n in _surface(_owner(ref, surface))
+               if not hasattr(port, n)}
+    assert missing == set(UNPORTED_SURFACE[surface])

@@ -1,5 +1,6 @@
 """The port's op library against the reference, op by op: every op of
-``ops/tensor``, ``ops/misc`` and ``ops/random_ops`` runs
+``ops/tensor``, ``ops/misc``, ``ops/random_ops``, ``ops/spatial`` and
+``ops/signal`` runs
 under ``with mx.cpu():`` on the inputs of the reference's own sweep
 (``tests/test_op_sweep.py`` ``SPECS``) and on the small cases of
 ``chip_smoke.py``'s ``OP_CASES`` (the cases the card runs), and is held
@@ -22,7 +23,7 @@ from mxnet_tpu_torch.ops.registry import apply_op as port_apply
 import _torch_ops as T
 import test_op_sweep as ref_sweep
 
-MODULES = ("tensor", "misc", "random_ops")
+MODULES = ("tensor", "misc", "random_ops", "spatial", "signal")
 SPEC_OPS = [n for n in T.slice_ops(*MODULES) if n in ref_sweep.SPECS]
 CARD = T.chip_cases(MODULES)
 
