@@ -4,7 +4,7 @@ Usage (from the root of a checkout, one visible CUDA card)::
 
     python3 chip_smoke.py [--report PATH]
                           [--phase attention|optimizer|module|bert|lm_f32|
-                                   generation|ops|zoo]
+                                   generation|ops|zoo|rnn]
 
 Phases; any failure exits non-zero without the result lines:
 
@@ -317,6 +317,21 @@ Phases; any failure exits non-zero without the result lines:
             casts of their masters, beside K1's and K3's call and launch
             over the same lists.  No kernel of the port launches in
             (a)-(b).
+7c. rnn    — the recurrent family: (a) ``mx.nd.RNN`` on the card against
+            the CPU in every mode, 1 and 2 layers, one- and
+            two-directional, at T=35 B=32 I=H=650 (RNN_OP_CASES;
+            outputs, states and every gradient within RNN_OP_RTOL of the
+            tensor's largest; a ReLU case with units at the kink held in
+            f64), then the op timed beside one ``torch.nn.LSTM`` call
+            (CUDA events; the blob's repack by the profiler's groups);
+            (b) ``examples/rnn_lm.py`` at LM_* (20 counted steps, no
+            port kernel, a falling finite loss, tokens/s, a profiled
+            window); (c) ``examples/rnn_bucketing.py`` through
+            ``BucketingModule`` at BK_*, unrolled and fused: a step with
+            K3 bitwise against its plain version on its real gradients,
+            then BK_STEPS counted steps across the three buckets with
+            exactly one adam_step launch each, step ms by bucket and a
+            profiled window.  It opens with ``profiler_probe``.
 8. summary — a ``{"kernels": [...]}`` line, the card's name and power
             limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -357,6 +372,9 @@ its report as one JSON line.
 
 ``--phase zoo`` builds K1 and runs phase 5b alone, and prints its report
 as one JSON line.
+
+``--phase rnn`` builds K3 and runs phase 7c alone, and prints its
+report as one JSON line, then the card's line and the ok line.
 
 ``--phase module`` builds the kernels and runs only phase 7(c), in a
 process no earlier phase has touched, after two A/Bs of the fused step
@@ -1546,40 +1564,65 @@ def _kernel_accuracy(mx, model, model32, np, torch, prompt, stream,
             float((off - ref).abs().max()))
 
 
-def _profiler_records_cuda(torch):
-    """True when torch.profiler records CUDA kernels here, probed on one
-    small product before any request is served in a profiled window."""
+#: how many times a window that recorded no CUDA activity is run again
+#: (late in the full run about half of the short sessions record none)
+PROFILE_ATTEMPTS = 8
+#: sessions of each kind ``profiler_probe`` opens
+PROFILE_PROBES = 20
+
+
+def _busy_ms(events):
+    """The union of the events' device intervals (cuDNN runs some
+    kernels of a call on more than one stream at once), in ms."""
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in events)
+    busy, end = 0.0, None
+    for lo, hi in spans:
+        if end is None or lo > end:
+            busy += hi - lo
+            end = hi
+        elif hi > end:
+            busy += hi - end
+            end = hi
+    return busy / 1e3
+
+
+def _profile(torch, fn, top=8, attempts=PROFILE_ATTEMPTS):
+    """torch.profiler over ``fn()``: wall time, the device's busy time
+    and idle share, the ``top`` kernels that took most device time and
+    every kernel of the port's by its own name, and device time by kind.
+
+    Late in a long run about half of the profiler sessions that last a
+    millisecond or so record no CUDA activity at all (``profiler_probe``
+    measures it; in a fresh process every one does).  This script used
+    to open such a session as a probe before each window and skip the
+    window when the probe recorded nothing.  Now the window itself is
+    the test: one that recorded no CUDA activity is run again, up to
+    ``attempts`` times, and after that the result says so and carries
+    no idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    try:
+    for attempt in range(1, attempts + 1):
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            x = torch.ones(64, 64, device="cuda")
-            float((x @ x).sum())
-    except RuntimeError:
-        return False
-    return any(ev.device_type == DeviceType.CUDA for ev in prof.events())
-
-
-def _profile(torch, fn, top=8):
-    """torch.profiler over ``fn()``: wall time, summed CUDA kernel time
-    and the device's idle share, plus the ``top`` kernels that took most
-    device time and every kernel of the port's by its own name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        device = [ev for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA]
+        if device:
+            break
+    else:
+        return {"error": "not measured: torch.profiler recorded no CUDA "
+                         "activity in %d windows" % attempts,
+                "attempts": attempts, "wall_ms": wall_ms}
     by_name = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) \
-                + ev.time_range.elapsed_us() / 1e3
-    busy = sum(by_name.values())
+    for ev in device:
+        by_name[ev.name] = by_name.get(ev.name, 0.0) \
+            + ev.time_range.elapsed_us() / 1e3
+    busy = _busy_ms(device)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     groups = {}
     for name, t in by_name.items():
@@ -1587,17 +1630,46 @@ def _profile(torch, fn, top=8):
             k in name for k in keys)), "other")
         groups[group] = groups.get(group, 0.0) + t
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "idle_share": (1.0 - busy / wall_ms) if busy > 0 else None,
+            "kernel_ms": sum(by_name.values()),
+            "idle_share": 1.0 - busy / wall_ms, "attempts": attempt,
             "top_kernels_ms": [[n[:80], t] for n, t in ranked],
             "port_kernels_ms": {n[:80]: t for n, t in by_name.items()
                                 if any(k in n for k in _KERNEL_GROUPS[0][1])},
             "by_group_ms": groups}
 
 
+def profiler_probe(torch, windows=PROFILE_PROBES):
+    """How often a short profiler session records CUDA kernels:
+    ``windows`` sessions of one small product each (the probe this
+    script used to run before its profiled windows), and as many of ten
+    products each, counting the kernels each recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(64, 64, device="cuda")
+
+    def kernels(n):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                y = x @ x
+            float(y.sum())
+        return sum(ev.device_type == DeviceType.CUDA
+                   for ev in prof.events())
+
+    one = [kernels(1) for _ in range(windows)]
+    ten = [kernels(10) for _ in range(windows)]
+    return {"windows": windows,
+            "one_product_windows_with_kernels": sum(k > 0 for k in one),
+            "one_product_kernels": one, "ten_product_kernels": ten}
+
+
 # device time by kind, matched on kernel names in this order
 _KERNEL_GROUPS = (
     ("port kernels", ("flash_", "paged_", "adam_multi", "sgd_multi")),
     ("cudnn layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+    ("cudnn recurrence", ("RNN", "rnn_", "LSTM", "lstm", "GRU", "elemWise",
+                          "elementWise_")),
     ("gemm and convolution", ("cudnn", "xmma", "cutlass", "gemm", "sm90_",
                               "sm80_", "implicit_convolve", "wgrad",
                               "dgrad", "conv")),
@@ -1901,11 +1973,7 @@ def serve(mx, ck, np, torch, workdir):
 
         # --- where a served decode step's time goes (device idle share);
         # a failure of the served requests in this window fails the run
-        if _profiler_records_cuda(torch):
-            out["profile"] = _profile_window(srv, torch, prompts)
-        else:
-            out["profile"] = {"error": "not measured: torch.profiler "
-                                       "recorded no CUDA kernels"}
+        out["profile"] = _profile_window(srv, torch, prompts)
         _log("[serve] profile %s" % json.dumps(out["profile"]))
     finally:
         srv.stop()
@@ -2112,11 +2180,7 @@ def _gen_continuous(mx, ck, np, torch, tt, prefix, traffic, prompts):
                "decode_step_ms_p99": tm["serving.decode_step_ms"]["p99"],
                "prefills": prefills, "decode_iterations": decodes,
                "launches": {k: v for k, v in launches.items() if v}}
-        if _profiler_records_cuda(torch):
-            out["profile"] = _profile(torch, burst)
-        else:
-            out["profile"] = {"error": "not measured: torch.profiler "
-                                       "recorded no CUDA kernels"}
+        out["profile"] = _profile(torch, burst)
     finally:
         srv.stop()
         for knob in ("serving.kv_page_size", "serving.kv_pages",
@@ -2503,12 +2567,8 @@ def train(mx, ck, np, torch):
     _log("[train] %s" % json.dumps({k: v for k, v in out.items()
                                     if k != "grad_accuracy"}))
     out["route_ab"] = _train_route_ab(np, torch, step, per_index)
-    if _profiler_records_cuda(torch):
-        out["profile"] = _profile(torch, lambda: [step() for _ in range(3)],
-                                  top=16)
-    else:
-        out["profile"] = {"error": "not measured: torch.profiler recorded "
-                                   "no CUDA kernels"}
+    out["profile"] = _profile(torch, lambda: [step() for _ in range(3)],
+                              top=16)
     _log("[train] profile over 3 steps %s" % json.dumps(out["profile"]))
     return out
 
@@ -2756,13 +2816,8 @@ def bert(mx, ck, np, torch, card):
         "launches": launches})
     _log("[bert] bf16 %s" % json.dumps(
         {k: v for k, v in out.items() if k != "grad_accuracy"}))
-    if _profiler_records_cuda(torch):
-        out["profile"] = _profile(
-            torch, lambda: _bert_steps(np, torch, model, batch, sgd, 3),
-            top=16)
-    else:
-        out["profile"] = {"error": "not measured: torch.profiler recorded "
-                                   "no CUDA kernels"}
+    out["profile"] = _profile(
+        torch, lambda: _bert_steps(np, torch, model, batch, sgd, 3), top=16)
     _log("[bert] profile over 3 steps %s" % json.dumps(out["profile"]))
     del model, params
     torch.cuda.empty_cache()
@@ -2896,7 +2951,6 @@ def train_lm_f32(mx, ck, np, torch, card):
     assert max(errs.values()) <= LM32_GRAD_TOL, errs
     del on, off
     index = list(range(len(params)))
-    profiled = _profiler_records_cuda(torch)
     for route, tier in (("on", True), ("off", False)):
         with torch.no_grad():
             for p, w in zip(params, start):
@@ -2939,9 +2993,7 @@ def train_lm_f32(mx, ck, np, torch, card):
             if tier:
                 assert losses[-1] < losses[0], losses
             prof = _profile(torch, lambda: [step() for _ in range(3)],
-                            top=12) if profiled else {
-                "error": "not measured: torch.profiler recorded no CUDA "
-                         "kernels"}
+                            top=12)
         finally:
             mx.config.unset("kernels.enabled")
         med = float(np.median(step_ms))
@@ -3202,12 +3254,8 @@ def train_resnet(mx, ck, np, torch, card):
                                                      "sgd_routes")}))
     if not out["loss_fell"]:
         _log("[resnet] NOTE: the loss did not fall over the counted steps")
-    if _profiler_records_cuda(torch):
-        out["profile"] = _profile(
-            torch, lambda: [tr.step(data, label) for _ in range(3)], top=16)
-    else:
-        out["profile"] = {"error": "not measured: torch.profiler recorded "
-                                   "no CUDA kernels"}
+    out["profile"] = _profile(
+        torch, lambda: [tr.step(data, label) for _ in range(3)], top=16)
     _log("[resnet] profile over 3 steps %s" % json.dumps(out["profile"]))
     del tr
     torch.cuda.empty_cache()
@@ -3512,12 +3560,8 @@ def zoo_train(mx, ck, np, torch, card, name, side, workdir):
     _log("[zoo-train] %s %s" % (name, json.dumps(
         {k: v for k, v in out.items() if k not in ("bf16_vs_f32",
                                                    "sgd_routes")})))
-    if _profiler_records_cuda(torch):
-        out["profile"] = _profile(
-            torch, lambda: [tr.step(data, label) for _ in range(3)], top=12)
-    else:
-        out["profile"] = {"error": "not measured: torch.profiler recorded "
-                                   "no CUDA kernels"}
+    out["profile"] = _profile(
+        torch, lambda: [tr.step(data, label) for _ in range(3)], top=12)
     _log("[zoo-train] %s profile over 3 steps %s"
          % (name, json.dumps(out["profile"])))
     from mxnet_tpu_torch.gluon import nn as tnn
@@ -5525,12 +5569,12 @@ def ops_widths(mx, np, torch, dev="gpu"):
     return rows
 
 
-def _htod_copies(torch, fn, workdir, calls=5, attempts=3):
+def _htod_copies(torch, fn, workdir, calls=5, attempts=PROFILE_ATTEMPTS):
     """The host-to-device copies a ``torch.profiler`` window over
     ``calls`` calls of ``fn()`` records, as their byte counts (from the
     exported trace's ``bytes``; -1 where it gives none); None when no
     window of ``attempts`` records any CUDA activity (late in a long
-    process a window can come back empty: the resnet phase's too)."""
+    process a window can come back empty: see ``_profile``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(attempts):
@@ -5778,13 +5822,567 @@ def ops_phase(mx, ck, np, torch, dev="gpu"):
     return out
 
 
+# ------------------------------------------------------------ phase rnn
+# examples/rnn_lm.py and examples/rnn_bucketing.py, carried over: their
+# model, corpus and batching, built from whichever package is passed in
+def rnn_lm_model(gluon, vocab, embed, hidden, layers, dropout=0.2):
+    """``examples/rnn_lm.py``'s ``RNNModel`` over ``gluon`` (Embedding,
+    Dropout, a fused ``rnn.LSTM`` of TNC layout, a Dense decoder)."""
+    nn, rnn = gluon.nn, gluon.rnn
+
+    class RNNModel(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.embedding = nn.Embedding(vocab, embed)
+                self.drop = nn.Dropout(dropout)
+                self.lstm = rnn.LSTM(hidden, num_layers=layers,
+                                     dropout=dropout, input_size=embed)
+                self.decoder = nn.Dense(vocab, flatten=False,
+                                        in_units=hidden)
+
+        def hybrid_forward(self, F, x, states):
+            emb = self.drop(self.embedding(x))
+            out, states = self.lstm(emb, states)
+            return self.decoder(self.drop(out)), states
+
+        def begin_state(self, batch_size, **kwargs):
+            return self.lstm.begin_state(batch_size=batch_size, **kwargs)
+
+    return RNNModel()
+
+
+def lm_corpus(np, vocab, n, seed=0):
+    """``examples/rnn_lm.py``'s ``synthetic_corpus``: a Markov chain
+    ``t+1 = (3 t + noise) % vocab``."""
+    rng = np.random.RandomState(seed)
+    toks = np.zeros(n, np.int64)
+    for i in range(1, n):
+        toks[i] = (toks[i - 1] * 3 + rng.randint(0, 3)) % vocab
+    return toks
+
+
+def lm_batches(toks, batch_size, seq_len):
+    """``examples/rnn_lm.py``'s ``batchify``: ([T, B] inputs, targets)."""
+    n = (len(toks) - 1) // (batch_size * seq_len) * batch_size * seq_len
+    x = toks[:n].reshape(batch_size, -1).T
+    y = toks[1:n + 1].reshape(batch_size, -1).T
+    return [(x[i:i + seq_len], y[i:i + seq_len])
+            for i in range(0, x.shape[0] - seq_len + 1, seq_len)]
+
+
+def bucket_corpus(np, n_sentences, vocab, seed=0):
+    """``examples/rnn_bucketing.py``'s ``synthetic_corpus``: sentences of
+    8, 16 or 24 tokens following ``t -> (5 t + 3) % vocab``."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n_sentences):
+        length = int(rng.choice([8, 16, 24]))
+        t = int(rng.randint(1, vocab))
+        sent = [t]
+        for _ in range(length - 1):
+            t = (5 * t + 3) % vocab or 1
+            if rng.uniform() < 0.05:
+                t = int(rng.randint(1, vocab))
+            sent.append(t)
+        out.append(sent)
+    return out
+
+
+def bucket_cell(mx, hidden, layers, fused):
+    """``examples/rnn_bucketing.py``'s cell: ``layers`` unrolled
+    ``LSTMCell``s, or one ``FusedRNNCell`` (``--fused``)."""
+    if fused:
+        return mx.rnn.FusedRNNCell(hidden, num_layers=layers, mode="lstm",
+                                   prefix="lstm_")
+    cell = mx.rnn.SequentialRNNCell()
+    for i in range(layers):
+        cell.add(mx.rnn.LSTMCell(hidden, prefix="lstm_l%d_" % i))
+    return cell
+
+
+def bucket_sym_gen(mx, cell, vocab, embed, hidden):
+    """``examples/rnn_bucketing.py``'s ``sym_gen``: Embedding, the cell
+    unrolled to the bucket's length, a Dense readout, SoftmaxOutput."""
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        emb = mx.sym.Embedding(data, input_dim=vocab, output_dim=embed,
+                               name="embed")
+        cell.reset()
+        outputs, _ = cell.unroll(seq_len, inputs=emb, merge_outputs=True)
+        pred = mx.sym.FullyConnected(
+            mx.sym.Reshape(outputs, shape=(-1, hidden)), num_hidden=vocab,
+            name="pred")
+        lab = mx.sym.Reshape(label, shape=(-1,))
+        return (mx.sym.SoftmaxOutput(pred, lab, name="softmax"),
+                ("data",), ("softmax_label",))
+    return sym_gen
+
+
+#: phase rnn(a): the RNN op at the LM's widths, card against CPU
+RNN_T, RNN_B, RNN_WIDTH = 35, 32, 650
+RNN_OP_CASES = tuple((mode, layers, bi) for mode in (
+    "lstm", "gru", "rnn_tanh", "rnn_relu") for layers in (1, 2)
+    for bi in (False, True))
+#: card against CPU, per tensor: max |card - cpu| over the CPU tensor's
+#: largest magnitude.  Both run f32 recurrences (TF32 off) that sum each
+#: 650-long product in another order (~1e-6 relative a product) and
+#: carry it through 35 steps, where the gates' sigmoid/tanh damp it; the
+#: gradients of the blob and the data sum 1120 such terms.  1e-4 leaves
+#: a wide margin over that and is far below a wrong gate or direction.
+RNN_OP_RTOL = 1e-4
+#: ReLU's derivative jumps at 0: a pre-activation within f32 rounding of
+#: the kink (|z| below RNN_KINK_REL of the largest |z|; the forward
+#: agrees to ~1e-6) may fall on either side on the card and the CPU, and
+#: its unit's gradient, carried back through the steps, then differs by
+#: its whole size.  Where the CPU's own recurrence has such a unit, the
+#: f32 gradients are reported, and the gradients are held to
+#: RNN_OP_RTOL in f64 instead (cuDNN's f64 recurrence against the CPU's,
+#: where no rounding reaches the kink).
+RNN_KINK_REL = 1e-5
+RNN_TIMED = (("lstm", 2, False), ("lstm", 2, True))
+RNN_ITERS = 20
+#: phase rnn(b): examples/rnn_lm.py at MXNet's example/rnn/word_lm width
+#: (Zaremba et al. 2014 "medium" PTB): its dropout, Adam and lr
+LM_VOCAB, LM_EMBED, LM_HIDDEN, LM_LAYERS = 10000, 650, 650, 2
+LM_BPTT, LM_BATCH, LM_DROPOUT, LM_LR = 35, 32, 0.2, 0.01
+LM_TOKENS, LM_WARMUP, LM_STEPS = 40000, 3, 20
+#: phase rnn(c): examples/rnn_bucketing.py at MXNet's example/rnn/
+#: bucketing width, its sentence lengths 8/16/24, its Adam and lr
+BK_VOCAB, BK_EMBED, BK_HIDDEN, BK_LAYERS = 10000, 200, 200, 2
+BK_BATCH, BK_SENTENCES, BK_LR, BK_STEPS = 32, 800, 0.01, 20
+
+
+def _rel_err(np, got, want):
+    scale = max(float(np.abs(want).max()), 1e-30)
+    return float(np.abs(got.astype(np.float64) - want).max()) / scale
+
+
+def _rnn_op_run(mx, np, arrays, heads, ctx, attrs):
+    """``mx.nd.RNN`` under ``record()`` on ``ctx``: outputs and the
+    gradients of every input, as numpy."""
+    with ctx:
+        nds = [mx.nd.array(a) for a in arrays]
+        for a in nds:
+            a.attach_grad()
+        with mx.autograd.record():
+            outs = mx.nd.RNN(*nds, **attrs)
+        n = 3 if attrs["mode"] == "lstm" else 2
+        mx.autograd.backward(list(outs[:n]),
+                             [mx.nd.array(h) for h in heads[:n]])
+        return ([o.asnumpy() for o in outs],
+                [a.grad.asnumpy() for a in nds])
+
+
+def _rnn_op_inputs(np, mode, layers, bi, seed):
+    from mxnet_tpu_torch.rnn._fused_layout import fused_rnn_param_size
+    w = RNN_WIDTH
+    d = 2 if bi else 1
+    rng = np.random.RandomState(seed)
+    n = fused_rnn_param_size(w, w, layers, mode, bi)
+    # PyTorch's own recurrent init range, U(-1/sqrt(H), 1/sqrt(H))
+    scale = 1.0 / np.sqrt(w)
+    arrays = [rng.randn(RNN_T, RNN_B, w).astype(np.float32),
+              rng.uniform(-scale, scale, n).astype(np.float32),
+              (0.5 * rng.randn(layers * d, RNN_B, w)).astype(np.float32)]
+    if mode == "lstm":
+        arrays.append((0.5 * rng.randn(layers * d, RNN_B, w))
+                      .astype(np.float32))
+    heads = [rng.randn(RNN_T, RNN_B, d * w).astype(np.float32),
+             rng.randn(layers * d, RNN_B, w).astype(np.float32),
+             rng.randn(layers * d, RNN_B, w).astype(np.float32)]
+    return arrays, heads
+
+
+def _rnn_op_timing(mx, np, torch, mode, layers, bi, dev):
+    """The op (forward; forward and backward) beside one ``torch.nn.LSTM``
+    call over the same weights (flattened once, as the module keeps
+    them), by CUDA events; and each one's device time by kind, whose
+    copies are the op's repacking of the blob into cuDNN's buffer."""
+    from mxnet_tpu_torch.ops.registry import get
+    from mxnet_tpu_torch.rnn._fused_layout import fused_rnn_group_slices
+    arrays, heads = _rnn_op_inputs(np, mode, layers, bi, 1)
+    x, blob, h0, c0 = [torch.as_tensor(a, device=dev) for a in arrays]
+    op = get("RNN").fn
+    attrs = dict(state_size=RNN_WIDTH, num_layers=layers,
+                 bidirectional=bi, mode=mode)
+    lstm = torch.nn.LSTM(RNN_WIDTH, RNN_WIDTH, num_layers=layers,
+                         bidirectional=bi).to(dev)
+    gb = 4 * RNN_WIDTH
+    groups = fused_rnn_group_slices(RNN_WIDTH, RNN_WIDTH, layers, mode, bi)
+    with torch.no_grad():
+        for k, (iw, ish, hw, hsh, ib, hb) in enumerate(groups):
+            layer, direction = divmod(k, 2 if bi else 1)
+            sfx = "_l%d%s" % (layer, "_reverse" if direction else "")
+            getattr(lstm, "weight_ih" + sfx).copy_(
+                blob[iw:iw + gb * ish[1]].view(ish))
+            getattr(lstm, "weight_hh" + sfx).copy_(
+                blob[hw:hw + gb * RNN_WIDTH].view(hsh))
+            getattr(lstm, "bias_ih" + sfx).copy_(blob[ib:ib + gb])
+            getattr(lstm, "bias_hh" + sfx).copy_(blob[hb:hb + gb])
+    lstm.flatten_parameters()
+    with torch.no_grad():
+        ours = op(x, blob, h0, c0, **attrs)
+        theirs = lstm(x, (h0, c0))
+    agree = max(float((ours[0] - theirs[0]).abs().max()),
+                float((ours[1] - theirs[1][0]).abs().max()),
+                float((ours[2] - theirs[1][1]).abs().max()))
+    xg = x.clone().requires_grad_(True)
+    bg = blob.clone().requires_grad_(True)
+    dout = torch.as_tensor(heads[0], device=dev)
+
+    def op_fwd():
+        with torch.no_grad():
+            op(x, blob, h0, c0, **attrs)
+
+    def lstm_fwd():
+        with torch.no_grad():
+            lstm(x, (h0, c0))
+
+    def op_train():
+        out = op(xg, bg, h0, c0, **attrs)[0]
+        torch.autograd.grad(out, (xg, bg), dout)
+
+    def lstm_train():
+        out = lstm(xg, (h0, c0))[0]
+        torch.autograd.grad(out, [xg] + list(lstm.parameters()), dout)
+
+    res = {"case": [mode, layers, bi], "max_abs_vs_nn_lstm": agree}
+    for name, fn in (("op_forward", op_fwd), ("nn_lstm_forward", lstm_fwd),
+                     ("op_train", op_train), ("nn_lstm_train", lstm_train)):
+        res[name + "_ms"] = _time_ms(fn, iters=RNN_ITERS)
+        prof = _profile(torch, lambda: [fn() for _ in range(RNN_ITERS)],
+                        top=6)
+        res[name + "_profile"] = prof
+    for run in ("forward", "train"):
+        groups_op = res["op_%s_profile" % run].get("by_group_ms", {})
+        groups_nn = res["nn_lstm_%s_profile" % run].get("by_group_ms", {})
+        if groups_op and groups_nn:
+            res["repack_device_ms_%s" % run] = (
+                groups_op.get("copies and casts", 0.0)
+                - groups_nn.get("copies and casts", 0.0)) / RNN_ITERS
+        else:
+            res["repack_device_ms_%s" % run] = "not measured"
+    res["blob_bytes"] = blob.numel() * 4
+    return res
+
+
+def _relu_kinks(np, torch, arrays, layers, bi):
+    """Pre-activations of the relu recurrence within RNN_KINK_REL of the
+    largest, recomputed step by step in f64 on the host from the same
+    inputs."""
+    from mxnet_tpu_torch.rnn._fused_layout import fused_rnn_group_slices
+    w = RNN_WIDTH
+    x, blob, h0 = (torch.as_tensor(a, dtype=torch.float64)
+                   for a in arrays[:3])
+    d = 2 if bi else 1
+    groups = fused_rnn_group_slices(w, w, layers, "rnn_relu", bi)
+    zs = []
+    inp = x
+    for layer in range(layers):
+        outs = []
+        for k in range(d):
+            iw, ish, hw, hsh, ib, hb = groups[layer * d + k]
+            wi = blob[iw:iw + w * ish[1]].view(ish)
+            wh = blob[hw:hw + w * w].view(hsh)
+            proj = inp @ wi.T + blob[ib:ib + w]
+            h = h0[layer * d + k]
+            steps = range(RNN_T) if k == 0 else range(RNN_T - 1, -1, -1)
+            seq = [None] * RNN_T
+            for t in steps:
+                z = proj[t] + h @ wh.T + blob[hb:hb + w]
+                zs.append(z.abs().reshape(-1))
+                h = torch.relu(z)
+                seq[t] = h
+            outs.append(torch.stack(seq))
+        inp = torch.cat(outs, -1)
+    z = torch.cat(zs)
+    return int((z < RNN_KINK_REL * float(z.max())).sum())
+
+
+def rnn_op_checks(mx, np, torch, dev="gpu"):
+    """Phase rnn(a): ``mx.nd.RNN`` on the card against the CPU in every
+    mode, 1 and 2 layers, one- and two-directional, at the LM's widths:
+    outputs, ``h_n``, ``c_n`` and the gradients of the data, the blob and
+    the states within RNN_OP_RTOL; then the op timed beside
+    ``torch.nn.LSTM`` (RNN_TIMED)."""
+    card = mx.gpu(0) if dev == "gpu" else mx.cpu()
+    cases = []
+    for k, (mode, layers, bi) in enumerate(RNN_OP_CASES):
+        arrays, heads = _rnn_op_inputs(np, mode, layers, bi, k)
+        attrs = dict(state_size=RNN_WIDTH, num_layers=layers,
+                     bidirectional=bi, mode=mode)
+        names = ("out", "h_n", "c_n", "d_data", "d_parameters", "d_state",
+                 "d_state_cell")
+        got_o, got_g = _rnn_op_run(mx, np, arrays, heads, card, attrs)
+        want_o, want_g = _rnn_op_run(mx, np, arrays, heads, mx.cpu(), attrs)
+        errs = {name: _rel_err(np, g, w) for name, g, w in zip(
+            names, got_o + got_g, want_o + want_g)}
+        rec = {"mode": mode, "layers": layers, "bidirectional": bi,
+               "rel_err": errs, "max_rel_err": max(errs.values()),
+               "finite": all(bool(np.isfinite(a).all())
+                             for a in got_o + got_g)}
+        gated = errs
+        if mode == "rnn_relu":
+            rec["kinks"] = _relu_kinks(np, torch, arrays, layers, bi)
+        if rec.get("kinks"):
+            wide = [a.astype(np.float64) for a in arrays]
+            hw = [h.astype(np.float64) for h in heads]
+            mx.config.set("numpy.enable_x64", True)
+            try:
+                got_o, got_g = _rnn_op_run(mx, np, wide, hw, card, attrs)
+                want_o, want_g = _rnn_op_run(mx, np, wide, hw, mx.cpu(),
+                                             attrs)
+            finally:
+                mx.config.unset("numpy.enable_x64")
+            assert got_o[0].dtype == np.float64, got_o[0].dtype
+            rec["rel_err_f64"] = {name: _rel_err(np, g, w) for name, g, w
+                                  in zip(names, got_o + got_g,
+                                         want_o + want_g)}
+            gated = dict(rec["rel_err_f64"], out=errs["out"],
+                         h_n=errs["h_n"])
+        rec["ok"] = rec["finite"] and max(gated.values()) <= RNN_OP_RTOL
+        _log("[rnn-op] %s" % json.dumps(rec))
+        cases.append(rec)
+    out = {"shape": {"T": RNN_T, "B": RNN_B, "I": RNN_WIDTH,
+                     "H": RNN_WIDTH}, "rel_tol": RNN_OP_RTOL,
+           "cases": cases}
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError("RNN op: card against CPU beyond %g: %s"
+                             % (RNN_OP_RTOL, json.dumps(bad)))
+    if dev == "gpu":
+        out["timing"] = [_rnn_op_timing(mx, np, torch, *c, "cuda")
+                         for c in RNN_TIMED]
+        _log("[rnn-op] timing %s" % json.dumps(out["timing"]))
+    return out
+
+
+def train_rnn_lm(mx, ck, np, torch, card):
+    """Phase rnn(b): ``examples/rnn_lm.py`` at LM_* (its loop: detached
+    states, ``record()``, the mean cross entropy, ``backward``,
+    ``gluon.Trainer.step``, the loss read back each step): LM_WARMUP
+    steps, then LM_STEPS counted steps (no port kernel may launch: the
+    f32 Trainer's Adam is PyTorch ops), a falling finite loss, tokens/s,
+    and a profiled window of 3 steps."""
+    from mxnet_tpu_torch import telemetry as tt
+    toks = lm_corpus(np, LM_VOCAB, LM_TOKENS)
+    batches = lm_batches(toks, LM_BATCH, LM_BPTT)
+    assert len(batches) >= LM_WARMUP + LM_STEPS + 3, len(batches)
+    mx.random.seed(SEED)
+    model = rnn_lm_model(mx.gluon, LM_VOCAB, LM_EMBED, LM_HIDDEN,
+                         LM_LAYERS, LM_DROPOUT)
+    model.initialize(mx.init.Xavier())
+    trainer = mx.gluon.Trainer(model.collect_params(), "adam",
+                               {"learning_rate": LM_LR})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    states = model.begin_state(LM_BATCH)
+    feed = iter(batches)
+
+    def step():
+        nonlocal states
+        x, y = next(feed)
+        xb = mx.nd.array(x.astype(np.float32))
+        yb = mx.nd.array(y.astype(np.float32))
+        states = [s.detach() for s in states]
+        with mx.autograd.record():
+            out, states = model(xb, states)
+            loss = loss_fn(out.reshape((-1, LM_VOCAB)),
+                           yb.reshape((-1,))).mean()
+        loss.backward()
+        trainer.step(1)
+        return float(loss.asnumpy())
+
+    for _ in range(LM_WARMUP):
+        step()
+    _zero_counts(torch, tt, ck)
+    losses, step_ms = [], []
+    for _ in range(LM_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(ck.LAUNCHES)
+    assert launches == _want_launches(ck), launches
+    med = float(np.median(step_ms))
+    out = {"config": {"vocab": LM_VOCAB, "embed": LM_EMBED,
+                      "hidden": LM_HIDDEN, "layers": LM_LAYERS,
+                      "bptt": LM_BPTT, "batch": LM_BATCH,
+                      "dropout": LM_DROPOUT, "optimizer": "adam",
+                      "lr": LM_LR},
+           "params": sum(p.data().size for p in
+                         model.collect_params().values()),
+           "card": card, "steps": LM_STEPS, "losses": losses,
+           "step_ms": step_ms, "median_step_ms": med,
+           "tokens_per_s": LM_BPTT * LM_BATCH / (med / 1e3),
+           "launches": launches,
+           "losses_finite": bool(np.isfinite(losses).all()),
+           "loss_fell": losses[-1] < losses[0]}
+    assert out["losses_finite"] and out["loss_fell"], losses
+    out["profile"] = _profile(torch, lambda: [step() for _ in range(3)],
+                              top=12)
+    _log("[rnn-lm] %s" % json.dumps(out))
+    return out
+
+
+def _k3_real_step(ck, torch, mod, batch):
+    """One BucketingModule step whose fused update (``step_fused_multi``,
+    one K3 launch) is held bitwise against ``fused_adam_step_multi_plain``
+    on copies of the same weights, moments and gradients."""
+    opt = mod._buckets[mod.default_bucket_key]._optimizer
+    real = opt.step_fused_multi
+    seen = {}
+
+    def spy(weights, grads, states, lrs, wds, t, outs=None):
+        ts = t if isinstance(t, (list, tuple)) else [t] * len(weights)
+        copies = [(w.clone(), s[0].clone(), s[1].clone())
+                  for w, s in zip(weights, states)]
+        gs = [g.clone() for g in grads]
+        lr_ts = [opt._lr_t_of(lr, ti) for lr, ti in zip(lrs, ts)]
+        before = ck.LAUNCHES["adam_step"]
+        real(weights, grads, states, lrs, wds, t, outs)
+        seen["launches"] = ck.LAUNCHES["adam_step"] - before
+        ck.fused_adam_step_multi_plain(
+            [c[0] for c in copies], [g.contiguous() for g in gs],
+            [c[1] for c in copies], [c[2] for c in copies], lr_ts, wds,
+            opt.beta1, opt.beta2, opt.epsilon)
+        diff = {"weights": 0, "m": 0, "v": 0}
+        for w, s, (cw, cm, cv) in zip(weights, states, copies):
+            diff["weights"] += _differing(torch, w, cw)
+            diff["m"] += _differing(torch, s[0], cm)
+            diff["v"] += _differing(torch, s[1], cv)
+        seen["differing"] = diff
+        seen["tensors"] = len(weights)
+        seen["elements"] = sum(w.numel() for w in weights)
+
+    opt.step_fused_multi = spy
+    try:
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+    finally:
+        del opt.step_fused_multi
+    assert seen.get("launches") == 1 \
+        and sum(seen["differing"].values()) == 0, seen
+    return seen
+
+
+def _bucket_loss(np, mod, batch):
+    """Mean cross entropy of the step's softmax over the non-pad labels
+    (label 0 is the pad, as ``Perplexity(ignore_label=0)`` reads it)."""
+    prob = mod.get_outputs()[0]._data
+    lab = batch.label[0]._data.reshape(-1).long()
+    keep = lab != 0
+    p = prob.gather(1, lab[:, None])[:, 0]
+    return float((-p[keep].log()).mean())
+
+
+def train_bucketing(mx, ck, np, torch, card, fused):
+    """Phase rnn(c): ``examples/rnn_bucketing.py`` at BK_* through
+    ``BucketingModule`` (``--fused``: ``FusedRNNCell`` -> the ``RNN``
+    op).  A step on each bucket to build them, one step with K3 bitwise
+    against its plain version, then BK_STEPS counted steps across the
+    three buckets: exactly one adam_step launch a step and no other
+    kernel, step ms by bucket, the host time a step takes to return, the
+    losses, and a profiled window of 3 steps."""
+    import random as pyrandom
+    from mxnet_tpu_torch import telemetry as tt
+    sentences = bucket_corpus(np, BK_SENTENCES, BK_VOCAB)
+    pyrandom.seed(SEED)
+    np.random.seed(SEED)
+    it = mx.rnn.BucketSentenceIter(sentences, BK_BATCH, invalid_label=0)
+    cell = bucket_cell(mx, BK_HIDDEN, BK_LAYERS, fused)
+    mod = mx.mod.BucketingModule(
+        bucket_sym_gen(mx, cell, BK_VOCAB, BK_EMBED, BK_HIDDEN),
+        default_bucket_key=it.default_bucket_key)
+    mod.bind(it.provide_data, it.provide_label)
+    mx.random.seed(SEED)
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": BK_LR})
+
+    def batches():
+        while True:
+            for b in it:
+                yield b
+            it.reset()
+
+    feed = batches()
+    seen = set()
+    while seen != set(it.buckets):
+        b = next(feed)
+        mod.train_step(b)
+        seen.add(b.bucket_key)
+    out = {"config": {"vocab": BK_VOCAB, "embed": BK_EMBED,
+                      "hidden": BK_HIDDEN, "layers": BK_LAYERS,
+                      "batch": BK_BATCH, "buckets": list(it.buckets),
+                      "fused": fused, "optimizer": "adam", "lr": BK_LR},
+           "card": card}
+    out["k3_vs_plain"] = _k3_real_step(ck, torch, mod, next(feed))
+    _zero_counts(torch, tt, ck)
+    keys, losses, step_ms, host_ms = [], [], [], []
+    for _ in range(BK_STEPS):
+        b = next(feed)
+        t0 = time.perf_counter()
+        mod.train_step(b)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        keys.append(b.bucket_key)
+        losses.append(_bucket_loss(np, mod, b))
+    launches = dict(ck.LAUNCHES)
+    c = tt.snapshot()["counters"]
+    tensors = out["k3_vs_plain"]["tensors"]
+    assert launches == _want_launches(ck, adam_step=BK_STEPS), launches
+    assert c.get("fused_steps", 0) == BK_STEPS, c
+    assert c.get("kernels.fused_step", 0) == tensors * BK_STEPS, c
+    assert set(keys) == set(it.buckets), keys
+    assert all(np.isfinite(losses)), losses
+    by_bucket = {}
+    for k, ms, hm in zip(keys, step_ms, host_ms):
+        by_bucket.setdefault(k, {"step_ms": [], "host_ms": []})
+        by_bucket[k]["step_ms"].append(ms)
+        by_bucket[k]["host_ms"].append(hm)
+    for k, rec in by_bucket.items():
+        rec["median_step_ms"] = float(np.median(rec["step_ms"]))
+        rec["median_host_ms"] = float(np.median(rec["host_ms"]))
+        rec["tokens_per_s"] = BK_BATCH * k / (rec["median_step_ms"] / 1e3)
+    out.update({"steps": BK_STEPS, "bucket_keys": keys, "losses": losses,
+                "launches": launches, "tensors": tensors,
+                "fused_steps": c.get("fused_steps", 0),
+                "kernels_fused_step": c.get("kernels.fused_step", 0),
+                "by_bucket": by_bucket,
+                "host_share": float(np.sum(host_ms) / np.sum(step_ms))})
+    out["profile"] = _profile(
+        torch, lambda: [mod.train_step(next(feed)) for _ in range(3)],
+        top=12)
+    _log("[rnn-bucketing] %s %s" % ("fused" if fused else "unrolled",
+                                    json.dumps(out)))
+    return out
+
+
+def rnn_phase(mx, ck, np, torch, card):
+    """Phase rnn: the profiler probe, (a) the RNN op card against CPU and
+    timed, (b) the Gluon LSTM language model, (c) the bucketed LSTM,
+    unrolled and fused."""
+    out = {"profiler_probe": profiler_probe(torch)}
+    _log("[rnn] profiler probe %s" % json.dumps(out["profiler_probe"]))
+    out["op"] = rnn_op_checks(mx, np, torch)
+    out["lm"] = train_rnn_lm(mx, ck, np, torch, card)
+    out["bucketing"] = {
+        "unrolled": train_bucketing(mx, ck, np, torch, card, False),
+        "fused": train_bucketing(mx, ck, np, torch, card, True)}
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the full report (JSON) "
                     "to this path")
     ap.add_argument("--phase", choices=("all", "attention", "optimizer",
                                         "module", "bert", "lm_f32",
-                                        "generation", "ops", "zoo"),
+                                        "generation", "ops", "zoo", "rnn"),
                     default="all",
                     help="attention: the flash forward and backward checks "
                     "of phase 2 alone; optimizer: phase 2's K3 and K1 "
@@ -5797,7 +6395,10 @@ def main(argv=None):
                     "phase ops alone (the op library's sweep, model "
                     "widths and update ops); zoo: phase 5b alone (the "
                     "model zoo's inference across nine networks, and "
-                    "VGG-16 and Inception v3 training through K1)")
+                    "VGG-16 and Inception v3 training through K1); rnn: "
+                    "phase rnn alone (the RNN op card against CPU, the "
+                    "Gluon LSTM LM, the bucketed LSTM through K3), "
+                    "ending in the card and ok lines")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5837,7 +6438,7 @@ def main(argv=None):
          "lm_f32": ["flash_f32", "adam_step"],
          "generation": ["flash_f32", "paged_attn"],
          "ops": ["sgd_step", "adam_step"],
-         "zoo": ["sgd_step"]}.get(args.phase))
+         "zoo": ["sgd_step"], "rnn": ["adam_step"]}.get(args.phase))
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "per_source_s": {k: v["seconds"]
                                         for k, v in built.items()},
@@ -5973,6 +6574,16 @@ def main(argv=None):
         print(json.dumps({k: v for k, v in report.items()
                           if k != "build"}))
         return 0
+    if args.phase == "rnn":
+        report["rnn"] = rnn_phase(mx, ck, np, torch, card)
+        _write_report(args.report, report)
+        print(json.dumps({k: v for k, v in report.items()
+                          if k != "build"}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.phase == "module":
         report["lr_t_ab"] = lr_t_ab(mx, np, torch)
         report["launch_ab"] = launch_ab(mx, np, torch)
@@ -6018,7 +6629,10 @@ def main(argv=None):
     report["rtc_ops"] = rtc_ops(mx, ck, torch, rtc_kernels)
     report["module"] = train_module(mx, ck, np, torch, card, workdir)
     report["ops"] = ops_phase(mx, ck, np, torch)
+    report["rnn"] = rnn_phase(mx, ck, np, torch, card)
     module_adam = report["module"]["fused"]["launches"]["adam_step"]
+    rnn_adam = {"rnn_bucketing_" + kind: run["launches"]["adam_step"]
+                for kind, run in report["rnn"]["bucketing"].items()}
     resnet_adam = report["resnet"]["adam"]["launches"]["adam_step"]
     f16_adam = report["f16"]["adam"]["launches"]["adam_step"]
     f16_sgd = report["f16"]["sgd"]["launches"]["sgd_step"]
@@ -6060,13 +6674,15 @@ def main(argv=None):
          "source": "mxnet_tpu_torch/csrc/adam_step.cu",
          "replaces": pk + "518",
          "launches": (trained["adam_step"] + module_adam + f16_adam
-                      + resnet_adam + bert_adam + lm32["adam_step"]),
-         "launches_by_path": {"train": trained["adam_step"],
-                              "module_mlp": module_adam,
-                              "f16_trainer": f16_adam,
-                              "resnet_spmd_adam": resnet_adam,
-                              "bert_adam": bert_adam,
-                              "lm_f32": lm32["adam_step"]},
+                      + resnet_adam + bert_adam + lm32["adam_step"]
+                      + sum(rnn_adam.values())),
+         "launches_by_path": dict({"train": trained["adam_step"],
+                                   "module_mlp": module_adam,
+                                   "f16_trainer": f16_adam,
+                                   "resnet_spmd_adam": resnet_adam,
+                                   "bert_adam": bert_adam,
+                                   "lm_f32": lm32["adam_step"]},
+                                  **rnn_adam),
          "max_abs_err": max(c["max_abs_err"] for c in adam),
          "differing_elements": sum(sum(c["differing_elements"].values())
                                    for c in adam),

@@ -34,6 +34,9 @@ Ported so far:
 * BERT pretraining — ``models.BERT`` (the masked-LM and next-sentence
   heads over ``TransformerLM.run_stack``, non-causal attention) and
   ``mx.runtime`` (``Features``, ``scan_stack`` and its remat knobs);
+* the recurrent family — the ``RNN`` op (cuDNN's recurrence),
+  ``gluon.rnn`` and ``gluon.contrib.rnn``, ``mx.rnn``'s symbolic cells
+  and ``BucketSentenceIter``, and ``mx.mod.BucketingModule``;
 
 with hand-written CUDA kernels for flash-attention forward and backward,
 paged decode attention, the fused Adam step, the multi-tensor fused SGD
@@ -59,7 +62,7 @@ from . import initializer as init
 from . import kernels, quantization, models, convert, deploy, serving
 from . import generation, optimizer, lr_scheduler, kvstore, gluon, parallel
 from . import metric, io, callback, engine, rtc, symbol, model, module
-from . import executor, executor_manager, runtime
+from . import executor, executor_manager, runtime, rnn
 from . import symbol as sym
 from . import module as mod
 from . import kvstore as kv
@@ -72,4 +75,4 @@ __all__ = ["MXNetError", "MXNetErrorNoDevice", "KernelUnsupportedError",
            "convert", "deploy", "serving", "generation", "optimizer",
            "lr_scheduler", "kvstore", "kv", "gluon", "parallel", "metric",
            "io", "callback", "engine", "rtc", "symbol", "sym", "model",
-           "module", "mod", "executor", "executor_manager", "runtime"]
+           "module", "mod", "executor", "executor_manager", "runtime", "rnn"]

@@ -12,7 +12,10 @@ import torch
 
 __all__ = ["MXNetError", "MXNetErrorNoDevice", "KernelUnsupportedError",
            "torch_dtype", "canonical_dtype", "numpy_dtype", "bfloat16_numpy",
-           "atomic_write"]
+           "atomic_write", "string_types", "numeric_types"]
+
+string_types = (str,)
+numeric_types = (float, int, _np.generic)
 
 
 class MXNetError(RuntimeError):

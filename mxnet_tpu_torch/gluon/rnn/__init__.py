@@ -1,0 +1,4 @@
+"""Recurrent layers and cells (counterpart of ``mxnet_tpu.gluon.rnn``;
+reference ``python/mxnet/gluon/rnn/``)."""
+from .rnn_cell import *  # noqa: F401,F403
+from .rnn_layer import *  # noqa: F401,F403

@@ -7,7 +7,9 @@ ones, ``*beta`` / ``*bias`` -> zeros, ``*running_mean`` /
 anything else -> ``_init_weight``.  ``generate(gen, shape, dtype, name)``
 draws from an explicit CPU ``torch.Generator`` (``mx.random``) and
 returns a CPU tensor, which the parameter then places on its device.
-``FusedRNN`` waits for the fused RNN layers.
+``FusedRNN`` fills a fused RNN's flat parameter blob region by region
+(``rnn/_fused_layout.py``) or, by name, the gate-stacked parameters of
+the Gluon RNN layers.
 ``init(desc, arr)`` (also ``init.init``) is the reference's calling
 convention: it sets the NDArray ``arr`` from the next generator of
 ``mx.random``'s stream, and an ``InitDesc`` whose attrs carry
@@ -27,7 +29,7 @@ from .base import torch_dtype
 
 __all__ = ["InitDesc", "Initializer", "register", "create", "Zero", "One",
            "Constant", "Uniform", "Normal", "Orthogonal", "Xavier",
-           "MSRAPrelu", "Bilinear", "LSTMBias", "Mixed", "Load"]
+           "MSRAPrelu", "Bilinear", "LSTMBias", "FusedRNN", "Mixed", "Load"]
 
 _INIT_REGISTRY = {}
 _INIT_ALIASES = {"zero": ("zeros",), "one": ("ones",),
@@ -270,6 +272,80 @@ class LSTMBias(Initializer):
         num_hidden = int(shape[0] / 4)
         b[num_hidden:2 * num_hidden] = self.forget_bias
         return b.to(torch_dtype(dtype))
+
+
+@register
+class FusedRNN(Initializer):
+    """Initialize fused-RNN parameters (reference ``initializer.py:715``).
+
+    The flat blob of ``mx.rnn.FusedRNNCell`` (a 1-D parameter not named
+    ``*bias``) is filled region by region: the weights from ``init`` (or,
+    when it is None, the initializer the Module was given), the biases
+    zeros with ``forget_bias`` in the LSTM's i2h forget-gate rows.  The
+    Gluon layers' separate gate-stacked parameters get the same contract
+    by name."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = create(klass, **kwargs)
+        super().__init__(init=init.dumps() if init is not None else None,
+                         num_hidden=num_hidden, num_layers=num_layers,
+                         mode=mode, bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._inner = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+        self._global = None
+
+    def _init(self, name, arr):
+        # the job's own initializer, for the weights when ``init`` is None
+        # (reference: "Fall back to global initializer if None")
+        self._global = getattr(name, "global_init", None)
+        super()._init(name, arr)
+
+    def _weight_init(self):
+        return self._inner or self._global or Uniform(0.07)
+
+    def generate(self, gen, shape, dtype="float32", name=""):
+        lname = str(name).lower()
+        shape = tuple(shape)
+        if len(shape) == 1 and "bias" not in lname:
+            return self._generate_blob(gen, shape, dtype)
+        if "bias" in lname:
+            b = torch.zeros(shape, dtype=torch.float32)
+            if self._mode == "lstm" and "i2h" in lname:
+                h = self._num_hidden
+                b[h:2 * h] = self._forget_bias
+            return b.to(torch_dtype(dtype))
+        return self._weight_init().generate(gen, shape, dtype, name=name)
+
+    def _generate_blob(self, gen, shape, dtype):
+        from .rnn._fused_layout import (fused_rnn_num_input,
+                                        fused_rnn_regions)
+        h = self._num_hidden
+        ni = fused_rnn_num_input(int(shape[0]), h, self._num_layers,
+                                 self._mode, self._bidirectional)
+        regions, total = fused_rnn_regions(ni, h, self._num_layers,
+                                           self._mode, self._bidirectional)
+        if total != int(shape[0]):
+            raise ValueError("FusedRNN blob size %d does not match the "
+                             "cell geometry %d" % (shape[0], total))
+        weight_init = self._weight_init()
+        blob = torch.zeros((total,), dtype=torch.float32)
+        for rname, off, rshape, kind in regions:
+            size = math.prod(rshape)
+            if kind.endswith("_weight"):
+                blob[off:off + size] = weight_init.generate(
+                    gen, rshape, torch.float32, name=rname).reshape(-1)
+            elif self._mode == "lstm" and kind == "i2h_bias" \
+                    and "_i2h_f_" in rname:
+                blob[off:off + size] = self._forget_bias
+        return blob.to(torch_dtype(dtype))
 
 
 class Mixed:

@@ -68,6 +68,20 @@ def _norm_shapes(shapes, names):
     return out, dtypes
 
 
+class FusedState:
+    """The fused route's optimizer state: the per-name optimizer states
+    (created at a name's first fused step) and the step count.  One
+    object may serve several Modules: a BucketingModule's buckets share
+    their default bucket's, so a bucket switch keeps the moments and the
+    count (reference ``module.py:91``, ``_fused_shared``)."""
+
+    __slots__ = ("state", "t")
+
+    def __init__(self):
+        self.state = {}
+        self.t = 0
+
+
 class Module(BaseModule):
     """Symbolic Module (reference ``python/mxnet/module/module.py:40``);
     see the module docstring for its two train-step routes.  ``context``
@@ -104,9 +118,9 @@ class Module(BaseModule):
         self._inputs_need_grad = False
         # the batch forward_backward deferred for the fused step
         self._pending_batch = None
-        # the fused route's optimizer state (by parameter name) and step
-        self._fused_state = {}
-        self._fused_t = 0
+        # the fused route's optimizer state (by parameter name) and step;
+        # a BucketingModule hands its default bucket's to every bucket
+        self._fused_shared = FusedState()
 
     # ------------------------------------------------------------- binding
     def bind(self, data_shapes, label_shapes=None, for_training=True,
@@ -219,8 +233,7 @@ class Module(BaseModule):
         optimizer.param_idx2name = dict(enumerate(self._param_names))
         self._optimizer = optimizer
         self._updater = opt_mod.get_updater(optimizer)
-        self._fused_state = {}
-        self._fused_t = 0
+        self._fused_shared = FusedState()
         self.optimizer_initialized = True
 
     # ------------------------------------------------------ fused train step
@@ -277,15 +290,16 @@ class Module(BaseModule):
                          for n, v in sorted(feeds.items()))
         fn = exec_.fused_step_fn(wrt, optimizer, feed_sig)
         idxs = tuple(self._param_names.index(n) for n in wrt)
-        state = self._fused_state
+        shared = self._fused_shared
+        state = shared.state
         for n, i in zip(wrt, idxs):
             if n not in state:
                 state[n] = optimizer.create_state(
                     i, exec_.arg_dict[n]._data)
         # one step count for every parameter; eager steps taken before
         # fusion began count too, and the Updater's counts agree after
-        self._fused_t = max(self._fused_t, optimizer.num_update) + 1
-        t = self._fused_t
+        shared.t = max(shared.t, optimizer.num_update) + 1
+        t = shared.t
         optimizer.num_update = max(optimizer.num_update, t)
         for i in idxs:
             optimizer._index_update_count[i] = t

@@ -379,6 +379,7 @@ def _filled(value):
 
 _registry.register("_zeros_shape", differentiable=False)(_filled(0.0))
 _registry.register("_ones_shape", differentiable=False)(_filled(1.0))
+_FILLED_OPS = ("_zeros_shape", "_ones_shape")
 
 
 _NAME_COUNTER = {}
@@ -406,6 +407,8 @@ _OP_INPUT_SLOTS = {
     "LinearRegressionOutput": ("data", "label"),
     "LogisticRegressionOutput": ("data", "label"),
     "MAERegressionOutput": ("data", "label"),
+    # the flat blob of rnn/_fused_layout.py; state_cell only in lstm mode
+    "RNN": ("data", "parameters", "state", "state_cell"),
 }
 
 
@@ -424,6 +427,9 @@ def _make_op_node(opname, inputs, attrs):
             v = slot_vals.get(s)
             if v is None:
                 if s == "bias" and no_bias:
+                    inputs.append(None)
+                    continue
+                if s == "state_cell" and attrs.get("mode", "lstm") != "lstm":
                     inputs.append(None)
                     continue
                 if s == "data":
@@ -458,6 +464,26 @@ def _bn_param_shapes(attrs, dshape):
     return {1: (c,), 2: (c,), 3: (c,), 4: (c,)}
 
 
+def _emb_param_shapes(attrs, dshape):
+    return {1: (int(attrs["input_dim"]), int(attrs["output_dim"]))}
+
+
+def _rnn_param_shapes(attrs, dshape):
+    # data is TNC; the blob's size is the layout's (reference
+    # src/operator/rnn-inl.h GetRnnParamSize)
+    from ..rnn._fused_layout import fused_rnn_param_size
+    h = int(attrs["state_size"])
+    layers = int(attrs.get("num_layers", 1))
+    bi = str(attrs.get("bidirectional", False)) in ("True", "true", "1")
+    mode = attrs.get("mode", "lstm")
+    state = (layers * (2 if bi else 1), dshape[1], h)
+    shapes = {1: (fused_rnn_param_size(dshape[2], h, layers, mode, bi),),
+              2: state}
+    if mode == "lstm":
+        shapes[3] = state
+    return shapes
+
+
 def _softmax_output_label_shape(attrs, dshape):
     # reference SoftmaxOutput FInferShape: the label is (N,) class indices
     return {1: (dshape[0],)}
@@ -475,6 +501,8 @@ _PARAM_SHAPE_RULES = {
     "FullyConnected": _fc_param_shapes,
     "Convolution": _conv_param_shapes,
     "BatchNorm": _bn_param_shapes,
+    "Embedding": _emb_param_shapes,
+    "RNN": _rnn_param_shapes,
 }
 
 # unary ops that keep their input's shape: a parameter's shape may be
@@ -517,6 +545,11 @@ def _infer_shapes_partial(sym, known):
                 out_shapes[(id(node), 0)] = s
             continue
         if node.kind != "op":
+            continue
+        if node.op in _FILLED_OPS:
+            # a symbolic zeros/ones: its shape is its attr's, wherever the
+            # current context would have put the values
+            out_shapes[(id(node), 0)] = _fill_shape(node.attrs["shape"])
             continue
         shapes = [in_shape(x) if x is not None else None
                   for x in node.inputs]

@@ -26,8 +26,6 @@ REF_OPS = {n: op for n, op in _REGISTRY.items()
 # the reference module that registers them and the slice (ROADMAP queue 1)
 # that ports them
 UNPORTED_OPS = {
-    # slice 10 (RNNs)
-    "rnn": {"RNN"},
     # slice 12 (SSD: detection) and slice 13 (quantization)
     "contrib": {"MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
                 "ROIPooling", "bipartite_matching", "box_decode",
@@ -49,7 +47,7 @@ UNPORTED_OPS = {
     # slice 16 (CustomOp, `operator.py`)
     "operator": {"Custom"},
 }
-SLICE_OF_MODULE = {"rnn": "10", "contrib": "12 and 13",
+SLICE_OF_MODULE = {"contrib": "12 and 13",
                    "contrib_extra": "12, 13 and 16", "operator": "16"}
 
 # the array API names the reference has and the port does not, by slice
@@ -68,12 +66,22 @@ UNPORTED_API = {
 }
 
 _SLICE_8_PART_2 = "8 (part 2): the optimizers"
+_SLICE_8_PART_2_MODULES = "8 (part 2): the other Modules"
 # the Gluon, model-zoo, initializer and optimizer names the reference has
 # and the port does not, by surface and slice; a surface is a module's
 # public names (its __all__ where it lists them, so that its own imports
 # do not count) or a class's public attributes
 UNPORTED_SURFACE = {
-    "gluon": {"contrib": "16", "data": "11", "rnn": "10"},
+    "gluon": {"data": "11"},
+    "gluon.rnn": {},
+    "gluon.contrib": {"nn": "16", "cnn": "16", "data": "11",
+                      "estimator": "16"},
+    "gluon.contrib.rnn": {},
+    "rnn": {},
+    "module": {"SequentialModule": _SLICE_8_PART_2_MODULES,
+               "PythonModule": _SLICE_8_PART_2_MODULES,
+               "PythonLossModule": _SLICE_8_PART_2_MODULES},
+    "module.BucketingModule": {},
     "gluon.nn": {},
     "gluon.loss": {},
     "gluon.utils": {},
@@ -87,7 +95,7 @@ UNPORTED_SURFACE = {
                        "list_row_sparse_data": "16"},
     "gluon.model_zoo.vision": {},
     "gluon.model_zoo.model_store": {},
-    "initializer": {"FusedRNN": "10 (the fused RNN layers)"},
+    "initializer": {},
     "optimizer": dict.fromkeys(
         ("AdaDelta", "AdaGrad", "Adamax", "DCASGD", "FTML", "Ftrl",
          "GroupAdaGrad", "LARS", "LBSGD", "NAG", "Nadam", "RMSProp",
