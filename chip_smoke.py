@@ -4,7 +4,7 @@ Usage (from the root of a checkout, one visible CUDA card)::
 
     python3 chip_smoke.py [--report PATH]
                           [--phase attention|optimizer|module|bert|lm_f32|
-                                   generation|ops|zoo|rnn]
+                                   generation|ops|zoo|rnn|data]
 
 Phases; any failure exits non-zero without the result lines:
 
@@ -332,6 +332,36 @@ Phases; any failure exits non-zero without the result lines:
             then BK_STEPS counted steps across the three buckets with
             exactly one adam_step launch each, step ms by bucket and a
             profiled window.  It opens with ``profiler_probe``.
+7d. data   — the data pipeline and the rest of the training API: (a)
+            ``examples/train_imagenet.py``'s record-file path: DATA_BATCHES
+            x DATA_BATCH seeded DATA_SIDE^2 images written as NPYF
+            records, ``mx.io.ImageRecordIter`` (shuffled with its seed,
+            DATA_DECODE_WORKERS decode threads) into resnet50_v1 through
+            ``SPMDTrainer`` SGD, bf16 over f32 masters, DATA_EPOCHS
+            epochs bare and as many through ``io.DevicePrefetcher``
+            (exactly one sgd_step launch a step, the two runs' losses
+            equal, the prefetched batches staged on its thread: io.h2d_async
+            two a batch, io.h2d_sync none), each epoch ending in
+            ``save_checkpoint``; K1 bitwise against its plain version on
+            the record-fed gradients; the same trainer on one device batch
+            (the synthetic rate) and a profiled record-fed window; then a
+            fresh trainer loads the first epoch's checkpoint and its next
+            step's loss, weights and momenta must be bitwise the
+            uninterrupted run's (cuDNN deterministic, no benchmark, for
+            (a) and (d)); (b) ``bench.py`` ``input_pipeline_config``
+            (PIPE_*: its MLP through ``SPMDTrainer`` SGD, K1 once a step)
+            through ``PrefetchingIter`` and ``DevicePrefetcher``,
+            samples/s of each; (c) every registered optimizer on
+            ``examples/rnn_lm.py``'s model at LM_* for OPT_STEPS steps
+            through ``gluon.Trainer`` with ``multi_precision`` (SGD and
+            ccSGD one sgd_step, Adam one adam_step a parameter a step,
+            the others none), finite losses, then one more update on the
+            card against the CPU's from the same weights, gradients and
+            states (bitwise; OPT_REDUCING at OPT_RTOL), and ccSGD on the
+            Module MLP through ``Module.init_optimizer`` (one sgd_step a
+            fused step); (d) resnet50_v1 through ``export(fmt="mxnet")``
+            and ``mx.model.load_checkpoint`` into a ``SymbolBlock``:
+            logits on the card bitwise the source network's.
 8. summary — a ``{"kernels": [...]}`` line, the card's name and power
             limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -376,6 +406,9 @@ as one JSON line.
 ``--phase rnn`` builds K3 and runs phase 7c alone, and prints its
 report as one JSON line, then the card's line and the ok line.
 
+``--phase data`` builds K1 and K3 and runs phase 7d alone, and prints
+its report as one JSON line, then the card's line and the ok line.
+
 ``--phase module`` builds the kernels and runs only phase 7(c), in a
 process no earlier phase has touched, after two A/Bs of the fused step
 (LRT_AB_PAIRS pairs of MLP_STEPS fused steps each, the order
@@ -388,6 +421,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import subprocess
@@ -6376,13 +6410,522 @@ def rnn_phase(mx, ck, np, torch, card):
     return out
 
 
+# --------------------------------------------------------------- phase data
+# (a) examples/train_imagenet.py's record-file path at bench.py one_config's
+# size: resnet50_v1 at BS 128, bf16 over f32 masters, SGD lr 0.1 momentum
+# 0.9 wd 1e-4, DATA_EPOCHS epochs over DATA_BATCHES batches of seeded
+# 256x256x3 uint8 images packed as NPYF records (the card's machine has no
+# PIL), each epoch ending in a checkpoint
+DATA_BATCH = 128
+DATA_BATCHES = 10
+DATA_SIDE = 256
+DATA_SHAPE = (3, 224, 224)
+DATA_EPOCHS = 2
+DATA_CLASSES = 1000
+DATA_DECODE_WORKERS = 4
+DATA_SYNTH_STEPS = 10
+# (b) bench.py input_pipeline_config: its MLP, batch, features and steps
+PIPE_BATCH, PIPE_FEAT, PIPE_BATCHES, PIPE_STEPS = 64, 256, 8, 96
+# (c) examples/rnn_lm.py --optimizer <name> at word_lm's width (LM_*)
+OPT_STEPS = 5
+OPT_PARAMS = {"sgd": {"momentum": 0.9}, "ccsgd": {"momentum": 0.9},
+              "nag": {"momentum": 0.9}, "signum": {"momentum": 0.9},
+              "lars": {"momentum": 0.9}, "dcasgd": {"momentum": 0.9},
+              "rmsprop": {"centered": True}}
+# the CPU parity test's bounds (tests/test_torch_optimizers.py): bitwise,
+# but the optimizers that reduce (a norm, a row mean) at rtol 1e-6
+OPT_REDUCING = ("lars", "groupadagrad")
+OPT_RTOL, OPT_ATOL = 1e-6, 1e-7
+# (d) the Apache-MXNet round trip: resnet50_v1 logits on this batch
+EXPORT_BATCH = 8
+
+
+def _npyf(np, img):
+    """``recordio``'s raw image container: ``b"NPYF"`` + ``numpy.save``."""
+    import io as _io
+    buf = _io.BytesIO()
+    np.save(buf, img)
+    return b"NPYF" + buf.getvalue()
+
+
+def write_records(mx, np, workdir):
+    """The seeded indexed record file of phase data(a): DATA_BATCHES x
+    DATA_BATCH images of DATA_SIDE^2 x 3 uint8, labels in
+    [0, DATA_CLASSES), NPYF payloads."""
+    d = os.path.join(workdir, "data")
+    os.makedirs(d, exist_ok=True)
+    prefix = os.path.join(d, "train")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    n = DATA_BATCHES * DATA_BATCH
+    labels = rng.integers(0, DATA_CLASSES, n)
+    w = mx.recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    for i in range(n):
+        img = rng.integers(0, 256, (DATA_SIDE, DATA_SIDE, 3), np.uint8)
+        w.write_idx(i, mx.recordio.pack(
+            mx.recordio.IRHeader(0, float(labels[i]), i, 0), _npyf(np, img)))
+    w.close()
+    return prefix + ".rec", {"images": n, "seconds":
+                             time.perf_counter() - t0,
+                             "bytes": os.path.getsize(prefix + ".rec")}
+
+
+def _clone_params(tr):
+    return {n: v.detach().clone() for n, v in tr.params.items()}
+
+
+def _record_epochs(mx, ck, torch, tt, net, rec, prefetch, workdir,
+                   capture=None):
+    """DATA_EPOCHS epochs of ``examples/train_imagenet.py``'s loop over
+    ``mx.io.ImageRecordIter`` (shuffled with the iterator's own seed),
+    bare or through ``DevicePrefetcher``; each epoch ends in
+    ``save_checkpoint``.  Counts zeroed just before, read just after.
+    With ``capture`` (a dict), the first step of the second epoch's
+    batch, loss and resulting weights and momenta go there."""
+    tr = _resnet_trainer(mx, net, "bfloat16")
+    it = mx.io.ImageRecordIter(path_imgrec=rec, batch_size=DATA_BATCH,
+                               data_shape=DATA_SHAPE, shuffle=True,
+                               seed=SEED)
+    feed = mx.io.DevicePrefetcher(it, placement=tr.batch_sharding) \
+        if prefetch else it
+    _zero_counts(torch, tt, ck)
+    epochs, losses, ckpts = [], [], []
+    for epoch in range(DATA_EPOCHS):
+        if epoch:
+            feed.reset()
+        t0 = time.perf_counter()
+        n = 0
+        for batch in feed:
+            loss = tr.step(batch.data[0], batch.label[0])
+            losses.append(loss)
+            n += 1
+            if capture is not None and epoch == 1 and n == 1:
+                capture.update(
+                    data=batch.data[0]._data.clone(),
+                    label=batch.label[0]._data.clone(),
+                    loss=loss.clone(), params=_clone_params(tr),
+                    momenta={k: v.clone() for k, v in tr.opt_state.items()})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        path = os.path.join(workdir, "data", "resnet50_v1-%s-%04d.ckpt"
+                            % ("prefetch" if prefetch else "bare", epoch))
+        tr.save_checkpoint(path)
+        ckpts.append(path)
+        epochs.append({"batches": n, "train_s": t1 - t0,
+                       "checkpoint_s": time.perf_counter() - t1})
+        assert n == DATA_BATCHES, (epoch, n)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    snap = tt.snapshot()
+    steps = DATA_EPOCHS * DATA_BATCHES
+    assert launches == _want_launches(ck, sgd_step=steps), launches
+    c = snap["counters"]
+    host = snap["timers"].get("io.batch_host_ms", {})
+    losses = [float(x) for x in losses]
+    train_s = sum(e["train_s"] for e in epochs)
+    out = {"mode": "device_prefetch" if prefetch else "bare",
+           "decode_workers": mx.config.get("io.decode_workers"),
+           "epochs": epochs, "losses": losses,
+           "losses_finite": all(map(math.isfinite, losses)),
+           "launches": launches, "steps": steps,
+           "img_per_s": steps * DATA_BATCH / train_s,
+           "iterator_host_ms_per_batch": host.get("total", 0.0)
+           / max(host.get("count", 0), 1),
+           "iterator_host_ms": host,
+           "h2d_async": c.get("io.h2d_async", 0),
+           "h2d_sync": c.get("io.h2d_sync", 0),
+           "checkpoints": ckpts}
+    assert out["losses_finite"], losses
+    if prefetch:
+        # two arrays a batch staged on the prefetch thread; the trainer
+        # never copied a batch itself
+        assert out["h2d_async"] == 2 * steps and out["h2d_sync"] == 0, out
+    return tr, out
+
+
+def data_resnet(mx, ck, np, torch, card, workdir, synthetic=None):
+    """Phase data(a): ResNet-50 fed from records, bare and through
+    ``DevicePrefetcher``, then the resume gate: a fresh trainer loads the
+    first epoch's checkpoint and its next step's loss, weights and
+    momenta must be bitwise those of the uninterrupted run."""
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    rec, written = write_records(mx, np, workdir)
+    _log("[data] records %s" % json.dumps(written))
+    # deterministic convolution algorithms: the resume gate is bitwise
+    prev = (torch.backends.cudnn.benchmark,
+            torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    mx.config.set("io.decode_workers", DATA_DECODE_WORKERS)
+    try:
+        mx.random.seed(SEED)
+        net = vision.get_model("resnet50_v1", classes=DATA_CLASSES)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net(mx.nd.zeros((1,) + DATA_SHAPE, ctx=mx.gpu(0)))
+        capture = {}
+        tr, bare = _record_epochs(mx, ck, torch, tt, net, rec, False,
+                                  workdir, capture)
+        _log("[data] record-fed, bare %s" % json.dumps(bare))
+        data, label = capture["data"], capture["label"]
+        out = {"records": written, "card": card, "bare": bare,
+               "cudnn": "deterministic, no benchmark"}
+        out["k1_routes"] = _sgd_routes(ck, torch, tr, data, label)
+        del tr
+        torch.cuda.empty_cache()
+        trp, pre = _record_epochs(mx, ck, torch, tt, net, rec, True,
+                                  workdir)
+        out["device_prefetch"] = pre
+        pre["losses_equal_bare"] = pre["losses"] == bare["losses"]
+        _log("[data] record-fed, device prefetch %s" % json.dumps(pre))
+        assert pre["losses_equal_bare"], (pre["losses"], bare["losses"])
+
+        # the same trainer on one fixed device batch: the synthetic rate
+        _, synth_ms = _timed(np, torch, trp, data, label, DATA_SYNTH_STEPS)
+        out["synthetic_same_settings"] = _rate(np, synth_ms, card)
+        out["synthetic_phase5"] = synthetic
+        feed = mx.io.DevicePrefetcher(
+            mx.io.ImageRecordIter(path_imgrec=rec, batch_size=DATA_BATCH,
+                                  data_shape=DATA_SHAPE, shuffle=True,
+                                  seed=SEED + 1),
+            placement=trp.batch_sharding)
+
+        def window():
+            for _ in range(min(3, DATA_BATCHES)):
+                b = next(feed)
+                trp.step(b.data[0], b.label[0])
+        out["profile"] = _profile(torch, window, top=12)
+        _log("[data] profiled record-fed window %s"
+             % json.dumps(out["profile"]))
+        del trp, feed
+        torch.cuda.empty_cache()
+
+        # the resume gate
+        tr2 = _resnet_trainer(mx, net, "bfloat16")
+        tr2.load_checkpoint(bare["checkpoints"][0])
+        loss2 = tr2.step(data, label)
+        torch.cuda.synchronize()
+        diff = {"loss": _differing(torch, loss2, capture["loss"]),
+                "weights": sum(_differing(torch, v.detach(),
+                                          capture["params"][n])
+                               for n, v in tr2.params.items()),
+                "momenta": sum(_differing(torch, v, capture["momenta"][n])
+                               for n, v in tr2.opt_state.items())}
+        out["resume"] = {"checkpoint": bare["checkpoints"][0],
+                         "step": int(tr2._step_num),
+                         "loss": float(loss2), "differing": diff}
+        _log("[data] resume %s" % json.dumps(out["resume"]))
+        assert not any(diff.values()), diff
+        del tr2, capture
+        torch.cuda.empty_cache()
+    finally:
+        mx.config.unset("io.decode_workers")
+        (torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.deterministic) = prev
+    return out
+
+
+def input_pipeline(mx, ck, np, torch, card):
+    """Phase data(b): ``bench.py`` ``input_pipeline_config`` with its MLP,
+    shapes and steps: the same host-prep iterator into ``SPMDTrainer``
+    SGD (K1, one launch a step) through ``PrefetchingIter`` (host
+    batches: the trainer copies each itself) and through
+    ``DevicePrefetcher`` (staged on its thread); samples/s of each."""
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.parallel import SPMDTrainer
+    mio = mx.io
+    rng = np.random.RandomState(5)
+    X = rng.randn(PIPE_BATCH * PIPE_BATCHES, PIPE_FEAT).astype(np.float32)
+    Y = rng.randn(PIPE_BATCH * PIPE_BATCHES).astype(np.float32)
+
+    class HostPrepIter(mio.DataIter):
+        def __init__(self):
+            super().__init__(PIPE_BATCH)
+            self.i = 0
+
+        def reset(self):
+            self.i = 0
+
+        def next(self):
+            if self.i + PIPE_BATCH > len(X):
+                raise StopIteration
+            lo = self.i
+            self.i += PIPE_BATCH
+            d = X[lo:lo + PIPE_BATCH]
+            d = (d - d.mean(axis=0)) / (d.std(axis=0) + 1e-6)
+            return mio.DataBatch([d.astype(np.float32)],
+                                 [Y[lo:lo + PIPE_BATCH]], pad=0)
+
+    def l2(out, label):
+        return ((out - label.reshape((-1, 1))) ** 2).mean(axis=1)
+
+    def run(device_prefetch):
+        mx.config.set("io.device_prefetch", device_prefetch)
+        mx.random.seed(9)
+        net = nn.HybridSequential()
+        net.add(nn.Dense(256, activation="relu"), nn.Dense(1))
+        net.initialize(ctx=mx.gpu(0))
+        tr = SPMDTrainer(net, l2, "sgd", {"learning_rate": 0.01})
+        if device_prefetch:
+            feed = mio.DevicePrefetcher(
+                HostPrepIter(), placement=lambda: tr.batch_sharding,
+                buckets="full")
+        else:
+            feed = mio.PrefetchingIter(HostPrepIter())
+        loss = None
+        for b in feed:                       # warm epoch
+            loss = tr.step(b.data[0], b.label[0], pad=b.pad)
+        float(loss)
+        _zero_counts(torch, tt, ck)
+        done = 0
+        t0 = time.perf_counter()
+        while done < PIPE_STEPS:
+            feed.reset()
+            for b in feed:
+                loss = tr.step(b.data[0], b.label[0], pad=b.pad)
+                done += 1
+                if done >= PIPE_STEPS:
+                    break
+        final = float(loss)                  # the sync ends the timing
+        dt = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)
+        c = tt.snapshot()["counters"]
+        assert launches == _want_launches(ck, sgd_step=PIPE_STEPS), launches
+        assert math.isfinite(final), final
+        return {"samples_s": PIPE_BATCH * done / dt, "steps": done,
+                "launches": launches, "final_loss": final,
+                "h2d_sync": c.get("io.h2d_sync", 0),
+                "h2d_async": c.get("io.h2d_async", 0)}
+
+    try:
+        host = run(False)
+        dev = run(True)
+    finally:
+        mx.config.unset("io.device_prefetch")
+    assert host["h2d_sync"] == 2 * PIPE_STEPS, host
+    assert dev["h2d_sync"] == 0 and dev["h2d_async"] >= 2 * PIPE_STEPS, dev
+    out = {"host_prefetch": host, "device_prefetch": dev,
+           "device_over_host": dev["samples_s"] / host["samples_s"],
+           "batch": PIPE_BATCH, "steps": PIPE_STEPS, "card": card}
+    _log("[data] input_pipeline_config %s" % json.dumps(out))
+    return out
+
+
+def _tree_to(torch, state, device):
+    """A copy of an optimizer state tree on ``device``."""
+    if state is None:
+        return None
+    if isinstance(state, torch.Tensor):
+        return state.detach().to(device, copy=True)
+    return tuple(_tree_to(torch, s, device) for s in state)
+
+
+def _update_on(torch, opt_blob, name, params, states, device):
+    """One update of every LM parameter by a copy of the optimizer, on
+    ``device``, from copies of the same weights, gradients and states;
+    the new weights."""
+    import pickle
+    opt = pickle.loads(opt_blob)
+    if name == "sgld":
+        opt._noise = torch.zeros_like        # the deterministic part only
+    out = []
+    for i, p in enumerate(params):
+        w = p.data()._data.detach().to(device, copy=True)
+        g = p.grad()._data.detach().to(device, copy=True)
+        opt.update_multi_precision(i, w, g, _tree_to(torch, states[i],
+                                                     device))
+        out.append(w)
+    return out
+
+
+def optimizers_on_lm(mx, ck, np, torch, card):
+    """Phase data(c): ``examples/rnn_lm.py --optimizer <name>`` at
+    word_lm's width for OPT_STEPS steps through ``gluon.Trainer`` (with
+    ``multi_precision``, so an f32 weight is its own master and SGD,
+    ccSGD and Adam take their fused kernels, one launch a parameter a
+    step), for every registered optimizer: finite losses, the launches,
+    then one more update on the card against the port's CPU update from
+    the same weights, gradients and states (bitwise, or OPT_RTOL for the
+    optimizers that reduce)."""
+    import pickle
+    from mxnet_tpu_torch import telemetry as tt
+    toks = lm_corpus(np, LM_VOCAB, LM_TOKENS)
+    batches = lm_batches(toks, LM_BATCH, LM_BPTT)
+    names = sorted(mx.optimizer.Optimizer.opt_registry)
+    out = {"steps": OPT_STEPS, "card": card, "runs": {}}
+    for name in names:
+        mx.random.seed(SEED)
+        model = rnn_lm_model(mx.gluon, LM_VOCAB, LM_EMBED, LM_HIDDEN,
+                             LM_LAYERS, LM_DROPOUT)
+        model.initialize(mx.init.Xavier())
+        opt = dict(OPT_PARAMS.get(name, {}), learning_rate=LM_LR,
+                   multi_precision=True)
+        trainer = mx.gluon.Trainer(model.collect_params(), name, opt)
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        states = model.begin_state(LM_BATCH)
+        nparams = len(trainer._params)
+        _zero_counts(torch, tt, ck)
+        losses = []
+        for x, y in batches[:OPT_STEPS]:
+            xb = mx.nd.array(x.astype(np.float32))
+            yb = mx.nd.array(y.astype(np.float32))
+            states = [s.detach() for s in states]
+            with mx.autograd.record():
+                o, states = model(xb, states)
+                loss = loss_fn(o.reshape((-1, LM_VOCAB)),
+                               yb.reshape((-1,))).mean()
+            loss.backward()
+            trainer.step(1)
+            losses.append(float(loss.asnumpy()))
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        kernel = {"sgd": "sgd_step", "ccsgd": "sgd_step",
+                  "adam": "adam_step"}.get(name)
+        want = _want_launches(ck, **({kernel: OPT_STEPS * nparams}
+                                     if kernel else {}))
+        assert launches == want, (name, launches, want)
+        assert all(map(math.isfinite, losses)), (name, losses)
+        # one more update, card against CPU, from the same arrays
+        blob = pickle.dumps(trainer._optimizer)
+        upd = trainer._updaters[0]
+        card_w = _update_on(torch, blob, name, trainer._params, upd.states,
+                            "cuda")
+        cpu_w = _update_on(torch, blob, name, trainer._params, upd.states,
+                           "cpu")
+        torch.cuda.synchronize()
+        differing = sum(_differing(torch, a.cpu(), b)
+                        for a, b in zip(card_w, cpu_w))
+        worst = max(float(((a.cpu() - b).abs() / (OPT_ATOL + OPT_RTOL
+                                                  * b.abs())).max())
+                    for a, b in zip(card_w, cpu_w))
+        run = {"losses": losses, "launches": {k: v for k, v in
+                                              launches.items() if v},
+               "params": nparams, "card_vs_cpu_differing": differing,
+               "card_vs_cpu_worst_over_bound": worst,
+               "bound": ("rtol %g" % OPT_RTOL if name in OPT_REDUCING
+                         else "bitwise")}
+        out["runs"][name] = run
+        _log("[data] optimizer %s %s" % (name, json.dumps(run)))
+        if name in OPT_REDUCING:
+            assert worst <= 1.0, (name, run)
+        else:
+            assert differing == 0, (name, run)
+        del model, trainer, card_w, cpu_w
+        torch.cuda.empty_cache()
+    out["module_ccsgd"] = _module_ccsgd(mx, ck, np, torch)
+    return out
+
+
+def _module_ccsgd(mx, ck, np, torch):
+    """ccSGD (SGD's subclass, K1) on the Module MLP through
+    ``Module.init_optimizer``: OPT_STEPS fused steps, one K1 launch
+    each."""
+    from mxnet_tpu_torch import telemetry as tt
+    mod = mx.mod.Module(_mlp_symbol(mx))
+    mod.bind([("data", (MLP_BATCH, MLP_FEAT))],
+             [("softmax_label", (MLP_BATCH,))])
+    mx.random.seed(SEED)
+    mod.init_params(mx.init.Uniform(0.05))
+    mod.init_optimizer(optimizer="ccsgd", optimizer_params={
+        "learning_rate": 0.05, "momentum": 0.9})
+    batch = _mlp_batch(mx, np)
+    _zero_counts(torch, tt, ck)
+    outs = _mlp_steps(mx, mod, "auto", batch, OPT_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    assert launches == _want_launches(ck, sgd_step=OPT_STEPS), launches
+    fused = tt.snapshot()["counters"].get("fused_steps", 0)
+    assert fused == OPT_STEPS, fused
+    out = {"steps": OPT_STEPS, "launches": {"sgd_step": OPT_STEPS},
+           "fused_steps": fused,
+           "finite": bool(all(torch.isfinite(o).all() for o in outs))}
+    assert out["finite"], out
+    _log("[data] Module ccSGD %s" % json.dumps(out))
+    return out
+
+
+def mxnet_round_trip(mx, np, torch, workdir):
+    """Phase data(d): ``resnet50_v1`` through ``export(fmt="mxnet")``
+    (Apache MXNet's NNVM JSON and binary ``.params``), read back by
+    ``mx.model.load_checkpoint`` into a ``SymbolBlock``: its logits on
+    the card must be bitwise the source network's."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    prev = (torch.backends.cudnn.benchmark,
+            torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        mx.random.seed(SEED + 3)
+        net = vision.get_model("resnet50_v1", classes=DATA_CLASSES)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        x = mx.nd.array(np.random.RandomState(SEED).uniform(
+            size=(EXPORT_BATCH,) + DATA_SHAPE).astype(np.float32),
+            ctx=mx.gpu(0))
+        want = net(x)._data.clone()
+        prefix = os.path.join(workdir, "data", "resnet50_v1-mxnet")
+        t0 = time.perf_counter()
+        files = net.export(prefix, 0, fmt="mxnet")
+        t1 = time.perf_counter()
+        sym, arg, aux = mx.model.load_checkpoint(prefix, 0)
+        block = mx.gluon.SymbolBlock(sym, mx.sym.Variable("data"))
+        params = block.collect_params()
+        for n, v in list(arg.items()) + list(aux.items()):
+            params[n]._load_init(v, mx.gpu(0))
+        got = block(x)._data
+        torch.cuda.synchronize()
+        out = {"files": {os.path.basename(f): os.path.getsize(f)
+                         for f in files},
+               "export_s": t1 - t0, "load_s": time.perf_counter() - t1,
+               "arg": len(arg), "aux": len(aux),
+               "logits_shape": list(got.shape),
+               "logits_differing": _differing(torch, got, want)}
+    finally:
+        (torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.deterministic) = prev
+    _log("[data] Apache-MXNet round trip %s" % json.dumps(out))
+    assert out["logits_differing"] == 0, out
+    return out
+
+
+def _data_launches(data):
+    """K1's and K3's launches in phase data's counted runs, by path."""
+    a, b = data["resnet_records"], data["input_pipeline"]
+    c = data["optimizers"]
+    sgd = {"data_records_bare": a["bare"]["launches"]["sgd_step"],
+           "data_records_prefetch":
+               a["device_prefetch"]["launches"]["sgd_step"],
+           "data_pipeline_host": b["host_prefetch"]["launches"]["sgd_step"],
+           "data_pipeline_device":
+               b["device_prefetch"]["launches"]["sgd_step"],
+           "data_lm_sgd": c["runs"]["sgd"]["launches"]["sgd_step"],
+           "data_lm_ccsgd": c["runs"]["ccsgd"]["launches"]["sgd_step"],
+           "data_module_ccsgd": c["module_ccsgd"]["launches"]["sgd_step"]}
+    adam = {"data_lm_adam": c["runs"]["adam"]["launches"]["adam_step"]}
+    return sgd, adam
+
+
+def data_phase(mx, ck, np, torch, card, workdir, synthetic=None):
+    """Phase data: (a) record-fed ResNet-50 with checkpoints and the
+    resume gate, (b) input_pipeline_config, (c) the optimizers on the
+    LSTM LM and ccSGD on the Module MLP, (d) the Apache-MXNet round
+    trip."""
+    out = {"resnet_records": data_resnet(mx, ck, np, torch, card, workdir,
+                                         synthetic)}
+    out["input_pipeline"] = input_pipeline(mx, ck, np, torch, card)
+    out["optimizers"] = optimizers_on_lm(mx, ck, np, torch, card)
+    out["mxnet_files"] = mxnet_round_trip(mx, np, torch, workdir)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the full report (JSON) "
                     "to this path")
     ap.add_argument("--phase", choices=("all", "attention", "optimizer",
                                         "module", "bert", "lm_f32",
-                                        "generation", "ops", "zoo", "rnn"),
+                                        "generation", "ops", "zoo", "rnn",
+                                        "data"),
                     default="all",
                     help="attention: the flash forward and backward checks "
                     "of phase 2 alone; optimizer: phase 2's K3 and K1 "
@@ -6398,7 +6941,11 @@ def main(argv=None):
                     "VGG-16 and Inception v3 training through K1); rnn: "
                     "phase rnn alone (the RNN op card against CPU, the "
                     "Gluon LSTM LM, the bucketed LSTM through K3), "
-                    "ending in the card and ok lines")
+                    "ending in the card and ok lines; data: phase data "
+                    "alone (record-fed ResNet-50 with checkpoints and the "
+                    "resume gate, input_pipeline_config, every optimizer "
+                    "on the LSTM LM, the Apache-MXNet round trip), ending "
+                    "in the card and ok lines")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -6438,7 +6985,8 @@ def main(argv=None):
          "lm_f32": ["flash_f32", "adam_step"],
          "generation": ["flash_f32", "paged_attn"],
          "ops": ["sgd_step", "adam_step"],
-         "zoo": ["sgd_step"], "rnn": ["adam_step"]}.get(args.phase))
+         "zoo": ["sgd_step"], "rnn": ["adam_step"],
+         "data": ["sgd_step", "adam_step"]}.get(args.phase))
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "per_source_s": {k: v["seconds"]
                                         for k, v in built.items()},
@@ -6584,6 +7132,16 @@ def main(argv=None):
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if args.phase == "data":
+        report["data"] = data_phase(mx, ck, np, torch, card, workdir)
+        _write_report(args.report, report)
+        print(json.dumps({k: v for k, v in report.items()
+                          if k != "build"}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.phase == "module":
         report["lr_t_ab"] = lr_t_ab(mx, np, torch)
         report["launch_ab"] = launch_ab(mx, np, torch)
@@ -6630,6 +7188,11 @@ def main(argv=None):
     report["module"] = train_module(mx, ck, np, torch, card, workdir)
     report["ops"] = ops_phase(mx, ck, np, torch)
     report["rnn"] = rnn_phase(mx, ck, np, torch, card)
+    report["data"] = data_phase(mx, ck, np, torch, card, workdir,
+                                synthetic={k: report["resnet"][k] for k in (
+                                    "img_per_s", "median_step_ms",
+                                    "cudnn_benchmark")})
+    data_sgd, data_adam = _data_launches(report["data"])
     module_adam = report["module"]["fused"]["launches"]["adam_step"]
     rnn_adam = {"rnn_bucketing_" + kind: run["launches"]["adam_step"]
                 for kind, run in report["rnn"]["bucketing"].items()}
@@ -6675,14 +7238,14 @@ def main(argv=None):
          "replaces": pk + "518",
          "launches": (trained["adam_step"] + module_adam + f16_adam
                       + resnet_adam + bert_adam + lm32["adam_step"]
-                      + sum(rnn_adam.values())),
+                      + sum(rnn_adam.values()) + sum(data_adam.values())),
          "launches_by_path": dict({"train": trained["adam_step"],
                                    "module_mlp": module_adam,
                                    "f16_trainer": f16_adam,
                                    "resnet_spmd_adam": resnet_adam,
                                    "bert_adam": bert_adam,
                                    "lm_f32": lm32["adam_step"]},
-                                  **rnn_adam),
+                                  **rnn_adam, **data_adam),
          "max_abs_err": max(c["max_abs_err"] for c in adam),
          "differing_elements": sum(sum(c["differing_elements"].values())
                                    for c in adam),
@@ -6700,9 +7263,9 @@ def main(argv=None):
          "source": "mxnet_tpu_torch/csrc/sgd_step.cu",
          "replaces": pk + "495",
          "launches": report["resnet"]["launches"]["sgd_step"] + f16_sgd
-         + sum(zoo_sgd.values()),
+         + sum(zoo_sgd.values()) + sum(data_sgd.values()),
          "launches_by_path": dict({"resnet": report["resnet"]["launches"][
-             "sgd_step"], "f16_trainer": f16_sgd}, **zoo_sgd),
+             "sgd_step"], "f16_trainer": f16_sgd}, **zoo_sgd, **data_sgd),
          "vgg16_list": report["zoo"]["train"]["vgg16"]["k1_list"],
          "max_abs_err": max(c["max_abs_err"] for c in sgd),
          "differing_elements": sum(sum(c["differing_elements"].values())

@@ -37,6 +37,15 @@ Ported so far:
 * the recurrent family — the ``RNN`` op (cuDNN's recurrence),
   ``gluon.rnn`` and ``gluon.contrib.rnn``, ``mx.rnn``'s symbolic cells
   and ``BucketSentenceIter``, and ``mx.mod.BucketingModule``;
+* the rest of the training API — every optimizer of the reference,
+  ``gluon.Trainer.save_states`` / ``load_states``, ``SPMDTrainer``
+  checkpoints, ``SequentialModule`` / ``PythonModule`` /
+  ``PythonLossModule``, ``model.FeedForward`` and ``compat`` (Apache
+  MXNet's ``.params`` and symbol JSON, read and written);
+* the data pipeline — ``mx.recordio``, ``mx.image``, the ``mx.io``
+  iterators (``ImageRecordIter``, ``CSVIter``, ``MNISTIter``,
+  ``ResizeIter``, ``PrefetchingIter``, ``DevicePrefetcher``),
+  ``gluon.data`` and ``gluon.contrib.data``;
 
 with hand-written CUDA kernels for flash-attention forward and backward,
 paged decode attention, the fused Adam step, the multi-tensor fused SGD
@@ -63,6 +72,7 @@ from . import kernels, quantization, models, convert, deploy, serving
 from . import generation, optimizer, lr_scheduler, kvstore, gluon, parallel
 from . import metric, io, callback, engine, rtc, symbol, model, module
 from . import executor, executor_manager, runtime, rnn
+from . import recordio, image, compat, resilience
 from . import symbol as sym
 from . import module as mod
 from . import kvstore as kv
@@ -75,4 +85,5 @@ __all__ = ["MXNetError", "MXNetErrorNoDevice", "KernelUnsupportedError",
            "convert", "deploy", "serving", "generation", "optimizer",
            "lr_scheduler", "kvstore", "kv", "gluon", "parallel", "metric",
            "io", "callback", "engine", "rtc", "symbol", "sym", "model",
-           "module", "mod", "executor", "executor_manager", "runtime", "rnn"]
+           "module", "mod", "executor", "executor_manager", "runtime", "rnn",
+           "recordio", "image", "compat", "resilience"]

@@ -4,8 +4,9 @@ generation-serving path, the kernel tier, the 64-bit dtype policy, the
 ResNet training path
 (convolution layout, BatchNorm statistics, and the trainer options that
 are not ported yet, which the trainer refuses instead of ignoring), the
-engine and symbolic Module knobs, and the layer-stack program knobs
-(``runtime.stack_mode``, ``runtime.remat``) of ``runtime.scan_stack``.
+engine and symbolic Module knobs, the layer-stack program knobs
+(``runtime.stack_mode``, ``runtime.remat``) of ``runtime.scan_stack``,
+and the data pipeline's (``io.*``).
 
 Every knob has a type, a default, its environment variable and a
 docstring.  ``get`` reads programmatic override > env var > default;
@@ -245,6 +246,33 @@ _ON_SET["runtime.stack_mode"] = _apply_runtime_stack_mode
 _ON_SET["runtime.remat"] = _apply_runtime_remat
 
 
+# data loading and the device prefetch ring (mx.io, mx.image,
+# gluon.data)
+register_knob(
+    "io.device_prefetch", "MXNET_TPU_IO_DEVICE_PREFETCH", bool, True,
+    "DevicePrefetcher staging: True (default) copies each batch to the "
+    "consumer's CUDA device on the prefetch thread (through pinned host "
+    "buffers, on a side stream, with an event the consumer's stream "
+    "waits on), so the training loop receives device tensors and never "
+    "blocks on the copy; False keeps the batches on the host (the A/B "
+    "baseline).")
+register_knob(
+    "io.prefetch_depth", "MXNET_TPU_IO_PREFETCH_DEPTH", int, 2,
+    "batches the background thread of DevicePrefetcher / PrefetchingIter "
+    "keeps ahead of the consumer.")
+register_knob(
+    "io.decode_workers", "MXNET_TPU_IO_DECODE_WORKERS", int, 0,
+    "thread-pool size for the per-sample decode and augmentation of "
+    "mx.image.ImageIter (and io.ImageRecordIter): 0 or 1 decode serially "
+    "on the batch thread; N > 1 maps a batch's samples over N threads.")
+register_knob(
+    "io.pad_buckets", "MXNET_TPU_IO_PAD_BUCKETS", str, "pow2",
+    "DevicePrefetcher's padding of short batches: 'full' wrap-pads every "
+    "batch to batch_size, 'pow2' (default) to the next power of two rows, "
+    "'off' keeps each batch's own row count. DataBatch.pad counts the "
+    "fill rows.")
+
+
 def enable_x64(flag=True):
     """Programmatic x64 switch (pairs with the ``numpy.enable_x64``
     knob)."""
@@ -262,6 +290,6 @@ def _positive_int_knob(name):
 
 
 for _name in ("serving.kv_page_size", "serving.kv_pages",
-              "serving.decode_slots"):
+              "serving.decode_slots", "io.prefetch_depth"):
     _ON_SET[_name] = _positive_int_knob(_name)
 del _name

@@ -82,6 +82,44 @@ def _top_prefix(names):
     return common[:common.rfind("_") + 1]
 
 
+def _cut(prefix, parts):
+    """``prefix`` up to and including its ``parts``-th ``_`` (all of it
+    when it has fewer)."""
+    end = -1
+    for _ in range(parts):
+        end = prefix.find("_", end + 1)
+        if end < 0:
+            return prefix
+    return prefix[:end + 1]
+
+
+def _ref_prefix(names, own):
+    """What to strip from the reference's ``names`` to meet the port's
+    names stripped of ``own``: their longest common prefix ending in
+    ``_``, cut to as many ``_``-separated parts as ``own`` has (the
+    packages count Block prefixes separately, ``resnetv10_`` here and
+    ``resnetv11_`` there, and a one-child Block's names share more than
+    its own prefix, ``gru0_l0_``)."""
+    return _cut(_top_prefix(names), own.count("_"))
+
+
+def pair_names(port_names, ref_names, own, ref=None):
+    """``{port name: reference name}`` after stripping ``own`` from the
+    port's names and ``ref`` (default :func:`_ref_prefix`) from the
+    reference's; raises ``ValueError`` when the two sets do not pair
+    up."""
+    if ref is None:
+        ref = _ref_prefix(ref_names, own)
+    ours = {n[len(own):]: n for n in port_names}
+    theirs = {n[len(ref):]: n for n in ref_names}
+    if set(ours) != set(theirs):
+        raise ValueError(
+            "parameter names do not pair up: only in the port %s, only in "
+            "the reference %s" % (sorted(set(ours) - set(theirs))[:8],
+                                  sorted(set(theirs) - set(ours))[:8]))
+    return {ours[k]: theirs[k] for k in ours}
+
+
 def _own_prefix(block, names):
     """What to strip from ``block``'s own parameter names: its prefix, or
     where a name does not start with it (a Sequential whose children were
@@ -102,19 +140,15 @@ def gluon_params_from_reference(block, np_params, prefix=None):
     net's own top prefix: the port Block's ``prefix`` (or its names'
     longest common prefix ending in ``_`` where they do not start with
     it) and, for the reference's names, ``prefix`` or else their longest
-    common prefix ending in ``_``.  A name or shape that does not pair up raises
-    ``ValueError``.  Values keep each Parameter's dtype and device; a
+    common prefix ending in ``_`` cut to as many ``_``-separated parts as
+    the port's (:func:`pair_names`).  A name or shape that does not pair
+    up raises ``ValueError``.  Values keep each Parameter's dtype and device; a
     deferred Parameter keeps its value for its first forward."""
-    ref_prefix = _top_prefix(np_params) if prefix is None else prefix
     params = block.collect_params()
     own = _own_prefix(block, list(params.keys()))
-    ours = {n[len(own):]: p for n, p in params.items()}
-    theirs = {n[len(ref_prefix):]: v for n, v in np_params.items()}
-    if set(ours) != set(theirs):
-        raise ValueError(
-            "parameter names do not pair up: only in the port %s, only in "
-            "the reference %s" % (sorted(set(ours) - set(theirs))[:8],
-                                  sorted(set(theirs) - set(ours))[:8]))
+    pairs = pair_names(list(params.keys()), list(np_params), own, prefix)
+    ours = {n: params[n] for n in pairs}
+    theirs = {n: np_params[pairs[n]] for n in pairs}
     for name, p in ours.items():
         val = _tensor(theirs[name])
         if p.shape is not None and (len(p.shape) != val.dim() or any(

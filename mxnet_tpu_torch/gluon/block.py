@@ -505,17 +505,15 @@ class HybridBlock(Block):
     def export(self, path, epoch=0, remove_amp_cast=True,
                input_names=("data",), fmt="native"):
         """Write ``path-symbol.json`` and ``path-%04d.params`` (trainable
-        values as ``arg:``, ``grad_req='null'`` ones as ``aux:``) in the
-        JAX package's formats (reference ``block.py:715``); returns the
-        two file names.  ``fmt='mxnet'`` (Apache-MXNet's own formats)
-        waits for the compat writers and raises."""
+        values as ``arg:``, ``grad_req='null'`` ones as ``aux:``; reference
+        ``block.py:715``); returns the two file names.  ``fmt='native'``
+        writes the JAX package's formats; ``fmt='mxnet'`` Apache-MXNet's
+        own (the NNVM graph JSON and the binary ``.params``,
+        ``compat.save_mxnet_symbol`` / ``save_mxnet_params``), which
+        ``model.load_checkpoint`` of either package reads."""
         from .. import symbol as sym_module
         from .. import model as _model
-        if fmt == "mxnet":
-            raise NotImplementedError(
-                "export(fmt='mxnet') writes Apache-MXNet's NNVM JSON and "
-                "binary .params; those writers (compat) are not ported yet")
-        if fmt != "native":
+        if fmt not in ("native", "mxnet"):
             raise ValueError("export: unknown fmt %r (use 'native' or "
                              "'mxnet')" % (fmt,))
         out = self(*[sym_module.Variable(n) for n in input_names])
@@ -524,7 +522,18 @@ class HybridBlock(Block):
         arg, aux = {}, {}
         for name, p in self.collect_params().items():
             (aux if p.grad_req == "null" else arg)[name] = p.data()
-        _model.save_checkpoint(path, epoch, out, arg, aux)
+        if fmt == "native":
+            _model.save_checkpoint(path, epoch, out, arg, aux)
+        else:
+            from .. import compat as _compat
+            from ..base import atomic_write
+            # serialized first: an op Apache MXNet lacks raises before
+            # either file is touched
+            js = _compat.save_mxnet_symbol(out)
+            with atomic_write("%s-symbol.json" % path, "w") as f:
+                f.write(js)
+            _compat.save_mxnet_params("%s-%04d.params" % (path, epoch),
+                                      _model.pack_params(arg, aux))
         return ["%s-symbol.json" % path, "%s-%04d.params" % (path, epoch)]
 
     def optimize_for(self, x, *args, backend=None, **kwargs):

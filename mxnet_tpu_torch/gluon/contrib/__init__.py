@@ -1,4 +1,4 @@
 """Contrib blocks (counterpart of ``mxnet_tpu.gluon.contrib``; reference
-``python/mxnet/gluon/contrib/``).  Only ``rnn`` is ported; ``nn``,
-``cnn``, ``data`` and ``estimator`` are not yet."""
-from . import rnn  # noqa: F401
+``python/mxnet/gluon/contrib/``).  ``rnn`` and ``data`` are ported;
+``nn``, ``cnn`` and ``estimator`` are not yet."""
+from . import rnn, data  # noqa: F401

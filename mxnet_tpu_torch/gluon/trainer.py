@@ -11,10 +11,16 @@ optimizer's ``Updater`` on every Parameter whose ``grad_req`` is not
 ``update_on_kvstore`` defaults to False, as the reference's
 ``_create_kvstore`` decides.
 
+``save_states`` writes the optimizer states and the optimizer to a
+file atomically (``Updater.get_states(dump_optimizer=True)``);
+``load_states`` reads the port's files and the reference's (a pickle of
+numpy arrays and the reference's Optimizer, read without importing the
+reference: ``optimizer.Updater.set_states``).
+
 Not ported, and raising ``NotImplementedError`` when asked for: gradient
 compression, the nanguard and numerics-capture knobs
-(``resilience.nanguard``, ``numerics.capture``), ``set_preemption_save``,
-and ``save_states`` / ``load_states`` (files).
+(``resilience.nanguard``, ``numerics.capture``) and
+``set_preemption_save``.
 """
 from __future__ import annotations
 
@@ -127,6 +133,17 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
+    def batch_placement(self):
+        """Where input batches belong: the device of the first initialized
+        Parameter (None while all are deferred: the current context).
+        Hand it to ``io.DevicePrefetcher`` (``placement=
+        trainer.batch_placement``), so batches arrive next to the
+        weights."""
+        for param in self._params:
+            if param._data is not None:
+                return param.data()._data.device
+        return None
+
     @staticmethod
     def _check_options():
         for knob in ("resilience.nanguard", "numerics.capture"):
@@ -200,11 +217,33 @@ class Trainer:
             updater(i, param.grad(), param.data())
 
     def save_states(self, fname):
-        raise NotImplementedError(
-            "Trainer.save_states is not ported (optimizer states to a "
-            "file); Updater.get_states gives them as bytes")
+        """Save the optimizer states and the optimizer to ``fname``,
+        atomically (reference ``trainer.py:318``)."""
+        from ..resilience import atomic_write
+        self._ready()
+        if self._update_on_kvstore:
+            if self._params_to_init:
+                raise RuntimeError("Cannot save trainer states when some "
+                                   "parameters are not yet initialized in "
+                                   "kvstore.")
+            self._kvstore.save_optimizer_states(fname, dump_optimizer=True)
+            return
+        with atomic_write(fname, "wb") as fout:
+            fout.write(self._updaters[0].get_states(dump_optimizer=True))
 
     def load_states(self, fname):
-        raise NotImplementedError(
-            "Trainer.load_states is not ported (optimizer states from a "
-            "file); Updater.set_states takes them as bytes")
+        """Load states that :meth:`save_states` wrote, in this package or
+        in the reference (reference ``trainer.py:336``); the loaded
+        optimizer replaces this Trainer's, with this Trainer's
+        Parameters."""
+        self._ready()
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            self._optimizer = self._kvstore._updater.optimizer
+        else:
+            with open(fname, "rb") as f:
+                states = f.read()
+            self._updaters[0].set_states(states)
+            self._optimizer = self._updaters[0].optimizer
+        self._optimizer.param_dict = {i: param for i, param
+                                      in enumerate(self._params)}

@@ -112,6 +112,23 @@ class KVStore:
         kvstore.py:399)."""
         self._updater = opt.get_updater(optimizer)
 
+    def save_optimizer_states(self, fname, dump_optimizer=False):
+        """Write the store's optimizer states to ``fname``, atomically
+        (reference ``kvstore.py:317``)."""
+        from .resilience import atomic_write
+        if self._updater is None:
+            raise RuntimeError("Cannot save states: no optimizer was set")
+        with atomic_write(fname, "wb") as fout:
+            fout.write(self._updater.get_states(dump_optimizer))
+
+    def load_optimizer_states(self, fname):
+        """Read states :meth:`save_optimizer_states` wrote (this
+        package's or the reference's)."""
+        if self._updater is None:
+            raise RuntimeError("Cannot load states: no optimizer was set")
+        with open(fname, "rb") as fin:
+            self._updater.set_states(fin.read())
+
 
 def create(name="local"):
     """Creates a KVStore (reference: python/mxnet/kvstore.py:649)."""

@@ -33,13 +33,14 @@ import logging
 import torch
 
 from .. import config as _config
+from ..io import ensure_staged
 from .. import optimizer as opt_mod
 from .. import telemetry as _telemetry
 from ..base import torch_dtype
 from ..context import resolve_device
 from ..initializer import InitDesc, Uniform
 from ..kvstore import _DIST_TYPES, _LOCAL_TYPES
-from ..ndarray.ndarray import NDArray, _wrap
+from ..ndarray.ndarray import _wrap
 from .base_module import BaseModule
 
 __all__ = ["Module"]
@@ -272,8 +273,7 @@ class Module(BaseModule):
         pairs = list(zip(self._data_shapes, data_batch.data))
         if self._label_shapes and data_batch.label:
             pairs += list(zip(self._label_shapes, data_batch.label))
-        return {name: (arr._data if isinstance(arr, NDArray)
-                       else torch.as_tensor(arr)).to(dev)
+        return {name: ensure_staged(arr, dev, "module")
                 for (name, _), arr in pairs}
 
     def _run_fused(self, data_batch):

@@ -546,9 +546,6 @@ def concat(*data, dim=1):
     return _invoke("concat", *data, dim=dim)
 
 
-# the first 8 bytes of a real Apache-MXNet .params file (list magic 0x112)
-_MXNET_PARAMS_MAGIC = 0x112
-
 
 def _saved(arr):
     """What the npz container holds for ``arr``: its numpy value; bf16 as
@@ -588,18 +585,18 @@ def save(fname, data):
 
 
 def load(fname):
-    """Load what :func:`save` (or the reference's ``nd.save``) wrote:
-    an NDArray, a list or a dict, on the current context.  A real
-    Apache-MXNet ``.params`` file raises NotImplementedError: its reader
-    comes with slice 9."""
+    """Load what :func:`save` (or the reference's ``nd.save``) wrote, or
+    an Apache-MXNet ``.params`` file (``compat.load_mxnet_params``): an
+    NDArray, a list or a dict, on the current context."""
+    from ..compat import is_mxnet_params, load_mxnet_params
     with open(fname, "rb") as f:
         head = f.read(8)
-    if len(head) == 8 and int.from_bytes(head, "little") == \
-            _MXNET_PARAMS_MAGIC:
-        raise NotImplementedError(
-            "%s is an Apache-MXNet .params file; its reader "
-            "(compat.load_mxnet_params) is not ported yet (slice 9)"
-            % (fname,))
+    if is_mxnet_params(head):
+        with open(fname, "rb") as f:
+            raw = load_mxnet_params(f.read())
+        if isinstance(raw, list):
+            return [array(v) for v in raw]
+        return {n: array(v) for n, v in raw.items()}
     with _np.load(fname, allow_pickle=False) as zf:
         names = list(zf.keys())
         if names == ["__mx_single__"]:

@@ -26,21 +26,37 @@ master copy and the state tensors): the route of the port's own callers.
 keeps one state per parameter index as tensors and its ``get_states`` /
 ``set_states`` round-trip them as bytes.
 
-Ported so far: ``SGD`` and ``Adam``; ``create`` raises for the other
-optimizers until their slice.
+Every optimizer of the reference is here under its registered name:
+``SGD`` and ``ccSGD`` (fused kernel K1), ``Adam`` (K3), and ``Signum``,
+``SignSGD``, ``FTML``, ``LARS``, ``LBSGD``, ``DCASGD``, ``NAG``, ``SGLD``,
+``AdaGrad``, ``RMSProp``, ``AdaDelta``, ``Ftrl``, ``Adamax``, ``Nadam``,
+``Test`` and ``GroupAdaGrad``, whose steps are PyTorch ops in the
+reference's op order (a quotient or square root is correctly rounded,
+:func:`_div` / ``cuda_kernels.sqrt_rn``, as the reference's f32 ones are).
+
+``Updater.set_states`` also reads a states file written by the
+reference's ``get_states`` (a pickle of numpy arrays and the reference's
+Optimizer): :class:`_ReferenceUnpickler` maps the reference's optimizer
+and LR-scheduler classes onto this package's and refuses every other
+name of the reference package.
 """
 from __future__ import annotations
 
+import functools
 import io
+import math
 import pickle
 
+import numpy as _np
 import torch
 
 from .. import kernels as _kernels
 from ..ops import cuda_kernels as _ck
 
-__all__ = ["Optimizer", "create", "register", "SGD", "Adam", "Updater",
-           "get_updater"]
+__all__ = ["Optimizer", "create", "register", "Updater", "get_updater",
+           "SGD", "Signum", "SignSGD", "FTML", "LARS", "LBSGD", "DCASGD", "NAG",
+           "SGLD", "ccSGD", "Adam", "AdaGrad", "RMSProp", "AdaDelta", "Ftrl",
+           "Adamax", "Nadam", "Test", "GroupAdaGrad"]
 
 _LOW_PRECISION = (torch.float16, torch.bfloat16)
 # launch tables an optimizer keeps, one per first master (Optimizer._table_of)
@@ -58,6 +74,15 @@ def _bias_corrected_lr(lr, beta1, beta2, t):
     coef1 = 1.0 - beta1 ** t
     coef2 = 1.0 - beta2 ** t
     return _ck.div_rn(_f32(lr) * _ck.sqrt_rn(_f32(coef2)), _f32(coef1))
+
+
+def _div(a, b):
+    """``a / b`` in f32 rounded once (``cuda_kernels.div_rn``); a Python
+    number takes its f32 value first, as the reference's weakly typed
+    scalars do."""
+    if not isinstance(b, torch.Tensor):
+        b = torch.tensor(float(b), dtype=torch.float32, device=a.device)
+    return _ck.div_rn(a, b)
 
 
 def _is_array(x):
@@ -425,6 +450,28 @@ class Optimizer:
         ret.pop("_launch_tables", None)
         return ret
 
+    def __setstate__(self, state):
+        """A pickled optimizer, this package's or the reference's (whose
+        ``param_dict`` holds the reference's Parameters: dropped, since
+        whoever loads the optimizer sets it again)."""
+        self.__dict__.update(state)
+        self.param_dict = {}
+
+
+def _array_state(create_state):
+    """``create_state`` that also takes an NDArray weight, whose state is
+    then made of NDArrays."""
+    @functools.wraps(create_state)
+    def wrapper(self, index, weight):
+        if _is_array(weight):
+            return _arrays(create_state(self, index, weight._data))
+        return create_state(self, index, weight)
+    return wrapper
+
+
+def _f32_scalar(x, device):
+    return torch.tensor(float(x), dtype=torch.float32, device=device)
+
 
 register = Optimizer.register
 create = Optimizer.create_optimizer
@@ -483,6 +530,251 @@ class SGD(Optimizer):
 
 
 @register
+class Signum(Optimizer):
+    """Sign-of-momentum SGD (reference: ``optimizer.py:359``)::
+
+        mom = momentum * mom - (1 - momentum) * (grad + wd * weight)
+        weight = (1 - lr * wd_lh) * weight + lr * sign(mom)
+
+    and without momentum ``(1 - lr * (wd + wd_lh)) * weight - lr *
+    sign(grad)``."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    @_array_state
+    def create_state(self, index, weight):
+        if self.momentum != 0.0:
+            return torch.zeros_like(weight)
+        return None
+
+    def step(self, weight, grad, state, lr, wd, t):
+        if state is not None:
+            mom = self.momentum * state - (1 - self.momentum) * (
+                grad + wd * weight)
+            return ((1 - lr * self.wd_lh) * weight + lr * torch.sign(mom),
+                    mom)
+        return ((1 - lr * (wd + self.wd_lh)) * weight
+                - lr * torch.sign(grad), None)
+
+
+@register
+class SignSGD(Signum):
+    """``Signum`` without momentum (reference: ``optimizer.py:382``)."""
+
+    def __init__(self, **kwargs):
+        kwargs.setdefault("momentum", 0.0)
+        super().__init__(**kwargs)
+
+
+@register
+class FTML(Optimizer):
+    """Follow the Moving Leader (reference: ``optimizer.py:389``)."""
+
+    def __init__(self, beta1=0.6, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    @_array_state
+    def create_state(self, index, weight):
+        return tuple(torch.zeros_like(weight) for _ in range(3))
+
+    def step(self, weight, grad, state, lr, wd, t):
+        prev_d, prev_v, prev_z = state
+        g = grad + wd * weight
+        v = self.beta2 * prev_v + (1 - self.beta2) * g * g
+        d = (1 - self.beta1 ** t) / lr * (
+            _ck.sqrt_rn(_div(v, 1 - self.beta2 ** t)) + self.epsilon)
+        sigma = d - self.beta1 * prev_d
+        z = self.beta1 * prev_z + (1 - self.beta1) * g - sigma * weight
+        return _div(-z, d), (d, v, z)
+
+
+@register
+class LARS(Optimizer):
+    """Layer-wise Adaptive Rate Scaling (reference: ``optimizer.py:414``):
+    SGD whose lr is scaled by ``eta * |w| / (|g| + wd * |w| + eps)`` when
+    both norms are positive.  The norms stay on the weight's device."""
+
+    def __init__(self, momentum=0.0, lazy_update=True, eta=0.001, eps=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.eta = eta
+        self.eps = eps
+
+    @_array_state
+    def create_state(self, index, weight):
+        if self.momentum != 0.0:
+            return torch.zeros_like(weight)
+        return None
+
+    def step(self, weight, grad, state, lr, wd, t):
+        w_norm = torch.linalg.vector_norm(weight.reshape(-1))
+        g_norm = torch.linalg.vector_norm(grad.reshape(-1))
+        ratio = torch.where((w_norm > 0) & (g_norm > 0),
+                            _div(self.eta * w_norm,
+                                 g_norm + wd * w_norm + self.eps),
+                            _f32_scalar(1.0, weight.device))
+        lr_adj = lr * ratio
+        g = grad + wd * weight
+        if self.momentum == 0.0:
+            return weight - lr_adj * g, None
+        mom = self.momentum * state + lr_adj * g
+        return weight - mom, mom
+
+
+@register
+class LBSGD(Optimizer):
+    """Large-batch SGD with lr warmup (reference: ``optimizer.py:444``):
+    the lr is multiplied by the warmup strategy's factor (``linear``,
+    ``power2`` or ``sqrt``) at the optimizer's ``num_update``."""
+
+    # step() reads num_update for the warmup factor
+    jit_safe = False
+
+    def __init__(self, momentum=0.0, multi_precision=False,
+                 warmup_strategy="linear", warmup_epochs=5, batch_scale=1,
+                 updates_per_epoch=32, begin_epoch=0, num_epochs=60,
+                 **kwargs):
+        super().__init__(multi_precision=multi_precision, **kwargs)
+        self.momentum = momentum
+        self.warmup_strategy = warmup_strategy
+        self.warmup_epochs = warmup_epochs
+        self.batch_scale = batch_scale
+        self.updates_per_epoch = updates_per_epoch
+        self.init_updates = begin_epoch * updates_per_epoch
+        self.num_epochs = num_epochs
+        self.lbmult = 1.0
+
+    @_array_state
+    def create_state(self, index, weight):
+        if self.momentum != 0.0:
+            return torch.zeros_like(weight)
+        return None
+
+    def _get_lbmult(self, nup):
+        nwup = self.warmup_epochs * self.updates_per_epoch
+        maxmult = float(self.batch_scale)
+        if nup >= nwup:
+            return maxmult
+        if nwup <= 1:
+            return 1.0
+        if self.warmup_strategy == "linear":
+            return 1.0 + (maxmult - 1) * nup / nwup
+        if self.warmup_strategy == "power2":
+            return 1.0 + (maxmult - 1) * (nup * nup) / (nwup * nwup)
+        if self.warmup_strategy == "sqrt":
+            return 1.0 + (maxmult - 1) * math.sqrt(float(nup) / nwup)
+        return 1.0
+
+    def step(self, weight, grad, state, lr, wd, t):
+        self.lbmult = self._get_lbmult(self.num_update)
+        lr = lr * self.lbmult
+        g = grad + wd * weight
+        if self.momentum == 0.0:
+            return weight - lr * g, None
+        mom = self.momentum * state + lr * g
+        return weight - mom, mom
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD (reference:
+    ``optimizer.py:502``); the state is ``(momentum or None, previous
+    weight)``."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    @_array_state
+    def create_state(self, index, weight):
+        previous = weight.detach().clone()
+        if self.momentum == 0.0:
+            return (None, previous)
+        return (torch.zeros_like(weight), previous)
+
+    def step(self, weight, grad, state, lr, wd, t):
+        mom, previous_weight = state
+        g = grad + wd * weight
+        comp = g + self.lamda * g * g * (weight - previous_weight)
+        if mom is None:
+            new_mom = None
+            delta = -lr * comp
+        else:
+            new_mom = self.momentum * mom - lr * comp
+            delta = new_mom
+        new_w = weight + delta
+        return new_w, (new_mom, new_w)
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov accelerated SGD (reference: ``optimizer.py:531``)::
+
+        state = momentum * state + grad + wd * weight
+        weight = weight - lr * (grad + wd * weight + momentum * state)
+    """
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    @_array_state
+    def create_state(self, index, weight):
+        if self.momentum != 0.0:
+            return torch.zeros_like(weight)
+        return None
+
+    def step(self, weight, grad, state, lr, wd, t):
+        g = grad + wd * weight
+        if self.momentum == 0.0:
+            return weight - lr * g, None
+        mom = self.momentum * state + g
+        return weight - lr * (g + self.momentum * mom), mom
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic Gradient Langevin Dynamics (reference:
+    ``optimizer.py:556``): ``weight - lr / 2 * (grad + wd * weight) +
+    N(0, lr)``.  The noise is drawn on the weight's device with
+    ``random.generator`` (a generator seeded from ``mx.random``'s
+    stream); the two packages' streams differ, so only the deterministic
+    part and the noise's moments can be held against the reference."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+
+    def _noise(self, weight):
+        from .. import random as _random
+        return torch.randn(weight.shape, dtype=weight.dtype,
+                           device=weight.device,
+                           generator=_random.generator(weight.device))
+
+    def step(self, weight, grad, state, lr, wd, t):
+        g = grad + wd * weight
+        root = _ck.sqrt_rn(torch.tensor(lr, dtype=weight.dtype,
+                                        device=weight.device))
+        noise = self._noise(weight) * root.to(weight.dtype)
+        return weight - lr / 2 * g + noise, None
+
+
+@register
+class ccSGD(SGD):
+    """The deprecated alias of ``SGD`` (reference: ``optimizer.py:573``);
+    its fused step is SGD's, K1."""
+
+
+@register
 class Adam(Optimizer):
     """Adam (reference: ``optimizer.py:1371``)::
 
@@ -494,6 +786,8 @@ class Adam(Optimizer):
     with L2 weight decay folded into the grad (``grad + wd*w``)."""
 
     fused_step = True
+    # the last (lr, t)'s lr_t; an Adam pickled by the reference has none
+    _lr_t = (None, None)
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_update=True, **kwargs):
@@ -562,6 +856,229 @@ class Adam(Optimizer):
             table=self._table_of(weights[0]))
 
 
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (reference: ``optimizer.py:640``)::
+
+        hist = hist + g * g
+        weight = weight - lr * g / (sqrt(hist) + eps)
+
+    with ``g = grad + wd * weight``."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    @_array_state
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight)
+
+    def step(self, weight, grad, state, lr, wd, t):
+        g = grad + wd * weight
+        hist = state + g * g
+        return (weight - _div(lr * g, _ck.sqrt_rn(hist)
+                              + self.float_stable_eps), hist)
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp, plain or ``centered`` (Graves' form; reference:
+    ``optimizer.py:658``), with ``clip_weights``."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    @_array_state
+    def create_state(self, index, weight):
+        n = 3 if self.centered else 1
+        return tuple(torch.zeros_like(weight) for _ in range(n))
+
+    def _clip(self, w):
+        if self.clip_weights:
+            return torch.clamp(w, -self.clip_weights, self.clip_weights)
+        return w
+
+    def step(self, weight, grad, state, lr, wd, t):
+        g = grad + wd * weight
+        if self.centered:
+            n, gm, delta = state
+            n = (1 - self.gamma1) * g * g + self.gamma1 * n
+            gm = (1 - self.gamma1) * g + self.gamma1 * gm
+            delta = self.gamma2 * delta - _div(
+                lr * g, _ck.sqrt_rn(n - gm * gm + self.epsilon))
+            return self._clip(weight + delta), (n, gm, delta)
+        (n,) = state
+        n = (1 - self.gamma1) * g * g + self.gamma1 * n
+        w = weight - _div(lr * g, _ck.sqrt_rn(n + self.epsilon))
+        return self._clip(w), (n,)
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (reference: ``optimizer.py:696``)."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    @_array_state
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight), torch.zeros_like(weight))
+
+    def step(self, weight, grad, state, lr, wd, t):
+        acc_g, acc_delta = state
+        g = grad + wd * weight
+        acc_g = self.rho * acc_g + (1.0 - self.rho) * g * g
+        delta = _div(_ck.sqrt_rn(acc_delta + self.epsilon),
+                     _ck.sqrt_rn(acc_g + self.epsilon)) * g
+        acc_delta = self.rho * acc_delta + (1.0 - self.rho) * delta * delta
+        return weight - delta, (acc_g, acc_delta)
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal (reference: ``optimizer.py:718``); the state is
+    ``(z, n)`` and ``wd`` enters the closed form, not the grad."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    @_array_state
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight), torch.zeros_like(weight))
+
+    def step(self, weight, grad, state, lr, wd, t):
+        z, n = state
+        g = grad
+        sigma = _div(_ck.sqrt_rn(n + g * g) - _ck.sqrt_rn(n), lr)
+        z = z + g - sigma * weight
+        n = n + g * g
+        w = (_div(torch.sign(z) * self.lamda1 - z,
+                  _div(self.beta + _ck.sqrt_rn(n), lr) + wd)
+             * (torch.abs(z) > self.lamda1))
+        return w, (z, n)
+
+
+@register
+class Adamax(Optimizer):
+    """AdaMax, Adam over the infinity norm (reference:
+    ``optimizer.py:742``)."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    @_array_state
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight), torch.zeros_like(weight))
+
+    def step(self, weight, grad, state, lr, wd, t):
+        m, u = state
+        g = grad + wd * weight
+        lr_t = lr / (1.0 - self.beta1 ** t)
+        m = self.beta1 * m + (1.0 - self.beta1) * g
+        u = torch.maximum(self.beta2 * u, torch.abs(g))
+        return weight - _div(lr_t * m, u + 1e-8), (m, u)
+
+
+@register
+class Nadam(Optimizer):
+    """Nesterov-accelerated Adam (reference: ``optimizer.py:763``).  The
+    momentum schedule's running product ``m_schedule`` is one Python
+    float of the optimizer, advanced by every update (of every index),
+    as in the reference."""
+
+    # step() advances m_schedule, host state outside ``state``
+    jit_safe = False
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    @_array_state
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight), torch.zeros_like(weight))
+
+    def step(self, weight, grad, state, lr, wd, t):
+        m, v = state
+        g = grad + wd * weight
+        momentum_t = self.beta1 * (
+            1.0 - 0.5 * 0.96 ** (t * self.schedule_decay))
+        momentum_t_1 = self.beta1 * (
+            1.0 - 0.5 * 0.96 ** ((t + 1) * self.schedule_decay))
+        self.m_schedule = self.m_schedule * momentum_t
+        m_schedule_next = self.m_schedule * momentum_t_1
+        grad_prime = _div(g, 1.0 - self.m_schedule)
+        m = self.beta1 * m + (1.0 - self.beta1) * g
+        v = self.beta2 * v + (1.0 - self.beta2) * g * g
+        m_prime = _div(m, 1.0 - m_schedule_next)
+        v_prime = _div(v, 1.0 - self.beta2 ** t)
+        m_bar = (1.0 - momentum_t) * grad_prime + momentum_t_1 * m_prime
+        w = weight - _div(lr * m_bar, _ck.sqrt_rn(v_prime) + self.epsilon)
+        return w, (m, v)
+
+
+@register
+class Test(Optimizer):
+    """The mock optimizer of the kvstore tests (reference:
+    ``optimizer.py:801``): ``weight + grad * rescale_grad`` (the grad
+    arrives rescaled already, so the rescale applies twice, as there)."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+
+    @_array_state
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight)
+
+    def step(self, weight, grad, state, lr, wd, t):
+        return weight + grad * self.rescale_grad, state
+
+
+@register
+class GroupAdaGrad(Optimizer):
+    """AdaGrad with one accumulator a row (reference:
+    ``optimizer.py:815``); weight decay is not supported."""
+
+    def __init__(self, learning_rate=0.05, eps=1e-5, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.float_stable_eps = eps
+
+    @_array_state
+    def create_state(self, index, weight):
+        return torch.zeros((weight.shape[0], 1), dtype=weight.dtype,
+                           device=weight.device)
+
+    def step(self, weight, grad, state, lr, wd, t):
+        if wd != 0:
+            raise ValueError("Weight decay is not supported for "
+                             "GroupAdaGrad")
+        sq = grad * grad
+        if grad.dim() > 1:   # torch.mean over no dims would mean all dims
+            sq = torch.mean(sq, dim=tuple(range(1, grad.dim())),
+                            keepdim=True)
+        hist = state + sq.reshape(state.shape)
+        root = _ck.sqrt_rn(hist).reshape((-1,) + (1,) * (grad.dim() - 1))
+        return weight - _div(lr * grad, root + self.float_stable_eps), hist
+
+
 def _state_to(state, device):
     """The state tree with its tensors on ``device``."""
     if state is None:
@@ -613,9 +1130,16 @@ class Updater:
         return _state_to(state, resolve_device(context))
 
     def set_states(self, states):
-        """Load states written by :meth:`get_states`; each moves to its
-        weight's device at its next update."""
-        states = torch.load(io.BytesIO(states), weights_only=False)
+        """Load states written by :meth:`get_states`, or by the
+        reference's (a pickle of numpy arrays, read through
+        :class:`_ReferenceUnpickler`); each moves to its weight's device
+        at its next update."""
+        if states[:2] == b"PK":   # torch.save's zip container
+            states = torch.load(io.BytesIO(states), weights_only=False)
+        else:
+            states = _ReferenceUnpickler(io.BytesIO(states)).load()
+            states = (_from_numpy(states[0]), states[1]) \
+                if isinstance(states, tuple) else _from_numpy(states)
         if isinstance(states, tuple) and len(states) == 2:
             states, self.optimizer = states
         self.states = states
@@ -633,3 +1157,75 @@ class Updater:
 
 def get_updater(optimizer):
     return Updater(optimizer)
+
+
+def _from_numpy(tree):
+    """A reference state tree (numpy arrays in dicts and tuples) as
+    tensors."""
+    if isinstance(tree, dict):
+        return {k: _from_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return tuple(_from_numpy(v) for v in tree)
+    if isinstance(tree, _np.ndarray):
+        return torch.from_numpy(tree.copy())
+    return tree
+
+
+class _Dropped:
+    """What a reference object that only rides along in a pickled
+    optimizer becomes (the reference Trainer's Parameters in
+    ``param_dict``, their arrays and contexts): nothing of it is kept,
+    since the loader sets ``param_dict`` again."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        pass
+
+
+def _dropped(*args, **kwargs):
+    return _Dropped()
+
+
+# the reference package's name of each class its pickled optimizer may
+# hold -> this package's counterpart
+_REF_ROOT = "mxnet_tpu"
+_REF_CLASSES = {(_REF_ROOT + ".optimizer.optimizer", name): name
+                for name in __all__ if name[0].isupper()
+                and name != "Updater"}
+_REF_SCHEDULERS = ("LRScheduler", "FactorScheduler", "MultiFactorScheduler",
+                   "PolyScheduler", "CosineScheduler")
+_REF_RIDERS = {(_REF_ROOT + ".gluon.parameter", "Parameter"),
+               (_REF_ROOT + ".gluon.parameter", "Constant"),
+               (_REF_ROOT + ".ndarray.ndarray", "NDArray"),
+               (_REF_ROOT + ".context", "Context"),
+               ("jax._src.array", "_reconstruct_array")}
+_NUMPY_NAMES = {("numpy._core.multiarray", "_reconstruct"),
+                ("numpy.core.multiarray", "_reconstruct"),
+                ("numpy._core.multiarray", "scalar"),
+                ("numpy.core.multiarray", "scalar"),
+                ("numpy", "ndarray"), ("numpy", "dtype")}
+
+
+class _ReferenceUnpickler(pickle.Unpickler):
+    """Reads a pickle the reference package wrote (its optimizer states,
+    its trainer checkpoints) without importing it: numpy's array names
+    load as themselves; the reference's optimizer and LR-scheduler
+    classes load as this package's; the reference Trainer's Parameters
+    (and their arrays and contexts) that ride along in an optimizer's
+    ``param_dict`` load as :class:`_Dropped`; every other name raises
+    ``pickle.UnpicklingError``."""
+
+    def find_class(self, module, name):
+        if (module, name) in _NUMPY_NAMES:
+            return super().find_class(module, name)
+        if (module, name) in _REF_CLASSES:
+            return globals()[_REF_CLASSES[(module, name)]]
+        if module == _REF_ROOT + ".lr_scheduler" and name in _REF_SCHEDULERS:
+            from .. import lr_scheduler
+            return getattr(lr_scheduler, name)
+        if (module, name) in _REF_RIDERS:
+            return _dropped if name.startswith("_") else _Dropped
+        raise pickle.UnpicklingError(
+            "refusing %s.%s in a pickled optimizer state" % (module, name))

@@ -22,14 +22,24 @@ never silently ignored): meshes over several devices and sharded
 (``resilience.nanguard``), in-step numerics capture
 (``numerics.capture``) and 2-bit DCN gradient compression
 (``kvstore.grad_compress``); sparse-gradient embeddings; pad-masked steps
-(``step(pad>0)``); the checkpoint manager and checkpoint files.
+(``step(pad>0)``); the checkpoint manager and the sharded checkpoints.
+
+``save_checkpoint`` / ``load_checkpoint`` keep the reference's
+single-file checkpoint: a pickle of numpy arrays under the same keys
+(``schema``, ``format``, ``step_num``, ``params`` in OIHW, ``opt_state``,
+``rng_key``), published atomically, so each package reads the other's.
+A reference checkpoint's ``rng_key`` (a JAX key) is not read: the two
+packages' random streams never agree.
 """
 from __future__ import annotations
+
+import pickle
 
 import numpy as _np
 import torch
 
 from .. import config as _config
+from ..io import ensure_staged
 from .. import kernels as _kernels
 from ..ndarray.ndarray import NDArray, _wrap
 from .functional import functionalize
@@ -102,6 +112,13 @@ class SPMDTrainer:
         if sparse:
             raise NotImplementedError(
                 "sparse-gradient parameters are not ported: %s" % sparse[:4])
+
+    @property
+    def batch_sharding(self):
+        """The device the step takes batches on (the mesh's one device):
+        the ``placement`` to hand ``io.DevicePrefetcher``, so ``step``
+        never copies a batch itself."""
+        return self.device
 
     # ---------------------------------------------------------- materialize
     def _materialize(self, data):
@@ -215,12 +232,8 @@ class SPMDTrainer:
         """Run one train step; returns the loss (a 0-d f32 tensor on the
         device, not synchronised)."""
         self._check_knobs(int(pad or 0))
-        if isinstance(data, NDArray):
-            data = data._data
-        if isinstance(label, NDArray):
-            label = label._data
-        data = torch.as_tensor(data, device=self.device)
-        label = torch.as_tensor(label, device=self.device)
+        data = ensure_staged(data, self.device, "step")
+        label = ensure_staged(label, self.device, "step")
         if self.params is None:
             self._materialize(data)
         key = (_kernels.enabled(), _config.epoch())
@@ -239,18 +252,120 @@ class SPMDTrainer:
         Block's Parameters."""
         self.fn.write_back({n: v.detach() for n, v in self.params.items()})
 
+    # --------------------------------------------------------- checkpoints
+    def save_checkpoint(self, path):
+        """Write the weights (f32 masters and aux state), the optimizer
+        state and the step count to ``path``, atomically: a pickle of
+        numpy arrays in the reference's format (``parallel/trainer.py:
+        1131``), which ``load_checkpoint`` of either package reads."""
+        from ..random import _STATE
+        from ..resilience import CKPT_SCHEMA, atomic_write
+        if self.params is None:
+            raise RuntimeError("save_checkpoint: the trainer has taken no "
+                               "step, so it holds no weights yet")
+        host = {
+            "schema": CKPT_SCHEMA,
+            "format": _FORMAT,
+            "step_num": self._step_num,
+            "params": {n: _host(v) for n, v in self.params.items()},
+            "opt_state": {n: _tree(s, _host)
+                          for n, s in self.opt_state.items()},
+            # this package's stream position (seed, draws): the shape of a
+            # reference key, which the reference restores and nothing draws
+            "rng_key": _np.array([_STATE.seed_val & 0xFFFFFFFF,
+                                  _STATE.counter & 0xFFFFFFFF], _np.uint32),
+        }
+        with atomic_write(path, "wb") as f:
+            pickle.dump(host, f, protocol=4)
+
+    def load_checkpoint(self, path):
+        """Restore a checkpoint of either package; the next step continues
+        bitwise where the saved run left off.  Names pair up after each
+        net's own top prefix (``convert.pair_names``).  A truncated or
+        unreadable file, a file that is not an SPMDTrainer checkpoint, one
+        of a newer schema or one of another network raises
+        ``resilience.CheckpointCorruptError``."""
+        from ..convert import _own_prefix, pair_names
+        from ..optimizer.optimizer import _ReferenceUnpickler
+        from ..random import _STATE
+        from ..resilience import CKPT_SCHEMA, CheckpointCorruptError
+        try:
+            with open(path, "rb") as f:
+                host = _ReferenceUnpickler(f).load()
+        except (OSError, EOFError, pickle.UnpicklingError, AttributeError,
+                ImportError, IndexError, ValueError, TypeError) as exc:
+            raise CheckpointCorruptError(
+                "checkpoint %s is unreadable (%s: %s)"
+                % (path, type(exc).__name__, exc)) from exc
+        if not isinstance(host, dict) or not (
+                {"step_num", "params", "opt_state"} <= set(host)):
+            raise CheckpointCorruptError(
+                "checkpoint %s is not an SPMDTrainer checkpoint (missing "
+                "step_num/params/opt_state)" % path)
+        if int(host.get("schema", 1)) > CKPT_SCHEMA:
+            raise CheckpointCorruptError(
+                "checkpoint %s was written by a newer schema (%s > %s)"
+                % (path, host.get("schema"), CKPT_SCHEMA))
+        names = list(self.fn.params)
+        try:
+            pairs = pair_names(names, list(host["params"]),
+                               _own_prefix(self.block, names))
+            missing = [n for n in self.fn.trainable
+                       if pairs[n] not in host["opt_state"]]
+        except ValueError as exc:
+            raise CheckpointCorruptError(
+                "checkpoint %s is another network's: %s" % (path, exc)) \
+                from exc
+        if missing:
+            raise CheckpointCorruptError(
+                "checkpoint %s has no optimizer state for %s"
+                % (path, missing[:4]))
+        dev = self.device
+        self.params = {n: torch.as_tensor(host["params"][pairs[n]]).to(
+            dev, copy=True) for n in names}
+        for n in self.fn.trainable:
+            self.params[n].requires_grad_(True)
+        self.opt_state = {n: _tree(host["opt_state"][pairs[n]],
+                                   lambda a: torch.as_tensor(a).to(
+                                       dev, copy=True))
+                          for n in self.fn.trainable}
+        self._step_num = int(host["step_num"])
+        self.optimizer.num_update = self._step_num
+        self._program = None
+        if host.get("format") == _FORMAT and "rng_key" in host:
+            _STATE.seed_val, _STATE.counter = (int(v)
+                                               for v in host["rng_key"])
+
     # ------------------------------------------------- not ported (refuse)
     def attach_checkpoint_manager(self, manager, auto_resume=True):
         raise NotImplementedError("the checkpoint manager is not ported")
 
-    def save_checkpoint(self, path):
-        raise NotImplementedError("trainer checkpoints are not ported")
+    def save_checkpoint_sharded(self, path):
+        raise NotImplementedError("sharded checkpoints are not ported")
 
-    def load_checkpoint(self, path):
-        raise NotImplementedError("trainer checkpoints are not ported")
+    load_checkpoint_sharded = save_checkpoint_sharded
 
-    save_checkpoint_sharded = save_checkpoint
-    load_checkpoint_sharded = load_checkpoint
+
+# the ``format`` of this package's checkpoints (the reference writes
+# "mxnet_tpu-spmd-ckpt"; either loads)
+_FORMAT = "mxnet_tpu_torch-spmd-ckpt"
+
+
+def _host(t):
+    """A tensor as a numpy copy on the host (bf16 widened to f32)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
+def _tree(state, leaf):
+    """``leaf`` over a state tree (None, an array, or tuples of them)."""
+    if state is None:
+        return None
+    if isinstance(state, (list, tuple)):
+        return tuple(_tree(s, leaf) for s in state)
+    return leaf(state)
 
 
 def _state_copy(state, new):

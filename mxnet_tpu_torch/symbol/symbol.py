@@ -306,11 +306,12 @@ def _json_attrs(attrs):
 
 
 def load_json(s):
-    """A Symbol from :meth:`Symbol.tojson`'s JSON (either package's)."""
-    if '"arg_nodes"' in s and '"nodes"' in s:
-        raise NotImplementedError(
-            "an Apache-MXNet (NNVM) symbol.json: its reader "
-            "(compat.load_mxnet_symbol) is not ported yet (slice 9)")
+    """A Symbol from :meth:`Symbol.tojson`'s JSON (either package's), or
+    from an Apache-MXNet (NNVM) symbol.json (``compat.load_mxnet_symbol``,
+    which replays its nodes through the ``mx.sym`` builders)."""
+    from ..compat import is_mxnet_symbol_json, load_mxnet_symbol
+    if is_mxnet_symbol_json(s):
+        return load_mxnet_symbol(s)
     data = json.loads(s)
     nodes = []
     for spec in data["nodes"]:

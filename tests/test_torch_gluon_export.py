@@ -106,6 +106,12 @@ def test_symbolblock_trains_through_the_tape(tmp_path):
 
 
 def test_export_mxnet_format_raises(tmp_path):
+    """``fmt="mxnet"`` writes Apache MXNet's files (compat; held against
+    the reference in ``tests/test_torch_compat.py``); an unknown format
+    raises."""
     _, pb = _pair()
-    with pytest.raises(NotImplementedError):
-        pb.export(str(tmp_path / "m"), fmt="mxnet")
+    files = pb.export(str(tmp_path / "m"), fmt="mxnet")
+    assert mt.compat.is_mxnet_symbol_json(open(files[0]).read())
+    assert mt.compat.is_mxnet_params(open(files[1], "rb").read(8))
+    with pytest.raises(ValueError):
+        pb.export(str(tmp_path / "m"), fmt="onnx")

@@ -891,6 +891,14 @@ def test_import_does_not_load_jax():
             "import mxnet_tpu_torch.model, mxnet_tpu_torch.engine; "
             "import mxnet_tpu_torch.executor; "
             "import mxnet_tpu_torch.executor_manager; "
+            "import mxnet_tpu_torch.recordio, mxnet_tpu_torch.image; "
+            "import mxnet_tpu_torch.compat, mxnet_tpu_torch.resilience; "
+            "import mxnet_tpu_torch.gluon.data.vision.transforms; "
+            "import mxnet_tpu_torch.gluon.contrib.data; "
+            "import mxnet_tpu_torch.module.sequential_module; "
+            "import mxnet_tpu_torch.module.python_module; "
+            "assert 'mxnet_tpu_torch.gluon.data.dataloader' in sys.modules; "
+            "assert 'mxnet_tpu_torch.image.image' in sys.modules; "
             "assert 'mxnet_tpu_torch.optimizer.optimizer' in sys.modules; "
             "assert 'mxnet_tpu_torch.symbol.symbol' in sys.modules; "
             "assert 'mxnet_tpu_torch.module.module' in sys.modules; "

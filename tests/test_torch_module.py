@@ -525,10 +525,14 @@ def test_nd_save_load_across_packages(tmp_path, kind, writer):
 
 
 def test_nd_load_mxnet_params_file_raises(tmp_path):
-    """A real Apache-MXNet .params file (list magic 0x112) names the
-    slice its reader comes with."""
+    """A real Apache-MXNet .params file (list magic 0x112) is read by
+    ``compat`` (an empty list save loads as an empty list); a truncated
+    one raises."""
     fname = str(tmp_path / "real.params")
+    with open(fname, "wb") as f:   # reserved, 0 arrays, 0 names
+        f.write((0x112).to_bytes(8, "little") + b"\0" * 24)
+    assert mt.nd.load(fname) == []
     with open(fname, "wb") as f:
-        f.write((0x112).to_bytes(8, "little") + b"\0" * 16)
-    with pytest.raises(NotImplementedError, match="slice 9"):
+        f.write((0x112).to_bytes(8, "little") + b"\0" * 4)
+    with pytest.raises(ValueError, match="truncated"):
         mt.nd.load(fname)

@@ -8,6 +8,9 @@ import mxnet_tpu as ref
 import mxnet_tpu.operator  # noqa: F401  (registers the reference's Custom)
 import mxnet_tpu.gluon.model_zoo.model_store  # noqa: F401
 import mxnet_tpu.gluon.model_zoo.vision  # noqa: F401
+import mxnet_tpu.compat, mxnet_tpu.image, mxnet_tpu.recordio  # noqa: F401
+import mxnet_tpu.resilience, mxnet_tpu.gluon.data  # noqa: F401
+import mxnet_tpu.gluon.contrib.data  # noqa: F401
 import mxnet_tpu_torch as mt
 import mxnet_tpu_torch.gluon.model_zoo.model_store  # noqa: F401
 import mxnet_tpu_torch.gluon.model_zoo.vision  # noqa: F401
@@ -65,23 +68,35 @@ UNPORTED_API = {
                    "dgl_graph_compact": "16", "dgl_subgraph": "16"},
 }
 
-_SLICE_8_PART_2 = "8 (part 2): the optimizers"
-_SLICE_8_PART_2_MODULES = "8 (part 2): the other Modules"
-# the Gluon, model-zoo, initializer and optimizer names the reference has
-# and the port does not, by surface and slice; a surface is a module's
-# public names (its __all__ where it lists them, so that its own imports
-# do not count) or a class's public attributes
+_RESILIENCE_REST = ("CheckpointManager", "FaultRule", "InjectedFault",
+                    "MANIFEST_SCHEMA", "NonFiniteStepError", "all_finite",
+                    "clear_preempt", "configure_faults", "configure_retry",
+                    "configure_preemption", "exit_on_preempt",
+                    "faults_active", "flush_sinks", "guarded_streak",
+                    "inject", "manifest_path", "maybe_abort_nonfinite",
+                    "nanguard_mode", "nonfinite_stats", "note_finite",
+                    "parse_faults", "poison_batch", "preempt_requested",
+                    "report_nonfinite", "reset_nanguard", "select_tree",
+                    "should_inject", "verify_checkpoint", "write_manifest")
+# the Gluon, model-zoo, initializer, optimizer, Module, data-pipeline and
+# persistence names the reference has and the port does not, by surface
+# and slice; a surface is a module's public names (its __all__ where it
+# lists them, so that its own imports do not count) or a class's public
+# attributes
 UNPORTED_SURFACE = {
-    "gluon": {"data": "11"},
+    "gluon": {},
     "gluon.rnn": {},
-    "gluon.contrib": {"nn": "16", "cnn": "16", "data": "11",
-                      "estimator": "16"},
+    "gluon.contrib": {"nn": "16", "cnn": "16", "estimator": "16"},
     "gluon.contrib.rnn": {},
+    "gluon.contrib.data": {},
+    "gluon.data": {},
+    "gluon.data.vision": {},
+    "gluon.data.vision.transforms": {},
     "rnn": {},
-    "module": {"SequentialModule": _SLICE_8_PART_2_MODULES,
-               "PythonModule": _SLICE_8_PART_2_MODULES,
-               "PythonLossModule": _SLICE_8_PART_2_MODULES},
+    "module": {},
     "module.BucketingModule": {},
+    "module.SequentialModule": {},
+    "module.PythonLossModule": {},
     "gluon.nn": {},
     "gluon.loss": {},
     "gluon.utils": {},
@@ -93,13 +108,25 @@ UNPORTED_SURFACE = {
                         "list_row_sparse_data": "16"},
     "gluon.Constant": {"row_sparse_data": "16",
                        "list_row_sparse_data": "16"},
+    "gluon.Trainer": {},
     "gluon.model_zoo.vision": {},
     "gluon.model_zoo.model_store": {},
     "initializer": {},
-    "optimizer": dict.fromkeys(
-        ("AdaDelta", "AdaGrad", "Adamax", "DCASGD", "FTML", "Ftrl",
-         "GroupAdaGrad", "LARS", "LBSGD", "NAG", "Nadam", "RMSProp",
-         "SGLD", "SignSGD", "Signum", "Test", "ccSGD"), _SLICE_8_PART_2),
+    "optimizer": {},
+    "optimizer.Updater": {},
+    "model": {},
+    "model.FeedForward": {},
+    "compat": {},
+    "recordio": {},
+    "recordio.MXIndexedRecordIO": {},
+    "io": {"LibSVMIter": "16", "ImageDetRecordIter": "12"},
+    "io.DevicePrefetcher": {},
+    "image": dict.fromkeys(
+        ("CreateDetAugmenter", "DetAugmenter", "DetBorrowAug",
+         "DetHorizontalFlipAug", "DetRandomCropAug", "DetRandomPadAug",
+         "DetRandomSelectAug"), "12"),
+    "image.ImageIter": {},
+    "resilience": dict.fromkeys(_RESILIENCE_REST, "14"),
 }
 
 

@@ -162,8 +162,9 @@ def test_optimizer_registry_and_state():
     assert isinstance(o, mt.optimizer.Adam) and o.learning_rate == 0.5
     assert o.fused_step and o.jit_safe
     assert isinstance(mt.optimizer.create("sgd"), mt.optimizer.SGD)
-    with pytest.raises(ValueError, match="rmsprop"):
-        mt.optimizer.create("rmsprop")
+    assert isinstance(mt.optimizer.create("rmsprop"), mt.optimizer.RMSProp)
+    with pytest.raises(ValueError, match="nosuchopt"):
+        mt.optimizer.create("nosuchopt")
     w = torch.zeros(4, 3, dtype=torch.bfloat16)
     master, (m, v) = mt.optimizer.Adam(
         multi_precision=True).create_state_multi_precision(0, w)
