@@ -4,7 +4,7 @@ Usage (from the root of a checkout, one visible CUDA card)::
 
     python3 chip_smoke.py [--report PATH]
                           [--phase attention|optimizer|module|bert|lm_f32|
-                                   generation|ops|zoo|rnn|data]
+                                   generation|ops|zoo|rnn|data|ssd]
 
 Phases; any failure exits non-zero without the result lines:
 
@@ -362,6 +362,33 @@ Phases; any failure exits non-zero without the result lines:
             fused step); (d) resnet50_v1 through ``export(fmt="mxnet")``
             and ``mx.model.load_checkpoint`` into a ``SymbolBlock``:
             logits on the card bitwise the source network's.
+7e. ssd    — SSD-512 and the detection ops: (a)
+            ``examples/ssd_train.py --size 512`` on its synthetic batches
+            (``synthetic_batch``, ``RandomState(0)``): ssd_512 over
+            SSD_CLASSES classes, Xavier, ``MultiBoxLoss``,
+            ``gluon.Trainer`` SGD (SSD_LR, momentum 0.9,
+            ``multi_precision`` so that each f32 weight takes K1), batch
+            SSD_BATCH; one step's targets on the card against the CPU's
+            from the same ``cls_preds`` (DET_RTOL) and its loss against
+            the CPU's from the same weights and batch (SSD_LOSS_RTOL);
+            SSD_STEPS counted steps with exactly SSD_TENSORS sgd_step
+            launches a step, finite losses, K1 bitwise on the last
+            gradients, step ms, img/s, a profiled window and
+            ``MultiBoxTarget``'s device time; (b) the same from
+            SSD_REC_IMAGES NPYF detection records through
+            ``mx.io.ImageDetRecordIter`` (every label batch the rows
+            written, padded with -1); (c) ``net.detect`` on the inference
+            batch of SSD_DETECT_BATCH (65,280 anchors): exactly one
+            box_nms launch, and the NMS kernel bitwise with its plain
+            version from the same sorted rows there, at the dense end
+            (every one of 65,280 rows valid), in the small cases
+            (ties, invalid rows, topk, force_suppress, id_index -1, IoUs
+            exactly at the threshold) and in ``Proposal`` at PROPOSAL_*
+            (6000 rows), with its times (events, device, mask and walk),
+            the plain version's and its bound (NMS_PAIR_OPS a needed
+            pair at PEAK_F32_FLOPS); (d) every detection op of
+            ``det_cases`` at its small and its realistic shape, card
+            against CPU within DET_RTOL.
 8. summary — a ``{"kernels": [...]}`` line, the card's name and power
             limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -405,6 +432,10 @@ as one JSON line.
 
 ``--phase rnn`` builds K3 and runs phase 7c alone, and prints its
 report as one JSON line, then the card's line and the ok line.
+
+``--phase ssd`` builds K1 and the NMS kernel, runs phase 2's K1
+checks and phase 7e alone, and prints the kernels line of K1 and the
+NMS kernel, then the card's line and the ok line.
 
 ``--phase data`` builds K1 and K3 and runs phase 7d alone, and prints
 its report as one JSON line, then the card's line and the ok line.
@@ -1700,7 +1731,8 @@ def profiler_probe(torch, windows=PROFILE_PROBES):
 
 # device time by kind, matched on kernel names in this order
 _KERNEL_GROUPS = (
-    ("port kernels", ("flash_", "paged_", "adam_multi", "sgd_multi")),
+    ("port kernels", ("flash_", "paged_", "adam_multi", "sgd_multi",
+                      "nms_mask", "nms_walk")),
     ("cudnn layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("cudnn recurrence", ("RNN", "rnn_", "LSTM", "lstm", "GRU", "elemWise",
                           "elementWise_")),
@@ -6722,15 +6754,17 @@ def _tree_to(torch, state, device):
 
 
 def _update_on(torch, opt_blob, name, params, states, device):
-    """One update of every LM parameter by a copy of the optimizer, on
-    ``device``, from copies of the same weights, gradients and states;
-    the new weights."""
+    """One update of every trainable parameter by a copy of the
+    optimizer, on ``device``, from copies of the same weights, gradients
+    and states; the new weights."""
     import pickle
     opt = pickle.loads(opt_blob)
     if name == "sgld":
         opt._noise = torch.zeros_like        # the deterministic part only
     out = []
     for i, p in enumerate(params):
+        if p.grad_req == "null":
+            continue
         w = p.data()._data.detach().to(device, copy=True)
         g = p.grad()._data.detach().to(device, copy=True)
         opt.update_multi_precision(i, w, g, _tree_to(torch, states[i],
@@ -6918,6 +6952,889 @@ def data_phase(mx, ck, np, torch, card, workdir, synthetic=None):
     return out
 
 
+# ------------------------------------------------------------- phase ssd
+# examples/ssd_train.py at --size 512 (BASELINE.json config 4): ssd_512
+# over 20 classes, batch 8, gluon.Trainer SGD at lr 0.05 and momentum
+# 0.9, 20 counted steps; then detection on its inference batch of 2
+# (65,280 anchors an image, nms_threshold 0.45, threshold 0.01)
+SSD_SIZE = 512
+SSD_CLASSES = 20
+SSD_BATCH = 8
+SSD_STEPS = 20
+SSD_LR = 0.05
+SSD_MOMENTUM = 0.9
+#: ssd_512's trainable tensors: stem 2 x 4, stages 4 x 4, class and box
+#: heads 4 x 2 each; K1 launches once for each a step
+SSD_TENSORS = 40
+SSD_DETECT_BATCH = 2
+SSD_NMS_THRESHOLD = 0.45
+SSD_THRESHOLD = 0.01
+#: (b): the records the phase writes, one per image of 20 batches
+SSD_REC_IMAGES = SSD_BATCH * SSD_STEPS
+#: the card's loss on one step against the CPU's, from the same weights
+#: and batch: the convolutions in f32 on cuDNN (TF32 off) and on the CPU
+#: sum in other orders, and the 3:1 mining ranks negatives by those
+#: slightly different scores, so a negative at the rank boundary may
+#: swap with one of nearly the same score
+SSD_LOSS_RTOL = 1e-3
+#: the IoU of one pair of boxes takes 15 operations of the greedy scan
+#: (4 min/max, 2 differences, 2 clips, the intersection, the union's add
+#: and subtract, its floor, the quotient, the comparison and the class
+#: test; each box's area is one per row, not per pair)
+NMS_PAIR_OPS = 15
+#: NMS rows of the card's small cases of (c)
+NMS_SMALL_ROWS = 500
+#: Faster R-CNN's RPN at its VGG-16 feature map: one 600x800 image, a
+#: 38x50 map at stride 16, scales (8, 16, 32) x ratios (0.5, 1, 2)
+PROPOSAL_SHAPE = (1, 38, 50)
+PROPOSAL_ATTRS = {"scales": (8, 16, 32), "ratios": (0.5, 1, 2),
+                  "feature_stride": 16, "rpn_pre_nms_top_n": 6000,
+                  "rpn_post_nms_top_n": 300, "threshold": 0.7,
+                  "rpn_min_size": 16}
+
+#: the detection ops' bound, max|got - want| / max|want| over each output,
+#: both for the port against the reference on the CPU
+#: (tests/test_torch_detection_ops.py) and for the card against the CPU
+#: (phase ssd(d)); 0 is bitwise.  Exact: the ops whose arithmetic is
+#: comparisons, selection and single IEEE operations in the same order
+#: (the IoU, the anchors, max pooling, matching, NMS; their divisions by
+#: constants are IEEE divisions on the card too, ``contrib.div_exact``).
+#: 2^-20: an exp, log, sin or cos on the way (two libraries' f32
+#: transcendentals differ in the last bits), or a bilinear tap whose
+#: multiply-adds XLA contracts.  2^-18: AdaptiveAvgPooling2D's products
+#: sum in another order.  2^-16: RROIAlign samples at positions rotated
+#: by a cos and a sin of the map's scale (up to ~50 pixels), where an ulp
+#: moves a tap by ~4e-6 of a pixel, and the map's slope carries that into
+#: the output (6.7 x 2^-20 measured on the card at 300 ROIs of a 38x50
+#: map).  2^-12: PSROIPooling's bin sums are differences of
+#: integral-image entries, prefix sums over up to H x W values whose
+#: rounding depends on the scan's order (a 38x50 map on the card).
+DET_RTOL = {"box_iou": 0.0, "bipartite_matching": 0.0, "box_nms": 0.0,
+            "ROIPooling": 0.0, "MultiBoxPrior": 0.0,
+            "box_encode": 2.0 ** -20, "box_decode": 2.0 ** -20,
+            "MultiBoxTarget": 2.0 ** -20, "MultiBoxDetection": 2.0 ** -20,
+            "_contrib_AdaptiveAvgPooling2D": 2.0 ** -18,
+            "_contrib_Proposal": 2.0 ** -20,
+            "_contrib_PSROIPooling": 2.0 ** -12,
+            "_contrib_DeformablePSROIPooling": 2.0 ** -20,
+            "_contrib_RROIAlign": 2.0 ** -16}
+#: outputs held bitwise whatever the op's bound: MultiBoxTarget's box
+#: mask and class targets, MultiBoxDetection's class ids and scores (its
+#: columns 0 and 1: the kept set), Proposal's scores, box_encode's mask
+DET_EXACT_OUTPUTS = {"MultiBoxTarget": (1, 2), "box_encode": (1,),
+                     "_contrib_Proposal": (1,)}
+DET_EXACT_COLUMNS = {"MultiBoxDetection": 2}
+
+
+def synthetic_batch(np, rng, B, size, num_classes, max_boxes=4):
+    """``examples/ssd_train.py``'s synthetic batch: images with coloured
+    rectangles and labels ``[cls, x1, y1, x2, y2]`` (rows of -1 past each
+    image's 1 to ``max_boxes`` objects)."""
+    x = rng.uniform(0, 0.3, (B, 3, size, size)).astype(np.float32)
+    labels = np.full((B, max_boxes, 5), -1.0, np.float32)
+    for b in range(B):
+        for k in range(rng.randint(1, max_boxes + 1)):
+            cls = rng.randint(0, num_classes)
+            cx, cy = rng.uniform(0.2, 0.8, 2)
+            w, h = rng.uniform(0.1, 0.3, 2)
+            x1, y1 = max(cx - w / 2, 0.0), max(cy - h / 2, 0.0)
+            x2, y2 = min(cx + w / 2, 1.0), min(cy + h / 2, 1.0)
+            px = slice(int(x1 * size),
+                       max(int(x2 * size), int(x1 * size) + 1))
+            py = slice(int(y1 * size),
+                       max(int(y2 * size), int(y1 * size) + 1))
+            x[b, cls % 3, py, px] = 1.0
+            labels[b, k] = [cls, x1, y1, x2, y2]
+    return x, labels
+
+
+def _det_boxes(np, rng, n, lo=0.0, hi=0.8, wmin=0.05, wmax=0.4):
+    xy = rng.uniform(lo, hi, (n, 2))
+    wh = rng.uniform(wmin, wmax, (n, 2))
+    return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+
+
+def _nms_rows(np, rng, b, n, classes=3, levels=0):
+    """``[b, n, 6]`` rows ``[cls, score, x1, y1, x2, y2]``; with
+    ``levels`` the scores take that many values, so many tie."""
+    score = rng.rand(b, n, 1)
+    if levels:
+        score = np.floor(score * levels) / levels
+    return np.concatenate(
+        [rng.randint(0, classes, (b, n, 1)).astype(np.float32),
+         score.astype(np.float32),
+         np.stack([_det_boxes(np, rng, n) for _ in range(b)])], -1)
+
+
+def _grid_rows(np, n):
+    """``[1, n, 6]`` rows of integer boxes whose IoUs are exact, many
+    exactly 0.5 (a 2x1 box against the 1x1 box in its corner), with tied
+    scores: the threshold's own value must not suppress."""
+    rows = []
+    for i in range(n):
+        x, y = (i % 7), (i // 7) % 5
+        wide = i % 3 == 0
+        rows.append([i % 2, float(8 - i % 8) / 8.0, x, y,
+                     x + (2 if wide else 1), y + 1])
+    return np.asarray(rows, np.float32)[None]
+
+
+def _ssd_anchors(np, size=SSD_SIZE, scales=4):
+    """ssd_512's anchors at ``size`` in numpy (``MultiBoxPrior``'s grid:
+    maps of size/4, /8, ..., sizes 0.2 + 0.15 i, ratios 1, 2 and 0.5),
+    ``(1, N, 4)``; 65,280 of them at 512."""
+    out = []
+    for i in range(scales):
+        n = size // (4 << i)
+        c = (np.arange(n) + 0.5) / n
+        s = 0.2 + 0.15 * i
+        wh = [(s * np.sqrt(r), s / np.sqrt(r)) for r in (1.0, 2.0, 0.5)]
+        cy, cx = np.meshgrid(c, c, indexing="ij")
+        for_each = [np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
+                             -1) for w, h in wh]
+        out.append(np.stack(for_each, 2).reshape(-1, 4))
+    return np.concatenate(out)[None].astype(np.float32)
+
+
+def _anchor_labels(np, rng, b, m):
+    lab = np.full((b, m, 5), -1.0, np.float32)
+    for i in range(b):
+        for k in range(rng.randint(1, m + 1)):
+            lab[i, k, 0] = rng.randint(0, 20)
+            lab[i, k, 1:] = _det_boxes(np, rng, 1, 0.1, 0.6, 0.1, 0.35)[0]
+    return lab
+
+
+def _softmax_rows(np, x, axis):
+    e = np.exp(x - x.max(axis=axis, keepdims=True))
+    return (e / e.sum(axis=axis, keepdims=True)).astype(np.float32)
+
+
+def det_cases(np, realistic=False):
+    """The detection ops' cases ``[(label, op, arrays, attrs)]``, numpy
+    only, seeded: every op of ``ops/contrib.py``'s and
+    ``ops/contrib_extra.py``'s detection parts at the reference tests'
+    small shapes, or (``realistic``) at the shapes SSD-512 and Faster
+    R-CNN give them."""
+    rng = np.random.RandomState(SEED)
+    if realistic:
+        anc = _ssd_anchors(np)
+        N = anc.shape[1]
+        lab = _anchor_labels(np, rng, SSD_BATCH, 4)
+        # detection-like NMS rows: SSD's anchors moved a little, so most
+        # of a class's boxes overlap a kept one, as in net.detect
+        near = anc[0] + rng.randn(SSD_DETECT_BATCH, N, 4).astype(
+            np.float32) * 0.01
+        nms_rows = np.concatenate(
+            [rng.randint(0, SSD_CLASSES + 1, (SSD_DETECT_BATCH, N, 1)),
+             rng.rand(SSD_DETECT_BATCH, N, 1), near], -1).astype(np.float32)
+        cls = (rng.randn(SSD_BATCH, SSD_CLASSES + 1, N) * 2).astype(
+            np.float32)
+        fmap = rng.randn(1, 512, 38, 50).astype(np.float32)
+        rois = np.concatenate([np.zeros((300, 1), np.float32),
+                               _det_boxes(np, rng, 300, 0, 500, 16, 300)],
+                              1)
+        A = 9
+        return [
+            ("iou_anchors_gt", "box_iou", [anc[0], lab[0, :, 1:]], {}),
+            ("match_anchors", "bipartite_matching",
+             [rng.rand(SSD_BATCH, N, 4).astype(np.float32)],
+             {"threshold": 1e-12}),
+            ("nms_detection_rows", "box_nms", [nms_rows],
+             {"overlap_thresh": SSD_NMS_THRESHOLD, "id_index": 0}),
+            ("roi_pool_300", "ROIPooling", [fmap, rois],
+             {"pooled_size": (7, 7), "spatial_scale": 1.0 / 16}),
+            ("prior_stage0", "MultiBoxPrior",
+             [np.zeros((SSD_BATCH, 64, 128, 128), np.float32)],
+             {"sizes": (0.2,), "ratios": (1.0, 2.0, 0.5)}),
+            ("encode_anchors", "box_encode",
+             [(rng.rand(SSD_BATCH, N) > 0.9).astype(np.float32),
+              rng.randint(0, 4, (SSD_BATCH, N)).astype(np.float32),
+              np.broadcast_to(anc, (SSD_BATCH, N, 4)).copy(),
+              lab[:, :, 1:]], {}),
+            ("decode_anchors", "box_decode",
+             [(rng.randn(SSD_BATCH, N, 4) * 0.5).astype(np.float32), anc],
+             {}),
+            ("target_ssd512", "MultiBoxTarget", [anc, lab, cls],
+             {"negative_mining_ratio": 3.0,
+              "negative_mining_thresh": 0.5}),
+            ("detect_ssd512", "MultiBoxDetection",
+             [_softmax_rows(np, cls[:SSD_DETECT_BATCH], 1),
+              (rng.randn(SSD_DETECT_BATCH, N * 4) * 0.3).astype(
+                  np.float32), anc],
+             {"nms_threshold": SSD_NMS_THRESHOLD,
+              "threshold": SSD_THRESHOLD}),
+            ("adaptive_pool", "_contrib_AdaptiveAvgPooling2D",
+             [np.concatenate([fmap] * SSD_BATCH)], {"output_size": (7, 7)}),
+            ("proposal_frcnn", "_contrib_Proposal",
+             [rng.rand(1, 2 * A, 38, 50).astype(np.float32),
+              (rng.randn(1, 4 * A, 38, 50) * 0.2).astype(np.float32),
+              np.array([[600, 800, 1.0]], np.float32)], PROPOSAL_ATTRS),
+            ("psroi_300", "_contrib_PSROIPooling", [fmap, rois],
+             {"spatial_scale": 1.0 / 16, "output_dim": 32,
+              "pooled_size": 4}),
+            ("deformable_psroi_300", "_contrib_DeformablePSROIPooling",
+             [fmap, rois, rng.randn(300, 2, 4, 4).astype(np.float32)],
+             {"spatial_scale": 1.0 / 16, "output_dim": 32,
+              "pooled_size": 4, "sample_per_part": 4, "trans_std": 0.1}),
+            ("rroi_align_300", "_contrib_RROIAlign",
+             [fmap, np.concatenate(
+                 [np.zeros((300, 1)), rng.uniform(0, 600, (300, 2)),
+                  rng.uniform(16, 200, (300, 2)),
+                  rng.uniform(-90, 90, (300, 1))], 1).astype(np.float32)],
+             {"pooled_size": (7, 7), "spatial_scale": 1.0 / 16}),
+        ]
+    data = rng.randn(2, 4, 12, 10).astype(np.float32)
+    rois = np.array([[0, 1, 1, 8, 9], [1, 0, 0, 9, 11],
+                     [0, 3.3, 2.2, 5.5, 4.4], [1, -2, -3, 20, 20]],
+                    np.float32)
+    n = 240
+    anc = _det_boxes(np, rng, n)[None]
+    lab = np.full((2, 3, 5), -1.0, np.float32)
+    lab[0, 0] = [0, .1, .1, .5, .5]
+    lab[0, 1] = [1, .3, .4, .9, .8]
+    lab[1, 0] = [2, .5, .5, .7, .9]
+    cls = rng.randn(2, 4, n).astype(np.float32)
+    A, H, W = 9, 6, 7
+    feat = rng.randn(2, 2 * 9, 10, 12).astype(np.float32)
+    prois = np.array([[0, 10, 12, 60, 70], [1, 0, 0, 90, 70],
+                      [0, 33.3, 22.2, 55.5, 44.4]], np.float32)
+    rrois = np.array([[0, 5, 5, 4, 3, 30], [1, 6, 4, 8, 2, -45],
+                      [0, 2, 3, 1, 1, 0]], np.float32)
+    rows = _nms_rows(np, rng, 2, 50)
+    ties = _nms_rows(np, rng, 2, 60, levels=4)
+    ties[:, 10:20, 2:] = ties[:, 0:10, 2:]          # identical boxes too
+    return [
+        ("corner", "box_iou", [_det_boxes(np, rng, 5),
+                               _det_boxes(np, rng, 7)], {}),
+        ("center", "box_iou", [_det_boxes(np, rng, 5),
+                               _det_boxes(np, rng, 7)],
+         {"format": "center"}),
+        ("descend", "bipartite_matching",
+         [rng.rand(3, 6, 5).astype(np.float32)], {"threshold": 0.3}),
+        ("ascend", "bipartite_matching",
+         [rng.rand(3, 6, 5).astype(np.float32)],
+         {"threshold": 0.3, "is_ascend": True}),
+        ("topk", "bipartite_matching",
+         [rng.rand(3, 6, 5).astype(np.float32)],
+         {"threshold": 0.1, "topk": 2}),
+        ("any_class", "box_nms", [rows], {"overlap_thresh": 0.3}),
+        ("class_topk", "box_nms", [rows],
+         {"overlap_thresh": 0.3, "id_index": 0, "valid_thresh": 0.2,
+          "topk": 20}),
+        ("force", "box_nms", [rows],
+         {"overlap_thresh": 0.3, "id_index": 0, "force_suppress": True}),
+        ("ties_class", "box_nms", [ties],
+         {"overlap_thresh": 0.5, "id_index": 0, "valid_thresh": 0.25}),
+        ("exact_half", "box_nms", [_grid_rows(np, 70)],
+         {"overlap_thresh": 0.5, "id_index": 0}),
+        ("exact_half_any", "box_nms", [_grid_rows(np, 70)],
+         {"overlap_thresh": 0.499, "topk": 40}),
+        ("bins_3x3", "ROIPooling", [data, rois],
+         {"pooled_size": (3, 3), "spatial_scale": 1.0}),
+        ("bins_2x4", "ROIPooling", [data, rois],
+         {"pooled_size": (2, 4), "spatial_scale": 0.5}),
+        ("two_sizes", "MultiBoxPrior", [data],
+         {"sizes": (0.2, 0.35), "ratios": (1.0, 2.0, 0.5)}),
+        ("clip_steps", "MultiBoxPrior", [data],
+         {"sizes": (0.3,), "ratios": (1.0, 3.0), "clip": True,
+          "steps": (0.1, 0.12), "offsets": (0.4, 0.6)}),
+        ("encode", "box_encode",
+         [(rng.rand(1, 20) > 0.5).astype(np.float32),
+          rng.randint(0, 3, (1, 20)).astype(np.float32),
+          _det_boxes(np, rng, 20)[None], _det_boxes(np, rng, 3)[None]], {}),
+        ("decode", "box_decode",
+         [(rng.randn(1, 20, 4) * 0.5).astype(np.float32),
+          _det_boxes(np, rng, 20)[None]], {}),
+        ("decode_center_clip", "box_decode",
+         [(rng.randn(1, 20, 4) * 0.5).astype(np.float32),
+          _det_boxes(np, rng, 20)[None]], {"clip": 0.3, "format": "center"}),
+        ("no_mining", "MultiBoxTarget", [anc, lab, cls], {}),
+        ("mining", "MultiBoxTarget", [anc, lab, cls],
+         {"negative_mining_ratio": 3.0, "negative_mining_thresh": 0.5}),
+        ("per_class", "MultiBoxDetection",
+         [_softmax_rows(np, cls, 1),
+          (rng.randn(2, n * 4) * 0.3).astype(np.float32), anc],
+         {"nms_threshold": 0.45}),
+        ("force_topk", "MultiBoxDetection",
+         [_softmax_rows(np, cls, 1),
+          (rng.randn(2, n * 4) * 0.3).astype(np.float32), anc],
+         {"nms_threshold": 0.45, "force_suppress": True, "nms_topk": 50,
+          "threshold": 0.3}),
+        ("adaptive", "_contrib_AdaptiveAvgPooling2D", [data],
+         {"output_size": (3, 4)}),
+        ("proposal", "_contrib_Proposal",
+         [rng.rand(1, 2 * A, H, W).astype(np.float32),
+          (rng.randn(1, 4 * A, H, W) * 0.2).astype(np.float32),
+          np.array([[H * 16, W * 16, 1.0]], np.float32)],
+         {"scales": (8, 16, 32), "ratios": (0.5, 1, 2),
+          "rpn_pre_nms_top_n": 200, "rpn_post_nms_top_n": 30,
+          "threshold": 0.7, "rpn_min_size": 4}),
+        ("psroi", "_contrib_PSROIPooling", [feat, prois],
+         {"spatial_scale": 0.125, "output_dim": 2, "pooled_size": 3}),
+        ("deformable", "_contrib_DeformablePSROIPooling",
+         [feat[:, :8], prois, rng.randn(3, 2, 2, 2).astype(np.float32)],
+         {"spatial_scale": 0.125, "output_dim": 2, "pooled_size": 2,
+          "sample_per_part": 2, "trans_std": 0.1}),
+        ("deformable_no_trans", "_contrib_DeformablePSROIPooling",
+         [feat[:, :8], prois], {"spatial_scale": 0.125, "output_dim": 2,
+                                "pooled_size": 2, "sample_per_part": 2,
+                                "no_trans": True}),
+        ("rotated", "_contrib_RROIAlign", [feat, rrois],
+         {"pooled_size": (2, 3), "spatial_scale": 1.0}),
+    ]
+
+
+def det_compare(np, op, got, want):
+    """``(ratio, differing)`` of the outputs ``got`` against ``want``
+    (lists of numpy arrays): ``ratio`` is the worst max|got - want| /
+    (DET_RTOL[op] x max|want|) over the outputs held to a bound (<= 1
+    passes), ``differing`` the elements that differ among those held
+    bitwise (0 passes)."""
+    rtol = DET_RTOL[op]
+    exact_outs = DET_EXACT_OUTPUTS.get(op, ())
+    ratio, differing = 0.0, 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = np.asarray(g)
+        w = np.asarray(w)
+        assert g.shape == w.shape, (op, i, g.shape, w.shape)
+        cols = DET_EXACT_COLUMNS.get(op, 0)
+        if cols:
+            differing += int((g[..., :cols] != w[..., :cols]).sum())
+            g, w = g[..., cols:], w[..., cols:]
+        if rtol == 0.0 or i in exact_outs:
+            differing += int((g != w).sum())
+            continue
+        err = float(np.abs(g.astype(np.float64) - w).max(initial=0.0))
+        scale = max(float(np.abs(w).max(initial=0.0)), 1e-30)
+        ratio = max(ratio, err / (rtol * scale))
+    return ratio, differing
+
+
+def run_det_op(mx, op, arrays, attrs, ctx):
+    """One op of ``det_cases`` through ``mx.nd`` on ``ctx``; its outputs
+    as numpy arrays."""
+    from mxnet_tpu_torch.ops.registry import apply_op, get
+    with ctx:
+        outs = apply_op(get(op), *[mx.nd.array(a) for a in arrays],
+                        **attrs)
+    outs = outs if isinstance(outs, (list, tuple)) else [outs]
+    return [o.asnumpy() for o in outs]
+
+
+def _nms_capture(mx, fn):
+    """``fn()`` with every ``kernels.box_nms`` call's arguments recorded:
+    ``(fn's result, [(coords, cls, valid, thresh)])``."""
+    real = mx.kernels.box_nms
+    seen = []
+
+    def spy(coords, cls, valid, thresh):
+        seen.append((coords.clone(), None if cls is None else cls.clone(),
+                     valid.clone(), thresh))
+        return real(coords, cls, valid, thresh)
+
+    mx.kernels.box_nms = spy
+    try:
+        out = fn()
+    finally:
+        mx.kernels.box_nms = real
+    return out, seen
+
+
+def _nms_pairs(torch, cls, valid, keep):
+    """The IoUs the greedy scan needs: for each kept row, the later valid
+    rows (of its class, when ``cls`` is given)."""
+    def later(mask):
+        m = mask.to(torch.int64)
+        return m.flip(-1).cumsum(-1).flip(-1) - m
+
+    if cls is None:
+        return int((later(valid) * keep).sum())
+    total = 0
+    for c in torch.unique(cls[valid]).tolist():
+        same = cls == c
+        total += int((later(valid & same) * (keep & same)).sum())
+    return total
+
+
+def _nms_check(ck, torch, label, args, timed=False):
+    """The NMS kernel against its plain version on the card from the same
+    sorted rows (bitwise keep masks), with kept counts and, when
+    ``timed``, the kernel's times (events; device, split into mask and
+    walk), the plain version's, and the bound."""
+    coords, cls, valid, thresh = args
+    keep = ck.box_nms_sorted(coords, cls, valid, thresh)
+    plain = ck.box_nms_sorted_plain(coords, cls, valid, thresh)
+    torch.cuda.synchronize()
+    b, n = valid.shape
+    out = {"label": label, "shape": {"B": b, "N": n},
+           "class_aware": cls is not None, "threshold": thresh,
+           "valid_rows": valid.sum(dim=1).tolist(),
+           "kept": keep.sum(dim=1).tolist(),
+           "kept_plain": plain.sum(dim=1).tolist(),
+           "differing": int((keep != plain).sum())}
+    out["ok"] = out["differing"] == 0
+    out["max_abs_err"] = float(out["differing"] > 0)
+    if not timed:
+        return out
+    pairs = _nms_pairs(torch, cls, valid, keep)
+    nbytes = b * n * (16 + (4 if cls is not None else 0) + 1 + 1)
+    bound, by = _bound_ms(nbytes, pairs * NMS_PAIR_OPS, PEAK_F32_FLOPS)
+    words = (n + 63) // 64
+    mask = torch.empty(b * n * words, dtype=torch.int64,
+                       device=coords.device)
+    c = coords.contiguous()
+    keep2 = torch.empty_like(keep)
+    out.update({
+        "ms": _time_ms(lambda: ck.box_nms_sorted(coords, cls, valid,
+                                                 thresh), iters=10),
+        "device_ms": _device_ms(torch, lambda: ck.box_nms_sorted(
+            coords, cls, valid, thresh), iters=5),
+        "mask_ms": _time_ms(lambda: ck._launch_nms_mask(
+            c, cls, valid, mask, thresh), iters=10),
+        "walk_ms": _time_ms(lambda: ck._launch_nms_walk(
+            mask, valid, keep2), iters=10),
+        "pairs_needed": pairs, "pairs_computed": b * n * (n - 1) // 2,
+        "mask_bytes": b * n * words * 8,
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "library": "none: no one PyTorch call computes greedy NMS "
+                   "(torchvision is not on the machine)"})
+    out["mask_device_ms"] = _device_ms(torch, lambda: ck._launch_nms_mask(
+        c, cls, valid, mask, thresh), iters=5)
+    out["walk_device_ms"] = _device_ms(torch, lambda: ck._launch_nms_walk(
+        mask, valid, keep2), iters=5)
+    t0 = time.perf_counter()
+    ck.box_nms_sorted_plain(coords, cls, valid, thresh)
+    torch.cuda.synchronize()
+    out["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    out["bound_share"] = bound / out["ms"]
+    return out
+
+
+def _ssd_step(mx, net, trainer, loss_fn, x, labels):
+    """One step of ``examples/ssd_train.py``'s loop; the loss (host
+    float)."""
+    with mx.autograd.record():
+        anchors, cls_preds, box_preds = net(x)
+        with mx.autograd.pause():
+            bt, bm, ct = net.targets(anchors, cls_preds, labels)
+        loss = loss_fn(cls_preds, box_preds, ct, bt, bm)
+    loss.backward()
+    trainer.step(1)
+    return float(loss.asnumpy())
+
+
+def _ssd_net(mx, ctx):
+    from mxnet_tpu_torch.models.ssd import ssd_512
+    with ctx:
+        net = ssd_512(num_classes=SSD_CLASSES)
+        net.initialize(mx.init.Xavier(), ctx=ctx)
+    return net
+
+
+def _ssd_trainer(mx, net):
+    # multi_precision: each f32 weight is its own master, so the Trainer's
+    # SGD takes K1, one launch a tensor a step (phase data(c)'s route)
+    return mx.gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": SSD_LR,
+                             "momentum": SSD_MOMENTUM,
+                             "multi_precision": True})
+
+
+def _ssd_cpu_gates(mx, np, torch, net, x, labels):
+    """Phase ssd(a)'s one-step gates, before that step's update: the
+    card's targets against the CPU's from the same (copied) ``cls_preds``
+    and labels, and the card's loss against the CPU's from the same
+    weights and batch."""
+    from mxnet_tpu_torch.models.ssd import MultiBoxLoss
+    cpu = mx.cpu()
+    loss_fn = MultiBoxLoss()
+    with mx.autograd.record():
+        anchors, cls_preds, box_preds = net(x)
+        with mx.autograd.pause():
+            bt, bm, ct = net.targets(anchors, cls_preds, labels)
+        loss = float(loss_fn(cls_preds, box_preds, ct, bt, bm).asnumpy())
+    with cpu:
+        tc = net.targets(anchors.copyto(cpu), cls_preds.copyto(cpu),
+                         labels.copyto(cpu))
+    ratio, differing = det_compare(
+        np, "MultiBoxTarget", [t.asnumpy() for t in (bt, bm, ct)],
+        [t.asnumpy() for t in tc])
+    net_cpu = _ssd_net(mx, cpu)
+    with cpu:
+        xc = x.copyto(cpu)
+        net_cpu(xc)                      # shapes the deferred parameters
+        for pc, pg in zip(net_cpu.collect_params().values(),
+                          net.collect_params().values()):
+            pc.set_data(pg.data().copyto(cpu))
+        with mx.autograd.record():
+            a, c, b = net_cpu(xc)
+            with mx.autograd.pause():
+                tgt = net_cpu.targets(a, c, labels.copyto(cpu))
+            loss_cpu = float(loss_fn(c, b, tgt[2], tgt[0],
+                                     tgt[1]).asnumpy())
+    out = {"targets": {"box_target_over_bound": ratio,
+                       "differing_mask_and_classes": differing,
+                       "positives": int((ct.asnumpy() > 0).sum()),
+                       "negatives": int((ct.asnumpy() == 0).sum())},
+           "loss": loss, "loss_cpu": loss_cpu,
+           "loss_rel_err": abs(loss - loss_cpu) / abs(loss_cpu),
+           "loss_rtol": SSD_LOSS_RTOL}
+    assert differing == 0 and ratio <= 1.0, out
+    assert out["loss_rel_err"] <= SSD_LOSS_RTOL, out
+    return out
+
+
+def ssd_train_synthetic(mx, ck, np, torch, card):
+    """Phase ssd(a): ``examples/ssd_train.py --size 512`` on its
+    synthetic batches (``RandomState(0)``): the one-step gates against
+    the CPU, then SSD_STEPS counted steps (K1 exactly SSD_TENSORS times a
+    step and nothing else), finite losses, K1 bitwise with its plain
+    version on the last step's gradients, the step time, a profiled
+    window and MultiBoxTarget's device time."""
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.models.ssd import MultiBoxLoss
+    mx.random.seed(SEED)
+    net = _ssd_net(mx, mx.gpu())
+    loss_fn = MultiBoxLoss()
+    trainer = _ssd_trainer(mx, net)
+    rng = np.random.RandomState(0)
+
+    def batch():
+        x, lab = synthetic_batch(np, rng, SSD_BATCH, SSD_SIZE, SSD_CLASSES)
+        return mx.nd.array(x), mx.nd.array(lab)
+
+    x, labels = batch()
+    net(x)                                   # shapes the deferred params
+    gates = _ssd_cpu_gates(mx, np, torch, net, x, labels)
+    _ssd_step(mx, net, trainer, loss_fn, x, labels)
+    ntensors = len([p for p in trainer._params if p.grad_req != "null"])
+    assert ntensors == SSD_TENSORS, ntensors
+    batches = [batch() for _ in range(SSD_STEPS)]
+    torch.cuda.synchronize()
+    _zero_counts(torch, tt, ck)
+    losses, step_ms = [], []
+    for x, labels in batches:
+        t0 = time.perf_counter()
+        losses.append(_ssd_step(mx, net, trainer, loss_fn, x, labels))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(ck.LAUNCHES)
+    assert launches == _want_launches(
+        ck, sgd_step=SSD_TENSORS * SSD_STEPS), launches
+    assert all(map(math.isfinite, losses)), losses
+    import pickle
+    blob = pickle.dumps(trainer._optimizer)
+    upd = trainer._updaters[0]
+    card_w = _update_on(torch, blob, "sgd", trainer._params, upd.states,
+                        "cuda")
+    cpu_w = _update_on(torch, blob, "sgd", trainer._params, upd.states,
+                       "cpu")
+    torch.cuda.synchronize()
+    k1_differing = sum(_differing(torch, a.cpu(), b)
+                       for a, b in zip(card_w, cpu_w))
+    assert k1_differing == 0, k1_differing
+    med = float(np.median(step_ms))
+    x, labels = batches[-1]
+    anchors, cls_preds, _ = net(x)
+    torch.cuda.synchronize()
+    out = {"config": {"net": "ssd_512", "classes": SSD_CLASSES,
+                      "size": SSD_SIZE, "batch": SSD_BATCH,
+                      "optimizer": "sgd", "lr": SSD_LR,
+                      "momentum": SSD_MOMENTUM, "multi_precision": True,
+                      "anchors": int(anchors.shape[1])},
+           "card": card, "gates": gates, "steps": SSD_STEPS,
+           "losses": losses, "step_ms": step_ms, "median_step_ms": med,
+           "img_per_s": SSD_BATCH / (med / 1e3), "launches": launches,
+           "k1_tensors": ntensors,
+           "k1_vs_plain_differing": k1_differing,
+           "multibox_target_device_ms": _device_ms(
+               torch, lambda: net.targets(anchors, cls_preds, labels)),
+           "multibox_target_event_ms": _time_ms(
+               lambda: net.targets(anchors, cls_preds, labels), iters=10)}
+    feed = iter(batches[:3])
+    out["profile"] = _profile(torch, lambda: [
+        _ssd_step(mx, net, trainer, loss_fn, *next(feed)) for _ in range(3)],
+        top=12)
+    _log("[ssd-train] %s" % json.dumps(
+        {k: v for k, v in out.items() if k != "step_ms"}))
+    return out, net, rng
+
+
+def write_det_records(mx, np, workdir):
+    """Phase ssd(b)'s indexed detection record file: SSD_REC_IMAGES
+    synthetic images as 512x512x3 uint8 NPYF payloads, each labelled
+    ``[2, 5, objects...]`` (im2rec's detection layout) with its valid
+    objects.  Returns the path, the rows written per image and a
+    summary."""
+    d = os.path.join(workdir, "ssd")
+    os.makedirs(d, exist_ok=True)
+    prefix = os.path.join(d, "train")
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED)
+    w = mx.recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    rows = []
+    for start in range(0, SSD_REC_IMAGES, SSD_BATCH):
+        x, lab = synthetic_batch(np, rng, SSD_BATCH, SSD_SIZE, SSD_CLASSES)
+        for b in range(SSD_BATCH):
+            img = (x[b].transpose(1, 2, 0) * 255).astype(np.uint8)
+            objs = lab[b][lab[b, :, 0] >= 0]
+            rows.append(objs)
+            flat = np.concatenate([[2.0, 5.0], objs.ravel()]).astype(
+                np.float32)
+            w.write_idx(start + b, mx.recordio.pack(
+                mx.recordio.IRHeader(0, flat, start + b, 0),
+                _npyf(np, img)))
+    w.close()
+    return prefix + ".rec", rows, {
+        "images": SSD_REC_IMAGES, "seconds": time.perf_counter() - t0,
+        "bytes": os.path.getsize(prefix + ".rec")}
+
+
+def ssd_train_records(mx, ck, np, torch, card, workdir):
+    """Phase ssd(b): ``examples/ssd_train.py --data-rec`` over the records
+    :func:`write_det_records` wrote, through
+    ``mx.io.ImageDetRecordIter``: every batch's labels equal to the rows
+    written, padded with -1; SSD_STEPS counted steps (K1 exactly
+    SSD_TENSORS a step) with finite losses; img/s and the iterator's host
+    ms a batch."""
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.models.ssd import MultiBoxLoss
+    path, rows, rec = write_det_records(mx, np, workdir)
+    it = mx.io.ImageDetRecordIter(path_imgrec=path, batch_size=SSD_BATCH,
+                                  data_shape=(3, SSD_SIZE, SSD_SIZE))
+    width = max(len(r) for r in rows)
+    assert it.provide_label[0].shape == (SSD_BATCH, width, 5), \
+        it.provide_label
+    mx.random.seed(SEED)
+    net = _ssd_net(mx, mx.gpu())
+    loss_fn = MultiBoxLoss()
+    trainer = _ssd_trainer(mx, net)
+    first = it.next()
+    net(first.data[0])                       # shapes the deferred params
+    it.reset()
+    torch.cuda.synchronize()
+    _zero_counts(torch, tt, ck)
+    losses, iter_ms, step_ms, mismatched = [], [], [], 0
+    t_all = time.perf_counter()
+    for i in range(SSD_STEPS):
+        t0 = time.perf_counter()
+        b = it.next()
+        iter_ms.append((time.perf_counter() - t0) * 1e3)
+        want = np.full((SSD_BATCH, width, 5), -1.0, np.float32)
+        for s in range(SSD_BATCH):
+            r = rows[i * SSD_BATCH + s]
+            want[s, :len(r)] = r
+        mismatched += int((b.label[0].asnumpy() != want).sum())
+        t1 = time.perf_counter()
+        losses.append(_ssd_step(mx, net, trainer, loss_fn, b.data[0],
+                                b.label[0]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    total_s = time.perf_counter() - t_all
+    launches = dict(ck.LAUNCHES)
+    assert mismatched == 0, mismatched
+    assert launches == _want_launches(
+        ck, sgd_step=SSD_TENSORS * SSD_STEPS), launches
+    assert all(map(math.isfinite, losses)), losses
+    out = {"records": rec, "label_width": width, "steps": SSD_STEPS,
+           "losses": losses, "launches": launches,
+           "label_mismatches": mismatched,
+           "iter_host_ms": iter_ms,
+           "median_iter_host_ms": float(np.median(iter_ms)),
+           "median_step_ms": float(np.median(step_ms)),
+           "img_per_s": SSD_BATCH * SSD_STEPS / total_s, "card": card}
+    _log("[ssd-records] %s" % json.dumps(
+        {k: v for k, v in out.items() if k != "iter_host_ms"}))
+    return out
+
+
+def _nms_small_cases(mx, np):
+    """Phase ssd(c)'s small NMS cases through ``mx.nd.contrib.box_nms``
+    on the card: ties, invalid rows, topk, force_suppress, suppression
+    across classes (id_index -1) and IoUs exactly at the threshold."""
+    rng = np.random.RandomState(SEED + 1)
+    n = NMS_SMALL_ROWS
+    ties = _nms_rows(np, rng, 2, n, classes=4, levels=8)
+    ties[:, n // 5:2 * (n // 5), 2:] = ties[:, :n // 5, 2:]
+    rows = _nms_rows(np, rng, 3, NMS_SMALL_ROWS, classes=4)
+    grid = _grid_rows(np, NMS_SMALL_ROWS)
+    return [("ties_class", ties, {"overlap_thresh": 0.5, "id_index": 0,
+                                  "valid_thresh": 0.3}),
+            ("topk", rows, {"overlap_thresh": 0.4, "id_index": 0,
+                            "topk": 120}),
+            ("force", rows, {"overlap_thresh": 0.4, "id_index": 0,
+                             "force_suppress": True}),
+            ("any_class", rows, {"overlap_thresh": 0.3}),
+            ("exact_half", grid, {"overlap_thresh": 0.5, "id_index": 0}),
+            ("exact_half_topk", grid, {"overlap_thresh": 0.5,
+                                       "topk": 64})]
+
+
+def ssd_detect(mx, ck, np, torch, card, net, rng):
+    """Phase ssd(c): ``net.detect`` on ``examples/ssd_train.py``'s
+    inference batch of 2 (65,280 anchors, 21 classes), the NMS kernel
+    bitwise with its plain version from the same sorted rows there, in
+    the small cases, and in ``Proposal`` at Faster R-CNN's shape (6000
+    rows); the kernel's times beside its bound and the plain version's;
+    and each op's output on the card against the CPU's."""
+    from mxnet_tpu_torch import telemetry as tt
+    x, _ = synthetic_batch(np, rng, SSD_DETECT_BATCH, SSD_SIZE, SSD_CLASSES)
+    anchors, cls_preds, box_preds = net(mx.nd.array(x))
+    _zero_counts(torch, tt, ck)
+    t0 = time.perf_counter()
+    det, seen = _nms_capture(mx, lambda: net.detect(
+        anchors, cls_preds, box_preds, nms_threshold=SSD_NMS_THRESHOLD,
+        threshold=SSD_THRESHOLD))
+    torch.cuda.synchronize()
+    detect_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"detect": dict(ck.LAUNCHES)}
+    assert launches["detect"] == _want_launches(ck, box_nms=1), launches
+    assert len(seen) == 1, len(seen)
+    host = det.asnumpy()
+    assert np.isfinite(host).all() and host.shape == (
+        SSD_DETECT_BATCH, anchors.shape[1], 6), host.shape
+    cases = [_nms_check(ck, torch, "detect_ssd512", seen[0], timed=True)]
+    cases[0]["detections_kept"] = (host[..., 0] >= 0).sum(axis=1).tolist()
+    cases[0]["detect_call_ms"] = detect_ms
+    # the dense end: every anchor valid (an untrained net's softmax gives
+    # each one a foreground score >= 1/21 > the threshold), SSD's anchors
+    # moved a little, random classes
+    label, op, arrays, attrs = next(c for c in det_cases(np, True)
+                                    if c[0] == "nms_detection_rows")
+    _, dense = _nms_capture(mx, lambda: run_det_op(mx, op, arrays, attrs,
+                                                   mx.gpu()))
+    cases.append(_nms_check(ck, torch, "dense_" + label, dense[0],
+                            timed=True))
+    for label, rows, attrs in _nms_small_cases(mx, np):
+        out, got = _nms_capture(mx, lambda: mx.nd.contrib.box_nms(
+            mx.nd.array(rows), **attrs))
+        cpu = run_det_op(mx, "box_nms", [rows], attrs, mx.cpu())[0]
+        case = _nms_check(ck, torch, label, got[0])
+        case["op_card_vs_cpu_differing"] = int(
+            (out.asnumpy() != cpu).sum())
+        case["ok"] = case["ok"] and case["op_card_vs_cpu_differing"] == 0
+        cases.append(case)
+    prng = np.random.RandomState(SEED + 2)
+    b, h, w = PROPOSAL_SHAPE
+    a = len(PROPOSAL_ATTRS["scales"]) * len(PROPOSAL_ATTRS["ratios"])
+    prop_in = [prng.rand(b, 2 * a, h, w).astype(np.float32),
+               (prng.randn(b, 4 * a, h, w) * 0.2).astype(np.float32),
+               np.array([[h * 16, w * 16, 1.0]], np.float32)]
+    prop_in = [mx.nd.array(v) for v in prop_in]
+    _zero_counts(torch, tt, ck)
+    _, got = _nms_capture(mx, lambda: mx.nd.contrib.Proposal(
+        *prop_in, **PROPOSAL_ATTRS))
+    torch.cuda.synchronize()
+    launches["proposal"] = dict(ck.LAUNCHES)
+    assert launches["proposal"] == _want_launches(ck, box_nms=1), launches
+    cases.append(_nms_check(ck, torch, "proposal_frcnn", got[0],
+                            timed=True))
+    bad = [c for c in cases if not c["ok"]]
+    for c in cases:
+        _log("[ssd-nms] %s" % json.dumps(c))
+    if bad:
+        raise AssertionError("NMS kernel disagrees with its plain "
+                             "version: %s" % json.dumps(bad))
+    return {"card": card, "cases": cases,
+            "launches": {k: v["box_nms"] for k, v in launches.items()}}
+
+
+def ssd_ops(mx, np, torch):
+    """Phase ssd(d): every detection op of ``det_cases`` at its small and
+    its realistic shape, card against CPU, each within DET_RTOL (its
+    bitwise outputs bitwise)."""
+    out = []
+    for realistic in (False, True):
+        for label, op, arrays, attrs in det_cases(np, realistic):
+            t0 = time.perf_counter()
+            got = run_det_op(mx, op, arrays, attrs, mx.gpu())
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = run_det_op(mx, op, arrays, attrs, mx.cpu())
+            ratio, differing = det_compare(np, op, got, want)
+            case = {"op": op, "label": label, "realistic": realistic,
+                    "shapes": [list(a.shape) for a in arrays],
+                    "over_bound": ratio, "differing": differing,
+                    "rtol": DET_RTOL[op], "card_s": card_s,
+                    "cpu_s": time.perf_counter() - t0,
+                    "ok": ratio <= 1.0 and differing == 0}
+            out.append(case)
+            _log("[ssd-ops] %s" % json.dumps(case))
+    bad = [c for c in out if not c["ok"]]
+    if bad:
+        raise AssertionError("detection ops: card and CPU disagree: %s"
+                             % json.dumps(bad))
+    return out
+
+
+def ssd_phase(mx, ck, np, torch, card, workdir):
+    """Phase ssd: (a) ``examples/ssd_train.py --size 512`` synthetic, (b)
+    the same from an ImageDetRecordIter, (c) detection at 512 with the
+    NMS kernel against its plain version, (d) the detection ops card
+    against CPU."""
+    t0 = time.perf_counter()
+    out = {}
+    out["train"], net, rng = ssd_train_synthetic(mx, ck, np, torch, card)
+    out["records"] = ssd_train_records(mx, ck, np, torch, card, workdir)
+    out["detect"] = ssd_detect(mx, ck, np, torch, card, net, rng)
+    out["ops"] = ssd_ops(mx, np, torch)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _sgd_summary(sgd, sgd_step, by_path):
+    """K1's line of the kernels table: phase 2's checks (``check_sgd``)
+    and its launches in each counted run of ``by_path``."""
+    return {"name": "sgd_step", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/sgd_step.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:495",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(c["max_abs_err"] for c in sgd),
+            "differing_elements": sum(sum(c["differing_elements"].values())
+                                      for c in sgd),
+            **{k: sgd_step[k] for k in (
+                "ms", "call_ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_device_ms", "at")},
+            "cases": sgd}
+
+
+def _ssd_sgd_launches(ssd):
+    """K1's launches in phase ssd's two counted training runs."""
+    return {"ssd_train": ssd["train"]["launches"]["sgd_step"],
+            "ssd_records": ssd["records"]["launches"]["sgd_step"]}
+
+
+def _ssd_summary(ssd):
+    """The NMS kernel's line of the kernels table, at the detection
+    call's shape (N = 65,280, batch 2), with its launches in the counted
+    detection and Proposal calls of phase ssd(c)."""
+    cases = ssd["detect"]["cases"]
+    top = cases[0]
+    by_path = {"ssd_" + k: v for k, v in ssd["detect"]["launches"].items()}
+    return {"name": "box_nms", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/box_nms.cu",
+            "replaces": "none (mxnet_tpu/ops/contrib.py:54, _nms_one, "
+                        "plain XLA ops)",
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "differing_elements": sum(c["differing"] for c in cases),
+            **{k: top[k] for k in (
+                "ms", "device_ms", "mask_ms", "walk_ms", "mask_device_ms",
+                "walk_device_ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_share", "library_ms", "library", "pairs_needed",
+                "pairs_computed", "mask_bytes", "kept")},
+            "at": top["shape"],
+            "dense": {k: cases[1][k] for k in (
+                "ms", "device_ms", "mask_ms", "walk_ms", "plain_ms",
+                "bound_ms", "bound_by", "kept", "valid_rows", "shape")},
+            "proposal_6000": {k: cases[-1][k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "kept", "shape")}}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the full report (JSON) "
@@ -6925,7 +7842,7 @@ def main(argv=None):
     ap.add_argument("--phase", choices=("all", "attention", "optimizer",
                                         "module", "bert", "lm_f32",
                                         "generation", "ops", "zoo", "rnn",
-                                        "data"),
+                                        "data", "ssd"),
                     default="all",
                     help="attention: the flash forward and backward checks "
                     "of phase 2 alone; optimizer: phase 2's K3 and K1 "
@@ -6945,7 +7862,12 @@ def main(argv=None):
                     "alone (record-fed ResNet-50 with checkpoints and the "
                     "resume gate, input_pipeline_config, every optimizer "
                     "on the LSTM LM, the Apache-MXNet round trip), ending "
-                    "in the card and ok lines")
+                    "in the card and ok lines; ssd: phase ssd alone "
+                    "(examples/ssd_train.py at 512, synthetic and from an "
+                    "ImageDetRecordIter, detection with the NMS kernel "
+                    "against its plain version, the detection ops card "
+                    "against CPU), ending in the kernels line for K1 and "
+                    "the NMS kernel, the card and ok lines")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -6986,7 +7908,8 @@ def main(argv=None):
          "generation": ["flash_f32", "paged_attn"],
          "ops": ["sgd_step", "adam_step"],
          "zoo": ["sgd_step"], "rnn": ["adam_step"],
-         "data": ["sgd_step", "adam_step"]}.get(args.phase))
+         "data": ["sgd_step", "adam_step"],
+         "ssd": ["sgd_step", "box_nms"]}.get(args.phase))
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "per_source_s": {k: v["seconds"]
                                         for k, v in built.items()},
@@ -7142,6 +8065,24 @@ def main(argv=None):
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if args.phase == "ssd":
+        sgd, sgd_step = check_sgd(ck, torch, mx, np)
+        bad = [c for c in sgd if not c["ok"]]
+        if bad:
+            raise AssertionError("kernel disagrees with its plain version: "
+                                 "%s" % json.dumps(bad))
+        report["ssd"] = ssd_phase(mx, ck, np, torch, card, workdir)
+        kernels = [_sgd_summary(sgd, sgd_step, _ssd_sgd_launches(
+            report["ssd"])), _ssd_summary(report["ssd"])]
+        report["kernels"] = kernels
+        _write_report(args.report, report)
+        print(json.dumps({"kernels": [{k: v for k, v in s.items()
+                                       if k != "cases"} for s in kernels]}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.phase == "module":
         report["lr_t_ab"] = lr_t_ab(mx, np, torch)
         report["launch_ab"] = launch_ab(mx, np, torch)
@@ -7192,7 +8133,9 @@ def main(argv=None):
                                 synthetic={k: report["resnet"][k] for k in (
                                     "img_per_s", "median_step_ms",
                                     "cudnn_benchmark")})
+    report["ssd"] = ssd_phase(mx, ck, np, torch, card, workdir)
     data_sgd, data_adam = _data_launches(report["data"])
+    data_sgd.update(_ssd_sgd_launches(report["ssd"]))
     module_adam = report["module"]["fused"]["launches"]["adam_step"]
     rnn_adam = {"rnn_bucketing_" + kind: run["launches"]["adam_step"]
                 for kind, run in report["rnn"]["bucketing"].items()}
@@ -7259,30 +8202,17 @@ def main(argv=None):
          "library_device_ms": adam_step["library_device_ms"],
          "vs_library": adam_step["vs_library"], "at": adam_step["at"],
          "cases": adam},
-        {"name": "sgd_step", "route": "cuda",
-         "source": "mxnet_tpu_torch/csrc/sgd_step.cu",
-         "replaces": pk + "495",
-         "launches": report["resnet"]["launches"]["sgd_step"] + f16_sgd
-         + sum(zoo_sgd.values()) + sum(data_sgd.values()),
-         "launches_by_path": dict({"resnet": report["resnet"]["launches"][
-             "sgd_step"], "f16_trainer": f16_sgd}, **zoo_sgd, **data_sgd),
-         "vgg16_list": report["zoo"]["train"]["vgg16"]["k1_list"],
-         "max_abs_err": max(c["max_abs_err"] for c in sgd),
-         "differing_elements": sum(sum(c["differing_elements"].values())
-                                   for c in sgd),
-         "ms": sgd_step["ms"], "call_ms": sgd_step["call_ms"],
-         "device_ms": sgd_step["device_ms"],
-         "plain_ms": sgd_step["plain_ms"],
-         "bound_ms": sgd_step["bound_ms"], "bound_by": sgd_step["bound_by"],
-         "library_ms": sgd_step["library_ms"],
-         "library_device_ms": sgd_step["library_device_ms"],
-         "at": sgd_step["at"], "cases": sgd},
+        dict(_sgd_summary(sgd, sgd_step, dict(
+            {"resnet": report["resnet"]["launches"]["sgd_step"],
+             "f16_trainer": f16_sgd}, **zoo_sgd, **data_sgd)),
+            vgg16_list=report["zoo"]["train"]["vgg16"]["k1_list"]),
         _summary("row_softmax_fwd", "row_softmax.cu", pk + "66", k5f,
                  taped["row_softmax_fwd"]),
         _summary("row_softmax_bwd", "row_softmax.cu", pk + "80", k5b,
                  taped["row_softmax_bwd"]),
         _k6_summary(k6, pk + "620",
                     report["tape"]["sbr_launches"]["scale_bias_relu"]),
+        _ssd_summary(report["ssd"]),
     ] + [_rtc_summary(name, report["rtc"], report["rtc_ops"])
          for name in RTC_SIGNATURES]
     # the bf16 flash kernels run on several paths: their launches in each

@@ -46,12 +46,16 @@ Ported so far:
   iterators (``ImageRecordIter``, ``CSVIter``, ``MNISTIter``,
   ``ResizeIter``, ``PrefetchingIter``, ``DevicePrefetcher``),
   ``gluon.data`` and ``gluon.contrib.data``;
+* SSD — ``models.ssd`` with the detection ops (``MultiBox*``,
+  ``box_nms``, the ROI and proposal family), ``mx.sym.contrib``,
+  ``mx.image``'s detection augmenters, ``io.ImageDetRecordIter`` and
+  ``gluon.contrib.cnn``;
 
 with hand-written CUDA kernels for flash-attention forward and backward,
 paged decode attention, the fused Adam step, the multi-tensor fused SGD
-step, the row softmax (forward and backward) and the fused
-scale-bias-ReLU (``ops/cuda_kernels.py``, sources in ``csrc/``), and the
-user kernels ``mx.rtc`` compiles.
+step, the row softmax (forward and backward), the fused
+scale-bias-ReLU and greedy NMS (``ops/cuda_kernels.py``, sources in
+``csrc/``), and the user kernels ``mx.rtc`` compiles.
 
 Entry points run on ``cuda:0`` unless the caller asks for the CPU
 (``device="cpu"`` / ``mx.cpu()``); without a GPU they raise.

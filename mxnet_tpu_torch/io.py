@@ -22,9 +22,9 @@ and records an event; the consumer's stream waits on that event when it
 takes the batch, so the training loop gets device tensors and never
 blocks on the copy (``io.h2d_async`` counts the staged arrays,
 ``io.h2d_sync`` the copies a consumer had to make itself).  The thread
-runs the inner iterators under ``with mx.cpu():``.  Not ported:
-``LibSVMIter`` (it needs the sparse arrays) and ``ImageDetRecordIter``
-(with SSD's detection pipeline).
+runs the inner iterators under ``with mx.cpu():``.
+``ImageDetRecordIter`` reads detection records over ``ImageIter``.  Not
+ported: ``LibSVMIter`` (it needs the sparse arrays).
 """
 from __future__ import annotations
 
@@ -44,8 +44,8 @@ from .ndarray.ndarray import NDArray, _wrap, array
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "CSVIter",
            "ResizeIter", "PrefetchingIter", "DevicePrefetcher", "MNISTIter",
-           "ImageRecordIter", "ensure_staged", "is_staged", "bucket_sizes",
-           "pick_bucket", "pad_rows_to"]
+           "ImageRecordIter", "ImageDetRecordIter", "ensure_staged",
+           "is_staged", "bucket_sizes", "pick_bucket", "pad_rows_to"]
 
 _LOG = logging.getLogger("mxnet_tpu_torch.io")
 
@@ -791,3 +791,82 @@ def ImageRecordIter(path_imgrec, batch_size, data_shape, **kwargs):
         kwargs.setdefault("last_batch_handle", "discard")
     return ImageIter(batch_size=batch_size, data_shape=data_shape,
                      path_imgrec=path_imgrec, **kwargs)
+
+
+class ImageDetRecordIter(DataIter):
+    """The detection RecordIO iterator (reference: ``io.py:967``,
+    ``src/io/iter_image_det_recordio.cc``).
+
+    Records carry im2rec's flat detection label ``[A, B, extra...,
+    objects]``: ``A`` header values (these two included), then objects of
+    ``B`` values each, ``[id, xmin, ymin, xmax, ymax, ...]``.  Batches
+    hold NCHW float32 data and labels ``(batch, label_pad_width, 5)``,
+    each image's objects followed by rows of ``label_pad_value``.  Without
+    ``label_pad_width`` the width is the most objects of any record, from
+    one scan of the headers (no image is decoded).  Decoding, the
+    augmenters (``aug_list``, image-only; none by default) and sharding
+    are ``mx.image.ImageIter``'s."""
+
+    def __init__(self, path_imgrec, data_shape, batch_size, label_width=-1,
+                 label_pad_width=-1, label_pad_value=-1.0, shuffle=False,
+                 part_index=0, num_parts=1, aug_list=None, **kwargs):
+        super().__init__(batch_size)
+        from .image.image import ImageIter
+        self._img_iter = ImageIter(
+            batch_size=batch_size, data_shape=data_shape,
+            path_imgrec=path_imgrec, shuffle=shuffle, part_index=part_index,
+            num_parts=num_parts, aug_list=aug_list if aug_list is not None
+            else [], **kwargs)
+        self.data_shape = tuple(data_shape)
+        self._pad_value = float(label_pad_value)
+        if label_pad_width > 0:
+            self._pad_width = label_pad_width
+        else:
+            from .recordio import unpack
+            width = 1
+            for key in self._img_iter._keys:
+                header, _ = unpack(self._img_iter._rec.read_idx(key))
+                width = max(width, len(self._objects(header.label)))
+            self._pad_width = width
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size,) + self.data_shape)]
+
+    @property
+    def provide_label(self):
+        return [DataDesc("label", (self.batch_size, self._pad_width, 5))]
+
+    def reset(self):
+        self._img_iter.reset()
+
+    @staticmethod
+    def _objects(flat):
+        """The ``(objects, 5)`` rows of one flat detection label."""
+        flat = _np.asarray(flat, _np.float32).ravel()
+        if flat.size < 2:
+            return _np.zeros((0, 5), _np.float32)
+        header = int(flat[0])
+        owidth = int(flat[1])
+        body = flat[header:]
+        nobj = len(body) // owidth
+        return body[:nobj * owidth].reshape(nobj, owidth)[:, :5]
+
+    def next(self):
+        t0 = _time.perf_counter()
+        C, H, W = self.data_shape
+        samples, pad = self._img_iter._batch_samples()
+        batch_data = _np.zeros((self.batch_size, C, H, W), _np.float32)
+        width = self._pad_width
+        label = _np.full((self.batch_size, width, 5), self._pad_value,
+                         _np.float32)
+        for slot, d, lab in samples:
+            batch_data[slot] = d
+            objs = self._objects(lab)
+            m = min(len(objs), width)
+            label[slot, :m] = objs[:m]
+        _telemetry.timer("io.batch_host_ms").observe(
+            (_time.perf_counter() - t0) * 1e3)
+        return DataBatch([array(batch_data)], [array(label)], pad=pad,
+                         provide_data=self.provide_data,
+                         provide_label=self.provide_label)

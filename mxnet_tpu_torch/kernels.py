@@ -19,6 +19,10 @@ module owns when they run:
   reference's ``_flash_vjp`` custom VJP: its forward is the flash kernel,
   its backward the two flash backward kernels, so a loss built on it
   carries its gradient through attention.
+* NMS (:func:`box_nms`, counted on ``kernels.box_nms``): tier on, the
+  greedy scan's kernel wrapper ``cuda_kernels.box_nms_sorted``; tier off,
+  its plain version ``box_nms_sorted_plain``, also on CUDA tensors.  The
+  kernel takes f32 boxes (``cuda_kernels.box_nms_unsupported_reason``).
 * the fused optimizer step (:func:`fused_step_enabled`): tier on and an
   optimizer that has ``step_fused`` and is ``jit_safe``.
   ``kernels.fused_step`` (:func:`note_fused_step`) counts, as in the
@@ -54,7 +58,8 @@ from .ops import cuda_kernels as _ck
 from .parallel.ring_attention import attention as _plain_attention
 
 __all__ = ["enabled", "attention", "paged_attention", "paged_attention_pool",
-           "record_paged_routes", "fused_step_enabled", "note_fused_step"]
+           "record_paged_routes", "fused_step_enabled", "note_fused_step",
+           "box_nms"]
 
 
 def enabled():
@@ -111,6 +116,18 @@ def fused_step_enabled(optimizer):
 def note_fused_step():
     """Count one fused optimizer update (``kernels.fused_step``)."""
     _telemetry.counter("kernels.fused_step").inc()
+
+
+def box_nms(coords, cls, valid, overlap_thresh):
+    """The keep mask ``[B, N]`` of the greedy NMS scan over score-sorted
+    rows (``coords [B, N, 4]``, class ids ``cls [B, N]`` or None for
+    suppression across classes, ``valid [B, N]`` the rows that may be
+    kept), with kernel routing (see the module doc); the ops ``box_nms``,
+    ``MultiBoxDetection`` and ``Proposal`` reach NMS only here."""
+    if enabled():
+        _telemetry.counter("kernels.box_nms").inc()
+        return _ck.box_nms_sorted(coords, cls, valid, overlap_thresh)
+    return _ck.box_nms_sorted_plain(coords, cls, valid, overlap_thresh)
 
 
 # Route capture: under record_paged_routes() every paged routing decision

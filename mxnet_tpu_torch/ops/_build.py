@@ -31,7 +31,8 @@ SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
            "flash_f32": "flash_f32.cu",
            "paged_attn": "paged_attn.cu", "adam_step": "adam_step.cu",
            "sgd_step": "sgd_step.cu", "row_softmax": "row_softmax.cu",
-           "scale_bias_relu": "scale_bias_relu.cu"}
+           "scale_bias_relu": "scale_bias_relu.cu",
+           "box_nms": "box_nms.cu"}
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -31,6 +31,11 @@ Kernels, sources under ``mxnet_tpu_torch/csrc``:
 * ``scale_bias_relu`` — ``relu(x * scale + bias)`` with per-column scale
   and bias (``csrc/scale_bias_relu.cu``), the port of
   ``_scale_bias_relu_kernel``.
+* ``box_nms_sorted`` — the greedy NMS scan over score-sorted boxes
+  (``csrc/box_nms.cu``: a suppression bit mask, then a walk of it).  It
+  replaces no Pallas kernel: the reference's NMS (``_nms_one``) is plain
+  XLA ops over a dense N x N matrix, which does not fit the card at
+  SSD-512's 65,280 anchors.
 
 Each wrapper takes its kernel only for CUDA tensors: a CPU tensor runs
 the plain version beside it (``*_plain``), which repeats the Pallas
@@ -52,8 +57,9 @@ and their gathered-entry twins ``paged_decode_bf16``,
 ``paged_decode_int8``, ``paged_decode_f32``, ``paged_decode_int8_f32q``;
 ``adam_step``,
 ``sgd_step``, ``row_softmax_fwd``, ``row_softmax_bwd``,
-``scale_bias_relu``), and ``rtc`` at each launch of a user kernel that
-``mx.rtc`` compiled (``rtc.LAUNCHES`` counts those per kernel name).
+``scale_bias_relu``, ``box_nms`` (one a mask and walk pair)), and
+``rtc`` at each launch of a user kernel that ``mx.rtc`` compiled
+(``rtc.LAUNCHES`` counts those per kernel name).
 """
 from __future__ import annotations
 
@@ -84,7 +90,8 @@ __all__ = ["flash_attention", "flash_attention_plain",
            "row_softmax_bwd_plain", "row_softmax_unsupported_reason",
            "row_softmax_bwd_unsupported_reason", "scale_bias_relu",
            "scale_bias_relu_plain", "scale_bias_relu_unsupported_reason",
-           "LAUNCHES", "reset_launches",
+           "box_nms_sorted", "box_nms_sorted_plain",
+           "box_nms_unsupported_reason", "LAUNCHES", "reset_launches",
            "FLASH_HEAD_DIMS", "PAGED_HEAD_DIMS", "NEG"]
 
 #: masked-score floor of the plain versions (parallel.ring_attention)
@@ -106,7 +113,7 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "paged_decode_pool_f32": 0, "paged_decode_pool_int8_f32q": 0,
             "adam_step": 0,
             "sgd_step": 0, "row_softmax_fwd": 0, "row_softmax_bwd": 0,
-            "scale_bias_relu": 0, "rtc": 0}
+            "scale_bias_relu": 0, "box_nms": 0, "rtc": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -159,6 +166,11 @@ _SIGNATURES = {
     "scale_bias_relu": {
         "mx_scale_bias_relu": ([_P, _P, _P, _P, ctypes.c_int64,
                                 ctypes.c_int64, _I, _P], _I),
+        "mx_error_string": ([_I], ctypes.c_char_p),
+    },
+    "box_nms": {
+        "mx_box_nms_mask": ([_P, _P, _P, _P, _I, _I, _F, _I, _P], _I),
+        "mx_box_nms_walk": ([_P, _P, _P, _I, _I, _P], _I),
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
 }
@@ -1384,3 +1396,168 @@ def scale_bias_relu(x, scale, bias):
     _check(lib, err, "scale_bias_relu")
     LAUNCHES["scale_bias_relu"] += 1
     return y
+
+
+# ---------------------------------------------------------------- box NMS
+#: the mask scratch a launch pair may take (bytes); a larger batch is
+#: split into chunks of images, one launch pair each
+NMS_MASK_BUDGET = 4 << 30
+#: rows an image the walk's shared-memory removed set holds
+NMS_MAX_ROWS = 1 << 20
+
+
+def box_nms_unsupported_reason(coords, cls, valid):
+    """Why the NMS kernel cannot take this call, or None: ``coords [B, N,
+    4]`` f32, ``cls [B, N]`` f32 or None, ``valid [B, N]`` bool, with at
+    most :data:`NMS_MAX_ROWS` rows an image and one image's mask within
+    :data:`NMS_MASK_BUDGET`.  Shapes and dtypes only."""
+    if coords.dim() != 3 or coords.shape[-1] != 4:
+        return "coords must be [B, N, 4], got %s" % (tuple(coords.shape),)
+    if coords.dtype != torch.float32:
+        return "kernel takes f32 boxes, got %s" % coords.dtype
+    b, n = coords.shape[:2]
+    if tuple(valid.shape) != (b, n) or valid.dtype != torch.bool:
+        return "valid must be bool [%d, %d], got %s %s" % (
+            b, n, valid.dtype, tuple(valid.shape))
+    if cls is not None and (tuple(cls.shape) != (b, n)
+                            or cls.dtype != torch.float32):
+        return "class ids must be f32 [%d, %d], got %s %s" % (
+            b, n, cls.dtype, tuple(cls.shape))
+    if n > NMS_MAX_ROWS:
+        return "%d rows an image > %d" % (n, NMS_MAX_ROWS)
+    if _nms_mask_bytes(1, n) > NMS_MASK_BUDGET:
+        return "one image's mask takes %d bytes > %d" % (
+            _nms_mask_bytes(1, n), NMS_MASK_BUDGET)
+    if b > 65535:
+        return "%d images > 65535" % b
+    return None
+
+
+def _nms_mask_bytes(b, n):
+    return b * n * ((n + 63) // 64) * 8
+
+
+def _box_area(c):
+    return (c[..., 2] - c[..., 0]).clamp(min=0) * \
+        (c[..., 3] - c[..., 1]).clamp(min=0)
+
+
+def _iou_later(a, area_a, rest, area_rest):
+    """IoU of one box ``a [4]`` (its area ``area_a``) with the later boxes
+    ``rest [m, 4]``, rounding as the reference's ``_corner_iou``: one
+    rounding an operation, ``inter / max((area_a + area_b) - inter,
+    1e-12)``."""
+    w = (torch.minimum(a[2], rest[:, 2])
+         - torch.maximum(a[0], rest[:, 0])).clamp(min=0)
+    h = (torch.minimum(a[3], rest[:, 3])
+         - torch.maximum(a[1], rest[:, 1])).clamp(min=0)
+    inter = w * h
+    return inter / (area_a + area_rest - inter).clamp(min=1e-12)
+
+
+def _greedy_keep(coords, area, cls, overlap_thresh):
+    """The greedy scan over rows that are all valid, in order: the host
+    keep mask (numpy bool)."""
+    n = coords.shape[0]
+    keep = _np.ones(n, dtype=bool)
+    for i in range(n - 1):
+        if not keep[i]:
+            continue
+        v = _iou_later(coords[i], area[i], coords[i + 1:], area[i + 1:])
+        if cls is not None:
+            v = torch.where(cls[i + 1:] == cls[i], v, torch.zeros_like(v))
+        keep[i + 1:] &= ~(v > overlap_thresh).cpu().numpy()
+    return keep
+
+
+def box_nms_sorted_plain(coords, cls, valid, overlap_thresh):
+    """The greedy scan of the reference's ``_nms_one`` (contrib.py:77-86)
+    by its definition, in O(N) memory: for each row in order that is
+    still kept, clear every later valid row it suppresses, where row i
+    suppresses a later row j when ``(cls[i] != cls[j] ? 0 : iou(i, j)) >
+    overlap_thresh`` (``cls`` None: any class).  ``coords [B, N, 4]``
+    sorted by score, ``valid [B, N]`` the rows that may be kept (topk
+    applied).  Returns the keep mask ``[B, N]`` (bool) on ``coords``'s
+    device.
+
+    Only valid rows take part (an invalid row is never kept, so it
+    suppresses nothing); with classes, a threshold >= 0 and no NaN class,
+    rows of different classes never suppress each other, so each class
+    is scanned on its own.  The kept set is read on the host, one copy a
+    kept row."""
+    b, n = valid.shape
+    keep = _np.zeros((b, n), dtype=bool)
+    area = _box_area(coords)
+    by_class = cls is not None and overlap_thresh >= 0 \
+        and not bool(torch.isnan(cls).any())
+    for img in range(b):
+        rows = valid[img]
+        if by_class:
+            groups = [rows & (cls[img] == c)
+                      for c in torch.unique(cls[img][rows]).tolist()]
+        else:
+            groups = [rows]
+        for g in groups:
+            idx = torch.nonzero(g).flatten()
+            if idx.numel() == 0:
+                continue
+            keep[img, idx.cpu().numpy()] = _greedy_keep(
+                coords[img, idx], area[img, idx],
+                None if (cls is None or by_class) else cls[img, idx],
+                overlap_thresh)
+    return torch.from_numpy(keep).to(coords.device)
+
+
+def box_nms_sorted(coords, cls, valid, overlap_thresh):
+    """The keep mask of the greedy NMS scan over score-sorted rows, as
+    :func:`box_nms_sorted_plain` computes it.  CPU tensors run the plain
+    version; CUDA tensors launch ``csrc/box_nms.cu`` (the mask kernel,
+    then the walk, over as many images at a time as
+    :data:`NMS_MASK_BUDGET` allows) or raise."""
+    if coords.device.type == "cpu":
+        return box_nms_sorted_plain(coords, cls, valid, overlap_thresh)
+    coords = coords.contiguous()
+    valid = valid.contiguous()
+    cls = cls.contiguous() if cls is not None else None
+    reason = box_nms_unsupported_reason(coords, cls, valid) or \
+        _launch_reason(coords, valid, *([cls] if cls is not None else []))
+    if reason is None and coords.data_ptr() % 16:
+        reason = "coords not 16-byte aligned"
+    if reason is not None:
+        raise KernelUnsupportedError(
+            "box NMS kernel cannot take this call: " + reason)
+    b, n = valid.shape
+    keep = torch.empty((b, n), dtype=torch.bool, device=coords.device)
+    if n == 0 or b == 0:
+        return keep
+    step = max(1, NMS_MASK_BUDGET // _nms_mask_bytes(1, n))
+    mask = torch.empty(min(b, step) * n * ((n + 63) // 64),
+                       dtype=torch.int64, device=coords.device)
+    for lo in range(0, b, step):
+        hi = min(b, lo + step)
+        _launch_nms_mask(coords[lo:hi], None if cls is None else cls[lo:hi],
+                         valid[lo:hi], mask, overlap_thresh)
+        _launch_nms_walk(mask, valid[lo:hi], keep[lo:hi])
+        LAUNCHES["box_nms"] += 1
+    return keep
+
+
+def _launch_nms_mask(coords, cls, valid, mask, overlap_thresh):
+    """The mask kernel over ``coords [b, n, 4]`` into ``mask`` (at least
+    ``b * n * ceil(n / 64)`` int64 words)."""
+    lib = _build.load("box_nms", _SIGNATURES["box_nms"])
+    b, n = valid.shape
+    err = lib.mx_box_nms_mask(
+        coords.data_ptr(), cls.data_ptr() if cls is not None else None,
+        valid.data_ptr(), mask.data_ptr(), b, n, float(overlap_thresh),
+        int(cls is not None), _stream(coords))
+    _check(lib, err, "box_nms mask")
+
+
+def _launch_nms_walk(mask, valid, keep):
+    """The walk kernel over a mask :func:`_launch_nms_mask` wrote."""
+    lib = _build.load("box_nms", _SIGNATURES["box_nms"])
+    b, n = valid.shape
+    err = lib.mx_box_nms_walk(mask.data_ptr(), valid.data_ptr(),
+                              keep.data_ptr(), b, n, _stream(valid))
+    _check(lib, err, "box_nms walk")

@@ -897,6 +897,12 @@ def test_import_does_not_load_jax():
             "import mxnet_tpu_torch.gluon.contrib.data; "
             "import mxnet_tpu_torch.module.sequential_module; "
             "import mxnet_tpu_torch.module.python_module; "
+            "import mxnet_tpu_torch.models.ssd; "
+            "import mxnet_tpu_torch.image.detection; "
+            "import mxnet_tpu_torch.symbol.contrib; "
+            "import mxnet_tpu_torch.gluon.contrib.cnn; "
+            "assert 'mxnet_tpu_torch.ops.contrib' in sys.modules; "
+            "assert 'mxnet_tpu_torch.ops.contrib_extra' in sys.modules; "
             "assert 'mxnet_tpu_torch.gluon.data.dataloader' in sys.modules; "
             "assert 'mxnet_tpu_torch.image.image' in sys.modules; "
             "assert 'mxnet_tpu_torch.optimizer.optimizer' in sys.modules; "

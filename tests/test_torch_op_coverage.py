@@ -11,7 +11,9 @@ import mxnet_tpu.gluon.model_zoo.vision  # noqa: F401
 import mxnet_tpu.compat, mxnet_tpu.image, mxnet_tpu.recordio  # noqa: F401
 import mxnet_tpu.resilience, mxnet_tpu.gluon.data  # noqa: F401
 import mxnet_tpu.gluon.contrib.data  # noqa: F401
+import mxnet_tpu.models.ssd  # noqa: F401
 import mxnet_tpu_torch as mt
+import mxnet_tpu_torch.models.ssd  # noqa: F401
 import mxnet_tpu_torch.gluon.model_zoo.model_store  # noqa: F401
 import mxnet_tpu_torch.gluon.model_zoo.vision  # noqa: F401
 from mxnet_tpu.ops.registry import _REGISTRY
@@ -29,16 +31,12 @@ REF_OPS = {n: op for n, op in _REGISTRY.items()
 # the reference module that registers them and the slice (ROADMAP queue 1)
 # that ports them
 UNPORTED_OPS = {
-    # slice 12 (SSD: detection) and slice 13 (quantization)
-    "contrib": {"MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
-                "ROIPooling", "bipartite_matching", "box_decode",
-                "box_encode", "box_iou", "box_nms", "_contrib_dequantize",
+    # slice 13 (quantization)
+    "contrib": {"_contrib_dequantize",
                 "_contrib_quantize_v2", "_contrib_quantized_conv",
                 "_contrib_quantized_fully_connected", "_sim_quant"},
-    # slices 12 (detection), 13 (quantization) and 16 (the rest)
+    # slices 13 (quantization) and 16 (the rest)
     "contrib_extra": {
-        "_contrib_AdaptiveAvgPooling2D", "_contrib_DeformablePSROIPooling",
-        "_contrib_PSROIPooling", "_contrib_Proposal", "_contrib_RROIAlign",
         "_contrib_allclose", "_contrib_arange_like",
         "_contrib_calibrate_entropy", "_contrib_count_sketch",
         "_contrib_edge_id", "_contrib_getnnz", "_contrib_hawkesll",
@@ -50,8 +48,8 @@ UNPORTED_OPS = {
     # slice 16 (CustomOp, `operator.py`)
     "operator": {"Custom"},
 }
-SLICE_OF_MODULE = {"contrib": "12 and 13",
-                   "contrib_extra": "12, 13 and 16", "operator": "16"}
+SLICE_OF_MODULE = {"contrib": "13",
+                   "contrib_extra": "13 and 16", "operator": "16"}
 
 # the array API names the reference has and the port does not, by slice
 UNPORTED_API = {
@@ -86,7 +84,8 @@ _RESILIENCE_REST = ("CheckpointManager", "FaultRule", "InjectedFault",
 UNPORTED_SURFACE = {
     "gluon": {},
     "gluon.rnn": {},
-    "gluon.contrib": {"nn": "16", "cnn": "16", "estimator": "16"},
+    "gluon.contrib": {"nn": "16", "estimator": "16"},
+    "gluon.contrib.cnn": {},
     "gluon.contrib.rnn": {},
     "gluon.contrib.data": {},
     "gluon.data": {},
@@ -119,13 +118,12 @@ UNPORTED_SURFACE = {
     "compat": {},
     "recordio": {},
     "recordio.MXIndexedRecordIO": {},
-    "io": {"LibSVMIter": "16", "ImageDetRecordIter": "12"},
+    "io": {"LibSVMIter": "16"},
     "io.DevicePrefetcher": {},
-    "image": dict.fromkeys(
-        ("CreateDetAugmenter", "DetAugmenter", "DetBorrowAug",
-         "DetHorizontalFlipAug", "DetRandomCropAug", "DetRandomPadAug",
-         "DetRandomSelectAug"), "12"),
+    "image": {},
     "image.ImageIter": {},
+    "models.ssd": {},
+    "sym.contrib": {},
     "resilience": dict.fromkeys(_RESILIENCE_REST, "14"),
 }
 
