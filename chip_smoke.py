@@ -379,14 +379,21 @@ Phases; any failure exits non-zero without the result lines:
             ``mx.io.ImageDetRecordIter`` (every label batch the rows
             written, padded with -1); (c) ``net.detect`` on the inference
             batch of SSD_DETECT_BATCH (65,280 anchors): exactly one
-            box_nms launch, and the NMS kernel bitwise with its plain
-            version from the same sorted rows there, at the dense end
-            (every one of 65,280 rows valid), in the small cases
-            (ties, invalid rows, topk, force_suppress, id_index -1, IoUs
-            exactly at the threshold) and in ``Proposal`` at PROPOSAL_*
-            (6000 rows), with its times (events, device, mask and walk),
-            the plain version's and its bound (NMS_PAIR_OPS a needed
-            pair at PEAK_F32_FLOPS); (d) every detection op of
+            box_nms launch, the call's time (the median of DETECT_REPEATS
+            warm calls), and the NMS kernel bitwise with its plain version
+            from the same sorted rows there, at the dense end (every one
+            of 65,280 rows valid; by class, and class-agnostic as
+            id_index -1 gives: one segment past a block's shared memory),
+            in the small cases (ties, invalid rows, topk, force_suppress,
+            id_index -1, IoUs exactly at the threshold, class ids -0.0 and
+            NaN) and in ``Proposal`` at PROPOSAL_* (6000 rows), each also
+            with segments chunked at NMS_CHUNKED_ROWS; with its times
+            (events and device time of the call, the segment sort and the
+            kernel alone), the IoUs it computed beside the ones the scan
+            needs, its peak scratch, a call under
+            ``set_sync_debug_mode("error")``, the plain version's time and
+            its bound (NMS_PAIR_OPS for each of the fewest IoUs any scan
+            needs, at PEAK_F32_FLOPS); (d) every detection op of
             ``det_cases`` at its small and its realistic shape, card
             against CPU within DET_RTOL.
 8. summary — a ``{"kernels": [...]}`` line, the card's name and power
@@ -1732,7 +1739,7 @@ def profiler_probe(torch, windows=PROFILE_PROBES):
 # device time by kind, matched on kernel names in this order
 _KERNEL_GROUPS = (
     ("port kernels", ("flash_", "paged_", "adam_multi", "sgd_multi",
-                      "nms_mask", "nms_walk")),
+                      "nms_segments")),
     ("cudnn layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("cudnn recurrence", ("RNN", "rnn_", "LSTM", "lstm", "GRU", "elemWise",
                           "elementWise_")),
@@ -6982,8 +6989,13 @@ SSD_LOSS_RTOL = 1e-3
 #: and subtract, its floor, the quotient, the comparison and the class
 #: test; each box's area is one per row, not per pair)
 NMS_PAIR_OPS = 15
+#: (c): warm ``net.detect`` calls timed after the counted one (median)
+DETECT_REPEATS = 5
 #: NMS rows of the card's small cases of (c)
 NMS_SMALL_ROWS = 500
+#: (c) runs every NMS case a second time with segments longer than this
+#: many rows taken in chunks (the kernel's pass over big segments)
+NMS_CHUNKED_ROWS = 256
 #: Faster R-CNN's RPN at its VGG-16 feature map: one 600x800 image, a
 #: 38x50 map at stride 16, scales (8, 16, 32) x ratios (0.5, 1, 2)
 PROPOSAL_SHAPE = (1, 38, 50)
@@ -7342,28 +7354,46 @@ def _nms_capture(mx, fn):
 
 
 def _nms_pairs(torch, cls, valid, keep):
-    """The IoUs the greedy scan needs: for each kept row, the later valid
-    rows (of its class, when ``cls`` is given)."""
+    """The IoUs of the greedy scan: ``(needed, least)``.  ``needed``, the
+    scan as the reference writes it: for each kept row, the later valid
+    rows (of its class, when ``cls`` is given).  ``least``, what any scan
+    must compute: each kept row against the kept rows before it, and one
+    IoU for each row it suppresses, per image (and class)."""
     def later(mask):
         m = mask.to(torch.int64)
         return m.flip(-1).cumsum(-1).flip(-1) - m
 
+    def least(mask):
+        k = (keep & mask).sum(-1).to(torch.int64)
+        v = (valid & mask).sum(-1).to(torch.int64)
+        return int((k * (k - 1) // 2 + v - k).sum())
+
     if cls is None:
-        return int((later(valid) * keep).sum())
-    total = 0
+        return int((later(valid) * keep).sum()), least(valid)
+    needed = fewest = 0
     for c in torch.unique(cls[valid]).tolist():
         same = cls == c
-        total += int((later(valid & same) * (keep & same)).sum())
-    return total
+        needed += int((later(valid & same) * (keep & same)).sum())
+        fewest += least(same)
+    return needed, fewest
 
 
 def _nms_check(ck, torch, label, args, timed=False):
     """The NMS kernel against its plain version on the card from the same
-    sorted rows (bitwise keep masks), with kept counts and, when
-    ``timed``, the kernel's times (events; device, split into mask and
-    walk), the plain version's, and the bound."""
+    sorted rows (bitwise keep masks), also with segments chunked at
+    NMS_CHUNKED_ROWS rows (the big-segment pass on every case), with kept
+    counts and, when ``timed``, the kernel's times (events and device
+    time of the call, of its segment sort and of the kernel alone), the
+    IoUs it computed beside the ones the scan needs, its peak scratch, a
+    call under ``set_sync_debug_mode("error")`` (no host sync), the
+    plain version's time, and the bound."""
     coords, cls, valid, thresh = args
     keep = ck.box_nms_sorted(coords, cls, valid, thresh)
+    c = coords.contiguous()
+    keys, perm = ck.nms_sort(cls, valid, thresh) or (None, None)
+    chunked = torch.empty_like(keep)
+    ck._launch_nms(c, cls, valid, keys, perm, chunked, thresh,
+                   block_rows=NMS_CHUNKED_ROWS)
     plain = ck.box_nms_sorted_plain(coords, cls, valid, thresh)
     torch.cuda.synchronize()
     b, n = valid.shape
@@ -7372,37 +7402,56 @@ def _nms_check(ck, torch, label, args, timed=False):
            "valid_rows": valid.sum(dim=1).tolist(),
            "kept": keep.sum(dim=1).tolist(),
            "kept_plain": plain.sum(dim=1).tolist(),
-           "differing": int((keep != plain).sum())}
-    out["ok"] = out["differing"] == 0
-    out["max_abs_err"] = float(out["differing"] > 0)
+           "differing": int((keep != plain).sum()),
+           "differing_chunked": int((chunked != plain).sum())}
+    out["ok"] = out["differing"] == 0 and out["differing_chunked"] == 0
+    out["max_abs_err"] = float(out["differing"] + out["differing_chunked"]
+                               > 0)
     if not timed:
         return out
-    pairs = _nms_pairs(torch, cls, valid, keep)
+    pairs, least = _nms_pairs(torch, cls, valid, keep)
     nbytes = b * n * (16 + (4 if cls is not None else 0) + 1 + 1)
-    bound, by = _bound_ms(nbytes, pairs * NMS_PAIR_OPS, PEAK_F32_FLOPS)
-    words = (n + 63) // 64
-    mask = torch.empty(b * n * words, dtype=torch.int64,
-                       device=coords.device)
-    c = coords.contiguous()
+    bound, by = _bound_ms(nbytes, least * NMS_PAIR_OPS, PEAK_F32_FLOPS)
     keep2 = torch.empty_like(keep)
+    computed = torch.zeros(1, dtype=torch.int64, device=coords.device)
+    ck._launch_nms(c, cls, valid, keys, perm, keep2, thresh, pairs=computed)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ck.box_nms_sorted(coords, cls, valid, thresh)
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - base
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ck.box_nms_sorted(coords, cls, valid, thresh)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+    def call():
+        ck.box_nms_sorted(coords, cls, valid, thresh)
+
+    def sort():
+        ck.nms_sort(cls, valid, thresh)
+
+    def kernel():
+        ck._launch_nms(c, cls, valid, keys, perm, keep2, thresh)
+
     out.update({
-        "ms": _time_ms(lambda: ck.box_nms_sorted(coords, cls, valid,
-                                                 thresh), iters=10),
-        "device_ms": _device_ms(torch, lambda: ck.box_nms_sorted(
-            coords, cls, valid, thresh), iters=5),
-        "mask_ms": _time_ms(lambda: ck._launch_nms_mask(
-            c, cls, valid, mask, thresh), iters=10),
-        "walk_ms": _time_ms(lambda: ck._launch_nms_walk(
-            mask, valid, keep2), iters=10),
-        "pairs_needed": pairs, "pairs_computed": b * n * (n - 1) // 2,
-        "mask_bytes": b * n * words * 8,
+        "ms": _time_ms(call, iters=10),
+        "device_ms": _device_ms(torch, call, iters=5),
+        "sort_ms": _time_ms(sort, iters=10),
+        "sort_device_ms": _device_ms(torch, sort, iters=5),
+        "kernel_ms": _time_ms(kernel, iters=10),
+        "kernel_device_ms": _device_ms(torch, kernel, iters=5),
+        "pairs_needed": pairs, "pairs_least": least,
+        "pairs_computed": int(computed.item()),
+        "scratch_bytes": scratch, "no_host_sync": True,
+        "kernel_keep_differing": int((keep2 != plain).sum()),
         "bound_ms": bound, "bound_by": by, "library_ms": None,
         "library": "none: no one PyTorch call computes greedy NMS "
                    "(torchvision is not on the machine)"})
-    out["mask_device_ms"] = _device_ms(torch, lambda: ck._launch_nms_mask(
-        c, cls, valid, mask, thresh), iters=5)
-    out["walk_device_ms"] = _device_ms(torch, lambda: ck._launch_nms_walk(
-        mask, valid, keep2), iters=5)
+    out["ok"] = out["ok"] and out["kernel_keep_differing"] == 0
     t0 = time.perf_counter()
     ck.box_nms_sorted_plain(coords, cls, valid, thresh)
     torch.cuda.synchronize()
@@ -7652,13 +7701,18 @@ def ssd_train_records(mx, ck, np, torch, card, workdir):
 def _nms_small_cases(mx, np):
     """Phase ssd(c)'s small NMS cases through ``mx.nd.contrib.box_nms``
     on the card: ties, invalid rows, topk, force_suppress, suppression
-    across classes (id_index -1) and IoUs exactly at the threshold."""
+    across classes (id_index -1), IoUs exactly at the threshold, and
+    class ids -0.0 and NaN."""
     rng = np.random.RandomState(SEED + 1)
     n = NMS_SMALL_ROWS
     ties = _nms_rows(np, rng, 2, n, classes=4, levels=8)
     ties[:, n // 5:2 * (n // 5), 2:] = ties[:, :n // 5, 2:]
     rows = _nms_rows(np, rng, 3, NMS_SMALL_ROWS, classes=4)
     grid = _grid_rows(np, NMS_SMALL_ROWS)
+    # class ids -0.0 beside 0.0 (one class) and NaN (a class of one row)
+    odd = rows.copy()
+    odd[:, ::5, 0] = -0.0
+    odd[:, 3::11, 0] = np.nan
     return [("ties_class", ties, {"overlap_thresh": 0.5, "id_index": 0,
                                   "valid_thresh": 0.3}),
             ("topk", rows, {"overlap_thresh": 0.4, "id_index": 0,
@@ -7668,7 +7722,9 @@ def _nms_small_cases(mx, np):
             ("any_class", rows, {"overlap_thresh": 0.3}),
             ("exact_half", grid, {"overlap_thresh": 0.5, "id_index": 0}),
             ("exact_half_topk", grid, {"overlap_thresh": 0.5,
-                                       "topk": 64})]
+                                       "topk": 64}),
+            ("signed_zero_nan_class", odd, {"overlap_thresh": 0.4,
+                                            "id_index": 0})]
 
 
 def ssd_detect(mx, ck, np, torch, card, net, rng):
@@ -7696,7 +7752,16 @@ def ssd_detect(mx, ck, np, torch, card, net, rng):
         SSD_DETECT_BATCH, anchors.shape[1], 6), host.shape
     cases = [_nms_check(ck, torch, "detect_ssd512", seen[0], timed=True)]
     cases[0]["detections_kept"] = (host[..., 0] >= 0).sum(axis=1).tolist()
-    cases[0]["detect_call_ms"] = detect_ms
+    cases[0]["detect_first_call_ms"] = detect_ms
+    warm = []
+    for _ in range(DETECT_REPEATS):
+        t0 = time.perf_counter()
+        net.detect(anchors, cls_preds, box_preds,
+                   nms_threshold=SSD_NMS_THRESHOLD, threshold=SSD_THRESHOLD)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    cases[0]["detect_call_ms"] = float(np.median(warm))
+    cases[0]["detect_call_ms_each"] = warm
     # the dense end: every anchor valid (an untrained net's softmax gives
     # each one a foreground score >= 1/21 > the threshold), SSD's anchors
     # moved a little, random classes
@@ -7706,13 +7771,20 @@ def ssd_detect(mx, ck, np, torch, card, net, rng):
                                                    mx.gpu()))
     cases.append(_nms_check(ck, torch, "dense_" + label, dense[0],
                             timed=True))
+    # the same rows class-agnostic (id_index -1, as force_suppress): one
+    # segment of 65,280 rows an image, past a block's shared memory
+    _, dense = _nms_capture(mx, lambda: run_det_op(
+        mx, op, arrays, dict(attrs, id_index=-1), mx.gpu()))
+    cases.append(_nms_check(ck, torch, "dense_any_class_" + label, dense[0],
+                            timed=True))
     for label, rows, attrs in _nms_small_cases(mx, np):
         out, got = _nms_capture(mx, lambda: mx.nd.contrib.box_nms(
             mx.nd.array(rows), **attrs))
         cpu = run_det_op(mx, "box_nms", [rows], attrs, mx.cpu())[0]
         case = _nms_check(ck, torch, label, got[0])
+        got_op = out.asnumpy()
         case["op_card_vs_cpu_differing"] = int(
-            (out.asnumpy() != cpu).sum())
+            ((got_op != cpu) & ~(np.isnan(got_op) & np.isnan(cpu))).sum())
         case["ok"] = case["ok"] and case["op_card_vs_cpu_differing"] == 0
         cases.append(case)
     prng = np.random.RandomState(SEED + 2)
@@ -7820,19 +7892,24 @@ def _ssd_summary(ssd):
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "differing_elements": sum(c["differing"] for c in cases),
+            "differing_elements": sum(c["differing"] + c["differing_chunked"]
+                                      for c in cases),
             **{k: top[k] for k in (
-                "ms", "device_ms", "mask_ms", "walk_ms", "mask_device_ms",
-                "walk_device_ms", "plain_ms", "bound_ms", "bound_by",
+                "ms", "device_ms", "sort_ms", "sort_device_ms", "kernel_ms",
+                "kernel_device_ms", "plain_ms", "bound_ms", "bound_by",
                 "bound_share", "library_ms", "library", "pairs_needed",
-                "pairs_computed", "mask_bytes", "kept")},
+                "pairs_least", "pairs_computed", "scratch_bytes",
+                "no_host_sync", "kept")},
             "at": top["shape"],
-            "dense": {k: cases[1][k] for k in (
-                "ms", "device_ms", "mask_ms", "walk_ms", "plain_ms",
-                "bound_ms", "bound_by", "kept", "valid_rows", "shape")},
-            "proposal_6000": {k: cases[-1][k] for k in (
-                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                "kept", "shape")}}
+            "detect_call_ms": top["detect_call_ms"],
+            **{name: {k: case[k] for k in (
+                "ms", "device_ms", "sort_ms", "kernel_ms", "kernel_device_ms",
+                "plain_ms", "bound_ms", "bound_by", "bound_share",
+                "pairs_needed", "pairs_least", "pairs_computed",
+                "scratch_bytes", "kept", "valid_rows", "shape")}
+               for name, case in (("dense", cases[1]),
+                                  ("dense_any_class", cases[2]),
+                                  ("proposal_6000", cases[-1]))}}
 
 
 def main(argv=None):

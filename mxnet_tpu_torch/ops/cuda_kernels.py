@@ -169,8 +169,9 @@ _SIGNATURES = {
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
     "box_nms": {
-        "mx_box_nms_mask": ([_P, _P, _P, _P, _I, _I, _F, _I, _P], _I),
-        "mx_box_nms_walk": ([_P, _P, _P, _I, _I, _P], _I),
+        "mx_box_nms": ([_P] * 7 + [ctypes.c_longlong, _P, _I, _I, _I, _F,
+                                   _I, _P], _I),
+        "mx_box_nms_scratch_bytes": ([_I, _I, _I], ctypes.c_longlong),
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
 }
@@ -1399,18 +1400,21 @@ def scale_bias_relu(x, scale, bias):
 
 
 # ---------------------------------------------------------------- box NMS
-#: the mask scratch a launch pair may take (bytes); a larger batch is
-#: split into chunks of images, one launch pair each
-NMS_MASK_BUDGET = 4 << 30
-#: rows an image the walk's shared-memory removed set holds
-NMS_MAX_ROWS = 1 << 20
+#: rows a block of the NMS kernel resolves in shared memory (24 bytes a
+#: row, 28 with class ids); a longer segment is taken in chunks of this
+#: many rows.  The kernel takes up to 8192; at 4096 two blocks share an
+#: SM and a chunk's serial walk is half as long
+NMS_BLOCK_ROWS = 4096
+#: rows a call (all images) may hold: the kernel's sorted positions are
+#: 32-bit
+NMS_MAX_ROWS = (1 << 31) - 1024
 
 
 def box_nms_unsupported_reason(coords, cls, valid):
     """Why the NMS kernel cannot take this call, or None: ``coords [B, N,
     4]`` f32, ``cls [B, N]`` f32 or None, ``valid [B, N]`` bool, with at
-    most :data:`NMS_MAX_ROWS` rows an image and one image's mask within
-    :data:`NMS_MASK_BUDGET`.  Shapes and dtypes only."""
+    most :data:`NMS_MAX_ROWS` rows over all images.  Shapes and dtypes
+    only."""
     if coords.dim() != 3 or coords.shape[-1] != 4:
         return "coords must be [B, N, 4], got %s" % (tuple(coords.shape),)
     if coords.dtype != torch.float32:
@@ -1423,18 +1427,34 @@ def box_nms_unsupported_reason(coords, cls, valid):
                             or cls.dtype != torch.float32):
         return "class ids must be f32 [%d, %d], got %s %s" % (
             b, n, cls.dtype, tuple(cls.shape))
-    if n > NMS_MAX_ROWS:
-        return "%d rows an image > %d" % (n, NMS_MAX_ROWS)
-    if _nms_mask_bytes(1, n) > NMS_MASK_BUDGET:
-        return "one image's mask takes %d bytes > %d" % (
-            _nms_mask_bytes(1, n), NMS_MASK_BUDGET)
-    if b > 65535:
-        return "%d images > 65535" % b
+    if b * n > NMS_MAX_ROWS:
+        return "%d rows over %d images > %d" % (b * n, b, NMS_MAX_ROWS)
     return None
 
 
-def _nms_mask_bytes(b, n):
-    return b * n * ((n + 63) // 64) * 8
+def nms_by_class(cls, overlap_thresh):
+    """Whether the scan splits into one scan a class: a class id is given
+    and ``overlap_thresh >= 0`` (rows of other classes then never
+    suppress, since their 0 > thresh is false; a NaN threshold splits
+    nothing)."""
+    return cls is not None and overlap_thresh >= 0
+
+
+def nms_sort(cls, valid, overlap_thresh):
+    """The NMS kernel's segments, step 1 of ``csrc/box_nms.cu``.  When
+    the scan splits by class (:func:`nms_by_class`): all rows sorted
+    stably, flat, by a key, NaN for an invalid row, else the class id
+    with -0.0 read as 0.0 (``-0.0 + 0.0`` is 0.0); a segment is a run of
+    one image's rows of one key, in score order, and a valid row of NaN
+    class is one of its own.  Returns ``(keys, perm)``, ``[B * N]`` each
+    (``perm`` the flat row at each position), from PyTorch ops on
+    ``valid``'s device with no host synchronisation; or None when the
+    scan does not split, and each image's valid rows, in order, are one
+    segment."""
+    if not nms_by_class(cls, overlap_thresh):
+        return None
+    key = (cls + 0.0).masked_fill_(~valid, float("nan"))
+    return torch.sort(key.view(-1), stable=True)
 
 
 def _box_area(c):
@@ -1511,9 +1531,8 @@ def box_nms_sorted_plain(coords, cls, valid, overlap_thresh):
 def box_nms_sorted(coords, cls, valid, overlap_thresh):
     """The keep mask of the greedy NMS scan over score-sorted rows, as
     :func:`box_nms_sorted_plain` computes it.  CPU tensors run the plain
-    version; CUDA tensors launch ``csrc/box_nms.cu`` (the mask kernel,
-    then the walk, over as many images at a time as
-    :data:`NMS_MASK_BUDGET` allows) or raise."""
+    version; CUDA tensors sort the segments (:func:`nms_sort`) and launch
+    ``csrc/box_nms.cu`` once, with no host synchronisation, or raise."""
     if coords.device.type == "cpu":
         return box_nms_sorted_plain(coords, cls, valid, overlap_thresh)
     coords = coords.contiguous()
@@ -1530,34 +1549,30 @@ def box_nms_sorted(coords, cls, valid, overlap_thresh):
     keep = torch.empty((b, n), dtype=torch.bool, device=coords.device)
     if n == 0 or b == 0:
         return keep
-    step = max(1, NMS_MASK_BUDGET // _nms_mask_bytes(1, n))
-    mask = torch.empty(min(b, step) * n * ((n + 63) // 64),
-                       dtype=torch.int64, device=coords.device)
-    for lo in range(0, b, step):
-        hi = min(b, lo + step)
-        _launch_nms_mask(coords[lo:hi], None if cls is None else cls[lo:hi],
-                         valid[lo:hi], mask, overlap_thresh)
-        _launch_nms_walk(mask, valid[lo:hi], keep[lo:hi])
-        LAUNCHES["box_nms"] += 1
+    keys, perm = nms_sort(cls, valid, overlap_thresh) or (None, None)
+    _launch_nms(coords, cls, valid, keys, perm, keep, overlap_thresh)
+    LAUNCHES["box_nms"] += 1
     return keep
 
 
-def _launch_nms_mask(coords, cls, valid, mask, overlap_thresh):
-    """The mask kernel over ``coords [b, n, 4]`` into ``mask`` (at least
-    ``b * n * ceil(n / 64)`` int64 words)."""
+def _launch_nms(coords, cls, valid, keys, perm, keep, overlap_thresh,
+                block_rows=NMS_BLOCK_ROWS, pairs=None):
+    """The kernel over the segments :func:`nms_sort` gave (``keys`` and
+    ``perm`` None: an image a segment), into ``keep`` (zeroed by the
+    launch).  ``block_rows``, a multiple of 64 up to 8192: the rows a
+    block resolves in shared memory (longer segments are chunked);
+    ``pairs``, a zeroed int64 tensor of one element, counts the IoUs the
+    kernel computes."""
     lib = _build.load("box_nms", _SIGNATURES["box_nms"])
     b, n = valid.shape
-    err = lib.mx_box_nms_mask(
-        coords.data_ptr(), cls.data_ptr() if cls is not None else None,
-        valid.data_ptr(), mask.data_ptr(), b, n, float(overlap_thresh),
-        int(cls is not None), _stream(coords))
-    _check(lib, err, "box_nms mask")
-
-
-def _launch_nms_walk(mask, valid, keep):
-    """The walk kernel over a mask :func:`_launch_nms_mask` wrote."""
-    lib = _build.load("box_nms", _SIGNATURES["box_nms"])
-    b, n = valid.shape
-    err = lib.mx_box_nms_walk(mask.data_ptr(), valid.data_ptr(),
-                              keep.data_ptr(), b, n, _stream(valid))
-    _check(lib, err, "box_nms walk")
+    nbytes = lib.mx_box_nms_scratch_bytes(b, n, block_rows)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=coords.device)
+    class_aware = cls is not None and not nms_by_class(cls, overlap_thresh)
+    err = lib.mx_box_nms(
+        coords.data_ptr(), cls.data_ptr() if class_aware else None,
+        valid.data_ptr(), None if keys is None else keys.data_ptr(),
+        None if perm is None else perm.data_ptr(), keep.data_ptr(),
+        scratch.data_ptr(), nbytes,
+        pairs.data_ptr() if pairs is not None else None, b, n, block_rows,
+        float(overlap_thresh), int(class_aware), _stream(coords))
+    _check(lib, err, "box_nms")
