@@ -4,7 +4,8 @@ Usage (from the root of a checkout, one visible CUDA card)::
 
     python3 chip_smoke.py [--report PATH]
                           [--phase attention|optimizer|module|bert|lm_f32|
-                                   generation|ops|zoo|rnn|data|ssd]
+                                   generation|ops|zoo|rnn|data|ssd|
+                                   predict]
 
 Phases; any failure exits non-zero without the result lines:
 
@@ -396,7 +397,32 @@ Phases; any failure exits non-zero without the result lines:
             needs, at PEAK_F32_FLOPS); (d) every detection op of
             ``det_cases`` at its small and its realistic shape, card
             against CPU within DET_RTOL.
-8. summary — a ``{"kernels": [...]}`` line, the card's name and power
+8. predict — one-shot serving, no kernel of its own (the reference's
+            int8 products are XLA's, not Pallas'): (a) resnet50_v1 at
+            full width (1000 classes, PRED_HW, f32, seeded as
+            ``one_config``) through ``deploy.export_model`` ->
+            ``load_model`` on the card, held against the same net's
+            eager forward on the card (PRED_EAGER_TOL) and the port on
+            the CPU (PRED_CPU_TOL); PRED_SEQUENTIAL batch-1 ``predict``
+            calls; then a ``Server`` (PRED_MAX_BATCH, PRED_DELAY_MS)
+            taking PRED_REQUESTS seeded requests of 1-4 rows from
+            PRED_THREADS threads: requests/s, img/s, queue-delay p99,
+            mean batch fill, dispatch p50/p99, a profiled window's idle
+            share, and every served row against its batch-1 ``predict``
+            (PRED_ROW_BOUND); (b) the same net calibrated (entropy,
+            PRED_CALIB_BATCHES batches of PRED_BATCH), exported int8
+            with PRED_EXCLUDED excluded (``quant.error_budget`` holds),
+            loaded ``quantized=True`` and served the same traffic: the
+            same numbers, ``measured_error``,
+            ``serving.quantized_dispatches``, the ``_int_mm`` products
+            equal to the recolored sites x dispatches, a profiled int8
+            forward with no ``aten::convolution`` and no convolution
+            kernel beyond the excluded sites', and two sites' int32
+            accumulators on the card bitwise against the plain version
+            on the CPU; (c) ``bench.py`` ``serving_config`` and
+            ``quantized_serving_config`` through the port at their sizes
+            (BENCH_SRV_*): continuous over sequential, int8 over f32.
+9. summary — a ``{"kernels": [...]}`` line, the card's name and power
             limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Numerics: ``torch.backends.cuda.matmul.allow_tf32`` and
@@ -445,6 +471,9 @@ checks and phase 7e alone, and prints the kernels line of K1 and the
 NMS kernel, then the card's line and the ok line.
 
 ``--phase data`` builds K1 and K3 and runs phase 7d alone, and prints
+its report as one JSON line, then the card's line and the ok line.
+
+``--phase predict`` builds nothing and runs phase 8 alone, and prints
 its report as one JSON line, then the card's line and the ok line.
 
 ``--phase module`` builds the kernels and runs only phase 7(c), in a
@@ -7912,6 +7941,401 @@ def _ssd_summary(ssd):
                                   ("proposal_6000", cases[-1]))}}
 
 
+# ------------------------------------------------------- phase predict
+#: ResNet-50 v1 one-shot serving (``bench.py`` ``infer_config``'s net)
+PRED_HW = 224
+#: the export example's and each calibration batch's rows
+PRED_BATCH = 32
+PRED_CALIB_BATCHES = 4
+#: sequential batch-1 ``predict`` calls timed
+PRED_SEQUENTIAL = 64
+#: served traffic: requests of 1-4 rows from PRED_THREADS threads
+PRED_REQUESTS = 256
+PRED_THREADS = 8
+PRED_MAX_BATCH = 32
+PRED_DELAY_MS = 2.0
+#: sites the int8 export excludes: the reference's set for these seeded
+#: weights and calibration batches (its CPU run at batch 2 measured
+#: 0.01395 relative error with none excluded, inside the 0.05 budget)
+PRED_EXCLUDED = ()
+#: rows the CPU forward of the port checks
+PRED_CPU_ROWS = 2
+#: bounds, each relative to the largest |logit| of the rows compared: the
+#: predictor against the eager forward on the card (the same ops), the
+#: card against the port on the CPU (f32, TF32 off: summation orders
+#: only), a served row against its batch-1 predict (cuDNN and cuBLAS
+#: choose kernels by batch shape) in f32 and in int8 (an activation whose
+#: f32 bits differ can round to the next int8 code)
+PRED_EAGER_TOL = 1e-5
+PRED_CPU_TOL = 1e-4
+PRED_ROW_BOUND = 1e-4
+PRED_INT8_ROW_BOUND = 2.0 ** -6
+#: bench.py serving_config / quantized_serving_config, at their sizes
+BENCH_SRV_FEAT, BENCH_SRV_MAX_BATCH, BENCH_SRV_THREADS = 64, 16, 8
+BENCH_SRV_REQUESTS = 512
+
+
+def _rel_diff(np, got, want):
+    """max |got - want| over the largest |want|."""
+    return float(np.abs(got - want).max()
+                 / max(float(np.abs(want).max()), 1e-30))
+
+
+#: kernel-name marks of cuDNN's (and cuBLAS's) float convolutions
+_CONV_KERNEL_MARKS = ("fprop", "cudnn", "implicit_convolve", "winograd",
+                      "fft", "dgrad", "wgrad")
+
+
+def _op_counts(torch, fn, names, attempts=PROFILE_ATTEMPTS):
+    """One profiled ``fn()``: how many times each aten op of ``names`` ran
+    (host-side op events) and how many device kernels carried a
+    convolution's name (``_CONV_KERNEL_MARKS``; None when the profiler
+    recorded no CUDA activity in ``attempts`` windows)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device = [ev.name for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA]
+        if device:
+            break
+    counts = {n: 0 for n in names}
+    for ev in prof.key_averages():
+        if ev.key in counts:
+            counts[ev.key] += ev.count
+    counts["conv_kernels"] = sum(
+        any(m in n.lower() for m in _CONV_KERNEL_MARKS)
+        for n in device) if device else None
+    return counts
+
+
+def _serve_traffic(mx, np, torch, prefix, quantized, reqs, threads,
+                   max_batch, delay_ms, sites=0):
+    """``reqs`` through one ``Server`` from ``threads`` threads: rates,
+    the serving timers, the dispatches, the int8 products on the card
+    (``ops.int8.PRODUCTS``) and a profiled window; returns the report and
+    the served outputs in request order."""
+    from mxnet_tpu_torch import serving, telemetry as tt
+    from mxnet_tpu_torch.ops import int8
+    import threading
+    srv = serving.Server(max_batch=max_batch, max_queue_delay_ms=delay_ms)
+    srv.register("m", prefix, quantized=quantized)
+    t0 = time.perf_counter()
+    srv.start()
+    out = {"start_s": time.perf_counter() - t0}
+    try:
+        srv.predict("m", reqs[0], timeout=600)      # the dispatch path
+        for name in ("queue_delay_ms", "batch_fill", "dispatch_ms",
+                     "request_ms"):
+            tt.timer("serving." + name).reset()
+        c = {k: tt.counter("serving." + k).value
+             for k in ("batch_dispatches", "quantized_dispatches")}
+        int8.reset_products()
+        results = [None] * len(reqs)
+
+        def worker(k):
+            futs = [(i, srv.submit("m", reqs[i]))
+                    for i in range(k, len(reqs), threads)]
+            for i, f in futs:
+                results[i] = f.result(timeout=600)
+
+        pool = [threading.Thread(target=worker, args=(k,))
+                for k in range(threads)]
+        t0 = time.perf_counter()
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join()
+        dt = time.perf_counter() - t0
+        dispatches = tt.counter("serving.batch_dispatches").value \
+            - c["batch_dispatches"]
+        rows = sum(r.shape[0] for r in reqs)
+        qd = tt.timer("serving.queue_delay_ms").stats()
+        fill = tt.timer("serving.batch_fill").stats()
+        disp = tt.timer("serving.dispatch_ms").stats()
+        out.update({
+            "requests": len(reqs), "rows": rows, "threads": threads,
+            "max_batch": max_batch, "max_queue_delay_ms": delay_ms,
+            "seconds": dt, "requests_per_s": len(reqs) / dt,
+            "rows_per_s": rows / dt, "queue_delay_p99_ms": qd["p99"],
+            "batch_fill_mean": fill["total"] / max(fill["count"], 1),
+            "dispatch_ms_p50": disp["p50"], "dispatch_ms_p99": disp["p99"],
+            "dispatches": dispatches,
+            "quantized_dispatches": tt.counter(
+                "serving.quantized_dispatches").value
+            - c["quantized_dispatches"],
+            "int8_products": int8.PRODUCTS["int8_mm"],
+            "int8_products_plain": int8.PRODUCTS["plain"]})
+        if quantized and out["int8_products"] != sites * dispatches:
+            raise AssertionError(
+                "int8 products %d, want %d recolored sites x %d dispatches"
+                % (out["int8_products"], sites, dispatches))
+        if not quantized and out["int8_products"]:
+            raise AssertionError("an f32 model ran %d int8 products"
+                                 % out["int8_products"])
+
+        def window():
+            futs = [srv.submit("m", r) for r in reqs[:64]]
+            for f in futs:
+                f.result(timeout=600)
+        out["profile"] = _profile(torch, window)
+    finally:
+        srv.stop()
+    return out, results
+
+
+def _row_gap(np, pred, reqs, results):
+    """The largest difference of a served row from its own batch-1
+    ``predict``, relative to that row's largest |logit|."""
+    worst = 0.0
+    for x, got in zip(reqs, results):
+        for i in range(x.shape[0]):
+            worst = max(worst, _rel_diff(np, got[i:i + 1],
+                                         pred.predict(x[i:i + 1])))
+    return worst
+
+
+def _sequential(pred, reqs):
+    pred.predict(reqs[0])
+    t0 = time.perf_counter()
+    for r in reqs:
+        pred.predict(r)
+    return len(reqs) / (time.perf_counter() - t0)
+
+
+def _accumulator_checks(np, torch, pred):
+    """Two recolored convolution sites (the first, and the first 3x3):
+    their int32 accumulator on the card (``_int_mm``) bitwise against the
+    plain version on the CPU from the same int8 inputs."""
+    from mxnet_tpu_torch import quantization
+    from mxnet_tpu_torch.ops import int8
+    rng = np.random.RandomState(SEED + 2)
+    picked = []
+    for name, node, _ in quantization.graph_sites(pred._graph):
+        site = pred._sites.get(id(node))
+        if site is None or site.op != "Convolution":
+            continue
+        k = tuple(site.wq.shape[2:])
+        if not picked or (k == (3, 3) and len(picked) == 1):
+            picked.append((name, node, site))
+        if len(picked) == 2:
+            break
+    out = []
+    for name, node, site in picked:
+        a = node.attrs
+        c = site.wq.shape[1] * int(a.get("num_group", 1))
+        x = rng.randint(-127, 128, (2, c, 56, 56)).astype(np.int8)
+        args = (a.get("stride"), a.get("pad") or 0, a.get("dilate"),
+                int(a.get("num_group", 1)))
+        card = int8.int8_conv(torch.from_numpy(x).cuda(), site.wq, *args)
+        plain = int8.int8_conv_plain(torch.from_numpy(x), site.wq.cpu(),
+                                     *args)
+        same = bool(torch.equal(card.cpu(), plain))
+        out.append({"site": name, "weight": list(site.wq.shape),
+                    "input": list(x.shape), "bitwise": same})
+        if not same:
+            raise AssertionError("site %s: the card's int32 accumulator "
+                                 "differs from the plain version" % name)
+    return out
+
+
+def _pred_net(mx, np, torch):
+    """resnet50_v1 at full width on the card, seeded Xavier (as
+    ``one_config``), its deferred shapes resolved."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    mx.random.seed(SEED)
+    net = vision.get_model("resnet50_v1", classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net(mx.nd.array(np.zeros((1, 3, PRED_HW, PRED_HW), np.float32),
+                    ctx=mx.gpu(0)))
+    return net
+
+
+def predict_resnet(mx, np, torch, card, workdir):
+    """Phase 8 (a) and (b): ResNet-50 v1 one-shot, f32 and int8."""
+    from mxnet_tpu_torch import autograd, deploy, quantization
+    rng = np.random.RandomState(SEED + 1)
+    shape = (PRED_BATCH, 3, PRED_HW, PRED_HW)
+    calib = [rng.uniform(size=shape).astype(np.float32)
+             for _ in range(PRED_CALIB_BATCHES)]
+    reqs = [rng.uniform(size=(n, 3, PRED_HW, PRED_HW)).astype(np.float32)
+            for n in rng.randint(1, 5, PRED_REQUESTS)]
+    singles = [r[:1] for r in reqs[:PRED_SEQUENTIAL]]
+    out = {"card": card, "batch": PRED_BATCH, "requests": PRED_REQUESTS}
+    t0 = time.perf_counter()
+    net = _pred_net(mx, np, torch)
+    prefix = os.path.join(workdir, "resnet50_f32")
+    deploy.export_model(net, prefix, calib[0])
+    pred = deploy.load_model(prefix)
+    out["export_load_s"] = time.perf_counter() - t0
+    x = calib[1]
+    got = pred.predict(x)
+    with autograd.predict_mode(), torch.no_grad():
+        eager = net(mx.nd.array(x, ctx=mx.gpu(0))).asnumpy()
+    cpu = deploy.load_model(prefix, device="cpu").predict(
+        x[:PRED_CPU_ROWS])
+    xt = torch.from_numpy(x).cuda()
+    f32 = {"dynamic_batch": pred.dynamic_batch,
+           "output_shape": list(got.shape),
+           "finite": bool(np.isfinite(got).all()),
+           "vs_eager": _rel_diff(np, got, eager),
+           "vs_eager_bound": PRED_EAGER_TOL,
+           "vs_cpu": _rel_diff(np, got[:PRED_CPU_ROWS], cpu),
+           "vs_cpu_bound": PRED_CPU_TOL,
+           "batch32_ms": _time_ms(lambda: pred.run(xt)),
+           "batch32_device_ms": _device_ms(torch, lambda: pred.run(xt))}
+    if not (f32["finite"] and got.shape == (PRED_BATCH, 1000)
+            and f32["vs_eager"] <= PRED_EAGER_TOL
+            and f32["vs_cpu"] <= PRED_CPU_TOL):
+        raise AssertionError("resnet50 f32 predictor: %s" % json.dumps(f32))
+    f32["sequential_requests_per_s"] = _sequential(pred, singles)
+    f32["convolutions_a_forward"] = _op_counts(
+        torch, lambda: pred.run(torch.from_numpy(x[:2]).cuda()),
+        ("aten::convolution", "aten::_int_mm"))
+    served, results = _serve_traffic(mx, np, torch, prefix, False, reqs,
+                                     PRED_THREADS, PRED_MAX_BATCH,
+                                     PRED_DELAY_MS)
+    served["row_gap"] = _row_gap(np, pred, reqs, results)
+    served["row_gap_bound"] = PRED_ROW_BOUND
+    f32["served"] = served
+    f32["continuous_over_sequential"] = served["requests_per_s"] \
+        / f32["sequential_requests_per_s"]
+    _log("[predict] f32 %s" % json.dumps(f32))
+    if served["row_gap"] > PRED_ROW_BOUND:
+        raise AssertionError("served f32 rows differ from batch-1 predict "
+                             "by %g > %g" % (served["row_gap"],
+                                             PRED_ROW_BOUND))
+    out["f32"] = f32
+
+    # (b) int8: calibrate, export with the guardrail, serve
+    t0 = time.perf_counter()
+    cal = quantization.calibrate(net, calib, mode="entropy")
+    t1 = time.perf_counter()
+    qprefix = os.path.join(workdir, "resnet50_int8")
+    quantization.export_quantized(net, qprefix, cal,
+                                  excluded=PRED_EXCLUDED)
+    qpred = deploy.load_model(qprefix, quantized=True)
+    sites = len(qpred.recolored_sites)
+    q = {"calibrate_s": t1 - t0, "export_load_s": time.perf_counter() - t1,
+         "sites": len(cal.sites), "recolored_sites": sites,
+         "excluded": list(PRED_EXCLUDED),
+         "measured_error": qpred.meta["measured_error"],
+         "error_budget": qpred.meta["error_budget"]}
+    qgot = qpred.predict(x)
+    q["finite"] = bool(np.isfinite(qgot).all())
+    q["vs_f32"] = float(np.linalg.norm(qgot - got) / np.linalg.norm(got))
+    q["batch32_ms"] = _time_ms(lambda: qpred.run(xt))
+    q["batch32_device_ms"] = _device_ms(torch, lambda: qpred.run(xt))
+    excluded_convs = sum(1 for s in cal.sites if s["op"] == "Convolution"
+                         and (s["name"] in PRED_EXCLUDED
+                              or "Convolution" in PRED_EXCLUDED))
+    ops = _op_counts(torch, lambda: qpred.run(xt),
+                     ("aten::convolution", "aten::_int_mm"))
+    q["ops_a_forward"] = ops
+    if ops["aten::convolution"] != excluded_convs \
+            or ops["aten::_int_mm"] != sites \
+            or (excluded_convs == 0 and ops["conv_kernels"]):
+        raise AssertionError(
+            "int8 forward ran %s: want %d convolutions (the excluded "
+            "ones), no convolution kernel when none is excluded, and %d "
+            "_int_mm" % (ops, excluded_convs, sites))
+    q["sequential_requests_per_s"] = _sequential(qpred, singles)
+    served, results = _serve_traffic(mx, np, torch, qprefix, True, reqs,
+                                     PRED_THREADS, PRED_MAX_BATCH,
+                                     PRED_DELAY_MS, sites=sites)
+    served["row_gap"] = _row_gap(np, qpred, reqs, results)
+    served["row_gap_bound"] = PRED_INT8_ROW_BOUND
+    q["served"] = served
+    q["accumulators"] = _accumulator_checks(np, torch, qpred)
+    q["continuous_over_sequential"] = served["requests_per_s"] \
+        / q["sequential_requests_per_s"]
+    q["int8_over_f32_img_per_s"] = served["rows_per_s"] \
+        / out["f32"]["served"]["rows_per_s"]
+    _log("[predict] int8 %s" % json.dumps(q))
+    if not q["finite"] or served["quantized_dispatches"] \
+            != served["dispatches"] or served["row_gap"] \
+            > PRED_INT8_ROW_BOUND:
+        raise AssertionError("resnet50 int8 serving: %s" % json.dumps(q))
+    out["int8"] = q
+    return out
+
+
+def _bench_mlp(mx, seed):
+    """``bench.py``'s serving MLP: 64 -> Dense(128, relu) -> Dense(16)."""
+    from mxnet_tpu_torch.gluon import nn
+    mx.random.seed(seed)
+    net = nn.HybridSequential()
+    net.add(nn.Dense(128, activation="relu"), nn.Dense(16))
+    net.initialize(ctx=mx.gpu(0))
+    return net
+
+
+def bench_serving(mx, np, torch, workdir):
+    """Phase 8 (c): ``bench.py`` ``serving_config`` and
+    ``quantized_serving_config`` through the port, at their sizes."""
+    from mxnet_tpu_torch import deploy, quantization
+    feat, cap, threads = BENCH_SRV_FEAT, BENCH_SRV_MAX_BATCH, \
+        BENCH_SRV_THREADS
+    n = BENCH_SRV_REQUESTS
+    # serving_config: sequential batch-1 against continuous batching
+    net = _bench_mlp(mx, 11)
+    example = np.random.RandomState(11).uniform(size=(cap, feat)) \
+        .astype(np.float32)
+    prefix = os.path.join(workdir, "bench_mlp")
+    deploy.export_model(net, prefix, example)
+    rng = np.random.RandomState(2)
+    reqs = [rng.uniform(size=(1, feat)).astype(np.float32)
+            for _ in range(n)]
+    pred = deploy.load_model(prefix)
+    seq = _sequential(pred, reqs)
+    cont, results = _serve_traffic(mx, np, torch, prefix, False, reqs,
+                                   threads, cap, 2.0)
+    out = {"serving_config": {
+        "sequential_requests_per_s": seq, "continuous": cont,
+        "continuous_over_sequential": cont["requests_per_s"] / seq,
+        "row_gap": _row_gap(np, pred, reqs[:64], results[:64])}}
+    # quantized_serving_config: int8 against f32 from one net
+    net = _bench_mlp(mx, 13)
+    rng = np.random.RandomState(3)
+    calib = [rng.uniform(-1, 1, size=(cap, feat)).astype(np.float32)
+             for _ in range(4)]
+    fp = os.path.join(workdir, "bench_fp32")
+    qp = os.path.join(workdir, "bench_int8")
+    deploy.export_model(net, fp, calib[0])
+    cal = quantization.calibrate(net, calib)
+    quantization.export_quantized(net, qp, cal)
+    qpred = deploy.load_model(qp, quantized=True)
+    reqs = [rng.uniform(-1, 1, size=(1, feat)).astype(np.float32)
+            for _ in range(n)]
+    f32, _ = _serve_traffic(mx, np, torch, fp, False, reqs, threads, cap,
+                            2.0)
+    q8, _ = _serve_traffic(mx, np, torch, qp, True, reqs, threads, cap,
+                           2.0, sites=len(qpred.recolored_sites))
+    out["quantized_serving_config"] = {
+        "fp32": f32, "int8": q8,
+        "measured_error": qpred.meta["measured_error"],
+        "int8_over_fp32": q8["requests_per_s"] / f32["requests_per_s"]}
+    _log("[predict] bench %s" % json.dumps(
+        {"continuous_over_sequential": out["serving_config"][
+            "continuous_over_sequential"],
+         "int8_over_fp32": out["quantized_serving_config"][
+             "int8_over_fp32"]}))
+    return out
+
+
+def predict_phase(mx, np, torch, card, workdir):
+    """Phase 8: one-shot serving (no kernel of its own)."""
+    t0 = time.perf_counter()
+    out = {"resnet50": predict_resnet(mx, np, torch, card, workdir),
+           "bench": bench_serving(mx, np, torch, workdir)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the full report (JSON) "
@@ -7919,7 +8343,7 @@ def main(argv=None):
     ap.add_argument("--phase", choices=("all", "attention", "optimizer",
                                         "module", "bert", "lm_f32",
                                         "generation", "ops", "zoo", "rnn",
-                                        "data", "ssd"),
+                                        "data", "ssd", "predict"),
                     default="all",
                     help="attention: the flash forward and backward checks "
                     "of phase 2 alone; optimizer: phase 2's K3 and K1 "
@@ -7944,7 +8368,10 @@ def main(argv=None):
                     "ImageDetRecordIter, detection with the NMS kernel "
                     "against its plain version, the detection ops card "
                     "against CPU), ending in the kernels line for K1 and "
-                    "the NMS kernel, the card and ok lines")
+                    "the NMS kernel, the card and ok lines; predict: phase "
+                    "8 alone (ResNet-50 served one-shot in f32 and int8, "
+                    "bench.py's two serving configs; no kernel built), "
+                    "ending in the card and ok lines")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -7986,7 +8413,7 @@ def main(argv=None):
          "ops": ["sgd_step", "adam_step"],
          "zoo": ["sgd_step"], "rnn": ["adam_step"],
          "data": ["sgd_step", "adam_step"],
-         "ssd": ["sgd_step", "box_nms"]}.get(args.phase))
+         "ssd": ["sgd_step", "box_nms"], "predict": []}.get(args.phase))
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "per_source_s": {k: v["seconds"]
                                         for k, v in built.items()},
@@ -8160,6 +8587,16 @@ def main(argv=None):
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if args.phase == "predict":
+        report["predict"] = predict_phase(mx, np, torch, card, workdir)
+        _write_report(args.report, report)
+        print(json.dumps({k: v for k, v in report.items()
+                          if k != "build"}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.phase == "module":
         report["lr_t_ab"] = lr_t_ab(mx, np, torch)
         report["launch_ab"] = launch_ab(mx, np, torch)
@@ -8211,6 +8648,7 @@ def main(argv=None):
                                     "img_per_s", "median_step_ms",
                                     "cudnn_benchmark")})
     report["ssd"] = ssd_phase(mx, ck, np, torch, card, workdir)
+    report["predict"] = predict_phase(mx, np, torch, card, workdir)
     data_sgd, data_adam = _data_launches(report["data"])
     data_sgd.update(_ssd_sgd_launches(report["ssd"]))
     module_adam = report["module"]["fused"]["launches"]["adam_step"]

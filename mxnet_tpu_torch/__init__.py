@@ -50,6 +50,12 @@ Ported so far:
   ``box_nms``, the ROI and proposal family), ``mx.sym.contrib``,
   ``mx.image``'s detection augmenters, ``io.ImageDetRecordIter`` and
   ``gluon.contrib.cnn``;
+* one-shot serving and int8 quantization — ``deploy.export_model`` ->
+  ``load_model`` / ``Server.register`` -> ``submit`` / ``predict``,
+  ``quantization.calibrate`` -> ``export_quantized`` ->
+  ``register(..., quantized=True)``, ``contrib.quantization``, the
+  quantized ops (int8 products through ``torch._int_mm``), and
+  ``resilience``'s fault-injection harness;
 
 with hand-written CUDA kernels for flash-attention forward and backward,
 paged decode attention, the fused Adam step, the multi-tensor fused SGD
@@ -76,7 +82,7 @@ from . import kernels, quantization, models, convert, deploy, serving
 from . import generation, optimizer, lr_scheduler, kvstore, gluon, parallel
 from . import metric, io, callback, engine, rtc, symbol, model, module
 from . import executor, executor_manager, runtime, rnn
-from . import recordio, image, compat, resilience
+from . import recordio, image, compat, resilience, contrib
 from . import symbol as sym
 from . import module as mod
 from . import kvstore as kv
@@ -90,4 +96,4 @@ __all__ = ["MXNetError", "MXNetErrorNoDevice", "KernelUnsupportedError",
            "lr_scheduler", "kvstore", "kv", "gluon", "parallel", "metric",
            "io", "callback", "engine", "rtc", "symbol", "sym", "model",
            "module", "mod", "executor", "executor_manager", "runtime", "rnn",
-           "recordio", "image", "compat", "resilience"]
+           "recordio", "image", "compat", "resilience", "contrib"]

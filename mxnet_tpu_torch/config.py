@@ -1,6 +1,8 @@
 """``mx.config`` — the typed runtime-knob registry (counterpart of
 ``mxnet_tpu.config``), cut down to the knobs the ported paths read: the
-generation-serving path, the kernel tier, the 64-bit dtype policy, the
+generation and one-shot serving paths, quantization (``quant.*``), the
+fault-injection harness and retry policy (``resilience.*``), the kernel
+tier, the 64-bit dtype policy, the
 ResNet training path
 (convolution layout, BatchNorm statistics, and the trainer options that
 are not ported yet, which the trainer refuses instead of ignoring), the
@@ -167,9 +169,58 @@ register_knob(
     "is on) or off (the stage-at-a-time eager step; NaiveEngine forces "
     "it too).")
 register_knob(
+    "quant.calib_mode", "MXNET_TPU_QUANT_CALIB_MODE", str, "entropy",
+    "default mx.quantization calibration mode: 'entropy' (KL-divergence "
+    "threshold search over activation histograms) or 'naive' (observed "
+    "|max|). Degenerate histograms fall back to naive and count "
+    "quantization.calib_fallback.")
+register_knob(
+    "quant.calib_bins", "MXNET_TPU_QUANT_CALIB_BINS", int, 4001,
+    "histogram bins for entropy calibration; more bins = a finer KL "
+    "threshold search, slower calibration.")
+register_knob(
     "quant.error_budget", "MXNET_TPU_QUANT_ERROR_BUDGET", float, 0.05,
-    "accuracy guardrail for int8 paths: max relative error an int8 "
-    "result may show against its full-precision counterpart.")
+    "accuracy guardrail for int8 paths: max relative L2 error "
+    "(||int8 - fp32|| / ||fp32||, worst calibration batch) an "
+    "export_quantized artifact may show before the export refuses to "
+    "emit (QuantizationError).")
+register_knob(
+    "quant.drift_every", "MXNET_TPU_QUANT_DRIFT_EVERY", int, 0,
+    "quantization drift sampling of served int8 models. Not ported (it "
+    "needs the numerics plane); Server.register(quantized=True) raises "
+    "NotImplementedError when it is > 0.")
+register_knob(
+    "serving.max_batch", "MXNET_TPU_SERVING_MAX_BATCH", int, 32,
+    "one-shot serving batch capacity: the batcher coalesces queued "
+    "requests for one model up to this many rows before dispatch; also "
+    "the top pad bucket, so it bounds the warmed shapes per model.")
+register_knob(
+    "serving.max_queue_delay_ms", "MXNET_TPU_SERVING_MAX_QUEUE_DELAY_MS",
+    float, 2.0,
+    "one-shot batching window in milliseconds: how long the batcher "
+    "holds the oldest queued request waiting for co-batchable traffic "
+    "before dispatching a partial batch. 0 dispatches immediately.")
+register_knob(
+    "resilience.faults", "MXNET_TPU_FAULTS", str, "",
+    "deterministic fault-injection spec, e.g. "
+    "'serving_dispatch:2@step=1,serving_slow:0.1' — kind:probability per "
+    "opportunity, or kind:count@step=N (1-based). Kinds the port draws: "
+    "serving_dispatch (fail a one-shot batch dispatch — feeds the circuit "
+    "breaker), serving_slow (delay a dispatch), and any kind passed to "
+    "resilience.call_with_retry(inject_faults=True).")
+register_knob(
+    "resilience.fault_seed", "MXNET_TPU_FAULT_SEED", int, 0,
+    "seed for the fault-injection RNGs and retry jitter; two runs with "
+    "the same spec and seed inject identical faults.")
+register_knob(
+    "resilience.retry_attempts", "MXNET_TPU_RETRY_ATTEMPTS", int, 3,
+    "total attempts of resilience.call_with_retry on OSError (the "
+    "serving batcher's restart budget too); retries bump "
+    "resilience.retries[.<kind>].")
+register_knob(
+    "resilience.retry_base_s", "MXNET_TPU_RETRY_BASE_S", float, 0.05,
+    "first retry backoff in seconds; doubles per attempt with seeded "
+    "jitter, capped at 2s.")
 register_knob(
     "serving.max_pending", "MXNET_TPU_SERVING_MAX_PENDING", int, 1024,
     "admission bound: submits past this many queued requests fail fast "
@@ -244,6 +295,39 @@ def _apply_runtime_remat(value):
 
 _ON_SET["runtime.stack_mode"] = _apply_runtime_stack_mode
 _ON_SET["runtime.remat"] = _apply_runtime_remat
+
+
+def _apply_quant_calib_mode(value):
+    v = (value or "").strip().lower()
+    if v not in ("naive", "entropy"):
+        _OVERRIDES.pop("quant.calib_mode", None)
+        raise ValueError("quant.calib_mode must be 'naive' or 'entropy', "
+                         "got %r" % (value,))
+
+
+def _apply_quant_drift_every(value):
+    if int(value) < 0:
+        _OVERRIDES.pop("quant.drift_every", None)
+        raise ValueError("quant.drift_every must be >= 0, got %r"
+                         % (value,))
+
+
+def _apply_resilience_faults(_value):
+    from . import resilience
+    resilience.configure_faults()
+
+
+def _apply_resilience_retry(_value):
+    from . import resilience
+    resilience.configure_retry()
+
+
+_ON_SET["quant.calib_mode"] = _apply_quant_calib_mode
+_ON_SET["quant.drift_every"] = _apply_quant_drift_every
+_ON_SET["resilience.faults"] = _apply_resilience_faults
+_ON_SET["resilience.fault_seed"] = _apply_resilience_faults
+_ON_SET["resilience.retry_attempts"] = _apply_resilience_retry
+_ON_SET["resilience.retry_base_s"] = _apply_resilience_retry
 
 
 # data loading and the device prefetch ring (mx.io, mx.image,

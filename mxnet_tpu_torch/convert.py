@@ -17,6 +17,9 @@ them), so these two carry any of them, and ``save_parameters`` files
 carry them too.
 ``symbol_params_from_reference`` / ``symbol_params_to_reference`` carry
 a symbolic Module's ``(arg_params, aux_params)`` across, as numpy.
+``oneshot_from_reference`` carries a reference one-shot deploy artifact
+(``-params.npz`` and ``-meta.json``; its StableHLO program is not read)
+to the port's artifact for the same Block, f32 or int8.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ import torch
 
 __all__ = ["params_from_reference", "params_to_reference",
            "gluon_params_from_reference", "gluon_params_to_reference",
-           "symbol_params_from_reference", "symbol_params_to_reference"]
+           "symbol_params_from_reference", "symbol_params_to_reference",
+           "oneshot_from_reference"]
 
 
 def _tensor(a):
@@ -203,3 +207,58 @@ def symbol_params_to_reference(arg_params, aux_params):
     updates of a later step); bf16 and f16 widen to float32."""
     return ({n: _numpy_copy(v) for n, v in arg_params.items()},
             {n: _numpy_copy(v) for n, v in aux_params.items()})
+
+
+def oneshot_from_reference(block, ref_prefix, prefix, ref_param_prefix=None):
+    """Write the port's one-shot artifact at ``prefix`` from the
+    reference's at ``ref_prefix`` (``deploy.export_model`` f32 v1/v2, or
+    ``quantization.export_quantized`` int8 v3), for ``block``, the same
+    network built in the port: the graph is the Block's own, the params
+    and the meta fields are the reference's (int8 payloads and
+    ``<name>::scale`` companions included), renamed to the port's
+    parameter names as :func:`gluon_params_from_reference` pairs them.
+    The calibration manifest's weights are renamed too, so the port
+    recolors the same sites.  Returns the written paths."""
+    import json
+    from . import deploy as _deploy
+    from .quantization import SCALE_SUFFIX, _block_device, _forward
+    with open(ref_prefix + "-meta.json") as f:
+        meta = json.load(f)
+    if meta.get("generate", False):
+        raise ValueError("%r is a generation artifact; this carries "
+                         "one-shot artifacts only" % (ref_prefix,))
+    shape = meta.get("input_shape")
+    dtype = _np.dtype(meta.get("input_dtype", "float32"))
+    _forward(block, _np.zeros(shape, dtype), _block_device(block))
+    port_names = list(block.collect_params().keys())
+    ref_names = [n for n in meta["param_names"]
+                 if not n.endswith(SCALE_SUFFIX)]
+    own = _own_prefix(block, port_names)
+    to_port = {r: p for p, r in pair_names(port_names, ref_names, own,
+                                           ref_param_prefix).items()}
+
+    def rename(n):
+        if n.endswith(SCALE_SUFFIX):
+            return to_port[n[:-len(SCALE_SUFFIX)]] + SCALE_SUFFIX
+        return to_port[n]
+
+    arrays = None
+    if os.path.exists(ref_prefix + "-params.npz"):
+        with _np.load(ref_prefix + "-params.npz") as loaded:
+            arrays = {rename(n): loaded[n] for n in meta["param_names"]}
+    graph, input_name = _deploy._trace(block)
+    meta = dict(meta)
+    meta["param_names"] = [rename(n) for n in meta["param_names"]]
+    meta["program"] = _deploy.ONESHOT_PROGRAM
+    meta["input_name"] = input_name
+    if meta.get("quantized"):
+        meta["quantized_params"] = [to_port[n]
+                                    for n in meta["quantized_params"]]
+        # no drift-monitoring twin in the port's artifact
+        meta["stats_sites"] = []
+        cal = dict(meta.get("calibration") or {})
+        cal["sites"] = [dict(s, weight=to_port.get(s.get("weight"),
+                                                   s.get("weight")))
+                        for s in cal.get("sites", [])]
+        meta["calibration"] = cal
+    return _deploy._write_oneshot(prefix, graph, meta, arrays)

@@ -1,17 +1,39 @@
-"""Generation artifacts (counterpart of ``mxnet_tpu.deploy``
-``export_generation`` / ``GenerationPredictor``).
+"""``mx.deploy`` — one-shot and generation artifacts (counterpart of
+``mxnet_tpu.deploy``).
 
 The reference serialises StableHLO programs, which PyTorch cannot load,
-so the port has its own format: ``<prefix>-meta.json`` (the reference's
-meta fields plus the model configuration) and ``<prefix>-params.pt``
-(the weights as a tensor state dict).  The two packages are held
-against each other on OUTPUTS, never on artifacts.
+so the port writes its own program beside the reference's meta fields.
+The two packages are held against each other on OUTPUTS; a reference
+artifact's params and meta carry across with
+``convert.oneshot_from_reference``.
 
-The reference exports one prefill program per prompt bucket and one
-decode program per page-table width.  The port runs eagerly, but keeps
-the same families: every prefill is padded to a prompt bucket and every
-decode step to a width, so the set of shapes a server ever runs stays
-bounded (one CUDA graph per shape is later work).
+One-shot artifacts (``export_model``, ``quantization.export_quantized``):
+
+  {prefix}-symbol.json   the Block's graph, traced through its Symbol
+                         forward (the port's ``HybridBlock.export``
+                         schema); reloads with no Python class
+  {prefix}-params.npz    parameter arrays by ``meta["param_names"]``
+  {prefix}-meta.json     the reference's fields (``param_names``, input
+                         and output shape and dtype, ``dynamic_batch``,
+                         ``format_version``) plus ``program`` and
+                         ``input_name``
+
+Format versions, as the reference's: v1 fixed batch (no output fields),
+v2 adds the output signature and ``dynamic_batch`` (any batch runs; a
+graph whose shape inference fixes the batch records ``false``), v3 is
+int8 (``quantized: true``, int8 weight payloads with ``<name>::scale``
+companions, ``calibration``, ``measured_error``, ``excluded``) and
+refuses the f32 load path.  The predictor keeps the reference's public
+name, :class:`StableHLOPredictor`, though its program is the port's
+graph.
+
+Generation artifacts (``export_generation``): ``<prefix>-meta.json`` (the
+reference's meta fields plus the model configuration, ``format``
+``mxnet_tpu_torch.generation``) and ``<prefix>-params.pt`` (the weights
+as a tensor state dict).  The reference exports one prefill program per
+prompt bucket and one decode program per page-table width; the port runs
+eagerly but keeps the same families, so the set of shapes a server runs
+stays bounded.
 """
 from __future__ import annotations
 
@@ -25,14 +47,347 @@ import torch
 from . import config as _config
 from .models.transformer import TransformerLM, TransformerLMConfig
 
-__all__ = ["export_generation", "GenerationPredictor", "load_generator",
-           "FORMAT", "FORMAT_VERSION"]
+__all__ = ["export_model", "load_model", "StableHLOPredictor",
+           "export_generation", "GenerationPredictor", "load_generator",
+           "FORMAT", "FORMAT_VERSION", "QUANTIZED_FORMAT_VERSION",
+           "GENERATE_FORMAT_VERSION"]
 
+#: one-shot f32 artifacts (``export_model``)
+FORMAT_VERSION = 2
+#: one-shot int8 artifacts (``quantization.export_quantized``)
+QUANTIZED_FORMAT_VERSION = 3
+#: newest one-shot format this build loads
+MAX_SUPPORTED_FORMAT = 3
+#: ``meta["program"]`` of the port's one-shot artifacts
+ONESHOT_PROGRAM = "mxnet_tpu_torch.symbol"
+
+#: generation artifacts: their own format string and version
 FORMAT = "mxnet_tpu_torch.generation"
-FORMAT_VERSION = 1
+GENERATE_FORMAT_VERSION = 1
 _KV_KEYS = ("k", "v")
 _KV_KEYS_QUANT = ("k", "v", "k_scale", "v_scale")
 
+
+# ---------------------------------------------------------------- one-shot
+
+def _shape_signature(shape, dynamic=False):
+    """JSON-safe shape; a dynamic batch dim becomes None."""
+    return [None if dynamic and i == 0 else int(d)
+            for i, d in enumerate(shape)]
+
+
+def _flatten_params(tree, prefix=""):
+    """Nested param dict -> sorted ``[("a/b/c", leaf)]``."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        key = prefix + str(k)
+        if isinstance(v, dict):
+            out.extend(_flatten_params(v, key + "/"))
+        else:
+            out.append((key, v))
+    return out
+
+
+def _unflatten_params(flat):
+    tree = {}
+    for key, v in flat.items():
+        parts = key.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def _host_array(x):
+    from .ndarray.ndarray import NDArray
+    if isinstance(x, NDArray):
+        return x.asnumpy()
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return _np.asarray(x)
+
+
+def _trace(block, input_name="data"):
+    """The Block's graph: its forward on a Symbol variable."""
+    from . import symbol as _sym
+    try:
+        out = block(_sym.var(input_name))
+    except Exception as exc:  # noqa: BLE001 — say which Block and why
+        raise ValueError(
+            "export: %s's forward does not trace to a Symbol graph (%s: "
+            "%s); the one-shot artifact needs a HybridBlock-style forward"
+            % (type(block).__name__, type(exc).__name__, exc)) from exc
+    if isinstance(out, (list, tuple)):
+        if len(out) != 1:
+            raise ValueError("export: one-shot artifacts take one output, "
+                             "got %d" % len(out))
+        out = out[0]
+    return out, input_name
+
+
+def _batch_free(graph, input_name, in_shape, out_shape):
+    """Whether the graph runs at another batch: its shape inference at a
+    second batch size gives that batch and the same trailing dims."""
+    b2 = int(in_shape[0]) + 1
+    try:
+        _, outs, _ = graph.infer_shape(
+            **{input_name: (b2,) + tuple(in_shape[1:])})
+    except Exception:  # noqa: BLE001 — the graph fixes its batch
+        return False
+    if len(outs) != 1 or outs[0] is None:
+        return False
+    return tuple(outs[0]) == (b2,) + tuple(out_shape[1:])
+
+
+def _oneshot_meta(input_name, data, out, dynamic, version):
+    return {
+        "program": ONESHOT_PROGRAM,
+        "input_name": input_name,
+        "input_shape": [int(d) for d in data.shape],
+        "input_dtype": str(data.dtype),
+        "output_shape": _shape_signature(out.shape, dynamic),
+        "output_dtype": str(out.dtype),
+        "dynamic_batch": bool(dynamic),
+        "format_version": version,
+    }
+
+
+def _write_oneshot(prefix, graph, meta, arrays):
+    """Write the graph, the meta and (when ``arrays`` is not None) the
+    params; returns the paths."""
+    paths = [prefix + "-symbol.json", prefix + "-meta.json"]
+    graph.save(paths[0])
+    with open(paths[1], "w") as f:
+        json.dump(meta, f)
+    if arrays is not None:
+        paths.append(prefix + "-params.npz")
+        _np.savez(paths[2], **{n: _np.asarray(arrays[n])
+                               for n in meta["param_names"]})
+    return paths
+
+
+def export_model(block, prefix, example_input, include_params=True,
+                 dynamic_batch=True):
+    """Write a one-shot artifact of a Gluon Block's inference function.
+
+    One eager forward of ``example_input`` resolves the deferred shapes
+    and gives the output signature; the graph is the Block's Symbol
+    forward.  With ``dynamic_batch`` (default) the artifact takes any
+    batch size when the graph's shape inference allows it, else it
+    records ``meta["dynamic_batch"] = false`` and serves the example's
+    batch only.  Returns the written paths."""
+    from .parallel.functional import functionalize
+    from .quantization import _block_device, _forward, _host
+    data = _host_array(example_input)
+    out = _host(_forward(block, data, _block_device(block)))
+    fn = functionalize(block)
+    arrays = {n: v.detach().cpu().numpy()
+              for n, v in fn.init_values().items()}
+    graph, input_name = _trace(block)
+    dynamic = bool(dynamic_batch) and data.ndim >= 1 and _batch_free(
+        graph, input_name, data.shape, out.shape)
+    meta = _oneshot_meta(input_name, data, out, dynamic, FORMAT_VERSION)
+    meta["param_names"] = list(fn.params)
+    return _write_oneshot(prefix, graph, meta,
+                          arrays if include_params else None)
+
+
+class StableHLOPredictor:
+    """A reloaded one-shot artifact (the reference's predictor, under its
+    public name so code written against it runs; the port's program is
+    its own graph, not StableHLO).
+
+    Parameters go to ``device`` once, at construction (default
+    ``cuda:0``; ``"cpu"`` / ``mx.cpu()`` on request) and every
+    :meth:`predict` reuses them.  ``quantized=True`` is required for a v3
+    int8 artifact and refused for an f32 one; the int8 sites are
+    recolored once, here: each runs ``ops.int8`` at its calibrated scale,
+    never f32.
+
+    On the CPU, PyTorch's GEMM and convolution choose their kernels by
+    batch size, so a row's bits would depend on the rows beside it; the
+    CPU program runs a row at a time, so a served row is bitwise its own
+    batch-1 :meth:`predict` (the reference's batching promise).  On the
+    card the batch runs whole."""
+
+    def __init__(self, prefix, quantized=False, device=None):
+        from .context import resolve_device
+        from . import symbol as _sym
+        with open(prefix + "-meta.json") as f:
+            self.meta = json.load(f)
+        self.format_version = int(self.meta.get("format_version", 1))
+        if self.meta.get("generate", False):
+            raise ValueError(
+                "artifact %r is a GENERATION export: it carries a model "
+                "for prefill + decode over a paged KV cache, not a "
+                "one-shot predict program. Load it with "
+                "deploy.load_generator(prefix) or "
+                "serving.Server.register(..., generate=True)." % (prefix,))
+        if self.format_version > MAX_SUPPORTED_FORMAT:
+            raise ValueError(
+                "artifact %r is deploy format v%d, newer than this "
+                "build's v%d — upgrade before loading"
+                % (prefix, self.format_version, MAX_SUPPORTED_FORMAT))
+        if self.meta.get("program") != ONESHOT_PROGRAM:
+            raise ValueError(
+                "artifact %r carries no %s program (a reference StableHLO "
+                "export?); carry it across with "
+                "convert.oneshot_from_reference(block, prefix, out_prefix)"
+                % (prefix, ONESHOT_PROGRAM))
+        self.quantized = bool(self.meta.get("quantized", False))
+        if self.quantized and not quantized:
+            raise ValueError(
+                "artifact %r is a QUANTIZED (format v%d) program: its "
+                "params are int8 payloads and its outputs carry int8 "
+                "numerics — the fp32 load path refuses it rather than "
+                "silently dequantizing. Load it explicitly with "
+                "deploy.load_model(prefix, quantized=True) or "
+                "serving.Server.register(..., quantized=True)."
+                % (prefix, self.format_version))
+        if quantized and not self.quantized:
+            raise ValueError(
+                "artifact %r was loaded with quantized=True but is a "
+                "plain fp32 export (format v%d, no quantized params); "
+                "export it with mx.quantization.export_quantized or drop "
+                "the flag" % (prefix, self.format_version))
+        self.dynamic_batch = bool(self.meta.get("dynamic_batch", False))
+        self.device = resolve_device(device)
+        self._graph = _sym.load(prefix + "-symbol.json")
+        self._input = self.meta.get("input_name", "data")
+        self._params = None
+        params_path = prefix + "-params.npz"
+        if os.path.exists(params_path):
+            with _np.load(params_path) as loaded:
+                self._params = self._stage(
+                    {n: loaded[n] for n in self.meta["param_names"]})
+        if len(self._graph._heads()) != 1:
+            raise ValueError("artifact %r: a one-shot program has one "
+                             "output" % (prefix,))
+        self._sites = {}
+        if self.quantized and self._params is not None:
+            from .quantization import recolor_sites
+            self._sites = recolor_sites(self._graph, self._params,
+                                        self.meta)
+
+    def _stage(self, arrays):
+        """Host arrays -> the program's tensors on the device, once; a
+        quantized weight becomes its dequantized view ``q * scale`` (the
+        int8 sites re-derive the shipped grid from it)."""
+        from . import io as _io
+        from .quantization import SCALE_SUFFIX
+        out = {}
+        for n, a in arrays.items():
+            if n.endswith(SCALE_SUFFIX):
+                continue
+            out[n] = _io.ensure_staged(_np.ascontiguousarray(a),
+                                       self.device, source="deploy")
+        for n in self.meta.get("quantized_params") or ():
+            scale = torch.as_tensor(arrays[n + SCALE_SUFFIX]).to(
+                self.device)
+            out[n] = out[n].to(torch.float32) * scale
+        return out
+
+    @property
+    def recolored_sites(self):
+        """The site names that run int8 (a v3 artifact), in order."""
+        return [s.name for s in self._sites.values()]
+
+    def _validate_input(self, x):
+        """Shape / dtype against the exported signature: a clear
+        ValueError instead of an op's shape error."""
+        want_shape = self.meta.get("input_shape")
+        want_dtype = self.meta.get("input_dtype")
+        if want_shape is None:
+            return
+        got = tuple(int(s) for s in x.shape)
+        want = tuple(want_shape)
+        if len(got) != len(want):
+            raise ValueError(
+                "input rank mismatch: exported signature is %s (%d dims), "
+                "got shape %s" % (self.signature(), len(want), got))
+        trailing_ok = got[1:] == want[1:]
+        batch_ok = self.dynamic_batch or got[0] == want[0]
+        if not (trailing_ok and batch_ok):
+            raise ValueError(
+                "input shape %s does not match the exported signature %s"
+                % (got, self.signature()))
+        dt = str(x.dtype).replace("torch.", "")
+        if want_dtype is not None and dt != want_dtype:
+            raise ValueError(
+                "input dtype %s does not match the exported dtype %s"
+                % (dt, want_dtype))
+
+    def signature(self):
+        """Human-readable input signature, e.g. ``(N, 3, 224, 224)`` for a
+        dynamic-batch artifact or ``(8, 3, 224, 224)`` for a fixed one."""
+        shape = self.meta.get("input_shape") or ()
+        dims = ["N" if self.dynamic_batch and i == 0 else str(d)
+                for i, d in enumerate(shape)]
+        return "(" + ", ".join(dims) + ")"
+
+    def _env(self, params):
+        if params is None:
+            if self._params is None:
+                raise ValueError("no params: artifact exported with "
+                                 "include_params=False and none were "
+                                 "given")
+            return self._params
+        if self.quantized:
+            raise ValueError("a quantized predictor's int8 sites are "
+                             "prepared at load from its shipped params; "
+                             "params= is not taken")
+        names = self.meta["param_names"]
+        if len(params) != len(names):
+            raise ValueError("params: %d arrays for %d parameters"
+                             % (len(params), len(names)))
+        return self._stage(dict(zip(names, (_host_array(p)
+                                            for p in params))))
+
+    def _forward(self, env, x):
+        from .symbol.symbol import _eval_symbol
+        env[self._input] = x
+        return _eval_symbol(self._graph, env, False,
+                            overrides=self._sites)[0]
+
+    def run(self, x, params=None):
+        """The program on a device tensor ``x`` (already validated):
+        returns the output tensor on the device."""
+        env = dict(self._env(params))
+        with torch.inference_mode():
+            if x.device.type == "cpu" and x.shape[0] > 1:
+                return torch.cat([self._forward(env, x[i:i + 1])
+                                  for i in range(x.shape[0])], dim=0)
+            return self._forward(env, x)
+
+    def predict(self, data, params=None):
+        """Run inference; returns a host numpy array."""
+        from .ndarray.ndarray import NDArray
+        if isinstance(data, NDArray):
+            data = data._data
+        if isinstance(data, torch.Tensor):
+            self._validate_input(data)
+            x = data.to(self.device)
+        else:
+            raw = _np.asarray(data)
+            self._validate_input(raw)
+            x = torch.from_numpy(_np.ascontiguousarray(raw)).to(
+                self.device)
+        return self.run(x, params).cpu().numpy()
+
+    def forward(self, data):
+        return self.predict(data)
+
+
+def load_model(prefix, quantized=False, device=None):
+    """Reload a one-shot artifact.  ``quantized=True`` is REQUIRED for a
+    v3 int8 artifact (and refused for an f32 one): the flag is the
+    caller's acknowledgement that the outputs carry int8 numerics."""
+    return StableHLOPredictor(prefix, quantized=quantized, device=device)
+
+
+# -------------------------------------------------------------- generation
 
 def _pow2_family(cap):
     """Powers of two up to (and always including) ``cap``."""
@@ -124,7 +479,7 @@ def export_generation(model, params, prefix, page_size=None,
     batch = decode_batch or _config.get("serving.decode_slots")
     meta = {
         "format": FORMAT,
-        "format_version": FORMAT_VERSION,
+        "format_version": GENERATE_FORMAT_VERSION,
         "param_names": sorted(state),
         "input_dtype": "int32",
         "generate": True,
@@ -167,10 +522,10 @@ class GenerationPredictor:
             raise ValueError("artifact %r is not a %s artifact (format %r)"
                              % (prefix, FORMAT, self.meta.get("format")))
         self.format_version = int(self.meta["format_version"])
-        if self.format_version > FORMAT_VERSION:
+        if self.format_version > GENERATE_FORMAT_VERSION:
             raise ValueError(
                 "artifact %r is format v%d, newer than this build's v%d"
-                % (prefix, self.format_version, FORMAT_VERSION))
+                % (prefix, self.format_version, GENERATE_FORMAT_VERSION))
         if not self.meta.get("generate", False):
             raise ValueError("artifact %r carries no generation programs"
                              % (prefix,))

@@ -42,9 +42,13 @@ One :class:`GenerationEngine` thread per generation model:
   with DeadlineExceededError and never prefill; an open breaker fails
   fast (CircuitOpenError).
 
-Not ported yet: the reference's restart supervisor (a crashed engine here
-fails its requests and stays dead), the watchdog stall probe and tracing
-spans.
+* **Supervision** — an engine-loop crash fails the queued and in-flight
+  requests with the causal exception, counts ``serving.batcher_crashes``
+  and restarts the loop under ``resilience.call_with_retry``'s budget
+  (the ``resilience.retry_*`` knobs); once it is spent the engine is dead
+  and submits fail fast.
+
+Not ported yet: the watchdog stall probe and tracing spans.
 
 Telemetry: ``serving.tokens_generated[.model]``, ``serving.requests``,
 ``serving.kv_pool_exhausted[.model]``, ``serving.prefix_hits`` counters;
@@ -72,6 +76,11 @@ from .serving import (CircuitOpenError, DeadlineExceededError,
 __all__ = ["GenerationEngine"]
 
 _LOG = logging.getLogger("mxnet_tpu_torch.generation")
+
+
+class _EngineCrashError(OSError):
+    """Internal: wraps an engine-loop crash so
+    ``resilience.call_with_retry`` drives the restart backoff."""
 
 
 class _GenRequest:
@@ -188,7 +197,7 @@ class GenerationEngine:
             self._dead = None
             self._started = True
             self._thread = threading.Thread(
-                target=self._run_engine, daemon=True,
+                target=self._supervise, daemon=True,
                 name="mx-serving-generate-%s" % self.name)
         self._thread.start()
         return self
@@ -301,19 +310,48 @@ class GenerationEngine:
         return req.future
 
     # ----------------------------------------------------------- the loop
+    def _supervise(self):
+        """The engine thread: ``_loop`` under the ``resilience`` retry
+        budget; once it is spent the engine is marked dead, its queue
+        fails with the causal exception and submits fail fast."""
+        from . import resilience as _resilience
+        try:
+            _resilience.call_with_retry(self._run_engine,
+                                        kind="serving_batcher")
+        except BaseException as exc:  # noqa: BLE001 — budget exhausted
+            cause = exc.__cause__ if exc.__cause__ is not None else exc
+            with self._cond:
+                self._dead = cause
+                queued = list(self._queue)
+                self._queue.clear()
+                self._cond.notify_all()
+            self._fail_all(queued, cause)
+            _LOG.error(
+                "serving: generation engine %r crashed and exhausted its "
+                "restart budget (%s: %s); submits now fail fast",
+                self.name, type(cause).__name__, cause)
+
     def _run_engine(self):
+        """One supervised incarnation of the loop: a crash fails every
+        queued and in-flight request with the causal exception (the pool
+        is rebuilt zeroed), counts ``serving.batcher_crashes`` and
+        re-raises as a retryable wrapper."""
         try:
             self._loop()
-        except Exception as exc:  # noqa: BLE001 — engine thread boundary
+        except BaseException as exc:  # noqa: BLE001 — supervised crash
             _telemetry.counter("serving.batcher_crashes").inc()
-            _LOG.exception("serving: generation engine %r crashed",
-                           self.name)
             with self._cond:
-                self._dead = exc
                 queued = list(self._queue)
                 self._queue.clear()
             self._fail_all(queued, exc)
             self._fail_active(exc)
+            _LOG.warning(
+                "serving: generation engine %r crashed (%s: %s); "
+                "restarting under the resilience retry budget",
+                self.name, type(exc).__name__, exc)
+            raise _EngineCrashError(
+                "generation engine crashed: %s: %s"
+                % (type(exc).__name__, exc)) from exc
 
     def _active(self):
         return [s for s in self._slots if s is not None]

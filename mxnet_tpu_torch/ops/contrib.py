@@ -18,8 +18,17 @@ not carried over:
   rows and columns) instead of masking the whole map per bin.
 
 Outputs keep the reference's static shapes: a suppressed row keeps its
-place with score -1 (class id -1 in ``MultiBoxDetection``).  The
-quantization primitives of the same reference file are not ported yet.
+place with score -1 (class id -1 in ``MultiBoxDetection``).
+
+The quantization primitives (``_contrib_quantize_v2``,
+``_contrib_dequantize``, ``_sim_quant``, and the REAL int8
+``_contrib_quantized_fully_connected`` / ``_contrib_quantized_conv``)
+quantize as the reference does: ``s = 127 / max(amax, 1e-12)``, then
+``clip(round(x * s), -127, 127)`` (half to even, as ``jnp.round``), every
+division between tensors (the card divides by a Python scalar as a
+product with its reciprocal).  Their int8 products are
+``ops.int8.int8_matmul`` / ``int8_conv``: ``torch._int_mm`` on CUDA
+tensors, exact int32 ``torch.mm`` on the CPU.
 """
 from __future__ import annotations
 
@@ -383,4 +392,113 @@ def _multibox_detection(cls_prob, loc_pred, anchor, clip=True,
     out = nms_rows(rows, 0.0, nms_threshold, int(nms_topk), 1, 2, 0,
                    bool(force_suppress))
     out[..., 0] = torch.where(out[..., 1] > 0, out[..., 0], neg1)
+    return out
+
+
+# ----------------------------------------------------- quantization primitives
+# (reference ``mxnet_tpu/ops/contrib.py:264-360``)
+
+def _f32(v, like):
+    """``v`` (a number or tensor) as an f32 tensor on ``like``'s device."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=like.device, dtype=torch.float32)
+    return torch.tensor(float(v), dtype=torch.float32, device=like.device)
+
+
+def quant_scale(amax):
+    """``127 / max(amax, 1e-12)`` in f32, one IEEE division."""
+    amax = amax.to(torch.float32)
+    return torch.full_like(amax, 127.0) / torch.clamp_min(amax, 1e-12)
+
+
+def to_int8(x, scale):
+    """``clip(round(x * scale), -127, 127)`` as int8."""
+    return torch.clamp(torch.round(x * scale), -127, 127).to(torch.int8)
+
+
+@register("_contrib_quantize_v2", aliases=("quantize_v2",),
+          differentiable=False, num_outputs=3)
+def _quantize_v2(data, min_calib_range=None, max_calib_range=None,
+                 out_type="int8", **_):
+    x = data
+    lo = _f32(min_calib_range, x) if min_calib_range is not None \
+        else x.min().to(torch.float32)
+    hi = _f32(max_calib_range, x) if max_calib_range is not None \
+        else x.max().to(torch.float32)
+    amax = torch.maximum(lo.abs(), hi.abs())
+    return to_int8(x, quant_scale(amax)), -amax, amax
+
+
+@register("_contrib_dequantize", aliases=("dequantize",),
+          differentiable=False)
+def _dequantize(data, min_range, max_range, out_type="float32", **_):
+    amax = torch.maximum(_f32(min_range, data).abs(),
+                         _f32(max_range, data).abs())
+    return data.to(torch.float32) * div_exact(amax, 127.0)
+
+
+@register("_sim_quant", differentiable=False)
+def _sim_quant(data, amax=1.0, **_):
+    """Simulated int8: round onto the int8 grid, stay f32 (the scale is
+    the reference's Python double, taken to f32 as JAX's weak typing
+    does)."""
+    s = _f32(127.0 / max(float(amax), 1e-12), data)
+    return torch.clamp(torch.round(data * s), -127, 127) / s
+
+
+def data_scale(x, amax):
+    """The per-tensor scale ``127 / max(amax, 1e-12)`` at ``amax`` (a
+    number or a tensor), or at the tensor's own ``|max|`` where ``amax``
+    is not positive (the dynamic range)."""
+    if isinstance(amax, torch.Tensor):
+        amax = amax.to(torch.float32)
+        amax = torch.where(amax > 0, amax, x.abs().max().to(torch.float32))
+    elif float(amax) > 0:
+        amax = _f32(amax, x)
+    else:
+        amax = x.abs().max().to(torch.float32)
+    return quant_scale(amax)
+
+
+def _to_int8(x, amax):
+    """Symmetric per-tensor int8 at :func:`data_scale`."""
+    s = data_scale(x, amax)
+    return to_int8(x, s), s
+
+
+@register("_contrib_quantized_fully_connected",
+          aliases=("quantized_fully_connected",), differentiable=False)
+def _quantized_fully_connected(data, weight, bias=None, amax_data=1.0,
+                               amax_weight=1.0, num_hidden=None,
+                               no_bias=False, flatten=True, **_):
+    """REAL int8 dense: both operands quantized per tensor, the product
+    in int8 with exact int32 accumulation, rescaled to f32."""
+    from .int8 import int8_matmul
+    x = data.reshape(data.shape[0], -1) if flatten else data
+    xq, sx = _to_int8(x, amax_data)
+    wq, sw = _to_int8(weight, amax_weight)
+    acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), wq)
+    acc = acc.reshape(tuple(xq.shape[:-1]) + (wq.shape[0],))
+    out = acc.to(torch.float32) / (sx * sw)
+    if bias is not None and not no_bias:
+        out = out + bias
+    return out
+
+
+@register("_contrib_quantized_conv", aliases=("quantized_conv",),
+          differentiable=False)
+def _quantized_conv(data, weight, bias=None, amax_data=1.0, amax_weight=1.0,
+                    kernel=None, stride=None, dilate=None, pad=None,
+                    num_filter=None, num_group=1, no_bias=False, layout=None,
+                    **_):
+    """REAL int8 convolution with exact int32 accumulation."""
+    from .int8 import int8_conv
+    ndim = data.dim() - 2
+    xq, sx = _to_int8(data, amax_data)
+    wq, sw = _to_int8(weight, amax_weight)
+    acc = int8_conv(xq, wq, stride, pad if pad is not None else 0, dilate,
+                    int(num_group))
+    out = acc.to(torch.float32) / (sx * sw)
+    if bias is not None and not no_bias:
+        out = out + bias.reshape((1, -1) + (1,) * ndim)
     return out

@@ -8,15 +8,25 @@ Each op keeps the reference's op order and static output shapes
 (``Proposal`` returns ``rpn_post_nms_top_n`` rows an image, suppressed
 ones zero), batched over the ROIs with tensor ops where the reference
 ``vmap``s; ``Proposal``'s NMS is ``kernels.box_nms`` through
-``contrib.nms_rows``.  The quantized ops and the other contrib ops of the
-same reference file are not ported yet.
+``contrib.nms_rows``.
+
+The int8 graph ops around the quantized FC and convolution
+(``_contrib_quantize``, ``requantize``, ``quantized_act``,
+``quantized_flatten``, ``quantized_concat``, ``quantized_elemwise_add``,
+``quantized_pooling``, ``quantized_batch_norm`` and
+``calibrate_entropy``; reference ``contrib_extra.py:212-350``) keep the
+reference's symmetric ranges and ``(out, min, max)`` outputs, in its op
+order: every division between tensors (``contrib.div_exact`` for a
+constant divisor) and the square root rounded once (``sqrt_rn``).  The
+other contrib ops of the same reference file are not ported yet.
 """
 from __future__ import annotations
 
 import numpy as _np
 import torch
 
-from .contrib import _batch_index, div_exact, nms_rows
+from .contrib import (_batch_index, _f32, div_exact, nms_rows,
+                      quant_scale, to_int8)
 from .registry import register
 
 __all__ = []
@@ -311,3 +321,142 @@ def _rroi_align(data, rois, pooled_size=(1, 1), spatial_scale=1.0, **_):
     iy = per_roi(cy) + lx * per_roi(sin) + ly * per_roi(cos)
     ch = torch.arange(C, device=dev)[None, :, None, None]
     return _tap_bilinear(data, b, ch, iy, ix)
+
+
+# ------------------------------------------------------------ quantization
+
+def _range_pair(min_range, max_range, like):
+    amax = torch.maximum(_f32(min_range, like).abs(),
+                         _f32(max_range, like).abs())
+    return -amax, amax
+
+
+@register("_contrib_quantize", aliases=("quantize",), differentiable=False,
+          num_outputs=3)
+def _quantize(data, min_range, max_range, out_type="int8", **_):
+    """f32 -> int8 at an explicit range (reference quantize.cc)."""
+    lo, hi = _range_pair(min_range, max_range, data)
+    return to_int8(data, quant_scale(hi)), lo.reshape(1), hi.reshape(1)
+
+
+@register("_contrib_requantize", aliases=("requantize",),
+          differentiable=False, num_outputs=3)
+def _requantize(data, min_range, max_range, min_calib_range=None,
+                max_calib_range=None, **_):
+    """int32 accumulator -> int8 at a (re)calibrated range (reference
+    requantize.cc)."""
+    x = data.to(torch.float32)
+    _, hi32 = _range_pair(min_range, max_range, x)
+    real = x * div_exact(hi32, 2147483647.0)
+    if min_calib_range is not None and max_calib_range is not None:
+        lo, hi = _range_pair(min_calib_range, max_calib_range, x)
+    else:
+        hi = real.abs().max()
+        lo = -hi
+    return to_int8(real, quant_scale(hi)), lo.reshape(1), hi.reshape(1)
+
+
+@register("_contrib_quantized_act", aliases=("quantized_act",),
+          differentiable=False, num_outputs=3)
+def _quantized_act(data, min_data, max_data, act_type="relu", **_):
+    """int8 activation (reference quantized_activation.cc): relu keeps
+    the int8 grid; the range's low end clips at zero."""
+    _, hi = _range_pair(min_data, max_data, data)
+    if act_type == "relu":
+        return (torch.clamp_min(data, 0),
+                torch.zeros(1, dtype=torch.float32, device=data.device),
+                hi.reshape(1))
+    raise ValueError("quantized_act supports relu only (reference parity)")
+
+
+@register("_contrib_quantized_flatten", aliases=("quantized_flatten",),
+          differentiable=False, num_outputs=3)
+def _quantized_flatten(data, min_data, max_data, **_):
+    lo, hi = _range_pair(min_data, max_data, data)
+    return data.reshape(data.shape[0], -1), lo.reshape(1), hi.reshape(1)
+
+
+@register("_contrib_quantized_concat", aliases=("quantized_concat",),
+          differentiable=False, num_outputs=3)
+def _quantized_concat(*args, dim=1, num_args=None, **_):
+    """int8 concat (reference quantized_concat.cc): N data tensors, then
+    N mins and N maxes; every part is rescaled to the widest range."""
+    n = int(num_args) if num_args is not None else len(args) // 3
+    datas = [a.to(torch.float32) for a in args[:n]]
+    like = datas[0]
+    amaxs = [torch.maximum(_f32(lo, like).abs().max(),
+                           _f32(hi, like).abs().max())
+             for lo, hi in zip(args[n:2 * n], args[2 * n:3 * n])]
+    amax = amaxs[0]
+    for a in amaxs[1:]:
+        amax = torch.maximum(amax, a)
+    parts = [torch.clamp(torch.round(d * (a / torch.clamp_min(amax, 1e-12))),
+                         -127, 127) for d, a in zip(datas, amaxs)]
+    out = torch.cat(parts, dim=int(dim)).to(torch.int8)
+    return out, (-amax).reshape(1), amax.reshape(1)
+
+
+@register("_contrib_quantized_elemwise_add",
+          aliases=("quantized_elemwise_add",), differentiable=False,
+          num_outputs=3)
+def _quantized_elemwise_add(lhs, rhs, min_lhs, max_lhs, min_rhs, max_rhs,
+                            **_):
+    """int8 add with the ranges merged (reference
+    quantized_elemwise_add.cc)."""
+    _, ah = _range_pair(min_lhs, max_lhs, lhs)
+    _, bh = _range_pair(min_rhs, max_rhs, lhs)
+    fa = lhs.to(torch.float32) * div_exact(ah, 127.0)
+    fb = rhs.to(torch.float32) * div_exact(bh, 127.0)
+    amax = ah + bh
+    return (to_int8(fa + fb, quant_scale(amax)), (-amax).reshape(1),
+            amax.reshape(1))
+
+
+@register("_contrib_quantized_pooling", aliases=("quantized_pooling",),
+          differentiable=False, num_outputs=3)
+def _quantized_pooling(data, min_data, max_data, kernel=(2, 2),
+                       pool_type="max", stride=None, pad=None,
+                       global_pool=False, **_):
+    """int8 pooling (reference quantized_pooling.cc): max stays on the
+    int8 grid; avg averages in f32 and rounds again."""
+    from .nn import _pooling
+    lo, hi = _range_pair(min_data, max_data, data)
+    out = _pooling(data.to(torch.float32), kernel=kernel,
+                   pool_type=pool_type, stride=stride, pad=pad,
+                   global_pool=global_pool)
+    if pool_type != "max":
+        out = torch.round(out)
+    return (torch.clamp(out, -127, 127).to(torch.int8), lo.reshape(1),
+            hi.reshape(1))
+
+
+@register("_contrib_quantized_batch_norm",
+          aliases=("quantized_batch_norm",), differentiable=False,
+          num_outputs=3)
+def _quantized_batch_norm(data, gamma, beta, moving_mean, moving_var,
+                          min_data, max_data, eps=1e-3, **_):
+    """int8 inference BatchNorm (reference quantized_batch_norm.cc): the
+    affine transform in f32, the output range recalibrated."""
+    from .cuda_kernels import sqrt_rn
+    _, hi = _range_pair(min_data, max_data, data)
+    x = data.to(torch.float32) * div_exact(hi, 127.0)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    y = (x - moving_mean.reshape(shape)) \
+        / sqrt_rn(moving_var.reshape(shape) + eps) \
+        * gamma.reshape(shape) + beta.reshape(shape)
+    amax = y.abs().max()
+    return (to_int8(y, quant_scale(amax)), (-amax).reshape(1),
+            amax.reshape(1))
+
+
+@register("_contrib_calibrate_entropy", aliases=("calibrate_entropy",),
+          differentiable=False, num_outputs=2)
+def _calibrate_entropy(hist, hist_edges, num_quantized_bins=255, **_):
+    """KL-divergence threshold calibration (reference calibrate.cc): the
+    host-side search of ``contrib.quantization._kl_threshold``."""
+    from ..contrib.quantization import _kl_threshold
+    t = _kl_threshold(hist.detach().cpu().numpy(),
+                      hist_edges.detach().cpu().numpy(),
+                      int(num_quantized_bins))
+    return (torch.tensor([-t], dtype=torch.float32, device=hist.device),
+            torch.tensor([t], dtype=torch.float32, device=hist.device))

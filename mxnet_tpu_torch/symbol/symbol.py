@@ -669,13 +669,16 @@ def _is_aux_name(name):
     return name.endswith(_AUX_SUFFIXES)
 
 
-def _eval_symbol(sym, env, training, aux_updates=None, apply=None):
+def _eval_symbol(sym, env, training, aux_updates=None, apply=None,
+                 overrides=None):
     """Interpret the DAG on tensors; ``env`` maps variable names to
     tensors.  Returns the list of head outputs; under ``training`` the
     aux write-backs land in ``aux_updates`` when it is given.  ``apply(op,
     inputs, attrs)``, when given, runs each op instead of its function
     (``SymbolBlock`` passes ``registry.apply_op`` over NDArrays); the aux
-    write-backs are tensors either way."""
+    write-backs are tensors either way.  ``overrides`` maps a node's id to
+    the function that runs in its place (a loaded int8 artifact's
+    recolored sites)."""
     cache = {}
 
     def value(node, index=0):
@@ -695,8 +698,13 @@ def _eval_symbol(sym, env, training, aux_updates=None, apply=None):
             if node.op in _TRAIN_MODE_OPS:
                 # the executor's is_train decides, not an attr baked in
                 attrs["training"] = training
-            res = _registry.get(node.op).fn(*vals, **attrs) \
-                if apply is None else apply(node.op, vals, attrs)
+            fn = overrides.get(id(node)) if overrides else None
+            if fn is not None:
+                res = fn(*vals, **attrs)
+            elif apply is None:
+                res = _registry.get(node.op).fn(*vals, **attrs)
+            else:
+                res = apply(node.op, vals, attrs)
             outs = list(res) if isinstance(res, (tuple, list)) else [res]
             for i, o in enumerate(outs):
                 cache[(id(node), i)] = o

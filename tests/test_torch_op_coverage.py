@@ -31,25 +31,16 @@ REF_OPS = {n: op for n, op in _REGISTRY.items()
 # the reference module that registers them and the slice (ROADMAP queue 1)
 # that ports them
 UNPORTED_OPS = {
-    # slice 13 (quantization)
-    "contrib": {"_contrib_dequantize",
-                "_contrib_quantize_v2", "_contrib_quantized_conv",
-                "_contrib_quantized_fully_connected", "_sim_quant"},
-    # slices 13 (quantization) and 16 (the rest)
+    # slice 16 (the rest)
     "contrib_extra": {
         "_contrib_allclose", "_contrib_arange_like",
-        "_contrib_calibrate_entropy", "_contrib_count_sketch",
-        "_contrib_edge_id", "_contrib_getnnz", "_contrib_hawkesll",
-        "_contrib_index_array", "_contrib_index_copy", "_contrib_quadratic",
-        "_contrib_quantize", "_contrib_quantized_act",
-        "_contrib_quantized_batch_norm", "_contrib_quantized_concat",
-        "_contrib_quantized_elemwise_add", "_contrib_quantized_flatten",
-        "_contrib_quantized_pooling", "_contrib_requantize"},
+        "_contrib_count_sketch", "_contrib_edge_id", "_contrib_getnnz",
+        "_contrib_hawkesll", "_contrib_index_array", "_contrib_index_copy",
+        "_contrib_quadratic"},
     # slice 16 (CustomOp, `operator.py`)
     "operator": {"Custom"},
 }
-SLICE_OF_MODULE = {"contrib": "13",
-                   "contrib_extra": "13 and 16", "operator": "16"}
+SLICE_OF_MODULE = {"contrib_extra": "16", "operator": "16"}
 
 # the array API names the reference has and the port does not, by slice
 UNPORTED_API = {
@@ -66,16 +57,15 @@ UNPORTED_API = {
                    "dgl_graph_compact": "16", "dgl_subgraph": "16"},
 }
 
-_RESILIENCE_REST = ("CheckpointManager", "FaultRule", "InjectedFault",
-                    "MANIFEST_SCHEMA", "NonFiniteStepError", "all_finite",
-                    "clear_preempt", "configure_faults", "configure_retry",
+_RESILIENCE_REST = ("CheckpointManager", "MANIFEST_SCHEMA",
+                    "NonFiniteStepError", "all_finite", "clear_preempt",
                     "configure_preemption", "exit_on_preempt",
-                    "faults_active", "flush_sinks", "guarded_streak",
-                    "inject", "manifest_path", "maybe_abort_nonfinite",
-                    "nanguard_mode", "nonfinite_stats", "note_finite",
-                    "parse_faults", "poison_batch", "preempt_requested",
-                    "report_nonfinite", "reset_nanguard", "select_tree",
-                    "should_inject", "verify_checkpoint", "write_manifest")
+                    "flush_sinks", "guarded_streak", "manifest_path",
+                    "maybe_abort_nonfinite", "nanguard_mode",
+                    "nonfinite_stats", "note_finite", "poison_batch",
+                    "preempt_requested", "report_nonfinite",
+                    "reset_nanguard", "select_tree", "verify_checkpoint",
+                    "write_manifest")
 # the Gluon, model-zoo, initializer, optimizer, Module, data-pipeline and
 # persistence names the reference has and the port does not, by surface
 # and slice; a surface is a module's public names (its __all__ where it

@@ -171,7 +171,8 @@ def test_predictor_generate_matches_server(served):
 
 def test_typed_errors(served):
     srv = served["srv"]
-    with pytest.raises(NotImplementedError):
+    # a generation artifact refuses the one-shot path, as the reference's
+    with pytest.raises(ValueError, match="GENERATION"):
         srv.register("oneshot", served["prefix"])
     with pytest.raises(mt.serving.ServingError):
         srv.submit("lm", np.zeros((1, 4), np.int32))
