@@ -5,7 +5,7 @@ Usage (from the root of a checkout, one visible CUDA card)::
     python3 chip_smoke.py [--report PATH]
                           [--phase attention|optimizer|module|bert|lm_f32|
                                    generation|ops|zoo|rnn|data|ssd|
-                                   predict]
+                                   predict|dist]
 
 Phases; any failure exits non-zero without the result lines:
 
@@ -422,7 +422,28 @@ Phases; any failure exits non-zero without the result lines:
             on the CPU; (c) ``bench.py`` ``serving_config`` and
             ``quantized_serving_config`` through the port at their sizes
             (BENCH_SRV_*): continuous over sequential, int8 over f32.
-9. summary — a ``{"kernels": [...]}`` line, the card's name and power
+9. dist   — scale-out and the row-sparse embedding, no kernel of its own
+            (the reference's 2-bit codec and dedup are XLA ops): (a)
+            ``bench.py`` ``dlrm_embedding_config`` at its sizes (DLRM_*:
+            a 1,000,000 x 32 table, 256 x 8 Zipf ids) on one rank,
+            sparse route and dense route, DLRM_STEPS counted steps each
+            (K1 once a step; ``capacity`` rows touched a step), the
+            routes' weights within DLRM_ROUTE_ATOL, untouched rows
+            bitwise, a sparse step's peak memory under the table's
+            bytes, samples/s over DLRM_TIMED_STEPS steps, a profiled
+            window; row-sparse Adam at DLRM_SMALL_VOCAB rows (K3) card
+            against CPU within DLRM_CARD_CPU_ATOL; (b) two gloo ranks
+            sharing cuda:0, started by ``python -m
+            mxnet_tpu_torch.launch`` running this script with
+            ``--dist-worker``: the dist_sync contract on CUDA tensors,
+            the vocab-sharded lookup bitwise the one-rank lookup,
+            DLRM_SMALL_STEPS sharded steps within DLRM_RANKS_ATOL of one
+            rank, the 2-bit compressed step on ``{"dcn": 2}`` bitwise
+            card against CPU (codes and residuals), and which
+            collectives gloo takes on CUDA tensors (GLOO_PROBES); (c) a
+            world-size-1 ``nccl`` group (``--nccl-worker``, beside (b))
+            and one ``all_reduce``.
+10. summary — a ``{"kernels": [...]}`` line, the card's name and power
             limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Numerics: ``torch.backends.cuda.matmul.allow_tf32`` and
@@ -475,6 +496,10 @@ its report as one JSON line, then the card's line and the ok line.
 
 ``--phase predict`` builds nothing and runs phase 8 alone, and prints
 its report as one JSON line, then the card's line and the ok line.
+
+``--phase dist`` builds K1 and K3, runs phase 2's K3 and K1 checks and
+phase 9 alone, and prints the kernels line of K3 and K1, then the card's
+line and the ok line.
 
 ``--phase module`` builds the kernels and runs only phase 7(c), in a
 process no earlier phase has touched, after two A/Bs of the fused step
@@ -7901,6 +7926,23 @@ def _sgd_summary(sgd, sgd_step, by_path):
             "cases": sgd}
 
 
+def _adam_summary(adam, adam_step, by_path):
+    """K3's line of the kernels table: phase 2's checks (``check_adam``)
+    and its launches in each counted run of ``by_path``."""
+    return {"name": "adam_step", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/adam_step.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:518",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(c["max_abs_err"] for c in adam),
+            "differing_elements": sum(sum(c["differing_elements"].values())
+                                      for c in adam),
+            **{k: adam_step[k] for k in (
+                "ms", "device_ms", "call_ms", "plain_ms", "bound_ms",
+                "bound_by", "bound_share", "library_ms",
+                "library_device_ms", "vs_library", "at")},
+            "cases": adam}
+
+
 def _ssd_sgd_launches(ssd):
     """K1's launches in phase ssd's two counted training runs."""
     return {"ssd_train": ssd["train"]["launches"]["sgd_step"],
@@ -8336,6 +8378,574 @@ def predict_phase(mx, np, torch, card, workdir):
     return out
 
 
+# ---------------------------------------------------------- phase dist
+#: ``bench.py`` ``dlrm_embedding_config`` (bench.py:617) at its own sizes
+#: and seeds: a 1,000,000 x 32 f32 table (128 MB), Zipf(1.5) id batches
+#: of 256 x 8 (RandomState(5)), Dense(64, relu) -> Dense(1), L2Loss,
+#: SGD lr 0.05, the net seeded 9, one warm step then 8 steps
+DLRM_VOCAB, DLRM_DIM, DLRM_BATCH, DLRM_SLOTS = 1_000_000, 32, 256, 8
+DLRM_HIDDEN, DLRM_LR, DLRM_STEPS, DLRM_SEED = 64, 0.05, 8, 9
+#: steps of the timed run (the 8 batches in turn), after the counted one:
+#: 8 steps take ~20 ms, too short a window for the host clock
+DLRM_TIMED_STEPS = 64
+#: the reduced vocabulary of the Adam run and of the two-rank run, and
+#: their step count
+DLRM_SMALL_VOCAB, DLRM_SMALL_STEPS, DLRM_ADAM_LR = 100_000, 3, 0.01
+#: the reference's sparse-over-dense samples/s target (bench.py's
+#: docstring): recorded as a target only, never measured as a baseline
+DLRM_TARGET_RATIO = 3.0
+#: sparse route against dense route after DLRM_STEPS SGD steps, max
+#: |difference| of any parameter: the routes round the table update
+#: differently (K1 contracts ``w - lr g`` into one fma, ``step_rows``
+#: rounds twice as the reference's does) and sum the row gradients in
+#: different orders (the card's index_add uses atomics)
+DLRM_ROUTE_ATOL = 1e-5
+#: Adam on the card against Adam on the CPU after DLRM_SMALL_STEPS steps
+#: (the card's GEMMs and atomics sum in other orders; K3 is bitwise its
+#: plain version)
+DLRM_CARD_CPU_ATOL = 1e-5
+#: two gloo ranks on cuda:0 against one rank after DLRM_SMALL_STEPS SGD
+#: steps (the all-reduced gradients sum the ranks' partial sums)
+DLRM_RANKS_ATOL = 1e-6
+#: the compressed step's exact-arithmetic model (Dense(1) over 4
+#: features, dyadic inputs): codes and residuals bitwise card against CPU
+DCN_FEAT, DCN_LR, DCN_STEPS = 4, 0.25, 3
+DIST_WORKER_TIMEOUT_S = 600
+#: the device of phase dist(b)'s ranks (a CPU rehearsal sets "cpu")
+DIST_DEVICE = "cuda"
+#: the collectives whose acceptance of CUDA tensors under gloo the
+#: two-rank run probes (the path uses all_reduce, broadcast, all_gather
+#: and barrier, each on the tensor where it lies: none is staged through
+#: host memory)
+GLOO_PROBES = ("all_reduce", "broadcast", "all_gather",
+               "all_gather_into_tensor", "reduce_scatter_tensor")
+
+
+def dlrm_batches(np, steps=None, vocab=None):
+    """``dlrm_embedding_config``'s 8 id batches and labels, in its draw
+    order (the first ``steps``; ids capped at ``vocab``)."""
+    steps = DLRM_STEPS if steps is None else steps
+    vocab = DLRM_VOCAB if vocab is None else vocab
+    rng = np.random.RandomState(5)
+    batches = [np.minimum(rng.zipf(1.5, (DLRM_BATCH, DLRM_SLOTS)), vocab)
+               .astype(np.int32) - 1 for _ in range(8)]
+    labels = [rng.randn(DLRM_BATCH, 1).astype(np.float32)
+              for _ in range(8)]
+    return batches[:steps], labels[:steps]
+
+
+def dlrm_net(mx, vocab, init=None):
+    """The DLRM model under a fresh name scope (so every build names its
+    parameters alike), seeded, with ``init``'s values where given."""
+    import mxnet_tpu_torch.name  # noqa: F401  (loaded lazily)
+    nn = mx.gluon.nn
+    with mx.name.NameManager():
+        net = nn.HybridSequential()
+        with net.name_scope():
+            net.add(nn.Embedding(vocab, DLRM_DIM, sparse_grad=True))
+            net.add(nn.Flatten())
+            net.add(nn.Dense(DLRM_HIDDEN, activation="relu",
+                             in_units=DLRM_SLOTS * DLRM_DIM))
+            net.add(nn.Dense(1, in_units=DLRM_HIDDEN))
+    mx.random.seed(DLRM_SEED)
+    net.initialize(mx.init.Xavier())
+    if init is not None:
+        for name, p in net.collect_params().items():
+            p.set_data(init[name])
+    return net
+
+
+def _dlrm_trainer(mx, net, opt, lr, mesh=None):
+    return mx.parallel.SPMDTrainer(net, mx.gluon.loss.L2Loss(), opt,
+                                   {"learning_rate": lr}, mesh=mesh)
+
+
+def _max_diff(torch, a, b):
+    return float((a.detach().float().cpu()
+                  - b.detach().float().cpu()).abs().max())
+
+
+def _dlrm_route(mx, ck, np, torch, tt, init, sparse, batches, labels):
+    """One route of ``dlrm_embedding_config`` on the card: a warm step on a
+    throwaway trainer, then DLRM_STEPS counted steps from the initial
+    weights (K1 once a step; on the sparse route ``capacity`` rows a
+    step), the weights they leave, one more step's peak memory above
+    the resting level, DLRM_TIMED_STEPS timed steps (samples/s and host
+    ms a step: host clock around steps ending in a synchronize) and a
+    profiled window of two steps (device ms a step, idle share)."""
+    mx.config.set("embedding.sharded", sparse)
+    try:
+        net = dlrm_net(mx, DLRM_VOCAB, init)
+        warm = _dlrm_trainer(mx, net, "sgd", DLRM_LR)
+        warm.step(batches[0], labels[0])
+        torch.cuda.synchronize()
+        del warm
+        tr = _dlrm_trainer(mx, net, "sgd", DLRM_LR)
+        _zero_counts(torch, tt, ck)
+        t0 = time.perf_counter()
+        for d, l in zip(batches, labels):
+            loss = tr.step(d, l)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = dict(ck.LAUNCHES)
+        counters = tt.snapshot()["counters"]
+        assert launches == _want_launches(ck, sgd_step=DLRM_STEPS), launches
+        cap = DLRM_BATCH * DLRM_SLOTS
+        if sparse:
+            for key in ("embedding.rows_touched", "embedding.gathered_rows"):
+                assert counters.get(key) == cap * DLRM_STEPS, (key, counters)
+        after = {n: v.detach().clone() for n, v in tr.params.items()}
+        assert math.isfinite(float(loss))
+        torch.cuda.empty_cache()
+        resting = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr.step(batches[0], labels[0])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - resting
+        t1 = time.perf_counter()
+        for i in range(DLRM_TIMED_STEPS):
+            tr.step(batches[i % len(batches)], labels[i % len(labels)])
+        torch.cuda.synchronize()
+        timed = time.perf_counter() - t1
+        prof = _profile(torch, lambda: [tr.step(d, l) for d, l in
+                                        zip(batches[:2], labels[:2])])
+    finally:
+        mx.config.unset("embedding.sharded")
+    out = {"route": "sparse" if sparse else "dense", "steps": DLRM_STEPS,
+           "counted_run_s": elapsed, "timed_steps": DLRM_TIMED_STEPS,
+           "timed_s": timed,
+           "samples_per_s": DLRM_BATCH * DLRM_TIMED_STEPS / timed,
+           "host_ms_per_step": timed * 1e3 / DLRM_TIMED_STEPS,
+           "launches": launches, "loss": float(loss),
+           "step_peak_bytes_above_resting": peak,
+           "resting_bytes": resting, "profile": prof}
+    if "device_busy_ms" in prof:
+        out["device_ms_per_step"] = prof["device_busy_ms"] / 2
+        out["idle_share"] = prof["idle_share"]
+    if sparse:
+        out["rows_touched"] = counters["embedding.rows_touched"]
+    return out, after
+
+
+def _dlrm_adam(mx, ck, np, torch, tt, card):
+    """Row-sparse Adam at DLRM_SMALL_VOCAB rows through K3 (the MLP) and
+    ``Adam.step_rows`` (the table): DLRM_SMALL_STEPS steps on the card
+    and on the CPU from the same weights, held within
+    DLRM_CARD_CPU_ATOL."""
+    batches, labels = dlrm_batches(np, DLRM_SMALL_STEPS, DLRM_SMALL_VOCAB)
+    init = {n: p.data()._data.detach().clone() for n, p in dlrm_net(
+        mx, DLRM_SMALL_VOCAB).collect_params().items()}
+    net = dlrm_net(mx, DLRM_SMALL_VOCAB, init)
+    tr = _dlrm_trainer(mx, net, "adam", DLRM_ADAM_LR)
+    _zero_counts(torch, tt, ck)
+    for d, l in zip(batches, labels):
+        tr.step(d, l)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    assert launches == _want_launches(ck, adam_step=DLRM_SMALL_STEPS), \
+        launches
+    with mx.cpu():
+        cpu_net = dlrm_net(mx, DLRM_SMALL_VOCAB,
+                           {n: v.cpu() for n, v in init.items()})
+        cpu_tr = _dlrm_trainer(mx, cpu_net, "adam", DLRM_ADAM_LR,
+                               mesh=mx.parallel.make_mesh({"dp": 1},
+                                                          [mx.cpu()]))
+        for d, l in zip(batches, labels):
+            cpu_tr.step(d, l)
+    err = {n.split("_", 1)[1]: _max_diff(torch, tr.params[n],
+                                         cpu_tr.params[n])
+           for n in tr.params}
+    assert max(err.values()) <= DLRM_CARD_CPU_ATOL, err
+    out = {"vocab": DLRM_SMALL_VOCAB, "steps": DLRM_SMALL_STEPS,
+           "lr": DLRM_ADAM_LR, "launches": launches,
+           "card_vs_cpu_max_abs": err, "bound": DLRM_CARD_CPU_ATOL,
+           "card": card}
+    _log("[dist-adam] %s" % json.dumps(out))
+    return out
+
+
+def _start_group(cmd):
+    """Start ``cmd`` in a session of its own (the launcher and its
+    ranks)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+
+
+def _finish_group(proc, timeout):
+    """``(returncode, stdout, stderr)`` of a started group; on a timeout
+    the whole session is killed and the timeout raised."""
+    import signal
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return proc.returncode, out, err
+
+
+def _run_group(cmd, timeout):
+    return _finish_group(_start_group(cmd), timeout)
+
+
+def _dist_ranks(mx, np, torch, workdir, card):
+    """Phase dist(b): two gloo ranks sharing cuda:0, started by the
+    port's launcher, held against one rank on the same global batches:
+    the dist_sync contract on CUDA tensors, DLRM_SMALL_STEPS steps of
+    the DLRM model at DLRM_SMALL_VOCAB rows with the table sharded on the
+    vocab axis (lookup bitwise the one-rank lookup, weights within
+    DLRM_RANKS_ATOL), a 2-bit compressed step on ``{"dcn": 2}`` whose
+    codes and residuals are bitwise the same step's on the CPU, and which
+    collectives gloo takes on CUDA tensors."""
+    batches, labels = dlrm_batches(np, DLRM_SMALL_STEPS, DLRM_SMALL_VOCAB)
+    net = dlrm_net(mx, DLRM_SMALL_VOCAB)
+    init = {n: p.data()._data.detach().clone() for n, p in
+            net.collect_params().items()}
+    tr = _dlrm_trainer(mx, net, "sgd", DLRM_LR)
+    for d, l in zip(batches, labels):
+        tr.step(d, l)
+    tr.sync()
+    one = {n: p.data()._data.detach() for n, p in
+           net.collect_params().items()}
+    for r in range(2):
+        stale = os.path.join(workdir, "dist_rank%d.json" % r)
+        if os.path.exists(stale):
+            os.remove(stale)
+    path = os.path.join(workdir, "dist_inputs.npz")
+    np.savez(path, **{"init/" + n: v.cpu().numpy() for n, v in init.items()})
+    t0 = time.perf_counter()
+    rc, out, err = _run_group(
+        [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n", "2",
+         sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--dist-worker", workdir], DIST_WORKER_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError("two-rank run failed (rc %d):\n%s\n%s"
+                             % (rc, out[-4000:], err[-8000:]))
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(workdir, "dist_rank%d.json" % r)) as f:
+            ranks.append(json.load(f))
+    got = dict(np.load(os.path.join(workdir, "dist_params.npz")))
+    err_ = {n.split("_", 1)[1]: _max_diff(torch, torch.from_numpy(got[n]),
+                                          one[n]) for n in one}
+    assert max(err_.values()) <= DLRM_RANKS_ATOL, err_
+    backends = [line for line in err.splitlines()
+                if "mxnet_tpu_torch.parallel: rank" in line]
+    assert len(backends) == 2 and all("backend gloo" in b
+                                      for b in backends), backends
+    res = {"seconds": seconds, "ranks": ranks, "backend_lines": backends,
+           "vs_one_rank_max_abs": err_, "bound": DLRM_RANKS_ATOL,
+           "card": card}
+    _log("[dist-ranks] %s" % json.dumps(res))
+    return res
+
+
+def _start_nccl():
+    """Phase dist(c): a world-size-1 ``nccl`` group on cuda:0 and one
+    ``all_reduce``, in a process of its own, started now (it runs beside
+    phase dist(b)) and read by :func:`_dist_nccl`."""
+    return time.perf_counter(), _start_group(
+        [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n", "1",
+         sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--nccl-worker"])
+
+
+def _dist_nccl(started):
+    t0, proc = started
+    rc, out, err = _finish_group(proc, DIST_WORKER_TIMEOUT_S)
+    if rc != 0:
+        raise AssertionError("nccl run failed (rc %d):\n%s\n%s"
+                             % (rc, out[-4000:], err[-8000:]))
+    line = next(line for line in out.splitlines()
+                if line.startswith("NCCL_OK "))
+    res = json.loads(line.split(" ", 1)[1])
+    res["seconds"] = time.perf_counter() - t0
+    assert res["backend"] == "nccl", res
+    _log("[dist-nccl] %s" % json.dumps(res))
+    return res
+
+
+def dist_phase(mx, ck, np, torch, card, workdir):
+    """Phase dist: (a) ``bench.py``'s ``dlrm_embedding_config`` on one
+    rank, sparse and dense routes, and row-sparse Adam card against CPU;
+    (b) two gloo ranks on cuda:0 through the port's launcher; (c) a
+    one-card NCCL group."""
+    from mxnet_tpu_torch import telemetry as tt
+    t0 = time.perf_counter()
+    batches, labels = dlrm_batches(np)
+    init = {n: p.data()._data.detach().clone() for n, p in
+            dlrm_net(mx, DLRM_VOCAB).collect_params().items()}
+    runs, after = {}, {}
+    for sparse in (True, False):
+        key = "sparse" if sparse else "dense"
+        runs[key], after[key] = _dlrm_route(mx, ck, np, torch, tt, init,
+                                            sparse, batches, labels)
+        _log("[dist-dlrm] %s" % json.dumps(
+            {k: v for k, v in runs[key].items() if k != "profile"}))
+    route_err = {n.split("_", 1)[1]: _max_diff(torch, after["sparse"][n],
+                                               after["dense"][n])
+                 for n in after["sparse"]}
+    assert max(route_err.values()) <= DLRM_ROUTE_ATOL, route_err
+    table = next(n for n in init if n.endswith("embedding0_weight"))
+    dev = init[table].device
+    touched = torch.from_numpy(np.unique(np.concatenate(
+        [b.ravel() for b in batches]))).to(dev)
+    untouched = torch.ones(DLRM_VOCAB, dtype=torch.bool, device=dev)
+    untouched[touched] = False
+    moved = _differing(torch, after["sparse"][table][untouched],
+                       init[table][untouched])
+    assert moved == 0, moved
+    table_bytes = DLRM_VOCAB * DLRM_DIM * 4
+    sparse_peak = runs["sparse"]["step_peak_bytes_above_resting"]
+    assert sparse_peak < table_bytes, (sparse_peak, table_bytes)
+    out = {"config": {"source": "bench.py dlrm_embedding_config",
+                      "vocab": DLRM_VOCAB, "dim": DLRM_DIM,
+                      "batch": DLRM_BATCH, "slots": DLRM_SLOTS,
+                      "hidden": DLRM_HIDDEN, "optimizer": "sgd",
+                      "lr": DLRM_LR, "steps": DLRM_STEPS},
+           "card": card,
+           "unique_ratio": float(np.mean([np.unique(b).size / b.size
+                                          for b in batches])),
+           "sparse": runs["sparse"], "dense": runs["dense"],
+           "sparse_over_dense": runs["sparse"]["samples_per_s"]
+           / runs["dense"]["samples_per_s"],
+           "target_sparse_over_dense": DLRM_TARGET_RATIO,
+           "target_is": "the reference's stated target, not a measured "
+                        "baseline",
+           "route_max_abs": route_err, "route_bound": DLRM_ROUTE_ATOL,
+           "untouched_rows": int(untouched.sum()),
+           "untouched_rows_moved": moved, "table_bytes": table_bytes}
+    out["adam"] = _dlrm_adam(mx, ck, np, torch, tt, card)
+    nccl = _start_nccl()
+    try:
+        out["ranks"] = _dist_ranks(mx, np, torch, workdir, card)
+    except BaseException:
+        _finish_group(nccl[1], DIST_WORKER_TIMEOUT_S)  # leave no process
+        raise
+    out["nccl"] = _dist_nccl(nccl)
+    out["seconds"] = time.perf_counter() - t0
+    _log("[dist] %s" % json.dumps(
+        {k: v for k, v in out.items() if k not in ("sparse", "dense",
+                                                   "adam", "ranks")}))
+    return out
+
+
+def _dist_launches(dist):
+    """K1's and K3's launches in phase dist's counted runs."""
+    return ({"dlrm_sparse": dist["sparse"]["launches"]["sgd_step"],
+             "dlrm_dense": dist["dense"]["launches"]["sgd_step"]},
+            {"dlrm_adam_100k": dist["adam"]["launches"]["adam_step"]})
+
+
+def dcn_batches(np, n_ranks, steps=DCN_STEPS):
+    """Dyadic features, labels and weights of the compressed step: every
+    product and sum of it is exact in f32."""
+    rng = np.random.RandomState(1)
+    rows = 4 * n_ranks
+    xs = [rng.randint(-2, 3, (rows, DCN_FEAT)).astype(np.float32) / 2
+          for _ in range(steps)]
+    ys = [rng.randint(-4, 5, (rows, 1)).astype(np.float32) / 4
+          for _ in range(steps)]
+    w = rng.randint(-8, 9, (1, DCN_FEAT)).astype(np.float32) / 8
+    return xs, ys, w, np.array([0.125], np.float32)
+
+
+def _probe_gloo_cuda(torch, tdist, rank):
+    """Which collectives gloo runs on CUDA tensors itself: each is tried
+    once on a small tensor (every rank the same calls, in order) and its
+    outcome recorded."""
+    found = {}
+    x = torch.full((4,), float(rank + 1), device=DIST_DEVICE)
+    calls = {
+        "all_reduce": lambda: tdist.all_reduce(x.clone()),
+        "broadcast": lambda: tdist.broadcast(x.clone(), src=0),
+        "all_gather": lambda: tdist.all_gather(
+            [torch.empty_like(x) for _ in range(2)], x),
+        "all_gather_into_tensor": lambda: tdist.all_gather_into_tensor(
+            torch.empty(8, device=DIST_DEVICE), x),
+        "reduce_scatter_tensor": lambda: tdist.reduce_scatter_tensor(
+            torch.empty(2, device=DIST_DEVICE), x)}
+    for name in GLOO_PROBES:
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+            found[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as exc:
+            found[name] = "%s: %s" % (type(exc).__name__,
+                                      str(exc).splitlines()[0][:160])
+        tdist.barrier()
+    return found
+
+
+def dist_worker(workdir):
+    """One rank of phase dist(b) (``--dist-worker``), on cuda:0 beside the
+    other rank, in a gloo group the launcher's environment names."""
+    import mxnet_tpu_torch as mx
+    with (mx.gpu() if DIST_DEVICE == "cuda" else mx.cpu()):
+        return _dist_worker(mx, workdir)
+
+
+def _dist_worker(mx, workdir):
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    from mxnet_tpu_torch.parallel import embedding as pemb
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = int(os.environ["MXTPU_PROCESS_ID"])
+    n = int(os.environ["MXTPU_NUM_PROCESSES"])
+    dev = torch.device(DIST_DEVICE)
+    # (1) the dist_sync contract of tests/dist_worker.py on CUDA tensors
+    kv = mx.kv.create("dist_sync")    # joins the group
+    assert (kv.rank, kv.num_workers) == (rank, n)
+    assert mx.parallel.dist.backend() == "gloo"
+    expect = float(sum(r + 1 for r in range(n)))
+    for k, shp in {"3": (4, 4), "9": (2, 5, 2)}.items():
+        kv.init(k, mx.nd.ones(shp))
+        for _ in range(2):
+            kv.push(k, mx.nd.ones(shp) * (rank + 1))
+            out = mx.nd.zeros(shp)
+            kv.pull(k, out=out)
+            assert out._data.device.type == dev.type
+            assert bool((out._data == expect).all())
+    total = mx.parallel.host_allreduce(
+        torch.full((3, 2), rank + 1.0, device=dev))
+    assert total.device.type == dev.type and bool((total == expect).all())
+    rows = 4 * n + 4
+    kv.init("emb", mx.nd.zeros((rows, 3)))
+    grad = torch.zeros(rows, 3, device=dev)
+    grad[0] = grad[4 + rank] = rank + 1.0
+    kv.push("emb", mx.nd.array(grad.cpu().numpy()))
+    out = mx.nd.zeros((rows, 3))
+    kv.row_sparse_pull("emb", out=out,
+                       row_ids=mx.nd.array([0, 4 + rank, 4 + rank]))
+    want = torch.zeros(rows, 3, device=dev)
+    want[0], want[4 + rank] = expect, rank + 1.0
+    assert torch.equal(out._data, want)
+    kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+    kv.init("c", mx.nd.zeros((6,)))
+    res = torch.zeros(6, device=dev)
+    g = torch.full((6,), 0.3, device=dev)
+    from mxnet_tpu_torch.parallel.compression import two_bit_compress
+    for _ in range(3):
+        codes, res = two_bit_compress(g, res, 0.5)
+        kv.push("c", mx.nd.array(g.cpu().numpy()))
+        out = mx.nd.zeros((6,))
+        kv.pull("c", out=out)
+        assert torch.equal(out._data, n * codes.float() * 0.5)
+    kv.barrier()
+    # (2) the vocab-sharded lookup, bitwise the one-rank lookup
+    gen = torch.Generator(device=dev).manual_seed(3)
+    full = torch.randn(DLRM_SMALL_VOCAB, DLRM_DIM, device=dev,
+                       generator=gen)
+    full[7] = -0.0
+    ids = torch.randint(0, DLRM_SMALL_VOCAB, (2048,), device=dev,
+                        generator=gen)
+    ids[:3] = torch.tensor([7, DLRM_SMALL_VOCAB, DLRM_SMALL_VOCAB + 5])
+    uniq, _ = pemb.dedup_ids(ids, ids.numel(), DLRM_SMALL_VOCAB)
+    mesh = mx.parallel.make_mesh({"dp": n})
+    per = DLRM_SMALL_VOCAB // n
+    got = pemb.lookup_unique(full[rank * per:(rank + 1) * per], uniq, mesh,
+                             "dp")
+    lookup_differing = _differing(torch, got, pemb.lookup_unique(full, uniq))
+    assert lookup_differing == 0, lookup_differing
+    # (3) the DLRM model at DLRM_SMALL_VOCAB over {"dp": n}, the table
+    # sharded on the vocab axis, from the parent's initial weights
+    inp = np.load(os.path.join(workdir, "dist_inputs.npz"))
+    init = {k[len("init/"):]: torch.from_numpy(inp[k]).to(dev)
+            for k in inp.files if k.startswith("init/")}
+    batches, labels = dlrm_batches(np, DLRM_SMALL_STEPS, DLRM_SMALL_VOCAB)
+    net = dlrm_net(mx, DLRM_SMALL_VOCAB, init)
+    tr = _dlrm_trainer(mx, net, "sgd", DLRM_LR, mesh=mesh)
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    ck.reset_launches()
+    for d, l in zip(batches, labels):
+        tr.step(d, l)
+    torch.cuda.synchronize()
+    k1 = ck.LAUNCHES["sgd_step"]
+    table = next(k for k in init if k.endswith("embedding0_weight"))
+    shard_rows = int(tr.params[table].shape[0])
+    assert shard_rows == per, shard_rows
+    tr.sync()
+    if rank == 0:
+        np.savez(os.path.join(workdir, "dist_params.npz"),
+                 **{k: p.data()._data.detach().cpu().numpy()
+                    for k, p in net.collect_params().items()})
+    # (4) the 2-bit compressed step on {"dcn": n}, card and CPU
+    xs, ys, w0, b0 = dcn_batches(np, n)
+    mx.config.set("kvstore.grad_compress", "2bit")
+    seen = {}
+    try:
+        for where, devices in (("card", None), ("cpu", [mx.cpu()] * n)):
+            with mx.name.NameManager():
+                dnet = mx.gluon.nn.HybridSequential()
+                with dnet.name_scope():
+                    dnet.add(mx.gluon.nn.Dense(1, in_units=DCN_FEAT))
+            ctx = mx.cpu() if where == "cpu" else mx.current_context()
+            dnet.initialize(ctx=ctx)
+            for name, p in dnet.collect_params().items():
+                p.set_data(mx.nd.array(w0 if name.endswith("weight")
+                                       else b0, ctx=ctx))
+            dtr = _dlrm_trainer(mx, dnet, "sgd", DCN_LR,
+                                mesh=mx.parallel.make_mesh({"dcn": n},
+                                                           devices))
+            steps = []
+            for x, y in zip(xs, ys):
+                dtr.step(x, y)
+                steps.append(([c.cpu() for c in dtr._dcn_codes],
+                              [r.cpu() for r in
+                               dtr._dcn_residuals.values()]))
+            seen[where] = steps
+    finally:
+        mx.config.unset("kvstore.grad_compress")
+    dcn_differing = 0
+    for (card_codes, card_res), (cpu_codes, cpu_res) in zip(seen["card"],
+                                                            seen["cpu"]):
+        dcn_differing += sum(int((a != b).sum())
+                             for a, b in zip(card_codes, cpu_codes))
+        dcn_differing += sum(_differing(torch, a, b)
+                             for a, b in zip(card_res, cpu_res))
+    assert dcn_differing == 0, dcn_differing
+    fired = sum(int(c.abs().sum()) for step in seen["card"]
+                for c in step[0])
+    # (5) which collectives gloo takes on CUDA tensors
+    probes = _probe_gloo_cuda(torch, tdist, rank)
+    mx.parallel.barrier()
+    # each rank's own file: the ranks share the launcher's stdout
+    with open(os.path.join(workdir, "dist_rank%d.json" % rank), "w") as f:
+        json.dump({
+            "rank": rank, "device": str(mx.parallel.dist.device()),
+            "lookup_differing": lookup_differing,
+            "table_shard_rows": shard_rows, "k1_launches": k1,
+            "dcn_codes_residuals_differing": dcn_differing,
+            "dcn_nonzero_codes": fired, "gloo_cuda": probes}, f)
+    tdist.destroy_process_group()
+    return 0
+
+
+def nccl_worker():
+    """Phase dist(c) (``--nccl-worker``): a world-size-1 group on cuda:0,
+    whose backend the rule makes ``nccl``, and one ``all_reduce``."""
+    import torch
+    import torch.distributed as tdist
+    import mxnet_tpu_torch as mx
+    mx.parallel.initialize()
+    x = torch.full((1024,), 3.0, device="cuda")
+    tdist.all_reduce(x)       # through NCCL, not the one-rank shortcut
+    torch.cuda.synchronize()
+    assert bool((x == 3.0).all())
+    mx.parallel.barrier()
+    print("NCCL_OK " + json.dumps({
+        "backend": mx.parallel.dist.backend(), "world": tdist.get_world_size(),
+        "device": str(mx.parallel.dist.device()),
+        "all_reduce_ok": True}), flush=True)
+    tdist.destroy_process_group()
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the full report (JSON) "
@@ -8343,7 +8953,8 @@ def main(argv=None):
     ap.add_argument("--phase", choices=("all", "attention", "optimizer",
                                         "module", "bert", "lm_f32",
                                         "generation", "ops", "zoo", "rnn",
-                                        "data", "ssd", "predict"),
+                                        "data", "ssd", "predict",
+                                        "dist"),
                     default="all",
                     help="attention: the flash forward and backward checks "
                     "of phase 2 alone; optimizer: phase 2's K3 and K1 "
@@ -8371,12 +8982,25 @@ def main(argv=None):
                     "the NMS kernel, the card and ok lines; predict: phase "
                     "8 alone (ResNet-50 served one-shot in f32 and int8, "
                     "bench.py's two serving configs; no kernel built), "
-                    "ending in the card and ok lines")
+                    "ending in the card and ok lines; dist: phase dist "
+                    "alone (bench.py's dlrm_embedding_config sparse and "
+                    "dense, row-sparse Adam card against CPU, two gloo "
+                    "ranks on the card through the port's launcher, a "
+                    "one-card NCCL group), ending in the kernels line for "
+                    "K1 and K3, the card and ok lines")
+    ap.add_argument("--dist-worker", metavar="WORKDIR",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--nccl-worker", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    if args.dist_worker:
+        return dist_worker(args.dist_worker)
+    if args.nccl_worker:
+        return nccl_worker()
     import numpy as np
     import torch.nn.functional as F
     import mxnet_tpu_torch as mx
@@ -8413,7 +9037,8 @@ def main(argv=None):
          "ops": ["sgd_step", "adam_step"],
          "zoo": ["sgd_step"], "rnn": ["adam_step"],
          "data": ["sgd_step", "adam_step"],
-         "ssd": ["sgd_step", "box_nms"], "predict": []}.get(args.phase))
+         "ssd": ["sgd_step", "box_nms"], "predict": [],
+         "dist": ["sgd_step", "adam_step"]}.get(args.phase))
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "per_source_s": {k: v["seconds"]
                                         for k, v in built.items()},
@@ -8597,6 +9222,26 @@ def main(argv=None):
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if args.phase == "dist":
+        adam, adam_step = check_adam(ck, torch)
+        sgd, sgd_step = check_sgd(ck, torch, mx, np)
+        bad = [c for c in adam + sgd if not c["ok"]]
+        if bad:
+            raise AssertionError("kernel disagrees with its plain version: "
+                                 "%s" % json.dumps(bad))
+        report["dist"] = dist_phase(mx, ck, np, torch, card, workdir)
+        dist_sgd, dist_adam = _dist_launches(report["dist"])
+        kernels = [_adam_summary(adam, adam_step, dist_adam),
+                   _sgd_summary(sgd, sgd_step, dist_sgd)]
+        report["kernels"] = kernels
+        _write_report(args.report, report)
+        print(json.dumps({"kernels": [{k: v for k, v in s.items()
+                                       if k != "cases"} for s in kernels]}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.phase == "module":
         report["lr_t_ab"] = lr_t_ab(mx, np, torch)
         report["launch_ab"] = launch_ab(mx, np, torch)
@@ -8649,8 +9294,12 @@ def main(argv=None):
                                     "cudnn_benchmark")})
     report["ssd"] = ssd_phase(mx, ck, np, torch, card, workdir)
     report["predict"] = predict_phase(mx, np, torch, card, workdir)
+    report["dist"] = dist_phase(mx, ck, np, torch, card, workdir)
     data_sgd, data_adam = _data_launches(report["data"])
     data_sgd.update(_ssd_sgd_launches(report["ssd"]))
+    dist_sgd, dist_adam = _dist_launches(report["dist"])
+    data_sgd.update(dist_sgd)
+    data_adam.update(dist_adam)
     module_adam = report["module"]["fused"]["launches"]["adam_step"]
     rnn_adam = {"rnn_bucketing_" + kind: run["launches"]["adam_step"]
                 for kind, run in report["rnn"]["bucketing"].items()}
@@ -8691,32 +9340,11 @@ def main(argv=None):
                  paged32, gen["paged_decode_pool_f32"]),
         _summary("paged_decode_pool_int8_f32q", "paged_attn.cu", pk + "386",
                  paged8q, gen["paged_decode_pool_int8_f32q"]),
-        {"name": "adam_step", "route": "cuda",
-         "source": "mxnet_tpu_torch/csrc/adam_step.cu",
-         "replaces": pk + "518",
-         "launches": (trained["adam_step"] + module_adam + f16_adam
-                      + resnet_adam + bert_adam + lm32["adam_step"]
-                      + sum(rnn_adam.values()) + sum(data_adam.values())),
-         "launches_by_path": dict({"train": trained["adam_step"],
-                                   "module_mlp": module_adam,
-                                   "f16_trainer": f16_adam,
-                                   "resnet_spmd_adam": resnet_adam,
-                                   "bert_adam": bert_adam,
-                                   "lm_f32": lm32["adam_step"]},
-                                  **rnn_adam, **data_adam),
-         "max_abs_err": max(c["max_abs_err"] for c in adam),
-         "differing_elements": sum(sum(c["differing_elements"].values())
-                                   for c in adam),
-         "ms": adam_step["ms"], "device_ms": adam_step["device_ms"],
-         "call_ms": adam_step["call_ms"],
-         "plain_ms": adam_step["plain_ms"],
-         "bound_ms": adam_step["bound_ms"],
-         "bound_by": adam_step["bound_by"],
-         "bound_share": adam_step["bound_share"],
-         "library_ms": adam_step["library_ms"],
-         "library_device_ms": adam_step["library_device_ms"],
-         "vs_library": adam_step["vs_library"], "at": adam_step["at"],
-         "cases": adam},
+        _adam_summary(adam, adam_step, dict(
+            {"train": trained["adam_step"], "module_mlp": module_adam,
+             "f16_trainer": f16_adam, "resnet_spmd_adam": resnet_adam,
+             "bert_adam": bert_adam, "lm_f32": lm32["adam_step"]},
+            **rnn_adam, **data_adam)),
         dict(_sgd_summary(sgd, sgd_step, dict(
             {"resnet": report["resnet"]["launches"]["sgd_step"],
              "f16_trainer": f16_sgd}, **zoo_sgd, **data_sgd)),

@@ -72,7 +72,13 @@ from __future__ import annotations
 
 __version__ = "0.1.0"
 
-from . import config, telemetry
+# old launch scripts start parameter-server roles: such a process exits
+# cleanly here (every process of this package is a worker)
+from .kvstore_server import _init_kvstore_server_module
+_init_kvstore_server_module()
+del _init_kvstore_server_module
+
+from . import config, telemetry  # noqa: E402
 from .base import KernelUnsupportedError, MXNetError, MXNetErrorNoDevice
 from .context import Context, cpu, gpu, num_gpus, current_context
 from . import random, ndarray, autograd, initializer
@@ -82,7 +88,7 @@ from . import kernels, quantization, models, convert, deploy, serving
 from . import generation, optimizer, lr_scheduler, kvstore, gluon, parallel
 from . import metric, io, callback, engine, rtc, symbol, model, module
 from . import executor, executor_manager, runtime, rnn
-from . import recordio, image, compat, resilience, contrib
+from . import recordio, image, compat, resilience, contrib, kvstore_server
 from . import symbol as sym
 from . import module as mod
 from . import kvstore as kv
@@ -96,4 +102,5 @@ __all__ = ["MXNetError", "MXNetErrorNoDevice", "KernelUnsupportedError",
            "lr_scheduler", "kvstore", "kv", "gluon", "parallel", "metric",
            "io", "callback", "engine", "rtc", "symbol", "sym", "model",
            "module", "mod", "executor", "executor_manager", "runtime", "rnn",
-           "recordio", "image", "compat", "resilience", "contrib"]
+           "recordio", "image", "compat", "resilience", "contrib",
+           "kvstore_server"]

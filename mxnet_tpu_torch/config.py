@@ -8,7 +8,9 @@ ResNet training path
 are not ported yet, which the trainer refuses instead of ignoring), the
 engine and symbolic Module knobs, the layer-stack program knobs
 (``runtime.stack_mode``, ``runtime.remat``) of ``runtime.scan_stack``,
-and the data pipeline's (``io.*``).
+the data pipeline's (``io.*``), and the scale-out knobs (2-bit gradient
+compression, ``kvstore.*``; the row-sparse embedding path,
+``embedding.*``).
 
 Every knob has a type, a default, its environment variable and a
 docstring.  ``get`` reads programmatic override > env var > default;
@@ -150,8 +152,31 @@ register_knob(
     "SPMDTrainer and Module raise NotImplementedError when it is set.")
 register_knob(
     "kvstore.grad_compress", "MXNET_TPU_GRAD_COMPRESS", str, "",
-    "gradient-sync wire compression ('2bit'). Not ported; SPMDTrainer "
-    "raises NotImplementedError when it is set.")
+    "gradient-sync wire compression: '2bit' quantizes gradients to "
+    "{-threshold, 0, +threshold} with an error-feedback residual and "
+    "sends the packed codes (4 a byte) in (a) the dist kvstore's push and "
+    "(b) SPMDTrainer's step on meshes with a 'dcn' axis. Telemetry: "
+    "kvstore.compressed_bytes / kvstore.compression_ratio. Empty "
+    "(default) disables.")
+register_knob(
+    "kvstore.grad_compression_threshold",
+    "MXTPU_GRAD_COMPRESSION_THRESHOLD", float, 0.5,
+    "threshold of the 2-bit gradient compression "
+    "(kvstore.set_gradient_compression and kvstore.grad_compress).")
+register_knob(
+    "embedding.sharded", "MXNET_TPU_EMBEDDING_SHARDED", bool, True,
+    "route trainable sparse-grad embedding tables "
+    "(gluon.nn.Embedding(sparse_grad=True)) through SPMDTrainer's "
+    "deduplicated row-sparse path (parallel/embedding.py): table sharded "
+    "on the vocab axis over a multi-rank mesh, ids deduplicated per "
+    "global batch, only touched rows of the table and optimizer state "
+    "rewritten. False = dense table gradient and a full-table optimizer "
+    "step. Read when a trainer is built.")
+register_knob(
+    "embedding.unique_size", "MXNET_TPU_EMBEDDING_UNIQUE_SIZE", int, 0,
+    "static per-batch unique-id capacity of the deduplicated embedding "
+    "lookup: 0 (default) = the batch's id count, always safe; a positive "
+    "cap shrinks the gathered buffers, and ids beyond it are dropped.")
 register_knob(
     "engine.type", "MXNET_ENGINE_TYPE", str, "ThreadedEnginePerDevice",
     "NaiveEngine selects the synchronous debug mode: every mx.nd op waits "
@@ -355,6 +380,26 @@ register_knob(
     "batch to batch_size, 'pow2' (default) to the next power of two rows, "
     "'off' keeps each batch's own row count. DataBatch.pad counts the "
     "fill rows.")
+
+
+def _apply_kvstore_grad_compress(value):
+    if (value or "").strip() not in ("", "2bit"):
+        # reject at set() time and revert: a mistyped codec must not train
+        # uncompressed while claiming otherwise
+        _OVERRIDES.pop("kvstore.grad_compress", None)
+        raise ValueError("kvstore.grad_compress must be '' or '2bit', "
+                         "got %r" % (value,))
+
+
+def _apply_embedding_unique_size(value):
+    if int(value) < 0:
+        _OVERRIDES.pop("embedding.unique_size", None)
+        raise ValueError("embedding.unique_size must be >= 0, got %r"
+                         % (value,))
+
+
+_ON_SET["kvstore.grad_compress"] = _apply_kvstore_grad_compress
+_ON_SET["embedding.unique_size"] = _apply_embedding_unique_size
 
 
 def enable_x64(flag=True):

@@ -1,8 +1,10 @@
 """Basic layers (counterpart of ``mxnet_tpu.gluon.nn.basic_layers``):
 the containers, ``Dense``, ``Dropout``, ``Embedding``, the four norms,
 ``Flatten`` and the two lambdas, each over the registered op of its
-name.  ``Embedding(sparse_grad=True)`` (a row-sparse gradient) raises:
-the sparse arrays are not ported."""
+name.  ``Embedding(sparse_grad=True)`` declares a row-sparse gradient
+(``grad_stype="row_sparse"``): ``SPMDTrainer`` trains such a table on its
+deduplicated row-sparse route (``parallel/embedding.py``); on every other
+path its gradient is dense (the sparse arrays are not ported)."""
 from __future__ import annotations
 
 import math
@@ -249,14 +251,11 @@ class BatchNorm(HybridBlock):
 
 class Embedding(HybridBlock):
     """Rows of a ``(input_dim, output_dim)`` weight at integer ids
-    (reference ``basic_layers.py:415``)."""
+    (reference ``basic_layers.py:415``); ``sparse_grad=True`` declares the
+    weight's gradient row-sparse (module docstring)."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, **kwargs):
-        if sparse_grad:
-            raise NotImplementedError(
-                "Embedding(sparse_grad=True): row-sparse gradients come "
-                "with the sparse arrays, which are not ported")
         super().__init__(**kwargs)
         self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
                         "dtype": dtype, "sparse_grad": sparse_grad}
@@ -264,7 +263,8 @@ class Embedding(HybridBlock):
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim),
                 init=weight_initializer, dtype=dtype,
-                allow_deferred_init=True)
+                allow_deferred_init=True,
+                grad_stype="row_sparse" if sparse_grad else "default")
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, **self._kwargs)

@@ -7,9 +7,13 @@ Parameter's grad buffer, and ``step(batch_size)`` sets
 ``rescale_grad = scale / batch_size``, reduces the gradients through the
 kvstore (``push`` then ``pull``; the identity on one device) and runs the
 optimizer's ``Updater`` on every Parameter whose ``grad_req`` is not
-``'null'``, in the order of the sorted Parameter names.  On one device
-``update_on_kvstore`` defaults to False, as the reference's
-``_create_kvstore`` decides.
+``'null'``, in the order of the sorted Parameter names.
+``update_on_kvstore`` defaults to True for a distributed kvstore
+(``dist_*``: every rank pushes its gradients, the store sums them over
+the ranks and runs the updater on the sum) and to False otherwise, as
+the reference's ``_create_kvstore`` decides.  ``compression_params``
+(``{"type": "2bit", "threshold": t}``) go to the kvstore, whose dist
+push then sends 2-bit codes with error feedback.
 
 ``save_states`` writes the optimizer states and the optimizer to a
 file atomically (``Updater.get_states(dump_optimizer=True)``);
@@ -17,10 +21,9 @@ file atomically (``Updater.get_states(dump_optimizer=True)``);
 numpy arrays and the reference's Optimizer, read without importing the
 reference: ``optimizer.Updater.set_states``).
 
-Not ported, and raising ``NotImplementedError`` when asked for: gradient
-compression, the nanguard and numerics-capture knobs
-(``resilience.nanguard``, ``numerics.capture``) and
-``set_preemption_save``.
+Not ported, and raising ``NotImplementedError`` when asked for: the
+nanguard and numerics-capture knobs (``resilience.nanguard``,
+``numerics.capture``) and ``set_preemption_save``.
 """
 from __future__ import annotations
 
@@ -45,9 +48,6 @@ class Trainer:
             raise ValueError(
                 "First argument must be a list or dict of Parameters, "
                 "got %s." % (type(params)))
-        if compression_params is not None:
-            raise NotImplementedError(
-                "gradient compression is not ported (compression_params)")
         self._params = []
         self._param2idx = {}
         for i, param in enumerate(params):
@@ -57,6 +57,7 @@ class Trainer:
                     "got list of %s." % (type(param)))
             self._param2idx[param.name] = i
             self._params.append(param)
+        self._compression_params = compression_params
         optimizer_params = optimizer_params if optimizer_params else {}
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._init_optimizer(optimizer, optimizer_params)
@@ -91,9 +92,11 @@ class Trainer:
             kv = _create_kvstore(kvstore) if isinstance(kvstore, str) \
                 else kvstore
             if update_on_kvstore is None:
-                # one device: update locally (reference model.py
-                # _create_kvstore)
-                update_on_kvstore = False
+                # update on the store iff it is distributed (reference
+                # model.py _create_kvstore)
+                update_on_kvstore = "dist" in kv.type
+            if self._compression_params:
+                kv.set_gradient_compression(self._compression_params)
             self._kvstore = kv
             self._update_on_kvstore = update_on_kvstore
             if update_on_kvstore:

@@ -220,8 +220,9 @@ class Module(BaseModule):
             else getattr(kvstore, "type", None)
         if kv_type in _DIST_TYPES:
             raise ValueError("kvstore=%r: Module has no parameter-server "
-                             "path; the distributed stores are not ported"
-                             % (kv_type,))
+                             "path; distributed training runs through "
+                             "mx.parallel.SPMDTrainer (torch.distributed "
+                             "ranks over a mesh)" % (kv_type,))
         if kv_type is not None and kv_type not in _LOCAL_TYPES:
             raise ValueError("kvstore=%r is not a recognized mode; expected "
                              "one of %s or None"

@@ -15,6 +15,7 @@ creation ops and samplers draw on the current context's device.
 from __future__ import annotations
 
 import operator
+import threading
 
 import numpy as _np
 import torch
@@ -590,11 +591,33 @@ def _take(a, indices, axis=0, mode="clip", **_):
     return out.reshape(a.shape[:axis] + idx.shape + a.shape[axis + 1:])
 
 
+# SPMDTrainer's sparse-embedding routing (parallel/embedding.py
+# SparseLookupContext), installed for one forward of its step by
+# set_embed_context; thread-local, so a step on one thread never sees
+# another's
+_EMBED_ROUTE = threading.local()
+
+
+def set_embed_context(ctx):
+    """Install ``ctx`` as this thread's Embedding routing context; returns
+    the previous one, for the caller to restore."""
+    prev = getattr(_EMBED_ROUTE, "ctx", None)
+    _EMBED_ROUTE.ctx = ctx
+    return prev
+
+
 @register("Embedding", aliases=("embedding",))
 def _embedding(data, weight, input_dim=None, output_dim=None,
                sparse_grad=False, **_):
-    """Rows of ``weight`` at the ids in ``data``; the weight's gradient is
-    dense (a row-sparse one comes with the sparse storage)."""
+    """Rows of ``weight`` at the ids in ``data``.  Under SPMDTrainer's
+    routing context a ``sparse_grad`` table's lookup is deduplicated and
+    its gradient row-sparse; everywhere else the gradient is dense (a
+    row-sparse NDArray comes with the sparse storage)."""
+    ctx = getattr(_EMBED_ROUTE, "ctx", None)
+    if ctx is not None and sparse_grad:
+        out = ctx.lookup(data, weight)
+        if out is not None:
+            return out
     return F.embedding(as_index(data), weight)
 
 

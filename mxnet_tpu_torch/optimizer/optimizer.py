@@ -138,6 +138,34 @@ def _state_write(state, new):
         _state_write(s, n)
 
 
+def _row_index(rows, n):
+    """``(valid, safe)`` for row ids ``rows`` of an ``n``-row table: which
+    are inside it, and the ids with the outside ones replaced by 0 (an
+    index op never sees an out-of-range row)."""
+    rows = rows.to(torch.int64)
+    valid = (rows >= 0) & (rows < n)
+    return valid, torch.where(valid, rows, torch.zeros_like(rows))
+
+
+def _write_rows(table, valid, safe, vals):
+    """``table[safe[i]] = vals[i]`` for the valid entries, in place; the
+    others are dropped (the reference's out-of-range scatter).  The
+    dropped entries are pointed at the first valid entry's row with its
+    value (or at row 0 with its own value when none is valid), so every
+    write to a row carries the same bits and no duplicate index has a
+    winner to pick.  Index tensors only: no value comes to the host."""
+    shape = (-1,) + (1,) * (vals.dim() - 1)
+    k = torch.argmax(valid.to(torch.uint8)).reshape(1)
+    any_valid = valid.index_select(0, k)
+    zero = torch.zeros_like(k)
+    f_row = torch.where(any_valid, safe.index_select(0, k), zero)
+    f_val = torch.where(any_valid.view(shape), vals.index_select(0, k),
+                        table.index_select(0, zero))
+    idx = torch.where(valid, safe, f_row)
+    src = torch.where(valid.view(shape), vals, f_val)
+    table.index_put_((idx,), src)
+
+
 class Optimizer:
     """Base optimizer (reference: ``optimizer.py:51``).
 
@@ -470,7 +498,9 @@ def _array_state(create_state):
 
 
 def _f32_scalar(x, device):
-    return torch.tensor(float(x), dtype=torch.float32, device=device)
+    """``x`` as a 0-dim f32 tensor on ``device``, made by a fill (no copy
+    from the host, so the host does not wait for the card)."""
+    return torch.full((), float(x), dtype=torch.float32, device=device)
 
 
 register = Optimizer.register
@@ -488,8 +518,9 @@ class SGD(Optimizer):
     rounds each product and sum once, as the reference's eager ``step``
     does; the fused kernel and its plain version contract the two
     multiply-adds, as the reference's compiled step and its Pallas kernel
-    do (``cuda_kernels.fused_sgd_step_plain``).  ``lazy_update`` is
-    accepted for parity (there is no sparse path)."""
+    do (``cuda_kernels.fused_sgd_step_plain``).  ``lazy_update`` marks
+    the lazy row-sparse step :meth:`step_rows`, which ``SPMDTrainer``'s
+    embedding route takes."""
 
     fused_step = True
 
@@ -527,6 +558,28 @@ class SGD(Optimizer):
         _ck.fused_sgd_step_multi(weights, grads, states, lrs, wds,
                                  self.momentum, outs=outs,
                                  table=self._table_of(weights[0]))
+
+    @torch.no_grad()
+    def step_rows(self, weight, rows, grad_rows, state, lr, wd, t):
+        """Lazy row-sparse step (reference ``optimizer.py:347``), in
+        place: only ``rows`` of ``weight`` and of the momentum are read and
+        written, and a row outside the table is dropped.  Rounds as the
+        reference's compiled ``step_rows``: ``g = fma(wd, w, grad)``; then
+        ``w + (-lr * g)``, or with momentum ``m = fma(momentum, m, lr * g)``
+        and ``w + (-m)``.  Returns ``(weight, state)``."""
+        valid, r = _row_index(rows, weight.shape[0])
+        dev = weight.device
+        lr_, wd_ = _f32_scalar(lr, dev), _f32_scalar(wd, dev)
+        w = weight.index_select(0, r)
+        g = _ck._fma(wd_, w, grad_rows.float())
+        if self.momentum == 0.0:
+            _write_rows(weight, valid, r, w + (-lr_ * g))
+            return weight, state
+        m = _ck._fma(_f32_scalar(self.momentum, dev),
+                     state.index_select(0, r), lr_ * g)
+        _write_rows(weight, valid, r, w + (-m))
+        _write_rows(state, valid, r, m)
+        return weight, state
 
 
 @register
@@ -854,6 +907,33 @@ class Adam(Optimizer):
             [self._lr_t_of(lr, ti) for lr, ti in zip(lrs, ts)], wds,
             self.beta1, self.beta2, self.epsilon, outs=outs,
             table=self._table_of(weights[0]))
+
+    @torch.no_grad()
+    def step_rows(self, weight, rows, grad_rows, state, lr, wd, t):
+        """Lazy row-sparse Adam (reference ``optimizer.py:624``), in place:
+        the moments and the weight change only at ``rows`` (a row outside
+        the table is dropped).  Rounds as the reference's compiled
+        ``step_rows`` and K3: ``g = fma(wd, w, grad)``, ``m =
+        fma(b1, m, (1-b1) g)``, ``v = fma(b2, v, ((1-b2) g) g)``, ``w +
+        (-lr_t m) / (sqrt(v) + eps)`` with the square root and quotient
+        correctly rounded; ``lr_t`` as :meth:`step` takes it (Python
+        floats for the bias correction).  Returns ``(weight, state)``."""
+        m, v = state
+        valid, r = _row_index(rows, weight.shape[0])
+        dev = weight.device
+        f32 = functools.partial(_f32_scalar, device=dev)
+        w = weight.index_select(0, r)
+        g = _ck._fma(f32(wd), w, grad_rows.float())
+        lr_t = f32(_bias_corrected_lr(lr, self.beta1, self.beta2, t))
+        nm = _ck._fma(f32(self.beta1), m.index_select(0, r),
+                      f32(1.0 - self.beta1) * g)
+        nv = _ck._fma(f32(self.beta2), v.index_select(0, r),
+                      (f32(1.0 - self.beta2) * g) * g)
+        upd = _ck.div_rn(-lr_t * nm, _ck.sqrt_rn(nv) + f32(self.epsilon))
+        _write_rows(weight, valid, r, w + upd)
+        _write_rows(m, valid, r, nm)
+        _write_rows(v, valid, r, nv)
+        return weight, state
 
 
 @register

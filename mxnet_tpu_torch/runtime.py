@@ -48,7 +48,7 @@ def _detect():
         "CPU": True,
         "GPU": cuda,
         "PALLAS": False,
-        "DIST_KVSTORE": False,        # slice 14: torch.distributed
+        "DIST_KVSTORE": True,         # dist_* over torch.distributed
         "INT64_TENSOR_SIZE": True,
         "SIGNAL_HANDLER": True,
         "OPENCV": False,

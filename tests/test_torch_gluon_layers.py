@@ -174,10 +174,12 @@ def test_embedding_matches_reference():
 
 
 def test_options_the_port_does_not_take_raise():
-    """A row-sparse gradient and a channel-last layout raise, where the
-    reference's layers would run them as dense and channel-first."""
-    with pytest.raises(NotImplementedError):
-        mt.gluon.nn.Embedding(10, 4, sparse_grad=True)
+    """A channel-last layout raises, where the reference's layers would
+    run it channel-first.  ``Embedding(sparse_grad=True)`` is taken: it
+    declares a row-sparse gradient, which stays dense outside
+    SPMDTrainer's row-sparse route (tests/test_torch_embedding.py)."""
+    emb = mt.gluon.nn.Embedding(10, 4, sparse_grad=True)
+    assert emb.weight.grad_stype == "row_sparse"
     for make in (lambda: mt.gluon.nn.Conv2D(4, 3, layout="NHWC"),
                  lambda: mt.gluon.nn.Conv1DTranspose(4, 3, layout="NWC"),
                  lambda: mt.gluon.nn.MaxPool2D(layout="NHWC"),

@@ -901,6 +901,10 @@ def test_import_does_not_load_jax():
             "import mxnet_tpu_torch.image.detection; "
             "import mxnet_tpu_torch.symbol.contrib; "
             "import mxnet_tpu_torch.gluon.contrib.cnn; "
+            "import mxnet_tpu_torch.launch, mxnet_tpu_torch.kvstore_server; "
+            "import mxnet_tpu_torch.parallel.dist; "
+            "import mxnet_tpu_torch.parallel.embedding; "
+            "import mxnet_tpu_torch.parallel.compression; "
             "assert 'mxnet_tpu_torch.ops.contrib' in sys.modules; "
             "assert 'mxnet_tpu_torch.ops.contrib_extra' in sys.modules; "
             "assert 'mxnet_tpu_torch.gluon.data.dataloader' in sys.modules; "
@@ -912,6 +916,7 @@ def test_import_does_not_load_jax():
             "assert 'mxnet_tpu_torch.ops.kernel_ops' in sys.modules; "
             "assert 'mxnet_tpu_torch.gluon.nn.conv_layers' in sys.modules; "
             "assert 'mxnet_tpu_torch.parallel.trainer' in sys.modules; "
+            "assert 'mxnet_tpu_torch.parallel.mesh' in sys.modules; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'mxnet_tpu' "
             "or m.startswith('mxnet_tpu.')]; "

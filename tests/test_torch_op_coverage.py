@@ -12,6 +12,7 @@ import mxnet_tpu.compat, mxnet_tpu.image, mxnet_tpu.recordio  # noqa: F401
 import mxnet_tpu.resilience, mxnet_tpu.gluon.data  # noqa: F401
 import mxnet_tpu.gluon.contrib.data  # noqa: F401
 import mxnet_tpu.models.ssd  # noqa: F401
+import mxnet_tpu.parallel  # noqa: F401
 import mxnet_tpu_torch as mt
 import mxnet_tpu_torch.models.ssd  # noqa: F401
 import mxnet_tpu_torch.gluon.model_zoo.model_store  # noqa: F401
@@ -66,6 +67,9 @@ _RESILIENCE_REST = ("CheckpointManager", "MANIFEST_SCHEMA",
                     "preempt_requested", "report_nonfinite",
                     "reset_nanguard", "select_tree", "verify_checkpoint",
                     "write_manifest")
+_PARALLEL_REST = ("ring_self_attention_sharded", "pipeline_apply",
+                  "pipeline_sharded", "microbatch", "unmicrobatch",
+                  "moe_ffn", "moe_ffn_sharded", "top_k_routing")
 # the Gluon, model-zoo, initializer, optimizer, Module, data-pipeline and
 # persistence names the reference has and the port does not, by surface
 # and slice; a surface is a module's public names (its __all__ where it
@@ -115,6 +119,12 @@ UNPORTED_SURFACE = {
     "models.ssd": {},
     "sym.contrib": {},
     "resilience": dict.fromkeys(_RESILIENCE_REST, "14"),
+    # slice 14 part 2: pipeline and expert parallelism and ring attention
+    # over a sequence axis (``parallel.ring_attention`` resolves to the
+    # port's module of the plain attention lowering)
+    "parallel": dict.fromkeys(_PARALLEL_REST, "14"),
+    "parallel.SPMDTrainer": {},
+    "kvstore.KVStore": {},
 }
 
 
