@@ -5,7 +5,7 @@ Usage (from the root of a checkout, one visible CUDA card)::
     python3 chip_smoke.py [--report PATH]
                           [--phase attention|optimizer|module|bert|lm_f32|
                                    generation|ops|zoo|rnn|data|ssd|
-                                   predict|dist]
+                                   predict|dist|mesh]
 
 Phases; any failure exits non-zero without the result lines:
 
@@ -443,6 +443,17 @@ Phases; any failure exits non-zero without the result lines:
             collectives gloo takes on CUDA tensors (GLOO_PROBES); (c) a
             world-size-1 ``nccl`` group (``--nccl-worker``, beside (b))
             and one ``all_reduce``.
+9b. mesh  — tensor, sequence, pipeline and expert parallelism
+            (``mesh_phase``): two gloo ranks on cuda:0 run (a) every
+            collective of ``parallel.collectives`` on CUDA tensors with
+            its route, (b) BERT-base at tp=2 (6 local heads through the
+            bf16 flash kernels, phase 4b's gradient gate, the f32 model
+            at 2 layers against one rank) and (e) SPMDTrainer with
+            param_specs (K1 over the blocks, bitwise with one rank);
+            four run (c) the TransformerLM over {dp 1, tp 2, sp 2} and
+            (d) the dryrun's pipelined MoE step; one NCCL rank runs (f)
+            every new module over axes of one rank, bitwise the result
+            without a mesh.
 10. summary — a ``{"kernels": [...]}`` line, the card's name and power
             limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -500,6 +511,12 @@ its report as one JSON line, then the card's line and the ok line.
 ``--phase dist`` builds K1 and K3, runs phase 2's K3 and K1 checks and
 phase 9 alone, and prints the kernels line of K3 and K1, then the card's
 line and the ok line.
+
+``--phase mesh`` builds the bf16 flash sources, ``flash_f32.cu`` and
+K1, checks the flash kernels at phase 9b's per-rank shape
+(MESH_FLASH_CASES, bf16 and f32) and K1 at (e)'s per-rank shapes, runs
+phase 9b alone, and prints the kernels line of the six flash kernels
+and K1, then the card's line and the ok line.
 
 ``--phase module`` builds the kernels and runs only phase 7(c), in a
 process no earlier phase has touched, after two A/Bs of the fused step
@@ -1386,15 +1403,15 @@ def _differing(torch, x, y):
     return int((x.view(as_int) != y.view(as_int)).sum())
 
 
-def check_sgd(ck, torch, mx, np):
+def check_sgd(ck, torch, mx, np, shapes=None):
     """K1 against ``fused_sgd_step_multi_plain`` over the 193 trainable
-    tensors of resnet50_v1, one launch each case, bitwise on the masters,
-    the momenta and the casts: momentum 0.9 with the f32 master as the
-    out (the trainer's route), momentum 0.9 with a bf16 out, momentum 0,
-    and per-tensor lr and wd that differ.  Then one step over the list
-    against the plain version and ``torch.optim.SGD``.  Returns (cases,
-    per-step timing)."""
-    shapes = _resnet_shapes(mx, np)
+    tensors of resnet50_v1 (or over ``shapes``), one launch each case,
+    bitwise on the masters, the momenta and the casts: momentum 0.9 with
+    the f32 master as the out (the trainer's route), momentum 0.9 with a
+    bf16 out, momentum 0, and per-tensor lr and wd that differ.  Then one
+    step over the list against the plain version and
+    ``torch.optim.SGD``.  Returns (cases, per-step timing)."""
+    shapes = _resnet_shapes(mx, np) if shapes is None else shapes
     n = len(shapes)
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     ws = [torch.randn(sh, generator=g, device="cuda") * 0.05 for sh in shapes]
@@ -8946,6 +8963,750 @@ def nccl_worker():
     return 0
 
 
+# ------------------------------------------------------------- phase mesh
+#: how long one group of phase mesh may take, start-up included
+MESH_WORKER_TIMEOUT_S = 600
+#: where phase mesh's ranks run (the card; "cpu" only to rehearse it)
+MESH_DEVICE = "cuda"
+#: (b): BERT-base at examples/bert_pretrain.py's defaults with --tp 2 on
+#: two gloo ranks sharing cuda:0 (phase 4b's BERT_B/S/M, BERT_LR, seeded
+#: weights and batch): MESH_BERT_STEPS counted steps after one warm-up,
+#: and the f32 model at MESH_BERT32_LAYERS layers for one step
+MESH_TP = 2
+MESH_BERT_STEPS = 10
+MESH_BERT32_LAYERS = 2
+#: the dryrun's bound (``__graft_entry__.py:150-153``) for the f32 model's
+#: weights after one step, mesh against one rank
+MESH_F32_RTOL, MESH_F32_ATOL = 2e-4, 1e-5
+#: (c): the TransformerLM at its default width over
+#: ``__graft_entry__._factor_mesh(4)``, at B=2 S=1024, bf16.  Its
+#: gradients at the initial weights pass phase 4b's gate form: per
+#: tensor, the mesh path's relative error against the one-rank f32
+#: gradients at most KERNEL_VS_PLAIN_GRAD_ERR x the one-rank plain bf16
+#: path's, that error floored at one bf16 ulp (BERT_GRAD_FLOOR).  The
+#: mesh path rounds to bf16 where the plain path does (each matmul's
+#: output, each attention output); its tp sums add f32 roundings, far
+#: below bf16's, and ring attention combines its blocks in f32, so its
+#: error is of the plain path's size.  A wrong transpose (a gradient
+#: doubled, a block dropped) moves a tensor by its own size.
+MESH_LM_AXES = {"dp": 1, "tp": 2, "sp": 2}
+MESH_LM_B, MESH_LM_S = 2, 1024
+
+
+def mesh_lm_config(torch, dtype=None):
+    """(c)'s TransformerLM: the default width (vocab 32000, 12 layers,
+    d_model 768, 12 heads, d_ff 3072, bf16)."""
+    from mxnet_tpu_torch.models.transformer import TransformerLMConfig
+    return TransformerLMConfig(dtype=dtype or torch.bfloat16)
+
+
+MESH_LM_LR, MESH_LM_MOMENTUM = 0.01, 0.9
+#: (d): __graft_entry__._dryrun_pipeline_moe(4) at its own shapes (no
+#: configuration of the repo is wider): dp 1, pp 2, ep 2, d 16, h 32, 2
+#: experts a rank, 2 microbatches of B=4, top-1, capacity factor 4, SGD
+#: lr 0.1.  Loss and updated parameters against the one-rank sequential
+#: computation at tests/test_pipeline_moe.py:72-75's bounds.
+MESH_PPMOE_AXES = {"dp": 1, "pp": 2, "ep": 2}
+MESH_PPMOE_D, MESH_PPMOE_H, MESH_PPMOE_ELOC = 16, 32, 2
+MESH_PPMOE_M, MESH_PPMOE_B, MESH_PPMOE_LR = 2, 4, 0.1
+MESH_PPMOE_LOSS_RTOL = 1e-5
+MESH_PPMOE_RTOL, MESH_PPMOE_ATOL = 1e-4, 1e-6
+MESH_PPMOE_SPECS = {"gate": ("pp",), "w1": ("pp", "ep"),
+                    "b1": ("pp", "ep"), "w2": ("pp", "ep"),
+                    "b2": ("pp", "ep")}
+#: (e): bench.py module_train_config's MLP (8 Dense layers of 128 with
+#: relu, a 10-way head, batch 64 of 64 features) as a Gluon block under
+#: SPMDTrainer, each hidden Dense split on its output rows over tp and
+#: the head on its input columns; SGD lr 0.1 momentum 0.9 through K1
+MESH_MLP_LAYERS, MESH_MLP_WIDTH, MESH_MLP_FEAT = 8, 128, 64
+MESH_MLP_BATCH, MESH_MLP_CLASSES, MESH_MLP_STEPS = 64, 10, 3
+#: the per-rank flash shape of (b): BERT-base's batch at 6 local heads
+MESH_FLASH_CASES = ((BERT_B, 12 // MESH_TP, False, BERT_S, BERT_S, 64),)
+
+
+def mesh_mlp_specs():
+    """(e)'s param_specs by the names under the block's prefix, and the
+    per-rank shapes of the trainable tensors in the trainer's order."""
+    specs = {}
+    for i in range(MESH_MLP_LAYERS):
+        specs["dense%d_weight" % i] = ("tp", None)
+        specs["dense%d_bias" % i] = ("tp",)
+    specs["dense%d_weight" % MESH_MLP_LAYERS] = (None, "tp")
+    shapes = []
+    fan_in = MESH_MLP_FEAT
+    for i in range(MESH_MLP_LAYERS):
+        shapes += [(MESH_MLP_WIDTH // MESH_TP, fan_in),
+                   (MESH_MLP_WIDTH // MESH_TP,)]
+        fan_in = MESH_MLP_WIDTH
+    shapes += [(MESH_MLP_CLASSES, MESH_MLP_WIDTH // MESH_TP),
+               (MESH_MLP_CLASSES,)]
+    return specs, shapes
+
+
+def mesh_phase(mx, ck, np, torch, card, workdir):
+    """Phase mesh: tensor, sequence, pipeline and expert parallelism over
+    ``torch.distributed`` on the card.  Groups started by the port's
+    launcher (gloo ranks share cuda:0, as in phase dist):
+
+    - two ranks: (a) every collective of ``parallel.collectives`` on
+      CUDA tensors, values and gradients, with the route each takes;
+      (b) BERT-base at tp=2 (the gradient gate, MESH_BERT_STEPS counted
+      steps of exactly 12 launches of each bf16 flash kernel on each
+      rank, the f32 model at 2 layers one step against one rank); (e)
+      SPMDTrainer with param_specs, 3 steps of one K1 launch each,
+      bitwise with one rank;
+    - four ranks: (c) the TransformerLM over {dp 1, tp 2, sp 2} (the
+      gradient gate, the dryrun's step, no flash launch, peak memory);
+      (d) the dryrun's pipelined MoE step, against the one-rank
+      sequential computation here;
+    - one NCCL rank: (f) every new module over axes of one rank, bitwise
+      the result without a mesh.
+
+    Before the groups, phase 4b's one-rank BERT-base rate in this
+    process, for (b)'s rate to stand beside."""
+    from mxnet_tpu_torch.models import BERT
+    t0 = time.perf_counter()
+    out = {"card": card}
+    cfg = bert_config(torch, torch.bfloat16)
+    model = BERT(cfg).init(SEED)
+    model.requires_grad_(True)
+    params = [p for _, p in model.named_parameters()]
+    batch = bert_batch(np, torch, cfg.vocab_size, model.device)
+    _bert_steps(np, torch, model, batch,
+                lambda: example_sgd_step(params, BERT_LR), 1)
+    t1 = time.perf_counter()
+    _bert_steps(np, torch, model, batch,
+                lambda: example_sgd_step(params, BERT_LR), MESH_BERT_STEPS)
+    out["bert_one_rank_sequences_per_s"] = \
+        BERT_B * MESH_BERT_STEPS / (time.perf_counter() - t1)
+    del model, params
+    torch.cuda.empty_cache()
+    for suite, n in (("two", 2), ("four", 4), ("nccl", 1)):
+        for r in range(n):
+            stale = os.path.join(workdir, "mesh_%s_rank%d.json" % (suite, r))
+            if os.path.exists(stale):
+                os.remove(stale)
+        t1 = time.perf_counter()
+        rc, so, se = _run_group(
+            [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n", str(n),
+             sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--mesh-worker", workdir, "--mesh-suite", suite],
+            MESH_WORKER_TIMEOUT_S)
+        if rc != 0:
+            raise AssertionError("phase mesh, %d-rank group %r failed (rc "
+                                 "%d):\n%s\n%s" % (n, suite, rc, so[-4000:],
+                                                   se[-8000:]))
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(workdir, "mesh_%s_rank%d.json"
+                                   % (suite, r))) as f:
+                ranks.append(json.load(f))
+        backends = [line for line in se.splitlines()
+                    if "mxnet_tpu_torch.parallel: rank" in line]
+        want = "backend nccl" if suite == "nccl" else "backend gloo"
+        assert len(backends) == n and all(want in b for b in backends), \
+            backends
+        out[suite] = {"seconds": time.perf_counter() - t1, "ranks": ranks,
+                      "backend_lines": backends}
+        _log("[mesh] %s %s" % (suite, json.dumps(out[suite])))
+    out["bert_tp_sequences_per_s"] = out["two"]["ranks"][0]["bert"][
+        "sequences_per_s"]
+    out["bert_rate_is"] = (
+        "two processes time-share one card and gloo stages their CUDA "
+        "all-reduces through host memory, so the tp=2 rate is no scaling "
+        "figure: it only shows the path runs")
+    _log("[mesh-bert] %.1f sequences/s at tp=2 (two ranks sharing the "
+         "card; no scaling figure), %.1f on one rank (B=%d S=%d, %d "
+         "layers, bfloat16)" % (out["bert_tp_sequences_per_s"],
+                                out["bert_one_rank_sequences_per_s"],
+                                BERT_B, BERT_S, cfg.num_layers))
+    out["ppmoe_vs_one_rank"] = _mesh_ppmoe_check(mx, np, torch, workdir)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _mesh_launches(mesh):
+    """The kernels' launches in phase mesh's counted runs, by rank:
+    {kernel: {path: count}}."""
+    by = {}
+    for r, rank in enumerate(mesh["two"]["ranks"]):
+        for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            by.setdefault(key, {})["mesh_bert_tp2_rank%d" % r] = \
+                rank["bert"]["launches"][key]
+        for key in ("flash_fwd_f32", "flash_bwd_dq_f32",
+                    "flash_bwd_dkv_f32"):
+            by.setdefault(key, {})["mesh_bert_f32_tp2_rank%d" % r] = \
+                rank["bert"]["f32"]["launches"][key]
+        by.setdefault("sgd_step", {})["mesh_spmd_tp2_rank%d" % r] = \
+            rank["mlp"]["launches"]["sgd_step"]
+    return by
+
+
+def _mesh_ppmoe_inputs(np):
+    """The dryrun's pipelined MoE parameters (``np.random.RandomState(1)``
+    in its draw order), inputs and targets."""
+    n_pp, d, h = (MESH_PPMOE_AXES["pp"], MESH_PPMOE_D, MESH_PPMOE_H)
+    e = MESH_PPMOE_ELOC * MESH_PPMOE_AXES["ep"]
+    rng = np.random.RandomState(1)
+    p = {"gate": rng.normal(0, 0.5, (n_pp, d, e)),
+         "w1": rng.normal(0, 0.5, (n_pp, e, d, h)),
+         "b1": np.zeros((n_pp, e, h)),
+         "w2": rng.normal(0, 0.5, (n_pp, e, h, d)),
+         "b2": np.zeros((n_pp, e, d))}
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    x = rng.normal(size=(MESH_PPMOE_B, d)).astype(np.float32)
+    t = rng.normal(size=(MESH_PPMOE_B, d)).astype(np.float32)
+    return p, x, t
+
+
+def _mesh_ppmoe_check(mx, np, torch, workdir):
+    """(d) against the one-rank sequential computation on the card: each
+    microbatch through both stages in turn, each stage's MoE with all
+    its experts on one rank (the same routing: the ep ranks route the
+    same tokens), the loss the mean over every microbatch, the same SGD
+    step."""
+    from mxnet_tpu_torch.parallel import microbatch, moe_ffn
+    p, x, t = _mesh_ppmoe_inputs(np)
+    mesh = mx.parallel.make_mesh({"ep": 1}, [torch.device(MESH_DEVICE)])
+    params = {k: torch.tensor(v, device=MESH_DEVICE, requires_grad=True)
+              for k, v in p.items()}
+    xm = microbatch(torch.as_tensor(x, device=MESH_DEVICE), MESH_PPMOE_M)
+    tm = microbatch(torch.as_tensor(t, device=MESH_DEVICE), MESH_PPMOE_M)
+    ys = []
+    for m in range(MESH_PPMOE_M):
+        act = xm[m]
+        for s in range(MESH_PPMOE_AXES["pp"]):
+            y, _aux = moe_ffn(*(params[k][s] for k in ("gate", "w1", "b1",
+                                                       "w2", "b2")),
+                              act, axis_name="ep", k=1, capacity_factor=4.0,
+                              mesh=mesh)
+            act = act + y
+        ys.append(act)
+    loss = torch.mean((torch.stack(ys) - tm) ** 2)
+    loss.backward()
+    got = np.load(os.path.join(workdir, "mesh_ppmoe.npz"))
+    out = {"loss_mesh": float(got["loss"]), "loss_one_rank": float(loss),
+           "loss_rtol": MESH_PPMOE_LOSS_RTOL, "rtol": MESH_PPMOE_RTOL,
+           "atol": MESH_PPMOE_ATOL, "params_max_abs": {}}
+    np.testing.assert_allclose(out["loss_mesh"], out["loss_one_rank"],
+                               rtol=MESH_PPMOE_LOSS_RTOL)
+    with torch.no_grad():
+        for k, v in params.items():
+            want = (v - MESH_PPMOE_LR * v.grad).cpu().numpy()
+            np.testing.assert_allclose(got["after/" + k], want,
+                                       rtol=MESH_PPMOE_RTOL,
+                                       atol=MESH_PPMOE_ATOL, err_msg=k)
+            out["params_max_abs"][k] = float(np.abs(got["after/" + k]
+                                                    - want).max())
+    _log("[mesh-ppmoe] one rank %s" % json.dumps(out))
+    return out
+
+
+# --- the ranks of phase mesh (``--mesh-worker``)
+def _ck():
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+    return ck
+
+
+def mesh_worker(workdir, suite):
+    """One rank of phase mesh's ``suite`` group, on cuda:0; writes
+    ``mesh_<suite>_rank<r>.json``."""
+    import mxnet_tpu_torch as mx
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with (mx.gpu() if MESH_DEVICE == "cuda" else mx.cpu()):
+        mx.parallel.initialize()
+        rank = mx.parallel.dist.rank()
+        out = {"rank": rank, "device": str(mx.parallel.dist.device())}
+        for part in {"two": (_mesh_probe, _mesh_bert, _mesh_mlp),
+                     "four": (_mesh_lm, _mesh_ppmoe),
+                     "nccl": (_mesh_one_rank,)}[suite]:
+            out[part.__name__[len("_mesh_"):]] = part(mx, torch, workdir)
+        mx.parallel.barrier()
+    with open(os.path.join(workdir, "mesh_%s_rank%d.json" % (suite, rank)),
+              "w") as f:
+        json.dump(out, f)
+    import torch.distributed as tdist
+    tdist.destroy_process_group()
+    return 0
+
+
+def _mesh_probe(mx, torch, workdir):
+    """(a) Every collective the new modules use, on CUDA tensors over two
+    gloo ranks, values and gradients held; the route each takes (the
+    telemetry counters ``collectives.<op>.<route>``)."""
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.parallel import collectives as coll
+    tt.reset()
+    mesh = mx.parallel.make_mesh({"tp": 2})
+    r = mesh.axis_index("tp")
+    dev = mesh.device
+    x = torch.arange(8.0, device=dev) + 100 * r
+    x.requires_grad_(True)
+    # ppermute (batch_isend_irecv): rank r gets rank r-1's; its backward
+    # sends the cotangent back
+    y = coll.ppermute(x, mesh, "tp", 1)
+    assert torch.equal(y.detach(), torch.arange(8.0, device=dev)
+                       + 100 * (1 - r))
+    (y * (r + 1)).sum().backward()
+    assert torch.equal(x.grad, torch.full_like(x, 2.0 - r))
+    # all_to_all (all_to_all_single): block j to rank j; its own transpose
+    a = (torch.arange(8.0, device=dev) + 100 * r).reshape(2, 4)
+    a.requires_grad_(True)
+    b = coll.all_to_all(a, mesh, "tp")
+    want = torch.stack([torch.arange(4.0, device=dev) + 4 * r,
+                        torch.arange(4.0, device=dev) + 4 * r + 100])
+    assert torch.equal(b.detach(), want)
+    (b * (r + 1)).sum().backward()
+    assert torch.equal(a.grad, torch.tensor([[1.0] * 4, [2.0] * 4],
+                                            device=dev))
+    # psum / copy_to (all_reduce) forward and backward
+    s = torch.full((4,), r + 1.0, device=dev, requires_grad=True)
+    total = coll.psum(s, mesh, "tp")
+    assert torch.equal(total.detach(), torch.full_like(total, 3.0))
+    c = torch.ones(4, device=dev, requires_grad=True)
+    (coll.copy_to(c, mesh, "tp") * (r + 1)).sum().backward()
+    assert torch.equal(c.grad, torch.full_like(c, 3.0))
+    # broadcast_last (the pipeline's masked psum), shard / unshard
+    # (all_gather)
+    last = coll.broadcast_last(s, mesh, "tp")
+    assert torch.equal(last.detach(), torch.full_like(last, 2.0))
+    whole = torch.arange(12.0, device=dev).reshape(3, 4)
+    blk = coll.shard(whole, mesh, (None, "tp"))
+    assert torch.equal(blk, whole[:, 2 * r:2 * r + 2])
+    assert torch.equal(coll.unshard(blk, mesh, (None, "tp")), whole)
+    torch.cuda.synchronize()
+    counters = tt.snapshot()["counters"]
+    routes = {k[len("collectives."):]: v for k, v in counters.items()
+              if k.startswith("collectives.")}
+    want_routes = {"ppermute": "host" if dev.type == "cuda" else "native",
+                   "all_to_all": "native", "all_reduce": "native",
+                   "all_gather": "native"}
+    for op, route in want_routes.items():
+        assert routes.get("%s.%s" % (op, route), 0) > 0, (op, routes)
+        assert coll.route(op, x) == route, op
+    _log("[mesh-probe] rank %d routes %s" % (mesh.rank, json.dumps(routes)))
+    return {"routes": want_routes, "calls": routes,
+            "gloo_cuda_native": sorted(coll.GLOO_CUDA_NATIVE)}
+
+
+def _mesh_grad_gate(mx, torch, whole, make_plain, make32, loss_of, floor):
+    """Per tensor, the mesh path's gathered gradients ``whole`` against a
+    one-rank f32 model's, beside the one-rank plain bf16 path's error:
+    at most KERNEL_VS_PLAIN_GRAD_ERR x the latter, floored at
+    ``floor``."""
+    plain = make_plain()
+    plain.requires_grad_(True)
+    loss_off, off = _train_grads(mx, plain, loss_of, False)
+    model32 = make32()
+    model32.load_state_dict(plain.state_dict())
+    model32.requires_grad_(True)
+    del plain
+    loss32, ref = _train_grads(mx, model32, loss_of, False)
+    del model32
+    out = {"loss_plain": loss_off, "loss_f32": loss32, "floor": floor,
+           "tensors": {}}
+    for name, r in ref.items():
+        norm = float(r.norm())
+        e_mesh = float((whole[name].float() - r).norm()) / norm
+        e_off = float((off[name] - r).norm()) / norm
+        out["tensors"][name] = {"mesh_vs_f32": e_mesh,
+                                "plain_vs_f32": e_off}
+        assert e_mesh <= KERNEL_VS_PLAIN_GRAD_ERR * max(e_off, floor), (
+            name, e_mesh, e_off)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gathered_grads(model, mesh):
+    from mxnet_tpu_torch.parallel import collectives as coll
+    specs = model.flat_specs()
+    return {n: coll.unshard(p.grad.float(), mesh, specs.get(n, ()))
+            for n, p in model.named_parameters()}
+
+
+def _mesh_bert(mx, torch, workdir):
+    """(b) BERT-base at tp=2: the gradient gate at the initial weights
+    (rank 0 computes the one-rank references while rank 1 waits), then
+    MESH_BERT_STEPS counted steps (counts zeroed just before, read just
+    after: 12 launches of each bf16 flash kernel a step at 6 local heads
+    and nothing else; finite losses, the last below the first), then the
+    f32 model at 2 layers: one step, through the f32 flash kernels, its
+    weights against one rank's."""
+    import numpy as np
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.models import BERT
+    from mxnet_tpu_torch.parallel import collectives as coll
+    ck = _ck()
+    mesh = mx.parallel.make_mesh({"dp": 1, "tp": MESH_TP})
+    cfg = bert_config(torch, torch.bfloat16)
+    L = cfg.num_layers
+    model = BERT(cfg, mesh=mesh).init(SEED)
+    model.requires_grad_(True)
+    local_heads = int(model.layers.wqkv.shape[-2])
+    assert local_heads == cfg.num_heads // MESH_TP, local_heads
+    params = [p for _, p in model.named_parameters()]
+    batch = bert_batch(np, torch, cfg.vocab_size, model.device)
+
+    def loss_of(m):
+        return m.pretrain_loss(*(batch[k] for k in BERT_ARGS))
+
+    model.zero_grad(set_to_none=True)
+    loss_of(model).backward()
+    model.allreduce_grads()
+    whole = _gathered_grads(model, mesh)
+    out = {"local_heads": local_heads, "mesh": dict(mesh.shape)}
+    if mesh.rank == 0:
+        out["grad_accuracy"] = _mesh_grad_gate(
+            mx, torch, whole, lambda: BERT(cfg).init(SEED),
+            lambda: BERT(bert_config(torch, torch.float32)), loss_of,
+            BERT_GRAD_FLOOR)
+    del whole
+    model.zero_grad(set_to_none=True)
+    mx.parallel.barrier()
+
+    def sgd():
+        model.allreduce_grads()
+        example_sgd_step(params, BERT_LR)
+
+    _bert_steps(np, torch, model, batch, sgd, 1)
+    _zero_counts(torch, tt, ck)
+    t0 = time.perf_counter()
+    losses, step_ms = _bert_steps(np, torch, model, batch, sgd,
+                                  MESH_BERT_STEPS)
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    n = MESH_BERT_STEPS
+    assert launches == _want_launches(ck, flash_fwd=L * n,
+                                      flash_bwd_dq=L * n,
+                                      flash_bwd_dkv=L * n), launches
+    assert losses[-1] < losses[0], losses
+    out.update({"steps": n, "losses": losses, "step_ms": step_ms,
+                "median_step_ms": float(np.median(step_ms)),
+                "sequences_per_s": BERT_B * n / wall, "launches": launches})
+    del model, params
+    torch.cuda.empty_cache()
+    # the f32 model at 2 layers, one step, against one rank
+    cfg32 = bert_config(torch, torch.float32)
+    cfg32.num_layers = MESH_BERT32_LAYERS
+    model = BERT(cfg32, mesh=mesh).init(SEED)
+    model.requires_grad_(True)
+    params = [p for _, p in model.named_parameters()]
+    _zero_counts(torch, tt, ck)
+    model.zero_grad(set_to_none=True)
+    loss_of(model).backward()
+    sgd()
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    n32 = MESH_BERT32_LAYERS
+    assert launches == _want_launches(ck, flash_fwd_f32=n32,
+                                      flash_bwd_dq_f32=n32,
+                                      flash_bwd_dkv_f32=n32), launches
+    specs = model.flat_specs()
+    with torch.no_grad():
+        after = {n_: coll.unshard(p, mesh, specs.get(n_, ()))
+                 for n_, p in model.named_parameters()}
+    out["f32"] = {"layers": n32, "launches": launches}
+    if mesh.rank == 0:
+        one = BERT(cfg32).init(SEED)
+        one.requires_grad_(True)
+        one_params = [p for _, p in one.named_parameters()]
+        loss_of(one).backward()
+        example_sgd_step(one_params, BERT_LR)
+        worst = {}
+        for n_, p in one.named_parameters():
+            diff = (after[n_] - p).abs()
+            excess = diff - (MESH_F32_ATOL + MESH_F32_RTOL * p.abs())
+            worst[n_] = float(diff.max())
+            assert float(excess.max()) <= 0.0, (n_, worst[n_])
+        out["f32"].update({"weights_max_abs_vs_one_rank": worst,
+                           "rtol": MESH_F32_RTOL, "atol": MESH_F32_ATOL})
+        del one, one_params
+    del model, params, after
+    torch.cuda.empty_cache()
+    mx.parallel.barrier()
+    _log("[mesh-bert] rank %d %s" % (mesh.rank, json.dumps(
+        {k: v for k, v in out.items() if k != "grad_accuracy"})))
+    return out
+
+
+def _mesh_mlp_net(mx):
+    import mxnet_tpu_torch.name  # noqa: F401  (loaded lazily)
+    nn = mx.gluon.nn
+    with mx.name.NameManager():
+        net = nn.HybridSequential()
+        with net.name_scope():
+            for _ in range(MESH_MLP_LAYERS):
+                net.add(nn.Dense(MESH_MLP_WIDTH, activation="relu"))
+            net.add(nn.Dense(MESH_MLP_CLASSES))
+    mx.random.seed(SEED)
+    net.initialize(mx.init.Xavier())
+    return net
+
+
+def _mesh_mlp(mx, torch, workdir):
+    """(e) SPMDTrainer with param_specs over {dp 1, tp 2}: after one
+    step that materializes the trainer, MESH_MLP_STEPS steps of one K1
+    launch each over this rank's blocks (counts zeroed just before, read
+    just after), bitwise with a one-rank trainer from the same weights
+    (losses and every weight, gathered)."""
+    import numpy as np
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.parallel import SPMDTrainer
+    ck = _ck()
+    rng = np.random.RandomState(SEED)
+    # one step to materialize the trainer, then MESH_MLP_STEPS counted
+    data = [rng.normal(size=(MESH_MLP_BATCH, MESH_MLP_FEAT))
+            .astype(np.float32) for _ in range(MESH_MLP_STEPS + 1)]
+    labels = [rng.randint(0, MESH_MLP_CLASSES, (MESH_MLP_BATCH,))
+              .astype(np.float32) for _ in range(MESH_MLP_STEPS + 1)]
+    specs, shapes = mesh_mlp_specs()
+    mesh = mx.parallel.make_mesh({"dp": 1, "tp": MESH_TP})
+    runs = {}
+    for kind, m in (("tp", mesh), ("one_rank", mx.parallel.make_mesh(
+            {"dp": 1}, [mesh.device]))):
+        net = _mesh_mlp_net(mx)
+        net(mx.nd.array(data[0]))      # the deferred shapes
+        sp = {net.prefix + k: v for k, v in specs.items()} \
+            if kind == "tp" else None
+        tr = SPMDTrainer(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                         "sgd", {"learning_rate": 0.1, "momentum": 0.9},
+                         mesh=m, param_specs=sp)
+        tr.step(data[0], labels[0])    # materialize; not counted
+        _zero_counts(torch, tt, ck)
+        losses = [tr.step(x, y) for x, y in zip(data[1:], labels[1:])]
+        torch.cuda.synchronize()
+        runs[kind] = {"launches": dict(ck.LAUNCHES), "losses": losses,
+                      "whole": {n: tr._full(n) for n in tr.params},
+                      "shapes": [tuple(tr.params[n].shape)
+                                 for n in tr.fn.trainable]}
+    tp, one = runs["tp"], runs["one_rank"]
+    steps = MESH_MLP_STEPS
+    assert tp["launches"] == _want_launches(ck, sgd_step=steps), \
+        tp["launches"]
+    assert tp["shapes"] == shapes, tp["shapes"]
+    differing = sum(_differing(torch, tp["whole"][n], one["whole"][n])
+                    for n in tp["whole"])
+    differing += sum(_differing(torch, a, b)
+                     for a, b in zip(tp["losses"], one["losses"]))
+    assert differing == 0, differing
+    return {"launches": tp["launches"], "counted_steps": steps,
+            "losses": [float(v) for v in tp["losses"]],
+            "shard_shapes": tp["shapes"],
+            "differing_vs_one_rank": differing}
+
+
+def _mesh_lm(mx, torch, workdir):
+    """(c) The TransformerLM at its default width over {dp 1, tp 2, sp 2}
+    at B=2 S=1024: the loss and gradients at the initial weights (counts
+    zeroed just before, read just after: no kernel launched, the ring is
+    plain), each rank's peak memory, the gradient gate (rank 0 against
+    one rank), and the dryrun's momentum SGD step."""
+    import numpy as np
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.models.transformer import TransformerLM
+    ck = _ck()
+    mesh = mx.parallel.make_mesh(MESH_LM_AXES)
+    cfg = mesh_lm_config(torch)
+    model = TransformerLM(cfg, mesh=mesh).init(SEED)
+    model.requires_grad_(True)
+    rng = np.random.default_rng(SEED + 3)
+    toks = rng.integers(0, cfg.vocab_size, (MESH_LM_B, MESH_LM_S + 1))
+    inp = torch.as_tensor(toks[:, :-1], device=mesh.device)
+    tgt = torch.as_tensor(toks[:, 1:], device=mesh.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(torch, tt, ck)
+    t0 = time.perf_counter()
+    model.zero_grad(set_to_none=True)
+    loss = model.loss(inp, tgt)
+    loss.backward()
+    model.allreduce_grads()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    assert launches == _want_launches(ck), launches
+    peak = torch.cuda.max_memory_allocated()
+    out = {"mesh": dict(mesh.shape), "batch": [MESH_LM_B, MESH_LM_S],
+           "loss": float(loss.detach()), "launches": launches,
+           "peak_bytes": peak, "forward_backward_s": step_s,
+           "routes": {k: v for k, v in tt.snapshot()["counters"].items()
+                      if k.startswith("collectives.")}}
+    assert np.isfinite(out["loss"]), out["loss"]
+    whole = _gathered_grads(model, mesh)
+    if mesh.rank == 0:
+        out["grad_accuracy"] = _mesh_grad_gate(
+            mx, torch, whole, lambda: TransformerLM(cfg).init(SEED),
+            lambda: TransformerLM(mesh_lm_config(torch, torch.float32)),
+            lambda m: m.loss(inp, tgt), BERT_GRAD_FLOOR)
+    del whole
+    mx.parallel.barrier()
+    with torch.no_grad():
+        # __graft_entry__.py:122-128, from a zero momentum
+        for p in model.parameters():
+            mom = MESH_LM_MOMENTUM * torch.zeros_like(p) + p.grad.to(p.dtype)
+            p.copy_(p - torch.tensor(MESH_LM_LR, dtype=p.dtype,
+                                     device=p.device) * mom)
+    model.zero_grad(set_to_none=True)
+    after = float(model.loss(inp, tgt).detach())
+    assert np.isfinite(after), after
+    out["loss_after_step"] = after
+    del model
+    torch.cuda.empty_cache()
+    _log("[mesh-lm] rank %d %s" % (mesh.rank, json.dumps(
+        {k: v for k, v in out.items() if k != "grad_accuracy"})))
+    return out
+
+
+def _mesh_ppmoe(mx, torch, workdir):
+    """(d) The dryrun's pipelined MoE step over {dp 1, pp 2, ep 2}: the
+    loss and the parameters after the SGD step (rank 0 writes them for
+    the one-rank comparison)."""
+    import numpy as np
+    from mxnet_tpu_torch.parallel import collectives as coll
+    from mxnet_tpu_torch.parallel import microbatch, moe_ffn, pipeline_apply
+    mesh = mx.parallel.make_mesh(MESH_PPMOE_AXES)
+    p, x, t = _mesh_ppmoe_inputs(np)
+    dev = mesh.device
+    params = {k: torch.tensor(v, device=dev, requires_grad=True)
+              for k, v in p.items()}
+    # the gate is every (dp, ep) rank's, an expert every dp rank's: their
+    # gradients sum over the ranks that use them
+    mine = {k: coll.shard(v, mesh, MESH_PPMOE_SPECS[k],
+                          sum_axes=("dp", "ep"))[0]
+            for k, v in params.items()}
+    xm = coll.shard(microbatch(torch.as_tensor(x, device=dev), MESH_PPMOE_M),
+                    mesh, (None, "dp"))
+    tm = coll.shard(microbatch(torch.as_tensor(t, device=dev), MESH_PPMOE_M),
+                    mesh, (None, "dp"))
+
+    def stage(sp, act):
+        y, _aux = moe_ffn(sp["gate"], sp["w1"], sp["b1"], sp["w2"],
+                          sp["b2"], act, axis_name="ep", k=1,
+                          capacity_factor=4.0, mesh=mesh)
+        return act + y
+
+    y = pipeline_apply(stage, mine, xm, axis_name="pp",
+                       vary_axes=("dp", "pp", "ep"), mesh=mesh)
+    loss = coll.pmean(torch.mean((y - tm) ** 2), mesh, ("dp", "ep"))
+    loss.backward()
+    torch.cuda.synchronize()
+    out = {"loss": float(loss.detach())}
+    assert np.isfinite(out["loss"]), out
+    if mesh.rank == 0:
+        with torch.no_grad():
+            np.savez(os.path.join(workdir, "mesh_ppmoe.npz"),
+                     loss=np.float32(out["loss"]),
+                     **{"after/" + k: (v - MESH_PPMOE_LR * v.grad).cpu()
+                        .numpy() for k, v in params.items()})
+    return out
+
+
+def _mesh_one_rank(mx, torch, workdir):
+    """(f) On one NCCL rank, every new module over a mesh whose axes all
+    have one rank, bitwise the result without a mesh: the TransformerLM
+    and BERT (loss and gradients, bf16 through the flash kernels), ring
+    attention (f32), the pipeline (against its stage per microbatch),
+    the MoE wrapper (against ``moe_ffn`` on the whole arrays) and
+    SPMDTrainer with param_specs (against none)."""
+    import torch.distributed as tdist
+    from mxnet_tpu_torch.models import BERT
+    from mxnet_tpu_torch.models.transformer import TransformerLM
+    from mxnet_tpu_torch.parallel import (attention, microbatch, moe_ffn,
+                                          moe_ffn_sharded, pipeline_sharded,
+                                          ring_self_attention_sharded)
+    import numpy as np
+    assert tdist.get_world_size() == 1
+    assert mx.parallel.dist.backend() == (
+        "nccl" if MESH_DEVICE == "cuda" else "gloo")
+    dev = torch.device(MESH_DEVICE)
+    ones = mx.parallel.make_mesh({"dp": 1, "tp": 1, "sp": 1, "pp": 1,
+                                  "ep": 1})
+    differing = {}
+
+    def same(name, a, b):
+        differing[name] = differing.get(name, 0) + _differing(
+            torch, a.detach().contiguous(), b.detach().contiguous())
+
+    def grads_of(make, loss_of):
+        res = []
+        for mesh in (None, ones):
+            m = make(mesh)
+            m.requires_grad_(True)
+            loss = loss_of(m)
+            loss.backward()
+            res.append((loss, {n: p.grad for n, p in m.named_parameters()}))
+        return res
+
+    rng = np.random.default_rng(SEED)
+    cfg = mesh_lm_config(torch)
+    cfg.num_layers = 2
+    toks = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (2, min(256, cfg.max_len) + 1)), device=dev)
+    (la, ga), (lb, gb) = grads_of(
+        lambda mesh: TransformerLM(cfg, mesh=mesh).init(SEED),
+        lambda m: m.loss(toks[:, :-1], toks[:, 1:]))
+    same("transformer_lm", la, lb)
+    for n in ga:
+        same("transformer_lm", ga[n], gb[n])
+    bcfg = bert_config(torch, torch.bfloat16)
+    bcfg.num_layers = 2
+    batch = bert_batch(np, torch, bcfg.vocab_size, dev)
+    (la, ga), (lb, gb) = grads_of(
+        lambda mesh: BERT(bcfg, mesh=mesh).init(SEED),
+        lambda m: m.pretrain_loss(*(batch[k] for k in BERT_ARGS)))
+    same("bert", la, lb)
+    for n in ga:
+        same("bert", ga[n], gb[n])
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn(2, 4, 256, 64, device=dev, generator=g)
+               for _ in range(3))
+    for causal in (True, False):
+        same("ring_attention", attention(q, k, v, causal=causal),
+             ring_self_attention_sharded(ones, q, k, v, causal=causal))
+    w = torch.randn(1, 64, 64, device=dev, generator=g) * 0.1
+    b = torch.randn(1, 64, device=dev, generator=g) * 0.1
+    x = torch.randn(32, 64, device=dev, generator=g)
+
+    def stage(p, a):
+        return torch.tanh(a @ p["w"] + p["b"])
+    piped = pipeline_sharded(ones, stage, {"w": w, "b": b}, x, 4)
+    plain = torch.cat([stage({"w": w[0], "b": b[0]}, xm)
+                       for xm in microbatch(x, 4)])
+    same("pipeline", piped, plain)
+    gw = torch.randn(64, 4, device=dev, generator=g)
+    w1 = torch.randn(4, 64, 128, device=dev, generator=g) * 0.1
+    b1 = torch.zeros(4, 128, device=dev)
+    w2 = torch.randn(4, 128, 64, device=dev, generator=g) * 0.1
+    b2 = torch.zeros(4, 64, device=dev)
+    ys, auxs = moe_ffn_sharded(ones, gw, w1, b1, w2, b2, x)
+    yp, auxp = moe_ffn(gw, w1, b1, w2, b2, x, mesh=ones)
+    same("moe", ys, yp)
+    same("moe", auxs, auxp)
+    from mxnet_tpu_torch.parallel import SPMDTrainer
+    specs, _ = mesh_mlp_specs()
+    data = torch.randn(MESH_MLP_BATCH, MESH_MLP_FEAT, device=dev,
+                       generator=g)
+    label = torch.randint(0, MESH_MLP_CLASSES, (MESH_MLP_BATCH,),
+                          device=dev, generator=g).float()
+    whole = []
+    for sp in (None, specs):
+        net = _mesh_mlp_net(mx)
+        net(mx.nd.array(data.cpu().numpy()))
+        tr = SPMDTrainer(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+                         {"learning_rate": 0.1, "momentum": 0.9}, mesh=ones,
+                         param_specs=None if sp is None else {
+                             net.prefix + n: s for n, s in sp.items()})
+        for _ in range(2):
+            tr.step(data, label)
+        whole.append([tr._full(n) for n in tr.fn.trainable])
+    for a, b in zip(*whole):
+        same("spmd_param_specs", a, b)
+    torch.cuda.synchronize()
+    assert not any(differing.values()), differing
+    return {"differing": differing}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the full report (JSON) "
@@ -8954,7 +9715,7 @@ def main(argv=None):
                                         "module", "bert", "lm_f32",
                                         "generation", "ops", "zoo", "rnn",
                                         "data", "ssd", "predict",
-                                        "dist"),
+                                        "dist", "mesh"),
                     default="all",
                     help="attention: the flash forward and backward checks "
                     "of phase 2 alone; optimizer: phase 2's K3 and K1 "
@@ -8987,8 +9748,16 @@ def main(argv=None):
                     "dense, row-sparse Adam card against CPU, two gloo "
                     "ranks on the card through the port's launcher, a "
                     "one-card NCCL group), ending in the kernels line for "
-                    "K1 and K3, the card and ok lines")
+                    "K1 and K3, the card and ok lines; mesh: phase 9b "
+                    "alone (tensor, sequence, pipeline and expert "
+                    "parallelism on gloo ranks sharing the card, one NCCL "
+                    "rank), ending in the kernels line for the flash "
+                    "kernels and K1, the card and ok lines")
     ap.add_argument("--dist-worker", metavar="WORKDIR",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-worker", metavar="WORKDIR",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-suite", choices=("two", "four", "nccl"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--nccl-worker", action="store_true",
                     help=argparse.SUPPRESS)
@@ -9001,6 +9770,8 @@ def main(argv=None):
         return dist_worker(args.dist_worker)
     if args.nccl_worker:
         return nccl_worker()
+    if args.mesh_worker:
+        return mesh_worker(args.mesh_worker, args.mesh_suite)
     import numpy as np
     import torch.nn.functional as F
     import mxnet_tpu_torch as mx
@@ -9038,7 +9809,9 @@ def main(argv=None):
          "zoo": ["sgd_step"], "rnn": ["adam_step"],
          "data": ["sgd_step", "adam_step"],
          "ssd": ["sgd_step", "box_nms"], "predict": [],
-         "dist": ["sgd_step", "adam_step"]}.get(args.phase))
+         "dist": ["sgd_step", "adam_step"],
+         "mesh": ["flash_fwd", "flash_bwd", "flash_f32", "sgd_step"]}.get(
+             args.phase))
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "per_source_s": {k: v["seconds"]
                                         for k, v in built.items()},
@@ -9242,6 +10015,44 @@ def main(argv=None):
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if args.phase == "mesh":
+        mesh_sgd_shapes = mesh_mlp_specs()[1]
+        flash = check_flash(ck, torch, F, MESH_FLASH_CASES)
+        bwd_dq, bwd_dkv = check_flash_bwd(ck, torch, F, MESH_FLASH_CASES)
+        flash32 = check_flash(ck, torch, F, MESH_FLASH_CASES, "float32")
+        bwd_dq32, bwd_dkv32 = check_flash_bwd(ck, torch, F,
+                                              MESH_FLASH_CASES, "float32")
+        sgd, sgd_step = check_sgd(ck, torch, mx, np, mesh_sgd_shapes)
+        bad = [c for c in flash + bwd_dq + bwd_dkv + flash32 + bwd_dq32
+               + bwd_dkv32 + sgd if not c["ok"]]
+        if bad:
+            raise AssertionError("kernel disagrees with its plain version: "
+                                 "%s" % json.dumps(bad))
+        report["mesh"] = mesh_phase(mx, ck, np, torch, card, workdir)
+        by = _mesh_launches(report["mesh"])
+        pk = "mxnet_tpu/ops/pallas_kernels.py:"
+        kernels = []
+        for name, source, line, cases in (
+                ("flash_fwd", "flash_fwd.cu", "157", flash),
+                ("flash_bwd_dq", "flash_bwd.cu", "190", bwd_dq),
+                ("flash_bwd_dkv", "flash_bwd.cu", "220", bwd_dkv),
+                ("flash_fwd_f32", "flash_f32.cu", "157", flash32),
+                ("flash_bwd_dq_f32", "flash_f32.cu", "190", bwd_dq32),
+                ("flash_bwd_dkv_f32", "flash_f32.cu", "220", bwd_dkv32)):
+            kern = _summary(name, source, pk + line, cases,
+                            sum(by[name].values()))
+            kern["launches_by_path"] = by[name]
+            kernels.append(kern)
+        kernels.append(_sgd_summary(sgd, sgd_step, by["sgd_step"]))
+        report["kernels"] = kernels
+        _write_report(args.report, report)
+        print(json.dumps({"kernels": [{k: v for k, v in s.items()
+                                       if k != "cases"} for s in kernels]}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.phase == "module":
         report["lr_t_ab"] = lr_t_ab(mx, np, torch)
         report["launch_ab"] = launch_ab(mx, np, torch)
@@ -9249,21 +10060,23 @@ def main(argv=None):
         print(json.dumps(report))
         return 0
 
-    flash = check_flash(ck, torch, F)
+    flash = check_flash(ck, torch, F, FWD_CASES + MESH_FLASH_CASES)
     paged = check_paged(ck, torch, F, quant=False)
     paged8 = check_paged(ck, torch, F, quant=True)
     check_f32q_paged()
     paged32, paged8q = (report[key] for key in f32q_keys)
-    bwd_dq, bwd_dkv = check_flash_bwd(ck, torch, F)
+    bwd_dq, bwd_dkv = check_flash_bwd(ck, torch, F,
+                                      BWD_CASES + MESH_FLASH_CASES)
     flash32 = check_flash(ck, torch, F,
-                          F32_CASES + F32_D32_CASES + F32_D16_CASES,
-                          "float32")
+                          F32_CASES + F32_D32_CASES + F32_D16_CASES
+                          + MESH_FLASH_CASES, "float32")
     bwd_dq32, bwd_dkv32 = check_flash_bwd(
-        ck, torch, F, F32_BWD_CASES + F32_D32_CASES + F32_D16_CASES,
-        "float32")
+        ck, torch, F, F32_BWD_CASES + F32_D32_CASES + F32_D16_CASES
+        + MESH_FLASH_CASES, "float32")
     report["flash_bwd_f32_sweep"] = sweep_flash_bwd_f32(ck, torch)
     adam, adam_step = check_adam(ck, torch)
     sgd, sgd_step = check_sgd(ck, torch, mx, np)
+    sgd += check_sgd(ck, torch, mx, np, mesh_mlp_specs()[1])[0]
     k5f, k5b = check_row_softmax(ck, torch)
     k6 = check_scale_bias_relu(ck, torch)
     bad = [c for c in flash + paged + paged8 + paged32 + paged8q + bwd_dq
@@ -9295,10 +10108,13 @@ def main(argv=None):
     report["ssd"] = ssd_phase(mx, ck, np, torch, card, workdir)
     report["predict"] = predict_phase(mx, np, torch, card, workdir)
     report["dist"] = dist_phase(mx, ck, np, torch, card, workdir)
+    report["mesh"] = mesh_phase(mx, ck, np, torch, card, workdir)
+    mesh_by = _mesh_launches(report["mesh"])
     data_sgd, data_adam = _data_launches(report["data"])
     data_sgd.update(_ssd_sgd_launches(report["ssd"]))
     dist_sgd, dist_adam = _dist_launches(report["dist"])
     data_sgd.update(dist_sgd)
+    data_sgd.update(mesh_by["sgd_step"])
     data_adam.update(dist_adam)
     module_adam = report["module"]["fused"]["launches"]["adam_step"]
     rnn_adam = {"rnn_bucketing_" + kind: run["launches"]["adam_step"]
@@ -9370,6 +10186,9 @@ def main(argv=None):
         kern["launches_by_path"] = {"bert_f32": bert32[kern["name"]],
                                     "lm_f32": lm32[kern["name"]],
                                     "generation": gen[kern["name"]]}
+    # phase 9b's per-rank launches beside each path's
+    for kern in kernels[:6]:
+        kern["launches_by_path"].update(mesh_by[kern["name"]])
     for kern in kernels[8:10]:
         kern["launches_by_path"] = gen["by_run"][kern["name"]]
     report["kernels"] = kernels

@@ -15,6 +15,10 @@ gives them back under the reference's names.  Every family of the model
 zoo builds the reference's names, shapes and order (the zoo tests hold
 them), so these two carry any of them, and ``save_parameters`` files
 carry them too.
+``shard_params`` takes the reference's tree, its PartitionSpecs
+(``model.param_specs()``) and a mesh and gives this rank's blocks, for a
+model built over the mesh; ``gather_params`` gathers every rank's blocks
+back into the whole tree (every rank calls it).
 ``symbol_params_from_reference`` / ``symbol_params_to_reference`` carry
 a symbolic Module's ``(arg_params, aux_params)`` across, as numpy.
 ``oneshot_from_reference`` carries a reference one-shot deploy artifact
@@ -29,6 +33,7 @@ import numpy as _np
 import torch
 
 __all__ = ["params_from_reference", "params_to_reference",
+           "shard_params", "gather_params",
            "gluon_params_from_reference", "gluon_params_to_reference",
            "symbol_params_from_reference", "symbol_params_to_reference",
            "oneshot_from_reference"]
@@ -48,16 +53,17 @@ def params_from_reference(np_tree):
     """Nested ``{"embed", "pos_embed", "final_norm", "layers": {...}}``
     numpy tree -> flat ``{"embed": t, ..., "layers.wqkv": t, ...}`` CPU
     tensors, layouts unchanged."""
+    return {n: _tensor(v) for n, v in _leaves(np_tree).items()}
+
+
+def _leaves(tree, prefix=""):
+    """The leaves of a nested dict under dotted names."""
     out = {}
-
-    def walk(node, prefix):
-        for key, val in node.items():
-            if isinstance(val, dict):
-                walk(val, prefix + key + ".")
-            else:
-                out[prefix + key] = _tensor(val)
-
-    walk(np_tree, "")
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_leaves(val, prefix + key + "."))
+        else:
+            out[prefix + key] = val
     return out
 
 
@@ -77,6 +83,37 @@ def params_to_reference(state_dict):
             node = node.setdefault(key, {})
         node[leaf] = t.numpy()
     return out
+
+
+def _flat_specs(specs):
+    """Nested PartitionSpecs -> ``{"layers.wqkv": spec, ...}``; a None
+    spec (the reference's replicated leaf) is ``()``."""
+    return {n: tuple(v) if v is not None else ()
+            for n, v in _leaves(specs).items()}
+
+
+def shard_params(np_tree, specs, mesh):
+    """The reference's parameters (a nested numpy tree, as
+    :func:`params_from_reference` takes it) and their PartitionSpecs (the
+    same nesting, ``model.param_specs()``) -> this rank's blocks on
+    ``mesh`` as a flat state dict of CPU tensors, for
+    ``load_state_dict`` of the model built over ``mesh``."""
+    from .parallel.collectives import local_block
+    flat = _flat_specs(specs)
+    return {n: local_block(t, mesh, flat.get(n, ())).contiguous()
+            for n, t in params_from_reference(np_tree).items()}
+
+
+@torch.no_grad()
+def gather_params(state_dict, specs, mesh):
+    """The inverse of :func:`shard_params`: every rank's blocks of a state
+    dict gathered whole, as the reference's nested numpy tree, on every
+    rank (a collective: every rank of ``mesh`` calls it)."""
+    from .parallel.collectives import unshard
+    flat = _flat_specs(specs)
+    return params_to_reference({
+        n: unshard(t.detach(), mesh, flat.get(n, ()))
+        for n, t in state_dict.items()})
 
 
 def _top_prefix(names):

@@ -3,8 +3,12 @@ the containers, ``Dense``, ``Dropout``, ``Embedding``, the four norms,
 ``Flatten`` and the two lambdas, each over the registered op of its
 name.  ``Embedding(sparse_grad=True)`` declares a row-sparse gradient
 (``grad_stype="row_sparse"``): ``SPMDTrainer`` trains such a table on its
-deduplicated row-sparse route (``parallel/embedding.py``); on every other
-path its gradient is dense (the sparse arrays are not ported)."""
+deduplicated row-sparse route (``parallel/embedding.py``); under
+``autograd.record()`` the layer notes the ids it looked up on its
+weight (``Parameter.note_rows``), and ``gluon.Trainer`` updates only
+those rows with an optimizer that has a lazy row step, as the
+reference's row-sparse gradient does.  The gradient buffer itself is
+dense (the sparse arrays are not ported)."""
 from __future__ import annotations
 
 import math
@@ -267,6 +271,9 @@ class Embedding(HybridBlock):
                 grad_stype="row_sparse" if sparse_grad else "default")
 
     def hybrid_forward(self, F, x, weight):
+        if self._kwargs["sparse_grad"] and autograd.is_recording() \
+                and hasattr(x, "_data"):
+            self.weight.note_rows(x._data.to(torch.int64))
         return F.Embedding(x, weight, **self._kwargs)
 
     def __repr__(self):

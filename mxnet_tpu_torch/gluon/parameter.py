@@ -83,6 +83,9 @@ class Parameter:
                 raise ValueError("invalid stype '%s'" % st)
         self._stype = stype
         self._grad_stype = grad_stype
+        # the row ids a row-sparse gradient's lookups read since the last
+        # update (note_rows / take_rows)
+        self._looked_up = []
 
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self.shape,
@@ -143,6 +146,25 @@ class Parameter:
     @property
     def grad_stype(self):
         return self._grad_stype
+
+    def note_rows(self, ids):
+        """Record row ids a lookup read under ``autograd.record()`` (a
+        ``grad_stype='row_sparse'`` parameter: ``Embedding(sparse_grad=
+        True)``).  They stand for the rows the reference's row-sparse
+        gradient holds, a looked-up row with a zero gradient included."""
+        self._looked_up.append(ids.detach().reshape(-1))
+
+    def take_rows(self):
+        """The union of the ids noted since the last call, deduplicated
+        (``parallel.embedding.dedup_ids``: sorted, padded with -1, which
+        no update writes), and forget them; None when none were
+        noted."""
+        if not self._looked_up:
+            return None
+        from ..parallel.embedding import dedup_ids
+        ids = torch.cat(self._looked_up)
+        self._looked_up = []
+        return dedup_ids(ids, ids.numel(), -1)[0]
 
     # ------------------------------------------------------------- internal
     def _check_and_get(self, arr):
@@ -317,6 +339,7 @@ class Parameter:
 
     def zero_grad(self):
         """Set the gradient buffer to 0 (reference ``parameter.py:321``)."""
+        self._looked_up = []
         if self._grad is None:
             return
         self._grad._data = torch.zeros_like(self._grad._data)

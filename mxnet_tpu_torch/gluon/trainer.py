@@ -15,6 +15,17 @@ the reference's ``_create_kvstore`` decides.  ``compression_params``
 (``{"type": "2bit", "threshold": t}``) go to the kvstore, whose dist
 push then sends 2-bit codes with error feedback.
 
+A row-sparse gradient (``Embedding(sparse_grad=True)``) under an
+optimizer with a lazy row step (``Optimizer.lazy_rows``: SGD, Adam)
+updates only the rows its lookups read since the last step
+(``Parameter.take_rows``), as the reference's ``RowSparseNDArray``
+gradient does (``gluon/trainer.py:298-306``, ``optimizer.py:214-230``):
+a row no lookup read sees no weight decay and no momentum or moment
+decay, and a looked-up row with a zero gradient does.  The kvstore's
+updater takes a dense sum and the union of the rows over several ranks
+is not taken, so ``update_on_kvstore`` and a kvstore of more than one
+worker raise for such a parameter, with the reason.
+
 ``save_states`` writes the optimizer states and the optimizer to a
 file atomically (``Updater.get_states(dump_optimizer=True)``);
 ``load_states`` reads the port's files and the reference's (a pickle of
@@ -26,6 +37,8 @@ nanguard and numerics-capture knobs (``resilience.nanguard``,
 ``numerics.capture``) and ``set_preemption_save``.
 """
 from __future__ import annotations
+
+import torch
 
 from .. import config as _config
 from .. import optimizer as opt
@@ -97,6 +110,16 @@ class Trainer:
                 update_on_kvstore = "dist" in kv.type
             if self._compression_params:
                 kv.set_gradient_compression(self._compression_params)
+            lazy = [p.name for p in self._params if self._lazy(p)]
+            if lazy and (update_on_kvstore or kv.num_workers > 1):
+                raise NotImplementedError(
+                    "gluon.Trainer: the lazy row-sparse update of %s is not "
+                    "ported with update_on_kvstore (the store's updater "
+                    "takes a dense sum) nor over %d workers (the union of "
+                    "the rows the ranks read is not taken); pass "
+                    "update_on_kvstore=False on one worker, or train on "
+                    "SPMDTrainer's row-sparse route" % (lazy,
+                                                        kv.num_workers))
             self._kvstore = kv
             self._update_on_kvstore = update_on_kvstore
             if update_on_kvstore:
@@ -210,12 +233,22 @@ class Trainer:
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 
+    def _lazy(self, param):
+        return param.grad_stype == "row_sparse" and \
+            self._optimizer.lazy_rows()
+
     def _update(self, ignore_stale_grad=False):
         if self._kvstore and self._update_on_kvstore:
             return
         updater = self._updaters[0]
         for i, param in enumerate(self._params):
             if param.grad_req == "null":
+                continue
+            if self._lazy(param):
+                rows = param.take_rows()
+                if rows is None:
+                    rows = torch.empty(0, dtype=torch.int32)
+                updater.update_rows(i, rows, param.grad(), param.data())
                 continue
             updater(i, param.grad(), param.data())
 

@@ -17,6 +17,17 @@ reference's tree through ``BERT.load_state_dict`` as it is.  The encoder's
 parameters are BERT's own: ``self.encoder`` is a TransformerLM that
 shares them and is not a submodule.  ``mlm_bias_v`` is f32 whatever the
 model dtype, as in the reference.
+
+Over a mesh (``mesh=``) the encoder takes TransformerLM's splits, and the
+pooler and the MLM transform are split on their columns over ``tp``
+(:meth:`BERT.param_specs`, the reference's): each rank computes its
+columns, and the columns are gathered before the next-sentence head
+and before the MLM norm, which runs over the whole ``d_model``.  Every
+rank passes the global batch and takes its rows over ``dp``; the loss
+sums each rank's rows over ``dp`` before it divides, and
+:meth:`BERT.allreduce_grads` sums the gradients over ``dp``.  A
+sequence split (``sp`` of more than one rank) raises: the heads read
+positions of the whole sequence.
 """
 from __future__ import annotations
 
@@ -24,8 +35,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..context import resolve_device
-from .transformer import TransformerLM, TransformerLMConfig, _norm
+from ..parallel import collectives as _coll
+from ..parallel.mesh import PartitionSpec as P
+from .transformer import (TransformerLM, TransformerLMConfig, _norm,
+                          init_weights)
 
 __all__ = ["BERTConfig", "BERT", "bert_base"]
 
@@ -53,15 +66,24 @@ _ZEROS = ("pooler_b", "nsp_b", "mlm_b", "mlm_bias_v")
 class BERT(nn.Module):
     """Encoder and pretraining heads over the shared transformer stack.
 
-    ``device`` defaults to ``cuda:0`` and raises without a GPU; pass
-    ``device="cpu"`` to run on the CPU.  Parameters are created without
-    gradients (``model.requires_grad_(True)`` switches them on)."""
+    ``device`` defaults to ``cuda:0`` (``mesh.device`` with a mesh) and
+    raises without a GPU; pass ``device="cpu"`` to run on the CPU.
+    ``mesh`` splits the model (module docstring).  Parameters are created
+    without gradients (``model.requires_grad_(True)`` switches them
+    on)."""
 
-    def __init__(self, config, device=None):
+    def __init__(self, config, mesh=None, device=None):
         super().__init__()
         self.cfg = config
-        dev = resolve_device(device)
-        enc = TransformerLM(config, device=dev)
+        enc = TransformerLM(config, mesh=mesh, device=device)
+        if enc._sp_live:
+            raise NotImplementedError(
+                "BERT over a sequence split (sp=%d) is not ported: the "
+                "pooler and the masked-LM head read positions of the whole "
+                "sequence" % mesh.shape["sp"])
+        self.mesh = mesh
+        dev = enc.device
+        tp = mesh.shape["tp"] if enc._tp_live else 1
         # the encoder's parameters are BERT's, under the reference's names
         self.embed = enc.embed
         self.pos_embed = enc.pos_embed
@@ -75,13 +97,13 @@ class BERT(nn.Module):
                                 requires_grad=False)
 
         self.type_embed = p(config.type_vocab, D)
-        self.pooler_w = p(D, D)
-        self.pooler_b = p(D)
+        self.pooler_w = p(D, D // tp)
+        self.pooler_b = p(D // tp)
         self.nsp_w = p(D, 2)
         self.nsp_b = p(2)
         # the MLM transform before the tied-embedding readout
-        self.mlm_w = p(D, D)
-        self.mlm_b = p(D)
+        self.mlm_w = p(D, D // tp)
+        self.mlm_b = p(D // tp)
         self.mlm_norm = p(D)
         self.mlm_bias_v = p(config.vocab_size, dtype=torch.float32)
 
@@ -90,39 +112,66 @@ class BERT(nn.Module):
         return self.embed.device
 
     # -------------------------------------------------------------- params
-    @torch.no_grad()
     def init(self, seed=0):
         """Random weights from ``seed``, the reference's distribution:
         normal(0, 0.02) matrices, unit norm scales, zero biases."""
-        g = torch.Generator(device=self.device)
-        g.manual_seed(int(seed))
-        for name, prm in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in _ONES:
-                prm.fill_(1.0)
-            elif leaf in _ZEROS:
-                prm.zero_()
-            else:
-                prm.copy_(torch.randn(prm.shape, generator=g,
-                                      device=self.device,
-                                      dtype=torch.float32) * 0.02)
-        return self
+        return init_weights(self, seed, _ONES, _ZEROS)
 
     def param_specs(self):
-        raise NotImplementedError(
-            "BERT.param_specs (tensor-parallel shardings) is not ported: "
-            "meshes over several devices come with the scale-out slice "
-            "(ROADMAP queue 1, slice 14); the port trains on one device")
+        """The PartitionSpec of each parameter (the reference's): the
+        encoder's, and the pooler and the MLM transform split on their
+        columns over ``tp``."""
+        specs = self.encoder.param_specs()
+        tp = self.encoder._tp
+        specs.update({
+            "type_embed": P(None, None),
+            "pooler_w": P(None, tp),
+            "pooler_b": P(tp),
+            "nsp_w": P(None, None),
+            "nsp_b": P(None),
+            "mlm_w": P(None, tp),
+            "mlm_b": P(tp),
+            "mlm_norm": P(None),
+            "mlm_bias_v": P(None),
+        })
+        return specs
+
+    flat_specs = TransformerLM.flat_specs
+    # sums every gradient over dp (BERT takes no sp split)
+    allreduce_grads = TransformerLM.allreduce_grads
+
+    @property
+    def _batch_live(self):
+        return self.encoder._batch_live
 
     # ------------------------------------------------------------- forward
     def _index(self, x):
         return self.encoder._as_index(x)
 
+    def _rows(self, x):
+        """This rank's rows (over ``dp``) of a global [B, ...] index
+        array, as int64 on the model's device."""
+        x = self._index(x)
+        if self.mesh is None:
+            return x
+        return _coll.local_block(x, self.mesh, (self.encoder._dp,))
+
+    def _columns(self, x, w, b):
+        """``x @ w + b`` in f32 for a weight and bias split on their
+        columns over ``tp``: each rank's columns, gathered whole."""
+        enc = self.encoder
+        t = torch.matmul(enc._tp_in(x).float(), w.float()) + b.float()
+        if enc._tp_live:
+            t = _coll.unshard(t, self.mesh, (None,) * (t.dim() - 1)
+                              + (enc._tp_live,))
+        return t
+
     def encode(self, tokens, token_types):
         """tokens / token_types [B, S] int -> hidden [B, S, D] in the
         model dtype: the three embeddings summed, then
-        ``TransformerLM.run_stack``."""
-        tokens, token_types = self._index(tokens), self._index(token_types)
+        ``TransformerLM.run_stack``.  Over a mesh: this rank's rows of
+        the global arrays."""
+        tokens, token_types = self._rows(tokens), self._rows(token_types)
         S = tokens.shape[1]
         x = (self.embed[tokens] + self.pos_embed[:S][None]
              + self.type_embed[token_types])
@@ -132,9 +181,8 @@ class BERT(nn.Module):
         """-> ``(hidden [B, S, D], pooled [B, D] f32)``: the sequence
         output and the tanh pooler over the first position."""
         h = self.encode(tokens, token_types)
-        pooled = torch.tanh(torch.matmul(h[:, 0].float(),
-                                         self.pooler_w.float())
-                            + self.pooler_b.float())
+        pooled = torch.tanh(self._columns(h[:, 0], self.pooler_w,
+                                          self.pooler_b))
         return h, pooled
 
     forward = apply
@@ -149,8 +197,8 @@ class BERT(nn.Module):
         B, M = positions.shape
         g = torch.gather(hidden, 1,
                          positions[..., None].expand(B, M, hidden.shape[-1]))
-        t = torch.matmul(g.float(), self.mlm_w.float()) + self.mlm_b.float()
-        t = F.gelu(t, approximate="tanh")
+        t = F.gelu(self._columns(g, self.mlm_w, self.mlm_b),
+                   approximate="tanh")
         t = _norm(t.to(self.cfg.dtype), self.mlm_norm)
         return (torch.matmul(t.float(), self.embed.float().t())
                 + self.mlm_bias_v)
@@ -160,17 +208,28 @@ class BERT(nn.Module):
                       mlm_weights, nsp_labels):
         """Masked-LM plus next-sentence loss (f32 scalar): the MLM cross
         entropy weighted by ``mlm_weights`` [B, M] over ``max(sum(w),
-        1)``, plus the mean NSP cross entropy over ``nsp_labels`` [B]."""
+        1)``, plus the mean NSP cross entropy over ``nsp_labels`` [B].
+        Over a mesh every rank passes the global batch; with ``dp`` ranks
+        the sums are summed over them before the divisions."""
         hidden, pooled = self.apply(tokens, token_types)
-        logits = self.mlm_logits(hidden, mlm_positions)
+        logits = self.mlm_logits(hidden, self._rows(mlm_positions))
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
-                            self._index(mlm_labels)[..., None])[..., 0]
+                            self._rows(mlm_labels)[..., None])[..., 0]
         w = torch.as_tensor(mlm_weights, device=self.device).float()
-        mlm = ((logz - gold) * w).sum() / torch.clamp(w.sum(), min=1.0)
+        if self.mesh is not None:
+            w = _coll.local_block(w, self.mesh, (self.encoder._dp,))
         nsp_logits = (torch.matmul(pooled, self.nsp_w.float())
                       + self.nsp_b.float())
         nlogz = torch.logsumexp(nsp_logits, dim=-1)
         ngold = torch.gather(nsp_logits, -1,
-                             self._index(nsp_labels)[..., None])[..., 0]
-        return mlm + (nlogz - ngold).mean()
+                             self._rows(nsp_labels)[..., None])[..., 0]
+        batch = self._batch_live
+        if not batch:
+            mlm = ((logz - gold) * w).sum() / torch.clamp(w.sum(), min=1.0)
+            return mlm + (nlogz - ngold).mean()
+        num = _coll.psum(((logz - gold) * w).sum(), self.mesh, batch)
+        den = _coll.psum(w.sum(), self.mesh, batch)
+        nsp = _coll.psum((nlogz - ngold).sum(), self.mesh, batch)
+        n = torch.as_tensor(nsp_labels).shape[0]
+        return num / torch.clamp(den, min=1.0) + nsp / n

@@ -10,6 +10,24 @@ unchanged.  The reference's ``lax.scan`` over layers is
 ``runtime.scan_stack``, a Python loop over the stacked weights
 (:meth:`TransformerLM.run_stack`, the encoder body BERT shares).
 
+Over a mesh (``mesh=``, one process a rank) the model takes the
+reference's axes: the batch over ``dp``, attention heads and MLP columns
+over ``tp`` (Megatron's splits, :meth:`TransformerLM.param_specs`), the
+sequence over ``sp`` in contiguous blocks (ring attention).  Each rank
+holds its block of every weight: ``wqkv`` and ``wo`` split on heads,
+``w1`` on ``d_ff`` columns, ``w2`` on ``d_ff`` rows, the rest whole.  A
+layer makes one sum over ``tp`` after ``wo`` and one after ``w2``, of
+the f32 partial products before the cast to the model's dtype (the
+reference's einsums accumulate in f32 and cast after), and the local
+heads run through ``kernels.attention`` when ``sp`` has one rank, else
+through ``parallel.ring_attention``.  The loss and the forward take the
+GLOBAL token arrays on every rank and use this rank's block; the loss is
+the mean over the global batch.  After ``backward()``,
+:meth:`TransformerLM.allreduce_grads` sums the gradients over ``dp`` and
+``sp`` (the ranks with other tokens), never over ``tp``: under
+Megatron's pair of collectives a weight every rank holds whole already
+has the same gradient on each ``tp`` rank.
+
 Generation state is a POOL of fixed-size KV pages shared by every
 in-flight sequence; each sequence owns a page-table row of page ids.
 Position ``t`` lives at slot ``t % page_size`` of page
@@ -32,6 +50,9 @@ from torch import nn
 from .. import kernels as _kernels
 from .. import runtime as _runtime
 from ..context import resolve_device
+from ..parallel import collectives as _coll
+from ..parallel.mesh import PartitionSpec as P
+from ..parallel.ring_attention import ring_attention
 from ..quantization import quantize_rows
 
 __all__ = ["TransformerLMConfig", "TransformerLM", "gumbel_noise"]
@@ -118,15 +139,19 @@ def _host(x):
 
 #: the stacked per-layer weights, in the reference's order
 LAYER_NAMES = ("ln1", "wqkv", "wo", "ln2", "w1", "w2")
+#: the norm scales, which :meth:`TransformerLM.init` sets to one
+_UNIT_SCALES = ("ln1", "ln2", "final_norm")
 
 
 class _Layers(nn.Module):
-    """The per-layer weights, stacked over layers (reference layout)."""
+    """The per-layer weights, stacked over layers (reference layout); a
+    ``tp``-way split holds ``H / tp`` heads and ``d_ff / tp`` MLP
+    columns."""
 
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device, tp=1):
         super().__init__()
-        L, D, F_, H, Dh = (cfg.num_layers, cfg.d_model, cfg.d_ff,
-                           cfg.num_heads, cfg.head_dim)
+        L, D, F_, H, Dh = (cfg.num_layers, cfg.d_model, cfg.d_ff // tp,
+                           cfg.num_heads // tp, cfg.head_dim)
 
         def p(*shape):
             return nn.Parameter(torch.zeros(shape, dtype=cfg.dtype,
@@ -141,17 +166,67 @@ class _Layers(nn.Module):
         self.w2 = p(L, F_, D)
 
 
+@torch.no_grad()
+def init_weights(model, seed, ones, zeros=()):
+    """``model``'s weights from ``seed``: the parameters named (last
+    component) in ``ones`` set to 1, in ``zeros`` to 0, the rest
+    normal(0, 0.02) drawn in ``named_parameters`` order.  Over a mesh each
+    rank draws the whole tensors and keeps its blocks
+    (``model.flat_specs()``), so the weights are the one-rank model's.
+    Returns ``model``."""
+    g = torch.Generator(device=model.device)
+    g.manual_seed(int(seed))
+    mesh = model.mesh
+    specs = model.flat_specs() if mesh is not None else {}
+    for name, prm in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ones or leaf in zeros:
+            prm.fill_(1.0 if leaf in ones else 0.0)
+            continue
+        spec = specs.get(name, ())
+        shape = tuple(n * mesh.axis_size(spec[d]) if d < len(spec) else n
+                      for d, n in enumerate(prm.shape))
+        w = torch.randn(shape, generator=g, device=model.device,
+                        dtype=torch.float32) * 0.02
+        prm.copy_(_coll.local_block(w, mesh, spec) if spec else w)
+    return model
+
+
+def _mesh_axis(mesh, name):
+    """``name`` when ``mesh`` has it with more than one rank, else None."""
+    if mesh is not None and mesh.shape.get(name, 1) > 1:
+        return name
+    return None
+
+
 class TransformerLM(nn.Module):
     """Decoder-only transformer over stacked layer weights.
 
-    ``device`` defaults to ``cuda:0`` and raises without a GPU; pass
-    ``device="cpu"`` to run on the CPU.  ``self.gumbel`` is the sampler's
-    noise source (:func:`gumbel_noise`); tests replace it to feed both
-    packages identical noise."""
+    ``device`` defaults to ``cuda:0`` (``mesh.device`` with a mesh) and
+    raises without a GPU; pass ``device="cpu"`` to run on the CPU.
+    ``mesh`` splits the model over its ``dp`` / ``tp`` / ``sp`` axes
+    (module docstring).  ``self.gumbel`` is the sampler's noise source
+    (:func:`gumbel_noise`); tests replace it to feed both packages
+    identical noise."""
 
-    def __init__(self, config, device=None):
+    def __init__(self, config, mesh=None, device=None):
         super().__init__()
         self.cfg = config
+        self.mesh = mesh
+        names = mesh.axis_names if mesh is not None else ()
+        self._dp = "dp" if "dp" in names else None
+        self._tp = "tp" if "tp" in names else None
+        self._sp = "sp" if "sp" in names else None
+        self._tp_live = _mesh_axis(mesh, "tp")
+        self._sp_live = _mesh_axis(mesh, "sp")
+        self._batch_live = tuple(a for a in ("dp", "sp")
+                                 if _mesh_axis(mesh, a))
+        tp = mesh.shape["tp"] if self._tp_live else 1
+        if config.num_heads % tp or config.d_ff % tp:
+            raise ValueError("num_heads %d and d_ff %d must split over tp=%d"
+                             % (config.num_heads, config.d_ff, tp))
+        if device is None and mesh is not None:
+            device = mesh.device
         dev = resolve_device(device)
         V, D, S = config.vocab_size, config.d_model, config.max_len
 
@@ -163,7 +238,7 @@ class TransformerLM(nn.Module):
         self.embed = p(V, D)
         self.pos_embed = p(S, D)
         self.final_norm = p(D)
-        self.layers = _Layers(config, dev)
+        self.layers = _Layers(config, dev, tp)
         self.gumbel = gumbel_noise
 
     @property
@@ -171,32 +246,80 @@ class TransformerLM(nn.Module):
         return self.embed.device
 
     # -------------------------------------------------------------- params
-    @torch.no_grad()
+    def param_specs(self):
+        """The PartitionSpec of each parameter, in the reference's nested
+        layout: Megatron's column and row splits on ``tp``."""
+        tp = self._tp
+        return {
+            "embed": P(None, None),
+            "pos_embed": P(None, None),
+            "final_norm": P(None),
+            "layers": {
+                "ln1": P(None, None),
+                "wqkv": P(None, None, None, tp, None),
+                "wo": P(None, tp, None, None),
+                "ln2": P(None, None),
+                "w1": P(None, None, tp),
+                "w2": P(None, tp, None),
+            },
+        }
+
+    def flat_specs(self):
+        """:meth:`param_specs` under the state dict's names
+        (``layers.wqkv``, ...)."""
+        from ..convert import _leaves
+        return _leaves(self.param_specs())
+
     def init(self, seed=0):
         """Random weights from ``seed``: normal(0, 0.02) matrices, unit
         norm scales (the reference's ``init`` distribution)."""
-        g = torch.Generator(device=self.device)
-        g.manual_seed(int(seed))
-        for name, prm in self.named_parameters():
-            if name.endswith(("ln1", "ln2", "final_norm")):
-                prm.fill_(1.0)
-            else:
-                prm.copy_(torch.randn(prm.shape, generator=g,
-                                      device=self.device,
-                                      dtype=torch.float32) * 0.02)
-        return self
+        return init_weights(self, seed, _UNIT_SCALES)
+
+    def allreduce_grads(self):
+        """Sum every parameter's ``.grad`` over the ranks holding other
+        tokens (``dp`` and ``sp``), in place, in one collective; a no-op
+        without such ranks.  Call it after ``backward()`` and before the
+        update."""
+        if not self._batch_live:
+            return
+        params = [p for p in self.parameters() if p.grad is not None]
+        if not params:
+            return
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        flat = _coll.psum(flat, self.mesh, self._batch_live)
+        off = 0
+        for p in params:
+            p.grad.copy_(flat[off:off + p.grad.numel()].view_as(p.grad))
+            off += p.grad.numel()
 
     # -------------------------------------------------------------- forward
     def _layer_weights(self, li):
         """Layer ``li``'s slice of the stacked weights, by name."""
         return {n: getattr(self.layers, n)[li] for n in LAYER_NAMES}
 
+    def _tp_in(self, h):
+        """Megatron's "f" before a column-split matmul: the identity,
+        whose backward sums the input's gradient over ``tp``."""
+        if self._tp_live:
+            return _coll.copy_to(h, self.mesh, (self._tp_live,))
+        return h
+
+    def _row_matmul(self, a, w):
+        """``a @ w`` for a weight split on its rows over ``tp`` (Megatron's
+        "g"): the f32 partial products summed over ``tp``; one rank's
+        product is the plain matmul."""
+        if self._tp_live:
+            return _coll.psum(torch.matmul(a.float(), w.float()), self.mesh,
+                              (self._tp_live,))
+        return torch.matmul(a, w)
+
     def _qkv(self, x, lp):
-        """ln1 + fused QKV projection: x [B,S,D] -> q,k,v [B,H,S,Dh];
-        ``lp`` is one layer's weights (:meth:`_layer_weights`)."""
+        """ln1 + fused QKV projection: x [B,S,D] -> q,k,v [B,H,S,Dh] (H the
+        rank's heads); ``lp`` is one layer's weights
+        (:meth:`_layer_weights`)."""
         B, S, D = x.shape
-        H, Dh = self.cfg.num_heads, self.cfg.head_dim
-        h = _norm(x, lp["ln1"])
+        H, Dh = lp["wqkv"].shape[-2], self.cfg.head_dim
+        h = self._tp_in(_norm(x, lp["ln1"]))
         w = lp["wqkv"].reshape(D, 3 * H * Dh)
         qkv = torch.matmul(h, w).to(x.dtype).view(B, S, 3, H, Dh)
         q = qkv[:, :, 0].transpose(1, 2)
@@ -209,19 +332,24 @@ class TransformerLM(nn.Module):
         the attention output [B,H,S,Dh]."""
         B, H, S, Dh = o.shape
         wo = lp["wo"].reshape(H * Dh, -1)
-        o = torch.matmul(o.transpose(1, 2).reshape(B, S, H * Dh), wo)
+        o = self._row_matmul(o.transpose(1, 2).reshape(B, S, H * Dh), wo)
         x = x + o.to(x.dtype)
-        h = _norm(x, lp["ln2"])
+        h = self._tp_in(_norm(x, lp["ln2"]))
         u = torch.matmul(h, lp["w1"])
         u = F.gelu(u.float(), approximate="tanh").to(x.dtype)
-        d = torch.matmul(u, lp["w2"]).to(x.dtype)
+        d = self._row_matmul(u, lp["w2"]).to(x.dtype)
         return x + d
+
+    def _attention(self, q, k, v):
+        if self._sp_live:
+            return ring_attention(q, k, v, axis_name=self._sp_live,
+                                  causal=self.cfg.causal, mesh=self.mesh)
+        return _kernels.attention(q, k, v, causal=self.cfg.causal)
 
     def _layer(self, x, lp):
         """One whole layer: attention (``cfg.causal``) and the MLP."""
         q, k, v = self._qkv(x, lp)
-        o = _kernels.attention(q, k, v, causal=self.cfg.causal)
-        return self._attn_mlp(x, o, lp)
+        return self._attn_mlp(x, self._attention(q, k, v), lp)
 
     def run_stack(self, x):
         """The shared encoder body: the layers through
@@ -247,33 +375,67 @@ class TransformerLM(nn.Module):
         return torch.as_tensor(_host(x).astype(_np.int64),
                                device=self.device)
 
+    def _token_spec(self):
+        """How a [B, S] token array splits: rows over ``dp``, positions
+        over ``sp``."""
+        return (self._dp, self._sp)
+
+    def _local(self, x):
+        """This rank's block of a global [B, S, ...] array."""
+        if self.mesh is None:
+            return x
+        return _coll.local_block(x, self.mesh, self._token_spec())
+
+    def _positions(self, S):
+        """The global positions of this rank's S sequence positions."""
+        start = self.mesh.axis_index(self._sp) * S if self._sp_live else 0
+        return torch.arange(start, start + S, device=self.device)[None]
+
     def _logits(self, tokens):
         """The differentiable forward shared by :meth:`apply` and
-        :meth:`loss`: tokens [B, S] int64 on the model's device -> logits
-        [B, S, V] (f32)."""
-        S = tokens.shape[1]
-        x = self._embed(tokens, torch.arange(S, device=self.device)[None])
+        :meth:`loss`: tokens [B, S] int64 on the model's device (this
+        rank's block) -> logits [B, S, V] (f32)."""
+        x = self._embed(tokens, self._positions(tokens.shape[1]))
         x = self.run_stack(x)
         return torch.matmul(x.float(), self.embed.float().t())
 
     @torch.no_grad()
     def apply(self, tokens):
         """tokens [B, S] int -> logits [B, S, V] (f32), without autograd
-        (the serving forward)."""
-        return self._logits(self._as_index(tokens))
+        (the serving forward).  Over a mesh every rank passes the global
+        tokens and gets the global logits."""
+        logits = self._logits(self._local(self._as_index(tokens)))
+        if self.mesh is None:
+            return logits
+        return _coll.unshard(logits, self.mesh, self._token_spec())
 
     forward = apply
 
     def loss(self, tokens, targets):
         """Mean next-token cross entropy over f32 logits, ``logsumexp -
         gold`` as the reference computes it; tokens and targets [B, S]
-        int.  Differentiable: parameters get gradients once switched on
-        (``model.requires_grad_(True)``; they are created without)."""
-        logits = self._logits(self._as_index(tokens))
-        targets = self._as_index(targets)
+        int (the global arrays on every rank over a mesh).
+        Differentiable: parameters get gradients once switched on
+        (``model.requires_grad_(True)``; they are created without).  With
+        ``dp`` or ``sp`` ranks, each rank's sum over its block is summed
+        over them and divided by the global count."""
+        tokens, targets = self._as_index(tokens), self._as_index(targets)
+        logits = self._logits(self._local(tokens))
+        targets = self._local(targets)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-        return (logz - gold).mean()
+        if not self._batch_live:
+            return (logz - gold).mean()
+        total = _coll.psum((logz - gold).sum(), self.mesh, self._batch_live)
+        return total / tokens.numel()
+
+    def _check_one_rank_decode(self, what):
+        if self._tp_live or self._sp_live:
+            raise NotImplementedError(
+                "TransformerLM.%s over a mesh with tp or sp ranks is not "
+                "ported: the paged cache holds whole heads on one rank "
+                "(the reference runs it under XLA's sharding propagation); "
+                "serve from a one-rank model" % what)
 
     # --------------------------------------------- generation (paged KV)
     def kv_spec(self, quantized=False):
@@ -369,6 +531,7 @@ class TransformerLM(nn.Module):
         itself reads the full-precision stream.  Returns
         ``(kv, next_token [B])`` plus the next-token logits with
         ``return_logits``."""
+        self._check_one_rank_decode("prefill")
         cfg = self.cfg
         tokens = self._as_index(tokens)
         lengths = self._as_index(lengths)
@@ -425,6 +588,7 @@ class TransformerLM(nn.Module):
         scheduler.  With an int8 pool the appended row is quantised and the
         per-row scales are read beside the pages, dequantised in registers.
         Returns ``(kv, next_token [B])`` (+ logits with ``return_logits``)."""
+        self._check_one_rank_decode("decode_step")
         cfg = self.cfg
         token_ids = self._as_index(token_ids)
         pos_h = _host(positions)

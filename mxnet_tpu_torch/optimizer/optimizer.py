@@ -377,6 +377,32 @@ class Optimizer:
         weight.copy_(new_w)
         _state_write(state, new_state)
 
+    def lazy_rows(self):
+        """Whether a row-sparse gradient takes the lazy row update
+        (:meth:`update_rows`): the reference's rule, ``lazy_update`` set
+        and a ``step_rows`` defined (``optimizer.py:214-230``)."""
+        return bool(getattr(self, "lazy_update", False)) and \
+            hasattr(self, "step_rows")
+
+    @torch.no_grad()
+    def update_rows(self, index, weight, rows, grad, state):
+        """The lazy row-sparse update of parameter ``index`` (the
+        reference's ``update`` of a ``RowSparseNDArray`` gradient): the
+        step is counted and ``step_rows`` runs on ``rows`` only (unique
+        ids; those outside the table are dropped), with ``grad``'s rows
+        preprocessed.  Rows outside ``rows`` see no weight decay and no
+        state decay.  ``weight``, ``grad`` and ``state`` are tensors, the
+        weight and state updated in place."""
+        self._update_count(index)
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        t = self._index_update_count[index]
+        if rows.numel() == 0:
+            return
+        _, safe = _row_index(rows, weight.shape[0])
+        g = self._preprocess_grad(grad.index_select(0, safe))
+        self.step_rows(weight, rows, g, state, lr, wd, t)
+
     @torch.no_grad()
     def update_multi_precision(self, index, weight, grad, state):
         """``update`` through the f32 master copy of a low-precision
@@ -1180,20 +1206,35 @@ class Updater:
         self.states = {}
         self.states_synced = {}
 
+    def _ensure_state(self, idx, w):
+        if idx not in self.states:
+            self.states[idx] = self.optimizer.create_state_multi_precision(
+                idx, w._data.detach())
+            self.states_synced[idx] = True
+        elif not self.states_synced[idx]:
+            self.states[idx] = self.sync_state_context(self.states[idx],
+                                                       w._data.device)
+            self.states_synced[idx] = True
+        return self.states[idx]
+
+    def update_rows(self, index, rows, grad, weight):
+        """The lazy row-sparse update of one NDArray ``weight`` over the
+        row ids ``rows`` (``Optimizer.update_rows``).  A low-precision
+        weight under ``multi_precision`` updates densely through its
+        master, as the reference's ``update_multi_precision`` does."""
+        state = self._ensure_state(index, weight)
+        if self.optimizer._uses_master(weight._data, state):
+            self(index, grad, weight)
+            return
+        self.optimizer.update_rows(index, weight._data, rows, grad._data,
+                                   state)
+
     def __call__(self, index, grad, weight):
         many = isinstance(index, (list, tuple))
         if not many:
             index, grad, weight = [index], [grad], [weight]
         for idx, w in zip(index, weight):
-            if idx not in self.states:
-                self.states[idx] = \
-                    self.optimizer.create_state_multi_precision(
-                        idx, w._data.detach())
-                self.states_synced[idx] = True
-            elif not self.states_synced[idx]:
-                self.states[idx] = self.sync_state_context(
-                    self.states[idx], w._data.device)
-                self.states_synced[idx] = True
+            self._ensure_state(idx, w)
         if many:
             self.optimizer.update_multi_precision(
                 list(index), [w._data for w in weight],

@@ -20,12 +20,15 @@ __all__ = ["two_bit_compress", "two_bit_decompress", "pack_2bit",
 
 def two_bit_compress(grad, residual, threshold):
     """``(grad, residual) -> (codes int8 in {-1, 0, +1}, new_residual)``:
-    ``g = grad + residual`` is coded +1 at or above ``threshold``, -1 at
-    or below ``-threshold``, else 0, and ``g - codes * threshold`` is the
+    ``g = grad + residual`` is coded +1 at or above ``threshold``, else -1
+    at or below ``-threshold``, else 0, and ``g - codes * threshold`` is the
     new residual."""
     g = grad + residual
-    codes = ((g >= threshold).to(torch.int8)
-             - (g <= -threshold).to(torch.int8))
+    # +1 wins where both tests hold (a threshold <= 0), as the reference's
+    # nested where codes it
+    one = torch.ones((), dtype=torch.int8, device=g.device)
+    codes = torch.where(g >= threshold, one,
+                        torch.where(g <= -threshold, -one, 0 * one))
     return codes, g - codes.to(g.dtype) * threshold
 
 

@@ -9,9 +9,12 @@ devices but not one a rank raises: it never trains on fewer.  A
 one-device mesh is rank-local (each rank computes alone on it).
 
 Axis conventions are the reference's (:data:`AXES`): ``dp`` data
-parallel, ``dcn`` the slow cross-host hop (gradient sync over it may be
-2-bit compressed), and ``fsdp`` / ``tp`` / ``sp`` / ``pp`` / ``ep``,
-which only size-1 meshes use until their modules are ported.
+parallel, ``fsdp`` parameters sharded over the data-parallel ranks,
+``tp`` tensor parallel (attention heads and MLP columns, Megatron's
+splits), ``sp`` sequence parallel (ring attention), ``pp`` pipeline
+stages, ``ep`` MoE experts, and ``dcn`` the slow cross-host hop
+(gradient sync over it may be 2-bit compressed).  The collectives over
+an axis are :mod:`.collectives`.
 
 A batch means the same to every rank as in the reference: the GLOBAL
 batch, split on its first axis over the batch axes (:func:`shard_batch`
@@ -79,6 +82,27 @@ class Mesh:
 
     def axis_index(self, axis):
         return self.coords()[axis]
+
+    def axis_size(self, axes):
+        """The number of ranks along ``axes`` (a name or a tuple of
+        them)."""
+        return math.prod(self.shape[a] for a in _spec_axes(axes))
+
+    def rank_of(self, coords):
+        """The rank at ``{axis: index}`` (every axis named)."""
+        r = 0
+        for name in self.axis_names:
+            r = r * self.shape[name] + coords[name]
+        return r
+
+    def members(self, axes, rank=None):
+        """The ranks that differ from ``rank`` (default: this one) only
+        along ``axes``, ascending: the members of :meth:`group`, in the
+        order of their ranks in it."""
+        c = self.coords(rank)
+        fixed = [a for a in self.axis_names if a not in _spec_axes(axes)]
+        return [r for r in range(self.size)
+                if all(self.coords(r)[a] == c[a] for a in fixed)]
 
     def block_index(self, axes, rank=None):
         """The index of a rank's block when an array axis is split over

@@ -18,10 +18,19 @@ Over a mesh of N ranks every rank passes the same GLOBAL batch, as every
 process of the reference does; a rank keeps its rows (the first axis
 split over the batch axes: ``batch_axis``, and ``dcn`` when the mesh has
 it), takes the gradients of its rows' share of the global mean loss, and
-the gradients are summed over the ranks in one ``all_reduce`` before the
-update, so every rank applies the same update.  The parameters are
-broadcast from rank 0 when the trainer first materializes them.  Three
-routes:
+the gradients are summed over the batch axes in one ``all_reduce``
+before the update, so every rank applies the same update.  Ranks along
+the other axes see the same rows, as the reference's batch sharding
+gives.  The parameters are broadcast from rank 0 when the trainer first
+materializes them.
+
+``param_specs`` (``{name: PartitionSpec}``, the reference's) split
+parameters over mesh axes: each rank stores its block of the parameter
+and of its optimizer state, the forward gathers the whole tensor over
+the spec's axes (``collectives.unshard``), and its backward takes this
+rank's block of the gradient, which the batch axes' ``all_reduce`` then
+sums.  The update (K1 or K3 over the list) runs on the blocks; a
+checkpoint gathers them whole.  Three routes:
 
 - dense (above);
 - row-sparse embeddings: ``Embedding(sparse_grad=True)`` tables under
@@ -40,8 +49,9 @@ routes:
 Pad-masked steps (``pad > 0``): the last ``pad`` rows of the global
 batch are fill; the loss and gradients average over the others only.
 
-Refused (``NotImplementedError``, never ignored): sharded ``param_specs``,
-meshes whose other axes than the batch axes have more than one rank,
+Refused (``NotImplementedError``, never ignored): the row-sparse route
+and the compressed step on meshes whose other axes than the batch axes
+have more than one rank, a ``param_specs`` entry for a routed table,
 BatchNorm statistics over a multi-rank uncompressed step,
 ``conv.weights_layout=HWIO``, the nanguard (``resilience.nanguard``),
 in-step numerics capture (``numerics.capture``), the checkpoint manager
@@ -70,8 +80,9 @@ from ..io import ensure_staged
 from ..ndarray.ndarray import NDArray, _wrap
 from . import dist as _dist
 from . import embedding as _pemb
+from .collectives import local_block, unshard
 from .functional import functionalize
-from .mesh import data_parallel_mesh, _local_rows
+from .mesh import PartitionSpec, data_parallel_mesh, _local_rows
 
 __all__ = ["SPMDTrainer", "build_train_step"]
 
@@ -116,9 +127,6 @@ class SPMDTrainer:
                  mesh=None, batch_axis="dp", param_specs=None,
                  donate=True, dtype=None):
         from .. import optimizer as opt_mod
-        if param_specs:
-            raise NotImplementedError(
-                "param_specs (sharded parameters) are not ported yet")
         self._check_knobs()
         self.fn = functionalize(block)
         self.block = block
@@ -134,14 +142,10 @@ class SPMDTrainer:
         self._batch_axes = (self.batch_axis, "dcn") \
             if "dcn" in names and self.batch_axis != "dcn" \
             else (self.batch_axis,)
-        extra = [a for a in names if a not in self._batch_axes
-                 and self.mesh.shape[a] > 1]
-        if extra:
-            raise NotImplementedError(
-                "SPMDTrainer splits the batch over %s; mesh axes %s of more "
-                "than one rank (tensor, sequence, pipeline or expert "
-                "parallelism) are not ported yet" % (self._batch_axes,
-                                                     extra))
+        self._extra_axes = [a for a in names if a not in self._batch_axes
+                            and self.mesh.shape[a] > 1]
+        self._param_specs = {n: PartitionSpec(*s) for n, s in
+                             (param_specs or {}).items()}
         self._n_shards = math.prod(self.mesh.shape[a]
                                    for a in self._batch_axes)
         self.device = self.mesh.device
@@ -180,13 +184,17 @@ class SPMDTrainer:
             self._sparse_embed = _pemb.sparse_embedding_params(
                 self.fn, self.mesh, self.batch_axis)
             vals = self.fn.init_values()
+        unknown = sorted(set(self._param_specs) - set(vals))
+        if unknown:
+            raise ValueError("param_specs names %s are not parameters of "
+                             "the block (%s)" % (unknown, sorted(vals)))
         self.params = {}
         for n, v in vals.items():
             t = v.detach().to(self.device, copy=True)
             _dist.broadcast_(t, src=0)
-            meta = self._sparse_embed.get(n)
-            if meta is not None and meta["axis"] is not None:
-                t = _local_rows(self.mesh, t, (meta["axis"],)).clone()
+            spec = self._spec_of(n)
+            if spec is not None:
+                t = local_block(t, self.mesh, spec).clone()
             self.params[n] = t
         routed = set(self._routed())
         for n in self.fn.trainable:
@@ -222,8 +230,18 @@ class SPMDTrainer:
         count = valid * per_row if raw.dim() else self._n_shards
         local = torch.sum(mine)
         report = local.detach().clone()
-        _dist.all_reduce_(report)
+        _dist.all_reduce_(report, group=self._batch_group())
         return _div(local, count), _div(report, count)
+
+    def _batch_group(self):
+        return self.mesh.group(self._batch_axes)
+
+    def _whole(self, n, v):
+        """A dense trainable's whole value for the forward: ``v`` itself,
+        or gathered over its ``param_specs`` axes (its backward takes
+        this rank's block of the gradient)."""
+        spec = self._param_specs.get(n)
+        return v if spec is None else unshard(v, self.mesh, spec)
 
     def _forward_backward(self, train, aux, tables, deltas, data, label,
                           pad, local_mean):
@@ -241,7 +259,8 @@ class SPMDTrainer:
                 else v
         with torch.enable_grad():
             param_map = dict(aux)  # aux (BN stats) stay f32
-            param_map.update({n: cast(v) for n, v in train.items()})
+            param_map.update({n: self._whole(n, cast(v))
+                              for n, v in train.items()})
             routed = {n: cast(v) for n, v in tables.items()}
             param_map.update(routed)
             if cdt is not None and data.dtype == torch.float32:
@@ -342,8 +361,13 @@ class SPMDTrainer:
         routed = self._routed()
         dense = [n for n in self.fn.trainable if n not in routed]
         index = {n: i for i, n in enumerate(self.fn.trainable)}
-        if routed and not (getattr(optimizer, "lazy_update", False)
-                           and hasattr(optimizer, "step_rows")):
+        if routed and (self._extra_axes or set(routed)
+                       & set(self._param_specs)):
+            raise NotImplementedError(
+                "the row-sparse embedding route of %s is not ported on a "
+                "mesh with axes %s besides the batch axes, nor under "
+                "param_specs" % (routed, self._extra_axes))
+        if routed and not optimizer.lazy_rows():
             raise ValueError(
                 "sparse-grad embedding params %s need an optimizer with a "
                 "lazy step_rows path (sgd, adam); %r has none — set config "
@@ -376,7 +400,7 @@ class SPMDTrainer:
             elif multi:
                 both = grads + [dgrads[n] for n in routed]
                 flat = torch.cat([g.reshape(-1) for g in both])
-                _dist.all_reduce_(flat)
+                _dist.all_reduce_(flat, group=self._batch_group())
                 both = _split(flat, both)
                 grads = both[:len(grads)]
                 dgrads = dict(zip(routed, both[len(grads):]))
@@ -490,23 +514,29 @@ class SPMDTrainer:
                 % (extra,))
 
     # ------------------------------------------------------ whole values
-    def _full(self, n):
-        """Parameter ``n`` whole on this rank (a vocab-sharded table
-        gathered over its axis)."""
-        v = self.params[n].detach()
+    def _spec_of(self, n):
+        """The PartitionSpec of parameter ``n`` on this mesh (a
+        vocab-sharded table's rows over its axis), or None if whole."""
         meta = self._sparse_embed.get(n)
-        if meta is None or meta["axis"] is None:
-            return v
-        parts = _dist.all_gather(v, group=self.mesh.group((meta["axis"],)))
-        return parts.reshape((-1,) + tuple(v.shape[1:]))
+        if meta is not None and meta["axis"] is not None:
+            return PartitionSpec(meta["axis"])
+        return self._param_specs.get(n)
 
+    @torch.no_grad()
+    def _full(self, n):
+        """Parameter ``n`` whole on this rank (gathered over its
+        :meth:`_spec_of` axes)."""
+        v = self.params[n].detach()
+        spec = self._spec_of(n)
+        return v if spec is None else unshard(v, self.mesh, spec)
+
+    @torch.no_grad()
     def _full_state(self, n):
-        meta = self._sparse_embed.get(n)
-        if meta is None or meta["axis"] is None:
+        spec = self._spec_of(n)
+        if spec is None:
             return self.opt_state[n]
-        group = self.mesh.group((meta["axis"],))
-        return _tree(self.opt_state[n], lambda s: _dist.all_gather(
-            s, group=group).reshape((-1,) + tuple(s.shape[1:])))
+        return _tree(self.opt_state[n],
+                     lambda s: unshard(s, self.mesh, spec))
 
     def sync(self):
         """Write the trainer's weights and aux state back into the
@@ -593,13 +623,12 @@ class SPMDTrainer:
         dev = self.device
 
         def place(n):
-            meta = self._sparse_embed.get(n)
-            axis = meta["axis"] if meta is not None else None
+            spec = self._spec_of(n)
 
             def leaf(a):
                 t = torch.as_tensor(a)
-                if axis is not None:
-                    t = _local_rows(self.mesh, t, (axis,))
+                if spec is not None:
+                    t = local_block(t, self.mesh, spec)
                 return t.to(dev, copy=True)
             return leaf
         self.params = {n: place(n)(host["params"][pairs[n]]) for n in names}

@@ -43,6 +43,8 @@ def _bits(a):
 
 def _codec_inputs(n, thr, seed):
     rng = np.random.RandomState(seed)
+    if thr <= 0:
+        return _codec_inputs_nonpositive(n, thr, rng)
     g = rng.randn(n).astype(np.float32) * thr
     r = rng.randn(n).astype(np.float32) * thr * 0.5
     # values on the thresholds themselves code to +-1
@@ -51,8 +53,23 @@ def _codec_inputs(n, thr, seed):
     return g, r
 
 
+def _codec_inputs_nonpositive(n, thr, rng):
+    """At a threshold <= 0 both of the codec's tests can hold: ``g`` is
+    +0.0 and -0.0 (with residuals of the same sign, so the sum keeps it)
+    and, on both signs, below, at and above ``|thr|``."""
+    a = abs(thr)
+    special = np.array([0.0, -0.0, 0.5 * a, -0.5 * a, a, -a, 2 * a + 1,
+                        -2 * a - 1], np.float32)
+    g = rng.randn(n).astype(np.float32) * max(a, 1.0)
+    r = rng.randn(n).astype(np.float32) * 0.5
+    k = min(n, special.size)
+    g[:k] = special[:k]
+    r[:k] = np.copysign(np.float32(0), special[:k])
+    return g, r
+
+
 @pytest.mark.parametrize("n", LENGTHS)
-@pytest.mark.parametrize("thr", [0.5, 0.3])
+@pytest.mark.parametrize("thr", [0.5, 0.3, 0.0, -0.5, -1.0])
 def test_codec_bitwise(n, thr):
     g, r = _codec_inputs(n, thr, n)
     pcodes, pres = pc.two_bit_compress(torch.from_numpy(g),

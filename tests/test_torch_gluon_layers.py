@@ -176,8 +176,10 @@ def test_embedding_matches_reference():
 def test_options_the_port_does_not_take_raise():
     """A channel-last layout raises, where the reference's layers would
     run it channel-first.  ``Embedding(sparse_grad=True)`` is taken: it
-    declares a row-sparse gradient, which stays dense outside
-    SPMDTrainer's row-sparse route (tests/test_torch_embedding.py)."""
+    declares a row-sparse gradient, whose buffer is dense; SPMDTrainer's
+    row-sparse route (tests/test_torch_embedding.py) and gluon.Trainer's
+    lazy row update (tests/test_torch_gluon_sparse_update.py) update
+    the looked-up rows only."""
     emb = mt.gluon.nn.Embedding(10, 4, sparse_grad=True)
     assert emb.weight.grad_stype == "row_sparse"
     for make in (lambda: mt.gluon.nn.Conv2D(4, 3, layout="NHWC"),

@@ -905,6 +905,10 @@ def test_import_does_not_load_jax():
             "import mxnet_tpu_torch.parallel.dist; "
             "import mxnet_tpu_torch.parallel.embedding; "
             "import mxnet_tpu_torch.parallel.compression; "
+            "import mxnet_tpu_torch.parallel.collectives; "
+            "import mxnet_tpu_torch.parallel.pipeline; "
+            "import mxnet_tpu_torch.parallel.moe; "
+            "import mxnet_tpu_torch.models.bert; "
             "assert 'mxnet_tpu_torch.ops.contrib' in sys.modules; "
             "assert 'mxnet_tpu_torch.ops.contrib_extra' in sys.modules; "
             "assert 'mxnet_tpu_torch.gluon.data.dataloader' in sys.modules; "

@@ -67,9 +67,6 @@ _RESILIENCE_REST = ("CheckpointManager", "MANIFEST_SCHEMA",
                     "preempt_requested", "report_nonfinite",
                     "reset_nanguard", "select_tree", "verify_checkpoint",
                     "write_manifest")
-_PARALLEL_REST = ("ring_self_attention_sharded", "pipeline_apply",
-                  "pipeline_sharded", "microbatch", "unmicrobatch",
-                  "moe_ffn", "moe_ffn_sharded", "top_k_routing")
 # the Gluon, model-zoo, initializer, optimizer, Module, data-pipeline and
 # persistence names the reference has and the port does not, by surface
 # and slice; a surface is a module's public names (its __all__ where it
@@ -119,10 +116,7 @@ UNPORTED_SURFACE = {
     "models.ssd": {},
     "sym.contrib": {},
     "resilience": dict.fromkeys(_RESILIENCE_REST, "14"),
-    # slice 14 part 2: pipeline and expert parallelism and ring attention
-    # over a sequence axis (``parallel.ring_attention`` resolves to the
-    # port's module of the plain attention lowering)
-    "parallel": dict.fromkeys(_PARALLEL_REST, "14"),
+    "parallel": {},
     "parallel.SPMDTrainer": {},
     "kvstore.KVStore": {},
 }
