@@ -5,7 +5,7 @@ Usage (from the root of a checkout, one visible CUDA card)::
     python3 chip_smoke.py [--report PATH]
                           [--phase attention|optimizer|module|bert|lm_f32|
                                    generation|ops|zoo|rnn|data|ssd|
-                                   predict|dist|mesh]
+                                   predict|dist|mesh|shard]
 
 Phases; any failure exits non-zero without the result lines:
 
@@ -454,6 +454,19 @@ Phases; any failure exits non-zero without the result lines:
             (d) the dryrun's pipelined MoE step; one NCCL rank runs (f)
             every new module over axes of one rank, bitwise the result
             without a mesh.
+9c. shard — BatchNorm over the ranks, sharded serving, BERT over sp and
+            several contexts (``shard_phase``): two gloo ranks on cuda:0
+            run (a) ResNet-50 over two ranks of 64 rows with BatchNorm
+            over both (gradients and moving statistics against one rank,
+            the statistics bitwise alike across ranks, one K1 launch a
+            step a rank, an f32 run against one rank), (b) the serve
+            phase's TransformerLM at tp=2 with bf16 and int8 pages (12
+            K2f launches a prefill and 12 K4 launches a decode step a
+            rank at 6 heads, logits against one rank teacher-forced),
+            (c) BERT-base over sp=2 (phase 4b's gradient gate, 5 steps);
+            then (d) placement in this process: a ctx_group graph and a
+            Gluon Dense stack on gpu(0) and cpu(), a Module over
+            [gpu(0), gpu(0)].
 10. summary — a ``{"kernels": [...]}`` line, the card's name and power
             limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -517,6 +530,11 @@ K1, checks the flash kernels at phase 9b's per-rank shape
 (MESH_FLASH_CASES, bf16 and f32) and K1 at (e)'s per-rank shapes, runs
 phase 9b alone, and prints the kernels line of the six flash kernels
 and K1, then the card's line and the ok line.
+
+``--phase shard`` builds K2f, K4 and K1, checks K2f and K4 at phase
+9c's per-rank serving shapes (``shard_kernel_cases``) and K1 at
+ResNet-50's, runs phase 9c alone, and prints the kernels line of K2f,
+both K4 variants and K1, then the card's line and the ok line.
 
 ``--phase module`` builds the kernels and runs only phase 7(c), in a
 process no earlier phase has touched, after two A/Bs of the fused step
@@ -877,13 +895,14 @@ _PAGED_KINDS = {("bfloat16", False): "bf16", ("bfloat16", True): "int8",
 
 
 def _pool_inputs(torch, quant, case, g, qdtype="bfloat16"):
-    """A KV_PAGES-page pool of one layer ([pool, psz, H, D]) in ``qdtype``
-    or int8 with f32 scales, a shuffled page table whose entries past each
-    sequence's length are the sentinel (the pool size), and ragged lengths
-    (one full width, one single position when B > 1)."""
+    """A pool of one layer ([pool, psz, H, D]; KV_PAGES pages, or B x W
+    when more) in ``qdtype`` or int8 with f32 scales, a shuffled page
+    table whose entries past each sequence's length are the sentinel (the
+    pool size), and ragged lengths (one full width, one single position
+    when B > 1)."""
     from mxnet_tpu_torch.quantization import quantize_rows
     B, H, W, psz, D = case
-    P = KV_PAGES
+    P = max(KV_PAGES, B * W)
     dt = getattr(torch, qdtype)
     kp = torch.randn(P, psz, H, D, generator=g, device="cuda")
     vp = torch.randn(P, psz, H, D, generator=g, device="cuda")
@@ -3158,16 +3177,16 @@ def train_lm_f32(mx, ck, np, torch, card):
 
 
 # ------------------------------------------------------------- phase 5
-def _resnet_trainer(mx, net, dtype, optimizer="sgd"):
+def _resnet_trainer(mx, net, dtype, optimizer="sgd", mesh=None):
     """``bench.py`` ``one_config``'s trainer: SGD lr 0.1, momentum 0.9,
-    wd 1e-4 through SPMDTrainer on a one-device mesh; or Adam at
-    RESNET_ADAM_LR."""
+    wd 1e-4 through SPMDTrainer on a one-device mesh (or ``mesh``); or
+    Adam at RESNET_ADAM_LR."""
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.parallel import SPMDTrainer, make_mesh
     params = ({"learning_rate": 0.1, "momentum": 0.9, "wd": SGD_WD}
               if optimizer == "sgd" else {"learning_rate": RESNET_ADAM_LR})
     return SPMDTrainer(net, SoftmaxCrossEntropyLoss(), optimizer, params,
-                       mesh=make_mesh({"dp": -1}), dtype=dtype)
+                       mesh=mesh or make_mesh({"dp": -1}), dtype=dtype)
 
 
 def _state(tr):
@@ -9707,6 +9726,656 @@ def _mesh_one_rank(mx, torch, workdir):
     return {"differing": differing}
 
 
+# ------------------------------------------------------------ phase shard
+#: how long phase shard's group may take, start-up included
+SHARD_WORKER_TIMEOUT_S = 900
+#: where phase shard's ranks run (the card; "cpu" only to rehearse it)
+SHARD_DEVICE = "cuda"
+SHARD_RANKS = 2
+#: (a) bench.py one_config's ResNet-50 over two ranks of RESNET_BATCH / 2
+#: rows with synchronised BatchNorm: the global-batch gradients at the
+#: initial weights against the one-rank BS 128 run's (per tensor whose
+#: f32 gradient norm is at least 1% of the largest, at most
+#: KERNEL_VS_PLAIN_GRAD_ERR x the one-rank bf16 path's error against an
+#: f32 copy, floored at one bf16 ulp, BERT_GRAD_FLOOR; the loss within
+#: RESNET_BF16_LOSS_RTOL of the f32 copy's), the moving statistics after
+#: one step against the one-rank run's (each tensor within
+#: RESNET_BF16_LOSS_RTOL of its largest value) and bitwise alike on both
+#: ranks; then SHARD_RESNET_STEPS counted steps of one K1 launch each a
+#: rank, beside SHARD_RESNET_TIMED one-rank steps timed on rank 0 while
+#: rank 1 waits; then f32 at global BS SHARD_F32_BATCH: the weights after
+#: SHARD_F32_STEPS steps against the one-rank run's, per tensor relative
+#: to its largest value (floored at 1% of the largest tensor's), at most
+#: SHARD_F32_RTOL or KERNEL_VS_PLAIN_ERR x the most the one-rank run
+#: itself moves when its batch's rows are only permuted (the same sums in
+#: another order).  On the H100 the two-rank run differed by 3.8e-2 after
+#: 3 steps (conv0's weight): ResNet-50 at initialization amplifies
+#: rounding through its BatchNorm backward passes, so 1e-4 alone holds
+#: no run that sums in another order.
+SHARD_RESNET_STEPS = 10
+SHARD_RESNET_TIMED = 5
+SHARD_F32_BATCH = 16
+SHARD_F32_STEPS = 3
+SHARD_F32_RTOL = 1e-4
+#: (b) the serve phase's TransformerLM (TransformerLMConfig() bf16,
+#: init(SEED)) at tp=2: its N_REQUESTS prompts prefilled in one batch and
+#: SHARD_DECODE_STEPS decode steps fed the one-rank run's tokens (teacher
+#: forcing), bf16 pages and int8 pages; each step's logits within
+#: ROW_REL_TOL of each row's largest |one-rank logit|
+SHARD_TP = 2
+SHARD_DECODE_STEPS = 16
+#: (c) BERT-base at examples/bert_pretrain.py's defaults over sp=2: the
+#: gradient gate of phase 4b at the initial weights, then
+#: SHARD_BERT_STEPS finite steps
+SHARD_SP = 2
+SHARD_BERT_STEPS = 5
+#: (d) placement: a ctx_group graph and a Gluon Dense stack on gpu(0) and
+#: cpu() against one GPU context, within SHARD_PLACE_ATOL
+SHARD_PLACE_ATOL = 1e-6
+SHARD_PLACE_STEPS = 3
+SHARD_PLACE_BATCH, SHARD_PLACE_WIDTH = 64, 256
+
+
+def shard_kernel_cases(np):
+    """The per-rank shapes of (b)'s kernels: K2f over the prefill of the
+    N_REQUESTS prompts padded to the longest, at 6 local heads; K4 over
+    their decode at that table's width."""
+    s = max(len(p) for p in _prompts(np, 32000))
+    width = -(-(s + SHARD_DECODE_STEPS) // PAGE_SIZE)
+    heads = 12 // SHARD_TP
+    return (((N_REQUESTS, heads, True, s, s, 64),),
+            ((N_REQUESTS, heads, width, PAGE_SIZE, 64),))
+
+
+def shard_phase(mx, ck, np, torch, card, workdir):
+    """Phase shard: BatchNorm over the ranks, sharded serving, BERT over
+    sp and several contexts on the card.  One group of SHARD_RANKS gloo
+    ranks sharing cuda:0 (phase dist's launcher), each running
+    ``chip_smoke.py --shard-worker WORKDIR``: (a) ResNet-50 data-parallel
+    with synchronised BatchNorm, (b) the TransformerLM served at tp=2,
+    (c) BERT-base over sp=2.  Then (d), placement, in this process."""
+    t0 = time.perf_counter()
+    out = {"card": card}
+    for r in range(SHARD_RANKS):
+        for name in ("shard_rank%d.json" % r, "shard_aux_rank%d.npz" % r):
+            stale = os.path.join(workdir, name)
+            if os.path.exists(stale):
+                os.remove(stale)
+    rc, so, se = _run_group(
+        [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
+         str(SHARD_RANKS), sys.executable,
+         os.path.join(ROOT, "chip_smoke.py"), "--shard-worker", workdir],
+        SHARD_WORKER_TIMEOUT_S)
+    if rc != 0:
+        raise AssertionError("phase shard's group failed (rc %d):\n%s\n%s"
+                             % (rc, so[-4000:], se[-8000:]))
+    ranks = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(workdir, "shard_rank%d.json" % r)) as f:
+            ranks.append(json.load(f))
+    backends = [line for line in se.splitlines()
+                if "mxnet_tpu_torch.parallel: rank" in line]
+    assert len(backends) == SHARD_RANKS and all(
+        "backend gloo" in b for b in backends), backends
+    # the moving statistics, after one step and after the counted steps,
+    # bit for bit alike on every rank
+    aux = [dict(np.load(os.path.join(workdir, "shard_aux_rank%d.npz" % r)))
+           for r in range(SHARD_RANKS)]
+    differing = {k: int(sum(int((a[k] != aux[0][k]).sum()) for a in aux))
+                 for k in aux[0]}
+    assert differing and not any(differing.values()), differing
+    out.update({"ranks": ranks, "backend_lines": backends,
+                "aux_tensors_compared": len(differing),
+                "aux_differing_elements": sum(differing.values()),
+                "group_seconds": time.perf_counter() - t0})
+    res = ranks[0]["resnet"]
+    _log("[shard-resnet] %.1f img/s over %d ranks sharing the card (no "
+         "scaling figure), %.1f img/s on one rank (BS %d, bfloat16)"
+         % (res["img_per_s"], SHARD_RANKS, res["one_rank"]["img_per_s"],
+            RESNET_BATCH))
+    for kind in ("bf16", "int8"):
+        srv = ranks[0]["serve"][kind]
+        _log("[shard-serve] %s pages: %.3f ms a decode step at tp=%d (two "
+             "ranks sharing the card), %.3f ms on one rank"
+             % (kind, srv["decode_ms_per_step"], SHARD_TP,
+                srv["one_rank_decode_ms_per_step"]))
+    out["rates_are"] = (
+        "two processes time-share one card and gloo stages their CUDA "
+        "collectives through host memory, so no figure of this phase is a "
+        "scaling figure: it only shows the path runs")
+    out["placement"] = _shard_placement(mx, np, torch)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _shard_launches(shard):
+    """The kernels' launches in phase shard's counted runs, by rank:
+    {kernel: {path: count}}."""
+    by = {}
+    for r, rank in enumerate(shard["ranks"]):
+        by.setdefault("sgd_step", {})["shard_resnet_dp2_rank%d" % r] = \
+            rank["resnet"]["launches"]["sgd_step"]
+        for kind, key in (("bf16", "paged_decode_pool_bf16"),
+                          ("int8", "paged_decode_pool_int8")):
+            srv = rank["serve"][kind]
+            by.setdefault("flash_fwd", {})[
+                "shard_prefill_tp2_%s_rank%d" % (kind, r)] = \
+                srv["prefill_launches"]["flash_fwd"]
+            by.setdefault(key, {})["shard_decode_tp2_rank%d" % r] = \
+                srv["decode_launches"][key]
+    return by
+
+
+# --- the ranks of phase shard (``--shard-worker``)
+def shard_worker(workdir):
+    """One rank of phase shard's group, on cuda:0; writes
+    ``shard_rank<r>.json`` and the moving statistics it holds to
+    ``shard_aux_rank<r>.npz``."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with (mx.gpu() if SHARD_DEVICE == "cuda" else mx.cpu()):
+        mx.parallel.initialize()
+        rank = mx.parallel.dist.rank()
+        out = {"rank": rank, "device": str(mx.parallel.dist.device())}
+        aux = {}
+        for part in (_shard_resnet, _shard_serve, _shard_bert):
+            t0 = time.perf_counter()
+            name = part.__name__[len("_shard_"):]
+            out[name] = part(mx, torch, aux)
+            out[name]["seconds"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            mx.parallel.barrier()
+    np.savez(os.path.join(workdir, "shard_aux_rank%d.npz" % rank), **aux)
+    with open(os.path.join(workdir, "shard_rank%d.json" % rank), "w") as f:
+        json.dump(out, f)
+    import torch.distributed as tdist
+    tdist.destroy_process_group()
+    return 0
+
+
+def _shard_grads(mx, torch, tr, data, label):
+    """A multi-rank trainer's loss and gradients of the global batch at
+    its state: this rank's rows' share, summed over the batch ranks as
+    its step sums them; nothing is updated."""
+    train, aux = _state(tr)
+    loss, _, grads, _, _ = tr._forward_backward(
+        train, aux, {}, {}, tr._stage(data), tr._stage(label), 0, False)
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    mx.parallel.dist.all_reduce_(flat, group=tr._batch_group())
+    out, off = [], 0
+    for g in grads:
+        out.append(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
+    return float(loss), out
+
+
+def _rel_norm_errs(got, want, floor_share=1e-2):
+    """Per tensor ||got - want|| / ||want||, each norm floored at
+    ``floor_share`` of the largest (a conv bias before a BatchNorm has a
+    gradient of exactly 0)."""
+    floor = floor_share * max(float(w.norm()) for w in want)
+    return [float((a.float() - b.float()).norm())
+            / max(float(b.norm()), floor) for a, b in zip(got, want)]
+
+
+def _shard_resnet(mx, torch, aux_out):
+    """(a): ResNet-50 over the ranks with synchronised BatchNorm (see
+    SHARD_RESNET_STEPS)."""
+    import numpy as np
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    ck = _ck()
+    torch.backends.cudnn.benchmark = True
+    dev = mx.parallel.dist.device()
+    ctx = mx.gpu(0) if dev.type == "cuda" else mx.cpu()
+    rng = np.random.RandomState(SEED)
+    shape = (RESNET_BATCH, 3, RESNET_HW, RESNET_HW)
+    data = torch.from_numpy(rng.uniform(size=shape).astype(np.float32)).to(
+        dev)
+    label = torch.from_numpy(rng.randint(0, 1000, (RESNET_BATCH,))
+                             .astype(np.float32)).to(dev)
+    mx.random.seed(SEED)
+    net = vision.get_model("resnet50_v1", classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net(mx.nd.array(data[:2], ctx=ctx))      # resolve the deferred shapes
+    ranks = mx.parallel.make_mesh({"dp": SHARD_RANKS})
+    one = mx.parallel.make_mesh({"dp": 1}, [dev])
+    rank = ranks.rank
+    tr = _resnet_trainer(mx, net, "bfloat16", mesh=ranks)
+    tr._materialize(data)
+    out = {"mesh": dict(ranks.shape), "rows_per_rank": RESNET_BATCH
+           // SHARD_RANKS, "tensors": len(tr.fn.trainable),
+           "aux": len(tr.fn.aux)}
+    loss2, g2 = _shard_grads(mx, torch, tr, data, label)
+    torch.cuda.empty_cache()
+    tr1 = None
+    if rank == 0:
+        tr1 = _resnet_trainer(mx, net, "bfloat16", mesh=one)
+        tr1._materialize(data)
+        loss1, _, g1 = tr1._loss_and_grads(*_state(tr1), data, label)
+        tr32 = _resnet_trainer(mx, net, None, mesh=one)
+        tr32._materialize(data)
+        loss32, _, g32 = tr32._loss_and_grads(*_state(tr32), data, label)
+        del tr32
+        torch.cuda.empty_cache()
+        e2 = _rel_norm_errs(g2, g32)
+        e1 = _rel_norm_errs(g1, g32)
+        e21 = _rel_norm_errs(g2, g1)
+        # a tensor whose f32 gradient is below 1% of the largest norm (a
+        # conv bias before a BatchNorm, whose exact gradient is 0) holds
+        # rounding noise on every path: reported, not gated
+        floor = 1e-2 * max(float(g.norm()) for g in g32)
+        gated = [float(g.norm()) >= floor for g in g32]
+        worst = sorted((a / (KERNEL_VS_PLAIN_GRAD_ERR
+                             * max(b, BERT_GRAD_FLOOR)), n, a, b)
+                       for a, b, n, on in zip(e2, e1, tr.fn.trainable, gated)
+                       if on)[-3:]
+        loss1, loss32 = float(loss1), float(loss32)
+        out["grads"] = {
+            "loss_two_ranks": loss2, "loss_one_rank": loss1,
+            "loss_f32": loss32, "loss_rtol": RESNET_BF16_LOSS_RTOL,
+            "two_vs_f32_max": max(e2), "one_vs_f32_max": max(e1),
+            "two_vs_one_max": max(e21),
+            "gate": "per tensor two_vs_f32 <= %g x max(one_vs_f32, %g), "
+                    "for the %d of %d tensors whose f32 gradient norm is "
+                    "at least 1%% of the largest" % (
+                        KERNEL_VS_PLAIN_GRAD_ERR, BERT_GRAD_FLOOR,
+                        sum(gated), len(gated)),
+            "worst": [[n, a, b] for _, n, a, b in worst]}
+        assert abs(loss2 - loss32) <= RESNET_BF16_LOSS_RTOL * abs(loss32), \
+            out["grads"]
+        for n, a, b, on in zip(tr.fn.trainable, e2, e1, gated):
+            assert not on or a <= KERNEL_VS_PLAIN_GRAD_ERR * max(
+                b, BERT_GRAD_FLOOR), (n, a, b)
+        del g1, g32
+    del g2
+    torch.cuda.empty_cache()
+    mx.parallel.barrier()
+    # one step from the initial state: the moving statistics
+    tr.step(data, label)
+    for n in tr.fn.aux:
+        aux_out["resnet_step1/" + n] = tr.params[n].detach().cpu().numpy()
+    if rank == 0:
+        tr1.step(data, label)
+        rel = {}
+        for n in tr.fn.aux:
+            a, b = tr.params[n].float(), tr1.params[n].float()
+            rel[n] = float((a - b).abs().max()) / float(b.abs().max())
+        out["moving_stats_vs_one_rank_max_rel"] = max(rel.values())
+        out["moving_stats_rtol"] = RESNET_BF16_LOSS_RTOL
+        assert max(rel.values()) <= RESNET_BF16_LOSS_RTOL, sorted(
+            rel.items(), key=lambda kv: kv[1])[-3:]
+        # one rank's rate, on the card alone (rank 1 waits)
+        _timed(np, torch, tr1, data, label, 1)
+        _, one_ms = _timed(np, torch, tr1, data, label, SHARD_RESNET_TIMED)
+        out["one_rank"] = dict(_rate(np, one_ms, ""), step_ms=one_ms)
+    del tr1
+    torch.cuda.empty_cache()
+    mx.parallel.barrier()
+    # --- the main path: counts zeroed just before, read just after
+    _zero_counts(torch, tt, ck)
+    t0 = time.perf_counter()
+    losses, step_ms = _timed(np, torch, tr, data, label, SHARD_RESNET_STEPS)
+    wall = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    assert launches == _want_launches(ck, sgd_step=SHARD_RESNET_STEPS), \
+        launches
+    for n in tr.fn.aux:
+        aux_out["resnet_step%d/%s" % (SHARD_RESNET_STEPS + 1, n)] = \
+            tr.params[n].detach().cpu().numpy()
+    out.update({"steps": SHARD_RESNET_STEPS, "losses": losses,
+                "step_ms": step_ms, "launches": launches,
+                "img_per_s": RESNET_BATCH * SHARD_RESNET_STEPS / wall,
+                "img_per_s_is": "the global batch's images a second, both "
+                                "ranks sharing one card"})
+    del tr
+    torch.cuda.empty_cache()
+    # f32 at a small global batch: the weights after a few steps against
+    # one rank's
+    x, y = data[:SHARD_F32_BATCH], label[:SHARD_F32_BATCH]
+    tr = _resnet_trainer(mx, net, None, mesh=ranks)
+    for _ in range(SHARD_F32_STEPS):
+        tr.step(x, y)
+    if rank == 0:
+        # one rank on the batch, and on the batch with its rows permuted:
+        # the same sums in another order, the run's own rounding noise
+        perm = torch.from_numpy(np.random.RandomState(SEED + 1).permutation(
+            SHARD_F32_BATCH)).to(dev)
+        runs = []
+        for xb, yb in ((x, y), (x[perm], y[perm])):
+            tr1 = _resnet_trainer(mx, net, None, mesh=one)
+            for _ in range(SHARD_F32_STEPS):
+                tr1.step(xb, yb)
+            runs.append(tr1.params)
+        one_p, perm_p = runs
+        # a conv bias before a BatchNorm has a gradient of exactly 0 and
+        # moves by rounding noise alone: each tensor's scale is floored at
+        # 1% of the largest tensor's
+        floor = 1e-2 * max(float(v.detach().abs().max())
+                           for v in one_p.values())
+
+        def rel(a, b):
+            a, b = a.detach().float(), b.detach().float()
+            return float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    floor)
+        two = {n: rel(tr.params[n], one_p[n]) for n in one_p}
+        noise = {n: rel(perm_p[n], one_p[n]) for n in one_p}
+        limit = max(SHARD_F32_RTOL, KERNEL_VS_PLAIN_ERR * max(
+            noise.values()))
+        out["f32"] = {
+            "batch": SHARD_F32_BATCH, "steps": SHARD_F32_STEPS,
+            "weights_max_rel_vs_one_rank": max(two.values()),
+            "one_rank_permuted_max_rel": max(noise.values()),
+            "worst": sorted(two.items(), key=lambda kv: kv[1])[-3:],
+            "rtol": SHARD_F32_RTOL, "limit": limit}
+        assert max(two.values()) <= limit, out["f32"]
+        del tr1, runs, one_p, perm_p
+    del tr, net
+    _log("[shard-resnet] rank %d %s" % (rank, json.dumps(
+        {k: v for k, v in out.items() if k != "step_ms"})))
+    return out
+
+
+def _serve_inputs(np, vocab):
+    """(b)'s batch: the serve phase's prompts padded to the longest, their
+    lengths and a page table of distinct pages wide enough for the
+    decode steps."""
+    prompts = _prompts(np, vocab)
+    s = max(len(p) for p in prompts)
+    tokens = np.zeros((len(prompts), s), np.int64)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = p
+    lengths = np.array([len(p) for p in prompts], np.int64)
+    width = -(-(s + SHARD_DECODE_STEPS) // PAGE_SIZE)
+    table = np.arange(len(prompts) * width, dtype=np.int64).reshape(
+        len(prompts), width)
+    return tokens, lengths, table
+
+
+def _serve_run(ck, torch, tt, model, tokens, lengths, table, quant,
+               feed=None, count=False):
+    """Prefill and SHARD_DECODE_STEPS decode steps on a fresh pool, fed
+    ``feed`` (teacher forcing) or else the model's own greedy tokens.
+    Returns (logits [steps + 1, B, V] f32, the tokens fed, decode ms a
+    step, and with ``count`` the launches of the prefill and of the
+    decode steps)."""
+    kv = model.init_kv_pages(table.size, PAGE_SIZE, quantized=quant)
+    if count:
+        _zero_counts(torch, tt, ck)
+    kv, ids, lg = model.prefill(kv, tokens, lengths, table, PAGE_SIZE,
+                                return_logits=True)
+    torch.cuda.synchronize()
+    pre = dict(ck.LAUNCHES) if count else None
+    logits = [lg.float()]
+    fed = [ids if feed is None else feed[0]]
+    if count:
+        _zero_counts(torch, tt, ck)
+    t0 = time.perf_counter()
+    for s in range(SHARD_DECODE_STEPS):
+        kv, ids, lg = model.decode_step(kv, fed[-1], lengths + s, table,
+                                        PAGE_SIZE, return_logits=True)
+        logits.append(lg.float())
+        fed.append(ids if feed is None else feed[s + 1])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / SHARD_DECODE_STEPS
+    dec = dict(ck.LAUNCHES) if count else None
+    del kv
+    return torch.stack(logits), torch.stack(fed), ms, pre, dec
+
+
+def _shard_serve(mx, torch, aux_out):
+    """(b): the serve phase's TransformerLM at tp=2 with bf16 and int8
+    pages (see SHARD_DECODE_STEPS); rank 0 runs the one-rank model first
+    and hands its tokens to every rank."""
+    import numpy as np
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.convert import params_to_reference, shard_params
+    from mxnet_tpu_torch.models.transformer import (TransformerLM,
+                                                    TransformerLMConfig)
+    ck = _ck()
+    dev = mx.parallel.dist.device()
+    cfg = TransformerLMConfig()
+    L = cfg.num_layers
+    mesh = mx.parallel.make_mesh({"dp": 1, "tp": SHARD_TP})
+    one = TransformerLM(cfg, device=dev).init(SEED)
+    tp = TransformerLM(cfg, mesh=mesh)
+    tp.load_state_dict(shard_params(params_to_reference(one.state_dict()),
+                                    tp.param_specs(), mesh))
+    heads = int(tp.layers.wqkv.shape[-2])
+    assert heads == cfg.num_heads // SHARD_TP, heads
+    tokens, lengths, table = _serve_inputs(np, cfg.vocab_size)
+    out = {"mesh": dict(mesh.shape), "local_heads": heads,
+           "prompts": int(len(lengths)), "padded_to": int(tokens.shape[1])}
+    for kind, quant, key in (("bf16", False, "paged_decode_pool_bf16"),
+                             ("int8", True, "paged_decode_pool_int8")):
+        feed = torch.zeros((SHARD_DECODE_STEPS + 1, len(lengths)),
+                           dtype=torch.int64, device=dev)
+        base = one_ms = None
+        if mesh.rank == 0:
+            base, fed, one_ms, _, _ = _serve_run(
+                ck, torch, tt, one, tokens, lengths, table, quant)
+            feed.copy_(fed)
+        mx.parallel.dist.broadcast_(feed, src=0)
+        got, _, ms, pre, dec = _serve_run(
+            ck, torch, tt, tp, tokens, lengths, table, quant, feed=feed,
+            count=True)
+        assert pre == _want_launches(ck, flash_fwd=L), pre
+        assert dec == _want_launches(
+            ck, **{key: L * SHARD_DECODE_STEPS}), dec
+        res = {"prefill_launches": pre, "decode_launches": dec,
+               "decode_steps": SHARD_DECODE_STEPS,
+               "decode_ms_per_step": ms,
+               "logits_sum": float(got.double().sum())}
+        if mesh.rank == 0:
+            scale = base.abs().amax(dim=-1)
+            ratio = float(((got - base).abs().amax(dim=-1) / scale).max())
+            res.update({"one_rank_decode_ms_per_step": one_ms,
+                        "max_row_rel_err_vs_one_rank": ratio,
+                        "row_rel_tol": ROW_REL_TOL,
+                        "argmax_agree": float((got.argmax(-1)
+                                               == base.argmax(-1)).float()
+                                              .mean())})
+            assert ratio <= ROW_REL_TOL, res
+        out[kind] = res
+        del got, base
+        torch.cuda.empty_cache()
+    del one, tp
+    _log("[shard-serve] rank %d %s" % (mesh.rank, json.dumps(out)))
+    return out
+
+
+def _shard_bert(mx, torch, aux_out):
+    """(c): BERT-base over sp=2: phase 4b's gradient gate at the initial
+    weights (rank 0 computes the one-rank references while rank 1
+    waits), then SHARD_BERT_STEPS finite steps, in which no kernel
+    launches (the encoder's attention is ring attention)."""
+    import numpy as np
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch.models import BERT
+    ck = _ck()
+    mesh = mx.parallel.make_mesh({"dp": 1, "sp": SHARD_SP})
+    cfg = bert_config(torch, torch.bfloat16)
+    model = BERT(cfg, mesh=mesh).init(SEED)
+    model.requires_grad_(True)
+    params = [p for _, p in model.named_parameters()]
+    batch = bert_batch(np, torch, cfg.vocab_size, model.device)
+
+    def loss_of(m):
+        return m.pretrain_loss(*(batch[k] for k in BERT_ARGS))
+
+    model.zero_grad(set_to_none=True)
+    loss_of(model).backward()
+    model.allreduce_grads()
+    whole = _gathered_grads(model, mesh)
+    out = {"mesh": dict(mesh.shape), "sequence_block": BERT_S // SHARD_SP}
+    if mesh.rank == 0:
+        gate = _mesh_grad_gate(
+            mx, torch, whole, lambda: BERT(cfg).init(SEED),
+            lambda: BERT(bert_config(torch, torch.float32)), loss_of,
+            BERT_GRAD_FLOOR)
+        out["grad_accuracy"] = {
+            "loss_plain": gate["loss_plain"], "loss_f32": gate["loss_f32"],
+            "floor": gate["floor"],
+            "mesh_vs_f32_max": max(t["mesh_vs_f32"]
+                                   for t in gate["tensors"].values()),
+            "plain_vs_f32_max": max(t["plain_vs_f32"]
+                                    for t in gate["tensors"].values())}
+    del whole
+    model.zero_grad(set_to_none=True)
+    mx.parallel.barrier()
+
+    def sgd():
+        model.allreduce_grads()
+        example_sgd_step(params, BERT_LR)
+
+    _zero_counts(torch, tt, ck)
+    losses, step_ms = _bert_steps(np, torch, model, batch, sgd,
+                                  SHARD_BERT_STEPS)
+    launches = dict(ck.LAUNCHES)
+    assert launches == _want_launches(ck), launches
+    out.update({"steps": SHARD_BERT_STEPS, "losses": losses,
+                "step_ms": step_ms, "launches": launches})
+    del model, params
+    _log("[shard-bert] rank %d %s" % (mesh.rank, json.dumps(out)))
+    return out
+
+
+def _staged_symbol(mx):
+    """tests/test_parity_modules.py:190's two-stage graph, at (d)'s
+    width: the stage1 arguments and the graph."""
+    with mx.AttrScope(ctx_group="stage1"):
+        data = mx.sym.Variable("data")
+        fc1 = mx.sym.FullyConnected(data, name="fc1",
+                                    num_hidden=SHARD_PLACE_WIDTH)
+        act1 = mx.sym.Activation(fc1, name="relu1", act_type="relu")
+    with mx.AttrScope(ctx_group="stage2"):
+        fc2 = mx.sym.FullyConnected(act1, name="fc2", num_hidden=10)
+        out = mx.sym.SoftmaxOutput(fc2, name="softmax")
+    return set(act1.list_arguments()), out
+
+
+def _placed_symbol(mx, np, sym, stage1, g2c, x, y):
+    """One training forward and backward of ``sym`` bound with ``g2c``:
+    every argument and gradient on its group's device; (output,
+    {name: grad}) as numpy."""
+    gpu = mx.gpu(0)
+    ex = sym.simple_bind(gpu, group2ctx=g2c, grad_req="write",
+                         data=x.shape)
+    init = np.random.RandomState(1)
+    ex.copy_params_from(
+        {n: mx.nd.array(init.normal(0, 0.05, a.shape).astype(np.float32),
+                        ctx=mx.cpu())
+         for n, a in ex.arg_dict.items() if n not in ("data",
+                                                      "softmax_label")})
+    o = ex.forward(is_train=True, data=mx.nd.array(x, ctx=gpu),
+                   softmax_label=mx.nd.array(y, ctx=gpu))[0]
+    ex.backward()
+    for pool in (ex.arg_dict, ex.grad_dict):
+        for name, arr in pool.items():
+            if name in ("data", "softmax_label"):
+                continue      # the batch follows the caller
+            want = g2c["stage1" if name in stage1 else "stage2"]
+            assert arr._data.device == want.torch_device, (name,
+                                                           arr._data.device)
+    return o.asnumpy(), {n: g.asnumpy() for n, g in ex.grad_dict.items()
+                         if n not in ("data", "softmax_label")}
+
+
+def _shard_placement(mx, np, torch):
+    """(d): a ctx_group graph with stage1 on gpu(0) and stage2 on cpu()
+    (every array on its device, forward and backward within
+    SHARD_PLACE_ATOL of the all-GPU run, the wrong device refused);
+    Module over [gpu(0), gpu(0)] bitwise one context; a Gluon Dense stack
+    on [gpu(0), cpu()] trained SHARD_PLACE_STEPS steps with
+    split_and_load within SHARD_PLACE_ATOL of one GPU context on the
+    whole batch."""
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    B, D = SHARD_PLACE_BATCH, SHARD_PLACE_WIDTH
+    rng = np.random.RandomState(SEED)
+    x = rng.normal(size=(B, D)).astype(np.float32)
+    y = rng.randint(0, 10, (B,)).astype(np.float32)
+    out = {}
+    stage1, sym = _staged_symbol(mx)
+    placed = _placed_symbol(mx, np, sym, stage1,
+                            {"stage1": gpu, "stage2": cpu}, x, y)
+    whole = _placed_symbol(mx, np, sym, stage1,
+                           {"stage1": gpu, "stage2": gpu}, x, y)
+    fwd = float(np.abs(placed[0] - whole[0]).max())
+    bwd = max(float(np.abs(placed[1][n] - g).max())
+              for n, g in whole[1].items())
+    assert fwd <= SHARD_PLACE_ATOL and bwd <= SHARD_PLACE_ATOL, (fwd, bwd)
+    refused = _raises(ValueError, lambda: sym.bind(
+        gpu, args={"data": mx.nd.ones((B, D), ctx=gpu),
+                   "fc1_weight": mx.nd.ones((D, D), ctx=cpu)},
+        group2ctx={"stage1": gpu, "stage2": cpu}, grad_req="null"))
+    assert refused
+    out["symbol"] = {"forward_max_abs_vs_gpu": fwd,
+                     "backward_max_abs_vs_gpu": bwd,
+                     "atol": SHARD_PLACE_ATOL,
+                     "wrong_device_refused": refused}
+    # Module over a list of contexts: one Executor on the first
+    params = []
+    for context in ([gpu, gpu], gpu):
+        mod = mx.mod.Module(sym, context=context)
+        mod.bind([("data", (B, D))], [("softmax_label", (B,))])
+        mx.random.seed(SEED)
+        mod.init_params(mx.init.Xavier())
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": 0.1})
+        batch = mx.io.DataBatch([mx.nd.array(x, ctx=gpu)],
+                                [mx.nd.array(y, ctx=gpu)])
+        for _ in range(SHARD_PLACE_STEPS):
+            mod.forward_backward(batch)
+            mod.update()
+        params.append(mod.get_params()[0])
+    differing = sum(int((a._data != params[1][n]._data).sum())
+                    for n, a in params[0].items())
+    assert differing == 0, differing
+    out["module_context_list_differing"] = differing
+    # Gluon Parameters on two contexts
+    nets = []
+    for ctxs in ([gpu, cpu], [gpu]):
+        nn = mx.gluon.nn
+        net = nn.HybridSequential()
+        with net.name_scope():
+            net.add(nn.Dense(D, activation="relu", in_units=D))
+            net.add(nn.Dense(10, in_units=D))
+        mx.random.seed(SEED)
+        net.initialize(mx.init.Xavier(), ctx=ctxs)
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.1, "momentum": 0.9})
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        for _ in range(SHARD_PLACE_STEPS):
+            xs = mx.gluon.utils.split_and_load(mx.nd.array(x, ctx=gpu), ctxs)
+            ys = mx.gluon.utils.split_and_load(mx.nd.array(y, ctx=gpu), ctxs)
+            for xi, yi in zip(xs, ys):
+                with mx.autograd.record():
+                    loss = loss_fn(net(xi), yi)
+                loss.backward()
+            trainer.step(B)
+        nets.append(net)
+    worst = 0.0
+    for p2, p1 in zip(nets[0].collect_params().values(),
+                      nets[1].collect_params().values()):
+        copies = p2.list_data()
+        assert [c.context for c in copies] == [gpu, cpu]
+        assert [c._data.device for c in copies] == [gpu.torch_device,
+                                                    cpu.torch_device]
+        assert torch.equal(copies[0]._data.cpu(), copies[1]._data.cpu())
+        worst = max(worst, float((copies[0]._data - p1.data()._data).detach()
+                                 .max()))
+    assert worst <= SHARD_PLACE_ATOL, worst
+    out["gluon"] = {"contexts": [str(gpu), str(cpu)],
+                    "steps": SHARD_PLACE_STEPS,
+                    "weights_max_abs_vs_one_gpu": worst,
+                    "atol": SHARD_PLACE_ATOL}
+    _log("[shard-placement] %s" % json.dumps(out))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the full report (JSON) "
@@ -9715,7 +10384,7 @@ def main(argv=None):
                                         "module", "bert", "lm_f32",
                                         "generation", "ops", "zoo", "rnn",
                                         "data", "ssd", "predict",
-                                        "dist", "mesh"),
+                                        "dist", "mesh", "shard"),
                     default="all",
                     help="attention: the flash forward and backward checks "
                     "of phase 2 alone; optimizer: phase 2's K3 and K1 "
@@ -9752,7 +10421,14 @@ def main(argv=None):
                     "alone (tensor, sequence, pipeline and expert "
                     "parallelism on gloo ranks sharing the card, one NCCL "
                     "rank), ending in the kernels line for the flash "
-                    "kernels and K1, the card and ok lines")
+                    "kernels and K1, the card and ok lines; shard: phase "
+                    "shard alone (ResNet-50 data-parallel with BatchNorm "
+                    "over the ranks, the TransformerLM served at tp=2, "
+                    "BERT-base over sp=2 on gloo ranks sharing the card, "
+                    "then ctx_group placement, Module context lists and "
+                    "Gluon parameters on gpu(0) and cpu()), ending in the "
+                    "kernels line for K1, K2f and K4, the card and ok "
+                    "lines")
     ap.add_argument("--dist-worker", metavar="WORKDIR",
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-worker", metavar="WORKDIR",
@@ -9760,6 +10436,8 @@ def main(argv=None):
     ap.add_argument("--mesh-suite", choices=("two", "four", "nccl"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--nccl-worker", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--shard-worker", metavar="WORKDIR",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
@@ -9772,6 +10450,8 @@ def main(argv=None):
         return nccl_worker()
     if args.mesh_worker:
         return mesh_worker(args.mesh_worker, args.mesh_suite)
+    if args.shard_worker:
+        return shard_worker(args.shard_worker)
     import numpy as np
     import torch.nn.functional as F
     import mxnet_tpu_torch as mx
@@ -9810,8 +10490,8 @@ def main(argv=None):
          "data": ["sgd_step", "adam_step"],
          "ssd": ["sgd_step", "box_nms"], "predict": [],
          "dist": ["sgd_step", "adam_step"],
-         "mesh": ["flash_fwd", "flash_bwd", "flash_f32", "sgd_step"]}.get(
-             args.phase))
+         "mesh": ["flash_fwd", "flash_bwd", "flash_f32", "sgd_step"],
+         "shard": ["flash_fwd", "paged_attn", "sgd_step"]}.get(args.phase))
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "per_source_s": {k: v["seconds"]
                                         for k, v in built.items()},
@@ -10053,6 +10733,38 @@ def main(argv=None):
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    shard_flash, shard_paged = shard_kernel_cases(np)
+    if args.phase == "shard":
+        flash = check_flash(ck, torch, F, shard_flash)
+        paged = check_paged(ck, torch, F, False, shard_paged)
+        paged8 = check_paged(ck, torch, F, True, shard_paged)
+        sgd, sgd_step = check_sgd(ck, torch, mx, np)
+        bad = [c for c in flash + paged + paged8 + sgd if not c["ok"]]
+        if bad:
+            raise AssertionError("kernel disagrees with its plain version: "
+                                 "%s" % json.dumps(bad))
+        report["shard"] = shard_phase(mx, ck, np, torch, card, workdir)
+        by = _shard_launches(report["shard"])
+        pk = "mxnet_tpu/ops/pallas_kernels.py:"
+        kernels = []
+        for name, source, line, cases in (
+                ("flash_fwd", "flash_fwd.cu", "157", flash),
+                ("paged_decode_pool_bf16", "paged_attn.cu", "386", paged),
+                ("paged_decode_pool_int8", "paged_attn.cu", "386", paged8)):
+            kern = _summary(name, source, pk + line, cases,
+                            sum(by[name].values()))
+            kern["launches_by_path"] = by[name]
+            kernels.append(kern)
+        kernels.append(_sgd_summary(sgd, sgd_step, by["sgd_step"]))
+        report["kernels"] = kernels
+        _write_report(args.report, report)
+        print(json.dumps({"kernels": [{k: v for k, v in s.items()
+                                       if k != "cases"} for s in kernels]}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.phase == "module":
         report["lr_t_ab"] = lr_t_ab(mx, np, torch)
         report["launch_ab"] = launch_ab(mx, np, torch)
@@ -10060,9 +10772,10 @@ def main(argv=None):
         print(json.dumps(report))
         return 0
 
-    flash = check_flash(ck, torch, F, FWD_CASES + MESH_FLASH_CASES)
-    paged = check_paged(ck, torch, F, quant=False)
-    paged8 = check_paged(ck, torch, F, quant=True)
+    flash = check_flash(ck, torch, F, FWD_CASES + MESH_FLASH_CASES
+                        + shard_flash)
+    paged = check_paged(ck, torch, F, False, PAGED_CASES + shard_paged)
+    paged8 = check_paged(ck, torch, F, True, PAGED_CASES + shard_paged)
     check_f32q_paged()
     paged32, paged8q = (report[key] for key in f32q_keys)
     bwd_dq, bwd_dkv = check_flash_bwd(ck, torch, F,
@@ -10109,12 +10822,15 @@ def main(argv=None):
     report["predict"] = predict_phase(mx, np, torch, card, workdir)
     report["dist"] = dist_phase(mx, ck, np, torch, card, workdir)
     report["mesh"] = mesh_phase(mx, ck, np, torch, card, workdir)
+    report["shard"] = shard_phase(mx, ck, np, torch, card, workdir)
     mesh_by = _mesh_launches(report["mesh"])
+    shard_by = _shard_launches(report["shard"])
     data_sgd, data_adam = _data_launches(report["data"])
     data_sgd.update(_ssd_sgd_launches(report["ssd"]))
     dist_sgd, dist_adam = _dist_launches(report["dist"])
     data_sgd.update(dist_sgd)
     data_sgd.update(mesh_by["sgd_step"])
+    data_sgd.update(shard_by["sgd_step"])
     data_adam.update(dist_adam)
     module_adam = report["module"]["fused"]["launches"]["adam_step"]
     rnn_adam = {"rnn_bucketing_" + kind: run["launches"]["adam_step"]
@@ -10191,6 +10907,11 @@ def main(argv=None):
         kern["launches_by_path"].update(mesh_by[kern["name"]])
     for kern in kernels[8:10]:
         kern["launches_by_path"] = gen["by_run"][kern["name"]]
+    # phase shard's per-rank launches beside each path's
+    kernels[0]["launches_by_path"].update(shard_by["flash_fwd"])
+    for kern in kernels[6:8]:
+        kern["launches_by_path"] = dict(
+            {"serve": kern["launches"]}, **shard_by[kern["name"]])
     report["kernels"] = kernels
     _write_report(args.report, report)
     print(json.dumps({"kernels": [{k: v for k, v in s.items()

@@ -89,6 +89,8 @@ from . import generation, optimizer, lr_scheduler, kvstore, gluon, parallel
 from . import metric, io, callback, engine, rtc, symbol, model, module
 from . import executor, executor_manager, runtime, rnn
 from . import recordio, image, compat, resilience, contrib, kvstore_server
+from . import attribute
+from .attribute import AttrScope
 from . import symbol as sym
 from . import module as mod
 from . import kvstore as kv
@@ -103,4 +105,4 @@ __all__ = ["MXNetError", "MXNetErrorNoDevice", "KernelUnsupportedError",
            "io", "callback", "engine", "rtc", "symbol", "sym", "model",
            "module", "mod", "executor", "executor_manager", "runtime", "rnn",
            "recordio", "image", "compat", "resilience", "contrib",
-           "kvstore_server"]
+           "kvstore_server", "attribute", "AttrScope"]

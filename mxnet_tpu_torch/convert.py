@@ -18,7 +18,9 @@ carry them too.
 ``shard_params`` takes the reference's tree, its PartitionSpecs
 (``model.param_specs()``) and a mesh and gives this rank's blocks, for a
 model built over the mesh; ``gather_params`` gathers every rank's blocks
-back into the whole tree (every rank calls it).
+back into the whole tree (every rank calls it).  ``shard_kv`` and
+``gather_kv`` do the same for a paged KV pool, whose heads split over
+``tp``.
 ``symbol_params_from_reference`` / ``symbol_params_to_reference`` carry
 a symbolic Module's ``(arg_params, aux_params)`` across, as numpy.
 ``oneshot_from_reference`` carries a reference one-shot deploy artifact
@@ -33,7 +35,7 @@ import numpy as _np
 import torch
 
 __all__ = ["params_from_reference", "params_to_reference",
-           "shard_params", "gather_params",
+           "shard_params", "gather_params", "shard_kv", "gather_kv",
            "gluon_params_from_reference", "gluon_params_to_reference",
            "symbol_params_from_reference", "symbol_params_to_reference",
            "oneshot_from_reference"]
@@ -114,6 +116,36 @@ def gather_params(state_dict, specs, mesh):
     return params_to_reference({
         n: unshard(t.detach(), mesh, flat.get(n, ()))
         for n, t in state_dict.items()})
+
+
+def _kv_spec(mesh):
+    """The PartitionSpec of every array of a page pool (``[L, pages,
+    page_size, H(, Dh)]``): heads over ``tp`` when the mesh has it."""
+    return (None, None, None, "tp" if "tp" in mesh.axis_names else None)
+
+
+def shard_kv(pool, mesh):
+    """A whole page pool (``{"k", "v"}`` and, for int8 pages, ``{"k_scale",
+    "v_scale"}``, as numpy arrays or tensors: the reference's
+    ``init_kv_pages`` layout) -> this rank's head shard on ``mesh``, on
+    its device: the pool ``TransformerLM.prefill`` / ``decode_step`` of
+    the model built over ``mesh`` take.  Replicated over ``dp`` and
+    ``sp``."""
+    from .parallel.collectives import local_block
+    spec = _kv_spec(mesh)
+    return {n: local_block(_tensor(v), mesh, spec).to(mesh.device,
+                                                      copy=True)
+            for n, v in pool.items()}
+
+
+@torch.no_grad()
+def gather_kv(pool, mesh):
+    """The inverse of :func:`shard_kv`: every rank's head shard gathered
+    whole, as CPU tensors in the pool's dtypes, on every rank (a
+    collective: every rank of ``mesh`` calls it)."""
+    from .parallel.collectives import unshard
+    spec = _kv_spec(mesh)
+    return {n: unshard(t, mesh, spec).cpu() for n, t in pool.items()}
 
 
 def _top_prefix(names):

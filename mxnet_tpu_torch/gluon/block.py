@@ -41,7 +41,9 @@ from .. import ndarray as nd_module
 from ..ndarray import ndarray as ndarray_mod
 from ..ndarray.ndarray import NDArray
 from ..symbol.symbol import Symbol
-from .parameter import DeferredInitializationError, Parameter, ParameterDict
+from .parameter import (DeferredInitializationError, Parameter,
+                        ParameterDict, forward_context,
+                        forward_context_scope)
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
@@ -91,6 +93,19 @@ class _BlockScope:
         if self._block._empty_prefix:
             return
         _BlockScope._current.value = self._old_scope
+
+
+def _input_context(args):
+    """The Context a forward over ``args`` runs in: the first NDArray
+    input's when it records one, else the enclosing forward's, else that
+    input's device's."""
+    x = next((a for a in args if isinstance(a, NDArray)), None)
+    if x is not None and getattr(x, "_ctx", None) is not None:
+        return x.context
+    outer = forward_context()
+    if outer is not None or x is None:
+        return outer
+    return x.context
 
 
 class Block:
@@ -296,7 +311,8 @@ class Block:
     def __call__(self, *args):
         for hook in self._forward_pre_hooks.values():
             hook(self, args)
-        out = self.forward(*args)
+        with forward_context_scope(_input_context(args)):
+            out = self.forward(*args)
         for hook in self._forward_hooks.values():
             hook(self, args, out)
         return out

@@ -12,20 +12,28 @@ its value is marked as a leaf of the autograd tape with that buffer
 own copies of the values.  A ParameterDict is the prefix-scoped registry
 Blocks share; its ``save`` / ``load`` write and read the reference's
 npz container (``nd.save``), so either package loads the other's files.
-One device per parameter: a list of several contexts raises
-``NotImplementedError``.  The row-sparse reads (``row_sparse_data``,
+Several contexts (``initialize(ctx=[...])``, ``reset_ctx([...])``) keep
+one copy of the value and of the gradient per context, each on its
+context's device, as MXNet does: ``data(ctx)`` / ``grad(ctx)`` give that
+context's copy, ``list_data`` / ``list_grad`` / ``list_ctx`` one entry a
+context.  A Block's forward takes the copy of its input's Context (the
+NDArray's, not its torch device: ``cpu(0)`` and ``cpu(1)`` are one
+device), so each slice's ``backward()`` fills its own copy's gradient;
+``gluon.Trainer`` sums the copies' gradients and writes the updated
+value to every copy.  The row-sparse reads (``row_sparse_data``,
 ``list_row_sparse_data``) wait for the sparse arrays.
 """
 from __future__ import annotations
 
 import math
+import threading
 from collections import OrderedDict
 
 import torch
 
 from ..base import MXNetError, torch_dtype
-from ..context import cpu, gpu, resolve_device
-from ..ndarray.ndarray import NDArray, _wrap
+from ..context import Context, cpu, current_context, gpu, resolve_device
+from ..ndarray.ndarray import NDArray, _wrap, with_context
 from ..ndarray import ndarray as ndarray_mod
 from .. import autograd
 from .. import initializer
@@ -43,14 +51,43 @@ class DeferredInitializationError(MXNetError):
 
 
 def _device(ctx):
-    """One ``torch.device`` from a context, device or a list of one."""
+    """The ``torch.device`` of a context, device or the first of a
+    list."""
     if isinstance(ctx, (list, tuple)):
-        if len(ctx) != 1:
-            raise NotImplementedError(
-                "parameters on several devices are not ported (got %r): "
-                "one device per parameter" % (ctx,))
         ctx = ctx[0]
     return resolve_device(ctx)
+
+
+def _contexts(ctx):
+    """The Contexts of a list of several, else None (one context)."""
+    if isinstance(ctx, (list, tuple)) and len(ctx) > 1:
+        return [c if isinstance(c, Context) else _context(resolve_device(c))
+                for c in ctx]
+    return None
+
+
+# the Context of the input of the running Block forward (Block.__call__):
+# the copy a Parameter on several contexts hands the forward
+_FORWARD = threading.local()
+
+
+def forward_context():
+    """The Context of the running forward's input, or None."""
+    stack = getattr(_FORWARD, "stack", None)
+    return stack[-1] if stack else None
+
+
+class forward_context_scope:
+    """Run a Block's forward with ``ctx`` as its input's Context."""
+
+    def __init__(self, ctx):
+        self._ctx = ctx
+
+    def __enter__(self):
+        _FORWARD.__dict__.setdefault("stack", []).append(self._ctx)
+
+    def __exit__(self, *exc):
+        _FORWARD.stack.pop()
 
 
 class Parameter:
@@ -65,6 +102,10 @@ class Parameter:
         self._data = None
         self._grad = None
         self._device = None
+        # several contexts: every Context, and the copies ([value, grad])
+        # of all but the first (whose are _data and _grad)
+        self._ctx_list = None
+        self._copies = []
         self._deferred_init = ()
         self._differentiable = differentiable
         self._allow_deferred_init = allow_deferred_init
@@ -109,10 +150,13 @@ class Parameter:
         if req == "null":
             self._grad = None
             if self._data is not None:
-                self._data._grad = None
-                self._data._grad_req = None
-                self._data._on_tape = False
-                self._data._data = self._data._data.detach()
+                for d in self.list_data():
+                    d._grad = None
+                    d._grad_req = None
+                    d._on_tape = False
+                    d._data = d._data.detach()
+                for c in self._copies:
+                    c[1] = None
         elif self._data is not None:
             self._init_grad()
 
@@ -211,6 +255,7 @@ class Parameter:
                 "incompatible expected %s vs saved %s. Set cast_dtype=True "
                 "to cast the dtype of saved params." % (
                     self.name, str(self.dtype), str(t.dtype)))
+        self._ctx_list = _contexts(ctx)
         self._init_impl(t, _device(ctx))
         self._deferred_init = ()
 
@@ -243,16 +288,30 @@ class Parameter:
         self._device = device
         self._data = _wrap(torch.as_tensor(data).detach().to(
             device=device, dtype=self.dtype).clone())
+        self._make_copies()
         self._init_grad()
+
+    def _make_copies(self):
+        """The first value's Context and a copy of it on each other
+        context of ``_ctx_list`` (none on one context)."""
+        ctxs = self._ctx_list or [None]
+        self._data._ctx = ctxs[0]
+        self._copies = [[with_context(_wrap(self._data._data.detach().to(
+            resolve_device(c), copy=True)), c), None] for c in ctxs[1:]]
 
     def _init_grad(self):
         """A zero gradient buffer, and the value marked as a tape leaf
-        with it (none for ``grad_req='null'``)."""
+        with it (none for ``grad_req='null'``); one a copy."""
         if self.grad_req == "null":
             self._grad = None
+            for c in self._copies:
+                c[1] = None
             return
         self._grad = _wrap(torch.zeros_like(self._data._data.detach()))
         autograd.mark_variables([self._data], [self._grad], self.grad_req)
+        for c in self._copies:
+            c[1] = _wrap(torch.zeros_like(c[0]._data.detach()))
+            autograd.mark_variables([c[0]], [c[1]], self.grad_req)
 
     # ---------------------------------------------------------------- public
     def initialize(self, init=None, ctx=None, default_init=None,
@@ -265,6 +324,7 @@ class Parameter:
         if self._data is not None and not force_reinit:
             return
         device = _device(ctx)
+        self._ctx_list = _contexts(ctx)
         if self.shape is None or any(s == 0 for s in self.shape):
             if self._allow_deferred_init:
                 self._deferred_init = (init, device, default_init, None)
@@ -276,16 +336,19 @@ class Parameter:
         self._finish_deferred_init()
 
     def reset_ctx(self, ctx):
-        """Move the value (and its gradient buffer) to ``ctx``; a
-        deferred parameter will be drawn there (reference
-        ``parameter.py:414``)."""
+        """Move the value (and its gradient buffer) to ``ctx``, one copy a
+        context of a list; a deferred parameter will be drawn there
+        (reference ``parameter.py:414``)."""
         device = _device(ctx)
         if self._data is not None:
             self._device = device
+            self._ctx_list = _contexts(ctx)
             with torch.no_grad():
                 self._data._data = self._data._data.detach().to(device)
+                self._make_copies()
             self._init_grad()
         elif self._deferred_init:
+            self._ctx_list = _contexts(ctx)
             init, _, default_init, data = self._deferred_init
             self._deferred_init = (init, device, default_init, data)
         else:
@@ -305,44 +368,100 @@ class Parameter:
             init, device, default_init, _ = self._deferred_init
             self._deferred_init = (init, device, default_init, data)
             return
-        old = self._data._data
-        self._data._data = torch.as_tensor(data).detach().to(
-            device=old.device, dtype=old.dtype).clone()
+        for d in self.list_data():
+            old = d._data
+            d._data = torch.as_tensor(data).detach().to(
+                device=old.device, dtype=old.dtype).clone()
+
+    def _index(self, ctx):
+        """The index of ``ctx``'s copy: None means the running forward's
+        input's Context, else the current context, else the first."""
+        if not self._copies:
+            return 0
+        ctxs = self._ctx_list
+        if ctx is None:
+            for c in (forward_context(), current_context()):
+                if c in ctxs:
+                    return ctxs.index(c)
+            return 0
+        if not isinstance(ctx, Context):
+            ctx = _context(resolve_device(ctx))
+        if ctx not in ctxs:
+            raise RuntimeError(
+                "Parameter '%s' was not initialized on context %s. It was "
+                "only initialized on %s." % (self.name, ctx, ctxs))
+        return ctxs.index(ctx)
 
     def data(self, ctx=None):
-        return self._check_and_get(self._data)
+        """The value on ``ctx`` (with several contexts: module doc)."""
+        self._check_and_get(self._data)
+        i = self._index(ctx)
+        return self._data if i == 0 else self._copies[i - 1][0]
 
     def list_data(self):
-        """The value, once per context: one here."""
-        return [self.data()]
+        """The value, once per context."""
+        return [self._check_and_get(self._data)] + [c[0]
+                                                    for c in self._copies]
 
     def grad(self, ctx=None):
-        """The gradient buffer (reference ``parameter.py:302``)."""
+        """The gradient buffer on ``ctx`` (reference
+        ``parameter.py:302``)."""
         if self._data is not None and self._grad is None:
             raise RuntimeError(
                 "Cannot get gradient array for Parameter '%s' because "
                 "grad_req='null'" % (self.name,))
         self._check_and_get(self._data)
-        return self._grad
+        i = self._index(ctx)
+        return self._grad if i == 0 else self._copies[i - 1][1]
 
     def list_grad(self):
-        return [self.grad()]
+        """The gradient buffer, once per context."""
+        self.grad()
+        return [self._grad] + [c[1] for c in self._copies]
 
     def list_ctx(self):
-        """The one context the value lives on."""
-        if self._data is None:
-            if self._deferred_init:
-                return [_context(self._deferred_init[1])]
+        """The contexts the value lives on."""
+        if self._data is None and not self._deferred_init:
             raise RuntimeError("Parameter '%s' has not been initialized"
                                % self.name)
+        if self._ctx_list:
+            return list(self._ctx_list)
+        if self._data is None:
+            return [_context(self._deferred_init[1])]
         return [_context(self._data._data.device)]
 
+    def _sum_grads(self):
+        """Every copy's gradient replaced by their sum over the contexts,
+        in context order, taken on the first copy's device (a no-op on
+        one context)."""
+        if not self._copies or self._grad is None:
+            return
+        total = self._grad._data
+        for _, g in self._copies:
+            total = total + g._data.to(total.device)
+        self._grad._data = total
+        self._broadcast_grad()
+
+    def _broadcast_grad(self):
+        """The first copy's gradient written to every other copy."""
+        for _, g in self._copies:
+            g._data = self._grad._data.to(g._data.device, copy=True)
+
+    @torch.no_grad()
+    def _broadcast_data(self):
+        """The first copy's value written to every other copy."""
+        for d, _ in self._copies:
+            d._data = self._data._data.detach().to(d._data.device,
+                                                   copy=True)
+
     def zero_grad(self):
-        """Set the gradient buffer to 0 (reference ``parameter.py:321``)."""
+        """Set the gradient buffers to 0 (reference
+        ``parameter.py:321``)."""
         self._looked_up = []
         if self._grad is None:
             return
-        self._grad._data = torch.zeros_like(self._grad._data)
+        for g in [self._grad] + [c[1] for c in self._copies]:
+            g._data = torch.zeros_like(g._data)
 
     def var(self):
         """The Symbol of this parameter (reference ``parameter.py:584``)."""
@@ -358,11 +477,12 @@ class Parameter:
         if self._data is None:
             return
         with torch.no_grad():
-            self._data._data = self._data._data.detach().to(self._dtype)
-            if self._grad is not None:
-                self._grad._data = self._grad._data.to(self._dtype)
-                autograd.mark_variables([self._data], [self._grad],
-                                        self.grad_req)
+            for d, g in [(self._data, self._grad)] + \
+                    [tuple(c) for c in self._copies]:
+                d._data = d._data.detach().to(self._dtype)
+                if g is not None:
+                    g._data = g._data.to(self._dtype)
+                    autograd.mark_variables([d], [g], self.grad_req)
 
 
 class Constant(Parameter):

@@ -15,6 +15,14 @@ the reference's ``_create_kvstore`` decides.  ``compression_params``
 (``{"type": "2bit", "threshold": t}``) go to the kvstore, whose dist
 push then sends 2-bit codes with error feedback.
 
+A Parameter on several contexts (``initialize(ctx=[...])``) keeps one
+copy a context.  ``step`` sums the copies' gradients over the contexts
+(in context order, on the first copy's device; every copy's buffer then
+holds the sum, as after MXNet's kvstore pull), updates the first copy
+once and writes the new value to every other copy.  So a step over the
+slices of ``split_and_load`` is the step of one context over the whole
+batch, up to the order of the sums.
+
 A row-sparse gradient (``Embedding(sparse_grad=True)``) under an
 optimizer with a lazy row step (``Optimizer.lazy_rows``: SGD, Adam)
 updates only the rows its lookups read since the last step
@@ -139,7 +147,7 @@ class Trainer:
                     pending.append(param)
                 else:
                     self._kvstore.init(self._param2idx[param.name],
-                                       param.data())
+                                       param.list_data()[0])
         self._params_to_init = pending
 
     def _ready(self):
@@ -208,18 +216,23 @@ class Trainer:
         self._allreduce_grads()
 
     def _allreduce_grads(self):
+        for param in self._params:
+            if param.grad_req != "null":
+                param._sum_grads()
         if not self._kvstore:
             return
         for i, param in enumerate(self._params):
             if param.grad_req == "null":
                 continue
+            grad = param.list_grad()[0]
             if self._update_on_kvstore:
-                self._kvstore.pushpull(i, param.grad(), out=param.data(),
+                self._kvstore.pushpull(i, grad, out=param.list_data()[0],
                                        priority=-i)
+                param._broadcast_data()
             else:
-                grads = param.list_grad()
-                self._kvstore.push(i, grads, priority=-i)
-                self._kvstore.pull(i, grads, priority=-i)
+                self._kvstore.push(i, [grad], priority=-i)
+                self._kvstore.pull(i, [grad], priority=-i)
+                param._broadcast_grad()
 
     def update(self, batch_size, ignore_stale_grad=False):
         """Apply already-reduced gradients (reference ``trainer.py:374``)."""
@@ -244,13 +257,15 @@ class Trainer:
         for i, param in enumerate(self._params):
             if param.grad_req == "null":
                 continue
+            weight, grad = param.list_data()[0], param.list_grad()[0]
             if self._lazy(param):
                 rows = param.take_rows()
                 if rows is None:
                     rows = torch.empty(0, dtype=torch.int32)
-                updater.update_rows(i, rows, param.grad(), param.data())
-                continue
-            updater(i, param.grad(), param.data())
+                updater.update_rows(i, rows, grad, weight)
+            else:
+                updater(i, grad, weight)
+            param._broadcast_data()
 
     def save_states(self, fname):
         """Save the optimizer states and the optimizer to ``fname``,

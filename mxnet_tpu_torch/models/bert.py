@@ -25,9 +25,16 @@ columns, and the columns are gathered before the next-sentence head
 and before the MLM norm, which runs over the whole ``d_model``.  Every
 rank passes the global batch and takes its rows over ``dp``; the loss
 sums each rank's rows over ``dp`` before it divides, and
-:meth:`BERT.allreduce_grads` sums the gradients over ``dp``.  A
-sequence split (``sp`` of more than one rank) raises: the heads read
-positions of the whole sequence.
+:meth:`BERT.allreduce_grads` sums the gradients over ``dp`` and ``sp``.
+
+Over ``sp`` the encoder runs the rank's block of the sequence (ring
+attention, positions offset by the block's start).  The pooler reads
+position 0 and the masked-LM head positions anywhere, so the encoder's
+output is gathered whole over ``sp`` before them, by an all-gather whose
+backward takes this rank's block of the cotangent summed over ``sp``;
+:meth:`BERT.pretrain_loss` then runs the heads on this rank's share of
+its ``dp`` rows (split over ``sp``), so every row's loss counts once and
+each rank's cotangent is its share.
 """
 from __future__ import annotations
 
@@ -76,11 +83,6 @@ class BERT(nn.Module):
         super().__init__()
         self.cfg = config
         enc = TransformerLM(config, mesh=mesh, device=device)
-        if enc._sp_live:
-            raise NotImplementedError(
-                "BERT over a sequence split (sp=%d) is not ported: the "
-                "pooler and the masked-LM head read positions of the whole "
-                "sequence" % mesh.shape["sp"])
         self.mesh = mesh
         dev = enc.device
         tp = mesh.shape["tp"] if enc._tp_live else 1
@@ -137,7 +139,7 @@ class BERT(nn.Module):
         return specs
 
     flat_specs = TransformerLM.flat_specs
-    # sums every gradient over dp (BERT takes no sp split)
+    # sums every gradient over dp and sp
     allreduce_grads = TransformerLM.allreduce_grads
 
     @property
@@ -156,6 +158,27 @@ class BERT(nn.Module):
             return x
         return _coll.local_block(x, self.mesh, (self.encoder._dp,))
 
+    def _head_axes(self):
+        """The axes a row of the heads splits over: ``dp``, then ``sp``."""
+        enc = self.encoder
+        return tuple(a for a in (enc._dp, enc._sp_live) if a)
+
+    def _head_rows(self, x):
+        """This rank's rows of the heads (over ``dp`` and ``sp``) of a
+        global [B, ...] array."""
+        if self.mesh is None:
+            return x
+        return _coll.local_block(x, self.mesh, (self._head_axes(),))
+
+    def _whole_seq(self, h):
+        """The encoder's output [B, S / sp, D] gathered whole over ``sp``
+        (backward: this rank's block of the cotangent summed over
+        ``sp``)."""
+        sp = self.encoder._sp_live
+        if not sp:
+            return h
+        return _coll.unshard(h, self.mesh, (None, sp, None), summed=True)
+
     def _columns(self, x, w, b):
         """``x @ w + b`` in f32 for a weight and bias split on their
         columns over ``tp``: each rank's columns, gathered whole."""
@@ -169,21 +192,30 @@ class BERT(nn.Module):
     def encode(self, tokens, token_types):
         """tokens / token_types [B, S] int -> hidden [B, S, D] in the
         model dtype: the three embeddings summed, then
-        ``TransformerLM.run_stack``.  Over a mesh: this rank's rows of
-        the global arrays."""
+        ``TransformerLM.run_stack``.  Over a mesh: this rank's block of
+        the global arrays (rows over ``dp``, positions over ``sp``)."""
+        enc = self.encoder
         tokens, token_types = self._rows(tokens), self._rows(token_types)
-        S = tokens.shape[1]
-        x = (self.embed[tokens] + self.pos_embed[:S][None]
-             + self.type_embed[token_types])
-        return self.encoder.run_stack(x.to(self.cfg.dtype))
+        if enc._sp_live:
+            tokens, token_types = (
+                _coll.local_block(t, self.mesh, (None, enc._sp_live))
+                for t in (tokens, token_types))
+            pos = self.pos_embed[enc._positions(tokens.shape[1])]
+        else:
+            pos = self.pos_embed[:tokens.shape[1]][None]
+        x = self.embed[tokens] + pos + self.type_embed[token_types]
+        return enc.run_stack(x.to(self.cfg.dtype))
+
+    def _pooled(self, h):
+        return torch.tanh(self._columns(h[:, 0], self.pooler_w,
+                                        self.pooler_b))
 
     def apply(self, tokens, token_types):
         """-> ``(hidden [B, S, D], pooled [B, D] f32)``: the sequence
-        output and the tanh pooler over the first position."""
-        h = self.encode(tokens, token_types)
-        pooled = torch.tanh(self._columns(h[:, 0], self.pooler_w,
-                                          self.pooler_b))
-        return h, pooled
+        output and the tanh pooler over the first position (over ``sp``
+        the output gathered whole: module doc)."""
+        h = self._whole_seq(self.encode(tokens, token_types))
+        return h, self._pooled(h)
 
     forward = apply
 
@@ -209,21 +241,26 @@ class BERT(nn.Module):
         """Masked-LM plus next-sentence loss (f32 scalar): the MLM cross
         entropy weighted by ``mlm_weights`` [B, M] over ``max(sum(w),
         1)``, plus the mean NSP cross entropy over ``nsp_labels`` [B].
-        Over a mesh every rank passes the global batch; with ``dp`` ranks
-        the sums are summed over them before the divisions."""
-        hidden, pooled = self.apply(tokens, token_types)
-        logits = self.mlm_logits(hidden, self._rows(mlm_positions))
+        Over a mesh every rank passes the global batch; with ``dp`` or
+        ``sp`` ranks each runs the heads on its rows (module doc) and the
+        sums are summed over them before the divisions."""
+        hidden = self._whole_seq(self.encode(tokens, token_types))
+        if self.encoder._sp_live:
+            hidden = _coll.local_block(hidden, self.mesh,
+                                       (self.encoder._sp_live,))
+        pooled = self._pooled(hidden)
+        logits = self.mlm_logits(hidden,
+                                 self._head_rows(self._index(mlm_positions)))
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            self._rows(mlm_labels)[..., None])[..., 0]
-        w = torch.as_tensor(mlm_weights, device=self.device).float()
-        if self.mesh is not None:
-            w = _coll.local_block(w, self.mesh, (self.encoder._dp,))
+        gold = torch.gather(logits, -1, self._head_rows(
+            self._index(mlm_labels))[..., None])[..., 0]
+        w = self._head_rows(torch.as_tensor(mlm_weights,
+                                            device=self.device).float())
         nsp_logits = (torch.matmul(pooled, self.nsp_w.float())
                       + self.nsp_b.float())
         nlogz = torch.logsumexp(nsp_logits, dim=-1)
-        ngold = torch.gather(nsp_logits, -1,
-                             self._rows(nsp_labels)[..., None])[..., 0]
+        ngold = torch.gather(nsp_logits, -1, self._head_rows(
+            self._index(nsp_labels))[..., None])[..., 0]
         batch = self._batch_live
         if not batch:
             mlm = ((logz - gold) * w).sum() / torch.clamp(w.sum(), min=1.0)

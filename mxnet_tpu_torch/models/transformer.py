@@ -28,6 +28,19 @@ the mean over the global batch.  After ``backward()``,
 Megatron's pair of collectives a weight every rank holds whole already
 has the same gradient on each ``tp`` rank.
 
+Generation runs over the same mesh.  The page pool holds the rank's
+heads (``[L, pages, page_size, H / tp, Dh]``, and the int8 pool's row
+scales ``[L, pages, page_size, H / tp]``), whole over ``dp`` and ``sp``;
+every rank passes the global prompts, table and tokens and gets the
+global next tokens and logits.  A ``dp`` rank runs its rows and writes
+only their pages.  Prefill runs the local heads through
+``kernels.attention`` when ``sp`` has one rank, else through ring
+attention over its sequence block, whose K/V blocks are gathered over
+``sp`` before the page writes, so every ``sp`` rank's pool holds the
+whole prompt.  A decode step runs the local heads through
+``kernels.paged_attention_pool`` and sums over ``tp`` after ``wo`` and
+after ``w2``, as the training forward does; ``sp`` ranks repeat it.
+
 Generation state is a POOL of fixed-size KV pages shared by every
 in-flight sequence; each sequence owns a page-table row of page ids.
 Position ``t`` lives at slot ``t % page_size`` of page
@@ -429,13 +442,38 @@ class TransformerLM(nn.Module):
         total = _coll.psum((logz - gold).sum(), self.mesh, self._batch_live)
         return total / tokens.numel()
 
-    def _check_one_rank_decode(self, what):
-        if self._tp_live or self._sp_live:
-            raise NotImplementedError(
-                "TransformerLM.%s over a mesh with tp or sp ranks is not "
-                "ported: the paged cache holds whole heads on one rank "
-                "(the reference runs it under XLA's sharding propagation); "
-                "serve from a one-rank model" % what)
+    def _rows(self, x):
+        """This rank's rows (over ``dp``) of a global [B, ...] array."""
+        if self.mesh is None:
+            return x
+        return _coll.local_block(x, self.mesh, (self._dp,))
+
+    def _sample_rows(self, sample):
+        """This rank's rows of the per-row sampling controls (host
+        arrays)."""
+        if sample is None or not _mesh_axis(self.mesh, "dp"):
+            return sample
+        n, i = self.mesh.shape["dp"], self.mesh.axis_index("dp")
+        out = {}
+        for name, v in sample.items():
+            a = _host(v)
+            b = a.shape[0] // n
+            out[name] = a[i * b:(i + 1) * b]
+        return out
+
+    def _all_rows(self, x):
+        """The global [B, ...] array from every ``dp`` rank's rows."""
+        if self.mesh is None:
+            return x
+        return _coll.unshard(x, self.mesh, (self._dp,))
+
+    def _whole_seq(self, x, dim):
+        """``x`` gathered whole over ``sp`` along the sequence ``dim``."""
+        if not self._sp_live:
+            return x
+        spec = [None] * x.dim()
+        spec[dim] = self._sp_live
+        return _coll.unshard(x, self.mesh, spec)
 
     # --------------------------------------------- generation (paged KV)
     def kv_spec(self, quantized=False):
@@ -451,10 +489,11 @@ class TransformerLM(nn.Module):
     def init_kv_pages(self, num_pages, page_size, quantized=False):
         """Zeroed page pool: {"k","v"} of [L, num_pages, page_size, H, Dh]
         in the model dtype; with ``quantized`` int8 payloads plus
-        {"k_scale","v_scale"} of [L, num_pages, page_size, H] f32."""
+        {"k_scale","v_scale"} of [L, num_pages, page_size, H] f32.  Over
+        ``tp`` ranks H is this rank's heads."""
         cfg = self.cfg
         shape = (cfg.num_layers, int(num_pages), int(page_size),
-                 cfg.num_heads, cfg.head_dim)
+                 self.layers.wqkv.shape[-2], cfg.head_dim)
         dev = self.device
         if quantized:
             return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -530,18 +569,20 @@ class TransformerLM(nn.Module):
         An int8 pool quantises each row on the way in; prefill attention
         itself reads the full-precision stream.  Returns
         ``(kv, next_token [B])`` plus the next-token logits with
-        ``return_logits``."""
-        self._check_one_rank_decode("prefill")
+        ``return_logits``.  Over a mesh (module doc) S splits over
+        ``sp``."""
         cfg = self.cfg
-        tokens = self._as_index(tokens)
-        lengths = self._as_index(lengths)
-        table = self._as_index(page_table)
+        tokens = self._rows(self._as_index(tokens))
+        lengths = self._rows(self._as_index(lengths))
+        table = self._rows(self._as_index(page_table))
         B, S = tokens.shape
         psz = int(page_size)
         pool = kv["k"].shape[1]
         quant = "k_scale" in kv
         dev = self.device
-        x = self._embed(tokens, torch.arange(S, device=dev)[None])
+        block = tokens if not self._sp_live else _coll.local_block(
+            tokens, self.mesh, (None, self._sp_live))
+        x = self._embed(block, self._positions(block.shape[1]))
         iota = torch.arange(S, device=dev)
         pages = table[:, iota // psz]
         pages = torch.where(iota[None, :] < lengths[:, None], pages,
@@ -552,8 +593,8 @@ class TransformerLM(nn.Module):
         for li in range(cfg.num_layers):
             lp = self._layer_weights(li)
             q, k, v = self._qkv(x, lp)
-            kt = k.transpose(1, 2)[bi, si]        # [N, H, Dh]
-            vt = v.transpose(1, 2)[bi, si]
+            kt = self._whole_seq(k, 2).transpose(1, 2)[bi, si]  # [N, H, Dh]
+            vt = self._whole_seq(v, 2).transpose(1, 2)[bi, si]
             if quant:
                 kq, ks = quantize_rows(kt)
                 vq, vs = quantize_rows(vt)
@@ -564,12 +605,14 @@ class TransformerLM(nn.Module):
             else:
                 kv["k"][li][pw, sw] = kt.to(kv["k"].dtype)
                 kv["v"][li][pw, sw] = vt.to(kv["v"].dtype)
-            o = _kernels.attention(q, k, v, causal=cfg.causal)
-            x = self._attn_mlp(x, o, lp)
+            x = self._attn_mlp(x, self._attention(q, k, v), lp)
+        x = self._whole_seq(x, 1)
         last = x[torch.arange(B, device=dev), torch.clamp(lengths - 1, 0)]
-        ids, logits = self._sample_last(last, lengths, sample)
+        ids, logits = self._sample_last(last, lengths,
+                                        self._sample_rows(sample))
+        ids = self._all_rows(ids)
         if return_logits:
-            return kv, ids, logits
+            return kv, ids, self._all_rows(logits)
         return kv, ids
 
     @torch.no_grad()
@@ -587,13 +630,13 @@ class TransformerLM(nn.Module):
         their write is dropped and their output is ignored by the
         scheduler.  With an int8 pool the appended row is quantised and the
         per-row scales are read beside the pages, dequantised in registers.
-        Returns ``(kv, next_token [B])`` (+ logits with ``return_logits``)."""
-        self._check_one_rank_decode("decode_step")
+        Returns ``(kv, next_token [B])`` (+ logits with ``return_logits``).
+        Over a mesh: module doc."""
         cfg = self.cfg
-        token_ids = self._as_index(token_ids)
+        token_ids = self._rows(self._as_index(token_ids))
+        positions = self._rows(self._as_index(positions))
         pos_h = _host(positions)
-        positions = self._as_index(pos_h)
-        table = self._as_index(page_table)
+        table = self._rows(self._as_index(page_table))
         psz = int(page_size)
         pool = kv["k"].shape[1]
         quant = "k_scale" in kv
@@ -625,9 +668,11 @@ class TransformerLM(nn.Module):
             o = _kernels.paged_attention_pool(q, kl, vl, table32, lengths,
                                               **scales)
             x = self._attn_mlp(x, o, lp)
-        ids, logits = self._sample_last(x[:, 0], pos_h + 1, sample)
+        ids, logits = self._sample_last(x[:, 0], pos_h + 1,
+                                        self._sample_rows(sample))
+        ids = self._all_rows(ids)
         if return_logits:
-            return kv, ids, logits
+            return kv, ids, self._all_rows(logits)
         return kv, ids
 
     @torch.no_grad()

@@ -13,7 +13,8 @@ every parameter into the bucket at each switch and back out at each
 update; the numbers are the same.  One optimizer, its ``Updater`` and
 the fused route's state (``module.FusedState``: the per-name moments and
 the step count) serve every bucket, so a switch keeps Adam's moments and
-its count.
+its count.  ``context`` (one, or a list: the first carries the batch)
+and ``group2ctxs`` go to every bucket's Module.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ class BucketingModule(BaseModule):
         self._sym_gen = sym_gen
         self._default_bucket_key = default_bucket_key
         self._context = context
+        self._work_load_list = work_load_list
+        self._group2ctxs = group2ctxs
         self._fixed_param_names = fixed_param_names
         self._buckets = {}
         self._curr_module = None
@@ -52,7 +55,9 @@ class BucketingModule(BaseModule):
         sym, data_names, label_names = self._sym_gen(bucket_key)
         mod = Module(sym, data_names, label_names, logger=self.logger,
                      context=self._context,
-                     fixed_param_names=self._fixed_param_names)
+                     work_load_list=self._work_load_list,
+                     fixed_param_names=self._fixed_param_names,
+                     group2ctxs=self._group2ctxs)
         mod.bind(data_shapes, label_shapes,
                  for_training=self.for_training)
         return mod

@@ -13,12 +13,19 @@ in place (through the optimizer's fused kernel when the kernel tier is
 on: K3 for Adam, K1 for SGD).  The stage-at-a-time eager step (forward,
 backward, then the ``Updater`` per parameter) runs instead under
 ``NaiveEngine``, ``module.fused_step=off``, an optimizer that is not
-``jit_safe``, ``inputs_need_grad``, a grad_req other than "write", or a
-Module subclass.  Explicit ``forward()`` / ``backward()`` calls are
+``jit_safe``, ``inputs_need_grad``, a grad_req other than "write",
+``group2ctxs`` placement, or a Module subclass.  Explicit ``forward()`` / ``backward()`` calls are
 always eager; observing outputs, gradients or parameters between
 ``forward_backward`` and ``update`` replays the deferred batch eagerly
 first (``module.eager_replays`` counts it).  ``fused_steps`` /
 ``eager_steps`` count the steps of each route in telemetry.
+
+``context`` may be a list of contexts: one Executor runs the whole batch
+on the first, as the reference's does (``work_load_list`` is accepted
+for it).  ``group2ctxs`` (a dict, or a list of one a context, of which
+the first is taken) places each ``ctx_group``'s arrays on its context
+and runs its ops there (``Symbol.bind``'s ``group2ctx``); such a Module
+steps on the eager route, as the reference's does.
 
 Parameters are the Module's own tensors, updated in place:
 ``init_params`` / ``set_params`` copy what they are given, and
@@ -86,7 +93,8 @@ class FusedState:
 class Module(BaseModule):
     """Symbolic Module (reference ``python/mxnet/module/module.py:40``);
     see the module docstring for its two train-step routes.  ``context``
-    is where the executor's arrays live (``cuda:0`` by default)."""
+    is where the executor's arrays live (``cuda:0`` by default; the first
+    of a list)."""
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
@@ -94,14 +102,13 @@ class Module(BaseModule):
                  state_names=None, group2ctxs=None,
                  compression_params=None):
         super().__init__(logger=logger)
-        if group2ctxs:
-            raise NotImplementedError("group2ctxs placement is not ported")
-        if isinstance(context, (list, tuple)):
-            if len(context) != 1:
-                raise NotImplementedError(
-                    "one context per Module: data parallelism over several "
-                    "cards is not ported")
-            context = context[0]
+        self._contexts = list(context) if isinstance(
+            context, (list, tuple)) else [context]
+        context = self._contexts[0]
+        self._work_load_list = work_load_list
+        if isinstance(group2ctxs, (list, tuple)):
+            group2ctxs = group2ctxs[0] if group2ctxs else None
+        self._group2ctxs = group2ctxs or None
         self._symbol = symbol
         self._data_names = list(data_names)
         self._label_names = list(label_names or [])
@@ -135,20 +142,23 @@ class Module(BaseModule):
                                                    self._label_names)
         dtypes.update(ldtypes)
         device = resolve_device(self._context)
+        placement = self._symbol._ctx_group_map(self._group2ctxs)
         shapes = dict(self._data_shapes + self._label_shapes)
         arg_shapes, _, aux_shapes = self._symbol.infer_shape(**shapes)
+        from ..symbol.symbol import _zeros
         args = {}
         for name, shp in zip(self._symbol.list_arguments(), arg_shapes):
             if shp is None:
                 raise ValueError("cannot infer shape of %r from data shapes "
                                  "%s" % (name, shapes))
-            args[name] = _wrap(torch.zeros(
-                shp, dtype=torch_dtype(dtypes.get(name)), device=device))
+            args[name] = _zeros(shp, torch_dtype(dtypes.get(name)),
+                                placement.get(name), device)
         aux = {}
         for name, shp in zip(self._aux_names, aux_shapes):
             if shp is None:
                 raise ValueError("cannot infer shape of aux %r" % (name,))
-            aux[name] = _wrap(torch.zeros(shp, device=device))
+            aux[name] = _zeros(shp, torch.float32, placement.get(name),
+                               device)
         req = {}
         for n in args:
             if n in self._data_names:
@@ -157,10 +167,12 @@ class Module(BaseModule):
                 req[n] = "null"
             else:
                 req[n] = grad_req if for_training else "null"
-        grads = {n: _wrap(torch.zeros_like(args[n]._data))
+        grads = {n: _zeros(args[n].shape, args[n]._data.dtype,
+                           placement.get(n), device)
                  for n, r in req.items() if r != "null"}
         from ..symbol.symbol import Executor
-        self._exec = Executor(self._symbol, device, args, grads, req, aux)
+        self._exec = Executor(self._symbol, device, args, grads, req, aux,
+                              placement)
         self.binded = True
         self.for_training = for_training
         self._inputs_need_grad = inputs_need_grad
@@ -245,7 +257,7 @@ class Module(BaseModule):
         if not (self.binded and self.optimizer_initialized
                 and self.for_training) or type(self) is not Module:
             return False
-        if self._inputs_need_grad or \
+        if self._inputs_need_grad or self._exec._placement or \
                 not getattr(self._optimizer, "jit_safe", False):
             return False
         req = self._exec.grad_req

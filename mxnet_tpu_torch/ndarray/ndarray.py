@@ -32,7 +32,7 @@ import torch
 
 from .. import _tape
 from ..base import atomic_write, bfloat16_numpy, canonical_dtype, numpy_dtype
-from ..context import cpu, gpu, resolve_device
+from ..context import Context, cpu, gpu, resolve_device
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "eye", "linspace", "waitall", "concat", "stack", "split", "where",
@@ -49,6 +49,13 @@ def _wrap(data):
     return arr
 
 
+def with_context(arr, ctx):
+    """``arr`` recording ``ctx`` as its Context when ``ctx`` is one."""
+    if isinstance(ctx, Context):
+        arr._ctx = ctx
+    return arr
+
+
 def _invoke(name, *args, **attrs):
     from ..ops.registry import invoke
     return invoke(name, *args, **attrs)
@@ -56,7 +63,7 @@ def _invoke(name, *args, **attrs):
 
 class NDArray:
     __slots__ = ("_data", "_grad", "_grad_req", "_on_tape", "_recorded",
-                 "__weakref__")
+                 "_ctx", "__weakref__")
 
     # numpy defers to NDArray in mixed expressions
     __array_priority__ = 1000.0
@@ -89,7 +96,14 @@ class NDArray:
 
     @property
     def context(self):
+        """The Context the array was made or placed on (``cpu(1)`` and
+        ``cpu(0)`` are one torch device, so an array records it), else
+        its device's."""
         dev = self._data.device
+        ctx = getattr(self, "_ctx", None)
+        if ctx is not None and (ctx.device_type == "gpu") == (
+                dev.type == "cuda"):
+            return ctx
         return gpu(dev.index or 0) if dev.type == "cuda" else cpu()
 
     ctx = context
@@ -180,8 +194,15 @@ class NDArray:
         copy (recorded, so gradients flow back, under ``record()``)."""
         device = resolve_device(ctx)
         if device == self._data.device:
-            return self
-        return _invoke("_copy_to_device", self, device=device)
+            if not isinstance(ctx, Context) or ctx == self.context:
+                return self
+            # another context of the same device: the same tensor, its
+            # own Context
+            out = _wrap(self._data)
+            out._on_tape, out._recorded = self._on_tape, self._recorded
+            return with_context(out, ctx)
+        return with_context(_invoke("_copy_to_device", self, device=device),
+                            ctx)
 
     def _set_data(self, new_data):
         self._data = new_data
@@ -433,13 +454,14 @@ class NDArray:
         """A copy on a context (recorded, so gradients flow back, under
         ``record()``), or this array's value written into the NDArray
         ``other`` (in its dtype, on its device), which is returned."""
-        from ..context import Context
         if isinstance(other, Context):
             if _tape.is_recording():
-                return _invoke("_copy_to_device", self,
-                               device=resolve_device(other))
+                return with_context(_invoke("_copy_to_device", self,
+                                            device=resolve_device(other)),
+                                    other)
             t = self._data.detach() if self._on_tape else self._data
-            return _wrap(t.to(resolve_device(other), copy=True))
+            return with_context(_wrap(t.to(resolve_device(other), copy=True)),
+                                other)
         if isinstance(other, NDArray):
             other._check_mutable()
             other._data = self._data.detach().to(
@@ -487,14 +509,15 @@ def _as_tensor(source, ctx=None, dtype=None):
 
 
 def array(source_array, ctx=None, dtype=None):
-    return _wrap(_as_tensor(source_array, ctx, dtype))
+    return with_context(_wrap(_as_tensor(source_array, ctx, dtype)), ctx)
 
 
 def full(shape, val, ctx=None, dtype=None, **_):
     if isinstance(shape, int):
         shape = (shape,)
-    return _wrap(torch.full(tuple(shape), val, dtype=canonical_dtype(dtype),
-                            device=resolve_device(ctx)))
+    return with_context(_wrap(torch.full(
+        tuple(shape), val, dtype=canonical_dtype(dtype),
+        device=resolve_device(ctx))), ctx)
 
 
 def zeros(shape, ctx=None, dtype=None, **_):

@@ -14,6 +14,8 @@ channel).  No hand-written kernel is on this path.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 import torch.nn.functional as F
 
@@ -116,6 +118,57 @@ def _sum_pool(x, kernel, stride, pad):
 
 
 # ------------------------------------------------------------------ norms
+# SPMDTrainer's batch axes for the forward of a multi-rank step, installed
+# by set_batch_stats_context: BatchNorm's training statistics are then the
+# global batch's.  Thread-local, so a step on one thread never sees
+# another's
+_BATCH_STATS = threading.local()
+
+
+def set_batch_stats_context(ctx):
+    """Install ``ctx`` (``(mesh, axes)``: the batch axes of the running
+    step, or None) as this thread's BatchNorm statistics group; returns
+    the previous one, for the caller to restore."""
+    prev = getattr(_BATCH_STATS, "ctx", None)
+    _BATCH_STATS.ctx = ctx
+    return prev
+
+
+def _global_sums(parts, mesh, axes):
+    """Per-channel sums (and the element count, last) over the batch
+    ranks, in one collective whose backward sums the cotangents too:
+    every rank's share of the loss depends on the global statistics."""
+    from ..parallel.collectives import psum_summed
+    sizes = [p.numel() for p in parts]
+    total = psum_summed(torch.cat([p.reshape(-1) for p in parts]), mesh,
+                        axes)
+    return torch.split(total, sizes)
+
+
+def _synced_moments(xf, axis, shape, moving_mean, two_pass, mesh, axes):
+    """``(mean, var)`` of the global batch: this rank's sums over every
+    axis but ``axis``, summed over the batch ranks, in the op order of the one-rank moments
+    (the reference's ``jnp.mean`` / ``jnp.var`` over a batch-sharded
+    array: the sums are XLA's cross-replica ones)."""
+    red = tuple(i for i in range(xf.dim()) if i != axis)
+    count = torch.full((1,), float(xf.numel() // xf.shape[axis]),
+                       dtype=torch.float32, device=xf.device)
+    if two_pass:
+        s, n = _global_sums((torch.sum(xf, dim=red), count), mesh, axes)
+        mean = s / n
+        (s2,) = _global_sums((torch.sum(torch.square(
+            xf - mean.reshape(shape)), dim=red),), mesh, axes)
+        return mean, s2 / n
+    shift = moving_mean.float().reshape(shape)
+    d = xf - shift
+    sd, sd2, n = _global_sums((torch.sum(d, dim=red),
+                               torch.sum(torch.square(d), dim=red), count),
+                              mesh, axes)
+    dm = sd / n
+    var = torch.clamp(sd2 / n - torch.square(dm), min=0.0)
+    return dm + shift.reshape(-1), var
+
+
 @register("BatchNorm", aliases=("batch_norm",), num_outputs=3)
 def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                 momentum=0.9, fix_gamma=True, use_global_stats=False,
@@ -131,12 +184,22 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     and one bias per channel, and the output goes back to the input's
     dtype.  ``F.batch_norm`` is not used: it updates the running variance
     with the unbiased batch variance, where the reference keeps the
-    biased one."""
+    biased one.
+
+    Inside a multi-rank ``SPMDTrainer`` step (:func:`set_batch_stats_context`)
+    the training statistics are the global batch's: the sums over this
+    rank's rows are summed over the step's batch axes in one collective
+    (two with ``bn_two_pass_stats``) whose backward sums the cotangents,
+    as the reference's batch-sharded program does."""
     xf = data.float()
     red = tuple(i for i in range(data.dim()) if i != axis)
     shape = [1] * data.dim()
     shape[axis] = data.shape[axis]
-    if training and not use_global_stats:
+    sync = getattr(_BATCH_STATS, "ctx", None)
+    if training and not use_global_stats and sync is not None:
+        mean, var = _synced_moments(xf, axis, shape, moving_mean,
+                                    _config.get("bn_two_pass_stats"), *sync)
+    elif training and not use_global_stats:
         if _config.get("bn_two_pass_stats"):
             mean = torch.mean(xf, dim=red)
             var = torch.var(xf, dim=red, correction=0)

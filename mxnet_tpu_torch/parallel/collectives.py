@@ -17,6 +17,10 @@ reference's autodiff takes:
   batch ranks).  :func:`copy_to` is its conjugate: the identity forward
   and a sum of the cotangents backward (Megatron's "f", before a
   column-split matmul).
+- :func:`psum_summed` sums forward and backward: the sum over the axes
+  feeds every rank's share of one loss (BatchNorm's batch statistics
+  over the batch ranks), so each rank's cotangent is partial and the
+  ranks' cotangents are summed.
 - :func:`ppermute` rotates along one axis (rank ``i`` sends to ``i +
   shift``); its backward is the reverse rotation.
 - :func:`all_to_all` exchanges the blocks of the first dimension (the
@@ -29,7 +33,9 @@ reference's autodiff takes:
   PartitionSpec; its backward sums the cotangent over ``sum_axes`` (the
   axes whose ranks computed on other data) and gathers the blocks whole
   again.  :func:`unshard` gathers the blocks whole; its backward takes
-  this rank's block of the cotangent.
+  this rank's block of the cotangent, summed over the spec's axes first
+  with ``summed=True`` (each rank's use of the whole is its share of one
+  loss).
 
 Routes.  NCCL takes every collective where the tensor lies.  gloo runs
 ``all_reduce``, ``all_gather``, ``broadcast`` and ``all_to_all_single``
@@ -51,7 +57,7 @@ from .. import telemetry as _telemetry
 from . import dist as _dist
 from .mesh import _spec_axes
 
-__all__ = ["route", "psum", "pmean", "copy_to", "ppermute", "all_to_all",
+__all__ = ["route", "psum", "psum_summed", "pmean", "copy_to", "ppermute", "all_to_all",
            "broadcast_last", "shard", "unshard", "local_block",
            "GLOO_CUDA_NATIVE"]
 
@@ -176,6 +182,17 @@ class _Psum(torch.autograd.Function):
         return g, None, None
 
 
+class _PsumSummed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh, ctx.axes), None, None
+
+
 class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes):
@@ -237,13 +254,16 @@ class _Shard(torch.autograd.Function):
 
 class _Unshard(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, spec):
-        ctx.mesh, ctx.spec = mesh, spec
+    def forward(ctx, x, mesh, spec, sums):
+        ctx.mesh, ctx.spec, ctx.sums = mesh, spec, sums
         return _gather_blocks(x, mesh, spec)
 
     @staticmethod
     def backward(ctx, g):
-        return local_block(g, ctx.mesh, ctx.spec).contiguous(), None, None
+        if ctx.sums:
+            g = _all_reduce(g, ctx.mesh, ctx.sums)
+        return local_block(g, ctx.mesh, ctx.spec).contiguous(), None, None, \
+            None
 
 
 # ------------------------------------------------------------ the API
@@ -252,6 +272,14 @@ def psum(x, mesh, axes):
     backward the identity (module doc)."""
     axes = _live(mesh, axes)
     return _Psum.apply(x, mesh, axes) if axes else x
+
+
+def psum_summed(x, mesh, axes):
+    """The sum of ``x`` over the ranks along ``axes``, on each of them;
+    backward the sum of the cotangents over the same ranks (module
+    doc)."""
+    axes = _live(mesh, axes)
+    return _PsumSummed.apply(x, mesh, axes) if axes else x
 
 
 def pmean(x, mesh, axes):
@@ -305,10 +333,11 @@ def shard(x, mesh, spec, sum_axes=()):
     return _Shard.apply(x, mesh, tuple(spec), sums)
 
 
-def unshard(x, mesh, spec):
+def unshard(x, mesh, spec, summed=False):
     """The whole tensor from every rank's block ``x`` by ``spec``;
-    backward this rank's block of the cotangent."""
-    if not _live(mesh, tuple(a for part in spec
-                             for a in _spec_axes(part))):
+    backward this rank's block of the cotangent (of the cotangent summed
+    over the spec's axes with ``summed``)."""
+    live = _live(mesh, tuple(a for part in spec for a in _spec_axes(part)))
+    if not live:
         return x
-    return _Unshard.apply(x, mesh, tuple(spec))
+    return _Unshard.apply(x, mesh, tuple(spec), live if summed else ())

@@ -49,10 +49,21 @@ checkpoint gathers them whole.  Three routes:
 Pad-masked steps (``pad > 0``): the last ``pad`` rows of the global
 batch are fill; the loss and gradients average over the others only.
 
+BatchNorm over several ranks: in the forward of a multi-rank step
+(dense, row-sparse or ``param_specs``) every BatchNorm's training
+statistics are the global batch's (``ops.nn.set_batch_stats_context``
+with the batch axes: the per-rank sums summed in one collective whose
+backward sums the cotangents, the reference's cross-replica sums), so
+the moving statistics the step returns are the same on every rank.  A
+pad-masked step's fill rows count in the statistics, as they do in the
+reference's BatchNorm, though the loss masks them.  The compressed DCN
+step keeps the reference's shard-local statistics (its body runs under
+``shard_map``): each rank's BatchNorm sees its own rows, and the moving
+statistics are averaged over every axis of the mesh after the step.
+
 Refused (``NotImplementedError``, never ignored): the row-sparse route
 and the compressed step on meshes whose other axes than the batch axes
 have more than one rank, a ``param_specs`` entry for a routed table,
-BatchNorm statistics over a multi-rank uncompressed step,
 ``conv.weights_layout=HWIO``, the nanguard (``resilience.nanguard``),
 in-step numerics capture (``numerics.capture``), the checkpoint manager
 and the sharded checkpoints.
@@ -173,7 +184,7 @@ class SPMDTrainer:
         """Copy the Block's parameters onto this rank's device as the
         trainer's own tensors (masters that require grad, aux state; this
         rank's rows of a vocab-sharded table), rank 0's values on every
-        rank, and create the optimizer state.  Deferred shapes are
+        rank of a multi-rank mesh, and create the optimizer state.  Deferred shapes are
         resolved by one forward on the first batch."""
         from ..gluon.parameter import DeferredInitializationError
         try:
@@ -191,7 +202,9 @@ class SPMDTrainer:
         self.params = {}
         for n, v in vals.items():
             t = v.detach().to(self.device, copy=True)
-            _dist.broadcast_(t, src=0)
+            if self.mesh.size > 1:
+                # a rank-local (one-device) mesh calls no collective
+                _dist.broadcast_(t, src=0)
             spec = self._spec_of(n)
             if spec is not None:
                 t = local_block(t, self.mesh, spec).clone()
@@ -251,6 +264,7 @@ class SPMDTrainer:
         (under ``conv.internal_layout=NHWC`` a conv weight's gradient
         comes back channels_last), not yet reduced over ranks; the unique
         ids of each routed table that was looked up."""
+        from ..ops import nn as _nn_ops
         from ..ops import tensor as _tensor_ops
         fn, cdt = self.fn, self.compute_dtype
 
@@ -268,12 +282,16 @@ class SPMDTrainer:
             ctx = _pemb.SparseLookupContext(
                 self.mesh, self._sparse_embed, routed, deltas,
                 self._batch_axes) if tables else None
+            stats = (self.mesh, self._batch_axes) \
+                if self._n_shards > 1 and not local_mean else None
             prev = _tensor_ops.set_embed_context(ctx)
+            prev_stats = _nn_ops.set_batch_stats_context(stats)
             try:
                 (out,), new_aux = fn.apply(param_map, (data,),
                                            training=True)
             finally:
                 _tensor_ops.set_embed_context(prev)
+                _nn_ops.set_batch_stats_context(prev_stats)
             if cdt is not None:
                 out = out.float()
             loss, report = self._loss_terms(
@@ -491,10 +509,6 @@ class SPMDTrainer:
             # knob turned off: stale error feedback must not leak into a
             # later re-enable
             self._dcn_residuals = None
-        if self._n_shards > 1 and self.fn.aux and not compress:
-            raise NotImplementedError(
-                "batch statistics over a multi-rank step (SyncBatchNorm: "
-                "%s) are not ported yet" % self.fn.aux[:4])
         key = (_kernels.enabled(), _config.epoch())
         if self._program is None or key != self._program_key:
             self._program, self._program_key = self._build(), key
@@ -550,7 +564,8 @@ class SPMDTrainer:
         ``path``, atomically: a pickle of numpy arrays in the reference's
         format (``parallel/trainer.py:1131``), which ``load_checkpoint``
         of either package reads.  Over several ranks every rank takes
-        part in gathering the sharded tables and rank 0 writes."""
+        part in gathering the sharded tables and rank 0 writes (its aux
+        state, which the synchronised statistics make every rank's)."""
         from ..random import _STATE
         from ..resilience import CKPT_SCHEMA, atomic_write
         if self.params is None:

@@ -11,10 +11,18 @@ interpretation, and shape inference runs the ops on ``meta`` tensors
 rules).  The graph JSON is the JAX package's own schema
 (``mxnet_tpu-symbol-v1``), so each package loads the other's files.
 
-Not ported: ``group2ctx`` placement, ``AttrScope`` annotations,
-``Variable(init=...)``, monitor callbacks, numerics taps and the
-Apache-MXNet (NNVM) graph JSON reader; each raises NotImplementedError
-when asked for.
+``AttrScope`` (:mod:`..attribute`) stamps its attributes on every node
+created inside it.  ``bind`` / ``simple_bind`` with ``group2ctx`` place
+each argument, gradient and aux array whose variable carries a
+``ctx_group`` on that group's context (a caller's NDArray elsewhere
+raises ``ValueError``, the reference's AssignContext check), and the
+Executor runs each op on its own group's device (the executor's for an
+op of no group), copying an input that lies on another device: the
+reference's cross-device copy nodes.  Autograd follows the copies, so a
+gradient lands on its array's device.
+
+Not ported: monitor callbacks and numerics taps; each raises
+NotImplementedError when asked for.
 """
 from __future__ import annotations
 
@@ -62,6 +70,13 @@ class Symbol:
 
     def attr(self, key):
         return self._attr_map.get(key)
+
+    def list_attr(self, recursive=False):
+        """This node's attributes (every node's, by name, with
+        ``recursive``: :meth:`attr_dict`)."""
+        if recursive:
+            return self.attr_dict()
+        return dict(self._attr_map)
 
     def attr_dict(self):
         return {node.name: dict(node._attr_map) for node in _topo(self)
@@ -204,38 +219,53 @@ class Symbol:
                     group2ctx=None, shared_exec=None, **kwargs):
         """Allocate zero arguments from shapes and bind (reference
         ``MXExecutorSimpleBindEx``); arrays live on ``ctx`` (the current
-        context by default)."""
-        if group2ctx:
-            raise NotImplementedError("group2ctx placement is not ported")
+        context by default), or on their ``ctx_group``'s context in
+        ``group2ctx``."""
         device = resolve_device(ctx)
+        placement = self._ctx_group_map(group2ctx)
         arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
-        from ..ndarray.ndarray import _wrap
         args, aux = {}, {}
         for name, shp in zip(self.list_arguments(), arg_shapes):
             if shp is None:
                 raise ValueError("simple_bind could not infer a shape for "
                                  "%r: pass it explicitly" % (name,))
             dt = torch_dtype((type_dict or {}).get(name, "float32"))
-            args[name] = _wrap(torch.zeros(shp, dtype=dt, device=device))
+            args[name] = _zeros(shp, dt, placement.get(name), device)
         for name, shp in zip(self.list_auxiliary_states(), aux_shapes):
             if shp is None:
                 raise ValueError("simple_bind could not infer a shape for "
                                  "aux %r" % (name,))
-            aux[name] = _wrap(torch.zeros(shp, device=device))
+            aux[name] = _zeros(shp, torch.float32, placement.get(name),
+                               device)
         args_grad = None
         if grad_req != "null":
-            args_grad = {n: _wrap(torch.zeros_like(v._data))
+            args_grad = {n: _zeros(v.shape, v._data.dtype,
+                                   placement.get(n), device)
                          for n, v in args.items()}
-        return Executor(self, device, args, args_grad, grad_req, aux)
+        return Executor(self, device, args, args_grad, grad_req, aux,
+                        placement)
+
+    def _ctx_group_map(self, group2ctx):
+        """``{variable name: Context}`` from each variable's ``ctx_group``
+        attribute and ``group2ctx`` (reference ``AssignContext``)."""
+        if not group2ctx:
+            return {}
+        out = {}
+        for node in _topo(self):
+            grp = node._attr_map.get("ctx_group")
+            if node.kind == "var" and grp in group2ctx:
+                out[node.name] = group2ctx[grp]
+        return out
 
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
              aux_states=None, group2ctx=None, shared_exec=None):
         """Bind with explicit arrays (reference ``MXExecutorBindEX``):
         NDArrays are used as they are, anything else is copied onto
-        ``ctx``."""
-        if group2ctx:
-            raise NotImplementedError("group2ctx placement is not ported")
+        ``ctx`` (its ``ctx_group``'s context in ``group2ctx``).  An
+        NDArray whose context is not its ``ctx_group``'s raises
+        ``ValueError``."""
         device = resolve_device(ctx)
+        placement = self._ctx_group_map(group2ctx)
         names = self.list_arguments()
         if isinstance(args, (list, tuple)):
             args = dict(zip(names, args))
@@ -243,8 +273,21 @@ class Symbol:
             aux_states = dict(zip(self.list_auxiliary_states(), aux_states))
         if isinstance(args_grad, (list, tuple)):
             args_grad = dict(zip(names, args_grad))
-        return Executor(self, device, _as_nd(args, device), _as_nd(
-            args_grad, device) or None, grad_req, _as_nd(aux_states, device))
+        from ..ndarray.ndarray import NDArray
+        for pool in (args, args_grad, aux_states):
+            for n, v in (pool or {}).items():
+                want = placement.get(n)
+                if want is not None and isinstance(v, NDArray) \
+                        and v.context != want:
+                    raise ValueError(
+                        "bind: argument %r lives on %s but its ctx_group "
+                        "assigns %s: create it on the assigned context "
+                        "(reference AssignContext ctx-mismatch check)"
+                        % (n, v.context, want))
+        return Executor(self, device, _as_nd(args, device, placement),
+                        _as_nd(args_grad, device, placement) or None,
+                        grad_req, _as_nd(aux_states, device, placement),
+                        placement)
 
     def eval(self, ctx=None, **kwargs):
         """One-shot forward (reference ``Symbol.eval``)."""
@@ -278,10 +321,23 @@ class Symbol:
             f.write(self.tojson())
 
 
-def _as_nd(arrays, device):
+def _as_nd(arrays, device, placement=None):
+    """NDArrays as they are, anything else copied onto its placed context
+    or ``device``."""
     from ..ndarray.ndarray import NDArray, array
-    return {n: v if isinstance(v, NDArray) else array(v, ctx=device)
+    placement = placement or {}
+    return {n: v if isinstance(v, NDArray)
+            else array(v, ctx=placement.get(n, device))
             for n, v in (arrays or {}).items()}
+
+
+def _zeros(shape, dtype, ctx, device):
+    """Zeros on ``ctx`` (a Context, recorded on the NDArray) or else on
+    ``device``."""
+    from ..ndarray.ndarray import _wrap, with_context
+    where = ctx if ctx is not None else device
+    return with_context(_wrap(torch.zeros(
+        tuple(shape), dtype=dtype, device=resolve_device(where))), where)
 
 
 def _const_json(x):
@@ -332,11 +388,14 @@ def load(fname):
 
 # ------------------------------------------------------------ constructors
 def Variable(name, shape=None, dtype=None, init=None, **attr_kwargs):
+    from ..attribute import AttrScope
     s = Symbol("var", name)
     if shape is not None:
         s.attrs["shape"] = tuple(shape)
     if dtype is not None:
         s.attrs["dtype"] = str(torch_dtype(dtype))[len("torch."):]
+    # the enclosing AttrScope's attributes; the variable's own win
+    s._attr_map.update(AttrScope.current_attrs())
     if init is not None:
         # the initializer as its dumps() in the __init__ attr (the
         # reference's); Initializer.__call__ routes an InitDesc carrying
@@ -439,9 +498,12 @@ def _make_op_node(opname, inputs, attrs):
             inputs.append(v)
     elif "data" in attrs and not inputs:
         inputs = [attrs.pop("data")]
+    from ..attribute import AttrScope
     from ..ndarray.ndarray import NDArray
     inputs = [x._data if isinstance(x, NDArray) else x for x in inputs]
-    return Symbol("op", name, op=op.name, attrs=attrs, inputs=inputs)
+    node = Symbol("op", name, op=op.name, attrs=attrs, inputs=inputs)
+    node._attr_map.update(AttrScope.current_attrs())
+    return node
 
 
 # Parameter-shape rules: given op attrs and the data shape, the shapes of
@@ -670,7 +732,7 @@ def _is_aux_name(name):
 
 
 def _eval_symbol(sym, env, training, aux_updates=None, apply=None,
-                 overrides=None):
+                 overrides=None, device_of=None):
     """Interpret the DAG on tensors; ``env`` maps variable names to
     tensors.  Returns the list of head outputs; under ``training`` the
     aux write-backs land in ``aux_updates`` when it is given.  ``apply(op,
@@ -678,7 +740,8 @@ def _eval_symbol(sym, env, training, aux_updates=None, apply=None,
     (``SymbolBlock`` passes ``registry.apply_op`` over NDArrays); the aux
     write-backs are tensors either way.  ``overrides`` maps a node's id to
     the function that runs in its place (a loaded int8 artifact's
-    recolored sites)."""
+    recolored sites).  ``device_of(node)``, when given, is the device an
+    op runs on: a tensor input elsewhere is copied there first."""
     cache = {}
 
     def value(node, index=0):
@@ -694,6 +757,10 @@ def _eval_symbol(sym, env, training, aux_updates=None, apply=None,
         elif node.kind == "op":
             vals = [value(x) if isinstance(x, Symbol) else x
                     for x in node.inputs]
+            if device_of is not None:
+                dev = device_of(node)
+                vals = [v.to(dev) if isinstance(v, torch.Tensor)
+                        and v.device != dev else v for v in vals]
             attrs = dict(node.attrs)
             if node.op in _TRAIN_MODE_OPS:
                 # the executor's is_train decides, not an attr baked in
@@ -730,16 +797,18 @@ def _eval_symbol(sym, env, training, aux_updates=None, apply=None,
 
 
 # ------------------------------------------------------------------ Executor
-def _grads(sym, env, wrt, cotangents=None, aux_updates=None):
+def _grads(sym, env, wrt, cotangents=None, aux_updates=None,
+           device_of=None):
     """Outputs and ``{name: grad}`` of ``wrt`` (tensors, updated nowhere)
     for one training-mode forward over ``env`` with the given cotangents
     (ones where None: the reference's ``out_grads=None``).  An input the
     outputs do not reach gets zeros."""
     leaves = {n: t.detach().requires_grad_(True) for n, t in wrt.items()}
     with torch.enable_grad():
-        outs = _eval_symbol(sym, dict(env, **leaves), True, aux_updates)
+        outs = _eval_symbol(sym, dict(env, **leaves), True, aux_updates,
+                            device_of=device_of)
         cts = [torch.ones_like(o) for o in outs] if cotangents is None \
-            else list(cotangents)
+            else [c.to(o.device) for o, c in zip(outs, cotangents)]
         pairs = [(o, c) for o, c in zip(outs, cts) if o.requires_grad]
         grads = torch.autograd.grad(
             [o for o, _ in pairs], list(leaves.values()),
@@ -754,11 +823,23 @@ class Executor:
     """A bound graph (reference ``include/mxnet/executor.h``):
     ``forward`` interprets it, ``backward`` takes the gradients of one
     training-mode forward with ``torch.autograd.grad``, and
-    ``fused_step_fn`` builds the symbolic Module's fused train step."""
+    ``fused_step_fn`` builds the symbolic Module's fused train step.
+    ``placement`` (``{variable name: Context}``, from ``group2ctx``)
+    runs each op of a ``ctx_group`` on that group's device (module
+    doc)."""
 
-    def __init__(self, sym, device, args, args_grad, grad_req, aux):
+    def __init__(self, sym, device, args, args_grad, grad_req, aux,
+                 placement=None):
         self._symbol = sym
         self._device = device
+        self._placement = dict(placement or {})
+        groups = {}
+        for node in _topo(sym):
+            grp = node._attr_map.get("ctx_group")
+            if node.kind == "var" and node.name in self._placement:
+                groups[grp] = self._placement[node.name]
+        self._group_device = {g: resolve_device(c) for g, c in
+                              groups.items()}
         self.arg_dict = dict(args or {})
         self.grad_dict = dict(args_grad or {})
         self.aux_dict = dict(aux or {})
@@ -772,6 +853,17 @@ class Executor:
         env = {n: v._data for n, v in self.arg_dict.items()}
         env.update({n: v._data for n, v in self.aux_dict.items()})
         return env
+
+    def _device_of(self):
+        """The op placement for :func:`_eval_symbol`: None without a
+        ``group2ctx``."""
+        if not self._placement:
+            return None
+        groups, exec_dev = self._group_device, self._device
+
+        def device_of(node):
+            return groups.get(node._attr_map.get("ctx_group"), exec_dev)
+        return device_of
 
     @property
     def arg_arrays(self):
@@ -808,10 +900,10 @@ class Executor:
         aux_updates = {}
         with torch.no_grad():
             outs = _eval_symbol(self._symbol, self._env(), bool(is_train),
-                                aux_updates)
+                                aux_updates, device_of=self._device_of())
         for n, v in aux_updates.items():
             if n in self.aux_dict:
-                self.aux_dict[n]._data = v
+                self.aux_dict[n]._data = v.to(self.aux_dict[n]._data.device)
         from ..ndarray.ndarray import _wrap
         self.outputs = [_wrap(o) for o in outs]
         return self.outputs
@@ -835,7 +927,8 @@ class Executor:
         env = self._env()
         _, grads = _grads(self._symbol, {n: v for n, v in env.items()
                                          if n not in wrt},
-                          {n: env[n] for n in wrt}, out_grads)
+                          {n: env[n] for n in wrt}, out_grads,
+                          device_of=self._device_of())
         for n in wrt:
             tgt = self.grad_dict.get(n)
             if tgt is None:
@@ -936,7 +1029,7 @@ class Executor:
                     if n in kwargs else v for n, v in self.arg_dict.items()}
         return Executor(self._symbol, self._device, new_args,
                         dict(self.grad_dict), self.grad_req,
-                        dict(self.aux_dict))
+                        dict(self.aux_dict), self._placement)
 
     def set_monitor_callback(self, callback, monitor_all=False):
         raise NotImplementedError("executor monitor callbacks are not "

@@ -909,6 +909,8 @@ def test_import_does_not_load_jax():
             "import mxnet_tpu_torch.parallel.pipeline; "
             "import mxnet_tpu_torch.parallel.moe; "
             "import mxnet_tpu_torch.models.bert; "
+            "import mxnet_tpu_torch.attribute; "
+            "import mxnet_tpu_torch.gluon.contrib.nn.basic_layers; "
             "assert 'mxnet_tpu_torch.ops.contrib' in sys.modules; "
             "assert 'mxnet_tpu_torch.ops.contrib_extra' in sys.modules; "
             "assert 'mxnet_tpu_torch.gluon.data.dataloader' in sys.modules; "

@@ -432,8 +432,14 @@ def test_what_is_not_ported_raises():
                 monitor=object())
     with pytest.raises(NotImplementedError, match="optimizer states"):
         mod.save_checkpoint("unused", 1, save_optimizer_states=True)
-    with pytest.raises(NotImplementedError):
-        mt.mod.Module(_mlp(mt), group2ctxs={"dev1": mt.cpu()})
+    # group2ctxs placement is ported (tests/test_torch_multi_context.py):
+    # it takes the eager route, as the reference's does
+    placed = mt.mod.Module(_mlp(mt), context=mt.cpu(),
+                           group2ctxs={"dev1": mt.cpu()})
+    placed.bind([("data", (16, 10))], [("softmax_label", (16,))])
+    placed.init_params(mt.init.Xavier())
+    placed.init_optimizer(optimizer="sgd")
+    assert placed._exec._placement == {} and placed._fused_active()
 
 
 def test_bench_mlp_routes_agree():

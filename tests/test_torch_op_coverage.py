@@ -75,7 +75,8 @@ _RESILIENCE_REST = ("CheckpointManager", "MANIFEST_SCHEMA",
 UNPORTED_SURFACE = {
     "gluon": {},
     "gluon.rnn": {},
-    "gluon.contrib": {"nn": "16", "estimator": "16"},
+    "gluon.contrib": {"estimator": "16"},
+    "gluon.contrib.nn": {},
     "gluon.contrib.cnn": {},
     "gluon.contrib.rnn": {},
     "gluon.contrib.data": {},

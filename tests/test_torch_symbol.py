@@ -292,8 +292,11 @@ def test_zeros_ones_and_what_is_not_ported():
     # Variable(init=...) is ported: the initializer's dumps in __init__
     assert mt.sym.Variable("w", init=mt.init.Zero()).attr_dict()["w"][
         "__init__"] == mt.init.Zero().dumps()
+    # group2ctx placement is ported (tests/test_torch_multi_context.py);
+    # monitor callbacks are not
+    ex = _mlp(mt).simple_bind(mt.cpu(), group2ctx={"a": mt.cpu()},
+                              data=(4, 10))
     with pytest.raises(NotImplementedError):
-        _mlp(mt).simple_bind(mt.cpu(), group2ctx={"a": mt.cpu()},
-                             data=(4, 10))
+        ex.set_monitor_callback(lambda *args: None)
     with pytest.raises(AttributeError):
         mt.sym.no_such_op_anywhere

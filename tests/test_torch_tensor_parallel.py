@@ -12,10 +12,11 @@ ranks with ``convert.shard_params`` and gathered back with
   tp 2, sp 2}``: the loss, the gradients and the weights after the
   dryrun's momentum SGD step, at the dryrun's bound (rtol 2e-4, atol
   1e-5, ``__graft_entry__.py:150-153``).
-- A narrow BERT over ``{dp 2, tp 2}`` (the file's one group has 4 ranks):
-  ``pretrain_loss`` within LOSS_RTOL and its gradients per tensor within
-  GRAD_RTOL of the tensor's largest entry (tests/test_torch_bert.py's
-  bounds).
+- A narrow BERT over ``{dp 2, tp 2}`` (the file's one group has 4 ranks),
+  and over ``{dp 2, sp 2}`` (ring attention in the encoder, the heads on
+  the sequence gathered whole): ``pretrain_loss`` within LOSS_RTOL and
+  its gradients per tensor within GRAD_RTOL of the tensor's largest entry
+  (tests/test_torch_bert.py's bounds).
 - ``SPMDTrainer`` with ``param_specs`` splitting a Gluon MLP's Dense
   weights on ``tp`` over ``{dp 2, tp 2}``: 3 momentum SGD steps against
   the reference's trainer (losses and weights within MLP_ATOL), each rank
@@ -133,10 +134,12 @@ def test_transformer_lm_tp_sp_matches_reference(world):
                                    atol=LM_ATOL, err_msg=name)
 
 
-def test_bert_tp_matches_reference(world):
+@pytest.mark.parametrize("case", ["bert", "bert_sp"])
+def test_bert_tp_matches_reference(world, case):
     inp, runs = world
-    _same_on_every_rank(runs, "bert/")
-    mesh = ref_mesh(W.BERT_MESH, jax.devices()[:W.RANKS])
+    _same_on_every_rank(runs, case + "/")
+    axes = W.BERT_MESH if case == "bert" else W.BERT_SP_MESH
+    mesh = ref_mesh(axes, jax.devices()[:W.RANKS])
     model = JaxBERT(JaxBERTCfg(dtype=jnp.float32, **W.BERT_CFG), mesh=mesh)
     params = _placed(mesh, W.bert_params(), model.param_specs())
     batch = W.bert_batch()
@@ -144,11 +147,11 @@ def test_bert_tp_matches_reference(world):
     loss, grads = jax.jit(jax.value_and_grad(model.pretrain_loss))(params,
                                                                    *args)
     got = runs[0]
-    np.testing.assert_allclose(got["bert/loss"], float(loss),
+    np.testing.assert_allclose(got[case + "/loss"], float(loss),
                                rtol=LOSS_RTOL)
     for name, g in W.flat(jax.tree_util.tree_map(np.asarray, grads)).items():
         scale = float(np.abs(g).max())
-        err = float(np.abs(got["bert/grad/" + name] - g).max()) / scale
+        err = float(np.abs(got[case + "/grad/" + name] - g).max()) / scale
         assert err <= GRAD_RTOL, (name, err)
 
 
@@ -180,12 +183,12 @@ def test_spmd_trainer_param_specs_matches_reference(world):
 
 
 def test_sharded_models_refuse_what_is_not_ported(world):
-    """Under tp (or sp) ranks the paged generation raises, and BERT over
-    a sequence split raises, each with its reason."""
+    """On a mesh with tp ranks SPMDTrainer's routed row-sparse table and
+    its 2-bit compressed step raise, each with its reason."""
     _, runs = world
     for got in runs:
-        assert "tp or sp ranks" in str(got["lm/prefill_refused"])
-        assert "sequence split" in str(got["bert/sp_refused"])
+        assert "row-sparse embedding route" in str(got["mlp/routed_refused"])
+        assert "data-parallel meshes" in str(got["mlp/compressed_refused"])
 
 
 # ------------------------------------------- one-rank axes, no worker

@@ -3,6 +3,12 @@ tests/test_torch_tensor_parallel.py and tests/test_torch_pipeline_moe.py:
 one rank of a 4-rank gloo group on the CPU, started by ``python -m
 mxnet_tpu_torch.launch -n 4``, running every scenario of one suite.
 
+The suites: ``ring`` (tests/test_torch_ring_attention.py), ``tp``
+(tests/test_torch_tensor_parallel.py), ``pipe``
+(tests/test_torch_pipeline_moe.py), ``bn``
+(tests/test_torch_sync_batchnorm.py) and ``decode``
+(tests/test_torch_sharded_decode.py).
+
 Not a pytest file, and it never imports JAX: it reads its inputs from
 ``<workdir>/inputs.npz`` (written by the test, which computes the
 reference's results in its own process) and writes each rank's results
@@ -10,7 +16,8 @@ to ``<workdir>/rank<r>.npz``.  Run::
 
     python -m mxnet_tpu_torch.launch -n 4 python tests/torch_mesh_worker.py WORKDIR SUITE
 
-with SUITE one of ``ring``, ``tp``, ``pipe``.  The functions that make
+with SUITE one of ``ring``, ``tp``, ``pipe``, ``bn``, ``decode``.  The
+functions that make
 the inputs, and the sizes, are shared with the tests (numpy-only at
 import).
 """
@@ -38,6 +45,8 @@ BERT_MESH = {"dp": 2, "tp": 2}
 BERT_CFG = dict(vocab_size=64, num_layers=2, d_model=128, num_heads=4,
                 d_ff=256, max_len=16)
 BERT_B, BERT_M = 4, 4
+# the same BERT over a sequence split: rows over dp, positions over sp
+BERT_SP_MESH = {"dp": 2, "sp": 2}
 # SPMDTrainer with param_specs: a Gluon MLP, Dense weights split on tp
 MLP_MESH = {"dp": 2, "tp": 2}
 MLP_ONE_RANK_MESH = {"dp": 1, "tp": 4}
@@ -54,6 +63,18 @@ MOE_AUX_WEIGHT = 0.01
 # __graft_entry__._dryrun_pipeline_moe(4): dp 1, pp 2, ep 2
 PPMOE_MESH = {"dp": 1, "pp": 2, "ep": 2}
 PPMOE_D, PPMOE_H, PPMOE_ELOC, PPMOE_M, PPMOE_B, PPMOE_LR = 16, 32, 2, 2, 4, 0.1
+
+# SyncBatchNorm through SPMDTrainer: a narrow conv-BN-ReLU net, 3 momentum
+# SGD steps on each mesh, in both statistics modes and with a padded batch
+BN_MESHES = {"dp4": {"dp": 4}, "dp2tp2": {"dp": 2, "tp": 2}}
+# (run name, mesh, bn_two_pass_stats, pad)
+BN_RUNS = (("dp4", "dp4", False, 0), ("dp4_two_pass", "dp4", True, 0),
+           ("dp2tp2", "dp2tp2", False, 0), ("dp4_pad", "dp4", False, 2),
+           ("dp2tp2_two_pass_pad", "dp2tp2", True, 3))
+BN_B, BN_C, BN_HW, BN_CLASSES, BN_STEPS = 8, 3, 8, 5, 3
+BN_OPT = {"learning_rate": 0.1, "momentum": 0.9}
+# the BatchNorm op alone over {dp 4}: [B, C, H, W] rows split over dp
+BN_OP_SHAPE = (8, 6, 3, 3)
 
 
 def launch(workdir, suite, inputs):
@@ -149,6 +170,92 @@ def mlp_batches(seed=3):
     return [(rng.normal(size=(MLP_BATCH, MLP_IN)).astype(np.float32),
              rng.normal(size=(MLP_BATCH, MLP_OUT)).astype(np.float32))
             for _ in range(MLP_STEPS)]
+
+
+def bn_net(pkg):
+    """conv (no bias, as before every BatchNorm of ResNet) ->
+    SyncBatchNorm -> relu, twice, then a pooled Dense head."""
+    nn = pkg.gluon.nn
+    cnn = pkg.gluon.contrib.nn
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Conv2D(6, 3, padding=1, use_bias=False,
+                          in_channels=BN_C))
+        net.add(cnn.SyncBatchNorm(in_channels=6))
+        net.add(nn.Activation("relu"))
+        net.add(nn.Conv2D(8, 3, strides=2, padding=1, use_bias=False,
+                          in_channels=6))
+        net.add(cnn.SyncBatchNorm(in_channels=8, num_devices=4))
+        net.add(nn.Activation("relu"))
+        net.add(nn.GlobalAvgPool2D())
+        net.add(nn.Dense(BN_CLASSES, in_units=8))
+    return net
+
+
+def bn_batches(seed=4):
+    """Inputs with a large offset (the shifted statistics' case) and
+    class labels, one batch a step."""
+    rng = np.random.RandomState(seed)
+    return [(rng.normal(3.0, 2.0, (BN_B, BN_C, BN_HW, BN_HW))
+             .astype(np.float32),
+             rng.randint(0, BN_CLASSES, (BN_B,)).astype(np.float32))
+            for _ in range(BN_STEPS)]
+
+
+def bn_op_inputs(seed=6):
+    rng = np.random.RandomState(seed)
+    c = BN_OP_SHAPE[1]
+    return {"x": rng.normal(2.0, 1.5, BN_OP_SHAPE).astype(np.float32),
+            "w": rng.normal(size=BN_OP_SHAPE).astype(np.float32),
+            "gamma": rng.uniform(0.5, 1.5, c).astype(np.float32),
+            "beta": rng.normal(size=c).astype(np.float32),
+            "mean": rng.normal(2.0, 0.1, c).astype(np.float32),
+            "var": rng.uniform(0.5, 2.0, c).astype(np.float32)}
+
+
+# prefill and 8 teacher-forced decode steps of LM_CFG's TransformerLM on
+# three meshes, with f32, bf16 and int8 pages (an f32 model's)
+DEC_MESHES = {"tp2sp2": {"dp": 1, "tp": 2, "sp": 2},
+              "dp2tp2": {"dp": 2, "tp": 2}, "tp4": {"tp": 4}}
+# (page kind, model dtype, int8 pages)
+DEC_KINDS = (("f32", "float32", False), ("bf16", "bfloat16", False),
+             ("int8", "float32", True))
+DEC_B, DEC_S, DEC_PSZ, DEC_W, DEC_STEPS = 2, 16, 4, 6, 8
+DEC_LENGTHS = (13, 7)
+# one spare page no row uses; the page id DEC_POOL is the sentinel
+DEC_POOL = DEC_B * DEC_W + 1
+
+
+def dec_inputs(seed=8):
+    """Prompts (padded past their lengths), the page table (row 1's last
+    two entries the sentinel: its positions never reach them) and the
+    teacher-forced decode tokens."""
+    rng = np.random.RandomState(seed)
+    V = LM_CFG["vocab_size"]
+    table = np.arange(DEC_B * DEC_W).reshape(DEC_B, DEC_W)
+    table[1, 4:] = DEC_POOL
+    return {"tokens": rng.randint(0, V, (DEC_B, DEC_S)),
+            "lengths": np.array(DEC_LENGTHS),
+            "table": table,
+            "feed": rng.randint(0, V, (DEC_STEPS, DEC_B))}
+
+
+def dec_pool_shape():
+    c = LM_CFG
+    return (c["num_layers"], DEC_POOL, DEC_PSZ, c["num_heads"],
+            c["d_model"] // c["num_heads"])
+
+
+def dec_zero_pool(dtype, quant):
+    """A whole zero pool in the reference's layout (numpy; bf16 as its
+    f32 widening)."""
+    shape = dec_pool_shape()
+    if quant:
+        return {"k": np.zeros(shape, np.int8), "v": np.zeros(shape, np.int8),
+                "k_scale": np.zeros(shape[:-1], np.float32),
+                "v_scale": np.zeros(shape[:-1], np.float32)}
+    return {"k": np.zeros(shape, np.float32),
+            "v": np.zeros(shape, np.float32)}
 
 
 def pipe_inputs(seed=0):
@@ -260,9 +367,6 @@ def _lm(mx, torch, inp, out):
             m = LM_MOMENTUM * torch.zeros_like(p) + p.grad
             p.copy_(p - torch.tensor(LM_LR, dtype=p.dtype) * m)
     after = gather_params(model.state_dict(), specs, mesh)
-    out["lm/prefill_refused"] = _raised(
-        NotImplementedError, model.prefill, model.init_kv_pages(2, 4),
-        np.zeros((1, 4)), np.array([4]), np.array([[0]]), 4)
     out["lm/loss"] = float(loss.detach())
     out.update({"lm/grad/" + n: v for n, v in flat(grads).items()})
     out.update({"lm/after/" + n: v for n, v in flat(after).items()})
@@ -282,11 +386,21 @@ def _bert(mx, torch, inp, out):
     grads = gather_params({n: p.grad for n, p in model.named_parameters()},
                           specs, mesh)
     out["bert/loss"] = float(loss.detach())
-    out["bert/sp_refused"] = _raised(
-        NotImplementedError, BERT, BERTConfig(dtype=torch.float32,
-                                              **BERT_CFG),
-        mesh=mx.parallel.make_mesh(LM_MESH))
     out.update({"bert/grad/" + n: v for n, v in flat(grads).items()})
+    # over {dp 2, sp 2}: ring attention in the encoder, the heads on the
+    # sequence gathered whole
+    mesh = mx.parallel.make_mesh(BERT_SP_MESH)
+    model = BERT(BERTConfig(dtype=torch.float32, **BERT_CFG), mesh=mesh)
+    specs = model.param_specs()
+    model.load_state_dict(shard_params(nest(inp, "bert/"), specs, mesh))
+    model.requires_grad_(True)
+    loss = model.pretrain_loss(*(inp["bert_batch/" + k] for k in BERT_ARGS))
+    loss.backward()
+    model.allreduce_grads()
+    grads = gather_params({n: p.grad for n, p in model.named_parameters()},
+                          specs, mesh)
+    out["bert_sp/loss"] = float(loss.detach())
+    out.update({"bert_sp/grad/" + n: v for n, v in flat(grads).items()})
 
 
 def _raised(exc, fn, *args, **kwargs):
@@ -340,6 +454,36 @@ def _spmd(mx, torch, inp, out):
         for p4, p1 in zip(net4.collect_params().values(),
                           net1.collect_params().values()))
     out["mlp/one_rank_bitwise"] = same
+    _refusals(mx, torch, init, batches, out)
+
+
+def _refusals(mx, torch, init, batches, out):
+    """What a mesh with tp ranks still refuses: the routed row-sparse
+    table and the 2-bit compressed step."""
+    import mxnet_tpu_torch.name  # noqa: F401  (loaded lazily)
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.parallel import SPMDTrainer
+    nn = mx.gluon.nn
+    with mx.name.NameManager():
+        net = nn.HybridSequential()
+        with net.name_scope():
+            net.add(nn.Embedding(16, 4, sparse_grad=True))
+            net.add(nn.Dense(2, in_units=4, flatten=False))
+    net.initialize(ctx=mx.cpu())
+    tr = SPMDTrainer(net, mx.gluon.loss.L2Loss(), "sgd", dict(MLP_OPT),
+                     mesh=mx.parallel.make_mesh(MLP_MESH))
+    ids = np.arange(MLP_BATCH * 2).reshape(MLP_BATCH, 2) % 16
+    out["mlp/routed_refused"] = _raised(
+        NotImplementedError, tr.step, ids.astype(np.float32),
+        np.zeros((MLP_BATCH, 2, 2), np.float32))
+    _, tr = _mlp_trainer(mx, mx.parallel.make_mesh(
+        {"dcn": 2, "dp": 1, "tp": 2}), init, None)
+    config.set("kvstore.grad_compress", "2bit")
+    try:
+        out["mlp/compressed_refused"] = _raised(
+            NotImplementedError, tr.step, *batches[0])
+    finally:
+        config.set("kvstore.grad_compress", "")
 
 
 def _pipeline(mx, torch, inp, out):
@@ -408,8 +552,155 @@ def _ppmoe(mx, torch, inp, out):
             out["ppmoe/after/" + k] = (v - PPMOE_LR * v.grad).numpy()
 
 
+# the running group's workdir (main sets it)
+_WORKDIR = [None]
+
+
+def _bn_trainer(mx, mesh, init):
+    import mxnet_tpu_torch.name  # noqa: F401  (loaded lazily)
+    from mxnet_tpu_torch.convert import gluon_params_from_reference
+    from mxnet_tpu_torch.parallel import SPMDTrainer
+    with mx.name.NameManager():
+        net = bn_net(mx)
+    net.initialize(ctx=mx.cpu())
+    gluon_params_from_reference(net, init)
+    loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    return net, SPMDTrainer(net, loss, "sgd", dict(BN_OPT), mesh=mesh)
+
+
+def _sync_bn(mx, torch, inp, out):
+    """SPMDTrainer over each BN_RUNS entry; each rank's own aux tensors
+    (to be held bitwise across ranks) and, after ``sync``, the weights;
+    rank 0's checkpoint of the last run."""
+    from mxnet_tpu_torch import config
+    init = {k[len("bn/init/"):]: v for k, v in inp.items()
+            if k.startswith("bn/init/")}
+    batches = [(inp["bn/x%d" % s], inp["bn/y%d" % s])
+               for s in range(BN_STEPS)]
+    meshes = {k: mx.parallel.make_mesh(v) for k, v in BN_MESHES.items()}
+    for run, mesh_name, two_pass, pad in BN_RUNS:
+        config.set("bn_two_pass_stats", two_pass)
+        try:
+            net, tr = _bn_trainer(mx, meshes[mesh_name], init)
+            losses = [float(tr.step(x, y, pad=pad)) for x, y in batches]
+        finally:
+            config.set("bn_two_pass_stats", False)
+        for n in tr.fn.aux:
+            out["bn/%s/aux_rank/%s" % (run, n)] = tr.params[n].numpy()
+        tr.sync()
+        out["bn/%s/loss" % run] = np.array(losses, np.float32)
+        for n, p in net.collect_params().items():
+            out["bn/%s/param/%s" % (run, n)] = p.data().asnumpy()
+    tr.save_checkpoint(os.path.join(_WORKDIR[0], "bn.ckpt"))
+    # the op alone: this rank's rows of the global batch, the statistics
+    # over the four ranks, the gradients of sum(out * w)
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    from mxnet_tpu_torch.parallel.collectives import local_block
+    mesh = meshes["dp4"]
+    for two_pass in (False, True):
+        config.set("bn_two_pass_stats", two_pass)
+        x = local_block(torch.as_tensor(inp["bnop/x"]), mesh, ("dp",))
+        w = local_block(torch.as_tensor(inp["bnop/w"]), mesh, ("dp",))
+        x = x.clone().requires_grad_(True)
+        gamma, beta = (torch.tensor(inp["bnop/" + n], requires_grad=True)
+                       for n in ("gamma", "beta"))
+        prev = nn_ops.set_batch_stats_context((mesh, ("dp",)))
+        try:
+            y, mean, var = nn_ops._batch_norm(
+                x, gamma, beta, torch.as_tensor(inp["bnop/mean"]),
+                torch.as_tensor(inp["bnop/var"]), eps=1e-5, fix_gamma=False,
+                training=True)
+        finally:
+            nn_ops.set_batch_stats_context(prev)
+            config.set("bn_two_pass_stats", False)
+        (y * w).sum().backward()
+        tag = "bnop/%s/" % ("two_pass" if two_pass else "shifted")
+        out[tag + "y"] = y.detach().numpy()
+        out[tag + "mean"] = mean.detach().numpy()
+        out[tag + "var"] = var.detach().numpy()
+        out[tag + "dx"] = x.grad.numpy()
+        out[tag + "dgamma"] = gamma.grad.numpy()
+        out[tag + "dbeta"] = beta.grad.numpy()
+
+
+def _count_calls(module, name, counts, key):
+    """Wrap ``module.name`` so each call adds one to ``counts[key]``;
+    returns the original."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        counts[key] = counts.get(key, 0) + 1
+        return orig(*args, **kwargs)
+    setattr(module, name, wrapper)
+    return orig
+
+
+def _decode(mx, torch, inp, out):
+    """prefill + DEC_STEPS decode steps on each DEC_MESHES x DEC_KINDS:
+    the global logits of each, every rank's pool gathered over tp, the
+    kernel entries' call counts; and shard_kv / gather_kv round trips."""
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.convert import gather_kv, shard_kv, shard_params
+    from mxnet_tpu_torch.models.transformer import (TransformerLM,
+                                                    TransformerLMConfig)
+    d = {k: inp["dec/" + k] for k in ("tokens", "lengths", "table",
+                                      "feed")}
+    for mesh_name, axes in DEC_MESHES.items():
+        mesh = mx.parallel.make_mesh(axes)
+        for kind, dtype, quant in DEC_KINDS:
+            tag = "dec/%s/%s/" % (mesh_name, kind)
+            model = TransformerLM(TransformerLMConfig(dtype=dtype, **LM_CFG),
+                                  mesh=mesh)
+            model.load_state_dict(shard_params(nest(inp, "lm/"),
+                                               model.param_specs(), mesh))
+            kv = shard_kv(dec_zero_pool(dtype, quant), mesh)
+            if not quant:
+                kv = {n: v.to(model.cfg.dtype) for n, v in kv.items()}
+            assert tuple(kv["k"].shape) == tuple(model.init_kv_pages(
+                DEC_POOL, DEC_PSZ, quant)["k"].shape)
+            counts = {}
+            origs = [_count_calls(kernels, n, counts, n)
+                     for n in ("attention", "paged_attention_pool")]
+            try:
+                kv, ids, logits = model.prefill(
+                    kv, d["tokens"], d["lengths"], d["table"], DEC_PSZ,
+                    return_logits=True)
+                out[tag + "prefill_calls"] = counts.pop("attention", 0)
+                steps = [logits.float().numpy()]
+                for s in range(DEC_STEPS):
+                    kv, ids, logits = model.decode_step(
+                        kv, d["feed"][s], d["lengths"] + s, d["table"],
+                        DEC_PSZ, return_logits=True)
+                    steps.append(logits.float().numpy())
+                out[tag + "decode_calls"] = counts.pop(
+                    "paged_attention_pool", 0)
+            finally:
+                for n, o in zip(("attention", "paged_attention_pool"),
+                                origs):
+                    setattr(kernels, n, o)
+            out[tag + "logits"] = np.stack(steps)
+            out[tag + "ids"] = ids.numpy()
+            out[tag + "local_heads"] = kv["k"].shape[3]
+            for n, v in gather_kv(kv, mesh).items():
+                out[tag + "pool/" + n] = v.float().numpy()
+        # shard_kv / gather_kv round trip, bitwise, per dtype
+        rng = np.random.RandomState(9)
+        shape = dec_pool_shape()
+        whole = {"k": torch.as_tensor(rng.normal(size=shape)).to(
+                     torch.bfloat16),
+                 "v": torch.as_tensor(rng.normal(size=shape)
+                                      .astype(np.float32)),
+                 "k_scale": torch.as_tensor(rng.randint(
+                     -127, 128, shape).astype(np.int8))}
+        back = gather_kv(shard_kv(whole, mesh), mesh)
+        out["dec/%s/round_trip" % mesh_name] = all(
+            back[n].dtype == v.dtype and torch.equal(back[n], v)
+            for n, v in whole.items())
+
+
 SUITES = {"ring": (_ring,), "tp": (_lm, _bert, _spmd),
-          "pipe": (_pipeline, _moe, _ppmoe)}
+          "pipe": (_pipeline, _moe, _ppmoe), "bn": (_sync_bn,),
+          "decode": (_decode,)}
 
 
 def main(workdir, suite):
@@ -417,6 +708,7 @@ def main(workdir, suite):
     import mxnet_tpu_torch as mx
     rank = int(os.environ["MXTPU_PROCESS_ID"])
     inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
+    _WORKDIR[0] = workdir
     out = {}
     with mx.cpu():
         mx.parallel.initialize()
