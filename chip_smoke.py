@@ -5,7 +5,7 @@ Usage (from the root of a checkout, one visible CUDA card)::
     python3 chip_smoke.py [--report PATH]
                           [--phase attention|optimizer|module|bert|lm_f32|
                                    generation|ops|zoo|rnn|data|ssd|
-                                   predict|dist|mesh|shard]
+                                   predict|dist|mesh|shard|resilience]
 
 Phases; any failure exits non-zero without the result lines:
 
@@ -467,6 +467,22 @@ Phases; any failure exits non-zero without the result lines:
             then (d) placement in this process: a ctx_group graph and a
             Gluon Dense stack on gpu(0) and cpu(), a Module over
             [gpu(0), gpu(0)].
+9d. resilience — the non-finite step guard, checkpoints, preemption and
+            elasticity (``resilience_phase``): (a) K1 over ResNet-50's
+            193 tensors and K3 over the Module MLP's 18 with the skip
+            word (0: bitwise the word-less launch and the plain version;
+            1: no byte written), f32 and bf16 grads, device time with and
+            without the word, the all-finite reduction against the host;
+            (b) ResNet-50 at BS 32 under nanguard=skip with a NaN batch,
+            twice: a baseline, and a chaos run with io and ckpt_write
+            faults, a CheckpointManager, a real SIGTERM, the newest file
+            truncated and a new trainer resuming — losses and final
+            state bitwise alike, one K1 launch a step, no write on the
+            NaN step, no added synchronizing call on guarded finite
+            steps; (c) the Module MLP under nanguard=abort through K3;
+            (d) two gloo ranks on cuda:0 under the elastic launcher: a
+            peer preemption, a coordinated checkpoint, generation 1
+            resuming bitwise, a sharded checkpoint round trip at tp=2.
 10. summary — a ``{"kernels": [...]}`` line, the card's name and power
             limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -535,6 +551,10 @@ and K1, then the card's line and the ok line.
 9c's per-rank serving shapes (``shard_kernel_cases``) and K1 at
 ResNet-50's, runs phase 9c alone, and prints the kernels line of K2f,
 both K4 variants and K1, then the card's line and the ok line.
+
+``--phase resilience`` builds K1 and K3, runs phase 2's K3 and K1
+checks and phase resilience alone, and prints the kernels line of K3 and
+K1, then the card's line and the ok line.
 
 ``--phase module`` builds the kernels and runs only phase 7(c), in a
 process no earlier phase has touched, after two A/Bs of the fused step
@@ -712,21 +732,25 @@ def _device_ms(torch, fn, iters=10, warmup=2):
     """Device time of ``fn()``: the CUDA kernel and copy time a
     ``torch.profiler`` window records over ``iters`` calls, divided by the
     call count.  Unlike a CUDA-event span it leaves out the gaps where the
-    card waits for the host.  None when the profiler records no CUDA
-    activity."""
+    card waits for the host.  A window that records no CUDA activity (the
+    profiler now and then drops one) is taken again, up to three times;
+    None when none of them records any."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-                  if ev.device_type == DeviceType.CUDA)
-    return busy_us / 1e3 / iters if busy_us > 0 else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                      if ev.device_type == DeviceType.CUDA)
+        if busy_us > 0:
+            return busy_us / 1e3 / iters
+    return None
 
 
 def _row_rel_err(o, po, floor=0.0):
@@ -1207,12 +1231,18 @@ def sweep_flash_bwd_f32(ck, torch):
             o, lse = ck.flash_attention(q, k, v)
             args = (q, k, v, do, lse, ck.flash_delta(o, do), False, None)
             times.append(_device_ms(torch, lambda: launch(*args), iters=20))
-        xs = list(F32_SWEEP_TILES)
-        mx_, my = sum(xs) / len(xs), sum(times) / len(times)
-        slope = (sum((x - mx_) * (y - my) for x, y in zip(xs, times))
-                 / sum((x - mx_) ** 2 for x in xs))
+        # the line over the points the profiler recorded
+        pts = [(x, y) for x, y in zip(F32_SWEEP_TILES, times)
+               if y is not None]
+        slope = fixed = None
+        if len(pts) >= 2:
+            mx_ = sum(x for x, _ in pts) / len(pts)
+            my = sum(y for _, y in pts) / len(pts)
+            slope = (sum((x - mx_) * (y - my) for x, y in pts)
+                     / sum((x - mx_) ** 2 for x, _ in pts))
+            fixed = my - slope * mx_
         out[name] = {"device_ms": times, "per_64_rows_ms": slope,
-                     "fixed_ms": my - slope * mx_}
+                     "fixed_ms": fixed}
     lib = _build.load("flash_f32", ck._SIGNATURES["flash_f32"])
     out["blocks_per_sm"] = {
         "%s_d%d" % (name, d): lib.mx_flash_f32_blocks_per_sm(i, d)
@@ -4593,7 +4623,8 @@ def launch_ab(mx, np, torch):
     one launch, per tensor ("parent": the fused route before K3 took a
     list, 18 wrapper calls a step)."""
     def per_tensor(opt, _):
-        def fn(weights, grads, states, lrs, wds, t, outs=None):
+        def fn(weights, grads, states, lrs, wds, t, outs=None, skip=None):
+            assert skip is None     # the nanguard is off in this A/B
             for w, g, st, lr, wd in zip(weights, grads, states, lrs, wds):
                 opt.step_fused(w, g, st, lr, wd, t, out_dtype=w.dtype,
                                out=(w, w, st))
@@ -6397,7 +6428,8 @@ def _k3_real_step(ck, torch, mod, batch):
     real = opt.step_fused_multi
     seen = {}
 
-    def spy(weights, grads, states, lrs, wds, t, outs=None):
+    def spy(weights, grads, states, lrs, wds, t, outs=None, skip=None):
+        assert skip is None     # the nanguard is off in this phase
         ts = t if isinstance(t, (list, tuple)) else [t] * len(weights)
         copies = [(w.clone(), s[0].clone(), s[1].clone())
                   for w, s in zip(weights, states)]
@@ -10376,6 +10408,736 @@ def _shard_placement(mx, np, torch):
     return out
 
 
+# ------------------------------------------------------ phase resilience
+RES_WORKER_TIMEOUT_S = 600
+RES_RANKS = 2
+#: (a) the all-finite reduction's planted values, at seeded positions of
+#: the 193 ResNet-50 gradients (f32) and of their bf16 copies
+RES_PLANTS = (("nan", "float32"), ("+inf", "float32"), ("inf", "bfloat16"))
+#: (b) bench.py one_config's ResNet-50 (224^2, bf16 over f32 masters, SGD
+#: lr 0.1 momentum 0.9 wd 1e-4) under SPMDTrainer at RES_BATCH, RES_STEPS
+#: steps under nanguard=skip with the nan fault at RES_NAN_STEP; the chaos
+#: run adds io faults (RES_IO_P a batch fetch), a CheckpointManager every
+#: RES_CKPT_EVERY steps keeping RES_CKPT_KEEP, a ckpt_write fault at the
+#: second save, a SIGTERM before step RES_SIGTERM_STEP, the newest
+#: checkpoint truncated, and a new trainer resuming for the rest
+RES_BATCH = 32
+RES_STEPS = 12
+RES_NAN_STEP = 5
+RES_IO_P = 0.2
+RES_CKPT_EVERY = 3
+RES_CKPT_KEEP = 2
+RES_SIGTERM_STEP = 8
+#: the sync and step-time comparison: RES_AB_STEPS finite steps a window,
+#: nanguard off and skip in the order off, skip, skip, off
+RES_AB_STEPS = 8
+#: (c) the Module MLP (phase 7(c)'s) under nanguard=abort with patience
+#: RES_PATIENCE and batches RES_POISONED poisoned; the abort must land
+#: within two steps of the first
+RES_PATIENCE = 3
+RES_POISONED = (4, 5, 6)
+RES_MODULE_STEPS = 12
+#: (d) the Module MLP's widths under SPMDTrainer over two gloo ranks on
+#: the card, RES_ELASTIC_STEPS steps, rank 1 drawing peer_preempt at
+#: RES_PEER_STEP; then a sharded checkpoint round trip at tp=2 (phase
+#: 9b's MLP and specs), RES_SHARD_STEPS steps after each side
+RES_ELASTIC_STEPS = 10
+RES_PEER_STEP = 5
+RES_ELASTIC_LR = 0.1
+RES_SHARD_STEPS = 2
+
+
+def _res_batches(np, torch, n, shape, classes, seed, device="cuda"):
+    """``n`` seeded (data, label) batches on the card."""
+    rng = np.random.RandomState(seed)
+    return [(torch.from_numpy(rng.uniform(size=shape).astype(np.float32))
+             .to(device),
+             torch.from_numpy(rng.randint(0, classes, (shape[0],))
+                              .astype(np.float32)).to(device))
+            for _ in range(n)]
+
+
+def _res_iter(mx, batches, start=0):
+    """A DataIter over device batches from ``start``: its ``__next__`` is
+    the base class's, under ``call_with_retry(kind="io")``, which draws
+    the io fault before the batch is taken."""
+    class Batches(mx.io.DataIter):
+        def __init__(self):
+            super().__init__(batch_size=int(batches[0][0].shape[0]))
+            self.i = start
+
+        def next(self):
+            if self.i >= len(batches):
+                raise StopIteration
+            x, y = batches[self.i]
+            self.i += 1
+            return mx.io.DataBatch([x], [y])
+    return Batches()
+
+
+def _res_state(tr):
+    """Clones of a trainer's masters, momenta and moving statistics."""
+    return {"params": {n: v.detach().clone() for n, v in tr.params.items()},
+            "opt": {n: s.clone() for n, s in tr.opt_state.items()
+                    if s is not None}}
+
+
+def _res_differing(torch, a, b):
+    return sum(_differing(torch, a[k][n], b[k][n])
+               for k in ("params", "opt") for n in a[k])
+
+
+def check_skip_word(ck, torch, mx, np):
+    """(a) K1 over ResNet-50's 193 tensors and K3 over the Module MLP's
+    18, with f32 grads and with bf16 grads and a bf16 cast: with the word
+    0 each launch is bitwise the word-less launch and the plain version;
+    with the word 1 no byte of any output changes.  Device time with and
+    without the word at 193 tensors, and the all-finite reduction against
+    torch.isfinite on the host for planted NaN, +Inf and bf16 Inf."""
+    from mxnet_tpu_torch import resilience
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    word0 = torch.zeros((), dtype=torch.int32, device="cuda")
+    word1 = torch.ones((), dtype=torch.int32, device="cuda")
+    cases = []
+    resnet = _resnet_shapes(mx, np)
+    for kernel, shapes in (("sgd_step", resnet), ("adam_step", _mlp_shapes())):
+        for gdt, cast in ((torch.float32, None),
+                          (torch.bfloat16, torch.bfloat16)):
+            n = len(shapes)
+            ws = [torch.randn(s, generator=g, device="cuda") * 0.05
+                  for s in shapes]
+            gs = [torch.randn(s, generator=g, device="cuda").to(gdt)
+                  for s in shapes]
+            ms = [torch.randn(s, generator=g, device="cuda") * 0.01
+                  for s in shapes]
+            vs = [torch.rand(s, generator=g, device="cuda") * 1e-4
+                  for s in shapes]
+            os_ = [torch.randn(s, generator=g, device="cuda").to(cast)
+                   if cast else None for s in shapes]
+            runs = {}
+            for label, fn, word in (
+                    ("no_word", "kernel", None), ("word0", "kernel", word0),
+                    ("plain0", "plain", word0), ("word1", "kernel", word1),
+                    ("plain1", "plain", word1)):
+                w, m, v = ([x.clone() for x in xs] for xs in (ws, ms, vs))
+                o = [x.clone() if x is not None else None for x in os_]
+                before = dict(ck.LAUNCHES)
+                if kernel == "sgd_step":
+                    f = ck.fused_sgd_step_multi if fn == "kernel" \
+                        else ck.fused_sgd_step_multi_plain
+                    f(w, gs, m, [0.1] * n, [SGD_WD] * n, 0.9, outs=o,
+                      skip=word)
+                else:
+                    f = ck.fused_adam_step_multi if fn == "kernel" \
+                        else ck.fused_adam_step_multi_plain
+                    f(w, gs, m, v, [1e-3] * n, [0.0] * n, 0.9, 0.999, 1e-8,
+                      outs=o, skip=word)
+                launched = ck.LAUNCHES[kernel] - before[kernel]
+                assert launched == (1 if fn == "kernel" else 0), launched
+                outs = {"master": w, "m": m, "cast": [x for x in o if
+                                                      x is not None]}
+                if kernel == "adam_step":
+                    outs["v"] = v
+                runs[label] = outs
+            torch.cuda.synchronize()
+            orig = {"master": ws, "m": ms, "v": vs,
+                    "cast": [x for x in os_ if x is not None]}
+
+            def diff(a, b):
+                return {k: sum(_differing(torch, x, y)
+                               for x, y in zip(a[k], b[k])) for k in a}
+            case = {"kernel": kernel, "tensors": n,
+                    "grad": str(gdt)[6:], "cast": str(cast)[6:] if cast
+                    else None,
+                    "word0_vs_no_word": diff(runs["word0"], runs["no_word"]),
+                    "word0_vs_plain": diff(runs["word0"], runs["plain0"]),
+                    "word1_vs_inputs": diff(runs["word1"], orig),
+                    "plain1_vs_inputs": diff(runs["plain1"], orig),
+                    "no_word_changed": diff(runs["no_word"], orig)}
+            case["ok"] = (not any(sum(case[k].values()) for k in (
+                "word0_vs_no_word", "word0_vs_plain", "word1_vs_inputs",
+                "plain1_vs_inputs"))
+                and case["no_word_changed"]["master"] > 0)
+            _log("[resilience] skip word %s" % json.dumps(case))
+            cases.append(case)
+            del ws, gs, ms, vs, os_, runs
+    # device time at 193 tensors: K1 (f32 grads, the master its own out,
+    # momentum 0.9) and K3 (f32 grads, no cast), the launch alone, word
+    # absent, 0 and 1, interleaved in one call
+    n = len(resnet)
+    ws = [torch.randn(s, generator=g, device="cuda") * 0.05 for s in resnet]
+    gs = [torch.randn(s, generator=g, device="cuda") for s in resnet]
+    ms = [torch.randn(s, generator=g, device="cuda") * 0.01 for s in resnet]
+    vs = [torch.rand(s, generator=g, device="cuda") * 1e-4 for s in resnet]
+    lrs, wds = [0.1] * n, [SGD_WD] * n
+    t_sgd, t_adam = ck.LaunchTable(), ck.LaunchTable()
+    dsgd, bsgd = t_sgd.fill(ck.SGD_LAYOUT, (ws, ms, [None] * n), gs, lrs, wds)
+    dadam, badam = t_adam.fill(ck.ADAM_LAYOUT, (ws, ms, vs, [None] * n), gs,
+                               [1e-3] * n, [0.0] * n)
+    timing = {"tensors": n, "params": sum(w.numel() for w in ws),
+              "sgd_blocks": bsgd, "adam_blocks": badam}
+    for rep in range(2):
+        for label, word in (("none", None), ("word0", word0),
+                            ("word1", word1)):
+            for kernel, launch in (
+                    ("sgd_step", lambda w=word: ck._launch_sgd(
+                        dsgd, n, bsgd, 0.9, ws[0], w)),
+                    ("adam_step", lambda w=word: ck._launch_adam(
+                        dadam, n, badam, 0.9, 0.999, 1e-8, ws[0], w))):
+                key = "%s_%s" % (kernel, label)
+                dms = _device_ms(torch, launch)
+                ems = _time_ms(launch)
+                timing.setdefault(key + "_device_ms", []).append(dms)
+                timing.setdefault(key + "_event_ms", []).append(ems)
+    timing["bound_ms"] = {
+        "sgd_step": _bound_ms(timing["params"] * 20, 0)[0],
+        "adam_step": _bound_ms(timing["params"] * 28, 0)[0]}
+    _log("[resilience] K1/K3 with and without the skip word at %d tensors "
+         "%s" % (n, json.dumps(timing)))
+    # the all-finite reduction against the host
+    finite = []
+    for what, dt in RES_PLANTS:
+        xs = [x.to(getattr(torch, dt), copy=True) for x in gs]
+        clean = [x.clone() for x in xs]
+        word = resilience.skip_word(xs)
+        host_clean = all(bool(torch.isfinite(x.cpu()).all()) for x in xs)
+        kept = sum(_differing(torch, x, y) for x, y in zip(xs, clean))
+        rng = np.random.RandomState(SEED + len(finite))
+        t = int(rng.randint(n))
+        pos = int(rng.randint(xs[t].numel()))
+        xs[t].view(-1)[pos] = {"nan": float("nan"), "+inf": float("inf"),
+                               "inf": float("inf")}[what]
+        planted = resilience.skip_word(xs)
+        host = all(bool(torch.isfinite(x.cpu()).all()) for x in xs)
+        row = {"plant": what, "dtype": dt, "tensor": t, "position": pos,
+               "word_clean": int(word), "host_clean_finite": host_clean,
+               "word_planted": int(planted), "host_planted_finite": host,
+               "finite_values_changed": kept}
+        row["ok"] = (int(word) == 0 and host_clean and int(planted) == 1
+                     and not host and kept == 0)
+        _log("[resilience] all-finite %s" % json.dumps(row))
+        finite.append(row)
+    del ws, gs, ms, vs
+    torch.cuda.empty_cache()
+    return {"cases": cases, "timing": timing, "all_finite": finite,
+            "ok": all(c["ok"] for c in cases + finite)}
+
+
+def _res_chaos_run(mx, ck, np, torch, net, batches, workdir, chaos):
+    """(b)'s run: the baseline (``chaos`` False) or the chaos run and its
+    resume.  Returns losses, the final state, K1's launches a trainer and
+    what the faults did."""
+    from mxnet_tpu_torch import config, resilience
+    from mxnet_tpu_torch import telemetry as tt
+    spec = "nan:1@step=%d" % RES_NAN_STEP
+    if chaos:
+        # the ckpt_write fault's opportunities are atomic_write calls: two
+        # a save (the file, its manifest), so the second save's file is
+        # the third
+        spec += ",io:%g,ckpt_write:1@step=3" % RES_IO_P
+    config.set("resilience.nanguard", "skip")
+    config.set("resilience.faults", spec)
+    config.set("resilience.retry_attempts", 6)
+    config.set("resilience.retry_base_s", 0.001)
+    resilience.reset_nanguard()
+    _zero_counts(torch, tt, ck)
+    out = {"faults": spec}
+    tr = _resnet_trainer(mx, net, "bfloat16")
+    ckdir = os.path.join(workdir, "resilience_ckpt")
+    if chaos:
+        import shutil
+        shutil.rmtree(ckdir, ignore_errors=True)
+        mgr = mx.resilience.CheckpointManager(
+            ckdir, every_n_steps=RES_CKPT_EVERY, keep=RES_CKPT_KEEP)
+        assert tr.attach_checkpoint_manager(mgr) is None
+        config.set("resilience.on_preempt", "save_and_exit")
+    losses, nan_step = [], {}
+    it = _res_iter(mx, batches)
+    exited = None
+    try:
+        for step, batch in enumerate(it, 1):
+            if chaos and step == RES_SIGTERM_STEP:
+                import signal
+                os.kill(os.getpid(), signal.SIGTERM)
+            if step == RES_NAN_STEP and not chaos:
+                before = _res_state(tr)
+            loss = tr.step(batch.data[0], batch.label[0])
+            losses.append(loss)
+            if step == RES_NAN_STEP and not chaos:
+                torch.cuda.synchronize()
+                nan_step = {"differing_after_nan_step": _res_differing(
+                    torch, before, _res_state(tr))}
+                del before
+    except SystemExit as exc:
+        exited = {"code": exc.code, "at_step": tr._step_num}
+    finally:
+        config.set("resilience.on_preempt", "")
+    torch.cuda.synchronize()
+    resilience.poll_streaks(block=True)
+    c = tt.snapshot()["counters"]
+    out.update(nan_step)
+    out["launches"] = [dict(ck.LAUNCHES)]
+    out["nonfinite_steps"] = c.get("spmd.nonfinite_steps", 0)
+    if not chaos:
+        out.update({"losses": [float(v) for v in losses],
+                    "state": _res_state(tr)})
+        return out
+    # the preempted run: its checkpoints, then the newest truncated and a
+    # new trainer resuming from the one before
+    assert exited == {"code": 0, "at_step": RES_SIGTERM_STEP}, exited
+    out["exited"] = exited
+    out["first_losses"] = [float(v) for v in losses]
+    out["saves"] = c.get("resilience.ckpt_saves", 0)
+    out["retries"] = {k: v for k, v in c.items()
+                      if k.startswith("resilience.retries")}
+    out["injected"] = {k: v for k, v in c.items()
+                       if k.startswith("resilience.injected")}
+    out["preemptions"] = c.get("resilience.preemptions", 0)
+    kept = [s for s, _ in mgr.checkpoints()]
+    out["checkpoints_kept"] = kept
+    newest = mgr.path_for(kept[-1])
+    size = os.path.getsize(newest)
+    with open(newest, "r+b") as f:
+        f.truncate(size // 2)
+    del tr
+    torch.cuda.empty_cache()
+    config.set("resilience.faults", spec)   # re-arm, as a new process would
+    resilience.reset_nanguard()
+    ck.reset_launches()
+    tr = _resnet_trainer(mx, net, "bfloat16")
+    before = tt.counter("resilience.ckpt_fallbacks").value
+    resumed = tr.attach_checkpoint_manager(mx.resilience.CheckpointManager(
+        ckdir, every_n_steps=RES_CKPT_EVERY, keep=RES_CKPT_KEEP))
+    out["resumed_at"] = resumed
+    out["fallbacks"] = tt.counter("resilience.ckpt_fallbacks").value - before
+    tail = []
+    for batch in _res_iter(mx, batches, start=resumed):
+        tail.append(tr.step(batch.data[0], batch.label[0]))
+    torch.cuda.synchronize()
+    resilience.poll_streaks(block=True)
+    out["launches"].append(dict(ck.LAUNCHES))
+    out["losses"] = out["first_losses"][:resumed] + [float(v) for v in tail]
+    out["state"] = _res_state(tr)
+    return out
+
+
+def _res_sync_ab(mx, np, torch, net, batches):
+    """Synchronizing calls and step times over RES_AB_STEPS finite steps
+    with the nanguard off and at skip (order off, skip, skip, off; two
+    untimed steps after each flip; cuDNN's algorithms chosen by timing, as
+    in phase 5): CUDA's sync debug mode warns at every synchronizing call,
+    and the warnings of each window are counted.  A last window reads
+    each step's loss on the host, so its count must be at least its step
+    count: the counter sees syncs."""
+    import warnings
+    from mxnet_tpu_torch import config, resilience
+    config.set("resilience.faults", "")
+    tr = _resnet_trainer(mx, net, "bfloat16")
+    windows = []
+    for mode in ("", "skip", "skip", "", "read"):
+        config.set("resilience.nanguard", "" if mode == "read" else mode)
+        resilience.reset_nanguard()
+        for x, y in batches[:2]:
+            tr.step(x, y)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                a.record()
+                for i in range(RES_AB_STEPS):
+                    x, y = batches[i % len(batches)]
+                    loss = tr.step(x, y)
+                    if mode == "read":
+                        float(loss)
+                b.record()
+                host_s = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        # the sync warnings' text; the mode's one-time notice that it is
+        # a prototype is not a sync
+        syncs = [str(w.message) for w in caught
+                 if "synchronizing" in str(w.message)]
+        windows.append({"nanguard": mode or "off",
+                        "ms_per_step": a.elapsed_time(b) / RES_AB_STEPS,
+                        "host_ms_per_step": host_s * 1e3 / RES_AB_STEPS,
+                        "sync_warnings": len(syncs),
+                        "first_sync": syncs[:2]})
+        _log("[resilience] sync/step-time window %s" % json.dumps(
+            windows[-1]))
+    resilience.poll_streaks(block=True)
+    config.set("resilience.nanguard", "")
+    read = windows.pop()
+    assert read["sync_warnings"] >= RES_AB_STEPS, read
+    off = [w for w in windows if w["nanguard"] == "off"]
+    on = [w for w in windows if w["nanguard"] == "skip"]
+    return {"windows": windows, "control_window": read,
+            "steps_a_window": RES_AB_STEPS,
+            "extra_syncs": sum(w["sync_warnings"] for w in on)
+            - sum(w["sync_warnings"] for w in off),
+            "off_ms_per_step": float(np.mean([w["ms_per_step"]
+                                              for w in off])),
+            "skip_ms_per_step": float(np.mean([w["ms_per_step"]
+                                               for w in on]))}
+
+
+def res_chaos(mx, ck, np, torch, card, workdir):
+    """(b): the chaos run against its baseline, bitwise; then the sync
+    count and step times of the guarded finite steps."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    prev = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    # two runs that must agree bit for bit need cuDNN's deterministic
+    # algorithms, the same in every trainer
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        batches = _res_batches(np, torch, RES_STEPS,
+                               (RES_BATCH, 3, RESNET_HW, RESNET_HW), 1000,
+                               SEED + 31)
+        mx.random.seed(SEED)
+        net = vision.get_model("resnet50_v1", classes=1000)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net(mx.nd.array(batches[0][0][:2], ctx=mx.gpu(0)))
+        t0 = time.perf_counter()
+        base = _res_chaos_run(mx, ck, np, torch, net, batches, workdir,
+                              False)
+        base_s = time.perf_counter() - t0
+        chaos = _res_chaos_run(mx, ck, np, torch, net, batches, workdir,
+                               True)
+        chaos_s = time.perf_counter() - t0 - base_s
+        torch.backends.cudnn.benchmark = True
+        torch.backends.cudnn.deterministic = False
+        ab = _res_sync_ab(mx, np, torch, net, batches)
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic \
+            = prev
+        mx.config.set("resilience.nanguard", "")
+        mx.config.set("resilience.faults", "")
+    loss_diff = sum(int(np.float32(a).view(np.int32)
+                        != np.float32(b).view(np.int32))
+                    for a, b in zip(base["losses"], chaos["losses"]))
+    state_diff = _res_differing(torch, base["state"], chaos["state"])
+    out = {"card": card, "batch": RES_BATCH, "steps": RES_STEPS,
+           "baseline_losses": base["losses"],
+           "chaos_losses": chaos["losses"],
+           "losses_differing": loss_diff,
+           "state_tensors": sum(len(base["state"][k]) for k in base["state"]),
+           "state_differing_elements": state_diff,
+           "baseline_launches": base["launches"],
+           "chaos_launches": chaos["launches"],
+           "baseline_nan_step_differing": base["differing_after_nan_step"],
+           "baseline_nonfinite_steps": base["nonfinite_steps"],
+           "chaos_nonfinite_steps": chaos["nonfinite_steps"],
+           "baseline_s": base_s, "chaos_s": chaos_s, "sync_ab": ab}
+    out.update({k: chaos[k] for k in (
+        "exited", "saves", "retries", "injected", "preemptions",
+        "checkpoints_kept", "resumed_at", "fallbacks", "faults")})
+    _log("[resilience] chaos %s" % json.dumps(
+        {k: v for k, v in out.items() if k != "sync_ab"}))
+    assert loss_diff == 0 and state_diff == 0, (loss_diff, state_diff)
+    assert np.isnan(base["losses"][RES_NAN_STEP - 1]), base["losses"]
+    assert base["differing_after_nan_step"] == 0, base
+    assert base["nonfinite_steps"] == 1, base["nonfinite_steps"]
+    want = dict.fromkeys(base["launches"][0], 0)
+    assert base["launches"] == [dict(want, sgd_step=RES_STEPS)], \
+        base["launches"]
+    assert chaos["launches"] == [
+        dict(want, sgd_step=RES_SIGTERM_STEP),
+        dict(want, sgd_step=RES_STEPS - chaos["resumed_at"])], \
+        chaos["launches"]
+    # saves at steps 3 and 6 (its file faulted once, retried), then the
+    # preemption's at step 8; the newest truncated, restored from 6
+    assert chaos["saves"] == 3 and chaos["checkpoints_kept"] == [6, 8], out
+    assert chaos["retries"].get("resilience.retries.ckpt_write") == 1, out
+    assert chaos["retries"].get("resilience.retries.io", 0) > 0, out
+    assert chaos["resumed_at"] == 6 and chaos["fallbacks"] == 1, out
+    assert ab["extra_syncs"] <= 0, ab
+    return out
+
+
+def res_abort(mx, ck, np, torch, card, workdir):
+    """(c): the Module MLP through the fused Executor step (K3) under
+    nanguard=abort: NonFiniteStepError within two steps of the first
+    poisoned batch, and the checkpoint written then holds the last good
+    parameters bitwise."""
+    from mxnet_tpu_torch import config, resilience
+    from mxnet_tpu_torch import telemetry as tt
+    config.set("resilience.nanguard", "abort")
+    config.set("resilience.nanguard_patience", RES_PATIENCE)
+    resilience.reset_nanguard()
+    try:
+        mod = _mlp_module(mx)
+        good = _mlp_batch(mx, np)
+        bad = mx.io.DataBatch([good.data[0] * float("nan")], good.label)
+        _zero_counts(torch, tt, ck)
+        last_good, raised_at = None, None
+        for step in range(1, RES_MODULE_STEPS + 1):
+            if step == RES_POISONED[0]:
+                torch.cuda.synchronize()
+                last_good = {n: v._data.clone() for n, v in
+                             mod.get_params()[0].items()}
+            try:
+                mod.train_step(bad if step in RES_POISONED else good)
+            except resilience.NonFiniteStepError as exc:
+                raised_at, message = step, str(exc)
+                break
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        assert raised_at is not None and \
+            RES_POISONED[0] < raised_at <= RES_POISONED[0] + 2, raised_at
+        prefix = os.path.join(workdir, "resilience_abort")
+        mod.save_checkpoint(prefix, raised_at)
+        _, arg, _ = mx.model.load_checkpoint(prefix, raised_at)
+        differing = sum(_differing(torch, arg[n]._data.to(v.device), v)
+                        for n, v in last_good.items())
+        steps_run = raised_at - 1
+        out = {"card": card, "raised_at_step": raised_at,
+               "first_poisoned": RES_POISONED[0], "message": message,
+               "launches": launches, "steps_run": steps_run,
+               "checkpoint_differing_vs_last_good": differing,
+               "nonfinite_steps": tt.counter("module.nonfinite_steps").value}
+        _log("[resilience] abort %s" % json.dumps(out))
+        want = dict.fromkeys(launches, 0)
+        want["adam_step"] = steps_run
+        assert launches == want, (launches, want)
+        assert differing == 0, differing
+        return out
+    finally:
+        config.set("resilience.nanguard", "")
+        config.unset("resilience.nanguard_patience")
+        resilience.reset_nanguard()
+
+
+def res_elastic(mx, np, torch, card, workdir):
+    """(d): two gloo ranks sharing the card through the port's elastic
+    launcher, each running ``chip_smoke.py --resilience-worker WORKDIR``:
+    generation 0 runs the uninterrupted two-rank baseline, then the
+    elastic run, where rank 1 draws peer_preempt at RES_PEER_STEP and
+    both ranks exit 0 there with one world-stamped checkpoint; generation
+    1 resumes and finishes, bitwise the baseline, then a sharded
+    checkpoint round trip at tp=2."""
+    import shutil
+    from mxnet_tpu_torch import resilience
+    t0 = time.perf_counter()
+    edir = os.path.join(workdir, "elastic")
+    shutil.rmtree(edir, ignore_errors=True)
+    os.makedirs(edir)
+    rc, so, se = _run_group(
+        [sys.executable, "-m", "mxnet_tpu_torch.launch", "-n",
+         str(RES_RANKS), "--elastic", "--max-restarts", "1",
+         "--elastic-dir", edir, sys.executable,
+         os.path.join(ROOT, "chip_smoke.py"), "--resilience-worker",
+         workdir], RES_WORKER_TIMEOUT_S)
+    if rc != 0:
+        raise AssertionError("phase resilience's elastic group failed (rc "
+                             "%d):\n%s\n%s" % (rc, so[-4000:], se[-8000:]))
+    recs = {}
+    for gen in (0, 1):
+        for r in range(RES_RANKS):
+            with open(os.path.join(workdir, "res_gen%d_rank%d.json"
+                                   % (gen, r))) as f:
+                recs[gen, r] = json.load(f)
+    ckpts = sorted(n for n in os.listdir(os.path.join(edir, "ckpt"))
+                   if n.endswith(".ckpt"))
+    man = resilience.verify_checkpoint(
+        os.path.join(edir, "ckpt", ckpts[-1]), require_manifest=True)
+    out = {"card": card, "ranks": [recs[1, r] for r in range(RES_RANKS)],
+           "generation0": [recs[0, r] for r in range(RES_RANKS)],
+           "checkpoints": ckpts, "manifest_world": man.get("world"),
+           "manifest_step": man.get("step"),
+           "restarts": se.count("re-forming the world"),
+           "seconds": time.perf_counter() - t0}
+    _log("[resilience] elastic %s" % json.dumps(
+        {k: v for k, v in out.items() if k not in ("ranks",
+                                                    "generation0")}))
+    for r in range(RES_RANKS):
+        g0, g1 = recs[0, r], recs[1, r]
+        assert g0["exited_at_step"] == RES_PEER_STEP, g0
+        assert g1["resumed_at"] == RES_PEER_STEP, g1
+        assert g1["losses_differing"] == 0 and g1["params_differing"] == 0, \
+            g1
+        assert g1["sharded"]["differing"] == 0, g1["sharded"]
+    assert ckpts == ["ckpt-%08d.ckpt" % RES_PEER_STEP], ckpts
+    assert man["world"] == {"process_count": RES_RANKS,
+                            "mesh": {"dp": RES_RANKS}}, man
+    assert out["restarts"] == 1, se[-4000:]
+    return out
+
+
+def resilience_phase(mx, ck, np, torch, card, workdir):
+    """Phase resilience: (a) the skip word of K1 and K3, (b) the chaos
+    run of ResNet-50, (c) the abort through K3, (d) elasticity on two
+    ranks."""
+    t0 = time.perf_counter()
+    out = {"skip_word": check_skip_word(ck, torch, mx, np)}
+    if not out["skip_word"]["ok"]:
+        raise AssertionError("the skip word failed: %s" % json.dumps(
+            out["skip_word"]))
+    out["chaos"] = res_chaos(mx, ck, np, torch, card, workdir)
+    torch.cuda.empty_cache()
+    out["abort"] = res_abort(mx, ck, np, torch, card, workdir)
+    out["elastic"] = res_elastic(mx, np, torch, card, workdir)
+    out["seconds"] = time.perf_counter() - t0
+    _log("[resilience] phase seconds %.1f" % out["seconds"])
+    return out
+
+
+def _res_launches(res):
+    """K1's and K3's launches in phase resilience's counted runs."""
+    chaos = res["chaos"]
+    sgd = {"resilience_chaos_baseline":
+           chaos["baseline_launches"][0]["sgd_step"],
+           "resilience_chaos_preempted":
+           chaos["chaos_launches"][0]["sgd_step"],
+           "resilience_chaos_resumed":
+           chaos["chaos_launches"][1]["sgd_step"]}
+    for r, rank in enumerate(res["elastic"]["ranks"]):
+        sgd["resilience_elastic_gen1_rank%d" % r] = rank["launches"][
+            "sgd_step"]
+    adam = {"resilience_abort_module":
+            res["abort"]["launches"]["adam_step"]}
+    return sgd, adam
+
+
+# --- the ranks of phase resilience's elastic run (``--resilience-worker``)
+def resilience_worker(workdir):
+    """One rank of (d), on cuda:0; writes
+    ``res_gen<g>_rank<r>.json``."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    import torch
+    from mxnet_tpu_torch import config, elastic
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = elastic.generation()
+    with mx.gpu():
+        mx.parallel.initialize()
+        rank = mx.parallel.dist.rank()
+        ck = _ck()
+        edir = elastic.state_dir()
+        batches = _res_batches(np, torch, RES_ELASTIC_STEPS,
+                               (MLP_BATCH, MLP_FEAT), MLP_CLASSES, SEED + 41,
+                               device=mx.parallel.dist.device())
+        rec = {"rank": rank, "generation": gen}
+        base_path = os.path.join(workdir, "res_base_rank%d.pt" % rank)
+        if gen == 0:
+            # the uninterrupted two-rank run, with elasticity off
+            config.set("elastic.dir", "")
+            tr = _res_elastic_trainer(mx)
+            losses = [tr.step(x, y) for x, y in batches]
+            torch.save({"losses": torch.stack(losses).cpu(),
+                        "params": {n: v.detach().cpu()
+                                   for n, v in tr.params.items()}},
+                       base_path)
+            config.unset("elastic.dir")
+            if rank == 1:
+                config.set("resilience.faults",
+                           "peer_preempt:1@step=%d" % RES_PEER_STEP)
+        tr = _res_elastic_trainer(mx)
+        rec["resumed_at"] = tr.attach_checkpoint_manager(
+            mx.resilience.CheckpointManager(os.path.join(edir, "ckpt"),
+                                            every_n_steps=0))
+        start = rec["resumed_at"] or 0
+        ck.reset_launches()
+        losses = []
+        try:
+            for x, y in batches[start:]:
+                losses.append(tr.step(x, y))
+        except SystemExit as exc:
+            rec.update({"exit_code": exc.code, "exited_at_step":
+                        tr._step_num, "losses": [float(v) for v in losses]})
+            _res_write(workdir, gen, rank, rec)
+            elastic.stop_heartbeat()
+            return 0
+        torch.cuda.synchronize()
+        rec["launches"] = dict(ck.LAUNCHES)
+        base = torch.load(base_path)
+        got = torch.stack(losses).cpu()
+        rec["losses"] = [float(v) for v in got]
+        rec["losses_differing"] = _differing(torch, got,
+                                             base["losses"][start:])
+        rec["params_differing"] = sum(
+            _differing(torch, tr.params[n].detach().cpu(), v)
+            for n, v in base["params"].items())
+        assert rec["launches"]["sgd_step"] == RES_ELASTIC_STEPS - start, rec
+        rec["sharded"] = _res_sharded(mx, np, torch, workdir)
+        _res_write(workdir, gen, rank, rec)
+    elastic.stop_heartbeat()
+    import torch.distributed as tdist
+    tdist.destroy_process_group()
+    return 0
+
+
+def _res_write(workdir, gen, rank, rec):
+    with open(os.path.join(workdir, "res_gen%d_rank%d.json"
+                           % (gen, rank)), "w") as f:
+        json.dump(rec, f)
+
+
+def _res_elastic_trainer(mx):
+    """(d)'s model: the Module MLP's widths as Gluon Dense layers under
+    SPMDTrainer over {dp: RES_RANKS}, SGD momentum 0.9 (K1)."""
+    import mxnet_tpu_torch.name  # noqa: F401  (loaded lazily)
+    from mxnet_tpu_torch.parallel import SPMDTrainer
+    nn = mx.gluon.nn
+    with mx.name.NameManager():
+        net = nn.HybridSequential()
+        with net.name_scope():
+            for _ in range(MLP_LAYERS):
+                net.add(nn.Dense(MLP_WIDTH, activation="relu"))
+            net.add(nn.Dense(MLP_CLASSES))
+    mx.random.seed(SEED)
+    net.initialize(mx.init.Xavier())
+    net(mx.nd.zeros((2, MLP_FEAT)))     # the deferred shapes
+    return SPMDTrainer(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+                       {"learning_rate": RES_ELASTIC_LR, "momentum": 0.9},
+                       mesh=mx.parallel.make_mesh({"dp": RES_RANKS}))
+
+
+def _res_sharded(mx, np, torch, workdir):
+    """A sharded checkpoint round trip at tp=2 (phase 9b's MLP and
+    specs): RES_SHARD_STEPS steps, save, RES_SHARD_STEPS more; a new
+    trainer loads and takes the same steps, bitwise."""
+    from mxnet_tpu_torch.parallel import SPMDTrainer
+    rng = np.random.RandomState(SEED + 43)
+    data = [rng.normal(size=(MESH_MLP_BATCH, MESH_MLP_FEAT))
+            .astype(np.float32) for _ in range(2 * RES_SHARD_STEPS)]
+    labels = [rng.randint(0, MESH_MLP_CLASSES, (MESH_MLP_BATCH,))
+              .astype(np.float32) for _ in range(2 * RES_SHARD_STEPS)]
+    specs, _ = mesh_mlp_specs()
+    mesh = mx.parallel.make_mesh({"dp": 1, "tp": MESH_TP})
+    path = os.path.join(workdir, "res_sharded")
+
+    def trainer():
+        net = _mesh_mlp_net(mx)
+        net(mx.nd.array(data[0]))
+        return SPMDTrainer(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                           "sgd", {"learning_rate": 0.1, "momentum": 0.9},
+                           mesh=mesh, param_specs={
+                               net.prefix + k: v for k, v in specs.items()})
+    tr = trainer()
+    for x, y in zip(data[:RES_SHARD_STEPS], labels[:RES_SHARD_STEPS]):
+        tr.step(x, y)
+    tr.save_checkpoint_sharded(path)
+    cont = [tr.step(x, y) for x, y in zip(data[RES_SHARD_STEPS:],
+                                          labels[RES_SHARD_STEPS:])]
+    tr2 = trainer()
+    step = tr2.load_checkpoint_sharded(path)
+    again = [tr2.step(x, y) for x, y in zip(data[RES_SHARD_STEPS:],
+                                            labels[RES_SHARD_STEPS:])]
+    differing = sum(_differing(torch, a, b) for a, b in zip(cont, again))
+    differing += sum(_differing(torch, tr.params[n], tr2.params[n])
+                     for n in tr.params)
+    files = sorted(os.listdir(path))
+    return {"loaded_step": step, "differing": differing, "files": files,
+            "shard_shapes": [tuple(tr.params[n].shape)
+                             for n in tr.fn.trainable]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the full report (JSON) "
@@ -10384,7 +11146,8 @@ def main(argv=None):
                                         "module", "bert", "lm_f32",
                                         "generation", "ops", "zoo", "rnn",
                                         "data", "ssd", "predict",
-                                        "dist", "mesh", "shard"),
+                                        "dist", "mesh", "shard",
+                                        "resilience"),
                     default="all",
                     help="attention: the flash forward and backward checks "
                     "of phase 2 alone; optimizer: phase 2's K3 and K1 "
@@ -10428,6 +11191,11 @@ def main(argv=None):
                     "then ctx_group placement, Module context lists and "
                     "Gluon parameters on gpu(0) and cpu()), ending in the "
                     "kernels line for K1, K2f and K4, the card and ok "
+                    "lines; resilience: phase resilience alone (K1 and K3 "
+                    "with the skip word, ResNet-50's chaos run against its "
+                    "baseline, the nanguard abort through K3, two elastic "
+                    "generations of gloo ranks sharing the card), ending "
+                    "in the kernels line for K1 and K3, the card and ok "
                     "lines")
     ap.add_argument("--dist-worker", metavar="WORKDIR",
                     help=argparse.SUPPRESS)
@@ -10438,6 +11206,8 @@ def main(argv=None):
     ap.add_argument("--nccl-worker", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--shard-worker", metavar="WORKDIR",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--resilience-worker", metavar="WORKDIR",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
@@ -10452,6 +11222,8 @@ def main(argv=None):
         return mesh_worker(args.mesh_worker, args.mesh_suite)
     if args.shard_worker:
         return shard_worker(args.shard_worker)
+    if args.resilience_worker:
+        return resilience_worker(args.resilience_worker)
     import numpy as np
     import torch.nn.functional as F
     import mxnet_tpu_torch as mx
@@ -10491,7 +11263,8 @@ def main(argv=None):
          "ssd": ["sgd_step", "box_nms"], "predict": [],
          "dist": ["sgd_step", "adam_step"],
          "mesh": ["flash_fwd", "flash_bwd", "flash_f32", "sgd_step"],
-         "shard": ["flash_fwd", "paged_attn", "sgd_step"]}.get(args.phase))
+         "shard": ["flash_fwd", "paged_attn", "sgd_step"],
+         "resilience": ["sgd_step", "adam_step"]}.get(args.phase))
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "per_source_s": {k: v["seconds"]
                                         for k, v in built.items()},
@@ -10765,6 +11538,27 @@ def main(argv=None):
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if args.phase == "resilience":
+        adam, adam_step = check_adam(ck, torch)
+        sgd, sgd_step = check_sgd(ck, torch, mx, np)
+        bad = [c for c in adam + sgd if not c["ok"]]
+        if bad:
+            raise AssertionError("kernel disagrees with its plain version: "
+                                 "%s" % json.dumps(bad))
+        report["resilience"] = resilience_phase(mx, ck, np, torch, card,
+                                                workdir)
+        res_sgd, res_adam = _res_launches(report["resilience"])
+        kernels = [_adam_summary(adam, adam_step, res_adam),
+                   _sgd_summary(sgd, sgd_step, res_sgd)]
+        report["kernels"] = kernels
+        _write_report(args.report, report)
+        print(json.dumps({"kernels": [{k: v for k, v in s.items()
+                                       if k != "cases"} for s in kernels]}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.phase == "module":
         report["lr_t_ab"] = lr_t_ab(mx, np, torch)
         report["launch_ab"] = launch_ab(mx, np, torch)
@@ -10823,6 +11617,7 @@ def main(argv=None):
     report["dist"] = dist_phase(mx, ck, np, torch, card, workdir)
     report["mesh"] = mesh_phase(mx, ck, np, torch, card, workdir)
     report["shard"] = shard_phase(mx, ck, np, torch, card, workdir)
+    report["resilience"] = resilience_phase(mx, ck, np, torch, card, workdir)
     mesh_by = _mesh_launches(report["mesh"])
     shard_by = _shard_launches(report["shard"])
     data_sgd, data_adam = _data_launches(report["data"])
@@ -10831,7 +11626,10 @@ def main(argv=None):
     data_sgd.update(dist_sgd)
     data_sgd.update(mesh_by["sgd_step"])
     data_sgd.update(shard_by["sgd_step"])
+    res_sgd, res_adam = _res_launches(report["resilience"])
+    data_sgd.update(res_sgd)
     data_adam.update(dist_adam)
+    data_adam.update(res_adam)
     module_adam = report["module"]["fused"]["launches"]["adam_step"]
     rnn_adam = {"rnn_bucketing_" + kind: run["launches"]["adam_step"]
                 for kind, run in report["rnn"]["bucketing"].items()}

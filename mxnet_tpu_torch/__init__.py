@@ -54,8 +54,12 @@ Ported so far:
   ``load_model`` / ``Server.register`` -> ``submit`` / ``predict``,
   ``quantization.calibrate`` -> ``export_quantized`` ->
   ``register(..., quantized=True)``, ``contrib.quantization``, the
-  quantized ops (int8 products through ``torch._int_mm``), and
-  ``resilience``'s fault-injection harness;
+  quantized ops (int8 products through ``torch._int_mm``);
+* resilience and elasticity — ``mx.resilience`` (atomic, verified and
+  managed checkpoints, preemption saves, the non-finite step guard folded
+  into the fused optimizer kernels, retries and fault injection),
+  ``mx.elastic`` and the elastic launcher, and ``SPMDTrainer``'s sharded
+  checkpoints;
 
 with hand-written CUDA kernels for flash-attention forward and backward,
 paged decode attention, the fused Adam step, the multi-tensor fused SGD
@@ -89,6 +93,7 @@ from . import generation, optimizer, lr_scheduler, kvstore, gluon, parallel
 from . import metric, io, callback, engine, rtc, symbol, model, module
 from . import executor, executor_manager, runtime, rnn
 from . import recordio, image, compat, resilience, contrib, kvstore_server
+from . import elastic
 from . import attribute
 from .attribute import AttrScope
 from . import symbol as sym
@@ -104,5 +109,5 @@ __all__ = ["MXNetError", "MXNetErrorNoDevice", "KernelUnsupportedError",
            "lr_scheduler", "kvstore", "kv", "gluon", "parallel", "metric",
            "io", "callback", "engine", "rtc", "symbol", "sym", "model",
            "module", "mod", "executor", "executor_manager", "runtime", "rnn",
-           "recordio", "image", "compat", "resilience", "contrib",
-           "kvstore_server", "attribute", "AttrScope"]
+           "recordio", "image", "compat", "resilience", "elastic",
+           "contrib", "kvstore_server", "attribute", "AttrScope"]

@@ -200,7 +200,7 @@ def save_mxnet_params(fname, data):
     payload = b"".join(out)
     if fname is None:
         return payload
-    from .base import atomic_write
+    from .resilience import atomic_write
     with atomic_write(fname, "wb") as f:
         f.write(payload)
     return fname

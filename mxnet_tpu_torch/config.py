@@ -1,11 +1,12 @@
 """``mx.config`` — the typed runtime-knob registry (counterpart of
 ``mxnet_tpu.config``), cut down to the knobs the ported paths read: the
 generation and one-shot serving paths, quantization (``quant.*``), the
-fault-injection harness and retry policy (``resilience.*``), the kernel
-tier, the 64-bit dtype policy, the
+fault-tolerance knobs (``resilience.*``: the nanguard, preemption,
+checkpoint cadence, fault injection and retry policy; ``elastic.*``),
+the kernel tier, the 64-bit dtype policy, the
 ResNet training path
-(convolution layout, BatchNorm statistics, and the trainer options that
-are not ported yet, which the trainer refuses instead of ignoring), the
+(convolution layout, BatchNorm statistics, and the numerics capture,
+which the trainers refuse instead of ignoring), the
 engine and symbolic Module knobs, the layer-stack program knobs
 (``runtime.stack_mode``, ``runtime.remat``) of ``runtime.scan_stack``,
 the data pipeline's (``io.*``), and the scale-out knobs (2-bit gradient
@@ -142,14 +143,10 @@ register_knob(
     "moving-mean-shifted moments; True = the exact two-pass variance, for "
     "offset-heavy inputs whose |mean|/std exceeds ~3000 at cold start.")
 register_knob(
-    "resilience.nanguard", "MXNET_TPU_NANGUARD", str, "",
-    "non-finite step guard of the fused train step ('skip' / 'abort'). "
-    "Not ported; SPMDTrainer and Module raise NotImplementedError when it "
-    "is set.")
-register_knob(
     "numerics.capture", "MXNET_TPU_NUMERICS", str, "",
     "in-step tensor-statistics capture cadence ('step:N'). Not ported; "
-    "SPMDTrainer and Module raise NotImplementedError when it is set.")
+    "SPMDTrainer, Module and gluon.Trainer raise NotImplementedError when "
+    "it is set.")
 register_knob(
     "kvstore.grad_compress", "MXNET_TPU_GRAD_COMPRESS", str, "",
     "gradient-sync wire compression: '2bit' quantizes gradients to "
@@ -225,11 +222,44 @@ register_knob(
     "one-shot batching window in milliseconds: how long the batcher "
     "holds the oldest queued request waiting for co-batchable traffic "
     "before dispatching a partial batch. 0 dispatches immediately.")
+# fault tolerance (mx.resilience, mx.elastic)
+register_knob(
+    "resilience.nanguard", "MXNET_TPU_NANGUARD", str, "",
+    "non-finite step guard: 'skip' drops the update of a step whose loss "
+    "or gradients hold a NaN or an Inf (the parameters, optimizer state "
+    "and BatchNorm statistics keep their values; <source>.nonfinite_steps "
+    "counts such steps) and aborts with a checkpoint after "
+    "nanguard_patience consecutive bad steps; 'abort' aborts on the first. "
+    "The fused steps (SPMDTrainer, the Module's fused step) check on the "
+    "card and skip inside the fused optimizer kernels, with no host sync; "
+    "the eager loops (gluon.Trainer, the Module's eager step) check on the "
+    "host. Empty (default) disables.")
+register_knob(
+    "resilience.nanguard_patience", "MXNET_TPU_NANGUARD_PATIENCE", int, 25,
+    "consecutive non-finite steps tolerated under nanguard=skip before the "
+    "run aborts with a checkpoint (abort mode always uses 1).")
+register_knob(
+    "resilience.on_preempt", "MXNET_TPU_ON_PREEMPT", str, "",
+    "'save_and_exit' installs SIGTERM/SIGINT handlers: the training loops "
+    "finish the step in flight, checkpoint, flush and exit 0 (a second "
+    "signal ends the process at once). Empty (default) leaves the signals "
+    "alone.")
+register_knob(
+    "resilience.ckpt_every_n_steps", "MXNET_TPU_CKPT_EVERY", int, 0,
+    "CheckpointManager's default cadence: maybe_save() writes every N "
+    "steps (0 = only explicit save() calls).")
+register_knob(
+    "resilience.ckpt_keep", "MXNET_TPU_CKPT_KEEP", int, 3,
+    "CheckpointManager's retention: keep the newest K checkpoints, prune "
+    "older ones (<= 0 keeps everything).")
 register_knob(
     "resilience.faults", "MXNET_TPU_FAULTS", str, "",
     "deterministic fault-injection spec, e.g. "
-    "'serving_dispatch:2@step=1,serving_slow:0.1' — kind:probability per "
-    "opportunity, or kind:count@step=N (1-based). Kinds the port draws: "
+    "'io:0.05,ckpt_write:1@step=3,nan:1@step=7' — kind:probability per "
+    "opportunity, or kind:count@step=N (1-based). Kinds: io (batch fetch), "
+    "kvstore (push/pull), ckpt_write (inside atomic_write), nan (poison a "
+    "training batch), peer_preempt (a peer's preemption inside "
+    "mx.elastic's cluster agreement), dcn_push (fail a dist kvstore hop), "
     "serving_dispatch (fail a one-shot batch dispatch — feeds the circuit "
     "breaker), serving_slow (delay a dispatch), and any kind passed to "
     "resilience.call_with_retry(inject_faults=True).")
@@ -347,12 +377,51 @@ def _apply_resilience_retry(_value):
     resilience.configure_retry()
 
 
+def _apply_resilience_nanguard(value):
+    if (value or "").strip() not in ("", "skip", "abort"):
+        # reject at set() time and revert: a typo must not leave training
+        # unguarded until the next step
+        _OVERRIDES.pop("resilience.nanguard", None)
+        raise ValueError("resilience.nanguard must be '', 'skip' or "
+                         "'abort', got %r" % (value,))
+
+
+def _apply_resilience_preempt(value):
+    from . import resilience
+    resilience.configure_preemption(value)
+
+
 _ON_SET["quant.calib_mode"] = _apply_quant_calib_mode
 _ON_SET["quant.drift_every"] = _apply_quant_drift_every
 _ON_SET["resilience.faults"] = _apply_resilience_faults
 _ON_SET["resilience.fault_seed"] = _apply_resilience_faults
 _ON_SET["resilience.retry_attempts"] = _apply_resilience_retry
 _ON_SET["resilience.retry_base_s"] = _apply_resilience_retry
+_ON_SET["resilience.nanguard"] = _apply_resilience_nanguard
+_ON_SET["resilience.on_preempt"] = _apply_resilience_preempt
+
+# multi-process elasticity (mx.elastic)
+register_knob(
+    "elastic.dir", "MXTPU_ELASTIC_DIR", str, "",
+    "state directory of an elastic run (set by `python -m "
+    "mxnet_tpu_torch.launch --elastic`): heartbeat leases, preemption "
+    "flags and the coordinated checkpoints. Non-empty activates "
+    "mx.elastic's per-step cluster preemption agreement.")
+register_knob(
+    "elastic.generation", "MXTPU_ELASTIC_GENERATION", int, 0,
+    "restart generation of an elastic run (0 = first launch), exported by "
+    "the elastic launcher.")
+register_knob(
+    "elastic.heartbeat_s", "MXTPU_ELASTIC_HEARTBEAT_S", float, 1.0,
+    "heartbeat interval of the elastic lease loop; a peer whose lease goes "
+    "stale for 5x this interval is declared lost "
+    "(elastic.peer_lease_expired).")
+register_knob(
+    "elastic.on_peer_loss", "MXTPU_ELASTIC_ON_PEER_LOSS", str, "abort",
+    "reaction when a peer's heartbeat lease expires: 'abort' (default) "
+    "flushes and exits with code 75, so the elastic launcher re-forms the "
+    "world (rescuing ranks blocked in a collective on the dead peer); "
+    "'flag' only records it (HeartbeatMonitor.peer_lost).")
 
 
 # data loading and the device prefetch ring (mx.io, mx.image,

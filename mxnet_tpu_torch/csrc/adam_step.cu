@@ -33,8 +33,9 @@
 //
 // What bounds it on the H100: bytes.  It reads the f32 master, m and v and
 // the grad and writes the master, m, v and the cast: 28 bytes an element
-// with a 2-byte grad and a 2-byte cast (the training path), 32 with an f32
-// grad and no cast (the symbolic Module's step), against 3.35 TB/s.  The
+// with a 2-byte grad and a 2-byte cast (the training path), and 28 too
+// with an f32 grad and no cast (the symbolic Module's step: an f32 cast is
+// the master's own bits and is not stored), against 3.35 TB/s.  The
 // design is for keeping that stream full across a whole step:
 // - one launch for the list: a device-side table of per-tensor entries
 //   (pointers, element count, lr_t, wd, flags, first block); block b finds
@@ -51,6 +52,14 @@
 //   access, and for the last n % 4 elements of an aligned one.
 // Updates are in place: each element is read before it is written, by
 // the same thread.
+//
+// The skip word.  A launch may name a device int32 (`skip`): when it is
+// non-zero every block returns before its first load of the table, so the
+// launch writes no byte of any master, moment or cast.  The non-finite
+// step guard (resilience.nanguard) writes the word on the step's stream
+// from its all-finite reduction over the loss and the gradients, so a bad
+// step is dropped on the card with no host read and no copy of the old
+// state.  A null pointer launches exactly as before.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -234,7 +243,8 @@ __device__ __forceinline__ void adam_cast(const Entry& e, int64_t start,
 
 __global__ void __launch_bounds__(kThreads)
 adam_multi_kernel(const Entry* __restrict__ table, int n_tensors,
-                  int64_t chunk, Betas a) {
+                  int64_t chunk, Betas a, const int* __restrict__ skip) {
+  if (skip != nullptr && *skip != 0) return;  // uniform across the grid
   __shared__ int s_tensor;
   if (threadIdx.x == 0) {
     // the last entry whose first block is <= blockIdx.x
@@ -261,17 +271,18 @@ adam_multi_kernel(const Entry* __restrict__ table, int n_tensors,
 
 // table: device pointer to n_tensors Entry records; blocks: total blocks
 // (the last entry's block0 plus its chunk count); chunk: elements per
-// block, a multiple of 4.
+// block, a multiple of 4; skip: null, or a device int32 whose non-zero
+// value makes the launch write nothing.
 extern "C" int mx_adam_step_multi(const void* table, int n_tensors,
                                   int blocks, long long chunk, float b1,
                                   float b2, float omb1, float omb2, float eps,
-                                  void* stream) {
+                                  const void* skip, void* stream) {
   if (n_tensors <= 0 || blocks <= 0 || chunk <= 0 || chunk % 4 != 0)
     return (int)cudaErrorInvalidValue;
   adam_multi_kernel<<<(unsigned)blocks, kThreads, 0,
                       reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const Entry*>(table), n_tensors, (int64_t)chunk,
-      Betas{b1, b2, omb1, omb2, eps});
+      Betas{b1, b2, omb1, omb2, eps}, static_cast<const int*>(skip));
   return (int)cudaGetLastError();
 }
 

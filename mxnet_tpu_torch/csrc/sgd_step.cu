@@ -36,6 +36,14 @@
 // Inside a chunk: 16-byte vector loads where every pointer of the tensor
 // is aligned, a scalar tail.  Updates are in place: each element is read before it is
 // written, by the same thread.
+//
+// The skip word.  A launch may name a device int32 (`skip`): when it is
+// non-zero every block returns before its first load of the table, so the
+// launch writes no byte of any master, momentum or cast.  The non-finite
+// step guard (resilience.nanguard) writes the word on the step's stream
+// from its all-finite reduction over the loss and the gradients, so a bad
+// step is dropped on the card with no host read and no copy of the old
+// state.  A null pointer launches exactly as before.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -110,7 +118,9 @@ __device__ __forceinline__ float load_grad(uint64_t g, int64_t i, int flags) {
 
 __global__ void __launch_bounds__(kThreads)
 sgd_multi_kernel(const Entry* __restrict__ table, int n_tensors,
-                 int64_t chunk, float momentum, int has_mom) {
+                 int64_t chunk, float momentum, int has_mom,
+                 const int* __restrict__ skip) {
+  if (skip != nullptr && *skip != 0) return;  // uniform across the grid
   __shared__ int s_tensor;
   if (threadIdx.x == 0) {
     // the last entry whose first block is <= blockIdx.x
@@ -174,16 +184,17 @@ sgd_multi_kernel(const Entry* __restrict__ table, int n_tensors,
 
 // table: device pointer to n_tensors Entry records; blocks: total blocks
 // (the last entry's block0 plus its chunk count); chunk: elements per
-// block, a multiple of 4.
+// block, a multiple of 4; skip: null, or a device int32 whose non-zero
+// value makes the launch write nothing.
 extern "C" int mx_sgd_step_multi(const void* table, int n_tensors, int blocks,
                                  long long chunk, float momentum, int has_mom,
-                                 void* stream) {
+                                 const void* skip, void* stream) {
   if (n_tensors <= 0 || blocks <= 0 || chunk <= 0 || chunk % 4 != 0)
     return (int)cudaErrorInvalidValue;
   sgd_multi_kernel<<<(unsigned)blocks, kThreads, 0,
                      reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const Entry*>(table), n_tensors, (int64_t)chunk, momentum,
-      has_mom);
+      has_mom, static_cast<const int*>(skip));
   return (int)cudaGetLastError();
 }
 

@@ -542,7 +542,7 @@ class HybridBlock(Block):
             _model.save_checkpoint(path, epoch, out, arg, aux)
         else:
             from .. import compat as _compat
-            from ..base import atomic_write
+            from ..resilience import atomic_write
             # serialized first: an op Apache MXNet lacks raises before
             # either file is touched
             js = _compat.save_mxnet_symbol(out)

@@ -40,9 +40,13 @@ file atomically (``Updater.get_states(dump_optimizer=True)``);
 numpy arrays and the reference's Optimizer, read without importing the
 reference: ``optimizer.Updater.set_states``).
 
-Not ported, and raising ``NotImplementedError`` when asked for: the
-nanguard and numerics-capture knobs (``resilience.nanguard``,
-``numerics.capture``) and ``set_preemption_save``.
+Resilience, as in the reference: under ``resilience.nanguard`` the
+update checks the gradients on the host (one sync a step) and skips a
+non-finite step (``gluon.nonfinite_steps``); ``step`` checks the abort
+first and finishes a pending preemption last, both through the save
+``set_preemption_save`` registers.  Not ported, and raising
+``NotImplementedError`` when asked for: numerics capture
+(``numerics.capture``).
 """
 from __future__ import annotations
 
@@ -88,10 +92,14 @@ class Trainer:
         self._kvstore = None
         self._update_on_kvstore = None
         self._params_to_init = list(self._params)
+        self._preempt_save = None
 
     def set_preemption_save(self, fn):
-        raise NotImplementedError(
-            "preemption saves are not ported (set_preemption_save)")
+        """Register ``fn()`` (e.g. a closure over ``save_parameters`` and
+        :meth:`save_states`) as the checkpoint a preemption
+        (``resilience.on_preempt=save_and_exit``) or a nanguard abort
+        writes before the process exits or raises."""
+        self._preempt_save = fn
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = {i: param for i, param in enumerate(self._params)}
@@ -180,20 +188,26 @@ class Trainer:
 
     @staticmethod
     def _check_options():
-        for knob in ("resilience.nanguard", "numerics.capture"):
-            if _config.get(knob):
-                raise NotImplementedError(
-                    "gluon.Trainer does not port %s" % knob)
+        if _config.get("numerics.capture"):
+            raise NotImplementedError(
+                "gluon.Trainer does not port numerics.capture")
 
     def step(self, batch_size, ignore_stale_grad=False):
         """One parameter update (reference ``trainer.py:305``): gradients
-        rescaled by ``1 / batch_size``, reduced, then applied."""
+        rescaled by ``1 / batch_size``, reduced, then applied.  The
+        nanguard's abort check comes first and a pending preemption's
+        save and exit last, as in the reference."""
+        from .. import resilience as _resilience
         self._check_options()
+        _resilience.maybe_abort_nonfinite("gluon",
+                                          save_fn=self._preempt_save)
         rescale_grad = self._scale / batch_size
         self._check_and_rescale_grad(rescale_grad)
         self._ready()
         self._allreduce_grads()
         self._update(ignore_stale_grad)
+        if _resilience.preempt_requested():
+            _resilience.exit_on_preempt(save_fn=self._preempt_save)
 
     def _check_and_rescale_grad(self, scale):
         if self._update_on_kvstore and self._kv_initialized and \
@@ -253,6 +267,15 @@ class Trainer:
     def _update(self, ignore_stale_grad=False):
         if self._kvstore and self._update_on_kvstore:
             return
+        from .. import resilience as _resilience
+        if _resilience.nanguard_mode():
+            # the eager loop: one host sync a step, as the reference's
+            grads = [p.list_grad()[0] for p in self._params
+                     if p.grad_req != "null"]
+            if int(_resilience.skip_word(grads)):
+                _resilience.report_nonfinite("gluon")
+                return
+            _resilience.note_finite("gluon")
         updater = self._updaters[0]
         for i, param in enumerate(self._params):
             if param.grad_req == "null":

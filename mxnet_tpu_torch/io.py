@@ -101,7 +101,12 @@ class DataIter:
         raise NotImplementedError
 
     def __next__(self):
-        return self.next()
+        # a transient I/O error (a network file system, an object store)
+        # is retried with backoff, and the ``io`` fault is drawn here;
+        # StopIteration passes straight through
+        from . import resilience as _resilience
+        return _resilience.call_with_retry(self.next, kind="io",
+                                           inject_faults=True)
 
     # legacy pull-style API
     def iter_next(self):

@@ -20,12 +20,19 @@ nightly test, value-exact.  Under 2-bit compression
 ``kvstore.grad_compress`` knob) the merged value is coded against a
 per-key error-feedback residual and only the packed codes (four a byte)
 cross the ranks.
+
+``push`` and ``pull`` retry a transient error with backoff
+(``resilience.call_with_retry``, kind ``kvstore``, which also draws the
+``kvstore`` fault before any key is touched); the dist store's hop draws
+``dcn_push`` before it sends, so push's retry re-runs it without applying
+anything twice.
 """
 from __future__ import annotations
 
 import torch
 
 from . import optimizer as opt
+from . import resilience as _resilience
 from . import telemetry as _telemetry
 from .ndarray.ndarray import _wrap
 
@@ -106,6 +113,9 @@ class KVStore:
         kvstore_dist_server.h:349), rows added in rank order."""
         if self.num_workers == 1:
             return val
+        # the simulated hop failure: before the hop, so push's retry
+        # re-runs it without applying anything twice
+        _resilience.inject("dcn_push")
         from .parallel import host_allreduce
         return host_allreduce(val)
 
@@ -115,6 +125,7 @@ class KVStore:
         unpacks the others' rows and sums them (int32)."""
         if self.num_workers == 1:
             return codes
+        _resilience.inject("dcn_push")
         from .parallel import host_allgather
         from .parallel.compression import note_wire, pack_2bit, unpack_2bit
         shape, n = codes.shape, codes.numel()
@@ -154,8 +165,14 @@ class KVStore:
     def push(self, key, value, priority=0):
         """Pushes (sums) value(s) into the store, or through the updater
         (reference: kvstore.py:178; KVStoreLocal::PushImpl); a dist store
-        sums over the workers first."""
+        sums over the workers first.  A transient error is retried with
+        backoff; the ``kvstore`` fault is drawn before any key is merged,
+        so a retried injected fault applies nothing twice."""
         keys, values = _normalize(key, value)
+        _resilience.call_with_retry(self._push_impl, keys, values,
+                                    kind="kvstore", inject_faults=True)
+
+    def _push_impl(self, keys, values):
         with torch.no_grad():
             for k, v in zip(keys, values):
                 merged = self._merge(v)
@@ -180,6 +197,11 @@ class KVStore:
         if out is None:
             raise ValueError("pull needs out=")
         keys, outs = _normalize(key, out)
+        # a pull is a copy from the store: retrying it is always safe
+        _resilience.call_with_retry(self._pull_impl, keys, outs,
+                                    kind="kvstore", inject_faults=True)
+
+    def _pull_impl(self, keys, outs):
         for k, o in zip(keys, outs):
             src = self._store[k]._data
             for t in (o if isinstance(o, (list, tuple)) else [o]):

@@ -11,6 +11,16 @@ SIGKILL after ``grace_s``, so no rank is left waiting in a collective for
 a dead peer.  Run::
 
     python -m mxnet_tpu_torch.launch -n 2 python train.py ...
+
+``--elastic`` (:func:`launch_elastic`) runs generations of the world:
+a generation that ends with a rank's preemption flag in the elastic
+state directory (``mx.elastic``'s coordinated preemption) or with a
+non-zero exit (a rank killed mid-step, or a heartbeat abort, exit code
+75) is started again, up to ``--max-restarts`` times, and its workers
+resume from the newest coordinated checkpoint::
+
+    python -m mxnet_tpu_torch.launch -n 2 --elastic --max-restarts 2 \
+        python train.py ...
 """
 from __future__ import annotations
 
@@ -22,7 +32,7 @@ import subprocess
 import sys
 import time
 
-__all__ = ["launch_local"]
+__all__ = ["launch_local", "launch_elastic"]
 
 
 def _free_port():
@@ -67,15 +77,68 @@ def launch_local(num_workers, command, extra_env=None, poll_interval=0.2,
     return rc
 
 
+def launch_elastic(num_workers, command, max_restarts=1, elastic_dir=None,
+                   extra_env=None):
+    """Generations of :func:`launch_local` with ``MXTPU_ELASTIC_DIR`` and
+    ``MXTPU_ELASTIC_GENERATION`` exported.  Before each generation the
+    previous one's preemption flags and leases are removed; a generation
+    that ends with a ``preempt-r*`` flag or a non-zero exit is restarted
+    while the budget of ``max_restarts`` lasts.  Returns 0 when a
+    generation ran to completion, else the last generation's exit code
+    (1 when it was preempted)."""
+    import tempfile
+    if elastic_dir is None:
+        elastic_dir = tempfile.mkdtemp(prefix="mxnet-elastic-")
+    os.makedirs(elastic_dir, exist_ok=True)
+    rc = 1
+    for gen in range(max_restarts + 1):
+        for name in os.listdir(elastic_dir):
+            if name.startswith(("preempt-r", "hb-r")):
+                try:
+                    os.unlink(os.path.join(elastic_dir, name))
+                except OSError:
+                    pass
+        env = dict(extra_env or {})
+        env["MXTPU_ELASTIC_DIR"] = elastic_dir
+        env["MXTPU_ELASTIC_GENERATION"] = str(gen)
+        rc = launch_local(num_workers, command, extra_env=env)
+        preempted = any(n.startswith("preempt-r")
+                        for n in os.listdir(elastic_dir))
+        if rc == 0 and not preempted:
+            return 0
+        what = "was preempted" if preempted else "failed (rc=%d)" % rc
+        if gen >= max_restarts:
+            sys.stderr.write("launch: generation %d %s and the restart "
+                             "budget (%d) is spent\n"
+                             % (gen, what, max_restarts))
+            return rc if rc != 0 else 1
+        sys.stderr.write("launch: generation %d %s; re-forming the world "
+                         "(generation %d)\n" % (gen, what, gen + 1))
+    return rc
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("-n", "--num-workers", type=int, required=True,
                     help="number of local ranks")
+    ap.add_argument("--elastic", action="store_true",
+                    help="restart the world after a coordinated "
+                    "preemption or a failed rank (launch_elastic)")
+    ap.add_argument("--max-restarts", type=int, default=1,
+                    help="restart budget of --elastic (default 1)")
+    ap.add_argument("--elastic-dir", default=None,
+                    help="elastic state directory (default: a new temp "
+                    "directory): leases, preemption flags, coordinated "
+                    "checkpoints")
     ap.add_argument("command", nargs=argparse.REMAINDER,
                     help="the command each rank runs")
     args = ap.parse_args(argv)
     if args.num_workers < 1 or not args.command:
         ap.error("need -n >= 1 and a command")
+    if args.elastic:
+        return launch_elastic(args.num_workers, args.command,
+                              max_restarts=args.max_restarts,
+                              elastic_dir=args.elastic_dir)
     return launch_local(args.num_workers, args.command)
 
 

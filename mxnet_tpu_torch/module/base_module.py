@@ -4,9 +4,11 @@
 Reference: ``python/mxnet/module/base_module.py``: ``fit`` (:409-530)
 runs bind -> init_params -> init_optimizer -> per batch
 ``train_step`` (forward_backward + update) and ``update_metric``;
-``score``, ``predict`` and ``iter_predict`` evaluate.  The preemption
-handling of the JAX package is not ported, and a ``monitor`` raises
-NotImplementedError.
+``score``, ``predict`` and ``iter_predict`` evaluate.  ``train_step``
+checks the nanguard's abort first; ``fit`` finishes a pending preemption
+after the step in flight (``resilience.on_preempt=save_and_exit``: the
+epoch-end callbacks checkpoint, then the process exits 0).  A
+``monitor`` raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -80,8 +82,13 @@ class BaseModule:
     def train_step(self, data_batch):
         """One optimization step on ``data_batch``: forward_backward then
         update (one fused step in ``Module`` when it may run fused).
-        Observed on the ``module.step_ms`` timer (host time)."""
+        Observed on the ``module.step_ms`` timer (host time).  Under
+        ``resilience.nanguard`` the abort (``NonFiniteStepError``) lands
+        here, at the start of a step after the device reported the
+        streak."""
+        from .. import resilience as _resilience
         from .. import telemetry as _telemetry
+        _resilience.maybe_abort_nonfinite("module")
         t0 = time.perf_counter()
         self.forward_backward(data_batch)
         self.update()
@@ -109,6 +116,7 @@ class BaseModule:
         if monitor is not None:
             raise NotImplementedError("Monitor is not ported: fit(monitor=) "
                                       "cannot be honoured")
+        from .. import resilience as _resilience
         from ..callback import BatchEndParam
         from ..initializer import Uniform
         if initializer is None:
@@ -137,6 +145,14 @@ class BaseModule:
                                            locals=locals())
                     for cb in _as_list(batch_end_callback):
                         cb(params)
+                if _resilience.preempt_requested():
+                    # the step in flight is done: checkpoint through the
+                    # epoch-end callbacks, flush, exit 0
+                    if epoch_end_callback is not None:
+                        arg_params, aux_params = self.get_params()
+                        for cb in _as_list(epoch_end_callback):
+                            cb(epoch, self.symbol, arg_params, aux_params)
+                    _resilience.exit_on_preempt(logger=self.logger)
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,

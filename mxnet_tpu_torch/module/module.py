@@ -29,9 +29,16 @@ steps on the eager route, as the reference's does.
 
 Parameters are the Module's own tensors, updated in place:
 ``init_params`` / ``set_params`` copy what they are given, and
-``get_params`` returns copies.  Not ported (raise NotImplementedError
-when asked for): the nanguard, numerics capture, Monitor, and optimizer
-state in checkpoints.
+``get_params`` returns copies.
+
+The nanguard (``resilience.nanguard``): the fused step reduces its
+outputs and gradients to a skip word on the card and the fused kernel
+(K3, K1) takes it; the streak of bad steps stays on the card and reaches
+the host through ``resilience.watch_streak`` (source ``module``).  The
+eager route checks the gradients on the host, one sync a step, as the
+reference's does.  ``train_step`` checks the abort first.  Not ported
+(raise NotImplementedError when asked for): numerics capture, Monitor,
+and optimizer state in checkpoints.
 """
 from __future__ import annotations
 
@@ -55,7 +62,6 @@ __all__ = ["Module"]
 # knobs of reference features the port does not have yet: set, they would
 # change what a step computes, so the Module refuses to train
 _UNPORTED_KNOBS = {
-    "resilience.nanguard": "the nanguard (non-finite step guard)",
     "numerics.capture": "in-step numerics capture",
 }
 
@@ -83,11 +89,12 @@ class FusedState:
     their default bucket's, so a bucket switch keeps the moments and the
     count (reference ``module.py:91``, ``_fused_shared``)."""
 
-    __slots__ = ("state", "t")
+    __slots__ = ("state", "t", "nan_streak")
 
     def __init__(self):
         self.state = {}
         self.t = 0
+        self.nan_streak = None  # the nanguard's streak, on the card
 
 
 class Module(BaseModule):
@@ -321,7 +328,15 @@ class Module(BaseModule):
         # t is a Python int, as on the eager route: Adam's bias correction
         # is then the same on both routes (the reference's jitted step
         # takes it in f32 from a traced int32, 6e-6 away: 1 - 0.999 in f32)
-        outs, aux_updates = fn(feeds, state, t, lrs, wds)
+        outs, aux_updates, word = fn(feeds, state, t, lrs, wds)
+        if word is not None:
+            from .. import resilience as _resilience
+            streak = shared.nan_streak
+            if streak is None or streak.device != word.device:
+                streak = torch.zeros((), dtype=torch.int32,
+                                     device=word.device)
+            shared.nan_streak = _resilience.guarded_streak(word == 0, streak)
+            _resilience.watch_streak("module", shared.nan_streak)
         for n, v in aux_updates.items():
             if n in exec_.aux_dict:
                 exec_.aux_dict[n]._data = v
@@ -371,6 +386,16 @@ class Module(BaseModule):
             self._run_fused(batch)
             return
         _telemetry.counter("eager_steps").inc()
+        from .. import resilience as _resilience
+        if _resilience.nanguard_mode():
+            # the eager route has no fused step to fold the check into:
+            # one host sync a step, as the reference's eager route
+            grads = [g for g in self._exec.grad_dict.values()
+                     if g is not None]
+            if int(_resilience.skip_word(grads)):
+                _resilience.report_nonfinite("module")
+                return
+            _resilience.note_finite("module")
         for i, name in enumerate(self._param_names):
             g = self._exec.grad_dict.get(name)
             if g is not None:

@@ -31,7 +31,8 @@ import numpy as _np
 import torch
 
 from .. import _tape
-from ..base import atomic_write, bfloat16_numpy, canonical_dtype, numpy_dtype
+from ..base import bfloat16_numpy, canonical_dtype, numpy_dtype
+from ..resilience import atomic_write
 from ..context import Context, cpu, gpu, resolve_device
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",

@@ -148,12 +148,12 @@ _SIGNATURES = {
     },
     "adam_step": {
         "mx_adam_step_multi": ([_P, _I, _I, ctypes.c_longlong, _F, _F, _F, _F,
-                                _F, _P], _I),
+                                _F, _P, _P], _I),
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
     "sgd_step": {
-        "mx_sgd_step_multi": ([_P, _I, _I, ctypes.c_longlong, _F, _I, _P],
-                              _I),
+        "mx_sgd_step_multi": ([_P, _I, _I, ctypes.c_longlong, _F, _I, _P,
+                               _P], _I),
         "mx_error_string": ([_I], ctypes.c_char_p),
     },
     "row_softmax": {
@@ -823,25 +823,35 @@ def fused_adam_step_plain(weight, grad, m, v, lr_t, wd, beta1, beta2, eps,
     return nw.to(out_dtype), nw, (nm, nv)
 
 
+def _kept(skip, old, new):
+    """``new``, or ``old`` where the skip word ``skip`` (a 0-d int32
+    tensor, or None) is non-zero: the plain versions' form of the
+    kernels' early return, with no host read of the word."""
+    if skip is None:
+        return new
+    return torch.where(skip.to(old.device) != 0, old, new)
+
+
 def fused_adam_step_multi_plain(weights, grads, ms, vs, lr_ts, wds, beta1,
-                                beta2, eps, outs=None):
+                                beta2, eps, outs=None, skip=None):
     """:func:`fused_adam_step_multi` with the plain version, tensor by
-    tensor, in place."""
+    tensor, in place; a non-zero ``skip`` word leaves every tensor as it
+    was."""
     outs = outs if outs is not None else [None] * len(weights)
     for w, g, m, v, lr_t, wd, o in zip(weights, grads, ms, vs, lr_ts, wds,
                                        outs):
         lp, nw, (nm, nv) = fused_adam_step_plain(
             w, g, m, v, lr_t, wd, beta1, beta2, eps,
             out_dtype=o.dtype if o is not None else torch.float32)
-        w.copy_(nw)
-        m.copy_(nm)
-        v.copy_(nv)
         if o is not None:
-            o.copy_(lp)
+            o.copy_(_kept(skip, o, lp))
+        w.copy_(_kept(skip, w, nw))
+        m.copy_(_kept(skip, m, nm))
+        v.copy_(_kept(skip, v, nv))
 
 
 def fused_adam_step_multi(weights, grads, ms, vs, lr_ts, wds, beta1, beta2,
-                          eps, outs=None, table=None):
+                          eps, outs=None, table=None, skip=None):
     """One Adam update over a list of tensors, in place: ``weights`` (f32
     masters), ``ms`` and ``vs`` (f32 moments) receive the new values, and
     ``outs`` (optional, per tensor ``None`` or a bf16 or f16 tensor) the
@@ -851,7 +861,11 @@ def fused_adam_step_multi(weights, grads, ms, vs, lr_ts, wds, beta1, beta2,
     tensors run the plain version tensor by tensor; CUDA tensors launch
     ``csrc/adam_step.cu`` once for the whole list, or raise naming the
     first tensor the kernel cannot take.  ``table`` (a
-    :class:`LaunchTable`) keeps the device-side table across calls."""
+    :class:`LaunchTable`) keeps the device-side table across calls.
+    ``skip`` (optional) is the skip word, a 0-d int32 tensor on the
+    masters' device: non-zero, the call writes nothing (the kernel's
+    blocks return before their first store); it is read on the card, never
+    on the host."""
     n = len(weights)
     outs = list(outs) if outs is not None else [None] * n
     if not (len(grads) == len(ms) == len(vs) == len(lr_ts) == len(wds)
@@ -860,7 +874,8 @@ def fused_adam_step_multi(weights, grads, ms, vs, lr_ts, wds, beta1, beta2,
                          "wd and out per weight (got %d weights)" % n)
     if all(w.device.type == "cpu" for w in weights):
         return fused_adam_step_multi_plain(weights, grads, ms, vs, lr_ts,
-                                           wds, beta1, beta2, eps, outs)
+                                           wds, beta1, beta2, eps, outs,
+                                           skip=skip)
     # what the kernel takes first (shapes and dtypes), then where the
     # tensors lie
     for check in (_adam_entry_reason, _adam_launch_reason):
@@ -870,10 +885,11 @@ def fused_adam_step_multi(weights, grads, ms, vs, lr_ts, wds, beta1, beta2,
                 raise KernelUnsupportedError(
                     "adam kernel cannot take tensor %d of %d: %s"
                     % (i, n, reason))
+    _check_skip("adam", skip, weights[0])
     table = table if table is not None else LaunchTable()
     dev, blocks = table.fill(ADAM_LAYOUT, (weights, ms, vs, outs), grads,
                              lr_ts, wds)
-    _launch_adam(dev, n, blocks, beta1, beta2, eps, weights[0])
+    _launch_adam(dev, n, blocks, beta1, beta2, eps, weights[0], skip)
 
 
 def _adam_entry_reason(first, w, g, m, v, o):
@@ -896,15 +912,34 @@ def _adam_launch_reason(first, w, g, m, v, o):
     return _launch_reason(first, w, g, m, v, *([o] if o is not None else []))
 
 
-def _launch_adam(table, n, blocks, beta1, beta2, eps, like):
+def _check_skip(kernel, skip, like):
+    """Raise unless ``skip`` is None or a one-element int32 tensor on
+    ``like``'s CUDA device (the word a launch reads)."""
+    if skip is None:
+        return
+    if not (isinstance(skip, torch.Tensor) and skip.dtype == torch.int32
+            and skip.numel() == 1 and skip.device == like.device):
+        raise KernelUnsupportedError(
+            "%s kernel cannot take this skip word: it must be one int32 on "
+            "%s, got %s" % (kernel, like.device, skip if not isinstance(
+                skip, torch.Tensor) else "%s %s on %s" % (
+                    skip.dtype, tuple(skip.shape), skip.device)))
+
+
+def _skip_ptr(skip):
+    return None if skip is None else skip.data_ptr()
+
+
+def _launch_adam(table, n, blocks, beta1, beta2, eps, like, skip=None):
     """Launch K3 alone over a filled device table (:class:`LaunchTable`
     fills it after :func:`fused_adam_step_multi` has checked every
-    tensor), on the stream of ``like``'s device."""
+    tensor), on the stream of ``like``'s device; ``skip`` as for
+    :func:`fused_adam_step_multi`."""
     lib = _build.load("adam_step", _SIGNATURES["adam_step"])
     err = lib.mx_adam_step_multi(
         table.data_ptr(), n, blocks, ADAM_LAYOUT.chunk, float(beta1),
         float(beta2), 1.0 - float(beta1), 1.0 - float(beta2), float(eps),
-        _stream(like))
+        _skip_ptr(skip), _stream(like))
     _check(lib, err, "adam_step")
     LAUNCHES["adam_step"] += 1
 
@@ -1139,23 +1174,24 @@ def fused_sgd_step_plain(weight, grad, state, lr, wd, momentum,
 
 
 def fused_sgd_step_multi_plain(weights, grads, states, lrs, wds, momentum,
-                               outs=None):
+                               outs=None, skip=None):
     """:func:`fused_sgd_step_multi` with the plain version, tensor by
-    tensor, in place."""
+    tensor, in place; a non-zero ``skip`` word leaves every tensor as it
+    was."""
     outs = outs if outs is not None else [None] * len(weights)
     for w, g, s, lr, wd, o in zip(weights, grads, states, lrs, wds, outs):
         lp, nw, nm = fused_sgd_step_plain(
             w, g, s, lr, wd, momentum,
             out_dtype=o.dtype if o is not None else None)
-        w.copy_(nw)
-        if nm is not None:
-            s.copy_(nm)
         if o is not None:
-            o.copy_(lp)
+            o.copy_(_kept(skip, o, lp))
+        w.copy_(_kept(skip, w, nw))
+        if nm is not None:
+            s.copy_(_kept(skip, s, nm))
 
 
 def fused_sgd_step_multi(weights, grads, states, lrs, wds, momentum,
-                         outs=None, table=None):
+                         outs=None, table=None, skip=None):
     """One SGD(+momentum) update over a list of tensors, in place:
     ``weights`` (f32 masters) and ``states`` (f32 momenta, ``None``
     entries without momentum) receive the new values, ``outs`` (optional,
@@ -1164,7 +1200,8 @@ def fused_sgd_step_multi(weights, grads, states, lrs, wds, momentum,
     ``lrs``/``wds`` are per tensor.  CPU tensors run the plain version
     tensor by tensor; CUDA tensors launch ``csrc/sgd_step.cu`` once for the
     whole list, or raise.  ``table`` (a :class:`LaunchTable`) keeps the
-    device-side table across calls."""
+    device-side table across calls.  ``skip`` is the skip word, as for
+    :func:`fused_adam_step_multi`."""
     n = len(weights)
     states = list(states) if states is not None else [None] * n
     outs = list(outs) if outs is not None else [None] * n
@@ -1174,7 +1211,7 @@ def fused_sgd_step_multi(weights, grads, states, lrs, wds, momentum,
                          "wd and out per weight (got %d weights)" % n)
     if all(w.device.type == "cpu" for w in weights):
         return fused_sgd_step_multi_plain(weights, grads, states, lrs, wds,
-                                          momentum, outs)
+                                          momentum, outs, skip=skip)
     momentum = float(momentum)
     for i, (w, g, s, o) in enumerate(zip(weights, grads, states, outs)):
         reason = sgd_unsupported_reason(w, g, s, momentum, o)
@@ -1187,19 +1224,22 @@ def fused_sgd_step_multi(weights, grads, states, lrs, wds, momentum,
                 "sgd kernel cannot take tensor %d of %d: %s" % (i, n, reason))
     if momentum == 0.0:
         states = [None] * n
+    _check_skip("sgd", skip, weights[0])
     table = table if table is not None else LaunchTable()
     dev, blocks = table.fill(SGD_LAYOUT, (weights, states, outs), grads,
                              lrs, wds)
-    _launch_sgd(dev, n, blocks, momentum, weights[0])
+    _launch_sgd(dev, n, blocks, momentum, weights[0], skip)
 
 
-def _launch_sgd(table, n, blocks, momentum, like):
+def _launch_sgd(table, n, blocks, momentum, like, skip=None):
     """Launch K1 alone over a filled device table (:class:`LaunchTable`
     fills it after :func:`fused_sgd_step_multi` has checked every
-    tensor), on the stream of ``like``'s device."""
+    tensor), on the stream of ``like``'s device; ``skip`` as for
+    :func:`fused_sgd_step_multi`."""
     lib = _build.load("sgd_step", _SIGNATURES["sgd_step"])
     err = lib.mx_sgd_step_multi(table.data_ptr(), n, blocks, SGD_CHUNK,
-                                momentum, int(momentum != 0.0), _stream(like))
+                                momentum, int(momentum != 0.0),
+                                _skip_ptr(skip), _stream(like))
     _check(lib, err, "sgd_step")
     LAUNCHES["sgd_step"] += 1
 

@@ -300,12 +300,14 @@ class Optimizer:
             "%s has no fused step kernel" % type(self).__name__)
 
     def step_fused_multi(self, weights, grads, states, lrs, wds, t,
-                         outs=None):
+                         outs=None, skip=None):
         """One kernel launch: the update of a list of f32 masters and
         their state, in place, with each master's cast written to its
         ``outs`` entry (``None``: no cast).  ``t`` is the step count, one
         for all or one per tensor.  The launch table is the one
-        :meth:`_table_of` keeps for the list."""
+        :meth:`_table_of` keeps for the list.  ``skip`` (a 0-d int32
+        tensor on the masters' device, the nanguard's skip word) makes
+        the launch write nothing when it is non-zero, read on the card."""
         raise NotImplementedError(
             "%s has no fused step kernel" % type(self).__name__)
 
@@ -578,12 +580,14 @@ class SGD(Optimizer):
                                   out=out, table=self._table_of(weight))
 
     def step_fused_multi(self, weights, grads, states, lrs, wds, t,
-                         outs=None):
+                         outs=None, skip=None):
         """One launch of ``cuda_kernels.fused_sgd_step_multi`` over the
-        whole list; masters and momenta are updated in place."""
+        whole list; masters and momenta are updated in place (not at all
+        under a set ``skip`` word)."""
         _ck.fused_sgd_step_multi(weights, grads, states, lrs, wds,
                                  self.momentum, outs=outs,
-                                 table=self._table_of(weights[0]))
+                                 table=self._table_of(weights[0]),
+                                 skip=skip)
 
     @torch.no_grad()
     def step_rows(self, weight, rows, grad_rows, state, lr, wd, t):
@@ -920,19 +924,20 @@ class Adam(Optimizer):
             out=out, table=self._table_of(weight))
 
     def step_fused_multi(self, weights, grads, states, lrs, wds, t,
-                         outs=None):
+                         outs=None, skip=None):
         """One launch of ``cuda_kernels.fused_adam_step_multi`` over the
         whole list: masters, m and v are updated in place and ``outs``
         (per tensor a bf16 or f16 weight, or ``None`` for an f32 cast,
-        the master itself) receive the casts.  Each tensor's ``lr_t``
-        comes from its own lr and step count (``t``: one for all, or one
-        per tensor) as in :meth:`step_fused`."""
+        the master itself) receive the casts; a set ``skip`` word leaves
+        them all as they were.  Each tensor's ``lr_t`` comes from its own
+        lr and step count (``t``: one for all, or one per tensor) as in
+        :meth:`step_fused`."""
         ts = t if isinstance(t, (list, tuple)) else [t] * len(weights)
         _ck.fused_adam_step_multi(
             weights, grads, [s[0] for s in states], [s[1] for s in states],
             [self._lr_t_of(lr, ti) for lr, ti in zip(lrs, ts)], wds,
             self.beta1, self.beta2, self.epsilon, outs=outs,
-            table=self._table_of(weights[0]))
+            table=self._table_of(weights[0]), skip=skip)
 
     @torch.no_grad()
     def step_rows(self, weight, rows, grad_rows, state, lr, wd, t):

@@ -120,12 +120,13 @@ def lookup_unique(table, uniq, mesh=None, axis=None):
 
 
 def update_unique(optimizer, table, state, uniq, grad_rows, lr, wd, t,
-                  mesh=None, axis=None):
+                  mesh=None, axis=None, skip=None):
     """Row-sparse optimizer step on deduplicated ids, in place:
     ``optimizer.step_rows`` over the rows named in ``uniq``; sentinel and
     out-of-table ids (and, sharded, the ids other ranks own) map to an
-    out-of-range row, which ``step_rows`` drops.  Returns ``(table,
-    state)``."""
+    out-of-range row, which ``step_rows`` drops.  A set ``skip`` word (the
+    nanguard's, a 0-d int32 tensor) maps every row out of the table, on
+    the card.  Returns ``(table, state)``."""
     u = uniq.to(torch.int64)
     n = int(table.shape[0])
     if mesh is None or axis is None:
@@ -135,6 +136,8 @@ def update_unique(optimizer, table, state, uniq, grad_rows, lr, wd, t,
         local = u - base
         rows = torch.where((local >= 0) & (local < n), local,
                            torch.full_like(local, n))
+    if skip is not None:
+        rows = torch.where(skip != 0, torch.full_like(rows, n), rows)
     return optimizer.step_rows(table, rows, grad_rows, state, lr, wd, t)
 
 

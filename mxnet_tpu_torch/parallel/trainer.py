@@ -61,12 +61,38 @@ step keeps the reference's shard-local statistics (its body runs under
 ``shard_map``): each rank's BatchNorm sees its own rows, and the moving
 statistics are averaged over every axis of the mesh after the step.
 
+Resilience (``mx.resilience``), wired where the reference wires it:
+
+- the nanguard (``resilience.nanguard=skip|abort``): after the gradient
+  all-reduce the loss and the gradients (and the row-sparse tables'
+  delta gradients) are reduced to one int32 skip word on the card
+  (``resilience.skip_word``; summed over the mesh when ``param_specs``
+  or other axes leave each rank its own gradient blocks, so every rank
+  skips alike).  K1/K3 take the word and write nothing when
+  it is set; the unfused optimizer route, the BatchNorm statistics, the
+  row-sparse rows (every row mapped out of the table) and the 2-bit
+  residuals select their old values on the card.  A bad step thus leaves
+  the weights, the optimizer state, the statistics and the residuals as
+  they were, with no host sync; the step count advances, as the
+  reference's does.  The streak of bad steps stays on the card and
+  ``resilience.watch_streak`` reads it once the step has completed
+  (over several ranks at a fixed lag of two steps, blocking, so every
+  rank learns of a crossing at the same step and none enters a
+  collective its peers have left); ``step`` checks the abort first
+  (``maybe_abort_nonfinite``, with a checkpoint of the last good state);
+- the ``nan`` fault poisons the batch of the step it names;
+- ``attach_checkpoint_manager``: the manager's every-N saves after each
+  step, restore (falling back past corrupt files), the preemption and
+  abort saves; over several processes the manager takes the coordinated
+  protocol (``elastic.coordinate``);
+- ``mx.elastic``'s per-step preemption agreement when ``elastic.dir`` is
+  set, then ``resilience.exit_on_preempt``.
+
 Refused (``NotImplementedError``, never ignored): the row-sparse route
 and the compressed step on meshes whose other axes than the batch axes
 have more than one rank, a ``param_specs`` entry for a routed table,
-``conv.weights_layout=HWIO``, the nanguard (``resilience.nanguard``),
-in-step numerics capture (``numerics.capture``), the checkpoint manager
-and the sharded checkpoints.
+``conv.weights_layout=HWIO`` and in-step numerics capture
+(``numerics.capture``).
 
 ``save_checkpoint`` / ``load_checkpoint`` keep the reference's
 single-file checkpoint: a pickle of numpy arrays under the same keys
@@ -75,17 +101,30 @@ single-file checkpoint: a pickle of numpy arrays under the same keys
 atomically, so each package reads the other's.  A vocab-sharded table is
 gathered whole; rank 0 writes.  A reference checkpoint's ``rng_key`` (a
 JAX key) is not read: the two packages' random streams never agree.
+
+``save_checkpoint_sharded`` / ``load_checkpoint_sharded`` write a
+directory through ``torch.distributed.checkpoint``: every rank writes
+only its own blocks of the ``param_specs``-sharded tensors and of their
+optimizer state (a replicated tensor is written once), each block keyed
+by its offsets in the whole tensor, and a load reads into the trainer's
+current sharding whatever blocks overlap this rank's.  The reference's
+sharded format is an orbax directory, which this package does not read
+(and the reverse): the single-file format is the one the two packages
+share.
 """
 from __future__ import annotations
 
 import math
+import os
 import pickle
 
 import numpy as _np
 import torch
 
 from .. import config as _config
+from .. import elastic as _elastic
 from .. import kernels as _kernels
+from .. import resilience as _resilience
 from .. import telemetry as _telemetry
 from ..io import ensure_staged
 from ..ndarray.ndarray import NDArray, _wrap
@@ -93,14 +132,14 @@ from . import dist as _dist
 from . import embedding as _pemb
 from .collectives import local_block, unshard
 from .functional import functionalize
-from .mesh import PartitionSpec, data_parallel_mesh, _local_rows
+from .mesh import (PartitionSpec, data_parallel_mesh, _local_rows,
+                   _spec_axes)
 
 __all__ = ["SPMDTrainer", "build_train_step"]
 
 # knobs of reference features the port does not have yet: set, they
 # would change what a step computes, so the trainer refuses to run
 _UNPORTED_KNOBS = {
-    "resilience.nanguard": "the nanguard (non-finite step guard)",
     "numerics.capture": "in-step numerics capture",
 }
 
@@ -168,6 +207,8 @@ class SPMDTrainer:
         self._step_num = 0
         self._program = None
         self._program_key = None
+        self._ckpt_manager = None
+        self._nan_streak = None
 
     @property
     def batch_sharding(self):
@@ -184,8 +225,8 @@ class SPMDTrainer:
         """Copy the Block's parameters onto this rank's device as the
         trainer's own tensors (masters that require grad, aux state; this
         rank's rows of a vocab-sharded table), rank 0's values on every
-        rank of a multi-rank mesh, and create the optimizer state.  Deferred shapes are
-        resolved by one forward on the first batch."""
+        rank of a multi-rank mesh, and create the optimizer state.
+        Deferred shapes are resolved by one forward on the first batch."""
         from ..gluon.parameter import DeferredInitializationError
         try:
             vals = self.fn.init_values()
@@ -392,9 +433,15 @@ class SPMDTrainer:
                 "embedding.sharded=False to train them densely"
                 % (routed, type(optimizer).__name__))
         multi = self._n_shards > 1
+        guard = bool(_resilience.nanguard_mode())
+        # sharded parameters leave each rank its own blocks of gradients:
+        # their words are summed over the world, so every rank skips alike
+        shared_word = self.mesh.size > 1 and bool(
+            self._param_specs or self._extra_axes)
 
         @torch.no_grad()
         def step(data, label, t, lrs, wds, pad, compress):
+            """The step; returns ``(loss, skip word or None)``."""
             params, state = self.params, self.opt_state
             train = {n: params[n] for n in dense}
             aux = {n: params[n] for n in self.fn.aux}
@@ -410,6 +457,7 @@ class SPMDTrainer:
             loss, new_aux, grads, dgrads, recs = self._forward_backward(
                 train, aux, tables, deltas, data, label, pad, compress)
             if compress:
+                old_res = self._dcn_residuals
                 grads = self._dcn_sync(dense, grads)
                 new_aux = {n: _div(_dist.all_reduce_(v.clone()), self.mesh
                                    .size) if v.is_floating_point() else v
@@ -422,6 +470,23 @@ class SPMDTrainer:
                 both = _split(flat, both)
                 grads = both[:len(grads)]
                 dgrads = dict(zip(routed, both[len(grads):]))
+            word = keep = None
+            if guard:
+                # one word over the loss and the reduced gradients, the
+                # same on every rank; a set word drops every write below
+                word = _resilience.skip_word(loss, grads, dgrads)
+                if shared_word:
+                    word = _dist.all_reduce_(
+                        word.to(self.device),
+                        group=self.mesh.group(self.mesh.axis_names))
+                keep = word == 0
+                if compress:
+                    # a dropped step takes back its quantization error
+                    prev = old_res if old_res is not None else {
+                        n: torch.zeros_like(r)
+                        for n, r in self._dcn_residuals.items()}
+                    self._dcn_residuals = _resilience.select_tree(
+                        keep, self._dcn_residuals, prev)
             grads = [_preprocess(optimizer, g) for g in grads]
             masters = [params[n] for n in dense]
             states = [state[n] for n in dense]
@@ -430,12 +495,16 @@ class SPMDTrainer:
             if masters and fused_opt and all(
                     w.dtype == torch.float32 for w in masters):
                 optimizer.step_fused_multi(masters, grads, states, lr_d,
-                                           wd_d, t)
+                                           wd_d, t, skip=word)
             else:
                 for w, g, s, lr, wd in zip(masters, grads, states, lr_d,
                                            wd_d):
                     nw, ns = optimizer.step(w, g, s, lr, wd, t)
-                    w.copy_(nw.to(w.dtype))
+                    nw = nw.to(w.dtype)
+                    if guard:
+                        nw = torch.where(keep, nw, w)
+                        ns = _resilience.select_tree(keep, ns, s)
+                    w.copy_(nw)
                     _state_copy(s, ns)
             for n in routed:
                 uniq = recs.get(n)
@@ -446,16 +515,18 @@ class SPMDTrainer:
                 _pemb.update_unique(
                     optimizer, tables[n], state[n], uniq, gv,
                     lrs[index[n]], wds[index[n]], t,
-                    self.mesh if meta["axis"] else None, meta["axis"])
+                    self.mesh if meta["axis"] else None, meta["axis"],
+                    skip=word)
             for n, v in new_aux.items():
-                aux[n].copy_(v)
+                aux[n].copy_(v if keep is None else torch.where(keep, v,
+                                                                aux[n]))
             if routed:
                 # static accounting (no device sync): each routed table
                 # gathers and touches ``capacity`` unique rows a step
                 rows = cap * len(routed)
                 _telemetry.counter("embedding.gathered_rows").inc(rows)
                 _telemetry.counter("embedding.rows_touched").inc(rows)
-            return loss
+            return loss, word
 
         return step
 
@@ -495,10 +566,20 @@ class SPMDTrainer:
         f32 tensor on the device, not synchronised).  ``pad`` counts the
         trailing fill rows of the global batch (``DataBatch.pad``): the
         loss and gradients average over the others (the loss function
-        must return per-sample losses)."""
+        must return per-sample losses).
+
+        Around the step, as the reference's: the nanguard's abort check
+        (``NonFiniteStepError`` once the device has reported the streak,
+        after a checkpoint of the last good state), the ``nan`` fault, the
+        attached checkpoint manager's every-N save, ``mx.elastic``'s
+        preemption agreement, and a pending preemption's save and exit."""
         pad = int(pad or 0)
         self._check_knobs()
+        _resilience.maybe_abort_nonfinite("spmd", save_fn=self._preempt_save)
         data, label = self._stage(data), self._stage(label)
+        if _resilience.faults_active("nan") and _resilience.should_inject(
+                "nan", step=self._step_num + 1):
+            data = _resilience.poison_batch(data)
         if self.params is None:
             self._materialize(data)
         compress = self._dcn_compress_active(pad)
@@ -515,8 +596,29 @@ class SPMDTrainer:
         self._step_num += 1
         self.optimizer.num_update = self._step_num
         lrs, wds = self._hyper(lr_scale)
-        return self._program(data, label, self._step_num, lrs, wds, pad,
-                             compress)
+        loss, word = self._program(data, label, self._step_num, lrs, wds,
+                                   pad, compress)
+        if word is not None:
+            if self._nan_streak is None:
+                self._nan_streak = torch.zeros((), dtype=torch.int32,
+                                               device=word.device)
+            self._nan_streak = _resilience.guarded_streak(
+                word == 0, self._nan_streak)
+            # over several ranks the host reads the streak two steps
+            # behind, blocking, so every rank aborts at the same step
+            _resilience.watch_streak(
+                "spmd", self._nan_streak,
+                lag=2 if self.mesh.size > 1 else 0)
+        if self._ckpt_manager is not None and \
+                self._ckpt_manager.due(self._step_num):
+            self._save_through(self._ckpt_manager)
+        if _elastic.active():
+            # every rank adopts a preemption at this same step boundary,
+            # so the coordinated checkpoint below sees one world
+            _elastic.maybe_cluster_preempt(self._step_num)
+        if _resilience.preempt_requested():
+            _resilience.exit_on_preempt(save_fn=self._preempt_save)
+        return loss
 
     def _dcn_check(self):
         extra = [a for a in self.mesh.axis_names
@@ -566,8 +668,16 @@ class SPMDTrainer:
         of either package reads.  Over several ranks every rank takes
         part in gathering the sharded tables and rank 0 writes (its aux
         state, which the synchronised statistics make every rank's)."""
+        host = self._checkpoint_host()
+        if self.mesh.rank == 0:
+            self._write_checkpoint(path, host)
+        _dist.barrier("checkpoint")
+
+    def _checkpoint_host(self):
+        """The checkpoint's values on the host (every rank takes part in
+        gathering the sharded ones)."""
         from ..random import _STATE
-        from ..resilience import CKPT_SCHEMA, atomic_write
+        from ..resilience import CKPT_SCHEMA
         if self.params is None:
             raise RuntimeError("save_checkpoint: the trainer has taken no "
                                "step, so it holds no weights yet")
@@ -588,10 +698,15 @@ class SPMDTrainer:
             host["dcn_residuals"] = {
                 n: _host(_dist.all_gather(r, group=group))
                 for n, r in self._dcn_residuals.items()}
-        if self.mesh.rank == 0:
-            with atomic_write(path, "wb") as f:
-                pickle.dump(host, f, protocol=4)
-        _dist.barrier("checkpoint")
+        return host
+
+    @staticmethod
+    def _write_checkpoint(path, host):
+        """Publish ``host`` (:meth:`_checkpoint_host`) at ``path``
+        atomically; no collective."""
+        from ..resilience import atomic_write
+        with atomic_write(path, "wb") as f:
+            pickle.dump(host, f, protocol=4)
 
     def load_checkpoint(self, path):
         """Restore a checkpoint of either package; the next step continues
@@ -670,14 +785,167 @@ class SPMDTrainer:
                                                for v in host["rng_key"])
         return self._step_num
 
-    # ------------------------------------------------- not ported (refuse)
+    # --------------------------------------------------- checkpoint manager
     def attach_checkpoint_manager(self, manager, auto_resume=True):
-        raise NotImplementedError("the checkpoint manager is not ported")
+        """Wire a ``resilience.CheckpointManager`` into the step: its
+        every-N save after each step, the preemption save, and the
+        nanguard abort's save of the last good state.  With
+        ``auto_resume`` the newest good checkpoint is restored now (a
+        corrupt newest file is skipped); returns the restored step, or
+        None on a cold start.  Over several processes the manager takes
+        the coordinated protocol (``elastic.coordinate``: rank 0 writes,
+        a world-stamped manifest, a barrier)."""
+        if _dist.world_size() > 1:
+            manager = _elastic.coordinate(manager, mesh=self.mesh)
+        self._ckpt_manager = manager
+        if auto_resume:
+            return manager.restore(self.load_checkpoint)
+        return None
+
+    def _preempt_save(self):
+        """The preemption and abort checkpoint, through the attached
+        manager."""
+        if self._ckpt_manager is not None and self.params is not None:
+            self._save_through(self._ckpt_manager)
+
+    def _save_through(self, manager):
+        """Save the current step through ``manager``: every rank takes
+        part in gathering the checkpoint's values (the collectives), and
+        the manager's writer (rank 0 under the coordinated protocol)
+        writes them, retried without any collective."""
+        host = self._checkpoint_host()
+        manager.save(self._step_num,
+                     lambda path: self._write_checkpoint(path, host))
+
+    # -------------------------------------------------- sharded checkpoints
+    def _block_key(self, prefix, n, t):
+        """``prefix@o0,o1,...``: the key of this rank's block ``t`` of
+        parameter ``n`` (or of its state), by the block's offsets in the
+        whole tensor."""
+        spec = self._spec_of(n)
+        offs = []
+        for d, size in enumerate(t.shape):
+            part = spec[d] if spec is not None and d < len(spec) else None
+            offs.append(0 if part is None else self.mesh.block_index(
+                _spec_axes(part)) * size)
+        return "%s@%s" % (prefix, ",".join(map(str, offs)))
+
+    def _sharded_items(self, saved_name=None):
+        """``[(prefix, name, tensor)]`` of every tensor a sharded
+        checkpoint holds: the parameters, then each optimizer state's
+        leaves; ``saved_name`` maps a name to the one its prefix
+        carries."""
+        key = saved_name or (lambda n: n)
+        items = [("params/" + key(n), n, v.detach())
+                 for n, v in self.params.items()]
+        for n, st in self.opt_state.items():
+            items += [("opt_state/%s/%d" % (key(n), i), n, leaf)
+                      for i, leaf in enumerate(_state_leaves(st))]
+        return items
+
+    def _dcp_kwargs(self):
+        # a rank-local mesh takes no part in the other ranks' collectives
+        return {"no_dist": True} if self.mesh.size == 1 else {}
 
     def save_checkpoint_sharded(self, path):
-        raise NotImplementedError("sharded checkpoints are not ported")
+        """Write a sharded checkpoint directory through
+        ``torch.distributed.checkpoint``: each rank writes only its blocks
+        (a replicated tensor once), with the step count and this
+        package's random-stream position.  Every rank of the mesh calls
+        it.  Refuses to overwrite a directory that is not such a
+        checkpoint."""
+        import torch.distributed.checkpoint as dcp
+        from ..random import _STATE
+        if self.params is None:
+            raise RuntimeError("save_checkpoint_sharded: the trainer has "
+                               "taken no step, so it holds no weights yet")
+        path = os.path.abspath(path)
+        if os.path.isdir(path) and os.listdir(path) and not os.path.exists(
+                os.path.join(path, ".metadata")):
+            raise ValueError("%s exists and is not a sharded checkpoint; "
+                             "refusing to overwrite it" % path)
+        state = {self._block_key(p, n, t): t
+                 for p, n, t in self._sharded_items()}
+        state["meta/step_num"] = torch.tensor(self._step_num,
+                                              dtype=torch.int64)
+        state["meta/rng"] = torch.tensor([_STATE.seed_val, _STATE.counter],
+                                         dtype=torch.int64)
+        dcp.save(state, checkpoint_id=path, **self._dcp_kwargs())
 
-    load_checkpoint_sharded = save_checkpoint_sharded
+    @torch.no_grad()
+    def load_checkpoint_sharded(self, path):
+        """Load a directory :meth:`save_checkpoint_sharded` wrote into this
+        trainer's current sharding: each rank reads the saved blocks that
+        overlap its own and copies the overlap.  Returns the step count.
+        A directory without the checkpoint's metadata (an interrupted
+        save, a wrong path) raises ``resilience.CheckpointCorruptError``;
+        names pair up after each net's own prefix."""
+        import torch.distributed.checkpoint as dcp
+        from ..convert import _own_prefix, pair_names
+        from ..random import _STATE
+        from ..resilience import CheckpointCorruptError
+        path = os.path.abspath(path)
+        if not os.path.isdir(path) or not os.path.exists(
+                os.path.join(path, ".metadata")):
+            raise CheckpointCorruptError(
+                "%s is not a sharded checkpoint (no .metadata: an "
+                "interrupted save or a wrong path)" % path)
+        try:
+            saved = dcp.FileSystemReader(path).read_metadata() \
+                .state_dict_metadata
+        except Exception as exc:  # noqa: BLE001 — any unreadable metadata
+            raise CheckpointCorruptError(
+                "the metadata of %s is unreadable (%s: %s)"
+                % (path, type(exc).__name__, exc)) from exc
+        if self.params is None:
+            self._materialize(None)
+        blocks = {}  # prefix -> [(offsets, key)]
+        for key in saved:
+            if "@" in key:
+                prefix, offs = key.rsplit("@", 1)
+                blocks.setdefault(prefix, []).append(
+                    (tuple(int(o) for o in offs.split(",") if o), key))
+        names = list(self.fn.params)
+        saved_names = sorted({p[len("params/"):] for p in blocks
+                              if p.startswith("params/")})
+        try:
+            pairs = pair_names(names, saved_names,
+                               _own_prefix(self.block, names))
+        except ValueError as exc:
+            raise CheckpointCorruptError(
+                "sharded checkpoint %s is another network's: %s"
+                % (path, exc)) from exc
+        plan, buffers = [], {}
+        for prefix, n, t in self._sharded_items(pairs.__getitem__):
+            mine = [int(o) for o in self._block_key(prefix, n, t)
+                    .rsplit("@", 1)[1].split(",") if o]
+            for offs, key in blocks.get(prefix, ()):
+                size = tuple(saved[key].size)
+                lo = [max(a, b) for a, b in zip(offs, mine)]
+                hi = [min(a + s, b + e) for a, s, b, e in
+                      zip(offs, size, mine, t.shape)]
+                if any(h <= l for l, h in zip(lo, hi)):
+                    continue
+                if key not in buffers:
+                    buffers[key] = torch.empty(
+                        size, dtype=saved[key].properties.dtype)
+                plan.append((t, key, offs, mine, lo, hi))
+        buffers["meta/step_num"] = torch.zeros((), dtype=torch.int64)
+        buffers["meta/rng"] = torch.zeros(2, dtype=torch.int64)
+        dcp.load(buffers, checkpoint_id=path, **self._dcp_kwargs())
+        for t, key, offs, mine, lo, hi in plan:
+            src, dst = buffers[key], t
+            for d, (l, h) in enumerate(zip(lo, hi)):
+                src = src.narrow(d, l - offs[d], h - l)
+                dst = dst.narrow(d, l - mine[d], h - l)
+            dst.copy_(src)
+        self._step_num = int(buffers["meta/step_num"])
+        self.optimizer.num_update = self._step_num
+        self._program = None
+        self._dcn_residuals = None
+        _STATE.seed_val, _STATE.counter = (int(v)
+                                           for v in buffers["meta/rng"])
+        return self._step_num
 
 
 # the ``format`` of this package's checkpoints (the reference writes
@@ -709,6 +977,15 @@ def _tree(state, leaf):
     if isinstance(state, (list, tuple)):
         return tuple(_tree(s, leaf) for s in state)
     return leaf(state)
+
+
+def _state_leaves(state):
+    """The tensors of an optimizer state tree, in order."""
+    if state is None:
+        return []
+    if isinstance(state, (list, tuple)):
+        return [t for s in state for t in _state_leaves(s)]
+    return [state]
 
 
 def _state_copy(state, new):

@@ -33,7 +33,8 @@ import torch
 
 from .. import config as _config
 from .. import telemetry as _telemetry
-from ..base import atomic_write, torch_dtype
+from ..base import torch_dtype
+from ..resilience import atomic_write
 from ..context import resolve_device
 from ..ops import registry as _registry
 
@@ -947,16 +948,23 @@ class Executor:
         ``fused_compiles``.
 
         The returned ``fn(feeds, opt_state, t, lrs, wds) -> (outputs,
-        aux_updates)`` runs the forward under autograd with the bound
-        values and ``feeds``, takes the gradients with ones cotangents,
-        applies ``rescale_grad`` and clipping, and updates each parameter
-        and its state IN PLACE: the f32 ones through one
+        aux_updates, skip word)`` runs the forward under autograd with the
+        bound values and ``feeds``, takes the gradients with ones
+        cotangents, applies ``rescale_grad`` and clipping, and updates
+        each parameter and its state IN PLACE: the f32 ones through one
         ``optimizer.step_fused_multi`` call (one launch of the fused
         kernel, K3 for Adam and K1 for SGD, with an f32 cast: the master
         itself) when
         ``kernels.fused_step_enabled(optimizer)``, each tensor counted on
-        ``kernels.fused_step``; the others through ``optimizer.step``."""
+        ``kernels.fused_step``; the others through ``optimizer.step``.
+        Under ``resilience.nanguard`` the outputs and the gradients are
+        reduced to one skip word on the card
+        (``resilience.skip_word``): the fused kernel takes it and writes
+        nothing when it is set, the other parameters and the aux updates
+        select their old values, and the word is returned (None when the
+        guard is off)."""
         from .. import kernels as _kernels
+        from .. import resilience as _resilience
         from ..optimizer.optimizer import _state_write
         wrt_t = tuple(wrt)
         rescale = float(optimizer.rescale_grad)
@@ -969,6 +977,7 @@ class Executor:
         self._fused_cache = {k: v for k, v in self._fused_cache.items()
                              if k[-1] == key[-1]}
         fused_opt = _kernels.fused_step_enabled(optimizer)
+        guard = bool(_resilience.nanguard_mode())
         sym = self._symbol
         # the cached step keeps its optimizer alive, so id() stays unique
         keep = optimizer
@@ -980,7 +989,11 @@ class Executor:
             aux_updates = {}
             outs, grads = _grads(sym, env, params, None, aux_updates)
             fused = ([], [], [], [], [])
+            word = finite = None
             with torch.no_grad():
+                if guard:
+                    word = _resilience.skip_word(outs, grads)
+                    finite = word == 0
                 for i, n in enumerate(wrt_t):
                     w, g = params[n], grads[n]
                     if rescale != 1.0:
@@ -994,13 +1007,21 @@ class Executor:
                             col.append(x)
                         continue
                     new_w, new_s = keep.step(w, g, state, lrs[i], wds[i], t)
+                    if guard:
+                        new_w = torch.where(finite, new_w.to(w.dtype), w)
+                        new_s = _resilience.select_tree(finite, new_s,
+                                                        state)
                     w.copy_(new_w)
                     _state_write(state, new_s)
                 if fused[0]:
-                    keep.step_fused_multi(*fused, t)
+                    keep.step_fused_multi(*fused, t, skip=word)
                     for _ in fused[0]:
                         _kernels.note_fused_step()
-            return outs, {n: v.detach() for n, v in aux_updates.items()}
+                aux_new = {n: v.detach() for n, v in aux_updates.items()}
+                if guard:
+                    aux_new = {n: torch.where(finite, v, env[n]) if n in env
+                               else v for n, v in aux_new.items()}
+            return outs, aux_new, word
 
         self._fused_cache[key] = run
         _telemetry.counter("fused_compiles").inc()

@@ -427,15 +427,20 @@ def test_trainer_options_not_ported_raise():
         # gradient compression is ported (tests/test_torch_compression.py)
         tr = tgluon.Trainer([w], "sgd", {})
         # save_states / load_states are ported (tests/test_torch_
-        # persistence.py); preemption saves are not
-        with pytest.raises(NotImplementedError):
-            tr.set_preemption_save(lambda: None)
+        # persistence.py), and so are preemption saves and the nanguard
+        # (tests/test_torch_resilience.py); numerics capture is not
+        tr.set_preemption_save(lambda: None)
         mt.config.set("resilience.nanguard", "abort")
+        try:
+            tr.step(1)
+        finally:
+            mt.config.unset("resilience.nanguard")
+        mt.config.set("numerics.capture", "step:1")
         try:
             with pytest.raises(NotImplementedError):
                 tr.step(1)
         finally:
-            mt.config.unset("resilience.nanguard")
+            mt.config.unset("numerics.capture")
 
 
 def test_updater_states_round_trip_as_bytes():

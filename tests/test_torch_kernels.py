@@ -893,6 +893,7 @@ def test_import_does_not_load_jax():
             "import mxnet_tpu_torch.executor_manager; "
             "import mxnet_tpu_torch.recordio, mxnet_tpu_torch.image; "
             "import mxnet_tpu_torch.compat, mxnet_tpu_torch.resilience; "
+            "import mxnet_tpu_torch.elastic; "
             "import mxnet_tpu_torch.gluon.data.vision.transforms; "
             "import mxnet_tpu_torch.gluon.contrib.data; "
             "import mxnet_tpu_torch.module.sequential_module; "

@@ -421,12 +421,19 @@ def test_what_is_not_ported_raises():
     mod.init_params(mt.init.Xavier())
     mod.init_optimizer(optimizer="sgd")
     batch = next(mt.io.NDArrayIter(X, Y, batch_size=16))
+    # the nanguard is ported (tests/test_torch_resilience.py); numerics
+    # capture is not
     tconfig.set("resilience.nanguard", "skip")
     try:
-        with pytest.raises(NotImplementedError, match="nanguard"):
-            mod.train_step(batch)
+        mod.train_step(batch)
     finally:
         tconfig.unset("resilience.nanguard")
+    tconfig.set("numerics.capture", "step:1")
+    try:
+        with pytest.raises(NotImplementedError, match="numerics"):
+            mod.train_step(batch)
+    finally:
+        tconfig.unset("numerics.capture")
     with pytest.raises(NotImplementedError, match="Monitor"):
         mod.fit(mt.io.NDArrayIter(X, Y, batch_size=16), num_epoch=1,
                 monitor=object())

@@ -58,15 +58,6 @@ UNPORTED_API = {
                    "dgl_graph_compact": "16", "dgl_subgraph": "16"},
 }
 
-_RESILIENCE_REST = ("CheckpointManager", "MANIFEST_SCHEMA",
-                    "NonFiniteStepError", "all_finite", "clear_preempt",
-                    "configure_preemption", "exit_on_preempt",
-                    "flush_sinks", "guarded_streak", "manifest_path",
-                    "maybe_abort_nonfinite", "nanguard_mode",
-                    "nonfinite_stats", "note_finite", "poison_batch",
-                    "preempt_requested", "report_nonfinite",
-                    "reset_nanguard", "select_tree", "verify_checkpoint",
-                    "write_manifest")
 # the Gluon, model-zoo, initializer, optimizer, Module, data-pipeline and
 # persistence names the reference has and the port does not, by surface
 # and slice; a surface is a module's public names (its __all__ where it
@@ -116,7 +107,8 @@ UNPORTED_SURFACE = {
     "image.ImageIter": {},
     "models.ssd": {},
     "sym.contrib": {},
-    "resilience": dict.fromkeys(_RESILIENCE_REST, "14"),
+    "resilience": {},
+    "elastic": {},
     "parallel": {},
     "parallel.SPMDTrainer": {},
     "kvstore.KVStore": {},

@@ -250,7 +250,7 @@ def test_nhwc_layout_trains_with_contiguous_grads():
         assert float((a - b).abs().max()) <= STATE_RTOL * scale
 
 
-def test_unported_trainer_options_raise():
+def test_unported_trainer_options_raise(tmp_path):
     """What the reference trainer has and the port does not: each raises
     NotImplementedError instead of being ignored."""
     tnet, _ = _nets()
@@ -271,8 +271,7 @@ def test_unported_trainer_options_raise():
     with pytest.raises(RuntimeError, match="2 devices"):
         make_mesh({"dp": -1}, [mt.cpu(), mt.cpu()])
     tr = trainer()
-    for knob, value in (("resilience.nanguard", "skip"),
-                        ("numerics.capture", "step:1"),
+    for knob, value in (("numerics.capture", "step:1"),
                         ("conv.weights_layout", "HWIO")):
         mt.config.set(knob, value)
         try:
@@ -280,19 +279,28 @@ def test_unported_trainer_options_raise():
                 tr.step(data, label)
         finally:
             mt.config.unset(knob)
+    # the nanguard is ported (tests/test_torch_resilience.py): a guarded
+    # finite step runs
+    mt.config.set("resilience.nanguard", "skip")
+    try:
+        assert np.isfinite(float(tr.step(data, label)))
+    finally:
+        mt.config.unset("resilience.nanguard")
     mt.config.set("conv.weights_layout", "HWIO")
     try:
         with pytest.raises(NotImplementedError, match="HWIO"):
             trainer()
     finally:
         mt.config.unset("conv.weights_layout")
-    # single-file checkpoints are ported (tests/test_torch_persistence.py);
-    # the manager and the sharded files are not
-    for call in (lambda: tr.attach_checkpoint_manager(None),
-                 lambda: tr.save_checkpoint_sharded("x"),
-                 lambda: tr.load_checkpoint_sharded("x")):
-        with pytest.raises(NotImplementedError):
-            call()
+    # single-file checkpoints are ported (tests/test_torch_persistence.py),
+    # and so are the manager and the sharded files
+    # (tests/test_torch_resilience.py, tests/test_torch_elastic.py)
+    from mxnet_tpu_torch.resilience import CheckpointManager
+    assert tr.attach_checkpoint_manager(
+        CheckpointManager(str(tmp_path / "mgr"))) is None
+    tr.save_checkpoint_sharded(str(tmp_path / "sharded"))
+    assert tr.load_checkpoint_sharded(str(tmp_path / "sharded")) \
+        == tr._step_num
     tr.step(data, label)   # nothing above left the trainer broken
 
 
