@@ -709,8 +709,12 @@ RESNET_BF16_LOSS_RTOL = 2.0 ** -6
 SGD_ROUTE_TOL = 2.0 ** -21
 
 
+_T0 = time.perf_counter()
+
+
 def _log(msg):
-    print(msg, flush=True)
+    """A log line, stamped with the seconds since the script started."""
+    print("[%7.1f s] %s" % (time.perf_counter() - _T0, msg), flush=True)
 
 
 def _time_ms(fn, iters=20, warmup=3):
@@ -3487,7 +3491,7 @@ ZOO_NETS = (("alexnet", 224), ("vgg16", 224), ("vgg16_bn", 224),
             ("densenet121", 224), ("mobilenet1.0", 224),
             ("mobilenetv2_1.0", 224), ("resnet50_v1", 224))
 ZOO_BATCHES = (1, 16, 32)
-ZOO_ITERS = 10
+ZOO_ITERS = 5
 # the gate: each network's f32 logits on the card at batch 2 against the
 # port's own CPU forward from the same weights.  TF32 is off, so both are
 # f32 throughout; cuDNN's convolution algorithms (Winograd and FFT among
@@ -4189,7 +4193,7 @@ MLP_LAYERS, MLP_WIDTH, MLP_CLASSES = 8, 128, 10
 MLP_BATCH, MLP_FEAT = 64, 64
 MLP_LR = 1e-3
 MLP_WARMUP = 3
-MLP_STEPS = 200
+MLP_STEPS = 100
 MLP_PROFILE_STEPS = 10
 # Both routes after 5 steps from the same parameters and batch, per
 # tensor: max |fused - eager| / max |eager|.  The routes run the same
@@ -6136,7 +6140,7 @@ RNN_OP_RTOL = 1e-4
 #: where no rounding reaches the kink).
 RNN_KINK_REL = 1e-5
 RNN_TIMED = (("lstm", 2, False), ("lstm", 2, True))
-RNN_ITERS = 20
+RNN_ITERS = 10
 #: phase rnn(b): examples/rnn_lm.py at MXNet's example/rnn/word_lm width
 #: (Zaremba et al. 2014 "medium" PTB): its dropout, Adam and lr
 LM_VOCAB, LM_EMBED, LM_HIDDEN, LM_LAYERS = 10000, 650, 650, 2
@@ -8058,9 +8062,9 @@ PRED_HW = 224
 PRED_BATCH = 32
 PRED_CALIB_BATCHES = 4
 #: sequential batch-1 ``predict`` calls timed
-PRED_SEQUENTIAL = 64
+PRED_SEQUENTIAL = 32
 #: served traffic: requests of 1-4 rows from PRED_THREADS threads
-PRED_REQUESTS = 256
+PRED_REQUESTS = 128
 PRED_THREADS = 8
 PRED_MAX_BATCH = 32
 PRED_DELAY_MS = 2.0
@@ -8082,7 +8086,7 @@ PRED_ROW_BOUND = 1e-4
 PRED_INT8_ROW_BOUND = 2.0 ** -6
 #: bench.py serving_config / quantized_serving_config, at their sizes
 BENCH_SRV_FEAT, BENCH_SRV_MAX_BATCH, BENCH_SRV_THREADS = 64, 16, 8
-BENCH_SRV_REQUESTS = 512
+BENCH_SRV_REQUESTS = 256
 
 
 def _rel_diff(np, got, want):
@@ -8455,7 +8459,7 @@ DLRM_VOCAB, DLRM_DIM, DLRM_BATCH, DLRM_SLOTS = 1_000_000, 32, 256, 8
 DLRM_HIDDEN, DLRM_LR, DLRM_STEPS, DLRM_SEED = 64, 0.05, 8, 9
 #: steps of the timed run (the 8 batches in turn), after the counted one:
 #: 8 steps take ~20 ms, too short a window for the host clock
-DLRM_TIMED_STEPS = 64
+DLRM_TIMED_STEPS = 32
 #: the reduced vocabulary of the Adam run and of the two-rank run, and
 #: their step count
 DLRM_SMALL_VOCAB, DLRM_SMALL_STEPS, DLRM_ADAM_LR = 100_000, 3, 0.01
@@ -9785,7 +9789,7 @@ SHARD_RANKS = 2
 #: rounding through its BatchNorm backward passes, so 1e-4 alone holds
 #: no run that sums in another order.
 SHARD_RESNET_STEPS = 10
-SHARD_RESNET_TIMED = 5
+SHARD_RESNET_TIMED = 3
 SHARD_F32_BATCH = 16
 SHARD_F32_STEPS = 3
 SHARD_F32_RTOL = 1e-4
@@ -10862,7 +10866,8 @@ def res_chaos(mx, ck, np, torch, card, workdir):
 def res_abort(mx, ck, np, torch, card, workdir):
     """(c): the Module MLP through the fused Executor step (K3) under
     nanguard=abort: NonFiniteStepError within two steps of the first
-    poisoned batch, and the checkpoint written then holds the last good
+    poisoned batch (after the forensics replay, one more K3 launch on
+    copies), and the checkpoint written then holds the last good
     parameters bitwise."""
     from mxnet_tpu_torch import config, resilience
     from mxnet_tpu_torch import telemetry as tt
@@ -10902,7 +10907,9 @@ def res_abort(mx, ck, np, torch, card, workdir):
                "nonfinite_steps": tt.counter("module.nonfinite_steps").value}
         _log("[resilience] abort %s" % json.dumps(out))
         want = dict.fromkeys(launches, 0)
-        want["adam_step"] = steps_run
+        # one a step run, and the abort's forensics replay (one step on
+        # copies of the weights and moments)
+        want["adam_step"] = steps_run + 1
         assert launches == want, (launches, want)
         assert differing == 0, differing
         return out
@@ -11138,6 +11145,838 @@ def _res_sharded(mx, np, torch, workdir):
                              for n in tr.fn.trainable]}
 
 
+# ------------------------------------------------------- phase observe
+# The training side of observability (mx.telemetry, mx.tracing,
+# mx.profiler, mx.numerics, mx.monitor) on the card.
+#: (a) summarize on the card against its plain version on the CPU: seeded
+#: tensors with planted NaN, +-Inf, f32 subnormals and values above
+#: bf16's largest finite value, up to ResNet-50's parameter count
+OBS_SUMMARIZE_CASES = (("float32", 25600000), ("bfloat16", 25600000),
+                       ("float16", 1048576), ("float32", 4099))
+#: (b) the TransformerLM as phase 4 trains it, OBS_LM_STEPS steps a run;
+#: the captured run collects every second step (2, 4, 6)
+OBS_LM_STEPS = 6
+OBS_NAN_LAYER = 6
+#: (c) ResNet-50 v1 through SPMDTrainer and K1 (bf16 over f32 masters,
+#: SGD lr 0.1 momentum 0.9 wd 1e-4) at batch OBS_BATCH: capture step:2,
+#: the sinks, the watchdog, nanguard=abort (patience 2) and the nan fault
+#: at OBS_NAN_STEPS; then OBS_SYNC_STEPS steps a window of the sync A/B
+OBS_BATCH = 32
+OBS_NAN_STEPS = (4, 5)
+OBS_SYNC_STEPS = 4
+#: (d) bench.py numerics_overhead_config on the Module MLP: OBS_PASSES
+#: interleaved off/step:10 pairs of OBS_ITERS steps, and the publish/poll
+#: microbenchmark at the MLP's site count
+OBS_PASSES, OBS_ITERS = 3, 30
+OBS_PUBLISH_N = 2000
+#: (e) one-step mx.profiler sessions (a Module MLP step each) late in the
+#: run
+OBS_SESSIONS = 20
+#: (f) batches of the monitored fit
+OBS_MONITOR_BATCHES = 3
+#: (g) the watchdog's deadline; the stalled prefetch sleeps twice it
+OBS_WATCHDOG_S = 1.0
+
+
+def _obs_planted(np, torch, dtype, n, seed):
+    """A seeded tensor of ``n`` elements on the card in ``dtype`` with NaN,
+    +-Inf, f32 subnormals (f32, bf16) and values above bf16's largest
+    finite one (f32) at seeded positions."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, generator=g, device="cuda") * 50
+    vals = [float("nan")] * 8 + [float("inf")] * 6 + [float("-inf")] * 6
+    if dtype in ("float32", "bfloat16"):
+        vals += [1e-40, -3e-39, 5e-39, -9.5e-41, 1.1e-38]
+    if dtype == "float32":
+        vals += [3.4e38, -3.39e38, 3.3999e38]
+    pos = np.random.RandomState(seed).choice(n, len(vals), replace=False)
+    x[torch.from_numpy(pos).cuda()] = torch.tensor(vals, device="cuda")
+    return x.to(getattr(torch, dtype))
+
+
+def obs_summarize(np, torch):
+    """(a): ``numerics.summarize`` on the card against the same function
+    on the CPU: amax, amin, nonfinite and the two fractions bitwise, rms
+    within 1e-6 relative; its time beside the time to read the tensor
+    once."""
+    from mxnet_tpu_torch import numerics
+    out = []
+    for i, (dtype, n) in enumerate(OBS_SUMMARIZE_CASES):
+        x = _obs_planted(np, torch, dtype, n, SEED + 61 + i)
+        card = numerics.summarize(x).cpu().numpy()
+        cpu = numerics.summarize(x.cpu()).numpy()
+        exact = [0, 1, 3, 4, 5]
+        differing = [numerics.STAT_FIELDS[k] for k in exact
+                     if card[k].view(np.int32) != cpu[k].view(np.int32)]
+        rms_rel = abs(float(card[2]) - float(cpu[2])) / max(
+            abs(float(cpu[2])), 1e-30) if np.isfinite(cpu[2]) else (
+            0.0 if card[2] == cpu[2] else float("inf"))
+        ms = _time_ms(lambda: numerics.summarize(x), iters=10, warmup=2)
+        nbytes = x.numel() * x.element_size()
+        case = {"dtype": dtype, "elements": n, "card": card.tolist(),
+                "cpu": cpu.tolist(), "differing_fields": differing,
+                "rms_rel_err": rms_rel, "ms": ms,
+                "read_bound_ms": nbytes / PEAK_HBM_BYTES * 1e3,
+                "ok": not differing and rms_rel <= 1e-6}
+        out.append(case)
+        _log("[observe] (a) summarize %s" % json.dumps(case))
+        del x
+    bad = [c for c in out if not c["ok"]]
+    assert not bad, bad
+    assert all(c["card"][3] > 0 for c in out), out
+    assert all(c["card"][5] > 0 for c in out
+               if c["dtype"] != "float16"), out
+    return out
+
+
+def _obs_kernel_counts(torch, fn):
+    """``({CUDA kernel name: launches}, launched)`` of ``fn()`` under
+    torch.profiler: the kernels (not copies or sets) its device side
+    recorded, and the kernel launches its host side made.  Late in a
+    long process a session can miss some of its device records and
+    receive records an earlier session left behind, so each window
+    starts after an empty session that takes those in."""
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import profiler as mxprof
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts):
+        pass
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device, launched, _ = mxprof._kernel_events(prof.events())
+    names = {n: len(v) for n, v in device.items()
+             if not n.startswith(("Memcpy", "Memset"))}
+    return names, launched
+
+
+def _obs_same_kernels(torch, off_step, unc_step, attempts=PROFILE_ATTEMPTS):
+    """One step of each run profiled, again until the two windows agree
+    by kernel name and count and by host-side launches, up to
+    ``attempts`` pairs; returns ``(agreed, kernels of the capture-off
+    step, attempts, every pair's totals)``.  A window that misses
+    records, or holds an earlier session's, differs from a whole one, so
+    a pair that agrees shows the same kernels (the host side records
+    every launch)."""
+    pairs = []
+    for attempt in range(1, attempts + 1):
+        k_off, l_off = _obs_kernel_counts(torch, off_step)
+        k_unc, l_unc = _obs_kernel_counts(torch, unc_step)
+        pairs.append([sum(k_off.values()), l_off, sum(k_unc.values()),
+                      l_unc])
+        if k_off and k_off == k_unc and l_off == l_unc:
+            return True, k_off, attempt, pairs
+    return False, k_off, attempts, pairs
+
+
+def obs_lm(mx, ck, np, torch):
+    """(b): the full-width TransformerLM, as phase 4 trains it, twice
+    from the same weights: capture off, then ``numerics.collect()`` around
+    every second step.  Losses and final parameters (and the f32 masters
+    and moments) bitwise equal, the 12 ``layer_out`` sites in order and
+    finite, K2f/K2dq/K2dkv 12 and K3 one a step in both runs, and an
+    uncaptured step's CUDA kernels by name and count those of a
+    capture-off step.  Then one NaN in a weight of layer OBS_NAN_LAYER
+    (``w1``): a captured forward names ``layer_out[OBS_NAN_LAYER]``
+    first; the same in ``wqkv`` is recorded."""
+    from mxnet_tpu_torch import numerics
+    from mxnet_tpu_torch.models.transformer import (TransformerLM,
+                                                    TransformerLMConfig)
+    cfg = TransformerLMConfig()
+    L = cfg.num_layers
+    rng = np.random.default_rng(SEED + 3)
+    toks = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1))
+    inp = torch.as_tensor(toks[:, :-1], device="cuda")
+    tgt = torch.as_tensor(toks[:, 1:], device="cuda")
+
+    def trainer():
+        model = TransformerLM(cfg).init(SEED)
+        model.requires_grad_(True)
+        params = [p for _, p in model.named_parameters()]
+        opt = mx.optimizer.create("adam", learning_rate=TRAIN_LR,
+                                  multi_precision=True)
+        states = [opt.create_state_multi_precision(i, p)
+                  for i, p in enumerate(params)]
+        index = list(range(len(params)))
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            loss = model.loss(inp, tgt)
+            loss.backward()
+            opt.update_multi_precision(index, params,
+                                       [p.grad for p in params], states)
+            return loss
+        return model, params, states, step
+
+    def leaves(states):
+        out = []
+        for s in states:
+            if isinstance(s, (list, tuple)):
+                out += leaves(s)
+            elif s is not None:
+                out.append(s)
+        return out
+
+    runs = {}
+    for name in ("off", "capture"):
+        model, params, states, step = trainer()
+        ck.reset_launches()
+        losses, per_step, sites = [], [], []
+        for i in range(1, OBS_LM_STEPS + 1):
+            before = dict(ck.LAUNCHES)
+            if name == "capture" and i % 2 == 0:
+                with numerics.collect() as sink:
+                    loss = step()
+                host = numerics.expand_stats(dict(sink))
+                sites.append({"step": i, "sites": list(host),
+                              "finite": all(float(v[3]) == 0
+                                            for v in host.values()),
+                              "amax": [float(v[0]) for v in host.values()]})
+            else:
+                loss = step()
+            torch.cuda.synchronize()
+            per_step.append({k: v - before.get(k, 0)
+                             for k, v in ck.LAUNCHES.items()
+                             if v - before.get(k, 0)})
+            losses.append(loss.detach().clone())
+        runs[name] = {"model": model, "params": params, "states": states,
+                      "step": step, "losses": losses, "per_step": per_step,
+                      "sites": sites}
+    off, cap = runs["off"], runs["capture"]
+    loss_diff = sum(_differing(torch, a, b)
+                    for a, b in zip(off["losses"], cap["losses"]))
+    param_diff = sum(_differing(torch, a.detach(), b.detach())
+                     for a, b in zip(off["params"], cap["params"]))
+    state_diff = sum(_differing(torch, a, b) for a, b in zip(
+        leaves(off["states"]), leaves(cap["states"])))
+    # more steps of each: an uncaptured step of the captured run against
+    # one of the capture-off run, by CUDA kernel name and count; then a
+    # captured one, for what a capture adds
+    same, k_off, attempts, pairs = _obs_same_kernels(torch, off["step"],
+                                                     cap["step"])
+
+    def captured_step():
+        with numerics.collect():
+            cap["step"]()
+    k_cap, _ = _obs_kernel_counts(torch, captured_step)
+    def planted_first(name):
+        """The first non-finite site of a captured forward with one NaN
+        in weight ``name`` of layer OBS_NAN_LAYER (put back after)."""
+        w = getattr(cap["model"].layers, name)[OBS_NAN_LAYER].view(-1)
+        with torch.no_grad():
+            old = w[0].clone()
+            w[0] = float("nan")
+            with numerics.collect() as sink:
+                cap["model"].loss(inp, tgt)
+            w[0] = old
+        return numerics.first_nonfinite(numerics.expand_stats(dict(sink)))
+    planted = planted_first("w1")
+    # a NaN in the query projection reaches K2f as NaN query rows, which
+    # its running max (fmaxf) reads as fully masked rows: zeros out
+    planted_qkv = planted_first("wqkv")
+    want_step = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                 "adam_step": 1}
+    out = {"steps": OBS_LM_STEPS, "batch": [TRAIN_B, TRAIN_S],
+           "losses": [float(v) for v in off["losses"]],
+           "losses_differing": loss_diff,
+           "param_elements_differing": param_diff,
+           "state_elements_differing": state_diff,
+           "sites": cap["sites"],
+           "launches_per_step": {"off": off["per_step"],
+                                 "capture": cap["per_step"]},
+           "launches": {n: {k: sum(s.get(k, 0) for s in r["per_step"])
+                            for k in want_step}
+                        for n, r in runs.items()},
+           "uncaptured_kernels_equal": same,
+           "kernel_window_pairs": attempts,
+           "kernel_window_totals": pairs,
+           "capture_adds_kernels": sum(k_cap.values())
+           - sum(k_off.values()),
+           "kernels_off_step": k_off, "first_nonfinite_with_nan": planted,
+           "first_nonfinite_with_nan_in_wqkv": planted_qkv}
+    _log("[observe] (b) lm %s" % json.dumps(
+        {k: v for k, v in out.items() if k not in (
+            "kernels_off_step", "launches_per_step")}))
+    assert loss_diff == 0 and param_diff == 0 and state_diff == 0, out
+    for n, r in runs.items():
+        assert all(s == want_step for s in r["per_step"]), (n, r["per_step"])
+    want_sites = ["layer_out[%d]" % i for i in range(L)]
+    assert [s["sites"] for s in cap["sites"]] == [want_sites] * 3, \
+        cap["sites"]
+    assert all(s["finite"] for s in cap["sites"]), cap["sites"]
+    assert same, out
+    assert planted == "layer_out[%d]" % OBS_NAN_LAYER, planted
+    del runs, off, cap
+    torch.cuda.empty_cache()
+    return out
+
+
+def _obs_net(mx, np, torch, batches):
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    mx.random.seed(SEED)
+    net = vision.get_model("resnet50_v1", classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net(mx.nd.array(batches[0][0][:2], ctx=mx.gpu(0)))
+    return net
+
+
+def _obs_abort(mx, ck, np, torch, net, batches, workdir):
+    """(c)'s run: capture step:2, both sinks, the watchdog, nanguard=abort
+    with patience 2 and the nan fault at OBS_NAN_STEPS, a checkpoint
+    manager; the streak read after each step so the abort lands at the
+    start of the step after the first poisoned one."""
+    import shutil
+    from mxnet_tpu_torch import config, numerics, resilience, tracing
+    from mxnet_tpu_torch import telemetry as tt
+    d = os.path.join(workdir, "observe")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(os.path.join(d, "reports"))
+    jsonl = os.path.join(d, "steps.jsonl")
+    trace = os.path.join(d, "spans.trace.json")
+    first = OBS_NAN_STEPS[0]
+    config.set("numerics.capture", "step:2")
+    config.set("telemetry.sink", "jsonl:" + jsonl)
+    config.set("tracing.sink", "chrome:" + trace)
+    config.set("tracing.watchdog_dir", os.path.join(d, "reports"))
+    config.set("tracing.watchdog", 30)
+    config.set("resilience.nanguard", "abort")
+    config.set("resilience.nanguard_patience", 2)
+    config.set("resilience.faults", "nan:%d@step=%d"
+               % (len(OBS_NAN_STEPS), first))
+    resilience.reset_nanguard()
+    numerics.reset()
+    _zero_counts(torch, tt, ck)
+    tr = _resnet_trainer(mx, net, "bfloat16")
+    mgr = mx.resilience.CheckpointManager(os.path.join(d, "ckpt"),
+                                          every_n_steps=0, keep=2)
+    assert tr.attach_checkpoint_manager(mgr) is None
+    raised_at, message, finite_launches = None, None, None
+    t0 = time.perf_counter()
+    try:
+        for step, (x, y) in enumerate(batches, 1):
+            try:
+                tr.step(x, y)
+            except resilience.NonFiniteStepError as exc:
+                raised_at, message = step, str(exc)
+                break
+            resilience.poll_streaks(block=True)
+            if step == first - 1:
+                torch.cuda.synchronize()
+                finite_launches = ck.LAUNCHES["sgd_step"]
+    finally:
+        for knob in ("numerics.capture", "telemetry.sink", "tracing.sink",
+                     "tracing.watchdog", "tracing.watchdog_dir",
+                     "resilience.nanguard", "resilience.nanguard_patience",
+                     "resilience.faults"):
+            config.unset(knob)
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    recs = numerics.forensics_records()
+    gauge = tt.snapshot()["gauges"].get("numerics.first_nonfinite_site.spmd")
+    with open(jsonl) as f:
+        events = [json.loads(line) for line in f]
+    steps = [e for e in events if e["event"] == "step"]
+    bad_records = []
+    for rec in steps:
+        try:
+            tt.validate_step_record(rec)
+        except ValueError as exc:
+            bad_records.append(str(exc))
+    reports = sorted(os.listdir(os.path.join(d, "reports")))
+    report_ok, ring_has_forensics, report_error = False, False, None
+    if len(reports) == 1:
+        with open(os.path.join(d, "reports", reports[0])) as f:
+            rep = json.load(f)
+        try:
+            tracing.validate_watchdog_report(rep)
+            report_ok = True
+        except ValueError as exc:
+            report_error = str(exc)
+        ring_has_forensics = any(
+            e.get("name") == "nanguard_forensics"
+            and e.get("first_nonfinite_site") == "out" for e in rep["ring"])
+    xs = tracing.validate_trace_events(tracing.load_trace(trace))
+    step_ids = {e["args"]["span_id"] for e in xs if e["name"] == "spmd.step"}
+    shard = [e for e in xs if e["name"] == "spmd.shard_batch"]
+    out = {"batch": OBS_BATCH, "raised_at_step": raised_at,
+           "message": message, "seconds": seconds,
+           "forensics": [{k: r[k] for k in ("source", "first_nonfinite_site",
+                                            "nonfinite_sites", "sites")}
+                         for r in recs],
+           "gauge": gauge,
+           "jsonl_forensics_events": sum(
+               e["event"] == "nanguard_forensics" for e in events),
+           "jsonl_numerics_events": sum(e["event"] == "numerics"
+                                        for e in events),
+           "step_records": len(steps), "step_records_invalid": bad_records,
+           "mem_bytes": [r.get("mem_bytes") for r in steps],
+           "reports": reports, "report_valid": report_ok,
+           "report_error": report_error,
+           "report_ring_has_forensics": ring_has_forensics,
+           "span_events": len(xs), "spmd_steps_in_trace": len(step_ids),
+           "shard_batch_nested": bool(shard) and all(
+               e["args"]["parent_id"] in step_ids for e in shard),
+           "finite_steps": first - 1,
+           "finite_step_sgd_launches": finite_launches,
+           "launches": launches,
+           "checkpoints": [s for s, _ in mgr.checkpoints()]}
+    _log("[observe] (c) abort %s" % json.dumps(out))
+    assert raised_at == first + 1, out
+    assert len(recs) == 1 and recs[0]["first_nonfinite_site"] == "out", out
+    assert gauge == "out" and out["jsonl_forensics_events"] == 1, out
+    assert report_ok and ring_has_forensics, out
+    assert steps and not bad_records, out
+    assert all(isinstance(m, int) and m > 0 for m in out["mem_bytes"]), out
+    # the abort lands before the step's span and record open
+    assert out["shard_batch_nested"] and len(step_ids) == raised_at - 1, out
+    assert len(steps) == raised_at - 1, out
+    assert finite_launches == first - 1, out
+    assert out["checkpoints"] == [first], out
+    return out
+
+
+def _obs_sync_ab(mx, np, torch, net, batches, workdir):
+    """(c)'s sync count and (d)'s ResNet-50 capture cost: windows of
+    OBS_SYNC_STEPS finite steps with everything off and with the sinks,
+    the watchdog and capture step:2 on (order off, on, on, off; two
+    untimed steps after each flip).  CUDA's sync debug mode warns at every
+    synchronizing call; each step's warnings are counted, and each step is
+    timed by CUDA events (the card's time from the step's first launch to
+    its last) and on the host."""
+    import warnings
+    from mxnet_tpu_torch import config, numerics
+    d = os.path.join(workdir, "observe")
+    tr = _resnet_trainer(mx, net, "bfloat16")
+    published = []
+    orig = numerics.publish
+
+    def counting(source, step, stats):
+        published.append(step)
+        return orig(source, step, stats)
+    numerics.publish = counting
+    rows = []
+    try:
+        for w, mode in enumerate(("off", "on", "on", "off")):
+            if mode == "on":
+                config.set("numerics.capture", "step:2")
+                config.set("telemetry.sink",
+                           "jsonl:" + os.path.join(d, "ab%d.jsonl" % w))
+                config.set("tracing.sink", "chrome:" + os.path.join(
+                    d, "ab%d.trace.json" % w))
+                config.set("tracing.watchdog", 30)
+            for x, y in batches[:2]:
+                tr.step(x, y)
+            torch.cuda.synchronize()
+            numerics.poll(block=True)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    for i in range(OBS_SYNC_STEPS):
+                        x, y = batches[i % len(batches)]
+                        n_pub, n_warn = len(published), len(caught)
+                        a = torch.cuda.Event(enable_timing=True)
+                        b = torch.cuda.Event(enable_timing=True)
+                        t0 = time.perf_counter()
+                        a.record()
+                        tr.step(x, y)
+                        b.record()
+                        host_ms = (time.perf_counter() - t0) * 1e3
+                        rows.append({"window": w, "mode": mode,
+                                     "captured": len(published) > n_pub,
+                                     "syncs": [str(m.message) for m in
+                                               caught[n_warn:]
+                                               if "synchroniz" in
+                                               str(m.message)],
+                                     "events": (a, b), "host_ms": host_ms})
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            numerics.poll(block=True)
+            for knob in ("numerics.capture", "telemetry.sink",
+                         "tracing.sink", "tracing.watchdog"):
+                config.unset(knob)
+    finally:
+        numerics.publish = orig
+        for knob in ("numerics.capture", "telemetry.sink", "tracing.sink",
+                     "tracing.watchdog"):
+            config.unset(knob)
+    for r in rows:
+        a, b = r.pop("events")
+        r["ms"] = a.elapsed_time(b)
+        r["sync_warnings"] = len(r["syncs"])
+        r["syncs"] = r["syncs"][:2]
+
+    def pick(mode, captured=None):
+        return [r for r in rows if r["mode"] == mode and (
+            captured is None or r["captured"] == captured)]
+    off, unc, cap = pick("off"), pick("on", False), pick("on", True)
+    sites = numerics.latest("spmd")
+    out = {"steps_a_window": OBS_SYNC_STEPS, "rows": rows,
+           "off_syncs_per_step": sum(r["sync_warnings"] for r in off)
+           / len(off),
+           "uncaptured_syncs_per_step": sum(r["sync_warnings"] for r in unc)
+           / len(unc),
+           "captured_syncs_per_step": sum(r["sync_warnings"] for r in cap)
+           / len(cap),
+           "captured_sites": len(sites[1]) if sites else None,
+           "off_ms": float(np.median([r["ms"] for r in off])),
+           "uncaptured_ms": float(np.median([r["ms"] for r in unc])),
+           "captured_ms": float(np.median([r["ms"] for r in cap])),
+           "off_host_ms": float(np.median([r["host_ms"] for r in off])),
+           "uncaptured_host_ms": float(np.median([r["host_ms"]
+                                                  for r in unc])),
+           "captured_host_ms": float(np.median([r["host_ms"]
+                                                for r in cap]))}
+    out["captured_marginal_ms"] = out["captured_ms"] - out["uncaptured_ms"]
+    out["captured_marginal_host_ms"] = out["captured_host_ms"] \
+        - out["uncaptured_host_ms"]
+    _log("[observe] (c) syncs and step ms %s" % json.dumps(
+        {k: v for k, v in out.items() if k != "rows"}))
+    assert cap and unc, rows
+    assert out["uncaptured_syncs_per_step"] <= out["off_syncs_per_step"], out
+    return out, tr
+
+
+def obs_profiler(mx, ck, np, torch, tr, batches, workdir):
+    """(e): mx.profiler's start/stop/dumps around 3 ResNet-50 steps (the
+    DEVICE section names K1's kernel and the convolutions), its dump()
+    merged with the span trace of the same steps by trace_merge (both
+    planes), then OBS_SESSIONS one-step sessions of the Module MLP as
+    they come and as many with 50 ms of idle before and after the step
+    inside the session, counting the sessions that recorded CUDA
+    activity and those that recorded every kernel they launched."""
+    from mxnet_tpu_torch import config, profiler, trace_merge
+    from mxnet_tpu_torch import telemetry as tt
+    d = os.path.join(workdir, "observe")
+    trace = os.path.join(d, "profiled.trace.json")
+    export = os.path.join(d, "profile.json")
+    profiler.set_config(filename=export)
+    table, attempts = None, 0
+    for attempts in range(1, PROFILE_ATTEMPTS + 1):
+        config.set("tracing.sink", "chrome:" + trace)
+        profiler.start()
+        for x, y in batches[:3]:
+            tr.step(x, y)
+        profiler.stop()
+        config.unset("tracing.sink")
+        if not profiler.empty_session():
+            table = profiler.dumps()
+            break
+    dev = profiler.device_op_events()
+    path = profiler.dump()
+    stats = trace_merge.merge_files(trace, path,
+                                    os.path.join(d, "merged.trace.json"))
+    with open(os.path.join(d, "merged.trace.json")) as f:
+        merged = json.load(f)["traceEvents"]
+    names_dev = {e.get("name", "") for e in merged
+                 if e.get("pid", 0) >= trace_merge.DEVICE_PID_BASE}
+    names_host = {e.get("name", "") for e in merged
+                  if e.get("pid") == trace_merge.HOST_PID}
+    conv = ("conv", "fprop", "dgrad", "wgrad", "implicit", "xmma")
+
+    mod, mbatch = _mlp_module(mx), _mlp_batch(mx, np)
+    for _ in range(2):
+        mod.train_step(mbatch)
+
+    def session(pad):
+        torch.cuda.synchronize()
+        profiler.start()
+        if pad:
+            time.sleep(0.05)
+        mod.train_step(mbatch)
+        if pad:
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        profiler.stop()
+        recorded, launched = profiler.session_kernels()
+        return {"cuda": not profiler.empty_session(),
+                "events": sum(len(v) for v in
+                              profiler.device_op_events().values()),
+                "kernels": recorded, "launched": launched}
+    e0 = tt.counter("profiler.empty_sessions").value
+    p0 = tt.counter("profiler.partial_sessions").value
+    plain = [session(False) for _ in range(OBS_SESSIONS)]
+    padded = [session(True) for _ in range(OBS_SESSIONS)]
+    profiler.set_config(filename=None)
+    out = {"attempts": attempts, "table_lines": (table or "").splitlines()[
+        :40], "device_kernels": len(dev),
+        "k1_in_device_section": any("sgd_multi" in n for n in dev),
+        "conv_in_device_section": any(any(k in n.lower() for k in conv)
+                                      for n in dev),
+        "merge": stats, "merged_device_has_k1": any(
+            "sgd_multi" in n for n in names_dev),
+        "merged_host_has_step": "spmd.step" in names_host,
+        "sessions": OBS_SESSIONS,
+        "sessions_with_cuda": sum(s["cuda"] for s in plain),
+        "padded_sessions_with_cuda": sum(s["cuda"] for s in padded),
+        "empty_sessions_counted": tt.counter(
+            "profiler.empty_sessions").value - e0,
+        "complete_sessions": sum(s["kernels"] >= s["launched"] > 0
+                                 for s in plain),
+        "complete_padded_sessions": sum(s["kernels"] >= s["launched"] > 0
+                                        for s in padded),
+        "partial_sessions_counted": tt.counter(
+            "profiler.partial_sessions").value - p0,
+        "plain": plain, "padded": padded}
+    _log("[observe] (e) profiler %s" % json.dumps(
+        {k: v for k, v in out.items() if k not in ("plain", "padded",
+                                                   "table_lines")}))
+    assert table is not None, out
+    assert out["k1_in_device_section"] and out["conv_in_device_section"], out
+    assert "Device ops" in table, out
+    assert out["merged_device_has_k1"] and out["merged_host_has_step"], out
+    assert out["empty_sessions_counted"] == 2 * OBS_SESSIONS - (
+        out["sessions_with_cuda"] + out["padded_sessions_with_cuda"]), out
+    return out
+
+
+def obs_capture_cost(mx, ck, np, torch, workdir):
+    """(d): bench.py numerics_overhead_config on the card's Module MLP
+    (fused Executor step, K3): interleaved off/step:10 pass pairs and one
+    step:1 pass, the publish/poll host seam at the MLP's site count, and
+    the step ms with the telemetry and tracing sinks off and on."""
+    import statistics
+    import tempfile
+    from mxnet_tpu_torch import config, numerics
+    from mxnet_tpu_torch import telemetry as tt
+    mod = _mlp_module(mx)
+    batch = _mlp_batch(mx, np)
+    sync = mod._exec.arg_dict["fc0_weight"]
+
+    def one_pass(spec, n):
+        config.set("numerics.capture", spec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            mod.train_step(batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        numerics.poll("module", block=True)
+        return n / dt
+    _zero_counts(torch, tt, ck)
+    try:
+        for spec in ("step:1", ""):
+            config.set("numerics.capture", spec)
+            for _ in range(3):
+                mod.train_step(batch)
+        ratios, off_best, on10_best = [], 0.0, 0.0
+        for _ in range(OBS_PASSES):
+            off = max(one_pass("", OBS_ITERS), one_pass("", OBS_ITERS))
+            on10 = max(one_pass("step:10", OBS_ITERS),
+                       one_pass("step:10", OBS_ITERS))
+            ratios.append(on10 / off)
+            off_best, on10_best = max(off_best, off), max(on10_best, on10)
+        on1_best = max(one_pass("step:1", OBS_ITERS),
+                       one_pass("step:1", OBS_ITERS))
+        sites = len(numerics.latest("module")[1])
+    finally:
+        config.unset("numerics.capture")
+    steps = ck.LAUNCHES["adam_step"]
+    stats = {"site%d" % i: numerics.summarize(torch.ones(4, device="cuda"))
+             for i in range(sites)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(OBS_PUBLISH_N):
+        numerics.publish("bench_numerics", i, stats)
+        numerics.poll("bench_numerics")
+    publish_us = (time.perf_counter() - t0) / OBS_PUBLISH_N * 1e6
+    numerics.poll("bench_numerics", block=True)
+    # the sinks, as module_train_config toggles them
+    d = tempfile.mkdtemp(prefix="observe_sinks_", dir=workdir)
+    sink_ms = {}
+    for name, knob, value in (
+            ("off", None, None),
+            ("telemetry", "telemetry.sink", "jsonl:" + os.path.join(
+                d, "steps.jsonl")),
+            ("tracing", "tracing.sink", "chrome:" + os.path.join(
+                d, "spans.trace.json")), ("off_again", None, None)):
+        if knob:
+            config.set(knob, value)
+        try:
+            sink_ms[name] = 1e3 / max(one_pass("", OBS_ITERS),
+                                      one_pass("", OBS_ITERS))
+        finally:
+            if knob:
+                config.unset(knob)
+    off_us = 1e6 / off_best
+    out = {"passes": OBS_PASSES, "iters": OBS_ITERS, "sites": sites,
+           "off_step_ms": 1e3 / off_best,
+           "step10_step_ms": 1e3 / on10_best,
+           "step1_step_ms": 1e3 / on1_best,
+           "step1_marginal_ms": 1e3 / on1_best - 1e3 / off_best,
+           "publish_poll_us": publish_us,
+           "overhead_pct": publish_us / (10 * off_us) * 100,
+           "paired_median_pct": (1.0 / statistics.median(ratios) - 1.0)
+           * 100, "pair_ratios": ratios,
+           "sink_step_ms": sink_ms, "adam_step_launches": steps}
+    _log("[observe] (d) capture cost %s" % json.dumps(out))
+    return out
+
+
+def obs_monitor(mx, ck, np, torch):
+    """(f): ``fit(monitor=Monitor(1, pattern=".*weight"))`` on the Module
+    MLP for OBS_MONITOR_BATCHES batches on the card, through the fused
+    step and K3 (one launch a step), against the same fit on the CPU from
+    the same weights: every (step, name) row within 1e-5 relative."""
+    from mxnet_tpu_torch import telemetry as tt
+
+    class Rows(mx.monitor.Monitor):
+        def toc_print(self):
+            self.rows = getattr(self, "rows", []) + self.toc()
+    rng = np.random.RandomState(SEED + 91)
+    n = OBS_MONITOR_BATCHES * MLP_BATCH
+    X = rng.randn(n, MLP_FEAT).astype(np.float32)
+    Y = (rng.rand(n) * MLP_CLASSES).astype(np.float32)
+    init = {k: v.asnumpy() for k, v in _mlp_module(mx).get_params()[0]
+            .items()}
+    got = {}
+    for where in ("card", "cpu"):
+        ctx = mx.gpu(0) if where == "card" else mx.cpu()
+        with ctx:
+            mon = Rows(1, pattern=".*weight")
+            mod = mx.mod.Module(_mlp_symbol(mx), context=ctx)
+            it = mx.io.NDArrayIter(X, Y, batch_size=MLP_BATCH)
+            if where == "card":
+                _zero_counts(torch, tt, ck)
+            mod.fit(it, num_epoch=1, optimizer="adam",
+                    optimizer_params={"learning_rate": MLP_LR},
+                    arg_params={k: mx.nd.array(v, ctx=ctx)
+                                for k, v in init.items()}, monitor=mon)
+            if where == "card":
+                torch.cuda.synchronize()
+                launches = dict(ck.LAUNCHES)
+                fused = tt.snapshot()["counters"]["fused_steps"]
+        got[where] = {(s, k): float(v) for s, k, v in mon.rows}
+    rel = max(abs(got["card"][k] - v) / max(abs(v), 1e-30)
+              for k, v in got["cpu"].items())
+    out = {"batches": OBS_MONITOR_BATCHES, "rows": len(got["card"]),
+           "same_rows": sorted(got["card"]) == sorted(got["cpu"]),
+           "max_rel_err": rel, "launches": launches, "fused_steps": fused}
+    _log("[observe] (f) monitor %s" % json.dumps(out))
+    want = dict.fromkeys(launches, 0)
+    want["adam_step"] = OBS_MONITOR_BATCHES
+    assert out["same_rows"] and out["rows"] == OBS_MONITOR_BATCHES * 9, out
+    assert rel <= 1e-5, out
+    assert launches == want and fused == OBS_MONITOR_BATCHES, out
+    return out
+
+
+def obs_watchdog(mx, np, workdir):
+    """(g): a data iterator that sleeps twice the deadline inside
+    io.prefetch yields exactly one watchdog report, whose open spans
+    include io.prefetch."""
+    import shutil
+    from mxnet_tpu_torch import config, tracing
+    d = os.path.join(workdir, "observe", "watchdog")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+
+    class Slow(mx.io.NDArrayIter):
+        slept = False
+
+        def next(self):
+            if not self.slept:
+                self.slept = True
+                time.sleep(2 * OBS_WATCHDOG_S)
+            return super().next()
+    config.set("tracing.watchdog_dir", d)
+    config.set("tracing.watchdog", OBS_WATCHDOG_S)
+    try:
+        with mx.cpu():
+            got = list(mx.io.PrefetchingIter(Slow(
+                data=np.zeros((4, 2), np.float32),
+                label=np.zeros((4,), np.float32), batch_size=4)))
+    finally:
+        config.unset("tracing.watchdog")
+        config.unset("tracing.watchdog_dir")
+    reports = sorted(os.listdir(d))
+    spans = []
+    if reports:
+        with open(os.path.join(d, reports[0])) as f:
+            rep = tracing.validate_watchdog_report(json.load(f))
+        spans = [s["name"] for s in rep["open_spans"]]
+    out = {"deadline_s": OBS_WATCHDOG_S, "batches": len(got),
+           "reports": reports, "open_spans": spans}
+    _log("[observe] (g) watchdog %s" % json.dumps(out))
+    assert len(reports) == 1 and "io.prefetch" in spans, out
+    return out
+
+
+def observe_phase(mx, ck, np, torch, card, workdir):
+    """Phase observe: (a) summarize on the card, (b) the TransformerLM
+    with and without capture, (c) ResNet-50's abort with forensics, the
+    sinks and the watchdog, and the sync count, (d) the capture's cost,
+    (e) mx.profiler, (f) Monitor, (g) the watchdog firing."""
+    t0 = time.perf_counter()
+    marks = [("start", t0)]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+    out = {"card": card, "summarize": obs_summarize(np, torch)}
+    mark("a")
+    out["lm"] = obs_lm(mx, ck, np, torch)
+    mark("b")
+    prev = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark = True
+    try:
+        batches = _res_batches(np, torch, 8, (OBS_BATCH, 3, RESNET_HW,
+                                              RESNET_HW), 1000, SEED + 81)
+        net = _obs_net(mx, np, torch, batches)
+        out["abort"] = _obs_abort(mx, ck, np, torch, net, batches, workdir)
+        mark("c_abort")
+        out["sync_ab"], tr = _obs_sync_ab(mx, np, torch, net, batches,
+                                          workdir)
+        mark("c_sync_ab")
+        _zero_counts(torch, mx.telemetry, ck)
+        out["profiler"] = obs_profiler(mx, ck, np, torch, tr, batches,
+                                       workdir)
+        torch.cuda.synchronize()
+        out["profiler"]["launches"] = dict(ck.LAUNCHES)
+        mark("e")
+        del tr, net, batches
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic \
+            = prev
+    torch.cuda.empty_cache()
+    out["capture_cost"] = obs_capture_cost(mx, ck, np, torch, workdir)
+    out["capture_cost"]["resnet50_captured_marginal_ms"] = \
+        out["sync_ab"]["captured_marginal_ms"]
+    out["capture_cost"]["resnet50_captured_sites"] = \
+        out["sync_ab"]["captured_sites"]
+    mark("d")
+    out["monitor"] = obs_monitor(mx, ck, np, torch)
+    mark("f")
+    out["watchdog"] = obs_watchdog(mx, np, workdir)
+    mark("g")
+    out["part_seconds"] = {name: t - prev for (_, prev), (name, t)
+                           in zip(marks, marks[1:])}
+    out["seconds"] = time.perf_counter() - t0
+    _log("[observe] part seconds %s" % json.dumps(out["part_seconds"]))
+    _log("[observe] phase seconds %.1f" % out["seconds"])
+    return out
+
+
+def _observe_launches(obs):
+    """Launches of K1, K2f, K2dq, K2dkv and K3 in phase observe's counted
+    runs, by kernel and run."""
+    lm = obs["lm"]["launches"]
+    by = {k: {"observe_lm_" + run: lm[run][k] for run in lm}
+          for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    by["sgd_step"] = {
+        "observe_resnet_abort": obs["abort"]["launches"]["sgd_step"],
+        "observe_resnet_profiled": obs["profiler"]["launches"]["sgd_step"]}
+    by["adam_step"] = {
+        "observe_lm_" + run: lm[run]["adam_step"] for run in lm}
+    by["adam_step"]["observe_mlp_capture_cost"] = \
+        obs["capture_cost"]["adam_step_launches"]
+    by["adam_step"]["observe_monitor"] = \
+        obs["monitor"]["launches"]["adam_step"]
+    return by
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the full report (JSON) "
@@ -11147,7 +11986,7 @@ def main(argv=None):
                                         "generation", "ops", "zoo", "rnn",
                                         "data", "ssd", "predict",
                                         "dist", "mesh", "shard",
-                                        "resilience"),
+                                        "resilience", "observe"),
                     default="all",
                     help="attention: the flash forward and backward checks "
                     "of phase 2 alone; optimizer: phase 2's K3 and K1 "
@@ -11196,7 +12035,13 @@ def main(argv=None):
                     "baseline, the nanguard abort through K3, two elastic "
                     "generations of gloo ranks sharing the card), ending "
                     "in the kernels line for K1 and K3, the card and ok "
-                    "lines")
+                    "lines; observe: phase observe alone (summarize on "
+                    "the card against the CPU, the TransformerLM with and "
+                    "without numerics capture, ResNet-50's nanguard abort "
+                    "with forensics, the sinks and the watchdog, the sync "
+                    "count, the capture's cost, mx.profiler, Monitor, the "
+                    "watchdog firing), ending in the kernels line for K1, "
+                    "K2f, K2dq, K2dkv and K3, the card and ok lines")
     ap.add_argument("--dist-worker", metavar="WORKDIR",
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-worker", metavar="WORKDIR",
@@ -11264,7 +12109,9 @@ def main(argv=None):
          "dist": ["sgd_step", "adam_step"],
          "mesh": ["flash_fwd", "flash_bwd", "flash_f32", "sgd_step"],
          "shard": ["flash_fwd", "paged_attn", "sgd_step"],
-         "resilience": ["sgd_step", "adam_step"]}.get(args.phase))
+         "resilience": ["sgd_step", "adam_step"],
+         "observe": ["flash_fwd", "flash_bwd", "sgd_step",
+                     "adam_step"]}.get(args.phase))
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "per_source_s": {k: v["seconds"]
                                         for k, v in built.items()},
@@ -11559,6 +12406,39 @@ def main(argv=None):
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if args.phase == "observe":
+        flash = check_flash(ck, torch, F)
+        bwd_dq, bwd_dkv = check_flash_bwd(ck, torch, F)
+        adam, adam_step = check_adam(ck, torch)
+        sgd, sgd_step = check_sgd(ck, torch, mx, np)
+        bad = [c for c in flash + bwd_dq + bwd_dkv + adam + sgd
+               if not c["ok"]]
+        if bad:
+            raise AssertionError("kernel disagrees with its plain version: "
+                                 "%s" % json.dumps(bad))
+        report["observe"] = observe_phase(mx, ck, np, torch, card, workdir)
+        by = _observe_launches(report["observe"])
+        pk = "mxnet_tpu/ops/pallas_kernels.py:"
+        kernels = []
+        for name, source, line, cases in (
+                ("flash_fwd", "flash_fwd.cu", "157", flash),
+                ("flash_bwd_dq", "flash_bwd.cu", "190", bwd_dq),
+                ("flash_bwd_dkv", "flash_bwd.cu", "220", bwd_dkv)):
+            kern = _summary(name, source, pk + line, cases,
+                            sum(by[name].values()))
+            kern["launches_by_path"] = by[name]
+            kernels.append(kern)
+        kernels += [_adam_summary(adam, adam_step, by["adam_step"]),
+                    _sgd_summary(sgd, sgd_step, by["sgd_step"])]
+        report["kernels"] = kernels
+        _write_report(args.report, report)
+        print(json.dumps({"kernels": [{k: v for k, v in s.items()
+                                       if k != "cases"} for s in kernels]}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.phase == "module":
         report["lr_t_ab"] = lr_t_ab(mx, np, torch)
         report["launch_ab"] = launch_ab(mx, np, torch)
@@ -11593,32 +12473,58 @@ def main(argv=None):
         raise AssertionError("kernel disagrees with its plain version: %s"
                              % json.dumps(bad))
 
-    report["serve"] = serve(mx, ck, np, torch, workdir)
-    report["generation"] = generation(mx, ck, np, torch, card, workdir)
-    report["train"] = train(mx, ck, np, torch)
-    report["bert"] = bert(mx, ck, np, torch, card)
-    report["lm_f32"] = train_lm_f32(mx, ck, np, torch, card)
-    report["resnet"] = train_resnet(mx, ck, np, torch, card)
-    report["zoo"] = zoo_phase(mx, ck, np, torch, card, workdir)
-    report["tape"] = tape(mx, ck, np, torch)
-    report["lenet"] = train_lenet(mx, ck, np, torch, card)
-    report["f16"] = train_f16(mx, ck, np, torch)
-    report["rtc"], rtc_kernels = check_rtc(mx, ck, torch)
-    report["rtc_ops"] = rtc_ops(mx, ck, torch, rtc_kernels)
-    report["module"] = train_module(mx, ck, np, torch, card, workdir)
-    report["ops"] = ops_phase(mx, ck, np, torch)
-    report["rnn"] = rnn_phase(mx, ck, np, torch, card)
-    report["data"] = data_phase(mx, ck, np, torch, card, workdir,
-                                synthetic={k: report["resnet"][k] for k in (
-                                    "img_per_s", "median_step_ms",
-                                    "cudnn_benchmark")})
-    report["ssd"] = ssd_phase(mx, ck, np, torch, card, workdir)
-    report["predict"] = predict_phase(mx, np, torch, card, workdir)
-    report["dist"] = dist_phase(mx, ck, np, torch, card, workdir)
-    report["mesh"] = mesh_phase(mx, ck, np, torch, card, workdir)
-    report["shard"] = shard_phase(mx, ck, np, torch, card, workdir)
-    report["resilience"] = resilience_phase(mx, ck, np, torch, card, workdir)
+    phase_seconds = report["phase_seconds"] = {}
+
+    def timed(name, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)``, its seconds logged and kept."""
+        t = time.perf_counter()
+        res = fn(*args, **kwargs)
+        phase_seconds[name] = time.perf_counter() - t
+        _log("[phase] %s %.1f s" % (name, phase_seconds[name]))
+        return res
+
+    report["serve"] = timed("serve", serve, mx, ck, np, torch, workdir)
+    report["generation"] = timed("generation", generation, mx, ck, np,
+                                 torch, card, workdir)
+    report["train"] = timed("train", train, mx, ck, np, torch)
+    report["bert"] = timed("bert", bert, mx, ck, np, torch, card)
+    report["lm_f32"] = timed("lm_f32", train_lm_f32, mx, ck, np, torch,
+                             card)
+    report["resnet"] = timed("resnet", train_resnet, mx, ck, np, torch,
+                             card)
+    report["zoo"] = timed("zoo", zoo_phase, mx, ck, np, torch, card,
+                          workdir)
+    report["tape"] = timed("tape", tape, mx, ck, np, torch)
+    report["lenet"] = timed("lenet", train_lenet, mx, ck, np, torch, card)
+    report["f16"] = timed("f16", train_f16, mx, ck, np, torch)
+    report["rtc"], rtc_kernels = timed("rtc", check_rtc, mx, ck, torch)
+    report["rtc_ops"] = timed("rtc_ops", rtc_ops, mx, ck, torch,
+                              rtc_kernels)
+    report["module"] = timed("module", train_module, mx, ck, np, torch,
+                             card, workdir)
+    report["ops"] = timed("ops", ops_phase, mx, ck, np, torch)
+    report["rnn"] = timed("rnn", rnn_phase, mx, ck, np, torch, card)
+    report["data"] = timed("data", data_phase, mx, ck, np, torch, card,
+                           workdir, synthetic={k: report["resnet"][k] for k
+                                               in ("img_per_s",
+                                                   "median_step_ms",
+                                                   "cudnn_benchmark")})
+    report["ssd"] = timed("ssd", ssd_phase, mx, ck, np, torch, card,
+                          workdir)
+    report["predict"] = timed("predict", predict_phase, mx, np, torch, card,
+                              workdir)
+    report["dist"] = timed("dist", dist_phase, mx, ck, np, torch, card,
+                           workdir)
+    report["mesh"] = timed("mesh", mesh_phase, mx, ck, np, torch, card,
+                           workdir)
+    report["shard"] = timed("shard", shard_phase, mx, ck, np, torch, card,
+                            workdir)
+    report["resilience"] = timed("resilience", resilience_phase, mx, ck, np,
+                                 torch, card, workdir)
+    report["observe"] = timed("observe", observe_phase, mx, ck, np, torch,
+                              card, workdir)
     mesh_by = _mesh_launches(report["mesh"])
+    obs_by = _observe_launches(report["observe"])
     shard_by = _shard_launches(report["shard"])
     data_sgd, data_adam = _data_launches(report["data"])
     data_sgd.update(_ssd_sgd_launches(report["ssd"]))
@@ -11630,6 +12536,8 @@ def main(argv=None):
     data_sgd.update(res_sgd)
     data_adam.update(dist_adam)
     data_adam.update(res_adam)
+    data_sgd.update(obs_by["sgd_step"])
+    data_adam.update(obs_by["adam_step"])
     module_adam = report["module"]["fused"]["launches"]["adam_step"]
     rnn_adam = {"rnn_bucketing_" + kind: run["launches"]["adam_step"]
                 for kind, run in report["rnn"]["bucketing"].items()}
@@ -11707,6 +12615,9 @@ def main(argv=None):
         kern["launches_by_path"] = gen["by_run"][kern["name"]]
     # phase shard's per-rank launches beside each path's
     kernels[0]["launches_by_path"].update(shard_by["flash_fwd"])
+    # phase observe's TransformerLM runs
+    for kern in kernels[:3]:
+        kern["launches_by_path"].update(obs_by[kern["name"]])
     for kern in kernels[6:8]:
         kern["launches_by_path"] = dict(
             {"serve": kern["launches"]}, **shard_by[kern["name"]])

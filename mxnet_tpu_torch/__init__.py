@@ -60,6 +60,12 @@ Ported so far:
   into the fused optimizer kernels, retries and fault injection),
   ``mx.elastic`` and the elastic launcher, and ``SPMDTrainer``'s sharded
   checkpoints;
+* training observability — ``mx.telemetry`` (the metrics registry and the
+  JSONL step log), ``mx.tracing`` (causal spans, the Chrome sink, the
+  flight recorder and the hang watchdog), ``mx.profiler`` over
+  ``torch.profiler``, ``mxnet_tpu_torch.numerics`` (in-step statistics
+  capture and the nanguard's forensics), ``mx.monitor`` and
+  ``mxnet_tpu_torch.trace_merge``;
 
 with hand-written CUDA kernels for flash-attention forward and backward,
 paged decode attention, the fused Adam step, the multi-tensor fused SGD
@@ -94,6 +100,7 @@ from . import metric, io, callback, engine, rtc, symbol, model, module
 from . import executor, executor_manager, runtime, rnn
 from . import recordio, image, compat, resilience, contrib, kvstore_server
 from . import elastic
+from . import profiler, tracing, numerics, monitor
 from . import attribute
 from .attribute import AttrScope
 from . import symbol as sym
@@ -110,4 +117,5 @@ __all__ = ["MXNetError", "MXNetErrorNoDevice", "KernelUnsupportedError",
            "io", "callback", "engine", "rtc", "symbol", "sym", "model",
            "module", "mod", "executor", "executor_manager", "runtime", "rnn",
            "recordio", "image", "compat", "resilience", "elastic",
-           "contrib", "kvstore_server", "attribute", "AttrScope"]
+           "contrib", "kvstore_server", "attribute", "AttrScope",
+           "profiler", "tracing", "monitor"]

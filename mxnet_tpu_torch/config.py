@@ -5,8 +5,9 @@ fault-tolerance knobs (``resilience.*``: the nanguard, preemption,
 checkpoint cadence, fault injection and retry policy; ``elastic.*``),
 the kernel tier, the 64-bit dtype policy, the
 ResNet training path
-(convolution layout, BatchNorm statistics, and the numerics capture,
-which the trainers refuse instead of ignoring), the
+(convolution layout, BatchNorm statistics), the observability knobs
+(``numerics.capture``, ``telemetry.sink``, ``tracing.*``,
+``profiler.*``), the
 engine and symbolic Module knobs, the layer-stack program knobs
 (``runtime.stack_mode``, ``runtime.remat``) of ``runtime.scan_stack``,
 the data pipeline's (``io.*``), and the scale-out knobs (2-bit gradient
@@ -15,7 +16,9 @@ compression, ``kvstore.*``; the row-sparse embedding path,
 
 Every knob has a type, a default, its environment variable and a
 docstring.  ``get`` reads programmatic override > env var > default;
-``set`` / ``unset`` override programmatically and bump :func:`epoch`.
+``set`` / ``unset`` override programmatically and bump :func:`epoch`
+(except the epoch-neutral knobs, ``_EPOCH_NEUTRAL``), and fire the
+knob's on-set hook when the value changes.
 The environment variable names are the reference package's, so one
 launcher setting configures either package.
 """
@@ -32,6 +35,13 @@ Knob = namedtuple("Knob", ["name", "env", "type", "default", "doc"])
 _KNOBS = {}
 _OVERRIDES = {}
 _ON_SET = {}  # knob name -> callback(value), fired after set()
+
+# Knobs that never bump the epoch: what they change is host-side state
+# (the numerics capture is decided per step and keys nothing), so a toggle
+# must not make the trainers and executors rebuild their steps.  Their
+# hooks still fire.
+_EPOCH_NEUTRAL = {"numerics.capture", "quant.drift_every",
+                  "quant.drift_threshold"}
 
 # Bumped by every effective set()/unset(): caches that bake knob values in
 # key on it so a knob change invalidates them instead of silently not
@@ -72,7 +82,7 @@ def set(name, value):  # noqa: A001 — reference-parity name
         else knob.type(value)
     changed = parsed != get(name)
     _OVERRIDES[name] = parsed
-    if changed:
+    if changed and name not in _EPOCH_NEUTRAL:
         _EPOCH += 1
     hook = _ON_SET.get(name)
     if hook is not None:
@@ -81,7 +91,8 @@ def set(name, value):  # noqa: A001 — reference-parity name
 
 def unset(name):
     """Drop a programmatic override so ``name`` falls back to its env var
-    or default."""
+    or default; bumps the epoch and fires the knob's hook only when the
+    value changes."""
     global _EPOCH
     if name not in _KNOBS:
         raise KeyError("unknown knob %r (see mx.config.describe())" % name)
@@ -89,8 +100,14 @@ def unset(name):
         return
     old = get(name)
     del _OVERRIDES[name]
-    if get(name) != old:
+    new = get(name)
+    if new == old:
+        return
+    if name not in _EPOCH_NEUTRAL:
         _EPOCH += 1
+    hook = _ON_SET.get(name)
+    if hook is not None:
+        hook(new)
 
 
 def epoch():
@@ -144,9 +161,14 @@ register_knob(
     "offset-heavy inputs whose |mean|/std exceeds ~3000 at cold start.")
 register_knob(
     "numerics.capture", "MXNET_TPU_NUMERICS", str, "",
-    "in-step tensor-statistics capture cadence ('step:N'). Not ported; "
-    "SPMDTrainer, Module and gluon.Trainer raise NotImplementedError when "
-    "it is set.")
+    "in-step tensor-statistics capture cadence: 'step:N' makes each step "
+    "seam (the Module's fused and eager steps, SPMDTrainer, gluon.Trainer, "
+    "ShardedEmbedding) summarize its sites every Nth step (mx.numerics: "
+    "amax/amin/rms/non-finite/bf16-saturation per site, stacked on the "
+    "card into one [sites, 6] tensor and copied to pinned host memory "
+    "behind a CUDA event; no host sync). Empty/'off' (default) disables: "
+    "a step that captures nothing runs exactly the ops of a run without "
+    "capture. Epoch-neutral.")
 register_knob(
     "kvstore.grad_compress", "MXNET_TPU_GRAD_COMPRESS", str, "",
     "gradient-sync wire compression: '2bit' quantizes gradients to "
@@ -208,9 +230,15 @@ register_knob(
     "emit (QuantizationError).")
 register_knob(
     "quant.drift_every", "MXNET_TPU_QUANT_DRIFT_EVERY", int, 0,
-    "quantization drift sampling of served int8 models. Not ported (it "
-    "needs the numerics plane); Server.register(quantized=True) raises "
-    "NotImplementedError when it is > 0.")
+    "quantization drift sampling of served int8 models. Not ported yet "
+    "(slice 15 part 2: the serving side; numerics.update_quant_drift is "
+    "the host arithmetic); Server.register(quantized=True) raises "
+    "NotImplementedError when it is > 0. Epoch-neutral.")
+register_knob(
+    "quant.drift_threshold", "MXNET_TPU_QUANT_DRIFT_THRESHOLD", float, 1.5,
+    "drift alarm bound of numerics.update_quant_drift: a quantized site "
+    "whose smoothed runtime-amax / calibrated-amax ratio exceeds this is "
+    "counted drifted. Epoch-neutral.")
 register_knob(
     "serving.max_batch", "MXNET_TPU_SERVING_MAX_BATCH", int, 32,
     "one-shot serving batch capacity: the batcher coalesces queued "
@@ -367,6 +395,13 @@ def _apply_quant_drift_every(value):
                          % (value,))
 
 
+def _apply_quant_drift_threshold(value):
+    if float(value) <= 0:
+        _OVERRIDES.pop("quant.drift_threshold", None)
+        raise ValueError("quant.drift_threshold must be > 0, got %r"
+                         % (value,))
+
+
 def _apply_resilience_faults(_value):
     from . import resilience
     resilience.configure_faults()
@@ -391,8 +426,96 @@ def _apply_resilience_preempt(value):
     resilience.configure_preemption(value)
 
 
+# the profiler, the telemetry step log, the causal tracing and the hang
+# watchdog (mx.profiler, mx.telemetry, mx.tracing)
+register_knob(
+    "profiler.autostart", "MXNET_PROFILER_AUTOSTART", bool, False,
+    "start an mx.profiler session (torch.profiler) when mx.profiler is "
+    "imported, mirroring MXNET_PROFILER_AUTOSTART.")
+register_knob(
+    "profiler.filename", "MXNET_PROFILER_FILENAME", str, "profile.json",
+    "default Chrome-trace output path for mx.profiler.dump().")
+register_knob(
+    "telemetry.sink", "MXNET_TPU_TELEMETRY", str, "",
+    "structured step-event log sink: 'jsonl:<path>' appends one JSON "
+    "record per train step (Module/SPMDTrainer/gluon.Trainer) with wall "
+    "time, dispatch path, compile/host-sync deltas, throughput and the "
+    "card's memory watermark, in the reference's schema (its "
+    "tools/telemetry_report.py reads it). Empty (default) disables the "
+    "log; the metrics registry itself stays on.")
+register_knob(
+    "tracing.sink", "MXNET_TPU_TRACE", str, "",
+    "causal span trace sink: 'chrome:<path>' streams framework spans "
+    "(step/shard_batch/fused_dispatch/opt_update/prefetch/push/pull/"
+    "allreduce, with contextvars parent/child links that survive thread "
+    "hops) as Chrome trace events, one a line; merge with a "
+    "torch.profiler export through mxnet_tpu_torch.trace_merge. Empty "
+    "(default) disables: span() is a shared no-op when no sink, watchdog "
+    "or profiler session is active.")
+register_knob(
+    "tracing.watchdog", "MXNET_TPU_WATCHDOG", float, 0.0,
+    "hang-watchdog deadline in seconds: > 0 starts a daemon thread that, "
+    "when no train step completes within the deadline, dumps thread "
+    "stacks, open spans with ages, the flight-recorder event ring, the "
+    "card's memory and gauge snapshots to a timestamped "
+    "watchdog_report_*.json, then lets the job run on. 0 (default) "
+    "disables.")
+register_knob(
+    "tracing.watchdog_dir", "MXNET_TPU_WATCHDOG_DIR", str, "",
+    "directory for watchdog flight-recorder reports; empty (default) = "
+    "the current working directory.")
+register_knob(
+    "tracing.ring_size", "MXNET_TPU_TRACE_RING", int, 256,
+    "flight-recorder bound: how many recent span/step events the "
+    "in-memory ring keeps for the watchdog report.")
+
+
+def _apply_numerics_capture(value):
+    from . import numerics
+    try:
+        numerics.configure(value)
+    except ValueError:
+        # reject at set() time and revert: a typo'd cadence must not
+        # linger as the stored override
+        _OVERRIDES.pop("numerics.capture", None)
+        raise
+
+
+def _apply_telemetry_sink(value):
+    from . import telemetry
+    telemetry.configure_sink(value)
+
+
+def _apply_tracing_sink(value):
+    from . import tracing
+    tracing.configure_sink(value)
+
+
+def _apply_tracing_watchdog(value):
+    from . import tracing
+    tracing.configure_watchdog(value, report_dir=get("tracing.watchdog_dir"))
+
+
+def _apply_tracing_watchdog_dir(_value):
+    # the directory must land even when only it changes: the nanguard
+    # abort's on-demand report reads it without an armed deadline
+    _apply_tracing_watchdog(get("tracing.watchdog"))
+
+
+def _apply_tracing_ring(value):
+    from . import tracing
+    tracing.configure_ring(value)
+
+
+_ON_SET["numerics.capture"] = _apply_numerics_capture
+_ON_SET["telemetry.sink"] = _apply_telemetry_sink
+_ON_SET["tracing.sink"] = _apply_tracing_sink
+_ON_SET["tracing.watchdog"] = _apply_tracing_watchdog
+_ON_SET["tracing.watchdog_dir"] = _apply_tracing_watchdog_dir
+_ON_SET["tracing.ring_size"] = _apply_tracing_ring
 _ON_SET["quant.calib_mode"] = _apply_quant_calib_mode
 _ON_SET["quant.drift_every"] = _apply_quant_drift_every
+_ON_SET["quant.drift_threshold"] = _apply_quant_drift_threshold
 _ON_SET["resilience.faults"] = _apply_resilience_faults
 _ON_SET["resilience.fault_seed"] = _apply_resilience_faults
 _ON_SET["resilience.retry_attempts"] = _apply_resilience_retry

@@ -44,16 +44,24 @@ Resilience, as in the reference: under ``resilience.nanguard`` the
 update checks the gradients on the host (one sync a step) and skips a
 non-finite step (``gluon.nonfinite_steps``); ``step`` checks the abort
 first and finishes a pending preemption last, both through the save
-``set_preemption_save`` registers.  Not ported, and raising
-``NotImplementedError`` when asked for: numerics capture
-(``numerics.capture``).
+``set_preemption_save`` registers.  The abort's forensics replay
+summarizes the live gradients (``grad.<name>``).
+
+Observability, as in the reference: ``step`` runs under
+``telemetry.step_scope("gluon")`` and the ``gluon.step`` span, with the
+``gluon.allreduce`` and ``gluon.opt_update`` spans inside; under
+``numerics.capture=step:N`` every Nth update summarizes each
+parameter's ``grad.<name>`` before its update and ``update.<name>``
+after, and publishes them without a host sync.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import config as _config
+from .. import numerics as _numerics
 from .. import optimizer as opt
+from .. import telemetry as _telemetry
+from .. import tracing as _tracing
 from ..kvstore import create as _create_kvstore
 from .parameter import Parameter, ParameterDict
 
@@ -93,6 +101,7 @@ class Trainer:
         self._update_on_kvstore = None
         self._params_to_init = list(self._params)
         self._preempt_save = None
+        self._numerics_t = 0  # updates run, the capture's step index
 
     def set_preemption_save(self, fn):
         """Register ``fn()`` (e.g. a closure over ``save_parameters`` and
@@ -186,26 +195,24 @@ class Trainer:
                 return param.data()._data.device
         return None
 
-    @staticmethod
-    def _check_options():
-        if _config.get("numerics.capture"):
-            raise NotImplementedError(
-                "gluon.Trainer does not port numerics.capture")
-
     def step(self, batch_size, ignore_stale_grad=False):
         """One parameter update (reference ``trainer.py:305``): gradients
         rescaled by ``1 / batch_size``, reduced, then applied.  The
         nanguard's abort check comes first and a pending preemption's
         save and exit last, as in the reference."""
         from .. import resilience as _resilience
-        self._check_options()
         _resilience.maybe_abort_nonfinite("gluon",
                                           save_fn=self._preempt_save)
-        rescale_grad = self._scale / batch_size
-        self._check_and_rescale_grad(rescale_grad)
-        self._ready()
-        self._allreduce_grads()
-        self._update(ignore_stale_grad)
+        with _telemetry.step_scope("gluon", samples=int(batch_size),
+                                   default_path="eager"), \
+                _tracing.span("gluon.step", cat="gluon"):
+            rescale_grad = self._scale / batch_size
+            self._check_and_rescale_grad(rescale_grad)
+            self._ready()
+            with _tracing.span("gluon.allreduce", cat="gluon"):
+                self._allreduce_grads()
+            with _tracing.span("gluon.opt_update", cat="gluon"):
+                self._update(ignore_stale_grad)
         if _resilience.preempt_requested():
             _resilience.exit_on_preempt(save_fn=self._preempt_save)
 
@@ -250,7 +257,6 @@ class Trainer:
 
     def update(self, batch_size, ignore_stale_grad=False):
         """Apply already-reduced gradients (reference ``trainer.py:374``)."""
-        self._check_options()
         self._ready()
         if self._kvstore and self._update_on_kvstore:
             raise RuntimeError(
@@ -268,7 +274,20 @@ class Trainer:
         if self._kvstore and self._update_on_kvstore:
             return
         from .. import resilience as _resilience
+        self._numerics_t += 1
+        stats = {} if _numerics.should_capture("gluon") else None
         if _resilience.nanguard_mode():
+            # the forensics replay of the eager loop: the live gradients
+            # (a bad step skips the update, and the abort comes before the
+            # next backward writes them)
+            def _replay(params=self._params):
+                sink = {}
+                for p in params:
+                    if p.grad_req != "null":
+                        _numerics.record(sink, "grad." + p.name,
+                                         p.list_grad()[0])
+                return sink
+            _numerics.hold_replay("gluon", _replay)
             # the eager loop: one host sync a step, as the reference's
             grads = [p.list_grad()[0] for p in self._params
                      if p.grad_req != "null"]
@@ -281,6 +300,8 @@ class Trainer:
             if param.grad_req == "null":
                 continue
             weight, grad = param.list_data()[0], param.list_grad()[0]
+            if stats is not None:
+                _numerics.record(stats, "grad." + param.name, grad)
             if self._lazy(param):
                 rows = param.take_rows()
                 if rows is None:
@@ -289,6 +310,11 @@ class Trainer:
             else:
                 updater(i, grad, weight)
             param._broadcast_data()
+            if stats is not None:
+                _numerics.record(stats, "update." + param.name,
+                                 param.list_data()[0])
+        if stats:
+            _numerics.publish("gluon", self._numerics_t, stats)
 
     def save_states(self, fname):
         """Save the optimizer states and the optimizer to ``fname``,

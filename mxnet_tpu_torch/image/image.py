@@ -678,7 +678,9 @@ class ImageIter(DataIter):
     def _decode_positions(self, positions):
         """Decode and augment the samples at these epoch positions, each
         read retried on an I/O error (``resilience.call_with_retry``),
-        over ``io.decode_workers`` threads when it is above 1."""
+        over ``io.decode_workers`` threads when it is above 1 (in an
+        ``io.decode`` span, each job under the caller's tracing context,
+        so its spans keep their parentage)."""
         from .. import config as _config
         from ..resilience import call_with_retry
 
@@ -688,8 +690,14 @@ class ImageIter(DataIter):
         workers = int(_config.get("io.decode_workers") or 0)
         if workers <= 1 or len(positions) <= 1:
             return [read(p) for p in positions]
+        from .. import tracing as _tracing
         pool = self._decode_pool(workers)
-        return list(pool.map(read, positions))
+        with _tracing.span("io.decode", cat="io", workers=workers):
+            # wrap_context per submit: each job gets its OWN context copy
+            # (a shared copy cannot be entered by two threads at once)
+            jobs = [pool.submit(_tracing.wrap_context(read), p)
+                    for p in positions]
+            return [j.result() for j in jobs]
 
     def _batch_samples(self):
         """One batch of decoded samples, ``([(slot, data, label)], pad)``,

@@ -365,9 +365,10 @@ def is_staged(x, placement=None):
 def ensure_staged(x, placement=None, source="step"):
     """``x`` as a tensor on the placement's device (default: the current
     context's).  A tensor already there passes through untouched; anything
-    else is copied on the caller's thread and counted as a synchronous
-    transfer (``io.h2d_sync`` and ``io.h2d_sync.<source>``): with a
-    ``DevicePrefetcher`` in front these stay flat."""
+    else is copied on the caller's thread, in an ``io.h2d`` span, and
+    counted as a synchronous transfer (``io.h2d_sync`` and
+    ``io.h2d_sync.<source>``): with a ``DevicePrefetcher`` in front these
+    stay flat."""
     if isinstance(x, NDArray):
         x = x._data
     dev = _placement_device(placement)
@@ -376,7 +377,9 @@ def ensure_staged(x, placement=None, source="step"):
     _telemetry.counter("io.h2d_sync").inc()
     _telemetry.counter("io.h2d_sync." + source).inc()
     t0 = _time.perf_counter()
-    out = torch.as_tensor(x).to(dev)
+    from . import tracing as _tracing
+    with _tracing.span("io.h2d", cat="io", source=source):
+        out = torch.as_tensor(x).to(dev)
     _telemetry.timer("io.h2d_ms").observe(
         (_time.perf_counter() - t0) * 1e3)
     _telemetry.counter("io.staged_bytes").inc(out.numel()
@@ -473,7 +476,10 @@ class _WorkerFailure:
 
 class _Prefetcher(DataIter):
     """A background thread that keeps ``depth`` items ahead of the
-    consumer in a queue; subclasses make each item (``_produce``)."""
+    consumer in a queue; subclasses make each item (``_produce``), each in
+    an ``io.prefetch`` span.  The thread runs under the creating thread's
+    tracing context (``tracing.wrap_context``), so its spans carry the
+    creator's ``trace_id``."""
 
     def __init__(self, iters, depth):
         if not isinstance(iters, (list, tuple)):
@@ -502,6 +508,7 @@ class _Prefetcher(DataIter):
         return [call_with_retry(it.next, kind="io") for it in self.iters]
 
     def _start(self):
+        from . import tracing as _tracing
         stop, q = self._stop, self._queue
 
         def put(item):
@@ -517,7 +524,8 @@ class _Prefetcher(DataIter):
             with self._context:
                 while not stop.is_set():
                     try:
-                        item = self._produce()
+                        with _tracing.span("io.prefetch", cat="io"):
+                            item = self._produce()
                     except StopIteration:
                         put(None)
                         return
@@ -527,8 +535,10 @@ class _Prefetcher(DataIter):
                     if not put(item):
                         return
 
-        self._thread = threading.Thread(target=worker, daemon=True,
-                                        name="mx-prefetch")
+        # wrap_context: the worker's spans carry the creating context's
+        # trace (its open span is their parent)
+        self._thread = threading.Thread(target=_tracing.wrap_context(worker),
+                                        daemon=True, name="mx-prefetch")
         self._thread.start()
 
     def reset(self):
@@ -699,6 +709,11 @@ class DevicePrefetcher(_Prefetcher):
         the staged batch and the event its copies end in."""
         if self._stream is None:
             self._stream = torch.cuda.Stream(device=dev)
+        from . import tracing as _tracing
+        with _tracing.span("io.h2d", cat="io", source="prefetch"):
+            return self._stage_copies(batch, dev)
+
+    def _stage_copies(self, batch, dev):
         t0 = _time.perf_counter()
         staged = []
         for pos, a in enumerate(list(batch.data) + list(batch.label)):

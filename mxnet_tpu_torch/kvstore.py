@@ -128,13 +128,16 @@ class KVStore:
         _resilience.inject("dcn_push")
         from .parallel import host_allgather
         from .parallel.compression import note_wire, pack_2bit, unpack_2bit
+        from . import tracing as _tracing
         shape, n = codes.shape, codes.numel()
         packed = pack_2bit(codes)
         note_wire(packed.numel(), n * 4)
-        rows = host_allgather(packed)
-        total = torch.zeros(shape, dtype=torch.int32, device=codes.device)
-        for w in range(rows.shape[0]):
-            total = total + unpack_2bit(rows[w], n).reshape(shape)
+        with _tracing.span("allreduce_2bit", cat="collective"):
+            rows = host_allgather(packed)
+            total = torch.zeros(shape, dtype=torch.int32,
+                                device=codes.device)
+            for w in range(rows.shape[0]):
+                total = total + unpack_2bit(rows[w], n).reshape(shape)
         return total
 
     def _compression_threshold(self):
@@ -167,10 +170,13 @@ class KVStore:
         (reference: kvstore.py:178; KVStoreLocal::PushImpl); a dist store
         sums over the workers first.  A transient error is retried with
         backoff; the ``kvstore`` fault is drawn before any key is merged,
-        so a retried injected fault applies nothing twice."""
+        so a retried injected fault applies nothing twice.  In a
+        ``kvstore.push`` span (the 2-bit hop in ``allreduce_2bit``)."""
+        from . import tracing as _tracing
         keys, values = _normalize(key, value)
-        _resilience.call_with_retry(self._push_impl, keys, values,
-                                    kind="kvstore", inject_faults=True)
+        with _tracing.span("kvstore.push", cat="kvstore", keys=len(keys)):
+            _resilience.call_with_retry(self._push_impl, keys, values,
+                                        kind="kvstore", inject_faults=True)
 
     def _push_impl(self, keys, values):
         with torch.no_grad():
@@ -193,13 +199,16 @@ class KVStore:
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         """Copies the stored value(s) into ``out`` (reference:
-        kvstore.py:248); each output keeps its dtype and device."""
+        kvstore.py:248); each output keeps its dtype and device.  In a
+        ``kvstore.pull`` span."""
         if out is None:
             raise ValueError("pull needs out=")
+        from . import tracing as _tracing
         keys, outs = _normalize(key, out)
         # a pull is a copy from the store: retrying it is always safe
-        _resilience.call_with_retry(self._pull_impl, keys, outs,
-                                    kind="kvstore", inject_faults=True)
+        with _tracing.span("kvstore.pull", cat="kvstore", keys=len(keys)):
+            _resilience.call_with_retry(self._pull_impl, keys, outs,
+                                        kind="kvstore", inject_faults=True)
 
     def _pull_impl(self, keys, outs):
         for k, o in zip(keys, outs):

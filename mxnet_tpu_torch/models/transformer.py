@@ -369,8 +369,21 @@ class TransformerLM(nn.Module):
         ``runtime.scan_stack`` (under the ``runtime.remat`` knob), then
         the final norm.  x [B, S, D] in the model dtype -> [B, S, D].
         Used by :meth:`apply` and :meth:`loss`, and by models that embed
-        differently before the stack (``models.bert``)."""
+        differently before the stack (``models.bert``).  Under an open
+        ``numerics.collect()`` each layer's output is tapped
+        (``layer_out[i]``), in both ``runtime.stack_mode`` modes."""
         xs = {n: getattr(self.layers, n) for n in LAYER_NAMES}
+        from .. import numerics as _numerics
+        if _numerics.collecting():
+            # a capture: each layer's output summarized as it passes, the
+            # (L, 6) stack expanded to layer_out[i] sites on the host
+            def body(carry, lp):
+                out = self._layer(carry, lp)
+                return out, _numerics.summarize(out)
+
+            x, ys = _runtime.scan_stack(body, x, xs)
+            _numerics.tap_stacked("layer_out", ys)
+            return _norm(x, self.final_norm)
 
         def body(carry, lp):
             return self._layer(carry, lp), None

@@ -5,10 +5,12 @@ Reference: ``python/mxnet/module/base_module.py``: ``fit`` (:409-530)
 runs bind -> init_params -> init_optimizer -> per batch
 ``train_step`` (forward_backward + update) and ``update_metric``;
 ``score``, ``predict`` and ``iter_predict`` evaluate.  ``train_step``
-checks the nanguard's abort first; ``fit`` finishes a pending preemption
-after the step in flight (``resilience.on_preempt=save_and_exit``: the
-epoch-end callbacks checkpoint, then the process exits 0).  A
-``monitor`` raises NotImplementedError.
+checks the nanguard's abort first and runs under
+``telemetry.step_scope("module")`` and the ``module.step`` span; ``fit``
+installs a ``monitor`` on the executor (``tic`` / ``toc_print`` around
+each step) and finishes a pending preemption after the step in flight
+(``resilience.on_preempt=save_and_exit``: the epoch-end callbacks
+checkpoint, then the process exits 0).
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import logging
 import time
 
 from .. import metric as metric_mod
+from .. import telemetry as _telemetry
+from .. import tracing as _tracing
 
 __all__ = ["BaseModule"]
 
@@ -81,19 +85,18 @@ class BaseModule:
 
     def train_step(self, data_batch):
         """One optimization step on ``data_batch``: forward_backward then
-        update (one fused step in ``Module`` when it may run fused).
-        Observed on the ``module.step_ms`` timer (host time).  Under
-        ``resilience.nanguard`` the abort (``NonFiniteStepError``) lands
-        here, at the start of a step after the device reported the
-        streak."""
+        update (one fused step in ``Module`` when it may run fused).  Each
+        step feeds the ``module.step`` telemetry timer (host seconds), one
+        JSONL step record when the step log is on, and opens the
+        ``module.step`` span.  Under ``resilience.nanguard`` the abort
+        (``NonFiniteStepError``) lands here, at the start of a step after
+        the device reported the streak."""
         from .. import resilience as _resilience
-        from .. import telemetry as _telemetry
         _resilience.maybe_abort_nonfinite("module")
-        t0 = time.perf_counter()
-        self.forward_backward(data_batch)
-        self.update()
-        _telemetry.timer("module.step_ms").observe(
-            (time.perf_counter() - t0) * 1e3)
+        with _telemetry.step_scope("module", batch=data_batch), \
+                _tracing.span("module.step", cat="module"):
+            self.forward_backward(data_batch)
+            self.update()
 
     def set_params(self, arg_params, aux_params, allow_missing=False,
                    force_init=True, allow_extra=False):
@@ -113,9 +116,6 @@ class BaseModule:
         """The training loop (reference ``base_module.py:409-530``)."""
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
-        if monitor is not None:
-            raise NotImplementedError("Monitor is not ported: fit(monitor=) "
-                                      "cannot be honoured")
         from .. import resilience as _resilience
         from ..callback import BatchEndParam
         from ..initializer import Uniform
@@ -133,11 +133,18 @@ class BaseModule:
         eval_metric = metric_mod.create(eval_metric)
         if validation_metric is None:
             validation_metric = eval_metric
+        if monitor is not None and getattr(self, "_exec", None) is not None:
+            # the reference installs the monitor on every executor at bind
+            monitor.install(self._exec)
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
             for nbatch, data_batch in enumerate(train_data):
+                if monitor is not None:
+                    monitor.tic()
                 self.train_step(data_batch)
+                if monitor is not None:
+                    monitor.toc_print()
                 self.update_metric(eval_metric, data_batch.label)
                 if batch_end_callback is not None:
                     params = BatchEndParam(epoch=epoch, nbatch=nbatch,

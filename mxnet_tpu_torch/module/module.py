@@ -36,9 +36,22 @@ outputs and gradients to a skip word on the card and the fused kernel
 (K3, K1) takes it; the streak of bad steps stays on the card and reaches
 the host through ``resilience.watch_streak`` (source ``module``).  The
 eager route checks the gradients on the host, one sync a step, as the
-reference's does.  ``train_step`` checks the abort first.  Not ported
-(raise NotImplementedError when asked for): numerics capture, Monitor,
-and optimizer state in checkpoints.
+reference's does.  ``train_step`` checks the abort first; the fused
+step holds a replay of its batch for the abort's forensics
+(``numerics.hold_replay``: on copies of the weights and optimizer state,
+the skip word off).
+
+Observability, as in the reference: each ``train_step`` runs under
+``telemetry.step_scope("module")`` and the ``module.step`` span, with the
+``module.fused_dispatch`` / ``module.eager_replay`` / ``module.opt_update``
+spans inside.  Under ``numerics.capture=step:N`` every Nth fused step
+summarizes every op's outputs, then ``grad.<name>`` and
+``update.<name>``, and publishes them without a host sync.  A
+``mx.monitor.Monitor`` installed on the executor keeps the step fused
+(the outputs fire through it after the step, ``toc`` reads the updated
+parameters; one warning says per-op values come from the capture knob);
+a raw monitor callback runs the eager step.  Not ported (raises
+NotImplementedError when asked for): optimizer state in checkpoints.
 """
 from __future__ import annotations
 
@@ -48,23 +61,20 @@ import torch
 
 from .. import config as _config
 from ..io import ensure_staged
+from .. import numerics as _numerics
 from .. import optimizer as opt_mod
+from .. import profiler as _profiler
 from .. import telemetry as _telemetry
+from .. import tracing as _tracing
 from ..base import torch_dtype
 from ..context import resolve_device
 from ..initializer import InitDesc, Uniform
 from ..kvstore import _DIST_TYPES, _LOCAL_TYPES
 from ..ndarray.ndarray import _wrap
+from ..parallel.trainer import _tree
 from .base_module import BaseModule
 
 __all__ = ["Module"]
-
-# knobs of reference features the port does not have yet: set, they would
-# change what a step computes, so the Module refuses to train
-_UNPORTED_KNOBS = {
-    "numerics.capture": "in-step numerics capture",
-}
-
 
 def _norm_shapes(shapes, names):
     """``[(name, shape)]`` from DataDescs, pairs or bare shapes; and
@@ -89,12 +99,13 @@ class FusedState:
     their default bucket's, so a bucket switch keeps the moments and the
     count (reference ``module.py:91``, ``_fused_shared``)."""
 
-    __slots__ = ("state", "t", "nan_streak")
+    __slots__ = ("state", "t", "nan_streak", "hyper_host")
 
     def __init__(self):
         self.state = {}
         self.t = 0
         self.nan_streak = None  # the nanguard's streak, on the card
+        self.hyper_host = None  # the last step's (lrs, wds)
 
 
 class Module(BaseModule):
@@ -128,6 +139,8 @@ class Module(BaseModule):
         self._exec = None
         self._optimizer = None
         self._updater = None
+        # one warning when a Monitor rides the fused step
+        self._warned_monitor_fused = False
         self._data_shapes = None
         self._label_shapes = None
         self._inputs_need_grad = False
@@ -267,6 +280,25 @@ class Module(BaseModule):
         if self._inputs_need_grad or self._exec._placement or \
                 not getattr(self._optimizer, "jit_safe", False):
             return False
+        cb = self._exec._monitor
+        if cb is not None:
+            from ..monitor import Monitor
+            if not isinstance(getattr(cb, "__self__", None), Monitor):
+                # a raw callback sees the eager step's forward
+                return False
+            # a Monitor keeps the step fused: the outputs fire through
+            # its callback after the step and toc() reads the updated
+            # parameters; per-op values come from the capture knob
+            if not self._warned_monitor_fused:
+                self._warned_monitor_fused = True
+                self.logger.warning(
+                    "Monitor installed on a FUSED module step: interval "
+                    "param/output stats keep working, but per-op "
+                    "intermediates are not materialized on this path — "
+                    "set numerics.capture=step:N (MXNET_TPU_NUMERICS) "
+                    "for per-site statistics, or "
+                    "config.set('module.fused_step', 'off') for the "
+                    "eager monitor.")
         req = self._exec.grad_req
         wrt = [n for n, r in req.items() if r != "null"]
         if not wrt or any(req[n] != "write" for n in wrt):
@@ -284,7 +316,8 @@ class Module(BaseModule):
             return
         self._pending_batch = None
         _telemetry.counter("module.eager_replays").inc()
-        BaseModule.forward_backward(self, batch)
+        with _tracing.span("module.eager_replay", cat="module"):
+            BaseModule.forward_backward(self, batch)
 
     def _feeds(self, data_batch):
         """``{name: tensor}`` of the batch's data and labels, on the
@@ -309,6 +342,8 @@ class Module(BaseModule):
         feed_sig = tuple((n, tuple(v.shape), str(v.dtype))
                          for n, v in sorted(feeds.items()))
         fn = exec_.fused_step_fn(wrt, optimizer, feed_sig)
+        # the capture cadence, decided once a step
+        stats = {} if _numerics.should_capture("module") else None
         idxs = tuple(self._param_names.index(n) for n in wrt)
         shared = self._fused_shared
         state = shared.state
@@ -325,10 +360,15 @@ class Module(BaseModule):
             optimizer._index_update_count[i] = t
         lrs = [optimizer._get_lr(i) for i in idxs]
         wds = [optimizer._get_wd(i) for i in idxs]
+        if (lrs, wds) != shared.hyper_host:
+            # new lr/wd values reach the card (the reference's two
+            # uploads of changed hyperparameters)
+            shared.hyper_host = (lrs, wds)
+            _profiler.counter_increment("host_syncs", 2)
         # t is a Python int, as on the eager route: Adam's bias correction
         # is then the same on both routes (the reference's jitted step
         # takes it in f32 from a traced int32, 6e-6 away: 1 - 0.999 in f32)
-        outs, aux_updates, word = fn(feeds, state, t, lrs, wds)
+        outs, aux_updates, word = fn(feeds, state, t, lrs, wds, stats)
         if word is not None:
             from .. import resilience as _resilience
             streak = shared.nan_streak
@@ -337,22 +377,35 @@ class Module(BaseModule):
                                      device=word.device)
             shared.nan_streak = _resilience.guarded_streak(word == 0, streak)
             _resilience.watch_streak("module", shared.nan_streak)
+
+            def _replay():
+                # forensics: this batch once more, on copies of the
+                # weights and optimizer state, the skip word off
+                live = {n: exec_.arg_dict[n]._data for n in wrt}
+                for n in wrt:
+                    exec_.arg_dict[n]._data = live[n].clone()
+                copies = {n: _tree(state[n], torch.clone) for n in wrt}
+                sink = {}
+                try:
+                    fn(feeds, copies, t, lrs, wds, sink, guard=False)
+                finally:
+                    for n in wrt:
+                        exec_.arg_dict[n]._data = live[n]
+                return sink
+            _numerics.hold_replay("module", _replay)
+        if stats is not None:
+            _numerics.publish("module", t, stats)
         for n, v in aux_updates.items():
             if n in exec_.aux_dict:
                 exec_.aux_dict[n]._data = v
         exec_.outputs = [_wrap(o) for o in outs]
-        _telemetry.counter("fused_steps").inc()
-
-    def _check_unported(self):
-        for knob, what in _UNPORTED_KNOBS.items():
-            if _config.get(knob):
-                raise NotImplementedError(
-                    "%s (%s=%r) is not ported: Module cannot honour it"
-                    % (what, knob, _config.get(knob)))
+        # a Monitor on the fused step sees the outputs, as the eager
+        # executor's forward fires them
+        exec_._fire_monitor()
+        _profiler.counter_increment("fused_steps")
 
     # ------------------------------------------------------------- running
     def forward_backward(self, data_batch):
-        self._check_unported()
         if self._fused_active():
             # a second deferral without update(): the first batch's
             # outputs and aux write-backs land first, in order
@@ -379,13 +432,13 @@ class Module(BaseModule):
         parameter from ``grad_dict``."""
         if not self.optimizer_initialized:
             raise RuntimeError("init_optimizer() first")
-        self._check_unported()
         batch = self._pending_batch
         if batch is not None:
             self._pending_batch = None
-            self._run_fused(batch)
+            with _tracing.span("module.fused_dispatch", cat="module"):
+                self._run_fused(batch)
             return
-        _telemetry.counter("eager_steps").inc()
+        _profiler.counter_increment("eager_steps")
         from .. import resilience as _resilience
         if _resilience.nanguard_mode():
             # the eager route has no fused step to fold the check into:
@@ -396,10 +449,11 @@ class Module(BaseModule):
                 _resilience.report_nonfinite("module")
                 return
             _resilience.note_finite("module")
-        for i, name in enumerate(self._param_names):
-            g = self._exec.grad_dict.get(name)
-            if g is not None:
-                self._updater(i, g, self._exec.arg_dict[name])
+        with _tracing.span("module.opt_update", cat="module"):
+            for i, name in enumerate(self._param_names):
+                g = self._exec.grad_dict.get(name)
+                if g is not None:
+                    self._updater(i, g, self._exec.arg_dict[name])
 
     def get_outputs(self, merge_multi_context=True):
         self._flush_pending()
@@ -448,3 +502,4 @@ class Module(BaseModule):
         from ..model import save_checkpoint
         arg_params, aux_params = self.get_params()
         save_checkpoint(prefix, epoch, self._symbol, arg_params, aux_params)
+

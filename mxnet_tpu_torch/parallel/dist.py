@@ -192,13 +192,16 @@ def all_gather(t, group=None):
 
 
 def barrier(name="kvstore"):
-    """Global barrier (reference ``KVStore::Barrier``)."""
+    """Global barrier (reference ``KVStore::Barrier``), in a ``barrier``
+    span."""
     if not _dist.is_initialized() or _dist.get_world_size() == 1:
         return
-    if _dist.get_backend() == "nccl":
-        _dist.barrier(device_ids=[_GROUP.device.index])
-    else:
-        _dist.barrier()
+    from .. import tracing as _tracing
+    with _tracing.span("barrier", cat="collective", name_arg=name):
+        if _dist.get_backend() == "nccl":
+            _dist.barrier(device_ids=[_GROUP.device.index])
+        else:
+            _dist.barrier()
 
 
 def _as_tensor(val):
@@ -213,22 +216,31 @@ def _as_tensor(val):
 
 def host_allgather(val):
     """Stack a rank-local array over all ranks: ``[world, *shape]`` (the
-    reference's ``host_allgather``).  numpy in, numpy out; a tensor comes
-    back on its device."""
+    reference's ``host_allgather``), in an ``allgather`` span over
+    several ranks.  numpy in, numpy out; a tensor comes back on its
+    device."""
     t, is_np = _as_tensor(val)
-    out = all_gather(t)
+    if world_size() == 1:
+        out = all_gather(t)
+    else:
+        from .. import tracing as _tracing
+        with _tracing.span("allgather", cat="collective"):
+            out = all_gather(t)
     return out.cpu().numpy() if is_np else out
 
 
 def host_allreduce(val):
     """Sum a rank-local array over all ranks, the rows added in rank order
     so the sum is the same on every rank and in every run (the reference's
-    ``host_allreduce``: the dist_sync server-merge analog)."""
+    ``host_allreduce``: the dist_sync server-merge analog), in an
+    ``allreduce`` span."""
     if world_size() == 1:
         return val
-    t, is_np = _as_tensor(val)
-    rows = all_gather(t)
-    total = rows[0].clone()
-    for r in range(1, rows.shape[0]):
-        total += rows[r]
+    from .. import tracing as _tracing
+    with _tracing.span("allreduce", cat="collective"):
+        t, is_np = _as_tensor(val)
+        rows = host_allgather(t)
+        total = rows[0].clone()
+        for r in range(1, rows.shape[0]):
+            total += rows[r]
     return total.cpu().numpy() if is_np else total

@@ -43,7 +43,9 @@ from collections import OrderedDict
 import numpy as _np
 import torch
 
+from .. import numerics as _numerics
 from .. import telemetry as _telemetry
+from .. import tracing as _tracing
 from . import dist as _dist
 
 __all__ = ["ShardedEmbedding", "dedup_ids", "lookup_unique", "update_unique",
@@ -250,6 +252,9 @@ class SparseLookupContext:
                                  self._mesh if meta["axis"] else None,
                                  meta["axis"])
         rows = rows + self._deltas[name].to(rows.dtype)
+        # a capture step's collector takes the touched unique rows (the
+        # gathered output only repeats them)
+        rows = _numerics.tap("embedding.%s.rows" % name, rows)
         self.records[name] = uniq
         return _take_fill(rows, inv, cap, glob.numel()).reshape(
             tuple(ids.shape) + (meta["dim"],))
@@ -259,7 +264,8 @@ class ShardedEmbedding:
     """A vocab-sharded embedding table with deduplicated lookups and lazy
     row-sparse updates: the standalone counterpart of the trainer's
     routing, over the same :func:`dedup_ids`, :func:`lookup_unique` and
-    :func:`update_unique`.
+    :func:`update_unique`, in ``embedding.lookup`` / ``embedding.update``
+    spans, with its own ``embedding`` numerics capture source.
 
     Over a multi-rank mesh every rank passes the same ids (the global
     batch) and gets every row.  Each call feeds the ``embedding.*``
@@ -326,18 +332,27 @@ class ShardedEmbedding:
 
     def lookup(self, ids):
         """Rows for an integer id batch: ``[*ids.shape, dim]``; ids
-        ``>= num_rows`` (the pad sentinel) give zero rows."""
+        ``>= num_rows`` (the pad sentinel) give zero rows.  Runs in an
+        ``embedding.lookup`` span; a capture step of the ``embedding``
+        source (``numerics.capture``) summarizes the touched unique rows
+        as ``embedding.rows``."""
         ids = torch.as_tensor(ids).to(self.mesh.device)
         n = max(int(ids.numel()), 1)
         cap = unique_capacity(n)
-        t0 = _time.perf_counter()
-        uniq, inv = dedup_ids(ids, cap, self.num_rows)
-        rows = lookup_unique(self.table, uniq, *self._mesh_args())
-        out = _take_fill(rows, inv, cap, ids.numel()).reshape(
-            tuple(ids.shape) + (self.dim,))
-        n_unique = int((uniq < self.num_rows).sum())
-        _telemetry.timer("embedding.lookup_ms").observe(
-            (_time.perf_counter() - t0) * 1000.0)
+        cap_stats = _numerics.should_capture("embedding")
+        with _tracing.span("embedding.lookup", cat="embedding"):
+            t0 = _time.perf_counter()
+            uniq, inv = dedup_ids(ids, cap, self.num_rows)
+            rows = lookup_unique(self.table, uniq, *self._mesh_args())
+            out = _take_fill(rows, inv, cap, ids.numel()).reshape(
+                tuple(ids.shape) + (self.dim,))
+            n_unique = int((uniq < self.num_rows).sum())
+            _telemetry.timer("embedding.lookup_ms").observe(
+                (_time.perf_counter() - t0) * 1000.0)
+        if cap_stats:
+            stats = {}
+            _numerics.record(stats, "embedding.rows", rows)
+            _numerics.publish("embedding", self._t, stats)
         _telemetry.counter("embedding.gathered_rows").inc(cap)
         _telemetry.gauge("embedding.unique_ratio").set(float(n_unique) / n)
         return out
@@ -352,13 +367,15 @@ class ShardedEmbedding:
         grad = torch.as_tensor(grad).to(self.mesh.device)
         self._t += 1
         cap = unique_capacity(max(int(ids.numel()), 1))
-        uniq, inv = dedup_ids(ids, cap, self.num_rows)
-        gsum = torch.zeros((cap + 1, self.dim), dtype=grad.dtype,
-                           device=grad.device)
-        # ids the cap cut land in the extra row, which is dropped
-        gsum.index_add_(0, inv.clamp(max=cap), grad.reshape(-1, self.dim))
-        update_unique(self.optimizer, self.table, self.state, uniq,
-                      gsum[:cap].to(self.table.dtype), lr, wd, self._t,
-                      *self._mesh_args())
+        with _tracing.span("embedding.update", cat="embedding"):
+            uniq, inv = dedup_ids(ids, cap, self.num_rows)
+            gsum = torch.zeros((cap + 1, self.dim), dtype=grad.dtype,
+                               device=grad.device)
+            # ids the cap cut land in the extra row, which is dropped
+            gsum.index_add_(0, inv.clamp(max=cap),
+                            grad.reshape(-1, self.dim))
+            update_unique(self.optimizer, self.table, self.state, uniq,
+                          gsum[:cap].to(self.table.dtype), lr, wd, self._t,
+                          *self._mesh_args())
         _telemetry.counter("embedding.rows_touched").inc(cap)
         return self.table

@@ -88,11 +88,25 @@ Resilience (``mx.resilience``), wired where the reference wires it:
 - ``mx.elastic``'s per-step preemption agreement when ``elastic.dir`` is
   set, then ``resilience.exit_on_preempt``.
 
+Observability (``mx.telemetry``, ``mx.tracing``, ``mx.numerics``), where
+the reference wires it: each step runs under
+``telemetry.step_scope("spmd")`` and the ``spmd.step`` span (the batch's
+staging in ``spmd.shard_batch``, a rebuilt step in ``spmd.compile``) and
+counts ``fused_steps`` (``fused_compiles`` a build, ``host_syncs`` two an
+lr/wd change).  Under ``numerics.capture=step:N`` every Nth step
+summarizes ``out``, ``loss``, then each trainable's ``grad.<name>`` (after
+the all-reduce and ``rescale_grad``/clipping) and ``update.<name>`` (its
+value after the update), with the forward's own taps first, and
+publishes them without a host sync (``numerics.publish``); such a step
+runs the uncompressed sync.  With the nanguard on, each step holds a
+replay of its batch (``numerics.hold_replay``): on the abort it re-runs
+on copies of the state with the skip word off, so the candidate update
+shows what the bad step would have written.
+
 Refused (``NotImplementedError``, never ignored): the row-sparse route
 and the compressed step on meshes whose other axes than the batch axes
-have more than one rank, a ``param_specs`` entry for a routed table,
-``conv.weights_layout=HWIO`` and in-step numerics capture
-(``numerics.capture``).
+have more than one rank, a ``param_specs`` entry for a routed table and
+``conv.weights_layout=HWIO``.
 
 ``save_checkpoint`` / ``load_checkpoint`` keep the reference's
 single-file checkpoint: a pickle of numpy arrays under the same keys
@@ -114,6 +128,7 @@ share.
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 import pickle
@@ -124,8 +139,11 @@ import torch
 from .. import config as _config
 from .. import elastic as _elastic
 from .. import kernels as _kernels
+from .. import numerics as _numerics
+from .. import profiler as _profiler
 from .. import resilience as _resilience
 from .. import telemetry as _telemetry
+from .. import tracing as _tracing
 from ..io import ensure_staged
 from ..ndarray.ndarray import NDArray, _wrap
 from . import dist as _dist
@@ -136,13 +154,6 @@ from .mesh import (PartitionSpec, data_parallel_mesh, _local_rows,
                    _spec_axes)
 
 __all__ = ["SPMDTrainer", "build_train_step"]
-
-# knobs of reference features the port does not have yet: set, they
-# would change what a step computes, so the trainer refuses to run
-_UNPORTED_KNOBS = {
-    "numerics.capture": "in-step numerics capture",
-}
-
 
 def _f32(x):
     """A Python float rounded to f32, as a Python float."""
@@ -209,6 +220,7 @@ class SPMDTrainer:
         self._program_key = None
         self._ckpt_manager = None
         self._nan_streak = None
+        self._hyper_host = None  # the last step's (lrs, wds)
 
     @property
     def batch_sharding(self):
@@ -298,13 +310,14 @@ class SPMDTrainer:
         return v if spec is None else unshard(v, self.mesh, spec)
 
     def _forward_backward(self, train, aux, tables, deltas, data, label,
-                          pad, local_mean):
+                          pad, local_mean, stats=None):
         """The step's forward and backward at the given masters:
         ``(loss, new_aux, grads, delta_grads, unique ids)``, grads in the
         order of the dense trainables, f32 for f32 masters, contiguous
         (under ``conv.internal_layout=NHWC`` a conv weight's gradient
         comes back channels_last), not yet reduced over ranks; the unique
-        ids of each routed table that was looked up."""
+        ids of each routed table that was looked up.  ``stats`` (a dict)
+        takes the forward's taps, then ``out`` and ``loss``."""
         from ..ops import nn as _nn_ops
         from ..ops import tensor as _tensor_ops
         fn, cdt = self.fn, self.compute_dtype
@@ -323,13 +336,21 @@ class SPMDTrainer:
             ctx = _pemb.SparseLookupContext(
                 self.mesh, self._sparse_embed, routed, deltas,
                 self._batch_axes) if tables else None
-            stats = (self.mesh, self._batch_axes) \
+            bn_stats = (self.mesh, self._batch_axes) \
                 if self._n_shards > 1 and not local_mean else None
             prev = _tensor_ops.set_embed_context(ctx)
-            prev_stats = _nn_ops.set_batch_stats_context(stats)
+            prev_stats = _nn_ops.set_batch_stats_context(bn_stats)
             try:
-                (out,), new_aux = fn.apply(param_map, (data,),
-                                           training=True)
+                if stats is not None:
+                    # the model's own taps (the routed tables' touched
+                    # rows, a transformer's layer_out) fill the collector
+                    with _numerics.collect() as sink:
+                        (out,), new_aux = fn.apply(param_map, (data,),
+                                                   training=True)
+                    stats.update(sink)
+                else:
+                    (out,), new_aux = fn.apply(param_map, (data,),
+                                               training=True)
             finally:
                 _tensor_ops.set_embed_context(prev)
                 _nn_ops.set_batch_stats_context(prev_stats)
@@ -337,6 +358,9 @@ class SPMDTrainer:
                 out = out.float()
             loss, report = self._loss_terms(
                 _raw_loss(self.loss_fn, out, label), pad, local_mean)
+            if stats is not None:
+                _numerics.record(stats, "out", out)
+                _numerics.record(stats, "loss", report)
             masters = list(train.values())
             leaves = masters + list(deltas.values())
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -433,15 +457,18 @@ class SPMDTrainer:
                 "embedding.sharded=False to train them densely"
                 % (routed, type(optimizer).__name__))
         multi = self._n_shards > 1
-        guard = bool(_resilience.nanguard_mode())
+        guarded = bool(_resilience.nanguard_mode())
         # sharded parameters leave each rank its own blocks of gradients:
         # their words are summed over the world, so every rank skips alike
         shared_word = self.mesh.size > 1 and bool(
             self._param_specs or self._extra_axes)
 
         @torch.no_grad()
-        def step(data, label, t, lrs, wds, pad, compress):
-            """The step; returns ``(loss, skip word or None)``."""
+        def step(data, label, t, lrs, wds, pad, compress, stats=None,
+                 guard=guarded):
+            """The step; returns ``(loss, skip word or None)``.  ``stats``
+            (a dict) takes the step's numerics sites; ``guard=False``
+            drops the skip word (the forensics replay)."""
             params, state = self.params, self.opt_state
             train = {n: params[n] for n in dense}
             aux = {n: params[n] for n in self.fn.aux}
@@ -455,7 +482,8 @@ class SPMDTrainer:
                     dtype=ddt or tables[n].dtype, device=self.device,
                     requires_grad=True) for n in routed}
             loss, new_aux, grads, dgrads, recs = self._forward_backward(
-                train, aux, tables, deltas, data, label, pad, compress)
+                train, aux, tables, deltas, data, label, pad, compress,
+                stats)
             if compress:
                 old_res = self._dcn_residuals
                 grads = self._dcn_sync(dense, grads)
@@ -488,6 +516,13 @@ class SPMDTrainer:
                     self._dcn_residuals = _resilience.select_tree(
                         keep, self._dcn_residuals, prev)
             grads = [_preprocess(optimizer, g) for g in grads]
+            gvs = {n: _preprocess(optimizer, dgrads[n].to(tables[n].dtype))
+                   for n in routed if recs.get(n) is not None}
+            if stats is not None:
+                by_name = dict(zip(dense, grads), **gvs)
+                for n in self.fn.trainable:
+                    if n in by_name:
+                        _numerics.record(stats, "grad." + n, by_name[n])
             masters = [params[n] for n in dense]
             states = [state[n] for n in dense]
             lr_d = [lrs[index[n]] for n in dense]
@@ -511,15 +546,17 @@ class SPMDTrainer:
                 if uniq is None:
                     continue  # not looked up this forward: no row to touch
                 meta = self._sparse_embed[n]
-                gv = _preprocess(optimizer, dgrads[n].to(tables[n].dtype))
                 _pemb.update_unique(
-                    optimizer, tables[n], state[n], uniq, gv,
+                    optimizer, tables[n], state[n], uniq, gvs[n],
                     lrs[index[n]], wds[index[n]], t,
                     self.mesh if meta["axis"] else None, meta["axis"],
                     skip=word)
             for n, v in new_aux.items():
                 aux[n].copy_(v if keep is None else torch.where(keep, v,
                                                                 aux[n]))
+            if stats is not None:
+                for n in self.fn.trainable:
+                    _numerics.record(stats, "update." + n, params[n])
             if routed:
                 # static accounting (no device sync): each routed table
                 # gathers and touches ``capacity`` unique rows a step
@@ -543,11 +580,6 @@ class SPMDTrainer:
 
     @staticmethod
     def _check_knobs():
-        for knob, what in _UNPORTED_KNOBS.items():
-            if _config.get(knob):
-                raise NotImplementedError(
-                    "%s is not ported (%s=%r)" % (what, knob,
-                                                  _config.get(knob)))
         if _config.get("conv.weights_layout") == "HWIO":
             raise NotImplementedError(
                 "conv.weights_layout=HWIO is not ported; use 'ref' (OIHW)")
@@ -570,19 +602,45 @@ class SPMDTrainer:
 
         Around the step, as the reference's: the nanguard's abort check
         (``NonFiniteStepError`` once the device has reported the streak,
-        after a checkpoint of the last good state), the ``nan`` fault, the
-        attached checkpoint manager's every-N save, ``mx.elastic``'s
-        preemption agreement, and a pending preemption's save and exit."""
+        after the forensics replay, the flight-recorder report and a
+        checkpoint of the last good state), the ``nan`` fault, the
+        telemetry step scope and the ``spmd.step`` span, the attached
+        checkpoint manager's every-N save, ``mx.elastic``'s preemption
+        agreement, and a pending preemption's save and exit."""
         pad = int(pad or 0)
         self._check_knobs()
         _resilience.maybe_abort_nonfinite("spmd", save_fn=self._preempt_save)
-        data, label = self._stage(data), self._stage(label)
+        shape = tuple(int(d) for d in getattr(data, "shape", ())) or None
+        with _telemetry.step_scope(
+                "spmd", samples=shape[0] - pad if shape else None,
+                shape=shape, mesh={n: int(self.mesh.shape[n])
+                                   for n in self.mesh.axis_names},
+                default_path="fused"), \
+                _tracing.span("spmd.step", cat="spmd"):
+            loss = self._step_impl(data, label, lr_scale, pad)
+        if self._ckpt_manager is not None and \
+                self._ckpt_manager.due(self._step_num):
+            self._save_through(self._ckpt_manager)
+        if _elastic.active():
+            # every rank adopts a preemption at this same step boundary,
+            # so the coordinated checkpoint below sees one world
+            _elastic.maybe_cluster_preempt(self._step_num)
+        if _resilience.preempt_requested():
+            _resilience.exit_on_preempt(save_fn=self._preempt_save)
+        return loss
+
+    def _step_impl(self, data, label, lr_scale, pad):
+        with _tracing.span("spmd.shard_batch", cat="spmd"):
+            data, label = self._stage(data), self._stage(label)
         if _resilience.faults_active("nan") and _resilience.should_inject(
                 "nan", step=self._step_num + 1):
             data = _resilience.poison_batch(data)
         if self.params is None:
             self._materialize(data)
-        compress = self._dcn_compress_active(pad)
+        # a capture step runs the uncompressed sync, so the statistics see
+        # the raw gradients (the reference's instrumented variant)
+        cap = _numerics.should_capture("spmd")
+        compress = (not cap) and self._dcn_compress_active(pad)
         if compress:
             self._dcn_check()
         elif self._dcn_residuals is not None \
@@ -592,12 +650,21 @@ class SPMDTrainer:
             self._dcn_residuals = None
         key = (_kernels.enabled(), _config.epoch())
         if self._program is None or key != self._program_key:
-            self._program, self._program_key = self._build(), key
+            with _tracing.span("spmd.compile", cat="spmd"):
+                self._program, self._program_key = self._build(), key
+            _profiler.counter_increment("fused_compiles")
         self._step_num += 1
         self.optimizer.num_update = self._step_num
         lrs, wds = self._hyper(lr_scale)
-        loss, word = self._program(data, label, self._step_num, lrs, wds,
-                                   pad, compress)
+        if (lrs, wds) != self._hyper_host:
+            # new lr/wd values reach the card (the reference's two
+            # uploads of changed hyperparameters)
+            self._hyper_host = (lrs, wds)
+            _profiler.counter_increment("host_syncs", 2)
+        stats = {} if cap else None
+        t = self._step_num
+        loss, word = self._program(data, label, t, lrs, wds, pad, compress,
+                                   stats)
         if word is not None:
             if self._nan_streak is None:
                 self._nan_streak = torch.zeros((), dtype=torch.int32,
@@ -609,16 +676,34 @@ class SPMDTrainer:
             _resilience.watch_streak(
                 "spmd", self._nan_streak,
                 lag=2 if self.mesh.size > 1 else 0)
-        if self._ckpt_manager is not None and \
-                self._ckpt_manager.due(self._step_num):
-            self._save_through(self._ckpt_manager)
-        if _elastic.active():
-            # every rank adopts a preemption at this same step boundary,
-            # so the coordinated checkpoint below sees one world
-            _elastic.maybe_cluster_preempt(self._step_num)
-        if _resilience.preempt_requested():
-            _resilience.exit_on_preempt(save_fn=self._preempt_save)
+            _numerics.hold_replay("spmd", functools.partial(
+                self._replay_stats, data, label, t, lrs, wds, pad))
+        if stats is not None:
+            _numerics.publish("spmd", self._step_num, stats)
+        _profiler.counter_increment("fused_steps")
         return loss
+
+    def _replay_stats(self, data, label, t, lrs, wds, pad):
+        """The nanguard's forensics: one step on ``data`` / ``label`` with
+        every site summarized, on copies of the weights, optimizer state
+        and statistics and without the skip word, so the candidate update
+        shows what the bad step would have written; the trainer's own
+        state is left as it was.  Returns the stats mapping."""
+        saved = self.params, self.opt_state
+        with torch.no_grad():
+            self.params = {}
+            for n, v in saved[0].items():
+                self.params[n] = v.detach().clone().requires_grad_(
+                    v.requires_grad)
+            self.opt_state = {n: _tree(s, torch.clone)
+                              for n, s in saved[1].items()}
+        stats = {}
+        try:
+            self._program(data, label, t, lrs, wds, pad, False, stats,
+                          guard=False)
+        finally:
+            self.params, self.opt_state = saved
+        return stats
 
     def _dcn_check(self):
         extra = [a for a in self.mesh.axis_names

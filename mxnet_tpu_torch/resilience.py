@@ -47,11 +47,13 @@
   (``poison_batch``), ``peer_preempt`` is ``mx.elastic``'s, and
   ``serving_dispatch`` / ``serving_slow`` the one-shot server's.
 
-Two steps of the reference's abort path wait for the port's
-observability slice: the numerics forensics replay of the failing batch
-(``numerics.run_forensics``) and the watchdog flight-recorder dump
-(``tracing.dump_watchdog_report``).  Until then the abort checkpoints,
-flushes the standard streams and raises the same error.
+The abort runs the reference's steps in its order: the numerics
+forensics replay of the failing batch (``numerics.run_forensics``: the
+first non-finite site), the watchdog flight-recorder dump
+(``tracing.dump_watchdog_report``, whose ring then holds the forensics
+event), the checkpoint, and ``flush_sinks`` (the telemetry and tracing
+sinks, then the standard streams); ``NonFiniteStepError`` names the
+report.
 """
 from __future__ import annotations
 
@@ -412,9 +414,15 @@ def exit_on_preempt(save_fn=None, logger=None):
 
 
 def flush_sinks():
-    """Flush what a preempted or aborting process must not lose.  The
-    port's telemetry keeps no file sink and it has no tracing module yet,
-    so this flushes the standard streams."""
+    """Flush what a preempted or aborting process must not lose: the
+    telemetry JSONL and tracing Chrome sinks (to disk, fsync), then the
+    standard streams."""
+    from . import telemetry, tracing
+    for mod in (telemetry, tracing):
+        try:
+            mod.flush()
+        except Exception:  # noqa: BLE001 — flushing is best-effort
+            pass
     for stream in (sys.stdout, sys.stderr):
         try:
             stream.flush()
@@ -637,14 +645,28 @@ def reset_nanguard():
 def maybe_abort_nonfinite(source, save_fn=None):
     """Checked once a step by the training loops: drains the completed
     streak observations (no sync) and, when ``source`` has crossed its
-    threshold, checkpoints through ``save_fn``, flushes and raises
-    NonFiniteStepError.  The device reports asynchronously, so the abort
+    threshold, runs the numerics forensics replay, dumps the watchdog's
+    flight-recorder report, checkpoints through ``save_fn``, flushes and
+    raises NonFiniteStepError.  The device reports asynchronously, so the abort
     lands within a step or two of the crossing."""
     if _STREAK_PENDING.get(source):
         poll_streaks(source)
     if source not in _NAN_ABORT:
         return
     streak = _NAN_ABORT.pop(source)
+    try:
+        # the root-cause pass first, so the nanguard_forensics ring event
+        # (the first non-finite site) lands in the flight-recorder report
+        from . import numerics as _numerics
+        _numerics.run_forensics(source)
+    except Exception as exc:  # noqa: BLE001 — forensics must not mask abort
+        _log("nanguard forensics failed: %s: %s", type(exc).__name__, exc)
+    report = None
+    try:
+        from . import tracing
+        report = tracing.dump_watchdog_report()
+    except Exception as exc:  # noqa: BLE001 — the abort must not be lost
+        _log("flight-recorder dump failed: %s: %s", type(exc).__name__, exc)
     if save_fn is not None:
         try:
             save_fn()
@@ -653,8 +675,9 @@ def maybe_abort_nonfinite(source, save_fn=None):
     flush_sinks()
     raise NonFiniteStepError(
         "%d consecutive non-finite steps on %s (nanguard=%s): the "
-        "parameters were not updated by the bad steps"
-        % (streak, source, nanguard_mode() or "abort"))
+        "parameters were not updated by the bad steps%s"
+        % (streak, source, nanguard_mode() or "abort",
+           "; flight recorder: %s" % report if report else ""))
 
 
 # ================================================ retry / backoff / jitter

@@ -63,8 +63,9 @@ counters; ``serving.breaker_state.<model>`` and ``serving.pending``
 gauges; ``serving.queue_delay_ms``, ``batch_fill``, ``dispatch_ms``,
 ``request_ms`` timers.
 
-Not ported yet: the quantization drift twin (``quant.drift_every`` > 0
-raises at ``register``), the watchdog stall probe, the ``serving.*``
+Not ported yet (slice 15 part 2): the quantization drift twin
+(``quant.drift_every`` > 0 raises at ``register``), the watchdog stall
+probe, the ``serving.*``
 spans and the access log, and a persistent compile cache (there is
 nothing to cache until the shapes run as CUDA graphs).
 
@@ -340,9 +341,9 @@ class Server:
             return self._register_generation(name, prefix)
         if quantized and int(_config.get("quant.drift_every") or 0) > 0:
             raise NotImplementedError(
-                "quant.drift_every > 0: the quantization drift twin needs "
-                "the numerics plane, which a later slice (15) ports; set "
-                "the knob to 0 to serve int8 models")
+                "quant.drift_every > 0: the quantization drift twin is "
+                "ported with the serving side of observability (slice 15 "
+                "part 2); set the knob to 0 to serve int8 models")
         predictor = _deploy.load_model(prefix, quantized=quantized,
                                        device=self.device)
         if predictor._params is None:

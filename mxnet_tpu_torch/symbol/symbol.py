@@ -21,8 +21,12 @@ op of no group), copying an input that lies on another device: the
 reference's cross-device copy nodes.  Autograd follows the copies, so a
 gradient lands on its array's device.
 
-Not ported: monitor callbacks and numerics taps; each raises
-NotImplementedError when asked for.
+Observability, as in the reference: ``Executor.forward`` / ``backward``
+run in ``executor.forward`` / ``executor.backward`` spans and timers; a
+monitor callback (``set_monitor_callback``, ``mx.monitor.Monitor``)
+fires on the outputs of each forward; under an open
+``numerics.collect()`` the interpretation taps every op's outputs by
+node name (``name`` or ``name[i]``), in graph order.
 """
 from __future__ import annotations
 
@@ -32,7 +36,9 @@ import numpy as _np
 import torch
 
 from .. import config as _config
+from .. import numerics as _numerics
 from .. import telemetry as _telemetry
+from .. import tracing as _tracing
 from ..base import torch_dtype
 from ..resilience import atomic_write
 from ..context import resolve_device
@@ -742,8 +748,11 @@ def _eval_symbol(sym, env, training, aux_updates=None, apply=None,
     write-backs are tensors either way.  ``overrides`` maps a node's id to
     the function that runs in its place (a loaded int8 artifact's
     recolored sites).  ``device_of(node)``, when given, is the device an
-    op runs on: a tensor input elsewhere is copied there first."""
+    op runs on: a tensor input elsewhere is copied there first.  Under an
+    open ``numerics.collect()`` every op's outputs are tapped by node
+    name."""
     cache = {}
+    taps = _numerics.collecting()
 
     def value(node, index=0):
         key = (id(node), index)
@@ -773,9 +782,16 @@ def _eval_symbol(sym, env, training, aux_updates=None, apply=None,
                 res = _registry.get(node.op).fn(*vals, **attrs)
             else:
                 res = apply(node.op, vals, attrs)
-            outs = list(res) if isinstance(res, (tuple, list)) else [res]
+            multi = isinstance(res, (tuple, list))
+            outs = list(res) if multi else [res]
             for i, o in enumerate(outs):
                 cache[(id(node), i)] = o
+            if taps:
+                # per-op numerics sites in graph order (a capture step's
+                # collector only)
+                for i, o in enumerate(outs):
+                    _numerics.tap(node.name if not multi
+                                  else "%s[%d]" % (node.name, i), o)
             if training and aux_updates is not None \
                     and node.op in _AUX_UPDATE_RULES:
                 aux_updates.update(_AUX_UPDATE_RULES[node.op](
@@ -849,6 +865,7 @@ class Executor:
         self.grad_req = grad_req
         self.outputs = []
         self._fused_cache = {}
+        self._monitor = None
 
     def _env(self):
         env = {n: v._data for n, v in self.arg_dict.items()}
@@ -899,7 +916,9 @@ class Executor:
     def forward(self, is_train=False, **kwargs):
         self._feed_inputs(kwargs)
         aux_updates = {}
-        with torch.no_grad():
+        with _telemetry.timer("executor.forward").time(), \
+                _tracing.span("executor.forward", cat="executor"), \
+                torch.no_grad():
             outs = _eval_symbol(self._symbol, self._env(), bool(is_train),
                                 aux_updates, device_of=self._device_of())
         for n, v in aux_updates.items():
@@ -907,7 +926,14 @@ class Executor:
                 self.aux_dict[n]._data = v.to(self.aux_dict[n]._data.device)
         from ..ndarray.ndarray import _wrap
         self.outputs = [_wrap(o) for o in outs]
+        self._fire_monitor()
         return self.outputs
+
+    def _fire_monitor(self):
+        """The monitor callback on each output, by output name."""
+        if self._monitor is not None:
+            for name, arr in zip(self._symbol.list_outputs(), self.outputs):
+                self._monitor(name, arr)
 
     def backward(self, out_grads=None):
         """Gradients into ``grad_dict`` per ``grad_req`` (``write`` or
@@ -926,10 +952,12 @@ class Executor:
                          else torch.as_tensor(g, device=self._device)
                          for g in out_grads]
         env = self._env()
-        _, grads = _grads(self._symbol, {n: v for n, v in env.items()
-                                         if n not in wrt},
-                          {n: env[n] for n in wrt}, out_grads,
-                          device_of=self._device_of())
+        with _telemetry.timer("executor.backward").time(), \
+                _tracing.span("executor.backward", cat="executor"):
+            _, grads = _grads(self._symbol, {n: v for n, v in env.items()
+                                             if n not in wrt},
+                              {n: env[n] for n in wrt}, out_grads,
+                              device_of=self._device_of())
         for n in wrt:
             tgt = self.grad_dict.get(n)
             if tgt is None:
@@ -947,14 +975,14 @@ class Executor:
         a knob flip builds a new one.  Each build counts
         ``fused_compiles``.
 
-        The returned ``fn(feeds, opt_state, t, lrs, wds) -> (outputs,
-        aux_updates, skip word)`` runs the forward under autograd with the
-        bound values and ``feeds``, takes the gradients with ones
-        cotangents, applies ``rescale_grad`` and clipping, and updates
-        each parameter and its state IN PLACE: the f32 ones through one
-        ``optimizer.step_fused_multi`` call (one launch of the fused
-        kernel, K3 for Adam and K1 for SGD, with an f32 cast: the master
-        itself) when
+        The returned ``fn(feeds, opt_state, t, lrs, wds, stats=None,
+        guard=...) -> (outputs, aux_updates, skip word)`` runs the forward
+        under autograd with the bound values and ``feeds``, takes the
+        gradients with ones cotangents, applies ``rescale_grad`` and
+        clipping, and updates each parameter and its state IN PLACE: the
+        f32 ones through one ``optimizer.step_fused_multi`` call (one
+        launch of the fused kernel, K3 for Adam and K1 for SGD, with an
+        f32 cast: the master itself) when
         ``kernels.fused_step_enabled(optimizer)``, each tensor counted on
         ``kernels.fused_step``; the others through ``optimizer.step``.
         Under ``resilience.nanguard`` the outputs and the gradients are
@@ -962,7 +990,11 @@ class Executor:
         (``resilience.skip_word``): the fused kernel takes it and writes
         nothing when it is set, the other parameters and the aux updates
         select their old values, and the word is returned (None when the
-        guard is off)."""
+        guard is off; ``guard=False`` drops it for one call, the forensics
+        replay).  ``stats`` (a dict) takes the numerics sites of a
+        capture step: every op's outputs in graph order, then each
+        parameter's ``grad.<name>`` (after ``rescale_grad`` and clipping)
+        and ``update.<name>`` (its value after the update)."""
         from .. import kernels as _kernels
         from .. import resilience as _resilience
         from ..optimizer.optimizer import _state_write
@@ -977,17 +1009,23 @@ class Executor:
         self._fused_cache = {k: v for k, v in self._fused_cache.items()
                              if k[-1] == key[-1]}
         fused_opt = _kernels.fused_step_enabled(optimizer)
-        guard = bool(_resilience.nanguard_mode())
+        guarded = bool(_resilience.nanguard_mode())
         sym = self._symbol
         # the cached step keeps its optimizer alive, so id() stays unique
         keep = optimizer
 
-        def run(feeds, opt_state, t, lrs, wds):
+        def run(feeds, opt_state, t, lrs, wds, stats=None, guard=guarded):
             env = self._env()
             env.update(feeds)
             params = {n: env.pop(n) for n in wrt_t}
             aux_updates = {}
-            outs, grads = _grads(sym, env, params, None, aux_updates)
+            if stats is not None:
+                with _numerics.collect() as sink:
+                    outs, grads = _grads(sym, env, params, None,
+                                         aux_updates)
+                stats.update(sink)
+            else:
+                outs, grads = _grads(sym, env, params, None, aux_updates)
             fused = ([], [], [], [], [])
             word = finite = None
             with torch.no_grad():
@@ -1000,6 +1038,8 @@ class Executor:
                         g = g * rescale
                     if clip is not None:
                         g = torch.clamp(g, -clip, clip)
+                    if stats is not None:
+                        _numerics.record(stats, "grad." + n, g)
                     state = opt_state[n]
                     if fused_opt and w.dtype == torch.float32:
                         for col, x in zip(fused, (w, g, state, lrs[i],
@@ -1017,6 +1057,9 @@ class Executor:
                     keep.step_fused_multi(*fused, t, skip=word)
                     for _ in fused[0]:
                         _kernels.note_fused_step()
+                if stats is not None:
+                    for n in wrt_t:
+                        _numerics.record(stats, "update." + n, params[n])
                 aux_new = {n: v.detach() for n, v in aux_updates.items()}
                 if guard:
                     aux_new = {n: torch.where(finite, v, env[n]) if n in env
@@ -1053,8 +1096,11 @@ class Executor:
                         dict(self.aux_dict), self._placement)
 
     def set_monitor_callback(self, callback, monitor_all=False):
-        raise NotImplementedError("executor monitor callbacks are not "
-                                  "ported")
+        """Install ``callback(name, NDArray)`` (None removes it): it fires
+        on each output of every forward, and of every fused Module step.
+        A raw callback puts the Module on its eager step; an
+        ``mx.monitor.Monitor``'s keeps it fused."""
+        self._monitor = callback
 
 
 def _copy_onto(v, like):

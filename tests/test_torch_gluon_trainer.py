@@ -428,7 +428,8 @@ def test_trainer_options_not_ported_raise():
         tr = tgluon.Trainer([w], "sgd", {})
         # save_states / load_states are ported (tests/test_torch_
         # persistence.py), and so are preemption saves and the nanguard
-        # (tests/test_torch_resilience.py); numerics capture is not
+        # (tests/test_torch_resilience.py), and numerics capture
+        # (tests/test_torch_numerics.py): a captured step runs
         tr.set_preemption_save(lambda: None)
         mt.config.set("resilience.nanguard", "abort")
         try:
@@ -437,10 +438,13 @@ def test_trainer_options_not_ported_raise():
             mt.config.unset("resilience.nanguard")
         mt.config.set("numerics.capture", "step:1")
         try:
-            with pytest.raises(NotImplementedError):
-                tr.step(1)
+            tr.step(1)
+            mt.numerics.poll("gluon", block=True)
+            assert list(mt.numerics.latest("gluon")[1]) == [
+                "grad.w", "update.w"]
         finally:
             mt.config.unset("numerics.capture")
+            mt.numerics.reset()
 
 
 def test_updater_states_round_trip_as_bytes():

@@ -421,8 +421,10 @@ def test_what_is_not_ported_raises():
     mod.init_params(mt.init.Xavier())
     mod.init_optimizer(optimizer="sgd")
     batch = next(mt.io.NDArrayIter(X, Y, batch_size=16))
-    # the nanguard is ported (tests/test_torch_resilience.py); numerics
-    # capture is not
+    # the nanguard is ported (tests/test_torch_resilience.py), and so are
+    # numerics capture and fit(monitor=) (tests/test_torch_numerics.py,
+    # tests/test_torch_monitor.py): a captured step and a monitored fit
+    # run
     tconfig.set("resilience.nanguard", "skip")
     try:
         mod.train_step(batch)
@@ -430,13 +432,16 @@ def test_what_is_not_ported_raises():
         tconfig.unset("resilience.nanguard")
     tconfig.set("numerics.capture", "step:1")
     try:
-        with pytest.raises(NotImplementedError, match="numerics"):
-            mod.train_step(batch)
+        mod.train_step(batch)
+        mt.numerics.poll("module", block=True)
+        assert "grad.fc1_weight" in mt.numerics.latest("module")[1]
     finally:
         tconfig.unset("numerics.capture")
-    with pytest.raises(NotImplementedError, match="Monitor"):
-        mod.fit(mt.io.NDArrayIter(X, Y, batch_size=16), num_epoch=1,
-                monitor=object())
+        mt.numerics.reset()
+    mon = mt.monitor.Monitor(1, pattern=".*weight")
+    mod.fit(mt.io.NDArrayIter(X, Y, batch_size=16), num_epoch=1,
+            monitor=mon)
+    assert mon.step == 1 and mon.exes == [mod._exec]
     with pytest.raises(NotImplementedError, match="optimizer states"):
         mod.save_checkpoint("unused", 1, save_optimizer_states=True)
     # group2ctxs placement is ported (tests/test_torch_multi_context.py):

@@ -13,6 +13,8 @@ import mxnet_tpu.resilience, mxnet_tpu.gluon.data  # noqa: F401
 import mxnet_tpu.gluon.contrib.data  # noqa: F401
 import mxnet_tpu.models.ssd  # noqa: F401
 import mxnet_tpu.parallel  # noqa: F401
+import mxnet_tpu.numerics, mxnet_tpu.monitor, mxnet_tpu.tracing  # noqa: F401
+import mxnet_tpu.profiler, mxnet_tpu.telemetry  # noqa: F401
 import mxnet_tpu_torch as mt
 import mxnet_tpu_torch.models.ssd  # noqa: F401
 import mxnet_tpu_torch.gluon.model_zoo.model_store  # noqa: F401
@@ -112,6 +114,12 @@ UNPORTED_SURFACE = {
     "parallel": {},
     "parallel.SPMDTrainer": {},
     "kvstore.KVStore": {},
+    # slice 15 part 1 (training observability)
+    "telemetry": {},
+    "tracing": {},
+    "profiler": {},
+    "numerics": {},
+    "monitor": {},
 }
 
 

@@ -56,9 +56,11 @@ SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 
 
 @pytest.fixture(autouse=True)
-def _knobs():
+def _knobs(tmp_path):
     """Every resilience knob of both packages at its default around each
-    test, fast retries, zeroed counters, and the CPU."""
+    test, fast retries, zeroed counters, the CPU, and the port's abort
+    reports in the test's directory."""
+    tconfig.set("tracing.watchdog_dir", str(tmp_path))
     def reset():
         for config, res in ((jconfig, jres), (tconfig, tres)):
             config.set("resilience.nanguard", "")
@@ -77,6 +79,7 @@ def _knobs():
     for config in (jconfig, tconfig):
         config.set("resilience.retry_base_s", 0.05)
     tconfig.unset("kernels.enabled")
+    tconfig.unset("tracing.watchdog_dir")
 
 
 def _both(knob, value):

@@ -271,14 +271,22 @@ def test_unported_trainer_options_raise(tmp_path):
     with pytest.raises(RuntimeError, match="2 devices"):
         make_mesh({"dp": -1}, [mt.cpu(), mt.cpu()])
     tr = trainer()
-    for knob, value in (("numerics.capture", "step:1"),
-                        ("conv.weights_layout", "HWIO")):
-        mt.config.set(knob, value)
-        try:
-            with pytest.raises(NotImplementedError, match="not ported"):
-                tr.step(data, label)
-        finally:
-            mt.config.unset(knob)
+    # numerics capture is ported (tests/test_torch_numerics.py): a
+    # captured step runs and publishes its sites
+    mt.config.set("numerics.capture", "step:1")
+    try:
+        assert np.isfinite(float(tr.step(data, label)))
+        mt.numerics.poll("spmd", block=True)
+        assert list(mt.numerics.latest("spmd")[1])[:2] == ["out", "loss"]
+    finally:
+        mt.config.unset("numerics.capture")
+        mt.numerics.reset()
+    mt.config.set("conv.weights_layout", "HWIO")
+    try:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tr.step(data, label)
+    finally:
+        mt.config.unset("conv.weights_layout")
     # the nanguard is ported (tests/test_torch_resilience.py): a guarded
     # finite step runs
     mt.config.set("resilience.nanguard", "skip")

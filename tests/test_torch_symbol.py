@@ -292,11 +292,13 @@ def test_zeros_ones_and_what_is_not_ported():
     # Variable(init=...) is ported: the initializer's dumps in __init__
     assert mt.sym.Variable("w", init=mt.init.Zero()).attr_dict()["w"][
         "__init__"] == mt.init.Zero().dumps()
-    # group2ctx placement is ported (tests/test_torch_multi_context.py);
-    # monitor callbacks are not
+    # group2ctx placement is ported (tests/test_torch_multi_context.py),
+    # and so are monitor callbacks: one fires on each output of a forward
     ex = _mlp(mt).simple_bind(mt.cpu(), group2ctx={"a": mt.cpu()},
                               data=(4, 10))
-    with pytest.raises(NotImplementedError):
-        ex.set_monitor_callback(lambda *args: None)
+    seen = []
+    ex.set_monitor_callback(lambda name, arr: seen.append(name))
+    ex.forward(is_train=False)
+    assert seen == ex._symbol.list_outputs()
     with pytest.raises(AttributeError):
         mt.sym.no_such_op_anywhere

@@ -146,6 +146,8 @@ def guard(workdir):
         resilience.reset_nanguard()
         config.set("resilience.nanguard", "abort")
         config.set("resilience.faults", "nan:1@step=%d" % ABORT_NAN_STEP)
+        # the abort's flight-recorder report lands beside the checkpoints
+        config.set("tracing.watchdog_dir", workdir)
         tr = trainer()
         ckdir = os.path.join(workdir, "abort_ckpt")
         tr.attach_checkpoint_manager(
