@@ -5,7 +5,8 @@ Usage (from the root of a checkout, one visible CUDA card)::
     python3 chip_smoke.py [--report PATH]
                           [--phase attention|optimizer|module|bert|lm_f32|
                                    generation|ops|zoo|rnn|data|ssd|
-                                   predict|dist|mesh|shard|resilience]
+                                   predict|dist|mesh|shard|resilience|
+                                   observe|cost] [--ab-csrc DIR]
 
 Phases; any failure exits non-zero without the result lines:
 
@@ -81,7 +82,15 @@ Phases; any failure exits non-zero without the result lines:
             the masters, m, v and the casts; K1 bitwise on the
             masters, the momenta and the casts; K5 per row at
             K5_F32_ROW_TOL / K5_BF16_ROW_TOL (y, m and l; the backward
-            against the row's largest term); K6 bitwise.
+            against the row's largest term); K6 bitwise.  Then the NaN
+            cases (``check_nan``): a NaN in one q row, in key 0 of K and
+            of V, and in the last row of dO, for K2f (bf16; f32 at D =
+            16, 32, 64), K2dq/K2dkv in both types, K4 (bf16 and f32
+            queries over their own pages and int8 pages, pool and
+            gathered forms, and a row with no key) and K5f/K5b: the NaN
+            positions those of the plain version, the other rows within
+            the contract above; and each kernel the NaN repair changed
+            timed at its PERF.md section-6 shape (SECTION6_SHAPES).
 3. serve  — the full-width TransformerLM (TransformerLMConfig defaults:
             vocab 32000, d_model 768, 12 heads, d_ff 3072, 12 layers,
             max_len 2048, bf16; seeded random weights) through
@@ -483,6 +492,28 @@ Phases; any failure exits non-zero without the result lines:
             (d) two gloo ranks on cuda:0 under the elastic launcher: a
             peer preemption, a coordinated checkpoint, generation 1
             resuming bitwise, a sharded checkpoint round trip at tp=2.
+9f. cost  — serving and cost observability (``cost_phase``): (a) the
+            full-width TransformerLM served (8 slots, 1024 pages of 16,
+            16 greedy requests of 17..1500 tokens, 32 new), every new
+            knob on (the exporter on port 0, the access log, SLOs, both
+            sinks, the watchdog) beside off in COST_AB_PAIRS alternating
+            pairs: /metrics parses, /healthz 200, one ok access record a
+            request found in the Chrome trace, the serving.submit and
+            serving.dispatch spans, one mx.perf record a prefill bucket
+            and decode width (prefill FLOPs within COST_FLOPS_RTOL of the
+            analytic count), the same launches and streams on and off,
+            decode-step p50 each way; (b) the engine's loop held: the
+            watchdog report holds its stall-probe snapshot, /healthz
+            non-200 while held and 200 after; (c) the int8 ResNet-50 at
+            quant.drift_every=4: a drift gauge a stats site, the twin's
+            amaxes those of the float forward's site inputs; (d)
+            mx.autotune measuring K4's keys per split, K1's and K3's
+            chunk and K2f into a fresh cache, every candidate within its
+            contract, the winners read back, applied and bitwise; (e)
+            ``kernels.measure`` on K2f at the training shape (its FLOPs
+            the analytic causal count); (f) ``perf.profile=step:2`` over
+            6 TransformerLM steps: a capture folded with the span trace,
+            valid step records with flops and mfu.
 10. summary — a ``{"kernels": [...]}`` line, the card's name and power
             limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -556,6 +587,16 @@ both K4 variants and K1, then the card's line and the ok line.
 checks and phase resilience alone, and prints the kernels line of K3 and
 K1, then the card's line and the ok line.
 
+``--phase attention --ab-csrc DIR`` also builds the kernels the NaN
+repair changed from DIR (a checkout of the parent commit, unpacked under
+``build/``), runs the NaN cases on them (not a gate: how many disagree
+is the fault), and times each changed kernel at its section-6 shape in
+both versions, in the order this, other, other, this.
+
+``--phase cost`` builds K2f, K2dq/K2dkv, K4, K1 and K3, runs their
+phase-2 checks at the serving and training shapes and phase 9f alone,
+and prints the kernels line of those kernels, the card and ok lines.
+
 ``--phase module`` builds the kernels and runs only phase 7(c), in a
 process no earlier phase has touched, after two A/Bs of the fused step
 (LRT_AB_PAIRS pairs of MLP_STEPS fused steps each, the order
@@ -567,6 +608,7 @@ JSON line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -1673,6 +1715,375 @@ def check_scale_bias_relu(ck, torch):
         _log("[kernels] scale_bias_relu %s" % json.dumps(case))
         cases.append(case)
     return cases
+
+
+# ------------------------------------------------------ phase 2: NaN
+#: the NaN cases of the flash kernels: (B, H, causal, S, D, dtype) —
+#: both types, every f32 head dim, causal and a ragged non-causal S
+NAN_FLASH_CASES = ((2, 4, True, 256, 64, "bfloat16"),
+                   (2, 4, False, 200, 64, "bfloat16"),
+                   (2, 4, True, 256, 64, "float32"),
+                   (2, 4, False, 200, 64, "float32"),
+                   (2, 4, True, 256, 32, "float32"),
+                   (2, 4, True, 256, 16, "float32"))
+#: the NaN cases of the paged kernel: ((B, H, pages, page size, D), query
+#: dtype, int8 pages)
+NAN_PAGED_CASES = tuple(((4, 4, 8, 16, 64), dt, quant)
+                        for dt in ("bfloat16", "float32")
+                        for quant in (False, True)) + (
+    ((4, 2, 4, 8, 16), "float32", False), ((4, 2, 4, 8, 16), "float32",
+                                           True))
+#: the NaN cases of K5: ([rows, cols], dtype), the one-warp-a-row layout
+#: (cols <= 1024) and the one-block-a-row layout
+NAN_K5_CASES = (((64, 1000), "float32"), ((64, 1000), "bfloat16"),
+                ((16, 4096), "float32"), ((16, 4096), "bfloat16"))
+#: what the NaN cases plant (one case each): an element of one query row
+#: (the last row: under the causal mask it attends every key), of key 0
+#: in K and in V (every row attends key 0) and of the last row of dO.
+#: Each is placed where every version's masking agrees; a NaN in V above
+#: the diagonal is reported apart (``nan_v_above_diagonal``)
+NAN_PLANTS = ("q", "k", "v", "do")
+
+
+def _nan_rows_err(torch, got, want, scale, floor=0.0):
+    """``(same NaN positions, max row error)``: the row error is max|got
+    - want| over the row's largest |scale|, over the rows of ``want``
+    (and ``scale``) that hold no NaN; ``floor`` x the tensor's largest
+    |scale| floors a row's scale."""
+    same = bool(torch.equal(torch.isnan(got.float()),
+                            torch.isnan(want.float())))
+    g = got.float().reshape(-1, got.shape[-1])
+    w = want.float().reshape(-1, want.shape[-1])
+    s = scale.float().reshape(-1, scale.shape[-1]).abs()
+    rows = torch.isfinite(w).all(-1) & torch.isfinite(s).all(-1)
+    if not bool(rows.any()):
+        return same, 0.0
+    ref = s.amax(-1)
+    ref = ref.clamp_min(max(floor * float(ref[rows].max()), 1e-30))
+    err = ((g - w).abs().amax(-1) / ref)[rows]
+    return same, float(err.max())
+
+
+def _nan_plant(t, index):
+    t = t.clone()
+    t[index] = float("nan")
+    return t
+
+
+def _nan_flash_case(ck, torch, case, plant, g):
+    """One flash case: forward and backward against the plain versions
+    with NaN ``plant``ed (or none)."""
+    B, H, causal, S, D, dtype = case
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=g, device="cuda")
+                   .to(dt) for _ in range(4))
+    if plant == "q":
+        q = _nan_plant(q, (0, 1, S - 1, 5))
+    elif plant == "k":
+        k = _nan_plant(k, (1, 2, 0, 7))
+    elif plant == "v":
+        v = _nan_plant(v, (0, 3, 0, 3))
+    elif plant == "do":
+        do = _nan_plant(do, (1, 0, S - 1, 9))
+    o, lse = ck.flash_attention(q, k, v, causal=causal)
+    po, plse = ck.flash_attention_plain(q, k, v, causal=causal)
+    f32 = dtype == "float32"
+    tol = F32_ROW_REL_TOL if f32 else ROW_REL_TOL
+    scale = ck.flash_attention_plain(q, k, v.abs(), causal=causal)[0] \
+        if f32 else po
+    same_o, err_o = _nan_rows_err(torch, o, po, scale)
+    same_lse = bool(torch.equal(torch.isnan(lse), torch.isnan(plse)))
+    fin = torch.isfinite(plse)
+    lse_err = float((lse - plse).abs()[fin].max()) if bool(fin.any()) \
+        else 0.0
+    # the backward from the plain forward's o and lse, both versions
+    delta = ck.flash_delta(po, do)
+    dq, dk, dv = ck.flash_attention_bwd(q, k, v, po, plse, do,
+                                        causal=causal, delta=delta)
+    pdq, pdk, pdv = ck.flash_attention_bwd_plain(q, k, v, po, plse, do,
+                                                 causal=causal, delta=delta)
+    if f32:
+        sums = _bwd_abs_sums(torch, q, k, v, do, plse, delta, causal)
+        bwd = [_nan_rows_err(torch, x, px, s)
+               for x, px, s in zip((dq, dk, dv), (pdq, pdk, pdv), sums)]
+    else:
+        bwd = [_nan_rows_err(torch, x, px, px, BWD_ROW_FLOOR)
+               for x, px in zip((dq, dk, dv), (pdq, pdk, pdv))]
+    torch.cuda.synchronize()
+    out = {"shape": {"B": B, "H": H, "S": S, "D": D, "causal": causal,
+                     "dtype": dtype}, "plant": plant,
+           "nan_outputs": int(torch.isnan(po.float()).sum()),
+           "fwd_same_nan": same_o and same_lse, "fwd_row_err": err_o,
+           "lse_err": lse_err,
+           "bwd_same_nan": all(b[0] for b in bwd),
+           "bwd_row_err": max(b[1] for b in bwd),
+           "bwd_nan_outputs": int(sum(int(torch.isnan(x.float()).sum())
+                                      for x in (pdq, pdk, pdv))),
+           "tol": tol}
+    out["ok"] = (out["fwd_same_nan"] and out["bwd_same_nan"]
+                 and err_o <= tol and lse_err <= LSE_ATOL
+                 and out["bwd_row_err"] <= tol)
+    return out
+
+
+def _nan_v_above_diagonal(ck, torch, g):
+    """Not a gate: a NaN in V at a key the first query tiles never attend
+    (key S/2, causal).  The plain version and the reference multiply the
+    masked probability 0 by it and give NaN rows from the start; the
+    kernels skip the tiles above the diagonal, so only the query tiles
+    that reach the key's tile give NaN."""
+    B, H, S, D = 1, 2, 256, 64
+    q, k, v = (torch.randn(B, H, S, D, generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    v = _nan_plant(v, (0, 1, S // 2, 0))
+    o, _ = ck.flash_attention(q, k, v, causal=True)
+    po, _ = ck.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    rows = lambda x: torch.isnan(x.float()).any(-1)[0, 1]  # noqa: E731
+    kr, pr = rows(o), rows(po)
+    return {"key": S // 2, "plain_nan_rows": int(pr.sum()),
+            "kernel_nan_rows": int(kr.sum()),
+            "first_kernel_nan_row": int(kr.nonzero()[0]) if bool(kr.any())
+            else None,
+            "kernel_rows_subset_of_plain": bool((kr & ~pr).sum() == 0)}
+
+
+def _nan_paged_case(ck, torch, case, qdtype, quant, plant, g):
+    """One paged case, pool form and gathered form against the pool
+    form's plain version, with NaN ``plant``ed or, for ``plant ==
+    'empty'``, one row with no key at all."""
+    q, kp, vp, table, lens, kw = _pool_inputs(torch, quant, case, g, qdtype)
+    B, H, W, psz, D = case
+    h = min(3, H - 1)
+    if plant == "q":
+        q = _nan_plant(q, (1, min(2, H - 1), 0, 4))
+    elif plant in ("k", "v"):
+        b = 2 if plant == "k" else 0
+        page = int(table[b, 0])
+        if quant:
+            name = "k_scale_pool" if plant == "k" else "v_scale_pool"
+            kw = dict(kw, **{name: _nan_plant(kw[name], (page, 0, h))})
+        elif plant == "k":
+            kp = _nan_plant(kp, (page, 0, h, 3))
+        else:
+            vp = _nan_plant(vp, (page, 0, h, 5))
+    elif plant == "empty":
+        lens = lens.clone()
+        lens[1] = 0
+    o = ck.paged_attention_pool(q, kp, vp, table, lens, **kw)
+    po = ck.paged_attention_pool_plain(q, kp, vp, table, lens, **kw)
+    K = W * psz
+    valid = torch.arange(K, device="cuda")[None, :] < lens[:, None]
+    gkw = {}
+    if quant:
+        gkw = {"k_scale": ck.gather_pages(kw["k_scale_pool"], table),
+               "v_scale": ck.gather_pages(kw["v_scale_pool"], table)}
+    og = ck.paged_attention(q, ck.gather_pages(kp, table),
+                            ck.gather_pages(vp, table), valid, **gkw)
+    f32 = qdtype == "float32"
+    if f32:
+        tol = PAGED_F32_ROW_REL_TOL
+        scale = ck.paged_attention_pool_plain(q, kp, vp.abs(), table, lens,
+                                              **kw)
+    else:
+        tol, scale = ROW_REL_TOL, po
+    same, err = _nan_rows_err(torch, o, po, scale)
+    gsame, gerr = _nan_rows_err(torch, og, po, scale)
+    torch.cuda.synchronize()
+    out = {"shape": {"B": B, "H": H, "pages": W, "page_size": psz, "D": D,
+                     "query": qdtype, "int8_pages": quant},
+           "plant": plant, "nan_outputs": int(torch.isnan(po.float()).sum()),
+           "same_nan": same and gsame, "row_err": max(err, gerr),
+           "tol": tol}
+    if plant == "empty":
+        out["empty_row_err"] = float((o[1].float() - po[1].float()).abs()
+                                     .max() / po[1].float().abs().max()
+                                     .clamp_min(1e-30))
+        out["empty_row_gathered_err"] = float(
+            (og[1].float() - po[1].float()).abs().max()
+            / po[1].float().abs().max().clamp_min(1e-30))
+    out["ok"] = out["same_nan"] and out["row_err"] <= tol
+    return out
+
+
+def _nan_k5_case(ck, torch, shape, dtype, plant, g):
+    """One K5 case: the forward (NaN in x) and the backward (NaN in x or
+    in dy) against the plain versions."""
+    dt = getattr(torch, dtype)
+    x = (torch.randn(shape, generator=g, device="cuda") * 4).to(dt)
+    dy = torch.randn(shape, generator=g, device="cuda").to(dt)
+    if plant == "x":
+        x = _nan_plant(x, (3, 17))
+    else:
+        dy = _nan_plant(dy, (5, 30))
+    y, m, l = ck.row_softmax(x)
+    py, pm, pl = ck.row_softmax_plain(x)
+    dx = ck.row_softmax_bwd(x, pm, pl, dy)
+    pdx = ck.row_softmax_bwd_plain(x, pm, pl, dy)
+    tol = K5_F32_ROW_TOL if dtype == "float32" else K5_BF16_ROW_TOL
+    same_y, err_y = _nan_rows_err(torch, y, py, py)
+    same_m = bool(torch.equal(torch.isnan(m), torch.isnan(pm))
+                  and torch.equal(torch.isnan(l), torch.isnan(pl)))
+    same_dx, err_dx = _nan_rows_err(torch, dx, pdx, pdx, BWD_ROW_FLOOR)
+    torch.cuda.synchronize()
+    out = {"shape": list(shape), "dtype": dtype, "plant": plant,
+           "fwd_same_nan": same_y and same_m, "fwd_row_err": err_y,
+           "bwd_same_nan": same_dx, "bwd_row_err": err_dx, "tol": tol,
+           "nan_rows": int(torch.isnan(py.float()).any(-1).sum())}
+    out["ok"] = (out["fwd_same_nan"] and same_dx and err_y <= tol
+                 and err_dx <= 2 * tol)
+    return out
+
+
+def check_nan(ck, torch):
+    """Phase 2's NaN cases: K2f (bf16; f32 at D = 16, 32, 64), K2dq and
+    K2dkv in both types, K4 (bf16, f32 and int8 pages under both queries,
+    pool and gathered forms, and a row with no key) and K5f/K5b, each held
+    against its plain version: the NaN positions equal, the finite rows
+    within the kernel's contract.  Returns ``{"flash", "paged", "k5",
+    "nan_v_above_diagonal", "ok"}``."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    out = {"flash": [], "paged": [], "k5": []}
+    for case in NAN_FLASH_CASES:
+        for plant in NAN_PLANTS:
+            out["flash"].append(_nan_flash_case(ck, torch, case, plant, g))
+    for case, qdtype, quant in NAN_PAGED_CASES:
+        for plant in ("q", "k", "v", "empty"):
+            out["paged"].append(_nan_paged_case(ck, torch, case, qdtype,
+                                                quant, plant, g))
+    for shape, dtype in NAN_K5_CASES:
+        for plant in ("x", "dy"):
+            out["k5"].append(_nan_k5_case(ck, torch, shape, dtype, plant, g))
+    out["nan_v_above_diagonal"] = _nan_v_above_diagonal(ck, torch, g)
+    bad = [c for key in ("flash", "paged", "k5") for c in out[key]
+           if not c["ok"]]
+    out["ok"] = not bad
+    out["failed"] = bad
+    _log("[nan] %d flash, %d paged, %d K5 cases, %d disagree; V above the "
+         "diagonal %s" % (len(out["flash"]), len(out["paged"]),
+                          len(out["k5"]), len(bad),
+                          json.dumps(out["nan_v_above_diagonal"])))
+    for c in bad:
+        _log("[nan] disagrees %s" % json.dumps(c))
+    return out
+
+
+#: each kernel the NaN repair changed, at the shape of its PERF.md
+#: section-6 row, with that row's device ms (NVIDIA H100 80GB HBM3, 700 W)
+SECTION6_SHAPES = (
+    ("flash_fwd", ("flash", (4, 12, True, 2048, 64), "bfloat16"), 0.0899),
+    ("flash_fwd_f32", ("flash", (1, 12, True, 1024, 64), "float32"),
+     0.0855),
+    ("flash_fwd_f32_d32", ("flash", (4, 8, True, 1024, 32), "float32"),
+     0.0913),
+    ("flash_fwd_f32_d16", ("flash", (8, 2, True, 1024, 16), "float32"),
+     0.0398),
+    ("paged_decode_pool_bf16", ("paged", (8, 12, 128, 16, 64), "bfloat16",
+                                False), 0.0179),
+    ("paged_decode_pool_int8", ("paged", (8, 12, 128, 16, 64), "bfloat16",
+                                True), 0.0212),
+    ("paged_decode_pool_f32", ("paged", (8, 12, 128, 16, 64), "float32",
+                               False), 0.0280),
+    ("paged_decode_pool_int8_f32q", ("paged", (8, 12, 128, 16, 64),
+                                     "float32", True), 0.0206),
+    ("row_softmax_fwd", ("k5f", (8192, 32000), "float32"), 1.0341),
+    ("row_softmax_bwd", ("k5b", (8192, 32000), "float32"), 1.7097))
+
+
+def _section6_calls(ck, torch):
+    """``[(name, call, section-6 ms)]``: one call of each changed kernel
+    at its section-6 shape, inputs drawn once."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    calls = []
+    for name, spec, ms6 in SECTION6_SHAPES:
+        kind = spec[0]
+        if kind == "flash":
+            (B, H, causal, S, D), dtype = spec[1], spec[2]
+            q, k, v = (torch.randn(B, H, S, D, generator=g, device="cuda")
+                       .to(getattr(torch, dtype)) for _ in range(3))
+            call = (lambda q=q, k=k, v=v, c=causal:
+                    ck.flash_attention(q, k, v, causal=c))
+        elif kind == "paged":
+            q, kp, vp, table, lens, kw = _pool_inputs(torch, spec[3],
+                                                      spec[1], g, spec[2])
+            call = (lambda q=q, kp=kp, vp=vp, t=table, n=lens, kw=kw:
+                    ck.paged_attention_pool(q, kp, vp, t, n, **kw))
+        else:
+            x = (torch.randn(spec[1], generator=g, device="cuda") * 4).to(
+                getattr(torch, spec[2]))
+            if kind == "k5f":
+                call = (lambda x=x: ck.row_softmax(x))
+            else:
+                _, m, l = ck.row_softmax_plain(x)
+                dy = torch.randn(spec[1], generator=g, device="cuda")
+                call = (lambda x=x, m=m, l=l, dy=dy:
+                        ck.row_softmax_bwd(x, m, l, dy))
+        calls.append((name, call, ms6))
+    return calls
+
+
+def section6_times(ck, torch):
+    """Each changed kernel's device time at its section-6 shape beside
+    that row's."""
+    out = {}
+    for name, call, ms6 in _section6_calls(ck, torch):
+        out[name] = {"device_ms": _device_ms(torch, call, iters=20),
+                     "section6_device_ms": ms6}
+    _log("[nan] section-6 shapes %s" % json.dumps(out))
+    return out
+
+
+_NAN_LIBS = ("flash_fwd", "flash_f32", "paged_attn", "row_softmax")
+
+
+@contextlib.contextmanager
+def _other_kernels(csrc):
+    """Run the changed kernels from the sources under ``csrc`` (another
+    checkout's ``mxnet_tpu_torch/csrc``, built beside this one's), then
+    put this checkout's back."""
+    from mxnet_tpu_torch.ops import _build
+    saved = {n: _build._LIBS.pop(n) for n in _NAN_LIBS if n in _build._LIBS}
+    old = _build._CSRC
+    _build._CSRC = os.path.abspath(csrc)
+    try:
+        _build.build(list(_NAN_LIBS))
+        yield
+    finally:
+        for n in _NAN_LIBS:
+            _build._LIBS.pop(n, None)
+        _build._LIBS.update(saved)
+        _build._CSRC = old
+
+
+def kernel_ab(ck, torch, other_csrc):
+    """The NaN repair against the sources in ``other_csrc`` (the parent
+    commit's): the NaN cases run on the other kernels (how many disagree
+    with the plain versions: the fault), then each changed kernel's device
+    time at its section-6 shape, in the order this, other, other, this,
+    in one process."""
+    mine = _section6_calls(ck, torch)
+    with _other_kernels(other_csrc):
+        theirs_nan = check_nan(ck, torch)
+        theirs = _section6_calls(ck, torch)
+        theirs_ms = {}
+        for name, call, _ in theirs:
+            theirs_ms[name] = [_device_ms(torch, call, iters=20)]
+    mine_ms = {name: [_device_ms(torch, call, iters=20)]
+               for name, call, _ in mine}
+    with _other_kernels(other_csrc):
+        for name, call, _ in _section6_calls(ck, torch):
+            theirs_ms[name].append(_device_ms(torch, call, iters=20))
+    for name, call, _ in mine:
+        mine_ms[name].append(_device_ms(torch, call, iters=20))
+    out = {"other_nan_disagreeing": [[c["shape"], c["plant"]]
+                                     for c in theirs_nan["failed"]],
+           "other_nan_cases_failed": len(theirs_nan["failed"]),
+        "device_ms": {name: {"this": mine_ms[name],
+                             "other": theirs_ms[name],
+                             "section6": ms6}
+                      for name, _, ms6 in mine}}
+    _log("[nan] A/B against %s %s" % (other_csrc, json.dumps(out)))
+    return out
 
 
 # ------------------------------------------------------------- phase 3
@@ -3491,7 +3902,7 @@ ZOO_NETS = (("alexnet", 224), ("vgg16", 224), ("vgg16_bn", 224),
             ("densenet121", 224), ("mobilenet1.0", 224),
             ("mobilenetv2_1.0", 224), ("resnet50_v1", 224))
 ZOO_BATCHES = (1, 16, 32)
-ZOO_ITERS = 5
+ZOO_ITERS = 3
 # the gate: each network's f32 logits on the card at batch 2 against the
 # port's own CPU forward from the same weights.  TF32 is off, so both are
 # f32 throughout; cuDNN's convolution algorithms (Winograd and FFT among
@@ -6140,7 +6551,7 @@ RNN_OP_RTOL = 1e-4
 #: where no rounding reaches the kink).
 RNN_KINK_REL = 1e-5
 RNN_TIMED = (("lstm", 2, False), ("lstm", 2, True))
-RNN_ITERS = 10
+RNN_ITERS = 5
 #: phase rnn(b): examples/rnn_lm.py at MXNet's example/rnn/word_lm width
 #: (Zaremba et al. 2014 "medium" PTB): its dropout, Adam and lr
 LM_VOCAB, LM_EMBED, LM_HIDDEN, LM_LAYERS = 10000, 650, 650, 2
@@ -10434,7 +10845,7 @@ RES_CKPT_KEEP = 2
 RES_SIGTERM_STEP = 8
 #: the sync and step-time comparison: RES_AB_STEPS finite steps a window,
 #: nanguard off and skip in the order off, skip, skip, off
-RES_AB_STEPS = 8
+RES_AB_STEPS = 4
 #: (c) the Module MLP (phase 7(c)'s) under nanguard=abort with patience
 #: RES_PATIENCE and batches RES_POISONED poisoned; the abort must land
 #: within two steps of the first
@@ -11167,11 +11578,11 @@ OBS_SYNC_STEPS = 4
 #: (d) bench.py numerics_overhead_config on the Module MLP: OBS_PASSES
 #: interleaved off/step:10 pairs of OBS_ITERS steps, and the publish/poll
 #: microbenchmark at the MLP's site count
-OBS_PASSES, OBS_ITERS = 3, 30
+OBS_PASSES, OBS_ITERS = 2, 30
 OBS_PUBLISH_N = 2000
 #: (e) one-step mx.profiler sessions (a Module MLP step each) late in the
 #: run
-OBS_SESSIONS = 20
+OBS_SESSIONS = 10
 #: (f) batches of the monitored fit
 OBS_MONITOR_BATCHES = 3
 #: (g) the watchdog's deadline; the stalled prefetch sleeps twice it
@@ -11977,6 +12388,729 @@ def _observe_launches(obs):
     return by
 
 
+# ----------------------------------------------------------- phase cost
+#: phase cost (a): decode-step p50 with every new knob on beside off,
+#: alternating pairs
+COST_AB_PAIRS = 5
+#: (a)'s SLO objectives
+COST_SLO = "availability=99.9,latency_p99_ms=60000"
+#: (a)'s watchdog deadline (armed, never reached) and (b)'s (reached)
+COST_WATCHDOG_S = 60.0
+COST_STALL_WATCHDOG_S = 1.0
+#: (a): a prefill's counted FLOPs against the analytic count
+COST_FLOPS_RTOL = 0.02
+#: (c): the int8 ResNet-50 served at drift_every=4, max batch 32, 64
+#: requests of 32 rows (8 distinct batches), so 16 sampled dispatches
+COST_DRIFT_EVERY = 4
+COST_DRIFT_REQUESTS = 64
+COST_DRIFT_DISTINCT = 8
+#: (c): the twin's amaxes against the float forward's site inputs
+COST_TWIN_RTOL = 1e-6
+#: (d): the decode site the paged search runs at (B=8, H=12, D=64, 128
+#: pages of 16)
+COST_PAGED_SITE = ((DECODE_B, 12, 1, 64), (DECODE_B, 12, 128 * 16, 64))
+#: (f): the TransformerLM's steps under perf.profile=step:2
+COST_PROFILE_STEPS = 6
+
+
+def _http(addr, path):
+    """``(status, body)`` of a GET on the exporter at ``addr``."""
+    import urllib.error
+    import urllib.request
+    url = "http://%s:%d%s" % (addr[0], addr[1], path)
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _parse_prometheus(text):
+    """The samples of a Prometheus text exposition: ``{name{labels}:
+    value}``; raises on a line that is neither a comment nor a sample."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.match(r"^([a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})?) "
+                     r"(-?[0-9.e+\-]+|NaN|[+-]Inf)$", line)
+        if m is None:
+            raise AssertionError("not a Prometheus sample: %r" % line)
+        out[m.group(1)] = float(m.group(3).replace("Inf", "inf"))
+    return out
+
+
+def _cost_knobs(mx, on, files=None):
+    """Every knob (a) turns on: the exporter, the access log, the SLOs,
+    both sinks and the watchdog; or all of them off."""
+    names = ("obs.listen", "obs.access_log", "obs.slo", "tracing.sink",
+             "telemetry.sink", "tracing.watchdog")
+    if not on:
+        for n in names:
+            mx.config.unset(n)
+        return
+    mx.config.set("obs.listen", "127.0.0.1:0")
+    mx.config.set("obs.access_log", "jsonl:" + files["access"])
+    mx.config.set("obs.slo", COST_SLO)
+    mx.config.set("tracing.sink", "chrome:" + files["trace"])
+    mx.config.set("telemetry.sink", "jsonl:" + files["telemetry"])
+    mx.config.set("tracing.watchdog", COST_WATCHDOG_S)
+
+
+def _prefill_flops(cfg, s):
+    """The analytic FLOPs of one prefill at bucket ``s`` (B=1): 2 x the
+    matmul parameters of the layers x tokens, the LM head at the last
+    position, and causal attention (4 x head dim x heads a query-key
+    pair)."""
+    L, D, F_, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    per_layer = D * 3 * D + D * D + 2 * D * F_
+    return (2 * per_layer * L * s + 2 * D * V
+            + L * 4 * cfg.head_dim * cfg.num_heads * s * (s + 1) // 2)
+
+
+def _decode_flops(cfg, b, keys):
+    """The analytic FLOPs of one decode step of ``b`` rows over a page
+    table of ``keys`` slots a row: 2 x the matmul parameters of the layers
+    and the LM head a row, and attention over every slot of the table (the
+    paged kernel's charge is its launch geometry, as a compiled program's
+    static cost: mx.perf reads no length from the card)."""
+    L, D, F_, V = cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    per_layer = D * 3 * D + D * D + 2 * D * F_
+    return (2 * per_layer * L * b + 2 * D * V * b
+            + L * 4 * cfg.head_dim * cfg.num_heads * b * keys)
+
+
+def cost_serve(mx, ck, np, torch, workdir):
+    """Phase cost (a) and (b): generation serving at full width with every
+    new knob on (exporter, access log, SLOs, both sinks, the watchdog)
+    against the same traffic with them off, then a planted stall."""
+    from mxnet_tpu_torch import obs, perf
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch import tracing
+    from mxnet_tpu_torch.models.transformer import (TransformerLM,
+                                                    TransformerLMConfig)
+    cdir = os.path.join(workdir, "cost")
+    os.makedirs(cdir, exist_ok=True)
+    # the registry holds what earlier phases counted (phase 3 serves a
+    # model named "lm" too)
+    perf.reset()
+    cfg = TransformerLMConfig()
+    L = cfg.num_layers
+    model = TransformerLM(cfg).init(SEED)
+    prefix = os.path.join(cdir, "lm")
+    mx.deploy.export_generation(model, None, prefix)
+    del model
+    prompts = _prompts(np, cfg.vocab_size)
+    mx.config.set("serving.kv_pages", KV_PAGES)
+    srv = mx.serving.Server()
+    out = {}
+    try:
+        eng = srv.register("lm", prefix, generate=True)
+        srv.start()
+
+        def run():
+            # the engine held while the requests queue: one admission
+            # order, so one launch count, whatever the host's timing
+            _zero_counts(torch, tt, ck)
+            with eng._held():
+                futs = [srv.submit_generate("lm", pr, NEW_TOKENS)
+                        for pr in prompts]
+            streams = [f.result(timeout=600) for f in futs]
+            prefills, decodes, launches, snap = _read_counts(
+                torch, tt, ck, L, "paged_decode_pool_bf16")
+            assert prefills == len(prompts), prefills
+            return (streams, launches,
+                    snap["timers"]["serving.decode_step_ms"]["p50"])
+
+        # the first run counts every bucket's program (mx.perf)
+        base, base_launches, _ = run()
+        progs = {p["key"]: p for p in perf.programs("serving")
+                 if p["key"].startswith("lm/")}
+        buckets = sorted(eng._prefill)
+        widths = sorted(eng._decode)
+        want = {"lm/prefill-s%d" % s for s in buckets} | \
+            {"lm/decode-w%d" % w for w in widths}
+        assert set(progs) == want, (sorted(progs), sorted(want))
+        flops = {}
+        for s in buckets:
+            got = progs["lm/prefill-s%d" % s]["flops"]
+            ref = _prefill_flops(cfg, s)
+            flops[s] = {"counted": got, "analytic": ref,
+                        "rel": abs(got - ref) / ref}
+            assert flops[s]["rel"] <= COST_FLOPS_RTOL, (s, flops[s])
+        dflops = {}
+        for w in widths:
+            got = progs["lm/decode-w%d" % w]["flops"]
+            ref = _decode_flops(cfg, eng.decode_slots,
+                                w * eng.predictor.page_size)
+            dflops[w] = {"counted": got, "analytic": ref,
+                         "rel": abs(got - ref) / ref}
+            assert dflops[w]["rel"] <= COST_FLOPS_RTOL, (w, dflops[w])
+        out["perf_records"] = {
+            "prefill_buckets": buckets, "decode_widths": widths,
+            "prefill_flops": flops, "decode_flops": dflops,
+            "decode_roofline": {w: progs["lm/decode-w%d" % w]["roofline"]
+                                for w in widths}}
+        _log("[cost] perf records %s" % json.dumps(out["perf_records"]))
+
+        p50 = {"on": [], "off": []}
+        checked = None
+        for i in range(COST_AB_PAIRS):
+            for on in ((True, False) if i % 2 == 0 else (False, True)):
+                files = {k: os.path.join(cdir, "%s_%d.%s" % (k, i, ext))
+                         for k, ext in (("access", "jsonl"),
+                                        ("trace", "json"),
+                                        ("telemetry", "jsonl"))}
+                for path in files.values():
+                    if os.path.exists(path):
+                        os.remove(path)
+                _cost_knobs(mx, on, files)
+                try:
+                    streams, launches, step_p50 = run()
+                    if on and checked is None:
+                        checked = _cost_checks(mx, obs, tracing, files,
+                                               len(prompts))
+                finally:
+                    _cost_knobs(mx, False)
+                p50["on" if on else "off"].append(step_p50)
+                assert launches == base_launches, (on, launches,
+                                                   base_launches)
+                assert all(np.array_equal(a, b)
+                           for a, b in zip(streams, base))
+        out["checks"] = checked
+        out["launches"] = base_launches
+        out["decode_step_p50_ms"] = {
+            "on": p50["on"], "off": p50["off"],
+            "median_on": float(np.median(p50["on"])),
+            "median_off": float(np.median(p50["off"]))}
+        _log("[cost] serving, every new knob on beside off: decode-step "
+             "p50 %s" % json.dumps(out["decode_step_p50_ms"]))
+        out["stall"] = _cost_stall(mx, srv, eng, prompts, cdir)
+    finally:
+        _cost_knobs(mx, False)
+        srv.stop()
+        mx.config.unset("serving.kv_pages")
+    return out
+
+
+def _cost_checks(mx, obs, tracing, files, n_requests):
+    """(a)'s gates on one run with every knob on: /metrics parses,
+    /healthz answers 200, one valid ok access record a request whose id
+    the Chrome trace holds, the serving.submit and serving.dispatch
+    spans."""
+    addr = obs.exporter_address()
+    code, text = _http(addr, "/metrics")
+    samples = _parse_prometheus(text)
+    assert code == 200 and samples, code
+    hcode, health = _http(addr, "/healthz")
+    assert hcode == 200, (hcode, health)
+    obs.flush_access_log()
+    with open(files["access"]) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    for r in recs:
+        obs.validate_access_record(r)
+    assert len(recs) == n_requests, len(recs)
+    assert all(r["outcome"] == "ok" for r in recs), recs
+    tracing.flush()
+    events = tracing.load_trace(files["trace"])
+    names = {e.get("name") for e in events}
+    # the access log writes the span's trace id as a string
+    traces = {str(e.get("args", {}).get("trace_id")) for e in events}
+    ids = [r.get("request_id") for r in recs]
+    assert all(i is not None and i in traces for i in ids), ids
+    assert {"serving.submit", "serving.dispatch"} <= names, sorted(names)
+    out = {"metrics_samples": len(samples),
+           "slo_burn_5m": samples.get(
+               'mxnet_tpu_slo_burn_rate{window="5m"}'),
+           "healthz": json.loads(health)["healthy"],
+           "access_records": len(recs),
+           "access_flops_per_request_max": max(r.get("flops") or 0
+                                               for r in recs),
+           "trace_events": len(events),
+           "spans": sorted(n for n in names if n and
+                           n.startswith("serving."))}
+    _log("[cost] knobs on: %s" % json.dumps(out))
+    return out
+
+
+def _cost_stall(mx, srv, eng, prompts, cdir):
+    """(b): the engine's loop held with requests waiting, the watchdog at
+    COST_STALL_WATCHDOG_S: its report holds the engine's stall-probe
+    snapshot, /healthz answers non-200 while the loop is held and 200
+    again once it runs."""
+    import glob
+    from mxnet_tpu_torch import obs
+    wdir = os.path.join(cdir, "watchdog")
+    os.makedirs(wdir, exist_ok=True)
+    mx.config.set("tracing.watchdog_dir", wdir)
+    mx.config.set("tracing.watchdog", COST_STALL_WATCHDOG_S)
+    mx.config.set("obs.listen", "127.0.0.1:0")
+    try:
+        addr = obs.exporter_address()
+        before = _http(addr, "/healthz")[0]
+        with eng._held():
+            futs = [srv.submit_generate("lm", pr[:64], 4)
+                    for pr in prompts[:2]]
+            time.sleep(3 * COST_STALL_WATCHDOG_S)
+            during, body = _http(addr, "/healthz")
+        for f in futs:
+            f.result(timeout=120)
+        after = None
+        for _ in range(50):
+            after = _http(addr, "/healthz")[0]
+            if after == 200:
+                break
+            time.sleep(0.1)
+        reports = []
+        for path in sorted(glob.glob(os.path.join(
+                wdir, "watchdog_report_*.json"))):
+            with open(path) as f:
+                rep = json.load(f)
+            stalls = {k: v for k, v in (rep.get("stalls") or {}).items()
+                      if k == eng._probe_name}
+            if stalls:
+                reports.append(stalls[eng._probe_name])
+    finally:
+        mx.config.unset("tracing.watchdog")
+        mx.config.unset("tracing.watchdog_dir")
+        mx.config.unset("obs.listen")
+    reasons = json.loads(body).get("sources", {})
+    out = {"healthz_before": before, "healthz_held": during,
+           "healthz_after": after, "reports_with_the_probe": len(reports),
+           "probe_snapshot": reports[0] if reports else None,
+           "held_reasons": [r for s in reasons.values()
+                            for r in s.get("reasons", [])]}
+    _log("[cost] planted stall %s" % json.dumps(out))
+    assert before == 200 and during != 200 and after == 200, out
+    assert reports and reports[0]["queued"] + reports[0]["active"] > 0, out
+    return out
+
+
+def _site_inputs_float(torch, pred, x):
+    """The float forward of a loaded int8 artifact's graph (its
+    dequantized weights, no recoloring) with each int8 site's input
+    ``|max|`` recorded by an override at the site: ``{site: amax}``."""
+    from mxnet_tpu_torch.ops import registry
+    from mxnet_tpu_torch.quantization import _twin_sites
+    from mxnet_tpu_torch.symbol.symbol import _eval_symbol
+    seen = {}
+
+    def recorder(name, op):
+        fn = registry.get(op).fn
+
+        def call(data, *args, **attrs):
+            seen[name] = float(data.float().abs().amax())
+            return fn(data, *args, **attrs)
+        return call
+    overrides = {id(node): recorder(name, node.op)
+                 for name, node in _twin_sites(pred._graph, pred.meta)}
+    env = dict(pred._params)
+    env[pred._input] = x
+    with torch.inference_mode():
+        _eval_symbol(pred._graph, env, False, overrides=overrides)
+    return seen
+
+
+def cost_drift(mx, np, torch, workdir):
+    """Phase cost (c): the int8 ResNet-50 v1 served at
+    quant.drift_every=4: a drift gauge for every stats_sites entry, and
+    the twin's amaxes those of each site's input in the float forward on
+    the same batch."""
+    from mxnet_tpu_torch import deploy, quantization
+    from mxnet_tpu_torch import telemetry as tt
+    rng = np.random.RandomState(SEED + 1)
+    shape = (PRED_BATCH, 3, PRED_HW, PRED_HW)
+    qprefix = os.path.join(workdir, "resnet50_int8")
+    t0 = time.perf_counter()
+    reused = os.path.exists(qprefix + "-stats.json")
+    if not reused:
+        # alone, this phase makes the export phase 8 makes in a full run
+        calib = [rng.uniform(size=shape).astype(np.float32)
+                 for _ in range(2)]
+        net = _pred_net(mx, np, torch)
+        cal = quantization.calibrate(net, calib, mode="naive")
+        quantization.export_quantized(net, qprefix, cal)
+        del net
+    export_s = time.perf_counter() - t0
+    batches = [rng.uniform(size=shape).astype(np.float32)
+               for _ in range(COST_DRIFT_DISTINCT)]
+    mx.config.set("quant.drift_every", COST_DRIFT_EVERY)
+    srv = mx.serving.Server(max_batch=PRED_MAX_BATCH,
+                            max_queue_delay_ms=PRED_DELAY_MS)
+    try:
+        entry = srv.register("r50q", qprefix, quantized=True)
+        srv.start()
+        sites = list(entry.drift_sites)
+        tt.reset()
+        futs = [srv.submit("r50q", batches[i % COST_DRIFT_DISTINCT])
+                for i in range(COST_DRIFT_REQUESTS)]
+        for f in futs:
+            f.result(timeout=600)
+        # the batcher samples after it resolves a batch's futures: the
+        # drained stop lets the last sample land
+        srv.stop()
+        torch.cuda.synchronize()
+        snap = tt.snapshot()
+        g = snap["gauges"]
+        missing = [s for s in sites
+                   if "quant.drift_ratio.r50q.%s" % s not in g]
+        pred = entry.predictor
+        x = torch.from_numpy(batches[0]).cuda()
+        twin = entry.drift_call(x).cpu().numpy()
+        flt = _site_inputs_float(torch, pred, x)
+        rel = max(abs(float(a) - flt[s]) / max(abs(flt[s]), 1e-30)
+                  for s, a in zip(sites, twin))
+        tm = snap["timers"]
+        out = {"reused_export": reused, "export_s": export_s,
+               "stats_sites": len(sites),
+               "dispatches": snap["counters"].get(
+                   "serving.batch_dispatches", 0),
+               "drift_samples": snap["counters"].get(
+                   "serving.drift_samples", 0),
+               "drift_gauges": sum(1 for k in g if k.startswith(
+                   "quant.drift_ratio.r50q.")),
+               "missing_gauges": missing,
+               "ratio_range": [min(g["quant.drift_ratio.r50q.%s" % s]
+                                   for s in sites if s not in missing),
+                               max(g["quant.drift_ratio.r50q.%s" % s]
+                                   for s in sites if s not in missing)],
+               "twin_vs_float_max_rel": rel,
+               "unsampled_dispatch_ms_p50": tm["serving.dispatch_ms"]["p50"],
+               "twin_ms_p50": tm["serving.drift_ms"]["p50"]}
+        out["sampled_dispatch_ms_p50"] = out["unsampled_dispatch_ms_p50"] \
+            + out["twin_ms_p50"]
+        _log("[cost] drift %s" % json.dumps(out))
+        assert sites and not missing, out
+        assert out["drift_samples"] == COST_DRIFT_REQUESTS \
+            // COST_DRIFT_EVERY, out
+        assert rel <= COST_TWIN_RTOL, out
+    finally:
+        srv.stop()
+        mx.config.unset("quant.drift_every")
+    return out
+
+
+def cost_autotune(mx, ck, np, torch, workdir):
+    """Phase cost (d): perf.autotune=measure into a fresh cache file: K4's
+    keys per split at the decode site (bf16 and int8 pages), K1's chunk
+    over ResNet-50's 193 tensors, K3's over the TransformerLM's, K2f's one
+    configuration at the training shape; every candidate within its
+    contract; then, after autotune.reset(), the winners read back from the
+    file, applied (the launch configurations show them) and giving the
+    same outputs."""
+    from mxnet_tpu_torch import autotune as at
+    from mxnet_tpu_torch.models.transformer import TransformerLMConfig
+    cache = os.path.join(workdir, "cost", "autotune.json")
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    if os.path.exists(cache):
+        os.remove(cache)
+    cfg = TransformerLMConfig()
+    mx.config.set("perf.autotune", "measure")
+    mx.config.set("perf.autotune_cache", cache)
+    out = {}
+    try:
+        qs, ks = COST_PAGED_SITE
+        paged = {q8: at.search_paged(qs, ks, "bfloat16", q8)
+                 for q8 in (False, True)}
+        sgd = mx.optimizer.SGD(learning_rate=0.1, momentum=0.9)
+        adam = mx.optimizer.Adam(learning_rate=TRAIN_LR)
+        rshapes = _resnet_shapes(mx, np)
+        lshapes = list(_adam_shapes(cfg).values())
+        fused = {"sgd": at.search_fused(sgd, rshapes, "bfloat16",
+                                        "bfloat16"),
+                 "adam": at.search_fused(adam, lshapes, "bfloat16",
+                                         "bfloat16")}
+        attn = at.search_attention((TRAIN_B, 12, TRAIN_S, 64),
+                                   (TRAIN_B, 12, TRAIN_S, 64), "bfloat16",
+                                   True)
+        for q8, e in paged.items():
+            assert all(v <= e["tol"] for v in e["row_rel_err"].values()), e
+            assert e.get("keys_per_split"), e
+        for e in fused.values():
+            assert all(e["bitwise"].values()) and e.get("chunk"), e
+        assert attn["parity"], attn
+        out["search"] = {"paged_bf16": paged[False], "paged_int8": paged[True],
+                         "sgd_resnet50": fused["sgd"],
+                         "adam_transformer_lm": fused["adam"],
+                         "attention_train": attn}
+        _log("[cost] autotune search %s" % json.dumps(out["search"]))
+
+        # a fresh process's view: the winners from the file only
+        at.reset()
+        mx.config.set("perf.autotune", "auto")
+        applied = {}
+        ck.reset_launches()
+        for q8, e in paged.items():
+            q, kp, vp, table, lens, kw = at._paged_inputs(
+                qs[0], qs[1], qs[3], ks[2] // 16, 16, "bfloat16", q8)
+            o = mx.kernels.paged_attention_pool(q, kp, vp, table, lens, **kw)
+            o_pick = ck.paged_attention_pool(q, kp, vp, table, lens,
+                                             keys_per_split=e[
+                                                 "keys_per_split"], **kw)
+            key = "%s/keys=%d" % ("paged_decode_pool_int8" if q8 else
+                                  "paged_decode_pool_bf16",
+                                  e["keys_per_split"])
+            applied["paged_int8" if q8 else "paged_bf16"] = {
+                "keys_per_split": e["keys_per_split"],
+                "launch_configs": dict(ck.LAUNCH_CONFIGS),
+                "same_output": _same_bits(torch, o, o_pick)}
+            assert ck.LAUNCH_CONFIGS.get(key, 0) == 2, (key,
+                                                        ck.LAUNCH_CONFIGS)
+            assert applied["paged_int8" if q8 else "paged_bf16"][
+                "same_output"]
+            ck.reset_launches()
+        for name, opt, shapes, e in (("sgd", sgd, rshapes, fused["sgd"]),
+                                     ("adam", adam, lshapes,
+                                      fused["adam"])):
+            assert mx.kernels.fused_step_enabled(opt)
+            applied[name] = _cost_fused_applied(ck, torch, at, name, opt,
+                                                shapes, e["chunk"])
+        out["applied"] = applied
+        out["cache"] = {"path": cache, "entries": len(
+            json.load(open(cache))["entries"])}
+        _log("[cost] autotune applied from the file %s"
+             % json.dumps(out["applied"]))
+    finally:
+        mx.config.unset("perf.autotune")
+        mx.config.unset("perf.autotune_cache")
+        at.reset()
+    return out
+
+
+def _cost_fused_applied(ck, torch, at, kind, opt, shapes, chunk):
+    """K1 (``kind`` 'sgd') or K3 over ``shapes`` through the optimizer's
+    own fused step (``step_fused_multi``), whose new launch table reads
+    the list's chunk from the cache file: the table carries it, one
+    launch at that chunk, and the update bitwise the plain version's."""
+    ws, gs, st, outs = at._fused_tensors(
+        shapes, "bfloat16", "bfloat16", "adam" if kind == "adam" else
+        "sgd/mom", seed=3)
+    n = len(ws)
+    lrs, wds = [0.01] * n, [1e-4] * n
+    pw = [w.clone() for w in ws]
+    ps = [[x.clone() for x in col] for col in st]
+    po = [o.clone() for o in outs]
+    ck.reset_launches()
+    if kind == "adam":
+        opt.step_fused_multi(ws, gs, list(zip(st[0], st[1])), lrs, wds, 1,
+                             outs=outs)
+        lr_ts = [opt._lr_t_of(lr, 1) for lr in lrs]
+        ck.fused_adam_step_multi_plain(pw, gs, ps[0], ps[1], lr_ts, wds,
+                                       opt.beta1, opt.beta2, opt.epsilon,
+                                       outs=po)
+    else:
+        opt.step_fused_multi(ws, gs, st[0], lrs, wds, 1, outs=outs)
+        ck.fused_sgd_step_multi_plain(pw, gs, ps[0], lrs, wds, opt.momentum,
+                                      outs=po)
+    torch.cuda.synchronize()
+    table = opt._launch_tables[ws[0].data_ptr()]
+    key = "%s_step/chunk=%d" % (kind, chunk)
+    same = all(_same_bits(torch, a, b) for a, b in zip(
+        ws + [x for col in st for x in col] + outs,
+        pw + [x for col in ps for x in col] + po))
+    out = {"chunk": chunk, "table_chunk": table.chunk,
+           "launch_configs": dict(ck.LAUNCH_CONFIGS), "bitwise": same}
+    assert table.chunk == chunk, out
+    assert ck.LAUNCH_CONFIGS == {key: 1} and same, out
+    return out
+
+
+def cost_measure(mx, ck, np, torch, card):
+    """Phase cost (e): ``kernels.measure`` on K2f at the training shape:
+    the record's FLOPs the analytic causal count; the achieved rate
+    against 989 TFLOP/s."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    B, H, S, D = TRAIN_B, 12, TRAIN_S, 64
+    q, k, v = (torch.randn(B, H, S, D, generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    ck.reset_launches()
+    (o, lse), rec = mx.kernels.measure("flash_fwd/train", ck.flash_attention,
+                                       q, k, v, True)
+    want = 4 * B * H * D * S * (S + 1) // 2
+    launches = ck.LAUNCHES["flash_fwd"]
+    ms = _device_ms(torch, lambda: ck.flash_attention(q, k, v, causal=True),
+                    iters=20)
+    out = {"card": card, "flops": rec["flops"], "analytic": want,
+           "bytes": rec["bytes_accessed"], "roofline": rec["roofline"],
+           "launches": launches, "device_ms": ms,
+           "achieved_tflops": want / (ms / 1e3) / 1e12 if ms else None,
+           "peak_tflops": PEAK_BF16_FLOPS / 1e12}
+    out["share_of_peak"] = (out["achieved_tflops"] / out["peak_tflops"]
+                            if ms else None)
+    _log("[cost] kernels.measure %s" % json.dumps(out))
+    assert rec["flops"] == want and launches == 1, out
+    return out
+
+
+def cost_profile(mx, ck, np, torch, card, workdir):
+    """Phase cost (f): perf.profile=step:2 on the TransformerLM's train
+    step as phase 4 trains it (a ``perf.wrap``ped step under
+    ``telemetry.step_scope``), 6 steps: a profile folded with the span
+    trace, and every step record's flops and mfu present and valid."""
+    from mxnet_tpu_torch import perf
+    from mxnet_tpu_torch import telemetry as tt
+    from mxnet_tpu_torch import tracing
+    from mxnet_tpu_torch.models.transformer import (TransformerLM,
+                                                    TransformerLMConfig)
+    cfg = TransformerLMConfig()
+    L = cfg.num_layers
+    pdir = os.path.join(workdir, "cost", "profile")
+    os.makedirs(pdir, exist_ok=True)
+    rng = np.random.default_rng(SEED + 3)
+    toks = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1))
+    inp = torch.as_tensor(toks[:, :-1], device="cuda")
+    tgt = torch.as_tensor(toks[:, 1:], device="cuda")
+    model = TransformerLM(cfg).init(SEED)
+    model.requires_grad_(True)
+    params = [p for _, p in model.named_parameters()]
+    opt = mx.optimizer.create("adam", learning_rate=TRAIN_LR,
+                              multi_precision=True)
+    states = [opt.create_state_multi_precision(i, p)
+              for i, p in enumerate(params)]
+    index = list(range(len(params)))
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(inp, tgt)
+        loss.backward()
+        opt.update_multi_precision(index, params, [p.grad for p in params],
+                                   states)
+        return loss
+    prog = perf.wrap(step, "gluon", "transformer_lm/train_step",
+                     source="gluon", dtype="bfloat16")
+    tele = os.path.join(pdir, "steps.jsonl")
+    trace = os.path.join(pdir, "spans.json")
+    for path in (tele, trace):
+        if os.path.exists(path):
+            os.remove(path)
+    mx.config.set("perf.profile_dir", pdir)
+    mx.config.set("tracing.sink", "chrome:" + trace)
+    mx.config.set("telemetry.sink", "jsonl:" + tele)
+    mx.config.set("perf.profile", "step:2")
+    n0 = len(perf.captures())
+    step_ms, losses = [], []
+    try:
+        _zero_counts(torch, tt, ck)
+        for _ in range(COST_PROFILE_STEPS):
+            t0 = time.perf_counter()
+            with tt.step_scope("gluon", samples=TRAIN_B), \
+                    tracing.span("cost.train_step", cat="cost"):
+                losses.append(float(prog().detach()))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+    finally:
+        mx.config.unset("perf.profile")
+        mx.config.unset("perf.profile_dir")
+        tt.flush()
+        mx.config.unset("telemetry.sink")
+        mx.config.unset("tracing.sink")
+    n = COST_PROFILE_STEPS
+    want = dict.fromkeys(launches, 0)
+    want.update({"flash_fwd": L * n, "flash_bwd_dq": L * n,
+                 "flash_bwd_dkv": L * n, "adam_step": n})
+    assert launches == want, (launches, want)
+    caps = perf.captures()[n0:]
+    metas = []
+    for c in caps:
+        with open(os.path.join(c, "meta.json")) as f:
+            metas.append(json.load(f))
+    folded = [m for m in metas if m.get("merged")]
+    with open(tele) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    recs = [r for r in recs if r.get("event") == "step"
+            and r.get("source") == "gluon"]
+    for r in recs:
+        tt.validate_step_record(r)
+    tokens = TRAIN_B * TRAIN_S
+    D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    matmul_params = L * (D * 3 * D + D * D + 2 * D * F_) + V * D
+    product = 2 * cfg.head_dim * cfg.num_heads * TRAIN_B \
+        * TRAIN_S * (TRAIN_S + 1) // 2
+    phase4_flops = 6 * matmul_params * tokens + L * 9 * product
+    # steps 2, 4 and 6: counted already and not under a profiler session
+    # (steps 3 and 5 run under one, and their exits write it)
+    clean = [1, 3, 5]
+    med = float(np.median([step_ms[i] for i in clean]))
+    out = {"card": card, "steps": n, "losses": losses, "step_ms": step_ms,
+           "captures": len(caps), "folded": len(folded),
+           "capture_meta": metas,
+           "step_records": len(recs),
+           "record_flops": [r.get("flops") for r in recs],
+           "record_mfu": [r.get("mfu") for r in recs],
+           "perf_flops_per_step": prog.record["flops"],
+           "phase4_formula_flops": phase4_flops,
+           "phase4_formula_mfu": phase4_flops / (med / 1e3)
+           / PEAK_BF16_FLOPS,
+           "perf_mfu_unprofiled_steps": [recs[i].get("mfu") for i in clean
+                                         if i < len(recs)],
+           "launches": launches}
+    _log("[cost] profile %s" % json.dumps({k: v for k, v in out.items()
+                                           if k != "capture_meta"}))
+    assert folded, metas
+    assert len(recs) == n and all(
+        isinstance(r.get("flops"), (int, float)) and r["flops"] > 0
+        and isinstance(r.get("mfu"), (int, float)) and r["mfu"] > 0
+        for r in recs), recs
+    return out
+
+
+def cost_phase(mx, ck, np, torch, card, workdir):
+    """Phase cost: (a) generation serving with every new knob on beside
+    off and (b) a planted stall, (c) the int8 drift twin, (d) autotune
+    into a fresh cache, (e) kernels.measure, (f) perf.profile on the
+    TransformerLM's train step."""
+    t0 = time.perf_counter()
+    marks = [("start", t0)]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+    out = {"card": card}
+    out["serve"] = cost_serve(mx, ck, np, torch, workdir)
+    mark("a_b")
+    torch.cuda.empty_cache()
+    out["drift"] = cost_drift(mx, np, torch, workdir)
+    mark("c")
+    torch.cuda.empty_cache()
+    out["autotune"] = cost_autotune(mx, ck, np, torch, workdir)
+    mark("d")
+    torch.cuda.empty_cache()
+    out["measure"] = cost_measure(mx, ck, np, torch, card)
+    mark("e")
+    out["profile"] = cost_profile(mx, ck, np, torch, card, workdir)
+    mark("f")
+    out["part_seconds"] = {name: t - prev for (_, prev), (name, t)
+                           in zip(marks, marks[1:])}
+    out["seconds"] = time.perf_counter() - t0
+    _log("[cost] part seconds %s" % json.dumps(out["part_seconds"]))
+    _log("[cost] phase seconds %.1f" % out["seconds"])
+    return out
+
+
+def _cost_launches(cost):
+    """Launches of K2f, K4, K2dq, K2dkv, K1 and K3 in phase cost's counted
+    runs, by kernel and run."""
+    srv = cost["serve"]["launches"]
+    prof = cost["profile"]["launches"]
+    applied = cost["autotune"]["applied"]
+    runs = 2 * COST_AB_PAIRS + 1
+    return {
+        "flash_fwd": {"cost_serve": srv["flash_fwd"] * runs,
+                      "cost_train": prof["flash_fwd"],
+                      "cost_measure": cost["measure"]["launches"]},
+        "paged_decode_pool_bf16": {
+            "cost_serve": srv["paged_decode_pool_bf16"] * runs,
+            "cost_autotune_applied": 2},
+        "paged_decode_pool_int8": {"cost_autotune_applied": 2},
+        "flash_bwd_dq": {"cost_train": prof["flash_bwd_dq"]},
+        "flash_bwd_dkv": {"cost_train": prof["flash_bwd_dkv"]},
+        "sgd_step": {"cost_autotune_applied": sum(
+            applied["sgd"]["launch_configs"].values())},
+        "adam_step": {"cost_autotune_applied": sum(
+            applied["adam"]["launch_configs"].values()),
+            "cost_train": prof["adam_step"]}}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the full report (JSON) "
@@ -11986,7 +13120,7 @@ def main(argv=None):
                                         "generation", "ops", "zoo", "rnn",
                                         "data", "ssd", "predict",
                                         "dist", "mesh", "shard",
-                                        "resilience", "observe"),
+                                        "resilience", "observe", "cost"),
                     default="all",
                     help="attention: the flash forward and backward checks "
                     "of phase 2 alone; optimizer: phase 2's K3 and K1 "
@@ -12041,7 +13175,19 @@ def main(argv=None):
                     "with forensics, the sinks and the watchdog, the sync "
                     "count, the capture's cost, mx.profiler, Monitor, the "
                     "watchdog firing), ending in the kernels line for K1, "
-                    "K2f, K2dq, K2dkv and K3, the card and ok lines")
+                    "K2f, K2dq, K2dkv and K3, the card and ok lines; cost: "
+                    "phase cost alone (generation serving with the "
+                    "exporter, access log, SLOs, sinks and watchdog on "
+                    "beside off, a planted stall, the int8 drift twin, "
+                    "mx.autotune into a fresh cache, kernels.measure, "
+                    "perf.profile on the TransformerLM), ending in the "
+                    "kernels line for K2f, K4, K2dq, K2dkv, K1 and K3, the "
+                    "card and ok lines")
+    ap.add_argument("--ab-csrc", metavar="DIR",
+                    help="with --phase attention: also run the NaN cases "
+                    "on the kernels built from DIR (another checkout's "
+                    "mxnet_tpu_torch/csrc) and time each kernel the NaN "
+                    "repair changed there and here, in turns")
     ap.add_argument("--dist-worker", metavar="WORKDIR",
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-worker", metavar="WORKDIR",
@@ -12097,7 +13243,8 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     built = _build.build(
-        {"attention": ["flash_fwd", "flash_bwd", "flash_f32", "paged_attn"],
+        {"attention": ["flash_fwd", "flash_bwd", "flash_f32", "paged_attn",
+                       "row_softmax"],
          "optimizer": ["adam_step", "sgd_step"],
          "bert": ["flash_fwd", "flash_bwd", "flash_f32", "adam_step"],
          "lm_f32": ["flash_f32", "adam_step"],
@@ -12111,7 +13258,9 @@ def main(argv=None):
          "shard": ["flash_fwd", "paged_attn", "sgd_step"],
          "resilience": ["sgd_step", "adam_step"],
          "observe": ["flash_fwd", "flash_bwd", "sgd_step",
-                     "adam_step"]}.get(args.phase))
+                     "adam_step"],
+         "cost": ["flash_fwd", "flash_bwd", "paged_attn", "sgd_step",
+                  "adam_step"]}.get(args.phase))
     report["build"] = {"seconds": time.perf_counter() - t0,
                        "per_source_s": {k: v["seconds"]
                                         for k, v in built.items()},
@@ -12157,10 +13306,14 @@ def main(argv=None):
             check_flash_bwd(ck, torch, F, F32_BWD_CASES + F32_D32_CASES
                             + F32_D16_CASES, "float32")
         report["flash_bwd_f32_sweep"] = sweep_flash_bwd_f32(ck, torch)
+        report["nan"] = check_nan(ck, torch)
+        report["section6"] = section6_times(ck, torch)
+        if args.ab_csrc:
+            report["kernel_ab"] = kernel_ab(ck, torch, args.ab_csrc)
         bad = [c for key in ("flash_fwd", "paged_decode_pool_bf16",
                              "paged_decode_pool_int8", "flash_bwd_dq",
                              "flash_bwd_dkv") + f32_keys + f32q_keys
-               for c in report[key] if not c["ok"]]
+               for c in report[key] if not c["ok"]] + report["nan"]["failed"]
         _write_report(args.report, report)
         if bad:
             raise AssertionError("kernel disagrees with its plain version: "
@@ -12439,6 +13592,45 @@ def main(argv=None):
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if args.phase == "cost":
+        train_case = ((TRAIN_B, 12, True, TRAIN_S, TRAIN_S, 64),)
+        decode_case = ((DECODE_B, 12, DECODE_WIDTH, PAGE_SIZE, 64),)
+        flash = check_flash(ck, torch, F, train_case)
+        paged = check_paged(ck, torch, F, False, decode_case)
+        paged8 = check_paged(ck, torch, F, True, decode_case)
+        bwd_dq, bwd_dkv = check_flash_bwd(ck, torch, F, train_case)
+        adam, adam_step = check_adam(ck, torch)
+        sgd, sgd_step = check_sgd(ck, torch, mx, np)
+        bad = [c for c in flash + paged + paged8 + bwd_dq + bwd_dkv + adam
+               + sgd if not c["ok"]]
+        if bad:
+            raise AssertionError("kernel disagrees with its plain version: "
+                                 "%s" % json.dumps(bad))
+        report["cost"] = cost_phase(mx, ck, np, torch, card, workdir)
+        by = _cost_launches(report["cost"])
+        pk = "mxnet_tpu/ops/pallas_kernels.py:"
+        kernels = []
+        for name, source, line, cases in (
+                ("flash_fwd", "flash_fwd.cu", "157", flash),
+                ("flash_bwd_dq", "flash_bwd.cu", "190", bwd_dq),
+                ("flash_bwd_dkv", "flash_bwd.cu", "220", bwd_dkv),
+                ("paged_decode_pool_bf16", "paged_attn.cu", "386", paged),
+                ("paged_decode_pool_int8", "paged_attn.cu", "386", paged8)):
+            kern = _summary(name, source, pk + line, cases,
+                            sum(by[name].values()))
+            kern["launches_by_path"] = by[name]
+            kernels.append(kern)
+        kernels += [_adam_summary(adam, adam_step, by["adam_step"]),
+                    _sgd_summary(sgd, sgd_step, by["sgd_step"])]
+        report["kernels"] = kernels
+        _write_report(args.report, report)
+        print(json.dumps({"kernels": [{k: v for k, v in s.items()
+                                       if k != "cases"} for s in kernels]}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.phase == "module":
         report["lr_t_ab"] = lr_t_ab(mx, np, torch)
         report["launch_ab"] = launch_ab(mx, np, torch)
@@ -12466,9 +13658,11 @@ def main(argv=None):
     sgd += check_sgd(ck, torch, mx, np, mesh_mlp_specs()[1])[0]
     k5f, k5b = check_row_softmax(ck, torch)
     k6 = check_scale_bias_relu(ck, torch)
+    report["nan"] = check_nan(ck, torch)
+    report["section6"] = section6_times(ck, torch)
     bad = [c for c in flash + paged + paged8 + paged32 + paged8q + bwd_dq
            + bwd_dkv + flash32 + bwd_dq32 + bwd_dkv32 + adam + sgd + k5f
-           + k5b + k6 if not c["ok"]]
+           + k5b + k6 if not c["ok"]] + report["nan"]["failed"]
     if bad:
         raise AssertionError("kernel disagrees with its plain version: %s"
                              % json.dumps(bad))
@@ -12523,6 +13717,8 @@ def main(argv=None):
                                  torch, card, workdir)
     report["observe"] = timed("observe", observe_phase, mx, ck, np, torch,
                               card, workdir)
+    report["cost"] = timed("cost", cost_phase, mx, ck, np, torch, card,
+                           workdir)
     mesh_by = _mesh_launches(report["mesh"])
     obs_by = _observe_launches(report["observe"])
     shard_by = _shard_launches(report["shard"])
@@ -12538,6 +13734,9 @@ def main(argv=None):
     data_adam.update(res_adam)
     data_sgd.update(obs_by["sgd_step"])
     data_adam.update(obs_by["adam_step"])
+    cost_by = _cost_launches(report["cost"])
+    data_sgd.update(cost_by["sgd_step"])
+    data_adam.update(cost_by["adam_step"])
     module_adam = report["module"]["fused"]["launches"]["adam_step"]
     rnn_adam = {"rnn_bucketing_" + kind: run["launches"]["adam_step"]
                 for kind, run in report["rnn"]["bucketing"].items()}
@@ -12615,12 +13814,14 @@ def main(argv=None):
         kern["launches_by_path"] = gen["by_run"][kern["name"]]
     # phase shard's per-rank launches beside each path's
     kernels[0]["launches_by_path"].update(shard_by["flash_fwd"])
-    # phase observe's TransformerLM runs
+    # phase observe's TransformerLM runs, phase cost's runs
     for kern in kernels[:3]:
         kern["launches_by_path"].update(obs_by[kern["name"]])
+        kern["launches_by_path"].update(cost_by[kern["name"]])
     for kern in kernels[6:8]:
         kern["launches_by_path"] = dict(
-            {"serve": kern["launches"]}, **shard_by[kern["name"]])
+            {"serve": kern["launches"]}, **shard_by[kern["name"]],
+            **cost_by[kern["name"]])
     report["kernels"] = kernels
     _write_report(args.report, report)
     print(json.dumps({"kernels": [{k: v for k, v in s.items()

@@ -66,6 +66,12 @@ Ported so far:
   ``torch.profiler``, ``mxnet_tpu_torch.numerics`` (in-step statistics
   capture and the nanguard's forensics), ``mx.monitor`` and
   ``mxnet_tpu_torch.trace_merge``;
+* serving and cost observability — ``mx.perf`` (FLOPs, bytes, MFU and the
+  roofline of counted programs; ``perf.profile`` step captures),
+  ``mx.autotune`` (a measured search over the kernels' launch
+  parameters), ``mx.obs`` (the Prometheus exporter, ``/healthz``, the
+  access log and SLO burn rates), the serving and generation spans and
+  stall probes, and the int8 drift twin;
 
 with hand-written CUDA kernels for flash-attention forward and backward,
 paged decode attention, the fused Adam step, the multi-tensor fused SGD
@@ -101,6 +107,7 @@ from . import executor, executor_manager, runtime, rnn
 from . import recordio, image, compat, resilience, contrib, kvstore_server
 from . import elastic
 from . import profiler, tracing, numerics, monitor
+from . import perf, autotune, obs
 from . import attribute
 from .attribute import AttrScope
 from . import symbol as sym

@@ -7,7 +7,8 @@ the kernel tier, the 64-bit dtype policy, the
 ResNet training path
 (convolution layout, BatchNorm statistics), the observability knobs
 (``numerics.capture``, ``telemetry.sink``, ``tracing.*``,
-``profiler.*``), the
+``profiler.*``), the serving and cost observability knobs (``obs.*``,
+``perf.profile*``, ``perf.autotune*``), the
 engine and symbolic Module knobs, the layer-stack program knobs
 (``runtime.stack_mode``, ``runtime.remat``) of ``runtime.scan_stack``,
 the data pipeline's (``io.*``), and the scale-out knobs (2-bit gradient
@@ -21,14 +22,21 @@ docstring.  ``get`` reads programmatic override > env var > default;
 knob's on-set hook when the value changes.
 The environment variable names are the reference package's, so one
 launcher setting configures either package.
+
+Reference knobs left out, as they have no meaning here yet:
+``kernels.vmem_budget`` (the TPU's VMEM window; the Hopper kernels tile
+through shared memory and take no such budget), ``xla.autotune`` and
+``xla.memory_pool`` (XLA's own), and ``serving.compile_cache_dir`` (a
+persistent compile cache waits for the serving shapes to run as CUDA
+graphs).
 """
 from __future__ import annotations
 
 import os
 from collections import namedtuple
 
-__all__ = ["register_knob", "get", "set", "unset", "describe", "epoch",
-           "enable_x64", "Knob"]
+__all__ = ["register_knob", "get", "set", "unset", "source", "knobs",
+           "describe", "epoch", "enable_x64", "Knob"]
 
 Knob = namedtuple("Knob", ["name", "env", "type", "default", "doc"])
 
@@ -41,7 +49,8 @@ _ON_SET = {}  # knob name -> callback(value), fired after set()
 # must not make the trainers and executors rebuild their steps.  Their
 # hooks still fire.
 _EPOCH_NEUTRAL = {"numerics.capture", "quant.drift_every",
-                  "quant.drift_threshold"}
+                  "quant.drift_threshold", "obs.listen", "obs.access_log",
+                  "obs.slo", "perf.profile", "perf.profile_dir"}
 
 # Bumped by every effective set()/unset(): caches that bake knob values in
 # key on it so a knob change invalidates them instead of silently not
@@ -71,6 +80,23 @@ def get(name):
     if raw is not None:
         return _parse(knob, raw)
     return knob.default
+
+
+def source(name):
+    """Where the current value of ``name`` comes from: ``'override'``
+    (programmatic set()), ``'env'`` (its environment variable) or
+    ``'default'``."""
+    knob = _KNOBS[name]
+    if name in _OVERRIDES:
+        return "override"
+    if os.environ.get(knob.env) is not None:
+        return "env"
+    return "default"
+
+
+def knobs():
+    """The registry: ``{name: Knob}``."""
+    return dict(_KNOBS)
 
 
 def set(name, value):  # noqa: A001 — reference-parity name
@@ -507,6 +533,129 @@ def _apply_tracing_ring(value):
     tracing.configure_ring(value)
 
 
+# the operational plane: exporter, access log, SLOs (mx.obs)
+register_knob(
+    "obs.listen", "MXNET_TPU_OBS_LISTEN", str, "",
+    "operational-plane exporter address as 'host:port' (port 0 binds an "
+    "ephemeral port; obs.exporter_address() reports it): starts a daemon "
+    "HTTP thread serving /metrics (Prometheus text rendered from the "
+    "telemetry registry, plus SLO burn rates), /healthz (breaker states, "
+    "batcher/engine liveness and stalls, KV-pool saturation, last-step "
+    "age; non-200 when unhealthy), and /varz (effective knobs with "
+    "provenance). Empty (default) disables: no thread, no socket.")
+register_knob(
+    "obs.access_log", "MXNET_TPU_OBS_ACCESS_LOG", str, "",
+    "per-request access log sink: 'jsonl:<path>' appends one JSON record "
+    "per serving/generation request (request_id = the span trace_id, "
+    "model, queue_ms, dispatch_ms, ttft_ms, tokens, bytes, flops, outcome "
+    "ok|shed|deadline|breaker|error) that joins against the tracing.sink "
+    "Chrome trace on trace_id. Empty (default) disables: the serving hot "
+    "path gains one predicate per request.")
+register_knob(
+    "obs.slo", "MXNET_TPU_OBS_SLO", str, "",
+    "serving SLO objectives as 'key=value[,key=value...]': "
+    "'availability=99.9' (percent of requests that must not end "
+    "shed/deadline/breaker/error) and 'latency_p99_ms=50' (windowed p99 "
+    "bound on the timer named by 'timer=', default serving.request_ms). "
+    "Arms multi-window burn-rate tracking (5m/1h fast, 30m/6h slow) "
+    "exposed on /metrics and obs.slo_status(). Empty (default) disables.")
+
+# cost attribution and the measured launch-parameter search (mx.perf,
+# mx.autotune)
+register_knob(
+    "perf.profile", "MXNET_TPU_PROFILE", str, "",
+    "periodic device-trace capture: 'step:N' runs one whole train step "
+    "under a torch.profiler session every N completed steps (written "
+    "under perf.profile_dir, folded with the chrome span sink through "
+    "trace_merge when tracing.sink is active). Empty (default) disables: "
+    "the mx.perf step hook then costs one dict pop.")
+register_knob(
+    "perf.profile_dir", "MXNET_TPU_PROFILE_DIR", str, "",
+    "directory for perf.profile step captures (one perf_step_<source>_<n>/ "
+    "subdirectory per capture); empty (default) = the current working "
+    "directory.")
+register_knob(
+    "perf.autotune", "MXNET_TPU_AUTOTUNE", str, "auto",
+    "mx.autotune mode. 'auto' (default): apply persisted winners; on a "
+    "cache miss keep each kernel's fixed launch rule and measure nothing. "
+    "'measure': run the measured search on a miss (the card only) and "
+    "write the winner through. 'off': no cache, the fixed rules.")
+register_knob(
+    "perf.autotune_cache", "MXNET_TPU_AUTOTUNE_CACHE", str, "",
+    "path of the persisted tuning cache (JSON). Empty (default) = "
+    "<model_store.root>/autotune.json, i.e. ~/.mxnet/autotune.json. "
+    "Entries are keyed by family/site + device name + dominant dtype + a "
+    "fingerprint of the knob values the kernels launch against.")
+
+
+def _apply_obs_listen(value):
+    from . import obs
+    try:
+        obs.configure_listen(value)
+    except (ValueError, OSError):
+        # reject at set() time and revert: a typo'd address or an
+        # unbindable port must not linger as the override
+        _OVERRIDES.pop("obs.listen", None)
+        raise
+
+
+def _apply_obs_access_log(value):
+    from . import obs
+    try:
+        obs.configure_access_log(value)
+    except ValueError:
+        _OVERRIDES.pop("obs.access_log", None)
+        raise
+
+
+def _apply_obs_slo(value):
+    from . import obs
+    try:
+        obs.configure_slo(value)
+    except ValueError:
+        _OVERRIDES.pop("obs.slo", None)
+        raise
+
+
+def _apply_perf_profile(value):
+    from . import perf
+    try:
+        perf.configure_profile(value)
+    except ValueError:
+        _OVERRIDES.pop("perf.profile", None)
+        raise
+
+
+# the last accepted programmatic perf.autotune (None: no override)
+_AUTOTUNE_OVERRIDE = [None]
+
+
+def _apply_perf_autotune(value):
+    v = (value or "").strip().lower()
+    if v not in ("off", "auto", "measure"):
+        # reject at set() time and revert to the value before the set
+        if _AUTOTUNE_OVERRIDE[0] is None:
+            _OVERRIDES.pop("perf.autotune", None)
+        else:
+            _OVERRIDES["perf.autotune"] = _AUTOTUNE_OVERRIDE[0]
+        raise ValueError("perf.autotune must be 'off', 'auto' or "
+                         "'measure', got %r" % (value,))
+    _AUTOTUNE_OVERRIDE[0] = _OVERRIDES.get("perf.autotune")
+    from . import autotune
+    autotune.reset_memo()
+
+
+def _apply_perf_autotune_cache(_value):
+    from . import autotune
+    autotune.reset_memo()
+
+
+_ON_SET["obs.listen"] = _apply_obs_listen
+_ON_SET["obs.access_log"] = _apply_obs_access_log
+_ON_SET["obs.slo"] = _apply_obs_slo
+_ON_SET["perf.profile"] = _apply_perf_profile
+_ON_SET["perf.autotune"] = _apply_perf_autotune
+_ON_SET["perf.autotune_cache"] = _apply_perf_autotune_cache
 _ON_SET["numerics.capture"] = _apply_numerics_capture
 _ON_SET["telemetry.sink"] = _apply_telemetry_sink
 _ON_SET["tracing.sink"] = _apply_tracing_sink

@@ -38,7 +38,10 @@
 //     wait on "full", run the tile's products and arrive on "empty", and
 //     thread 0 then refills that slot with the tile kStages ahead, so the
 //     next tile is in flight while this one computes.  Rows past the end of
-//     a ragged tile arrive as zeros (the tensor map's out-of-bounds fill).
+//     a ragged tile arrive as zeros (the tensor map's out-of-bounds fill);
+//     the lse and delta strips are flat over every head, so past a head's
+//     last query they hold the next head's rows, and dk/dv give those
+//     queries an exact zero dS (not 0 * a neighbour's NaN).
 //     There is no separate producer warp: a block's register allocation is
 //     per thread, and a fifth warp would cost the dq kernel its fourth and
 //     the dk/dv kernel its third resident block per SM, which measured
@@ -342,7 +345,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = 0; i < 32; ++i) {   // dS^T
       const int qi = 8 * (i >> 2) + 2 * t + (i & 1);
-      dpt[i] = st[i] * (dpt[i] - dl[qi]) * scale;
+      // a query past sq adds an exact zero: its lse and delta strips hold
+      // the next head's rows, whose NaN would reach this head through
+      // 0 * NaN
+      dpt[i] = (edge && i0 + qi >= sq)
+                   ? 0.f
+                   : st[i] * (dpt[i] - dl[qi]) * scale;
     }
     to_a_frag(dsa, dpt);
     wg_fence();

@@ -130,6 +130,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "nan_max.cuh"
+
 namespace {
 
 constexpr float kNeg = -1e30f;   // the reference's masked score
@@ -396,8 +398,8 @@ __device__ __forceinline__ void store_acc(float* out,
 // Max / sum over the 4 lanes (t = 0 .. 3) that hold one row of an
 // accumulator.
 __device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  x = fmax_nan(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmax_nan(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
 __device__ __forceinline__ float quad_sum(float x) {
@@ -466,12 +468,12 @@ __global__ void __launch_bounds__(kThreads, 2)
         else if (causal && col > row)
           x = kNeg;
         s[n][i] = x;
-        mt[i >> 1] = fmaxf(mt[i >> 1], x);
+        mt[i >> 1] = fmax_nan(mt[i >> 1], x);
       }
     float alpha[2], rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float mn = fmaxf(m[h], quad_max(mt[h]));
+      const float mn = fmax_nan(m[h], quad_max(mt[h]));
       alpha[h] = expf(m[h] - mn);  // 0 at the first tile
       m[h] = mn;
     }

@@ -57,6 +57,7 @@
 //     it needs 127 registers a thread, and so fewer warpgroups an SM.
 // Not yet: head dims other than 64; a producer warpgroup with setmaxnreg.
 #include "hopper.cuh"
+#include "nan_max.cuh"
 
 namespace {
 
@@ -158,14 +159,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (!(key < skv && (!causal || key <= row))) x = -INFINITY;
       }
       sacc[i] = x;
-      mt[h] = fmaxf(mt[h], x);
+      mt[h] = fmax_nan(mt[h], x);
     }
     float mref[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
-      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
-      const float mnew = fmaxf(m[h], mt[h]);
+      mt[h] = fmax_nan(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
+      mt[h] = fmax_nan(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
+      const float mnew = fmax_nan(m[h], mt[h]);
       // all masked so far: rescale against 0, so exp2(-inf - 0) = 0
       mref[h] = mnew == -INFINITY ? 0.f : mnew;
       const float corr = ex2(m[h] - mref[h]);
@@ -214,7 +215,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const float li = l[(i >> 1) & 1];
-    oacc[i] = li > 0.f ? oacc[i] / li : 0.f;
+    // a NaN sum passes through, as the reference's divide lets it
+    oacc[i] = li == 0.f ? 0.f : oacc[i] / li;
   }
   store_rows(o + (size_t)bh * sq * kD, oacc, r0, sq, t);
   if (t == 0) {

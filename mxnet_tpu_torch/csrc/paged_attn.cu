@@ -49,6 +49,15 @@
 //   * a masked key is never loaded, its score is -inf, and a group whose
 //     running max is still -inf rescales against 0: an all-masked chunk
 //     adds exact zeros, never exp(0) = 1;
+//   * a row with no key at all (lengths[b] <= 0, or no valid[b, j]) is
+//     what the plain version and the reference make of it: they pin
+//     every masked slot to -1e30, so each of the row's kctx slots weighs
+//     exp(0) = 1 and the output is the mean of v over them.  Such a row
+//     reads all kctx slots with the score -1e30 (through the clamped
+//     table, as the plain gather does); every other row is unchanged;
+//   * the maxima keep NaN (nan_max.cuh) and the divides let a NaN sum
+//     through, so a NaN in q, k or v reaches the row's output as in the
+//     reference;
 //   * the block's partial (max, sum, acc) triples, one a group (16 at
 //     bf16 D=64, 8 at f32 D=64, 64 at int8 D=16), merge through shared
 //     memory; with one split that is the output.  With several, each
@@ -70,9 +79,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "nan_max.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
+constexpr float kNeg = -1e30f;   // the reference's masked score
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 4;   // keys per group per step
 
@@ -180,11 +194,23 @@ paged_decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
 
   int n = geo.kctx;
   if (lengths != nullptr) n = min(max(lengths[b], 0), geo.kctx);
-  const int j_lo = split * geo.keys_per_split;
-  const int j_hi = min(j_lo + geo.keys_per_split, n);
   const int* trow = table != nullptr ? table + (size_t)b * geo.width : nullptr;
   const uint8_t* vrow = valid != nullptr ? valid + (size_t)b * geo.kctx
                                          : nullptr;
+  // a row with no key: every slot at the score kNeg (see the header)
+  bool empty = n == 0;
+  if (vrow != nullptr) {
+    int any = 0;
+    for (int j = threadIdx.x; j < geo.kctx && !any; j += kThreads)
+      any = vrow[j] != 0;
+    empty = !__syncthreads_or(any);
+  }
+  if (empty) {
+    n = geo.kctx;
+    vrow = nullptr;
+  }
+  const int j_lo = split * geo.keys_per_split;
+  const int j_hi = min(j_lo + geo.keys_per_split, n);
 
   float qv[kVec];
   load_row<kVec>(q + (size_t)bh * D + d0, qv, 1.f);
@@ -193,65 +219,75 @@ paged_decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
 
-  // the trip count is uniform across a warp (shuffles need every lane)
-  for (int base = j_lo + warp * kGroupsW * kChunk; base < j_hi;
-       base += kWarps * kGroupsW * kChunk) {
-    const int j0 = base + gw * kChunk;
-    float kf[kChunk][kVec], vf[kChunk][kVec];
-    bool ok[kChunk];
+  // the walk over this split's keys, instantiated twice: a row with no
+  // key (kEmpty) scores each slot kNeg, and the other rows' loop
+  // carries no test for it
+  auto walk = [&](auto empty_tag) {
+    constexpr bool kEmpty = decltype(empty_tag)::value;
+    // the trip count is uniform across a warp (shuffles need every lane)
+    for (int base = j_lo + warp * kGroupsW * kChunk; base < j_hi;
+         base += kWarps * kGroupsW * kChunk) {
+      const int j0 = base + gw * kChunk;
+      float kf[kChunk][kVec], vf[kChunk][kVec];
+      bool ok[kChunk];
 #pragma unroll
-    for (int c = 0; c < kChunk; ++c) {
-      const int j = j0 + c;
-      ok[c] = j < j_hi && (vrow == nullptr || vrow[j] != 0);
-      if (ok[c]) {
-        const int pi = j / geo.psz;
-        const int slot = j - pi * geo.psz;
-        int page = trow != nullptr ? trow[pi] : b;
-        page = min(max(page, 0), geo.pool - 1);
-        const long long at = page * geo.page + slot * geo.slot +
-                             h * geo.head + d0;
-        float ks = 1.f, vs = 1.f;
-        if (kQuant) {
-          const long long sat =
-              page * geo.s_page + slot * geo.s_slot + h * geo.s_head;
-          ks = k_scale[sat];
-          vs = v_scale[sat];
+      for (int c = 0; c < kChunk; ++c) {
+        const int j = j0 + c;
+        ok[c] = j < j_hi && (vrow == nullptr || vrow[j] != 0);
+        if (ok[c]) {
+          const int pi = j / geo.psz;
+          const int slot = j - pi * geo.psz;
+          int page = trow != nullptr ? trow[pi] : b;
+          page = min(max(page, 0), geo.pool - 1);
+          const long long at = page * geo.page + slot * geo.slot +
+                               h * geo.head + d0;
+          float ks = 1.f, vs = 1.f;
+          if (kQuant) {
+            const long long sat =
+                page * geo.s_page + slot * geo.s_slot + h * geo.s_head;
+            ks = k_scale[sat];
+            vs = v_scale[sat];
+          }
+          load_row<kVec>(k + at, kf[c], ks);
+          load_row<kVec>(v + at, vf[c], vs);
+        } else {
+#pragma unroll
+          for (int i = 0; i < kVec; ++i) kf[c][i] = vf[c][i] = 0.f;
         }
-        load_row<kVec>(k + at, kf[c], ks);
-        load_row<kVec>(v + at, vf[c], vs);
-      } else {
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) kf[c][i] = vf[c][i] = 0.f;
       }
+      float sc[kChunk];
+      float cmax = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        float dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) dot = fmaf(qv[i], kf[c][i], dot);
+#pragma unroll
+        for (int off = kLanes / 2; off > 0; off >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        sc[c] = ok[c] ? (kEmpty ? kNeg : dot * scale) : -INFINITY;
+        cmax = fmax_nan(cmax, sc[c]);
+      }
+      const float mnew = fmax_nan(m, cmax);
+      const float mref = (mnew == -INFINITY) ? 0.f : mnew;
+      const float corr = expf(m - mref);
+      l *= corr;
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) acc[i] *= corr;
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        const float p = expf(sc[c] - mref);
+        l += p;
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) acc[i] = fmaf(p, vf[c][i], acc[i]);
+      }
+      m = mnew;
     }
-    float sc[kChunk];
-    float cmax = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < kChunk; ++c) {
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) dot = fmaf(qv[i], kf[c][i], dot);
-#pragma unroll
-      for (int off = kLanes / 2; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      sc[c] = ok[c] ? dot * scale : -INFINITY;
-      cmax = fmaxf(cmax, sc[c]);
-    }
-    const float mnew = fmaxf(m, cmax);
-    const float mref = (mnew == -INFINITY) ? 0.f : mnew;
-    const float corr = expf(m - mref);
-    l *= corr;
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) acc[i] *= corr;
-#pragma unroll
-    for (int c = 0; c < kChunk; ++c) {
-      const float p = expf(sc[c] - mref);
-      l += p;
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) acc[i] = fmaf(p, vf[c][i], acc[i]);
-    }
-    m = mnew;
-  }
+  };
+  if (empty)
+    walk(std::true_type());
+  else
+    walk(std::false_type());
 
   // merge the groups' partial softmax states into the block's
 #pragma unroll
@@ -265,7 +301,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
   float bm = -INFINITY, bl = 0.f, ba = 0.f;
   if (d < D) {
 #pragma unroll
-    for (int gi = 0; gi < kGroups; ++gi) bm = fmaxf(bm, sm_m[gi]);
+    for (int gi = 0; gi < kGroups; ++gi) bm = fmax_nan(bm, sm_m[gi]);
     const float mref = (bm == -INFINITY) ? 0.f : bm;
 #pragma unroll
     for (int gi = 0; gi < kGroups; ++gi) {
@@ -275,7 +311,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
     }
   }
   if (geo.nsplit == 1) {
-    if (d < D) store_out(o + (size_t)bh * D + d, bl > 0.f ? ba / bl : 0.f);
+    if (d < D) store_out(o + (size_t)bh * D + d, bl == 0.f ? 0.f : ba / bl);
     return;
   }
 
@@ -298,7 +334,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
     const float* all = part + (size_t)bh * geo.nsplit * kPart;
     float mx = -INFINITY;
     for (int s = 0; s < geo.nsplit; ++s)
-      mx = fmaxf(mx, __ldcg(all + s * kPart + D));
+      mx = fmax_nan(mx, __ldcg(all + s * kPart + D));
     const float mref = (mx == -INFINITY) ? 0.f : mx;
     float lt = 0.f, at = 0.f;
     for (int s = 0; s < geo.nsplit; ++s) {
@@ -306,7 +342,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
       lt = fmaf(__ldcg(all + s * kPart + D + 1), w, lt);
       at = fmaf(__ldcg(all + s * kPart + d), w, at);
     }
-    store_out(o + (size_t)bh * D + d, lt > 0.f ? at / lt : 0.f);
+    store_out(o + (size_t)bh * D + d, lt == 0.f ? 0.f : at / lt);
   }
   if (threadIdx.x == 0) counters[bh] = 0u;   // ready for the next launch
 }

@@ -39,6 +39,8 @@
 #include <stdint.h>
 #include <math.h>
 
+#include "nan_max.cuh"
+
 namespace {
 
 constexpr int kWarpRowsThreads = 256;  // 8 warps, one row each
@@ -70,7 +72,7 @@ template <typename T> struct alignas(16) Vec {
 // (max, sum of exp(x - max)) merged
 __device__ __forceinline__ void merge(float& m, float& s, float om,
                                       float os) {
-  const float nm = fmaxf(m, om);
+  const float nm = fmax_nan(m, om);  // a NaN row stays NaN
   if (nm == -INFINITY) return;  // both empty (or all -inf so far)
   s = s * expf(m - nm) + os * expf(om - nm);
   m = nm;
@@ -81,8 +83,8 @@ template <int K>
 __device__ __forceinline__ void fold(float& m, float& s, const float* x) {
   float cm = x[0];
 #pragma unroll
-  for (int e = 1; e < K; ++e) cm = fmaxf(cm, x[e]);
-  const float nm = fmaxf(m, cm);
+  for (int e = 1; e < K; ++e) cm = fmax_nan(cm, x[e]);
+  const float nm = fmax_nan(m, cm);
   if (nm == -INFINITY) return;
   float cs = 0.f;
 #pragma unroll

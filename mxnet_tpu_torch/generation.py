@@ -48,7 +48,18 @@ One :class:`GenerationEngine` thread per generation model:
   (the ``resilience.retry_*`` knobs); once it is spent the engine is dead
   and submits fail fast.
 
-Not ported yet: the watchdog stall probe and tracing spans.
+* **Observability** — each prompt bucket's prefill and each decode
+  width's step is an ``mx.perf`` program (``serving/<model>/prefill-s<S>``,
+  ``serving/<model>/decode-w<W>``): its first call runs inside a
+  ``serving.compile`` span under ``perf.cost_analysis``, the port's
+  counterpart of the reference's per-bucket compile, and registers one
+  record; each prefill and decode step runs in a ``serving.dispatch``
+  span.  ``start`` registers :meth:`GenerationEngine._stall_probe` on
+  the watchdog (work waiting, no loop iteration within the deadline:
+  queue, slots, KV-pool occupancy, the oldest request's age); ``stop``
+  takes it off.  Every request leaves one ``obs.log_access`` record at
+  its terminal outcome, its id the enclosing ``serving.submit`` span's
+  trace id, an ok record carrying its share of the programs' FLOPs.
 
 Telemetry: ``serving.tokens_generated[.model]``, ``serving.requests``,
 ``serving.kv_pool_exhausted[.model]``, ``serving.prefix_hits`` counters;
@@ -58,6 +69,7 @@ Telemetry: ``serving.tokens_generated[.model]``, ``serving.requests``,
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import math as _math
 import threading
@@ -68,10 +80,13 @@ from concurrent.futures import Future
 import numpy as _np
 
 from . import config as _config
+from . import obs as _obs
 from . import telemetry as _telemetry
+from . import tracing as _tracing
 from .deploy import pick_bucket
 from .serving import (CircuitOpenError, DeadlineExceededError,
-                      ServerOverloadedError, ServingError)
+                      ServerOverloadedError, ServingError, _access_outcome,
+                      _err)
 
 __all__ = ["GenerationEngine"]
 
@@ -90,11 +105,11 @@ class _GenRequest:
     __slots__ = ("prompt", "plen", "max_new", "eos_id", "future",
                  "t_submit", "deadline", "need", "stall_counted",
                  "temperature", "top_k", "top_p", "key_words",
-                 "prefix_keys")
+                 "prefix_keys", "trace_id")
 
     def __init__(self, prompt, max_new, eos_id, deadline_ms, need,
                  temperature=0.0, top_k=0, top_p=1.0, seed=0,
-                 prefix_keys=()):
+                 prefix_keys=(), trace_id=None):
         self.prompt = prompt
         self.plen = int(prompt.shape[0])
         self.max_new = int(max_new)
@@ -113,6 +128,7 @@ class _GenRequest:
         # content keys of the FULL prompt-prefix pages, page 0 first:
         # key i covers tokens [0, (i+1)*page_size)
         self.prefix_keys = tuple(prefix_keys)
+        self.trace_id = trace_id
 
     def expired(self, now):
         return self.deadline is not None and now >= self.deadline
@@ -124,7 +140,7 @@ class _Slot:
     released through ``_release_pages_locked``, never freed directly."""
 
     __slots__ = ("req", "pages", "pos", "tokens", "ttft_ms",
-                 "prefix_keys")
+                 "prefix_keys", "flops")
 
     def __init__(self, req, pages, prefix_keys=()):
         self.req = req
@@ -133,6 +149,7 @@ class _Slot:
         self.tokens = []
         self.ttft_ms = None
         self.prefix_keys = tuple(prefix_keys)
+        self.flops = 0.0         # its share of the programs' FLOPs
 
 
 class GenerationEngine:
@@ -184,6 +201,14 @@ class GenerationEngine:
         # engine-thread-only state: the pool and the decode slots
         self._slots = [None] * self.decode_slots
         self._kv = None       # page-pool tuple (2 tensors, 4 when int8)
+        # mx.perf programs by prompt bucket / decode width
+        self._prefill = {}
+        self._decode = {}
+        self._last_iteration = _time.perf_counter()  # guarded-by: _cond
+        self._probe_name = "serving.generate.%s.%x" % (name, id(self))
+        # test hook: while an Event is set here the loop waits on it at
+        # the top of each iteration (:meth:`_held`)
+        self._gate = None
 
     # --------------------------------------------------------- lifecycle
     def start(self):
@@ -196,10 +221,14 @@ class GenerationEngine:
             self._abort = False
             self._dead = None
             self._started = True
+            self._last_iteration = _time.perf_counter()
             self._thread = threading.Thread(
-                target=self._supervise, daemon=True,
+                target=_tracing.wrap_context(self._supervise), daemon=True,
                 name="mx-serving-generate-%s" % self.name)
         self._thread.start()
+        # KV-pool occupancy, loop liveness and the oldest request's age
+        # land in the watchdog's hang report
+        _tracing.register_stall_probe(self._probe_name, self._stall_probe)
         return self
 
     def stop(self, drain=True, timeout_s=30.0):
@@ -219,9 +248,41 @@ class GenerationEngine:
                 _telemetry.counter("serving.stop_timeout").inc()
                 _LOG.warning("serving: generation engine %r did not "
                              "drain within %.1fs", self.name, timeout_s)
+        _tracing.unregister_stall_probe(self._probe_name)
         with self._cond:
             self._started = False
             self._thread = None
+
+    @contextlib.contextmanager
+    def _held(self):
+        """Test hook: hold the engine loop (it waits at the top of its next
+        iteration) until the block exits: a stall the watchdog, the stall
+        probe and ``/healthz`` can see."""
+        gate = threading.Event()
+        self._gate = gate
+        try:
+            yield self
+        finally:
+            self._gate = None
+            gate.set()
+
+    def _program(self, kind, size):
+        """The mx.perf program of one prompt bucket (``kind`` 'prefill') or
+        decode width ('decode')."""
+        table = self._prefill if kind == "prefill" else self._decode
+        prog = table.get(size)
+        if prog is None:
+            from . import perf as _perf
+            gp = self.predictor
+            if kind == "prefill":
+                fn, label = gp.prefill_fn(size), "prefill-s%d" % size
+            else:
+                fn, label = gp.decode_fn(size), "decode-w%d" % size
+            prog = table[size] = _perf.wrap(
+                fn, "serving", "%s/%s" % (self.name, label),
+                span="serving.compile", per_signature=False,
+                model=self.name)
+        return prog
 
     # ------------------------------------------------------------ submit
     def submit(self, prompt, max_new_tokens, eos_id=None,
@@ -260,9 +321,14 @@ class GenerationEngine:
                 "%d (serving.kv_pages) — shorten the request or grow the "
                 "pool" % (self.name, need, self.num_pages))
         _telemetry.counter("serving.requests").inc()
+        # the enclosing serving.submit span's trace id (None when tracing
+        # is off) rides the request so its access record joins the trace
+        sp = _tracing.current_span()
+        trace_id = sp.trace_id if sp is not None else None
         breaker = self.breaker
         if breaker is not None and breaker.rejects_submit():
             _telemetry.counter("serving.breaker_rejected").inc()
+            _obs.log_access(self.name, "breaker", request_id=trace_id)
             raise CircuitOpenError(
                 "model %r circuit breaker is OPEN after %d consecutive "
                 "dispatch failure(s); failing fast for %.0fms more"
@@ -281,7 +347,8 @@ class GenerationEngine:
         req = _GenRequest(prompt, max_new, eos_id,
                           float(deadline_ms or 0.0), need,
                           temperature=temperature, top_k=top_k,
-                          top_p=top_p, seed=seed, prefix_keys=prefix_keys)
+                          top_p=top_p, seed=seed, prefix_keys=prefix_keys,
+                          trace_id=trace_id)
         with self._cond:
             if self._dead is not None:
                 exc = self._dead
@@ -303,6 +370,7 @@ class GenerationEngine:
             _telemetry.counter("serving.shed_requests").inc()
             _telemetry.counter(
                 "serving.shed_requests.%s" % self.name).inc()
+            _obs.log_access(self.name, "shed", request_id=trace_id)
             raise ServerOverloadedError(
                 "generation queue for model %r is at serving.max_pending"
                 "=%d; request shed — back off and retry"
@@ -357,14 +425,23 @@ class GenerationEngine:
         return [s for s in self._slots if s is not None]
 
     def _fail_all(self, reqs, exc):
+        outcome = _access_outcome(exc)
+        err = _err(exc) if outcome == "error" else None
         for req in reqs:
             if not req.future.done():
                 req.future.set_exception(exc)
+                if _obs.access_log_enabled():
+                    _obs.log_access(
+                        self.name, outcome, request_id=req.trace_id,
+                        queue_ms=(_time.perf_counter() - req.t_submit)
+                        * 1e3, error=err)
 
     def _fail_active(self, exc):
         """Fail every in-flight sequence, recycle its pages and rebuild the
         pool zeroed (a failed call may have left it half-written)."""
         released = []
+        outcome = _access_outcome(exc)
+        err = _err(exc) if outcome == "error" else None
         for i, slot in enumerate(self._slots):
             if slot is None:
                 continue
@@ -372,6 +449,11 @@ class GenerationEngine:
             released.append(slot)
             if not slot.req.future.done():
                 slot.req.future.set_exception(exc)
+                if _obs.access_log_enabled():
+                    _obs.log_access(
+                        self.name, outcome, request_id=slot.req.trace_id,
+                        ttft_ms=slot.ttft_ms, tokens=len(slot.tokens),
+                        error=err)
         with self._cond:
             for slot in released:
                 self._release_pages_locked(slot)
@@ -461,10 +543,14 @@ class GenerationEngine:
 
     def _loop(self):
         while True:
+            gate = self._gate
+            if gate is not None:
+                gate.wait()
             now = _time.perf_counter()
             queued = None
             abort = False
             with self._cond:
+                self._last_iteration = now
                 expired = self._harvest_expired_locked(now)
                 admitted = self._admit_locked()
                 active = self._active()
@@ -515,6 +601,8 @@ class GenerationEngine:
                     "generation request for model %r expired in queue "
                     "before prefill (queued %.1fms, deadline passed)"
                     % (self.name, queued_ms)))
+                _obs.log_access(self.name, "deadline",
+                                request_id=req.trace_id, queue_ms=queued_ms)
 
     def _dispatch_failed(self, exc):
         """A failed call may have left the pool half-written: every
@@ -546,6 +634,9 @@ class GenerationEngine:
                 req.future.set_exception(CircuitOpenError(
                     "model %r circuit breaker is OPEN; prefill failed "
                     "fast, retry after the cooldown" % (self.name,)))
+                _obs.log_access(
+                    self.name, "breaker", request_id=req.trace_id,
+                    queue_ms=(_time.perf_counter() - req.t_submit) * 1e3)
             return True   # engine itself is fine
         s_bucket = gp.prefill_bucket(req.plen)
         w_s = _math.ceil(s_bucket / gp.page_size)
@@ -572,13 +663,18 @@ class GenerationEngine:
                         write_table[0, i] = sentinel
         temp, tk, tp, keys = self._sample_arrays([(0, slot)], 1)
         t0 = _time.perf_counter()
+        prog = self._program("prefill", s_bucket)
         try:
-            self._kv, nxt = gp.prefill_fn(s_bucket)(
-                self._kv, tokens, _np.asarray([req.plen], _np.int32),
-                write_table, temp, tk, tp, keys)
-            first = int(nxt[0])
+            with _tracing.span("serving.dispatch", cat="serving",
+                               model=self.name, program="prefill",
+                               bucket=s_bucket):
+                self._kv, nxt = prog(
+                    self._kv, tokens, _np.asarray([req.plen], _np.int32),
+                    write_table, temp, tk, tp, keys)
+                first = int(nxt[0])
         except Exception as exc:  # noqa: BLE001 — pool state is suspect
             return self._dispatch_failed(exc)
+        slot.flops += prog.record["flops"]
         if slot.prefix_keys:
             with self._cond:
                 for key in slot.prefix_keys:
@@ -615,6 +711,9 @@ class GenerationEngine:
             for _, s in active:
                 if not s.req.future.done():
                     s.req.future.set_exception(exc)
+                    _obs.log_access(
+                        self.name, "breaker", request_id=s.req.trace_id,
+                        ttft_ms=s.ttft_ms, tokens=len(s.tokens))
             with self._cond:
                 for _, s in active:
                     self._release_pages_locked(s)
@@ -633,13 +732,19 @@ class GenerationEngine:
             table[i, :k] = s.pages[:k]
         temp, tk, tp, keys = self._sample_arrays(active, B)
         t0 = _time.perf_counter()
+        prog = self._program("decode", width)
         try:
-            self._kv, nxt = gp.decode_fn(width)(
-                self._kv, token_ids, positions, table, temp, tk, tp, keys)
-            nxt = nxt.cpu().numpy()
+            with _tracing.span("serving.dispatch", cat="serving",
+                               model=self.name, program="decode",
+                               width=width, active=len(active)):
+                self._kv, nxt = prog(
+                    self._kv, token_ids, positions, table, temp, tk, tp,
+                    keys)
+                nxt = nxt.cpu().numpy()
         except Exception as exc:  # noqa: BLE001 — pool state is suspect
             self._dispatch_failed(exc)
             return
+        share = prog.record["flops"] / B
         t1 = _time.perf_counter()
         if breaker is not None:
             breaker.record_success()
@@ -649,6 +754,7 @@ class GenerationEngine:
         for i, s in active:
             s.tokens.append(int(nxt[i]))
             s.pos += 1
+            s.flops += share
             self._maybe_finish(i)
 
     def _sample_arrays(self, active, B):
@@ -689,6 +795,47 @@ class GenerationEngine:
         _telemetry.timer("serving.generate_request_ms").observe(wall_ms)
         if not req.future.done():
             req.future.set_result(_np.asarray(slot.tokens, _np.int32))
+            if _obs.access_log_enabled():
+                _obs.log_access(
+                    self.name, "ok", request_id=req.trace_id,
+                    dispatch_ms=wall_ms, ttft_ms=slot.ttft_ms,
+                    tokens=len(slot.tokens), bytes=len(slot.tokens) * 4,
+                    flops=int(slot.flops))
+
+    # ---------------------------------------------------------- watchdog
+    def _stall_probe(self, interval_s):
+        """The watchdog's stall probe (registered at :meth:`start`): the
+        engine is wedged when work waits but the loop has not turned over
+        within ``interval_s``; None while it moves."""
+        now = _time.perf_counter()
+        with self._cond:
+            queued = len(self._queue)
+            free = len(self._free)
+            last_iter = self._last_iteration
+            thread = self._thread
+            oldest_q = min((r.t_submit for r in self._queue),
+                           default=None)
+        # advisory cross-thread read of the engine-owned slot table (as
+        # stats() reads it)
+        active = self._active()
+        if queued == 0 and not active:
+            return None
+        if now - last_iter < interval_s:
+            return None
+        ages = [now - s.req.t_submit for s in active]
+        if oldest_q is not None:
+            ages.append(now - oldest_q)
+        return {
+            "model": self.name,
+            "queued": queued,
+            "active": len(active),
+            "kv_pages": self.num_pages,
+            "kv_pages_free": free,
+            "since_last_iteration_s": round(now - last_iter, 3),
+            "engine_alive": bool(thread is not None
+                                 and thread.is_alive()),
+            "oldest_request_age_s": round(max(ages), 3) if ages else 0.0,
+        }
 
     # ------------------------------------------------------------- stats
     def stats(self):

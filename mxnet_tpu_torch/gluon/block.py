@@ -11,9 +11,11 @@ forward and drawn then.  Blocks are not ``torch.nn.Module``s: a Block's
 values are its Parameters, and ``parallel.functionalize`` is how a step
 takes gradients through it.
 
-``hybridize()`` is accepted and changes nothing: every call runs the
-eager forward.  Capturing the forward as one program (a CUDA graph) is
-not ported yet.
+``hybridize()`` keeps the eager forward: every call runs it.  A
+hybridized call is registered with ``mx.perf`` (its cost counted at the
+first call per shape signature), as the reference registers its cached
+graph.  Capturing the forward as one program (a CUDA graph) is not ported
+yet.
 
 Parameter files: ``save_parameters`` writes structural names
 (``features.0.weight``, from ``_collect_params_with_prefix``) in the
@@ -445,14 +447,43 @@ def _brief_print_list(lst, limit=7):
     return ", ".join(["'%s'" % str(i) for i in lst])
 
 
+# how many hybridized calls enclose the current one on this thread: only
+# the outermost is an mx.perf program
+_PROGRAM = threading.local()
+
+
 class HybridBlock(Block):
     """A Block written as ``hybrid_forward(F, x, *args, **params)``
-    (reference ``gluon/block.py:838``)."""
+    (reference ``gluon/block.py:838``).  A hybridized call (the outermost
+    on its thread) is an ``mx.perf`` program of the ``gluon`` family,
+    counted at its first call per shape signature, feeding the gluon
+    source's MFU: the counterpart of the reference's ``_CachedGraph``
+    registration."""
 
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._active = False
         self._flags = {}
+        self._perf_program = None
+
+    def __call__(self, *args):
+        if not self._active or getattr(_PROGRAM, "depth", 0) or (
+                args and isinstance(args[0], Symbol)):
+            return super().__call__(*args)
+        prog = self._perf_program
+        if prog is None:
+            from .. import perf as _perf
+            prog = self._perf_program = _perf.wrap(
+                self._program_call, "gluon", "%s/%x" % (self.name, id(self)),
+                source="gluon")
+        return prog(*args)
+
+    def _program_call(self, *args):
+        _PROGRAM.depth = getattr(_PROGRAM, "depth", 0) + 1
+        try:
+            return Block.__call__(self, *args)
+        finally:
+            _PROGRAM.depth -= 1
 
     def register_child(self, block, name=None):
         if not isinstance(block, HybridBlock):

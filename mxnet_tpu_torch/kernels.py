@@ -43,8 +43,25 @@ other head dims the reference takes (up to 512), raise.  The
 reference's checks compared a whole head's K/V with a 2 MiB VMEM budget,
 which has no meaning here: both kernels tile K/V through shared memory
 (or read it in place), so context length never disqualifies a call.
-The reference's measured autotune gate is not ported, neither for the
-attention sites nor for the fused step.
+``mx.autotune`` picks launch parameters, never a route: the paged
+kernel's keys per split (``autotune.paged_pick``, applied here by
+:func:`paged_attention_pool`) and K1's and K3's elements a block for a
+searched tensor list (``autotune.fused_step_pick``, applied where an
+optimizer makes the list's launch table).  K2f takes no launch parameter:
+``autotune.search_attention`` records its one point, and no attention
+dispatch consults the cache.  The reference's gate, which could route a site to the XLA
+lowering where that measured faster, has no counterpart: the tier-off
+knob is the only way to a plain version on CUDA tensors.
+
+The reference's other names are here under the same names, so user code
+ports unchanged: :func:`flash_attention` (K2f with its backward, as the
+reference's differentiable Pallas kernel), :func:`pallas_paged_attention`
+(the CUDA paged kernel, ``csrc/paged_attn.cu``, over a gathered context;
+the name is the reference's), :func:`fused_sgd_step` /
+:func:`fused_adam_step` (K1 / K3 on one tensor),
+:func:`flash_unsupported_reason` / :func:`paged_unsupported_reason` (the
+Hopper kernels' feasibility checks) and :func:`measure` (one call
+registered with ``mx.perf`` under the ``kernels`` family).
 """
 from __future__ import annotations
 
@@ -58,8 +75,10 @@ from .ops import cuda_kernels as _ck
 from .parallel.ring_attention import attention as _plain_attention
 
 __all__ = ["enabled", "attention", "paged_attention", "paged_attention_pool",
+           "flash_unsupported_reason", "paged_unsupported_reason",
            "record_paged_routes", "fused_step_enabled", "note_fused_step",
-           "box_nms"]
+           "flash_attention", "pallas_paged_attention", "fused_sgd_step",
+           "fused_adam_step", "measure", "box_nms"]
 
 
 def enabled():
@@ -108,9 +127,67 @@ def attention(q, k, v, causal=False, scale=None):
 def fused_step_enabled(optimizer):
     """True when ``optimizer`` should update through its fused kernel
     (``step_fused``): tier on, the optimizer has a fused step
-    (``fused_step``) and its step math is ``jit_safe``."""
+    (``fused_step``) and its step math is ``jit_safe``.  No autotune pick
+    decides it: the port's picks choose a launch parameter, never a
+    route (``autotune.fused_step_pick`` is read where the kernel's launch
+    table is made)."""
     return (enabled() and bool(getattr(optimizer, "fused_step", False))
             and bool(getattr(optimizer, "jit_safe", True)))
+
+
+def flash_unsupported_reason(q, k, v, causal):
+    """Why the flash kernel cannot take this call, or None
+    (``cuda_kernels.flash_unsupported_reason``: shapes and dtypes)."""
+    return _ck.flash_unsupported_reason(q, k, v, causal)
+
+
+def paged_unsupported_reason(q, k, v, valid, quantized=False):
+    """Why the paged kernel cannot take this gathered-context call, or
+    None (``cuda_kernels.paged_unsupported_reason``).  ``quantized`` says
+    the pages are int8 (their scales' shapes are not checked here)."""
+    if quantized:
+        B, H, K = q.shape[0], q.shape[1], k.shape[2]
+        scale = torch.empty((B, H, K), dtype=torch.float32, device="meta")
+        return _ck.paged_unsupported_reason(q, k, v, valid, scale, scale)
+    return _ck.paged_unsupported_reason(q, k, v, valid)
+
+
+def flash_attention(q, k, v, causal=False, scale=None, block_q=None):
+    """Flash attention through K2f with its backward (the reference's
+    differentiable kernel entry): ``o [B, H, Sq, D]``.  ``block_q`` is the
+    TPU kernel's tile and has no meaning for the Hopper kernel, whose
+    tiles are compiled in: it is accepted and ignored."""
+    return _FlashVJP.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                           bool(causal), scale)
+
+
+def pallas_paged_attention(q, k, v, valid, scale=None, k_scale=None,
+                           v_scale=None, block_bh=None):
+    """The paged decode kernel over a gathered context (the reference's
+    name; here it is the CUDA kernel ``csrc/paged_attn.cu``, through
+    ``cuda_kernels.paged_attention``).  ``block_bh`` is the TPU kernel's
+    row block and has no meaning here: it is accepted and ignored."""
+    return _ck.paged_attention(q.contiguous(), k, v, valid, scale=scale,
+                               k_scale=k_scale, v_scale=v_scale)
+
+
+#: K1 on one tensor (``cuda_kernels.fused_sgd_step``)
+fused_sgd_step = _ck.fused_sgd_step
+#: K3 on one tensor (``cuda_kernels.fused_adam_step``)
+fused_adam_step = _ck.fused_adam_step
+
+
+def measure(key, fn, *args):
+    """Run ``fn(*args)`` once, counted by ``mx.perf`` under the
+    ``kernels`` family (``perf.wrap``): returns ``(outputs, record)``, the
+    record carrying the FLOPs and bytes (a hand kernel's own analytic
+    cost), the counted run's wall time and the roofline verdict."""
+    from . import perf as _perf
+    wrapped = _perf.wrap(fn, "kernels", key)
+    out = wrapped(*args)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, _perf.program("kernels", key)
 
 
 def note_fused_step():
@@ -187,14 +264,21 @@ def paged_attention_pool(q, k_pool, v_pool, page_table, lengths, scale=None,
     ``0 .. lengths[b] - 1``.  With ``k_scale_pool``/``v_scale_pool``
     (``[pool, psz, H]`` f32) the pool is int8.  Routing as in
     :func:`paged_attention` (tier off: the gather and the plain version),
-    counted on ``kernels.paged_attention``."""
+    counted on ``kernels.paged_attention``; the keys per split are
+    ``autotune.paged_pick``'s where it has one (the fixed rule
+    otherwise)."""
     quant = k_scale_pool is not None
     if enabled():
         _telemetry.counter("kernels.paged_attention").inc()
         _note_paged_route("paged", None, quant)
+        from . import autotune as _autotune
+        per = _autotune.paged_pick(
+            tuple(q.shape), page_table.shape[1] * k_pool.shape[1],
+            str(q.dtype).replace("torch.", ""), quant)
         return _ck.paged_attention_pool(
             q.contiguous(), k_pool, v_pool, page_table, lengths, scale=scale,
-            k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
+            k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool,
+            keys_per_split=per)
     _note_paged_route("plain", "tier off", quant)
     return _ck.paged_attention_pool_plain(
         q, k_pool, v_pool, page_table, lengths, scale=scale,

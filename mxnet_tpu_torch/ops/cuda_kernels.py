@@ -59,11 +59,23 @@ and their gathered-entry twins ``paged_decode_bf16``,
 ``sgd_step``, ``row_softmax_fwd``, ``row_softmax_bwd``,
 ``scale_bias_relu``, ``box_nms`` (one a mask and walk pair)), and
 ``rtc`` at each launch of a user kernel that ``mx.rtc`` compiled
-(``rtc.LAUNCHES`` counts those per kernel name).
+(``rtc.LAUNCHES`` counts those per kernel name).  ``LAUNCH_CONFIGS``
+counts the launches of the kernels whose launch parameters ``mx.autotune``
+searches, by configuration: ``sgd_step/chunk=<elements a block>``,
+``adam_step/chunk=...`` and ``<paged key>/keys=<keys a split>``.
+
+Cost: while ``mx.perf.cost_analysis`` counts on this thread, each wrapper
+charges its kernel's analytic work, the FLOPs and bytes of PERF.md's
+bound column, and hides its own PyTorch ops (on
+the CPU, the plain version) from the count: a launch through ``ctypes``
+is invisible to a dispatch mode, so without this the card would count no
+attention and the CPU the plain version's products.  With no dispatch
+mode active a wrapper pays one call that reads the mode stack's depth.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 
@@ -92,7 +104,7 @@ __all__ = ["flash_attention", "flash_attention_plain",
            "scale_bias_relu_plain", "scale_bias_relu_unsupported_reason",
            "box_nms_sorted", "box_nms_sorted_plain",
            "box_nms_unsupported_reason", "LAUNCHES", "reset_launches",
-           "FLASH_HEAD_DIMS", "PAGED_HEAD_DIMS", "NEG"]
+           "LAUNCH_CONFIGS", "FLASH_HEAD_DIMS", "PAGED_HEAD_DIMS", "NEG"]
 
 #: masked-score floor of the plain versions (parallel.ring_attention)
 NEG = -1e30
@@ -114,6 +126,152 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "adam_step": 0,
             "sgd_step": 0, "row_softmax_fwd": 0, "row_softmax_bwd": 0,
             "scale_bias_relu": 0, "box_nms": 0, "rtc": 0}
+#: launches by launch configuration (see the module doc)
+LAUNCH_CONFIGS = {}
+
+
+def _count_config(key):
+    LAUNCH_CONFIGS[key] = LAUNCH_CONFIGS.get(key, 0) + 1
+
+
+# ------------------------------------------------------------------ cost
+def _cost_counter():
+    """The counter of an ``mx.perf.cost_analysis`` running on this thread,
+    or None.  Its mode rides the dispatch-mode stack, which PyTorch hands
+    to the autograd engine's worker threads as well, so a backward kernel
+    charges the count that its forward ran under."""
+    if not torch._C._len_torch_dispatch_stack():
+        return None
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        counter = getattr(mode, "mx_cost_counter", None)
+        if counter is not None:
+            # inside another wrapper's charge: nothing more to charge
+            return None if counter.inside else counter
+    return None
+
+
+def _esize(t):
+    return t.element_size()
+
+
+def _flash_pairs(q, k, causal):
+    sq, skv = q.shape[2], k.shape[2]
+    return sq * (sq + 1) // 2 if causal else sq * skv
+
+
+def _flash_fwd_cost(q, k, v, causal=False, scale=None):
+    B, H, sq, D = q.shape
+    skv = k.shape[2]
+    return (4 * B * H * D * _flash_pairs(q, k, causal),
+            _esize(q) * (2 * B * H * sq * D + 2 * B * H * skv * D)
+            + 4 * B * H * sq)
+
+
+def _flash_bwd_cost(q, k, v, o, lse, do, causal=False, scale=None,
+                    delta=None):
+    # dq: 3 products, reads q, dO, k, v and the two row strips, writes dq;
+    # dk/dv: 4 products, reads q, dO, k, v and the strips, writes dk, dv
+    B, H, sq, D = q.shape
+    qbytes = _esize(q) * B * H * sq * D
+    kvbytes = _esize(k) * B * H * k.shape[2] * D
+    return (14 * D * B * H * _flash_pairs(q, k, causal),
+            5 * qbytes + 6 * kvbytes + 16 * B * H * sq)
+
+
+def _paged_cost(q, keys_per_row, quant, elem, extra):
+    # charged at the launch's geometry, every row's full width of keys, as
+    # a compiled program's static cost counts it: the valid lengths live
+    # on the card, and reading them would cost the host a sync (an upper
+    # bound on the work when the rows are ragged)
+    B, H, _, D = q.shape
+    keys = B * keys_per_row * H
+    return (4 * D * keys,
+            keys * D * 2 * elem + (keys * 8 if quant else 0)
+            + 2 * _esize(q) * B * H * D + extra)
+
+
+def _paged_gathered_cost(q, k, v, valid, scale=None, k_scale=None,
+                         v_scale=None):
+    return _paged_cost(q, k.shape[2], k_scale is not None, _esize(k),
+                       valid.numel())
+
+
+def _paged_pool_cost(q, k_pool, v_pool, page_table, lengths, scale=None,
+                     k_scale_pool=None, v_scale_pool=None,
+                     keys_per_split=None):
+    return _paged_cost(q, page_table.shape[1] * k_pool.shape[1],
+                       k_scale_pool is not None, _esize(k_pool),
+                       4 * page_table.numel() + 4 * lengths.numel())
+
+
+def _update_cost(weights, grads, states, outs, per_element_flops, state_rw):
+    flops = nbytes = 0
+    for i, w in enumerate(weights):
+        n = w.numel()
+        g = grads[i]
+        o = outs[i] if outs is not None else None
+        st = 0
+        if states is not None and states[i] is not None:
+            st = state_rw
+        nbytes += n * (8 + st + _esize(g) + (_esize(o) if o is not None
+                                               else 0))
+        flops += per_element_flops * n
+    return flops, nbytes
+
+
+def _sgd_multi_cost(weights, grads, states, lrs, wds, momentum, outs=None,
+                    table=None, skip=None):
+    mom = float(momentum) != 0.0
+    return _update_cost(weights, grads, states if mom else None, outs,
+                        5 if mom else 3, 8)
+
+
+def _adam_multi_cost(weights, grads, ms, vs, lr_ts, wds, beta1, beta2, eps,
+                     outs=None, table=None, skip=None):
+    flops, nbytes = _update_cost(weights, grads, None, outs, 12, 0)
+    return flops, nbytes + 16 * sum(w.numel() for w in weights)
+
+
+def _softmax_fwd_cost(x):
+    n, d = x.shape
+    return 7 * n * d, 2 * n * d * _esize(x) + 2 * n * _esize(x)
+
+
+def _softmax_bwd_cost(x, m, l, dy):
+    n, d = x.shape
+    return 9 * n * d, 3 * n * d * _esize(x) + 2 * n * _esize(x)
+
+
+def _sbr_cost(x, scale, bias):
+    n, d = x.shape
+    return 3 * n * d, 2 * n * d * _esize(x) + 2 * d * _esize(x)
+
+
+def _nms_cost(coords, cls, valid, overlap_thresh):
+    # the scan's IoUs depend on the data; what any scan must move is the
+    # boxes, classes and mask read and the keep mask written
+    b, n = valid.shape
+    return 0, b * n * (16 + 1 + 1 + (4 if cls is not None else 0))
+
+
+def _costed(cost_of):
+    """Let the wrapper charge ``cost_of(*args, **kwargs)`` to the active
+    mx.perf count (and hide its own ops from it); see the module doc.
+    ``cost_of`` gives the analytic work of PERF.md's bound column, each
+    input read once and each output written once."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            counter = _cost_counter()
+            if counter is None:
+                return fn(*args, **kwargs)
+            with counter.hidden():
+                flops, nbytes = cost_of(*args, **kwargs)
+                counter.charge(fn.__name__, flops, nbytes)
+                return fn(*args, **kwargs)
+        return wrapper
+    return deco
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -188,6 +346,7 @@ def _short(dtype):
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCH_CONFIGS.clear()
 
 
 def _check(lib, err, what):
@@ -272,6 +431,7 @@ def _flash_lib(dtype, bf16_lib):
     return bf16_lib, "bf16", ""
 
 
+@_costed(_flash_fwd_cost)
 def flash_attention(q, k, v, causal=False, scale=None):
     """Flash-attention forward: ``(o, lse)`` as :func:`flash_attention_plain`
     computes them.  CPU tensors run the plain version; CUDA tensors launch
@@ -358,6 +518,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False, scale=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+@_costed(_flash_bwd_cost)
 def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None,
                         delta=None):
     """Flash-attention backward: ``(dq, dk, dv)`` as
@@ -512,6 +673,7 @@ def paged_attention_plain(q, k, v, valid, scale=None, k_scale=None,
     return (o / l.to(o.dtype)).to(q.dtype)
 
 
+@_costed(_paged_gathered_cost)
 def paged_attention(q, k, v, valid, scale=None, k_scale=None,
                     v_scale=None):
     """Single-query paged decode attention.  ``q [B,H,1,D]`` bf16 or
@@ -557,11 +719,18 @@ PAGED_TARGET_BLOCKS = 4 * 132
 PAGED_SPLIT_KEYS = 64
 
 
-def paged_splits(bh, kctx):
+def paged_splits(bh, kctx, keys_per_split=None):
     """``(keys_per_split, splits)`` of one paged launch over ``bh``
-    (batch x heads) rows of ``kctx`` keys: enough splits that
-    ``bh * splits`` blocks reach PAGED_TARGET_BLOCKS where the context
-    allows, each split a multiple of PAGED_SPLIT_KEYS keys."""
+    (batch x heads) rows of ``kctx`` keys.  The fixed rule (no
+    ``keys_per_split``): enough splits that ``bh * splits`` blocks reach
+    PAGED_TARGET_BLOCKS where the context allows, each split a multiple
+    of PAGED_SPLIT_KEYS keys.  A given ``keys_per_split`` (mx.autotune's
+    pick) is rounded up to a multiple of PAGED_SPLIT_KEYS and capped at
+    the context."""
+    if keys_per_split:
+        per = -(-int(keys_per_split) // PAGED_SPLIT_KEYS) * PAGED_SPLIT_KEYS
+        per = min(per, -(-kctx // PAGED_SPLIT_KEYS) * PAGED_SPLIT_KEYS)
+        return per, -(-kctx // per)
     most = -(-kctx // PAGED_SPLIT_KEYS)
     want = max(1, min(most, -(-PAGED_TARGET_BLOCKS // bh)))
     per = -(-kctx // want)
@@ -595,14 +764,14 @@ def _drop_paged_counters(device, stream):
 
 
 def _launch_paged(q, k, v, k_scale, v_scale, table, lengths, valid, width,
-                  psz, pool, strides, scale=None):
+                  psz, pool, strides, scale=None, keys_per_split=None):
     """One launch of the paged kernel on checked inputs; ``strides`` are
     ``(page, slot, head)`` of k/v and of the scales, in elements.  The
     output is in q's dtype; with several splits each (b, h) writes
     ``splits`` partials of ``D + 2`` floats to a workspace."""
     B, H, _, D = q.shape
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-    per, splits = paged_splits(B * H, width * psz)
+    per, splits = paged_splits(B * H, width * psz, keys_per_split)
     stream = _stream(q)
     part = counters = None
     if splits > 1:
@@ -623,6 +792,8 @@ def _launch_paged(q, k, v, k_scale, v_scale, table, lengths, valid, width,
     if err != 0 and counters is not None:
         _drop_paged_counters(q.device, stream)
     _check(lib, err, "paged_decode")
+    _count_config("%s/keys=%d" % (_paged_launch_key(
+        q, quant, pool=table is not None), per))
     return o
 
 
@@ -702,15 +873,18 @@ def paged_attention_pool_plain(q, k_pool, v_pool, page_table, lengths,
                                  scale=scale, **scales)
 
 
+@_costed(_paged_pool_cost)
 def paged_attention_pool(q, k_pool, v_pool, page_table, lengths, scale=None,
-                         k_scale_pool=None, v_scale_pool=None):
+                         k_scale_pool=None, v_scale_pool=None,
+                         keys_per_split=None):
     """Single-query paged decode attention read straight from the page
     pool: ``q [B,H,1,D]`` bf16 or f32; ``k_pool``/``v_pool
     [pool, psz, H, D]`` (the model's own per-layer pools, in q's dtype, or
     int8 with ``k_scale_pool`` / ``v_scale_pool [pool, psz, H]`` f32);
     ``page_table [B, W]`` int32; ``lengths [B]`` int32, the valid prefix
     of each sequence (keys ``0 .. lengths[b] - 1``); the output is in q's
-    dtype.  CPU tensors run
+    dtype.  ``keys_per_split`` overrides the split rule
+    (:func:`paged_splits`).  CPU tensors run
     :func:`paged_attention_pool_plain`; CUDA tensors launch
     ``csrc/paged_attn.cu`` (one launch, no gather) or raise."""
     if q.device.type == "cpu":
@@ -733,7 +907,7 @@ def paged_attention_pool(q, k_pool, v_pool, page_table, lengths, scale=None,
                       page_table, lengths, None,
                       width=page_table.shape[1], psz=psz, pool=P,
                       strides=(psz * H * D, H * D, D, psz * H, H, 1),
-                      scale=scale)
+                      scale=scale, keys_per_split=keys_per_split)
     LAUNCHES[_paged_launch_key(q, quant, pool=True)] += 1
     return o
 
@@ -850,6 +1024,7 @@ def fused_adam_step_multi_plain(weights, grads, ms, vs, lr_ts, wds, beta1,
         v.copy_(_kept(skip, v, nv))
 
 
+@_costed(_adam_multi_cost)
 def fused_adam_step_multi(weights, grads, ms, vs, lr_ts, wds, beta1, beta2,
                           eps, outs=None, table=None, skip=None):
     """One Adam update over a list of tensors, in place: ``weights`` (f32
@@ -889,7 +1064,8 @@ def fused_adam_step_multi(weights, grads, ms, vs, lr_ts, wds, beta1, beta2,
     table = table if table is not None else LaunchTable()
     dev, blocks = table.fill(ADAM_LAYOUT, (weights, ms, vs, outs), grads,
                              lr_ts, wds)
-    _launch_adam(dev, n, blocks, beta1, beta2, eps, weights[0], skip)
+    _launch_adam(dev, n, blocks, beta1, beta2, eps, weights[0], skip,
+                 chunk=table.launch_chunk)
 
 
 def _adam_entry_reason(first, w, g, m, v, o):
@@ -930,18 +1106,21 @@ def _skip_ptr(skip):
     return None if skip is None else skip.data_ptr()
 
 
-def _launch_adam(table, n, blocks, beta1, beta2, eps, like, skip=None):
+def _launch_adam(table, n, blocks, beta1, beta2, eps, like, skip=None,
+                 chunk=None):
     """Launch K3 alone over a filled device table (:class:`LaunchTable`
     fills it after :func:`fused_adam_step_multi` has checked every
     tensor), on the stream of ``like``'s device; ``skip`` as for
     :func:`fused_adam_step_multi`."""
     lib = _build.load("adam_step", _SIGNATURES["adam_step"])
+    chunk = int(chunk or ADAM_LAYOUT.chunk)
     err = lib.mx_adam_step_multi(
-        table.data_ptr(), n, blocks, ADAM_LAYOUT.chunk, float(beta1),
+        table.data_ptr(), n, blocks, chunk, float(beta1),
         float(beta2), 1.0 - float(beta1), 1.0 - float(beta2), float(eps),
         _skip_ptr(skip), _stream(like))
     _check(lib, err, "adam_step")
     LAUNCHES["adam_step"] += 1
+    _count_config("adam_step/chunk=%d" % chunk)
 
 
 def fused_adam_step(weight, grad, m, v, lr_t, wd, beta1, beta2, eps,
@@ -1016,7 +1195,7 @@ SGD_LAYOUT = TableLayout("sgd", _np.dtype([
     ("pad", "<i8")]), 8192, ("w", "m", "out"))
 assert [SGD_LAYOUT.record.fields[k][1] for k in
         ("n", "block0", "lr", "wd", "flags")] == [32, 40, 44, 48, 52]
-#: elements per block of the SGD kernel
+#: elements per block of the SGD kernel (the fixed rule)
 SGD_CHUNK = SGD_LAYOUT.chunk
 #: K3's table: the layout of ``Entry`` in csrc/adam_step.cu (``lr`` holds
 #: the tensor's lr_t); a block takes 256 threads x 2 groups of 4 lanes x 4
@@ -1047,10 +1226,14 @@ class LaunchTable:
     so the grad, lr and wd columns (and the flags, which hold the grad's
     dtype and alignment) are rewritten at every launch, and the table
     goes to the card in one pinned host-to-device copy on the launch's
-    stream.  ``rebuilds`` counts the rebuilds."""
+    stream.  ``rebuilds`` counts the rebuilds.  ``chunk`` (elements a
+    block, a positive multiple of 4) overrides the layout's fixed rule:
+    mx.autotune's measured pick for the list."""
 
-    def __init__(self):
+    def __init__(self, chunk=None):
         self.rebuilds = 0
+        self.chunk = chunk     # elements a block; None: the layout's rule
+        self.launch_chunk = None   # the chunk of the table as built
         self._key = None
         self._host = None
         self._fixed = None     # flags of the in-place tensors
@@ -1058,14 +1241,14 @@ class LaunchTable:
         self._blocks = 0
         self._dev = None
 
-    def _rebuild(self, key, layout, columns):
+    def _rebuild(self, key, layout, columns, chunk):
         weights = columns[0]
         n = len(weights)
         host = _np.zeros(n, dtype=layout.record)
         for name, col in zip(layout.columns, columns):
             host[name] = [t.data_ptr() if t is not None else 0 for t in col]
         host["n"] = [w.numel() for w in weights]
-        blocks = _np.asarray([-(-w.numel() // layout.chunk)
+        blocks = _np.asarray([-(-w.numel() // chunk)
                               for w in weights], dtype=_np.int64)
         starts = _np.concatenate([[0], _np.cumsum(blocks)])
         if int(starts[-1]) >= 2 ** 31:
@@ -1079,6 +1262,7 @@ class LaunchTable:
             [all(_vec_aligned(t) for t in tensors if t is not None)
              for tensors in zip(*columns)], dtype=bool)
         self._key, self._host, self._blocks = key, host, int(starts[-1])
+        self.launch_chunk = chunk
         self._dev = None
         self.rebuilds += 1
 
@@ -1089,13 +1273,18 @@ class LaunchTable:
         ``lrs`` and ``wds`` one entry per tensor.  Returns ``(host
         records, blocks)``; reads only pointers, so it runs for tensors
         on any device."""
-        key = (layout.name,
+        chunk = int(self.chunk or layout.chunk)
+        if chunk <= 0 or chunk % 4:
+            raise KernelUnsupportedError(
+                "%s kernel cannot take a chunk of %d elements (a positive "
+                "multiple of 4)" % (layout.name, chunk))
+        key = (layout.name, chunk,
                tuple(t.data_ptr() if t is not None else 0
                      for col in columns for t in col),
                tuple(w.numel() for w in columns[0]),
                tuple(o.dtype if o is not None else None for o in columns[-1]))
         if key != self._key:
-            self._rebuild(key, layout, columns)
+            self._rebuild(key, layout, columns, chunk)
         host = self._host
         gptr = _np.asarray([g.data_ptr() for g in grads], dtype=_np.uint64)
         galign = _np.asarray([4 * g.element_size() for g in grads],
@@ -1190,6 +1379,7 @@ def fused_sgd_step_multi_plain(weights, grads, states, lrs, wds, momentum,
             s.copy_(_kept(skip, s, nm))
 
 
+@_costed(_sgd_multi_cost)
 def fused_sgd_step_multi(weights, grads, states, lrs, wds, momentum,
                          outs=None, table=None, skip=None):
     """One SGD(+momentum) update over a list of tensors, in place:
@@ -1228,20 +1418,23 @@ def fused_sgd_step_multi(weights, grads, states, lrs, wds, momentum,
     table = table if table is not None else LaunchTable()
     dev, blocks = table.fill(SGD_LAYOUT, (weights, states, outs), grads,
                              lrs, wds)
-    _launch_sgd(dev, n, blocks, momentum, weights[0], skip)
+    _launch_sgd(dev, n, blocks, momentum, weights[0], skip,
+                chunk=table.launch_chunk)
 
 
-def _launch_sgd(table, n, blocks, momentum, like, skip=None):
+def _launch_sgd(table, n, blocks, momentum, like, skip=None, chunk=None):
     """Launch K1 alone over a filled device table (:class:`LaunchTable`
     fills it after :func:`fused_sgd_step_multi` has checked every
     tensor), on the stream of ``like``'s device; ``skip`` as for
     :func:`fused_sgd_step_multi`."""
     lib = _build.load("sgd_step", _SIGNATURES["sgd_step"])
-    err = lib.mx_sgd_step_multi(table.data_ptr(), n, blocks, SGD_CHUNK,
+    chunk = int(chunk or SGD_CHUNK)
+    err = lib.mx_sgd_step_multi(table.data_ptr(), n, blocks, chunk,
                                 momentum, int(momentum != 0.0),
                                 _skip_ptr(skip), _stream(like))
     _check(lib, err, "sgd_step")
     LAUNCHES["sgd_step"] += 1
+    _count_config("sgd_step/chunk=%d" % chunk)
 
 
 def fused_sgd_step(weight, grad, state, lr, wd, momentum, out_dtype=None,
@@ -1319,6 +1512,7 @@ def row_softmax_plain(x):
     return (e / l).to(x.dtype), m.to(x.dtype), l.to(x.dtype)
 
 
+@_costed(_softmax_fwd_cost)
 def row_softmax(x):
     """Softmax over the last axis of ``x [n, d]`` with the saved row
     statistics: ``(y, m, l)`` as :func:`row_softmax_plain` computes them.
@@ -1353,6 +1547,7 @@ def row_softmax_bwd_plain(x, m, l, dy):
     return (y * (dyf - dot)).to(x.dtype)
 
 
+@_costed(_softmax_bwd_cost)
 def row_softmax_bwd(x, m, l, dy):
     """The row softmax's input gradient from the forward's ``x``, ``m``
     and ``l`` and the output gradient ``dy``, as
@@ -1416,6 +1611,7 @@ def scale_bias_relu_plain(x, scale, bias):
     return _relu_nan(p + b.float()).to(x.dtype)
 
 
+@_costed(_sbr_cost)
 def scale_bias_relu(x, scale, bias):
     """``relu(x * scale + bias)`` over ``x [n, d]``, ``scale``/``bias`` of
     ``d`` values in ``x``'s dtype, as :func:`scale_bias_relu_plain`
@@ -1568,6 +1764,7 @@ def box_nms_sorted_plain(coords, cls, valid, overlap_thresh):
     return torch.from_numpy(keep).to(coords.device)
 
 
+@_costed(_nms_cost)
 def box_nms_sorted(coords, cls, valid, overlap_thresh):
     """The keep mask of the greedy NMS scan over score-sorted rows, as
     :func:`box_nms_sorted_plain` computes it.  CPU tensors run the plain

@@ -483,18 +483,23 @@ class Optimizer:
         for _ in batch:
             _kernels.note_fused_step()
 
-    def _table_of(self, master):
+    def _table_of(self, masters):
         """The launch table (``cuda_kernels.LaunchTable``) kept for the
-        fused updates whose first master is ``master`` (a trainer's list,
-        one parameter of ``gluon.Trainer``): a later update of the same
-        tensors finds it filled and rewrites only the grad, lr and wd
-        columns."""
+        fused updates of the list ``masters`` (a trainer's list, one
+        parameter of ``gluon.Trainer``), found by its first master: a
+        later update of the same tensors finds it filled and rewrites
+        only the grad, lr and wd columns.  A new table takes the chunk
+        ``autotune.fused_step_pick`` measured for the list's shapes, if
+        any (read once a table, not once a step)."""
         tables = self.__dict__.setdefault("_launch_tables", {})
-        table = tables.get(master.data_ptr())
+        table = tables.get(masters[0].data_ptr())
         if table is None:
             if len(tables) >= _MAX_TABLES:   # masters were reallocated
                 tables.clear()
-            table = tables[master.data_ptr()] = _ck.LaunchTable()
+            from .. import autotune as _autotune
+            chunk = _autotune.fused_step_pick(
+                self, [tuple(w.shape) for w in masters])
+            table = tables[masters[0].data_ptr()] = _ck.LaunchTable(chunk)
         return table
 
     def __getstate__(self):
@@ -577,7 +582,7 @@ class SGD(Optimizer):
         be the inputs themselves (in place)."""
         return _ck.fused_sgd_step(weight, grad, state, lr, wd, self.momentum,
                                   out_dtype=out_dtype or weight.dtype,
-                                  out=out, table=self._table_of(weight))
+                                  out=out, table=self._table_of([weight]))
 
     def step_fused_multi(self, weights, grads, states, lrs, wds, t,
                          outs=None, skip=None):
@@ -586,7 +591,7 @@ class SGD(Optimizer):
         under a set ``skip`` word)."""
         _ck.fused_sgd_step_multi(weights, grads, states, lrs, wds,
                                  self.momentum, outs=outs,
-                                 table=self._table_of(weights[0]),
+                                 table=self._table_of(weights),
                                  skip=skip)
 
     @torch.no_grad()
@@ -921,7 +926,7 @@ class Adam(Optimizer):
         return _ck.fused_adam_step(
             weight, grad, m, v, self._lr_t_of(lr, t), wd, self.beta1,
             self.beta2, self.epsilon, out_dtype=out_dtype or weight.dtype,
-            out=out, table=self._table_of(weight))
+            out=out, table=self._table_of([weight]))
 
     def step_fused_multi(self, weights, grads, states, lrs, wds, t,
                          outs=None, skip=None):
@@ -937,7 +942,7 @@ class Adam(Optimizer):
             weights, grads, [s[0] for s in states], [s[1] for s in states],
             [self._lr_t_of(lr, ti) for lr, ti in zip(lrs, ts)], wds,
             self.beta1, self.beta2, self.epsilon, outs=outs,
-            table=self._table_of(weights[0]), skip=skip)
+            table=self._table_of(weights), skip=skip)
 
     @torch.no_grad()
     def step_rows(self, weight, rows, grad_rows, state, lr, wd, t):

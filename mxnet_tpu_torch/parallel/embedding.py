@@ -314,6 +314,9 @@ class ShardedEmbedding:
         self.table = full.to(dev).contiguous()
         self.state = self.optimizer.create_state(0, self.table)
         self._t = 0
+        # mx.perf programs of the lookup and the update, made at first use
+        self._lookup_prog = None
+        self._update_prog = None
 
     def set_table(self, full):
         """Replace the table with ``full`` (``[num_rows, dim]``; this
@@ -330,6 +333,28 @@ class ShardedEmbedding:
     def _mesh_args(self):
         return (self.mesh, self.axis) if self.axis else (None, None)
 
+    def _lookup_rows(self, ids, cap):
+        """The lookup's program (counted by mx.perf under the
+        ``embedding`` family): ``(unique ids, their rows, the rows of
+        every id)``."""
+        uniq, inv = dedup_ids(ids, cap, self.num_rows)
+        rows = lookup_unique(self.table, uniq, *self._mesh_args())
+        out = _take_fill(rows, inv, cap, ids.numel()).reshape(
+            tuple(ids.shape) + (self.dim,))
+        return uniq, rows, out
+
+    def _update_rows(self, ids, grad, cap, lr, wd):
+        """The update's program (counted by mx.perf under the
+        ``embedding`` family)."""
+        uniq, inv = dedup_ids(ids, cap, self.num_rows)
+        gsum = torch.zeros((cap + 1, self.dim), dtype=grad.dtype,
+                           device=grad.device)
+        # ids the cap cut land in the extra row, which is dropped
+        gsum.index_add_(0, inv.clamp(max=cap), grad.reshape(-1, self.dim))
+        update_unique(self.optimizer, self.table, self.state, uniq,
+                      gsum[:cap].to(self.table.dtype), lr, wd, self._t,
+                      *self._mesh_args())
+
     def lookup(self, ids):
         """Rows for an integer id batch: ``[*ids.shape, dim]``; ids
         ``>= num_rows`` (the pad sentinel) give zero rows.  Runs in an
@@ -342,10 +367,11 @@ class ShardedEmbedding:
         cap_stats = _numerics.should_capture("embedding")
         with _tracing.span("embedding.lookup", cat="embedding"):
             t0 = _time.perf_counter()
-            uniq, inv = dedup_ids(ids, cap, self.num_rows)
-            rows = lookup_unique(self.table, uniq, *self._mesh_args())
-            out = _take_fill(rows, inv, cap, ids.numel()).reshape(
-                tuple(ids.shape) + (self.dim,))
+            if self._lookup_prog is None:
+                from .. import perf as _perf
+                self._lookup_prog = _perf.wrap(
+                    self._lookup_rows, "embedding", "lookup/%x" % id(self))
+            uniq, rows, out = self._lookup_prog(ids, cap)
             n_unique = int((uniq < self.num_rows).sum())
             _telemetry.timer("embedding.lookup_ms").observe(
                 (_time.perf_counter() - t0) * 1000.0)
@@ -368,14 +394,10 @@ class ShardedEmbedding:
         self._t += 1
         cap = unique_capacity(max(int(ids.numel()), 1))
         with _tracing.span("embedding.update", cat="embedding"):
-            uniq, inv = dedup_ids(ids, cap, self.num_rows)
-            gsum = torch.zeros((cap + 1, self.dim), dtype=grad.dtype,
-                               device=grad.device)
-            # ids the cap cut land in the extra row, which is dropped
-            gsum.index_add_(0, inv.clamp(max=cap),
-                            grad.reshape(-1, self.dim))
-            update_unique(self.optimizer, self.table, self.state, uniq,
-                          gsum[:cap].to(self.table.dtype), lr, wd, self._t,
-                          *self._mesh_args())
+            if self._update_prog is None:
+                from .. import perf as _perf
+                self._update_prog = _perf.wrap(
+                    self._update_rows, "embedding", "update/%x" % id(self))
+            self._update_prog(ids, grad, cap, lr, wd)
         _telemetry.counter("embedding.rows_touched").inc(cap)
         return self.table

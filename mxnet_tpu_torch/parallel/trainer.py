@@ -167,6 +167,15 @@ def _div(x, d):
     return x / torch.full((), float(d), dtype=x.dtype, device=x.device)
 
 
+def _step_signature(args, kwargs):
+    """mx.perf's signature of an SPMDTrainer step call ``(data, label, t,
+    lrs, wds, pad, compress, stats)``: the batch's shapes, whether the
+    step compresses and whether it captures statistics."""
+    from .. import perf as _perf
+    return (_perf.shape_key(args[:2]), bool(args[6]),
+            args[7] is not None or kwargs.get("stats") is not None)
+
+
 class SPMDTrainer:
     """Fused-step trainer for a Gluon block on a mesh.
 
@@ -565,7 +574,15 @@ class SPMDTrainer:
                 _telemetry.counter("embedding.rows_touched").inc(rows)
             return loss, word
 
-        return step
+        from .. import perf as _perf
+        # mx.perf counts the step at its first call per signature and
+        # feeds the spmd source's MFU (the dense and the sparse step as
+        # the reference registers them).  The signature is the batch's
+        # shapes and the two flags that change what runs: the per-tensor
+        # lr/wd tuples and the trainer's state decide no shape
+        return _perf.wrap(step, "spmd", "%s/%x" % (
+            "sparse" if routed else "dense", id(self)), source="spmd",
+            signature=_step_signature)
 
     def _hyper(self, lr_scale=1.0):
         """Per-tensor lr and wd for the current ``num_update`` as f32

@@ -42,9 +42,17 @@ max(amax, 1e-12)`` (a division between tensors: the card divides by a
 Python scalar as a product with its reciprocal), then ``round(x * s)``
 (half to even) and ``clip(-127, 127)``.
 
-The reference's drift-monitoring stats twin needs the numerics plane,
-which is not ported: artifacts carry ``stats_sites: []`` and
-``quant.drift_every`` > 0 raises at ``Server.register``.
+* **Stats twin** — the drift probe's program.  ``export_quantized``
+  names the int8 sites in ``stats_sites`` (graph order) and writes
+  ``<prefix>-stats.json`` (:data:`STATS_TWIN_FORMAT`): the port's
+  counterpart of the reference's ``<prefix>-stats.stablehlo``.  It names
+  the sites; :func:`stats_twin` builds, from the artifact's own graph,
+  the float graph up to each site's input (its heads are the sites' data
+  inputs, the ops f32 over the dequantized weights) and returns each
+  input's runtime ``|max|``.  ``serving.Server`` runs it on every
+  ``quant.drift_every``-th quantized dispatch and feeds
+  ``numerics.update_quant_drift``.  An artifact with no twin file serves
+  without sampling.
 
 Knobs: ``quant.calib_mode``, ``quant.calib_bins``, ``quant.error_budget``.
 """
@@ -63,13 +71,17 @@ from .ops.contrib import _f32, data_scale, quant_scale, to_int8
 __all__ = ["Calibration", "QuantizationError", "calibrate",
            "export_quantized", "quantized_error", "load_quantized",
            "quantize_rows", "dequantize_rows", "quantize_weight_host",
-           "QUANTIZABLE_OPS", "SCALE_SUFFIX"]
+           "stats_twin", "STATS_TWIN_FORMAT", "QUANTIZABLE_OPS",
+           "SCALE_SUFFIX"]
 
 #: op types the recolor transform understands
 QUANTIZABLE_OPS = ("FullyConnected", "Convolution")
 
 #: npz/meta key suffix of a quantized weight's per-channel scales
 SCALE_SUFFIX = "::scale"
+
+#: the ``format`` of a ``<prefix>-stats.json`` stats twin
+STATS_TWIN_FORMAT = "mxnet_tpu_torch.stats_twin/1"
 
 #: per-site cap on the |activation| samples kept a calibration batch (a
 #: strided subsample, not a truncation)
@@ -631,15 +643,69 @@ def export_quantized(block, prefix, calibration, excluded=(),
         "param_names": names + scale_names,
         "quantized": True,
         "quantized_params": qnames,
-        "stats_sites": [],
+        "stats_sites": [name for name, _ in _twin_sites(
+            graph, {"excluded": sorted(excluded),
+                    "calibration": calibration.to_dict()})],
         "excluded": sorted(excluded),
         "measured_error": round(measured, 6),
         "error_budget": error_budget,
         "calibration": calibration.to_dict(),
     })
     paths = _deploy._write_oneshot(prefix, graph, meta, arrays)
+    if meta["stats_sites"]:
+        from .resilience import atomic_write
+        stats_path = prefix + "-stats.json"
+        with atomic_write(stats_path, "w") as f:
+            json.dump({"format": STATS_TWIN_FORMAT,
+                       "sites": meta["stats_sites"]}, f, indent=1)
+        paths = list(paths) + [stats_path]
     _telemetry.counter("quantization.exports").inc()
     return paths
+
+
+def _twin_sites(graph, meta):
+    """The int8 sites of an artifact in graph order: ``[(name, node)]``
+    for every site that is not excluded and has a threshold."""
+    cal = meta.get("calibration") or {}
+    thresholds = cal.get("thresholds") or {}
+    excluded = frozenset(meta.get("excluded") or ())
+    return [(name, node) for name, node, _ in graph_sites(graph)
+            if name not in excluded and name.rsplit("_", 1)[0]
+            not in excluded and name in thresholds]
+
+
+def stats_twin(prefix, graph, meta):
+    """The stats twin of a loaded v3 artifact, or None when the artifact
+    ships none (``<prefix>-stats.json`` absent, or naming no site).
+    Returns ``(sites, fn)``: ``fn(env) -> [S] f32`` evaluates the float
+    graph up to each site's data input (``env`` maps the graph's
+    variables, the input among them, to tensors: the predictor's
+    dequantized params) and returns each input's ``|max|``, in
+    ``sites`` order."""
+    import os
+    from .symbol.symbol import Group, _eval_symbol
+    path = prefix + "-stats.json"
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        twin = json.load(f)
+    if twin.get("format") != STATS_TWIN_FORMAT:
+        raise QuantizationError("%s: not a stats twin (format %r)"
+                                % (path, twin.get("format")))
+    by_name = dict(_twin_sites(graph, meta))
+    sites = list(twin.get("sites") or ())
+    missing = [s for s in sites if s not in by_name]
+    if missing:
+        raise QuantizationError("%s names sites the graph does not run "
+                                "int8: %s" % (path, missing))
+    if not sites:
+        return None
+    heads = Group([by_name[s].inputs[0] for s in sites])
+
+    def fn(env):
+        outs = _eval_symbol(heads, env, False)
+        return torch.stack([o.float().abs().amax() for o in outs])
+    return sites, fn
 
 
 def load_quantized(prefix, device=None):

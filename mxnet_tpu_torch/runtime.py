@@ -14,8 +14,9 @@ eagerly, so ``'scan'`` and ``'unroll'`` run the same Python loop over
 the layers: the knob is validated and kept (scripts set it, and
 ``stack_candidates`` is the reference's grid), but it changes nothing.
 ``runtime.remat`` wraps each layer in a checkpoint (``checkpoint_policy``).
-The reference's measured pick (``autotune.stack_pick``) is not ported:
-``stack_tuning`` reads the knobs only.
+While both knobs sit at their defaults, ``stack_tuning`` applies the
+measured pick of ``autotune.search_stack`` (``autotune.stack_pick``), as
+the reference does; an explicit knob always wins.
 """
 from __future__ import annotations
 
@@ -107,9 +108,14 @@ def stack_candidates():
 
 
 def stack_tuning():
-    """The active ``(mode, remat)`` pair from the knobs
-    ``runtime.stack_mode`` and ``runtime.remat``; a bad value (from the
-    environment: ``set`` refuses one) raises ValueError."""
+    """The active ``(mode, remat)`` pair: the measured pick
+    (``autotune.stack_pick``) while both knobs ``runtime.stack_mode`` and
+    ``runtime.remat`` sit at their defaults, else the knobs; a bad value
+    (from the environment: ``set`` refuses one) raises ValueError."""
+    from . import autotune as _autotune
+    pick = _autotune.stack_pick()
+    if pick is not None:
+        return pick
     mode = str(_config.get("runtime.stack_mode")).strip().lower()
     remat = str(_config.get("runtime.remat")).strip().lower()
     if mode not in _MODES:

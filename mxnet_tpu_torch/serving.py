@@ -58,16 +58,38 @@ with the same admission, deadline and breaker semantics.
 
 Telemetry: ``serving.requests``, ``batch_dispatches``, ``compiles``,
 ``shed_requests[.model]``, ``deadline_exceeded[.model]``,
-``breaker_open[.model]``, ``batcher_crashes``, ``quantized_dispatches``
-counters; ``serving.breaker_state.<model>`` and ``serving.pending``
-gauges; ``serving.queue_delay_ms``, ``batch_fill``, ``dispatch_ms``,
-``request_ms`` timers.
+``breaker_open[.model]``, ``batcher_crashes``, ``quantized_dispatches``,
+``drift_samples`` counters; ``serving.breaker_state.<model>``,
+``serving.pending``, ``serving.flops_per_request.<model>`` and
+``serving.bytes_per_request.<model>`` gauges; ``serving.queue_delay_ms``,
+``batch_fill``, ``dispatch_ms``, ``request_ms``, ``drift_ms`` timers.
 
-Not ported yet (slice 15 part 2): the quantization drift twin
-(``quant.drift_every`` > 0 raises at ``register``), the watchdog stall
-probe, the ``serving.*``
-spans and the access log, and a persistent compile cache (there is
-nothing to cache until the shapes run as CUDA graphs).
+Observability (``mx.obs``, ``mx.tracing``, ``mx.perf``):
+
+* **Spans** — ``serving.compile`` around each warm-up, ``serving.submit``
+  around each submit (its ``trace_id`` is the request's id),
+  ``serving.dispatch`` around each batch's run.
+* **Cost** — each warmed ``(model, bucket)`` runs once under
+  ``perf.cost_analysis`` and registers as ``serving/<model>/b<bucket>``;
+  the largest bucket's per-row FLOPs and bytes set the
+  ``serving.flops_per_request`` / ``bytes_per_request`` gauges and each
+  ok access record's ``flops``.
+* **Access log** — one ``obs.log_access`` record per request at its
+  terminal outcome (ok / shed / deadline / breaker / error).
+* **Health and stalls** — ``start`` registers :meth:`Server._health` on
+  ``obs`` (``/healthz``) and :meth:`Server._stall_probe` on the watchdog;
+  ``stop`` takes them off.  With the watchdog armed
+  (``tracing.watchdog``), a batcher or engine whose queue waits past
+  that deadline with no progress turns ``/healthz`` unhealthy
+  (``batcher_stalled`` / ``engine_stalled:<model>``) until it moves.
+* **Drift** — a quantized model whose artifact ships a stats twin
+  (``quantization.stats_twin``) runs it on every
+  ``quant.drift_every``-th dispatched batch and passes the site amaxes
+  to ``numerics.update_quant_drift``; an artifact without one serves
+  without sampling.
+
+Not ported: a persistent compile cache (there is nothing to cache until
+the shapes run as CUDA graphs).
 
 Knobs: ``serving.max_batch``, ``serving.max_queue_delay_ms``,
 ``serving.max_pending``, ``serving.default_deadline_ms``,
@@ -88,7 +110,9 @@ import torch
 
 from . import config as _config
 from . import io as _io
+from . import obs as _obs
 from . import telemetry as _telemetry
+from . import tracing as _tracing
 
 __all__ = ["Server", "ServingError", "ServerOverloadedError",
            "DeadlineExceededError", "CircuitOpenError", "load_server"]
@@ -127,13 +151,31 @@ class _BatcherCrashError(OSError):
     restart backoff and bounds the restart budget."""
 
 
+def _access_outcome(exc):
+    """The access-log outcome of a request-terminal exception."""
+    if isinstance(exc, CircuitOpenError):
+        return "breaker"
+    if isinstance(exc, DeadlineExceededError):
+        return "deadline"
+    if isinstance(exc, ServerOverloadedError):
+        return "shed"
+    return "error"
+
+
+def _err(exc):
+    return "%s: %s" % (type(exc).__name__, exc)
+
+
 class _Request:
     """One caller request: host rows, the future its output rows resolve,
-    the submit time and an optional absolute deadline."""
+    the submit time, an optional absolute deadline and the submit span's
+    trace id (the access record's request id)."""
 
-    __slots__ = ("model", "data", "rows", "future", "t_submit", "deadline")
+    __slots__ = ("model", "data", "rows", "future", "t_submit", "deadline",
+                 "trace_id")
 
-    def __init__(self, model, data, future, deadline_ms=0.0):
+    def __init__(self, model, data, future, deadline_ms=0.0,
+                 trace_id=None):
         self.model = model
         self.data = data
         self.rows = int(data.shape[0])
@@ -141,6 +183,7 @@ class _Request:
         self.t_submit = _time.perf_counter()
         self.deadline = (self.t_submit + float(deadline_ms) * 1e-3) \
             if deadline_ms and deadline_ms > 0 else None
+        self.trace_id = trace_id
 
     def expired(self, now=None):
         if self.deadline is None:
@@ -239,7 +282,8 @@ class _ModelEntry:
 
     __slots__ = ("name", "prefix", "predictor", "buckets", "warmed",
                  "item_shape", "in_dtype", "breaker", "shed",
-                 "deadline_exceeded", "quantized")
+                 "deadline_exceeded", "quantized", "cost_per_item",
+                 "drift_call", "drift_sites", "drift_count", "drift_ewma")
 
     def __init__(self, name, prefix, predictor, buckets):
         self.name = name
@@ -255,6 +299,14 @@ class _ModelEntry:
         self.breaker = None   # assigned by Server.register
         self.shed = 0
         self.deadline_exceeded = 0
+        # per-row cost of the largest warmed bucket (mx.perf)
+        self.cost_per_item = None
+        # the drift probe: the stats twin, loaded at first use (False: the
+        # artifact ships none)
+        self.drift_call = None
+        self.drift_sites = tuple(predictor.meta.get("stats_sites") or ())
+        self.drift_count = 0
+        self.drift_ewma = {}
 
     @property
     def capacity(self):
@@ -309,6 +361,8 @@ class Server:
         self._batcher_dead = None        # guarded-by: _cond
         self._started = False            # guarded-by: _cond
         self._stopping = False           # guarded-by: _cond
+        self._last_dispatch_done = _time.perf_counter()  # guarded-by: _cond
+        self._probe_name = "serving.server.%x" % id(self)
 
     # ------------------------------------------------------------ models
     def _policy_buckets(self, cap):
@@ -339,11 +393,6 @@ class Server:
                     "supported — KV quantisation is chosen at EXPORT time "
                     "(export_generation(..., kv_quantized=True))" % (name,))
             return self._register_generation(name, prefix)
-        if quantized and int(_config.get("quant.drift_every") or 0) > 0:
-            raise NotImplementedError(
-                "quant.drift_every > 0: the quantization drift twin is "
-                "ported with the serving side of observability (slice 15 "
-                "part 2); set the knob to 0 to serve int8 models")
         predictor = _deploy.load_model(prefix, quantized=quantized,
                                        device=self.device)
         if predictor._params is None:
@@ -453,17 +502,89 @@ class Server:
     def _warm(self, entry, bucket):
         """Run the program once at ``bucket`` rows (library handles, cuDNN
         algorithm choice, the allocator's pool): the port's counterpart of
-        the reference's per-bucket compile."""
+        the reference's per-bucket compile.  The run is counted by
+        ``perf.cost_analysis`` and registered as
+        ``serving/<model>/b<bucket>``."""
+        from . import perf as _perf
         pred = entry.predictor
         t0 = _time.perf_counter()
-        pred.run(torch.from_numpy(_np.zeros(
-            (bucket,) + entry.item_shape, entry.in_dtype)).to(pred.device))
-        if pred.device.type == "cuda":
-            torch.cuda.synchronize(pred.device)
+        x = torch.from_numpy(_np.zeros(
+            (bucket,) + entry.item_shape, entry.in_dtype)).to(pred.device)
+        with _tracing.span("serving.compile", cat="serving",
+                           model=entry.name, bucket=bucket):
+            _, cost = _perf.cost_analysis(pred.run, x)
+            if pred.device.type == "cuda":
+                torch.cuda.synchronize(pred.device)
+        t1 = _time.perf_counter()
         entry.warmed.add(bucket)
         _telemetry.counter("serving.compiles").inc()
-        _telemetry.timer("serving.compile_ms").observe(
+        _telemetry.timer("serving.compile_ms").observe((t1 - t0) * 1e3)
+        rec = _perf.register_compiled(
+            "serving", "%s/b%d" % (entry.name, bucket), cost,
+            phases_ms={"run_ms": (t1 - t0) * 1e3},
+            dtype="int8" if entry.quantized else str(entry.in_dtype))
+        if rec["flops"] > 0:
+            # per-request cost from the largest bucket warmed so far: its
+            # amortization is what a full batch achieves
+            prev = entry.cost_per_item
+            if prev is None or bucket >= prev["bucket"]:
+                entry.cost_per_item = {
+                    "flops": rec["flops"] / bucket,
+                    "bytes": rec["bytes_accessed"] / bucket,
+                    "bucket": bucket}
+                _telemetry.gauge(
+                    "serving.flops_per_request.%s" % entry.name).set(
+                    round(entry.cost_per_item["flops"], 1))
+                _telemetry.gauge(
+                    "serving.bytes_per_request.%s" % entry.name).set(
+                    round(entry.cost_per_item["bytes"], 1))
+
+    # ------------------------------------------------- quantization drift
+    def _load_drift_twin(self, entry):
+        """The artifact's stats twin as ``fn(x) -> [S]`` over the entry's
+        staged params, or False when the artifact ships none."""
+        from .quantization import stats_twin
+        pred = entry.predictor
+        twin = stats_twin(entry.prefix, pred._graph, pred.meta)
+        if twin is None:
+            return False
+        sites, fn = twin
+        entry.drift_sites = tuple(sites)
+
+        def call(x):
+            env = dict(pred._params)
+            env[pred._input] = x
+            with torch.inference_mode():
+                return fn(env)
+        return call
+
+    def _maybe_sample_drift(self, entry, x):
+        """Every ``quant.drift_every``-th quantized dispatch, run the
+        dispatched batch ``x`` (a device tensor) through the artifact's
+        stats twin and fold the per-site runtime amax into the drift EWMA
+        (``quant.drift_ratio.<model>.<site>`` gauges, ``quant_drift``
+        JSONL events past ``quant.drift_threshold``).  Off (0) by
+        default: then this costs one knob read."""
+        every = int(_config.get("quant.drift_every") or 0)
+        if every <= 0 or not entry.drift_sites:
+            return
+        entry.drift_count += 1
+        if entry.drift_count % every:
+            return
+        if entry.drift_call is None:
+            entry.drift_call = self._load_drift_twin(entry)
+        if entry.drift_call is False:
+            return
+        from . import numerics as _numerics
+        t0 = _time.perf_counter()
+        amaxes = entry.drift_call(x).cpu().numpy()
+        _telemetry.counter("serving.drift_samples").inc()
+        _telemetry.timer("serving.drift_ms").observe(
             (_time.perf_counter() - t0) * 1e3)
+        cal = entry.predictor.meta.get("calibration") or {}
+        _numerics.update_quant_drift(entry.name, entry.drift_sites, amaxes,
+                                     cal.get("thresholds") or {},
+                                     entry.drift_ewma)
 
     # --------------------------------------------------------- lifecycle
     def start(self):
@@ -494,10 +615,15 @@ class Server:
             self._stopping = False
             self._batcher_dead = None
             self._started = True
+            self._last_dispatch_done = _time.perf_counter()
+            # wrap_context: dispatch spans keep the starter's trace
+            # parentage across the thread hop
             self._thread = threading.Thread(
-                target=self._supervise, daemon=True,
+                target=_tracing.wrap_context(self._supervise), daemon=True,
                 name="mx-serving-batcher")
         self._thread.start()
+        _tracing.register_stall_probe(self._probe_name, self._stall_probe)
+        _obs.register_health_source(self._probe_name, self._health)
         return self
 
     def stop(self, drain=True, timeout_s=30.0):
@@ -522,6 +648,9 @@ class Server:
             if not req.future.done():
                 req.future.set_exception(
                     ServingError("server stopped without drain"))
+                _obs.log_access(req.model, "error", request_id=req.trace_id,
+                                error="ServingError: server stopped "
+                                "without drain")
         thread = self._thread
         if thread is not None:
             thread.join(timeout=timeout_s)
@@ -532,6 +661,8 @@ class Server:
                     "serving: batcher did not drain within %.1fs and was "
                     "leaked; start() will refuse until it exits",
                     timeout_s)
+        _tracing.unregister_stall_probe(self._probe_name)
+        _obs.unregister_health_source(self._probe_name)
         with self._cond:
             engines = list(self._generation.values())
         for engine in engines:
@@ -578,6 +709,13 @@ class Server:
         dispatched.  Raises :class:`ServerOverloadedError` at
         ``serving.max_pending`` and :class:`CircuitOpenError` while the
         model's breaker is open."""
+        with _tracing.span("serving.submit", cat="serving",
+                           model=name) as sp:
+            # the submit span's trace id rides the request so its access
+            # record joins the Chrome trace (None while tracing is off)
+            return self._submit(name, data, deadline_ms, sp.trace_id)
+
+    def _submit(self, name, data, deadline_ms, trace_id):
         from .ndarray.ndarray import NDArray
         entry = self._entry(name)
         if isinstance(data, NDArray):
@@ -591,6 +729,7 @@ class Server:
         breaker = entry.breaker
         if breaker is not None and breaker.rejects_submit():
             _telemetry.counter("serving.breaker_rejected").inc()
+            _obs.log_access(name, "breaker", request_id=trace_id)
             raise CircuitOpenError(
                 "model %r circuit breaker is OPEN after %d consecutive "
                 "dispatch failure(s); failing fast for %.0fms more — other "
@@ -601,14 +740,17 @@ class Server:
         deadline_ms = float(deadline_ms or 0.0)
         cap = entry.capacity
         if arr.shape[0] <= cap:
-            req = _Request(name, arr, Future(), deadline_ms)
+            req = _Request(name, arr, Future(), deadline_ms,
+                           trace_id=trace_id)
             fut = self._enqueue(req)
             fut._mx_requests = (req,)
             return fut
-        # oversized: cap-row chunks, concatenated again
+        # oversized: cap-row chunks, concatenated again (each admitted
+        # chunk gets its own access record, all under the submit's id)
         chunks = [arr[i:i + cap] for i in range(0, arr.shape[0], cap)]
         _telemetry.counter("serving.request_chunks").inc(len(chunks))
-        reqs = [_Request(name, c, Future(), deadline_ms) for c in chunks]
+        reqs = [_Request(name, c, Future(), deadline_ms, trace_id=trace_id)
+                for c in chunks]
         enqueued = []
         try:
             for r in reqs:
@@ -668,6 +810,7 @@ class Server:
         if shed:
             _telemetry.counter("serving.shed_requests").inc()
             _telemetry.counter("serving.shed_requests.%s" % req.model).inc()
+            _obs.log_access(req.model, "shed", request_id=req.trace_id)
             raise ServerOverloadedError(
                 "server overloaded: %d request(s) already pending "
                 "(serving.max_pending=%d); request shed — back off and "
@@ -688,9 +831,16 @@ class Server:
                 removed.append(req)
             if removed:
                 _telemetry.gauge("serving.pending").set(len(self._pending))
+        outcome = _access_outcome(exc)
         for req in removed:
             if not req.future.done():
                 req.future.set_exception(exc)
+                if _obs.access_log_enabled():
+                    _obs.log_access(
+                        req.model, outcome, request_id=req.trace_id,
+                        queue_ms=(_time.perf_counter() - req.t_submit)
+                        * 1e3,
+                        error=_err(exc) if outcome == "error" else None)
         return removed
 
     def predict(self, name, data, timeout=None, deadline_ms=None):
@@ -721,9 +871,11 @@ class Server:
         included when hit).  ``temperature`` > 0 samples with optional
         ``top_k`` / ``top_p`` under a per-request ``seed``: a fixed seed
         replays one stream.  ``deadline_ms`` bounds QUEUE time."""
-        return self._engine(name).submit(
-            prompt, max_new_tokens, eos_id=eos_id, deadline_ms=deadline_ms,
-            temperature=temperature, top_k=top_k, top_p=top_p, seed=seed)
+        with _tracing.span("serving.submit", cat="serving", model=name):
+            return self._engine(name).submit(
+                prompt, max_new_tokens, eos_id=eos_id,
+                deadline_ms=deadline_ms, temperature=temperature,
+                top_k=top_k, top_p=top_p, seed=seed)
 
     def generate(self, name, prompt, max_new_tokens, eos_id=None,
                  timeout=None, deadline_ms=None, temperature=0.0,
@@ -780,6 +932,8 @@ class Server:
                 req.future.set_exception(DeadlineExceededError(
                     "request for model %r %s (queued %.1fms, deadline "
                     "passed)" % (req.model, reason, queued_ms)))
+                _obs.log_access(req.model, "deadline",
+                                request_id=req.trace_id, queue_ms=queued_ms)
 
     def _supervise(self):
         """The batcher thread: ``_loop`` under the ``resilience`` retry
@@ -801,6 +955,9 @@ class Server:
             for req in pending:
                 if not req.future.done():
                     req.future.set_exception(cause)
+                    _obs.log_access(req.model, "error",
+                                    request_id=req.trace_id,
+                                    error=_err(cause))
             _LOG.error(
                 "serving: batcher crashed and exhausted its restart "
                 "budget (%s: %s); all submits now fail fast — recreate "
@@ -822,6 +979,8 @@ class Server:
             for req in pending:
                 if req is not None and not req.future.done():
                     req.future.set_exception(exc)
+                    _obs.log_access(req.model, "error",
+                                    request_id=req.trace_id, error=_err(exc))
             _LOG.warning(
                 "serving: batcher thread crashed (%s: %s); %d pending "
                 "future(s) failed with the causal exception; restarting "
@@ -842,8 +1001,11 @@ class Server:
                 _telemetry.gauge("serving.pending").set(len(self._pending))
                 entry = self._models.get(first.model)
             if entry is None:  # evicted with requests in flight
-                first.future.set_exception(ServingError(
-                    "model %r was evicted while queued" % (first.model,)))
+                exc = ServingError(
+                    "model %r was evicted while queued" % (first.model,))
+                first.future.set_exception(exc)
+                _obs.log_access(first.model, "error",
+                                request_id=first.trace_id, error=_err(exc))
                 continue
             if first.expired():
                 self._expire([first])
@@ -902,6 +1064,11 @@ class Server:
             for req in batch:
                 if not req.future.done():
                     req.future.set_exception(exc)
+                    _obs.log_access(req.model, "breaker",
+                                    request_id=req.trace_id,
+                                    queue_ms=(t0 - req.t_submit) * 1e3)
+            with self._cond:
+                self._last_dispatch_done = _time.perf_counter()
             return
         try:
             if _resilience.faults_active("serving_slow") \
@@ -915,9 +1082,12 @@ class Server:
             if bucket not in entry.warmed:
                 # a fixed-batch artifact or a bucket registered late
                 self._warm(entry, bucket)
-            x = torch.from_numpy(_np.ascontiguousarray(padded)).to(
-                pred.device)
-            host = pred.run(x).cpu().numpy()
+            with _tracing.span("serving.dispatch", cat="serving",
+                               model=entry.name, requests=len(batch),
+                               rows=rows, bucket=bucket):
+                x = torch.from_numpy(_np.ascontiguousarray(padded)).to(
+                    pred.device)
+                host = pred.run(x).cpu().numpy()
         except BaseException as exc:  # noqa: BLE001 — fail the batch's
             # futures (and feed the breaker), never the batcher thread
             _telemetry.counter("serving.dispatch_errors").inc()
@@ -926,28 +1096,88 @@ class Server:
             for req in batch:
                 if not req.future.done():
                     req.future.set_exception(exc)
+                    _obs.log_access(req.model, "error",
+                                    request_id=req.trace_id,
+                                    queue_ms=(t0 - req.t_submit) * 1e3,
+                                    error=_err(exc))
+            with self._cond:
+                self._last_dispatch_done = _time.perf_counter()
             return
         if breaker is not None:
             breaker.record_success()
         t1 = _time.perf_counter()
+        access_on = _obs.access_log_enabled()
+        if access_on:
+            row_nbytes = host.nbytes // max(1, host.shape[0])
+            cost = entry.cost_per_item
         ofs = 0
         for req in batch:
             if not req.future.done():
                 req.future.set_result(host[ofs:ofs + req.rows])
+                if access_on:
+                    _obs.log_access(
+                        req.model, "ok", request_id=req.trace_id,
+                        queue_ms=(t0 - req.t_submit) * 1e3,
+                        dispatch_ms=(t1 - t0) * 1e3,
+                        bytes=req.rows * row_nbytes,
+                        flops=int(req.rows * cost["flops"])
+                        if cost is not None else None)
             ofs += req.rows
             _telemetry.timer("serving.request_ms").observe(
                 (t1 - req.t_submit) * 1e3)
         _telemetry.counter("serving.batch_dispatches").inc()
         if entry.quantized:
             _telemetry.counter("serving.quantized_dispatches").inc()
+            try:
+                self._maybe_sample_drift(entry, x)
+            except Exception as exc:  # noqa: BLE001 — the probe is
+                # observability; it never fails a served batch
+                _LOG.warning("serving: drift probe failed for %r: %s",
+                             entry.name, _err(exc))
         _telemetry.timer("serving.batch_fill").observe(rows / bucket)
         _telemetry.timer("serving.dispatch_ms").observe((t1 - t0) * 1e3)
+        with self._cond:
+            self._last_dispatch_done = t1
+
+    # ---------------------------------------------------------- watchdog
+    def _stall_probe(self, interval_s):
+        """The watchdog's stall probe (``tracing.register_stall_probe``):
+        when the queue is not empty but no dispatch has completed within
+        ``interval_s``, a snapshot of the open requests, the breakers and
+        the batcher's liveness; None while it moves."""
+        now = _time.perf_counter()
+        with self._cond:
+            if not self._pending:
+                return None
+            stalled_s = now - self._last_dispatch_done
+            if stalled_s < interval_s:
+                return None
+            open_reqs = [
+                {"model": r.model, "rows": r.rows,
+                 "queued_s": round(now - r.t_submit, 4),
+                 "deadline_in_s": round(r.deadline - now, 4)
+                 if r.deadline is not None else None}
+                for r in list(self._pending)[:16]]
+            pending = len(self._pending)
+            breakers = {name: e.breaker.state if e.breaker is not None
+                        else "closed"
+                        for name, e in self._models.items()}
+            thread = self._thread
+        return {"pending": pending,
+                "since_last_dispatch_s": round(stalled_s, 4),
+                "batcher_alive": bool(thread is not None
+                                      and thread.is_alive()),
+                "open_requests": open_reqs,
+                "breakers": breakers}
 
     # ------------------------------------------------------------ health
     def _health(self):
-        """The server's health: batcher liveness, per-model breaker
-        state, per-engine liveness and KV-pool saturation (reported, not
-        counted as unhealthy)."""
+        """``mx.obs``'s health source (``/healthz``, registered at
+        :meth:`start`): batcher liveness, per-model breaker state,
+        per-engine liveness and KV-pool saturation (reported, not counted
+        as unhealthy), and, while the watchdog is armed
+        (``tracing.watchdog``), a batcher or engine stalled past its
+        deadline (the stall probes' view)."""
         with self._cond:
             breakers = {name: e.breaker.state if e.breaker is not None
                         else "closed"
@@ -963,6 +1193,9 @@ class Server:
         batcher_alive = bool(thread is not None and thread.is_alive())
         if started and not batcher_alive:
             reasons.append("batcher_thread_dead")
+        stall_s = float(_config.get("tracing.watchdog") or 0.0)
+        if started and stall_s > 0 and self._stall_probe(stall_s):
+            reasons.append("batcher_stalled")
         for name, state in breakers.items():
             if state == "open":
                 reasons.append("breaker_open:%s" % name)
@@ -971,6 +1204,8 @@ class Server:
             st = eng.stats()
             if started and not st["engine_alive"]:
                 reasons.append("engine_dead:%s" % name)
+            if started and stall_s > 0 and eng._stall_probe(stall_s):
+                reasons.append("engine_stalled:%s" % name)
             if st["breaker"] == "open":
                 reasons.append("breaker_open:%s" % name)
             generation[name] = {

@@ -836,6 +836,15 @@ def _grads(sym, env, wrt, cotangents=None, aux_updates=None,
     return [o.detach() for o in outs], res
 
 
+def _run_signature(args, kwargs):
+    """mx.perf's signature of a call of ``Executor.fused_step_fn``'s step
+    ``(feeds, opt_state, t, lrs, wds, stats=None, guard=...)``: whether
+    it captures statistics and whether it guards."""
+    stats = args[5] if len(args) > 5 else kwargs.get("stats")
+    return (stats is not None,
+            args[6] if len(args) > 6 else kwargs.get("guard"))
+
+
 class Executor:
     """A bound graph (reference ``include/mxnet/executor.h``):
     ``forward`` interprets it, ``backward`` takes the gradients of one
@@ -1066,6 +1075,14 @@ class Executor:
                                else v for n, v in aux_new.items()}
             return outs, aux_new, word
 
+        from .. import perf as _perf
+        # mx.perf counts the step at its first call per signature and
+        # feeds the module source's MFU; the cache is keyed by the feed's
+        # shapes already (feed_sig), so the signature is only the two
+        # keywords that change what runs (a capture step, the guard)
+        run = _perf.wrap(run, "module", "fused_step/%x/%d"
+                         % (id(self), len(self._fused_cache)),
+                         source="module", signature=_run_signature)
         self._fused_cache[key] = run
         _telemetry.counter("fused_compiles").inc()
         return run

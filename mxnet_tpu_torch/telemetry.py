@@ -26,6 +26,8 @@ Step-record schema::
      <float|null>, "compiles": <fused_compiles delta>, "host_syncs":
      <host_syncs delta>, "mem_bytes": <device watermark|null>,
      "shape": <batch shape|null>, "mesh": {axis: size}|null,
+     "flops": <float>, "mfu": <float> (only when an mx.perf program of
+     the source ran in the step),
      "error": "<ExcType: message>" (only on steps whose body raised)}
 
 ``mem_bytes`` is ``torch.cuda.max_memory_allocated`` on a card (null on
@@ -62,6 +64,11 @@ STEP_SOURCES = ("module", "spmd", "gluon")
 #: watchdog's liveness signal and the flight recorder's step feed.  A slot
 #: rather than an import so telemetry never depends on tracing.
 _TRACING_STEP_HOOK = None
+
+#: set by mx.perf at import: called as hook(source, step, wall_s) after
+#: every train step; returns extra step-record fields (flops/mfu) or
+#: None.  Same slot-not-import contract as the tracing hook above.
+_PERF_STEP_HOOK = None
 
 #: the dispatch counters live on this registry (profiler.counters() reads
 #: them back from here); listed so snapshots always carry all four even
@@ -445,6 +452,11 @@ class step_scope:
             # watchdog liveness + flight recorder: failures included, so a
             # crash-looping job is distinguishable from a hung one
             hook(self.source, idx, dt, error=error)
+        perf_hook = _PERF_STEP_HOOK
+        # runs with the sink off too: the live perf.mfu gauges (and the
+        # perf.profile cadence) do not depend on JSONL being written
+        perf_fields = (perf_hook(self.source, idx, dt)
+                       if perf_hook is not None else None)
         if self._before is None:
             return False
         # a FAILING step still leaves a JSONL record (with its error) — the
@@ -476,6 +488,10 @@ class step_scope:
             shape=list(self.shape) if self.shape else None,
             mesh=dict(self.mesh) if self.mesh else None,
         )
+        if perf_fields:
+            # achieved FLOPs and model-FLOPs utilization of this step, from
+            # the mx.perf program registry
+            fields.update(perf_fields)
         if error is not None:
             fields["error"] = error
         log_event("step", **fields)
@@ -540,3 +556,6 @@ configure_sink(_config.get("telemetry.sink"))
 # training-path import (io, module and kvstore import telemetry) activates
 # the tracing environment variables too
 from . import tracing as _tracing  # noqa: E402,F401
+
+# mx.perf installs the step hook and honors MXNET_TPU_PROFILE at import
+from . import perf as _perf  # noqa: E402,F401

@@ -915,6 +915,8 @@ def test_import_does_not_load_jax():
             "import mxnet_tpu_torch.telemetry, mxnet_tpu_torch.tracing; "
             "import mxnet_tpu_torch.profiler, mxnet_tpu_torch.numerics; "
             "import mxnet_tpu_torch.monitor, mxnet_tpu_torch.trace_merge; "
+            "import mxnet_tpu_torch.perf, mxnet_tpu_torch.autotune; "
+            "import mxnet_tpu_torch.obs; "
             "assert 'mxnet_tpu_torch.ops.contrib' in sys.modules; "
             "assert 'mxnet_tpu_torch.ops.contrib_extra' in sys.modules; "
             "assert 'mxnet_tpu_torch.gluon.data.dataloader' in sys.modules; "

@@ -15,6 +15,8 @@ import mxnet_tpu.models.ssd  # noqa: F401
 import mxnet_tpu.parallel  # noqa: F401
 import mxnet_tpu.numerics, mxnet_tpu.monitor, mxnet_tpu.tracing  # noqa: F401
 import mxnet_tpu.profiler, mxnet_tpu.telemetry  # noqa: F401
+import mxnet_tpu.perf, mxnet_tpu.autotune, mxnet_tpu.obs  # noqa: F401
+import mxnet_tpu.kernels  # noqa: F401
 import mxnet_tpu_torch as mt
 import mxnet_tpu_torch.models.ssd  # noqa: F401
 import mxnet_tpu_torch.gluon.model_zoo.model_store  # noqa: F401
@@ -120,6 +122,11 @@ UNPORTED_SURFACE = {
     "profiler": {},
     "numerics": {},
     "monitor": {},
+    # slice 15 part 2 (serving and cost observability)
+    "perf": {},
+    "autotune": {},
+    "obs": {},
+    "kernels": {},
 }
 
 

@@ -366,10 +366,17 @@ def test_quantized_model_beside_f32_in_one_server(models):
                                           f32.predict(x))
         assert telemetry.counter("serving.quantized_dispatches").value > q0
         assert srv.stats()["quantized"] == {"f": False, "q": True}
+        # quant.drift_every > 0 serves int8 models; an artifact with no
+        # stats twin (this one, carried from the reference) serves
+        # without sampling
         config.set("quant.drift_every", 2)
         try:
-            with pytest.raises(NotImplementedError, match="slice"):
-                srv.register("q2", models["q8"], quantized=True)
+            srv.register("q2", models["q8"], quantized=True)
+            d0 = telemetry.counter("serving.drift_samples").value
+            for x in xs:
+                np.testing.assert_array_equal(
+                    srv.predict("q2", x, timeout=10), q8.predict(x))
+            assert telemetry.counter("serving.drift_samples").value == d0
         finally:
             config.set("quant.drift_every", 0)
     finally:
